@@ -1,0 +1,64 @@
+"""Single-query slot attention: the serve decode step's attention core.
+
+Counterpart of ``apex_tpu/contrib/multihead_attn/decode_attention.py``
+(``gather_pages`` :72-85, ``reference_slot_decode_attention`` :88-136,
+``slot_decode_attention`` :144-230) for the 1-query ``[S, H, hd]`` form,
+dense and paged.
+
+``slot_decode_attention`` has no crossover: the kernel wrappers of
+``ops.decode_attn`` launch the hand kernel for a tensor on the card and
+run the plain version for a tensor on the CPU (``dispatch.backend(
+"reference")`` forces the plain version on the card). The TPU's measured
+crossover (``_decode_crossover.json``, ``decode_min_l``) is not read.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from apex_tpu_torch.ops.decode_attn import (decode_attention,
+                                            decode_attention_plain,
+                                            gather_pages,
+                                            paged_decode_attention,
+                                            paged_decode_attention_plain)
+
+__all__ = ["slot_decode_attention", "reference_slot_decode_attention",
+           "gather_pages"]
+
+
+def _one_query(q) -> None:
+    if q.dim() == 4:
+        raise NotImplementedError(
+            "the [S, Q, H, hd] multi-row form comes with speculative "
+            "decoding (ROADMAP.md Queue 1, slice 5)")
+
+
+def reference_slot_decode_attention(q, k, v, lengths, *,
+                                    scale: Optional[float] = None,
+                                    page_table=None):
+    """The plain version on any device: q [S, H, hd], k/v [S, H, L, hd]
+    (or page pools [P_phys, H, page, hd] with ``page_table`` i32 [S, P]),
+    lengths i32 [S]. The paged form gathers first and then runs the same
+    ops, so it is bitwise equal to the dense form over the same bytes."""
+    _one_query(q)
+    if page_table is not None:
+        return paged_decode_attention_plain(q, k, v, lengths, scale=scale,
+                                            page_table=page_table)
+    return decode_attention_plain(q, k, v, lengths, scale=scale)
+
+
+def slot_decode_attention(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, lengths: torch.Tensor, *,
+                          scale: Optional[float] = None,
+                          page_table=None) -> torch.Tensor:
+    """Single-query attention over the slot arena. q: [S, H, hd]; k/v:
+    [S, H, L, hd] (positions past each slot's length may hold garbage);
+    lengths: i32 [S]. With ``page_table`` (i32 [S, P]) k/v are page pools
+    ``[P_phys, H, page, hd]``. Returns [S, H, hd] in q's dtype."""
+    _one_query(q)
+    if page_table is not None:
+        return paged_decode_attention(q, k, v, lengths, scale=scale,
+                                      page_table=page_table)
+    return decode_attention(q, k, v, lengths, scale=scale)

@@ -1,0 +1,86 @@
+"""Self multihead attention — counterpart of
+``apex_tpu/contrib/multihead_attn/modules.py`` for what the serving model
+needs: the packed parameter layout and xavier init (:38-43, :211-236) and
+the causal forward without masks or dropout.
+
+Parameters keep the JAX layout ``[in, out]`` (``in_proj`` [E, 3E],
+``out_proj`` [E, E]) so ``x @ W`` is the same product in both packages.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from apex_tpu_torch.contrib.multihead_attn.flash_attention import (
+    reference_attention)
+
+__all__ = ["SelfMultiheadAttn"]
+
+
+def _xavier(generator: torch.Generator, shape) -> torch.Tensor:
+    """Xavier-uniform over (fan_in, fan_out) = (shape[0], shape[-1]),
+    drawn on the CPU from ``generator``."""
+    fan_in, fan_out = shape[0], shape[-1]
+    bound = (6.0 / (fan_in + fan_out)) ** 0.5
+    u = torch.rand(shape, generator=generator, dtype=torch.float32)
+    return u * (2 * bound) - bound
+
+
+def _split_heads(x, num_heads):
+    # [T, B, E] -> [B*H, T, E/H]
+    t, b, e = x.shape
+    return x.reshape(t, b * num_heads, e // num_heads).transpose(0, 1)
+
+
+def _merge_heads(x, b):
+    # [B*H, T, D] -> [T, B, H*D]
+    bh, t, d = x.shape
+    return x.transpose(0, 1).reshape(t, b, (bh // b) * d)
+
+
+@dataclasses.dataclass(frozen=True)
+class SelfMultiheadAttn:
+    """Self-attention with one packed [E, 3E] input projection. Only the
+    forms the serving model uses: ``bias`` on or off, ``causal``."""
+    embed_dim: int
+    num_heads: int
+    bias: bool = False
+    causal: bool = False
+
+    def __post_init__(self):
+        if self.embed_dim % self.num_heads:
+            raise ValueError("embed_dim must be divisible by num_heads")
+
+    @property
+    def head_dim(self) -> int:
+        return self.embed_dim // self.num_heads
+
+    def init(self, generator: torch.Generator) -> dict:
+        """Fresh fp32 parameters on the CPU (the caller moves them)."""
+        e = self.embed_dim
+        p = {"in_proj": _xavier(generator, (e, 3 * e)),
+             "out_proj": _xavier(generator, (e, e))}
+        if self.bias:
+            p["in_proj_bias"] = torch.zeros(3 * e)
+            p["out_proj_bias"] = torch.zeros(e)
+        return p
+
+    def apply(self, params: dict, query: torch.Tensor):
+        """query: [T, B, E] time-major. Returns (output [T, B, E], None)
+        like the JAX module."""
+        t, b, e = query.shape
+        qkv = query @ params["in_proj"]
+        if self.bias:
+            qkv = qkv + params["in_proj_bias"]
+        q, k, v = torch.split(qkv, e, dim=-1)
+        q, k, v = (_split_heads(a, self.num_heads) for a in (q, k, v))
+        out = reference_attention(q, k, v, causal=self.causal,
+                                  scale=1.0 / float(self.head_dim) ** 0.5)
+        out = _merge_heads(out, b) @ params["out_proj"]
+        if self.bias:
+            out = out + params["out_proj_bias"]
+        return out, None
+
+    __call__ = apply

@@ -1,0 +1,47 @@
+"""Parameter conversion from the JAX package.
+
+``params_from_jax`` takes ``apex_tpu``'s ``TransformerLM.init`` tree with
+every leaf already a numpy array (``jax.tree.map(np.asarray, params)``)
+and returns the same nested dict of torch tensors. The JAX ``[in, out]``
+weight layout is kept, so ``x @ W`` is the same product in both packages.
+Nothing here imports JAX.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from apex_tpu_torch._device import resolve_device
+
+__all__ = ["params_from_jax"]
+
+
+def _leaf(a, device: torch.device, dtype: Optional[torch.dtype]):
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        # ml_dtypes bfloat16 has no torch counterpart in from_numpy;
+        # widening to float32 is exact
+        t = torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    else:
+        t = torch.from_numpy(np.array(a))     # a writable copy
+    if dtype is not None and t.is_floating_point():
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def params_from_jax(tree: dict, *, device=None,
+                    dtype: Optional[torch.dtype] = None) -> dict:
+    """Nested dict of numpy arrays -> nested dict of tensors on ``device``
+    (the card unless ``device="cpu"`` is given). With ``dtype`` set,
+    floating leaves are cast to it; integer leaves keep their type."""
+    dev = resolve_device(device)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        return _leaf(node, dev, dtype)
+
+    return conv(tree)

@@ -1,0 +1,313 @@
+"""Transformer language model — counterpart of
+``apex_tpu/models/transformer.py`` for the serving path.
+
+Pre-LN decoder-only architecture::
+
+    x  = tok_emb + pos_emb
+    x += MHA(LN(x))            # causal
+    x += MLP(LN(x))            # GeLU (tanh form, as jax.nn.gelu)
+    logits = LN(x) @ tok_emb.T
+
+Ported: the config fields the serving path reads, ``init`` (same names
+and shapes, drawn from a ``torch.Generator``), ``apply`` (forward without
+dropout, remat, MoE or sequence parallelism), the KV-cache block stack
+``_cached_blocks``, ``_decode_one``, the fused slot-batched decode step
+``_decode_slots`` (1-query, dense and paged arenas), ``_prefill`` and
+greedy ``generate``. Parameters keep the JAX layout, weights ``[in, out]``,
+so ``x @ W`` is the same product in both packages.
+
+Every LayerNorm goes through ``normalization.fused_layer_norm_affine``
+(the LayerNorm kernel on the card) and the decode step's attention through
+``slot_decode_attention`` (the decode kernels on the card). Prefill
+attention is ``reference_attention``, plain PyTorch, as in the JAX
+package. The QKV, out-projection, MLP and head products are
+``torch.matmul``, as they were plain XLA dots there.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Union
+
+import torch
+import torch.nn.functional as F
+
+from apex_tpu_torch._device import resolve_device
+from apex_tpu_torch.contrib.multihead_attn.decode_attention import (
+    slot_decode_attention)
+from apex_tpu_torch.contrib.multihead_attn.flash_attention import (
+    reference_attention)
+from apex_tpu_torch.contrib.multihead_attn.modules import SelfMultiheadAttn
+from apex_tpu_torch.normalization import fused_layer_norm_affine
+
+__all__ = ["TransformerLM"]
+
+
+def _gelu(x):
+    # jax.nn.gelu defaults to the tanh approximation
+    return F.gelu(x, approximate="tanh")
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerLM:
+    vocab_size: int
+    max_seq_len: int = 2048
+    embed_dim: int = 512
+    num_heads: int = 8
+    num_layers: int = 6
+    ffn_mult: int = 4
+    # the parts of the JAX config this slice does not port; the
+    # constructor refuses them rather than running a different model
+    seq_axis: Optional[str] = None
+    moe_experts: int = 0
+    remat: bool = False
+    # where init() puts the parameters; None means the card
+    device: Union[str, torch.device, None] = None
+
+    def __post_init__(self):
+        if self.moe_experts > 0:
+            raise NotImplementedError(
+                "MoE layers are not ported yet (ROADMAP.md Queue 1, "
+                "slice 6: contrib/moe)")
+        if self.seq_axis is not None:
+            raise NotImplementedError(
+                "sequence parallelism is not ported yet (ROADMAP.md "
+                "Queue 1, slice 6: ring attention)")
+        if self.remat:
+            raise NotImplementedError(
+                "remat is a training option, not ported yet (ROADMAP.md "
+                "Queue 1, slice 4)")
+        if self.embed_dim % self.num_heads:
+            raise ValueError("embed_dim must be divisible by num_heads")
+        object.__setattr__(self, "device", resolve_device(self.device))
+
+    def _mha(self) -> SelfMultiheadAttn:
+        return SelfMultiheadAttn(self.embed_dim, self.num_heads, bias=True,
+                                 causal=True)
+
+    def init(self, generator: Union[torch.Generator, int] = 0, *,
+             dtype: torch.dtype = torch.float32) -> dict:
+        """Random parameters with the JAX names and shapes, drawn on the
+        CPU from ``generator`` (a ``torch.Generator`` or a seed) and moved
+        to ``self.device`` in ``dtype``. The draws differ from
+        ``jax.random``'s; to hold the two packages on the same weights,
+        convert the JAX tree with ``convert.params_from_jax``."""
+        if not isinstance(generator, torch.Generator):
+            generator = torch.Generator().manual_seed(int(generator))
+        e, v = self.embed_dim, self.vocab_size
+        scale = 0.02
+
+        def normal(*shape):
+            return torch.randn(shape, generator=generator) * scale
+
+        def ln():
+            return {"g": torch.ones(e), "b": torch.zeros(e)}
+
+        p = {"tok_emb": normal(v, e), "pos_emb": normal(self.max_seq_len, e),
+             "ln_f": ln()}
+        mha = self._mha()
+        f = self.ffn_mult * e
+        for i in range(self.num_layers):
+            p[f"layer_{i}"] = {
+                "ln1": ln(),
+                "attn": mha.init(generator),
+                "ln2": ln(),
+                "mlp": {"w1": normal(e, f), "b1": torch.zeros(f),
+                        "w2": normal(f, e), "b2": torch.zeros(e)},
+            }
+        return _tree_to(p, self.device, dtype)
+
+    def _ln(self, x, lnp):
+        return fused_layer_norm_affine(x, (self.embed_dim,), lnp["g"],
+                                       lnp["b"], 1e-5)
+
+    def _mlp(self, x, mp):
+        h = _gelu(x @ mp["w1"] + mp["b1"])
+        return h @ mp["w2"] + mp["b2"]
+
+    @torch.no_grad()
+    def apply(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens: int [B, T]. Returns logits fp32 [B, T, vocab]."""
+        b, t = tokens.shape
+        if t > self.max_seq_len:
+            raise ValueError(
+                f"sequence length {t} exceeds max_seq_len="
+                f"{self.max_seq_len}; raise max_seq_len at construction")
+        tokens = tokens.to(params["tok_emb"].device, torch.long)
+        x = params["tok_emb"][tokens] + params["pos_emb"][:t]
+        mha = self._mha()
+        for i in range(self.num_layers):
+            lp = params[f"layer_{i}"]
+            h = self._ln(x, lp["ln1"])
+            # MHA modules are time-major [T, B, E]
+            attn_out, _ = mha.apply(lp["attn"], h.transpose(0, 1))
+            x = x + attn_out.transpose(0, 1)
+            x = x + self._mlp(self._ln(x, lp["ln2"]), lp["mlp"])
+        x = self._ln(x, params["ln_f"])
+        return (x @ params["tok_emb"].T).float()
+
+    __call__ = apply
+
+    # -- incremental decoding (KV cache) ---------------------------------
+
+    @torch.no_grad()
+    def _cached_blocks(self, params, x, pos0: int, caches):
+        """The inference block stack shared by the one-token decode step
+        and the chunked prompt prefill. x: [B, T, E] embedded inputs for
+        absolute positions pos0..pos0+T-1; caches: ``layer_i -> (k, v)``
+        each [B, H, T_max, hd]. This chunk's K/V are written IN PLACE at
+        pos0 (the JAX version returns updated copies), then attention runs
+        against the whole cache with absolute causal masking
+        (``q_start=pos0`` hides the future and the unwritten tail).
+        Returns (final-LN hidden [B, T, E], caches)."""
+        e, h = self.embed_dim, self.num_heads
+        hd = e // h
+        b, t, _ = x.shape
+        for i in range(self.num_layers):
+            lp = params[f"layer_{i}"]
+            ap = lp["attn"]
+            qkv = self._ln(x, lp["ln1"]) @ ap["in_proj"] + ap["in_proj_bias"]
+            q, k, v = torch.split(qkv, e, dim=-1)              # [B, T, E]
+            ck, cv = caches[f"layer_{i}"]
+            ck[:, :, pos0:pos0 + t] = k.reshape(b, t, h, hd).transpose(1, 2)
+            cv[:, :, pos0:pos0 + t] = v.reshape(b, t, h, hd).transpose(1, 2)
+            qh = q.reshape(b, t, h, hd).transpose(1, 2)
+            a = reference_attention(qh, ck, cv, causal=True, q_start=pos0)
+            a = a.transpose(1, 2).reshape(b, t, e) @ ap["out_proj"] \
+                + ap["out_proj_bias"]
+            x = x + a
+            x = x + self._mlp(self._ln(x, lp["ln2"]), lp["mlp"])
+        return self._ln(x, params["ln_f"]), caches
+
+    def _decode_one(self, params, tok, pos: int, caches):
+        """One-token decode step: tok int [B] at scalar position ``pos``.
+        Returns (final-LN hidden [B, E], caches updated in place)."""
+        x = (params["tok_emb"][tok.long()] + params["pos_emb"][pos])[:, None]
+        hid, caches = self._cached_blocks(params, x, pos, caches)
+        return hid[:, 0], caches
+
+    @torch.no_grad()
+    def _decode_slots(self, params, toks, pos, caches, *,
+                      page_table=None, page_size: Optional[int] = None):
+        """The fused slot-batched decode step, the serving engine's hot
+        path: one token per slot at per-slot positions. toks, pos: int32
+        [S]; caches ``layer_i -> (k, v)`` each [S, H, max_len, hd] (the
+        dense arena) or, with ``page_table`` (int32 [S, max_pages]) and
+        ``page_size``, page pools [P+1, H, page_size, hd] (the paged
+        arena, page 0 the null sink). Per layer: one LayerNorm, one QKV
+        product, the K/V write of each slot at its own position (in
+        place), and single-query attention through
+        ``slot_decode_attention``. Returns (final-LN hidden [S, E],
+        caches)."""
+        if toks.dim() == 2:
+            raise NotImplementedError(
+                "the [S, Q] multi-row decode step comes with speculative "
+                "decoding (ROADMAP.md Queue 1, slice 5)")
+        e, h = self.embed_dim, self.num_heads
+        hd = e // h
+        s = toks.shape[0]
+        paged = page_table is not None
+        if paged and not page_size:
+            raise ValueError("paged _decode_slots needs page_size")
+        pos_l = pos.long()
+        x = (params["tok_emb"][toks.long()] + params["pos_emb"][pos_l])[:, None]
+        lengths = (pos + 1).to(torch.int32)   # each slot attends its prefix
+        if paged:
+            rows = torch.arange(s, device=pos.device)
+            lane = page_table[rows, pos_l // page_size].long()   # [S]
+            off = pos_l % page_size
+        else:
+            lane = torch.arange(s, device=pos.device)
+            off = pos_l
+        for i in range(self.num_layers):
+            lp = params[f"layer_{i}"]
+            ap = lp["attn"]
+            qkv = self._ln(x, lp["ln1"]) @ ap["in_proj"] + ap["in_proj_bias"]
+            q, k, v = torch.split(qkv, e, dim=-1)              # [S, 1, E]
+            ck, cv = caches[f"layer_{i}"]
+            # in place: one row per slot. Paged duplicates only ever hit
+            # the null page (retired slots), which nothing reads unmasked.
+            ck[lane, :, off, :] = k.reshape(s, h, hd)
+            cv[lane, :, off, :] = v.reshape(s, h, hd)
+            a = slot_decode_attention(q.reshape(s, h, hd).contiguous(), ck,
+                                      cv, lengths, page_table=page_table)
+            a = a.reshape(s, 1, e) @ ap["out_proj"] + ap["out_proj_bias"]
+            x = x + a
+            x = x + self._mlp(self._ln(x, lp["ln2"]), lp["mlp"])
+        return self._ln(x, params["ln_f"])[:, 0], caches
+
+    @torch.no_grad()
+    def _prefill(self, params, prompt, total: int):
+        """Batched prompt prefill: one causal pass over the prompt through
+        ``_cached_blocks``, filling fresh caches sized to ``total``.
+        Returns the final-LN hidden state of the last prompt position and
+        the caches."""
+        b, p = prompt.shape
+        h = self.num_heads
+        ref = params["tok_emb"]          # caches follow the param dtype
+        caches = {f"layer_{i}": tuple(
+                      torch.zeros((b, h, total, self.embed_dim // h),
+                                  dtype=ref.dtype, device=ref.device)
+                      for _ in range(2))
+                  for i in range(self.num_layers)}
+        x = params["tok_emb"][prompt.long()] + params["pos_emb"][:p]
+        hid, caches = self._cached_blocks(params, x, 0, caches)
+        return hid[:, -1], caches
+
+    @torch.no_grad()
+    def generate(self, params: dict, prompt, *, max_new_tokens: int,
+                 temperature: float = 0.0,
+                 eos_id: Optional[int] = None) -> torch.Tensor:
+        """Greedy autoregressive generation with per-layer K/V caches.
+        prompt: int [B, P]. Returns int32 [B, P + max_new_tokens]. With
+        ``eos_id`` a sequence that emits it keeps emitting it (the output
+        stays rectangular), as in the JAX version. Sampling
+        (``temperature > 0``, top-k, top-p) is not ported yet."""
+        if temperature != 0.0:
+            raise NotImplementedError(
+                "generate() samples only greedily in this port slice; "
+                "temperature sampling lives in the serving engine "
+                "(ROADMAP.md Queue 1, slice 4)")
+        if max_new_tokens < 1:
+            raise ValueError(f"max_new_tokens must be >= 1, "
+                             f"got {max_new_tokens}")
+        if eos_id is not None and not 0 <= eos_id < self.vocab_size:
+            raise ValueError(f"eos_id must be in [0, vocab_size), "
+                             f"got {eos_id}")
+        dev = params["tok_emb"].device
+        prompt = torch.as_tensor(prompt).to(dev, torch.int32)
+        b, p = prompt.shape
+        total = p + max_new_tokens
+        if total > self.max_seq_len:
+            raise ValueError(
+                f"prompt ({p}) + max_new_tokens ({max_new_tokens}) "
+                f"exceeds max_seq_len ({self.max_seq_len})")
+        buf = torch.zeros((b, total), dtype=torch.int32, device=dev)
+        buf[:, :p] = prompt
+
+        def produce(hid):
+            logits = (hid @ params["tok_emb"].T).float()
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+
+        hid, caches = self._prefill(params, prompt, total)
+        tok = produce(hid)
+        done = (tok == eos_id) if eos_id is not None else None
+        buf[:, p] = tok
+        for t in range(p, total - 1):
+            hid, caches = self._decode_one(params, buf[:, t], t, caches)
+            tok = produce(hid)
+            if eos_id is not None:
+                tok = torch.where(done, torch.full_like(tok, eos_id), tok)
+                done = done | (tok == eos_id)
+            buf[:, t + 1] = tok
+        return buf
+
+
+def _tree_to(tree, device, dtype):
+    """Move a nested dict of tensors to ``device``, floats cast to
+    ``dtype``."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device, dtype) for k, v in tree.items()}
+    if tree.is_floating_point():
+        return tree.to(device=device, dtype=dtype)
+    return tree.to(device)

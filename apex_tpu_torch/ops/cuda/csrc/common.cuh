@@ -1,0 +1,96 @@
+// Shared helpers of the port's hand kernels: dtype codes (the Python
+// loader's table, apex_tpu_torch/ops/cuda/__init__.py), fp32 conversion
+// of the storage types, and warp reductions.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace apex_port {
+
+enum DType : int { kF32 = 0, kBF16 = 1, kF16 = 2 };
+
+// the flash kernel's finite -inf stand-in (exp() of it is exactly 0.0 in
+// fp32): masked lanes compute the same values as the plain versions
+constexpr float kNegInf = -1.0e30f;
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) {
+  return x;
+}
+template <> __device__ __forceinline__ __nv_bfloat16
+from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);   // round to nearest even, like .to()
+}
+template <> __device__ __forceinline__ __half from_f<__half>(float x) {
+  return __float2half(x);
+}
+
+// four consecutive elements as fp32, one vector load (callers keep the
+// address 4-element aligned)
+__device__ __forceinline__ void load4(const float* p, float (&o)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p,
+                                      float (&o)[4]) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
+  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
+  o[0] = __low2float(a); o[1] = __high2float(a);
+  o[2] = __low2float(b); o[3] = __high2float(b);
+}
+__device__ __forceinline__ void load4(const __half* p, float (&o)[4]) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  const __half2 a = *reinterpret_cast<const __half2*>(&raw.x);
+  const __half2 b = *reinterpret_cast<const __half2*>(&raw.y);
+  o[0] = __low2float(a); o[1] = __high2float(a);
+  o[2] = __low2float(b); o[3] = __high2float(b);
+}
+
+// four consecutive fp32 values stored as T, one vector store (callers keep
+// the address 4-element aligned); rounding as from_f
+__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p,
+                                       const float (&v)[4]) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
+  const __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
+  uint2 raw;
+  raw.x = *reinterpret_cast<const unsigned*>(&a);
+  raw.y = *reinterpret_cast<const unsigned*>(&b);
+  *reinterpret_cast<uint2*>(p) = raw;
+}
+__device__ __forceinline__ void store4(__half* p, const float (&v)[4]) {
+  const __half2 a = __floats2half2_rn(v[0], v[1]);
+  const __half2 b = __floats2half2_rn(v[2], v[3]);
+  uint2 raw;
+  raw.x = *reinterpret_cast<const unsigned*>(&a);
+  raw.y = *reinterpret_cast<const unsigned*>(&b);
+  *reinterpret_cast<uint2*>(p) = raw;
+}
+
+// butterfly reductions: every lane ends with the same value (each level
+// adds the same two operands in both partner lanes)
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
+  return v;
+}
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, m));
+  return v;
+}
+
+}  // namespace apex_port

@@ -1,0 +1,113 @@
+"""Port hygiene: ``apex_tpu_torch`` and ``chip_smoke.py`` stand alone.
+
+The port imports no JAX and nothing of the JAX package (checked both in
+a fresh interpreter and by an AST scan of every source), its entry points
+default to the card and raise without CUDA unless the caller passes
+``device="cpu"``, and the kernel build reports a missing ``nvcc``.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "apex_tpu_torch"
+
+
+def _sources():
+    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def test_fresh_import_pulls_in_no_jax():
+    code = ("import sys, apex_tpu_torch, apex_tpu_torch.serve, "
+            "apex_tpu_torch.models, apex_tpu_torch.convert\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'jaxlib', 'apex_tpu.')) or "
+            "m == 'apex_tpu')\n"
+            "print(','.join(bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == ""
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
+def test_no_jax_or_apex_tpu_import(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "apex_tpu"), \
+                f"{path.name}:{node.lineno} imports {name}"
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_default_to_the_card_and_raise_without_it(no_cuda):
+    from apex_tpu_torch.convert import params_from_jax
+    from apex_tpu_torch.models import TransformerLM
+    from apex_tpu_torch.normalization import FusedLayerNorm
+    from apex_tpu_torch.serve import (ContinuousBatchingEngine,
+                                      init_paged_state, init_slot_state)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TransformerLM(vocab_size=50, embed_dim=32, num_heads=4,
+                      num_layers=1)
+    m = TransformerLM(vocab_size=50, max_seq_len=16, embed_dim=32,
+                      num_heads=4, num_layers=1, device="cpu")
+    p = m.init(0)
+    for call in (
+            lambda: ContinuousBatchingEngine(m, p, slots=2, max_len=16,
+                                             prefill_chunk=4),
+            lambda: init_slot_state(m, p, 2, 16),
+            lambda: init_paged_state(m, p, 2, 16, 4, 8),
+            lambda: params_from_jax({"w": np.zeros(2, np.float32)}),
+            lambda: FusedLayerNorm(8)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+
+
+def test_cpu_model_and_engine_stay_on_the_cpu():
+    from apex_tpu_torch.models import TransformerLM
+    from apex_tpu_torch.serve import ContinuousBatchingEngine
+    m = TransformerLM(vocab_size=50, max_seq_len=16, embed_dim=32,
+                      num_heads=4, num_layers=1, device="cpu")
+    p = m.init(0)
+    assert p["tok_emb"].device.type == "cpu"
+    eng = ContinuousBatchingEngine(m, p, slots=2, max_len=16,
+                                   prefill_chunk=4, device="cpu")
+    assert eng.device.type == "cpu"
+
+
+def test_dispatch_backend_names_and_nesting():
+    from apex_tpu_torch.ops import dispatch
+    assert dispatch.get_backend() == "auto"
+    with dispatch.backend("reference"):
+        assert dispatch.get_backend() == "reference"
+    assert dispatch.get_backend() == "auto"
+    with pytest.raises(ValueError, match="backend"):
+        with dispatch.backend("pallas"):
+            pass
+
+
+def test_missing_nvcc_is_reported(monkeypatch, tmp_path):
+    from apex_tpu_torch.ops import cuda
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        cuda.build()
