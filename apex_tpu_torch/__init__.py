@@ -11,7 +11,11 @@ the CPU runs.
 
 Ported so far: the serving path — ``models.TransformerLM`` decode and the
 continuous-batching engine (``serve``) over the dense and paged KV arenas,
-with the decode-attention and LayerNorm-forward kernels.
+with the decode-attention and LayerNorm-forward kernels; and the ResNet
+AMP FusedLAMB training step (``train.Trainer``: the flat master store
+``ops.flat``, ``amp``, ``optimizers.FusedLAMB``, the ``parallel``
+SyncBatchNorm core, ``models.ResNet``), with the unscale and two LAMB
+kernels.
 
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``; without CUDA they raise instead of falling back.
@@ -25,8 +29,8 @@ import importlib
 
 __version__ = "0.1.0"
 
-_SUBMODULES = ("contrib", "convert", "models", "normalization", "ops",
-               "serve")
+_SUBMODULES = ("amp", "contrib", "convert", "models", "normalization",
+               "ops", "optimizers", "parallel", "serve", "train")
 
 __all__ = list(_SUBMODULES)
 

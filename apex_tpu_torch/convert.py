@@ -4,7 +4,10 @@
 every leaf already a numpy array (``jax.tree.map(np.asarray, params)``)
 and returns the same nested dict of torch tensors. The JAX ``[in, out]``
 weight layout is kept, so ``x @ W`` is the same product in both packages.
-Nothing here imports JAX.
+``resnet_from_jax`` does the same for ``ResNet.init``'s ``(params,
+state)``, keeping HWIO conv kernels and the ``[in, out]`` fc, so the flat
+buffers of the two packages agree element for element. Nothing here
+imports JAX.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ import torch
 
 from apex_tpu_torch._device import resolve_device
 
-__all__ = ["params_from_jax"]
+__all__ = ["params_from_jax", "resnet_from_jax"]
 
 
 def _leaf(a, device: torch.device, dtype: Optional[torch.dtype]):
@@ -45,3 +48,13 @@ def params_from_jax(tree: dict, *, device=None,
         return _leaf(node, dev, dtype)
 
     return conv(tree)
+
+
+def resnet_from_jax(params: dict, state: dict, *, device=None,
+                    dtype: Optional[torch.dtype] = None) -> tuple:
+    """``(params, state)`` of ``apex_tpu``'s ``ResNet.init`` (numpy leaves)
+    -> the port's trees on ``device``, layouts kept (conv HWIO, fc
+    ``[in, out]``). ``dtype`` casts the params only; BN running stats stay
+    fp32 and ``num_batches_tracked`` int32."""
+    return (params_from_jax(params, device=device, dtype=dtype),
+            params_from_jax(state, device=device))

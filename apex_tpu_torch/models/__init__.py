@@ -1,3 +1,22 @@
-"""Models of the port (counterpart of ``apex_tpu/models``)."""
+"""Models of the port (counterpart of ``apex_tpu/models``): the serving
+``TransformerLM`` and the ``ResNet`` family. Names import lazily."""
 
-from apex_tpu_torch.models.transformer import TransformerLM  # noqa: F401
+from __future__ import annotations
+
+import importlib
+
+_EXPORTS = {
+    "TransformerLM": "transformer",
+    "ResNet": "resnet", "analytic_flops": "resnet", "resnet18": "resnet",
+    "resnet34": "resnet", "resnet50": "resnet", "resnet101": "resnet",
+    "resnet152": "resnet",
+}
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name: str):
+    if name in _EXPORTS:
+        mod = importlib.import_module(f"{__name__}.{_EXPORTS[name]}")
+        return getattr(mod, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

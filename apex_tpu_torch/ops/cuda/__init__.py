@@ -121,6 +121,19 @@ def _declare(so: ctypes.CDLL) -> None:
     so.apex_layer_norm_fwd.argtypes = [
         I, I, P, P, P, P, P, P, I, I, F, P]
     so.apex_layer_norm_fwd.restype = I
+    L = ctypes.c_longlong
+    so.apex_scale.argtypes = [I, P, P, P, P, L, P]
+    so.apex_scale.restype = I
+    so.apex_lamb_phase1.argtypes = [I, I] + [P] * 10 + [L, I, P]
+    so.apex_lamb_phase1.restype = I
+    so.apex_lamb_phase2.argtypes = [I, P, P, P, P, P, L, P]
+    so.apex_lamb_phase2.restype = I
+    so.apex_bn_moments.argtypes = [I, P, L, I, I, P, P, P, P]
+    so.apex_bn_moments.restype = I
+    so.apex_bn_bwd_reduce.argtypes = [I, P, P, P, P, P, L, I, I, P, P, P, P]
+    so.apex_bn_bwd_reduce.restype = I
+    so.apex_bn_bwd_dx.argtypes = [I, P, P, P, P, P, P, L, I, I, P]
+    so.apex_bn_bwd_dx.restype = I
 
 
 def lib() -> ctypes.CDLL:

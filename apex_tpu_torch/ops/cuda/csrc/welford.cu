@@ -1,0 +1,378 @@
+// Per-channel BatchNorm kernels over channels-last rows x [R, C]: the batch
+// moments of the forward and the two passes of the backward.
+//
+// bn_moments replaces the Pallas kernel apex_tpu/ops/pallas/welford.py
+// bn_moments -> _moments_kernel (:60); bn_bwd_reduce replaces
+// bn_backward_fused_reduce -> _bwd_fused_reduce_kernel (:94); bn_bwd_dx
+// replaces bn_backward_dx -> _bwd_dx_kernel (:152).
+//
+// Bound on this card: bytes, for all three. Per element they do a handful
+// of fp32 operations (2 for the moments, 6 for the reduce, 8 for dx) and
+// move 2 to 10 bytes (bf16), below the ~20 operations per byte where the
+// H100's fp32 units, not its 3.35 TB/s, would set the time. At RN50's
+// batch-256 stem BN (R = 3,211,264, C = 64, bf16):
+//   moments  x in                          2 B/elem  411 MB  0.123 ms
+//   reduce   dy, x, out in                 6 B/elem  1.23 GB 0.368 ms
+//   dx       dy, x, out in; dx, dz out    10 B/elem  2.06 GB 0.613 ms
+// What the design does about it: every element is read once, four
+// consecutive channels per thread with one 8-byte (bf16) or 16-byte (fp32)
+// vector load; a block of 256 threads is a tile of up to 128 channels by
+// 256/32 (or more, for narrow C) rows, walking a fixed chunk of rows, so
+// each thread keeps its channels' mean, invvar and sums in registers and
+// the per-channel vectors are loaded once per thread, not per element; the
+// grid fills the card with about eight blocks per SM. The TPU kernels
+// accumulate into one output block across their sequential grid; here the
+// blocks run in any order, so each writes its chunk's partial sums to a
+// workspace and a second small kernel adds the chunks in a fixed order:
+// no float atomics, so the sums, and with them the step, repeat bit for
+// bit.
+//
+// Rounding: dx and dz use the _rn intrinsics (never contracted into FMAs)
+// in the order of the plain PyTorch versions (apex_tpu_torch/ops/welford.py),
+// so they equal theirs bit for bit; the sums add in another order.
+
+#include "common.cuh"
+
+namespace apex_port {
+namespace {
+
+constexpr int kThreads = 256;
+
+struct Tile {
+  int tx, ty, tiles;   // threads across channel vectors, across rows; tiles
+};
+
+inline Tile tile_for(int c) {
+  const int vecs = c / 4;
+  Tile t;
+  t.tx = vecs < 32 ? vecs : 32;
+  t.ty = kThreads / t.tx;
+  t.tiles = (vecs + t.tx - 1) / t.tx;
+  return t;
+}
+
+// relu mask of the fused-relu BN: the primal output is 0 where it clipped
+template <typename T>
+__device__ __forceinline__ void mask_dy(const T* __restrict__ out,
+                                        long long off, float (&d)[4]) {
+  float o[4];
+  load4(out + off, o);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) d[e] = o[e] > 0.f ? d[e] : 0.f;
+}
+
+// the block's per-channel partial sums a, b -> ws[0][chunk][col..],
+// ws[1][chunk][col..], adding the row threads in a fixed order
+__device__ __forceinline__ void store_partials(const float (&a)[4],
+                                               const float (&b)[4],
+                                               float* __restrict__ ws,
+                                               int nchunk, int c, int col) {
+  __shared__ float sh[2][kThreads * 4];
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    sh[0][tid * 4 + e] = a[e];
+    sh[1][tid * 4 + e] = b[e];
+  }
+  __syncthreads();
+  if (threadIdx.y != 0 || col >= c) return;
+  float sa[4] = {0.f, 0.f, 0.f, 0.f}, sb[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int y = 0; y < (int)blockDim.y; ++y) {
+    const int i = (y * blockDim.x + threadIdx.x) * 4;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      sa[e] += sh[0][i + e];
+      sb[e] += sh[1][i + e];
+    }
+  }
+  const long long base = (long long)blockIdx.y * c + col;
+  store4(ws + base, sa);
+  store4(ws + (long long)nchunk * c + base, sb);
+}
+
+// ---- moments -----------------------------------------------------------------
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+moments_kernel(const T* __restrict__ x, long long rows, int c,
+               long long rpc, int nchunk, float* __restrict__ ws) {
+  const int col = (blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  float s[4] = {0.f, 0.f, 0.f, 0.f}, q[4] = {0.f, 0.f, 0.f, 0.f};
+  if (col < c) {
+    const long long r0 = (long long)blockIdx.y * rpc;
+    const long long r1 = r0 + rpc < rows ? r0 + rpc : rows;
+#pragma unroll 4
+    for (long long r = r0 + threadIdx.y; r < r1; r += blockDim.y) {
+      float v[4];
+      load4(x + r * c + col, v);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[e] += v[e];
+        q[e] += v[e] * v[e];
+      }
+    }
+  }
+  store_partials(s, q, ws, nchunk, c, col);
+}
+
+// ---- backward: sum(dy), sum(dy * xhat) --------------------------------------
+
+template <typename T, bool MASK>
+__global__ void __launch_bounds__(kThreads)
+bwd_reduce_kernel(const T* __restrict__ dy, const T* __restrict__ x,
+                  const T* __restrict__ out, const float* __restrict__ mean,
+                  const float* __restrict__ invvar, long long rows, int c,
+                  long long rpc, int nchunk, float* __restrict__ ws) {
+  const int col = (blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  float sd[4] = {0.f, 0.f, 0.f, 0.f}, sx[4] = {0.f, 0.f, 0.f, 0.f};
+  if (col < c) {
+    float mu[4], iv[4];
+    load4(mean + col, mu);
+    load4(invvar + col, iv);
+    const long long r0 = (long long)blockIdx.y * rpc;
+    const long long r1 = r0 + rpc < rows ? r0 + rpc : rows;
+#pragma unroll 4
+    for (long long r = r0 + threadIdx.y; r < r1; r += blockDim.y) {
+      const long long off = r * c + col;
+      float d[4], v[4];
+      load4(dy + off, d);
+      load4(x + off, v);
+      if constexpr (MASK) mask_dy(out, off, d);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float xh = (v[e] - mu[e]) * iv[e];
+        sd[e] += d[e];
+        sx[e] += d[e] * xh;
+      }
+    }
+  }
+  store_partials(sd, sx, ws, nchunk, c, col);
+}
+
+// ws [2][nchunk][c] -> o0[c], o1[c]: each column's chunks added in order,
+// split over 32 row threads whose results are then added in order
+__global__ void __launch_bounds__(1024)
+finalize_kernel(const float* __restrict__ ws, int nchunk, int c,
+                float* __restrict__ o0, float* __restrict__ o1) {
+  __shared__ float sh[2][32][33];
+  const int col = blockIdx.x * 32 + threadIdx.x;
+  float a = 0.f, b = 0.f;
+  if (col < c) {
+    const float* w1 = ws + (long long)nchunk * c;
+    for (int j = threadIdx.y; j < nchunk; j += 32) {
+      a += ws[(long long)j * c + col];
+      b += w1[(long long)j * c + col];
+    }
+  }
+  sh[0][threadIdx.y][threadIdx.x] = a;
+  sh[1][threadIdx.y][threadIdx.x] = b;
+  __syncthreads();
+  if (threadIdx.y != 0 || col >= c) return;
+  a = 0.f;
+  b = 0.f;
+  for (int y = 0; y < 32; ++y) {
+    a += sh[0][y][threadIdx.x];
+    b += sh[1][y][threadIdx.x];
+  }
+  o0[col] = a;
+  o1[col] = b;
+}
+
+// ---- backward: dx (and dz) ----------------------------------------------------
+// pc = [mean, invvar, winv, mean_dy, mean_dy_xhat], each fp32 [c]
+
+template <typename T, bool MASK, bool DZ>
+__global__ void __launch_bounds__(kThreads)
+bwd_dx_kernel(const T* __restrict__ dy, const T* __restrict__ x,
+              const T* __restrict__ out, const float* __restrict__ pc,
+              T* __restrict__ dx, T* __restrict__ dz, long long rows, int c,
+              long long rpc) {
+  const int col = (blockIdx.x * blockDim.x + threadIdx.x) * 4;
+  if (col >= c) return;
+  float mu[4], iv[4], wi[4], md[4], mx[4];
+  load4(pc + col, mu);
+  load4(pc + c + col, iv);
+  load4(pc + 2 * c + col, wi);
+  load4(pc + 3 * c + col, md);
+  load4(pc + 4 * c + col, mx);
+  const long long r0 = (long long)blockIdx.y * rpc;
+  const long long r1 = r0 + rpc < rows ? r0 + rpc : rows;
+#pragma unroll 4
+  for (long long r = r0 + threadIdx.y; r < r1; r += blockDim.y) {
+    const long long off = r * c + col;
+    float d[4], v[4], o[4];
+    load4(dy + off, d);
+    load4(x + off, v);
+    if constexpr (MASK) mask_dy(out, off, d);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float xh = __fmul_rn(__fsub_rn(v[e], mu[e]), iv[e]);
+      o[e] = __fmul_rn(wi[e], __fsub_rn(__fsub_rn(d[e], md[e]),
+                                        __fmul_rn(xh, mx[e])));
+    }
+    store4(dx + off, o);
+    if constexpr (DZ) store4(dz + off, d);
+  }
+}
+
+// ---- launchers ----------------------------------------------------------------
+
+inline long long rows_per_chunk(long long rows, int nchunk) {
+  return (rows + nchunk - 1) / nchunk;
+}
+
+template <typename T>
+void launch_moments(const void* x, long long rows, int c, int nchunk,
+                    float* ws, float* o0, float* o1, cudaStream_t st) {
+  const Tile t = tile_for(c);
+  moments_kernel<T><<<dim3(t.tiles, nchunk), dim3(t.tx, t.ty), 0, st>>>(
+      static_cast<const T*>(x), rows, c, rows_per_chunk(rows, nchunk), nchunk,
+      ws);
+  finalize_kernel<<<(c + 31) / 32, dim3(32, 32), 0, st>>>(ws, nchunk, c, o0,
+                                                          o1);
+}
+
+template <typename T>
+void launch_bwd_reduce(const void* dy, const void* x, const void* out,
+                       const float* mean, const float* invvar, long long rows,
+                       int c, int nchunk, float* ws, float* o0, float* o1,
+                       cudaStream_t st) {
+  const Tile t = tile_for(c);
+  const dim3 grid(t.tiles, nchunk), block(t.tx, t.ty);
+  const long long rpc = rows_per_chunk(rows, nchunk);
+  const T* d = static_cast<const T*>(dy);
+  const T* xp = static_cast<const T*>(x);
+  const T* op = static_cast<const T*>(out);
+  if (out != nullptr) {
+    bwd_reduce_kernel<T, true><<<grid, block, 0, st>>>(
+        d, xp, op, mean, invvar, rows, c, rpc, nchunk, ws);
+  } else {
+    bwd_reduce_kernel<T, false><<<grid, block, 0, st>>>(
+        d, xp, op, mean, invvar, rows, c, rpc, nchunk, ws);
+  }
+  finalize_kernel<<<(c + 31) / 32, dim3(32, 32), 0, st>>>(ws, nchunk, c, o0,
+                                                          o1);
+}
+
+template <typename T>
+void launch_bwd_dx(const void* dy, const void* x, const void* out,
+                   const float* pc, void* dx, void* dz, long long rows, int c,
+                   int nchunk, cudaStream_t st) {
+  const Tile t = tile_for(c);
+  const dim3 grid(t.tiles, nchunk), block(t.tx, t.ty);
+  const long long rpc = rows_per_chunk(rows, nchunk);
+  const T* d = static_cast<const T*>(dy);
+  const T* xp = static_cast<const T*>(x);
+  const T* op = static_cast<const T*>(out);
+  T* dxp = static_cast<T*>(dx);
+  T* dzp = static_cast<T*>(dz);
+  const bool mask = out != nullptr, emit = dz != nullptr;
+  if (mask && emit) {
+    bwd_dx_kernel<T, true, true><<<grid, block, 0, st>>>(d, xp, op, pc, dxp,
+                                                         dzp, rows, c, rpc);
+  } else if (mask) {
+    bwd_dx_kernel<T, true, false><<<grid, block, 0, st>>>(d, xp, op, pc, dxp,
+                                                          dzp, rows, c, rpc);
+  } else if (emit) {
+    bwd_dx_kernel<T, false, true><<<grid, block, 0, st>>>(d, xp, op, pc, dxp,
+                                                          dzp, rows, c, rpc);
+  } else {
+    bwd_dx_kernel<T, false, false><<<grid, block, 0, st>>>(
+        d, xp, op, pc, dxp, dzp, rows, c, rpc);
+  }
+}
+
+inline bool bad_shape(long long rows, int c, int nchunk) {
+  return rows < 1 || c < 4 || c % 4 != 0 || nchunk < 1 || nchunk > 65535;
+}
+
+}  // namespace
+}  // namespace apex_port
+
+// x [rows, c] (fp32, bf16 or fp16; c a multiple of 4, 4-element aligned);
+// ws fp32 [2, nchunk, c] scratch; sum, sumsq fp32 [c]. Returns
+// cudaGetLastError().
+extern "C" int apex_bn_moments(int dtype, const void* x, long long rows,
+                               int c, int nchunk, void* ws, void* sum,
+                               void* sumsq, void* stream) {
+  using namespace apex_port;
+  if (bad_shape(rows, c, nchunk)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* w = static_cast<float*>(ws);
+  float* o0 = static_cast<float*>(sum);
+  float* o1 = static_cast<float*>(sumsq);
+  switch (dtype) {
+    case kF32: launch_moments<float>(x, rows, c, nchunk, w, o0, o1, st); break;
+    case kBF16:
+      launch_moments<__nv_bfloat16>(x, rows, c, nchunk, w, o0, o1, st);
+      break;
+    case kF16: launch_moments<__half>(x, rows, c, nchunk, w, o0, o1, st); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dy, x, out [rows, c] in one dtype (out may be null: no relu mask); mean,
+// invvar fp32 [c]; ws as above; sum_dy, sum_dy_xhat fp32 [c].
+extern "C" int apex_bn_bwd_reduce(int dtype, const void* dy, const void* x,
+                                  const void* out, const void* mean,
+                                  const void* invvar, long long rows, int c,
+                                  int nchunk, void* ws, void* sum_dy,
+                                  void* sum_dy_xhat, void* stream) {
+  using namespace apex_port;
+  if (bad_shape(rows, c, nchunk)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* mu = static_cast<const float*>(mean);
+  const float* iv = static_cast<const float*>(invvar);
+  float* w = static_cast<float*>(ws);
+  float* o0 = static_cast<float*>(sum_dy);
+  float* o1 = static_cast<float*>(sum_dy_xhat);
+  switch (dtype) {
+    case kF32:
+      launch_bwd_reduce<float>(dy, x, out, mu, iv, rows, c, nchunk, w, o0, o1,
+                               st);
+      break;
+    case kBF16:
+      launch_bwd_reduce<__nv_bfloat16>(dy, x, out, mu, iv, rows, c, nchunk, w,
+                                       o0, o1, st);
+      break;
+    case kF16:
+      launch_bwd_reduce<__half>(dy, x, out, mu, iv, rows, c, nchunk, w, o0, o1,
+                                st);
+      break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dy, x, out [rows, c] in one dtype (out may be null); pc fp32 [5, c] =
+// mean, invvar, invvar * weight, mean_dy, mean_dy_xhat; dx, dz [rows, c] in
+// x's dtype (dz may be null: not emitted).
+extern "C" int apex_bn_bwd_dx(int dtype, const void* dy, const void* x,
+                              const void* out, const void* pc, void* dx,
+                              void* dz, long long rows, int c, int nchunk,
+                              void* stream) {
+  using namespace apex_port;
+  if (bad_shape(rows, c, nchunk)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* p = static_cast<const float*>(pc);
+  switch (dtype) {
+    case kF32:
+      launch_bwd_dx<float>(dy, x, out, p, dx, dz, rows, c, nchunk, st);
+      break;
+    case kBF16:
+      launch_bwd_dx<__nv_bfloat16>(dy, x, out, p, dx, dz, rows, c, nchunk, st);
+      break;
+    case kF16:
+      launch_bwd_dx<__half>(dy, x, out, p, dx, dz, rows, c, nchunk, st);
+      break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

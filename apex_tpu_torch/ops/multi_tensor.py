@@ -1,0 +1,289 @@
+"""Multi-tensor ops over the flat buffer: the kernel wrappers and their
+plain PyTorch versions.
+
+Counterpart of ``apex_tpu/ops/pallas/multi_tensor.py`` (the kernels) and
+``apex_tpu/ops/reference.py`` (the plain versions) for the ops the RN50
+FusedLAMB step runs; the kernels are ``ops/cuda/csrc/multi_tensor.cu``:
+
+- :func:`scale` replaces ``scale`` → ``_scale_kernel`` (multi_tensor.py:96):
+  ``x * s`` and a found_inf flag read from the input;
+- :func:`lamb_phase1` / :func:`lamb_phase2` replace ``lamb_step`` →
+  ``_lamb_phase1_kernel`` / ``_lamb_phase2_kernel`` (multi_tensor.py:452,
+  :480); :func:`lamb_step` joins them with the per-tensor trust ratio.
+
+For a tensor on the CPU each wrapper runs its plain version; for a tensor
+on the card it launches its kernel, or raises on what the kernel does not
+take. Scalars the step computes on the device (the unscale factor, the
+bias corrections, the clip factor) reach the kernels as a pointer to a
+small fp32 device array, so nothing here waits for the card. Each wrapper
+counts its launches in ``.launches``.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from apex_tpu_torch.ops import cuda as _cuda
+from apex_tpu_torch.ops import dispatch
+from apex_tpu_torch.ops.flat import LANES, SegmentTable
+
+__all__ = ["MODE_L2", "MODE_DECOUPLED", "all_finite", "scale", "scale_plain",
+           "segment_sum", "lamb_scalars", "lamb_phase1", "lamb_phase1_plain",
+           "lamb_phase2", "lamb_phase2_plain", "lamb_step",
+           "lamb_step_plain"]
+
+MODE_L2 = 0          # weight decay folded into the gradient
+MODE_DECOUPLED = 1   # AdamW-style decoupled weight decay
+
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def all_finite(*tensors: torch.Tensor) -> torch.Tensor:
+    """Device bool: every element of every tensor is finite."""
+    ok = torch.ones((), dtype=torch.bool, device=tensors[0].device)
+    for t in tensors:
+        ok = ok & torch.isfinite(t.float()).all()
+    return ok
+
+
+def _check_flat(what: str, t: torch.Tensor, device, align_elems: int = 4):
+    if t.device != device:
+        raise ValueError(f"{what}: tensors must share one device")
+    if t.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"{what}: dtype {t.dtype} is not supported by the "
+                        f"kernel (float32, bfloat16)")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: tensors must be contiguous")
+    if t.data_ptr() % (align_elems * t.element_size()):
+        raise ValueError(f"{what}: buffer must be {align_elems}-element "
+                         f"aligned for the vector loads")
+
+
+def _as_device_scalar(s, device) -> torch.Tensor:
+    if isinstance(s, torch.Tensor):
+        if s.device != device or s.numel() != 1:
+            raise ValueError("scale factor must be one value on the "
+                             "tensor's device")
+        return s.reshape(1).to(torch.float32)
+    return torch.full((1,), float(s), dtype=torch.float32, device=device)
+
+
+# -- scale (K4) ---------------------------------------------------------------
+
+def scale_plain(x: torch.Tensor, scale_factor):
+    """Plain version (reference.py:60-67): fp32 ``x * s`` in x's dtype, and
+    a device bool that is True when any input element is not finite."""
+    xf = x.float()
+    out = (xf * scale_factor).to(x.dtype)
+    return out, ~torch.isfinite(xf).all()
+
+
+def scale(x: torch.Tensor, scale_factor):
+    """``(x * scale_factor, found_inf)``; ``scale_factor`` is a float or a
+    one-element fp32 tensor on x's device."""
+    if not dispatch.use_kernel(x):
+        return scale_plain(x, scale_factor)
+    if x.dim() != 1:
+        raise ValueError("scale: x must be a flat 1-D buffer")
+    _check_flat("scale", x, x.device, align_elems=1)
+    s = _as_device_scalar(scale_factor, x.device)
+    out = torch.empty_like(x)
+    flag = torch.zeros(1, dtype=torch.int32, device=x.device)
+    if x.numel():
+        err = _cuda.lib().apex_scale(
+            _cuda.dtype_code(x.dtype, "scale"), x.data_ptr(), out.data_ptr(),
+            s.data_ptr(), flag.data_ptr(), x.numel(), _cuda.stream(x.device))
+        _cuda.check(err, "scale")
+        scale.launches += 1
+    return out, flag[0] != 0
+
+
+scale.launches = 0
+
+
+# -- LAMB (K5, K6) ------------------------------------------------------------
+
+def segment_sum(vals: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Sum of each segment of contiguous ``vals`` (``lengths`` int64 on
+    the same device). Fixed order — no float atomics — so the per-tensor
+    norms, and with them the trust ratios, repeat bit for bit."""
+    return torch.segment_reduce(vals, "sum", lengths=lengths)
+
+
+@functools.lru_cache(maxsize=None)
+def _consts(values: tuple, device: torch.device) -> torch.Tensor:
+    # one host-to-device copy per hyperparameter set, not per step
+    return torch.tensor(values, dtype=torch.float32).to(device)
+
+
+def lamb_scalars(*, beta1: float, beta2: float, eps: float, step,
+                 bias_correction: bool, weight_decay: float,
+                 grad_averaging: bool, global_grad_norm,
+                 max_grad_norm: float, device) -> torch.Tensor:
+    """The phase-1 scalars as one fp32 [9] device array:
+    ``[b1, b2, eps, wd, beta3, 1-b2, bc1, bc2, clip]``. ``1-b1`` and
+    ``1-b2`` are taken in float64, then rounded to fp32, as
+    multi_tensor.py:518-519 does; ``bc1``, ``bc2`` (from the device step)
+    and ``clip`` (from the global norm) stay on the device."""
+    device = torch.device(device)
+    beta3 = (1.0 - beta1) if grad_averaging else 1.0
+    const = _consts((beta1, beta2, eps, weight_decay, beta3, 1.0 - beta2),
+                    device)
+    stepf = torch.as_tensor(step, device=device).to(torch.float32)
+    if bias_correction:
+        bc1 = 1.0 - torch.pow(const[0], stepf)
+        bc2 = 1.0 - torch.pow(const[1], stepf)
+    else:
+        bc1 = bc2 = torch.ones((), dtype=torch.float32, device=device)
+    gg = torch.as_tensor(global_grad_norm, device=device).to(torch.float32)
+    if max_grad_norm > 0:
+        clip = torch.where(gg > max_grad_norm, gg / max_grad_norm,
+                           torch.ones_like(gg))
+    else:
+        clip = torch.ones((), dtype=torch.float32, device=device)
+    return torch.cat([const, torch.stack([bc1.reshape(()), bc2.reshape(()),
+                                          clip.reshape(())])])
+
+
+def _lamb_update(g, p, m, v, sc: torch.Tensor, mode: int):
+    """fp32 ``(p, u, m, v)`` of LAMB's first phase; each operation rounds
+    once, in the kernel's order."""
+    b1, b2, eps, wd, beta3, omb2, bc1, bc2, clip = sc.unbind()
+    gf = g.float() / clip
+    pf = p.float()
+    if mode == MODE_L2:
+        gf = gf + wd * pf
+    mf = b1 * m.float() + beta3 * gf
+    vf = b2 * v.float() + omb2 * gf * gf
+    u = (mf / bc1) / (torch.sqrt(vf / bc2) + eps)
+    if mode == MODE_DECOUPLED:
+        u = u + wd * pf
+    return pf, u, mf, vf
+
+
+def lamb_phase1_plain(g, p, m, v, sc: torch.Tensor, mode: int):
+    """Plain version of ``_lamb_phase1_kernel`` (multi_tensor.py:452-477):
+    the fp32 update term u, new m and v in their storage dtype, and the
+    per-row sums of p² and u²."""
+    pf, u, mf, vf = _lamb_update(g, p, m, v, sc, mode)
+    prow = (pf * pf).view(-1, LANES).sum(dim=1)
+    urow = (u * u).view(-1, LANES).sum(dim=1)
+    return u, mf.to(m.dtype), vf.to(v.dtype), prow, urow
+
+
+def lamb_phase1(g, p, m, v, sc: torch.Tensor, mode: int):
+    """Phase 1 of LAMB over flat buffers of ``rows * 128`` elements;
+    returns ``(u, m, v, prow, urow)`` like :func:`lamb_phase1_plain`."""
+    if not dispatch.use_kernel(p):
+        return lamb_phase1_plain(g, p, m, v, sc, mode)
+    n = p.numel()
+    if n % LANES or g.shape != p.shape or m.shape != p.shape \
+            or v.shape != p.shape or p.dim() != 1:
+        raise ValueError(f"lamb_phase1: g, p, m, v must be flat buffers of "
+                         f"one length, a multiple of {LANES}")
+    for what, t in (("g", g), ("p", p), ("m", m), ("v", v)):
+        _check_flat(f"lamb_phase1 {what}", t, p.device)
+    if m.dtype != p.dtype or v.dtype != p.dtype:
+        raise TypeError("lamb_phase1: p, m and v must share one dtype")
+    if sc.dtype != torch.float32 or sc.numel() != 9 or sc.device != p.device:
+        raise ValueError("lamb_phase1: scalars must be fp32 [9] on the card")
+    rows = n // LANES
+    u = torch.empty(n, dtype=torch.float32, device=p.device)
+    m_out, v_out = torch.empty_like(m), torch.empty_like(v)
+    sums = torch.empty((2, rows), dtype=torch.float32, device=p.device)
+    if rows:
+        err = _cuda.lib().apex_lamb_phase1(
+            _cuda.dtype_code(g.dtype, "lamb g"),
+            _cuda.dtype_code(p.dtype, "lamb p"), g.data_ptr(), p.data_ptr(),
+            m.data_ptr(), v.data_ptr(), u.data_ptr(), m_out.data_ptr(),
+            v_out.data_ptr(), sums[0].data_ptr(), sums[1].data_ptr(),
+            sc.contiguous().data_ptr(), rows, int(mode),
+            _cuda.stream(p.device))
+        _cuda.check(err, "lamb_phase1")
+        lamb_phase1.launches += 1
+    return u, m_out, v_out, sums[0], sums[1]
+
+
+lamb_phase1.launches = 0
+
+
+def lamb_phase2_plain(p, u, ratio, row_seg):
+    """Plain version of ``_lamb_phase2_kernel`` (multi_tensor.py:480-483):
+    ``p - ratio[segment of the row] * u`` in p's dtype."""
+    r = ratio[row_seg.long()][:, None]
+    pf = p.float().view(-1, LANES)
+    return (pf - r * u.view(-1, LANES)).view(-1).to(p.dtype)
+
+
+def lamb_phase2(p, u, ratio, row_seg):
+    """Phase 2 of LAMB: p [rows*128] (fp32 or bf16), u fp32 of the same
+    length, ratio fp32 [segments], row_seg int32 [rows]."""
+    if not dispatch.use_kernel(p):
+        return lamb_phase2_plain(p, u, ratio, row_seg)
+    n = p.numel()
+    if n % LANES or u.shape != p.shape or p.dim() != 1:
+        raise ValueError(f"lamb_phase2: p and u must be flat buffers of one "
+                         f"length, a multiple of {LANES}")
+    _check_flat("lamb_phase2 p", p, p.device)
+    _check_flat("lamb_phase2 u", u, p.device)
+    if u.dtype != torch.float32 or ratio.dtype != torch.float32:
+        raise TypeError("lamb_phase2: u and ratio must be float32")
+    if row_seg.dtype != torch.int32 or row_seg.numel() != n // LANES:
+        raise ValueError("lamb_phase2: row_seg must be int32 [rows]")
+    for t in (ratio, row_seg):
+        if t.device != p.device or not t.is_contiguous():
+            raise ValueError("lamb_phase2: ratio and row_seg must be "
+                             "contiguous on p's device")
+    out = torch.empty_like(p)
+    if n:
+        err = _cuda.lib().apex_lamb_phase2(
+            _cuda.dtype_code(p.dtype, "lamb p"), p.data_ptr(), u.data_ptr(),
+            ratio.data_ptr(), row_seg.data_ptr(), out.data_ptr(), n // LANES,
+            _cuda.stream(p.device))
+        _cuda.check(err, "lamb_phase2")
+        lamb_phase2.launches += 1
+    return out
+
+
+lamb_phase2.launches = 0
+
+
+def _trust_ratio(pn, un, lr, use_nvlamb: bool, weight_decay: float):
+    """multi_tensor.py:528-533: lr * ||p|| / ||u|| where both norms are
+    nonzero, when NVLAMB or weight decay is on; else lr."""
+    if use_nvlamb or weight_decay != 0.0:
+        return torch.where((un != 0.0) & (pn != 0.0), lr * (pn / un),
+                           torch.full_like(pn, lr))
+    return torch.full_like(pn, lr)
+
+
+def lamb_step(g, p, m, v, table: SegmentTable, *, lr, beta1: float,
+              beta2: float, eps: float, step, bias_correction: bool = True,
+              weight_decay: float = 0.0, grad_averaging: bool = True,
+              mode: int = MODE_L2, global_grad_norm,
+              max_grad_norm: float = 0.0, use_nvlamb: bool = False):
+    """Two-phase LAMB over a row-aligned flat buffer (multi_tensor.py:485-
+    544): phase 1, the per-tensor norms as fixed-order sums over each
+    segment's rows, the trust ratio, phase 2. Returns new (p, m, v)."""
+    sc = lamb_scalars(beta1=beta1, beta2=beta2, eps=eps, step=step,
+                      bias_correction=bias_correction,
+                      weight_decay=weight_decay,
+                      grad_averaging=grad_averaging,
+                      global_grad_norm=global_grad_norm,
+                      max_grad_norm=max_grad_norm, device=p.device)
+    u, m_new, v_new, prow, urow = lamb_phase1(g, p, m, v, sc, mode)
+    lengths = table.row_lengths(p.device)
+    pn = torch.sqrt(segment_sum(prow, lengths))
+    un = torch.sqrt(segment_sum(urow, lengths))
+    ratio = _trust_ratio(pn, un, lr, use_nvlamb, weight_decay)
+    p_new = lamb_phase2(p, u, ratio, table.row_segment_ids(p.device))
+    return p_new, m_new, v_new
+
+
+def lamb_step_plain(g, p, m, v, table: SegmentTable, **kw):
+    """Plain version of the whole step (reference.py:329-384, aligned):
+    the plain phases, as :func:`lamb_step` composes them."""
+    with dispatch.backend("reference"):
+        return lamb_step(g, p, m, v, table, **kw)

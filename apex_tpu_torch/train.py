@@ -1,0 +1,94 @@
+"""The ResNet AMP FusedLAMB training step — counterpart of ``bench.py``'s
+``_loss_fn`` and ``train_step`` (bench.py:1244-1306).
+
+One step, as the JAX bench runs it:
+
+1. the flat fp32 master buffer becomes the model's params in one cast
+   (``ops.flat.unflatten(master, table, dtype=half)``);
+2. the ResNet forward and backward, BN through the ``SyncBatchNorm``
+   training core, the loss an fp32 log-softmax, ``select_label_logits``
+   and a mean, scaled by the loss scale; the gradient is taken with
+   respect to the flat master, so it comes back as one flat fp32 buffer;
+3. the loss scaler's unscale (the ``scale`` kernel) and overflow flag;
+4. FusedLAMB's two-phase update (the LAMB kernels), skipped branchlessly
+   on overflow, and the scaler's update.
+
+Nothing in the step reads a value back to the host: the loss is returned
+as a device tensor.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from apex_tpu_torch._device import resolve_device
+from apex_tpu_torch.amp import frontend as _amp
+from apex_tpu_torch.contrib.xentropy import select_label_logits
+from apex_tpu_torch.ops import flat as _flat
+from apex_tpu_torch.optimizers.fused_lamb import FusedLAMB
+
+__all__ = ["Trainer"]
+
+
+class Trainer:
+    """Owns the model, its BN state, the AMP handle and its state, and
+    FusedLAMB with its state (in ``opt.state``).
+
+    ``params`` and ``bn_state`` are the model's trees (``model.init()`` or
+    ``convert.resnet_from_jax``); ``opt_level`` and ``amp_overrides`` go
+    to ``amp.initialize`` (O0, O2 or O3; the JAX bench runs O2, which on
+    bf16 means a static loss scale of 1.0); ``lr`` to ``FusedLAMB``, whose
+    other hyperparameters keep their defaults, as in the JAX bench.
+    Everything lives on ``device``, the card unless ``device="cpu"``.
+    """
+
+    def __init__(self, model, params, bn_state, *, opt_level: str = "O2",
+                 lr: float = 1e-3, device=None, **amp_overrides):
+        self.device = resolve_device(device)
+        self.model = model
+        _, self.handle = _amp.initialize(opt_level=opt_level, verbosity=0,
+                                         **amp_overrides)
+        policy = self.handle.policy
+        if policy.autocast:
+            raise NotImplementedError(
+                "O1 per-op autocast is not ported yet (ROADMAP.md Queue 1, "
+                "slice 3); use O0, O2 or O3")
+        self.half = policy.cast_model_dtype
+        self.amp_state = self.handle.init_state(self.device)
+        self.opt = FusedLAMB(params, lr=lr, device=self.device)
+        self.table = self.opt._tables[0]
+        self.bn_state = _flat.tree_map(lambda t: t.to(self.device),
+                                       bn_state)
+
+    def loss_and_grad(self, x, y):
+        """Forward and backward: ``(flat fp32 master grad, still scaled;
+        loss; new BN state)``."""
+        master = self.opt.state[0].master.detach().requires_grad_(True)
+        p_half = _flat.unflatten(master, self.table, dtype=self.half)
+        if x.is_floating_point():
+            x = x.to(self.half)
+        logits, new_bn = self.model.apply(p_half, self.bn_state, x,
+                                          training=True)
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        loss = -torch.mean(select_label_logits(logp, y))
+        scaled = self.handle.scale_loss(loss, self.amp_state)
+        (flat_grad,) = torch.autograd.grad(scaled, master)
+        return flat_grad, loss.detach(), new_bn
+
+    def apply_grads(self, flat_grad, new_bn):
+        """Unscale, update the masters (skipped on overflow) and the
+        scaler; keep the new BN state. Returns found_inf (device bool)."""
+        flat_grad, found_inf = self.handle.unscale(flat_grad,
+                                                   self.amp_state)
+        self.opt.state = self.opt.apply_update(
+            self.opt.state, [flat_grad], found_inf=found_inf)
+        self.amp_state = self.handle.update(self.amp_state, found_inf)
+        self.bn_state = new_bn
+        return found_inf
+
+    def step(self, x, y):
+        """One training step on ``x`` (N, 3, H, W) and int labels ``y``;
+        returns the unscaled loss as a device tensor."""
+        flat_grad, loss, new_bn = self.loss_and_grad(x, y)
+        self.apply_grads(flat_grad, new_bn)
+        return loss

@@ -1,8 +1,9 @@
 """The port's hand kernels on an NVIDIA card (marker ``cuda``).
 
 Each kernel against its plain PyTorch version on the same card tensors,
-the wrappers' refusals, and a small engine whose paged greedy streams
-must equal its dense ones while every kernel launches. Without a card
+the wrappers' refusals, a small engine whose paged greedy streams must
+equal its dense ones while every kernel launches, and the CI ResNet's
+training steps through the kernels against the plain versions. Without a card
 every test here skips. On a machine with one (no JAX needed)::
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -139,3 +140,200 @@ def test_engine_paged_equals_dense_through_the_kernels(card):
     with dispatch.backend("reference"):
         plain, _ = ContinuousBatchingEngine(m, p, **kw).run(reqs)
     assert [r.tokens for r in plain] == [r.tokens for r in dense]
+
+
+# -- the training slice: scale and the two LAMB phases ------------------------
+
+@pytest.mark.parametrize("n", [128, 128 * 8, 128 * 1037, 1001])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scale_kernel_matches_plain(card, n, dtype):
+    from apex_tpu_torch.ops import multi_tensor as MT
+    g = torch.Generator(device=card).manual_seed(n)
+    x = torch.randn(n, generator=g, device=card).to(dtype)
+    s = torch.full((), 0.3, device=card)
+    out, inf = MT.scale(x, s)
+    out0, inf0 = MT.scale_plain(x, s)
+    assert torch.equal(out, out0)          # one fp32 multiply, one rounding
+    assert not bool(inf) and not bool(inf0)
+    # an offset view takes the scalar loads
+    out1, _ = MT.scale(x[1:], 0.3)
+    assert torch.equal(out1, MT.scale_plain(x[1:], 0.3)[0])
+
+
+@pytest.mark.parametrize("pos", [0, 64, -1])
+@pytest.mark.parametrize("bad", [float("inf"), float("-inf"), float("nan")])
+def test_scale_kernel_flags_non_finite_input(card, pos, bad):
+    from apex_tpu_torch.ops import multi_tensor as MT
+    x = torch.ones(128 * 9 + 3, device=card)
+    x[pos] = bad
+    _, inf = MT.scale(x, 1.0)
+    assert bool(inf)
+    # the flag reads the input: a finite input that saturates is no overflow
+    _, inf = MT.scale(torch.full((256,), 3e38, device=card), 10.0)
+    assert not bool(inf)
+
+
+def _lamb_inputs(card, dtype, sizes=(1000, 128, 77, 4096, 1)):
+    from apex_tpu_torch.ops import flat
+    g = torch.Generator(device=card).manual_seed(3)
+    tree = {f"p{i}": torch.randn(n, generator=g, device=card)
+            for i, n in enumerate(sizes)}
+    p, table = flat.flatten(tree)
+    mask = table.valid_mask(card)
+    rnd = [torch.randn(table.total, generator=g, device=card) * mask
+           for _ in range(3)]
+    grad, m, v = rnd[0], rnd[1] * 0.1, rnd[2].abs() * 0.01
+    return grad, p.to(dtype), m.to(dtype), v.to(dtype), table
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", [0, 1])
+def test_lamb_kernels_match_plain(card, dtype, mode):
+    from apex_tpu_torch.ops import multi_tensor as MT
+    grad, p, m, v, table = _lamb_inputs(card, dtype)
+    step = torch.tensor(3, dtype=torch.int32, device=card)
+    sc = MT.lamb_scalars(beta1=0.9, beta2=0.999, eps=1e-6, step=step,
+                         bias_correction=True, weight_decay=0.01,
+                         grad_averaging=True,
+                         global_grad_norm=grad.norm(), max_grad_norm=1.0,
+                         device=card)
+    got = MT.lamb_phase1(grad, p, m, v, sc, mode)
+    want = MT.lamb_phase1_plain(grad, p, m, v, sc, mode)
+    for a, b in zip(got[:3], want[:3]):
+        assert torch.equal(a, b)           # same operations, same roundings
+    for a, b in zip(got[3:], want[3:]):
+        _close(a, b, torch.float32)        # row sums: another order
+    ratio = torch.rand(table.num_segments, device=card)
+    row_seg = table.row_segment_ids(card)
+    assert torch.equal(MT.lamb_phase2(p, got[0], ratio, row_seg),
+                       MT.lamb_phase2_plain(p, got[0], ratio, row_seg))
+    kw = dict(lr=1e-3, beta1=0.9, beta2=0.999, eps=1e-6, step=step,
+              weight_decay=0.01, mode=mode, global_grad_norm=grad.norm(),
+              max_grad_norm=1.0)
+    a = MT.lamb_step(grad, p, m, v, table, **kw)
+    b = MT.lamb_step(grad, p, m, v, table, **kw)
+    c = MT.lamb_step_plain(grad, p, m, v, table, **kw)
+    for x, y, z in zip(a, b, c):
+        assert torch.equal(x, y)           # bitwise repeatable
+        _close(x, z, dtype)
+
+
+def test_multi_tensor_wrappers_refuse_what_the_kernels_do_not_take(card):
+    from apex_tpu_torch.ops import kernels as K
+    from apex_tpu_torch.ops import flat
+    from apex_tpu_torch.ops import multi_tensor as MT
+    with pytest.raises(TypeError, match="dtype"):
+        MT.scale(torch.zeros(128, dtype=torch.float16, device=card), 1.0)
+    with pytest.raises(ValueError, match="flat"):
+        MT.scale(torch.zeros(2, 128, device=card), 1.0)
+    grad, p, m, v, table = _lamb_inputs(card, torch.float32)
+    sc = torch.ones(9, device=card)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        MT.lamb_phase1(grad[:-1], p[:-1], m[:-1], v[:-1], sc, 0)
+    with pytest.raises(TypeError, match="one dtype"):
+        MT.lamb_phase1(grad, p, m.bfloat16(), v, sc, 0)
+    tree = {"a": torch.zeros(3, device=card), "b": torch.zeros(5,
+                                                               device=card)}
+    buf, t1 = flat.flatten(tree, align=1)
+    with pytest.raises(ValueError, match="row-aligned"):
+        K.lamb_step(buf, buf, buf, buf, t1, aligned_segments=True, lr=1e-3,
+                    beta1=0.9, beta2=0.999, eps=1e-6, step=1,
+                    global_grad_norm=1.0)
+
+
+def test_trainer_through_the_kernels_matches_plain(card):
+    """Three O0 steps of the CI ResNet with the kernels and with the plain
+    versions on the card: masters within 1e-4; every kernel of the step
+    launched (the 9 BNs: one moments pass forward, one reduce and one dx
+    pass backward, each)."""
+    from apex_tpu_torch.models import ResNet
+    from apex_tpu_torch.ops import multi_tensor as MT
+    from apex_tpu_torch.ops import welford as WF
+    from apex_tpu_torch.train import Trainer
+    torch.backends.cudnn.deterministic = True
+    m = ResNet(block_sizes=(1, 1), bottleneck=True, num_classes=10, width=8)
+    params, state = m.init(0)
+    g = torch.Generator(device=card).manual_seed(0)
+    x = torch.randn(4, 3, 32, 32, generator=g, device=card)
+    y = torch.randint(0, 10, (4,), generator=g, device=card)
+
+    def run():
+        tr = Trainer(m, params, state, opt_level="O0")
+        losses = [tr.step(x, y) for _ in range(3)]
+        return tr.opt.state[0].master, torch.stack(losses)
+
+    fns = (MT.scale, MT.lamb_phase1, MT.lamb_phase2, WF.bn_moments,
+           WF.bn_backward_fused_reduce, WF.bn_backward_dx)
+    before = [f.launches for f in fns]
+    master, losses = run()
+    after = [f.launches for f in fns]
+    assert [a - b for a, b in zip(after, before)] == [3, 3, 3, 27, 27, 27]
+    with dispatch.backend("reference"):
+        master0, losses0 = run()
+    torch.testing.assert_close(master, master0, atol=1e-4, rtol=0)
+    assert bool(torch.isfinite(losses).all()) and losses[-1] < losses[0]
+
+
+# -- the BatchNorm welford passes ------------------------------------------------
+
+def _bn_case(card, rows, c, dtype, seed=0):
+    g = torch.Generator(device=card).manual_seed(seed)
+    x = (torch.randn(rows, c, generator=g, device=card) * 2 + 0.5).to(dtype)
+    dy = torch.randn(rows, c, generator=g, device=card).to(dtype)
+    out = torch.relu(torch.randn(rows, c, generator=g, device=card)).to(dtype)
+    s, sq = (x.float().sum(0), x.float().square().sum(0))
+    mean = s / rows
+    invvar = torch.rsqrt(sq / rows - mean * mean + 1e-5)
+    return x, dy, out, mean, invvar
+
+
+def _sums_close(got, want, terms):
+    """Sums in another order: within 1e-5 of each column's sum of |terms|."""
+    bound = 1e-5 * terms.abs().sum(0) + 1e-6
+    assert bool(((got - want).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("rows,c", [(1, 4), (37, 8), (1000, 64),
+                                    (4099, 200), (300, 2048)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_welford_kernels_match_plain(card, rows, c, dtype):
+    from apex_tpu_torch.ops import welford as WF
+    x, dy, out, mean, invvar = _bn_case(card, rows, c, dtype, seed=rows)
+    s, sq = WF.bn_moments(x)
+    s0, sq0 = WF.bn_moments_plain(x)
+    _sums_close(s, s0, x.float())
+    _sums_close(sq, sq0, x.float().square())
+    for mask in (None, out):
+        sd, sx = WF.bn_backward_fused_reduce(dy, x, mean, invvar, mask)
+        sd0, sx0 = WF.bn_backward_fused_reduce_plain(dy, x, mean, invvar,
+                                                     mask)
+        dyf = dy.float() * ((out.float() > 0) if mask is not None else 1.0)
+        _sums_close(sd, sd0, dyf)
+        _sums_close(sx, sx0, dyf * (x.float() - mean) * invvar)
+        winv = invvar * 1.5
+        args = (dy, x, mean, invvar, winv, sd0 / rows, sx0 / rows, mask)
+        dx, dz = WF.bn_backward_dx(*args, emit_dz=True)
+        dx0, dz0 = WF.bn_backward_dx_plain(*args, emit_dz=True)
+        assert torch.equal(dx, dx0)        # same operations, same roundings
+        assert torch.equal(dz, dz0)
+        assert WF.bn_backward_dx(*args)[1] is None
+    # two runs give the same bits: the chunks add in a fixed order
+    assert torch.equal(WF.bn_moments(x)[1], sq)
+
+
+def test_welford_wrappers_refuse_what_the_kernels_do_not_take(card):
+    from apex_tpu_torch.ops import welford as WF
+    x = torch.zeros(16, 6, device=card)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        WF.bn_moments(x)
+    x = torch.zeros(8, 16, device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        WF.bn_moments(torch.zeros(16, 8, device=card).t())
+    mean = torch.zeros(16, device=card)
+    with pytest.raises(ValueError, match="one dtype"):
+        WF.bn_backward_fused_reduce(x.bfloat16(), x, mean, mean)
+    with pytest.raises(ValueError, match="per-channel"):
+        WF.bn_backward_dx(x, x, mean[:8], mean, mean, mean, mean)
+    with pytest.raises(TypeError, match="dtype"):
+        WF.bn_moments(x.double())

@@ -111,3 +111,85 @@ def test_missing_nvcc_is_reported(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         cuda.build()
+
+
+def test_training_subpackages_import_without_jax():
+    code = ("import sys, apex_tpu_torch\n"
+            "import apex_tpu_torch.amp, apex_tpu_torch.optimizers, "
+            "apex_tpu_torch.parallel, apex_tpu_torch.contrib.xentropy, "
+            "apex_tpu_torch.ops.flat, apex_tpu_torch.ops.kernels, "
+            "apex_tpu_torch.ops.welford, "
+            "apex_tpu_torch.train\n"
+            "from apex_tpu_torch.amp import initialize, LossScaler\n"
+            "from apex_tpu_torch.optimizers import FusedLAMB\n"
+            "from apex_tpu_torch.parallel import SyncBatchNorm\n"
+            "from apex_tpu_torch.models import ResNet, resnet50\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'jaxlib', 'apex_tpu.')) or "
+            "m == 'apex_tpu')\n"
+            "print(','.join(bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == ""
+
+
+def test_training_entry_points_default_to_the_card_and_raise_without_it(
+        no_cuda):
+    from apex_tpu_torch.amp import LossScaler, initialize
+    from apex_tpu_torch.convert import resnet_from_jax
+    from apex_tpu_torch.models import ResNet
+    from apex_tpu_torch.optimizers import FusedLAMB
+    from apex_tpu_torch.parallel import SyncBatchNorm
+    from apex_tpu_torch.train import Trainer
+    ci = dict(block_sizes=(1, 1), bottleneck=True, num_classes=10, width=8)
+    m = ResNet(**ci, device="cpu")
+    params, state = m.init(0)
+    _, handle = initialize(opt_level="O2", verbosity=0)
+    for call in (
+            lambda: ResNet(**ci),
+            lambda: FusedLAMB(params),
+            lambda: Trainer(m, params, state),
+            lambda: LossScaler().init(),
+            lambda: handle.init_state(),
+            lambda: SyncBatchNorm(8, axis_name=None).init(),
+            lambda: resnet_from_jax({"w": np.zeros(2, np.float32)}, {})):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+
+
+def test_cpu_trainer_stays_on_the_cpu():
+    from apex_tpu_torch.models import ResNet
+    from apex_tpu_torch.train import Trainer
+    m = ResNet(block_sizes=(1, 1), bottleneck=True, num_classes=10, width=8,
+               device="cpu")
+    tr = Trainer(m, *m.init(0), device="cpu")
+    loss = tr.step(torch.randn(2, 3, 16, 16), torch.tensor([1, 2]))
+    assert loss.device.type == "cpu" and loss.dim() == 0
+    assert tr.opt.state[0].master.device.type == "cpu"
+    assert tr.amp_state[0].scale.device.type == "cpu"
+
+
+def test_ctypes_declarations_match_the_c_entry_points():
+    """Every ``extern "C"`` entry point of csrc/*.cu is declared by the
+    loader with one ctypes type per C parameter (machines without nvcc
+    cannot compile them, so a miscounted declaration would show only on
+    the card), and every source is part of the build and its hash."""
+    import re
+    import types
+
+    from apex_tpu_torch.ops import cuda
+    sources = cuda._sources()
+    assert {p.name for p in sources} >= {"decode_attn.cu", "layer_norm.cu",
+                                         "multi_tensor.cu", "welford.cu"}
+    sigs = {}
+    for p in sources:
+        for name, params in re.findall(
+                r'extern "C" int (\w+)\(([^)]*)\)', p.read_text()):
+            sigs[name] = len([a for a in params.split(",") if a.strip()])
+    so = types.SimpleNamespace(**{n: types.SimpleNamespace() for n in sigs})
+    cuda._declare(so)
+    for name, n in sigs.items():
+        assert len(getattr(so, name).argtypes) == n, name
+    assert len(sigs) == 8
