@@ -1,44 +1,74 @@
-"""Prefill attention — the part of
-``apex_tpu/contrib/multihead_attn/flash_attention.py`` the serving path
-runs: ``NEG_INF`` (:73) and ``reference_attention`` (:586-631) on its
-causal, no-bias, no-dropout path.
+"""Flash attention — counterpart of
+``apex_tpu/contrib/multihead_attn/flash_attention.py``.
 
-The JAX package runs this outside any kernel (chunked prefill and the
-model's forward use the unfused path), so it stays plain PyTorch here,
-op for op: fp32 scores, finite ``NEG_INF`` masking, max, exp under where,
-sum, guarded divide. The flash kernels (forward and backward) come with
-the training slice.
+``flash_attention`` is a ``torch.autograd.Function`` whose forward is the
+flash forward kernel and whose backward is the dq and dk/dv kernels
+(``ops/flash_attn.py``; the plain versions for CPU tensors), with lse as a
+true output whose cotangent folds into the backward's per-row term.
+``reference_attention`` is the unfused path (``impl="default"``, prefill
+and the numerics oracle).
+
+Not ported yet, and refused: an additive ``bias``, a per-key ``kv_bias``
+and dropout (ROADMAP.md Queue 1, item 15). ``DEFAULT_FLASH_MIN_S`` is the
+JAX package's constant; the port reads no crossover file and no
+environment variable: those hold TPU measurements.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["NEG_INF", "reference_attention"]
+from apex_tpu_torch.ops import flash_attn as FA
+from apex_tpu_torch.ops.flash_attn import NEG_INF, reference_attention
 
-# finite -inf stand-in: exp(NEG_INF - m) is exactly 0.0 in fp32, so a fully
-# masked row yields zeros instead of NaN
-NEG_INF = -1.0e30
+__all__ = ["NEG_INF", "DEFAULT_FLASH_MIN_S", "reference_attention",
+           "flash_attention"]
+
+# the smallest max(Sq, Sk) that impl="auto" sends to the flash kernels
+DEFAULT_FLASH_MIN_S = 4096
 
 
-def reference_attention(q, k, v, *, causal: bool = False, scale=None,
-                        q_start: int = 0, k_start: int = 0):
-    """Unfused attention: q [..., Sq, d], k/v [..., Sk, d]. With
-    ``causal``, query row i (absolute position ``q_start + i``) sees keys
-    at absolute positions ``k_start + j <= q_start + i``. Returns
-    [..., Sq, d] in q's dtype."""
-    sq, d = q.shape[-2], q.shape[-1]
-    sk = k.shape[-2]
+class _FlashCore(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, q_start, k_start):
+        cfg = dict(causal=causal, scale=scale, q_start=q_start,
+                   k_start=k_start)
+        o, lse = FA.flash_fwd(q, k, v, **cfg)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.cfg = cfg
+        ctx.set_materialize_grads(False)   # an unused lse costs nothing
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros_like(o)
+        delta = FA.flash_delta(o, do, dlse)
+        dq = FA.flash_bwd_dq(q, k, v, do, lse, delta, **ctx.cfg)
+        dk, dv = FA.flash_bwd_dkv(q, k, v, do, lse, delta, **ctx.cfg)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(q, k, v, bias=None, *, kv_bias=None,
+                    causal: bool = False, scale=None, q_start: int = 0,
+                    k_start: int = 0, return_lse: bool = False,
+                    dropout_rate: float = 0.0):
+    """Fused attention over [B, H, S, D] (or [BH, S, D]) inputs, causal
+    masking by absolute positions ``q_start + i`` / ``k_start + j``.
+    Returns o in q's dtype and, with ``return_lse``, the fp32 lse."""
+    if bias is not None or kv_bias is not None or dropout_rate > 0.0:
+        raise NotImplementedError(
+            "flash_attention: bias, kv_bias and dropout are not ported yet "
+            "(ROADMAP.md Queue 1, item 15)")
+    lead = q.shape[:-2]
+    if q.dim() == 4:
+        q, k, v = (t.reshape(-1, *t.shape[2:]) for t in (q, k, v))
     if scale is None:
-        scale = 1.0 / float(d) ** 0.5
-    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    if causal:
-        q_pos = q_start + torch.arange(sq, device=q.device)[:, None]
-        k_pos = k_start + torch.arange(sk, device=q.device)[None, :]
-        s = torch.where(q_pos >= k_pos, s, torch.full_like(s, NEG_INF))
-    m = torch.clamp(s.amax(dim=-1, keepdim=True), min=NEG_INF)
-    p = torch.where(s > NEG_INF * 0.5, torch.exp(s - m),
-                    torch.zeros_like(s))
-    l_sum = p.sum(dim=-1, keepdim=True)
-    probs = p / torch.where(l_sum > 0.0, l_sum, torch.ones_like(l_sum))
-    return torch.matmul(probs, v.float()).to(q.dtype)
+        scale = 1.0 / float(q.shape[-1]) ** 0.5
+    o, lse = _FlashCore.apply(q, k, v, bool(causal), float(scale),
+                              int(q_start), int(k_start))
+    o = o.reshape(*lead, *o.shape[1:])
+    if return_lse:
+        return o, lse.reshape(*lead, lse.shape[-1])
+    return o

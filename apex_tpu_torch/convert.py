@@ -19,7 +19,7 @@ import torch
 
 from apex_tpu_torch._device import resolve_device
 
-__all__ = ["params_from_jax", "resnet_from_jax"]
+__all__ = ["params_from_jax", "resnet_from_jax", "opt_state_from_jax"]
 
 
 def _leaf(a, device: torch.device, dtype: Optional[torch.dtype]):
@@ -58,3 +58,18 @@ def resnet_from_jax(params: dict, state: dict, *, device=None,
     fp32 and ``num_batches_tracked`` int32."""
     return (params_from_jax(params, device=device, dtype=dtype),
             params_from_jax(state, device=device))
+
+
+def opt_state_from_jax(state, *, device=None) -> tuple:
+    """A JAX fused optimizer's state — a sequence of per-group states with
+    ``master``, ``slots`` (a dict) and ``step``, numpy leaves or arrays —
+    -> the port's tuple of ``GroupState`` on ``device``, to assign to a
+    port optimizer's ``state`` built over the same params tree (the two
+    packages lay the flat buffer out alike)."""
+    from apex_tpu_torch.optimizers.base import GroupState
+    dev = resolve_device(device)
+    return tuple(GroupState(
+        master=_leaf(gs.master, dev, None),
+        slots={k: _leaf(v, dev, None) for k, v in gs.slots.items()},
+        step=torch.tensor(int(np.asarray(gs.step)), dtype=torch.int32,
+                          device=dev)) for gs in state)

@@ -1,5 +1,6 @@
 """Transformer language model — counterpart of
-``apex_tpu/models/transformer.py`` for the serving path.
+``apex_tpu/models/transformer.py``: the serving path and the training
+loss.
 
 Pre-LN decoder-only architecture::
 
@@ -8,16 +9,20 @@ Pre-LN decoder-only architecture::
     x += MLP(LN(x))            # GeLU (tanh form, as jax.nn.gelu)
     logits = LN(x) @ tok_emb.T
 
-Ported: the config fields the serving path reads, ``init`` (same names
-and shapes, drawn from a ``torch.Generator``), ``apply`` (forward without
-dropout, remat, MoE or sequence parallelism), the KV-cache block stack
+Ported: the config fields of both paths, ``init`` (same names and
+shapes, drawn from a ``torch.Generator``), ``apply`` (the forward, under
+autograd, without dropout, remat, MoE or sequence parallelism), ``loss``
+(next-token cross entropy through the chunked fused head), the KV-cache
+block stack
 ``_cached_blocks``, ``_decode_one``, the fused slot-batched decode step
 ``_decode_slots`` (1-query, dense and paged arenas), ``_prefill`` and
 greedy ``generate``. Parameters keep the JAX layout, weights ``[in, out]``,
 so ``x @ W`` is the same product in both packages.
 
 Every LayerNorm goes through ``normalization.fused_layer_norm_affine``
-(the LayerNorm kernel on the card) and the decode step's attention through
+(the LayerNorm kernels on the card), ``apply``'s attention through
+``SelfMultiheadAttn`` with ``attn_impl`` (the flash kernels on the card
+for "fast"), and the decode step's attention through
 ``slot_decode_attention`` (the decode kernels on the card). Prefill
 attention is ``reference_attention``, plain PyTorch, as in the JAX
 package. The QKV, out-projection, MLP and head products are
@@ -38,6 +43,7 @@ from apex_tpu_torch.contrib.multihead_attn.decode_attention import (
 from apex_tpu_torch.contrib.multihead_attn.flash_attention import (
     reference_attention)
 from apex_tpu_torch.contrib.multihead_attn.modules import SelfMultiheadAttn
+from apex_tpu_torch.contrib.xentropy import linear_cross_entropy
 from apex_tpu_torch.normalization import fused_layer_norm_affine
 
 __all__ = ["TransformerLM"]
@@ -56,7 +62,12 @@ class TransformerLM:
     num_heads: int = 8
     num_layers: int = 6
     ffn_mult: int = 4
-    # the parts of the JAX config this slice does not port; the
+    dropout: float = 0.0
+    attn_impl: str = "auto"
+    # > 0: the loss goes through linear_cross_entropy in vocab chunks of
+    # this size and never builds the [B*T, V] logits
+    head_chunk: int = 0
+    # the parts of the JAX config this port does not have yet; the
     # constructor refuses them rather than running a different model
     seq_axis: Optional[str] = None
     moe_experts: int = 0
@@ -77,13 +88,24 @@ class TransformerLM:
             raise NotImplementedError(
                 "remat is a training option, not ported yet (ROADMAP.md "
                 "Queue 1, slice 4)")
+        if self.dropout > 0.0:
+            raise NotImplementedError(
+                "attention dropout is not ported yet (ROADMAP.md Queue 1, "
+                "item 15)")
+        if self.head_chunk > 0 and \
+                self.vocab_size % min(self.head_chunk, self.vocab_size):
+            raise ValueError(
+                f"head_chunk ({self.head_chunk}) must divide "
+                f"vocab_size ({self.vocab_size})")
         if self.embed_dim % self.num_heads:
             raise ValueError("embed_dim must be divisible by num_heads")
+        self._mha()                          # validates attn_impl
         object.__setattr__(self, "device", resolve_device(self.device))
 
     def _mha(self) -> SelfMultiheadAttn:
         return SelfMultiheadAttn(self.embed_dim, self.num_heads, bias=True,
-                                 causal=True)
+                                 causal=True, dropout=self.dropout,
+                                 impl=self.attn_impl)
 
     def init(self, generator: Union[torch.Generator, int] = 0, *,
              dtype: torch.dtype = torch.float32) -> dict:
@@ -125,16 +147,19 @@ class TransformerLM:
         h = _gelu(x @ mp["w1"] + mp["b1"])
         return h @ mp["w2"] + mp["b2"]
 
-    @torch.no_grad()
-    def apply(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens: int [B, T]. Returns logits fp32 [B, T, vocab]."""
+    def apply(self, params: dict, tokens: torch.Tensor, *,
+              return_hidden: bool = False) -> torch.Tensor:
+        """tokens: int [B, T]. Returns logits fp32 [B, T, vocab] or, with
+        ``return_hidden``, the final-LN hidden states [B, T, E] (for the
+        chunked head loss). Differentiable in ``params``."""
         b, t = tokens.shape
         if t > self.max_seq_len:
             raise ValueError(
                 f"sequence length {t} exceeds max_seq_len="
                 f"{self.max_seq_len}; raise max_seq_len at construction")
         tokens = tokens.to(params["tok_emb"].device, torch.long)
-        x = params["tok_emb"][tokens] + params["pos_emb"][:t]
+        # F.embedding: its backward sums the rows in a fixed order
+        x = F.embedding(tokens, params["tok_emb"]) + params["pos_emb"][:t]
         mha = self._mha()
         for i in range(self.num_layers):
             lp = params[f"layer_{i}"]
@@ -144,7 +169,31 @@ class TransformerLM:
             x = x + attn_out.transpose(0, 1)
             x = x + self._mlp(self._ln(x, lp["ln2"]), lp["mlp"])
         x = self._ln(x, params["ln_f"])
+        if return_hidden:
+            return x
         return (x @ params["tok_emb"].T).float()
+
+    def _token_losses(self, params, out, targets_flat):
+        """Per-token losses from apply()'s output (the final hidden states
+        when ``head_chunk`` > 0)."""
+        if self.head_chunk <= 0:
+            raise NotImplementedError(
+                "the full-logits loss (head_chunk=0) needs the fused "
+                "softmax cross-entropy kernels, not ported yet (ROADMAP.md "
+                "Queue 1, item 14)")
+        return linear_cross_entropy(out.reshape(-1, self.embed_dim),
+                                    params["tok_emb"], targets_flat,
+                                    chunk=self.head_chunk)
+
+    def loss(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+        """Mean next-token cross entropy of tokens int [B, T]: the model
+        reads ``tokens[:, :-1]`` and predicts ``tokens[:, 1:]``
+        (transformer.py:240-279, ``seq_axis=None``)."""
+        out = self.apply(params, tokens[:, :-1],
+                         return_hidden=self.head_chunk > 0)
+        targets = tokens[:, 1:].to(out.device, torch.long)
+        return torch.mean(self._token_losses(params, out,
+                                             targets.reshape(-1)))
 
     __call__ = apply
 

@@ -1,11 +1,9 @@
-"""FusedLayerNorm forward — counterpart of
+"""FusedLayerNorm — counterpart of
 ``apex_tpu/normalization/fused_layer_norm.py``.
 
-Forward only in this slice: the serving path never differentiates. The
-rows go through ``ops.layer_norm.ln_fwd`` (the hand kernel on the card,
-the plain version on the CPU). On the card a call that would need a
-gradient raises; the autograd Function with the backward kernel comes
-with the training slice (ROADMAP.md Queue 1, slice 4).
+An autograd Function over rows: the forward is ``ops.layer_norm.ln_fwd``
+and the backward ``ops.layer_norm.ln_bwd`` (the hand kernels on the card,
+the plain versions on the CPU).
 """
 
 from __future__ import annotations
@@ -16,7 +14,7 @@ import torch
 from torch import nn
 
 from apex_tpu_torch._device import resolve_device
-from apex_tpu_torch.ops.layer_norm import ln_fwd
+from apex_tpu_torch.ops.layer_norm import ln_bwd, ln_fwd
 
 __all__ = ["FusedLayerNorm", "fused_layer_norm", "fused_layer_norm_affine"]
 
@@ -46,22 +44,36 @@ def _n1_n2(x_shape, normalized_shape):
     return n1, n2
 
 
-def _ln_fwd_math(x, weight, bias, normalized_shape, eps):
-    """(out, mean, invvar) with mean/invvar in keepdims shape, fp32."""
-    if x.is_cuda and torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (x, weight, bias)):
-        raise NotImplementedError(
-            "FusedLayerNorm is forward-only on the card in this port "
-            "slice (the backward kernel comes with training, ROADMAP.md "
-            "Queue 1, slice 4); run under torch.no_grad()")
-    n1, n2 = _n1_n2(x.shape, normalized_shape)
-    k = len(normalized_shape)
-    y, mean, invvar = ln_fwd(
-        x.reshape(n1, n2).contiguous(),
-        None if weight is None else weight.reshape(n2).contiguous(),
-        None if bias is None else bias.reshape(n2).contiguous(), eps)
-    ks = tuple(x.shape[:x.dim() - k]) + (1,) * k
-    return y.reshape(x.shape), mean.reshape(ks), invvar.reshape(ks)
+class _LayerNorm(torch.autograd.Function):
+    """The reference's autograd shape (fused_layer_norm.py:21-22): the
+    forward kernel saves (x, weight, mean, invvar); the backward kernel
+    gives dx and the fp32 column sums, cast to the weight's and the bias's
+    dtypes as ``_ln_affine_bwd`` does (fused_layer_norm.py:125-157)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, normalized_shape, eps):
+        n1, n2 = _n1_n2(x.shape, normalized_shape)
+        x2 = x.reshape(n1, n2).contiguous()
+        w2 = None if weight is None else weight.reshape(n2).contiguous()
+        b2 = None if bias is None else bias.reshape(n2).contiguous()
+        y, mean, invvar = ln_fwd(x2, w2, b2, eps)
+        ctx.save_for_backward(x2, w2, mean, invvar)
+        ctx.x_shape = x.shape
+        ctx.wb = None if weight is None else (weight.shape, weight.dtype,
+                                              bias.shape, bias.dtype)
+        return y.reshape(x.shape)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2, w2, mean, invvar = ctx.saved_tensors
+        dx, gw, gb = ln_bwd(dy.reshape(x2.shape).contiguous(), x2, w2, mean,
+                            invvar)
+        dx = dx.reshape(ctx.x_shape)
+        if ctx.wb is None:
+            return dx, None, None, None, None
+        w_shape, w_dtype, b_shape, b_dtype = ctx.wb
+        return (dx, gw.reshape(w_shape).to(w_dtype),
+                gb.reshape(b_shape).to(b_dtype), None, None)
 
 
 def fused_layer_norm_affine(x, normalized_shape, weight, bias,
@@ -69,13 +81,13 @@ def fused_layer_norm_affine(x, normalized_shape, weight, bias,
     """Functional affine layernorm, the reference signature (input,
     normalized_shape, weight, bias, eps=1e-6)."""
     ns = _canon_shape(normalized_shape)
-    return _ln_fwd_math(x, weight, bias, ns, float(eps))[0]
+    return _LayerNorm.apply(x, weight, bias, ns, float(eps))
 
 
 def fused_layer_norm(x, normalized_shape, eps: float = 1e-6):
     """Functional non-affine layernorm (same 1e-6 default)."""
     ns = _canon_shape(normalized_shape)
-    return _ln_fwd_math(x, None, None, ns, float(eps))[0]
+    return _LayerNorm.apply(x, None, None, ns, float(eps))
 
 
 class FusedLayerNorm(nn.Module):

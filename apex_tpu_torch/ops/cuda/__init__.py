@@ -134,6 +134,17 @@ def _declare(so: ctypes.CDLL) -> None:
     so.apex_bn_bwd_reduce.restype = I
     so.apex_bn_bwd_dx.argtypes = [I, P, P, P, P, P, P, L, I, I, P]
     so.apex_bn_bwd_dx.restype = I
+    so.apex_adam.argtypes = [I, I] + [P] * 8 + [L, I, P]
+    so.apex_adam.restype = I
+    so.apex_layer_norm_bwd.argtypes = [I, I] + [P] * 9 + [I] * 4 + [P]
+    so.apex_layer_norm_bwd.restype = I
+    tail = [I] * 7 + [F, P]     # bh, sq, sk, d, q_start, k_start, causal
+    so.apex_flash_fwd.argtypes = [P] * 5 + [L] * 6 + tail
+    so.apex_flash_fwd.restype = I
+    so.apex_flash_bwd_dq.argtypes = [P] * 7 + [L] * 8 + tail
+    so.apex_flash_bwd_dq.restype = I
+    so.apex_flash_bwd_dkv.argtypes = [P] * 8 + [L] * 8 + tail
+    so.apex_flash_bwd_dkv.restype = I
 
 
 def lib() -> ctypes.CDLL:

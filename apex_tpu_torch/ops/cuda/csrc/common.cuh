@@ -93,4 +93,40 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+namespace {
+
+// The second pass of the column sums that the BN and LayerNorm backward
+// kernels take without float atomics: ws [2][nchunk][c] holds each chunk of
+// rows' partial sums; o0[c], o1[c] get each column's chunks added in a
+// fixed order, split over 32 row threads whose results are then added in
+// order. Launch with grid (c + 31) / 32 and block (32, 32).
+__global__ void __launch_bounds__(1024)
+finalize_kernel(const float* __restrict__ ws, int nchunk, int c,
+                float* __restrict__ o0, float* __restrict__ o1) {
+  __shared__ float sh[2][32][33];
+  const int col = blockIdx.x * 32 + threadIdx.x;
+  float a = 0.f, b = 0.f;
+  if (col < c) {
+    const float* w1 = ws + (long long)nchunk * c;
+    for (int j = threadIdx.y; j < nchunk; j += 32) {
+      a += ws[(long long)j * c + col];
+      b += w1[(long long)j * c + col];
+    }
+  }
+  sh[0][threadIdx.y][threadIdx.x] = a;
+  sh[1][threadIdx.y][threadIdx.x] = b;
+  __syncthreads();
+  if (threadIdx.y != 0 || col >= c) return;
+  a = 0.f;
+  b = 0.f;
+  for (int y = 0; y < 32; ++y) {
+    a += sh[0][y][threadIdx.x];
+    b += sh[1][y][threadIdx.x];
+  }
+  o0[col] = a;
+  o1[col] = b;
+}
+
+}  // namespace
+
 }  // namespace apex_port

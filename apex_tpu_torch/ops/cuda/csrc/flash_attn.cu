@@ -1,0 +1,618 @@
+// Flash attention over [BH, S, D] bf16 (D 64 or 128): the forward with its
+// per-row logsumexp, and the two backward kernels (dq; dk and dv), each
+// recomputing the probabilities from the saved lse.
+//
+// Replaces the Pallas kernels of
+// apex_tpu/contrib/multihead_attn/flash_attention.py: _flash_fwd ->
+// _fwd_kernel (:181), and _bwd_pallas -> _bwd_dq_kernel (:349) and
+// _bwd_dkv_kernel (:392), without bias, per-key bias or dropout (the
+// wrapper refuses those).
+//
+// Semantics kept from the Pallas kernels: fp32 scores, softmax statistics
+// and accumulators; masking by absolute positions (query row i sits at
+// q_start + i, key j at k_start + j, and with `causal` a query sees the
+// keys at or before it) and by the true key length, so a ragged tail
+// (S = 4095) is masked in the kernel and nothing is padded; the finite
+// -inf stand-in kNegInf, so a row with nothing unmasked gives o = 0 and
+// lse = kNegInf; tiles that are wholly masked are skipped (_block_live,
+// :170). delta = rowsum(dO * O) - dlse is computed by the caller, as the
+// JAX wrapper computes it outside Pallas (:474-479).
+//
+// Bound on this card: operations. At the LM's shape (BH = 128, S = 4095,
+// D = 64, causal) the forward's QK^T and PV are 4 * BH * S^2 * D / 2
+// = 275 GFLOP against ~2 * 3 * 67 MB of q, k, v, o: ~4000 operations per
+// byte, far above the H100's 295, so the bound is the bf16 tensor cores'
+// 989 TFLOP/s (0.28 ms); the backward does 2.5 times the forward's products.
+// What the design does about it: QK^T and PV run on the tensor cores as
+// hand-written mma.sync.m16n8k16 bf16 products with fp32 accumulators; a
+// block of four warps owns 64 rows (16 a warp) and stages 64-row tiles of
+// the other operands in shared memory (rows padded by 8 elements, so the
+// eight 16-byte rows an ldmatrix reads fall in distinct banks); the B
+// fragments come from ldmatrix (transposing for the second product); the
+// score tile's accumulator layout is reused as the A operand of the
+// second product (the probabilities never leave registers); the online
+// softmax works in log2 units (exp2 of scores pre-scaled by
+// scale·log2(e)) and reduces a row across the four lanes that hold it
+// with two shuffles; only tiles on the diagonal or a ragged edge apply
+// the per-element mask. On this card the first version was bound by
+// occupancy, not by the tensor cores (dq and dk/dv held so many registers
+// a thread that two blocks filled an SM): dq and dk/dv take the other
+// operand's 64-row tile in two halves of 32, so half the scores are live
+// at once, and each kernel is built for a number of resident blocks
+// (kFwdBlocks and friends). This is still the simple form: no TMA, wgmma
+// or warp specialisation, one tile in flight.
+//
+// The backward blocks: dq takes a block per 64 query rows and walks the
+// live key tiles; dk/dv takes a block per 64 keys and walks the live query
+// tiles, which for a causal mask lie at and below the diagonal (the mirror
+// of the forward's skip). Each block owns its output rows: no atomics, so
+// the gradients repeat bit for bit. The probabilities and dS enter the
+// second products rounded to bf16, as in every bf16 flash kernel; that is
+// the kernels' difference from the fp32 plain versions.
+
+#include "common.cuh"
+
+namespace apex_port {
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kTile = 64;       // rows a block owns; rows of a staged tile
+constexpr int kThreads = 128;   // four warps of 16 rows
+// blocks an SM must hold at D = 64 (the register cap follows: 128
+// registers a thread at 4, 170 at 3); the D = 128 forms take what they
+// need. Chosen on the H100 at the LM's shape: the forward and dq at 4
+// blocks, dk/dv at 3 (at 4 its dk and dv accumulators spill)
+constexpr int kFwdBlocks = 4, kDqBlocks = 4, kDkvBlocks = 3;
+// exponentials are exp2 of scores pre-multiplied by scale * log2(e)
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+struct Attn {
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  long long q_bh, q_s, k_bh, k_s, v_bh, v_s;   // strides, elements
+  int sq, sk, q_start, k_start, causal;
+  float scale;
+};
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);   // .x in the low half
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// two consecutive elements (4-byte aligned)
+__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// four 8x8 b16 matrices from shared memory: lane l gives the address of
+// row l % 8 of matrix l / 8 (16 bytes, 16-byte aligned); r[i] is lane
+// (g, t4)'s pair of matrix i: row g, columns 2*t4 and 2*t4 + 1, or with
+// TRANS the pair at rows 2*t4 and 2*t4 + 1 of column g
+template <bool TRANS>
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  if (TRANS) {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+        "{%0, %1, %2, %3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+  } else {
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+  }
+}
+
+// c += a (16x16, row major) * b (16x8, col major); bf16 in, fp32 out
+__device__ __forceinline__ void mma16816(float (&c)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A fragments of the warp's 16 rows [row, row + 16) of a [nrows, D] matrix
+// with row stride rs (zero past nrows), one set of four registers per
+// 16-wide step of D: lane (g, t4) holds rows g and g + 8, columns 2*t4 and
+// 2*t4 + 8 (the PTX fragment layout of m16n8k16)
+template <int D>
+__device__ __forceinline__ void load_a(uint32_t (&f)[D / 16][4],
+                                       const bf16* base, long long rs,
+                                       int row, int nrows) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const bool in0 = row + g < nrows, in1 = row + g + 8 < nrows;
+  const bf16* p0 = base + (long long)(row + g) * rs + 2 * t4;
+  const bf16* p1 = p0 + 8 * rs;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    f[kk][0] = in0 ? ld_pair(p0 + kk * 16) : 0u;
+    f[kk][1] = in1 ? ld_pair(p1 + kk * 16) : 0u;
+    f[kk][2] = in0 ? ld_pair(p0 + kk * 16 + 8) : 0u;
+    f[kk][3] = in1 ? ld_pair(p1 + kk * 16 + 8) : 0u;
+  }
+}
+
+// rows [row0, row0 + kTile) of a [nrows, D] matrix -> sm [kTile][D + 8],
+// 16 bytes a load, zero past nrows
+template <int D>
+__device__ __forceinline__ void load_tile(bf16* sm, const bf16* base,
+                                          long long rs, int row0,
+                                          int nrows) {
+  constexpr int LD = D + 8, CH = D / 8;
+  for (int i = threadIdx.x; i < kTile * CH; i += kThreads) {
+    const int r = i / CH, c = (i % CH) * 8;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < nrows) {
+      val = *reinterpret_cast<const uint4*>(base + (long long)(row0 + r) * rs
+                                            + c);
+    }
+    *reinterpret_cast<uint4*>(sm + r * LD + c) = val;
+  }
+}
+
+// s[nt] = A (the warp's 16 rows) x B^T over D, for the NT * 8 rows of the
+// staged tile sm taken 8 at a time as the columns of s: the products
+// Q K^T, dO V^T, K Q^T and V dO^T. One ldmatrix gives the B fragments of
+// 32 columns of D (two k-steps of the product)
+template <int D, int NT = 8>
+__device__ __forceinline__ void rows_times_tile(float (&s)[NT][4],
+                                                const uint32_t (&a)[D / 16][4],
+                                                const bf16* sm) {
+  constexpr int LD = D + 8;
+  const int lane = threadIdx.x & 31, mi = lane >> 3, r = lane & 7;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+#pragma unroll
+    for (int k2 = 0; k2 < D / 32; ++k2) {
+      uint32_t b[4];
+      ldsm_x4<false>(b, sm + (nt * 8 + r) * LD + k2 * 32 + mi * 8);
+      mma16816(s[nt], a[2 * k2], b[0], b[1]);
+      mma16816(s[nt], a[2 * k2 + 1], b[2], b[3]);
+    }
+  }
+}
+
+// acc[dt] += P x tile, where P (16 x NT * 8, the accumulator layout of s)
+// is the A operand and the staged tile sm [NT * 8][D] is B: the products
+// P V, dS K, P^T dO and dS^T Q
+template <int D, int NT = 8>
+__device__ __forceinline__ void scores_times_tile(float (&acc)[D / 8][4],
+                                                  const float (&p)[NT][4],
+                                                  const bf16* sm) {
+  constexpr int LD = D + 8;
+  const int lane = threadIdx.x & 31, mi = lane >> 3, r = lane & 7;
+#pragma unroll
+  for (int ks = 0; ks < NT / 2; ++ks) {
+    uint32_t pa[4];
+    pa[0] = pack_bf16(p[2 * ks][0], p[2 * ks][1]);
+    pa[1] = pack_bf16(p[2 * ks][2], p[2 * ks][3]);
+    pa[2] = pack_bf16(p[2 * ks + 1][0], p[2 * ks + 1][1]);
+    pa[3] = pack_bf16(p[2 * ks + 1][2], p[2 * ks + 1][3]);
+    // one transposing ldmatrix gives the B fragments of two 8-wide
+    // column steps: matrices (keys 0-7, dt), (8-15, dt), (0-7, dt + 1),
+    // (8-15, dt + 1) of this 16-key step
+    const bf16* rp = sm + (ks * 16 + 8 * (mi & 1) + r) * LD + (mi >> 1) * 8;
+#pragma unroll
+    for (int d2 = 0; d2 < D / 16; ++d2) {
+      uint32_t b[4];
+      ldsm_x4<true>(b, rp + d2 * 16);
+      mma16816(acc[2 * d2], pa, b[0], b[1]);
+      mma16816(acc[2 * d2 + 1], pa, b[2], b[3]);
+    }
+  }
+}
+
+// whether query row qi (local) may see key kj (local)
+__device__ __forceinline__ bool visible(const Attn& a, int qi, int kj) {
+  return qi < a.sq && kj < a.sk &&
+         (!a.causal || a.q_start + qi >= a.k_start + kj);
+}
+
+// whether every query of [q0, q0 + nq) sees every key of [k0, k0 + nk):
+// such tiles (all but the diagonal and the ragged edges) skip the
+// per-element mask
+__device__ __forceinline__ bool all_visible(const Attn& a, int q0, int nq,
+                                            int k0, int nk) {
+  return q0 + nq <= a.sq && k0 + nk <= a.sk &&
+         (!a.causal || a.q_start + q0 >= a.k_start + k0 + nk - 1);
+}
+
+// key tiles the query tile qb must visit: the causal mask ends them at the
+// last key its last row sees
+__device__ __forceinline__ int live_k_tiles(const Attn& a, int qb) {
+  int n = (a.sk + kTile - 1) / kTile;
+  if (a.causal) {
+    const int lim = a.q_start + qb * kTile + kTile - 1 - a.k_start;
+    if (lim < 0) return 0;
+    n = min(n, lim / kTile + 1);
+  }
+  return n;
+}
+
+// ---- forward ---------------------------------------------------------------
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, D == 64 ? kFwdBlocks : 1)
+flash_fwd_kernel(Attn a, bf16* __restrict__ o, float* __restrict__ lse) {
+  constexpr int LD = D + 8;
+  __shared__ __align__(16) bf16 sK[kTile * LD];
+  __shared__ __align__(16) bf16 sV[kTile * LD];
+  const int bh = blockIdx.y;
+  const int qb = gridDim.x - 1 - blockIdx.x;   // longest causal rows first
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const int qw = qb * kTile + (threadIdx.x >> 5) * 16;
+  uint32_t qf[D / 16][4];
+  load_a<D>(qf, a.q + bh * a.q_bh, a.q_s, qw, a.sq);
+  const bf16* kb = a.k + bh * a.k_bh;
+  const bf16* vb = a.v + bh * a.v_bh;
+  float acc[D / 8][4];
+#pragma unroll
+  for (int dt = 0; dt < D / 8; ++dt) {
+    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
+  }
+  float m_i[2] = {kNegInf, kNegInf}, l_i[2] = {0.f, 0.f};
+  const float sl2 = a.scale * kLog2e;
+  const int nkt = live_k_tiles(a, qb);
+  for (int kt = 0; kt < nkt; ++kt) {
+    __syncthreads();                   // the last tile's readers are done
+    load_tile<D>(sK, kb, a.k_s, kt * kTile, a.sk);
+    load_tile<D>(sV, vb, a.v_s, kt * kTile, a.sk);
+    __syncthreads();
+    float s[8][4];
+    rows_times_tile<D>(s, qf, sK);
+    // scores in log2 units: s * scale * log2(e)
+    if (all_visible(a, qw, 16, kt * kTile, kTile)) {
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] *= sl2;
+      }
+    } else {
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = qw + g + 8 * (e >> 1);
+          const int kj = kt * kTile + nt * 8 + 2 * t4 + (e & 1);
+          s[nt][e] = visible(a, qi, kj) ? s[nt][e] * sl2 : kNegInf;
+        }
+      }
+    }
+    // online softmax of rows g (h = 0) and g + 8 (h = 1); a row's 64
+    // scores lie in the four lanes of a quad
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        mx = fmaxf(mx, fmaxf(s[nt][2 * h], s[nt][2 * h + 1]));
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float mn = fmaxf(m_i[h], mx);
+      const float alpha = exp2f(m_i[h] - mn);
+      float rs = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+        for (int e = 2 * h; e < 2 * h + 2; ++e) {
+          // a row with nothing unmasked yet keeps p = 0
+          s[nt][e] = s[nt][e] > kNegInf * 0.5f ? exp2f(s[nt][e] - mn) : 0.f;
+          rs += s[nt][e];
+        }
+      }
+      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
+      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
+      l_i[h] = alpha * l_i[h] + rs;
+      m_i[h] = mn;
+#pragma unroll
+      for (int dt = 0; dt < D / 8; ++dt) {
+        acc[dt][2 * h] *= alpha;
+        acc[dt][2 * h + 1] *= alpha;
+      }
+    }
+    scores_times_tile<D>(acc, s, sV);
+  }
+  bf16* ob = o + (long long)bh * a.sq * D;
+  float* lb = lse + (long long)bh * a.sq;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = qw + g + 8 * h;
+    if (row >= a.sq) continue;
+    const float l = l_i[h];
+    const float safe = l > 0.f ? l : 1.f;
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt) {
+      *reinterpret_cast<uint32_t*>(ob + (long long)row * D + dt * 8 + 2 * t4) =
+          pack_bf16(acc[dt][2 * h] / safe, acc[dt][2 * h + 1] / safe);
+    }
+    if (t4 == 0) lb[row] = l > 0.f ? m_i[h] * kLn2 + logf(safe) : kNegInf;
+  }
+}
+
+// ---- backward: dq ----------------------------------------------------------
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, D == 64 ? kDqBlocks : 1)
+flash_dq_kernel(Attn a, const bf16* __restrict__ dout, long long do_bh,
+                long long do_s, const float* __restrict__ lse,
+                const float* __restrict__ delta, bf16* __restrict__ dq) {
+  constexpr int LD = D + 8;
+  __shared__ __align__(16) bf16 sK[kTile * LD];
+  __shared__ __align__(16) bf16 sV[kTile * LD];
+  const int bh = blockIdx.y;
+  const int qb = gridDim.x - 1 - blockIdx.x;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const int qw = qb * kTile + (threadIdx.x >> 5) * 16;
+  uint32_t qf[D / 16][4], df[D / 16][4];
+  load_a<D>(qf, a.q + bh * a.q_bh, a.q_s, qw, a.sq);
+  load_a<D>(df, dout + bh * do_bh, do_s, qw, a.sq);
+  float lse_r[2], dlt_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = qw + g + 8 * h;
+    const long long i = (long long)bh * a.sq + row;
+    lse_r[h] = row < a.sq ? lse[i] * kLog2e : 0.f;
+    dlt_r[h] = row < a.sq ? delta[i] : 0.f;
+  }
+  const bf16* kb = a.k + bh * a.k_bh;
+  const bf16* vb = a.v + bh * a.v_bh;
+  float acc[D / 8][4];
+#pragma unroll
+  for (int dt = 0; dt < D / 8; ++dt) {
+    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
+  }
+  const float sl2 = a.scale * kLog2e;
+  const int nkt = live_k_tiles(a, qb);
+  for (int kt = 0; kt < nkt; ++kt) {
+    __syncthreads();
+    load_tile<D>(sK, kb, a.k_s, kt * kTile, a.sk);
+    load_tile<D>(sV, vb, a.v_s, kt * kTile, a.sk);
+    __syncthreads();
+    // the tile's keys in two halves of 32, as dk/dv splits its queries
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int k0 = half * 32;
+      float s[4][4], dp[4][4];
+      rows_times_tile<D, 4>(s, qf, sK + k0 * LD);    // Q K^T
+      rows_times_tile<D, 4>(dp, df, sV + k0 * LD);   // dO V^T
+      const bool full = all_visible(a, qw, 16, kt * kTile + k0, 32);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1;
+          const int qi = qw + g + 8 * h;
+          const int kj = kt * kTile + k0 + nt * 8 + 2 * t4 + (e & 1);
+          const float p = full || visible(a, qi, kj)
+                              ? exp2f(s[nt][e] * sl2 - lse_r[h]) : 0.f;
+          s[nt][e] = p * (dp[nt][e] - dlt_r[h]) * a.scale;   // dS * scale
+        }
+      }
+      scores_times_tile<D, 4>(acc, s, sK + k0 * LD);   // dq += dS K
+    }
+  }
+  bf16* out = dq + (long long)bh * a.sq * D;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = qw + g + 8 * h;
+    if (row >= a.sq) continue;
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt) {
+      *reinterpret_cast<uint32_t*>(out + (long long)row * D + dt * 8 + 2 * t4) =
+          pack_bf16(acc[dt][2 * h], acc[dt][2 * h + 1]);
+    }
+  }
+}
+
+// ---- backward: dk, dv ------------------------------------------------------
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, D == 64 ? kDkvBlocks : 1)
+flash_dkv_kernel(Attn a, const bf16* __restrict__ dout, long long do_bh,
+                 long long do_s, const float* __restrict__ lse,
+                 const float* __restrict__ delta, bf16* __restrict__ dk,
+                 bf16* __restrict__ dv) {
+  constexpr int LD = D + 8;
+  __shared__ __align__(16) bf16 sQ[kTile * LD];
+  __shared__ __align__(16) bf16 sD[kTile * LD];
+  __shared__ float sL[kTile], sDl[kTile];
+  const int bh = blockIdx.y, kb = blockIdx.x;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const int kw = kb * kTile + (threadIdx.x >> 5) * 16;
+  uint32_t kf[D / 16][4], vf[D / 16][4];
+  load_a<D>(kf, a.k + bh * a.k_bh, a.k_s, kw, a.sk);
+  load_a<D>(vf, a.v + bh * a.v_bh, a.v_s, kw, a.sk);
+  float dka[D / 8][4], dva[D / 8][4];
+#pragma unroll
+  for (int dt = 0; dt < D / 8; ++dt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[dt][e] = dva[dt][e] = 0.f;
+  }
+  const int nqt = (a.sq + kTile - 1) / kTile;
+  int qt0 = 0;
+  if (a.causal) {
+    // the first query tile whose last row sees this block's first key
+    const int need = a.k_start + kb * kTile - a.q_start - (kTile - 1);
+    qt0 = need <= 0 ? 0 : (need + kTile - 1) / kTile;
+  }
+  const float sl2 = a.scale * kLog2e;
+  const bf16* qbase = a.q + bh * a.q_bh;
+  const bf16* dbase = dout + bh * do_bh;
+  const float* lb = lse + (long long)bh * a.sq;
+  const float* db = delta + (long long)bh * a.sq;
+  for (int qt = qt0; qt < nqt; ++qt) {
+    __syncthreads();
+    load_tile<D>(sQ, qbase, a.q_s, qt * kTile, a.sq);
+    load_tile<D>(sD, dbase, do_s, qt * kTile, a.sq);
+    if (threadIdx.x < kTile) {
+      const int r = qt * kTile + threadIdx.x;
+      sL[threadIdx.x] = r < a.sq ? lb[r] * kLog2e : 0.f;
+      sDl[threadIdx.x] = r < a.sq ? db[r] : 0.f;
+    }
+    __syncthreads();
+    // the tile's queries in two halves of 32, so only half the transposed
+    // scores and dP are live at once (fewer registers: more blocks an SM)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int q0 = half * 32;
+      float pt[4][4], dst[4][4];
+      rows_times_tile<D, 4>(pt, kf, sQ + q0 * LD);   // K Q^T: scores^T
+      rows_times_tile<D, 4>(dst, vf, sD + q0 * LD);  // V dO^T: dP^T
+      const bool full = all_visible(a, qt * kTile + q0, 32, kw, 16);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kj = kw + g + 8 * (e >> 1);
+          const int ql = q0 + nt * 8 + 2 * t4 + (e & 1);
+          const int qi = qt * kTile + ql;
+          const float p = full || visible(a, qi, kj)
+                              ? exp2f(pt[nt][e] * sl2 - sL[ql]) : 0.f;
+          pt[nt][e] = p;
+          dst[nt][e] = p * (dst[nt][e] - sDl[ql]) * a.scale;
+        }
+      }
+      scores_times_tile<D, 4>(dva, pt, sD + q0 * LD);    // dv += P^T dO
+      scores_times_tile<D, 4>(dka, dst, sQ + q0 * LD);   // dk += dS^T Q
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = kw + g + 8 * h;
+    if (row >= a.sk) continue;
+    const long long off = ((long long)bh * a.sk + row) * D + 2 * t4;
+#pragma unroll
+    for (int dt = 0; dt < D / 8; ++dt) {
+      *reinterpret_cast<uint32_t*>(dk + off + dt * 8) =
+          pack_bf16(dka[dt][2 * h], dka[dt][2 * h + 1]);
+      *reinterpret_cast<uint32_t*>(dv + off + dt * 8) =
+          pack_bf16(dva[dt][2 * h], dva[dt][2 * h + 1]);
+    }
+  }
+}
+
+Attn make_attn(const void* q, const void* k, const void* v, long long q_bh,
+               long long q_s, long long k_bh, long long k_s, long long v_bh,
+               long long v_s, int sq, int sk, int q_start, int k_start,
+               int causal, float scale) {
+  Attn a;
+  a.q = static_cast<const bf16*>(q);
+  a.k = static_cast<const bf16*>(k);
+  a.v = static_cast<const bf16*>(v);
+  a.q_bh = q_bh;
+  a.q_s = q_s;
+  a.k_bh = k_bh;
+  a.k_s = k_s;
+  a.v_bh = v_bh;
+  a.v_s = v_s;
+  a.sq = sq;
+  a.sk = sk;
+  a.q_start = q_start;
+  a.k_start = k_start;
+  a.causal = causal;
+  a.scale = scale;
+  return a;
+}
+
+bool bad(int bh, int sq, int sk, int d) {
+  return bh < 1 || bh > 65535 || sq < 1 || sk < 1 || (d != 64 && d != 128);
+}
+
+}  // namespace
+}  // namespace apex_port
+
+// q, k, v bf16 [bh, s, d] with the given strides (elements; the last dim
+// contiguous, every stride a multiple of 8, every base 16-byte aligned);
+// o bf16 [bh, sq, d] and lse fp32 [bh, sq], contiguous.
+extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
+                              void* o, void* lse, long long q_bh,
+                              long long q_s, long long k_bh, long long k_s,
+                              long long v_bh, long long v_s, int bh, int sq,
+                              int sk, int d, int q_start, int k_start,
+                              int causal, float scale, void* stream) {
+  using namespace apex_port;
+  if (bad(bh, sq, sk, d)) return static_cast<int>(cudaErrorInvalidValue);
+  const Attn a = make_attn(q, k, v, q_bh, q_s, k_bh, k_s, v_bh, v_s, sq, sk,
+                           q_start, k_start, causal, scale);
+  const dim3 grid((sq + kTile - 1) / kTile, bh);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  bf16* op = static_cast<bf16*>(o);
+  float* lp = static_cast<float*>(lse);
+  if (d == 64) {
+    flash_fwd_kernel<64><<<grid, kThreads, 0, st>>>(a, op, lp);
+  } else {
+    flash_fwd_kernel<128><<<grid, kThreads, 0, st>>>(a, op, lp);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// q, k, v, dout as above (dout with its own strides); lse, delta fp32
+// [bh, sq] contiguous; dq bf16 [bh, sq, d] contiguous.
+extern "C" int apex_flash_bwd_dq(const void* q, const void* k, const void* v,
+                                 const void* dout, const void* lse,
+                                 const void* delta, void* dq, long long q_bh,
+                                 long long q_s, long long k_bh, long long k_s,
+                                 long long v_bh, long long v_s,
+                                 long long do_bh, long long do_s, int bh,
+                                 int sq, int sk, int d, int q_start,
+                                 int k_start, int causal, float scale,
+                                 void* stream) {
+  using namespace apex_port;
+  if (bad(bh, sq, sk, d)) return static_cast<int>(cudaErrorInvalidValue);
+  const Attn a = make_attn(q, k, v, q_bh, q_s, k_bh, k_s, v_bh, v_s, sq, sk,
+                           q_start, k_start, causal, scale);
+  const dim3 grid((sq + kTile - 1) / kTile, bh);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bf16* dp = static_cast<const bf16*>(dout);
+  const float* lp = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  bf16* out = static_cast<bf16*>(dq);
+  if (d == 64) {
+    flash_dq_kernel<64><<<grid, kThreads, 0, st>>>(a, dp, do_bh, do_s, lp, dl,
+                                                   out);
+  } else {
+    flash_dq_kernel<128><<<grid, kThreads, 0, st>>>(a, dp, do_bh, do_s, lp,
+                                                    dl, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// as apex_flash_bwd_dq; dk, dv bf16 [bh, sk, d] contiguous.
+extern "C" int apex_flash_bwd_dkv(const void* q, const void* k,
+                                  const void* v, const void* dout,
+                                  const void* lse, const void* delta,
+                                  void* dk, void* dv, long long q_bh,
+                                  long long q_s, long long k_bh,
+                                  long long k_s, long long v_bh,
+                                  long long v_s, long long do_bh,
+                                  long long do_s, int bh, int sq, int sk,
+                                  int d, int q_start, int k_start, int causal,
+                                  float scale, void* stream) {
+  using namespace apex_port;
+  if (bad(bh, sq, sk, d)) return static_cast<int>(cudaErrorInvalidValue);
+  const Attn a = make_attn(q, k, v, q_bh, q_s, k_bh, k_s, v_bh, v_s, sq, sk,
+                           q_start, k_start, causal, scale);
+  const dim3 grid((sk + kTile - 1) / kTile, bh);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bf16* dp = static_cast<const bf16*>(dout);
+  const float* lp = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  bf16* kp = static_cast<bf16*>(dk);
+  bf16* vp = static_cast<bf16*>(dv);
+  if (d == 64) {
+    flash_dkv_kernel<64><<<grid, kThreads, 0, st>>>(a, dp, do_bh, do_s, lp,
+                                                    dl, kp, vp);
+  } else {
+    flash_dkv_kernel<128><<<grid, kThreads, 0, st>>>(a, dp, do_bh, do_s, lp,
+                                                     dl, kp, vp);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

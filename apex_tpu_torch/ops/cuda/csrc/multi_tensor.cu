@@ -1,26 +1,30 @@
 // Multi-tensor kernels over the flat parameter store, seen as (rows, 128):
-// the loss scaler's unscale with its overflow flag, and the two phases of
-// FusedLAMB. All math is fp32; the storage dtype (fp32 or bf16) is kept
-// on write.
+// the loss scaler's unscale with its overflow flag, the two phases of
+// FusedLAMB, and FusedAdam's update. All math is fp32; the storage dtype
+// (fp32 or bf16) is kept on write.
 //
 // scale replaces the Pallas kernel apex_tpu/ops/pallas/multi_tensor.py
 // scale -> _scale_kernel (:96). lamb_phase1 / lamb_phase2 replace
 // lamb_step -> _lamb_phase1_kernel (:452) / _lamb_phase2_kernel (:480).
+// adam replaces adam_step -> _adam_kernel (:270).
 //
-// Bound on this card: bytes, for all three. Each reads its inputs once and
+// Bound on this card: bytes, for all four. Each reads its inputs once and
 // writes its outputs once with a handful of flops per element (~20 for
-// phase 1), far below the 295 operations per byte where the H100 turns
-// compute-bound. At RN50's flat size T = 25,558,016 (fp32):
+// phase 1 and Adam), far below the 295 operations per byte where the H100
+// turns compute-bound. At RN50's flat size T = 25,558,016 (fp32):
 //   scale   8 B·T (x in, out)                      204.5 MB, 0.061 ms
 //   phase1 28 B·T (g, p, m, v in; u, m, v out)    ~717 MB, 0.214 ms
 //   phase2 12 B·T (p, u in; p out)                ~307 MB, 0.092 ms
-// at 3.35 TB/s. What the design does about it: every element is touched by
-// one thread once, with 16-byte (fp32) or 8-byte (bf16) vector loads and
-// stores; the per-row sums of p² and u² that the per-tensor norms need
+// and Adam at the LM's T = 138.5 M: 28 B·T (g, p, m, v in; p, m, v out),
+// ~3.88 GB, 1.16 ms, at 3.35 TB/s. What the design does about it: every
+// element is touched by one thread once, with 16-byte (fp32) or 8-byte
+// (bf16) vector loads and stores; the per-row sums of p² and u² that the per-tensor norms need
 // are taken from registers by a warp reduction in phase 1 (one warp per
 // 128-element row), so the norms cost no extra sweep; phase 2 reads the
 // row's trust ratio through the row's segment id, so no per-row ratio
 // array is written.
+//
+// Adam is one grid-stride pass of 4-wide vectors over the whole buffer.
 //
 // Scalars the step computes on the device (the unscale factor, the bias
 // corrections, the clip factor) are read from a small fp32 device array,
@@ -207,6 +211,63 @@ lamb_phase2_kernel(const P* __restrict__ p, const float* __restrict__ u,
   store4(out + off, o);
 }
 
+// ---- Adam ------------------------------------------------------------------
+// sc = [lr, b1, b2, eps, bc1, bc2, wd, 1-b1, 1-b2]; mode 0 folds weight
+// decay into the gradient (L2), mode 1 adds it to the update (AdamW).
+
+template <typename G, typename P>
+__global__ void __launch_bounds__(kScaleThreads)
+adam_kernel(const G* __restrict__ g, const P* __restrict__ p,
+            const P* __restrict__ m, const P* __restrict__ v,
+            P* __restrict__ p_out, P* __restrict__ m_out,
+            P* __restrict__ v_out, const float* __restrict__ sc,
+            long long n, int mode) {
+  const float lr = sc[0], b1 = sc[1], b2 = sc[2], eps = sc[3];
+  const float bc1 = sc[4], bc2 = sc[5], wd = sc[6], omb1 = sc[7];
+  const float omb2 = sc[8];
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       4 * i < n; i += stride) {
+    const long long off = 4 * i;
+    float gv[4], pv[4], mv[4], vv[4];
+    load4(g + off, gv);
+    load4(p + off, pv);
+    load4(m + off, mv);
+    load4(v + off, vv);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float gf = gv[e];
+      const float pf = pv[e];
+      if (mode == 0) gf = __fadd_rn(gf, __fmul_rn(wd, pf));
+      const float mf = __fadd_rn(__fmul_rn(b1, mv[e]), __fmul_rn(omb1, gf));
+      const float vf =
+          __fadd_rn(__fmul_rn(b2, vv[e]), __fmul_rn(__fmul_rn(omb2, gf), gf));
+      float up = __fdiv_rn(__fdiv_rn(mf, bc1),
+                           __fadd_rn(__fsqrt_rn(__fdiv_rn(vf, bc2)), eps));
+      if (mode == 1) up = __fadd_rn(up, __fmul_rn(wd, pf));
+      pv[e] = __fsub_rn(pf, __fmul_rn(lr, up));
+      mv[e] = mf;
+      vv[e] = vf;
+    }
+    store4(p_out + off, pv);
+    store4(m_out + off, mv);
+    store4(v_out + off, vv);
+  }
+}
+
+template <typename G, typename P>
+void launch_adam(const void* g, const void* p, const void* m, const void* v,
+                 void* p_out, void* m_out, void* v_out, const void* sc,
+                 long long n, int mode, cudaStream_t st) {
+  long long blocks = (n / 4 + kScaleThreads - 1) / kScaleThreads;
+  blocks = blocks > kScaleMaxBlocks ? kScaleMaxBlocks : blocks;
+  adam_kernel<G, P><<<(unsigned)blocks, kScaleThreads, 0, st>>>(
+      static_cast<const G*>(g), static_cast<const P*>(p),
+      static_cast<const P*>(m), static_cast<const P*>(v),
+      static_cast<P*>(p_out), static_cast<P*>(m_out), static_cast<P*>(v_out),
+      static_cast<const float*>(sc), n, mode);
+}
+
 }  // namespace
 }  // namespace apex_port
 
@@ -286,6 +347,37 @@ extern "C" int apex_lamb_phase2(int p_dtype, const void* p, const void* u,
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// g [n] (fp32 or bf16); p, m, v [n] in one dtype (fp32 or bf16) and
+// p_out, m_out, v_out like them, every buffer 4-element aligned, n a
+// multiple of 4; sc fp32 [9] on the device.
+extern "C" int apex_adam(int g_dtype, int p_dtype, const void* g,
+                         const void* p, const void* m, const void* v,
+                         void* p_out, void* m_out, void* v_out,
+                         const void* sc, long long n, int mode,
+                         void* stream) {
+  using namespace apex_port;
+  if (n < 4 || n % 4 != 0 || (mode != 0 && mode != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (g_dtype == kF32 && p_dtype == kF32) {
+    launch_adam<float, float>(g, p, m, v, p_out, m_out, v_out, sc, n, mode,
+                              st);
+  } else if (g_dtype == kBF16 && p_dtype == kF32) {
+    launch_adam<__nv_bfloat16, float>(g, p, m, v, p_out, m_out, v_out, sc, n,
+                                      mode, st);
+  } else if (g_dtype == kF32 && p_dtype == kBF16) {
+    launch_adam<float, __nv_bfloat16>(g, p, m, v, p_out, m_out, v_out, sc, n,
+                                      mode, st);
+  } else if (g_dtype == kBF16 && p_dtype == kBF16) {
+    launch_adam<__nv_bfloat16, __nv_bfloat16>(g, p, m, v, p_out, m_out, v_out,
+                                              sc, n, mode, st);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }

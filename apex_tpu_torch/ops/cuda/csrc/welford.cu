@@ -149,35 +149,6 @@ bwd_reduce_kernel(const T* __restrict__ dy, const T* __restrict__ x,
   store_partials(sd, sx, ws, nchunk, c, col);
 }
 
-// ws [2][nchunk][c] -> o0[c], o1[c]: each column's chunks added in order,
-// split over 32 row threads whose results are then added in order
-__global__ void __launch_bounds__(1024)
-finalize_kernel(const float* __restrict__ ws, int nchunk, int c,
-                float* __restrict__ o0, float* __restrict__ o1) {
-  __shared__ float sh[2][32][33];
-  const int col = blockIdx.x * 32 + threadIdx.x;
-  float a = 0.f, b = 0.f;
-  if (col < c) {
-    const float* w1 = ws + (long long)nchunk * c;
-    for (int j = threadIdx.y; j < nchunk; j += 32) {
-      a += ws[(long long)j * c + col];
-      b += w1[(long long)j * c + col];
-    }
-  }
-  sh[0][threadIdx.y][threadIdx.x] = a;
-  sh[1][threadIdx.y][threadIdx.x] = b;
-  __syncthreads();
-  if (threadIdx.y != 0 || col >= c) return;
-  a = 0.f;
-  b = 0.f;
-  for (int y = 0; y < 32; ++y) {
-    a += sh[0][y][threadIdx.x];
-    b += sh[1][y][threadIdx.x];
-  }
-  o0[col] = a;
-  o1[col] = b;
-}
-
 // ---- backward: dx (and dz) ----------------------------------------------------
 // pc = [mean, invvar, winv, mean_dy, mean_dy_xhat], each fp32 [c]
 

@@ -14,12 +14,14 @@ from __future__ import annotations
 
 from apex_tpu_torch.ops import multi_tensor as MT
 
-__all__ = ["MODE_L2", "MODE_DECOUPLED", "all_finite", "lamb_step"]
+__all__ = ["MODE_L2", "MODE_DECOUPLED", "all_finite", "adam_step",
+           "lamb_step"]
 
 MODE_L2 = MT.MODE_L2
 MODE_DECOUPLED = MT.MODE_DECOUPLED
 
 all_finite = MT.all_finite
+adam_step = MT.adam_step
 
 
 def lamb_step(g, p, m, v, table, *, aligned_segments: bool = False, **kw):

@@ -9,7 +9,9 @@ FusedLAMB step runs; the kernels are ``ops/cuda/csrc/multi_tensor.cu``:
   ``x * s`` and a found_inf flag read from the input;
 - :func:`lamb_phase1` / :func:`lamb_phase2` replace ``lamb_step`` →
   ``_lamb_phase1_kernel`` / ``_lamb_phase2_kernel`` (multi_tensor.py:452,
-  :480); :func:`lamb_step` joins them with the per-tensor trust ratio.
+  :480); :func:`lamb_step` joins them with the per-tensor trust ratio;
+- :func:`adam` replaces ``adam_step`` → ``_adam_kernel`` (multi_tensor.py:
+  270); :func:`adam_step` adds its scalars.
 
 For a tensor on the CPU each wrapper runs its plain version; for a tensor
 on the card it launches its kernel, or raises on what the kernel does not
@@ -32,7 +34,8 @@ from apex_tpu_torch.ops.flat import LANES, SegmentTable
 __all__ = ["MODE_L2", "MODE_DECOUPLED", "all_finite", "scale", "scale_plain",
            "segment_sum", "lamb_scalars", "lamb_phase1", "lamb_phase1_plain",
            "lamb_phase2", "lamb_phase2_plain", "lamb_step",
-           "lamb_step_plain"]
+           "lamb_step_plain", "adam_scalars", "adam", "adam_plain",
+           "adam_step"]
 
 MODE_L2 = 0          # weight decay folded into the gradient
 MODE_DECOUPLED = 1   # AdamW-style decoupled weight decay
@@ -287,3 +290,86 @@ def lamb_step_plain(g, p, m, v, table: SegmentTable, **kw):
     the plain phases, as :func:`lamb_step` composes them."""
     with dispatch.backend("reference"):
         return lamb_step(g, p, m, v, table, **kw)
+
+
+# -- Adam (K15) ---------------------------------------------------------------
+
+def adam_scalars(*, lr: float, beta1: float, beta2: float, eps: float, step,
+                 bias_correction: bool, weight_decay: float,
+                 device) -> torch.Tensor:
+    """The Adam kernel's scalars as one fp32 [9] device array:
+    ``[lr, b1, b2, eps, bc1, bc2, wd, 1-b1, 1-b2]`` (multi_tensor.py:
+    276-277). ``1-b1`` and ``1-b2`` are taken in float64, then rounded to
+    fp32 (:272-275); ``bc1``, ``bc2`` come from the device step, so
+    nothing waits for the host."""
+    device = torch.device(device)
+    const = _consts((lr, beta1, beta2, eps, weight_decay, 1.0 - beta1,
+                     1.0 - beta2), device)
+    if bias_correction:
+        stepf = torch.as_tensor(step, device=device).to(torch.float32)
+        bc = 1.0 - torch.pow(const[1:3], stepf)
+    else:
+        bc = torch.ones(2, dtype=torch.float32, device=device)
+    return torch.cat([const[:4], bc, const[4:]])
+
+
+def adam_plain(g, p, m, v, sc: torch.Tensor, mode: int):
+    """Plain version of ``_adam_kernel`` (multi_tensor.py:270-291): new
+    (p, m, v) in their storage dtype, fp32 math with one rounding per
+    operation, in the kernel's order."""
+    lr, b1, b2, eps, bc1, bc2, wd, omb1, omb2 = sc.unbind()
+    gf = g.float()
+    pf = p.float()
+    if mode == MODE_L2:
+        gf = gf + wd * pf
+    mf = b1 * m.float() + omb1 * gf
+    vf = b2 * v.float() + omb2 * gf * gf
+    u = (mf / bc1) / (torch.sqrt(vf / bc2) + eps)
+    if mode == MODE_DECOUPLED:
+        u = u + wd * pf
+    return (pf - lr * u).to(p.dtype), mf.to(m.dtype), vf.to(v.dtype)
+
+
+def adam(g, p, m, v, sc: torch.Tensor, mode: int):
+    """Adam (mode 0, L2) or AdamW (mode 1) over flat buffers of a length
+    that is a multiple of 4; returns new (p, m, v) like
+    :func:`adam_plain`."""
+    if not dispatch.use_kernel(p):
+        return adam_plain(g, p, m, v, sc, mode)
+    n = p.numel()
+    if n % 4 or p.dim() != 1 or g.shape != p.shape or m.shape != p.shape \
+            or v.shape != p.shape:
+        raise ValueError("adam: g, p, m, v must be flat buffers of one "
+                         "length, a multiple of 4")
+    for what, t in (("g", g), ("p", p), ("m", m), ("v", v)):
+        _check_flat(f"adam {what}", t, p.device)
+    if m.dtype != p.dtype or v.dtype != p.dtype:
+        raise TypeError("adam: p, m and v must share one dtype")
+    if sc.dtype != torch.float32 or sc.numel() != 9 or sc.device != p.device:
+        raise ValueError("adam: scalars must be fp32 [9] on the card")
+    p_out, m_out, v_out = (torch.empty_like(t) for t in (p, m, v))
+    sc = sc.contiguous()
+    if n:
+        err = _cuda.lib().apex_adam(
+            _cuda.dtype_code(g.dtype, "adam g"),
+            _cuda.dtype_code(p.dtype, "adam p"), g.data_ptr(), p.data_ptr(),
+            m.data_ptr(), v.data_ptr(), p_out.data_ptr(), m_out.data_ptr(),
+            v_out.data_ptr(), sc.data_ptr(), n, int(mode),
+            _cuda.stream(p.device))
+        _cuda.check(err, "adam")
+        adam.launches += 1
+    return p_out, m_out, v_out
+
+
+adam.launches = 0
+
+
+def adam_step(g, p, m, v, *, lr, beta1: float, beta2: float, eps: float,
+              step, mode: int = MODE_L2, bias_correction: bool = True,
+              weight_decay: float = 0.0):
+    """Fused Adam/AdamW over the flat buffer (multi_tensor.py:294-319):
+    the scalars, then one :func:`adam` pass. Returns new (p, m, v)."""
+    sc = adam_scalars(lr=lr, beta1=beta1, beta2=beta2, eps=eps, step=step,
+                      bias_correction=bias_correction,
+                      weight_decay=weight_decay, device=p.device)
+    return adam(g, p, m, v, sc, mode)

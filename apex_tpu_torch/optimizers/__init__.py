@@ -6,7 +6,7 @@ from __future__ import annotations
 import importlib
 
 _EXPORTS = {"FusedOptimizer": "base", "GroupState": "base",
-            "FusedLAMB": "fused_lamb"}
+            "FusedLAMB": "fused_lamb", "FusedAdam": "fused_adam"}
 
 __all__ = sorted(_EXPORTS)
 

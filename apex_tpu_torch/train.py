@@ -1,7 +1,12 @@
-"""The ResNet AMP FusedLAMB training step — counterpart of ``bench.py``'s
-``_loss_fn`` and ``train_step`` (bench.py:1244-1306).
+"""The training steps of the JAX package's two benches.
 
-One step, as the JAX bench runs it:
+``Trainer`` is the ResNet AMP FusedLAMB step, the counterpart of
+``bench.py``'s ``_loss_fn`` and ``train_step`` (bench.py:1244-1306).
+``LMTrainer`` is the decoder-LM FusedAdam step of ``tools/lm_bench.py``
+(:255-272, one device). Both differentiate with respect to the flat fp32
+master buffer (``master_grad``).
+
+The ResNet step, as the JAX bench runs it:
 
 1. the flat fp32 master buffer becomes the model's params in one cast
    (``ops.flat.unflatten(master, table, dtype=half)``);
@@ -25,9 +30,22 @@ from apex_tpu_torch._device import resolve_device
 from apex_tpu_torch.amp import frontend as _amp
 from apex_tpu_torch.contrib.xentropy import select_label_logits
 from apex_tpu_torch.ops import flat as _flat
+from apex_tpu_torch.optimizers.fused_adam import FusedAdam
 from apex_tpu_torch.optimizers.fused_lamb import FusedLAMB
 
-__all__ = ["Trainer"]
+__all__ = ["master_grad", "Trainer", "LMTrainer"]
+
+
+def master_grad(master, table, dtype, objective):
+    """The O2 master-weight pattern: ``objective`` sees the params as one
+    cast of the flat master (``unflatten(master, table, dtype=dtype)``)
+    and returns ``(value, aux)``; the gradient of ``value`` comes back
+    with respect to the flat master, one fp32 buffer. Returns
+    ``(flat grad, aux)``."""
+    m = master.detach().requires_grad_(True)
+    value, aux = objective(_flat.unflatten(m, table, dtype=dtype))
+    (grad,) = torch.autograd.grad(value, m)
+    return grad, aux
 
 
 class Trainer:
@@ -63,17 +81,20 @@ class Trainer:
     def loss_and_grad(self, x, y):
         """Forward and backward: ``(flat fp32 master grad, still scaled;
         loss; new BN state)``."""
-        master = self.opt.state[0].master.detach().requires_grad_(True)
-        p_half = _flat.unflatten(master, self.table, dtype=self.half)
         if x.is_floating_point():
             x = x.to(self.half)
-        logits, new_bn = self.model.apply(p_half, self.bn_state, x,
-                                          training=True)
-        logp = torch.log_softmax(logits.float(), dim=-1)
-        loss = -torch.mean(select_label_logits(logp, y))
-        scaled = self.handle.scale_loss(loss, self.amp_state)
-        (flat_grad,) = torch.autograd.grad(scaled, master)
-        return flat_grad, loss.detach(), new_bn
+
+        def objective(p_half):
+            logits, new_bn = self.model.apply(p_half, self.bn_state, x,
+                                              training=True)
+            logp = torch.log_softmax(logits.float(), dim=-1)
+            loss = -torch.mean(select_label_logits(logp, y))
+            return (self.handle.scale_loss(loss, self.amp_state),
+                    (loss.detach(), new_bn))
+
+        flat_grad, (loss, new_bn) = master_grad(
+            self.opt.state[0].master, self.table, self.half, objective)
+        return flat_grad, loss, new_bn
 
     def apply_grads(self, flat_grad, new_bn):
         """Unscale, update the masters (skipped on overflow) and the
@@ -91,4 +112,42 @@ class Trainer:
         returns the unscaled loss as a device tensor."""
         flat_grad, loss, new_bn = self.loss_and_grad(x, y)
         self.apply_grads(flat_grad, new_bn)
+        return loss
+
+
+class LMTrainer:
+    """``tools/lm_bench.py``'s single-device step (:255-272): the flat fp32
+    master becomes the model's params in one cast to ``dtype`` (bf16, the
+    O2 pattern; ``None`` keeps fp32, lm_bench's ``--dtype f32``),
+    ``model.loss`` runs forward and backward, and ``FusedAdam(lr)`` with
+    its other defaults (AdamW mode, weight decay 0) updates the masters.
+    There is no loss scaler, as in lm_bench. Everything lives on
+    ``device``, the card unless ``device="cpu"``; ``opt.state`` holds the
+    masters, slots and step.
+    """
+
+    def __init__(self, model, params, *, lr: float = 1e-4,
+                 dtype=torch.bfloat16, device=None):
+        self.device = resolve_device(device)
+        self.model = model
+        self.dtype = dtype
+        self.opt = FusedAdam(params, lr=lr, device=self.device)
+        self.table = self.opt._tables[0]
+
+    def loss_and_grad(self, tokens):
+        """``(flat fp32 master grad, loss)`` for tokens int [B, T + 1]."""
+        tokens = tokens.to(self.device)
+
+        def objective(params):
+            loss = self.model.loss(params, tokens)
+            return loss, loss.detach()
+
+        return master_grad(self.opt.state[0].master, self.table, self.dtype,
+                           objective)
+
+    def step(self, tokens):
+        """One training step; returns the loss as a device tensor (nothing
+        is read back to the host)."""
+        grad, loss = self.loss_and_grad(tokens)
+        self.opt.state = self.opt.apply_update(self.opt.state, [grad])
         return loss

@@ -8,7 +8,7 @@ Run from the repository root, with no arguments::
 Phases, each printing one JSON line; any failure raises and exits
 nonzero, and only a run where every phase passed prints the last line,
 ``{"ok": true, "device": {...}}``. Phases 0-5 are the serving slice,
-phases 6-8 the training slice:
+phases 6-8 the ResNet training slice, phases 9-10 the LM training slice:
 
 0. device — needs CUDA; prints the card's ``nvidia-smi`` name and power
    limit (also as a raw line of its own) and the torch / CUDA versions.
@@ -26,7 +26,16 @@ phases 6-8 the training slice:
    and the last element, and two LAMB runs compared bit for bit; the BN
    kernels (``bn_moments``, ``bn_backward_fused_reduce``,
    ``bn_backward_dx``) at every distinct ``[N·H·W, C]`` bf16 shape of the
-   RN50 step's 53 BNs, their times also summed over the step.
+   RN50 step's 53 BNs, their times also summed over the step; the LM
+   step's kernels at its shapes: ``adam`` over the LM's flat fp32 master
+   store (T = 138,520,576; bit-equal), ``ln_bwd`` over [32760, 1024] bf16
+   rows (dx within one bf16 ulp, the column sums within 1e-5 of each
+   column's Σ|terms|, two runs bit-equal), and the flash kernels
+   (``flash_fwd``, ``flash_bwd_dq``, ``flash_bwd_dkv``) over [128, 4095,
+   64] bf16, causal (held against the plain versions on the first 8
+   heads, element by element: o, dq, dk and dv within 2 bf16 ulps plus
+   2^-6 of the row's RMS over D, lse within 1e-3; and the rule must
+   refuse the plain result with its later half 5% off).
 3. dense — the serve_bench model at full width (8 layers, 1024 wide,
    8 heads, vocab 32768, bf16, random weights from ``torch.Generator``
    seed 0) behind ``ContinuousBatchingEngine(slots=8, max_len=1024,
@@ -56,19 +65,37 @@ phases 6-8 the training slice:
    halves the scale 65536 -> 32768; a clean step after it advances.
 8. train_crosscheck — the CI-size ResNet, three steps with the kernels
    against ``dispatch.backend("reference")`` with ``cudnn.deterministic``:
-   in f32 O0 the masters within atol 1e-6; in bf16 O2 within 1.5 times
-   bf16's own effect on them.
-9. the ``{"kernels": [...]}`` line, then the ``ok`` line.
+   in f32 O0 the masters within atol 5e-5 and the update within 1e-3 of
+   its L2 norm; in bf16 O2 within 1.5 times bf16's own effect on them.
+9. lm_train — ``tools/lm_bench.py``'s step at its defaults on one card
+   (TransformerLM: vocab 32768, 8 layers, 1024 wide, 16 heads of 64,
+   attention "fast", fused head in vocab chunks of 8192; random weights
+   from ``torch.Generator`` seed 0; batch 8 × 4096 tokens, one numpy
+   batch reused every step; O2 bf16 over fp32 flat masters,
+   ``FusedAdam(lr=1e-4)``): 3 warm-up and 10 timed steps: tok/s
+   (lm_bench's count, batch × 4096 a step), step ms p50/p95, MFU with
+   lm_bench's FLOP model (6·P·tokens + 6·L·d·S²·B) against 989 TFLOP/s,
+   peak memory, first and last loss (finite and falling), each kernel's
+   launches per step (8 of each flash kernel, 17 of each LayerNorm
+   kernel, one Adam); then two steps under ``torch.profiler``.
+10. lm_crosscheck — a small LM (2 layers, embed 128, 2 heads of 64,
+    vocab 512, S 257, batch 2), three O2 steps with the kernels against
+    ``dispatch.backend("reference")``: the masters within 1.5 times
+    bf16's own effect on them (the key biases, whose gradient is zero
+    analytically, bounded apart); two kernel runs equal bit for bit.
+11. the ``{"kernels": [...]}`` line, then the ``ok`` line.
 
 Times are CUDA-event medians of single calls with the L2 cache flushed
 before each and the stream held busy, so host launch time is not counted.
 Bounds use the H100 SXM's published 3.35 TB/s and 67 TFLOP/s (fp32,
-outside the tensor cores); MFU its 989 TFLOP/s bf16 dense.
+outside the tensor cores), and 989 TFLOP/s bf16 dense for the flash
+kernels' products; MFU its 989 TFLOP/s bf16 dense.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -92,6 +119,23 @@ def nvidia_smi(query: str) -> str:
                          capture_output=True, text=True, timeout=60,
                          check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_table(log: str) -> dict:
+    """Registers a thread and spill bytes of each kernel of the build, by
+    its mangled name, from ptxas's report."""
+    table, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        regs = re.search(r"Used (\d+) registers", ln)
+        spill = re.search(r"(\d+) bytes spill stores", ln)
+        if m:
+            name = m.group(1)
+        elif name and (regs or spill):
+            table.setdefault(name, {})[
+                "registers" if regs else "spill_bytes"] = int(
+                    (regs or spill).group(1))
+    return table
 
 
 def check(cond: bool, what: str) -> None:
@@ -153,8 +197,11 @@ def max_err(got, want, dtype_name: str):
     return float(err.max()), ok
 
 
-def bound(nbytes: float, ops: float):
-    tb, to = nbytes / HBM_BYTES_S * 1e3, ops / FP32_OPS_S * 1e3
+def bound(nbytes: float, ops: float, ops_per_s: float = FP32_OPS_S):
+    """The least time (ms) for ``nbytes`` of device memory traffic and
+    ``ops`` operations at ``ops_per_s`` (fp32 outside the tensor cores
+    unless the work is bf16 tensor-core products), and which one binds."""
+    tb, to = nbytes / HBM_BYTES_S * 1e3, ops / ops_per_s * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -404,7 +451,7 @@ def train_kernel_phase(torch, timer, table):
     return rows
 
 
-# -- phase 2, BatchNorm kernels: the welford passes at RN50's BN shapes ---------
+# -- phase 2, BatchNorm kernels: the welford passes at RN50's BN shapes -------
 
 def rn50_bn_calls(model, batch: int, image: int) -> dict:
     """The training step's BN calls as ``{(rows, C, relu, z): count}``,
@@ -556,6 +603,270 @@ def welford_kernel_phase(torch, timer, calls) -> dict:
     return out
 
 
+# -- phase 2, the LM training kernels: Adam, LayerNorm backward, flash --------
+
+LM_SHAPE = dict(batch=8, seq=4096, embed=1024, heads=16, layers=8,
+                vocab=32768)
+# launches of each kernel in one LM training step: one flash forward, dq
+# and dk/dv per layer; two LayerNorms per layer and the final one; Adam
+LM_PER_STEP = {"flash_fwd": 8, "flash_bwd_dq": 8, "flash_bwd_dkv": 8,
+               "ln_fwd": 17, "ln_bwd": 17, "adam": 1}
+FLASH_CHECK_HEADS = 8     # heads held against the plain version
+
+
+def bf16_ulp(torch, t):
+    """The spacing of bf16 values at each element's magnitude."""
+    _, e = torch.frexp(t.float())
+    return torch.ldexp(torch.ones_like(t, dtype=torch.float32), e - 8)
+
+
+# flash outputs: each element within FLASH_ULPS bf16 ulps of itself plus
+# FLASH_RMS of its row's RMS over D (a query row of o and dq, a key row of
+# dk and dv), a row's RMS taken as at least FLASH_FLOOR of the tensor's
+# (rows whose exact value is 0, as dq's first causal row, are rounding
+# noise). The kernels round P and dS to bf16 before their second products:
+# that error is a share of the row, not of the tensor's largest value.
+FLASH_ULPS, FLASH_RMS, FLASH_FLOOR = 2.0, 2.0 ** -6, 2.0 ** -6
+
+
+def flash_err(torch, got, want) -> dict:
+    """``used``: the largest |got - want| over its limit (the check passes
+    at <= 1); ``ulps`` and ``rms``: the largest error in bf16 ulps and as a
+    share of its row's RMS."""
+    a, b = got.float(), want.float()
+    err = (a - b).abs()
+    ulp = torch.maximum(bf16_ulp(torch, a), bf16_ulp(torch, b))
+    rms = torch.clamp(b.pow(2).mean(-1, keepdim=True).sqrt(),
+                      min=FLASH_FLOOR * float(b.pow(2).mean().sqrt()))
+    lim = FLASH_ULPS * ulp + FLASH_RMS * rms
+    return {"max_abs_err": float(err.max()),
+            "ulps": float((err / ulp).max()), "rms": float((err / rms).max()),
+            "used": float((err / lim).max())}
+
+
+def lm_kernel_phase(torch, timer, total: int) -> dict:
+    """The LM step's new kernels at its shapes: Adam over the flat fp32
+    master store (``total`` elements), the LayerNorm backward over
+    [B·(S-1), E] bf16 rows, the flash kernels over [B·H, S-1, D] bf16,
+    causal. Each against its plain version on the same inputs (the flash
+    ones on the first heads, where the plain version's fp32 scores fit),
+    with its time, the plain version's over the whole input, one PyTorch
+    library call's and the bound."""
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.ops import flash_attn as FA
+    from apex_tpu_torch.ops import layer_norm as LN
+    from apex_tpu_torch.ops import multi_tensor as MT
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rows = {}
+
+    # Adam: lm_bench's FusedAdam(lr=1e-4), AdamW mode, weight decay 0,
+    # at step 3; fp32 grad, masters and slots
+    T = total
+    g = torch.randn(T, generator=gen, device="cuda") * 1e-2
+    p = torch.randn(T, generator=gen, device="cuda") * 0.02
+    m = torch.randn(T, generator=gen, device="cuda") * 1e-3
+    v = torch.rand(T, generator=gen, device="cuda") * 1e-6
+    sc = MT.adam_scalars(lr=1e-4, beta1=0.9, beta2=0.999, eps=1e-8,
+                         step=torch.tensor(3, device="cuda"),
+                         bias_correction=True, weight_decay=0.0,
+                         device="cuda")
+    got = MT.adam(g, p, m, v, sc, MT.MODE_DECOUPLED)
+    want = MT.adam_plain(g, p, m, v, sc, MT.MODE_DECOUPLED)
+    torch.cuda.synchronize()
+    same = all(bool(torch.equal(a, b)) for a, b in zip(got, want))
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    check(same, f"adam: not bit-equal to the plain version ({err})")
+    del got, want
+    lib_p = p.clone().requires_grad_(True)
+    lib_p.grad = g.clone()
+    lib = torch.optim.AdamW([lib_p], lr=1e-4, weight_decay=0.0, fused=True)
+    lib.step()                      # creates its state
+    b_ms, b_by = bound(28 * T + 36, 16 * T)
+    row = dict(kernel="adam", dtype="float32", shape=[T], max_abs_err=err,
+               tol=0.0, bitwise=same, per_step=LM_PER_STEP["adam"],
+               ms=timer(lambda: MT.adam(g, p, m, v, sc, MT.MODE_DECOUPLED)),
+               plain_ms=timer(lambda: MT.adam_plain(g, p, m, v, sc,
+                                                    MT.MODE_DECOUPLED)),
+               library_ms=timer(lib.step), bound_ms=b_ms, bound_by=b_by,
+               host_us=host_us(torch, lambda: MT.adam(
+                   g, p, m, v, sc, MT.MODE_DECOUPLED)))
+    emit({"phase": "kernels", **row})
+    rows[("adam", "float32")] = row
+    del g, p, m, v, lib, lib_p
+
+    # LayerNorm backward over the step's rows, bf16 with bf16 gamma (the
+    # O2 model's params), from the forward kernel's statistics
+    n_rows = LM_SHAPE["batch"] * (LM_SHAPE["seq"] - 1)
+    f = LM_SHAPE["embed"]
+    x = (torch.randn(n_rows, f, generator=gen, device="cuda") * 2
+         + 0.5).to(torch.bfloat16)
+    dy = torch.randn(n_rows, f, generator=gen, device="cuda").to(
+        torch.bfloat16)
+    w = (torch.randn(f, generator=gen, device="cuda") + 1).to(torch.bfloat16)
+    b = torch.randn(f, generator=gen, device="cuda").to(torch.bfloat16)
+    _, mean, inv = LN.ln_fwd(x, w, b, 1e-5)
+    dx, gw, gb = LN.ln_bwd(dy, x, w, mean, inv)
+    dx0, gw0, gb0 = LN.ln_bwd_plain(dy, x, w, mean, inv)
+    torch.cuda.synchronize()
+    # dx within one bf16 ulp of its value plus 1e-5 of its terms'
+    # magnitude inv·(|dxhat| + |mean(dxhat)| + |xhat·mean(dxhat·xhat)|):
+    # the two row means sum in another order, and where the terms cancel
+    # that difference is many ulps of a small result. The column sums
+    # within 1e-5 of each column's sum of |terms|.
+    xhat = (x.float() - mean[:, None]) * inv[:, None]
+    dxh = dy.float() * w.float()
+    m1 = dxh.mean(1, keepdim=True)
+    m2 = (dxh * xhat).mean(1, keepdim=True)
+    scale = inv[:, None] * (dxh.abs() + m1.abs() + (xhat * m2).abs())
+    lim = torch.maximum(bf16_ulp(torch, dx), bf16_ulp(torch, dx0)) \
+        + 1e-5 * scale
+    dx_err = (dx.float() - dx0.float()).abs()
+    check(bool((dx_err <= lim).all()),
+          f"ln_bwd: dx off by {float((dx_err / lim).max())} of its bound")
+    ulps = float((dx_err / torch.maximum(bf16_ulp(torch, dx),
+                                         bf16_ulp(torch, dx0))).max())
+    del dxh, m1, m2, scale, lim
+    sums_err = 0.0
+    for got_s, want_s, terms in ((gw, gw0, dy.float() * xhat),
+                                 (gb, gb0, dy.float())):
+        lim = 1e-5 * terms.abs().sum(0) + 1e-6
+        e = (got_s - want_s).abs()
+        check(bool((e <= lim).all()),
+              f"ln_bwd: column sums off by {float((e / lim).max())} of "
+              f"1e-5·Σ|terms|")
+        sums_err = max(sums_err, float(e.max()))
+    del xhat
+    again = LN.ln_bwd(dy, x, w, mean, inv)
+    repeat = all(bool(torch.equal(a, c)) for a, c in zip((dx, gw, gb),
+                                                        again))
+    check(repeat, "ln_bwd: two runs on the same inputs differ")
+    del again
+    _, lmean, lrstd = torch.ops.aten.native_layer_norm(x, [f], w, b, 1e-5)
+    es = 2
+    b_ms, b_by = bound(3 * n_rows * f * es + 8 * n_rows + f * es + 8 * f,
+                       11 * n_rows * f)
+    row = dict(kernel="ln_bwd", dtype="bfloat16", shape=[n_rows, f],
+               max_abs_err=float(dx_err.max()), max_ulps=ulps,
+               sums_max_abs_err=sums_err,
+               tol="dx: 1 bf16 ulp + 1e-5 of its terms; sums: 1e-5·Σ|terms|",
+               repeat_equal=repeat,
+               per_step=LM_PER_STEP["ln_bwd"],
+               ms=timer(lambda: LN.ln_bwd(dy, x, w, mean, inv)),
+               plain_ms=timer(lambda: LN.ln_bwd_plain(dy, x, w, mean, inv)),
+               library_ms=timer(
+                   lambda: torch.ops.aten.native_layer_norm_backward(
+                       dy, x, [f], lmean, lrstd, w, b, [True, True, True])),
+               bound_ms=b_ms, bound_by=b_by,
+               host_us=host_us(torch, lambda: LN.ln_bwd(dy, x, w, mean,
+                                                        inv)))
+    emit({"phase": "kernels", **row})
+    rows[("ln_bwd", "bfloat16")] = row
+    del x, dy, dx, dx0, dx_err, lmean, lrstd
+
+    # flash attention: [B·H, S-1, D] bf16, causal, the model's scale
+    B, H = LM_SHAPE["batch"], LM_SHAPE["heads"]
+    S, D = LM_SHAPE["seq"] - 1, LM_SHAPE["embed"] // LM_SHAPE["heads"]
+    BH, n = B * H, FLASH_CHECK_HEADS
+    kw = dict(causal=True, scale=D ** -0.5)
+
+    def rnd():
+        return torch.randn(BH, S, D, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    q, k, v, do = rnd(), rnd(), rnd(), rnd()
+    o, lse = FA.flash_fwd(q, k, v, **kw)
+    delta = FA.flash_delta(o, do)
+    dq = FA.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = FA.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    o0, lse0 = FA.reference_attention(q[:n], k[:n], v[:n], return_lse=True,
+                                      **kw)
+    dq0, dk0, dv0 = FA.flash_bwd_plain(q[:n], k[:n], v[:n], do[:n], lse[:n],
+                                       delta[:n], **kw)
+    torch.cuda.synchronize()
+
+    errs = {what: flash_err(torch, a[:n], b0) for what, a, b0 in
+            (("o", o, o0), ("dq", dq, dq0), ("dk", dk, dk0), ("dv", dv, dv0))}
+    lse_err = float((lse[:n] - lse0).abs().max())
+    emit({"phase": "flash_tol", "ulps": FLASH_ULPS, "rms": FLASH_RMS,
+          "floor": FLASH_FLOOR, "lse_err": lse_err, **errs})
+    check(lse_err <= 1e-3, f"flash lse: max abs err {lse_err} > 1e-3")
+    for what, e in errs.items():
+        check(e["used"] <= 1.0, f"flash {what}: {e}")
+    # the other side: the rule refuses the plain result with its later
+    # half 5% off
+    late = torch.arange(S, device="cuda")[None, :, None] >= S // 2
+    for what, b0 in (("o", o0), ("dq", dq0), ("dk", dk0), ("dv", dv0)):
+        off = torch.where(late, b0.float() * 1.05, b0.float())
+        check(flash_err(torch, off, b0)["used"] > 1.0,
+              f"flash {what}: the limit passes a result 5% off")
+    rep = bool(torch.equal(FA.flash_bwd_dkv(q, k, v, do, lse, delta,
+                                            **kw)[0], dk))
+    check(rep, "flash_bwd_dkv: two runs on the same inputs differ")
+    del o0, lse0, dq0, dk0, dv0, late, off
+    group = 16
+
+    def plain_fwd():
+        # the plain version head group by head group: its fp32 scores for
+        # all 128 heads at once would take tens of GB
+        for i in range(0, BH, group):
+            FA.reference_attention(q[i:i + group], k[i:i + group],
+                                   v[i:i + group], return_lse=True, **kw)
+
+    def plain_bwd():
+        FA.flash_bwd_plain(q, k, v, do, lse, delta, **kw)
+
+    q4, k4, v4, do4 = (t.view(B, H, S, D) for t in (q, k, v, do))
+    ql, kl, vl = (t.detach().clone().requires_grad_(True)
+                  for t in (q4, k4, v4))
+    lo = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+    lib_bwd = timer(lambda: torch.autograd.grad(lo, (ql, kl, vl), do4,
+                                                retain_graph=True))
+    pairs = BH * S * (S + 1) // 2            # causal (query, key) pairs
+    sz = BH * S * D * 2
+    common = dict(dtype="bfloat16", shape=[BH, S, D], causal=True,
+                  per_step=LM_PER_STEP["flash_fwd"], checked_heads=n)
+    b_ms, b_by = bound(4 * sz + 4 * BH * S, 4 * D * pairs, BF16_DENSE_OPS_S)
+    tol = (f"{FLASH_ULPS:g} bf16 ulps + {FLASH_RMS:g} of the row's RMS "
+           f"(at least {FLASH_FLOOR:g} of the tensor's); lse 1e-3")
+    fwd = dict(kernel="flash_fwd", **common,
+               max_abs_err=errs["o"]["max_abs_err"],
+               tol_used=errs["o"]["used"], tol=tol, lse_err=lse_err,
+               ms=timer(lambda: FA.flash_fwd(q, k, v, **kw)),
+               plain_ms=timer(plain_fwd),
+               library_ms=timer(lambda: F.scaled_dot_product_attention(
+                   q4, k4, v4, is_causal=True)),
+               bound_ms=b_ms, bound_by=b_by)
+    plain_bwd_ms = timer(plain_bwd)
+    b_ms, b_by = bound(5 * sz + 8 * BH * S, 6 * D * pairs, BF16_DENSE_OPS_S)
+    dqr = dict(kernel="flash_bwd_dq", **common,
+               max_abs_err=errs["dq"]["max_abs_err"],
+               tol_used=errs["dq"]["used"], tol=tol,
+               ms=timer(lambda: FA.flash_bwd_dq(q, k, v, do, lse, delta,
+                                                **kw)),
+               plain_ms=plain_bwd_ms, library_ms=lib_bwd,
+               library_covers="dq, dk and dv (one SDPA backward)",
+               bound_ms=b_ms, bound_by=b_by)
+    b_ms, b_by = bound(6 * sz + 8 * BH * S, 8 * D * pairs, BF16_DENSE_OPS_S)
+    dkvr = dict(kernel="flash_bwd_dkv", **common,
+                max_abs_err=max(errs["dk"]["max_abs_err"],
+                                errs["dv"]["max_abs_err"]),
+                tol_used=max(errs["dk"]["used"], errs["dv"]["used"]),
+                tol=tol, repeat_equal=rep,
+                ms=timer(lambda: FA.flash_bwd_dkv(q, k, v, do, lse, delta,
+                                                  **kw)),
+                plain_ms=plain_bwd_ms, library_ms=lib_bwd,
+                library_covers="dq, dk and dv (one SDPA backward)",
+                bound_ms=b_ms, bound_by=b_by)
+    dqr["plain_covers"] = dkvr["plain_covers"] = \
+        "dq, dk and dv (one flash_bwd_plain)"
+    for r in (fwd, dqr, dkvr):
+        emit({"phase": "kernels", **r})
+        rows[(r["kernel"], "bfloat16")] = r
+    return rows
+
+
 # -- phases 3-4: the serving slice --------------------------------------------
 
 TRAIN_KERNELS = ("scale", "lamb_phase1", "lamb_phase2", "bn_moments",
@@ -564,6 +875,7 @@ TRAIN_KERNELS = ("scale", "lamb_phase1", "lamb_phase2", "bn_moments",
 
 def counters():
     from apex_tpu_torch.ops import decode_attn as DA
+    from apex_tpu_torch.ops import flash_attn as FA
     from apex_tpu_torch.ops import layer_norm as LN
     from apex_tpu_torch.ops import multi_tensor as MT
     from apex_tpu_torch.ops import welford as WF
@@ -573,7 +885,10 @@ def counters():
             "lamb_phase1": MT.lamb_phase1, "lamb_phase2": MT.lamb_phase2,
             "bn_moments": WF.bn_moments,
             "bn_backward_fused_reduce": WF.bn_backward_fused_reduce,
-            "bn_backward_dx": WF.bn_backward_dx}
+            "bn_backward_dx": WF.bn_backward_dx,
+            "adam": MT.adam, "ln_bwd": LN.ln_bwd,
+            "flash_fwd": FA.flash_fwd, "flash_bwd_dq": FA.flash_bwd_dq,
+            "flash_bwd_dkv": FA.flash_bwd_dkv}
 
 
 def zero_counts() -> None:
@@ -666,9 +981,13 @@ def crosscheck_phase(torch, dispatch):
     hid_k, dense_k = step(False)
     _, paged_k = step(True)
     with dispatch.backend("reference"):
+        zero_counts()
         hid_r, dense_r = step(False)
         _, paged_r = step(True)
-    torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        plain_launches = read_counts()
+    check(not any(plain_launches.values()),
+          f"crosscheck: kernels launched in the plain run {plain_launches}")
     errs = {"prefill_hidden": float((hid_k - hid_r).abs().max()),
             "dense_logits": float((dense_k - dense_r).abs().max()),
             "paged_logits": float((paged_k - paged_r).abs().max())}
@@ -698,24 +1017,36 @@ KERNEL_FAMILIES = (
 )
 
 
-def _family(name: str) -> str:
+LM_KERNEL_FAMILIES = (
+    ("flash kernels", ("flash_fwd_kernel", "flash_dq_kernel",
+                       "flash_dkv_kernel")),
+    ("LN kernels", ("ln_fwd_kernel", "ln_bwd_kernel", "finalize_kernel")),
+    ("Adam", ("adam_kernel",)),
+    ("GEMMs", ("gemm", "xmma", "cutlass", "nvjet", "sm90", "cublas")),
+    ("reduction", ("reduce",)),
+    ("elementwise", ("elementwise", "vectorized", "unrolled", "where",
+                     "copy", "fill", "clamp", "cat", "index", "embedding")),
+)
+
+
+def _family(name: str, families) -> str:
     low = name.lower()
-    for fam, keys in KERNEL_FAMILIES:
+    for fam, keys in families:
         if any(k in low for k in keys):
             return fam
     return "other"
 
 
-def profile_steps(torch, trainer, x, y, n=2) -> dict:
+def profile_steps(torch, step, families=KERNEL_FAMILIES, n=2) -> dict:
     """Device time by kernel family and the device's idle share over
-    ``n`` steps under ``torch.profiler`` (CUPTI)."""
+    ``n`` calls of ``step`` under ``torch.profiler`` (CUPTI)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            trainer.step(x, y)
+            step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     fam, top = {}, []
@@ -725,7 +1056,7 @@ def profile_steps(torch, trainer, x, y, n=2) -> dict:
             us = getattr(e, "self_cuda_time_total", 0)
         if not us or e.device_type != torch.autograd.DeviceType.CUDA:
             continue
-        f = _family(e.key)
+        f = _family(e.key, families)
         fam[f] = fam.get(f, 0.0) + us / 1e3 / n
         top.append((us / 1e3 / n, e.count // n, e.key[:90]))
     busy = sum(fam.values())
@@ -770,7 +1101,7 @@ def train_phase(torch, model, params, state, bn_calls) -> tuple:
     loss = [float(v) for v in losses]
     flops = analytic_flops(model, image)
     img_s = batch * timed / wall
-    prof = profile_steps(torch, tr, x, y)
+    prof = profile_steps(torch, lambda: tr.step(x, y))
     row = {"phase": "train", "model": "resnet50", "batch": batch,
            "image": image, "dtype": "bfloat16", "opt_level": "O2",
            "loss_scale": float(tr.handle.loss_scale(tr.amp_state)),
@@ -882,9 +1213,15 @@ def train_crosscheck_phase(torch, dispatch):
     gk, loss_k = run("O0")
     hk, loss_hk = run("O2")
     with dispatch.backend("reference"):
+        zero_counts()
         gr, loss_r = run("O0")
         hr, loss_hr = run("O2")
-    torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        plain_launches = read_counts()
+    # the plain runs' backward too (it runs on the autograd device thread)
+    check(not any(plain_launches.values()),
+          f"train_crosscheck: kernels launched in the plain runs "
+          f"{plain_launches}")
     errs = {"master": float((gk.master - gr.master).abs().max()),
             **{k: float((gk.slots[k] - gr.slots[k]).abs().max())
                for k in gk.slots}}
@@ -911,6 +1248,148 @@ def train_crosscheck_phase(torch, dispatch):
           f"train_crosscheck O2: masters differ by {o2}")
     check(all(abs(a - b) <= 5e-3 for a, b in zip(loss_hk, loss_hr)),
           f"train_crosscheck O2: losses {loss_hk} vs {loss_hr}")
+
+
+# -- phases 9-10: the LM training slice ---------------------------------------
+
+def lm_model():
+    from apex_tpu_torch.models import TransformerLM
+    c = LM_SHAPE
+    # tools/lm_bench.py's defaults: attn "fast", the fused head in vocab
+    # chunks of min(8192, vocab)
+    return TransformerLM(vocab_size=c["vocab"], max_seq_len=c["seq"],
+                         embed_dim=c["embed"], num_heads=c["heads"],
+                         num_layers=c["layers"], attn_impl="fast",
+                         head_chunk=min(8192, c["vocab"]))
+
+
+def lm_train_phase(torch, model, params) -> tuple:
+    """tools/lm_bench.py's step at its defaults on one card: O2 bf16 over
+    fp32 flat masters, FusedAdam(lr=1e-4), one numpy token batch reused
+    every step; 3 warm-up and 10 timed steps, then two profiled ones."""
+    import numpy as np
+
+    from apex_tpu_torch.train import LMTrainer
+
+    c = LM_SHAPE
+    warm, timed = 3, 10
+    tr = LMTrainer(model, params, lr=1e-4)
+    toks = torch.from_numpy(np.random.RandomState(1).randint(
+        0, c["vocab"], (c["batch"], c["seq"])).astype(np.int64)).cuda()
+    losses = [tr.step(toks) for _ in range(warm)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(timed)]
+    t0 = time.perf_counter()
+    for a, b in events:
+        a.record()
+        losses.append(tr.step(toks))
+        b.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = sorted(a.elapsed_time(b) for a, b in events)
+    loss = [float(v) for v in losses]
+    tokens = c["batch"] * c["seq"]               # lm_bench's count
+    n_params = tr.table.total
+    step_flops = 6.0 * n_params * tokens + (
+        12 * c["layers"] * c["embed"] * c["seq"] ** 2 * c["batch"]) / 2
+    tok_s = tokens * timed / wall
+    prof = profile_steps(torch, lambda: tr.step(toks), LM_KERNEL_FAMILIES)
+    row = {"phase": "lm_train", "model": "TransformerLM", **c,
+           "attn_impl": model.attn_impl, "head_chunk": model.head_chunk,
+           "dtype": "bfloat16", "masters": "float32", "optimizer":
+           "FusedAdam(lr=1e-4)", "steps_timed": timed, "wall_s": wall,
+           "tokens_per_step": tokens, "tok_per_s": tok_s,
+           "step_ms_mean": wall / timed * 1e3,
+           "step_ms_p50": statistics.median(step_ms),
+           "step_ms_p95": step_ms[min(timed - 1,
+                                      int(round(0.95 * (timed - 1))))],
+           "step_tflop": step_flops / 1e12,
+           "mfu": step_flops * timed / wall / BF16_DENSE_OPS_S,
+           "peak_mem_bytes": peak, "params": n_params,
+           "loss_first": loss[0], "loss_last": loss[-1], "losses": loss,
+           "launches": {k: counts[k] for k in LM_PER_STEP},
+           "launches_per_step": {k: counts[k] / timed for k in LM_PER_STEP},
+           "profile": prof}
+    emit(row)
+    check(all(np.isfinite(loss)), f"lm_train: non-finite loss {loss}")
+    check(loss[-1] < loss[0], f"lm_train: loss did not fall {loss}")
+    for k, n in LM_PER_STEP.items():
+        check(counts[k] == n * timed,
+              f"lm_train: {k} launched {counts[k]} times in {timed} steps, "
+              f"not {n * timed}")
+    return counts, row
+
+
+def lm_crosscheck_phase(torch, dispatch):
+    """A small LM (2 layers, embed 128, 2 heads of 64, vocab 512, S 257,
+    batch 2), three O2 bf16 steps with the kernels and with the plain
+    versions on the card: the kernel run's masters no farther from the
+    plain run's than 1.5 times bf16's own effect on them (the plain bf16
+    masters against the plain fp32 ones), in mean and in max; two kernel
+    runs give the same losses and masters bit for bit. Every layer's key
+    bias is left out of the bar and bounded apart: its gradient is zero
+    analytically (softmax is shift-invariant along a row), so each run
+    holds rounding noise there, which Adam's first steps turn into moves
+    of about lr either way."""
+    from apex_tpu_torch.models import TransformerLM
+    from apex_tpu_torch.ops import flat
+    from apex_tpu_torch.train import LMTrainer
+
+    lr = 1e-3
+    m = TransformerLM(vocab_size=512, max_seq_len=256, embed_dim=128,
+                      num_heads=2, num_layers=2, attn_impl="fast",
+                      head_chunk=512)
+    params = m.init(torch.Generator().manual_seed(2))
+    toks = torch.randint(0, 512, (2, 257), generator=torch.Generator()
+                         .manual_seed(3)).cuda()
+    marks = flat.tree_map(torch.zeros_like, params)
+    for i in range(m.num_layers):
+        marks[f"layer_{i}"]["attn"]["in_proj_bias"][
+            m.embed_dim:2 * m.embed_dim] = 1.0
+    key_bias = flat.flatten(marks)[0] > 0
+
+    def run(dtype):
+        tr = LMTrainer(m, params, lr=lr, dtype=dtype)
+        loss = [float(tr.step(toks)) for _ in range(3)]
+        return tr.opt.state[0].master, loss
+
+    mk, loss_k = run(torch.bfloat16)
+    mk2, loss_k2 = run(torch.bfloat16)
+    with dispatch.backend("reference"):
+        zero_counts()
+        mr, loss_r = run(torch.bfloat16)
+        mf, loss_f = run(None)
+        torch.cuda.synchronize()
+        plain_launches = read_counts()
+    check(not any(plain_launches.values()),
+          f"lm_crosscheck: kernels launched in the plain runs "
+          f"{plain_launches}")
+    d_k, d_bf16 = (mk - mr).abs(), (mr - mf).abs()
+    rest = ~key_bias
+    errs = {"mean": float(d_k[rest].mean()), "max": float(d_k[rest].max()),
+            "bf16_mean": float(d_bf16[rest].mean()),
+            "bf16_max": float(d_bf16[rest].max()),
+            "key_bias_max": float(d_k[key_bias].max()),
+            "key_bias_elements": int(key_bias.sum())}
+    repeat = loss_k == loss_k2 and bool(torch.equal(mk, mk2))
+    emit({"phase": "lm_crosscheck", "steps": 3, "dtype": "bfloat16",
+          "master_err": errs, "loss_kernels": loss_k, "loss_kernels_again":
+          loss_k2, "loss_plain": loss_r, "loss_plain_f32": loss_f,
+          "repeat_equal": repeat})
+    check(errs["mean"] <= 1.5 * errs["bf16_mean"]
+          and errs["max"] <= 1.5 * errs["bf16_max"],
+          f"lm_crosscheck: masters differ by {errs}")
+    check(errs["key_bias_max"] <= 2 * 3 * 1.5 * lr,
+          f"lm_crosscheck: key biases differ by {errs['key_bias_max']}")
+    check(repeat, f"lm_crosscheck: two kernel runs differ {loss_k} vs "
+                  f"{loss_k2}")
+    check(all(abs(a - b) <= 2e-2 for a, b in zip(loss_k, loss_r)),
+          f"lm_crosscheck: losses {loss_k} vs {loss_r}")
 
 
 def main() -> int:
@@ -942,9 +1421,7 @@ def main() -> int:
     kcuda.lib()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "compiled": kcuda.build_seconds is not None,
-          "ptxas": sorted({ln.split(":", 1)[-1].strip()
-                           for ln in kcuda.build_log.splitlines()
-                           if "registers" in ln or "spill" in ln})})
+          "ptxas": ptxas_table(kcuda.build_log)})
 
     # 2. kernels against their plain versions; the training kernels over
     # the RN50 master store's layout
@@ -959,6 +1436,11 @@ def main() -> int:
     bn_calls = rn50_bn_calls(rn50, 256, 224)
     check(sum(bn_calls.values()) == 53, f"RN50 has 53 BNs, got {bn_calls}")
     rows.update(welford_kernel_phase(torch, timer, bn_calls))
+    # the LM step's kernels over its flat master store's size
+    lm = lm_model()
+    lm_params = lm.init(torch.Generator().manual_seed(0))
+    rows.update(lm_kernel_phase(torch, timer,
+                                flat.make_table(lm_params).total))
 
     # 3-4. the serving slice, dense then paged
     model = TransformerLM(vocab_size=32768, max_seq_len=1024,
@@ -1001,9 +1483,16 @@ def main() -> int:
     overflow_phase(torch)
     train_crosscheck_phase(torch, dispatch)
 
-    # 9. the kernels line, then the contract line
+    # 9-10. the LM training slice
+    lcounts, _ = lm_train_phase(torch, lm, lm_params)
+    del lm_params
+    lm_crosscheck_phase(torch, dispatch)
+
+    # 11. the kernels line, then the contract line
     launches = {k: dcounts[k] + pcounts[k] for k in dcounts}
     launches.update({k: tcounts[k] for k in TRAIN_KERNELS})
+    for k in LM_PER_STEP:                # ln_fwd: serving and training
+        launches[k] += lcounts[k]
     sources = {
         "decode_attention": (
             "apex_tpu_torch/ops/cuda/csrc/decode_attn.cu",
@@ -1026,6 +1515,19 @@ def main() -> int:
             "apex_tpu/ops/pallas/welford.py:94"),
         "bn_backward_dx": ("apex_tpu_torch/ops/cuda/csrc/welford.cu",
                            "apex_tpu/ops/pallas/welford.py:152"),
+        "adam": ("apex_tpu_torch/ops/cuda/csrc/multi_tensor.cu",
+                 "apex_tpu/ops/pallas/multi_tensor.py:270"),
+        "ln_bwd": ("apex_tpu_torch/ops/cuda/csrc/layer_norm.cu",
+                   "apex_tpu/ops/pallas/layer_norm.py:105"),
+        "flash_fwd": ("apex_tpu_torch/ops/cuda/csrc/flash_attn.cu",
+                      "apex_tpu/contrib/multihead_attn/flash_attention.py"
+                      ":181"),
+        "flash_bwd_dq": ("apex_tpu_torch/ops/cuda/csrc/flash_attn.cu",
+                         "apex_tpu/contrib/multihead_attn/"
+                         "flash_attention.py:349"),
+        "flash_bwd_dkv": ("apex_tpu_torch/ops/cuda/csrc/flash_attn.cu",
+                          "apex_tpu/contrib/multihead_attn/"
+                          "flash_attention.py:392"),
     }
     row_keys = {"decode_attention": ("decode_attention", "bfloat16"),
                 "paged_decode_attention": ("paged_decode_attention",
@@ -1040,7 +1542,12 @@ def main() -> int:
                 "bn_moments": ("bn_moments", "bfloat16"),
                 "bn_backward_fused_reduce": ("bn_backward_fused_reduce",
                                              "bfloat16"),
-                "bn_backward_dx": ("bn_backward_dx", "bfloat16")}
+                "bn_backward_dx": ("bn_backward_dx", "bfloat16"),
+                # the LM step's kernels at its shapes
+                "adam": ("adam", "float32"), "ln_bwd": ("ln_bwd", "bfloat16"),
+                "flash_fwd": ("flash_fwd", "bfloat16"),
+                "flash_bwd_dq": ("flash_bwd_dq", "bfloat16"),
+                "flash_bwd_dkv": ("flash_bwd_dkv", "bfloat16")}
     kernels = []
     for name, (src, repl) in sources.items():
         r = rows[row_keys[name]]

@@ -270,6 +270,7 @@ def test_trainer_through_the_kernels_matches_plain(card):
     assert [a - b for a, b in zip(after, before)] == [3, 3, 3, 27, 27, 27]
     with dispatch.backend("reference"):
         master0, losses0 = run()
+        assert [f.launches for f in fns] == after
     torch.testing.assert_close(master, master0, atol=1e-4, rtol=0)
     assert bool(torch.isfinite(losses).all()) and losses[-1] < losses[0]
 
@@ -337,3 +338,193 @@ def test_welford_wrappers_refuse_what_the_kernels_do_not_take(card):
         WF.bn_backward_dx(x, x, mean[:8], mean, mean, mean, mean)
     with pytest.raises(TypeError, match="dtype"):
         WF.bn_moments(x.double())
+
+
+# -- the LM training slice: Adam, LayerNorm backward, flash attention ----------
+
+@pytest.mark.parametrize("n", [4, 1000, 128 * 1037])
+@pytest.mark.parametrize("gdt,pdt", [(torch.float32, torch.float32),
+                                     (torch.bfloat16, torch.float32),
+                                     (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("mode", [0, 1])
+def test_adam_kernel_is_bit_equal_to_plain(card, n, gdt, pdt, mode):
+    from apex_tpu_torch.ops import multi_tensor as MT
+    g = torch.Generator(device=card).manual_seed(n)
+    grad = torch.randn(n, generator=g, device=card).to(gdt)
+    p = torch.randn(n, generator=g, device=card).to(pdt)
+    m = (torch.randn(n, generator=g, device=card) * 0.1).to(pdt)
+    v = (torch.rand(n, generator=g, device=card) * 0.01).to(pdt)
+    sc = MT.adam_scalars(lr=1e-3, beta1=0.9, beta2=0.999, eps=1e-8,
+                         step=torch.tensor(3, device=card),
+                         bias_correction=True, weight_decay=0.01,
+                         device=card)
+    before = MT.adam.launches
+    got = MT.adam(grad, p, m, v, sc, mode)
+    assert MT.adam.launches == before + 1
+    for a, b in zip(got, MT.adam_plain(grad, p, m, v, sc, mode)):
+        assert torch.equal(a, b)           # same operations, same roundings
+
+
+@pytest.mark.parametrize("rows,f", [(0, 256), (1, 4), (37, 256), (37, 1000),
+                                    (300, 4096), (4099, 1024)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ln_bwd_kernel_matches_plain_and_repeats(card, rows, f, dtype):
+    g = torch.Generator(device=card).manual_seed(rows + f)
+    x = (torch.randn(rows, f, generator=g, device=card) * 3 + 1).to(dtype)
+    dy = torch.randn(rows, f, generator=g, device=card).to(dtype)
+    w = torch.randn(f, generator=g, device=card).to(dtype)
+    _, mean, inv = LN.ln_fwd(x, w, w, 1e-5)
+    for weight in (w, None):
+        got = LN.ln_bwd(dy, x, weight, mean, inv)
+        want = LN.ln_bwd_plain(dy, x, weight, mean, inv)
+        _close(got[0], want[0], dtype)
+        if weight is not None:
+            xhat = (x.float() - mean[:, None]) * inv[:, None]
+            _sums_close(got[1], want[1], dy.float() * xhat)
+            _sums_close(got[2], want[2], dy.float())
+        again = LN.ln_bwd(dy, x, weight, mean, inv)
+        assert all(torch.equal(a, b) for a, b in zip(got, again)
+                   if a is not None)         # no float atomics
+
+
+def test_layer_norm_autograd_runs_the_kernels(card):
+    from apex_tpu_torch.normalization import fused_layer_norm_affine
+    g = torch.Generator(device=card).manual_seed(9)
+    x = torch.randn(4, 9, 256, generator=g, device=card,
+                    dtype=torch.bfloat16).requires_grad_(True)
+    w = torch.randn(256, generator=g, device=card).requires_grad_(True)
+    b = torch.randn(256, generator=g, device=card).requires_grad_(True)
+    dy = torch.randn(4, 9, 256, generator=g, device=card,
+                     dtype=torch.bfloat16)
+    before = (LN.ln_fwd.launches, LN.ln_bwd.launches)
+    y = fused_layer_norm_affine(x, (256,), w, b, 1e-5)
+    dx, dw, db = torch.autograd.grad(y, (x, w, b), dy)
+    assert (LN.ln_fwd.launches, LN.ln_bwd.launches) == (before[0] + 1,
+                                                        before[1] + 1)
+    with dispatch.backend("reference"):
+        y0 = fused_layer_norm_affine(x, (256,), w, b, 1e-5)
+        dx0, dw0, db0 = torch.autograd.grad(y0, (x, w, b), dy)
+    _close(dx, dx0, torch.bfloat16)
+    _close(dw, dw0, torch.float32)
+    _close(db, db0, torch.float32)
+    assert dx.dtype == torch.bfloat16 and dw.dtype == torch.float32
+
+
+def _flash_close(got, want):
+    """The kernels round P and dS to bf16 before their second products:
+    each element within 2 bf16 ulps of itself plus 2^-6 of its row's RMS
+    over D, a row's RMS taken as at least 2^-6 of the tensor's (the rule
+    of chip_smoke.py's flash check)."""
+    a, b = got.float(), want.float()
+    ulp = torch.ldexp(torch.ones_like(a), torch.frexp(
+        torch.maximum(a.abs(), b.abs()))[1] - 8)
+    rms = torch.clamp(b.pow(2).mean(-1, keepdim=True).sqrt(),
+                      min=2.0 ** -6 * float(b.pow(2).mean().sqrt()))
+    assert bool(((a - b).abs() <= 2 * ulp + 2.0 ** -6 * rms).all())
+
+
+@pytest.mark.parametrize("bh,sq,sk,d,causal,q_start", [
+    (3, 40, 40, 64, True, 0), (2, 257, 257, 128, True, 0),
+    (2, 257, 300, 64, False, 0), (2, 33, 100, 64, True, 67),
+    (2, 130, 100, 128, True, -50), (1, 1, 1, 64, False, 0)])
+def test_flash_kernels_match_plain(card, bh, sq, sk, d, causal, q_start):
+    from apex_tpu_torch.ops import flash_attn as FA
+    g = torch.Generator(device=card).manual_seed(sq + sk)
+
+    def rnd(*s):
+        return torch.randn(*s, generator=g, device=card).to(torch.bfloat16)
+
+    q, do = rnd(bh, sq, d), rnd(bh, sq, d)
+    k, v = rnd(bh, sk, d), rnd(bh, sk, d)
+    dlse = torch.randn(bh, sq, generator=g, device=card)
+    kw = dict(causal=causal, scale=d ** -0.5, q_start=q_start)
+    o, lse = FA.flash_fwd(q, k, v, **kw)
+    with dispatch.backend("reference"):
+        o0, lse0 = FA.flash_fwd(q, k, v, **kw)
+    _flash_close(o, o0)
+    live = lse0 > FA.NEG_INF * 0.5
+    assert float(torch.where(live, (lse - lse0).abs(), 0.0).max()) <= 1e-3
+    assert torch.equal(lse[~live], lse0[~live]) and not o[~live].any()
+    delta = FA.flash_delta(o, do, dlse)
+    dq = FA.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = FA.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    dq0, dk0, dv0 = FA.flash_bwd_plain(q, k, v, do, lse, delta, **kw)
+    for a, b in ((dq, dq0), (dk, dk0), (dv, dv0)):
+        _flash_close(a, b)
+    # each block owns its output rows: bitwise repeatable
+    assert torch.equal(FA.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)[0],
+                       dk)
+
+
+def test_flash_reads_strided_views(card):
+    """The time-major MHA split (``_split_heads``) gives [BH, S, D]
+    transposed views, strides (D, BH·D, 1); the kernels read them through
+    their strides, the same bits as from contiguous copies."""
+    from apex_tpu_torch.contrib.multihead_attn import flash_attention
+    g = torch.Generator(device=card).manual_seed(4)
+    t, b, h, d = 70, 2, 2, 64
+    qkv = torch.randn(t, b, 3 * h * d, generator=g, device=card).to(
+        torch.bfloat16)
+    q, k, v = (x.reshape(t, b * h, d).transpose(0, 1)
+               for x in torch.split(qkv, h * d, dim=-1))
+    assert not q.is_contiguous()
+    o = flash_attention(q, k, v, causal=True)
+    o0 = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                         causal=True)
+    assert torch.equal(o, o0)
+
+
+def test_flash_wrappers_refuse_what_the_kernels_do_not_take(card):
+    from apex_tpu_torch.contrib.multihead_attn import flash_attention
+    from apex_tpu_torch.ops import flash_attn as FA
+    q = torch.zeros(2, 16, 64, device=card, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="bfloat16"):
+        FA.flash_fwd(q.float(), q.float(), q.float())
+    with pytest.raises(ValueError, match="head_dim"):
+        x = torch.zeros(2, 16, 32, device=card, dtype=torch.bfloat16)
+        FA.flash_fwd(x, x, x)
+    with pytest.raises(NotImplementedError, match="item 15"):
+        flash_attention(q, q, q, kv_bias=torch.zeros(2, 16, device=card))
+    with pytest.raises(ValueError, match="fp32"):
+        FA.flash_bwd_dq(q, q, q, q, torch.zeros(2, 16, device=card),
+                        torch.zeros(2, 15, device=card), causal=True,
+                        scale=0.125)
+
+
+def test_lm_trainer_through_the_kernels_matches_plain(card):
+    """Three bf16 O2 steps of a small LM with the kernels and with the
+    plain versions on the card: every kernel of the step launched (per
+    step one flash forward, dq and dk/dv per layer, five LayerNorms
+    forward and backward, one Adam), losses finite, falling and close to
+    the plain run's, and the same bits when run twice."""
+    from apex_tpu_torch.models import TransformerLM
+    from apex_tpu_torch.ops import flash_attn as FA
+    from apex_tpu_torch.ops import multi_tensor as MT
+    from apex_tpu_torch.train import LMTrainer
+    m = TransformerLM(vocab_size=512, max_seq_len=256, embed_dim=128,
+                      num_heads=2, num_layers=2, attn_impl="fast",
+                      head_chunk=256)
+    params = m.init(0)
+    toks = torch.randint(0, 512, (2, 257), generator=torch.Generator()
+                         .manual_seed(1)).to(card)
+
+    def run():
+        tr = LMTrainer(m, params, lr=1e-3)
+        return torch.stack([tr.step(toks) for _ in range(3)]), tr
+
+    fns = (FA.flash_fwd, FA.flash_bwd_dq, FA.flash_bwd_dkv, LN.ln_fwd,
+           LN.ln_bwd, MT.adam)
+    before = [f.launches for f in fns]
+    losses, tr = run()
+    after = [f.launches for f in fns]
+    assert [a - b for a, b in zip(after, before)] == [6, 6, 6, 15, 15, 3]
+    losses2, tr2 = run()
+    assert torch.equal(losses, losses2)
+    assert torch.equal(tr.opt.state[0].master, tr2.opt.state[0].master)
+    with dispatch.backend("reference"):
+        before = [f.launches for f in fns]
+        losses0, _ = run()
+        # the backward too, which runs on the autograd device thread
+        assert [f.launches for f in fns] == before
+    assert bool(torch.isfinite(losses).all()) and losses[-1] < losses[0]
+    torch.testing.assert_close(losses, losses0, atol=2e-2, rtol=0)

@@ -1,0 +1,180 @@
+"""Port parity: flash attention (forward, lse and the backward).
+
+The port's ``flash_attention`` on CPU tensors runs the kernels' plain
+versions (``reference_attention`` with its lse for the forward, the
+chunked ``flash_bwd_plain`` for dq/dk/dv); the JAX package's
+``flash_attention`` runs its Pallas kernels in interpret mode off the TPU
+(flash_attention.py:76-77), forward and backward. Both get the same numpy
+inputs in f32: o and lse, then dq/dk/dv through ``jax.vjp`` against torch
+autograd with cotangents for both outputs (a nonzero dlse, which folds
+into the backward's per-row delta). Causal and not, ragged lengths, head
+dims 64 and 128, query offsets that leave rows with nothing to see.
+Tolerance: atol 1e-5 (plus rtol 1e-5 for the larger gradients): the two
+sum the keys in other blocks and orders.
+"""
+
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from apex_tpu_torch.contrib.multihead_attn import (SelfMultiheadAttn,
+                                                   flash_attention)
+from apex_tpu_torch.ops import flash_attn as FA
+
+# the modules (the packages export the functions under the same names)
+JFA = importlib.import_module(
+    "apex_tpu.contrib.multihead_attn.flash_attention")
+TFA = importlib.import_module(
+    "apex_tpu_torch.contrib.multihead_attn.flash_attention")
+
+TOL = dict(atol=1e-5, rtol=1e-5)
+
+# (bh, sq, sk, d, causal, q_start)
+CASES = [
+    (3, 40, 40, 64, True, 0),
+    (2, 257, 257, 128, True, 0),
+    (2, 257, 257, 64, False, 0),
+    (2, 40, 40, 128, False, 0),
+    (2, 33, 100, 64, True, 67),      # a chunk at the end of a longer cache
+    (2, 40, 40, 64, True, -5),       # the first five rows see nothing
+]
+
+
+def _case(bh, sq, sk, d, seed):
+    rs = np.random.RandomState(seed)
+    q, do = (rs.randn(bh, sq, d).astype(np.float32) for _ in range(2))
+    k, v = (rs.randn(bh, sk, d).astype(np.float32) for _ in range(2))
+    dlse = rs.randn(bh, sq).astype(np.float32)
+    return q, k, v, do, dlse
+
+
+@pytest.mark.parametrize("bh,sq,sk,d,causal,q_start", CASES)
+def test_forward_and_backward_match_jax(bh, sq, sk, d, causal, q_start):
+    q, k, v, do, dlse = _case(bh, sq, sk, d, seed=sq + d)
+    scale = 1.0 / np.sqrt(d)
+
+    def jfn(q_, k_, v_):
+        return JFA.flash_attention(q_, k_, v_, causal=causal, scale=scale,
+                                   q_start=q_start, return_lse=True)
+
+    (o_j, lse_j), vjp = jax.vjp(jfn, *(jnp.asarray(a) for a in (q, k, v)))
+    dq_j, dk_j, dv_j = vjp((jnp.asarray(do), jnp.asarray(dlse)))
+
+    qt, kt, vt = (torch.from_numpy(a).requires_grad_(True)
+                  for a in (q, k, v))
+    o, lse = flash_attention(qt, kt, vt, causal=causal, scale=scale,
+                             q_start=q_start, return_lse=True)
+    dq, dk, dv = torch.autograd.grad(
+        (o, lse), (qt, kt, vt),
+        (torch.from_numpy(do), torch.from_numpy(dlse)))
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(o_j), **TOL)
+    np.testing.assert_allclose(lse.detach().numpy(), np.asarray(lse_j),
+                               **TOL)
+    for got, want in ((dq, dq_j), (dk, dk_j), (dv, dv_j)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    if q_start < 0:
+        dead = slice(0, -q_start)
+        assert not o[:, dead].any()
+        assert bool((lse[:, dead] == FA.NEG_INF).all())
+        assert not dq[:, dead].any()
+
+
+def test_four_dim_inputs_and_output_only_gradient():
+    """[B, H, S, D] in, [B, H, S, D] out; a loss on o alone leaves dlse
+    unset, as JAX's vjp with a zero lse cotangent."""
+    q, k, v, do, _ = _case(4, 40, 40, 64, seed=7)
+    q4, k4, v4, do4 = (a.reshape(2, 2, *a.shape[1:]) for a in (q, k, v, do))
+    o_j, vjp = jax.vjp(lambda *a: JFA.flash_attention(*a, causal=True),
+                       *(jnp.asarray(a) for a in (q4, k4, v4)))
+    grads_j = vjp(jnp.asarray(do4))
+    ts = [torch.from_numpy(a).requires_grad_(True) for a in (q4, k4, v4)]
+    o = flash_attention(*ts, causal=True)
+    assert o.shape == (2, 2, 40, 64)
+    grads = torch.autograd.grad(o, ts, torch.from_numpy(do4))
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(o_j), **TOL)
+    for got, want in zip(grads, grads_j):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_plain_backward_equals_autograd_of_the_unfused_path(causal):
+    """``flash_bwd_plain`` (k chunks of 16 over a ragged 37) against torch
+    autograd through ``reference_attention`` in float64."""
+    q, k, v, do, dlse = (torch.from_numpy(a).double()
+                         for a in _case(2, 37, 37, 64, seed=3))
+    ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o, lse = FA.reference_attention(*ts, causal=causal, scale=0.125,
+                                    return_lse=True)
+    want = torch.autograd.grad((o, lse), ts, (do, dlse))
+    delta = FA.flash_delta(o.detach(), do, dlse)
+    got = FA.flash_bwd_plain(q, k, v, do, lse.detach().float(), delta,
+                             causal=causal, scale=0.125, block_k=16)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-5,
+                                   rtol=1e-5)
+
+
+def test_cpu_wrappers_launch_nothing():
+    q, k, v, do, _ = (torch.from_numpy(a) for a in _case(2, 40, 40, 64, 1))
+    fns = (FA.flash_fwd, FA.flash_bwd_dq, FA.flash_bwd_dkv)
+    before = [f.launches for f in fns]
+    o, lse = FA.flash_fwd(q, k, v, causal=True)
+    delta = FA.flash_delta(o, do)
+    FA.flash_bwd_dq(q, k, v, do, lse, delta, causal=True, scale=0.125)
+    FA.flash_bwd_dkv(q, k, v, do, lse, delta, causal=True, scale=0.125)
+    assert [f.launches for f in fns] == before
+
+
+def test_unported_options_raise():
+    q = torch.zeros(2, 8, 64)
+    for kw in ({"kv_bias": torch.zeros(2, 8)}, {"dropout_rate": 0.1}):
+        with pytest.raises(NotImplementedError, match="item 15"):
+            flash_attention(q, q, q, **kw)
+    with pytest.raises(NotImplementedError, match="item 15"):
+        flash_attention(q, q, q, torch.zeros(2, 8, 8))
+    mha = SelfMultiheadAttn(64, 2, causal=True, dropout=0.1)
+    with pytest.raises(NotImplementedError, match="dropout"):
+        mha.apply(mha.init(torch.Generator().manual_seed(0)),
+                  torch.zeros(4, 1, 64))
+    with pytest.raises(ValueError, match="impl"):
+        SelfMultiheadAttn(64, 2, impl="flash")
+
+
+def test_auto_rule_is_the_constant_not_the_environment(monkeypatch):
+    """impl="auto": flash from max(Sq, Sk) >= flash_min_s (4096 unset) or
+    once the unfused path's ~6 fp32 score buffers pass 2 GiB; the TPU's
+    environment override and crossover file are not read."""
+    monkeypatch.setenv("APEX_FLASH_MIN_S", "8")
+    monkeypatch.setenv("APEX_FLASH_COMPOSED_BYTES", "1")
+    assert TFA.DEFAULT_FLASH_MIN_S == JFA.DEFAULT_FLASH_MIN_S == 4096
+    mha = SelfMultiheadAttn(64, 2, causal=True, impl="auto")
+    small = torch.zeros(2, 64, 32)
+    assert not mha._flash_wins(small, small)
+    long = torch.zeros(1, 4096, 1)
+    assert mha._flash_wins(long, long)
+    wide = torch.zeros(8192, 2048, 1)      # 6 * 8192 * 2048^2 * 4 B > 2 GiB
+    assert mha._flash_wins(wide, wide)
+    assert SelfMultiheadAttn(64, 2, impl="auto",
+                             flash_min_s=64)._flash_wins(small, small)
+
+
+@pytest.mark.parametrize("impl", ["fast", "default", "auto"])
+def test_module_impls_agree_with_grad(impl):
+    """The three impls give the same output and input-projection grad
+    (flash is exact attention, not an approximation)."""
+    mha = SelfMultiheadAttn(64, 2, bias=True, causal=True, impl=impl)
+    p = mha.init(torch.Generator().manual_seed(0))
+    p = {k: v.requires_grad_(True) for k, v in p.items()}
+    x = torch.from_numpy(np.random.RandomState(2).randn(33, 2, 64)
+                         .astype(np.float32))
+    out, _ = mha.apply(p, x)
+    (g,) = torch.autograd.grad(out.square().sum(), p["in_proj"])
+    ref = SelfMultiheadAttn(64, 2, bias=True, causal=True, impl="default")
+    out0, _ = ref.apply(p, x)
+    (g0,) = torch.autograd.grad(out0.square().sum(), p["in_proj"])
+    torch.testing.assert_close(out, out0, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(g, g0, atol=1e-4, rtol=1e-5)

@@ -181,8 +181,9 @@ def test_ctypes_declarations_match_the_c_entry_points():
 
     from apex_tpu_torch.ops import cuda
     sources = cuda._sources()
-    assert {p.name for p in sources} >= {"decode_attn.cu", "layer_norm.cu",
-                                         "multi_tensor.cu", "welford.cu"}
+    assert {p.name for p in sources} >= {"decode_attn.cu", "flash_attn.cu",
+                                         "layer_norm.cu", "multi_tensor.cu",
+                                         "welford.cu"}
     sigs = {}
     for p in sources:
         for name, params in re.findall(
@@ -192,4 +193,66 @@ def test_ctypes_declarations_match_the_c_entry_points():
     cuda._declare(so)
     for name, n in sigs.items():
         assert len(getattr(so, name).argtypes) == n, name
-    assert len(sigs) == 8
+    assert len(sigs) == 13
+
+
+def test_lm_training_entry_points_default_to_the_card_and_raise_without_it(
+        no_cuda):
+    from apex_tpu_torch.convert import opt_state_from_jax
+    from apex_tpu_torch.models import TransformerLM
+    from apex_tpu_torch.optimizers import FusedAdam
+    from apex_tpu_torch.train import LMTrainer
+    m = TransformerLM(vocab_size=64, max_seq_len=16, embed_dim=32,
+                      num_heads=2, num_layers=1, attn_impl="fast",
+                      head_chunk=32, device="cpu")
+    p = m.init(0)
+    for call in (lambda: FusedAdam(p), lambda: LMTrainer(m, p),
+                 lambda: opt_state_from_jax([])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    tr = LMTrainer(m, p, device="cpu")
+    loss = tr.step(torch.randint(0, 64, (2, 9)))
+    assert loss.device.type == "cpu" and tr.opt.state[0].master.dtype == \
+        torch.float32
+
+
+def _string_constants(tree):
+    """String literals that are not docstrings."""
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body \
+                and isinstance(node.body[0], ast.Expr) \
+                and isinstance(node.body[0].value, ast.Constant):
+            docs.add(id(node.body[0].value))
+    return [n.value for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str)
+            and id(n) not in docs]
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: p.name)
+def test_no_tpu_measurement_file_or_override_is_read(path):
+    """The TPU's crossover records, bench defaults and the environment
+    overrides of its dispatch hold TPU measurements; no port code names
+    them."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for s in _string_constants(tree):
+        for bad in ("_crossover.json", "BENCH_DEFAULTS", "APEX_FLASH",
+                    "APEX_TPU_"):
+            assert bad not in s, f"{path.name} names {bad!r}: {s!r}"
+
+
+def test_dispatch_backend_reaches_other_threads():
+    """PyTorch runs a CUDA backward on its own device thread: the forced
+    backend must be visible there, or the plain run's backward launches
+    kernels."""
+    import threading
+
+    from apex_tpu_torch.ops import dispatch
+    seen = []
+    with dispatch.backend("reference"):
+        t = threading.Thread(target=lambda: seen.append(
+            dispatch.get_backend()))
+        t.start()
+        t.join()
+    assert seen == ["reference"] and dispatch.get_backend() == "auto"

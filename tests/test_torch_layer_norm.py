@@ -10,6 +10,7 @@ order); for bf16 input one bf16 ulp of y (8e-3 relative), since an fp32
 value a rounding apart can land on either side of a bf16 step.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -108,3 +109,93 @@ def test_cpu_tensors_launch_nothing_and_shape_errors_raise():
     assert OPS.ln_fwd.launches == before
     with pytest.raises(ValueError, match="normalized_shape"):
         fused_layer_norm(torch.from_numpy(x), (128,))
+
+
+# -- backward ---------------------------------------------------------------
+#
+# The port's ln_bwd plain version and its autograd Function against the JAX
+# package's Pallas backward kernel in interpret mode (``ln_bwd`` and the
+# custom VJP ``_ln_affine_bwd`` / ``_ln_plain_bwd`` under
+# ``dispatch.backend("pallas")``). Tolerances as above: 1e-5 in f32; one
+# bf16 ulp of dx for bf16 input (the fp32 column sums stay within 1e-5 of
+# each column's magnitude: both sum fp32 terms of the same bf16 inputs).
+
+@pytest.mark.parametrize("affine", [True, False])
+@pytest.mark.parametrize("f", [256, 1024])
+def test_ln_bwd_plain_matches_jax_pallas(f, affine):
+    x, w, _ = _data(f, seed=5)
+    dy = np.random.RandomState(6).randn(ROWS, f).astype(np.float32)
+    _, mean, inv = OPS.ln_fwd(torch.from_numpy(x), None, None, 1e-5)
+    wj = jnp.asarray(w) if affine else None
+    with jdispatch.backend("pallas"):
+        want = JP.ln_bwd(jnp.asarray(dy), jnp.asarray(x), wj,
+                         jnp.asarray(mean.numpy()), jnp.asarray(inv.numpy()))
+    got = OPS.ln_bwd(torch.from_numpy(dy), torch.from_numpy(x),
+                     torch.from_numpy(w) if affine else None, mean, inv)
+    assert len(want) == (3 if affine else 1)
+    assert (got[1] is None) == (not affine)
+    for g, j in zip(got, want):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), np.asarray(j), atol=1e-5,
+                                   rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_autograd_affine_matches_jax_vjp(dtype):
+    """The model's call: [B, T, E] through ``fused_layer_norm_affine``;
+    dx in x's dtype, the gamma/beta grads in theirs (fp32 here)."""
+    x, w, b = _data(256, seed=7)
+    x3 = x[:36].reshape(4, 9, 256)
+    dy = np.random.RandomState(8).randn(4, 9, 256).astype(np.float32)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    xj, dyj = jnp.asarray(x3, jdt), jnp.asarray(dy, jdt)
+    with jdispatch.backend("pallas"):
+        _, vjp = jax.vjp(lambda a, g_, b_: j_ln(a, (256,), g_, b_, 1e-5),
+                         xj, jnp.asarray(w), jnp.asarray(b))
+        dx_j, dw_j, db_j = vjp(dyj)
+    tdt = getattr(torch, dtype)
+    xt = torch.from_numpy(np.array(xj, np.float32)).to(tdt)
+    wt, bt = (torch.from_numpy(a).requires_grad_(True) for a in (w, b))
+    xt.requires_grad_(True)
+    y = fused_layer_norm_affine(xt, (256,), wt, bt, 1e-5)
+    dx, dw, db = torch.autograd.grad(
+        y, (xt, wt, bt), torch.from_numpy(np.array(dyj, np.float32)).to(tdt))
+    assert dx.dtype == tdt and dw.dtype == db.dtype == torch.float32
+    tol = 8e-3 if dtype == "bfloat16" else 1e-5
+    np.testing.assert_allclose(dx.float().numpy(),
+                               np.asarray(dx_j, np.float32), atol=tol,
+                               rtol=tol)
+    # the column sums add 36 fp32 terms: a few fp32 ulps of their scale
+    for g, j in ((dw, dw_j), (db, db_j)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(j), atol=1e-5,
+                                   rtol=1e-5)
+
+
+def test_autograd_non_affine_and_weight_dtype():
+    """Non-affine backward against JAX's ``_ln_plain_bwd``; bf16 gamma and
+    beta get their grads back in bf16 (``_ln_affine_bwd``'s casts)."""
+    from apex_tpu.normalization import fused_layer_norm as j_plain
+    x, w, b = _data(256, seed=9)
+    dy = np.random.RandomState(10).randn(ROWS, 256).astype(np.float32)
+    with jdispatch.backend("pallas"):
+        _, vjp = jax.vjp(lambda a: j_plain(a, (256,), 1e-5), jnp.asarray(x))
+        (dx_j,) = vjp(jnp.asarray(dy))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    (dx,) = torch.autograd.grad(fused_layer_norm(xt, 256, eps=1e-5), xt,
+                                torch.from_numpy(dy))
+    np.testing.assert_allclose(dx.numpy(), np.asarray(dx_j), atol=1e-5,
+                               rtol=1e-5)
+    wt = torch.from_numpy(w).to(torch.bfloat16).requires_grad_(True)
+    bt = torch.from_numpy(b).to(torch.bfloat16).requires_grad_(True)
+    y = fused_layer_norm_affine(torch.from_numpy(x), (256,), wt, bt, 1e-5)
+    dw, db = torch.autograd.grad(y, (wt, bt), torch.from_numpy(dy))
+    assert dw.dtype == db.dtype == torch.bfloat16
+
+
+def test_ln_bwd_cpu_launches_nothing():
+    x, w, _ = _data(256, seed=11)
+    xt = torch.from_numpy(x)
+    _, mean, inv = OPS.ln_fwd(xt, None, None, 1e-5)
+    before = OPS.ln_bwd.launches
+    OPS.ln_bwd(xt, xt, torch.from_numpy(w), mean, inv)
+    assert OPS.ln_bwd.launches == before

@@ -156,3 +156,102 @@ def test_lamb_phases_compose_to_the_step():
     ratio = torch.full((tt.num_segments,), 1e-3)
     p2 = MT.lamb_phase2(t[1], u, ratio, tt.row_segment_ids())
     torch.testing.assert_close(p2, t[1] - 1e-3 * u, rtol=0, atol=0)
+
+
+# -- Adam -------------------------------------------------------------------
+
+def _adam_case(n=128 * 37, seed=11):
+    rs = np.random.RandomState(seed)
+    g, p = (rs.randn(n).astype(np.float32) for _ in range(2))
+    m = (rs.randn(n) * 0.1).astype(np.float32)
+    v = (np.abs(rs.randn(n)) * 0.01).astype(np.float32)
+    return g, p, m, v
+
+
+@pytest.mark.parametrize("step", [1, 7])
+@pytest.mark.parametrize("mode,wd", [(MT.MODE_L2, 0.0), (MT.MODE_L2, 0.01),
+                                     (MT.MODE_DECOUPLED, 0.0),
+                                     (MT.MODE_DECOUPLED, 0.01)])
+def test_adam_step_matches_jax_within_one_ulp(mode, wd, step):
+    """The plain version (op for op the kernel's, one rounding each)
+    against the JAX package's ``adam_step`` (its jnp reference): within
+    one fp32 ulp. Against the Pallas kernel in interpret mode, which XLA
+    compiles with fused multiply-adds: m and v within two ulps of their
+    terms' magnitude (``b1·m + (1-b1)·g`` cancels; the L2 mode fuses
+    ``g + wd·p`` too), so p within lr times 1e-3 of its O(1) update."""
+    arrs = _adam_case(seed=step)
+    kw = dict(lr=1e-3, beta1=0.9, beta2=0.999, eps=1e-8, step=step,
+              weight_decay=wd, mode=mode)
+    got = K.adam_step(*(torch.from_numpy(a) for a in arrs), **kw)
+    jargs = [jnp.asarray(a) for a in arrs]
+    for a, b in zip(got, R.adam_step(*jargs, **kw)):
+        np.testing.assert_array_max_ulp(a.numpy(), np.asarray(b), maxulp=1)
+    p_k, m_k, v_k = (np.asarray(x) for x in P.adam_step(*jargs, **kw))
+    np.testing.assert_allclose(got[0].numpy(), p_k, atol=1e-6, rtol=0)
+    g, p, m, v = arrs
+    gf = g + wd * p if mode == MT.MODE_L2 else g
+    for t, k, terms in ((got[1], m_k, np.abs(0.9 * m) + np.abs(0.1 * gf)),
+                        (got[2], v_k, 0.999 * v + 0.001 * gf * gf)):
+        assert (np.abs(t.numpy() - k) <= 2 * np.spacing(terms.astype(
+            np.float32))).all()
+
+
+def test_adam_scalars_and_bias_correction_off():
+    sc = MT.adam_scalars(lr=1e-3, beta1=0.9, beta2=0.999, eps=1e-8,
+                         step=torch.tensor(2, dtype=torch.int32),
+                         bias_correction=True, weight_decay=0.0,
+                         device="cpu")
+    assert sc.dtype == torch.float32 and sc.shape == (9,)
+    # 1 - beta in float64, then one rounding (multi_tensor.py:272-275)
+    assert sc[7].item() == np.float32(1.0 - 0.9) != np.float32(1) - \
+        np.float32(0.9)
+    assert sc[4].item() == np.float32(1) - np.float32(0.9) ** 2
+    off = MT.adam_scalars(lr=1e-3, beta1=0.9, beta2=0.999, eps=1e-8, step=5,
+                          bias_correction=False, weight_decay=0.0,
+                          device="cpu")
+    assert off[4].item() == off[5].item() == 1.0
+    arrs = [torch.from_numpy(a) for a in _adam_case(n=256)]
+    before = MT.adam.launches
+    MT.adam(*arrs, sc, MT.MODE_DECOUPLED)
+    assert MT.adam.launches == before          # CPU tensors: plain version
+
+
+def test_fused_adam_matches_jax_over_three_steps():
+    """FusedAdam's functional core (two param groups, decoupled decay in
+    one) against the JAX FusedAdam; masters and slots within 1e-6."""
+    from apex_tpu.optimizers import FusedAdam as JAdam
+    from apex_tpu_torch.convert import opt_state_from_jax
+    from apex_tpu_torch.optimizers import FusedAdam
+    rs = np.random.RandomState(3)
+    trees = [{"w": rs.randn(7, 11).astype(np.float32),
+              "b": rs.randn(5).astype(np.float32)},
+             {"e": rs.randn(300).astype(np.float32)}]
+    groups = [{"params": trees[0]}, {"params": trees[1], "weight_decay": 0.1}]
+    jopt = JAdam([dict(g, params={k: jnp.asarray(v) for k, v in
+                                  g["params"].items()}) for g in groups],
+                 lr=1e-3)
+    topt = FusedAdam([dict(g, params={k: torch.from_numpy(v) for k, v in
+                                      g["params"].items()}) for g in groups],
+                     lr=1e-3, device="cpu")
+    js = jopt.init_state()
+    # both packages lay the flat buffers out alike
+    ts = opt_state_from_jax(js, device="cpu")
+    for a, b in zip(ts, topt.state):
+        assert torch.equal(a.master, b.master)
+    for _ in range(3):
+        grads = [rs.randn(gs.master.shape[0]).astype(np.float32)
+                 * F_valid(t) for gs, t in zip(js, topt._tables)]
+        js = jopt.apply_update(js, [jnp.asarray(g) for g in grads])
+        ts = topt.apply_update(ts, [torch.from_numpy(g) for g in grads])
+    for a, b in zip(ts, js):
+        assert int(a.step) == int(np.asarray(b.step)) == 3
+        np.testing.assert_allclose(a.master.numpy(), np.asarray(b.master),
+                                   atol=1e-6, rtol=0)
+        for k in ("exp_avg", "exp_avg_sq"):
+            np.testing.assert_allclose(a.slots[k].numpy(),
+                                       np.asarray(b.slots[k]), atol=1e-6,
+                                       rtol=0)
+
+
+def F_valid(table):
+    return table.valid_mask().numpy()
