@@ -15,7 +15,12 @@ with the decode-attention and LayerNorm-forward kernels; and the ResNet
 AMP FusedLAMB training step (``train.Trainer``: the flat master store
 ``ops.flat``, ``amp``, ``optimizers.FusedLAMB``, the ``parallel``
 SyncBatchNorm core, ``models.ResNet``), with the unscale and two LAMB
-kernels.
+kernels; the decoder-LM FusedAdam step (``train.LMTrainer``) with the
+flash, LayerNorm-backward and Adam kernels; and the ImageNet example's
+step (``Trainer(optimizer="sgd")`` on a uint8 batch normalized by
+``data.normalize_imagenet``, ``Trainer.evaluate``), with
+``optimizers.FusedSGD``, ``FusedNovoGrad`` and ``LARC`` and the SGD,
+NovoGrad and per-row norm kernels.
 
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``; without CUDA they raise instead of falling back.
@@ -29,8 +34,9 @@ import importlib
 
 __version__ = "0.1.0"
 
-_SUBMODULES = ("amp", "contrib", "convert", "models", "normalization",
-               "ops", "optimizers", "parallel", "serve", "train")
+_SUBMODULES = ("amp", "contrib", "convert", "data", "models",
+               "normalization", "ops", "optimizers", "parallel", "serve",
+               "train")
 
 __all__ = list(_SUBMODULES)
 

@@ -136,6 +136,14 @@ def _declare(so: ctypes.CDLL) -> None:
     so.apex_bn_bwd_dx.restype = I
     so.apex_adam.argtypes = [I, I] + [P] * 8 + [L, I, P]
     so.apex_adam.restype = I
+    so.apex_rowsumsq.argtypes = [I, P, P, L, P]
+    so.apex_rowsumsq.restype = I
+    so.apex_rowmaxabs.argtypes = [I, P, P, L, P]
+    so.apex_rowmaxabs.restype = I
+    so.apex_sgd.argtypes = [I, I] + [P] * 6 + [L, I, P]
+    so.apex_sgd.restype = I
+    so.apex_novograd.argtypes = [I, I] + [P] * 8 + [L, I, P]
+    so.apex_novograd.restype = I
     so.apex_layer_norm_bwd.argtypes = [I, I] + [P] * 9 + [I] * 4 + [P]
     so.apex_layer_norm_bwd.restype = I
     tail = [I] * 7 + [F, P]     # bh, sq, sk, d, q_start, k_start, causal

@@ -1,20 +1,31 @@
 // Multi-tensor kernels over the flat parameter store, seen as (rows, 128):
 // the loss scaler's unscale with its overflow flag, the two phases of
-// FusedLAMB, and FusedAdam's update. All math is fp32; the storage dtype
-// (fp32 or bf16) is kept on write.
+// FusedLAMB, FusedAdam's update, the per-row stage of the per-tensor norms
+// (sum of squares, max |x|), FusedSGD's update and NovoGrad's elementwise
+// update. All math is fp32; the storage dtype (fp32 or bf16) is kept on
+// write.
 //
 // scale replaces the Pallas kernel apex_tpu/ops/pallas/multi_tensor.py
 // scale -> _scale_kernel (:96). lamb_phase1 / lamb_phase2 replace
 // lamb_step -> _lamb_phase1_kernel (:452) / _lamb_phase2_kernel (:480).
-// adam replaces adam_step -> _adam_kernel (:270).
+// adam replaces adam_step -> _adam_kernel (:270). rowsumsq / rowmaxabs
+// replace rowsumsq -> _rowsumsq_kernel (:197) and rowmaxabs ->
+// _rowmaxabs_kernel (:219). sgd replaces sgd_step -> _sgd_kernel (:354).
+// novograd replaces novograd_step -> _novograd_kernel (:393).
 //
-// Bound on this card: bytes, for all four. Each reads its inputs once and
-// writes its outputs once with a handful of flops per element (~20 for
+// Bound on this card: bytes, for all of them. Each reads its inputs once
+// and writes its outputs once with a handful of flops per element (~20 for
 // phase 1 and Adam), far below the 295 operations per byte where the H100
-// turns compute-bound. At RN50's flat size T = 25,558,016 (fp32):
-//   scale   8 B·T (x in, out)                      204.5 MB, 0.061 ms
-//   phase1 28 B·T (g, p, m, v in; u, m, v out)    ~717 MB, 0.214 ms
-//   phase2 12 B·T (p, u in; p out)                ~307 MB, 0.092 ms
+// turns compute-bound. At RN50's flat size T = 25,558,016 (fp32, R =
+// 199,672 rows):
+//   scale     8 B·T (x in, out)                      204.5 MB, 0.061 ms
+//   phase1   28 B·T (g, p, m, v in; u, m, v out)    ~717 MB, 0.214 ms
+//   phase2   12 B·T (p, u in; p out)                ~307 MB, 0.092 ms
+//   rowsumsq  4 B·T + 4 B·R (x in; one sum a row)   ~103 MB, 0.031 ms
+//   rowmaxabs 4 B·T + 4 B·R                          ~103 MB, 0.031 ms
+//   sgd      20 B·T (g, p, m in; p, m out)          ~511 MB, 0.153 ms
+//   novograd 20 B·T + 4 B·R (g, p, m in; p, m out; a row's segment id)
+//                                                    ~512 MB, 0.153 ms
 // and Adam at the LM's T = 138.5 M: 28 B·T (g, p, m, v in; p, m, v out),
 // ~3.88 GB, 1.16 ms, at 3.35 TB/s. What the design does about it: every
 // element is touched by one thread once, with 16-byte (fp32) or 8-byte
@@ -22,14 +33,22 @@
 // are taken from registers by a warp reduction in phase 1 (one warp per
 // 128-element row), so the norms cost no extra sweep; phase 2 reads the
 // row's trust ratio through the row's segment id, so no per-row ratio
-// array is written.
+// array is written. rowsumsq and rowmaxabs take one row a warp the same
+// way and write one fp32 a row; the per-tensor sum or max over a
+// segment's rows is a small fixed-order pass outside (segment_reduce over
+// R values). novograd reads its row's denominator through the row's
+// segment id, as phase 2 reads the ratio, so the (rows, 1) denominator
+// the Pallas kernel takes is never written.
 //
-// Adam is one grid-stride pass of 4-wide vectors over the whole buffer.
+// Adam and SGD are one grid-stride pass of 4-wide vectors over the whole
+// buffer. SGD's options (momentum, nesterov, weight decay before or after
+// the momentum, weight decay at all) are bits of a flag word, uniform over
+// the launch.
 //
 // Scalars the step computes on the device (the unscale factor, the bias
-// corrections, the clip factor) are read from a small fp32 device array,
-// as the Pallas kernels read them from SMEM: the host never waits for
-// them.
+// corrections, the clip factor, SGD's first_run) are read from a small
+// fp32 device array, as the Pallas kernels read them from SMEM: the host
+// never waits for them.
 //
 // The overflow flag: the Pallas kernel carries it across its sequential
 // grid; here blocks run in any order, so each thread that saw a
@@ -40,7 +59,9 @@
 // Rounding: the update arithmetic uses the _rn intrinsics, which the
 // compiler never contracts into FMAs, in the order of the plain PyTorch
 // versions (apex_tpu_torch/ops/multi_tensor.py), so u, m, v and p equal
-// theirs bit for bit; only the per-row sums add in another order.
+// theirs bit for bit; only the per-row sums add in another order. A row's
+// max |x| is exact (NaN wins, as in torch.amax), so rowmaxabs equals its
+// plain version bit for bit.
 
 #include "common.cuh"
 
@@ -176,20 +197,6 @@ lamb_phase1_kernel(const G* __restrict__ g, const P* __restrict__ p,
   }
 }
 
-template <typename G, typename P>
-void launch_phase1(const void* g, const void* p, const void* m,
-                   const void* v, void* u, void* m_out, void* v_out,
-                   void* prow, void* urow, const void* sc, long long rows,
-                   int mode, cudaStream_t st) {
-  const long long blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
-  lamb_phase1_kernel<G, P><<<(unsigned)blocks, kRowThreads, 0, st>>>(
-      static_cast<const G*>(g), static_cast<const P*>(p),
-      static_cast<const P*>(m), static_cast<const P*>(v),
-      static_cast<float*>(u), static_cast<P*>(m_out),
-      static_cast<P*>(v_out), static_cast<float*>(prow),
-      static_cast<float*>(urow), static_cast<const float*>(sc), rows, mode);
-}
-
 // ---- LAMB phase 2 ----------------------------------------------------------
 
 template <typename P>
@@ -255,17 +262,163 @@ adam_kernel(const G* __restrict__ g, const P* __restrict__ p,
   }
 }
 
+// ---- per-row norms -----------------------------------------------------------
+
+// max that lets a NaN through from either side, as torch.amax does
+__device__ __forceinline__ float max_nan(float a, float b) {
+  return (a > b || a != a) ? a : b;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads)
+rowsumsq_kernel(const T* __restrict__ x, float* __restrict__ out,
+                long long rows) {
+  const long long row =
+      (long long)blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const int lane = threadIdx.x & 31;
+  float v[4];
+  load4(x + row * kLanes + lane * 4, v);
+  float s = 0.f;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) s += v[e] * v[e];
+  s = warp_sum(s);
+  if (lane == 0) out[row] = s;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads)
+rowmaxabs_kernel(const T* __restrict__ x, float* __restrict__ out,
+                 long long rows) {
+  const long long row =
+      (long long)blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const int lane = threadIdx.x & 31;
+  float v[4];
+  load4(x + row * kLanes + lane * 4, v);
+  float mx = fabsf(v[0]);
+#pragma unroll
+  for (int e = 1; e < 4; ++e) mx = max_nan(mx, fabsf(v[e]));
+#pragma unroll
+  for (int k = 16; k > 0; k >>= 1)
+    mx = max_nan(mx, __shfl_xor_sync(0xffffffffu, mx, k));
+  if (lane == 0) out[row] = mx;
+}
+
+// ---- SGD ---------------------------------------------------------------------
+// sc = [wd, lr, momentum, 1-dampening, scale, first_run]; flags as below.
+
+constexpr int kSgdMomentum = 1, kSgdNesterov = 2, kSgdWdAfter = 4,
+              kSgdWd = 8;
+
 template <typename G, typename P>
-void launch_adam(const void* g, const void* p, const void* m, const void* v,
-                 void* p_out, void* m_out, void* v_out, const void* sc,
-                 long long n, int mode, cudaStream_t st) {
-  long long blocks = (n / 4 + kScaleThreads - 1) / kScaleThreads;
-  blocks = blocks > kScaleMaxBlocks ? kScaleMaxBlocks : blocks;
-  adam_kernel<G, P><<<(unsigned)blocks, kScaleThreads, 0, st>>>(
-      static_cast<const G*>(g), static_cast<const P*>(p),
-      static_cast<const P*>(m), static_cast<const P*>(v),
-      static_cast<P*>(p_out), static_cast<P*>(m_out), static_cast<P*>(v_out),
-      static_cast<const float*>(sc), n, mode);
+__global__ void __launch_bounds__(kScaleThreads)
+sgd_kernel(const G* __restrict__ g, const P* __restrict__ p,
+           const P* __restrict__ m, P* __restrict__ p_out,
+           P* __restrict__ m_out, const float* __restrict__ sc, long long n,
+           int flags) {
+  const float wd = sc[0], lr = sc[1], mom = sc[2], omd = sc[3];
+  const float scl = sc[4];
+  const bool first = sc[5] > 0.f;
+  const bool use_mom = flags & kSgdMomentum, nest = flags & kSgdNesterov;
+  const bool wd_before = (flags & kSgdWd) && !(flags & kSgdWdAfter);
+  const bool wd_after = (flags & kSgdWd) && (flags & kSgdWdAfter);
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       4 * i < n; i += stride) {
+    const long long off = 4 * i;
+    float gv[4], pv[4], mv[4];
+    load4(g + off, gv);
+    load4(p + off, pv);
+    load4(m + off, mv);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float gf = __fmul_rn(gv[e], scl);
+      const float pf = pv[e];
+      if (wd_before) gf = __fadd_rn(gf, __fmul_rn(wd, pf));
+      if (use_mom) {
+        const float mf =
+            first ? gf : __fadd_rn(__fmul_rn(mv[e], mom), __fmul_rn(omd, gf));
+        gf = nest ? __fadd_rn(gf, __fmul_rn(mom, mf)) : mf;
+        mv[e] = mf;
+      }
+      if (wd_after) gf = __fadd_rn(gf, __fmul_rn(wd, pf));
+      pv[e] = __fsub_rn(pf, __fmul_rn(lr, gf));
+    }
+    store4(p_out + off, pv);
+    store4(m_out + off, mv);
+  }
+}
+
+// ---- NovoGrad ------------------------------------------------------------------
+// sc = [lr, b1, wd, beta3, bc1]; mode 0 divides the grad by the denominator
+// and adds weight decay inside the moment, mode 1 outside it.
+
+template <typename G, typename P>
+__global__ void __launch_bounds__(kRowThreads)
+novograd_kernel(const G* __restrict__ g, const P* __restrict__ p,
+                const P* __restrict__ m, const float* __restrict__ denom,
+                const int* __restrict__ row_seg, P* __restrict__ p_out,
+                P* __restrict__ m_out, const float* __restrict__ sc,
+                long long rows, int mode) {
+  const long long row =
+      (long long)blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const float lr = sc[0], b1 = sc[1], wd = sc[2], beta3 = sc[3];
+  const float bc1 = sc[4];
+  const float d = denom[row_seg[row]];
+  const long long off = row * kLanes + (threadIdx.x & 31) * 4;
+  float gv[4], pv[4], mv[4];
+  load4(g + off, gv);
+  load4(p + off, pv);
+  load4(m + off, mv);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float pf = pv[e];
+    float mf;
+    if (mode == 0) {
+      const float gf = __fadd_rn(__fdiv_rn(gv[e], d), __fmul_rn(wd, pf));
+      mf = __fadd_rn(__fmul_rn(b1, mv[e]), __fmul_rn(beta3, gf));
+      pv[e] = __fsub_rn(pf, __fmul_rn(lr, __fdiv_rn(mf, bc1)));
+    } else {
+      mf = __fadd_rn(__fmul_rn(b1, mv[e]), __fmul_rn(beta3, gv[e]));
+      const float u =
+          __fadd_rn(__fdiv_rn(__fdiv_rn(mf, bc1), d), __fmul_rn(wd, pf));
+      pv[e] = __fsub_rn(pf, __fmul_rn(lr, u));
+    }
+    mv[e] = mf;
+  }
+  store4(p_out + off, pv);
+  store4(m_out + off, mv);
+}
+
+// A storage dtype as a type tag: with_type calls f(Type<T>{}) for the
+// dtype's T, with_gp_types f(Type<G>{}, Type<P>{}) for the (grad, param)
+// pair; each returns false for a dtype the kernels do not take.
+template <typename T> struct Type { using type = T; };
+
+template <typename F>
+bool with_type(int dtype, F&& f) {
+  switch (dtype) {
+    case kF32: f(Type<float>{}); return true;
+    case kBF16: f(Type<__nv_bfloat16>{}); return true;
+    default: return false;
+  }
+}
+
+template <typename F>
+bool with_gp_types(int g_dtype, int p_dtype, F&& f) {
+  bool ok = false;
+  with_type(g_dtype, [&](auto gt) {
+    ok = with_type(p_dtype, [&](auto pt) { f(gt, pt); });
+  });
+  return ok;
+}
+
+// an entry point's return: cudaErrorInvalidValue for a dtype it does not
+// take, else the launch's cudaGetLastError()
+int launched(bool ok) {
+  return static_cast<int>(ok ? cudaGetLastError() : cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -279,14 +432,11 @@ extern "C" int apex_scale(int dtype, const void* x, void* out,
   using namespace apex_port;
   if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* sp = static_cast<const float*>(s);
-  int* fp = static_cast<int*>(flag);
-  switch (dtype) {
-    case kF32: launch_scale<float>(x, out, sp, fp, n, st); break;
-    case kBF16: launch_scale<__nv_bfloat16>(x, out, sp, fp, n, st); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launched(with_type(dtype, [&](auto t) {
+    launch_scale<typename decltype(t)::type>(
+        x, out, static_cast<const float*>(s), static_cast<int*>(flag), n,
+        st);
+  }));
 }
 
 // g [rows*128] (fp32 or bf16); p, m, v [rows*128] in one dtype (fp32 or
@@ -302,23 +452,18 @@ extern "C" int apex_lamb_phase1(int g_dtype, int p_dtype, const void* g,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (g_dtype == kF32 && p_dtype == kF32) {
-    launch_phase1<float, float>(g, p, m, v, u, m_out, v_out, prow, urow, sc,
-                                rows, mode, st);
-  } else if (g_dtype == kBF16 && p_dtype == kF32) {
-    launch_phase1<__nv_bfloat16, float>(g, p, m, v, u, m_out, v_out, prow,
-                                        urow, sc, rows, mode, st);
-  } else if (g_dtype == kF32 && p_dtype == kBF16) {
-    launch_phase1<float, __nv_bfloat16>(g, p, m, v, u, m_out, v_out, prow,
-                                        urow, sc, rows, mode, st);
-  } else if (g_dtype == kBF16 && p_dtype == kBF16) {
-    launch_phase1<__nv_bfloat16, __nv_bfloat16>(g, p, m, v, u, m_out, v_out,
-                                                prow, urow, sc, rows, mode,
-                                                st);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const long long blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
+  return launched(with_gp_types(g_dtype, p_dtype, [&](auto gt, auto pt) {
+    using G = typename decltype(gt)::type;
+    using P = typename decltype(pt)::type;
+    lamb_phase1_kernel<G, P><<<(unsigned)blocks, kRowThreads, 0, st>>>(
+        static_cast<const G*>(g), static_cast<const P*>(p),
+        static_cast<const P*>(m), static_cast<const P*>(v),
+        static_cast<float*>(u), static_cast<P*>(m_out),
+        static_cast<P*>(v_out), static_cast<float*>(prow),
+        static_cast<float*>(urow), static_cast<const float*>(sc), rows,
+        mode);
+  }));
 }
 
 // p, out [rows*128] (fp32 or bf16); u fp32 [rows*128]; ratio fp32
@@ -330,25 +475,13 @@ extern "C" int apex_lamb_phase2(int p_dtype, const void* p, const void* u,
   if (rows < 1) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
-  const float* up = static_cast<const float*>(u);
-  const float* rp = static_cast<const float*>(ratio);
-  const int* sp = static_cast<const int*>(row_seg);
-  switch (p_dtype) {
-    case kF32:
-      lamb_phase2_kernel<float><<<(unsigned)blocks, kRowThreads, 0, st>>>(
-          static_cast<const float*>(p), up, rp, sp, static_cast<float*>(out),
-          rows);
-      break;
-    case kBF16:
-      lamb_phase2_kernel<__nv_bfloat16>
-          <<<(unsigned)blocks, kRowThreads, 0, st>>>(
-              static_cast<const __nv_bfloat16*>(p), up, rp, sp,
-              static_cast<__nv_bfloat16*>(out), rows);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launched(with_type(p_dtype, [&](auto pt) {
+    using P = typename decltype(pt)::type;
+    lamb_phase2_kernel<P><<<(unsigned)blocks, kRowThreads, 0, st>>>(
+        static_cast<const P*>(p), static_cast<const float*>(u),
+        static_cast<const float*>(ratio), static_cast<const int*>(row_seg),
+        static_cast<P*>(out), rows);
+  }));
 }
 
 // g [n] (fp32 or bf16); p, m, v [n] in one dtype (fp32 or bf16) and
@@ -364,20 +497,95 @@ extern "C" int apex_adam(int g_dtype, int p_dtype, const void* g,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (g_dtype == kF32 && p_dtype == kF32) {
-    launch_adam<float, float>(g, p, m, v, p_out, m_out, v_out, sc, n, mode,
-                              st);
-  } else if (g_dtype == kBF16 && p_dtype == kF32) {
-    launch_adam<__nv_bfloat16, float>(g, p, m, v, p_out, m_out, v_out, sc, n,
-                                      mode, st);
-  } else if (g_dtype == kF32 && p_dtype == kBF16) {
-    launch_adam<float, __nv_bfloat16>(g, p, m, v, p_out, m_out, v_out, sc, n,
-                                      mode, st);
-  } else if (g_dtype == kBF16 && p_dtype == kBF16) {
-    launch_adam<__nv_bfloat16, __nv_bfloat16>(g, p, m, v, p_out, m_out, v_out,
-                                              sc, n, mode, st);
-  } else {
+  long long blocks = (n / 4 + kScaleThreads - 1) / kScaleThreads;
+  blocks = blocks > kScaleMaxBlocks ? kScaleMaxBlocks : blocks;
+  return launched(with_gp_types(g_dtype, p_dtype, [&](auto gt, auto pt) {
+    using G = typename decltype(gt)::type;
+    using P = typename decltype(pt)::type;
+    adam_kernel<G, P><<<(unsigned)blocks, kScaleThreads, 0, st>>>(
+        static_cast<const G*>(g), static_cast<const P*>(p),
+        static_cast<const P*>(m), static_cast<const P*>(v),
+        static_cast<P*>(p_out), static_cast<P*>(m_out),
+        static_cast<P*>(v_out), static_cast<const float*>(sc), n, mode);
+  }));
+}
+
+// x [rows*128] (fp32 or bf16, 4-element aligned); out fp32 [rows]: each
+// row's sum of squares.
+extern "C" int apex_rowsumsq(int dtype, const void* x, void* out,
+                             long long rows, void* stream) {
+  using namespace apex_port;
+  if (rows < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
+  return launched(with_type(dtype, [&](auto t) {
+    using T = typename decltype(t)::type;
+    rowsumsq_kernel<T><<<(unsigned)blocks, kRowThreads, 0, st>>>(
+        static_cast<const T*>(x), static_cast<float*>(out), rows);
+  }));
+}
+
+// x [rows*128] (fp32 or bf16, 4-element aligned); out fp32 [rows]: each
+// row's max |x|.
+extern "C" int apex_rowmaxabs(int dtype, const void* x, void* out,
+                              long long rows, void* stream) {
+  using namespace apex_port;
+  if (rows < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
+  return launched(with_type(dtype, [&](auto t) {
+    using T = typename decltype(t)::type;
+    rowmaxabs_kernel<T><<<(unsigned)blocks, kRowThreads, 0, st>>>(
+        static_cast<const T*>(x), static_cast<float*>(out), rows);
+  }));
+}
+
+// g [n] (fp32 or bf16); p, m [n] in one dtype (fp32 or bf16) and p_out,
+// m_out like them, every buffer 4-element aligned, n a multiple of 4; sc
+// fp32 [6] on the device; flags: 1 momentum, 2 nesterov, 4 weight decay
+// after the momentum, 8 weight decay.
+extern "C" int apex_sgd(int g_dtype, int p_dtype, const void* g,
+                        const void* p, const void* m, void* p_out,
+                        void* m_out, const void* sc, long long n, int flags,
+                        void* stream) {
+  using namespace apex_port;
+  if (n < 4 || n % 4 != 0 || (flags & ~15) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  long long blocks = (n / 4 + kScaleThreads - 1) / kScaleThreads;
+  blocks = blocks > kScaleMaxBlocks ? kScaleMaxBlocks : blocks;
+  return launched(with_gp_types(g_dtype, p_dtype, [&](auto gt, auto pt) {
+    using G = typename decltype(gt)::type;
+    using P = typename decltype(pt)::type;
+    sgd_kernel<G, P><<<(unsigned)blocks, kScaleThreads, 0, st>>>(
+        static_cast<const G*>(g), static_cast<const P*>(p),
+        static_cast<const P*>(m), static_cast<P*>(p_out),
+        static_cast<P*>(m_out), static_cast<const float*>(sc), n, flags);
+  }));
+}
+
+// g [rows*128] (fp32 or bf16); p, m [rows*128] in one dtype (fp32 or
+// bf16) and p_out, m_out like them, each 4-element aligned; denom fp32
+// [segments]; row_seg int32 [rows]; sc fp32 [5] on the device.
+extern "C" int apex_novograd(int g_dtype, int p_dtype, const void* g,
+                             const void* p, const void* m, const void* denom,
+                             const void* row_seg, void* p_out, void* m_out,
+                             const void* sc, long long rows, int mode,
+                             void* stream) {
+  using namespace apex_port;
+  if (rows < 1 || (mode != 0 && mode != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
+  return launched(with_gp_types(g_dtype, p_dtype, [&](auto gt, auto pt) {
+    using G = typename decltype(gt)::type;
+    using P = typename decltype(pt)::type;
+    novograd_kernel<G, P><<<(unsigned)blocks, kRowThreads, 0, st>>>(
+        static_cast<const G*>(g), static_cast<const P*>(p),
+        static_cast<const P*>(m), static_cast<const float*>(denom),
+        static_cast<const int*>(row_seg), static_cast<P*>(p_out),
+        static_cast<P*>(m_out), static_cast<const float*>(sc), rows, mode);
+  }));
 }

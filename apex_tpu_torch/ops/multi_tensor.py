@@ -11,7 +11,17 @@ FusedLAMB step runs; the kernels are ``ops/cuda/csrc/multi_tensor.cu``:
   ``_lamb_phase1_kernel`` / ``_lamb_phase2_kernel`` (multi_tensor.py:452,
   :480); :func:`lamb_step` joins them with the per-tensor trust ratio;
 - :func:`adam` replaces ``adam_step`` → ``_adam_kernel`` (multi_tensor.py:
-  270); :func:`adam_step` adds its scalars.
+  270); :func:`adam_step` adds its scalars;
+- :func:`rowsumsq` / :func:`rowmaxabs` replace ``rowsumsq`` →
+  ``_rowsumsq_kernel`` (:197) and ``rowmaxabs`` → ``_rowmaxabs_kernel``
+  (:219): the per-row stage of the per-tensor norms, which
+  :func:`l2norm_per_segment` and :func:`maxnorm_per_segment` finish with a
+  fixed-order sum or a max over each segment's rows;
+- :func:`sgd` replaces ``sgd_step`` → ``_sgd_kernel`` (:354);
+  :func:`sgd_step` adds its scalars;
+- :func:`novograd` replaces ``novograd_step`` → ``_novograd_kernel``
+  (:393); :func:`novograd_step` adds the per-tensor norm blend and the
+  bias corrections, plain on the device.
 
 For a tensor on the CPU each wrapper runs its plain version; for a tensor
 on the card it launches its kernel, or raises on what the kernel does not
@@ -35,10 +45,17 @@ __all__ = ["MODE_L2", "MODE_DECOUPLED", "all_finite", "scale", "scale_plain",
            "segment_sum", "lamb_scalars", "lamb_phase1", "lamb_phase1_plain",
            "lamb_phase2", "lamb_phase2_plain", "lamb_step",
            "lamb_step_plain", "adam_scalars", "adam", "adam_plain",
-           "adam_step"]
+           "adam_step", "NORM_LINF", "NORM_L2", "rowsumsq", "rowsumsq_plain",
+           "rowmaxabs", "rowmaxabs_plain", "segment_max",
+           "l2norm_per_segment", "maxnorm_per_segment", "norm_out_blend",
+           "sgd_scalars", "sgd", "sgd_plain", "sgd_step",
+           "novograd_scalars", "novograd", "novograd_plain",
+           "novograd_step"]
 
 MODE_L2 = 0          # weight decay folded into the gradient
 MODE_DECOUPLED = 1   # AdamW-style decoupled weight decay
+NORM_LINF = 0        # per-tensor max |x| (reference.py:36)
+NORM_L2 = 2          # per-tensor L2 norm
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -373,3 +390,296 @@ def adam_step(g, p, m, v, *, lr, beta1: float, beta2: float, eps: float,
                       bias_correction=bias_correction,
                       weight_decay=weight_decay, device=p.device)
     return adam(g, p, m, v, sc, mode)
+
+
+# -- per-row norms (K13, K14) and the per-tensor norms ------------------------
+
+def _check_rows(what: str, x: torch.Tensor) -> None:
+    if x.dim() != 1 or x.numel() % LANES:
+        raise ValueError(f"{what}: x must be a flat buffer of a multiple of "
+                         f"{LANES} elements")
+    _check_flat(what, x, x.device)
+
+
+def rowsumsq_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``_rowsumsq_kernel`` (multi_tensor.py:197-199):
+    fp32 sum of x² over each 128-element row."""
+    xf = x.float()
+    return (xf * xf).view(-1, LANES).sum(dim=1)
+
+
+def rowsumsq(x: torch.Tensor) -> torch.Tensor:
+    """fp32 [rows]: Σx² of each row of x [rows * 128] (fp32 or bf16)."""
+    if not dispatch.use_kernel(x):
+        return rowsumsq_plain(x)
+    _check_rows("rowsumsq", x)
+    out = torch.empty(x.numel() // LANES, dtype=torch.float32,
+                      device=x.device)
+    if out.numel():
+        err = _cuda.lib().apex_rowsumsq(
+            _cuda.dtype_code(x.dtype, "rowsumsq"), x.data_ptr(),
+            out.data_ptr(), out.numel(), _cuda.stream(x.device))
+        _cuda.check(err, "rowsumsq")
+        rowsumsq.launches += 1
+    return out
+
+
+rowsumsq.launches = 0
+
+
+def rowmaxabs_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``_rowmaxabs_kernel`` (multi_tensor.py:219-221):
+    max |x| of each 128-element row, fp32 (NaN wins, as in ``amax``)."""
+    return x.float().abs().view(-1, LANES).amax(dim=1)
+
+
+def rowmaxabs(x: torch.Tensor) -> torch.Tensor:
+    """fp32 [rows]: max |x| of each row of x [rows * 128]; exact, so equal
+    to :func:`rowmaxabs_plain` bit for bit."""
+    if not dispatch.use_kernel(x):
+        return rowmaxabs_plain(x)
+    _check_rows("rowmaxabs", x)
+    out = torch.empty(x.numel() // LANES, dtype=torch.float32,
+                      device=x.device)
+    if out.numel():
+        err = _cuda.lib().apex_rowmaxabs(
+            _cuda.dtype_code(x.dtype, "rowmaxabs"), x.data_ptr(),
+            out.data_ptr(), out.numel(), _cuda.stream(x.device))
+        _cuda.check(err, "rowmaxabs")
+        rowmaxabs.launches += 1
+    return out
+
+
+rowmaxabs.launches = 0
+
+
+def segment_max(vals: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Max of each segment of contiguous non-negative ``vals``; an empty
+    segment gives 0, the identity of |x| (reference.py:155-168), where
+    ``segment_reduce`` alone would give -inf."""
+    return torch.segment_reduce(vals, "max", lengths=lengths, initial=0.0)
+
+
+def l2norm_per_segment(x: torch.Tensor, table: SegmentTable) -> torch.Tensor:
+    """Per-tensor L2 norms of a row-aligned flat buffer
+    (multi_tensor.py:246-257): the row pass, then a fixed-order sum over
+    each segment's rows."""
+    return torch.sqrt(segment_sum(rowsumsq(x), table.row_lengths(x.device)))
+
+
+def maxnorm_per_segment(x: torch.Tensor, table: SegmentTable) -> torch.Tensor:
+    """Per-tensor L-inf norms of a row-aligned flat buffer
+    (multi_tensor.py:260-263): the row pass, then a max over each
+    segment's rows."""
+    return segment_max(rowmaxabs(x), table.row_lengths(x.device))
+
+
+def norm_out_blend(old, new, alpha: float, beta: float, norm_type: int):
+    """reference.py:171-178: L2 ``sqrt(a·old² + b·new²)``, L-inf
+    ``a·old + b·new``; NovoGrad's per-tensor second moment."""
+    if norm_type == NORM_LINF:
+        return alpha * old + beta * new
+    return torch.sqrt(alpha * torch.square(old) + beta * torch.square(new))
+
+
+# -- SGD (K17) ----------------------------------------------------------------
+
+SGD_MOMENTUM, SGD_NESTEROV, SGD_WD_AFTER, SGD_WD = 1, 2, 4, 8   # flag bits
+
+
+def sgd_scalars(*, wd: float, lr: float, momentum: float, dampening: float,
+                first_run, scale=1.0, device) -> torch.Tensor:
+    """The SGD kernel's scalars as one fp32 [6] device array:
+    ``[wd, lr, momentum, 1-dampening, scale, first_run]``; ``1-dampening``
+    in float64, then rounded to fp32, as the JAX kernel takes it
+    (multi_tensor.py:363); ``first_run`` (a device bool, step == 1) and
+    ``scale`` may be device values, so nothing waits for the host."""
+    device = torch.device(device)
+    const = _consts((wd, lr, momentum, 1.0 - dampening), device)
+    tail = [torch.as_tensor(v, device=device).to(torch.float32).reshape(())
+            for v in (scale, first_run)]
+    return torch.cat([const, torch.stack(tail)])
+
+
+def _sgd_flags(*, wd: float, momentum: float, nesterov: bool,
+               wd_after_momentum: bool) -> int:
+    # weight decay is skipped when wd == 0, as reference.py:246 does (the
+    # Pallas kernel adds 0·p, which differs only where p is not finite)
+    return ((SGD_MOMENTUM if momentum != 0.0 else 0)
+            | (SGD_NESTEROV if nesterov else 0)
+            | (SGD_WD_AFTER if wd_after_momentum else 0)
+            | (SGD_WD if wd != 0.0 else 0))
+
+
+def sgd_plain(g, p, m, sc: torch.Tensor, flags: int):
+    """Plain version of ``_sgd_kernel`` (multi_tensor.py:354-369, in
+    reference.py:232-258's form): new (p, momentum) in their storage
+    dtype, fp32 math with one rounding per operation, in the kernel's
+    order."""
+    wd, lr, mom, omd, scl, first = sc.unbind()
+    gf = g.float() * scl
+    pf = p.float()
+    mf = m.float()
+    if flags & SGD_WD and not flags & SGD_WD_AFTER:
+        gf = gf + wd * pf
+    if flags & SGD_MOMENTUM:
+        mf = torch.where(first > 0.0, gf, mf * mom + omd * gf)
+        gf = gf + mom * mf if flags & SGD_NESTEROV else mf
+    if flags & SGD_WD and flags & SGD_WD_AFTER:
+        gf = gf + wd * pf
+    return (pf - lr * gf).to(p.dtype), mf.to(m.dtype)
+
+
+def sgd(g, p, m, sc: torch.Tensor, flags: int):
+    """SGD over flat buffers of a length that is a multiple of 4; returns
+    new (p, momentum) like :func:`sgd_plain`."""
+    if not dispatch.use_kernel(p):
+        return sgd_plain(g, p, m, sc, flags)
+    n = p.numel()
+    if n % 4 or p.dim() != 1 or g.shape != p.shape or m.shape != p.shape:
+        raise ValueError("sgd: g, p, m must be flat buffers of one length, "
+                         "a multiple of 4")
+    for what, t in (("g", g), ("p", p), ("m", m)):
+        _check_flat(f"sgd {what}", t, p.device)
+    if m.dtype != p.dtype:
+        raise TypeError("sgd: p and m must share one dtype")
+    if sc.dtype != torch.float32 or sc.numel() != 6 or sc.device != p.device:
+        raise ValueError("sgd: scalars must be fp32 [6] on the card")
+    p_out, m_out = torch.empty_like(p), torch.empty_like(m)
+    sc = sc.contiguous()
+    if n:
+        err = _cuda.lib().apex_sgd(
+            _cuda.dtype_code(g.dtype, "sgd g"),
+            _cuda.dtype_code(p.dtype, "sgd p"), g.data_ptr(), p.data_ptr(),
+            m.data_ptr(), p_out.data_ptr(), m_out.data_ptr(), sc.data_ptr(),
+            n, int(flags), _cuda.stream(p.device))
+        _cuda.check(err, "sgd")
+        sgd.launches += 1
+    return p_out, m_out
+
+
+sgd.launches = 0
+
+
+def sgd_step(g, p, mom, *, wd: float, momentum: float, dampening: float,
+             lr, nesterov: bool = False, first_run=False,
+             wd_after_momentum: bool = False, scale=1.0):
+    """Fused SGD with momentum, dampening and nesterov over the flat
+    buffer (multi_tensor.py:372-390); ``first_run`` sets the momentum to
+    the incoming grad. Returns new (p, momentum)."""
+    sc = sgd_scalars(wd=wd, lr=lr, momentum=momentum, dampening=dampening,
+                     first_run=first_run, scale=scale, device=p.device)
+    flags = _sgd_flags(wd=wd, momentum=momentum, nesterov=nesterov,
+                       wd_after_momentum=wd_after_momentum)
+    return sgd(g, p, mom, sc, flags)
+
+
+# -- NovoGrad (K18) -----------------------------------------------------------
+
+def novograd_scalars(*, lr: float, beta1: float, weight_decay: float,
+                     grad_averaging: bool, bc1, device) -> torch.Tensor:
+    """The NovoGrad kernel's scalars as one fp32 [5] device array:
+    ``[lr, b1, wd, beta3, bc1]``; ``beta3 = 1-b1`` in float64, then
+    rounded (multi_tensor.py:395); ``bc1`` from the device step."""
+    device = torch.device(device)
+    beta3 = (1.0 - beta1) if grad_averaging else 1.0
+    const = _consts((lr, beta1, weight_decay, beta3), device)
+    return torch.cat([const, torch.as_tensor(bc1, device=device).to(
+        torch.float32).reshape(1)])
+
+
+def novograd_plain(g, p, m, denom, row_seg, sc: torch.Tensor, mode: int):
+    """Plain version of ``_novograd_kernel`` (multi_tensor.py:393-410,
+    reference.py:318-325): new (p, m) in their storage dtype; each row
+    reads ``denom`` [segments] through its segment id."""
+    lr, b1, wd, beta3, bc1 = sc.unbind()
+    d = denom[row_seg.long()][:, None]
+    gf = g.float().view(-1, LANES)
+    pf = p.float().view(-1, LANES)
+    mf = m.float().view(-1, LANES)
+    if mode == MODE_L2:
+        gf = gf / d + wd * pf
+        mf = b1 * mf + beta3 * gf
+        pf = pf - lr * (mf / bc1)
+    else:
+        mf = b1 * mf + beta3 * gf
+        pf = pf - lr * ((mf / bc1) / d + wd * pf)
+    return pf.view(-1).to(p.dtype), mf.view(-1).to(m.dtype)
+
+
+def novograd(g, p, m, denom, row_seg, sc: torch.Tensor, mode: int):
+    """NovoGrad's elementwise update over flat buffers of ``rows * 128``
+    elements: g (fp32 or bf16), p and m in one dtype, denom fp32
+    [segments], row_seg int32 [rows]. Returns new (p, m)."""
+    if not dispatch.use_kernel(p):
+        return novograd_plain(g, p, m, denom, row_seg, sc, mode)
+    n = p.numel()
+    if n % LANES or p.dim() != 1 or g.shape != p.shape or m.shape != p.shape:
+        raise ValueError(f"novograd: g, p, m must be flat buffers of one "
+                         f"length, a multiple of {LANES}")
+    for what, t in (("g", g), ("p", p), ("m", m)):
+        _check_flat(f"novograd {what}", t, p.device)
+    if m.dtype != p.dtype:
+        raise TypeError("novograd: p and m must share one dtype")
+    if denom.dtype != torch.float32 or row_seg.dtype != torch.int32 \
+            or row_seg.numel() != n // LANES:
+        raise ValueError("novograd: denom must be float32 [segments] and "
+                         "row_seg int32 [rows]")
+    for t in (denom, row_seg):
+        if t.device != p.device or not t.is_contiguous():
+            raise ValueError("novograd: denom and row_seg must be "
+                             "contiguous on p's device")
+    if sc.dtype != torch.float32 or sc.numel() != 5 or sc.device != p.device:
+        raise ValueError("novograd: scalars must be fp32 [5] on the card")
+    if mode not in (MODE_L2, MODE_DECOUPLED):
+        raise ValueError(f"novograd: mode must be 0 or 1, got {mode}")
+    p_out, m_out = torch.empty_like(p), torch.empty_like(m)
+    sc = sc.contiguous()
+    if n:
+        err = _cuda.lib().apex_novograd(
+            _cuda.dtype_code(g.dtype, "novograd g"),
+            _cuda.dtype_code(p.dtype, "novograd p"), g.data_ptr(),
+            p.data_ptr(), m.data_ptr(), denom.data_ptr(), row_seg.data_ptr(),
+            p_out.data_ptr(), m_out.data_ptr(), sc.data_ptr(), n // LANES,
+            int(mode), _cuda.stream(p.device))
+        _cuda.check(err, "novograd")
+        novograd.launches += 1
+    return p_out, m_out
+
+
+novograd.launches = 0
+
+
+def novograd_step(g, p, m, v_norms, table: SegmentTable, *, lr,
+                  beta1: float, beta2: float, eps: float, step,
+                  bias_correction: bool = True, weight_decay: float = 0.0,
+                  grad_averaging: bool = True, mode: int = MODE_L2,
+                  norm_type: int = NORM_L2, grad_norms=None):
+    """Fused NovoGrad over a row-aligned flat buffer (multi_tensor.py:
+    413-449, reference.py:282-326): the per-tensor norms of g (or
+    ``grad_norms``, when the caller has taken them), their blend into
+    ``v_norms`` [segments], the bias corrections and ``denom = v/bc2 +
+    eps`` plain on the device, then one :func:`novograd` pass. Returns
+    new (p, m, v_norms)."""
+    device = p.device
+    if grad_norms is None:
+        per_segment = maxnorm_per_segment if norm_type == NORM_LINF \
+            else l2norm_per_segment
+        grad_norms = per_segment(g, table)
+    v_new = norm_out_blend(v_norms, grad_norms, beta2, 1.0 - beta2,
+                           norm_type)
+    if bias_correction:
+        betas = _consts((beta1, beta2), device)
+        stepf = torch.as_tensor(step, device=device).to(torch.float32)
+        bc1 = 1.0 - torch.pow(betas[0], stepf)
+        bc2 = torch.sqrt(1.0 - torch.pow(betas[1], stepf))
+        denom = v_new / bc2 + eps
+    else:
+        bc1 = 1.0
+        denom = v_new + eps
+    sc = novograd_scalars(lr=lr, beta1=beta1, weight_decay=weight_decay,
+                          grad_averaging=grad_averaging, bc1=bc1,
+                          device=device)
+    p_new, m_new = novograd(g, p, m, denom.contiguous(),
+                            table.row_segment_ids(device), sc, mode)
+    return p_new, m_new, v_new

@@ -6,7 +6,9 @@ from __future__ import annotations
 import importlib
 
 _EXPORTS = {"FusedOptimizer": "base", "GroupState": "base",
-            "FusedLAMB": "fused_lamb", "FusedAdam": "fused_adam"}
+            "FusedLAMB": "fused_lamb", "FusedAdam": "fused_adam",
+            "FusedSGD": "fused_sgd", "FusedNovoGrad": "fused_novograd",
+            "LARC": "larc"}
 
 __all__ = sorted(_EXPORTS)
 

@@ -1,7 +1,12 @@
-"""The training steps of the JAX package's two benches.
+"""The training steps of the JAX package's two benches and its ImageNet
+example.
 
-``Trainer`` is the ResNet AMP FusedLAMB step, the counterpart of
-``bench.py``'s ``_loss_fn`` and ``train_step`` (bench.py:1244-1306).
+``Trainer`` is the ResNet AMP step: with its default FusedLAMB, the
+counterpart of ``bench.py``'s ``_loss_fn`` and ``train_step``
+(bench.py:1244-1306); with ``optimizer="sgd"`` (FusedSGD, lr 0.1,
+momentum 0.9, weight decay 1e-4) and a uint8 NHWC batch normalized inside
+the step, ``examples/imagenet/main_amp.py``'s training step
+(:239-288), and ``evaluate`` its validation step (:401-414).
 ``LMTrainer`` is the decoder-LM FusedAdam step of ``tools/lm_bench.py``
 (:255-272, one device). Both differentiate with respect to the flat fp32
 master buffer (``master_grad``).
@@ -15,8 +20,10 @@ The ResNet step, as the JAX bench runs it:
    and a mean, scaled by the loss scale; the gradient is taken with
    respect to the flat master, so it comes back as one flat fp32 buffer;
 3. the loss scaler's unscale (the ``scale`` kernel) and overflow flag;
-4. FusedLAMB's two-phase update (the LAMB kernels), skipped branchlessly
-   on overflow, and the scaler's update.
+4. the optimizer's update — FusedLAMB's two phases (the LAMB kernels),
+   FusedSGD (the SGD kernel), FusedNovoGrad (the per-row norm and
+   NovoGrad kernels), any of them under LARC (the per-row norm kernel) —
+   skipped branchlessly on overflow, and the scaler's update.
 
 Nothing in the step reads a value back to the host: the loss is returned
 as a device tensor.
@@ -29,9 +36,13 @@ import torch
 from apex_tpu_torch._device import resolve_device
 from apex_tpu_torch.amp import frontend as _amp
 from apex_tpu_torch.contrib.xentropy import select_label_logits
+from apex_tpu_torch.data import normalize_imagenet
 from apex_tpu_torch.ops import flat as _flat
 from apex_tpu_torch.optimizers.fused_adam import FusedAdam
 from apex_tpu_torch.optimizers.fused_lamb import FusedLAMB
+from apex_tpu_torch.optimizers.fused_novograd import FusedNovoGrad
+from apex_tpu_torch.optimizers.fused_sgd import FusedSGD
+from apex_tpu_torch.optimizers.larc import LARC
 
 __all__ = ["master_grad", "Trainer", "LMTrainer"]
 
@@ -48,20 +59,35 @@ def master_grad(master, table, dtype, objective):
     return grad, aux
 
 
+# Trainer's optimizers, each with its source's defaults: bench.py's
+# FusedLAMB(lr=1e-3), main_amp.py's FusedSGD (:53-62, :208-210) and the
+# class defaults of FusedNovoGrad
+OPTIMIZERS = {"lamb": (FusedLAMB, {"lr": 1e-3}),
+              "sgd": (FusedSGD, {"lr": 0.1, "momentum": 0.9,
+                                 "weight_decay": 1e-4}),
+              "novograd": (FusedNovoGrad, {})}
+
+
 class Trainer:
-    """Owns the model, its BN state, the AMP handle and its state, and
-    FusedLAMB with its state (in ``opt.state``).
+    """Owns the model, its BN state, the AMP handle and its state, and the
+    optimizer with its state (in ``opt.state``).
 
     ``params`` and ``bn_state`` are the model's trees (``model.init()`` or
     ``convert.resnet_from_jax``); ``opt_level`` and ``amp_overrides`` go
-    to ``amp.initialize`` (O0, O2 or O3; the JAX bench runs O2, which on
-    bf16 means a static loss scale of 1.0); ``lr`` to ``FusedLAMB``, whose
-    other hyperparameters keep their defaults, as in the JAX bench.
-    Everything lives on ``device``, the card unless ``device="cpu"``.
+    to ``amp.initialize`` (O0, O2 or O3; O2 on bf16 means a static loss
+    scale of 1.0). ``optimizer`` is ``"lamb"`` (bench.py's step, the
+    default), ``"sgd"`` or ``"novograd"``, with the defaults of
+    ``OPTIMIZERS``; ``lr``, ``weight_decay``, ``momentum`` (SGD) and
+    ``norm_type`` (NovoGrad), main_amp's flags and NovoGrad's norm, go
+    to the class where given, and ``larc=True`` wraps it in ``LARC`` with
+    LARC's defaults. Everything lives on ``device``, the card unless
+    ``device="cpu"``.
     """
 
     def __init__(self, model, params, bn_state, *, opt_level: str = "O2",
-                 lr: float = 1e-3, device=None, **amp_overrides):
+                 optimizer: str = "lamb", lr=None, momentum=None,
+                 weight_decay=None, norm_type=None, larc: bool = False,
+                 device=None, **amp_overrides):
         self.device = resolve_device(device)
         self.model = model
         _, self.handle = _amp.initialize(opt_level=opt_level, verbosity=0,
@@ -73,16 +99,31 @@ class Trainer:
                 "slice 3); use O0, O2 or O3")
         self.half = policy.cast_model_dtype
         self.amp_state = self.handle.init_state(self.device)
-        self.opt = FusedLAMB(params, lr=lr, device=self.device)
-        self.table = self.opt._tables[0]
+        if optimizer not in OPTIMIZERS:
+            raise ValueError(f"optimizer must be one of {sorted(OPTIMIZERS)}"
+                             f", got {optimizer!r}")
+        cls, kw = OPTIMIZERS[optimizer]
+        given = dict(lr=lr, momentum=momentum, weight_decay=weight_decay,
+                     norm_type=norm_type)
+        kw = {**kw, **{k: v for k, v in given.items() if v is not None}}
+        base = cls(params, device=self.device, **kw)
+        self.table = base._tables[0]
+        self.opt = LARC(base) if larc else base
         self.bn_state = _flat.tree_map(lambda t: t.to(self.device),
                                        bn_state)
+
+    def _input(self, x):
+        """The model's input: a float batch (N, 3, H, W) cast to the half
+        dtype, or a uint8 batch (N, H, W, 3) normalized on the device in
+        it, then seen as NCHW (channels_last), as main_amp.py:243-245."""
+        if x.dtype == torch.uint8:
+            return normalize_imagenet(x, dtype=self.half).permute(0, 3, 1, 2)
+        return x.to(self.half) if x.is_floating_point() else x
 
     def loss_and_grad(self, x, y):
         """Forward and backward: ``(flat fp32 master grad, still scaled;
         loss; new BN state)``."""
-        if x.is_floating_point():
-            x = x.to(self.half)
+        x = self._input(x)
 
         def objective(p_half):
             logits, new_bn = self.model.apply(p_half, self.bn_state, x,
@@ -108,11 +149,27 @@ class Trainer:
         return found_inf
 
     def step(self, x, y):
-        """One training step on ``x`` (N, 3, H, W) and int labels ``y``;
-        returns the unscaled loss as a device tensor."""
+        """One training step on ``x`` (float (N, 3, H, W) or uint8
+        (N, H, W, 3)) and int labels ``y``; returns the unscaled loss as a
+        device tensor."""
         flat_grad, loss, new_bn = self.loss_and_grad(x, y)
         self.apply_grads(flat_grad, new_bn)
         return loss
+
+    @torch.no_grad()
+    def evaluate(self, x, y):
+        """main_amp.py's validation step (:401-414): the current masters
+        in the half dtype, BN in eval mode on the running statistics;
+        returns ``(top-1, top-5)`` accuracy as device tensors (top-k with
+        k = min(5, classes))."""
+        params = _flat.unflatten(self.opt.state[0].master, self.table,
+                                 dtype=self.half)
+        logits, _ = self.model.apply(params, self.bn_state, self._input(x),
+                                     training=False)
+        k = min(5, logits.shape[-1])
+        hit = torch.topk(logits.float(), k, dim=-1).indices == \
+            y.to(torch.int64)[:, None]
+        return hit[:, 0].float().mean(), hit.any(dim=-1).float().mean()
 
 
 class LMTrainer:

@@ -8,7 +8,8 @@ Run from the repository root, with no arguments::
 Phases, each printing one JSON line; any failure raises and exits
 nonzero, and only a run where every phase passed prints the last line,
 ``{"ok": true, "device": {...}}``. Phases 0-5 are the serving slice,
-phases 6-8 the ResNet training slice, phases 9-10 the LM training slice:
+phases 6-8 the ResNet training slice, phases 9-10 the LM training slice,
+phases 11-13 the ImageNet example's slice:
 
 0. device — needs CUDA; prints the card's ``nvidia-smi`` name and power
    limit (also as a raw line of its own) and the torch / CUDA versions.
@@ -35,7 +36,13 @@ phases 6-8 the ResNet training slice, phases 9-10 the LM training slice:
    64] bf16, causal (held against the plain versions on the first 8
    heads, element by element: o, dq, dk and dv within 2 bf16 ulps plus
    2^-6 of the row's RMS over D, lse within 1e-3; and the rule must
-   refuse the plain result with its later half 5% off).
+   refuse the plain result with its later half 5% off); the ImageNet
+   step's optimizer kernels over RN50's flat fp32 buffer: ``rowsumsq``
+   (within 1e-5 relative of the plain version; beside it the whole
+   per-tensor L2 norm and ``torch._foreach_norm`` over the 161 tensors),
+   ``rowmaxabs`` (exact), ``sgd`` at main_amp's flags (bit-equal; every
+   flag combination bit-equal at a small size) and ``novograd``
+   (bit-equal; its whole step at L2 and L-inf norms).
 3. dense — the serve_bench model at full width (8 layers, 1024 wide,
    8 heads, vocab 32768, bf16, random weights from ``torch.Generator``
    seed 0) behind ``ContinuousBatchingEngine(slots=8, max_len=1024,
@@ -83,7 +90,36 @@ phases 6-8 the ResNet training slice, phases 9-10 the LM training slice:
     ``dispatch.backend("reference")``: the masters within 1.5 times
     bf16's own effect on them (the key biases, whose gradient is zero
     analytically, bounded apart); two kernel runs equal bit for bit.
-11. the ``{"kernels": [...]}`` line, then the ``ok`` line.
+11. imagenet_train — ``examples/imagenet/main_amp.py``'s step at its
+    defaults on one card, at phase 6's full width and batch (ResNet-50,
+    batch 256 at 224×224, so img/s compares with the LAMB step; main_amp's
+    batch 64 is a CPU-smoke default): O2 bf16 (static scale 1.0),
+    ``FusedSGD(lr=0.1, momentum=0.9, weight_decay=1e-4)``, one uint8 NHWC
+    batch from ``np.random.RandomState(0)`` center-cropped from a 232×232
+    pool (main_amp.py:367-370) and normalized inside the step: 3 warm-up
+    and 10 timed steps, as phase 6 reads them; one ``sgd`` and one
+    ``scale`` launch a step and one of each BN kernel per BN; losses
+    finite, the first three falling and none above 4 times the first
+    (main_amp's lr 0.1 has no warm-up, so on one repeated batch the step
+    overshoots after a few steps); then two profiled steps, one
+    ``evaluate`` (top-1, top-5), and the witness: the same 13 steps from
+    the same init under the plain versions, whose first 4 losses must be
+    within 1e-2 relative of the kernel path's and whose last must be 1.25
+    times its least (the overshoot is the step's, not the kernels').
+12. imagenet_larc, imagenet_novograd — the same step under
+    ``LARC(FusedSGD)`` (two ``rowsumsq`` launches a step) and under
+    ``FusedNovoGrad(lr=1e-2)`` with L2 norms (one ``rowsumsq``) and
+    L-inf norms (one ``rowmaxabs``), one ``novograd`` a step: 3 warm-up
+    and 5 timed steps each; losses finite and the last below the
+    first.
+13. imagenet_crosscheck — the CI-size ResNet on a uint8 batch, three
+    steps with the kernels against ``dispatch.backend("reference")``
+    for FusedSGD, LARC and FusedNovoGrad (L2 and L-inf), at O0 and O2,
+    with phase 8's bars (O2 losses within 5e-3 or 1.5 times bf16's own
+    effect on them, whichever is larger: at lr 0.1 a rounding moves the
+    next loss further than LAMB's lr 1e-3 does); two kernel runs equal
+    bit for bit, none launched in the plain runs.
+14. the ``{"kernels": [...]}`` line, then the ``ok`` line.
 
 Times are CUDA-event medians of single calls with the L2 cache flushed
 before each and the stream held busy, so host launch time is not counted.
@@ -867,6 +903,166 @@ def lm_kernel_phase(torch, timer, total: int) -> dict:
     return rows
 
 
+# -- phase 2, the ImageNet step's optimizer kernels ---------------------------
+
+# main_amp.py:53-62's FusedSGD: lr 0.1, momentum 0.9, weight decay 1e-4,
+# no dampening or nesterov
+MAIN_AMP_SGD = dict(lr=0.1, momentum=0.9, weight_decay=1e-4)
+
+
+def optimizer_kernel_phase(torch, timer, table) -> dict:
+    """The per-row norm, SGD and NovoGrad kernels over a flat fp32 buffer
+    laid out by ``table`` (the RN50 master store), each against its plain
+    version, with its time, the plain version's, one library call's where
+    PyTorch has one, and the bound."""
+    from apex_tpu_torch.ops import dispatch
+    from apex_tpu_torch.ops import kernels as K
+    from apex_tpu_torch.ops import multi_tensor as MT
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    T, R, S = table.total, table.total // 128, table.num_segments
+    valid = table.valid_mask("cuda")
+    rows = {}
+
+    def randn(scale=1.0):
+        return torch.randn(T, generator=gen, device="cuda") * scale * valid
+
+    g, p, m = randn(1e-2), randn(0.05), randn(1e-3)
+    views = [g[o:o + n] for o, n in zip(table.offsets, table.sizes)]
+
+    # rowsumsq: the row pass of LARC's and NovoGrad's per-tensor L2 norms
+    got, want = MT.rowsumsq(g), MT.rowsumsq_plain(g)
+    torch.cuda.synchronize()
+    rel = float(((got - want).abs() / want.abs().clamp_min(1e-30)).max())
+    check(bool(((got - want).abs() <= 1e-5 * want.abs()).all()),
+          f"rowsumsq: off by {rel} relative (limit 1e-5)")
+    b_ms, b_by = bound(4 * T + 4 * R, 2 * T)
+    row = dict(kernel="rowsumsq", dtype="float32", shape=[T],
+               max_abs_err=float((got - want).abs().max()), max_rel_err=rel,
+               tol="1e-5 relative",
+               ms=timer(lambda: MT.rowsumsq(g)),
+               plain_ms=timer(lambda: MT.rowsumsq_plain(g)),
+               library_ms=timer(lambda: torch.linalg.vector_norm(
+                   g.view(-1, 128), dim=1)),
+               library_call="linalg.vector_norm over the (rows, 128) view",
+               per_segment_ms=timer(lambda: K.l2norm_per_segment(
+                   g, table, aligned_segments=True)),
+               library_foreach_norm_ms=timer(lambda: torch._foreach_norm(
+                   views)),
+               bound_ms=b_ms, bound_by=b_by,
+               host_us=host_us(torch, lambda: MT.rowsumsq(g)))
+    emit({"phase": "kernels", **row})
+    rows[("rowsumsq", "float32")] = row
+
+    # rowmaxabs: the row pass of NovoGrad's L-inf norms; exact
+    got, want = MT.rowmaxabs(g), MT.rowmaxabs_plain(g)
+    torch.cuda.synchronize()
+    check(torch.equal(got, want), "rowmaxabs: not equal to the plain "
+                                  "version")
+    b_ms, b_by = bound(4 * T + 4 * R, 2 * T)
+    row = dict(kernel="rowmaxabs", dtype="float32", shape=[T],
+               max_abs_err=0.0, tol=0.0, bitwise=True,
+               ms=timer(lambda: MT.rowmaxabs(g)),
+               plain_ms=timer(lambda: MT.rowmaxabs_plain(g)),
+               library_ms=timer(lambda: g.view(-1, 128).abs().amax(1)),
+               library_call="abs().amax(1) over the (rows, 128) view",
+               bound_ms=b_ms, bound_by=b_by,
+               host_us=host_us(torch, lambda: MT.rowmaxabs(g)))
+    emit({"phase": "kernels", **row})
+    rows[("rowmaxabs", "float32")] = row
+
+    # sgd: every flag combination at a small size, then main_amp's at RN50
+    small = {}
+    n = 128 * 1037
+    for flags in range(16):
+        for first in (False, True):
+            sc = MT.sgd_scalars(wd=1e-4, lr=0.1, momentum=0.9,
+                                dampening=0.1, first_run=torch.tensor(
+                                    first, device="cuda"), device="cuda")
+            a = MT.sgd(g[:n], p[:n], m[:n], sc, flags)
+            b = MT.sgd_plain(g[:n], p[:n], m[:n], sc, flags)
+            small[f"{flags}/{int(first)}"] = all(
+                bool(torch.equal(x, y)) for x, y in zip(a, b))
+    check(all(small.values()), f"sgd: flag combinations not bit-equal "
+                               f"{small}")
+    flags = MT._sgd_flags(wd=MAIN_AMP_SGD["weight_decay"],
+                          momentum=MAIN_AMP_SGD["momentum"], nesterov=False,
+                          wd_after_momentum=False)
+    sc = MT.sgd_scalars(wd=MAIN_AMP_SGD["weight_decay"],
+                        lr=MAIN_AMP_SGD["lr"],
+                        momentum=MAIN_AMP_SGD["momentum"], dampening=0.0,
+                        first_run=torch.tensor(False, device="cuda"),
+                        device="cuda")
+    got, want = MT.sgd(g, p, m, sc, flags), MT.sgd_plain(g, p, m, sc, flags)
+    torch.cuda.synchronize()
+    same = all(bool(torch.equal(a, b)) for a, b in zip(got, want))
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    check(same, f"sgd: not bit-equal to the plain version ({err})")
+    del got, want
+    lib_p = p.clone().requires_grad_(True)
+    lib_p.grad = g.clone()
+    lib = torch.optim.SGD([lib_p], fused=True, **MAIN_AMP_SGD)
+    lib.step()                      # creates its momentum buffer
+    b_ms, b_by = bound(20 * T + 24, 8 * T)
+    row = dict(kernel="sgd", dtype="float32", shape=[T], max_abs_err=err,
+               tol=0.0, bitwise=same, flags=flags, small_flags_bitwise=small,
+               ms=timer(lambda: MT.sgd(g, p, m, sc, flags)),
+               plain_ms=timer(lambda: MT.sgd_plain(g, p, m, sc, flags)),
+               library_ms=timer(lib.step),
+               library_call="optim.SGD(fused=True).step",
+               bound_ms=b_ms, bound_by=b_by,
+               host_us=host_us(torch, lambda: MT.sgd(g, p, m, sc, flags)))
+    emit({"phase": "kernels", **row})
+    rows[("sgd", "float32")] = row
+    del lib, lib_p
+
+    # novograd: the elementwise kernel at FusedNovoGrad's defaults (mode 1)
+    # from a step-3 denominator; then the whole step at L2 and L-inf
+    v = torch.rand(S, generator=gen, device="cuda") * 1e-2 + 1e-3
+    row_seg = table.row_segment_ids("cuda")
+    step = torch.tensor(3, dtype=torch.int32, device="cuda")
+    bc1 = 1.0 - torch.pow(torch.tensor(0.95, device="cuda"), step.float())
+    nsc = MT.novograd_scalars(lr=1e-2, beta1=0.95, weight_decay=0.0,
+                              grad_averaging=True, bc1=bc1, device="cuda")
+    mode = MT.MODE_DECOUPLED
+    got = MT.novograd(g, p, m, v, row_seg, nsc, mode)
+    want = MT.novograd_plain(g, p, m, v, row_seg, nsc, mode)
+    torch.cuda.synchronize()
+    same = all(bool(torch.equal(a, b)) for a, b in zip(got, want))
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    check(same, f"novograd: not bit-equal to the plain version ({err})")
+    steps = {}
+    kw = dict(lr=1e-2, beta1=0.95, beta2=0.98, eps=1e-8, step=step,
+              mode=mode)
+    for nt, name in ((MT.NORM_L2, "l2"), (MT.NORM_LINF, "linf")):
+        a = MT.novograd_step(g, p, m, v, table, norm_type=nt, **kw)
+        with dispatch.backend("reference"):
+            b = MT.novograd_step(g, p, m, v, table, norm_type=nt, **kw)
+        e = max(float(((x - y).abs() / y.abs().clamp_min(1e-30)).max())
+                for x, y in zip(a[2:], b[2:]))
+        exact = all(bool(torch.equal(x, y)) for x, y in zip(a, b))
+        # L-inf norms are exact, so the whole step is; L2 norms add in
+        # another order, so the blended norms within 1e-5 relative
+        check(exact if nt == MT.NORM_LINF else e <= 1e-5,
+              f"novograd_step {name}: norms off by {e}, exact {exact}")
+        steps[name] = dict(bitwise=exact, norms_max_rel_err=e,
+                           ms=timer(lambda: MT.novograd_step(
+                               g, p, m, v, table, norm_type=nt, **kw)))
+    b_ms, b_by = bound(20 * T + 4 * R + 4 * S + 20, 9 * T)
+    row = dict(kernel="novograd", dtype="float32", shape=[T],
+               max_abs_err=err, tol=0.0, bitwise=same, mode=mode,
+               ms=timer(lambda: MT.novograd(g, p, m, v, row_seg, nsc, mode)),
+               plain_ms=timer(lambda: MT.novograd_plain(g, p, m, v, row_seg,
+                                                        nsc, mode)),
+               library_ms=None, library_call="none (PyTorch has no NovoGrad)",
+               bound_ms=b_ms, bound_by=b_by, whole_step=steps,
+               host_us=host_us(torch, lambda: MT.novograd(
+                   g, p, m, v, row_seg, nsc, mode)))
+    emit({"phase": "kernels", **row})
+    rows[("novograd", "float32")] = row
+    return rows
+
+
 # -- phases 3-4: the serving slice --------------------------------------------
 
 TRAIN_KERNELS = ("scale", "lamb_phase1", "lamb_phase2", "bn_moments",
@@ -888,7 +1084,9 @@ def counters():
             "bn_backward_dx": WF.bn_backward_dx,
             "adam": MT.adam, "ln_bwd": LN.ln_bwd,
             "flash_fwd": FA.flash_fwd, "flash_bwd_dq": FA.flash_bwd_dq,
-            "flash_bwd_dkv": FA.flash_bwd_dkv}
+            "flash_bwd_dkv": FA.flash_bwd_dkv, "rowsumsq": MT.rowsumsq,
+            "rowmaxabs": MT.rowmaxabs, "sgd": MT.sgd,
+            "novograd": MT.novograd}
 
 
 def zero_counts() -> None:
@@ -1005,6 +1203,9 @@ def crosscheck_phase(torch, dispatch):
 # -- phases 6-8: the training slice -------------------------------------------
 
 KERNEL_FAMILIES = (
+    ("SGD", ("sgd_kernel",)),
+    ("NovoGrad", ("novograd_kernel",)),
+    ("norm kernels", ("rowsumsq_kernel", "rowmaxabs_kernel")),
     ("BN kernels", ("moments_kernel", "bwd_reduce_kernel", "finalize_kernel",
                     "bwd_dx_kernel")),
     ("training kernels", ("scale_kernel", "lamb_phase")),
@@ -1069,6 +1270,70 @@ def profile_steps(torch, step, families=KERNEL_FAMILIES, n=2) -> dict:
                             for t, c, k in top[:12]]}
 
 
+def timed_steps(torch, step, warm: int, timed: int) -> dict:
+    """``warm`` calls of ``step`` (which returns the loss), then ``timed``
+    calls with the launch counts zeroed just before and read just after:
+    CUDA events per step, one synchronize around the window."""
+    losses = [step() for _ in range(warm)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(timed)]
+    t0 = time.perf_counter()
+    for a, b in events:
+        a.record()
+        losses.append(step())
+        b.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    step_ms = sorted(a.elapsed_time(b) for a, b in events)
+    return {"wall": wall, "counts": counts, "step_ms": step_ms,
+            "peak": torch.cuda.max_memory_allocated(),
+            "loss": [float(v) for v in losses]}
+
+
+def window_row(r: dict, timed: int) -> dict:
+    """Step times, peak memory and losses of a training window."""
+    wall, loss, step_ms = r["wall"], r["loss"], r["step_ms"]
+    return {"steps_timed": timed, "wall_s": wall,
+            "step_ms_mean": wall / timed * 1e3,
+            "step_ms_p50": statistics.median(step_ms),
+            "step_ms_p95": step_ms[min(timed - 1,
+                                       int(round(0.95 * (timed - 1))))],
+            "peak_mem_bytes": r["peak"], "loss_first": loss[0],
+            "loss_last": loss[-1], "losses": loss}
+
+
+def step_row(r: dict, batch: int, timed: int, flops: float) -> dict:
+    """The end-to-end numbers of a ResNet training window."""
+    img_s = batch * timed / r["wall"]
+    return {**window_row(r, timed), "img_per_s": img_s,
+            "analytic_fwd_gflop_per_img": flops / 1e9,
+            "mfu": 3 * flops * img_s / BF16_DENSE_OPS_S}
+
+
+def check_losses(phase: str, loss: list, *, overshoot=None) -> None:
+    """Finite losses that fall: the last below the first; or, where the
+    step overshoots the repeated batch (``overshoot``, a factor), the
+    first three falling and none above ``overshoot`` times the first."""
+    import numpy as np
+    check(all(np.isfinite(loss)), f"{phase}: non-finite loss {loss}")
+    if overshoot is None:
+        fell = loss[-1] < loss[0]
+    else:
+        fell = loss[0] > loss[1] > loss[2] and \
+            max(loss) <= overshoot * loss[0]
+    check(fell, f"{phase}: loss did not fall {loss}")
+
+
+def check_counts(phase: str, counts: dict, want: dict) -> None:
+    for k, n in want.items():
+        check(counts[k] == n, f"{phase}: {k} launched {counts[k]} times, "
+                              f"not {n}")
+
+
 def train_phase(torch, model, params, state, bn_calls) -> tuple:
     import numpy as np
 
@@ -1082,51 +1347,217 @@ def train_phase(torch, model, params, state, bn_calls) -> tuple:
         tr.half).permute(0, 3, 1, 2)             # NHWC data, channels_last
     y = torch.from_numpy(rs.randint(0, model.num_classes, batch).astype(
         np.int32)).cuda()
-    losses = [tr.step(x, y) for _ in range(warm)]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    zero_counts()
-    events = [(torch.cuda.Event(enable_timing=True),
-               torch.cuda.Event(enable_timing=True)) for _ in range(timed)]
-    t0 = time.perf_counter()
-    for a, b in events:
-        a.record()
-        losses.append(tr.step(x, y))
-        b.record()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = read_counts()
-    peak = torch.cuda.max_memory_allocated()
-    step_ms = sorted(a.elapsed_time(b) for a, b in events)
-    loss = [float(v) for v in losses]
-    flops = analytic_flops(model, image)
-    img_s = batch * timed / wall
+    r = timed_steps(torch, lambda: tr.step(x, y), warm, timed)
+    counts = r["counts"]
     prof = profile_steps(torch, lambda: tr.step(x, y))
     row = {"phase": "train", "model": "resnet50", "batch": batch,
            "image": image, "dtype": "bfloat16", "opt_level": "O2",
            "loss_scale": float(tr.handle.loss_scale(tr.amp_state)),
-           "steps_timed": timed, "wall_s": wall, "img_per_s": img_s,
-           "step_ms_mean": wall / timed * 1e3,
-           "step_ms_p50": statistics.median(step_ms),
-           "step_ms_p95": step_ms[min(timed - 1,
-                                      int(round(0.95 * (timed - 1))))],
-           "analytic_fwd_gflop_per_img": flops / 1e9,
-           "mfu": 3 * flops * img_s / BF16_DENSE_OPS_S,
-           "peak_mem_bytes": peak, "loss_first": loss[0],
-           "loss_last": loss[-1], "losses": loss,
+           **step_row(r, batch, timed, analytic_flops(model, image)),
            "flat_total": tr.table.total,
            "segments": tr.table.num_segments, "launches": counts,
            "profile": prof}
     emit(row)
-    check(all(np.isfinite(loss)), f"train: non-finite loss {loss}")
-    check(loss[-1] < loss[0], f"train: loss did not fall {loss}")
+    check_losses("train", r["loss"])
     n_bn = sum(bn_calls.values())
-    for k in TRAIN_KERNELS:
-        want = timed * (n_bn if k.startswith("bn_") else 1)
-        check(counts[k] == want,
-              f"train: {k} launched {counts[k]} times in {timed} steps, "
-              f"not {want}")
+    check_counts("train", counts, {
+        k: timed * (n_bn if k.startswith("bn_") else 1)
+        for k in TRAIN_KERNELS})
     return counts, row
+
+
+# -- phases 11-13: the ImageNet example's slice -------------------------------
+
+IMAGENET_KERNELS = ("sgd", "rowsumsq", "rowmaxabs", "novograd")
+
+# main_amp's lr 0.1 has no warm-up, so on one repeated batch its SGD step
+# falls for three steps and then overshoots: 7.06 -> 5.82 at step 4, 17.14
+# at step 13 (2.43 times the first, the same bits in three runs), and the
+# plain versions' path 21.77 (3.08 times; PR 4's chip runs on the H100).
+# The kernel path's losses stay under 4 times the first, and the plain
+# versions' path (the witness) must overshoot the same way: the first
+# WITNESS_STEPS losses within WITNESS_RTOL of the kernel path's (read
+# 1.2e-3), and its last above WITNESS_RISE times its least.
+SGD_OVERSHOOT = 4.0
+WITNESS_STEPS, WITNESS_RTOL, WITNESS_RISE = 4, 1e-2, 1.25
+
+
+def plain_witness(torch, make, x, y, n: int) -> dict:
+    """``n`` steps of a fresh trainer from ``make`` under the plain
+    versions (``dispatch.backend("reference")``): its losses and the
+    kernel launches it made (none)."""
+    from apex_tpu_torch.ops import dispatch
+    with dispatch.backend("reference"):
+        tr = make()
+        zero_counts()
+        loss = [float(tr.step(x, y)) for _ in range(n)]
+        torch.cuda.synchronize()
+        launches = read_counts()
+    return {"losses": loss, "launches": launches}
+
+
+def check_witness(phase: str, loss: list, w: dict) -> None:
+    plain = w["losses"]
+    check(not any(w["launches"].values()),
+          f"{phase} witness: kernels launched {w['launches']}")
+    check(len(plain) == len(loss) and all(
+        abs(a - b) <= WITNESS_RTOL * abs(b)
+        for a, b in zip(loss[:WITNESS_STEPS], plain[:WITNESS_STEPS])),
+        f"{phase} witness: kernel losses {loss} against plain {plain}")
+    check(plain[-1] >= WITNESS_RISE * min(plain),
+          f"{phase} witness: the plain path does not overshoot {plain}")
+
+
+def imagenet_batch(torch, batch: int, image: int, classes: int):
+    """main_amp.py's synthetic uint8 pool (:362-364), here one batch of
+    (image + 8)² images center-cropped to image² as its hold-out is
+    (:367-370); labels from the same RandomState."""
+    import numpy as np
+    rs = np.random.RandomState(0)
+    pool = rs.randint(0, 256, (batch, image + 8, image + 8, 3),
+                      dtype=np.uint8)
+    y = rs.randint(0, classes, batch).astype(np.int32)
+    x = np.ascontiguousarray(pool[:, 4:4 + image, 4:4 + image])
+    return torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda()
+
+
+def imagenet_phases(torch, model, params, state, bn_calls) -> dict:
+    """main_amp.py's step at full width: FusedSGD (imagenet_train, with a
+    profile and one evaluate), LARC(FusedSGD) and FusedNovoGrad at L2 and
+    L-inf norms. Returns each run's launch counts."""
+    from apex_tpu_torch.models import analytic_flops
+    from apex_tpu_torch.train import Trainer
+
+    batch, image = 256, 224
+    n_bn = sum(bn_calls.values())
+    flops = analytic_flops(model, image)
+    x, y = imagenet_batch(torch, batch, image, model.num_classes)
+    # (phase, Trainer keywords, warm-up, timed, launches a step); main_amp
+    # passes its flags to the class (main_amp.py:208-210)
+    runs = (("imagenet_train", dict(optimizer="sgd", **MAIN_AMP_SGD), 3, 10,
+             {"sgd": 1}),
+            ("imagenet_larc", dict(optimizer="sgd", larc=True), 3, 5,
+             {"sgd": 1, "rowsumsq": 2}),
+            ("imagenet_novograd", dict(optimizer="novograd", lr=1e-2), 3, 5,
+             {"novograd": 1, "rowsumsq": 1}),
+            ("imagenet_novograd", dict(optimizer="novograd", lr=1e-2,
+                                       norm_type=0), 3, 5,
+             {"novograd": 1, "rowmaxabs": 1}))
+    out = {}
+    for phase, kw, warm, timed, per_step in runs:
+        def make():
+            return Trainer(model, params, state, opt_level="O2", **kw)
+
+        tr = make()
+        r = timed_steps(torch, lambda: tr.step(x, y), warm, timed)
+        counts = r["counts"]
+        want = {k: timed * per_step.get(k, 0) for k in IMAGENET_KERNELS}
+        want.update({k: timed * (n_bn if k.startswith("bn_") else
+                                 int(k == "scale"))
+                     for k in TRAIN_KERNELS})
+        row = {"phase": phase, "model": "resnet50", "batch": batch,
+               "image": image, "input": "uint8 NHWC, normalized in the step",
+               "dtype": "bfloat16", "opt_level": "O2",
+               "loss_scale": float(tr.handle.loss_scale(tr.amp_state)),
+               "optimizer": type(tr.opt).__name__,
+               "hyperparameters": {k: v for k, v in
+                                   tr.opt.param_groups[0].items()},
+               **step_row(r, batch, timed, flops),
+               "launches": {k: counts[k] for k in want},
+               "launches_per_step": {k: counts[k] / timed for k in want}}
+        if phase == "imagenet_train":
+            row["profile"] = profile_steps(torch, lambda: tr.step(x, y))
+            top1, top5 = tr.evaluate(x, y)
+            row["evaluate"] = {"top1": float(top1), "top5": float(top5)}
+            tr = None                   # the card's memory for the witness
+            row["plain_witness"] = plain_witness(torch, make, x, y,
+                                                 warm + timed)
+        emit(row)
+        if phase == "imagenet_train":
+            check_losses(phase, r["loss"], overshoot=SGD_OVERSHOOT)
+            check_witness(phase, r["loss"], row["plain_witness"])
+        else:
+            check_losses(phase, r["loss"])
+        check_counts(phase, counts, want)
+        key = phase if phase != "imagenet_novograd" else \
+            f"imagenet_novograd_{row['hyperparameters']['norm_type']}"
+        out[key] = counts
+        del tr
+    return out
+
+
+IMAGENET_CASES = {
+    "sgd": dict(optimizer="sgd"),
+    "larc": dict(optimizer="sgd", larc=True),
+    "novograd_l2": dict(optimizer="novograd", lr=1e-2),
+    "novograd_linf": dict(optimizer="novograd", lr=1e-2, norm_type=0),
+}
+
+
+def imagenet_crosscheck_phase(torch, dispatch):
+    """Three steps of main_amp's step on the CI model (uint8 batch) for
+    each optimizer, with the kernels and with the plain versions on the
+    card, at O0 and O2, under phase 8's bars; two O2 kernel runs must
+    give the same losses and masters bit for bit."""
+    from apex_tpu_torch.ops import flat
+    from apex_tpu_torch.train import Trainer
+
+    torch.backends.cudnn.deterministic = True
+    model = _ci_model()
+    params, state = model.init(0)
+    init = flat.flatten(params, dtype=torch.float32)[0]
+    x, y = imagenet_batch(torch, 4, 32, 10)
+    result = {}
+    for case, kw in IMAGENET_CASES.items():
+        def run(level):
+            tr = Trainer(model, params, state, opt_level=level, **kw)
+            loss = [float(tr.step(x, y)) for _ in range(3)]
+            return tr.opt.state[0].master, loss
+
+        gk, loss_k = run("O0")
+        hk, loss_hk = run("O2")
+        hk2, loss_hk2 = run("O2")
+        with dispatch.backend("reference"):
+            zero_counts()
+            gr, loss_r = run("O0")
+            hr, loss_hr = run("O2")
+            torch.cuda.synchronize()
+            plain_launches = read_counts()
+        check(not any(plain_launches.values()),
+              f"imagenet_crosscheck {case}: kernels launched in the plain "
+              f"runs {plain_launches}")
+        upd = gr - init
+        o0 = {"master": float((gk - gr).abs().max()),
+              "update_rel_l2": float(torch.linalg.vector_norm(gk - gr)
+                                     / torch.linalg.vector_norm(upd)),
+              "update_max": float(upd.abs().max())}
+        d_o2, d_bf16 = (hk - hr).abs(), (hr - gr).abs()
+        o2 = {"mean": float(d_o2.mean()), "max": float(d_o2.max()),
+              "bf16_mean": float(d_bf16.mean()),
+              "bf16_max": float(d_bf16.max())}
+        loss_lim = [max(5e-3, 1.5 * abs(a - b))
+                    for a, b in zip(loss_hr, loss_r)]
+        repeat = loss_hk == loss_hk2 and bool(torch.equal(hk, hk2))
+        result[case] = {"O0": {"max_abs_err": o0, "loss_kernels": loss_k,
+                               "loss_plain": loss_r},
+                        "O2": {"master_err": o2, "loss_kernels": loss_hk,
+                               "loss_plain": loss_hr, "loss_limit": loss_lim},
+                        "repeat_equal": repeat}
+        check(o0["master"] <= O0_MASTER_ATOL
+              and o0["update_rel_l2"] <= O0_UPDATE_RTOL,
+              f"imagenet_crosscheck {case} O0: masters differ by {o0}")
+        check(o2["mean"] <= 1.5 * o2["bf16_mean"]
+              and o2["max"] <= 1.5 * o2["bf16_max"],
+              f"imagenet_crosscheck {case} O2: masters differ by {o2}")
+        check(all(abs(a - b) <= lim for a, b, lim in
+                  zip(loss_hk, loss_hr, loss_lim)),
+              f"imagenet_crosscheck {case} O2: losses {loss_hk} vs "
+              f"{loss_hr}")
+        check(repeat, f"imagenet_crosscheck {case}: two kernel runs differ")
+    emit({"phase": "imagenet_crosscheck", "steps": 3, "model": "CI ResNet",
+          "O0_atol": O0_MASTER_ATOL, "O0_update_rtol": O0_UPDATE_RTOL,
+          **result})
+    torch.backends.cudnn.deterministic = False
 
 
 def _ci_model():
@@ -1276,52 +1707,29 @@ def lm_train_phase(torch, model, params) -> tuple:
     tr = LMTrainer(model, params, lr=1e-4)
     toks = torch.from_numpy(np.random.RandomState(1).randint(
         0, c["vocab"], (c["batch"], c["seq"])).astype(np.int64)).cuda()
-    losses = [tr.step(toks) for _ in range(warm)]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    zero_counts()
-    events = [(torch.cuda.Event(enable_timing=True),
-               torch.cuda.Event(enable_timing=True)) for _ in range(timed)]
-    t0 = time.perf_counter()
-    for a, b in events:
-        a.record()
-        losses.append(tr.step(toks))
-        b.record()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = read_counts()
-    peak = torch.cuda.max_memory_allocated()
-    step_ms = sorted(a.elapsed_time(b) for a, b in events)
-    loss = [float(v) for v in losses]
+    r = timed_steps(torch, lambda: tr.step(toks), warm, timed)
+    counts = r["counts"]
     tokens = c["batch"] * c["seq"]               # lm_bench's count
     n_params = tr.table.total
     step_flops = 6.0 * n_params * tokens + (
         12 * c["layers"] * c["embed"] * c["seq"] ** 2 * c["batch"]) / 2
-    tok_s = tokens * timed / wall
+    tok_s = tokens * timed / r["wall"]
     prof = profile_steps(torch, lambda: tr.step(toks), LM_KERNEL_FAMILIES)
     row = {"phase": "lm_train", "model": "TransformerLM", **c,
            "attn_impl": model.attn_impl, "head_chunk": model.head_chunk,
            "dtype": "bfloat16", "masters": "float32", "optimizer":
-           "FusedAdam(lr=1e-4)", "steps_timed": timed, "wall_s": wall,
+           "FusedAdam(lr=1e-4)", **window_row(r, timed),
            "tokens_per_step": tokens, "tok_per_s": tok_s,
-           "step_ms_mean": wall / timed * 1e3,
-           "step_ms_p50": statistics.median(step_ms),
-           "step_ms_p95": step_ms[min(timed - 1,
-                                      int(round(0.95 * (timed - 1))))],
            "step_tflop": step_flops / 1e12,
-           "mfu": step_flops * timed / wall / BF16_DENSE_OPS_S,
-           "peak_mem_bytes": peak, "params": n_params,
-           "loss_first": loss[0], "loss_last": loss[-1], "losses": loss,
+           "mfu": step_flops * timed / r["wall"] / BF16_DENSE_OPS_S,
+           "params": n_params,
            "launches": {k: counts[k] for k in LM_PER_STEP},
            "launches_per_step": {k: counts[k] / timed for k in LM_PER_STEP},
            "profile": prof}
     emit(row)
-    check(all(np.isfinite(loss)), f"lm_train: non-finite loss {loss}")
-    check(loss[-1] < loss[0], f"lm_train: loss did not fall {loss}")
-    for k, n in LM_PER_STEP.items():
-        check(counts[k] == n * timed,
-              f"lm_train: {k} launched {counts[k]} times in {timed} steps, "
-              f"not {n * timed}")
+    check_losses("lm_train", r["loss"])
+    check_counts("lm_train", counts,
+                 {k: n * timed for k, n in LM_PER_STEP.items()})
     return counts, row
 
 
@@ -1441,6 +1849,9 @@ def main() -> int:
     lm_params = lm.init(torch.Generator().manual_seed(0))
     rows.update(lm_kernel_phase(torch, timer,
                                 flat.make_table(lm_params).total))
+    # the ImageNet step's optimizer kernels over the RN50 master store
+    rows.update(optimizer_kernel_phase(torch, timer,
+                                       flat.make_table(rn50_params)))
 
     # 3-4. the serving slice, dense then paged
     model = TransformerLM(vocab_size=32768, max_seq_len=1024,
@@ -1479,6 +1890,9 @@ def main() -> int:
     del timer
     tcounts, _ = train_phase(torch, rn50, rn50_params, rn50_state,
                              bn_calls)
+    # 11-12. the ImageNet example's step on the same model
+    icounts = imagenet_phases(torch, rn50, rn50_params, rn50_state,
+                              bn_calls)
     del rn50_params, rn50_state
     overflow_phase(torch)
     train_crosscheck_phase(torch, dispatch)
@@ -1488,11 +1902,17 @@ def main() -> int:
     del lm_params
     lm_crosscheck_phase(torch, dispatch)
 
-    # 11. the kernels line, then the contract line
+    # 13. the ImageNet step with the kernels against the plain versions
+    imagenet_crosscheck_phase(torch, dispatch)
+
+    # 14. the kernels line, then the contract line
     launches = {k: dcounts[k] + pcounts[k] for k in dcounts}
     launches.update({k: tcounts[k] for k in TRAIN_KERNELS})
     for k in LM_PER_STEP:                # ln_fwd: serving and training
         launches[k] += lcounts[k]
+    for counts in icounts.values():      # scale and BN: both RN50 steps
+        for k in TRAIN_KERNELS + IMAGENET_KERNELS:
+            launches[k] += counts[k]
     sources = {
         "decode_attention": (
             "apex_tpu_torch/ops/cuda/csrc/decode_attn.cu",
@@ -1528,6 +1948,14 @@ def main() -> int:
         "flash_bwd_dkv": ("apex_tpu_torch/ops/cuda/csrc/flash_attn.cu",
                           "apex_tpu/contrib/multihead_attn/"
                           "flash_attention.py:392"),
+        "rowsumsq": ("apex_tpu_torch/ops/cuda/csrc/multi_tensor.cu",
+                     "apex_tpu/ops/pallas/multi_tensor.py:197"),
+        "rowmaxabs": ("apex_tpu_torch/ops/cuda/csrc/multi_tensor.cu",
+                      "apex_tpu/ops/pallas/multi_tensor.py:219"),
+        "sgd": ("apex_tpu_torch/ops/cuda/csrc/multi_tensor.cu",
+                "apex_tpu/ops/pallas/multi_tensor.py:354"),
+        "novograd": ("apex_tpu_torch/ops/cuda/csrc/multi_tensor.cu",
+                     "apex_tpu/ops/pallas/multi_tensor.py:393"),
     }
     row_keys = {"decode_attention": ("decode_attention", "bfloat16"),
                 "paged_decode_attention": ("paged_decode_attention",
@@ -1547,7 +1975,9 @@ def main() -> int:
                 "adam": ("adam", "float32"), "ln_bwd": ("ln_bwd", "bfloat16"),
                 "flash_fwd": ("flash_fwd", "bfloat16"),
                 "flash_bwd_dq": ("flash_bwd_dq", "bfloat16"),
-                "flash_bwd_dkv": ("flash_bwd_dkv", "bfloat16")}
+                "flash_bwd_dkv": ("flash_bwd_dkv", "bfloat16"),
+                # the ImageNet step's optimizer kernels over RN50's buffer
+                **{k: (k, "float32") for k in IMAGENET_KERNELS}}
     kernels = []
     for name, (src, repl) in sources.items():
         r = rows[row_keys[name]]

@@ -528,3 +528,169 @@ def test_lm_trainer_through_the_kernels_matches_plain(card):
         assert [f.launches for f in fns] == before
     assert bool(torch.isfinite(losses).all()) and losses[-1] < losses[0]
     torch.testing.assert_close(losses, losses0, atol=2e-2, rtol=0)
+
+
+# -- the ImageNet slice: per-row norms, SGD, NovoGrad ------------------------------
+
+@pytest.mark.parametrize("n", [128, 128 * 8, 128 * 1037])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_row_norm_kernels_match_plain(card, n, dtype):
+    from apex_tpu_torch.ops import multi_tensor as MT
+    g = torch.Generator(device=card).manual_seed(n)
+    x = (torch.randn(n, generator=g, device=card) * 3).to(dtype)
+    before = (MT.rowsumsq.launches, MT.rowmaxabs.launches)
+    s, mx = MT.rowsumsq(x), MT.rowmaxabs(x)
+    assert (MT.rowsumsq.launches, MT.rowmaxabs.launches) == (
+        before[0] + 1, before[1] + 1)
+    # the row's sum adds in another order: within 1e-5 relative
+    torch.testing.assert_close(s, MT.rowsumsq_plain(x), rtol=1e-5, atol=0)
+    assert torch.equal(mx, MT.rowmaxabs_plain(x))     # a max is exact
+    y = x.clone()
+    y[-1] = float("-inf")
+    assert MT.rowmaxabs(y)[-1].item() == float("inf")
+    y[5] = float("nan")                   # NaN wins over any value
+    assert torch.isnan(MT.rowmaxabs(y)[0])
+
+
+def test_per_segment_norms_through_the_kernels(card):
+    from apex_tpu_torch.ops import kernels as K
+    from apex_tpu_torch.ops import dispatch as D
+    grad, _, _, _, table = _lamb_inputs(card, torch.float32)
+    l2 = K.l2norm_per_segment(grad, table, aligned_segments=True)
+    mx = K.maxnorm_per_segment(grad, table, aligned_segments=True)
+    with D.backend("reference"):
+        l20 = K.l2norm_per_segment(grad, table, aligned_segments=True)
+        mx0 = K.maxnorm_per_segment(grad, table, aligned_segments=True)
+    torch.testing.assert_close(l2, l20, rtol=1e-5, atol=0)
+    assert torch.equal(mx, mx0)
+    # fixed-order segment sums: two runs give the same bits
+    assert torch.equal(K.l2norm_per_segment(grad, table,
+                                            aligned_segments=True), l2)
+
+
+@pytest.mark.parametrize("flags", range(16))
+@pytest.mark.parametrize("gdt,pdt", [(torch.float32, torch.float32),
+                                     (torch.bfloat16, torch.float32),
+                                     (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("first_run", [False, True])
+def test_sgd_kernel_is_bit_equal_to_plain(card, flags, gdt, pdt, first_run):
+    from apex_tpu_torch.ops import multi_tensor as MT
+    n = 128 * 37 + 4
+    g = torch.Generator(device=card).manual_seed(flags)
+    grad = torch.randn(n, generator=g, device=card).to(gdt)
+    p = torch.randn(n, generator=g, device=card).to(pdt)
+    m = (torch.randn(n, generator=g, device=card) * 0.1).to(pdt)
+    sc = MT.sgd_scalars(wd=1e-4, lr=0.1, momentum=0.9, dampening=0.1,
+                        first_run=torch.tensor(first_run, device=card),
+                        scale=torch.tensor(0.5, device=card), device=card)
+    before = MT.sgd.launches
+    got = MT.sgd(grad, p, m, sc, flags)
+    assert MT.sgd.launches == before + 1
+    for a, b in zip(got, MT.sgd_plain(grad, p, m, sc, flags)):
+        assert torch.equal(a, b)           # same operations, same roundings
+
+
+@pytest.mark.parametrize("mode", [0, 1])
+@pytest.mark.parametrize("gdt,pdt", [(torch.float32, torch.float32),
+                                     (torch.bfloat16, torch.float32),
+                                     (torch.float32, torch.bfloat16)])
+def test_novograd_kernel_is_bit_equal_to_plain(card, mode, gdt, pdt):
+    from apex_tpu_torch.ops import multi_tensor as MT
+    grad, p, m, _, table = _lamb_inputs(card, pdt)
+    grad = grad.to(gdt)
+    g = torch.Generator(device=card).manual_seed(mode)
+    denom = torch.rand(table.num_segments, generator=g, device=card) + 0.1
+    row_seg = table.row_segment_ids(card)
+    sc = MT.novograd_scalars(lr=1e-2, beta1=0.95, weight_decay=1e-3,
+                             grad_averaging=True,
+                             bc1=torch.tensor(0.1426, device=card),
+                             device=card)
+    before = MT.novograd.launches
+    got = MT.novograd(grad, p, m, denom, row_seg, sc, mode)
+    assert MT.novograd.launches == before + 1
+    for a, b in zip(got, MT.novograd_plain(grad, p, m, denom, row_seg, sc,
+                                           mode)):
+        assert torch.equal(a, b)
+    # the whole step: norms, blend and update, against its plain run
+    v = torch.rand(table.num_segments, generator=g, device=card)
+    kw = dict(lr=1e-2, beta1=0.95, beta2=0.98, eps=1e-8,
+              step=torch.tensor(3, device=card), weight_decay=1e-3,
+              mode=mode)
+    for nt in (MT.NORM_LINF, MT.NORM_L2):
+        a = MT.novograd_step(grad, p, m, v, table, norm_type=nt, **kw)
+        with dispatch.backend("reference"):
+            b = MT.novograd_step(grad, p, m, v, table, norm_type=nt, **kw)
+        for x, y in zip(a, b):
+            torch.testing.assert_close(x.float(), y.float(), rtol=1e-5,
+                                       atol=1e-7)
+
+
+def test_optimizer_kernel_wrappers_refuse_what_the_kernels_do_not_take(card):
+    from apex_tpu_torch.ops import multi_tensor as MT
+    x = torch.zeros(256, device=card)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        MT.rowsumsq(x[:200])
+    with pytest.raises(TypeError, match="dtype"):
+        MT.rowmaxabs(x.half())
+    with pytest.raises(ValueError, match="aligned"):
+        MT.rowsumsq(torch.zeros(260, device=card)[1:257])
+    sc6 = torch.zeros(6, device=card)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        MT.sgd(x[:6], x[:6], x[:6], sc6, 0)
+    with pytest.raises(TypeError, match="one dtype"):
+        MT.sgd(x, x, x.bfloat16(), sc6, 0)
+    with pytest.raises(ValueError, match=r"fp32 \[6\]"):
+        MT.sgd(x, x, x, torch.zeros(5, device=card), 0)
+    seg = torch.zeros(2, dtype=torch.int32, device=card)
+    sc5 = torch.zeros(5, device=card)
+    with pytest.raises(ValueError, match="row_seg"):
+        MT.novograd(x, x, x, x[:1], seg.long(), sc5, 0)
+    with pytest.raises(ValueError, match="mode"):
+        MT.novograd(x, x, x, x[:1], seg, sc5, 2)
+
+
+@pytest.mark.parametrize("case", ["sgd", "larc", "novograd_l2",
+                                  "novograd_linf"])
+def test_imagenet_trainer_through_the_kernels_matches_plain(card, case):
+    """Three O0 steps of main_amp's step on the CI ResNet (uint8 NHWC
+    batch) with the kernels and with the plain versions on the card:
+    masters within 1e-4; the optimizer's kernels launched as designed and
+    none in the plain run; two kernel runs give the same bits."""
+    from apex_tpu_torch.models import ResNet
+    from apex_tpu_torch.ops import multi_tensor as MT
+    from apex_tpu_torch.train import Trainer
+    torch.backends.cudnn.deterministic = True
+    m = ResNet(block_sizes=(1, 1), bottleneck=True, num_classes=10, width=8)
+    params, state = m.init(0)
+    g = torch.Generator(device=card).manual_seed(0)
+    x = torch.randint(0, 256, (4, 32, 32, 3), generator=g, device=card,
+                      dtype=torch.uint8)
+    y = torch.randint(0, 10, (4,), generator=g, device=card)
+    kw = {"sgd": dict(optimizer="sgd"),
+          "larc": dict(optimizer="sgd", larc=True),
+          "novograd_l2": dict(optimizer="novograd", lr=1e-2),
+          "novograd_linf": dict(optimizer="novograd", lr=1e-2,
+                                norm_type=0)}[case]
+    per_step = {"sgd": (1, 0, 0, 0), "larc": (1, 2, 0, 0),
+                "novograd_l2": (0, 1, 0, 1),
+                "novograd_linf": (0, 0, 1, 1)}[case]
+
+    def run():
+        tr = Trainer(m, params, state, opt_level="O0", **kw)
+        losses = [tr.step(x, y) for _ in range(3)]
+        return tr.opt.state[0], torch.stack(losses)
+
+    fns = (MT.sgd, MT.rowsumsq, MT.rowmaxabs, MT.novograd)
+    before = [f.launches for f in fns]
+    gs, losses = run()
+    after = [f.launches for f in fns]
+    assert [a - b for a, b in zip(after, before)] == [3 * k for k in per_step]
+    gs2, _ = run()
+    assert torch.equal(gs.master, gs2.master)
+    again = [f.launches for f in fns]
+    with dispatch.backend("reference"):
+        gs0, losses0 = run()
+        # the backward too, which runs on the autograd device thread
+        assert [f.launches for f in fns] == again
+    torch.testing.assert_close(gs.master, gs0.master, atol=1e-4, rtol=0)
+    assert bool(torch.isfinite(losses).all()) and losses[-1] < losses[0]

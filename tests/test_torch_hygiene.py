@@ -193,7 +193,7 @@ def test_ctypes_declarations_match_the_c_entry_points():
     cuda._declare(so)
     for name, n in sigs.items():
         assert len(getattr(so, name).argtypes) == n, name
-    assert len(sigs) == 13
+    assert len(sigs) == 17
 
 
 def test_lm_training_entry_points_default_to_the_card_and_raise_without_it(
@@ -256,3 +256,53 @@ def test_dispatch_backend_reaches_other_threads():
         t.start()
         t.join()
     assert seen == ["reference"] and dispatch.get_backend() == "auto"
+
+
+def test_scan_reaches_the_imagenet_slice_modules():
+    names = {p.relative_to(PKG).as_posix() for p in _sources()
+             if p.is_relative_to(PKG)}
+    assert {"data/__init__.py", "optimizers/fused_sgd.py",
+            "optimizers/fused_novograd.py", "optimizers/larc.py"} <= names
+
+
+def test_imagenet_slice_imports_without_jax():
+    code = ("import sys\n"
+            "import apex_tpu_torch.data, apex_tpu_torch.optimizers.fused_sgd, "
+            "apex_tpu_torch.optimizers.fused_novograd, "
+            "apex_tpu_torch.optimizers.larc\n"
+            "from apex_tpu_torch.optimizers import (FusedSGD, FusedNovoGrad, "
+            "LARC)\n"
+            "from apex_tpu_torch.data import normalize_imagenet\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'jaxlib', 'apex_tpu.')) or "
+            "m == 'apex_tpu')\n"
+            "print(','.join(bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == ""
+
+
+def test_imagenet_entry_points_default_to_the_card_and_raise_without_it(
+        no_cuda):
+    from apex_tpu_torch.models import ResNet
+    from apex_tpu_torch.optimizers import LARC, FusedNovoGrad, FusedSGD
+    from apex_tpu_torch.train import Trainer
+    m = ResNet(block_sizes=(1, 1), bottleneck=True, num_classes=10, width=8,
+               device="cpu")
+    params, state = m.init(0)
+    for call in (lambda: FusedSGD(params, lr=0.1),
+                 lambda: FusedNovoGrad(params),
+                 lambda: Trainer(m, params, state, optimizer="sgd"),
+                 lambda: Trainer(m, params, state, optimizer="novograd",
+                                 larc=True)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    tr = Trainer(m, params, state, optimizer="sgd", larc=True, device="cpu")
+    assert isinstance(tr.opt, LARC)
+    x = torch.randint(0, 256, (2, 16, 16, 3), dtype=torch.uint8)
+    loss = tr.step(x, torch.tensor([1, 2]))
+    top1, top5 = tr.evaluate(x, torch.tensor([1, 2]))
+    assert loss.device.type == top1.device.type == "cpu"
+    assert tr.opt.state[0].master.device.type == "cpu"
