@@ -6,10 +6,12 @@ flash forward kernel and whose backward is the dq and dk/dv kernels
 (``ops/flash_attn.py``; the plain versions for CPU tensors), with lse as a
 true output whose cotangent folds into the backward's per-row term.
 ``reference_attention`` is the unfused path (``impl="default"``, prefill
-and the numerics oracle).
+and the numerics oracle). A per-key ``kv_bias`` [1|BH, Sk] (key-padding
+masks) rides into all three kernels and gets no gradient, as
+``_flash_core_bwd`` returns zeros for it (:823-826).
 
-Not ported yet, and refused: an additive ``bias``, a per-key ``kv_bias``
-and dropout (ROADMAP.md Queue 1, item 15). ``DEFAULT_FLASH_MIN_S`` is the
+Not ported yet, and refused: an additive ``bias`` and dropout (ROADMAP.md
+Queue 1, item 15). ``DEFAULT_FLASH_MIN_S`` is the
 JAX package's constant; the port reads no crossover file and no
 environment variable: those hold TPU measurements.
 """
@@ -30,24 +32,26 @@ DEFAULT_FLASH_MIN_S = 4096
 
 class _FlashCore(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale, q_start, k_start):
+    def forward(ctx, q, k, v, kv_bias, causal, scale, q_start, k_start):
         cfg = dict(causal=causal, scale=scale, q_start=q_start,
                    k_start=k_start)
-        o, lse = FA.flash_fwd(q, k, v, **cfg)
-        ctx.save_for_backward(q, k, v, o, lse)
+        o, lse = FA.flash_fwd(q, k, v, kv_bias=kv_bias, **cfg)
+        ctx.save_for_backward(q, k, v, o, lse, kv_bias)
         ctx.cfg = cfg
         ctx.set_materialize_grads(False)   # an unused lse costs nothing
         return o, lse
 
     @staticmethod
     def backward(ctx, do, dlse):
-        q, k, v, o, lse = ctx.saved_tensors
+        q, k, v, o, lse, kv_bias = ctx.saved_tensors
         if do is None:
             do = torch.zeros_like(o)
         delta = FA.flash_delta(o, do, dlse)
-        dq = FA.flash_bwd_dq(q, k, v, do, lse, delta, **ctx.cfg)
-        dk, dv = FA.flash_bwd_dkv(q, k, v, do, lse, delta, **ctx.cfg)
-        return dq, dk, dv, None, None, None, None
+        dq = FA.flash_bwd_dq(q, k, v, do, lse, delta, kv_bias=kv_bias,
+                             **ctx.cfg)
+        dk, dv = FA.flash_bwd_dkv(q, k, v, do, lse, delta, kv_bias=kv_bias,
+                                  **ctx.cfg)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def flash_attention(q, k, v, bias=None, *, kv_bias=None,
@@ -55,18 +59,21 @@ def flash_attention(q, k, v, bias=None, *, kv_bias=None,
                     k_start: int = 0, return_lse: bool = False,
                     dropout_rate: float = 0.0):
     """Fused attention over [B, H, S, D] (or [BH, S, D]) inputs, causal
-    masking by absolute positions ``q_start + i`` / ``k_start + j``.
+    masking by absolute positions ``q_start + i`` / ``k_start + j``, and
+    an optional per-key additive ``kv_bias`` [1|BH, Sk] (no gradient).
     Returns o in q's dtype and, with ``return_lse``, the fp32 lse."""
-    if bias is not None or kv_bias is not None or dropout_rate > 0.0:
+    if bias is not None or dropout_rate > 0.0:
         raise NotImplementedError(
-            "flash_attention: bias, kv_bias and dropout are not ported yet "
+            "flash_attention: the full bias and dropout are not ported yet "
             "(ROADMAP.md Queue 1, item 15)")
     lead = q.shape[:-2]
     if q.dim() == 4:
         q, k, v = (t.reshape(-1, *t.shape[2:]) for t in (q, k, v))
     if scale is None:
         scale = 1.0 / float(q.shape[-1]) ** 0.5
-    o, lse = _FlashCore.apply(q, k, v, bool(causal), float(scale),
+    if kv_bias is not None:
+        kv_bias = kv_bias.detach()
+    o, lse = _FlashCore.apply(q, k, v, kv_bias, bool(causal), float(scale),
                               int(q_start), int(k_start))
     o = o.reshape(*lead, *o.shape[1:])
     if return_lse:

@@ -1,14 +1,21 @@
-"""Self multihead attention — counterpart of
-``apex_tpu/contrib/multihead_attn/modules.py`` for what the LM needs: the
-packed parameter layout and xavier init (:38-43, :211-236) and the
-forward without masks, with the attention core chosen by ``impl``
-(:169-203): ``"fast"`` the flash kernels, ``"default"`` the unfused
-``reference_attention``, ``"auto"`` flash from ``flash_min_s`` (4096 when
-unset) or when the unfused scores would pass 2 GiB (``_flash_wins``,
-:138-167), both as constants here.
+"""Self and encoder-decoder multihead attention — counterpart of
+``apex_tpu/contrib/multihead_attn/modules.py`` for what the LM and the
+Seq2Seq Transformer need: the packed parameter layouts and xavier init
+(:38-43, :211-236, :305-318), the two mask kinds split onto the kernels'
+inputs (``_masks_to_biases``, :57-75), and the forward with the attention
+core chosen by ``impl`` (:169-203): ``"fast"`` the flash kernels,
+``"default"`` the unfused ``reference_attention``, ``"auto"`` flash from
+``flash_min_s`` (4096 when unset) or when the unfused scores would pass
+2 GiB (``_flash_wins``, :138-167), both as constants here.
+
+A ``key_padding_mask`` [B, Sk] (True = pad) becomes the per-key
+``kv_bias`` [B·H, Sk], which both cores take; an ``attn_mask`` [Sq, Sk]
+becomes a full additive bias, which only ``impl="default"`` takes (the
+flash kernels' full bias is not ported yet and raises).
 
 Parameters keep the JAX layout ``[in, out]`` (``in_proj`` [E, 3E],
-``out_proj`` [E, E]) so ``x @ W`` is the same product in both packages.
+``q_proj`` [E, E], ``kv_proj`` [E, 2E], ``out_proj`` [E, E]) so
+``x @ W`` is the same product in both packages.
 """
 
 from __future__ import annotations
@@ -19,9 +26,9 @@ from typing import Optional
 import torch
 
 from apex_tpu_torch.contrib.multihead_attn.flash_attention import (
-    DEFAULT_FLASH_MIN_S, flash_attention, reference_attention)
+    DEFAULT_FLASH_MIN_S, NEG_INF, flash_attention, reference_attention)
 
-__all__ = ["SelfMultiheadAttn"]
+__all__ = ["SelfMultiheadAttn", "EncdecMultiheadAttn"]
 
 # impl="auto" takes the kernel below the crossover length once the
 # unfused path's ~6 live fp32 [BH, Sq, Sk] buffers would pass this
@@ -49,11 +56,26 @@ def _merge_heads(x, b):
     return x.transpose(0, 1).reshape(t, b, (bh // b) * d)
 
 
+def _masks_to_biases(key_padding_mask, attn_mask, h: int, sq: int, sk: int):
+    """(bias, kv_bias): ``attn_mask`` [Sq, Sk] additive -> a full bias
+    [1, Sq, Sk]; ``key_padding_mask`` [B, Sk] bool (True = pad) -> the
+    per-key kv_bias [B·H, Sk], 0 or ``NEG_INF``, each batch row repeated
+    for its H heads (bh = b·H + h, the order of ``_split_heads``)."""
+    bias = None
+    if attn_mask is not None:
+        bias = attn_mask.float()[None].expand(1, sq, sk)
+    kv_bias = None
+    if key_padding_mask is not None:
+        kp = torch.where(key_padding_mask, NEG_INF, 0.0).float()
+        kv_bias = kp.repeat_interleave(h, dim=0)
+    return bias, kv_bias
+
+
 @dataclasses.dataclass(frozen=True)
-class SelfMultiheadAttn:
-    """Self-attention with one packed [E, 3E] input projection: ``bias``
-    on or off, ``causal``, ``impl`` in {"fast", "default", "auto"}.
-    ``dropout`` > 0 is refused in training (not ported yet)."""
+class _AttnBase:
+    """What both modules share: the config, ``impl``'s rule and the
+    attention core. ``dropout`` > 0 is refused in training (not ported
+    yet)."""
     embed_dim: int
     num_heads: int
     bias: bool = False
@@ -73,16 +95,6 @@ class SelfMultiheadAttn:
     def head_dim(self) -> int:
         return self.embed_dim // self.num_heads
 
-    def init(self, generator: torch.Generator) -> dict:
-        """Fresh fp32 parameters on the CPU (the caller moves them)."""
-        e = self.embed_dim
-        p = {"in_proj": _xavier(generator, (e, 3 * e)),
-             "out_proj": _xavier(generator, (e, e))}
-        if self.bias:
-            p["in_proj_bias"] = torch.zeros(3 * e)
-            p["out_proj_bias"] = torch.zeros(e)
-        return p
-
     def _flash_wins(self, q, k) -> bool:
         thr = self.flash_min_s if self.flash_min_s is not None \
             else DEFAULT_FLASH_MIN_S
@@ -94,30 +106,103 @@ class SelfMultiheadAttn:
             bh *= d
         return 6 * bh * sq * sk * 4 > COMPOSED_SCORE_BYTES
 
-    def apply(self, params: dict, query: torch.Tensor, *,
-              is_training: bool = True):
-        """query: [T, B, E] time-major. Returns (output [T, B, E], None)
-        like the JAX module."""
+    def _core(self, q, k, v, bias, kv_bias, is_training: bool):
+        """The attention core over [B·H, S, D]; the masks are constructed,
+        so neither gets a gradient."""
         if is_training and self.dropout > 0.0:
             raise NotImplementedError(
                 "attention dropout is not ported yet (ROADMAP.md Queue 1, "
                 "item 15)")
+        scale = 1.0 / float(self.head_dim) ** 0.5
+        if self.impl == "fast" or (self.impl == "auto"
+                                   and self._flash_wins(q, k)):
+            return flash_attention(q, k, v, bias, kv_bias=kv_bias,
+                                   causal=self.causal, scale=scale)
+        return reference_attention(q, k, v, bias, kv_bias=kv_bias,
+                                   causal=self.causal, scale=scale)
+
+    def _project_out(self, params, out, b):
+        out = _merge_heads(out, b) @ params["out_proj"]
+        if self.bias:
+            out = out + params["out_proj_bias"]
+        return out
+
+
+@dataclasses.dataclass(frozen=True)
+class SelfMultiheadAttn(_AttnBase):
+    """Self-attention with one packed [E, 3E] input projection
+    (modules.py:209-284): ``bias`` on or off, ``causal``, ``impl`` in
+    {"fast", "default", "auto"}."""
+
+    def init(self, generator: torch.Generator) -> dict:
+        """Fresh fp32 parameters on the CPU (the caller moves them)."""
+        e = self.embed_dim
+        p = {"in_proj": _xavier(generator, (e, 3 * e)),
+             "out_proj": _xavier(generator, (e, e))}
+        if self.bias:
+            p["in_proj_bias"] = torch.zeros(3 * e)
+            p["out_proj_bias"] = torch.zeros(e)
+        return p
+
+    def apply(self, params: dict, query: torch.Tensor, *,
+              key_padding_mask: Optional[torch.Tensor] = None,
+              attn_mask: Optional[torch.Tensor] = None,
+              is_training: bool = True):
+        """query: [T, B, E] time-major; ``key_padding_mask`` bool [B, T]
+        (True = pad), ``attn_mask`` additive [T, T]. Returns (output
+        [T, B, E], None) like the JAX module."""
         t, b, e = query.shape
         qkv = query @ params["in_proj"]
         if self.bias:
             qkv = qkv + params["in_proj_bias"]
-        q, k, v = torch.split(qkv, e, dim=-1)
-        q, k, v = (_split_heads(a, self.num_heads) for a in (q, k, v))
-        scale = 1.0 / float(self.head_dim) ** 0.5
-        if self.impl == "fast" or (self.impl == "auto"
-                                   and self._flash_wins(q, k)):
-            out = flash_attention(q, k, v, causal=self.causal, scale=scale)
-        else:
-            out = reference_attention(q, k, v, causal=self.causal,
-                                      scale=scale)
-        out = _merge_heads(out, b) @ params["out_proj"]
+        q, k, v = (_split_heads(a, self.num_heads)
+                   for a in torch.split(qkv, e, dim=-1))
+        bias, kv_bias = _masks_to_biases(key_padding_mask, attn_mask,
+                                         self.num_heads, t, t)
+        out = self._core(q, k, v, bias, kv_bias, is_training)
+        return self._project_out(params, out, b), None
+
+    __call__ = apply
+
+
+@dataclasses.dataclass(frozen=True)
+class EncdecMultiheadAttn(_AttnBase):
+    """Encoder-decoder attention (modules.py:286-354): q from the decoder
+    stream through ``q_proj`` [E, E], k and v from the encoder memory
+    through one packed ``kv_proj`` [E, 2E]."""
+
+    def init(self, generator: torch.Generator) -> dict:
+        """Fresh fp32 parameters on the CPU (the caller moves them)."""
+        e = self.embed_dim
+        p = {"q_proj": _xavier(generator, (e, e)),
+             "kv_proj": _xavier(generator, (e, 2 * e)),
+             "out_proj": _xavier(generator, (e, e))}
         if self.bias:
-            out = out + params["out_proj_bias"]
-        return out, None
+            p["q_proj_bias"] = torch.zeros(e)
+            p["kv_proj_bias"] = torch.zeros(2 * e)
+            p["out_proj_bias"] = torch.zeros(e)
+        return p
+
+    def apply(self, params: dict, query: torch.Tensor,
+              key_value: torch.Tensor, *,
+              key_padding_mask: Optional[torch.Tensor] = None,
+              attn_mask: Optional[torch.Tensor] = None,
+              is_training: bool = True):
+        """query: [Tq, B, E]; key_value: [Tk, B, E]; ``key_padding_mask``
+        bool [B, Tk] (True = pad), ``attn_mask`` additive [Tq, Tk].
+        Returns (output [Tq, B, E], None)."""
+        tq, b, e = query.shape
+        tk = key_value.shape[0]
+        q = query @ params["q_proj"]
+        kv = key_value @ params["kv_proj"]
+        if self.bias:
+            q = q + params["q_proj_bias"]
+            kv = kv + params["kv_proj_bias"]
+        k, v = torch.split(kv, e, dim=-1)
+        q, k, v = (_split_heads(a, self.num_heads) for a in (q, k, v))
+        bias, kv_bias = _masks_to_biases(key_padding_mask, attn_mask,
+                                         self.num_heads, tq, tk)
+        out = self._core(q, k, v, bias, kv_bias, is_training)
+        return self._project_out(params, out, b), None
 
     __call__ = apply

@@ -1,12 +1,13 @@
-"""Models of the port (counterpart of ``apex_tpu/models``): the serving
-``TransformerLM`` and the ``ResNet`` family. Names import lazily."""
+"""Models of the port (counterpart of ``apex_tpu/models``): the
+``TransformerLM``, the ``Seq2SeqTransformer`` and the ``ResNet`` family.
+Names import lazily."""
 
 from __future__ import annotations
 
 import importlib
 
 _EXPORTS = {
-    "TransformerLM": "transformer",
+    "TransformerLM": "transformer", "Seq2SeqTransformer": "seq2seq",
     "ResNet": "resnet", "analytic_flops": "resnet", "resnet18": "resnet",
     "resnet34": "resnet", "resnet50": "resnet", "resnet101": "resnet",
     "resnet152": "resnet",

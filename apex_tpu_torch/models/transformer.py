@@ -12,12 +12,13 @@ Pre-LN decoder-only architecture::
 Ported: the config fields of both paths, ``init`` (same names and
 shapes, drawn from a ``torch.Generator``), ``apply`` (the forward, under
 autograd, without dropout, remat, MoE or sequence parallelism), ``loss``
-(next-token cross entropy through the chunked fused head), the KV-cache
-block stack
-``_cached_blocks``, ``_decode_one``, the fused slot-batched decode step
-``_decode_slots`` (1-query, dense and paged arenas), ``_prefill`` and
-greedy ``generate``. Parameters keep the JAX layout, weights ``[in, out]``,
-so ``x @ W`` is the same product in both packages.
+(next-token cross entropy through the chunked fused head, or with
+``head_chunk=0`` over the full logits through the softmax cross-entropy
+kernels), the KV-cache block stack ``_cached_blocks``, ``_decode_one``,
+the fused slot-batched decode step ``_decode_slots`` (1-query, dense and
+paged arenas), ``_prefill`` and greedy ``generate``. Parameters keep
+the JAX layout, weights ``[in, out]``, so ``x @ W`` is the same product
+in both packages.
 
 Every LayerNorm goes through ``normalization.fused_layer_norm_affine``
 (the LayerNorm kernels on the card), ``apply``'s attention through
@@ -43,7 +44,8 @@ from apex_tpu_torch.contrib.multihead_attn.decode_attention import (
 from apex_tpu_torch.contrib.multihead_attn.flash_attention import (
     reference_attention)
 from apex_tpu_torch.contrib.multihead_attn.modules import SelfMultiheadAttn
-from apex_tpu_torch.contrib.xentropy import linear_cross_entropy
+from apex_tpu_torch.contrib.xentropy import (linear_cross_entropy,
+                                             softmax_cross_entropy_loss)
 from apex_tpu_torch.normalization import fused_layer_norm_affine
 
 __all__ = ["TransformerLM"]
@@ -174,13 +176,14 @@ class TransformerLM:
         return (x @ params["tok_emb"].T).float()
 
     def _token_losses(self, params, out, targets_flat):
-        """Per-token losses from apply()'s output (the final hidden states
-        when ``head_chunk`` > 0)."""
+        """Per-token losses from apply()'s output: the fp32 logits through
+        the softmax cross-entropy op (no padding token in this LM), or the
+        final hidden states through the chunked fused head when
+        ``head_chunk`` > 0 (transformer.py:240-252)."""
         if self.head_chunk <= 0:
-            raise NotImplementedError(
-                "the full-logits loss (head_chunk=0) needs the fused "
-                "softmax cross-entropy kernels, not ported yet (ROADMAP.md "
-                "Queue 1, item 14)")
+            return softmax_cross_entropy_loss(
+                out.reshape(-1, self.vocab_size), targets_flat,
+                padding_idx=None)
         return linear_cross_entropy(out.reshape(-1, self.embed_dim),
                                     params["tok_emb"], targets_flat,
                                     chunk=self.head_chunk)

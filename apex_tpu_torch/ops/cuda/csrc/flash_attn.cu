@@ -5,8 +5,9 @@
 // Replaces the Pallas kernels of
 // apex_tpu/contrib/multihead_attn/flash_attention.py: _flash_fwd ->
 // _fwd_kernel (:181), and _bwd_pallas -> _bwd_dq_kernel (:349) and
-// _bwd_dkv_kernel (:392), without bias, per-key bias or dropout (the
-// wrapper refuses those).
+// _bwd_dkv_kernel (:392), with the per-key additive bias kv_bias [1|BH,
+// Sk] fp32 (key-padding masks), without the full [Sq, Sk] bias or dropout
+// (the wrapper refuses those).
 //
 // Semantics kept from the Pallas kernels: fp32 scores, softmax statistics
 // and accumulators; masking by absolute positions (query row i sits at
@@ -17,6 +18,17 @@
 // lse = kNegInf; tiles that are wholly masked are skipped (_block_live,
 // :170). delta = rowsum(dO * O) - dlse is computed by the caller, as the
 // JAX wrapper computes it outside Pallas (:474-479).
+//
+// kv_bias (the KVB instantiations) is added to every score before the
+// exponential, s * scale + kvb as at :211-212 and :329-330, here in log2
+// units: s * scale * log2(e) + kvb * log2(e), the bias tile of a block's
+// kTile keys staged in shared memory beside K (in registers in dk/dv,
+// whose block owns the keys). It is data, so it never makes a tile
+// skippable: _block_live's causal and length skip stay as they are, and
+// the all-visible tiles add it too. A key it masks (kvb = -1e30) scores
+// below kNegInf / 2, which the value guard turns into p = 0. The backward
+// keeps that guard (:333-334): a row whose every key is masked has lse =
+// kNegInf, and exp2(s - lse) would otherwise be exp2(0) = 1 there.
 //
 // Bound on this card: operations. At the LM's shape (BH = 128, S = 4095,
 // D = 64, causal) the forward's QK^T and PV are 4 * BH * S^2 * D / 2
@@ -50,6 +62,8 @@
 // second products rounded to bf16, as in every bf16 flash kernel; that is
 // the kernels' difference from the fp32 plain versions.
 
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace apex_port {
@@ -72,7 +86,9 @@ struct Attn {
   const bf16* q;
   const bf16* k;
   const bf16* v;
+  const float* kvb;                            // [1|BH, Sk] or null
   long long q_bh, q_s, k_bh, k_s, v_bh, v_s;   // strides, elements
+  long long kvb_bh;                            // 0 when shared over bh
   int sq, sk, q_start, k_start, causal;
   float scale;
 };
@@ -209,6 +225,16 @@ __device__ __forceinline__ void scores_times_tile(float (&acc)[D / 8][4],
   }
 }
 
+// kv_bias of keys [k0, k0 + kTile) in log2 units -> sm [kTile] (0 past sk)
+__device__ __forceinline__ void load_bias_tile(float* sm, const Attn& a,
+                                               int bh, int k0) {
+  if (threadIdx.x < kTile) {
+    const int kj = k0 + threadIdx.x;
+    sm[threadIdx.x] =
+        kj < a.sk ? a.kvb[bh * a.kvb_bh + kj] * kLog2e : 0.f;
+  }
+}
+
 // whether query row qi (local) may see key kj (local)
 __device__ __forceinline__ bool visible(const Attn& a, int qi, int kj) {
   return qi < a.sq && kj < a.sk &&
@@ -238,12 +264,13 @@ __device__ __forceinline__ int live_k_tiles(const Attn& a, int qb) {
 
 // ---- forward ---------------------------------------------------------------
 
-template <int D>
+template <int D, bool KVB>
 __global__ void __launch_bounds__(kThreads, D == 64 ? kFwdBlocks : 1)
 flash_fwd_kernel(Attn a, bf16* __restrict__ o, float* __restrict__ lse) {
   constexpr int LD = D + 8;
   __shared__ __align__(16) bf16 sK[kTile * LD];
   __shared__ __align__(16) bf16 sV[kTile * LD];
+  __shared__ float sB[KVB ? kTile : 1];
   const int bh = blockIdx.y;
   const int qb = gridDim.x - 1 - blockIdx.x;   // longest causal rows first
   const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
@@ -264,15 +291,19 @@ flash_fwd_kernel(Attn a, bf16* __restrict__ o, float* __restrict__ lse) {
     __syncthreads();                   // the last tile's readers are done
     load_tile<D>(sK, kb, a.k_s, kt * kTile, a.sk);
     load_tile<D>(sV, vb, a.v_s, kt * kTile, a.sk);
+    if (KVB) load_bias_tile(sB, a, bh, kt * kTile);
     __syncthreads();
     float s[8][4];
     rows_times_tile<D>(s, qf, sK);
-    // scores in log2 units: s * scale * log2(e)
+    // scores in log2 units: s * scale * log2(e) (+ kv_bias * log2(e))
     if (all_visible(a, qw, 16, kt * kTile, kTile)) {
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] *= sl2;
+        for (int e = 0; e < 4; ++e) {
+          s[nt][e] = KVB ? s[nt][e] * sl2 + sB[nt * 8 + 2 * t4 + (e & 1)]
+                         : s[nt][e] * sl2;
+        }
       }
     } else {
 #pragma unroll
@@ -280,8 +311,9 @@ flash_fwd_kernel(Attn a, bf16* __restrict__ o, float* __restrict__ lse) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int qi = qw + g + 8 * (e >> 1);
-          const int kj = kt * kTile + nt * 8 + 2 * t4 + (e & 1);
-          s[nt][e] = visible(a, qi, kj) ? s[nt][e] * sl2 : kNegInf;
+          const int kl = nt * 8 + 2 * t4 + (e & 1);
+          const float sc = KVB ? s[nt][e] * sl2 + sB[kl] : s[nt][e] * sl2;
+          s[nt][e] = visible(a, qi, kt * kTile + kl) ? sc : kNegInf;
         }
       }
     }
@@ -339,7 +371,7 @@ flash_fwd_kernel(Attn a, bf16* __restrict__ o, float* __restrict__ lse) {
 
 // ---- backward: dq ----------------------------------------------------------
 
-template <int D>
+template <int D, bool KVB>
 __global__ void __launch_bounds__(kThreads, D == 64 ? kDqBlocks : 1)
 flash_dq_kernel(Attn a, const bf16* __restrict__ dout, long long do_bh,
                 long long do_s, const float* __restrict__ lse,
@@ -347,6 +379,7 @@ flash_dq_kernel(Attn a, const bf16* __restrict__ dout, long long do_bh,
   constexpr int LD = D + 8;
   __shared__ __align__(16) bf16 sK[kTile * LD];
   __shared__ __align__(16) bf16 sV[kTile * LD];
+  __shared__ float sB[KVB ? kTile : 1];
   const int bh = blockIdx.y;
   const int qb = gridDim.x - 1 - blockIdx.x;
   const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
@@ -375,6 +408,7 @@ flash_dq_kernel(Attn a, const bf16* __restrict__ dout, long long do_bh,
     __syncthreads();
     load_tile<D>(sK, kb, a.k_s, kt * kTile, a.sk);
     load_tile<D>(sV, vb, a.v_s, kt * kTile, a.sk);
+    if (KVB) load_bias_tile(sB, a, bh, kt * kTile);
     __syncthreads();
     // the tile's keys in two halves of 32, as dk/dv splits its queries
 #pragma unroll
@@ -390,9 +424,11 @@ flash_dq_kernel(Attn a, const bf16* __restrict__ dout, long long do_bh,
         for (int e = 0; e < 4; ++e) {
           const int h = e >> 1;
           const int qi = qw + g + 8 * h;
-          const int kj = kt * kTile + k0 + nt * 8 + 2 * t4 + (e & 1);
-          const float p = full || visible(a, qi, kj)
-                              ? exp2f(s[nt][e] * sl2 - lse_r[h]) : 0.f;
+          const int kl = k0 + nt * 8 + 2 * t4 + (e & 1);
+          const float sc = KVB ? s[nt][e] * sl2 + sB[kl] : s[nt][e] * sl2;
+          const bool live = (full || visible(a, qi, kt * kTile + kl)) &&
+                            (!KVB || sc > kNegInf * 0.5f);
+          const float p = live ? exp2f(sc - lse_r[h]) : 0.f;
           s[nt][e] = p * (dp[nt][e] - dlt_r[h]) * a.scale;   // dS * scale
         }
       }
@@ -414,7 +450,7 @@ flash_dq_kernel(Attn a, const bf16* __restrict__ dout, long long do_bh,
 
 // ---- backward: dk, dv ------------------------------------------------------
 
-template <int D>
+template <int D, bool KVB>
 __global__ void __launch_bounds__(kThreads, D == 64 ? kDkvBlocks : 1)
 flash_dkv_kernel(Attn a, const bf16* __restrict__ dout, long long do_bh,
                  long long do_s, const float* __restrict__ lse,
@@ -430,6 +466,15 @@ flash_dkv_kernel(Attn a, const bf16* __restrict__ dout, long long do_bh,
   uint32_t kf[D / 16][4], vf[D / 16][4];
   load_a<D>(kf, a.k + bh * a.k_bh, a.k_s, kw, a.sk);
   load_a<D>(vf, a.v + bh * a.v_bh, a.v_s, kw, a.sk);
+  // kv_bias of this thread's two key rows, in log2 units
+  float kb_r[2] = {0.f, 0.f};
+  if (KVB) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int kj = kw + g + 8 * h;
+      kb_r[h] = kj < a.sk ? a.kvb[bh * a.kvb_bh + kj] * kLog2e : 0.f;
+    }
+  }
   float dka[D / 8][4], dva[D / 8][4];
 #pragma unroll
   for (int dt = 0; dt < D / 8; ++dt) {
@@ -474,8 +519,11 @@ flash_dkv_kernel(Attn a, const bf16* __restrict__ dout, long long do_bh,
           const int kj = kw + g + 8 * (e >> 1);
           const int ql = q0 + nt * 8 + 2 * t4 + (e & 1);
           const int qi = qt * kTile + ql;
-          const float p = full || visible(a, qi, kj)
-                              ? exp2f(pt[nt][e] * sl2 - sL[ql]) : 0.f;
+          const float sc = KVB ? pt[nt][e] * sl2 + kb_r[e >> 1]
+                               : pt[nt][e] * sl2;
+          const bool live = (full || visible(a, qi, kj)) &&
+                            (!KVB || sc > kNegInf * 0.5f);
+          const float p = live ? exp2f(sc - sL[ql]) : 0.f;
           pt[nt][e] = p;
           dst[nt][e] = p * (dst[nt][e] - sDl[ql]) * a.scale;
         }
@@ -501,12 +549,14 @@ flash_dkv_kernel(Attn a, const bf16* __restrict__ dout, long long do_bh,
 
 Attn make_attn(const void* q, const void* k, const void* v, long long q_bh,
                long long q_s, long long k_bh, long long k_s, long long v_bh,
-               long long v_s, int sq, int sk, int q_start, int k_start,
-               int causal, float scale) {
+               long long v_s, const void* kvb, long long kvb_bh, int sq,
+               int sk, int q_start, int k_start, int causal, float scale) {
   Attn a;
   a.q = static_cast<const bf16*>(q);
   a.k = static_cast<const bf16*>(k);
   a.v = static_cast<const bf16*>(v);
+  a.kvb = static_cast<const float*>(kvb);
+  a.kvb_bh = kvb_bh;
   a.q_bh = q_bh;
   a.q_s = q_s;
   a.k_bh = k_bh;
@@ -526,31 +576,48 @@ bool bad(int bh, int sq, int sk, int d) {
   return bh < 1 || bh > 65535 || sq < 1 || sk < 1 || (d != 64 && d != 128);
 }
 
+// calls f(D, KVB) with both as compile-time constants: the head dim (64
+// or 128) and whether a kv_bias is given
+template <typename F>
+void with_form(int d, const Attn& a, F&& f) {
+  using std::integral_constant;
+  const bool kvb = a.kvb != nullptr;
+  if (d == 64) {
+    if (kvb) f(integral_constant<int, 64>{}, integral_constant<bool, true>{});
+    else f(integral_constant<int, 64>{}, integral_constant<bool, false>{});
+  } else {
+    if (kvb) f(integral_constant<int, 128>{}, integral_constant<bool, true>{});
+    else f(integral_constant<int, 128>{}, integral_constant<bool, false>{});
+  }
+}
+
 }  // namespace
 }  // namespace apex_port
 
 // q, k, v bf16 [bh, s, d] with the given strides (elements; the last dim
 // contiguous, every stride a multiple of 8, every base 16-byte aligned);
-// o bf16 [bh, sq, d] and lse fp32 [bh, sq], contiguous.
+// kvb null or fp32 [1|bh, sk] with bh stride kvb_bh (0 when shared), its
+// keys contiguous; o bf16 [bh, sq, d] and lse fp32 [bh, sq], contiguous.
 extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
                               void* o, void* lse, long long q_bh,
                               long long q_s, long long k_bh, long long k_s,
-                              long long v_bh, long long v_s, int bh, int sq,
-                              int sk, int d, int q_start, int k_start,
-                              int causal, float scale, void* stream) {
+                              long long v_bh, long long v_s,
+                              const void* kvb, long long kvb_bh, int bh,
+                              int sq, int sk, int d, int q_start,
+                              int k_start, int causal, float scale,
+                              void* stream) {
   using namespace apex_port;
   if (bad(bh, sq, sk, d)) return static_cast<int>(cudaErrorInvalidValue);
-  const Attn a = make_attn(q, k, v, q_bh, q_s, k_bh, k_s, v_bh, v_s, sq, sk,
-                           q_start, k_start, causal, scale);
+  const Attn a = make_attn(q, k, v, q_bh, q_s, k_bh, k_s, v_bh, v_s, kvb,
+                           kvb_bh, sq, sk, q_start, k_start, causal, scale);
   const dim3 grid((sq + kTile - 1) / kTile, bh);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   bf16* op = static_cast<bf16*>(o);
   float* lp = static_cast<float*>(lse);
-  if (d == 64) {
-    flash_fwd_kernel<64><<<grid, kThreads, 0, st>>>(a, op, lp);
-  } else {
-    flash_fwd_kernel<128><<<grid, kThreads, 0, st>>>(a, op, lp);
-  }
+  with_form(d, a, [&](auto dd, auto kb) {
+    flash_fwd_kernel<decltype(dd)::value, decltype(kb)::value>
+        <<<grid, kThreads, 0, st>>>(a, op, lp);
+  });
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -561,27 +628,25 @@ extern "C" int apex_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* delta, void* dq, long long q_bh,
                                  long long q_s, long long k_bh, long long k_s,
                                  long long v_bh, long long v_s,
-                                 long long do_bh, long long do_s, int bh,
+                                 long long do_bh, long long do_s,
+                                 const void* kvb, long long kvb_bh, int bh,
                                  int sq, int sk, int d, int q_start,
                                  int k_start, int causal, float scale,
                                  void* stream) {
   using namespace apex_port;
   if (bad(bh, sq, sk, d)) return static_cast<int>(cudaErrorInvalidValue);
-  const Attn a = make_attn(q, k, v, q_bh, q_s, k_bh, k_s, v_bh, v_s, sq, sk,
-                           q_start, k_start, causal, scale);
+  const Attn a = make_attn(q, k, v, q_bh, q_s, k_bh, k_s, v_bh, v_s, kvb,
+                           kvb_bh, sq, sk, q_start, k_start, causal, scale);
   const dim3 grid((sq + kTile - 1) / kTile, bh);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bf16* dp = static_cast<const bf16*>(dout);
   const float* lp = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   bf16* out = static_cast<bf16*>(dq);
-  if (d == 64) {
-    flash_dq_kernel<64><<<grid, kThreads, 0, st>>>(a, dp, do_bh, do_s, lp, dl,
-                                                   out);
-  } else {
-    flash_dq_kernel<128><<<grid, kThreads, 0, st>>>(a, dp, do_bh, do_s, lp,
-                                                    dl, out);
-  }
+  with_form(d, a, [&](auto dd, auto kb) {
+    flash_dq_kernel<decltype(dd)::value, decltype(kb)::value>
+        <<<grid, kThreads, 0, st>>>(a, dp, do_bh, do_s, lp, dl, out);
+  });
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -593,13 +658,14 @@ extern "C" int apex_flash_bwd_dkv(const void* q, const void* k,
                                   long long q_s, long long k_bh,
                                   long long k_s, long long v_bh,
                                   long long v_s, long long do_bh,
-                                  long long do_s, int bh, int sq, int sk,
+                                  long long do_s, const void* kvb,
+                                  long long kvb_bh, int bh, int sq, int sk,
                                   int d, int q_start, int k_start, int causal,
                                   float scale, void* stream) {
   using namespace apex_port;
   if (bad(bh, sq, sk, d)) return static_cast<int>(cudaErrorInvalidValue);
-  const Attn a = make_attn(q, k, v, q_bh, q_s, k_bh, k_s, v_bh, v_s, sq, sk,
-                           q_start, k_start, causal, scale);
+  const Attn a = make_attn(q, k, v, q_bh, q_s, k_bh, k_s, v_bh, v_s, kvb,
+                           kvb_bh, sq, sk, q_start, k_start, causal, scale);
   const dim3 grid((sk + kTile - 1) / kTile, bh);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bf16* dp = static_cast<const bf16*>(dout);
@@ -607,12 +673,9 @@ extern "C" int apex_flash_bwd_dkv(const void* q, const void* k,
   const float* dl = static_cast<const float*>(delta);
   bf16* kp = static_cast<bf16*>(dk);
   bf16* vp = static_cast<bf16*>(dv);
-  if (d == 64) {
-    flash_dkv_kernel<64><<<grid, kThreads, 0, st>>>(a, dp, do_bh, do_s, lp,
-                                                    dl, kp, vp);
-  } else {
-    flash_dkv_kernel<128><<<grid, kThreads, 0, st>>>(a, dp, do_bh, do_s, lp,
-                                                     dl, kp, vp);
-  }
+  with_form(d, a, [&](auto dd, auto kb) {
+    flash_dkv_kernel<decltype(dd)::value, decltype(kb)::value>
+        <<<grid, kThreads, 0, st>>>(a, dp, do_bh, do_s, lp, dl, kp, vp);
+  });
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,8 +7,10 @@ counterpart of ``bench.py``'s ``_loss_fn`` and ``train_step``
 momentum 0.9, weight decay 1e-4) and a uint8 NHWC batch normalized inside
 the step, ``examples/imagenet/main_amp.py``'s training step
 (:239-288), and ``evaluate`` its validation step (:401-414).
-``LMTrainer`` is the decoder-LM FusedAdam step of ``tools/lm_bench.py``
-(:255-272, one device). Both differentiate with respect to the flat fp32
+``LMTrainer`` is the FusedAdam step of ``tools/lm_bench.py`` (:255-272,
+one device) for the decoder LM and, with the batch and loss keywords
+passed through, of ``examples/seq2seq/train_translation.py`` for the
+Seq2Seq Transformer. Both differentiate with respect to the flat fp32
 master buffer (``master_grad``).
 
 The ResNet step, as the JAX bench runs it:
@@ -173,38 +175,45 @@ class Trainer:
 
 
 class LMTrainer:
-    """``tools/lm_bench.py``'s single-device step (:255-272): the flat fp32
-    master becomes the model's params in one cast to ``dtype`` (bf16, the
-    O2 pattern; ``None`` keeps fp32, lm_bench's ``--dtype f32``),
-    ``model.loss`` runs forward and backward, and ``FusedAdam(lr)`` with
-    its other defaults (AdamW mode, weight decay 0) updates the masters.
-    There is no loss scaler, as in lm_bench. Everything lives on
-    ``device``, the card unless ``device="cpu"``; ``opt.state`` holds the
-    masters, slots and step.
+    """The single-device FusedAdam step of ``tools/lm_bench.py``
+    (:255-272) and ``examples/seq2seq/train_translation.py`` (:120-128):
+    the flat fp32 master becomes the model's params in one cast to
+    ``dtype`` (bf16, the O2 pattern; ``None`` keeps fp32, lm_bench's
+    ``--dtype f32``), ``model.loss(params, *batch, **loss_kw)`` runs
+    forward and backward, and ``FusedAdam(lr, betas, eps)`` with its other
+    defaults (AdamW mode, weight decay 0) updates the masters. There is no
+    loss scaler, as in both sources. Everything lives on ``device``, the
+    card unless ``device="cpu"``; ``opt.state`` holds the masters, slots
+    and step.
     """
 
     def __init__(self, model, params, *, lr: float = 1e-4,
+                 betas=(0.9, 0.999), eps: float = 1e-8,
                  dtype=torch.bfloat16, device=None):
         self.device = resolve_device(device)
         self.model = model
         self.dtype = dtype
-        self.opt = FusedAdam(params, lr=lr, device=self.device)
+        self.opt = FusedAdam(params, lr=lr, betas=betas, eps=eps,
+                             device=self.device)
         self.table = self.opt._tables[0]
 
-    def loss_and_grad(self, tokens):
-        """``(flat fp32 master grad, loss)`` for tokens int [B, T + 1]."""
-        tokens = tokens.to(self.device)
+    def loss_and_grad(self, *batch, **loss_kw):
+        """``(flat fp32 master grad, loss)`` for the batch ``model.loss``
+        takes after the params (the LM: tokens int [B, T + 1]; the
+        Seq2Seq Transformer: source and target tokens), with ``loss_kw``
+        passed on (``label_smoothing``)."""
+        batch = [t.to(self.device) for t in batch]
 
         def objective(params):
-            loss = self.model.loss(params, tokens)
+            loss = self.model.loss(params, *batch, **loss_kw)
             return loss, loss.detach()
 
         return master_grad(self.opt.state[0].master, self.table, self.dtype,
                            objective)
 
-    def step(self, tokens):
+    def step(self, *batch, **loss_kw):
         """One training step; returns the loss as a device tensor (nothing
         is read back to the host)."""
-        grad, loss = self.loss_and_grad(tokens)
+        grad, loss = self.loss_and_grad(*batch, **loss_kw)
         self.opt.state = self.opt.apply_update(self.opt.state, [grad])
         return loss

@@ -9,7 +9,8 @@ Phases, each printing one JSON line; any failure raises and exits
 nonzero, and only a run where every phase passed prints the last line,
 ``{"ok": true, "device": {...}}``. Phases 0-5 are the serving slice,
 phases 6-8 the ResNet training slice, phases 9-10 the LM training slice,
-phases 11-13 the ImageNet example's slice:
+phases 11-13 the ImageNet example's slice, phases 14-16 the Seq2Seq
+Transformer's:
 
 0. device — needs CUDA; prints the card's ``nvidia-smi`` name and power
    limit (also as a raw line of its own) and the torch / CUDA versions.
@@ -42,7 +43,16 @@ phases 11-13 the ImageNet example's slice:
    per-tensor L2 norm and ``torch._foreach_norm`` over the 161 tensors),
    ``rowmaxabs`` (exact), ``sgd`` at main_amp's flags (bit-equal; every
    flag combination bit-equal at a small size) and ``novograd``
-   (bit-equal; its whole step at L2 and L-inf norms).
+   (bit-equal; its whole step at L2 and L-inf norms); the translation
+   step's kernels: ``xent_fwd`` and ``xent_bwd`` over its fp32 logits
+   [16512, 37000] at label smoothing 0.1 (loss and lse within 1e-5
+   relative, dx bit-equal, two runs bit-equal;
+   ``F.cross_entropy`` and its backward beside them) and the three flash
+   kernels with the source's key-padding ``kv_bias`` at the encoder's
+   [1024, 128, 64] and the cross-attention's (Sq 129, Sk 128) shapes,
+   bf16, every head under the flash rule, masked keys getting exactly no
+   gradient (SDPA with the additive mask broadcast from [B, 1, 1, Sk]
+   beside them).
 3. dense — the serve_bench model at full width (8 layers, 1024 wide,
    8 heads, vocab 32768, bf16, random weights from ``torch.Generator``
    seed 0) behind ``ContinuousBatchingEngine(slots=8, max_len=1024,
@@ -87,9 +97,11 @@ phases 11-13 the ImageNet example's slice:
    kernel, one Adam); then two steps under ``torch.profiler``.
 10. lm_crosscheck — a small LM (2 layers, embed 128, 2 heads of 64,
     vocab 512, S 257, batch 2), three O2 steps with the kernels against
-    ``dispatch.backend("reference")``: the masters within 1.5 times
-    bf16's own effect on them (the key biases, whose gradient is zero
-    analytically, bounded apart); two kernel runs equal bit for bit.
+    ``dispatch.backend("reference")`` (``adam_crosscheck``): step 1's
+    flat gradient within 1.5 times bf16's own effect on it in mean and
+    max, the masters after 3 steps so in mean (those with a
+    rounding-level gradient left out: Adam moves them by about lr in
+    every run); two kernel runs equal bit for bit.
 11. imagenet_train — ``examples/imagenet/main_amp.py``'s step at its
     defaults on one card, at phase 6's full width and batch (ResNet-50,
     batch 256 at 224×224, so img/s compares with the LAMB step; main_amp's
@@ -119,7 +131,35 @@ phases 11-13 the ImageNet example's slice:
     effect on them, whichever is larger: at lr 0.1 a rounding moves the
     next loss further than LAMB's lr 1e-3 does); two kernel runs equal
     bit for bit, none launched in the plain runs.
-14. the ``{"kernels": [...]}`` line, then the ``ok`` line.
+14. seq2seq_train — ``examples/seq2seq/train_translation.py``'s step at
+    Transformer-base width on one card (``Seq2SeqTransformer``: 6 + 6
+    layers, 512 wide, 8 heads of 64, FFN 2048, shared vocabulary 37000,
+    attention "fast", dropout 0; random weights from ``torch.Generator``
+    seed 0): its make_batch at batch 128 × 128 (sources 64-128 tokens,
+    padded; ``RandomState(0)``), O2 bf16 over fp32 flat masters through
+    ``LMTrainer``, label smoothing 0.1, ``FusedAdam(5e-4, (0.9, 0.98),
+    1e-9)``: 3 warm-up and 10 timed steps: target tokens a second (the
+    non-pad targets, fairseq's wps) and all token slots a second, step ms
+    p50/p95, MFU from an analytic FLOP count (``s2s_flops``) against 989
+    TFLOP/s, peak memory, each kernel's launches a step (one of each xent
+    kernel, 18 of each flash kernel, 32 of each LayerNorm kernel, one
+    Adam), two profiled steps; losses finite, the first near ln 37000,
+    the first three falling; the plain witness (3 steps from the same
+    init under the plain versions, no kernel launched, losses within 1e-4
+    relative of the kernel path's).
+15. seq2seq_decode — ``greedy_decode`` of 8 held-out sources
+    (``RandomState(1234)``) to 130 tokens with the trained masters in
+    bf16: decoded tokens a second; BOS first and only PAD after EOS; the
+    first step's logits within atol 1e-2 of the plain versions' on the
+    same encoder memory, and through the whole path (the encoder's flash
+    kernels too) within 2 bf16 ulps of the largest logit; the plain
+    path's greedy streams decoded beside them and their agreement
+    reported.
+16. seq2seq_crosscheck — a small Seq2Seq Transformer (2 + 2 layers,
+    embed 256, 4 heads of 64, vocab 1000, source length 64, batch 8,
+    ragged), phase 10's ``adam_crosscheck`` with the translation step's
+    Adam and label smoothing.
+17. the ``{"kernels": [...]}`` line, then the ``ok`` line.
 
 Times are CUDA-event medians of single calls with the L2 cache flushed
 before each and the stream held busy, so host launch time is not counted.
@@ -1075,6 +1115,7 @@ def counters():
     from apex_tpu_torch.ops import layer_norm as LN
     from apex_tpu_torch.ops import multi_tensor as MT
     from apex_tpu_torch.ops import welford as WF
+    from apex_tpu_torch.ops import xentropy as XE
     return {"decode_attention": DA.decode_attention,
             "paged_decode_attention": DA.paged_decode_attention,
             "ln_fwd": LN.ln_fwd, "scale": MT.scale,
@@ -1086,7 +1127,8 @@ def counters():
             "flash_fwd": FA.flash_fwd, "flash_bwd_dq": FA.flash_bwd_dq,
             "flash_bwd_dkv": FA.flash_bwd_dkv, "rowsumsq": MT.rowsumsq,
             "rowmaxabs": MT.rowmaxabs, "sgd": MT.sgd,
-            "novograd": MT.novograd}
+            "novograd": MT.novograd, "xent_fwd": XE.xent_fwd,
+            "xent_bwd": XE.xent_bwd}
 
 
 def zero_counts() -> None:
@@ -1733,71 +1775,538 @@ def lm_train_phase(torch, model, params) -> tuple:
     return counts, row
 
 
-def lm_crosscheck_phase(torch, dispatch):
-    """A small LM (2 layers, embed 128, 2 heads of 64, vocab 512, S 257,
-    batch 2), three O2 bf16 steps with the kernels and with the plain
-    versions on the card: the kernel run's masters no farther from the
-    plain run's than 1.5 times bf16's own effect on them (the plain bf16
-    masters against the plain fp32 ones), in mean and in max; two kernel
-    runs give the same losses and masters bit for bit. Every layer's key
-    bias is left out of the bar and bounded apart: its gradient is zero
-    analytically (softmax is shift-invariant along a row), so each run
-    holds rounding noise there, which Adam's first steps turn into moves
-    of about lr either way."""
-    from apex_tpu_torch.models import TransformerLM
-    from apex_tpu_torch.ops import flat
+def adam_crosscheck(torch, dispatch, phase, model, params, batch,
+                    loss_kw, adam) -> dict:
+    """Three O2 bf16 ``LMTrainer`` steps of ``model`` on ``batch`` with the
+    kernels and with the plain versions on the card, and three plain fp32
+    ones. Step 1 starts every run from the same masters, so its flat
+    gradient holds the kernels' own effect: the kernel run's within 1.5
+    times bf16's (the plain bf16 gradient against the plain fp32 one), in
+    mean and in max. After 3 steps the masters within 1.5 times bf16's
+    effect in mean, leaving out those whose fp32 gradient at some step is
+    within 1e-7 of its largest entry (the key biases, zero analytically;
+    unused vocabulary rows): Adam turns rounding noise there into moves
+    of about lr either way, in every run, and caps the largest difference
+    of any master at about 2 × 3 × lr, so the masters' max is reported,
+    not held. Two kernel runs give the same losses and masters bit for
+    bit; no kernel launches in the plain runs."""
     from apex_tpu_torch.train import LMTrainer
 
-    lr = 1e-3
+    def run(dtype):
+        tr = LMTrainer(model, params, dtype=dtype, **adam)
+        grads, loss = [], []
+        for _ in range(3):
+            g, l_ = tr.loss_and_grad(*batch, **loss_kw)
+            grads.append(g.clone())
+            tr.opt.state = tr.opt.apply_update(tr.opt.state, [g])
+            loss.append(float(l_))
+        return tr.opt.state[0].master, grads, loss
+
+    mk, gk, loss_k = run(torch.bfloat16)
+    mk2, _, loss_k2 = run(torch.bfloat16)
+    with dispatch.backend("reference"):
+        zero_counts()
+        mr, gr, loss_r = run(torch.bfloat16)
+        mf, gf, loss_f = run(None)
+        torch.cuda.synchronize()
+        plain_launches = read_counts()
+    check(not any(plain_launches.values()),
+          f"{phase}: kernels launched in the plain runs {plain_launches}")
+    g_k, g_bf16 = (gk[0] - gr[0]).abs(), (gr[0] - gf[0]).abs()
+    noise = torch.zeros_like(mk, dtype=torch.bool)
+    for g in gf:
+        noise |= g.abs() <= 1e-7 * g.abs().max()
+    rest = ~noise
+    d_k, d_bf16 = (mk - mr).abs(), (mr - mf).abs()
+    errs = {"grad1_mean": float(g_k.mean()), "grad1_max": float(g_k.max()),
+            "grad1_bf16_mean": float(g_bf16.mean()),
+            "grad1_bf16_max": float(g_bf16.max()),
+            "grad1_abs_max": float(gf[0].abs().max()),
+            "mean": float(d_k[rest].mean()), "max": float(d_k[rest].max()),
+            "bf16_mean": float(d_bf16[rest].mean()),
+            "bf16_max": float(d_bf16[rest].max()),
+            "noise_max": float(d_k[noise].max()) if noise.any() else 0.0,
+            "noise_elements": int(noise.sum())}
+    repeat = loss_k == loss_k2 and bool(torch.equal(mk, mk2))
+    row = {"phase": phase, "steps": 3, "dtype": "bfloat16",
+           "err": errs, "loss_kernels": loss_k, "loss_kernels_again":
+           loss_k2, "loss_plain": loss_r, "loss_plain_f32": loss_f,
+           "repeat_equal": repeat}
+    emit(row)
+    check(errs["grad1_mean"] <= 1.5 * errs["grad1_bf16_mean"]
+          and errs["grad1_max"] <= 1.5 * errs["grad1_bf16_max"],
+          f"{phase}: step 1's gradients differ by {errs}")
+    check(errs["mean"] <= 1.5 * errs["bf16_mean"],
+          f"{phase}: masters differ by {errs}")
+    check(repeat, f"{phase}: two kernel runs differ {loss_k} vs {loss_k2}")
+    check(all(abs(a - b) <= 2e-2 for a, b in zip(loss_k, loss_r)),
+          f"{phase}: losses {loss_k} vs {loss_r}")
+    return row
+
+
+def lm_crosscheck_phase(torch, dispatch):
+    """A small LM (2 layers, embed 128, 2 heads of 64, vocab 512, S 257,
+    batch 2) under ``adam_crosscheck`` at lr 1e-3."""
+    from apex_tpu_torch.models import TransformerLM
+
     m = TransformerLM(vocab_size=512, max_seq_len=256, embed_dim=128,
                       num_heads=2, num_layers=2, attn_impl="fast",
                       head_chunk=512)
     params = m.init(torch.Generator().manual_seed(2))
     toks = torch.randint(0, 512, (2, 257), generator=torch.Generator()
                          .manual_seed(3)).cuda()
-    marks = flat.tree_map(torch.zeros_like, params)
-    for i in range(m.num_layers):
-        marks[f"layer_{i}"]["attn"]["in_proj_bias"][
-            m.embed_dim:2 * m.embed_dim] = 1.0
-    key_bias = flat.flatten(marks)[0] > 0
+    adam_crosscheck(torch, dispatch, "lm_crosscheck", m, params, (toks,),
+                    {}, {"lr": 1e-3})
 
-    def run(dtype):
-        tr = LMTrainer(m, params, lr=lr, dtype=dtype)
-        loss = [float(tr.step(toks)) for _ in range(3)]
-        return tr.opt.state[0].master, loss
 
-    mk, loss_k = run(torch.bfloat16)
-    mk2, loss_k2 = run(torch.bfloat16)
-    with dispatch.backend("reference"):
-        zero_counts()
-        mr, loss_r = run(torch.bfloat16)
-        mf, loss_f = run(None)
-        torch.cuda.synchronize()
-        plain_launches = read_counts()
-    check(not any(plain_launches.values()),
-          f"lm_crosscheck: kernels launched in the plain runs "
-          f"{plain_launches}")
-    d_k, d_bf16 = (mk - mr).abs(), (mr - mf).abs()
-    rest = ~key_bias
-    errs = {"mean": float(d_k[rest].mean()), "max": float(d_k[rest].max()),
-            "bf16_mean": float(d_bf16[rest].mean()),
-            "bf16_max": float(d_bf16[rest].max()),
-            "key_bias_max": float(d_k[key_bias].max()),
-            "key_bias_elements": int(key_bias.sum())}
-    repeat = loss_k == loss_k2 and bool(torch.equal(mk, mk2))
-    emit({"phase": "lm_crosscheck", "steps": 3, "dtype": "bfloat16",
-          "master_err": errs, "loss_kernels": loss_k, "loss_kernels_again":
-          loss_k2, "loss_plain": loss_r, "loss_plain_f32": loss_f,
+# -- phases 14-16: the Seq2Seq Transformer's training step -------------------
+
+# examples/seq2seq/train_translation.py's model at the Transformer-base
+# widths (its class defaults: 6 + 6 layers, 512 wide, 8 heads of 64, FFN
+# 2048, max_seq_len 512) with Vaswani et al.'s ~37000-token shared BPE
+# vocabulary, attention "fast", dropout 0 (fairseq transformer_wmt_en_de's
+# attention_dropout); its make_batch at B 128, seq_len 128
+S2S = dict(src_vocab_size=37000, tgt_vocab_size=37000, max_seq_len=512,
+           embed_dim=512, num_heads=8, num_encoder_layers=6,
+           num_decoder_layers=6, ffn_mult=4, pad_id=0, attn_impl="fast")
+S2S_BATCH, S2S_SEQ = 128, 128
+S2S_PAD, S2S_BOS, S2S_EOS, S2S_RESERVED = 0, 1, 2, 3
+# fairseq transformer_wmt_en_de's Adam and peak lr; Table 3's eps_ls
+S2S_ADAM = dict(lr=5e-4, betas=(0.9, 0.98), eps=1e-9)
+S2S_SMOOTHING = 0.1
+# launches of each kernel in one step: 6 encoder self-attentions, 6
+# decoder self- and 6 cross-attentions; 2 LayerNorms an encoder layer,
+# 3 a decoder layer, and the two final ones; one loss; one Adam
+S2S_PER_STEP = {"xent_fwd": 1, "xent_bwd": 1, "flash_fwd": 18,
+                "flash_bwd_dq": 18, "flash_bwd_dkv": 18, "ln_fwd": 32,
+                "ln_bwd": 32, "adam": 1}
+S2S_FAMILIES = (("xent kernels", ("xent_fwd_kernel", "xent_bwd_kernel")),
+                ) + LM_KERNEL_FAMILIES
+# the plain witness's 3 losses within this share of the kernel path's
+# (bf16 O2: the flash kernels round P and dS to bf16 where the plain
+# versions keep fp32). Read 3.8e-6, 2.1e-6, 2.5e-6 on an H100 80GB HBM3
+# at 700 W (PERF.md); the limit keeps 26 times the largest
+S2S_WITNESS_RTOL = 1e-4
+
+
+def s2s_batch(torch, rs, n: int, seq_len: int, vocab: int):
+    """train_translation.py's make_batch (:99-111): sources of uniform
+    length in [seq_len / 2, seq_len], padded; targets BOS, the reversed
+    source through the fixed permutation of RandomState(7), EOS."""
+    import numpy as np
+    perm = np.arange(vocab)
+    perm[S2S_RESERVED:] = np.random.RandomState(7).permutation(
+        perm[S2S_RESERVED:])
+    src = np.full((n, seq_len), S2S_PAD, np.int32)
+    tgt = np.full((n, seq_len + 2), S2S_PAD, np.int32)
+    for i in range(n):
+        ln = rs.randint(seq_len // 2, seq_len + 1)
+        s = rs.randint(S2S_RESERVED, vocab, ln)
+        src[i, :ln] = s
+        tgt[i, 0] = S2S_BOS
+        tgt[i, 1:1 + ln] = perm[s[::-1]]
+        tgt[i, 1 + ln] = S2S_EOS
+    return torch.from_numpy(src).cuda(), torch.from_numpy(tgt).cuda()
+
+
+def s2s_flops(c: dict, b: int, ts: int, tt: int) -> float:
+    """Analytic FLOPs of one training step (3 × the forward's products,
+    every token slot counted, padding included, as the step computes
+    them): encoder layer QKV 6·E², out 2·E², MLP 4·E·F per source token
+    and attention 4·Ts·E per source token; decoder layer self QKV and out
+    8·E², causal attention 4·E·(Tt+1)/2, cross q and out 4·E² per target
+    token and kv 4·E² per source token, cross attention 4·Ts·E, MLP
+    4·E·F; the head 2·E·V per target token."""
+    e, f, v = c["embed_dim"], c["ffn_mult"] * c["embed_dim"], \
+        c["tgt_vocab_size"]
+    enc = b * ts * (8 * e * e + 4 * e * f + 4 * ts * e)
+    dec = b * tt * (8 * e * e + 2 * e * (tt + 1) + 4 * e * e + 4 * ts * e
+                    + 4 * e * f) + b * ts * 4 * e * e
+    head = b * tt * 2 * e * v
+    fwd = c["num_encoder_layers"] * enc + c["num_decoder_layers"] * dec \
+        + head
+    return 3.0 * fwd
+
+
+def s2s_kernel_phase(torch, timer) -> dict:
+    """The Seq2Seq step's new kernel work at its shapes: the softmax
+    cross-entropy kernels over the loss's fp32 logits [B·Tt, V] =
+    [16512, 37000] at label smoothing 0.1, and the flash kernels with the
+    source's key-padding kv_bias at the encoder's self-attention shape
+    [B·H, Ts, D] = [1024, 128, 64] and the cross-attention's (Sq 129,
+    Sk 128), bf16, against their plain versions on the same inputs."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.ops import flash_attn as FA
+    from apex_tpu_torch.ops import xentropy as XE
+
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rows = {}
+    b, ts, tt = S2S_BATCH, S2S_SEQ, S2S_SEQ + 1
+    n, v = b * tt, S2S["tgt_vocab_size"]
+    eps = S2S_SMOOTHING
+    x = torch.randn(n, v, generator=gen, device="cuda") * 2
+    lab = torch.randint(S2S_RESERVED, v, (n,), generator=gen, device="cuda")
+    lab[::4] = S2S_PAD
+    lab[1] = v - 1
+    g = torch.where(lab == S2S_PAD, 0.0,
+                    torch.rand(n, generator=gen, device="cuda"))
+    loss, lse = XE.xent_fwd(x, lab, eps)
+    loss0, lse0 = XE.xent_fwd_plain(x, lab, eps)
+    dx = XE.xent_bwd(x, lab, lse, g, eps)
+    dx0 = XE.xent_bwd_plain(x, lab, lse, g, eps)
+    torch.cuda.synchronize()
+    # loss and lse within 1e-5 relative (the row's max and sums in another
+    # order); dx bit-equal: given lse, each element is the plain version's
+    # expf and _rn operations in its order
+    rel = max(float(((loss - loss0).abs() / loss0.abs()).max()),
+              float(((lse - lse0).abs() / lse0.abs()).max()))
+    dx_max = float((dx - dx0).abs().max())
+    dx_equal = bool(torch.equal(dx, dx0))
+    repeat = bool(torch.equal(XE.xent_fwd(x, lab, eps)[0], loss)) and \
+        bool(torch.equal(XE.xent_bwd(x, lab, lse, g, eps), dx))
+    emit({"phase": "xent_tol", "loss_lse_max_rel_err": rel,
+          "loss_max_abs_err": float((loss - loss0).abs().max()),
+          "dx_max_abs_err": dx_max, "dx_bit_equal": dx_equal,
           "repeat_equal": repeat})
-    check(errs["mean"] <= 1.5 * errs["bf16_mean"]
-          and errs["max"] <= 1.5 * errs["bf16_max"],
-          f"lm_crosscheck: masters differ by {errs}")
-    check(errs["key_bias_max"] <= 2 * 3 * 1.5 * lr,
-          f"lm_crosscheck: key biases differ by {errs['key_bias_max']}")
-    check(repeat, f"lm_crosscheck: two kernel runs differ {loss_k} vs "
-                  f"{loss_k2}")
-    check(all(abs(a - b) <= 2e-2 for a, b in zip(loss_k, loss_r)),
-          f"lm_crosscheck: losses {loss_k} vs {loss_r}")
+    check(rel <= 1e-5, f"xent_fwd: loss/lse off by {rel} relative")
+    check(dx_equal, f"xent_bwd: dx differs from the plain version by up "
+                    f"to {dx_max}")
+    check(repeat, "xent: two runs on the same inputs differ")
+    del dx0
+    lab64 = lab.long()
+    xl = x.clone().requires_grad_(True)
+    lib_loss = F.cross_entropy(xl, lab64, label_smoothing=eps,
+                               ignore_index=S2S_PAD, reduction="none")
+    nbytes = n * v * 4
+    b_ms, b_by = bound(nbytes + 8 * n + 8 * n, 6 * n * v)
+    fwd = dict(kernel="xent_fwd", dtype="float32", shape=[n, v],
+               smoothing=eps, max_abs_err=float((loss - loss0).abs().max()),
+               max_rel_err=rel, tol="loss, lse: 1e-5 relative",
+               per_step=S2S_PER_STEP["xent_fwd"],
+               ms=timer(lambda: XE.xent_fwd(x, lab, eps)),
+               plain_ms=timer(lambda: XE.xent_fwd_plain(x, lab, eps)),
+               library_ms=timer(lambda: F.cross_entropy(
+                   x, lab64, label_smoothing=eps, ignore_index=S2S_PAD,
+                   reduction="none")),
+               library_call="F.cross_entropy(label_smoothing=0.1, "
+                            "ignore_index=0, reduction='none')",
+               bound_ms=b_ms, bound_by=b_by,
+               host_us=host_us(torch, lambda: XE.xent_fwd(x, lab, eps)))
+    b_ms, b_by = bound(2 * nbytes + 16 * n, 7 * n * v)
+    bwd = dict(kernel="xent_bwd", dtype="float32", shape=[n, v],
+               smoothing=eps, max_abs_err=dx_max, tol="dx: bit-equal",
+               repeat_equal=repeat, per_step=S2S_PER_STEP["xent_bwd"],
+               ms=timer(lambda: XE.xent_bwd(x, lab, lse, g, eps)),
+               plain_ms=timer(lambda: XE.xent_bwd_plain(x, lab, lse, g,
+                                                        eps)),
+               library_ms=timer(lambda: torch.autograd.grad(
+                   lib_loss, xl, g, retain_graph=True)),
+               library_call="the backward of that F.cross_entropy",
+               bound_ms=b_ms, bound_by=b_by,
+               host_us=host_us(torch, lambda: XE.xent_bwd(
+                   x, lab, lse, g, eps)))
+    for r in (fwd, bwd):
+        emit({"phase": "kernels", **r})
+        rows[(r["kernel"], "float32")] = r
+    del x, xl, lib_loss, dx, loss0, lse0
+
+    # flash with the key-padding kv_bias: the sources' lengths as
+    # make_batch draws them (uniform in [64, 128])
+    H = S2S["num_heads"]
+    D = S2S["embed_dim"] // H
+    BH = b * H
+    lengths = torch.from_numpy(np.random.RandomState(0).randint(
+        ts // 2, ts + 1, b)).cuda()
+    keep = torch.arange(ts, device="cuda")[None, :] < lengths[:, None]
+    kvb = torch.where(keep, 0.0, FA.NEG_INF).repeat_interleave(H, dim=0)
+    live_keys = int(lengths.sum()) * H        # summed over bh
+    mask4 = torch.where(keep, 0.0, FA.NEG_INF).to(torch.bfloat16)[
+        :, None, None, :]
+
+    def rnd(s):
+        return torch.randn(BH, s, D, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    for shape, sq in (("encoder", ts), ("cross", tt)):
+        q, do, k, v_ = rnd(sq), rnd(sq), rnd(ts), rnd(ts)
+        kw = dict(causal=False, scale=D ** -0.5, kv_bias=kvb)
+        o, lse = FA.flash_fwd(q, k, v_, **kw)
+        delta = FA.flash_delta(o, do)
+        dq = FA.flash_bwd_dq(q, k, v_, do, lse, delta, **kw)
+        dk, dv = FA.flash_bwd_dkv(q, k, v_, do, lse, delta, **kw)
+        o0, lse0 = FA.reference_attention(q, k, v_, return_lse=True, **kw)
+        dq0, dk0, dv0 = FA.flash_bwd_plain(q, k, v_, do, lse, delta, **kw)
+        torch.cuda.synchronize()
+        errs = {w: flash_err(torch, a, b0) for w, a, b0 in
+                (("o", o, o0), ("dq", dq, dq0), ("dk", dk, dk0),
+                 ("dv", dv, dv0))}
+        lse_err = float((lse - lse0).abs().max())
+        emit({"phase": "flash_tol", "shape": shape, "kv_bias": True,
+              "lse_err": lse_err, **errs})
+        check(lse_err <= 1e-3, f"flash kv_bias {shape} lse: {lse_err}")
+        for w, e in errs.items():
+            check(e["used"] <= 1.0, f"flash kv_bias {shape} {w}: {e}")
+        # dk, dv of masked keys are exactly zero
+        masked = ~keep.repeat_interleave(H, dim=0)
+        check(not dk[masked].any() and not dv[masked].any(),
+              f"flash kv_bias {shape}: masked keys got a gradient")
+        q4, k4, v4, do4 = (t.view(b, H, -1, D) for t in (q, k, v_, do))
+        ql, kl, vl = (t.detach().clone().requires_grad_(True)
+                      for t in (q4, k4, v4))
+        lo = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask4)
+        lib_bwd = timer(lambda: torch.autograd.grad(
+            lo, (ql, kl, vl), do4, retain_graph=True))
+        pairs = sq * live_keys               # scores the data needs
+        sz_q, sz_k = BH * sq * D * 2, BH * ts * D * 2
+        common = dict(dtype="bfloat16", shape=[BH, sq, ts, D],
+                      kv_bias="[B·H, Sk] key padding", path_shape=shape,
+                      per_step=6, causal=False)
+        b_ms, b_by = bound(2 * sz_q + 2 * sz_k + 4 * BH * ts
+                           + 4 * BH * sq, 4 * D * pairs, BF16_DENSE_OPS_S)
+        r_fwd = dict(kernel="flash_fwd", **common,
+                     max_abs_err=errs["o"]["max_abs_err"],
+                     tol_used=errs["o"]["used"], lse_err=lse_err,
+                     ms=timer(lambda: FA.flash_fwd(q, k, v_, **kw)),
+                     plain_ms=timer(lambda: FA.reference_attention(
+                         q, k, v_, return_lse=True, **kw)),
+                     library_ms=timer(
+                         lambda: F.scaled_dot_product_attention(
+                             q4, k4, v4, attn_mask=mask4)),
+                     bound_ms=b_ms, bound_by=b_by,
+                     host_us=host_us(torch, lambda: FA.flash_fwd(
+                         q, k, v_, **kw)))
+        plain_bwd_ms = timer(lambda: FA.flash_bwd_plain(
+            q, k, v_, do, lse, delta, **kw))
+        b_ms, b_by = bound(3 * sz_q + 2 * sz_k + 4 * BH * ts
+                           + 8 * BH * sq, 6 * D * pairs, BF16_DENSE_OPS_S)
+        r_dq = dict(kernel="flash_bwd_dq", **common,
+                    max_abs_err=errs["dq"]["max_abs_err"],
+                    tol_used=errs["dq"]["used"],
+                    ms=timer(lambda: FA.flash_bwd_dq(
+                        q, k, v_, do, lse, delta, **kw)),
+                    plain_ms=plain_bwd_ms, library_ms=lib_bwd,
+                    library_covers="dq, dk and dv (one SDPA backward)",
+                    plain_covers="dq, dk and dv (one flash_bwd_plain)",
+                    bound_ms=b_ms, bound_by=b_by,
+                    host_us=host_us(torch, lambda: FA.flash_bwd_dq(
+                        q, k, v_, do, lse, delta, **kw)))
+        b_ms, b_by = bound(2 * sz_q + 4 * sz_k + 4 * BH * ts
+                           + 8 * BH * sq, 8 * D * pairs, BF16_DENSE_OPS_S)
+        r_dkv = dict(kernel="flash_bwd_dkv", **common,
+                     max_abs_err=max(errs["dk"]["max_abs_err"],
+                                     errs["dv"]["max_abs_err"]),
+                     tol_used=max(errs["dk"]["used"], errs["dv"]["used"]),
+                     ms=timer(lambda: FA.flash_bwd_dkv(
+                         q, k, v_, do, lse, delta, **kw)),
+                     plain_ms=plain_bwd_ms, library_ms=lib_bwd,
+                     library_covers="dq, dk and dv (one SDPA backward)",
+                     plain_covers="dq, dk and dv (one flash_bwd_plain)",
+                     bound_ms=b_ms, bound_by=b_by,
+                     host_us=host_us(torch, lambda: FA.flash_bwd_dkv(
+                         q, k, v_, do, lse, delta, **kw)))
+        for r in (r_fwd, r_dq, r_dkv):
+            emit({"phase": "kernels", **r})
+            rows[(r["kernel"], "kv_bias", shape)] = r
+        del q, k, v_, do, o, dq, dk, dv, o0, dq0, dk0, dv0, ql, kl, vl, lo
+    return rows
+
+
+def s2s_model():
+    from apex_tpu_torch.models import Seq2SeqTransformer
+    return Seq2SeqTransformer(**S2S)
+
+
+def s2s_train_phase(torch, model, params) -> tuple:
+    """The translation example's step at Transformer-base width on one
+    card: O2 bf16 over fp32 flat masters through ``LMTrainer``, label
+    smoothing 0.1, FusedAdam(5e-4, (0.9, 0.98), 1e-9), one make_batch
+    batch reused every step; 3 warm-up and 10 timed steps, two profiled
+    ones, and the plain witness: 3 steps from the same init under the
+    plain versions, no kernel launched, losses within S2S_WITNESS_RTOL."""
+    import math
+
+    import numpy as np
+
+    from apex_tpu_torch.ops import dispatch
+    from apex_tpu_torch.train import LMTrainer
+
+    warm, timed = 3, 10
+    src, tgt = s2s_batch(torch, np.random.RandomState(0), S2S_BATCH,
+                         S2S_SEQ, S2S["src_vocab_size"])
+
+    def make():
+        return LMTrainer(model, params, **S2S_ADAM)
+
+    def step():
+        return tr.step(src, tgt, label_smoothing=S2S_SMOOTHING)
+
+    tr = make()
+    r = timed_steps(torch, step, warm, timed)
+    counts = r["counts"]
+    ts, tt = src.shape[1], tgt.shape[1] - 1
+    real_tgt = int((tgt[:, 1:] != S2S_PAD).sum())
+    real_src = int((src != S2S_PAD).sum())
+    slots = S2S_BATCH * (ts + tt)
+    flops = s2s_flops(S2S, S2S_BATCH, ts, tt)
+    prof = profile_steps(torch, step, S2S_FAMILIES)
+    master, table = tr.opt.state[0].master, tr.table
+    tr = None                           # the card's memory for the witness
+    with dispatch.backend("reference"):
+        wt = make()
+        zero_counts()
+        w_loss = [float(wt.step(src, tgt, label_smoothing=S2S_SMOOTHING))
+                  for _ in range(3)]
+        torch.cuda.synchronize()
+        w_launches = read_counts()
+        wt = None
+    loss = r["loss"]
+    w_rel = [abs(a - b) / abs(b) for a, b in zip(loss[:3], w_loss)]
+    row = {"phase": "seq2seq_train", "model": "Seq2SeqTransformer",
+           **{k: v for k, v in S2S.items()}, "batch": S2S_BATCH,
+           "src_len": ts, "tgt_len": tt, "dtype": "bfloat16",
+           "masters": "float32", "label_smoothing": S2S_SMOOTHING,
+           "optimizer": f"FusedAdam({S2S_ADAM})", **window_row(r, timed),
+           "params": table.total,
+           "real_src_tokens_per_step": real_src,
+           "real_tgt_tokens_per_step": real_tgt,
+           "token_slots_per_step": slots,
+           "tgt_tok_per_s": real_tgt * timed / r["wall"],
+           "slot_tok_per_s": slots * timed / r["wall"],
+           "step_tflop": flops / 1e12,
+           "mfu": flops * timed / r["wall"] / BF16_DENSE_OPS_S,
+           "ln_vocab": math.log(S2S["tgt_vocab_size"]),
+           "launches": {k: counts[k] for k in S2S_PER_STEP},
+           "launches_per_step": {k: counts[k] / timed
+                                 for k in S2S_PER_STEP},
+           "profile": prof,
+           "plain_witness": {"losses": w_loss, "rel_err": w_rel,
+                             "rtol": S2S_WITNESS_RTOL,
+                             "launches": w_launches}}
+    emit(row)
+    check(all(np.isfinite(loss)), f"seq2seq_train: non-finite {loss}")
+    check(abs(loss[0] - math.log(S2S["tgt_vocab_size"]))
+          <= 0.1 * math.log(S2S["tgt_vocab_size"]),
+          f"seq2seq_train: first loss {loss[0]} is not near ln V")
+    check(loss[0] > loss[1] > loss[2],
+          f"seq2seq_train: the first three losses do not fall {loss}")
+    check_counts("seq2seq_train", counts,
+                 {k: n * timed for k, n in S2S_PER_STEP.items()})
+    check(not any(w_launches.values()),
+          f"seq2seq_train witness: kernels launched {w_launches}")
+    check(max(w_rel) <= S2S_WITNESS_RTOL,
+          f"seq2seq_train witness: kernel losses {loss[:3]} against plain "
+          f"{w_loss}")
+    return counts, master, table
+
+
+def s2s_decode_phase(torch, model, master, table) -> dict:
+    """``greedy_decode`` of 8 held-out sources (make_batch from
+    RandomState(1234)) to max_len 130 with the trained masters cast to
+    bf16: decoded tokens a second; every row opens with BOS and is all
+    PAD after its first EOS. The first decode step's logits with the
+    kernels against the plain versions': on the same encoder memory (the
+    step's own kernels are the LayerNorms) within atol 1e-2, and through
+    the whole path (the encoder's six flash forwards with ``kv_bias``
+    too) within 2 bf16 ulps of the largest logit: the logits are bf16,
+    and the kernels' bf16 P moves each by rounding steps. The plain
+    path's greedy streams are decoded too and their agreement reported
+    (a near tie may turn a token)."""
+    import numpy as np
+
+    from apex_tpu_torch.ops import dispatch, flat
+
+    params = flat.unflatten(master, table, dtype=torch.bfloat16)
+    src, _ = s2s_batch(torch, np.random.RandomState(1234), 8, S2S_SEQ,
+                       S2S["src_vocab_size"])
+    max_len = S2S_SEQ + 2
+
+    def decode():
+        return model.greedy_decode(params, src, bos_id=S2S_BOS,
+                                   eos_id=S2S_EOS, max_len=max_len)
+
+    model.greedy_decode(params, src[:2], bos_id=S2S_BOS, eos_id=S2S_EOS,
+                        max_len=4)        # first use of each product
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    out = decode()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    o = out.cpu().numpy()
+    real = 0
+    for row_ in o:
+        eos = np.nonzero(row_ == S2S_EOS)[0]
+        end = int(eos[0]) if eos.size else max_len - 1
+        check(row_[0] == S2S_BOS, f"seq2seq_decode: row opens {row_[0]}")
+        check(not row_[end + 1:].any(),
+              "seq2seq_decode: tokens after EOS are not PAD")
+        real += end
+
+    @torch.no_grad()
+    def first_step(mem=None):
+        if mem is None:
+            mem = model.encode(params, src)
+        cross = model._cross_kv(params, mem)
+        caches = model._self_caches(src.shape[0], max_len,
+                                    torch.bfloat16, src.device)
+        tok = torch.full((src.shape[0],), S2S_BOS, dtype=torch.int32,
+                         device=src.device)
+        logits, _ = model._decode_one(params, tok, 0, caches, cross,
+                                      model._src_bias(src))
+        return logits, mem
+
+    logits, mem = first_step()
+    with dispatch.backend("reference"):
+        step_plain, _ = first_step(mem)
+        path_plain, _ = first_step()
+        o_plain = decode().cpu().numpy()
+        torch.cuda.synchronize()
+    step_err = float((logits - step_plain).abs().max())
+    path_err = float((logits - path_plain).abs().max())
+    top = path_plain.abs().max()
+    path_lim = 2 * float(bf16_ulp(torch, top))
+    row = {"phase": "seq2seq_decode", "sources": 8, "max_len": max_len,
+           "seconds": secs, "steps": max_len - 1,
+           "decoded_tok_per_s": 8 * (max_len - 1) / secs,
+           "real_tok_per_s": real / secs, "real_tokens": real,
+           "first_step_logits_err": step_err,
+           "first_step_logits_err_whole_path": path_err,
+           "whole_path_limit": path_lim, "logits_max_abs": float(top),
+           "plain_streams_equal_rows": int((o == o_plain).all(1).sum()),
+           "plain_streams_equal_tokens": float((o == o_plain).mean()),
+           "launches": {k: counts[k] for k in ("flash_fwd", "ln_fwd")}}
+    emit(row)
+    check(step_err <= 1e-2,
+          f"seq2seq_decode: first step's logits off by {step_err}")
+    check(path_err <= path_lim,
+          f"seq2seq_decode: first step's logits through the whole path "
+          f"off by {path_err}, limit {path_lim}")
+    check(counts["flash_fwd"] == S2S["num_encoder_layers"]
+          and counts["ln_fwd"] > 0,
+          f"seq2seq_decode: launches {counts}")
+    return counts
+
+
+def s2s_crosscheck_phase(torch, dispatch):
+    """A small Seq2Seq Transformer (2 + 2 layers, embed 256, 4 heads of
+    64, vocab 1000, source length 64, batch 8, ragged) under
+    ``adam_crosscheck`` with the translation step's Adam and label
+    smoothing."""
+    import numpy as np
+
+    from apex_tpu_torch.models import Seq2SeqTransformer
+
+    cfg = dict(S2S, src_vocab_size=1000, tgt_vocab_size=1000,
+               max_seq_len=128, embed_dim=256, num_heads=4,
+               num_encoder_layers=2, num_decoder_layers=2)
+    m = Seq2SeqTransformer(**cfg)
+    params = m.init(torch.Generator().manual_seed(2))
+    src, tgt = s2s_batch(torch, np.random.RandomState(3), 8, 64, 1000)
+    adam_crosscheck(torch, dispatch, "seq2seq_crosscheck", m, params,
+                    (src, tgt), {"label_smoothing": S2S_SMOOTHING}, S2S_ADAM)
 
 
 def main() -> int:
@@ -1852,6 +2361,8 @@ def main() -> int:
     # the ImageNet step's optimizer kernels over the RN50 master store
     rows.update(optimizer_kernel_phase(torch, timer,
                                        flat.make_table(rn50_params)))
+    # the Seq2Seq step's softmax cross-entropy and kv_bias flash kernels
+    rows.update(s2s_kernel_phase(torch, timer))
 
     # 3-4. the serving slice, dense then paged
     model = TransformerLM(vocab_size=32768, max_seq_len=1024,
@@ -1905,7 +2416,17 @@ def main() -> int:
     # 13. the ImageNet step with the kernels against the plain versions
     imagenet_crosscheck_phase(torch, dispatch)
 
-    # 14. the kernels line, then the contract line
+    # 14-16. the Seq2Seq Transformer's translation step, its greedy
+    # decode and the small model against the plain versions
+    s2s = s2s_model()
+    s2s_params = s2s.init(torch.Generator().manual_seed(0))
+    scounts, s2s_master, s2s_table = s2s_train_phase(torch, s2s, s2s_params)
+    del s2s_params
+    s2s_dec_counts = s2s_decode_phase(torch, s2s, s2s_master, s2s_table)
+    del s2s_master
+    s2s_crosscheck_phase(torch, dispatch)
+
+    # 17. the kernels line, then the contract line
     launches = {k: dcounts[k] + pcounts[k] for k in dcounts}
     launches.update({k: tcounts[k] for k in TRAIN_KERNELS})
     for k in LM_PER_STEP:                # ln_fwd: serving and training
@@ -1913,6 +2434,8 @@ def main() -> int:
     for counts in icounts.values():      # scale and BN: both RN50 steps
         for k in TRAIN_KERNELS + IMAGENET_KERNELS:
             launches[k] += counts[k]
+    for k in S2S_PER_STEP:               # the translation step and decode
+        launches[k] += scounts[k] + s2s_dec_counts[k]
     sources = {
         "decode_attention": (
             "apex_tpu_torch/ops/cuda/csrc/decode_attn.cu",
@@ -1956,6 +2479,10 @@ def main() -> int:
                 "apex_tpu/ops/pallas/multi_tensor.py:354"),
         "novograd": ("apex_tpu_torch/ops/cuda/csrc/multi_tensor.cu",
                      "apex_tpu/ops/pallas/multi_tensor.py:393"),
+        "xent_fwd": ("apex_tpu_torch/ops/cuda/csrc/xentropy.cu",
+                     "apex_tpu/ops/pallas/xentropy.py:55"),
+        "xent_bwd": ("apex_tpu_torch/ops/cuda/csrc/xentropy.cu",
+                     "apex_tpu/ops/pallas/xentropy.py:131"),
     }
     row_keys = {"decode_attention": ("decode_attention", "bfloat16"),
                 "paged_decode_attention": ("paged_decode_attention",
@@ -1977,17 +2504,27 @@ def main() -> int:
                 "flash_bwd_dq": ("flash_bwd_dq", "bfloat16"),
                 "flash_bwd_dkv": ("flash_bwd_dkv", "bfloat16"),
                 # the ImageNet step's optimizer kernels over RN50's buffer
-                **{k: (k, "float32") for k in IMAGENET_KERNELS}}
+                **{k: (k, "float32") for k in IMAGENET_KERNELS},
+                # the translation step's loss over its fp32 logits
+                "xent_fwd": ("xent_fwd", "float32"),
+                "xent_bwd": ("xent_bwd", "float32")}
     kernels = []
     for name, (src, repl) in sources.items():
         r = rows[row_keys[name]]
-        kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": repl, "launches": launches[name],
-                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"],
-                        "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"],
-                        "library_ms": r["library_ms"]})
+        entry = {"name": name, "route": "cuda", "source": src,
+                 "replaces": repl, "launches": launches[name],
+                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                 "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+        if name.startswith("flash_"):
+            # the same kernels with the source's key-padding kv_bias, at
+            # the translation step's encoder and cross-attention shapes
+            entry["kv_bias"] = {
+                shape: {k: rows[(name, "kv_bias", shape)][k] for k in
+                        ("shape", "max_abs_err", "ms", "plain_ms",
+                         "bound_ms", "bound_by", "library_ms")}
+                for shape in ("encoder", "cross")}
+        kernels.append(entry)
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "nvidia_smi": nvidia_smi(
               "clocks.sm,power.draw,power.limit,temperature.gpu")})

@@ -484,7 +484,9 @@ def test_flash_wrappers_refuse_what_the_kernels_do_not_take(card):
         x = torch.zeros(2, 16, 32, device=card, dtype=torch.bfloat16)
         FA.flash_fwd(x, x, x)
     with pytest.raises(NotImplementedError, match="item 15"):
-        flash_attention(q, q, q, kv_bias=torch.zeros(2, 16, device=card))
+        flash_attention(q, q, q, dropout_rate=0.1)
+    with pytest.raises(ValueError, match="kv_bias"):
+        FA.flash_fwd(q, q, q, kv_bias=torch.zeros(3, 16, device=card))
     with pytest.raises(ValueError, match="fp32"):
         FA.flash_bwd_dq(q, q, q, q, torch.zeros(2, 16, device=card),
                         torch.zeros(2, 15, device=card), causal=True,
@@ -694,3 +696,197 @@ def test_imagenet_trainer_through_the_kernels_matches_plain(card, case):
         assert [f.launches for f in fns] == again
     torch.testing.assert_close(gs.master, gs0.master, atol=1e-4, rtol=0)
     assert bool(torch.isfinite(losses).all()) and losses[-1] < losses[0]
+
+
+# -- the seq2seq slice: softmax cross-entropy, kv_bias flash ----------------
+
+
+@pytest.mark.parametrize("n,v", [(0, 37), (1, 1), (37, 37), (64, 1001),
+                                 (40, 4096), (33, 37000)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("smoothing", [0.0, 0.1])
+def test_xent_kernels_match_plain_and_repeat(card, n, v, dtype, smoothing):
+    """Loss and lse within 1e-5 relative of the plain versions (the row's
+    sums in another order); dx bit-equal to the plain version's in fp32
+    and bf16 (given lse, each element is the same expf and _rn
+    operations, then one round to nearest); a label at V - 1, one
+    outside [0, V); int32 and int64 labels; two runs equal bit for
+    bit."""
+    from apex_tpu_torch.ops import xentropy as XE
+    g = torch.Generator(device=card).manual_seed(n + v)
+    x = (torch.randn(n, v, generator=g, device=card) * 3).to(dtype)
+    lab = torch.randint(0, v, (n,), generator=g, device=card)
+    if n > 2:
+        lab[1], lab[2] = v - 1, -1
+    gr = torch.randn(n, generator=g, device=card)
+    for labels in (lab, lab.to(torch.int32)):
+        loss, lse = XE.xent_fwd(x, labels, smoothing)
+        loss0, lse0 = XE.xent_fwd_plain(x, labels, smoothing)
+        torch.testing.assert_close(loss, loss0, atol=1e-5, rtol=1e-5)
+        torch.testing.assert_close(lse, lse0, atol=1e-5, rtol=1e-5)
+        dx = XE.xent_bwd(x, labels, lse, gr, smoothing)
+        dx0 = XE.xent_bwd_plain(x, labels, lse, gr, smoothing)
+        assert dx.dtype == dtype and dx.shape == (n, v)
+        assert torch.equal(dx, dx0), float((dx.float() - dx0.float())
+                                           .abs().max())
+        again = XE.xent_fwd(x, labels, smoothing)
+        assert torch.equal(again[0], loss) and torch.equal(again[1], lse)
+        assert torch.equal(XE.xent_bwd(x, labels, lse, gr, smoothing), dx)
+
+
+def test_xent_kernels_read_a_strided_view(card):
+    """Logits that are the first V columns of a wider buffer (a row stride
+    that is not V) give the bits of a contiguous copy."""
+    from apex_tpu_torch.ops import xentropy as XE
+    g = torch.Generator(device=card).manual_seed(3)
+    wide = torch.randn(9, 1003, generator=g, device=card)
+    x = wide[:, :1000]
+    lab = torch.randint(0, 1000, (9,), generator=g, device=card)
+    gr = torch.randn(9, generator=g, device=card)
+    got = XE.xent_fwd(x, lab, 0.1)
+    want = XE.xent_fwd(x.contiguous(), lab, 0.1)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert torch.equal(XE.xent_bwd(x, lab, got[1], gr, 0.1),
+                       XE.xent_bwd(x.contiguous(), lab, got[1], gr, 0.1))
+
+
+def test_xent_wrappers_refuse_what_the_kernels_do_not_take(card):
+    from apex_tpu_torch.ops import xentropy as XE
+    x = torch.zeros(4, 8, device=card)
+    lab = torch.zeros(4, dtype=torch.long, device=card)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        XE.xent_fwd(x.half(), lab, 0.0)
+    with pytest.raises(ValueError, match="labels"):
+        XE.xent_fwd(x, lab.float(), 0.0)
+    with pytest.raises(ValueError, match="V >= 1"):
+        XE.xent_fwd(torch.zeros(4, 0, device=card), lab, 0.0)
+    with pytest.raises(ValueError, match="g"):
+        XE.xent_bwd(x, lab, torch.zeros(4, device=card),
+                    torch.zeros(3, device=card), 0.0)
+
+
+@pytest.mark.parametrize("bh,sq,sk,d,causal,shared", [
+    (3, 40, 40, 64, True, False), (4, 129, 128, 64, False, False),
+    (2, 257, 257, 128, False, True), (4, 129, 129, 64, True, False),
+    (2, 1, 70, 64, False, False)])
+def test_flash_kv_bias_kernels_match_plain(card, bh, sq, sk, d, causal,
+                                           shared):
+    """The three kernels with a per-key bias (key-padding masks plus small
+    finite values), shared or per bh, bh 0 masking every key: the
+    per-element rule of ``_flash_close``; the fully masked rows give
+    o = 0, lse = NEG_INF and no gradient, as the plain versions."""
+    from apex_tpu_torch.ops import flash_attn as FA
+    g = torch.Generator(device=card).manual_seed(sq + sk + bh)
+
+    def rnd(*s):
+        return torch.randn(*s, generator=g, device=card).to(torch.bfloat16)
+
+    q, do = rnd(bh, sq, d), rnd(bh, sq, d)
+    k, v = rnd(bh, sk, d), rnd(bh, sk, d)
+    dlse = torch.randn(bh, sq, generator=g, device=card)
+    rows = 1 if shared else bh
+    lengths = torch.randint(sk // 2, sk + 1, (rows,), generator=g,
+                            device=card)
+    if not shared:
+        lengths[0] = 0
+    keep = torch.arange(sk, device=card)[None, :] < lengths[:, None]
+    kvb = torch.where(keep, torch.randn(rows, sk, generator=g, device=card)
+                      * 0.5, torch.full((rows, sk), FA.NEG_INF,
+                                        device=card))
+    kw = dict(causal=causal, scale=d ** -0.5, kv_bias=kvb)
+    o, lse = FA.flash_fwd(q, k, v, **kw)
+    o0, lse0 = FA.reference_attention(q, k, v, return_lse=True, **kw)
+    _flash_close(o, o0)
+    live = lse0 > FA.NEG_INF * 0.5
+    assert float(torch.where(live, (lse - lse0).abs(), 0.0).max()) <= 1e-3
+    assert torch.equal(lse[~live], lse0[~live]) and not o[~live].any()
+    delta = FA.flash_delta(o, do, dlse)
+    dq = FA.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = FA.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    dq0, dk0, dv0 = FA.flash_bwd_plain(q, k, v, do, lse, delta, **kw)
+    for a, b in ((dq, dq0), (dk, dk0), (dv, dv0)):
+        _flash_close(a, b)
+    if not shared:
+        assert not (dq[0].any() or dk[0].any() or dv[0].any())
+    assert torch.equal(FA.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)[0],
+                       dk)
+    assert torch.equal(FA.flash_bwd_dq(q, k, v, do, lse, delta, **kw), dq)
+
+
+def test_lm_full_logits_loss_through_the_kernels_matches_plain(card):
+    """``TransformerLM(head_chunk=0).loss`` runs the softmax cross-entropy
+    kernels once each a step; its loss and gradients are within 1e-4 of
+    the plain versions' on the card (f32)."""
+    from apex_tpu_torch.models import TransformerLM
+    from apex_tpu_torch.ops import xentropy as XE
+    m = TransformerLM(vocab_size=1000, max_seq_len=64, embed_dim=128,
+                      num_heads=2, num_layers=2, attn_impl="default")
+    params = {k: v for k, v in m.init(0).items()}
+    toks = torch.randint(0, 1000, (2, 33), generator=torch.Generator()
+                         .manual_seed(2)).to(card)
+
+    def run():
+        p = {k: v for k, v in params.items()}
+        emb = p["tok_emb"].clone().requires_grad_(True)
+        p["tok_emb"] = emb
+        loss = m.loss(p, toks)
+        (g,) = torch.autograd.grad(loss, emb)
+        return loss, g
+
+    before = XE.xent_fwd.launches, XE.xent_bwd.launches
+    loss, g = run()
+    assert (XE.xent_fwd.launches - before[0],
+            XE.xent_bwd.launches - before[1]) == (1, 1)
+    with dispatch.backend("reference"):
+        loss0, g0 = run()
+    torch.testing.assert_close(loss, loss0, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(g, g0, atol=1e-4, rtol=1e-4)
+
+
+def test_seq2seq_trainer_through_the_kernels_matches_plain(card):
+    """Three bf16 O2 steps of a small Seq2Seq Transformer (ragged sources,
+    label smoothing 0.1) with the kernels and with the plain versions on
+    the card: every kernel of the step launched (per step one of each
+    xent kernel, three of each flash kernel per decoder layer and one per
+    encoder layer, 2·enc + 3·dec + 2 LayerNorms forward and backward, one
+    Adam), none in the plain run, losses finite, falling and close to
+    the plain run's, and the same bits when run twice."""
+    from apex_tpu_torch.models import Seq2SeqTransformer
+    from apex_tpu_torch.ops import flash_attn as FA
+    from apex_tpu_torch.ops import multi_tensor as MT
+    from apex_tpu_torch.ops import xentropy as XE
+    from apex_tpu_torch.train import LMTrainer
+    m = Seq2SeqTransformer(src_vocab_size=500, tgt_vocab_size=500,
+                           max_seq_len=64, embed_dim=128, num_heads=2,
+                           num_encoder_layers=2, num_decoder_layers=1,
+                           attn_impl="fast")
+    params = m.init(0)
+    g = torch.Generator().manual_seed(1)
+    src = torch.randint(3, 500, (4, 40), generator=g)
+    tgt = torch.randint(3, 500, (4, 42), generator=g)
+    for i, n in enumerate((40, 31, 17, 5)):
+        src[i, n:] = 0
+        tgt[i, n + 2:] = 0
+    src, tgt = src.to(card), tgt.to(card)
+
+    def run():
+        tr = LMTrainer(m, params, lr=5e-4, betas=(0.9, 0.98), eps=1e-9)
+        losses = [tr.step(src, tgt, label_smoothing=0.1) for _ in range(3)]
+        return torch.stack(losses), tr
+
+    fns = (XE.xent_fwd, XE.xent_bwd, FA.flash_fwd, FA.flash_bwd_dq,
+           FA.flash_bwd_dkv, LN.ln_fwd, LN.ln_bwd, MT.adam)
+    before = [f.launches for f in fns]
+    losses, tr = run()
+    after = [f.launches for f in fns]
+    assert [a - b for a, b in zip(after, before)] == \
+        [3, 3, 12, 12, 12, 27, 27, 3]
+    losses2, tr2 = run()
+    assert torch.equal(losses, losses2)
+    assert torch.equal(tr.opt.state[0].master, tr2.opt.state[0].master)
+    with dispatch.backend("reference"):
+        before = [f.launches for f in fns]
+        losses0, _ = run()
+        assert [f.launches for f in fns] == before
+    assert bool(torch.isfinite(losses).all()) and losses[-1] < losses[0]
+    torch.testing.assert_close(losses, losses0, atol=2e-2, rtol=0)

@@ -8,9 +8,12 @@ chunked ``flash_bwd_plain`` for dq/dk/dv); the JAX package's
 inputs in f32: o and lse, then dq/dk/dv through ``jax.vjp`` against torch
 autograd with cotangents for both outputs (a nonzero dlse, which folds
 into the backward's per-row delta). Causal and not, ragged lengths, head
-dims 64 and 128, query offsets that leave rows with nothing to see.
-Tolerance: atol 1e-5 (plus rtol 1e-5 for the larger gradients): the two
-sum the keys in other blocks and orders.
+dims 64 and 128, query offsets that leave rows with nothing to see; and
+a per-key ``kv_bias`` (key-padding masks of -1e30 plus small finite
+values), shared [1, Sk] or per bh [BH, Sk], causal and not, Sq != Sk, with
+one bh whose every key is masked (JAX gives o = 0, lse = NEG_INF and no
+gradient through it). Tolerance: atol 1e-5 (plus rtol 1e-5 for the
+larger gradients): the two sum the keys in other blocks and orders.
 """
 
 import importlib
@@ -83,6 +86,104 @@ def test_forward_and_backward_match_jax(bh, sq, sk, d, causal, q_start):
         assert not dq[:, dead].any()
 
 
+# (bh, sq, sk, d, causal, shared kv_bias)
+KVB_CASES = [
+    (3, 40, 40, 64, True, False),
+    (4, 33, 70, 64, False, False),     # cross-attention: Sq != Sk
+    (2, 65, 65, 128, False, True),     # one bias row for every bh
+    (4, 29, 28, 64, False, False),     # the seq2seq shape, cut down
+]
+
+
+def _kv_bias(bh, sk, shared, seed):
+    """Key-padding masks (-1e30 past each row's length) plus small finite
+    biases on the kept keys; bh 0 masks every key (a source that is all
+    padding) unless the row is shared."""
+    rs = np.random.RandomState(seed)
+    rows = 1 if shared else bh
+    lengths = rs.randint(sk // 2, sk + 1, rows)
+    if not shared:
+        lengths[0] = 0
+    keep = np.arange(sk)[None, :] < lengths[:, None]
+    return np.where(keep, rs.randn(rows, sk) * 0.5, -1.0e30).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("bh,sq,sk,d,causal,shared", KVB_CASES)
+def test_kv_bias_forward_and_backward_match_jax(bh, sq, sk, d, causal,
+                                                 shared):
+    q, k, v, do, dlse = _case(bh, sq, sk, d, seed=sq + sk)
+    kvb = _kv_bias(bh, sk, shared, seed=bh + sk)
+    scale = 1.0 / np.sqrt(d)
+
+    def jfn(q_, k_, v_):
+        return JFA.flash_attention(q_, k_, v_, kv_bias=jnp.asarray(kvb),
+                                   causal=causal, scale=scale,
+                                   return_lse=True)
+
+    (o_j, lse_j), vjp = jax.vjp(jfn, *(jnp.asarray(a) for a in (q, k, v)))
+    dq_j, dk_j, dv_j = vjp((jnp.asarray(do), jnp.asarray(dlse)))
+
+    qt, kt, vt = (torch.from_numpy(a).requires_grad_(True)
+                  for a in (q, k, v))
+    kvt = torch.from_numpy(kvb).requires_grad_(True)
+    o, lse = flash_attention(qt, kt, vt, kv_bias=kvt, causal=causal,
+                             scale=scale, return_lse=True)
+    dq, dk, dv, dkvb = torch.autograd.grad(
+        (o, lse), (qt, kt, vt, kvt),
+        (torch.from_numpy(do), torch.from_numpy(dlse)), allow_unused=True)
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(o_j), **TOL)
+    np.testing.assert_allclose(lse.detach().numpy(), np.asarray(lse_j),
+                               **TOL)
+    for got, want in ((dq, dq_j), (dk, dk_j), (dv, dv_j)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    assert dkvb is None                  # mask data: no gradient
+    if not shared:       # bh 0 sees nothing and passes nothing back
+        assert not o[0].any() and bool((lse[0] == FA.NEG_INF).all())
+        assert not (dq[0].any() or dk[0].any() or dv[0].any())
+
+
+def test_kv_bias_plain_backward_equals_autograd_of_the_unfused_path():
+    """``flash_bwd_plain`` with a per-bh kv_bias (k chunks of 16 over a
+    ragged 37) against torch autograd through ``reference_attention`` in
+    float64, bh 0 fully masked; masked keys get no gradient."""
+    q, k, v, do, dlse = (torch.from_numpy(a).double()
+                         for a in _case(3, 30, 37, 64, seed=5))
+    kvb = torch.from_numpy(_kv_bias(3, 37, False, seed=6)).double()
+    ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o, lse = FA.reference_attention(*ts, kv_bias=kvb, scale=0.125,
+                                    return_lse=True)
+    want = torch.autograd.grad((o, lse), ts, (do, dlse))
+    delta = FA.flash_delta(o.detach(), do, dlse)
+    got = FA.flash_bwd_plain(q, k, v, do, lse.detach().float(), delta,
+                             causal=False, scale=0.125, kv_bias=kvb,
+                             block_k=16)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.nan_to_num(w.numpy()),
+                                   atol=1e-5, rtol=1e-5)
+    masked = kvb < -1e29
+    assert not got[1][masked].any() and not got[2][masked].any()
+
+
+def test_reference_attention_broadcasts_biases_as_jax():
+    """``reference_attention`` with a full additive ``bias`` and with a
+    ``kv_bias`` [B, 1, Sk] against q [B, H, 1, hd], the greedy decode's
+    broadcast (seq2seq.py:303-308): ``kv_bias[..., None, :]``."""
+    rs = np.random.RandomState(8)
+    q = rs.randn(2, 3, 1, 64).astype(np.float32)
+    k, v = (rs.randn(2, 3, 9, 64).astype(np.float32) for _ in range(2))
+    kvb = np.where(rs.rand(2, 1, 9) < 0.3, -1.0e30, 0.0).astype(np.float32)
+    bias = rs.randn(1, 1, 9).astype(np.float32)
+    for kw in ({"kv_bias": kvb}, {"bias": bias, "kv_bias": kvb}):
+        want = JFA.reference_attention(
+            *(jnp.asarray(a) for a in (q, k, v)),
+            **{n: jnp.asarray(a) for n, a in kw.items()})
+        got = FA.reference_attention(
+            *(torch.from_numpy(a) for a in (q, k, v)),
+            **{n: torch.from_numpy(a) for n, a in kw.items()})
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
 def test_four_dim_inputs_and_output_only_gradient():
     """[B, H, S, D] in, [B, H, S, D] out; a loss on o alone leaves dlse
     unset, as JAX's vjp with a zero lse cotangent."""
@@ -131,7 +232,8 @@ def test_cpu_wrappers_launch_nothing():
 
 def test_unported_options_raise():
     q = torch.zeros(2, 8, 64)
-    for kw in ({"kv_bias": torch.zeros(2, 8)}, {"dropout_rate": 0.1}):
+    for kw in ({"dropout_rate": 0.1},
+               {"kv_bias": torch.zeros(2, 8), "dropout_rate": 0.1}):
         with pytest.raises(NotImplementedError, match="item 15"):
             flash_attention(q, q, q, **kw)
     with pytest.raises(NotImplementedError, match="item 15"):

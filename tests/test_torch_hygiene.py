@@ -26,7 +26,9 @@ def _sources():
 
 def test_fresh_import_pulls_in_no_jax():
     code = ("import sys, apex_tpu_torch, apex_tpu_torch.serve, "
-            "apex_tpu_torch.models, apex_tpu_torch.convert\n"
+            "apex_tpu_torch.models, apex_tpu_torch.convert, "
+            "apex_tpu_torch.models.seq2seq, apex_tpu_torch.ops.xentropy\n"
+            "from apex_tpu_torch.models import Seq2SeqTransformer\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'apex_tpu.')) or "
             "m == 'apex_tpu')\n"
@@ -183,7 +185,7 @@ def test_ctypes_declarations_match_the_c_entry_points():
     sources = cuda._sources()
     assert {p.name for p in sources} >= {"decode_attn.cu", "flash_attn.cu",
                                          "layer_norm.cu", "multi_tensor.cu",
-                                         "welford.cu"}
+                                         "welford.cu", "xentropy.cu"}
     sigs = {}
     for p in sources:
         for name, params in re.findall(
@@ -193,7 +195,7 @@ def test_ctypes_declarations_match_the_c_entry_points():
     cuda._declare(so)
     for name, n in sigs.items():
         assert len(getattr(so, name).argtypes) == n, name
-    assert len(sigs) == 17
+    assert len(sigs) == 19
 
 
 def test_lm_training_entry_points_default_to_the_card_and_raise_without_it(
@@ -263,6 +265,14 @@ def test_scan_reaches_the_imagenet_slice_modules():
              if p.is_relative_to(PKG)}
     assert {"data/__init__.py", "optimizers/fused_sgd.py",
             "optimizers/fused_novograd.py", "optimizers/larc.py"} <= names
+
+
+def test_scan_reaches_the_seq2seq_slice_modules():
+    names = {p.relative_to(PKG).as_posix() for p in _sources()
+             if p.is_relative_to(PKG)}
+    assert {"models/seq2seq.py", "ops/xentropy.py",
+            "contrib/xentropy/softmax_xentropy.py",
+            "contrib/multihead_attn/modules.py"} <= names
 
 
 def test_imagenet_slice_imports_without_jax():

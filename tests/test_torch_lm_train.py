@@ -9,7 +9,9 @@ master (JAX: ``value_and_grad(lm.loss ∘ unflatten)``, its flash kernels in
 interpret mode; the port: ``LMTrainer.loss_and_grad``, the plain versions
 of its kernels on the CPU), then the masters after three ``FusedAdam``
 steps, and ``linear_cross_entropy`` with label smoothing and a padding
-index. Tolerance 1e-5 (f32; the frameworks sum in other orders).
+index; and the full-logits loss (``head_chunk=0``), which goes through
+the softmax cross-entropy op in both packages. Tolerance 1e-5 (f32; the
+frameworks sum in other orders).
 """
 
 import jax
@@ -148,11 +150,25 @@ def test_linear_cross_entropy_matches_jax(smoothing, padding_idx):
         assert not dh[torch.from_numpy(pad)].any()
 
 
+def test_full_logits_loss_and_grad_match_jax(setup):
+    """``head_chunk=0``: the loss over the full fp32 logits through
+    ``SoftmaxCrossEntropyLoss`` with no padding index, and its gradient
+    with respect to the flat master."""
+    _, jopt, tr, toks = setup
+    cfg = {**CFG, "head_chunk": 0}
+    jm = JLM(**cfg)
+    table = jopt._tables[0]
+    loss_j, g_j = jax.value_and_grad(
+        lambda m: jm.loss(JF.unflatten(m, table), jnp.asarray(toks)))(
+            jopt.init_state()[0].master)
+    full = LMTrainer(TLM(**cfg, device="cpu"), tr.opt.params_tree(),
+                     dtype=None, device="cpu")
+    g, loss = full.loss_and_grad(torch.from_numpy(toks))
+    np.testing.assert_allclose(float(loss), float(loss_j), **TOL)
+    np.testing.assert_allclose(g.numpy(), np.asarray(g_j), **TOL)
+
+
 def test_unported_options_raise():
-    m = TLM(**{**CFG, "head_chunk": 0}, device="cpu")
-    p = m.init(0)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        m.loss(p, torch.zeros(1, 5, dtype=torch.long))
     with pytest.raises(NotImplementedError, match="dropout"):
         TLM(**{**CFG, "dropout": 0.1}, device="cpu")
     with pytest.raises(ValueError, match="head_chunk"):
