@@ -20,7 +20,12 @@ flash, LayerNorm-backward and Adam kernels; and the ImageNet example's
 step (``Trainer(optimizer="sgd")`` on a uint8 batch normalized by
 ``data.normalize_imagenet``, ``Trainer.evaluate``), with
 ``optimizers.FusedSGD``, ``FusedNovoGrad`` and ``LARC`` and the SGD,
-NovoGrad and per-row norm kernels.
+NovoGrad and per-row norm kernels; the Seq2Seq Transformer's translation
+step, with the softmax cross-entropy kernels; and gradient accumulation
+(``LMTrainer(microbatches=...)``, ``amp``'s ``accumulate_grads``) and the
+legacy ``fp16_utils`` (``FP16_Optimizer`` with clipping over
+``optimizers.FusedAdagrad``, the overflow census of ``prof``), with the
+axpby, L2-norm and Adagrad kernels.
 
 Entry points run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``; without CUDA they raise instead of falling back.
@@ -34,9 +39,9 @@ import importlib
 
 __version__ = "0.1.0"
 
-_SUBMODULES = ("amp", "contrib", "convert", "data", "models",
-               "normalization", "ops", "optimizers", "parallel", "serve",
-               "train")
+_SUBMODULES = ("amp", "contrib", "convert", "data", "fp16_utils", "models",
+               "normalization", "ops", "optimizers", "parallel", "prof",
+               "serve", "train")
 
 __all__ = list(_SUBMODULES)
 

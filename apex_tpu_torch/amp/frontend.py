@@ -4,8 +4,9 @@ resolves a policy and wraps a model apply-function for it, and the
 through the step as a tuple of :class:`ScalerState`.
 
 Ported: O0, O2 and O3 (parameter and input casts, BN kept fp32 under O2
-by a path predicate, fp32 outputs). O1's per-op autocast and
-``accumulate_grads`` raise, naming the slice that ports them.
+by a path predicate, fp32 outputs), microbatch gradient accumulation
+(``accumulate_grads``) and the overflow census (``update_with_census``).
+O1's per-op autocast raises, naming the slice that ports it.
 """
 
 from __future__ import annotations
@@ -34,17 +35,6 @@ def _default_bn_predicate(path) -> bool:
     return False
 
 
-def _leaves_with_path(tree, path=()):
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _leaves_with_path(tree[k], path + (k,))
-    elif isinstance(tree, (list, tuple)):
-        for i, c in enumerate(tree):
-            yield from _leaves_with_path(c, path + (i,))
-    elif tree is not None:
-        yield path, tree
-
-
 def _is_float(x) -> bool:
     return isinstance(x, torch.Tensor) and x.is_floating_point()
 
@@ -57,8 +47,8 @@ def cast_model_params(params, dtype, keep_fp32_predicate=None,
     (frontend.py:54-103); the values equal a per-leaf cast."""
     dtype = as_dtype(dtype)
     pred = keep_fp32_predicate
-    items = list(_leaves_with_path(params))
-    _, treedef = _flat.tree_flatten(params)
+    leaves, treedef = _flat.tree_flatten(params)
+    items = list(zip(_flat.tree_paths(treedef), leaves))
     out = []
     cast_idx = []
     for i, (path, leaf) in enumerate(items):
@@ -121,17 +111,46 @@ class AmpHandle:
 
     def update_with_census(self, amp_state, found_inf, grads, census=None,
                            loss_id: int = 0, table=None):
-        return self.scalers[loss_id].update_with_census(
+        """:meth:`update` plus overflow provenance; returns
+        ``(new_amp_state, census_carry)`` (frontend.py:152-160)."""
+        new, carry = self.scalers[loss_id].update_with_census(
             amp_state[loss_id], found_inf, grads, census, table=table)
+        return tuple(new if i == loss_id else s
+                     for i, s in enumerate(amp_state)), carry
 
     def loss_scale(self, amp_state, loss_id: int = 0):
         return amp_state[loss_id].scale
 
     def accumulate_grads(self, loss_fn, master, microbatches, amp_state,
                          loss_id: int = 0, average: bool = True):
-        raise NotImplementedError(
-            "accumulate_grads needs the axpby kernel, which is not ported "
-            "yet (ROADMAP.md Queue 1, slice 3)")
+        """Microbatch gradient accumulation (frontend.py:166-200): for each
+        microbatch along the leading axis of every leaf of
+        ``microbatches``, the gradient of the scaled ``loss_fn(flat_master,
+        microbatch)`` (an unscaled loss) with respect to the flat master
+        folds into an fp32 accumulator that starts at zeros, through
+        :meth:`unscale_with_stashed` (the ``axpby`` kernel), its flag
+        reading the fresh gradient only. A Python loop takes the place of
+        JAX's ``lax.scan``; each microbatch's graph is freed before the
+        next. Returns ``(flat grad, found_inf, mean loss)``: the mean of
+        the per-microbatch gradients (``average``) or their sum, already
+        unscaled; found_inf the fp32 running max of the flags."""
+        n = _flat.tree_leaves(microbatches)[0].shape[0]
+        acc = torch.zeros_like(master)
+        found_inf = torch.zeros((), dtype=torch.float32, device=master.device)
+        losses = []
+        for i in range(n):
+            mb = _flat.tree_map(lambda t: t[i], microbatches)
+            m = master.detach().requires_grad_(True)
+            loss = loss_fn(m, mb)
+            (fg,) = torch.autograd.grad(
+                self.scale_loss(loss, amp_state, loss_id), m)
+            acc, fi = self.unscale_with_stashed(fg, acc, amp_state, loss_id)
+            found_inf = torch.maximum(found_inf, fi.to(torch.float32))
+            losses.append(loss.detach())
+            del m, loss, fg
+        if average:
+            acc = acc / n
+        return acc, found_inf, torch.stack(losses).mean()
 
     def state_dict(self, amp_state) -> dict:
         return {f"loss_scaler{i}": s.state_dict(st)

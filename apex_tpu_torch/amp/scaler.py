@@ -6,7 +6,9 @@ a dataclass of 0-d device tensors; ``unscale`` returns the overflow flag
 as a device bool from the ``scale`` kernel; the dynamic update (halve on
 overflow, double after ``scale_window`` clean steps) is branchless
 ``torch.where``; the step skip is the optimizer choosing old or new state
-on the same flag. Nothing here reads a value back to the host except
+on the same flag; ``unscale_with_stashed`` folds a fresh gradient into
+an accumulator (the ``axpby`` kernel) and ``update_with_census`` carries
+the overflow census. Nothing here reads a value back to the host except
 ``state_dict``.
 
 Defaults are the reference's: init 2**16, factor 2, window 2000, max
@@ -97,9 +99,12 @@ class LossScaler:
         return MT.scale(flat_grads, 1.0 / state.scale)
 
     def unscale_with_stashed(self, new_flat_grads, stashed_master, state):
-        raise NotImplementedError(
-            "unscale_with_stashed needs the axpby kernel, which is not "
-            "ported yet (ROADMAP.md Queue 1, slice 3)")
+        """Gradient accumulation across backwards: ``(new / scale +
+        stashed, found_inf)``, the flag reading the fresh grads only (the
+        ``axpby`` kernel on the card, ``arg_to_check=0``;
+        scaler.py:125-131)."""
+        return MT.axpby(1.0 / state.scale, new_flat_grads, 1.0,
+                        stashed_master, arg_to_check=0)
 
     def update(self, state: ScalerState, found_inf) -> ScalerState:
         """Branchless dynamic adjustment and event counting
@@ -131,9 +136,19 @@ class LossScaler:
 
     def update_with_census(self, state, found_inf, grads, census=None, *,
                            table=None):
-        raise NotImplementedError(
-            "update_with_census needs the numerics census of prof/, which "
-            "is not ported yet (ROADMAP.md Queue 1, slice 8)")
+        """:meth:`update` plus overflow provenance (scaler.py:167-186): the
+        per-leaf nonfinite census of ``grads`` (a tree, or a flat buffer
+        with its ``SegmentTable``) on the device, and the census of the
+        last overflowing step carried without a host read. Returns
+        ``(new_state, census_carry)``; pass the carry back in on the next
+        step (``None`` starts it)."""
+        from apex_tpu_torch.prof import numerics as _n
+        new_state = self.update(state, found_inf)
+        fresh = _n.grad_census(grads, table=table, step=state.step_count)
+        if census is None:
+            census = _n.empty_census(int(fresh.inf_count.shape[0]),
+                                     device=fresh.inf_count.device)
+        return new_state, _n.select_census(found_inf, fresh, census)
 
     # -- checkpoint facade ---------------------------------------------------
     def state_dict(self, state: ScalerState) -> dict:

@@ -11,9 +11,10 @@ masks) rides into all three kernels and gets no gradient, as
 ``_flash_core_bwd`` returns zeros for it (:823-826).
 
 Not ported yet, and refused: an additive ``bias`` and dropout (ROADMAP.md
-Queue 1, item 15). ``DEFAULT_FLASH_MIN_S`` is the
-JAX package's constant; the port reads no crossover file and no
-environment variable: those hold TPU measurements.
+Queue 1, item 15). ``DEFAULT_FLASH_MIN_S`` is the port's own crossover,
+measured on an H100 (``chip_smoke.py`` phase 2, ``flash_crossover``); the
+port reads no crossover file and no environment variable: the JAX
+package's hold TPU measurements.
 """
 
 from __future__ import annotations
@@ -26,8 +27,13 @@ from apex_tpu_torch.ops.flash_attn import NEG_INF, reference_attention
 __all__ = ["NEG_INF", "DEFAULT_FLASH_MIN_S", "reference_attention",
            "flash_attention"]
 
-# the smallest max(Sq, Sk) that impl="auto" sends to the flash kernels
-DEFAULT_FLASH_MIN_S = 4096
+# the smallest max(Sq, Sk) that impl="auto" sends to the flash kernels:
+# the smallest S measured from which the kernels beat the plain path at
+# every larger S, forward and forward + backward, causal and not, at
+# [128, S, 64] bf16 for S 128-4096. On an NVIDIA H100 80GB HBM3 at 700 W
+# they won at every S (chip_smoke.py phase 2; PERF.md); below 128 nothing
+# was measured, so those go plain.
+DEFAULT_FLASH_MIN_S = 128
 
 
 class _FlashCore(torch.autograd.Function):

@@ -4,9 +4,11 @@ Seq2Seq Transformer need: the packed parameter layouts and xavier init
 (:38-43, :211-236, :305-318), the two mask kinds split onto the kernels'
 inputs (``_masks_to_biases``, :57-75), and the forward with the attention
 core chosen by ``impl`` (:169-203): ``"fast"`` the flash kernels,
-``"default"`` the unfused ``reference_attention``, ``"auto"`` flash from
-``flash_min_s`` (4096 when unset) or when the unfused scores would pass
-2 GiB (``_flash_wins``, :138-167), both as constants here.
+``"default"`` the unfused ``reference_attention``, ``"auto"`` the flash
+kernels where they take the call (bf16 on the card, head dim 64 or 128,
+no full bias, no dropout) from ``flash_min_s`` (``DEFAULT_FLASH_MIN_S``,
+the H100's crossover, when unset) or when the unfused scores would pass
+2 GiB (``_flash_wins``, :138-167), both constants here.
 
 A ``key_padding_mask`` [B, Sk] (True = pad) becomes the per-key
 ``kv_bias`` [B·H, Sk], which both cores take; an ``attn_mask`` [Sq, Sk]
@@ -27,12 +29,17 @@ import torch
 
 from apex_tpu_torch.contrib.multihead_attn.flash_attention import (
     DEFAULT_FLASH_MIN_S, NEG_INF, flash_attention, reference_attention)
+from apex_tpu_torch.ops.flash_attn import KERNEL_HEAD_DIMS
 
 __all__ = ["SelfMultiheadAttn", "EncdecMultiheadAttn"]
 
 # impl="auto" takes the kernel below the crossover length once the
 # unfused path's ~6 live fp32 [BH, Sq, Sk] buffers would pass this
 COMPOSED_SCORE_BYTES = 2 << 30
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    return t.is_cuda
 
 
 def _xavier(generator: torch.Generator, shape) -> torch.Tensor:
@@ -95,16 +102,28 @@ class _AttnBase:
     def head_dim(self) -> int:
         return self.embed_dim // self.num_heads
 
-    def _flash_wins(self, q, k) -> bool:
-        thr = self.flash_min_s if self.flash_min_s is not None \
-            else DEFAULT_FLASH_MIN_S
-        sq, sk = q.shape[-2], k.shape[-2]
-        if max(sq, sk) >= thr:
-            return True
+    def _flash_wins(self, q, k, bias=None, dropout_rate: float = 0.0
+                    ) -> bool:
+        """impl="auto": the kernels only where they take the call — bf16
+        tensors on the card, head dim 64 or 128, at most 65535 heads, no
+        full ``bias``, no dropout — and from ``flash_min_s``
+        (``DEFAULT_FLASH_MIN_S`` when unset) or once the plain path's
+        scores would pass 2 GiB. Anything else goes to
+        ``reference_attention``, as JAX's "auto" does below its crossover.
+        A routing rule, not a fallback: ``impl="fast"`` still raises on
+        what the kernels do not take."""
         bh = 1
         for d in q.shape[:-2]:
             bh *= d
-        return 6 * bh * sq * sk * 4 > COMPOSED_SCORE_BYTES
+        if not (_on_card(q) and q.dtype == torch.bfloat16
+                and k.dtype == q.dtype and q.shape[-1] in KERNEL_HEAD_DIMS
+                and bh <= 65535 and bias is None and dropout_rate == 0.0):
+            return False
+        thr = self.flash_min_s if self.flash_min_s is not None \
+            else DEFAULT_FLASH_MIN_S
+        sq, sk = q.shape[-2], k.shape[-2]
+        return max(sq, sk) >= thr or \
+            6 * bh * sq * sk * 4 > COMPOSED_SCORE_BYTES
 
     def _core(self, q, k, v, bias, kv_bias, is_training: bool):
         """The attention core over [B·H, S, D]; the masks are constructed,
@@ -115,7 +134,9 @@ class _AttnBase:
                 "item 15)")
         scale = 1.0 / float(self.head_dim) ** 0.5
         if self.impl == "fast" or (self.impl == "auto"
-                                   and self._flash_wins(q, k)):
+                                   and self._flash_wins(
+                                       q, k, bias,
+                                       self.dropout if is_training else 0.0)):
             return flash_attention(q, k, v, bias, kv_bias=kv_bias,
                                    causal=self.causal, scale=scale)
         return reference_attention(q, k, v, bias, kv_bias=kv_bias,

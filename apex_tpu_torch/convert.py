@@ -7,8 +7,12 @@ nested dict of torch tensors. The JAX ``[in, out]``
 weight layout is kept, so ``x @ W`` is the same product in both packages.
 ``resnet_from_jax`` does the same for ``ResNet.init``'s ``(params,
 state)``, keeping HWIO conv kernels and the ``[in, out]`` fc, so the flat
-buffers of the two packages agree element for element. Nothing here
-imports JAX.
+buffers of the two packages agree element for element.
+``opt_state_from_jax`` carries a fused optimizer's state over (any slots:
+Adam's moments, FusedAdagrad's ``"sum"``), and
+``fp16_optimizer_state_from_jax`` an ``FP16_Optimizer.state_dict()``
+(scaler, overflow flag and the wrapped optimizer's state dict) for the
+port's ``load_state_dict``. Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -20,7 +24,8 @@ import torch
 
 from apex_tpu_torch._device import resolve_device
 
-__all__ = ["params_from_jax", "resnet_from_jax", "opt_state_from_jax"]
+__all__ = ["params_from_jax", "resnet_from_jax", "opt_state_from_jax",
+           "optimizer_state_dict_from_jax", "fp16_optimizer_state_from_jax"]
 
 
 def _leaf(a, device: torch.device, dtype: Optional[torch.dtype]):
@@ -74,3 +79,24 @@ def opt_state_from_jax(state, *, device=None) -> tuple:
         slots={k: _leaf(v, dev, None) for k, v in gs.slots.items()},
         step=torch.tensor(int(np.asarray(gs.step)), dtype=torch.int32,
                           device=dev)) for gs in state)
+
+
+def optimizer_state_dict_from_jax(d: dict, *, device=None) -> dict:
+    """A JAX fused optimizer's ``state_dict()`` (numpy masters and slots)
+    -> the port's, tensors on ``device``, for ``load_state_dict``."""
+    dev = resolve_device(device)
+    return {"param_groups": [dict(hp) for hp in d["param_groups"]],
+            "groups": [{"master": _leaf(g["master"], dev, None),
+                        "slots": {k: _leaf(v, dev, None)
+                                  for k, v in g["slots"].items()},
+                        "step": int(g["step"])} for g in d["groups"]]}
+
+
+def fp16_optimizer_state_from_jax(d: dict, *, device=None) -> dict:
+    """A JAX ``FP16_Optimizer.state_dict()`` -> the port's: the scaler's
+    host dict and the overflow flag as they are, the wrapped optimizer's
+    state dict through :func:`optimizer_state_dict_from_jax`."""
+    return {"loss_scaler": dict(d["loss_scaler"]),
+            "dynamic": bool(d["dynamic"]), "overflow": bool(d["overflow"]),
+            "optimizer_state_dict": optimizer_state_dict_from_jax(
+                d["optimizer_state_dict"], device=device)}

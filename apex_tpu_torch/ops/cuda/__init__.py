@@ -144,6 +144,12 @@ def _declare(so: ctypes.CDLL) -> None:
     so.apex_sgd.restype = I
     so.apex_novograd.argtypes = [I, I] + [P] * 8 + [L, I, P]
     so.apex_novograd.restype = I
+    so.apex_axpby.argtypes = [I, I] + [P] * 5 + [L, I, P]
+    so.apex_axpby.restype = I
+    so.apex_l2norm.argtypes = [I, P, P, P, L, I, P]
+    so.apex_l2norm.restype = I
+    so.apex_adagrad.argtypes = [I, I] + [P] * 6 + [L, I, P]
+    so.apex_adagrad.restype = I
     so.apex_layer_norm_bwd.argtypes = [I, I] + [P] * 9 + [I] * 4 + [P]
     so.apex_layer_norm_bwd.restype = I
     # kv_bias and its bh stride, bh, sq, sk, d, q_start, k_start, causal

@@ -1,9 +1,10 @@
 // Multi-tensor kernels over the flat parameter store, seen as (rows, 128):
 // the loss scaler's unscale with its overflow flag, the two phases of
 // FusedLAMB, FusedAdam's update, the per-row stage of the per-tensor norms
-// (sum of squares, max |x|), FusedSGD's update and NovoGrad's elementwise
-// update. All math is fp32; the storage dtype (fp32 or bf16) is kept on
-// write.
+// (sum of squares, max |x|), FusedSGD's update, NovoGrad's elementwise
+// update, gradient accumulation's a·x + b·y with its overflow flag, the
+// global L2 norm and FusedAdagrad's update. All math is fp32; the storage
+// dtype (fp32 or bf16) is kept on write.
 //
 // scale replaces the Pallas kernel apex_tpu/ops/pallas/multi_tensor.py
 // scale -> _scale_kernel (:96). lamb_phase1 / lamb_phase2 replace
@@ -11,7 +12,10 @@
 // adam replaces adam_step -> _adam_kernel (:270). rowsumsq / rowmaxabs
 // replace rowsumsq -> _rowsumsq_kernel (:197) and rowmaxabs ->
 // _rowmaxabs_kernel (:219). sgd replaces sgd_step -> _sgd_kernel (:354).
-// novograd replaces novograd_step -> _novograd_kernel (:393).
+// novograd replaces novograd_step -> _novograd_kernel (:393). axpby
+// replaces axpby -> _axpby_kernel (:127), l2norm replaces l2norm ->
+// _sumsq_kernel (:169), adagrad replaces adagrad_step -> _adagrad_kernel
+// (:322).
 //
 // Bound on this card: bytes, for all of them. Each reads its inputs once
 // and writes its outputs once with a handful of flops per element (~20 for
@@ -27,7 +31,11 @@
 //   novograd 20 B·T + 4 B·R (g, p, m in; p, m out; a row's segment id)
 //                                                    ~512 MB, 0.153 ms
 // and Adam at the LM's T = 138.5 M: 28 B·T (g, p, m, v in; p, m, v out),
-// ~3.88 GB, 1.16 ms, at 3.35 TB/s. What the design does about it: every
+// ~3.88 GB, 1.16 ms, at 3.35 TB/s; at that T, fp32:
+//   axpby    12 B·T (x, y in; out)                  ~1.66 GB, 0.496 ms
+//   l2norm    4 B·T (x in; one fp32 out)            ~0.55 GB, 0.165 ms
+//   adagrad  20 B·T (g, p, h in; p, h out)          ~2.77 GB, 0.827 ms
+// What the design does about it: every
 // element is touched by one thread once, with 16-byte (fp32) or 8-byte
 // (bf16) vector loads and stores; the per-row sums of p² and u² that the per-tensor norms need
 // are taken from registers by a warp reduction in phase 1 (one warp per
@@ -40,10 +48,16 @@
 // segment id, as phase 2 reads the ratio, so the (rows, 1) denominator
 // the Pallas kernel takes is never written.
 //
-// Adam and SGD are one grid-stride pass of 4-wide vectors over the whole
-// buffer. SGD's options (momentum, nesterov, weight decay before or after
-// the momentum, weight decay at all) are bits of a flag word, uniform over
-// the launch.
+// Adam, SGD and Adagrad are one grid-stride pass of 4-wide vectors over the
+// whole buffer. SGD's options (momentum, nesterov, weight decay before or
+// after the momentum, weight decay at all) are bits of a flag word, uniform
+// over the launch. Adagrad adds wd·p in both modes even at wd 0, as the
+// JAX formula does. axpby is scale's pass over two inputs (any length, the
+// ragged tail by scalar loads); its flag reads x, y or both, as the caller
+// asks. l2norm runs in two stages with no float atomics: a fixed grid of
+// blocks, each summing x² over its grid-stride share and reducing it in a
+// fixed order to one partial, then one block that adds the partials in a
+// fixed order and takes the square root, so two runs are bit-equal.
 //
 // Scalars the step computes on the device (the unscale factor, the bias
 // corrections, the clip factor, SGD's first_run) are read from a small
@@ -392,6 +406,176 @@ novograd_kernel(const G* __restrict__ g, const P* __restrict__ p,
   store4(m_out + off, mv);
 }
 
+// ---- axpby -------------------------------------------------------------------
+// out = a·x + b·y in x's dtype; sc = [a, b]; check 0 flags a non-finite x,
+// 1 a non-finite y, anything else either.
+
+template <typename X, typename Y, int VEC>
+__global__ void __launch_bounds__(kScaleThreads)
+axpby_kernel(const X* __restrict__ x, const Y* __restrict__ y,
+             X* __restrict__ out, const float* __restrict__ sc,
+             int* __restrict__ flag, long long n, int check) {
+  const float a = sc[0], b = sc[1];
+  const bool cx = check != 1, cy = check != 0;
+  bool bad = false;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long nvec = n / VEC;
+  for (long long i = first; i < nvec; i += stride) {
+    float xv[4], yv[4], o[4];
+    if constexpr (VEC == 4) {
+      load4(x + 4 * i, xv);
+      load4(y + 4 * i, yv);
+    } else {
+      xv[0] = to_f(x[i]);
+      yv[0] = to_f(y[i]);
+    }
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      bad |= (cx && !is_finite(xv[e])) || (cy && !is_finite(yv[e]));
+      o[e] = __fadd_rn(__fmul_rn(a, xv[e]), __fmul_rn(b, yv[e]));
+    }
+    if constexpr (VEC == 4) {
+      store4(out + 4 * i, o);
+    } else {
+      out[i] = from_f<X>(o[0]);
+    }
+  }
+  // the ragged tail past the last full vector (at most 3 elements)
+  for (long long i = nvec * VEC + first; i < n; i += stride) {
+    const float xf = to_f(x[i]), yf = to_f(y[i]);
+    bad |= (cx && !is_finite(xf)) || (cy && !is_finite(yf));
+    out[i] = from_f<X>(__fadd_rn(__fmul_rn(a, xf), __fmul_rn(b, yf)));
+  }
+  if (bad) atomicOr(flag, 1);
+}
+
+template <typename X, typename Y>
+void launch_axpby(const void* x, const void* y, void* out, const float* sc,
+                  int* flag, long long n, int check, cudaStream_t st) {
+  const X* xp = static_cast<const X*>(x);
+  const Y* yp = static_cast<const Y*>(y);
+  X* op = static_cast<X*>(out);
+  const bool vec = aligned_vec<X>(x) && aligned_vec<Y>(y) &&
+                   aligned_vec<X>(out);
+  long long blocks = ((vec ? n / 4 : n) + kScaleThreads - 1) / kScaleThreads;
+  blocks = blocks < 1 ? 1 : (blocks > kScaleMaxBlocks ? kScaleMaxBlocks
+                                                      : blocks);
+  if (vec) {
+    axpby_kernel<X, Y, 4><<<(unsigned)blocks, kScaleThreads, 0, st>>>(
+        xp, yp, op, sc, flag, n, check);
+  } else {
+    axpby_kernel<X, Y, 1><<<(unsigned)blocks, kScaleThreads, 0, st>>>(
+        xp, yp, op, sc, flag, n, check);
+  }
+}
+
+// ---- global L2 norm ------------------------------------------------------------
+// Stage 1: each block sums x² over its grid-stride share, then reduces its
+// threads in a fixed order (warp butterflies, then the warps' sums by one
+// warp) to partial[block]. Stage 2: one block adds the partials in a fixed
+// order and writes sqrt of the total. The grid depends on n only.
+
+constexpr int kNormThreads = 256;
+
+// the block's sum, in thread 0 (every thread must call it)
+__device__ __forceinline__ float block_sum(float v) {
+  __shared__ float sh[kNormThreads / 32];
+  v = warp_sum(v);
+  if ((threadIdx.x & 31) == 0) sh[threadIdx.x >> 5] = v;
+  __syncthreads();
+  v = threadIdx.x < kNormThreads / 32 ? sh[threadIdx.x] : 0.f;
+  if (threadIdx.x < 32) v = warp_sum(v);
+  return v;
+}
+
+template <typename T, int VEC>
+__global__ void __launch_bounds__(kNormThreads)
+sumsq_partial_kernel(const T* __restrict__ x, float* __restrict__ partial,
+                     long long n) {
+  float s = 0.f;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long nvec = n / VEC;
+  for (long long i = first; i < nvec; i += stride) {
+    float v[4];
+    if constexpr (VEC == 4) {
+      load4(x + 4 * i, v);
+    } else {
+      v[0] = to_f(x[i]);
+    }
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) s += v[e] * v[e];
+  }
+  for (long long i = nvec * VEC + first; i < n; i += stride) {
+    const float v = to_f(x[i]);
+    s += v * v;
+  }
+  s = block_sum(s);
+  if (threadIdx.x == 0) partial[blockIdx.x] = s;
+}
+
+__global__ void __launch_bounds__(kNormThreads)
+sumsq_finish_kernel(const float* __restrict__ partial, int blocks,
+                    float* __restrict__ out) {
+  float s = 0.f;
+  for (int i = threadIdx.x; i < blocks; i += kNormThreads) s += partial[i];
+  s = block_sum(s);
+  if (threadIdx.x == 0) out[0] = __fsqrt_rn(s);
+}
+
+template <typename T>
+void launch_l2norm(const void* x, float* partial, float* out, long long n,
+                   int max_blocks, cudaStream_t st) {
+  const T* xp = static_cast<const T*>(x);
+  const bool vec = aligned_vec<T>(x);
+  long long blocks = ((vec ? n / 4 : n) + kNormThreads - 1) / kNormThreads;
+  blocks = blocks < 1 ? 1 : (blocks > max_blocks ? max_blocks : blocks);
+  if (vec) {
+    sumsq_partial_kernel<T, 4><<<(unsigned)blocks, kNormThreads, 0, st>>>(
+        xp, partial, n);
+  } else {
+    sumsq_partial_kernel<T, 1><<<(unsigned)blocks, kNormThreads, 0, st>>>(
+        xp, partial, n);
+  }
+  sumsq_finish_kernel<<<1, kNormThreads, 0, st>>>(partial, (int)blocks, out);
+}
+
+// ---- Adagrad -------------------------------------------------------------------
+// sc = [lr, eps, wd]; mode 0 folds weight decay into the gradient (L2),
+// mode 1 adds it to the update (decoupled).
+
+template <typename G, typename P>
+__global__ void __launch_bounds__(kScaleThreads)
+adagrad_kernel(const G* __restrict__ g, const P* __restrict__ p,
+               const P* __restrict__ h, P* __restrict__ p_out,
+               P* __restrict__ h_out, const float* __restrict__ sc,
+               long long n, int mode) {
+  const float lr = sc[0], eps = sc[1], wd = sc[2];
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       4 * i < n; i += stride) {
+    const long long off = 4 * i;
+    float gv[4], pv[4], hv[4];
+    load4(g + off, gv);
+    load4(p + off, pv);
+    load4(h + off, hv);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float gf = gv[e];
+      const float pf = pv[e];
+      if (mode == 0) gf = __fadd_rn(gf, __fmul_rn(wd, pf));
+      const float hf = __fadd_rn(hv[e], __fmul_rn(gf, gf));
+      float u = __fdiv_rn(gf, __fadd_rn(__fsqrt_rn(hf), eps));
+      if (mode == 1) u = __fadd_rn(u, __fmul_rn(wd, pf));
+      pv[e] = __fsub_rn(pf, __fmul_rn(lr, u));
+      hv[e] = hf;
+    }
+    store4(p_out + off, pv);
+    store4(h_out + off, hv);
+  }
+}
+
 // A storage dtype as a type tag: with_type calls f(Type<T>{}) for the
 // dtype's T, with_gp_types f(Type<G>{}, Type<P>{}) for the (grad, param)
 // pair; each returns false for a dtype the kernels do not take.
@@ -587,5 +771,60 @@ extern "C" int apex_novograd(int g_dtype, int p_dtype, const void* g,
         static_cast<const P*>(m), static_cast<const float*>(denom),
         static_cast<const int*>(row_seg), static_cast<P*>(p_out),
         static_cast<P*>(m_out), static_cast<const float*>(sc), rows, mode);
+  }));
+}
+
+// x, out [n] in one dtype and y [n] (each fp32 or bf16); sc fp32 [2] = [a,
+// b] on the device; flag one zeroed int32, set to 1 when a checked input is
+// not finite (check 0: x, 1: y, else both).
+extern "C" int apex_axpby(int x_dtype, int y_dtype, const void* x,
+                          const void* y, void* out, const void* sc,
+                          void* flag, long long n, int check, void* stream) {
+  using namespace apex_port;
+  if (n < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return launched(with_gp_types(x_dtype, y_dtype, [&](auto xt, auto yt) {
+    launch_axpby<typename decltype(xt)::type, typename decltype(yt)::type>(
+        x, y, out, static_cast<const float*>(sc), static_cast<int*>(flag), n,
+        check, st);
+  }));
+}
+
+// x [n] (fp32 or bf16); partial fp32 [max_blocks] scratch; out one fp32:
+// sqrt(sum x²).
+extern "C" int apex_l2norm(int dtype, const void* x, void* partial,
+                           void* out, long long n, int max_blocks,
+                           void* stream) {
+  using namespace apex_port;
+  if (n < 1 || max_blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return launched(with_type(dtype, [&](auto t) {
+    launch_l2norm<typename decltype(t)::type>(
+        x, static_cast<float*>(partial), static_cast<float*>(out), n,
+        max_blocks, st);
+  }));
+}
+
+// g [n] (fp32 or bf16); p, h [n] in one dtype (fp32 or bf16) and p_out,
+// h_out like them, every buffer 4-element aligned, n a multiple of 4; sc
+// fp32 [3] = [lr, eps, wd] on the device.
+extern "C" int apex_adagrad(int g_dtype, int p_dtype, const void* g,
+                            const void* p, const void* h, void* p_out,
+                            void* h_out, const void* sc, long long n,
+                            int mode, void* stream) {
+  using namespace apex_port;
+  if (n < 4 || n % 4 != 0 || (mode != 0 && mode != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  long long blocks = (n / 4 + kScaleThreads - 1) / kScaleThreads;
+  blocks = blocks > kScaleMaxBlocks ? kScaleMaxBlocks : blocks;
+  return launched(with_gp_types(g_dtype, p_dtype, [&](auto gt, auto pt) {
+    using G = typename decltype(gt)::type;
+    using P = typename decltype(pt)::type;
+    adagrad_kernel<G, P><<<(unsigned)blocks, kScaleThreads, 0, st>>>(
+        static_cast<const G*>(g), static_cast<const P*>(p),
+        static_cast<const P*>(h), static_cast<P*>(p_out),
+        static_cast<P*>(h_out), static_cast<const float*>(sc), n, mode);
   }));
 }

@@ -24,7 +24,7 @@ import torch
 
 __all__ = ["DEFAULT_ALIGN", "LANES", "SegmentTable", "make_table", "flatten",
            "unflatten", "zeros_like_flat", "tree_flatten", "tree_unflatten",
-           "tree_leaves", "tree_map"]
+           "tree_paths", "tree_leaves", "tree_map"]
 
 DEFAULT_ALIGN = 128
 LANES = 128           # row width of the (rows, 128) view the kernels take
@@ -68,6 +68,19 @@ def tree_unflatten(treedef: Any, leaves) -> Any:
         return tuple(children) if kind == "tuple" else children
 
     return build(treedef)
+
+
+def tree_paths(treedef: Any) -> list:
+    """The key path of each leaf of a ``tree_flatten`` structure, in leaf
+    order: a tuple of dict keys and list or tuple indices."""
+    if treedef is None:
+        return []
+    if treedef == _LEAF:
+        return [()]
+    kind, keys, children = treedef
+    if kind != "dict":
+        keys = range(keys)
+    return [(k,) + p for k, c in zip(keys, children) for p in tree_paths(c)]
 
 
 def tree_leaves(tree: Any) -> list:

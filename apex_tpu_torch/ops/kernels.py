@@ -15,9 +15,9 @@ from __future__ import annotations
 from apex_tpu_torch.ops import multi_tensor as MT
 
 __all__ = ["MODE_L2", "MODE_DECOUPLED", "NORM_LINF", "NORM_L2",
-           "all_finite", "norm_out_blend", "adam_step", "sgd_step",
-           "lamb_step", "novograd_step", "l2norm_per_segment",
-           "maxnorm_per_segment"]
+           "all_finite", "norm_out_blend", "scale", "axpby", "l2norm",
+           "adam_step", "adagrad_step", "sgd_step", "lamb_step",
+           "novograd_step", "l2norm_per_segment", "maxnorm_per_segment"]
 
 MODE_L2 = MT.MODE_L2
 MODE_DECOUPLED = MT.MODE_DECOUPLED
@@ -26,7 +26,11 @@ NORM_L2 = MT.NORM_L2
 
 all_finite = MT.all_finite
 norm_out_blend = MT.norm_out_blend
+scale = MT.scale
+axpby = MT.axpby
+l2norm = MT.l2norm
 adam_step = MT.adam_step
+adagrad_step = MT.adagrad_step
 sgd_step = MT.sgd_step
 
 

@@ -21,7 +21,13 @@ FusedLAMB step runs; the kernels are ``ops/cuda/csrc/multi_tensor.cu``:
   :func:`sgd_step` adds its scalars;
 - :func:`novograd` replaces ``novograd_step`` → ``_novograd_kernel``
   (:393); :func:`novograd_step` adds the per-tensor norm blend and the
-  bias corrections, plain on the device.
+  bias corrections, plain on the device;
+- :func:`axpby` replaces ``axpby`` → ``_axpby_kernel`` (:127): ``a·x +
+  b·y`` with the overflow flag on x, y or both (gradient accumulation);
+- :func:`l2norm` replaces ``l2norm`` → ``_sumsq_kernel`` (:169): the
+  global fp32 L2 norm as a device scalar (gradient clipping);
+- :func:`adagrad` replaces ``adagrad_step`` → ``_adagrad_kernel``
+  (:322); :func:`adagrad_step` adds its scalars.
 
 For a tensor on the CPU each wrapper runs its plain version; for a tensor
 on the card it launches its kernel, or raises on what the kernel does not
@@ -50,7 +56,8 @@ __all__ = ["MODE_L2", "MODE_DECOUPLED", "all_finite", "scale", "scale_plain",
            "l2norm_per_segment", "maxnorm_per_segment", "norm_out_blend",
            "sgd_scalars", "sgd", "sgd_plain", "sgd_step",
            "novograd_scalars", "novograd", "novograd_plain",
-           "novograd_step"]
+           "novograd_step", "axpby", "axpby_plain", "l2norm", "l2norm_plain",
+           "adagrad_scalars", "adagrad", "adagrad_plain", "adagrad_step"]
 
 MODE_L2 = 0          # weight decay folded into the gradient
 MODE_DECOUPLED = 1   # AdamW-style decoupled weight decay
@@ -683,3 +690,165 @@ def novograd_step(g, p, m, v_norms, table: SegmentTable, *, lr,
     p_new, m_new = novograd(g, p, m, denom.contiguous(),
                             table.row_segment_ids(device), sc, mode)
     return p_new, m_new, v_new
+
+
+# -- axpby (K11) --------------------------------------------------------------
+
+def _axpby_scalars(a, b, device) -> torch.Tensor:
+    """``[a, b]`` as one fp32 [2] device array; a device scalar (the
+    unscale factor) stays on the device."""
+    return torch.cat([_as_device_scalar(a, device),
+                      _as_device_scalar(b, device)])
+
+
+def axpby_plain(a, x: torch.Tensor, b, y: torch.Tensor,
+                arg_to_check: int = -1):
+    """Plain version (reference.py:70-90): fp32 ``a·x + b·y`` in x's dtype
+    (each product rounded, then the sum), and a device bool that is True
+    when an input it checks is not finite: x for ``arg_to_check`` 0, y for
+    1, both otherwise."""
+    sa, sb = _axpby_scalars(a, b, x.device).unbind()
+    xf, yf = x.float(), y.float()
+    out = (sa * xf + sb * yf).to(x.dtype)
+    if arg_to_check == 0:
+        bad = ~torch.isfinite(xf).all()
+    elif arg_to_check == 1:
+        bad = ~torch.isfinite(yf).all()
+    else:
+        bad = ~(torch.isfinite(xf).all() & torch.isfinite(yf).all())
+    return out, bad
+
+
+def axpby(a, x: torch.Tensor, b, y: torch.Tensor, arg_to_check: int = -1):
+    """``(a·x + b·y, found_inf)`` over flat buffers of one length (fp32 or
+    bf16 each; out in x's dtype); ``a`` and ``b`` are floats or
+    one-element fp32 tensors on x's device, so ``1/scale`` is never read
+    back. Equal to :func:`axpby_plain` bit for bit."""
+    if not dispatch.use_kernel(x):
+        return axpby_plain(a, x, b, y, arg_to_check)
+    if x.dim() != 1 or y.shape != x.shape:
+        raise ValueError("axpby: x and y must be flat buffers of one length")
+    _check_flat("axpby x", x, x.device, align_elems=1)
+    _check_flat("axpby y", y, x.device, align_elems=1)
+    sc = _axpby_scalars(a, b, x.device)
+    out = torch.empty_like(x)
+    flag = torch.zeros(1, dtype=torch.int32, device=x.device)
+    if x.numel():
+        check = arg_to_check if arg_to_check in (0, 1) else -1
+        err = _cuda.lib().apex_axpby(
+            _cuda.dtype_code(x.dtype, "axpby x"),
+            _cuda.dtype_code(y.dtype, "axpby y"), x.data_ptr(), y.data_ptr(),
+            out.data_ptr(), sc.data_ptr(), flag.data_ptr(), x.numel(),
+            check, _cuda.stream(x.device))
+        _cuda.check(err, "axpby")
+        axpby.launches += 1
+    return out, flag[0] != 0
+
+
+axpby.launches = 0
+
+
+# -- global L2 norm (K12) -----------------------------------------------------
+
+# stage 1's blocks at most, each writing one fp32 partial sum; a fixed grid
+# for a given length, so the sum's order, and the norm's bits, repeat
+_NORM_PARTIALS = 132 * 8
+
+
+def l2norm_plain(x: torch.Tensor) -> torch.Tensor:
+    """Plain version (reference.py:97-100): ``sqrt(sum(x²))`` in fp32."""
+    xf = x.float()
+    return torch.sqrt(torch.sum(xf * xf))
+
+
+def l2norm(x: torch.Tensor) -> torch.Tensor:
+    """The global L2 norm of a flat buffer (fp32 or bf16, any length) as
+    a 0-d fp32 device tensor; two calls on the same input are bit-equal."""
+    if not dispatch.use_kernel(x):
+        return l2norm_plain(x)
+    if x.dim() != 1:
+        raise ValueError("l2norm: x must be a flat 1-D buffer")
+    _check_flat("l2norm", x, x.device, align_elems=1)
+    out = torch.zeros(1, dtype=torch.float32, device=x.device)
+    if x.numel():
+        partial = torch.empty(_NORM_PARTIALS, dtype=torch.float32,
+                              device=x.device)
+        err = _cuda.lib().apex_l2norm(
+            _cuda.dtype_code(x.dtype, "l2norm"), x.data_ptr(),
+            partial.data_ptr(), out.data_ptr(), x.numel(), _NORM_PARTIALS,
+            _cuda.stream(x.device))
+        _cuda.check(err, "l2norm")
+        l2norm.launches += 1
+    return out[0]
+
+
+l2norm.launches = 0
+
+
+# -- Adagrad (K16) ------------------------------------------------------------
+
+def adagrad_scalars(*, lr: float, eps: float, weight_decay: float,
+                    device) -> torch.Tensor:
+    """The Adagrad kernel's scalars as one fp32 [3] device array:
+    ``[lr, eps, wd]`` (multi_tensor.py:323)."""
+    return _consts((lr, eps, weight_decay), torch.device(device))
+
+
+def adagrad_plain(g, p, h, sc: torch.Tensor, mode: int):
+    """Plain version of ``_adagrad_kernel`` (multi_tensor.py:322-336,
+    reference.py:216-230): new (p, h) in their storage dtype, fp32 math
+    with one rounding per operation, in the kernel's order; ``wd·p`` is
+    added at wd 0 too."""
+    lr, eps, wd = sc.unbind()
+    gf, pf, hf = g.float(), p.float(), h.float()
+    if mode == MODE_L2:
+        gf = gf + wd * pf
+        hf = hf + gf * gf
+        pf = pf - lr * (gf / (torch.sqrt(hf) + eps))
+    else:
+        hf = hf + gf * gf
+        pf = pf - lr * (gf / (torch.sqrt(hf) + eps) + wd * pf)
+    return pf.to(p.dtype), hf.to(h.dtype)
+
+
+def adagrad(g, p, h, sc: torch.Tensor, mode: int):
+    """Adagrad (mode 0, L2 weight decay; mode 1, decoupled) over flat
+    buffers of a length that is a multiple of 4; returns new (p, h) like
+    :func:`adagrad_plain`, bit for bit."""
+    if not dispatch.use_kernel(p):
+        return adagrad_plain(g, p, h, sc, mode)
+    n = p.numel()
+    if n % 4 or p.dim() != 1 or g.shape != p.shape or h.shape != p.shape:
+        raise ValueError("adagrad: g, p, h must be flat buffers of one "
+                         "length, a multiple of 4")
+    for what, t in (("g", g), ("p", p), ("h", h)):
+        _check_flat(f"adagrad {what}", t, p.device)
+    if h.dtype != p.dtype:
+        raise TypeError("adagrad: p and h must share one dtype")
+    if sc.dtype != torch.float32 or sc.numel() != 3 or sc.device != p.device:
+        raise ValueError("adagrad: scalars must be fp32 [3] on the card")
+    if mode not in (MODE_L2, MODE_DECOUPLED):
+        raise ValueError(f"adagrad: mode must be 0 or 1, got {mode}")
+    p_out, h_out = torch.empty_like(p), torch.empty_like(h)
+    sc = sc.contiguous()
+    if n:
+        err = _cuda.lib().apex_adagrad(
+            _cuda.dtype_code(g.dtype, "adagrad g"),
+            _cuda.dtype_code(p.dtype, "adagrad p"), g.data_ptr(),
+            p.data_ptr(), h.data_ptr(), p_out.data_ptr(), h_out.data_ptr(),
+            sc.data_ptr(), n, int(mode), _cuda.stream(p.device))
+        _cuda.check(err, "adagrad")
+        adagrad.launches += 1
+    return p_out, h_out
+
+
+adagrad.launches = 0
+
+
+def adagrad_step(g, p, h, *, lr, eps: float, mode: int = MODE_L2,
+                 weight_decay: float = 0.0):
+    """Fused Adagrad over the flat buffer (multi_tensor.py:339-351): the
+    scalars, then one :func:`adagrad` pass. Returns new (p, h)."""
+    sc = adagrad_scalars(lr=lr, eps=eps, weight_decay=weight_decay,
+                         device=p.device)
+    return adagrad(g, p, h, sc, mode)

@@ -8,6 +8,7 @@ import importlib
 _EXPORTS = {"FusedOptimizer": "base", "GroupState": "base",
             "FusedLAMB": "fused_lamb", "FusedAdam": "fused_adam",
             "FusedSGD": "fused_sgd", "FusedNovoGrad": "fused_novograd",
+            "FusedAdagrad": "fused_adagrad",
             "LARC": "larc"}
 
 __all__ = sorted(_EXPORTS)

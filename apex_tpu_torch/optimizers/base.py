@@ -97,6 +97,9 @@ class FusedOptimizer:
             flat_grads = [(g.float() * scale).to(g.dtype)
                           for g in flat_grads]
         extras = self._pre_update(flat_grads, scale)
+        if found_inf is not None:
+            # a device bool, or accumulate_grads' fp32 0/1 (JAX's)
+            found_inf = torch.as_tensor(found_inf).to(torch.bool)
         new_states = []
         for i, (gs, g) in enumerate(zip(state, flat_grads)):
             new_gs = self._update_group(
@@ -172,6 +175,10 @@ class FusedOptimizer:
     def master_params_tree(self):
         trees = self._trees()
         return trees[0] if len(trees) == 1 else trees
+
+    def zero_grad(self):
+        """No-op, for the reference's API: grads are values passed to
+        ``step``, not buffers to clear."""
 
     def set_lr(self, lr: float, group: Optional[int] = None):
         if group is None:

@@ -10,8 +10,10 @@ the step, ``examples/imagenet/main_amp.py``'s training step
 ``LMTrainer`` is the FusedAdam step of ``tools/lm_bench.py`` (:255-272,
 one device) for the decoder LM and, with the batch and loss keywords
 passed through, of ``examples/seq2seq/train_translation.py`` for the
-Seq2Seq Transformer. Both differentiate with respect to the flat fp32
-master buffer (``master_grad``).
+Seq2Seq Transformer; with ``microbatches`` or a ``loss_scale``, the
+gradient accumulation of ``examples/lm/train_ring.py``. Both
+differentiate with respect to the flat fp32 master buffer
+(``master_grad``).
 
 The ResNet step, as the JAX bench runs it:
 
@@ -185,17 +187,35 @@ class LMTrainer:
     loss scaler, as in both sources. Everything lives on ``device``, the
     card unless ``device="cpu"``; ``opt.state`` holds the masters, slots
     and step.
+
+    With ``microbatches`` above 1 or a ``loss_scale`` (``"dynamic"`` or a
+    number), the step is ``examples/lm/train_ring.py``'s (:137-143,
+    ``--grad-accum``, ``--loss-scale``): ``amp.initialize(opt_level="O2",
+    loss_scale=...)`` gives the handle, ``handle.accumulate_grads`` takes
+    the batch split along dim 0 into ``microbatches`` equal parts, then
+    the optimizer's update (skipped on an overflow) and the scaler's.
     """
 
     def __init__(self, model, params, *, lr: float = 1e-4,
                  betas=(0.9, 0.999), eps: float = 1e-8,
-                 dtype=torch.bfloat16, device=None):
+                 dtype=torch.bfloat16, microbatches: int = 1,
+                 loss_scale=None, device=None):
         self.device = resolve_device(device)
         self.model = model
         self.dtype = dtype
         self.opt = FusedAdam(params, lr=lr, betas=betas, eps=eps,
                              device=self.device)
         self.table = self.opt._tables[0]
+        if microbatches < 1:
+            raise ValueError(f"microbatches must be >= 1, got "
+                             f"{microbatches}")
+        self.microbatches = int(microbatches)
+        self.handle = self.amp_state = None
+        if self.microbatches > 1 or loss_scale is not None:
+            _, self.handle = _amp.initialize(opt_level="O2",
+                                             loss_scale=loss_scale,
+                                             verbosity=0)
+            self.amp_state = self.handle.init_state(self.device)
 
     def loss_and_grad(self, *batch, **loss_kw):
         """``(flat fp32 master grad, loss)`` for the batch ``model.loss``
@@ -211,9 +231,45 @@ class LMTrainer:
         return master_grad(self.opt.state[0].master, self.table, self.dtype,
                            objective)
 
+    def accumulate_grads(self, *batch, **loss_kw):
+        """train_ring's accumulation: ``(flat fp32 master grad, found_inf,
+        mean loss)`` from ``handle.accumulate_grads`` over the batch split
+        along dim 0 into ``microbatches`` parts, the grad unscaled and
+        averaged, found_inf an fp32 device flag."""
+        if self.handle is None:
+            raise ValueError("accumulate_grads needs microbatches > 1 or a "
+                             "loss_scale")
+        n = self.microbatches
+        for t in batch:
+            if t.shape[0] % n:
+                raise ValueError(f"batch of {t.shape[0]} does not split "
+                                 f"into {n} microbatches")
+        micro = tuple(t.to(self.device).reshape(n, t.shape[0] // n,
+                                                *t.shape[1:])
+                      for t in batch)
+
+        def loss_fn(m, mb):
+            params = _flat.unflatten(m, self.table, dtype=self.dtype)
+            return self.model.loss(params, *mb, **loss_kw)
+
+        return self.handle.accumulate_grads(
+            loss_fn, self.opt.state[0].master, micro, self.amp_state)
+
+    def apply_grads(self, grad, found_inf=None):
+        """Update the masters from the flat grad (skipped where
+        ``found_inf`` is set) and, with a handle, the scaler."""
+        self.opt.state = self.opt.apply_update(self.opt.state, [grad],
+                                               found_inf=found_inf)
+        if self.handle is not None:
+            self.amp_state = self.handle.update(self.amp_state, found_inf)
+
     def step(self, *batch, **loss_kw):
         """One training step; returns the loss as a device tensor (nothing
         is read back to the host)."""
-        grad, loss = self.loss_and_grad(*batch, **loss_kw)
-        self.opt.state = self.opt.apply_update(self.opt.state, [grad])
+        if self.handle is None:
+            grad, loss = self.loss_and_grad(*batch, **loss_kw)
+            self.apply_grads(grad)
+        else:
+            grad, found_inf, loss = self.accumulate_grads(*batch, **loss_kw)
+            self.apply_grads(grad, found_inf)
         return loss

@@ -10,7 +10,8 @@ nonzero, and only a run where every phase passed prints the last line,
 ``{"ok": true, "device": {...}}``. Phases 0-5 are the serving slice,
 phases 6-8 the ResNet training slice, phases 9-10 the LM training slice,
 phases 11-13 the ImageNet example's slice, phases 14-16 the Seq2Seq
-Transformer's:
+Transformer's, phases 17-19 gradient accumulation and the fp16_utils path
+on the LM:
 
 0. device — needs CUDA; prints the card's ``nvidia-smi`` name and power
    limit (also as a raw line of its own) and the torch / CUDA versions.
@@ -52,7 +53,18 @@ Transformer's:
    [1024, 128, 64] and the cross-attention's (Sq 129, Sk 128) shapes,
    bf16, every head under the flash rule, masked keys getting exactly no
    gradient (SDPA with the additive mask broadcast from [B, 1, 1, Sk]
-   beside them).
+   beside them); the accumulation and fp16_utils kernels over the LM's
+   flat fp32 master store: ``axpby`` as ``unscale_with_stashed`` calls it
+   (bit-equal in all three flag modes; an inf or NaN at the first, a
+   middle and the last element of x and then of y flagged exactly when
+   the mode checks that input; ``torch.add`` with alpha beside it),
+   ``l2norm`` (within 1e-5 relative, two runs bit-equal;
+   ``linalg.vector_norm`` beside it) and ``adagrad`` (bit-equal in both
+   weight-decay modes at wd 1e-2; ``torch.optim.Adagrad`` fused or
+   foreach beside it); and impl="auto"'s crossover: the flash path and
+   the plain composed attention at [128, S, 64] bf16 for S 128-4096,
+   forward and forward + backward, causal and not (SDPA beside them), the
+   kernels required to win at every S from ``DEFAULT_FLASH_MIN_S``.
 3. dense — the serve_bench model at full width (8 layers, 1024 wide,
    8 heads, vocab 32768, bf16, random weights from ``torch.Generator``
    seed 0) behind ``ContinuousBatchingEngine(slots=8, max_len=1024,
@@ -159,7 +171,31 @@ Transformer's:
     embed 256, 4 heads of 64, vocab 1000, source length 64, batch 8,
     ragged), phase 10's ``adam_crosscheck`` with the translation step's
     Adam and label smoothing.
-17. the ``{"kernels": [...]}`` line, then the ``ok`` line.
+17. lm_accum — ``examples/lm/train_ring.py``'s accumulation
+    (``--grad-accum 2 --loss-scale dynamic``) on phase 9's model and batch
+    through ``LMTrainer(microbatches=2, loss_scale="dynamic")``: step 1's
+    accumulated flat grad within 1.5 times bf16's own effect (the
+    one-batch grad against the plain fp32 one) of phase 9's one-batch
+    grad from the same masters, in mean and max; 3 warm-up and 10 timed
+    steps as phase 9 reads them (tok/s, step ms, MFU with phase 9's FLOP
+    model, peak memory, below phase 9's), 2 ``axpby`` and 1 Adam launches
+    a step and each model kernel twice phase 9's; losses finite, the
+    first three falling; an inf in microbatch 2 alone leaves masters,
+    slots and step bit for bit, halves the scale, counts one overflow.
+18. fp16opt_adagrad — the legacy path on the same model and batch:
+    ``FP16_Optimizer(FusedAdagrad(lr=1e-4, model_dtype=bf16),
+    dynamic_loss_scale=True)``, each step the grads of the scaled loss
+    with respect to the bf16 param tree, ``clip_master_grads(1.0)`` and
+    ``step``: 3 warm-up and 5 timed steps (tok/s, step ms, each step's
+    norm and clip coefficient, the norm within 1e-5 of the plain
+    version's on the same grads); 1 ``l2norm``, 1 ``adagrad`` and 1 +
+    leaves ``scale`` launches a step; losses finite and falling; an inf
+    in one leaf's grad skips the step and ``last_culprits`` names it.
+19. fp16opt_crosscheck — phase 10's small LM at batch 4 under
+    ``crosscheck`` (phase 10's bars): ``LMTrainer(microbatches=2,
+    loss_scale="dynamic")``, and ``FP16_Optimizer(FusedAdagrad)`` with
+    clipping in both weight-decay modes.
+20. the ``{"kernels": [...]}`` line (23 kernels), then the ``ok`` line.
 
 Times are CUDA-event medians of single calls with the L2 cache flushed
 before each and the stream held busy, so host launch time is not counted.
@@ -171,6 +207,7 @@ kernels' products; MFU its 989 TFLOP/s bf16 dense.
 from __future__ import annotations
 
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -1103,6 +1140,232 @@ def optimizer_kernel_phase(torch, timer, table) -> dict:
     return rows
 
 
+# -- phase 2, gradient accumulation and fp16_utils: axpby, l2norm, Adagrad ---
+
+# FusedAdagrad at lm_bench's lr, with the weight decay both modes are held at
+ADAGRAD = dict(lr=1e-4, eps=1e-10, weight_decay=1e-2)
+
+
+def accum_kernel_phase(torch, timer, total: int) -> dict:
+    """The kernels of the accumulation and fp16_utils phases over the LM's
+    flat fp32 master store (``total`` elements): ``axpby`` as
+    ``unscale_with_stashed`` calls it (a = 1/65536 on the device, b = 1),
+    in all three flag modes with an inf or NaN at the first, a middle and
+    the last element of x and then of y; ``l2norm`` (within 1e-5 relative
+    of the plain version, two runs bit-equal); ``adagrad`` in both weight
+    decay modes (bit-equal). Each with its time, the plain version's, one
+    PyTorch call's and the bound."""
+    from apex_tpu_torch.ops import multi_tensor as MT
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    rows = {}
+    T = total
+    x = torch.randn(T, generator=gen, device="cuda") * 65536.0 * 1e-2
+    y = torch.randn(T, generator=gen, device="cuda") * 1e-2
+    a = torch.full((), 1.0 / 65536.0, device="cuda")
+
+    # axpby: bit-equal to the plain version in every flag mode; each
+    # injected inf or NaN flagged exactly when the mode checks its input
+    same, flags = {}, {}
+    for check_arg in (-1, 0, 1):
+        got, fi = MT.axpby(a, x, 1.0, y, check_arg)
+        want, fi0 = MT.axpby_plain(a, x, 1.0, y, check_arg)
+        same[check_arg] = bool(torch.equal(got, want)) and \
+            not bool(fi) and not bool(fi0)
+        for arg, t in (("x", x), ("y", y)):
+            covered = check_arg == -1 or check_arg == (0 if arg == "x" else 1)
+            for where, pos, bad in (("first", 0, float("inf")),
+                                    ("middle", T // 2, float("nan")),
+                                    ("last", T - 1, float("-inf"))):
+                keep = t[pos].clone()
+                t[pos] = bad
+                k_flag = bool(MT.axpby(a, x, 1.0, y, check_arg)[1])
+                p_flag = bool(MT.axpby_plain(a, x, 1.0, y, check_arg)[1])
+                t[pos] = keep
+                flags[f"check{check_arg}_{arg}_{where}"] = k_flag
+                check(k_flag == covered and p_flag == covered,
+                      f"axpby check {check_arg}: {bad} in {arg} at {where} "
+                      f"flagged {k_flag} (plain {p_flag}), want {covered}")
+    check(all(same.values()), f"axpby: not bit-equal to the plain version "
+                              f"{same}")
+    got, _ = MT.axpby(a, x, 1.0, y, 0)
+    want, _ = MT.axpby_plain(a, x, 1.0, y, 0)
+    err = float((got - want).abs().max())
+    del got, want
+    b_ms, b_by = bound(12 * T + 12, 3 * T)
+    row = dict(kernel="axpby", dtype="float32", shape=[T], max_abs_err=err,
+               tol=0.0, bitwise=all(same.values()), inf_flags=flags,
+               per_step=2,
+               ms=timer(lambda: MT.axpby(a, x, 1.0, y, 0)),
+               plain_ms=timer(lambda: MT.axpby_plain(a, x, 1.0, y, 0)),
+               library_ms=timer(lambda: torch.add(y, x, alpha=1.0 / 65536)),
+               library_covers="a·x + y, no flag (torch.add with alpha)",
+               bound_ms=b_ms, bound_by=b_by,
+               host_us=host_us(torch, lambda: MT.axpby(a, x, 1.0, y, 0)))
+    emit({"phase": "kernels", **row})
+    rows[("axpby", "float32")] = row
+
+    # l2norm: within 1e-5 relative of the plain version; two runs bit-equal
+    n1, n2 = MT.l2norm(y), MT.l2norm(y)
+    n0 = MT.l2norm_plain(y)
+    torch.cuda.synchronize()
+    rel = float((n1 - n0).abs() / n0)
+    repeat = bool(torch.equal(n1, n2))
+    check(rel <= 1e-5, f"l2norm: {float(n1)} against plain {float(n0)} "
+                       f"({rel:.3g} relative)")
+    check(repeat, "l2norm: two runs on the same input differ")
+    b_ms, b_by = bound(4 * T + 4, 2 * T)
+    row = dict(kernel="l2norm", dtype="float32", shape=[T],
+               max_abs_err=float((n1 - n0).abs()), rel_err=rel, tol=1e-5,
+               repeat_equal=repeat, per_step=1,
+               ms=timer(lambda: MT.l2norm(y)),
+               plain_ms=timer(lambda: MT.l2norm_plain(y)),
+               library_ms=timer(lambda: torch.linalg.vector_norm(y)),
+               bound_ms=b_ms, bound_by=b_by,
+               host_us=host_us(torch, lambda: MT.l2norm(y)))
+    emit({"phase": "kernels", **row})
+    rows[("l2norm", "float32")] = row
+    del x
+
+    # adagrad at lm_bench's lr with weight decay 1e-2, both modes, step 3's
+    # accumulator
+    g = y
+    p = torch.randn(T, generator=gen, device="cuda") * 0.02
+    h = torch.rand(T, generator=gen, device="cuda") * 3e-4
+    sc = MT.adagrad_scalars(device="cuda", **ADAGRAD)
+    same, err = {}, 0.0
+    for mode in (MT.MODE_L2, MT.MODE_DECOUPLED):
+        got = MT.adagrad(g, p, h, sc, mode)
+        want = MT.adagrad_plain(g, p, h, sc, mode)
+        torch.cuda.synchronize()
+        same[mode] = all(bool(torch.equal(u, w)) for u, w in zip(got, want))
+        err = max([err] + [float((u - w).abs().max())
+                           for u, w in zip(got, want)])
+        del got, want
+    check(all(same.values()),
+          f"adagrad: not bit-equal to the plain version {same} ({err})")
+    lib_p = p.clone().requires_grad_(True)
+    lib_p.grad = g.clone()
+    lib, lib_kind = None, None
+    for kind in ("fused", "foreach"):
+        try:
+            opt = torch.optim.Adagrad([lib_p], lr=ADAGRAD["lr"],
+                                      eps=ADAGRAD["eps"],
+                                      weight_decay=ADAGRAD["weight_decay"],
+                                      **{kind: True})
+            opt.step()
+            lib, lib_kind = opt, kind
+            break
+        except (RuntimeError, TypeError, ValueError):
+            continue
+    b_ms, b_by = bound(20 * T + 12, 9 * T)
+    row = dict(kernel="adagrad", dtype="float32", shape=[T], max_abs_err=err,
+               tol=0.0, bitwise=all(same.values()), modes_bit_equal={
+                   "l2": same[MT.MODE_L2],
+                   "decoupled": same[MT.MODE_DECOUPLED]},
+               per_step=1, **ADAGRAD,
+               ms=timer(lambda: MT.adagrad(g, p, h, sc, MT.MODE_L2)),
+               plain_ms=timer(lambda: MT.adagrad_plain(g, p, h, sc,
+                                                       MT.MODE_L2)),
+               library_ms=timer(lib.step) if lib is not None else None,
+               library_covers=f"torch.optim.Adagrad({lib_kind}=True).step"
+               if lib is not None else "none runs",
+               bound_ms=b_ms, bound_by=b_by,
+               host_us=host_us(torch, lambda: MT.adagrad(g, p, h, sc,
+                                                         MT.MODE_L2)))
+    emit({"phase": "kernels", **row})
+    rows[("adagrad", "float32")] = row
+    return rows
+
+
+# impl="auto"'s crossover: the flash kernels against the plain composed
+# attention at [128, S, 64] bf16, forward and forward + backward, causal and
+# not (SDPA beside them as a yardstick only); the plain path runs in head
+# groups of at most 128·2048² score elements, whose times add up
+CROSSOVER_S = (128, 256, 512, 1024, 2048, 4096)
+CROSSOVER_BH, CROSSOVER_D = 128, 64
+
+
+def flash_crossover_phase(torch) -> dict:
+    """Times of the flash path and the plain path over S; ``min_s`` is the
+    smallest S measured from which the kernel wins every case at every
+    larger S (None when it never does)."""
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.contrib.multihead_attn import (
+        DEFAULT_FLASH_MIN_S, flash_attention, reference_attention)
+
+    timer = Timer(torch, reps=5)
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    bh, d = CROSSOVER_BH, CROSSOVER_D
+    table = []
+    for causal in (False, True):
+        for s in CROSSOVER_S:
+            q, k, v, do = (torch.randn(bh, s, d, generator=gen, device="cuda")
+                           .to(torch.bfloat16) for _ in range(4))
+            qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+            group = max(1, min(bh, bh * 2048 * 2048 // (s * s)))
+
+            def fwd_bwd(fn, q=qg, k=kg, v=vg):
+                o = fn(q, k, v, causal=causal)
+                torch.autograd.grad(o, (q, k, v), do)
+
+            def plain(grad):
+                def run():
+                    for i in range(0, bh, group):
+                        sl = slice(i, i + group)
+                        if grad:
+                            o = reference_attention(qg[sl], kg[sl], vg[sl],
+                                                    causal=causal)
+                            torch.autograd.grad(o, (qg, kg, vg), do[sl],
+                                                allow_unused=True)
+                        else:
+                            reference_attention(q[sl], k[sl], v[sl],
+                                                causal=causal)
+                return run
+
+            q4, k4, v4 = (t.view(1, bh, s, d) for t in (qg, kg, vg))
+            do4 = do.view(1, bh, s, d)
+
+            def sdpa_fb():
+                o = F.scaled_dot_product_attention(q4, k4, v4,
+                                                   is_causal=causal)
+                torch.autograd.grad(o, (qg, kg, vg), do4)
+
+            with torch.no_grad():
+                r = {"causal": causal, "s": s, "plain_head_group": group,
+                     "fwd_ms": timer(lambda: flash_attention(
+                         q, k, v, causal=causal)),
+                     "plain_fwd_ms": timer(plain(False)),
+                     "sdpa_fwd_ms": timer(
+                         lambda: F.scaled_dot_product_attention(
+                             q.view(1, bh, s, d), k.view(1, bh, s, d),
+                             v.view(1, bh, s, d), is_causal=causal))}
+            r["fwd_bwd_ms"] = timer(lambda: fwd_bwd(flash_attention))
+            r["plain_fwd_bwd_ms"] = timer(plain(True))
+            r["sdpa_fwd_bwd_ms"] = timer(sdpa_fb)
+            r["kernel_wins"] = r["fwd_ms"] < r["plain_fwd_ms"] and \
+                r["fwd_bwd_ms"] < r["plain_fwd_bwd_ms"]
+            emit({"phase": "flash_crossover", "shape": [bh, s, d],
+                  "dtype": "bfloat16", **r})
+            table.append(r)
+            del q, k, v, do, qg, kg, vg, q4, k4, v4, do4
+    min_s = None
+    for s in sorted(CROSSOVER_S, reverse=True):
+        if all(r["kernel_wins"] for r in table if r["s"] >= s):
+            min_s = s
+        else:
+            break
+    row = {"phase": "flash_crossover_min_s", "min_s": min_s,
+           "default_flash_min_s": DEFAULT_FLASH_MIN_S}
+    emit(row)
+    check(all(r["kernel_wins"] for r in table
+              if r["s"] >= DEFAULT_FLASH_MIN_S),
+          f"flash crossover: the kernel does not win at every S >= "
+          f"DEFAULT_FLASH_MIN_S {DEFAULT_FLASH_MIN_S} (min_s {min_s})")
+    return row
+
+
 # -- phases 3-4: the serving slice --------------------------------------------
 
 TRAIN_KERNELS = ("scale", "lamb_phase1", "lamb_phase2", "bn_moments",
@@ -1128,7 +1391,8 @@ def counters():
             "flash_bwd_dkv": FA.flash_bwd_dkv, "rowsumsq": MT.rowsumsq,
             "rowmaxabs": MT.rowmaxabs, "sgd": MT.sgd,
             "novograd": MT.novograd, "xent_fwd": XE.xent_fwd,
-            "xent_bwd": XE.xent_bwd}
+            "xent_bwd": XE.xent_bwd, "axpby": MT.axpby,
+            "l2norm": MT.l2norm, "adagrad": MT.adagrad}
 
 
 def zero_counts() -> None:
@@ -1736,25 +2000,38 @@ def lm_model():
                          head_chunk=min(8192, c["vocab"]))
 
 
+def lm_batch(torch):
+    """Phase 9's token batch: 8 × 4096 from RandomState(1)."""
+    import numpy as np
+    c = LM_SHAPE
+    return torch.from_numpy(np.random.RandomState(1).randint(
+        0, c["vocab"], (c["batch"], c["seq"])).astype(np.int64)).cuda()
+
+
+
+
+def lm_step_flops(n_params: int) -> float:
+    """lm_bench's FLOP model of one step: 6·P·tokens + 6·L·d·S²·B."""
+    c = LM_SHAPE
+    return 6.0 * n_params * c["batch"] * c["seq"] + (
+        12 * c["layers"] * c["embed"] * c["seq"] ** 2 * c["batch"]) / 2
+
+
 def lm_train_phase(torch, model, params) -> tuple:
     """tools/lm_bench.py's step at its defaults on one card: O2 bf16 over
     fp32 flat masters, FusedAdam(lr=1e-4), one numpy token batch reused
     every step; 3 warm-up and 10 timed steps, then two profiled ones."""
-    import numpy as np
-
     from apex_tpu_torch.train import LMTrainer
 
     c = LM_SHAPE
     warm, timed = 3, 10
     tr = LMTrainer(model, params, lr=1e-4)
-    toks = torch.from_numpy(np.random.RandomState(1).randint(
-        0, c["vocab"], (c["batch"], c["seq"])).astype(np.int64)).cuda()
+    toks = lm_batch(torch)
     r = timed_steps(torch, lambda: tr.step(toks), warm, timed)
     counts = r["counts"]
     tokens = c["batch"] * c["seq"]               # lm_bench's count
     n_params = tr.table.total
-    step_flops = 6.0 * n_params * tokens + (
-        12 * c["layers"] * c["embed"] * c["seq"] ** 2 * c["batch"]) / 2
+    step_flops = lm_step_flops(n_params)
     tok_s = tokens * timed / r["wall"]
     prof = profile_steps(torch, lambda: tr.step(toks), LM_KERNEL_FAMILIES)
     row = {"phase": "lm_train", "model": "TransformerLM", **c,
@@ -1775,33 +2052,22 @@ def lm_train_phase(torch, model, params) -> tuple:
     return counts, row
 
 
-def adam_crosscheck(torch, dispatch, phase, model, params, batch,
-                    loss_kw, adam) -> dict:
-    """Three O2 bf16 ``LMTrainer`` steps of ``model`` on ``batch`` with the
-    kernels and with the plain versions on the card, and three plain fp32
-    ones. Step 1 starts every run from the same masters, so its flat
-    gradient holds the kernels' own effect: the kernel run's within 1.5
-    times bf16's (the plain bf16 gradient against the plain fp32 one), in
-    mean and in max. After 3 steps the masters within 1.5 times bf16's
-    effect in mean, leaving out those whose fp32 gradient at some step is
-    within 1e-7 of its largest entry (the key biases, zero analytically;
-    unused vocabulary rows): Adam turns rounding noise there into moves
-    of about lr either way, in every run, and caps the largest difference
-    of any master at about 2 × 3 × lr, so the masters' max is reported,
-    not held. Two kernel runs give the same losses and masters bit for
-    bit; no kernel launches in the plain runs."""
-    from apex_tpu_torch.train import LMTrainer
-
-    def run(dtype):
-        tr = LMTrainer(model, params, dtype=dtype, **adam)
-        grads, loss = [], []
-        for _ in range(3):
-            g, l_ = tr.loss_and_grad(*batch, **loss_kw)
-            grads.append(g.clone())
-            tr.opt.state = tr.opt.apply_update(tr.opt.state, [g])
-            loss.append(float(l_))
-        return tr.opt.state[0].master, grads, loss
-
+def crosscheck(torch, dispatch, phase, run, **extra) -> dict:
+    """``run(dtype)`` — three training steps from fixed masters, returning
+    ``(masters, [flat grad of each step, unscaled], [losses])`` — with the
+    kernels (bf16, twice) and with the plain versions on the card (bf16,
+    and fp32: ``dtype`` None). Step 1 starts every run from the same
+    masters, so its flat gradient holds the kernels' own effect: the
+    kernel run's within 1.5 times bf16's (the plain bf16 gradient against
+    the plain fp32 one), in mean and in max. After 3 steps the masters
+    within 1.5 times bf16's effect in mean, leaving out those whose fp32
+    gradient at some step is within 1e-7 of its largest entry (the key
+    biases, zero analytically; unused vocabulary rows): Adam and Adagrad
+    turn rounding noise there into moves of about lr either way, in every
+    run, and cap the largest difference of any master at about 2 × 3 ×
+    lr, so the masters' max is reported, not held. Two kernel runs give
+    the same losses and masters bit for bit; no kernel launches in the
+    plain runs."""
     mk, gk, loss_k = run(torch.bfloat16)
     mk2, _, loss_k2 = run(torch.bfloat16)
     with dispatch.backend("reference"):
@@ -1828,7 +2094,7 @@ def adam_crosscheck(torch, dispatch, phase, model, params, batch,
             "noise_max": float(d_k[noise].max()) if noise.any() else 0.0,
             "noise_elements": int(noise.sum())}
     repeat = loss_k == loss_k2 and bool(torch.equal(mk, mk2))
-    row = {"phase": phase, "steps": 3, "dtype": "bfloat16",
+    row = {"phase": phase, **extra, "steps": 3, "dtype": "bfloat16",
            "err": errs, "loss_kernels": loss_k, "loss_kernels_again":
            loss_k2, "loss_plain": loss_r, "loss_plain_f32": loss_f,
            "repeat_equal": repeat}
@@ -1844,6 +2110,29 @@ def adam_crosscheck(torch, dispatch, phase, model, params, batch,
     return row
 
 
+def adam_crosscheck(torch, dispatch, phase, model, params, batch,
+                    loss_kw, adam, **trainer_kw) -> dict:
+    """``crosscheck`` of three O2 ``LMTrainer`` steps of ``model`` on
+    ``batch``; ``trainer_kw`` (``microbatches``, ``loss_scale``) selects
+    train_ring's accumulation."""
+    from apex_tpu_torch.train import LMTrainer
+
+    def run(dtype):
+        tr = LMTrainer(model, params, dtype=dtype, **adam, **trainer_kw)
+        grads, loss = [], []
+        for _ in range(3):
+            if tr.handle is None:
+                (g, l_), fi = tr.loss_and_grad(*batch, **loss_kw), None
+            else:
+                g, fi, l_ = tr.accumulate_grads(*batch, **loss_kw)
+            grads.append(g.clone())
+            tr.apply_grads(g, fi)
+            loss.append(float(l_))
+        return tr.opt.state[0].master, grads, loss
+
+    return crosscheck(torch, dispatch, phase, run, **trainer_kw)
+
+
 def lm_crosscheck_phase(torch, dispatch):
     """A small LM (2 layers, embed 128, 2 heads of 64, vocab 512, S 257,
     batch 2) under ``adam_crosscheck`` at lr 1e-3."""
@@ -1857,6 +2146,265 @@ def lm_crosscheck_phase(torch, dispatch):
                          .manual_seed(3)).cuda()
     adam_crosscheck(torch, dispatch, "lm_crosscheck", m, params, (toks,),
                     {}, {"lr": 1e-3})
+
+
+# -- gradient accumulation and the fp16_utils path on lm_bench's LM ----------
+
+# train_ring's --grad-accum 2: phase 9's batch of 8 as 2 microbatches of 4;
+# each kernel of the model runs once per microbatch
+ACCUM_MICRO = 2
+ACCUM_PER_STEP = {"axpby": ACCUM_MICRO, "adam": 1,
+                  **{k: ACCUM_MICRO * LM_PER_STEP[k]
+                     for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                               "ln_fwd", "ln_bwd")}}
+ACCUM_KERNELS = ("axpby", "l2norm", "adagrad")
+FP16_MAX_NORM = 1.0
+
+
+def lm_accum_phase(torch, dispatch, model, params, peak9: int) -> tuple:
+    """examples/lm/train_ring.py's accumulation (--grad-accum 2,
+    --loss-scale dynamic) on phase 9's model and batch: step 1's
+    accumulated flat grad against the one-batch grad of phase 9's step
+    from the same masters, then 3 warm-up and 10 timed steps, then an inf
+    in microbatch 2 alone."""
+    from apex_tpu_torch.ops import flat
+    from apex_tpu_torch.train import LMTrainer
+
+    c = LM_SHAPE
+    warm, timed = 3, 10
+    toks = lm_batch(torch)
+    one = LMTrainer(model, params, lr=1e-4)
+    g_one, _ = one.loss_and_grad(toks)
+    del one
+    tr = LMTrainer(model, params, lr=1e-4, microbatches=ACCUM_MICRO,
+                   loss_scale="dynamic")
+    g_acc, fi, _ = tr.accumulate_grads(toks)
+    check(float(fi) == 0.0, "lm_accum: step 1 overflowed")
+    # bf16's own effect on the grad: the one-batch grad against the fp32
+    # one of the plain versions, taken a sequence at a time (the plain
+    # attention's fp32 scores of the whole batch would need ~50 GB)
+    with dispatch.backend("reference"):
+        f32 = LMTrainer(model, params, lr=1e-4, dtype=None,
+                        microbatches=c["batch"])
+        g_f32, _, _ = f32.accumulate_grads(toks)
+        del f32
+    d_acc, d_bf16 = (g_acc - g_one).abs(), (g_one - g_f32).abs()
+    grad1 = {"mean": float(d_acc.mean()), "max": float(d_acc.max()),
+             "bf16_mean": float(d_bf16.mean()),
+             "bf16_max": float(d_bf16.max()),
+             "abs_max": float(g_f32.abs().max())}
+    del g_one, g_acc, g_f32, d_acc, d_bf16
+    check(grad1["mean"] <= 1.5 * grad1["bf16_mean"]
+          and grad1["max"] <= 1.5 * grad1["bf16_max"],
+          f"lm_accum: step 1's accumulated grad differs from the one-batch "
+          f"grad by {grad1}")
+    # a fresh trainer from the same masters for the timed window
+    tr = LMTrainer(model, params, lr=1e-4, microbatches=ACCUM_MICRO,
+                   loss_scale="dynamic")
+    r = timed_steps(torch, lambda: tr.step(toks), warm, timed)
+    counts = r["counts"]
+    tokens = c["batch"] * c["seq"]
+    tok_s = tokens * timed / r["wall"]
+    flops = lm_step_flops(tr.table.total)
+
+    # an inf in microbatch 2 alone: the step skipped bit for bit, the scale
+    # halved, one overflow counted
+    def bad_loss(m, mb):
+        t, poison = mb
+        p = flat.unflatten(m, tr.table, dtype=torch.bfloat16)
+        return model.loss(p, t) + m.sum() * poison
+
+    poison = torch.tensor([0.0, float("inf")], device="cuda")
+    micro = (toks.reshape(ACCUM_MICRO, -1, c["seq"]), poison)
+    gs0, st0 = tr.opt.state[0], tr.amp_state[0]
+    fg, fi, _ = tr.handle.accumulate_grads(bad_loss, gs0.master, micro,
+                                           tr.amp_state)
+    tr.apply_grads(fg, fi)
+    gs1, st1 = tr.opt.state[0], tr.amp_state[0]
+    inject = {"found_inf": float(fi),
+              "master": bool(torch.equal(gs1.master, gs0.master)),
+              "slots": all(bool(torch.equal(gs1.slots[k], gs0.slots[k]))
+                           for k in gs0.slots),
+              "step": int(gs1.step) == int(gs0.step),
+              "scale_before": float(st0.scale),
+              "scale_after": float(st1.scale),
+              "overflows": int(st1.overflow_count) - int(st0.overflow_count)}
+    row = {"phase": "lm_accum", "model": "TransformerLM", **c,
+           "microbatches": ACCUM_MICRO, "loss_scale": "dynamic",
+           "attn_impl": model.attn_impl, "dtype": "bfloat16",
+           "masters": "float32", "optimizer": "FusedAdam(lr=1e-4)",
+           **window_row(r, timed), "tokens_per_step": tokens,
+           "tok_per_s": tok_s, "step_tflop": flops / 1e12,
+           "mfu": flops * timed / r["wall"] / BF16_DENSE_OPS_S,
+           "peak_mem_bytes_phase9": peak9, "grad1_err": grad1,
+           "launches": {k: counts[k] for k in ACCUM_PER_STEP},
+           "launches_per_step": {k: counts[k] / timed
+                                 for k in ACCUM_PER_STEP},
+           "inject_microbatch2": inject}
+    emit(row)
+    loss = r["loss"]
+    check(all(math.isfinite(v) for v in loss)
+          and loss[0] > loss[1] > loss[2],
+          f"lm_accum: losses not finite, or the first three not falling "
+          f"{loss}")
+    check_counts("lm_accum", counts,
+                 {k: n * timed for k, n in ACCUM_PER_STEP.items()})
+    check(r["peak"] < peak9, f"lm_accum: peak memory {r['peak']} is not "
+                             f"below phase 9's {peak9}")
+    check(inject["found_inf"] == 1.0 and inject["master"] and inject["slots"]
+          and inject["step"] and inject["overflows"] == 1
+          and inject["scale_after"] == inject["scale_before"] / 2,
+          f"lm_accum: the poisoned microbatch was not skipped {inject}")
+    return counts, row
+
+
+def fp16_grads(torch, model, opt, toks):
+    """The grads of ``opt.scale_loss(loss)`` with respect to the model's
+    param tree (``opt.params_tree()``, the masters in the model dtype),
+    and the loss."""
+    from apex_tpu_torch.ops import flat
+    params = flat.tree_map(lambda t: t.detach().requires_grad_(True),
+                           opt.params_tree())
+    leaves, treedef = flat.tree_flatten(params)
+    loss = model.loss(params, toks)
+    grads = torch.autograd.grad(opt.scale_loss(loss), leaves)
+    return flat.tree_unflatten(treedef, list(grads)), loss.detach()
+
+
+def fp16opt_adagrad_phase(torch, dispatch, model, params) -> tuple:
+    """The legacy fp16_utils path on phase 9's model and batch:
+    ``FP16_Optimizer(FusedAdagrad(lr=1e-4, model_dtype=bf16),
+    dynamic_loss_scale=True)``, each step the grads of the scaled loss,
+    ``clip_master_grads(1.0)`` and ``step``: 3 warm-up and 5 timed steps
+    (CUDA events around each step; each step reads the overflow flag on
+    the host), each step's norm held against the plain version's on the
+    same grads between the steps; then an injected overflow."""
+    from apex_tpu_torch.fp16_utils import FP16_Optimizer
+    from apex_tpu_torch.optimizers import FusedAdagrad
+    from apex_tpu_torch.prof import numerics
+
+    c = LM_SHAPE
+    warm, timed = 3, 5
+    toks = lm_batch(torch)
+    opt = FP16_Optimizer(FusedAdagrad(params, lr=1e-4,
+                                      model_dtype=torch.bfloat16),
+                         dynamic_loss_scale=True)
+    n_leaves = opt.optimizer._tables[0].num_segments
+    losses, norms, rel = [], [], []
+    step_ms = []
+    torch.cuda.synchronize()
+    for i in range(warm + timed):
+        if i == warm:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        grads, loss = fp16_grads(torch, model, opt, toks)
+        clipped, norm = opt.clip_master_grads(FP16_MAX_NORM, grads)
+        opt.step(clipped)
+        b.record()
+        if i >= warm:
+            torch.cuda.synchronize()
+            step_ms.append(a.elapsed_time(b))
+        check(not opt.overflow, f"fp16opt_adagrad: step {i} overflowed")
+        with dispatch.backend("reference"):
+            _, norm0 = opt.clip_master_grads(FP16_MAX_NORM, grads)
+        rel.append(float((norm - norm0).abs() / norm0))
+        losses.append(float(loss))
+        norms.append(float(norm))
+        del grads, clipped
+    counts = read_counts()          # the plain norm checks launch none
+    peak = torch.cuda.max_memory_allocated()
+    coefs = [min(FP16_MAX_NORM / (n + 1e-6), 1.0) for n in norms]
+    flops = lm_step_flops(opt.optimizer._tables[0].total)
+    tokens = c["batch"] * c["seq"]
+    per_step = {"l2norm": 1, "adagrad": 1, "scale": 1 + n_leaves}
+    # an inf in one leaf's grad: the clip passes it through, the step is
+    # skipped, the leaf named
+    grads, _ = fp16_grads(torch, model, opt, toks)
+    leaf = "layer_3/mlp/w1"
+    grads["layer_3"]["mlp"]["w1"][7, 11] = float("inf")
+    gs0, scale0 = opt.optimizer.state[0], opt.loss_scale
+    opt.step(opt.clip_master_grads(FP16_MAX_NORM, grads)[0])
+    gs1 = opt.optimizer.state[0]
+    inject = {"overflow": opt.overflow,
+              "master": bool(torch.equal(gs1.master, gs0.master)),
+              "slots": bool(torch.equal(gs1.slots["sum"],
+                                        gs0.slots["sum"])),
+              "step": int(gs1.step) == int(gs0.step),
+              "scale_before": scale0, "scale_after": opt.loss_scale,
+              "culprits": opt.last_culprits,
+              "leaves": numerics.tree_meta(grads).n}
+    del grads
+    step_ms_sorted = sorted(step_ms)
+    row = {"phase": "fp16opt_adagrad", "model": "TransformerLM", **c,
+           "dtype": "bfloat16", "masters": "float32",
+           "optimizer": "FP16_Optimizer(FusedAdagrad(lr=1e-4), "
+                        "dynamic_loss_scale=True)",
+           "max_norm": FP16_MAX_NORM, "steps_timed": timed,
+           "tok_per_s": tokens * timed / (sum(step_ms) / 1e3),
+           "step_ms_p50": statistics.median(step_ms),
+           "step_ms_p95": step_ms_sorted[min(timed - 1, int(round(
+               0.95 * (timed - 1))))],
+           "mfu": flops * timed / (sum(step_ms) / 1e3) / BF16_DENSE_OPS_S,
+           "peak_mem_bytes": peak, "losses": losses, "norms": norms,
+           "clip_coef": coefs, "norm_rel_err": rel, "grad_leaves": n_leaves,
+           "launches": {k: counts[k] for k in per_step},
+           "launches_per_step": {k: counts[k] / timed for k in per_step},
+           "inject": inject}
+    emit(row)
+    check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+          f"fp16opt_adagrad: losses not finite and falling {losses}")
+    check(max(rel) <= 1e-5, f"fp16opt_adagrad: norms off the plain "
+                            f"version's by {rel}")
+    check_counts("fp16opt_adagrad", counts,
+                 {k: n * timed for k, n in per_step.items()})
+    check(inject["overflow"] and inject["master"] and inject["slots"]
+          and inject["step"] and inject["scale_after"] == scale0 / 2
+          and inject["culprits"][:1] == [{
+              "path": leaf, "inf": 1, "nan": 0,
+              "abs_max": inject["culprits"][0]["abs_max"]}],
+          f"fp16opt_adagrad: the injected overflow {inject}")
+    return counts, row
+
+
+def fp16opt_crosscheck_phase(torch, dispatch):
+    """The small LM of phase 10 (batch 4) under ``crosscheck``:
+    ``LMTrainer(microbatches=2, loss_scale="dynamic")``, and
+    ``FP16_Optimizer(FusedAdagrad)`` with clipping in both weight-decay
+    modes."""
+    from apex_tpu_torch.fp16_utils import FP16_Optimizer
+    from apex_tpu_torch.models import TransformerLM
+    from apex_tpu_torch.optimizers import FusedAdagrad
+
+    m = TransformerLM(vocab_size=512, max_seq_len=256, embed_dim=128,
+                      num_heads=2, num_layers=2, attn_impl="fast",
+                      head_chunk=512)
+    params = m.init(torch.Generator().manual_seed(2))
+    toks = torch.randint(0, 512, (4, 257), generator=torch.Generator()
+                         .manual_seed(3)).cuda()
+    rows = [adam_crosscheck(torch, dispatch, "fp16opt_crosscheck", m,
+                            params, (toks,), {}, {"lr": 1e-3},
+                            microbatches=2, loss_scale="dynamic")]
+    for w_mode in (False, True):
+        def run(dtype, w_mode=w_mode):
+            opt = FP16_Optimizer(FusedAdagrad(
+                params, lr=1e-3, weight_decay=1e-2, adagrad_w_mode=w_mode,
+                model_dtype=dtype), dynamic_loss_scale=True)
+            grads, loss = [], []
+            for _ in range(3):
+                g, l_ = fp16_grads(torch, m, opt, toks)
+                grads.append(opt.optimizer.flatten_grads(g)[0]
+                             / opt.scaler_state.scale)
+                clipped, _ = opt.clip_master_grads(0.25, g)
+                opt.step(clipped)
+                loss.append(float(l_))
+            return opt.optimizer.state[0].master, grads, loss
+        rows.append(crosscheck(torch, dispatch, "fp16opt_crosscheck", run,
+                               optimizer="FP16_Optimizer(FusedAdagrad)",
+                               adagrad_w_mode=w_mode, max_norm=0.25))
+    return rows
 
 
 # -- phases 14-16: the Seq2Seq Transformer's training step -------------------
@@ -2363,6 +2911,11 @@ def main() -> int:
                                        flat.make_table(rn50_params)))
     # the Seq2Seq step's softmax cross-entropy and kv_bias flash kernels
     rows.update(s2s_kernel_phase(torch, timer))
+    # the accumulation and fp16_utils kernels over the LM's master store,
+    # and impl="auto"'s crossover
+    rows.update(accum_kernel_phase(torch, timer,
+                                   flat.make_table(lm_params).total))
+    flash_crossover_phase(torch)
 
     # 3-4. the serving slice, dense then paged
     model = TransformerLM(vocab_size=32768, max_seq_len=1024,
@@ -2408,10 +2961,15 @@ def main() -> int:
     overflow_phase(torch)
     train_crosscheck_phase(torch, dispatch)
 
-    # 9-10. the LM training slice
-    lcounts, _ = lm_train_phase(torch, lm, lm_params)
+    # 9-10. the LM training slice, with train_ring's accumulation and the
+    # fp16_utils path on the same model and batch
+    lcounts, lrow = lm_train_phase(torch, lm, lm_params)
+    acounts, _ = lm_accum_phase(torch, dispatch, lm, lm_params,
+                                lrow["peak_mem_bytes"])
+    fcounts, _ = fp16opt_adagrad_phase(torch, dispatch, lm, lm_params)
     del lm_params
     lm_crosscheck_phase(torch, dispatch)
+    fp16opt_crosscheck_phase(torch, dispatch)
 
     # 13. the ImageNet step with the kernels against the plain versions
     imagenet_crosscheck_phase(torch, dispatch)
@@ -2436,6 +2994,9 @@ def main() -> int:
             launches[k] += counts[k]
     for k in S2S_PER_STEP:               # the translation step and decode
         launches[k] += scounts[k] + s2s_dec_counts[k]
+    for counts in (acounts, fcounts):    # accumulation, fp16_utils
+        for k, n in counts.items():
+            launches[k] += n
     sources = {
         "decode_attention": (
             "apex_tpu_torch/ops/cuda/csrc/decode_attn.cu",
@@ -2483,6 +3044,12 @@ def main() -> int:
                      "apex_tpu/ops/pallas/xentropy.py:55"),
         "xent_bwd": ("apex_tpu_torch/ops/cuda/csrc/xentropy.cu",
                      "apex_tpu/ops/pallas/xentropy.py:131"),
+        "axpby": ("apex_tpu_torch/ops/cuda/csrc/multi_tensor.cu",
+                  "apex_tpu/ops/pallas/multi_tensor.py:127"),
+        "l2norm": ("apex_tpu_torch/ops/cuda/csrc/multi_tensor.cu",
+                   "apex_tpu/ops/pallas/multi_tensor.py:169"),
+        "adagrad": ("apex_tpu_torch/ops/cuda/csrc/multi_tensor.cu",
+                    "apex_tpu/ops/pallas/multi_tensor.py:322"),
     }
     row_keys = {"decode_attention": ("decode_attention", "bfloat16"),
                 "paged_decode_attention": ("paged_decode_attention",
@@ -2507,7 +3074,9 @@ def main() -> int:
                 **{k: (k, "float32") for k in IMAGENET_KERNELS},
                 # the translation step's loss over its fp32 logits
                 "xent_fwd": ("xent_fwd", "float32"),
-                "xent_bwd": ("xent_bwd", "float32")}
+                "xent_bwd": ("xent_bwd", "float32"),
+                # accumulation and fp16_utils over the LM's master store
+                **{k: (k, "float32") for k in ACCUM_KERNELS}}
     kernels = []
     for name, (src, repl) in sources.items():
         r = rows[row_keys[name]]
@@ -2525,6 +3094,8 @@ def main() -> int:
                          "bound_ms", "bound_by", "library_ms")}
                 for shape in ("encoder", "cross")}
         kernels.append(entry)
+    check(len(kernels) == 23 and all(e["launches"] > 0 for e in kernels),
+          f"kernels line: {[(e['name'], e['launches']) for e in kernels]}")
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "nvidia_smi": nvidia_smi(
               "clocks.sm,power.draw,power.limit,temperature.gpu")})

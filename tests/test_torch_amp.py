@@ -6,7 +6,8 @@ dynamic loss scaler driven through one found_inf pattern in both packages
 injected inf that skips a FusedLAMB step (masters and slots bitwise
 unchanged, ``step`` not advanced, the scale halved) and a clean step
 after it; the O2 wrapper's casts against JAX's ``cast_model_params``; the
-parts of the slice left to later ones raise.
+handle's accumulation and census ops against the JAX handle's; O1's
+autocast, left to a later slice, raises.
 """
 
 import jax.numpy as jnp
@@ -215,11 +216,27 @@ def test_initialize_o2_wraps_casts_and_o1_raises():
     assert seen["x"] == torch.float32
     with pytest.raises(NotImplementedError, match="slice 3"):
         amp.initialize(apply_fn, opt_level="O1", verbosity=0)
+    # the handle's scaler ops are ported: the accumulation and the census
+    # agree with the JAX handle's (tests/test_torch_accumulate.py holds
+    # them case by case)
     _, h1 = amp.initialize(opt_level="O1", verbosity=0)   # no apply_fn
-    st = h1.init_state("cpu")
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        h1.unscale_with_stashed(torch.zeros(128), torch.zeros(128), st)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        h1.accumulate_grads(None, None, None, st)
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        h1.update_with_census(st, torch.tensor(False), torch.zeros(128))
+    _, jh1 = jamp.initialize(opt_level="O1", verbosity=0)
+    st, jst = h1.init_state("cpu"), jh1.init_state()
+    new = np.arange(128, dtype=np.float32) * 3.0
+    got, fi = h1.unscale_with_stashed(torch.from_numpy(new),
+                                      torch.ones(128), st)
+    want, jfi = jh1.unscale_with_stashed(jnp.asarray(new), jnp.ones(128),
+                                         jst)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
+    assert not bool(fi) and not bool(jfi)
+    acc, afi, loss = h1.accumulate_grads(
+        lambda m, mb: torch.sum(m * mb), torch.ones(128),
+        torch.full((2, 128), 2.0), st)
+    assert float(afi) == 0.0 and float(loss) == 256.0
+    assert torch.equal(acc, torch.full((128,), 2.0))
+    new_st, carry = h1.update_with_census(st, torch.tensor(True),
+                                          torch.from_numpy(new))
+    jnew, jcarry = jh1.update_with_census(jst, jnp.asarray(True),
+                                          jnp.asarray(new))
+    assert h1.state_dict(new_st) == jh1.state_dict(jnew)
+    assert int(carry.step) == int(jcarry.step) == 0

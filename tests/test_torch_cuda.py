@@ -275,7 +275,7 @@ def test_trainer_through_the_kernels_matches_plain(card):
     assert bool(torch.isfinite(losses).all()) and losses[-1] < losses[0]
 
 
-# -- the BatchNorm welford passes ------------------------------------------------
+# -- the BatchNorm welford passes ---------------------------------------------
 
 def _bn_case(card, rows, c, dtype, seed=0):
     g = torch.Generator(device=card).manual_seed(seed)
@@ -340,7 +340,7 @@ def test_welford_wrappers_refuse_what_the_kernels_do_not_take(card):
         WF.bn_moments(x.double())
 
 
-# -- the LM training slice: Adam, LayerNorm backward, flash attention ----------
+# -- the LM training slice: Adam, LayerNorm backward, flash attention ---------
 
 @pytest.mark.parametrize("n", [4, 1000, 128 * 1037])
 @pytest.mark.parametrize("gdt,pdt", [(torch.float32, torch.float32),
@@ -532,7 +532,7 @@ def test_lm_trainer_through_the_kernels_matches_plain(card):
     torch.testing.assert_close(losses, losses0, atol=2e-2, rtol=0)
 
 
-# -- the ImageNet slice: per-row norms, SGD, NovoGrad ------------------------------
+# -- the ImageNet slice: per-row norms, SGD, NovoGrad -------------------------
 
 @pytest.mark.parametrize("n", [128, 128 * 8, 128 * 1037])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -890,3 +890,239 @@ def test_seq2seq_trainer_through_the_kernels_matches_plain(card):
         assert [f.launches for f in fns] == before
     assert bool(torch.isfinite(losses).all()) and losses[-1] < losses[0]
     torch.testing.assert_close(losses, losses0, atol=2e-2, rtol=0)
+
+
+# -- gradient accumulation and fp16_utils: axpby, l2norm, Adagrad -------------
+
+DT_PAIRS = [(torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+            (torch.float32, torch.bfloat16), (torch.bfloat16, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("n", [1, 4, 1001, 128 * 1037])
+@pytest.mark.parametrize("xdt,ydt", DT_PAIRS)
+@pytest.mark.parametrize("arg_to_check", [-1, 0, 1])
+def test_axpby_kernel_is_bit_equal_to_plain(card, n, xdt, ydt,
+                                            arg_to_check):
+    from apex_tpu_torch.ops import multi_tensor as MT
+    g = torch.Generator(device=card).manual_seed(n)
+    x = (torch.randn(n, generator=g, device=card) * 1e3).to(xdt)
+    y = torch.randn(n, generator=g, device=card).to(ydt)
+    a = torch.full((), 2.0 ** -10, device=card)
+    before = MT.axpby.launches
+    got, fi = MT.axpby(a, x, 1.0, y, arg_to_check)
+    assert MT.axpby.launches == before + 1
+    want, fi0 = MT.axpby_plain(a, x, 1.0, y, arg_to_check)
+    assert got.dtype == xdt and torch.equal(got, want)
+    assert not bool(fi) and not bool(fi0)
+    # an unaligned view takes the scalar path, same bits
+    if n > 4:
+        got_u, _ = MT.axpby(0.5, x[1:], -3.0, y[1:], arg_to_check)
+        assert torch.equal(got_u, MT.axpby_plain(0.5, x[1:], -3.0, y[1:],
+                                                 arg_to_check)[0])
+
+
+@pytest.mark.parametrize("pos", [0, 64, -1])
+@pytest.mark.parametrize("bad", [float("inf"), float("-inf"), float("nan")])
+@pytest.mark.parametrize("arg", ["x", "y"])
+def test_axpby_kernel_flags_the_checked_input(card, pos, bad, arg):
+    from apex_tpu_torch.ops import multi_tensor as MT
+    x = torch.ones(1001, device=card)
+    y = torch.ones(1001, device=card)
+    (x if arg == "x" else y)[pos] = bad
+    for arg_to_check in (-1, 0, 1):
+        want = arg_to_check == -1 or arg_to_check == (0 if arg == "x" else 1)
+        assert bool(MT.axpby(0.5, x, 1.0, y, arg_to_check)[1]) == want
+        assert bool(MT.axpby_plain(0.5, x, 1.0, y, arg_to_check)[1]) == want
+
+
+@pytest.mark.parametrize("n", [1, 5, 1000, 128 * 1037, 3_000_001])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_l2norm_kernel_matches_plain_and_repeats(card, n, dtype):
+    from apex_tpu_torch.ops import multi_tensor as MT
+    g = torch.Generator(device=card).manual_seed(n)
+    x = (torch.randn(n, generator=g, device=card) * 3).to(dtype)
+    before = MT.l2norm.launches
+    got = MT.l2norm(x)
+    assert MT.l2norm.launches == before + 1
+    want = MT.l2norm_plain(x)
+    assert got.dtype == torch.float32 and got.dim() == 0
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+    assert torch.equal(MT.l2norm(x), got)          # no atomics: same bits
+    if n > 1:                                       # an unaligned view
+        torch.testing.assert_close(MT.l2norm(x[1:]), MT.l2norm_plain(x[1:]),
+                                   rtol=1e-5, atol=0)
+    assert float(MT.l2norm(x[:0])) == 0.0
+
+
+@pytest.mark.parametrize("n", [4, 1000, 128 * 1037])
+@pytest.mark.parametrize("gdt,pdt", DT_PAIRS[:3])
+@pytest.mark.parametrize("mode", [0, 1])
+@pytest.mark.parametrize("wd", [0.0, 1e-2])
+def test_adagrad_kernel_is_bit_equal_to_plain(card, n, gdt, pdt, mode, wd):
+    from apex_tpu_torch.ops import multi_tensor as MT
+    g = torch.Generator(device=card).manual_seed(n)
+    grad = torch.randn(n, generator=g, device=card).to(gdt)
+    p = torch.randn(n, generator=g, device=card).to(pdt)
+    h = (torch.rand(n, generator=g, device=card) * 0.01).to(pdt)
+    sc = MT.adagrad_scalars(lr=1e-2, eps=1e-10, weight_decay=wd,
+                            device=card)
+    before = MT.adagrad.launches
+    got = MT.adagrad(grad, p, h, sc, mode)
+    assert MT.adagrad.launches == before + 1
+    for a, b in zip(got, MT.adagrad_plain(grad, p, h, sc, mode)):
+        assert a.dtype == pdt and torch.equal(a, b)
+
+
+def test_accum_kernel_wrappers_refuse_what_the_kernels_do_not_take(card):
+    from apex_tpu_torch.ops import multi_tensor as MT
+    x = torch.zeros(256, device=card)
+    with pytest.raises(ValueError, match="one length"):
+        MT.axpby(1.0, x, 1.0, x[:128])
+    with pytest.raises(TypeError, match="dtype"):
+        MT.axpby(1.0, x.half(), 1.0, x)
+    with pytest.raises(ValueError, match="device"):
+        MT.axpby(torch.tensor(1.0), x, 1.0, x)
+    with pytest.raises(ValueError, match="flat"):
+        MT.l2norm(x.view(16, 16))
+    with pytest.raises(TypeError, match="dtype"):
+        MT.l2norm(x.double())
+    sc3 = torch.zeros(3, device=card)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        MT.adagrad(x[:6], x[:6], x[:6], sc3, 0)
+    with pytest.raises(TypeError, match="one dtype"):
+        MT.adagrad(x, x, x.bfloat16(), sc3, 0)
+    with pytest.raises(ValueError, match=r"fp32 \[3\]"):
+        MT.adagrad(x, x, x, torch.zeros(4, device=card), 0)
+    with pytest.raises(ValueError, match="mode"):
+        MT.adagrad(x, x, x, sc3, 2)
+
+
+def test_auto_takes_the_kernel_at_the_translation_shape(card):
+    """impl="auto" on the card: the translation encoder's [B·H, S, D] =
+    [1024, 128, 64] bf16 self-attention takes the flash kernels (S 128 is
+    the H100's crossover), the same output as impl="fast"; an fp32 input
+    and a head dim of 32 go to the plain path, where "fast" raises."""
+    from apex_tpu_torch.contrib.multihead_attn import (
+        DEFAULT_FLASH_MIN_S, EncdecMultiheadAttn, SelfMultiheadAttn)
+    from apex_tpu_torch.ops import flash_attn as FA
+    assert DEFAULT_FLASH_MIN_S == 128
+    g = torch.Generator().manual_seed(0)
+    auto = SelfMultiheadAttn(512, 8, bias=True, impl="auto")
+    fast = SelfMultiheadAttn(512, 8, bias=True, impl="fast")
+    p = {k: v.to(card, torch.bfloat16) for k, v in auto.init(g).items()}
+    x = torch.randn(128, 128, 512, generator=g).to(card, torch.bfloat16)
+    q = torch.zeros(1024, 128, 64, device=card, dtype=torch.bfloat16)
+    assert auto._flash_wins(q, q)
+    kpm = torch.zeros(128, 128, dtype=torch.bool, device=card)
+    kpm[:, 100:] = True                     # padded sources: kv_bias
+    before = FA.flash_fwd.launches
+    out, _ = auto.apply(p, x, key_padding_mask=kpm)
+    assert FA.flash_fwd.launches == before + 1
+    out_f, _ = fast.apply(p, x, key_padding_mask=kpm)
+    assert torch.equal(out, out_f)
+    cross = EncdecMultiheadAttn(512, 8, bias=True, impl="auto")
+    pc = {k: v.to(card, torch.bfloat16) for k, v in cross.init(g).items()}
+    tq = torch.randn(129, 128, 512, generator=g).to(card, torch.bfloat16)
+    before = FA.flash_fwd.launches
+    cross.apply(pc, tq, x, key_padding_mask=kpm)     # Sq 129 x Sk 128
+    assert FA.flash_fwd.launches == before + 1
+    # what the kernels do not take goes plain under "auto"
+    p32 = {k: v.float() for k, v in p.items()}
+    before = FA.flash_fwd.launches
+    out32, _ = auto.apply(p32, x.float())
+    assert FA.flash_fwd.launches == before and out32.dtype == torch.float32
+    with pytest.raises(TypeError, match="bfloat16"):
+        fast.apply(p32, x.float())
+    narrow = SelfMultiheadAttn(512, 16, bias=True, impl="auto")
+    before = FA.flash_fwd.launches
+    narrow.apply(p, x)
+    assert FA.flash_fwd.launches == before
+
+
+def test_lm_accumulation_through_the_kernels_matches_plain(card):
+    """Three steps of a small LM with two microbatches and a dynamic loss
+    scale (train_ring's step): two axpby launches and one Adam a step,
+    the same bits twice, the plain run's losses within 2e-2 and none of
+    its kernels launched."""
+    from apex_tpu_torch.models import TransformerLM
+    from apex_tpu_torch.ops import multi_tensor as MT
+    from apex_tpu_torch.train import LMTrainer
+    m = TransformerLM(vocab_size=512, max_seq_len=256, embed_dim=128,
+                      num_heads=2, num_layers=2, attn_impl="fast",
+                      head_chunk=256)
+    params = m.init(0)
+    toks = torch.randint(0, 512, (4, 257), generator=torch.Generator()
+                         .manual_seed(1)).to(card)
+
+    def run():
+        tr = LMTrainer(m, params, lr=1e-3, microbatches=2,
+                       loss_scale="dynamic")
+        return torch.stack([tr.step(toks) for _ in range(3)]), tr
+
+    before = (MT.axpby.launches, MT.adam.launches)
+    losses, tr = run()
+    assert (MT.axpby.launches - before[0], MT.adam.launches - before[1]) \
+        == (6, 3)
+    losses2, tr2 = run()
+    assert torch.equal(losses, losses2)
+    assert torch.equal(tr.opt.state[0].master, tr2.opt.state[0].master)
+    with dispatch.backend("reference"):
+        before = MT.axpby.launches
+        losses0, _ = run()
+        assert MT.axpby.launches == before
+    assert bool(torch.isfinite(losses).all()) and losses[-1] < losses[0]
+    torch.testing.assert_close(losses, losses0, atol=2e-2, rtol=0)
+    assert float(tr.handle.loss_scale(tr.amp_state)) == 65536.0
+
+
+def test_fp16_optimizer_adagrad_through_the_kernels_matches_plain(card):
+    """Three clipped FP16_Optimizer(FusedAdagrad) steps of a small LM:
+    one l2norm, one adagrad and 1 + leaves scale launches a step, norms
+    within 1e-5 of the plain run's on the same grads, and an overflow
+    that skips the step and names its leaf."""
+    from apex_tpu_torch import fp16_utils as F16
+    from apex_tpu_torch.models import TransformerLM
+    from apex_tpu_torch.ops import flat
+    from apex_tpu_torch.ops import multi_tensor as MT
+    from apex_tpu_torch.optimizers import FusedAdagrad
+    m = TransformerLM(vocab_size=512, max_seq_len=256, embed_dim=128,
+                      num_heads=2, num_layers=2, attn_impl="fast",
+                      head_chunk=256)
+    opt = F16.FP16_Optimizer(FusedAdagrad(m.init(0), lr=1e-3,
+                                          weight_decay=1e-2,
+                                          model_dtype=torch.bfloat16),
+                             dynamic_loss_scale=True)
+    toks = torch.randint(0, 512, (2, 257), generator=torch.Generator()
+                         .manual_seed(1)).to(card)
+    n_leaves = opt.optimizer._tables[0].num_segments
+
+    def grads_of():
+        params = flat.tree_map(lambda t: t.detach().requires_grad_(True),
+                               opt.params_tree())
+        leaves, treedef = flat.tree_flatten(params)
+        loss = m.loss(params, toks)
+        g = torch.autograd.grad(opt.scale_loss(loss), leaves)
+        return flat.tree_unflatten(treedef, g), loss
+
+    fns = (MT.l2norm, MT.adagrad, MT.scale)
+    losses = []
+    for _ in range(3):
+        grads, loss = grads_of()
+        before = [f.launches for f in fns]
+        clipped, norm = opt.clip_master_grads(0.5, grads)
+        opt.step(clipped)
+        assert [f.launches - b for f, b in zip(fns, before)] == \
+            [1, 1, 1 + n_leaves]
+        with dispatch.backend("reference"):
+            _, norm0 = opt.clip_master_grads(0.5, grads)
+        torch.testing.assert_close(norm, norm0, rtol=1e-5, atol=0)
+        assert not opt.overflow
+        losses.append(float(loss))
+    assert losses[-1] < losses[0]
+    grads, _ = grads_of()
+    grads["layer_1"]["mlp"]["w1"][3, 5] = float("inf")
+    master = opt.optimizer.state[0].master.clone()
+    opt.step(opt.clip_master_grads(0.5, grads)[0])
+    assert opt.overflow and opt.loss_scale == 32768.0
+    assert torch.equal(opt.optimizer.state[0].master, master)
+    assert opt.last_culprits[0]["path"] == "layer_1/mlp/w1"

@@ -17,6 +17,7 @@ larger gradients): the two sum the keys in other blocks and orders.
 """
 
 import importlib
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -33,6 +34,8 @@ JFA = importlib.import_module(
     "apex_tpu.contrib.multihead_attn.flash_attention")
 TFA = importlib.import_module(
     "apex_tpu_torch.contrib.multihead_attn.flash_attention")
+MODULES = importlib.import_module(
+    "apex_tpu_torch.contrib.multihead_attn.modules")
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
@@ -246,22 +249,56 @@ def test_unported_options_raise():
         SelfMultiheadAttn(64, 2, impl="flash")
 
 
+def _bf16(*shape):
+    """A bf16 tensor of ``shape`` holding one row (the rule reads shapes)."""
+    return torch.zeros(1, *shape[1:], dtype=torch.bfloat16).expand(*shape)
+
+
 def test_auto_rule_is_the_constant_not_the_environment(monkeypatch):
-    """impl="auto": flash from max(Sq, Sk) >= flash_min_s (4096 unset) or
-    once the unfused path's ~6 fp32 score buffers pass 2 GiB; the TPU's
-    environment override and crossover file are not read."""
+    """impl="auto": the threshold is the port's own constant, the H100's
+    crossover (128, PERF.md), not the JAX package's TPU one (4096); the
+    TPU's environment override and crossover file are not read. On the
+    card, flash from max(Sq, Sk) >= flash_min_s or once the unfused
+    path's ~6 fp32 score buffers pass 2 GiB."""
     monkeypatch.setenv("APEX_FLASH_MIN_S", "8")
     monkeypatch.setenv("APEX_FLASH_COMPOSED_BYTES", "1")
-    assert TFA.DEFAULT_FLASH_MIN_S == JFA.DEFAULT_FLASH_MIN_S == 4096
-    mha = SelfMultiheadAttn(64, 2, causal=True, impl="auto")
-    small = torch.zeros(2, 64, 32)
+    assert TFA.DEFAULT_FLASH_MIN_S == 128
+    assert JFA.DEFAULT_FLASH_MIN_S == 4096
+    src = Path(TFA.__file__).read_text() + Path(
+        importlib.import_module("apex_tpu_torch.contrib.multihead_attn."
+                                "modules").__file__).read_text()
+    for word in ("import os", "getenv", "open(", ".json"):
+        assert word not in src
+    monkeypatch.setattr(MODULES, "_on_card", lambda t: True)
+    mha = SelfMultiheadAttn(128, 2, causal=True, impl="auto")
+    small = _bf16(2, 64, 64)
     assert not mha._flash_wins(small, small)
-    long = torch.zeros(1, 4096, 1)
-    assert mha._flash_wins(long, long)
-    wide = torch.zeros(8192, 2048, 1)      # 6 * 8192 * 2048^2 * 4 B > 2 GiB
+    at = _bf16(2, 128, 64)
+    assert mha._flash_wins(at, at)
+    wide = _bf16(20000, 127, 64)       # 6 * 20000 * 127^2 * 4 B > 2 GiB
     assert mha._flash_wins(wide, wide)
-    assert SelfMultiheadAttn(64, 2, impl="auto",
+    assert SelfMultiheadAttn(128, 2, impl="auto",
                              flash_min_s=64)._flash_wins(small, small)
+
+
+def test_auto_takes_the_kernel_only_where_it_takes_the_call(monkeypatch):
+    """The kernels take bf16 on the card with head dim 64 or 128 and no
+    full bias or dropout; "auto" sends everything else to the plain path
+    (a routing rule: "fast" still raises on those, test_torch_cuda.py)."""
+    mha = SelfMultiheadAttn(128, 2, impl="auto")
+    long = _bf16(2, 4096, 64)
+    assert not mha._flash_wins(long, long)            # a CPU tensor
+    monkeypatch.setattr(MODULES, "_on_card", lambda t: True)
+    assert mha._flash_wins(long, long)
+    f32 = torch.zeros(2, 4096, 64)
+    assert not mha._flash_wins(f32, f32)
+    for d in (32, 96, 256):
+        t = _bf16(2, 4096, d)
+        assert not mha._flash_wins(t, t)
+    assert mha._flash_wins(_bf16(2, 4096, 128), _bf16(2, 4096, 128))
+    assert not mha._flash_wins(long, long, bias=torch.zeros(1, 4096, 4096))
+    assert not mha._flash_wins(long, long, dropout_rate=0.1)
+    assert not mha._flash_wins(_bf16(65536, 128, 64), _bf16(65536, 128, 64))
 
 
 @pytest.mark.parametrize("impl", ["fast", "default", "auto"])

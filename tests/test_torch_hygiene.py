@@ -27,7 +27,9 @@ def _sources():
 def test_fresh_import_pulls_in_no_jax():
     code = ("import sys, apex_tpu_torch, apex_tpu_torch.serve, "
             "apex_tpu_torch.models, apex_tpu_torch.convert, "
-            "apex_tpu_torch.models.seq2seq, apex_tpu_torch.ops.xentropy\n"
+            "apex_tpu_torch.models.seq2seq, apex_tpu_torch.ops.xentropy, "
+            "apex_tpu_torch.fp16_utils, apex_tpu_torch.prof.numerics, "
+            "apex_tpu_torch.optimizers.fused_adagrad\n"
             "from apex_tpu_torch.models import Seq2SeqTransformer\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'apex_tpu.')) or "
@@ -195,7 +197,7 @@ def test_ctypes_declarations_match_the_c_entry_points():
     cuda._declare(so)
     for name, n in sigs.items():
         assert len(getattr(so, name).argtypes) == n, name
-    assert len(sigs) == 19
+    assert len(sigs) == 22
 
 
 def test_lm_training_entry_points_default_to_the_card_and_raise_without_it(
@@ -316,3 +318,26 @@ def test_imagenet_entry_points_default_to_the_card_and_raise_without_it(
     top1, top5 = tr.evaluate(x, torch.tensor([1, 2]))
     assert loss.device.type == top1.device.type == "cpu"
     assert tr.opt.state[0].master.device.type == "cpu"
+
+
+def test_fp16_utils_entry_points_default_to_the_card_and_raise_without_it(
+        no_cuda):
+    from apex_tpu_torch.convert import optimizer_state_dict_from_jax
+    from apex_tpu_torch.fp16_utils import (DynamicLossScaler, FP16_Optimizer,
+                                           LossScaler)
+    from apex_tpu_torch.optimizers import FusedAdagrad
+    from apex_tpu_torch.prof import numerics
+    p = {"w": torch.zeros(4, 4)}
+    for call in (lambda: FusedAdagrad(p), lambda: LossScaler(),
+                 lambda: DynamicLossScaler(),
+                 lambda: numerics.empty_census(3),
+                 lambda: optimizer_state_dict_from_jax(
+                     {"param_groups": [], "groups": []})):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    opt = FP16_Optimizer(FusedAdagrad(p, device="cpu"),
+                         dynamic_loss_scale=True)
+    assert opt.scaler_state.scale.device.type == "cpu"
+    opt.step({"w": torch.ones(4, 4)})
+    assert not opt.overflow
+    assert opt.optimizer.state[0].master.device.type == "cpu"
