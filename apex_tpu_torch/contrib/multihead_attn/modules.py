@@ -1,19 +1,23 @@
 """Self and encoder-decoder multihead attention — counterpart of
-``apex_tpu/contrib/multihead_attn/modules.py`` for what the LM and the
-Seq2Seq Transformer need: the packed parameter layouts and xavier init
-(:38-43, :211-236, :305-318), the two mask kinds split onto the kernels'
-inputs (``_masks_to_biases``, :57-75), and the forward with the attention
-core chosen by ``impl`` (:169-203): ``"fast"`` the flash kernels,
-``"default"`` the unfused ``reference_attention``, ``"auto"`` the flash
-kernels where they take the call (bf16 on the card, head dim 64 or 128,
-no full bias, no dropout) from ``flash_min_s`` (``DEFAULT_FLASH_MIN_S``,
-the H100's crossover, when unset) or when the unfused scores would pass
-2 GiB (``_flash_wins``, :138-167), both constants here.
+``apex_tpu/contrib/multihead_attn/modules.py`` for what the LM, the
+Seq2Seq Transformer and the ViT need: the packed parameter layouts and
+xavier init (:38-43, :211-236, :305-318), the two mask kinds split onto the
+kernels' inputs (``_masks_to_biases``, :57-75), and the forward with the
+attention core chosen by ``impl`` (:169-203): ``"fast"`` the flash
+kernels, ``"default"`` the unfused ``reference_attention``, ``"auto"`` the
+flash kernels where they take the call (bf16 on the card, head dim 64 or
+128) from ``flash_min_s`` (``DEFAULT_FLASH_MIN_S``, the H100's crossover,
+when unset) or when the unfused scores would pass 2 GiB (``_flash_wins``,
+:138-167), both constants here.
 
 A ``key_padding_mask`` [B, Sk] (True = pad) becomes the per-key
-``kv_bias`` [B·H, Sk], which both cores take; an ``attn_mask`` [Sq, Sk]
-becomes a full additive bias, which only ``impl="default"`` takes (the
-flash kernels' full bias is not ported yet and raises).
+``kv_bias`` [B·H, Sk], and an ``attn_mask`` [Sq, Sk] a full additive bias
+[1, Sq, Sk]; every core takes both, the flash kernels with
+``bias_grad=False`` (a constructed mask, :195-197). Dropout (training,
+``dropout`` > 0) drops the attention probabilities in the core with the
+coordinate hash, from the int ``dropout_seed`` the caller passes per call
+(JAX derives it from a key, ``_dropout_seed``, :78-80); without a seed
+there is no dropout, as without a key there.
 
 Parameters keep the JAX layout ``[in, out]`` (``in_proj`` [E, 3E],
 ``q_proj`` [E, E], ``kv_proj`` [E, 2E], ``out_proj`` [E, E]) so
@@ -81,8 +85,7 @@ def _masks_to_biases(key_padding_mask, attn_mask, h: int, sq: int, sk: int):
 @dataclasses.dataclass(frozen=True)
 class _AttnBase:
     """What both modules share: the config, ``impl``'s rule and the
-    attention core. ``dropout`` > 0 is refused in training (not ported
-    yet)."""
+    attention core."""
     embed_dim: int
     num_heads: int
     bias: bool = False
@@ -97,27 +100,29 @@ class _AttnBase:
         if self.impl not in ("fast", "default", "auto"):
             raise ValueError(f"impl must be 'fast', 'default' or 'auto', "
                              f"got {self.impl!r}")
+        if not 0.0 <= self.dropout < 1.0:
+            raise ValueError(f"dropout must be in [0, 1), got "
+                             f"{self.dropout}")
 
     @property
     def head_dim(self) -> int:
         return self.embed_dim // self.num_heads
 
-    def _flash_wins(self, q, k, bias=None, dropout_rate: float = 0.0
-                    ) -> bool:
+    def _flash_wins(self, q, k) -> bool:
         """impl="auto": the kernels only where they take the call — bf16
-        tensors on the card, head dim 64 or 128, at most 65535 heads, no
-        full ``bias``, no dropout — and from ``flash_min_s``
-        (``DEFAULT_FLASH_MIN_S`` when unset) or once the plain path's
-        scores would pass 2 GiB. Anything else goes to
-        ``reference_attention``, as JAX's "auto" does below its crossover.
-        A routing rule, not a fallback: ``impl="fast"`` still raises on
-        what the kernels do not take."""
+        tensors on the card, head dim 64 or 128, at most 65535 heads —
+        and from ``flash_min_s`` (``DEFAULT_FLASH_MIN_S`` when unset) or
+        once the plain path's scores would pass 2 GiB. The kernels take
+        the full bias and dropout, so neither routes a call away. Anything
+        else goes to ``reference_attention``, as JAX's "auto" does below
+        its crossover. A routing rule, not a fallback: ``impl="fast"``
+        still raises on what the kernels do not take."""
         bh = 1
         for d in q.shape[:-2]:
             bh *= d
         if not (_on_card(q) and q.dtype == torch.bfloat16
                 and k.dtype == q.dtype and q.shape[-1] in KERNEL_HEAD_DIMS
-                and bh <= 65535 and bias is None and dropout_rate == 0.0):
+                and bh <= 65535):
             return False
         thr = self.flash_min_s if self.flash_min_s is not None \
             else DEFAULT_FLASH_MIN_S
@@ -125,22 +130,24 @@ class _AttnBase:
         return max(sq, sk) >= thr or \
             6 * bh * sq * sk * 4 > COMPOSED_SCORE_BYTES
 
-    def _core(self, q, k, v, bias, kv_bias, is_training: bool):
+    def _core(self, q, k, v, bias, kv_bias, is_training: bool,
+              dropout_seed=None):
         """The attention core over [B·H, S, D]; the masks are constructed,
-        so neither gets a gradient."""
-        if is_training and self.dropout > 0.0:
-            raise NotImplementedError(
-                "attention dropout is not ported yet (ROADMAP.md Queue 1, "
-                "item 15)")
+        so neither gets a gradient. Dropout at ``self.dropout`` in training
+        when a ``dropout_seed`` is given (:175-178)."""
         scale = 1.0 / float(self.head_dim) ** 0.5
+        rate = self.dropout if (is_training and self.dropout > 0.0
+                                and dropout_seed is not None) else 0.0
+        seed = int(dropout_seed) if rate > 0.0 else 0
         if self.impl == "fast" or (self.impl == "auto"
-                                   and self._flash_wins(
-                                       q, k, bias,
-                                       self.dropout if is_training else 0.0)):
+                                   and self._flash_wins(q, k)):
             return flash_attention(q, k, v, bias, kv_bias=kv_bias,
-                                   causal=self.causal, scale=scale)
+                                   causal=self.causal, scale=scale,
+                                   bias_grad=False, dropout_rate=rate,
+                                   dropout_seed=seed)
         return reference_attention(q, k, v, bias, kv_bias=kv_bias,
-                                   causal=self.causal, scale=scale)
+                                   causal=self.causal, scale=scale,
+                                   dropout_rate=rate, dropout_seed=seed)
 
     def _project_out(self, params, out, b):
         out = _merge_heads(out, b) @ params["out_proj"]
@@ -168,10 +175,11 @@ class SelfMultiheadAttn(_AttnBase):
     def apply(self, params: dict, query: torch.Tensor, *,
               key_padding_mask: Optional[torch.Tensor] = None,
               attn_mask: Optional[torch.Tensor] = None,
-              is_training: bool = True):
+              is_training: bool = True, dropout_seed=None):
         """query: [T, B, E] time-major; ``key_padding_mask`` bool [B, T]
-        (True = pad), ``attn_mask`` additive [T, T]. Returns (output
-        [T, B, E], None) like the JAX module."""
+        (True = pad), ``attn_mask`` additive [T, T]; ``dropout_seed`` an
+        int for this call's dropout mask. Returns (output [T, B, E], None)
+        like the JAX module."""
         t, b, e = query.shape
         qkv = query @ params["in_proj"]
         if self.bias:
@@ -180,7 +188,8 @@ class SelfMultiheadAttn(_AttnBase):
                    for a in torch.split(qkv, e, dim=-1))
         bias, kv_bias = _masks_to_biases(key_padding_mask, attn_mask,
                                          self.num_heads, t, t)
-        out = self._core(q, k, v, bias, kv_bias, is_training)
+        out = self._core(q, k, v, bias, kv_bias, is_training,
+                         dropout_seed)
         return self._project_out(params, out, b), None
 
     __call__ = apply
@@ -208,10 +217,11 @@ class EncdecMultiheadAttn(_AttnBase):
               key_value: torch.Tensor, *,
               key_padding_mask: Optional[torch.Tensor] = None,
               attn_mask: Optional[torch.Tensor] = None,
-              is_training: bool = True):
+              is_training: bool = True, dropout_seed=None):
         """query: [Tq, B, E]; key_value: [Tk, B, E]; ``key_padding_mask``
-        bool [B, Tk] (True = pad), ``attn_mask`` additive [Tq, Tk].
-        Returns (output [Tq, B, E], None)."""
+        bool [B, Tk] (True = pad), ``attn_mask`` additive [Tq, Tk];
+        ``dropout_seed`` as for ``SelfMultiheadAttn``. Returns (output
+        [Tq, B, E], None)."""
         tq, b, e = query.shape
         tk = key_value.shape[0]
         q = query @ params["q_proj"]
@@ -223,7 +233,8 @@ class EncdecMultiheadAttn(_AttnBase):
         q, k, v = (_split_heads(a, self.num_heads) for a in (q, k, v))
         bias, kv_bias = _masks_to_biases(key_padding_mask, attn_mask,
                                          self.num_heads, tq, tk)
-        out = self._core(q, k, v, bias, kv_bias, is_training)
+        out = self._core(q, k, v, bias, kv_bias, is_training,
+                         dropout_seed)
         return self._project_out(params, out, b), None
 
     __call__ = apply

@@ -1,6 +1,7 @@
 """Models of the port (counterpart of ``apex_tpu/models``): the
-``TransformerLM``, the ``Seq2SeqTransformer`` and the ``ResNet`` family.
-Names import lazily."""
+``TransformerLM``, the ``Seq2SeqTransformer``, the ``ResNet`` family
+(``analytic_flops`` is ResNet's) and the ``ViT`` family (its FLOP count is
+``models.vit.analytic_flops``). Names import lazily."""
 
 from __future__ import annotations
 
@@ -10,7 +11,8 @@ _EXPORTS = {
     "TransformerLM": "transformer", "Seq2SeqTransformer": "seq2seq",
     "ResNet": "resnet", "analytic_flops": "resnet", "resnet18": "resnet",
     "resnet34": "resnet", "resnet50": "resnet", "resnet101": "resnet",
-    "resnet152": "resnet",
+    "resnet152": "resnet", "ViT": "vit", "vit_tiny": "vit",
+    "vit_small": "vit", "vit_b16": "vit", "vit_l16": "vit",
 }
 
 __all__ = sorted(_EXPORTS)

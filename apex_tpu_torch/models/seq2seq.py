@@ -13,7 +13,7 @@ the pre-LN encoder-decoder that ``EncdecMultiheadAttn`` exists for.
 Ported: the config (the JAX class's defaults are Transformer-base: 6 + 6
 layers, width 512, 8 heads, FFN 2048), ``init`` (the JAX names and
 shapes, drawn from a ``torch.Generator``), ``encode``, ``decode``,
-``apply`` and ``loss`` under autograd without dropout, and greedy
+``apply`` and ``loss`` under autograd with attention dropout, and greedy
 decoding: ``_cross_kv``, ``_decode_one``, ``_self_caches``,
 ``_src_bias``, ``_resolve_max_len`` and ``greedy_decode``, a host loop
 over ``_decode_one`` whose attention core is ``reference_attention``, as
@@ -42,7 +42,8 @@ from apex_tpu_torch.contrib.multihead_attn.flash_attention import (
 from apex_tpu_torch.contrib.multihead_attn.modules import (
     EncdecMultiheadAttn, SelfMultiheadAttn)
 from apex_tpu_torch.contrib.xentropy import SoftmaxCrossEntropyLoss
-from apex_tpu_torch.models.transformer import _gelu, _tree_to
+from apex_tpu_torch.models.transformer import (_gelu, _layer_seeds,
+                                                _tree_to)
 from apex_tpu_torch.normalization import fused_layer_norm_affine
 
 __all__ = ["Seq2SeqTransformer"]
@@ -70,10 +71,6 @@ class Seq2SeqTransformer:
             raise NotImplementedError(
                 "seq2seq remat is not ported yet (ROADMAP.md Queue 1, "
                 "item 21)")
-        if self.dropout > 0.0:
-            raise NotImplementedError(
-                "attention dropout is not ported yet (ROADMAP.md Queue 1, "
-                "item 15)")
         self._self_attn(causal=False)        # validates widths and impl
         object.__setattr__(self, "device", resolve_device(self.device))
 
@@ -143,10 +140,21 @@ class Seq2SeqTransformer:
         return F.embedding(tokens.to(emb.device, torch.long), emb) \
             + params["pos_emb"][:t]
 
-    def encode(self, params: dict, src_tokens: torch.Tensor) -> torch.Tensor:
+    @property
+    def num_dropout_seeds(self) -> int:
+        """Seeds a training call takes: one an encoder layer, then two a
+        decoder layer (self- and cross-attention)."""
+        return self.num_encoder_layers + 2 * self.num_decoder_layers
+
+    def encode(self, params: dict, src_tokens: torch.Tensor, *,
+               is_training: bool = False,
+               dropout_seeds=None) -> torch.Tensor:
         """src_tokens int [B, Ts] -> encoder memory [B, Ts, E]. Positions
         equal to ``pad_id`` are masked out of every attention (theirs and
-        the decoder's cross-attention reads)."""
+        the decoder's cross-attention reads). In training,
+        ``dropout_seeds`` holds one int an encoder layer (JAX folds the
+        layer index into its key, seq2seq.py:149-150)."""
+        seeds = _layer_seeds(dropout_seeds, self.num_encoder_layers)
         src_tokens = src_tokens.to(params["src_emb"].device)
         pad = src_tokens == self.pad_id
         x = self._embed(params["src_emb"], src_tokens, params)
@@ -154,16 +162,22 @@ class Seq2SeqTransformer:
         for i in range(self.num_encoder_layers):
             lp = params[f"enc_{i}"]
             h = self._ln(x, lp["ln1"]).transpose(0, 1)
-            a, _ = sa.apply(lp["attn"], h, key_padding_mask=pad)
+            a, _ = sa.apply(lp["attn"], h, key_padding_mask=pad,
+                            is_training=is_training, dropout_seed=seeds[i])
             x = x + a.transpose(0, 1)
             x = x + self._mlp(self._ln(x, lp["ln2"]), lp["mlp"])
         return self._ln(x, params["ln_enc"])
 
     def decode(self, params: dict, tgt_tokens: torch.Tensor,
-               memory: torch.Tensor,
-               src_tokens: torch.Tensor) -> torch.Tensor:
+               memory: torch.Tensor, src_tokens: torch.Tensor, *,
+               is_training: bool = False,
+               dropout_seeds=None) -> torch.Tensor:
         """tgt_tokens int [B, Tt]; memory [B, Ts, E] from :meth:`encode`.
-        Returns fp32 logits [B, Tt, tgt_vocab]."""
+        Returns fp32 logits [B, Tt, tgt_vocab]. In training,
+        ``dropout_seeds`` holds two ints a decoder layer, its self- and its
+        cross-attention's (JAX folds 0 and 1 into the layer's key,
+        seq2seq.py:166-185)."""
+        seeds = _layer_seeds(dropout_seeds, 2 * self.num_decoder_layers)
         src_pad = src_tokens.to(memory.device) == self.pad_id
         x = self._embed(params["tgt_emb"], tgt_tokens, params)
         sa, ca = self._self_attn(causal=True), self._cross_attn()
@@ -171,32 +185,50 @@ class Seq2SeqTransformer:
         for i in range(self.num_decoder_layers):
             lp = params[f"dec_{i}"]
             a, _ = sa.apply(lp["self_attn"],
-                            self._ln(x, lp["ln1"]).transpose(0, 1))
+                            self._ln(x, lp["ln1"]).transpose(0, 1),
+                            is_training=is_training,
+                            dropout_seed=seeds[2 * i])
             x = x + a.transpose(0, 1)
             a, _ = ca.apply(lp["cross_attn"],
                             self._ln(x, lp["ln2"]).transpose(0, 1), mem_tm,
-                            key_padding_mask=src_pad)
+                            key_padding_mask=src_pad,
+                            is_training=is_training,
+                            dropout_seed=seeds[2 * i + 1])
             x = x + a.transpose(0, 1)
             x = x + self._mlp(self._ln(x, lp["ln3"]), lp["mlp"])
         x = self._ln(x, params["ln_dec"])
         return (x @ params["tgt_emb"].T).float()
 
     def apply(self, params: dict, src_tokens: torch.Tensor,
-              tgt_tokens: torch.Tensor) -> torch.Tensor:
-        """fp32 logits [B, Tt, tgt_vocab]; differentiable in ``params``."""
-        mem = self.encode(params, src_tokens)
-        return self.decode(params, tgt_tokens, mem, src_tokens)
+              tgt_tokens: torch.Tensor, *, is_training: bool = False,
+              dropout_seeds=None) -> torch.Tensor:
+        """fp32 logits [B, Tt, tgt_vocab]; differentiable in ``params``.
+        ``dropout_seeds``: ``num_dropout_seeds`` ints, the encoder's, then
+        the decoder's (JAX's fold order: encoder layer i folds i, decoder
+        layer i folds ``num_encoder_layers + i``)."""
+        seeds = _layer_seeds(dropout_seeds, self.num_dropout_seeds)
+        n = self.num_encoder_layers
+        enc = None if dropout_seeds is None else seeds[:n]
+        dec = None if dropout_seeds is None else seeds[n:]
+        mem = self.encode(params, src_tokens, is_training=is_training,
+                          dropout_seeds=enc)
+        return self.decode(params, tgt_tokens, mem, src_tokens,
+                           is_training=is_training, dropout_seeds=dec)
 
     __call__ = apply
 
     def loss(self, params: dict, src_tokens: torch.Tensor,
-             tgt_tokens: torch.Tensor, *,
+             tgt_tokens: torch.Tensor, *, is_training: bool = True,
+             dropout_seeds=None,
              label_smoothing: float = 0.0) -> torch.Tensor:
         """Teacher-forced next-token cross entropy over the non-pad target
         positions: the decoder reads ``tgt_tokens[:, :-1]`` and predicts
         ``tgt_tokens[:, 1:]``, with ``label_smoothing`` and the pad rows
-        skipped (seq2seq.py:205-222)."""
-        logits = self.apply(params, src_tokens, tgt_tokens[:, :-1])
+        skipped (seq2seq.py:205-222); ``dropout_seeds`` as for
+        :meth:`apply`."""
+        logits = self.apply(params, src_tokens, tgt_tokens[:, :-1],
+                            is_training=is_training,
+                            dropout_seeds=dropout_seeds)
         targets = tgt_tokens[:, 1:].to(logits.device).reshape(-1)
         losses = SoftmaxCrossEntropyLoss.apply(
             logits.reshape(-1, self.tgt_vocab_size), targets,

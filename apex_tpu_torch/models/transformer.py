@@ -11,7 +11,8 @@ Pre-LN decoder-only architecture::
 
 Ported: the config fields of both paths, ``init`` (same names and
 shapes, drawn from a ``torch.Generator``), ``apply`` (the forward, under
-autograd, without dropout, remat, MoE or sequence parallelism), ``loss``
+autograd, with attention dropout, without remat, MoE or sequence
+parallelism), ``loss``
 (next-token cross entropy through the chunked fused head, or with
 ``head_chunk=0`` over the full logits through the softmax cross-entropy
 kernels), the KV-cache block stack ``_cached_blocks``, ``_decode_one``,
@@ -90,10 +91,6 @@ class TransformerLM:
             raise NotImplementedError(
                 "remat is a training option, not ported yet (ROADMAP.md "
                 "Queue 1, slice 4)")
-        if self.dropout > 0.0:
-            raise NotImplementedError(
-                "attention dropout is not ported yet (ROADMAP.md Queue 1, "
-                "item 15)")
         if self.head_chunk > 0 and \
                 self.vocab_size % min(self.head_chunk, self.vocab_size):
             raise ValueError(
@@ -150,11 +147,16 @@ class TransformerLM:
         return h @ mp["w2"] + mp["b2"]
 
     def apply(self, params: dict, tokens: torch.Tensor, *,
+              is_training: bool = False, dropout_seeds=None,
               return_hidden: bool = False) -> torch.Tensor:
         """tokens: int [B, T]. Returns logits fp32 [B, T, vocab] or, with
         ``return_hidden``, the final-LN hidden states [B, T, E] (for the
-        chunked head loss). Differentiable in ``params``."""
+        chunked head loss). Differentiable in ``params``. In training,
+        ``dropout_seeds`` (one int per layer, where JAX folds the layer
+        index into its key, transformer.py:189-193) drives the attention
+        dropout; without seeds there is none."""
         b, t = tokens.shape
+        seeds = _layer_seeds(dropout_seeds, self.num_layers)
         if t > self.max_seq_len:
             raise ValueError(
                 f"sequence length {t} exceeds max_seq_len="
@@ -167,7 +169,9 @@ class TransformerLM:
             lp = params[f"layer_{i}"]
             h = self._ln(x, lp["ln1"])
             # MHA modules are time-major [T, B, E]
-            attn_out, _ = mha.apply(lp["attn"], h.transpose(0, 1))
+            attn_out, _ = mha.apply(lp["attn"], h.transpose(0, 1),
+                                    is_training=is_training,
+                                    dropout_seed=seeds[i])
             x = x + attn_out.transpose(0, 1)
             x = x + self._mlp(self._ln(x, lp["ln2"]), lp["mlp"])
         x = self._ln(x, params["ln_f"])
@@ -188,11 +192,14 @@ class TransformerLM:
                                     params["tok_emb"], targets_flat,
                                     chunk=self.head_chunk)
 
-    def loss(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    def loss(self, params: dict, tokens: torch.Tensor, *,
+             is_training: bool = True, dropout_seeds=None) -> torch.Tensor:
         """Mean next-token cross entropy of tokens int [B, T]: the model
         reads ``tokens[:, :-1]`` and predicts ``tokens[:, 1:]``
-        (transformer.py:240-279, ``seq_axis=None``)."""
-        out = self.apply(params, tokens[:, :-1],
+        (transformer.py:240-279, ``seq_axis=None``); ``dropout_seeds`` as
+        for :meth:`apply`."""
+        out = self.apply(params, tokens[:, :-1], is_training=is_training,
+                         dropout_seeds=dropout_seeds,
                          return_hidden=self.head_chunk > 0)
         targets = tokens[:, 1:].to(out.device, torch.long)
         return torch.mean(self._token_losses(params, out,
@@ -353,6 +360,17 @@ class TransformerLM:
                 done = done | (tok == eos_id)
             buf[:, t + 1] = tok
         return buf
+
+
+def _layer_seeds(seeds, n: int) -> list:
+    """``n`` per-call dropout seeds (ints), or ``n`` Nones without any."""
+    if seeds is None:
+        return [None] * n
+    seeds = [int(x) for x in seeds]
+    if len(seeds) != n:
+        raise ValueError(f"dropout_seeds: expected {n} seeds, got "
+                         f"{len(seeds)}")
+    return seeds
 
 
 def _tree_to(tree, device, dtype):

@@ -152,14 +152,18 @@ def _declare(so: ctypes.CDLL) -> None:
     so.apex_adagrad.restype = I
     so.apex_layer_norm_bwd.argtypes = [I, I] + [P] * 9 + [I] * 4 + [P]
     so.apex_layer_norm_bwd.restype = I
-    # kv_bias and its bh stride, bh, sq, sk, d, q_start, k_start, causal
-    tail = [P, L] + [I] * 7 + [F, P]
+    # kv_bias and bias with their bh strides; dropout's seed, threshold
+    # and 1 / (1 - rate); bh, sq, sk, d, q_start, k_start, causal; scale
+    U = ctypes.c_uint32
+    tail = [P, L, P, L, U, U, F] + [I] * 7 + [F, P]
     so.apex_flash_fwd.argtypes = [P] * 5 + [L] * 6 + tail
     so.apex_flash_fwd.restype = I
-    so.apex_flash_bwd_dq.argtypes = [P] * 7 + [L] * 8 + tail
+    so.apex_flash_bwd_dq.argtypes = [P] * 8 + [L] * 8 + tail
     so.apex_flash_bwd_dq.restype = I
     so.apex_flash_bwd_dkv.argtypes = [P] * 8 + [L] * 8 + tail
     so.apex_flash_bwd_dkv.restype = I
+    so.apex_flash_bwd_dbias.argtypes = [P] * 8 + [I] + [L] * 8 + tail
+    so.apex_flash_bwd_dbias.restype = I
     so.apex_xent_fwd.argtypes = [I, P, L, P, I, I, I, I, F, F, P, P, P]
     so.apex_xent_fwd.restype = I
     so.apex_xent_bwd.argtypes = [I, P, L, P, I, P, P, I, I, I, F, F, I, P,

@@ -1,34 +1,48 @@
 // Flash attention over [BH, S, D] bf16 (D 64 or 128): the forward with its
-// per-row logsumexp, and the two backward kernels (dq; dk and dv), each
-// recomputing the probabilities from the saved lse.
+// per-row logsumexp, the two backward kernels (dq, with the per-bh bias
+// gradient dS when asked; dk and dv), each recomputing the probabilities
+// from the saved lse, and the gradient of a bias shared over bh.
 //
 // Replaces the Pallas kernels of
 // apex_tpu/contrib/multihead_attn/flash_attention.py: _flash_fwd ->
-// _fwd_kernel (:181), and _bwd_pallas -> _bwd_dq_kernel (:349) and
-// _bwd_dkv_kernel (:392), with the per-key additive bias kv_bias [1|BH,
-// Sk] fp32 (key-padding masks), without the full [Sq, Sk] bias or dropout
-// (the wrapper refuses those).
+// _fwd_kernel (:181), and _bwd_pallas -> _bwd_dq_kernel (:349),
+// _bwd_dkv_kernel (:392) and _bwd_dbias_kernel (:427), with every input
+// the JAX kernels take: the full additive bias [1|BH, Sq, Sk] fp32, the
+// per-key bias kv_bias [1|BH, Sk] fp32 (key-padding masks) and dropout on
+// the probabilities.
 //
 // Semantics kept from the Pallas kernels: fp32 scores, softmax statistics
 // and accumulators; masking by absolute positions (query row i sits at
 // q_start + i, key j at k_start + j, and with `causal` a query sees the
 // keys at or before it) and by the true key length, so a ragged tail
-// (S = 4095) is masked in the kernel and nothing is padded; the finite
+// (S = 4095, 197) is masked in the kernel and nothing is padded; the finite
 // -inf stand-in kNegInf, so a row with nothing unmasked gives o = 0 and
 // lse = kNegInf; tiles that are wholly masked are skipped (_block_live,
 // :170). delta = rowsum(dO * O) - dlse is computed by the caller, as the
 // JAX wrapper computes it outside Pallas (:474-479).
 //
-// kv_bias (the KVB instantiations) is added to every score before the
-// exponential, s * scale + kvb as at :211-212 and :329-330, here in log2
-// units: s * scale * log2(e) + kvb * log2(e), the bias tile of a block's
-// kTile keys staged in shared memory beside K (in registers in dk/dv,
-// whose block owns the keys). It is data, so it never makes a tile
-// skippable: _block_live's causal and length skip stay as they are, and
-// the all-visible tiles add it too. A key it masks (kvb = -1e30) scores
-// below kNegInf / 2, which the value guard turns into p = 0. The backward
-// keeps that guard (:333-334): a row whose every key is masked has lse =
-// kNegInf, and exp2(s - lse) would otherwise be exp2(0) = 1 there.
+// The biases (the EXTRA instantiations) are added to every score before
+// the exponential, s * scale + bias + kvb as at :206-212 and :324-330,
+// here in log2 units: s * scale * log2(e) + (bias + kvb) * log2(e). The
+// kv_bias tile of a block's kTile keys is staged in shared memory beside
+// K (in registers in dk/dv, whose block owns the keys); the full bias is
+// read per element from global memory (a [1, Sq, Sk] bias shared over bh
+// stays in L2), guarded past Sq and Sk, and dk/dv reads it transposed
+// against the forward (its rows are keys). Biases are data, so they never
+// make a tile skippable: _block_live's causal and length skip stay as
+// they are. A score a bias masks (-1e30) lies below kNegInf / 2, which
+// the value guard turns into p = 0; the backward keeps that guard
+// (:333-334): a row whose every key is masked has lse = kNegInf, and
+// exp2(s - lse) would otherwise be exp2(0) = 1 there.
+//
+// Dropout (drop_inv > 0) is the JAX package's stateless coordinate hash
+// (dropout_bits, :107-126): element (bh, q_start + i, k_start + j) is kept
+// when its 32-bit hash under the seed is >= drop_thresh
+// (_drop_threshold, :129-130), bh = b·H + h. The forward sums the
+// undropped p into l and accumulates the kept p · drop_inv into the
+// output (:223-231), so lse stays dropout-free; the backward recomputes
+// the same mask and applies it to p for dv and to dP, and dS = p · (dP' -
+// delta) with the undropped p (_recompute_p_ds, :309-346).
 //
 // Bound on this card: operations. At the LM's shape (BH = 128, S = 4095,
 // D = 64, causal) the forward's QK^T and PV are 4 * BH * S^2 * D / 2
@@ -52,7 +66,9 @@
 // operand's 64-row tile in two halves of 32, so half the scores are live
 // at once, and each kernel is built for a number of resident blocks
 // (kFwdBlocks and friends). This is still the simple form: no TMA, wgmma
-// or warp specialisation, one tile in flight.
+// or warp specialisation, one tile in flight. The bias, kv_bias and
+// dropout are runtime inputs of one EXTRA form per kernel and head dim,
+// so the plain form (the LM's causal attention) is compiled as before.
 //
 // The backward blocks: dq takes a block per 64 query rows and walks the
 // live key tiles; dk/dv takes a block per 64 keys and walks the live query
@@ -61,6 +77,14 @@
 // the gradients repeat bit for bit. The probabilities and dS enter the
 // second products rounded to bf16, as in every bf16 flash kernel; that is
 // the kernels' difference from the fp32 plain versions.
+//
+// The shared-bias gradient (dbias, :427) sums dS over bh for each (query,
+// key). The Pallas kernel walks bh innermost with the sum in VMEM; here a
+// block owns one 64 x 64 (query, key) tile and a contiguous run of bh
+// (the grid's z), recomputing P and dP per bh as dq does and summing dS
+// in registers in bh order; a second pass adds the runs' partial tiles in
+// run order. No float atomics: repeated runs are bitwise equal. The runs
+// fill the card when there are few tiles (S = 197 has 4 x 4 of them).
 
 #include <type_traits>
 
@@ -76,8 +100,9 @@ constexpr int kThreads = 128;   // four warps of 16 rows
 // blocks an SM must hold at D = 64 (the register cap follows: 128
 // registers a thread at 4, 170 at 3); the D = 128 forms take what they
 // need. Chosen on the H100 at the LM's shape: the forward and dq at 4
-// blocks, dk/dv at 3 (at 4 its dk and dv accumulators spill)
-constexpr int kFwdBlocks = 4, kDqBlocks = 4, kDkvBlocks = 3;
+// blocks, dk/dv at 3 (at 4 its dk and dv accumulators spill); dbias holds
+// dq's operands and its own dS sums, so 3
+constexpr int kFwdBlocks = 4, kDqBlocks = 4, kDkvBlocks = 3, kDbBlocks = 3;
 // exponentials are exp2 of scores pre-multiplied by scale * log2(e)
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -87,10 +112,13 @@ struct Attn {
   const bf16* k;
   const bf16* v;
   const float* kvb;                            // [1|BH, Sk] or null
+  const float* bias;                           // [1|BH, Sq, Sk] or null
   long long q_bh, q_s, k_bh, k_s, v_bh, v_s;   // strides, elements
-  long long kvb_bh;                            // 0 when shared over bh
+  long long kvb_bh, bias_bh;                   // 0 when shared over bh
   int sq, sk, q_start, k_start, causal;
   float scale;
+  uint32_t seed, drop_thresh;                  // dropout's hash and bar
+  float drop_inv;                              // 1 / (1 - rate); 0: none
 };
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -225,14 +253,39 @@ __device__ __forceinline__ void scores_times_tile(float (&acc)[D / 8][4],
   }
 }
 
-// kv_bias of keys [k0, k0 + kTile) in log2 units -> sm [kTile] (0 past sk)
+// kv_bias of keys [k0, k0 + kTile) in log2 units -> sm [kTile] (0 past sk
+// and without a kv_bias)
 __device__ __forceinline__ void load_bias_tile(float* sm, const Attn& a,
                                                int bh, int k0) {
   if (threadIdx.x < kTile) {
     const int kj = k0 + threadIdx.x;
-    sm[threadIdx.x] =
-        kj < a.sk ? a.kvb[bh * a.kvb_bh + kj] * kLog2e : 0.f;
+    sm[threadIdx.x] = a.kvb != nullptr && kj < a.sk
+                          ? a.kvb[bh * a.kvb_bh + kj] * kLog2e : 0.f;
   }
+}
+
+// the full bias of (query qi, key kj), both local and in range, in log2
+// units; 0 without one
+__device__ __forceinline__ float bias_at(const Attn& a, int bh, int qi,
+                                         int kj) {
+  return a.bias != nullptr
+             ? a.bias[bh * a.bias_bh + (long long)qi * a.sk + kj] * kLog2e
+             : 0.f;
+}
+
+// the JAX package's dropout_bits (flash_attention.py:107-126) in uint32
+// arithmetic: keep (bh, query qi, key kj) when its hash >= drop_thresh
+__device__ __forceinline__ bool keep(const Attn& a, int bh, int qi, int kj) {
+  uint32_t x = static_cast<uint32_t>(a.q_start + qi) * 0x9E3779B1u +
+               static_cast<uint32_t>(a.k_start + kj) * 0x85EBCA77u +
+               static_cast<uint32_t>(bh) * 0xC2B2AE3Du +
+               a.seed * 0x27D4EB2Fu;
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  x ^= x >> 16;
+  return x >= a.drop_thresh;
 }
 
 // whether query row qi (local) may see key kj (local)
@@ -262,15 +315,42 @@ __device__ __forceinline__ int live_k_tiles(const Attn& a, int qb) {
   return n;
 }
 
+// The backward's per-element recompute (_recompute_p_ds, :309-346) of
+// (query qi, key kj) in bh: s is q·k, dp is dO·v, kvb2 the key's kv_bias
+// in log2 units, lse2 the row's lse in log2 units. Returns p, dropped and
+// rescaled as the forward applied it (dv's factor), and sets ds = p ·
+// (dP' - delta) with the undropped p (the bias gradient; dq and dk take it
+// times the scale).
+template <bool EXTRA>
+__device__ __forceinline__ float p_ds(const Attn& a, int bh, int qi, int kj,
+                                      bool vis, float s, float kvb2, float dp,
+                                      float lse2, float dlt, float& ds) {
+  float sc = s * (a.scale * kLog2e);
+  if (EXTRA) {
+    sc += kvb2;
+    if (vis) sc += bias_at(a, bh, qi, kj);
+  }
+  const bool live = vis && (!EXTRA || sc > kNegInf * 0.5f);
+  const float p = live ? exp2f(sc - lse2) : 0.f;
+  float pd = p;
+  if (EXTRA && a.drop_inv > 0.f) {
+    const bool kept = keep(a, bh, qi, kj);
+    pd = kept ? p * a.drop_inv : 0.f;
+    dp = kept ? dp * a.drop_inv : 0.f;
+  }
+  ds = p * (dp - dlt);
+  return pd;
+}
+
 // ---- forward ---------------------------------------------------------------
 
-template <int D, bool KVB>
+template <int D, bool EXTRA>
 __global__ void __launch_bounds__(kThreads, D == 64 ? kFwdBlocks : 1)
 flash_fwd_kernel(Attn a, bf16* __restrict__ o, float* __restrict__ lse) {
   constexpr int LD = D + 8;
   __shared__ __align__(16) bf16 sK[kTile * LD];
   __shared__ __align__(16) bf16 sV[kTile * LD];
-  __shared__ float sB[KVB ? kTile : 1];
+  __shared__ float sB[EXTRA ? kTile : 1];
   const int bh = blockIdx.y;
   const int qb = gridDim.x - 1 - blockIdx.x;   // longest causal rows first
   const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
@@ -291,18 +371,21 @@ flash_fwd_kernel(Attn a, bf16* __restrict__ o, float* __restrict__ lse) {
     __syncthreads();                   // the last tile's readers are done
     load_tile<D>(sK, kb, a.k_s, kt * kTile, a.sk);
     load_tile<D>(sV, vb, a.v_s, kt * kTile, a.sk);
-    if (KVB) load_bias_tile(sB, a, bh, kt * kTile);
+    if (EXTRA) load_bias_tile(sB, a, bh, kt * kTile);
     __syncthreads();
     float s[8][4];
     rows_times_tile<D>(s, qf, sK);
-    // scores in log2 units: s * scale * log2(e) (+ kv_bias * log2(e))
+    // scores in log2 units: s * scale * log2(e) (+ the biases * log2(e))
     if (all_visible(a, qw, 16, kt * kTile, kTile)) {
 #pragma unroll
       for (int nt = 0; nt < 8; ++nt) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          s[nt][e] = KVB ? s[nt][e] * sl2 + sB[nt * 8 + 2 * t4 + (e & 1)]
-                         : s[nt][e] * sl2;
+          const int kl = nt * 8 + 2 * t4 + (e & 1);
+          s[nt][e] = EXTRA ? s[nt][e] * sl2 + sB[kl] +
+                                 bias_at(a, bh, qw + g + 8 * (e >> 1),
+                                         kt * kTile + kl)
+                           : s[nt][e] * sl2;
         }
       }
     } else {
@@ -311,9 +394,14 @@ flash_fwd_kernel(Attn a, bf16* __restrict__ o, float* __restrict__ lse) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int qi = qw + g + 8 * (e >> 1);
-          const int kl = nt * 8 + 2 * t4 + (e & 1);
-          const float sc = KVB ? s[nt][e] * sl2 + sB[kl] : s[nt][e] * sl2;
-          s[nt][e] = visible(a, qi, kt * kTile + kl) ? sc : kNegInf;
+          const int kj = kt * kTile + nt * 8 + 2 * t4 + (e & 1);
+          const bool vis = visible(a, qi, kj);
+          float sc = s[nt][e] * sl2;
+          if (EXTRA) {
+            sc += sB[kj - kt * kTile];
+            if (vis) sc += bias_at(a, bh, qi, kj);
+          }
+          s[nt][e] = vis ? sc : kNegInf;
         }
       }
     }
@@ -338,6 +426,12 @@ flash_fwd_kernel(Attn a, bf16* __restrict__ o, float* __restrict__ lse) {
           // a row with nothing unmasked yet keeps p = 0
           s[nt][e] = s[nt][e] > kNegInf * 0.5f ? exp2f(s[nt][e] - mn) : 0.f;
           rs += s[nt][e];
+          // l sums the undropped p; the output takes the kept p rescaled
+          if (EXTRA && a.drop_inv > 0.f) {
+            s[nt][e] = keep(a, bh, qw + g + 8 * h,
+                            kt * kTile + nt * 8 + 2 * t4 + (e & 1))
+                           ? s[nt][e] * a.drop_inv : 0.f;
+          }
         }
       }
       rs += __shfl_xor_sync(0xffffffffu, rs, 1);
@@ -369,17 +463,20 @@ flash_fwd_kernel(Attn a, bf16* __restrict__ o, float* __restrict__ lse) {
   }
 }
 
-// ---- backward: dq ----------------------------------------------------------
+// ---- backward: dq (and the per-bh dS) --------------------------------------
 
-template <int D, bool KVB>
+// ds (null, or fp32 [BH, Sq, Sk] contiguous): dS of every (query, key),
+// unscaled, zeros where a tile is skipped (:382-386)
+template <int D, bool EXTRA>
 __global__ void __launch_bounds__(kThreads, D == 64 ? kDqBlocks : 1)
 flash_dq_kernel(Attn a, const bf16* __restrict__ dout, long long do_bh,
                 long long do_s, const float* __restrict__ lse,
-                const float* __restrict__ delta, bf16* __restrict__ dq) {
+                const float* __restrict__ delta, bf16* __restrict__ dq,
+                float* __restrict__ ds) {
   constexpr int LD = D + 8;
   __shared__ __align__(16) bf16 sK[kTile * LD];
   __shared__ __align__(16) bf16 sV[kTile * LD];
-  __shared__ float sB[KVB ? kTile : 1];
+  __shared__ float sB[EXTRA ? kTile : 1];
   const int bh = blockIdx.y;
   const int qb = gridDim.x - 1 - blockIdx.x;
   const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
@@ -397,18 +494,19 @@ flash_dq_kernel(Attn a, const bf16* __restrict__ dout, long long do_bh,
   }
   const bf16* kb = a.k + bh * a.k_bh;
   const bf16* vb = a.v + bh * a.v_bh;
+  float* dsb = EXTRA && ds != nullptr ? ds + (long long)bh * a.sq * a.sk
+                                      : nullptr;
   float acc[D / 8][4];
 #pragma unroll
   for (int dt = 0; dt < D / 8; ++dt) {
     acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
   }
-  const float sl2 = a.scale * kLog2e;
   const int nkt = live_k_tiles(a, qb);
   for (int kt = 0; kt < nkt; ++kt) {
     __syncthreads();
     load_tile<D>(sK, kb, a.k_s, kt * kTile, a.sk);
     load_tile<D>(sV, vb, a.v_s, kt * kTile, a.sk);
-    if (KVB) load_bias_tile(sB, a, bh, kt * kTile);
+    if (EXTRA) load_bias_tile(sB, a, bh, kt * kTile);
     __syncthreads();
     // the tile's keys in two halves of 32, as dk/dv splits its queries
 #pragma unroll
@@ -425,14 +523,27 @@ flash_dq_kernel(Attn a, const bf16* __restrict__ dout, long long do_bh,
           const int h = e >> 1;
           const int qi = qw + g + 8 * h;
           const int kl = k0 + nt * 8 + 2 * t4 + (e & 1);
-          const float sc = KVB ? s[nt][e] * sl2 + sB[kl] : s[nt][e] * sl2;
-          const bool live = (full || visible(a, qi, kt * kTile + kl)) &&
-                            (!KVB || sc > kNegInf * 0.5f);
-          const float p = live ? exp2f(sc - lse_r[h]) : 0.f;
-          s[nt][e] = p * (dp[nt][e] - dlt_r[h]) * a.scale;   // dS * scale
+          const int kj = kt * kTile + kl;
+          const bool vis = full || visible(a, qi, kj);
+          float d;
+          p_ds<EXTRA>(a, bh, qi, kj, vis, s[nt][e], EXTRA ? sB[kl] : 0.f,
+                      dp[nt][e], lse_r[h], dlt_r[h], d);
+          if (EXTRA && dsb != nullptr && qi < a.sq && kj < a.sk) {
+            dsb[(long long)qi * a.sk + kj] = d;
+          }
+          s[nt][e] = d * a.scale;                    // dS * scale
         }
       }
       scores_times_tile<D, 4>(acc, s, sK + k0 * LD);   // dq += dS K
+    }
+  }
+  if (EXTRA && dsb != nullptr) {
+    // the key tiles the causal mask skips: dS = 0 there
+    const int k_from = nkt * kTile;
+    const int wide = a.sk - k_from;
+    for (int i = threadIdx.x; wide > 0 && i < kTile * wide; i += kThreads) {
+      const int qi = qb * kTile + i / wide;
+      if (qi < a.sq) dsb[(long long)qi * a.sk + k_from + i % wide] = 0.f;
     }
   }
   bf16* out = dq + (long long)bh * a.sq * D;
@@ -450,7 +561,7 @@ flash_dq_kernel(Attn a, const bf16* __restrict__ dout, long long do_bh,
 
 // ---- backward: dk, dv ------------------------------------------------------
 
-template <int D, bool KVB>
+template <int D, bool EXTRA>
 __global__ void __launch_bounds__(kThreads, D == 64 ? kDkvBlocks : 1)
 flash_dkv_kernel(Attn a, const bf16* __restrict__ dout, long long do_bh,
                  long long do_s, const float* __restrict__ lse,
@@ -468,7 +579,7 @@ flash_dkv_kernel(Attn a, const bf16* __restrict__ dout, long long do_bh,
   load_a<D>(vf, a.v + bh * a.v_bh, a.v_s, kw, a.sk);
   // kv_bias of this thread's two key rows, in log2 units
   float kb_r[2] = {0.f, 0.f};
-  if (KVB) {
+  if (EXTRA && a.kvb != nullptr) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int kj = kw + g + 8 * h;
@@ -488,7 +599,6 @@ flash_dkv_kernel(Attn a, const bf16* __restrict__ dout, long long do_bh,
     const int need = a.k_start + kb * kTile - a.q_start - (kTile - 1);
     qt0 = need <= 0 ? 0 : (need + kTile - 1) / kTile;
   }
-  const float sl2 = a.scale * kLog2e;
   const bf16* qbase = a.q + bh * a.q_bh;
   const bf16* dbase = dout + bh * do_bh;
   const float* lb = lse + (long long)bh * a.sq;
@@ -519,13 +629,12 @@ flash_dkv_kernel(Attn a, const bf16* __restrict__ dout, long long do_bh,
           const int kj = kw + g + 8 * (e >> 1);
           const int ql = q0 + nt * 8 + 2 * t4 + (e & 1);
           const int qi = qt * kTile + ql;
-          const float sc = KVB ? pt[nt][e] * sl2 + kb_r[e >> 1]
-                               : pt[nt][e] * sl2;
-          const bool live = (full || visible(a, qi, kj)) &&
-                            (!KVB || sc > kNegInf * 0.5f);
-          const float p = live ? exp2f(sc - sL[ql]) : 0.f;
-          pt[nt][e] = p;
-          dst[nt][e] = p * (dst[nt][e] - sDl[ql]) * a.scale;
+          const bool vis = full || visible(a, qi, kj);
+          float d;
+          pt[nt][e] = p_ds<EXTRA>(a, bh, qi, kj, vis, pt[nt][e],
+                                  kb_r[e >> 1], dst[nt][e], sL[ql], sDl[ql],
+                                  d);
+          dst[nt][e] = d * a.scale;
         }
       }
       scores_times_tile<D, 4>(dva, pt, sD + q0 * LD);    // dv += P^T dO
@@ -547,16 +656,118 @@ flash_dkv_kernel(Attn a, const bf16* __restrict__ dout, long long do_bh,
   }
 }
 
+// ---- backward: the gradient of a bias shared over bh -----------------------
+
+// block (query tile x, key tile y, run z) sums dS over bh in [z * per,
+// min(BH, (z + 1) * per)) in bh order into part [z][Sq][Sk] fp32
+template <int D>
+__global__ void __launch_bounds__(kThreads, D == 64 ? kDbBlocks : 1)
+flash_dbias_kernel(Attn a, const bf16* __restrict__ dout, long long do_bh,
+                   long long do_s, const float* __restrict__ lse,
+                   const float* __restrict__ delta, int nbh, int per,
+                   float* __restrict__ part) {
+  constexpr int LD = D + 8;
+  __shared__ __align__(16) bf16 sK[kTile * LD];
+  __shared__ __align__(16) bf16 sV[kTile * LD];
+  __shared__ float sB[kTile];
+  const int qb = blockIdx.x, kt = blockIdx.y;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const int qw = qb * kTile + (threadIdx.x >> 5) * 16;
+  float* out = part + (long long)blockIdx.z * a.sq * a.sk;
+  float acc[2][4][4];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[half][nt][e] = 0.f;
+    }
+  }
+  // the whole tile lies above the causal diagonal: its sums stay 0
+  const bool live = kt < live_k_tiles(a, qb);
+  const int bh0 = blockIdx.z * per, bh1 = min(nbh, bh0 + per);
+  for (int bh = live ? bh0 : bh1; bh < bh1; ++bh) {
+    uint32_t qf[D / 16][4], df[D / 16][4];
+    load_a<D>(qf, a.q + bh * a.q_bh, a.q_s, qw, a.sq);
+    load_a<D>(df, dout + bh * do_bh, do_s, qw, a.sq);
+    float lse_r[2], dlt_r[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = qw + g + 8 * h;
+      const long long i = (long long)bh * a.sq + row;
+      lse_r[h] = row < a.sq ? lse[i] * kLog2e : 0.f;
+      dlt_r[h] = row < a.sq ? delta[i] : 0.f;
+    }
+    __syncthreads();
+    load_tile<D>(sK, a.k + bh * a.k_bh, a.k_s, kt * kTile, a.sk);
+    load_tile<D>(sV, a.v + bh * a.v_bh, a.v_s, kt * kTile, a.sk);
+    load_bias_tile(sB, a, bh, kt * kTile);
+    __syncthreads();
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int k0 = half * 32;
+      float s[4][4], dp[4][4];
+      rows_times_tile<D, 4>(s, qf, sK + k0 * LD);    // Q K^T
+      rows_times_tile<D, 4>(dp, df, sV + k0 * LD);   // dO V^T
+      const bool full = all_visible(a, qw, 16, kt * kTile + k0, 32);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1;
+          const int qi = qw + g + 8 * h;
+          const int kl = k0 + nt * 8 + 2 * t4 + (e & 1);
+          const int kj = kt * kTile + kl;
+          float d;
+          p_ds<true>(a, bh, qi, kj, full || visible(a, qi, kj), s[nt][e],
+                     sB[kl], dp[nt][e], lse_r[h], dlt_r[h], d);
+          acc[half][nt][e] += d;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = qw + g + 8 * (e >> 1);
+        const int kj = kt * kTile + half * 32 + nt * 8 + 2 * t4 + (e & 1);
+        if (qi < a.sq && kj < a.sk) {
+          out[(long long)qi * a.sk + kj] = acc[half][nt][e];
+        }
+      }
+    }
+  }
+}
+
+// out[i] = sum over the runs r = 0, 1, ... of part[r][i], in run order
+__global__ void dbias_sum_kernel(const float* __restrict__ part,
+                                 float* __restrict__ out, int runs,
+                                 long long n) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    float acc = 0.f;
+    for (int r = 0; r < runs; ++r) acc += part[r * n + i];
+    out[i] = acc;
+  }
+}
+
 Attn make_attn(const void* q, const void* k, const void* v, long long q_bh,
                long long q_s, long long k_bh, long long k_s, long long v_bh,
-               long long v_s, const void* kvb, long long kvb_bh, int sq,
-               int sk, int q_start, int k_start, int causal, float scale) {
+               long long v_s, const void* kvb, long long kvb_bh,
+               const void* bias, long long bias_bh, unsigned seed,
+               unsigned drop_thresh, float drop_inv, int sq, int sk,
+               int q_start, int k_start, int causal, float scale) {
   Attn a;
   a.q = static_cast<const bf16*>(q);
   a.k = static_cast<const bf16*>(k);
   a.v = static_cast<const bf16*>(v);
   a.kvb = static_cast<const float*>(kvb);
+  a.bias = static_cast<const float*>(bias);
   a.kvb_bh = kvb_bh;
+  a.bias_bh = bias_bh;
   a.q_bh = q_bh;
   a.q_s = q_s;
   a.k_bh = k_bh;
@@ -569,6 +780,9 @@ Attn make_attn(const void* q, const void* k, const void* v, long long q_bh,
   a.k_start = k_start;
   a.causal = causal;
   a.scale = scale;
+  a.seed = seed;
+  a.drop_thresh = drop_thresh;
+  a.drop_inv = drop_inv;
   return a;
 }
 
@@ -576,17 +790,18 @@ bool bad(int bh, int sq, int sk, int d) {
   return bh < 1 || bh > 65535 || sq < 1 || sk < 1 || (d != 64 && d != 128);
 }
 
-// calls f(D, KVB) with both as compile-time constants: the head dim (64
-// or 128) and whether a kv_bias is given
+// calls f(D, EXTRA) with both as compile-time constants: the head dim (64
+// or 128) and whether any bias or dropout is given
 template <typename F>
 void with_form(int d, const Attn& a, F&& f) {
   using std::integral_constant;
-  const bool kvb = a.kvb != nullptr;
+  const bool extra = a.kvb != nullptr || a.bias != nullptr ||
+                     a.drop_inv > 0.f;
   if (d == 64) {
-    if (kvb) f(integral_constant<int, 64>{}, integral_constant<bool, true>{});
+    if (extra) f(integral_constant<int, 64>{}, integral_constant<bool, true>{});
     else f(integral_constant<int, 64>{}, integral_constant<bool, false>{});
   } else {
-    if (kvb) f(integral_constant<int, 128>{}, integral_constant<bool, true>{});
+    if (extra) f(integral_constant<int, 128>{}, integral_constant<bool, true>{});
     else f(integral_constant<int, 128>{}, integral_constant<bool, false>{});
   }
 }
@@ -594,58 +809,76 @@ void with_form(int d, const Attn& a, F&& f) {
 }  // namespace
 }  // namespace apex_port
 
-// q, k, v bf16 [bh, s, d] with the given strides (elements; the last dim
-// contiguous, every stride a multiple of 8, every base 16-byte aligned);
-// kvb null or fp32 [1|bh, sk] with bh stride kvb_bh (0 when shared), its
-// keys contiguous; o bf16 [bh, sq, d] and lse fp32 [bh, sq], contiguous.
+// Every entry point: q, k, v bf16 [bh, s, d] with the given strides
+// (elements; the last dim contiguous, every stride a multiple of 8, every
+// base 16-byte aligned); kvb null or fp32 [1|bh, sk] with bh stride kvb_bh
+// (0 when shared), its keys contiguous; bias null or fp32 [1|bh, sq, sk]
+// contiguous with bh stride bias_bh (0 when shared); dropout when drop_inv
+// = 1 / (1 - rate) > 0, keeping an element whose hash under seed is >=
+// drop_thresh.
+
+// o bf16 [bh, sq, d] and lse fp32 [bh, sq], contiguous.
 extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
                               void* o, void* lse, long long q_bh,
                               long long q_s, long long k_bh, long long k_s,
-                              long long v_bh, long long v_s,
-                              const void* kvb, long long kvb_bh, int bh,
+                              long long v_bh, long long v_s, const void* kvb,
+                              long long kvb_bh, const void* bias,
+                              long long bias_bh, unsigned seed,
+                              unsigned drop_thresh, float drop_inv, int bh,
                               int sq, int sk, int d, int q_start,
                               int k_start, int causal, float scale,
                               void* stream) {
   using namespace apex_port;
   if (bad(bh, sq, sk, d)) return static_cast<int>(cudaErrorInvalidValue);
   const Attn a = make_attn(q, k, v, q_bh, q_s, k_bh, k_s, v_bh, v_s, kvb,
-                           kvb_bh, sq, sk, q_start, k_start, causal, scale);
+                           kvb_bh, bias, bias_bh, seed, drop_thresh,
+                           drop_inv, sq, sk, q_start, k_start, causal, scale);
   const dim3 grid((sq + kTile - 1) / kTile, bh);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   bf16* op = static_cast<bf16*>(o);
   float* lp = static_cast<float*>(lse);
-  with_form(d, a, [&](auto dd, auto kb) {
-    flash_fwd_kernel<decltype(dd)::value, decltype(kb)::value>
+  with_form(d, a, [&](auto dd, auto ex) {
+    flash_fwd_kernel<decltype(dd)::value, decltype(ex)::value>
         <<<grid, kThreads, 0, st>>>(a, op, lp);
   });
   return static_cast<int>(cudaGetLastError());
 }
 
-// q, k, v, dout as above (dout with its own strides); lse, delta fp32
-// [bh, sq] contiguous; dq bf16 [bh, sq, d] contiguous.
+// dout with its own strides; lse, delta fp32 [bh, sq] contiguous; dq bf16
+// [bh, sq, d] contiguous; ds null or fp32 [bh, sq, sk] contiguous (the
+// per-bh bias gradient; taken only with a bias or kv_bias or dropout).
 extern "C" int apex_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
-                                 const void* delta, void* dq, long long q_bh,
-                                 long long q_s, long long k_bh, long long k_s,
+                                 const void* delta, void* dq, void* ds,
+                                 long long q_bh, long long q_s,
+                                 long long k_bh, long long k_s,
                                  long long v_bh, long long v_s,
                                  long long do_bh, long long do_s,
-                                 const void* kvb, long long kvb_bh, int bh,
-                                 int sq, int sk, int d, int q_start,
-                                 int k_start, int causal, float scale,
-                                 void* stream) {
+                                 const void* kvb, long long kvb_bh,
+                                 const void* bias, long long bias_bh,
+                                 unsigned seed, unsigned drop_thresh,
+                                 float drop_inv, int bh, int sq, int sk,
+                                 int d, int q_start, int k_start, int causal,
+                                 float scale, void* stream) {
   using namespace apex_port;
   if (bad(bh, sq, sk, d)) return static_cast<int>(cudaErrorInvalidValue);
   const Attn a = make_attn(q, k, v, q_bh, q_s, k_bh, k_s, v_bh, v_s, kvb,
-                           kvb_bh, sq, sk, q_start, k_start, causal, scale);
+                           kvb_bh, bias, bias_bh, seed, drop_thresh,
+                           drop_inv, sq, sk, q_start, k_start, causal, scale);
+  if (ds != nullptr && a.kvb == nullptr && a.bias == nullptr &&
+      !(a.drop_inv > 0.f)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const dim3 grid((sq + kTile - 1) / kTile, bh);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bf16* dp = static_cast<const bf16*>(dout);
   const float* lp = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   bf16* out = static_cast<bf16*>(dq);
-  with_form(d, a, [&](auto dd, auto kb) {
-    flash_dq_kernel<decltype(dd)::value, decltype(kb)::value>
-        <<<grid, kThreads, 0, st>>>(a, dp, do_bh, do_s, lp, dl, out);
+  float* dsp = static_cast<float*>(ds);
+  with_form(d, a, [&](auto dd, auto ex) {
+    flash_dq_kernel<decltype(dd)::value, decltype(ex)::value>
+        <<<grid, kThreads, 0, st>>>(a, dp, do_bh, do_s, lp, dl, out, dsp);
   });
   return static_cast<int>(cudaGetLastError());
 }
@@ -659,13 +892,17 @@ extern "C" int apex_flash_bwd_dkv(const void* q, const void* k,
                                   long long k_s, long long v_bh,
                                   long long v_s, long long do_bh,
                                   long long do_s, const void* kvb,
-                                  long long kvb_bh, int bh, int sq, int sk,
-                                  int d, int q_start, int k_start, int causal,
-                                  float scale, void* stream) {
+                                  long long kvb_bh, const void* bias,
+                                  long long bias_bh, unsigned seed,
+                                  unsigned drop_thresh, float drop_inv,
+                                  int bh, int sq, int sk, int d, int q_start,
+                                  int k_start, int causal, float scale,
+                                  void* stream) {
   using namespace apex_port;
   if (bad(bh, sq, sk, d)) return static_cast<int>(cudaErrorInvalidValue);
   const Attn a = make_attn(q, k, v, q_bh, q_s, k_bh, k_s, v_bh, v_s, kvb,
-                           kvb_bh, sq, sk, q_start, k_start, causal, scale);
+                           kvb_bh, bias, bias_bh, seed, drop_thresh,
+                           drop_inv, sq, sk, q_start, k_start, causal, scale);
   const dim3 grid((sk + kTile - 1) / kTile, bh);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bf16* dp = static_cast<const bf16*>(dout);
@@ -673,9 +910,59 @@ extern "C" int apex_flash_bwd_dkv(const void* q, const void* k,
   const float* dl = static_cast<const float*>(delta);
   bf16* kp = static_cast<bf16*>(dk);
   bf16* vp = static_cast<bf16*>(dv);
-  with_form(d, a, [&](auto dd, auto kb) {
-    flash_dkv_kernel<decltype(dd)::value, decltype(kb)::value>
+  with_form(d, a, [&](auto dd, auto ex) {
+    flash_dkv_kernel<decltype(dd)::value, decltype(ex)::value>
         <<<grid, kThreads, 0, st>>>(a, dp, do_bh, do_s, lp, dl, kp, vp);
   });
+  return static_cast<int>(cudaGetLastError());
+}
+
+// as apex_flash_bwd_dq, the bias shared over bh (bias_bh = 0); dbias fp32
+// [sq, sk] contiguous; bh split into `runs` runs of ceil(bh / runs), and
+// with runs > 1 part fp32 [runs, sq, sk] contiguous scratch.
+extern "C" int apex_flash_bwd_dbias(const void* q, const void* k,
+                                    const void* v, const void* dout,
+                                    const void* lse, const void* delta,
+                                    void* dbias, void* part, int runs,
+                                    long long q_bh, long long q_s,
+                                    long long k_bh, long long k_s,
+                                    long long v_bh, long long v_s,
+                                    long long do_bh, long long do_s,
+                                    const void* kvb, long long kvb_bh,
+                                    const void* bias, long long bias_bh,
+                                    unsigned seed, unsigned drop_thresh,
+                                    float drop_inv, int bh, int sq, int sk,
+                                    int d, int q_start, int k_start,
+                                    int causal, float scale, void* stream) {
+  using namespace apex_port;
+  if (bad(bh, sq, sk, d) || bias == nullptr || bias_bh != 0 || runs < 1 ||
+      runs > bh || (runs > 1 && part == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Attn a = make_attn(q, k, v, q_bh, q_s, k_bh, k_s, v_bh, v_s, kvb,
+                           kvb_bh, bias, bias_bh, seed, drop_thresh,
+                           drop_inv, sq, sk, q_start, k_start, causal, scale);
+  const int per = (bh + runs - 1) / runs;
+  runs = (bh + per - 1) / per;        // no run is left empty
+  const dim3 grid((sq + kTile - 1) / kTile, (sk + kTile - 1) / kTile, runs);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bf16* dp = static_cast<const bf16*>(dout);
+  const float* lp = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  float* out = static_cast<float*>(dbias);
+  float* tmp = runs > 1 ? static_cast<float*>(part) : out;
+  if (d == 64) {
+    flash_dbias_kernel<64><<<grid, kThreads, 0, st>>>(a, dp, do_bh, do_s, lp,
+                                                      dl, bh, per, tmp);
+  } else {
+    flash_dbias_kernel<128><<<grid, kThreads, 0, st>>>(a, dp, do_bh, do_s,
+                                                       lp, dl, bh, per, tmp);
+  }
+  if (runs > 1) {
+    const long long n = (long long)sq * sk;
+    const long long want = (n + 255) / 256;
+    const int blocks = static_cast<int>(want < 4096 ? want : 4096);
+    dbias_sum_kernel<<<blocks, 256, 0, st>>>(tmp, out, runs, n);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,44 +8,67 @@ Counterpart of the Pallas kernels in
 - :func:`flash_fwd` replaces ``_flash_fwd`` → ``_fwd_kernel`` (:181): the
   output and the per-row logsumexp; its plain version is
   :func:`reference_attention` with ``return_lse=True`` (:586-631);
-- :func:`flash_bwd_dq` replaces ``_bwd_dq_kernel`` (:349) and
-  :func:`flash_bwd_dkv` ``_bwd_dkv_kernel`` (:392); their plain version is
-  :func:`flash_bwd_plain`, a port of ``_bwd_chunked`` (:634-729), chunked
-  over the keys so that it fits at full length on the card.
+- :func:`flash_bwd_dq` replaces ``_bwd_dq_kernel`` (:349), with the
+  per-bh bias gradient dS when asked (``dbias_in_dq``, :471, :519-533),
+  and :func:`flash_bwd_dkv` ``_bwd_dkv_kernel`` (:392); their plain
+  version is :func:`flash_bwd_plain`, a port of ``_bwd_chunked``
+  (:634-729), chunked over the keys so that it fits at full length on the
+  card;
+- :func:`flash_bwd_dbias` replaces ``_bwd_dbias_kernel`` (:427): the
+  gradient of a bias [1, Sq, Sk] shared over bh, dS summed over bh; its
+  plain version is :func:`flash_bwd_dbias_plain`.
 
 The backward takes ``delta = rowsum(dO·O) − dlse`` (:474-479, computed
 here in plain PyTorch by :func:`flash_delta`), so a cotangent of the lse
 folds into the same per-row term.
 
-``kv_bias`` [1|BH, Sk] is a per-key additive score bias (key-padding
-masks: 0 or -1e30), added before the softmax and broadcast over the
-queries, as ``kv_bias[..., None, :]`` at :607 and :682; its bh index is
-b·H + h, the order of ``_split_heads``. It is mask data: no gradient
-flows to it.
+Every function takes the JAX kernels' inputs:
+
+- ``bias`` [1|BH, Sq, Sk], a full additive score bias, shared over bh
+  when its first dim is 1;
+- ``kv_bias`` [1|BH, Sk], a per-key additive score bias (key-padding
+  masks: 0 or -1e30), broadcast over the queries, as
+  ``kv_bias[..., None, :]`` at :607 and :682; it is mask data, so no
+  gradient flows to it;
+- ``dropout_rate`` and ``dropout_seed``: dropout on the softmax
+  probabilities with the JAX package's coordinate hash
+  (:func:`dropout_bits`, :107-126), so the kernels, the plain versions and
+  the JAX package drop the same elements. The softmax sum keeps every
+  probability (lse is dropout-free); the kept ones are scaled by
+  1 / (1 − rate) (:223-231, :338-345). The seed is an int in
+  [−2³¹, 2³²), taken mod 2³² (JAX passes a signed int32).
+
+Their bh index is b·H + h, the order of ``_split_heads``.
 
 For tensors on the CPU each wrapper runs its plain version; for tensors on
 the card it launches its kernel, which takes bf16 and a head dim of 64 or
 128 and raises on anything else. The kernels read q, k, v and dO through
 their strides (the last dim contiguous, every stride a multiple of 8
 elements, the base 16-byte aligned); a view that is not so is copied once
-to a contiguous tensor. Each wrapper counts its launches in ``.launches``.
+to a contiguous tensor. The biases are cast once to contiguous fp32. Each
+wrapper counts its launches in ``.launches``.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 from apex_tpu_torch.ops import cuda as _cuda
 from apex_tpu_torch.ops import dispatch
 
-__all__ = ["NEG_INF", "KERNEL_HEAD_DIMS", "reference_attention",
-           "flash_fwd", "flash_delta", "flash_bwd_plain", "flash_bwd_dq",
-           "flash_bwd_dkv"]
+__all__ = ["NEG_INF", "KERNEL_HEAD_DIMS", "dropout_bits", "drop_threshold",
+           "reference_attention", "flash_fwd", "flash_delta",
+           "flash_bwd_plain", "flash_bwd_dq", "flash_bwd_dkv",
+           "flash_bwd_dbias", "flash_bwd_dbias_plain"]
 
 # finite -inf stand-in: exp(NEG_INF - m) is exactly 0.0 in fp32, so a fully
 # masked row yields zeros instead of NaN
 NEG_INF = -1.0e30
 KERNEL_HEAD_DIMS = (64, 128)
+
+_M32 = 0xFFFFFFFF
 
 
 def _causal_mask(sq: int, sk: int, q_start: int, k_start: int, device):
@@ -54,24 +77,79 @@ def _causal_mask(sq: int, sk: int, q_start: int, k_start: int, device):
     return q_pos >= k_pos
 
 
+def _mul32(x, c: int):
+    """``x · c mod 2³²`` for int64 ``x`` in [0, 2³²): in two 16-bit halves
+    of ``c``, so no product passes 2⁴⁹."""
+    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def dropout_bits(seed, bh, q_pos, k_pos):
+    """The JAX package's uint32 coordinate hash (flash_attention.py:107-126)
+    of broadcastable ints or int tensors, as int64 in [0, 2³²): uint32
+    arithmetic done in int64, masked after every multiply and before every
+    shift (a negative int64 would shift in ones)."""
+    dev = next((t.device for t in (q_pos, k_pos, bh, seed)
+                if isinstance(t, torch.Tensor)), None)
+
+    def u32(t):
+        return torch.as_tensor(t, dtype=torch.int64, device=dev) & _M32
+
+    x = (_mul32(u32(q_pos), 0x9E3779B1) + _mul32(u32(k_pos), 0x85EBCA77)
+         + _mul32(u32(bh), 0xC2B2AE3D) + _mul32(u32(seed), 0x27D4EB2F)) & _M32
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def drop_threshold(rate: float) -> int:
+    """An element is kept when its hash is at least this
+    (``_drop_threshold``, :129-130)."""
+    return min(int(rate * 4294967296.0), 4294967295)
+
+
+def _dropout(rate: float, seed) -> tuple:
+    """(seed mod 2³², threshold, 1 / (1 − rate) or 0 without dropout)."""
+    rate = float(rate)
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"dropout_rate must be in [0, 1), got {rate}")
+    seed = int(seed)
+    if not -(1 << 31) <= seed < (1 << 32):
+        raise ValueError(f"dropout_seed must be in [-2**31, 2**32), got "
+                         f"{seed}")
+    if rate == 0.0:
+        return 0, 0, 0.0
+    return seed & _M32, drop_threshold(rate), 1.0 / (1.0 - rate)
+
+
+def _keep(bh_idx, q_pos, k_pos, rate: float, seed):
+    """The keep-mask of dropout at ``rate`` for broadcastable coordinates."""
+    return dropout_bits(seed, bh_idx, q_pos, k_pos) >= drop_threshold(rate)
+
+
 def reference_attention(q, k, v, bias=None, *, kv_bias=None,
                         causal: bool = False, scale=None,
                         q_start: int = 0, k_start: int = 0,
-                        return_lse: bool = False):
+                        return_lse: bool = False,
+                        dropout_rate: float = 0.0, dropout_seed=0):
     """Unfused attention: q [..., Sq, d], k/v [..., Sk, d]; ``bias`` an
     additive score bias broadcastable to [..., Sq, Sk], ``kv_bias`` a
     per-key one [..., Sk] broadcast over the queries. With ``causal``,
     query row i (absolute position ``q_start + i``) sees keys at absolute
-    positions ``k_start + j <= q_start + i``. Returns [..., Sq, d] in q's
-    dtype and, with ``return_lse``, the fp32 per-row logsumexp [..., Sq]
-    (``NEG_INF`` for a row that sees nothing). Op for op the JAX package's
+    positions ``k_start + j <= q_start + i``. ``dropout_rate`` drops the
+    normalized probabilities with the kernels' hash, the leading dims
+    flattened to the bh index. Returns [..., Sq, d] in q's dtype and, with
+    ``return_lse``, the fp32 per-row logsumexp [..., Sq] (``NEG_INF`` for a
+    row that sees nothing; dropout-free). Op for op the JAX package's
     ``reference_attention`` (flash_attention.py:586-631): fp32 scores, the
     biases, finite ``NEG_INF`` masking, max, exp under where, sum, guarded
-    divide."""
+    divide, dropout."""
     sq, d = q.shape[-2], q.shape[-1]
     sk = k.shape[-2]
     if scale is None:
         scale = 1.0 / float(d) ** 0.5
+    _dropout(dropout_rate, dropout_seed)              # validates both
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if bias is not None:
         s = s + bias.float()
@@ -85,7 +163,18 @@ def reference_attention(q, k, v, bias=None, *, kv_bias=None,
                     torch.zeros_like(s))
     l_sum = p.sum(dim=-1, keepdim=True)
     safe = torch.where(l_sum > 0.0, l_sum, torch.ones_like(l_sum))
-    o = torch.matmul(p / safe, v.float()).to(q.dtype)
+    probs = p / safe
+    if dropout_rate > 0.0:
+        lead = s.shape[:-2]
+        bh_idx = torch.arange(math.prod(lead), device=q.device).reshape(
+            *lead, 1, 1)
+        keep = _keep(bh_idx,
+                     q_start + torch.arange(sq, device=q.device)[:, None],
+                     k_start + torch.arange(sk, device=q.device)[None, :],
+                     dropout_rate, dropout_seed)
+        probs = torch.where(keep, probs, torch.zeros_like(probs)) * (
+            1.0 / (1.0 - dropout_rate))
+    o = torch.matmul(probs, v.float()).to(q.dtype)
     if return_lse:
         lse = torch.where(l_sum > 0.0, m + torch.log(safe),
                           torch.full_like(m, NEG_INF))[..., 0]
@@ -104,38 +193,75 @@ def flash_delta(o, do, dlse=None):
 
 def flash_bwd_plain(q, k, v, do, lse, delta, *, causal: bool, scale: float,
                     q_start: int = 0, k_start: int = 0, kv_bias=None,
-                    block_k: int = 128):
-    """Plain version of both backward kernels, ``_bwd_chunked``'s recurrence
+                    bias=None, dropout_rate: float = 0.0, dropout_seed=0,
+                    return_ds: bool = False, block_k: int = 128):
+    """Plain version of the backward kernels, ``_bwd_chunked``'s recurrence
     (flash_attention.py:634-729) over key chunks of ``block_k``: p is
     recomputed from lse (0 where the biased, masked score is below
-    ``NEG_INF / 2``, so a row whose every key is masked gets none),
-    ``ds = p·(dP − delta)``. Returns (dq, dk, dv) in q's, k's and v's
-    dtypes."""
+    ``NEG_INF / 2``, so a row whose every key is masked gets none), with
+    dropout ``pd = keep·p/(1−rate)`` for dv and ``dP' = keep·dP/(1−rate)``,
+    ``dS = p·(dP' − delta)``, dq and dk from ``dS·scale``. Returns (dq, dk,
+    dv) in q's, k's and v's dtypes and, with ``return_ds``, dS fp32 [BH,
+    Sq, Sk] (the gradient of a per-bh bias)."""
     bh, sq, d = q.shape
     sk = k.shape[1]
+    dev = q.device
     qf, dof = q.float(), do.float()
     lse_c, dlt_c = lse.float()[..., None], delta.float()[..., None]
-    dq = torch.zeros((bh, sq, d), dtype=torch.float32, device=q.device)
-    dk = torch.empty((bh, sk, d), dtype=torch.float32, device=q.device)
+    dq = torch.zeros((bh, sq, d), dtype=torch.float32, device=dev)
+    dk = torch.empty((bh, sk, d), dtype=torch.float32, device=dev)
     dv = torch.empty_like(dk)
+    ds_all = torch.empty((bh, sq, sk), dtype=torch.float32, device=dev) \
+        if return_ds else None
+    _dropout(dropout_rate, dropout_seed)
+    if dropout_rate > 0.0:
+        inv = 1.0 / (1.0 - dropout_rate)
+        bh_idx = torch.arange(bh, device=dev)[:, None, None]
+        q_pos = q_start + torch.arange(sq, device=dev)[None, :, None]
     for j0 in range(0, sk, block_k):
         j1 = min(j0 + block_k, sk)
         kj, vj = k[:, j0:j1].float(), v[:, j0:j1].float()
         s = torch.matmul(qf, kj.transpose(1, 2)) * scale
+        if bias is not None:
+            s = s + bias[:, :, j0:j1].float()
         if kv_bias is not None:
             s = s + kv_bias[:, None, j0:j1].float()
         if causal:
             s = torch.where(_causal_mask(sq, j1 - j0, q_start, k_start + j0,
-                                         q.device), s,
+                                         dev), s,
                             torch.full_like(s, NEG_INF))
         p = torch.where(s > NEG_INF * 0.5, torch.exp(s - lse_c),
                         torch.zeros_like(s))
         dp = torch.matmul(dof, vj.transpose(1, 2))
-        dv[:, j0:j1] = torch.matmul(p.transpose(1, 2), dof)
-        ds = p * (dp - dlt_c) * scale
+        pd = p
+        if dropout_rate > 0.0:
+            k_pos = k_start + torch.arange(j0, j1, device=dev)[None, None, :]
+            keep = _keep(bh_idx, q_pos, k_pos, dropout_rate, dropout_seed)
+            pd = torch.where(keep, p, torch.zeros_like(p)) * inv
+            dp = torch.where(keep, dp, torch.zeros_like(dp)) * inv
+        dv[:, j0:j1] = torch.matmul(pd.transpose(1, 2), dof)
+        ds = p * (dp - dlt_c)
+        if return_ds:
+            ds_all[:, :, j0:j1] = ds
+        ds = ds * scale
         dq += torch.matmul(ds, kj)
         dk[:, j0:j1] = torch.matmul(ds.transpose(1, 2), qf)
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    out = (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype))
+    return out + (ds_all,) if return_ds else out
+
+
+def flash_bwd_dbias_plain(q, k, v, do, lse, delta, *, causal: bool,
+                          scale: float, bias, q_start: int = 0,
+                          k_start: int = 0, kv_bias=None,
+                          dropout_rate: float = 0.0, dropout_seed=0):
+    """Plain version of :func:`flash_bwd_dbias`: dS of
+    :func:`flash_bwd_plain` summed over bh, fp32 [1, Sq, Sk]."""
+    ds = flash_bwd_plain(q, k, v, do, lse, delta, causal=causal,
+                         scale=scale, q_start=q_start, k_start=k_start,
+                         kv_bias=kv_bias, bias=bias,
+                         dropout_rate=dropout_rate,
+                         dropout_seed=dropout_seed, return_ds=True)[3]
+    return ds.sum(dim=0, keepdim=True)
 
 
 def _check(what: str, *ts):
@@ -177,7 +303,20 @@ def _kv_bias(what: str, kv_bias, bh: int, sk: int, device):
         raise ValueError(f"{what}: kv_bias must be [1 or {bh}, {sk}] on "
                          f"{device}, got {tuple(kv_bias.shape)}")
     kvb = kv_bias.float().contiguous()
-    return kvb.data_ptr(), (sk if kvb.shape[0] == bh else 0), kvb
+    return kvb.data_ptr(), (sk if kvb.shape[0] != 1 else 0), kvb
+
+
+def _full_bias(what: str, bias, bh: int, sq: int, sk: int, device):
+    """(pointer, bh stride, tensor) of a bias [1|BH, Sq, Sk] as contiguous
+    fp32; (None, 0, None) without one."""
+    if bias is None:
+        return None, 0, None
+    if bias.dim() != 3 or bias.shape[0] not in (1, bh) \
+            or tuple(bias.shape[1:]) != (sq, sk) or bias.device != device:
+        raise ValueError(f"{what}: bias must be [1 or {bh}, {sq}, {sk}] on "
+                         f"{device}, got {tuple(bias.shape)}")
+    b = bias.float().contiguous()
+    return b.data_ptr(), (sq * sk if b.shape[0] != 1 else 0), b
 
 
 def _row_stats(what: str, t: torch.Tensor, bh: int, sq: int, device):
@@ -187,30 +326,51 @@ def _row_stats(what: str, t: torch.Tensor, bh: int, sq: int, device):
     return t.contiguous()
 
 
+def _tail(what, q, k, kv_bias, bias, dropout_rate, dropout_seed, causal,
+          scale, q_start, k_start):
+    """The C entry points' common trailing arguments, and the fp32 bias
+    tensors they point into (kept alive by the caller until the launch)."""
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    kvb = _kv_bias(what, kv_bias, bh, sk, q.device)
+    fb = _full_bias(what, bias, bh, sq, sk, q.device)
+    seed, thresh, inv = _dropout(dropout_rate, dropout_seed)
+    args = (kvb[0], kvb[1], fb[0], fb[1], seed, thresh, inv, bh, sq, sk, d,
+            int(q_start), int(k_start), int(bool(causal)), float(scale),
+            _cuda.stream(q.device))
+    return args, (kvb[2], fb[2])
+
+
+def _strides(*ts):
+    return tuple(x for t in ts for x in (t.stride(0), t.stride(1)))
+
+
 def flash_fwd(q, k, v, *, causal: bool = False, scale=None,
-              q_start: int = 0, k_start: int = 0, kv_bias=None):
+              q_start: int = 0, k_start: int = 0, kv_bias=None, bias=None,
+              dropout_rate: float = 0.0, dropout_seed=0):
     """(o [BH, Sq, D] in q's dtype, lse fp32 [BH, Sq]) of softmax attention
-    over q [BH, Sq, D], k/v [BH, Sk, D], with an optional per-key
-    ``kv_bias`` [1|BH, Sk]."""
+    over q [BH, Sq, D], k/v [BH, Sk, D], with the optional ``kv_bias``
+    [1|BH, Sk], ``bias`` [1|BH, Sq, Sk] and dropout."""
     if scale is None:
         scale = 1.0 / float(q.shape[-1]) ** 0.5
     if not dispatch.use_kernel(q):
-        return reference_attention(q, k, v, kv_bias=kv_bias, causal=causal,
-                                   scale=scale, q_start=q_start,
-                                   k_start=k_start, return_lse=True)
+        return reference_attention(q, k, v, bias, kv_bias=kv_bias,
+                                   causal=causal, scale=scale,
+                                   q_start=q_start, k_start=k_start,
+                                   return_lse=True,
+                                   dropout_rate=dropout_rate,
+                                   dropout_seed=dropout_seed)
     _check("flash_fwd", q, k, v)
     q, k, v = _readable(q), _readable(k), _readable(v)
     bh, sq, d = q.shape
-    kvb_ptr, kvb_bh, _keep = _kv_bias("flash_fwd", kv_bias, bh, k.shape[1],
-                                      q.device)
+    tail, _keep_alive = _tail("flash_fwd", q, k, kv_bias, bias,
+                              dropout_rate, dropout_seed, causal, scale,
+                              q_start, k_start)
     o = torch.empty((bh, sq, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
     err = _cuda.lib().apex_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-        v.stride(0), v.stride(1), kvb_ptr, kvb_bh, bh, sq, k.shape[1], d,
-        int(q_start), int(k_start), int(bool(causal)), float(scale),
-        _cuda.stream(q.device))
+        lse.data_ptr(), *_strides(q, k, v), *tail)
     _cuda.check(err, "flash_fwd")
     flash_fwd.launches += 1
     return o, lse
@@ -228,58 +388,124 @@ def _bwd_args(what, q, k, v, do, lse, delta):
     return q, k, v, do, lse, delta
 
 
-def _common(q, k, v, do, kvb, causal, scale, q_start, k_start):
-    return (q.stride(0), q.stride(1), k.stride(0), k.stride(1), v.stride(0),
-            v.stride(1), do.stride(0), do.stride(1), *kvb[:2], q.shape[0],
-            q.shape[1], k.shape[1], q.shape[2], int(q_start), int(k_start),
-            int(bool(causal)), float(scale), _cuda.stream(q.device))
-
-
 def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool, scale: float,
-                 q_start: int = 0, k_start: int = 0, kv_bias=None):
+                 q_start: int = 0, k_start: int = 0, kv_bias=None,
+                 bias=None, dropout_rate: float = 0.0, dropout_seed=0,
+                 return_ds: bool = False):
     """dq [BH, Sq, D] in q's dtype from the forward's lse and
-    :func:`flash_delta`."""
+    :func:`flash_delta`; with ``return_ds`` (a ``bias`` given) also dS fp32
+    [BH, Sq, Sk], the gradient of a per-bh bias."""
+    if return_ds and bias is None:
+        raise ValueError("flash_bwd_dq: return_ds needs the bias whose "
+                         "gradient it is")
     if not dispatch.use_kernel(q):
-        return flash_bwd_plain(q, k, v, do, lse, delta, causal=causal,
-                               scale=scale, q_start=q_start,
-                               k_start=k_start, kv_bias=kv_bias)[0]
+        out = flash_bwd_plain(q, k, v, do, lse, delta, causal=causal,
+                              scale=scale, q_start=q_start, k_start=k_start,
+                              kv_bias=kv_bias, bias=bias,
+                              dropout_rate=dropout_rate,
+                              dropout_seed=dropout_seed, return_ds=return_ds)
+        return (out[0], out[3]) if return_ds else out[0]
     q, k, v, do, lse, delta = _bwd_args("flash_bwd_dq", q, k, v, do, lse,
                                         delta)
-    kvb = _kv_bias("flash_bwd_dq", kv_bias, q.shape[0], k.shape[1],
-                   q.device)
+    tail, _keep_alive = _tail("flash_bwd_dq", q, k, kv_bias, bias,
+                              dropout_rate, dropout_seed, causal, scale,
+                              q_start, k_start)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    ds = torch.empty((q.shape[0], q.shape[1], k.shape[1]),
+                     dtype=torch.float32, device=q.device) \
+        if return_ds else None
     err = _cuda.lib().apex_flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        *_common(q, k, v, do, kvb, causal, scale, q_start, k_start))
+        None if ds is None else ds.data_ptr(), *_strides(q, k, v, do),
+        *tail)
     _cuda.check(err, "flash_bwd_dq")
     flash_bwd_dq.launches += 1
-    return dq
+    return (dq, ds) if return_ds else dq
 
 
 flash_bwd_dq.launches = 0
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool, scale: float,
-                  q_start: int = 0, k_start: int = 0, kv_bias=None):
+                  q_start: int = 0, k_start: int = 0, kv_bias=None,
+                  bias=None, dropout_rate: float = 0.0, dropout_seed=0):
     """(dk, dv) [BH, Sk, D] in k's and v's dtypes."""
     if not dispatch.use_kernel(q):
         return flash_bwd_plain(q, k, v, do, lse, delta, causal=causal,
                                scale=scale, q_start=q_start,
-                               k_start=k_start, kv_bias=kv_bias)[1:]
+                               k_start=k_start, kv_bias=kv_bias, bias=bias,
+                               dropout_rate=dropout_rate,
+                               dropout_seed=dropout_seed)[1:]
     q, k, v, do, lse, delta = _bwd_args("flash_bwd_dkv", q, k, v, do, lse,
                                         delta)
-    kvb = _kv_bias("flash_bwd_dkv", kv_bias, q.shape[0], k.shape[1],
-                   q.device)
+    tail, _keep_alive = _tail("flash_bwd_dkv", q, k, kv_bias, bias,
+                              dropout_rate, dropout_seed, causal, scale,
+                              q_start, k_start)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     err = _cuda.lib().apex_flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        *_common(q, k, v, do, kvb, causal, scale, q_start, k_start))
+        *_strides(q, k, v, do), *tail)
     _cuda.check(err, "flash_bwd_dkv")
     flash_bwd_dkv.launches += 1
     return dk, dv
 
 
 flash_bwd_dkv.launches = 0
+
+# resident blocks an SM is counted for when flash_bwd_dbias splits bh into
+# runs: (query tiles) x (key tiles) x runs fills this many per SM
+DBIAS_BLOCKS_PER_SM = 4
+
+
+def dbias_runs(bh: int, sq: int, sk: int, sms: int) -> int:
+    """How many runs of bh ``flash_bwd_dbias`` sums separately (then adds
+    in run order) on a card of ``sms`` SMs: enough (query, key, run) blocks
+    to fill it, every run nonempty."""
+    tiles = -(-sq // 64) * -(-sk // 64)
+    runs = max(1, min(bh, -(-DBIAS_BLOCKS_PER_SM * sms // tiles)))
+    per = -(-bh // runs)
+    return -(-bh // per)
+
+
+def flash_bwd_dbias(q, k, v, do, lse, delta, *, causal: bool, scale: float,
+                    bias, q_start: int = 0, k_start: int = 0, kv_bias=None,
+                    dropout_rate: float = 0.0, dropout_seed=0):
+    """The gradient of a ``bias`` [1, Sq, Sk] shared over bh: dS summed over
+    bh, fp32 [1, Sq, Sk] (the caller casts it to the bias's dtype). The
+    kernel sums in a fixed order, without float atomics: repeated calls
+    are bitwise equal."""
+    if bias is None or bias.dim() != 3 or bias.shape[0] != 1:
+        raise ValueError("flash_bwd_dbias: takes a bias [1, Sq, Sk]")
+    if not dispatch.use_kernel(q):
+        return flash_bwd_dbias_plain(q, k, v, do, lse, delta, causal=causal,
+                                     scale=scale, bias=bias,
+                                     q_start=q_start, k_start=k_start,
+                                     kv_bias=kv_bias,
+                                     dropout_rate=dropout_rate,
+                                     dropout_seed=dropout_seed)
+    q, k, v, do, lse, delta = _bwd_args("flash_bwd_dbias", q, k, v, do,
+                                        lse, delta)
+    bh, sq, _ = q.shape
+    sk = k.shape[1]
+    tail, _keep_alive = _tail("flash_bwd_dbias", q, k, kv_bias, bias,
+                              dropout_rate, dropout_seed, causal, scale,
+                              q_start, k_start)
+    runs = dbias_runs(bh, sq, sk, torch.cuda.get_device_properties(
+        q.device).multi_processor_count)
+    dbias = torch.empty((1, sq, sk), dtype=torch.float32, device=q.device)
+    part = torch.empty((runs, sq, sk), dtype=torch.float32,
+                       device=q.device) if runs > 1 else None
+    err = _cuda.lib().apex_flash_bwd_dbias(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dbias.data_ptr(),
+        None if part is None else part.data_ptr(), runs,
+        *_strides(q, k, v, do), *tail)
+    _cuda.check(err, "flash_bwd_dbias")
+    flash_bwd_dbias.launches += 1
+    return dbias
+
+
+flash_bwd_dbias.launches = 0

@@ -6,7 +6,10 @@ counterpart of ``bench.py``'s ``_loss_fn`` and ``train_step``
 (bench.py:1244-1306); with ``optimizer="sgd"`` (FusedSGD, lr 0.1,
 momentum 0.9, weight decay 1e-4) and a uint8 NHWC batch normalized inside
 the step, ``examples/imagenet/main_amp.py``'s training step
-(:239-288), and ``evaluate`` its validation step (:401-414).
+(:239-288), and ``evaluate`` its validation step (:401-414); with a
+``models.ViT`` (``--arch vit_b16 --dropout 0.1``), the same step on the
+model without BN state, its attention dropout seeded per step and layer
+(:178-186, :490-497).
 ``LMTrainer`` is the FusedAdam step of ``tools/lm_bench.py`` (:255-272,
 one device) for the decoder LM and, with the batch and loss keywords
 passed through, of ``examples/seq2seq/train_translation.py`` for the
@@ -41,6 +44,7 @@ from apex_tpu_torch._device import resolve_device
 from apex_tpu_torch.amp import frontend as _amp
 from apex_tpu_torch.contrib.xentropy import select_label_logits
 from apex_tpu_torch.data import normalize_imagenet
+from apex_tpu_torch.models.vit import ViT
 from apex_tpu_torch.ops import flat as _flat
 from apex_tpu_torch.optimizers.fused_adam import FusedAdam
 from apex_tpu_torch.optimizers.fused_lamb import FusedLAMB
@@ -86,12 +90,21 @@ class Trainer:
     to the class where given, and ``larc=True`` wraps it in ``LARC`` with
     LARC's defaults. Everything lives on ``device``, the card unless
     ``device="cpu"``.
+
+    A ``ViT`` model has no BN state (``bn_state`` stays None, as
+    main_amp's ``apply_model`` keeps ``{}``) and takes its batch
+    channels-last. With ``dropout`` > 0 each training step draws one
+    dropout seed per layer from ``generator`` (a ``torch.Generator``;
+    seeded 17 when not given, as main_amp's dropout base key is
+    ``jax.random.key(17)``, :476), or takes the ``dropout_seeds`` given to
+    ``step``; ``evaluate`` runs without dropout.
     """
 
-    def __init__(self, model, params, bn_state, *, opt_level: str = "O2",
-                 optimizer: str = "lamb", lr=None, momentum=None,
-                 weight_decay=None, norm_type=None, larc: bool = False,
-                 device=None, **amp_overrides):
+    def __init__(self, model, params, bn_state=None, *,
+                 opt_level: str = "O2", optimizer: str = "lamb", lr=None,
+                 momentum=None, weight_decay=None, norm_type=None,
+                 larc: bool = False, generator=None, device=None,
+                 **amp_overrides):
         self.device = resolve_device(device)
         self.model = model
         _, self.handle = _amp.initialize(opt_level=opt_level, verbosity=0,
@@ -113,25 +126,49 @@ class Trainer:
         base = cls(params, device=self.device, **kw)
         self.table = base._tables[0]
         self.opt = LARC(base) if larc else base
-        self.bn_state = _flat.tree_map(lambda t: t.to(self.device),
-                                       bn_state)
+        self.is_vit = isinstance(model, ViT)
+        self.bn_state = {} if bn_state is None else _flat.tree_map(
+            lambda t: t.to(self.device), bn_state)
+        self.generator = generator if generator is not None else \
+            torch.Generator().manual_seed(17)
 
     def _input(self, x):
         """The model's input: a float batch (N, 3, H, W) cast to the half
         dtype, or a uint8 batch (N, H, W, 3) normalized on the device in
-        it, then seen as NCHW (channels_last), as main_amp.py:243-245."""
+        it, then seen as NCHW (channels_last), as main_amp.py:243-245; a
+        ViT keeps the batch channels-last."""
         if x.dtype == torch.uint8:
-            return normalize_imagenet(x, dtype=self.half).permute(0, 3, 1, 2)
+            x = normalize_imagenet(x, dtype=self.half)
+            return x if self.is_vit else x.permute(0, 3, 1, 2)
         return x.to(self.half) if x.is_floating_point() else x
 
-    def loss_and_grad(self, x, y):
+    def _apply(self, params, x, training: bool, dropout_seeds=None):
+        """``(logits, new BN state)`` for either family (main_amp.py's
+        ``apply_model``, :178-186)."""
+        if self.is_vit:
+            return self.model.apply(params, x, is_training=training,
+                                    dropout_seeds=dropout_seeds), \
+                self.bn_state
+        return self.model.apply(params, self.bn_state, x, training=training)
+
+    def draw_dropout_seeds(self):
+        """One step's per-layer dropout seeds from ``generator``, or None
+        for a model without dropout."""
+        if not (self.is_vit and self.model.dropout > 0.0):
+            return None
+        return torch.randint(-(1 << 31), 1 << 31, (self.model.num_layers,),
+                             generator=self.generator).tolist()
+
+    def loss_and_grad(self, x, y, dropout_seeds=None):
         """Forward and backward: ``(flat fp32 master grad, still scaled;
-        loss; new BN state)``."""
+        loss; new BN state)``. ``dropout_seeds`` (a ViT's, one per layer)
+        are drawn from ``generator`` when not given."""
         x = self._input(x)
+        if dropout_seeds is None:
+            dropout_seeds = self.draw_dropout_seeds()
 
         def objective(p_half):
-            logits, new_bn = self.model.apply(p_half, self.bn_state, x,
-                                              training=True)
+            logits, new_bn = self._apply(p_half, x, True, dropout_seeds)
             logp = torch.log_softmax(logits.float(), dim=-1)
             loss = -torch.mean(select_label_logits(logp, y))
             return (self.handle.scale_loss(loss, self.amp_state),
@@ -152,11 +189,11 @@ class Trainer:
         self.bn_state = new_bn
         return found_inf
 
-    def step(self, x, y):
+    def step(self, x, y, dropout_seeds=None):
         """One training step on ``x`` (float (N, 3, H, W) or uint8
-        (N, H, W, 3)) and int labels ``y``; returns the unscaled loss as a
-        device tensor."""
-        flat_grad, loss, new_bn = self.loss_and_grad(x, y)
+        (N, H, W, 3); a ViT's float batch channels-last) and int labels
+        ``y``; returns the unscaled loss as a device tensor."""
+        flat_grad, loss, new_bn = self.loss_and_grad(x, y, dropout_seeds)
         self.apply_grads(flat_grad, new_bn)
         return loss
 
@@ -168,8 +205,7 @@ class Trainer:
         k = min(5, classes))."""
         params = _flat.unflatten(self.opt.state[0].master, self.table,
                                  dtype=self.half)
-        logits, _ = self.model.apply(params, self.bn_state, self._input(x),
-                                     training=False)
+        logits, _ = self._apply(params, self._input(x), False)
         k = min(5, logits.shape[-1])
         hit = torch.topk(logits.float(), k, dim=-1).indices == \
             y.to(torch.int64)[:, None]

@@ -11,7 +11,8 @@ nonzero, and only a run where every phase passed prints the last line,
 phases 6-8 the ResNet training slice, phases 9-10 the LM training slice,
 phases 11-13 the ImageNet example's slice, phases 14-16 the Seq2Seq
 Transformer's, phases 17-19 gradient accumulation and the fp16_utils path
-on the LM:
+on the LM, phases 20-22 the ImageNet example's ViT-B/16 step with
+attention dropout and the flash kernels' full bias:
 
 0. device — needs CUDA; prints the card's ``nvidia-smi`` name and power
    limit (also as a raw line of its own) and the torch / CUDA versions.
@@ -64,7 +65,17 @@ on the LM:
    foreach beside it); and impl="auto"'s crossover: the flash path and
    the plain composed attention at [128, S, 64] bf16 for S 128-4096,
    forward and forward + backward, causal and not (SDPA beside them), the
-   kernels required to win at every S from ``DEFAULT_FLASH_MIN_S``.
+   kernels required to win at every S from ``DEFAULT_FLASH_MIN_S``; the
+   rest of the flash kernels at the ViT step's [1536, 197, 64] bf16: with
+   dropout 0.1, with a shared [1, 197, 197] and a per-bh [1536, 197, 197]
+   fp32 bias (dq's dS under the flash rule too), ``flash_bwd_dbias`` at
+   that shape and causal at [128, 1024, 64] (against the plain per-bh dS
+   summed over bh, two runs bit-equal; SDPA with ``dropout_p`` and SDPA's
+   backward with a learned ``attn_mask`` beside them as yardsticks), and
+   the dropout mask read back exactly: q = k = 0 and v = I over 64 keys
+   make o[i, j] != 0 (and, with dO = I, dv[j, i] != 0) exactly where the
+   kernel kept (i, j), which must equal ``dropout_bits`` at a nonzero bh,
+   q_start and k_start.
 3. dense — the serve_bench model at full width (8 layers, 1024 wide,
    8 heads, vocab 32768, bf16, random weights from ``torch.Generator``
    seed 0) behind ``ContinuousBatchingEngine(slots=8, max_len=1024,
@@ -195,7 +206,30 @@ on the LM:
     ``crosscheck`` (phase 10's bars): ``LMTrainer(microbatches=2,
     loss_scale="dynamic")``, and ``FP16_Optimizer(FusedAdagrad)`` with
     clipping in both weight-decay modes.
-20. the ``{"kernels": [...]}`` line (23 kernels), then the ``ok`` line.
+20. vit_train — ``examples/imagenet/main_amp.py --arch vit_b16 --dropout
+    0.1`` at its defaults otherwise on one card (``vit_b16``: patch 16, 12
+    layers of 768, 12 heads of 64, FFN 3072, 197 tokens; random weights
+    from ``torch.Generator`` seed 0), batch 128 at 224² (phase 11's uint8
+    batch and normalization), O2 bf16, FusedSGD(0.1, 0.9, 1e-4), attention
+    "auto" (the flash kernels from S 128), per-layer dropout seeds drawn
+    each step from the Trainer's generator: 3 warm-up and 10 timed steps
+    (img/s, step ms p50/p95, MFU from ``models.vit.analytic_flops`` against
+    989 TFLOP/s, peak memory), two profiled steps, ``evaluate``; 12 of
+    each flash kernel, 25 of each LayerNorm kernel, one ``scale`` and one
+    ``sgd`` launch a step; losses finite, the first within 0.5 of ln 1000,
+    none above 4 times the first; the witness: the same 13 steps under
+    the plain versions (the same masks: the same hash and seeds), no
+    kernel launched, the first 4 losses within 1e-2 relative.
+21. vit_crosscheck — a small ViT (2 layers of 256, 4 heads of 64, 65
+    tokens, attention "fast", dropout 0.1), three O2 SGD steps with the
+    kernels against the plain versions: masters within 1.5 times bf16's
+    own effect (the plain O2 masters against the plain O0 ones) in mean
+    and max; two kernel runs bit-equal.
+22. flash_bias — the public ``flash_attention`` at [1536, 197, 64] with
+    dropout 0.1 and a learned fp32 bias, [1, 197, 197] (one launch of
+    ``flash_bwd_dbias``) and [1536, 197, 197] (dq's dS): o, dq, dk, dv and
+    dbias against the plain versions under the flash rule.
+23. the ``{"kernels": [...]}`` line (24 kernels), then the ``ok`` line.
 
 Times are CUDA-event medians of single calls with the L2 cache flushed
 before each and the stream held busy, so host launch time is not counted.
@@ -1392,7 +1426,8 @@ def counters():
             "rowmaxabs": MT.rowmaxabs, "sgd": MT.sgd,
             "novograd": MT.novograd, "xent_fwd": XE.xent_fwd,
             "xent_bwd": XE.xent_bwd, "axpby": MT.axpby,
-            "l2norm": MT.l2norm, "adagrad": MT.adagrad}
+            "l2norm": MT.l2norm, "adagrad": MT.adagrad,
+            "flash_bwd_dbias": FA.flash_bwd_dbias}
 
 
 def zero_counts() -> None:
@@ -1534,6 +1569,10 @@ LM_KERNEL_FAMILIES = (
     ("elementwise", ("elementwise", "vectorized", "unrolled", "where",
                      "copy", "fill", "clamp", "cat", "index", "embedding")),
 )
+
+
+VIT_FAMILIES = (("SGD", ("sgd_kernel",)),
+                ("training kernels", ("scale_kernel",))) + LM_KERNEL_FAMILIES
 
 
 def _family(name: str, families) -> str:
@@ -2857,6 +2896,449 @@ def s2s_crosscheck_phase(torch, dispatch):
                     (src, tgt), {"label_smoothing": S2S_SMOOTHING}, S2S_ADAM)
 
 
+# -- the ViT slice: the rest of the flash kernels, main_amp's ViT step --------
+
+# examples/imagenet/main_amp.py --arch vit_b16 --dropout 0.1 at its
+# defaults otherwise (models/vit.py's vit_b16: patch 16, 12 layers of 768,
+# 12 heads of 64, FFN 3072, cls pooling; 197 tokens at 224²), at the batch
+# of the repo's earlier ViT-B/16 run (128)
+VIT = dict(num_classes=1000, image_size=224, dropout=0.1)
+VIT_BATCH = 128
+VIT_BH, VIT_S, VIT_D = VIT_BATCH * 12, 197, 64
+VIT_SEED = 1234                # the dropout seed of phase 2's readings
+# launches a step: a flash forward, dq and dk/dv per layer; two
+# LayerNorms a layer and the final one; the unscale and the SGD update
+VIT_PER_STEP = {"flash_fwd": 12, "flash_bwd_dq": 12, "flash_bwd_dkv": 12,
+                "ln_fwd": 25, "ln_bwd": 25, "scale": 1, "sgd": 1}
+# a shared-bias gradient at a causal LM-like shape beside the ViT's
+DBIAS_CAUSAL_SHAPE = (128, 1024, 64)
+
+
+def _flash_readings(torch, timer, q, k, v, do, kw, lib_fwd, lib_bwd,
+                    per_bh_ds: bool, live_pairs: int) -> dict:
+    """The three flash kernels (and dq's per-bh dS) on one input set
+    against their plain versions: errors under the flash rule, times,
+    bounds (operations, the pairs the data leaves live), and the library
+    yardsticks' times."""
+    from apex_tpu_torch.ops import flash_attn as FA
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    o, lse = FA.flash_fwd(q, k, v, **kw)
+    delta = FA.flash_delta(o, do)
+    out = FA.flash_bwd_dq(q, k, v, do, lse, delta, return_ds=per_bh_ds,
+                          **kw)
+    dq, ds = out if per_bh_ds else (out, None)
+    dk, dv = FA.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    o0, lse0 = FA.reference_attention(q, k, v, kw.get("bias"),
+                                      return_lse=True,
+                                      **{n: x for n, x in kw.items()
+                                         if n != "bias"})
+    dq0, dk0, dv0, ds0 = FA.flash_bwd_plain(q, k, v, do, lse, delta,
+                                            return_ds=True, **kw)
+    torch.cuda.synchronize()
+    pairs = [("o", o, o0), ("dq", dq, dq0), ("dk", dk, dk0), ("dv", dv, dv0)]
+    if per_bh_ds:
+        pairs.append(("ds", ds, ds0))
+    errs = {w: flash_err(torch, a, b) for w, a, b in pairs}
+    lse_err = float((lse - lse0).abs().max())
+    bias = kw.get("bias")
+    bias_bytes = 0 if bias is None else bias.numel() * 4
+    sz_q, sz_k = bh * sq * d * 2, bh * sk * d * 2
+    fwd_b = bound(2 * sz_q + 2 * sz_k + 4 * bh * sq + bias_bytes,
+                  4 * d * live_pairs, BF16_DENSE_OPS_S)
+    dq_b = bound(3 * sz_q + 2 * sz_k + 8 * bh * sq + bias_bytes
+                 + (4 * bh * sq * sk if per_bh_ds else 0),
+                 6 * d * live_pairs, BF16_DENSE_OPS_S)
+    dkv_b = bound(2 * sz_q + 4 * sz_k + 8 * bh * sq + bias_bytes,
+                  8 * d * live_pairs, BF16_DENSE_OPS_S)
+    plain_bwd = timer(lambda: FA.flash_bwd_plain(q, k, v, do, lse, delta,
+                                                 **kw))
+    rows = {
+        "flash_fwd": dict(max_abs_err=errs["o"]["max_abs_err"],
+                          tol_used=errs["o"]["used"], lse_err=lse_err,
+                          ms=timer(lambda: FA.flash_fwd(q, k, v, **kw)),
+                          plain_ms=timer(lambda: FA.reference_attention(
+                              q, k, v, bias, return_lse=True,
+                              **{n: x for n, x in kw.items()
+                                 if n != "bias"})),
+                          library_ms=timer(lib_fwd), bound_ms=fwd_b[0],
+                          bound_by=fwd_b[1]),
+        "flash_bwd_dq": dict(
+            max_abs_err=max(errs["dq"]["max_abs_err"],
+                            errs.get("ds", {"max_abs_err": 0.0})
+                            ["max_abs_err"]),
+            tol_used=max(errs["dq"]["used"],
+                         errs.get("ds", {"used": 0.0})["used"]),
+            ms=timer(lambda: FA.flash_bwd_dq(q, k, v, do, lse, delta,
+                                             return_ds=per_bh_ds, **kw)),
+            plain_ms=plain_bwd, library_ms=lib_bwd, bound_ms=dq_b[0],
+            bound_by=dq_b[1]),
+        "flash_bwd_dkv": dict(
+            max_abs_err=max(errs["dk"]["max_abs_err"],
+                            errs["dv"]["max_abs_err"]),
+            tol_used=max(errs["dk"]["used"], errs["dv"]["used"]),
+            ms=timer(lambda: FA.flash_bwd_dkv(q, k, v, do, lse, delta,
+                                              **kw)),
+            plain_ms=plain_bwd, library_ms=lib_bwd, bound_ms=dkv_b[0],
+            bound_by=dkv_b[1]),
+    }
+    check(lse_err <= 1e-3, f"flash lse: {lse_err}")
+    for w, e in errs.items():
+        check(e["used"] <= 1.0, f"flash {w} ({sorted(kw)}): {e}")
+    return {"rows": rows, "errs": errs, "lse": lse, "delta": delta,
+            "ds0": ds0}
+
+
+def _dbias_reading(torch, timer, q, k, v, do, lse, delta, kw, ds_sum,
+                   lib_bwd, live_pairs: int) -> dict:
+    """``flash_bwd_dbias`` against the plain per-bh dS summed over bh, its
+    repeat bitwise, its time, the plain version's, the yardstick's and
+    the bound (its two products over the live pairs)."""
+    from apex_tpu_torch.ops import flash_attn as FA
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    db = FA.flash_bwd_dbias(q, k, v, do, lse, delta, **kw)
+    again = FA.flash_bwd_dbias(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    err = flash_err(torch, db, ds_sum)
+    repeat = bool(torch.equal(db, again))
+    check(err["used"] <= 1.0, f"flash_bwd_dbias: {err}")
+    check(repeat, "flash_bwd_dbias: two runs on the same inputs differ")
+    b_ms, b_by = bound(2 * bh * sq * d * 2 + 2 * bh * sk * d * 2
+                       + 8 * bh * sq + 8 * sq * sk,
+                       4 * d * live_pairs, BF16_DENSE_OPS_S)
+    return dict(max_abs_err=err["max_abs_err"], tol_used=err["used"],
+                repeat_equal=repeat,
+                runs=FA.dbias_runs(bh, sq, sk, torch.cuda.
+                                   get_device_properties(0).
+                                   multi_processor_count),
+                ms=timer(lambda: FA.flash_bwd_dbias(q, k, v, do, lse, delta,
+                                                    **kw)),
+                plain_ms=timer(lambda: FA.flash_bwd_dbias_plain(
+                    q, k, v, do, lse, delta, **kw)),
+                library_ms=lib_bwd, bound_ms=b_ms, bound_by=b_by)
+
+
+def dropout_readback(torch) -> dict:
+    """The exact mask read-back: q = k = 0 makes every probability 1/64
+    over Sk = D = 64 keys, v = I puts p·keep/(1 - rate) at o[i, j], so
+    o[i, j] != 0 exactly where the kernel kept (i, j); dO = I does the
+    same for dv[j, i]. Both must equal ``dropout_bits`` >= the threshold,
+    at nonzero bh, q_start and k_start (a tolerance cannot see one
+    mis-dropped probability of 1/197)."""
+    from apex_tpu_torch.ops import flash_attn as FA
+    bh, n, rate, seed = 24, 64, VIT["dropout"], 0x9E3779B9
+    eye = torch.eye(n, device="cuda", dtype=torch.bfloat16)
+    z = torch.zeros(bh, n, n, device="cuda", dtype=torch.bfloat16)
+    v = eye.expand(bh, n, n).contiguous()
+    kw = dict(causal=False, scale=0.125, q_start=4099, k_start=77,
+              dropout_rate=rate, dropout_seed=seed)
+    o, lse = FA.flash_fwd(z, z, v, **kw)
+    _, dv = FA.flash_bwd_dkv(z, z, v, v, lse, FA.flash_delta(o, v), **kw)
+    pos = torch.arange(n, device="cuda")
+    keep = FA.dropout_bits(
+        seed, torch.arange(bh, device="cuda")[:, None, None],
+        4099 + pos[None, :, None], 77 + pos[None, None, :]) \
+        >= FA.drop_threshold(rate)
+    o_bad = int(((o != 0) != keep).sum())
+    dv_bad = int(((dv != 0) != keep.transpose(1, 2)).sum())
+    row = {"phase": "dropout_readback", "shape": [bh, n, n],
+           "q_start": 4099, "k_start": 77, "seed": seed, "rate": rate,
+           "kept_share": float(keep.float().mean()),
+           "o_mismatches": o_bad, "dv_mismatches": dv_bad}
+    emit(row)
+    check(o_bad == 0 and dv_bad == 0,
+          f"dropout read-back: {o_bad} o and {dv_bad} dv elements disagree "
+          f"with dropout_bits")
+    return row
+
+
+def vit_kernel_phase(torch, timer) -> dict:
+    """The flash kernels at the ViT step's shape [B·H, 197, 64] bf16, with
+    dropout 0.1 (the step's own attention), with a shared [1, 197, 197]
+    and a per-bh [B·H, 197, 197] fp32 bias (the public entry point's;
+    dq's dS for the latter), and ``flash_bwd_dbias`` at that shape and at
+    a causal [128, 1024, 64] one, each against its plain version; SDPA
+    with ``dropout_p`` and SDPA's backward with a learned ``attn_mask``
+    beside them as yardsticks only (their RNG is not the same function);
+    then the exact mask read-back."""
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.ops import flash_attn as FA
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    bh, s, d = VIT_BH, VIT_S, VIT_D
+    b, h = VIT_BATCH, bh // VIT_BATCH
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    q, k, v, do = (rnd(bh, s, d) for _ in range(4))
+    q4, k4, v4, do4 = (t.view(b, h, s, d) for t in (q, k, v, do))
+    ql, kl, vl = (t.detach().clone().requires_grad_(True)
+                  for t in (q4, k4, v4))
+    rows = {}
+    base = dict(causal=False, scale=d ** -0.5)
+
+    # dropout: the step's attention
+    kw = dict(base, dropout_rate=VIT["dropout"], dropout_seed=VIT_SEED)
+    lo = F.scaled_dot_product_attention(ql, kl, vl,
+                                        dropout_p=VIT["dropout"])
+    r = _flash_readings(
+        torch, timer, q, k, v, do, kw,
+        lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                               dropout_p=VIT["dropout"]),
+        timer(lambda: torch.autograd.grad(lo, (ql, kl, vl), do4,
+                                          retain_graph=True)),
+        False, bh * s * s)
+    emit({"phase": "flash_tol", "shape": [bh, s, d], "reading": "dropout",
+          **r["errs"]})
+    for name, row in r["rows"].items():
+        emit({"phase": "kernels", "kernel": name, "shape": [bh, s, d],
+              "reading": "dropout", **row})
+        rows[(name, "vit", "dropout")] = row
+    del lo, r
+
+    # a learned bias shared over bh, then one per bh
+    for reading, nb in (("bias", 1), ("bias_bh", bh)):
+        bias = torch.randn(nb, s, s, generator=gen, device="cuda") * 0.5
+        bias[0, :, ::9] = -1.0e30                     # masked keys
+        mask = bias.to(torch.bfloat16).view(
+            *((1, 1) if nb == 1 else (b, h)), s, s)
+        ml = mask.detach().clone().requires_grad_(True)
+        lo = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=ml)
+        lib_bwd = timer(lambda: torch.autograd.grad(
+            lo, (ql, kl, vl, ml), do4, retain_graph=True))
+        kw = dict(base, bias=bias)
+        r = _flash_readings(
+            torch, timer, q, k, v, do, kw,
+            lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                   attn_mask=mask),
+            lib_bwd, nb > 1, bh * s * s)
+        emit({"phase": "flash_tol", "shape": [bh, s, d],
+              "reading": reading, **r["errs"]})
+        for name, row in r["rows"].items():
+            emit({"phase": "kernels", "kernel": name, "shape": [bh, s, d],
+                  "reading": reading, **row})
+            rows[(name, "vit", reading)] = row
+        if nb == 1:
+            row = _dbias_reading(torch, timer, q, k, v, do, r["lse"],
+                                 r["delta"], kw,
+                                 r["ds0"].sum(0, keepdim=True), lib_bwd,
+                                 bh * s * s)
+            row.update(dtype="bfloat16", shape=[bh, s, s, d],
+                       library_covers="dq, dk, dv and the mask's gradient "
+                                      "(one SDPA backward)")
+            emit({"phase": "kernels", "kernel": "flash_bwd_dbias", **row})
+            rows[("flash_bwd_dbias", "bfloat16")] = row
+        del lo, ml, r, bias, mask
+
+    # flash_bwd_dbias causal at S 1024
+    bh2, s2, d2 = DBIAS_CAUSAL_SHAPE
+    q, k, v, do = (rnd(bh2, s2, d2) for _ in range(4))
+    bias = torch.randn(1, s2, s2, generator=gen, device="cuda") * 0.5
+    kw = dict(causal=True, scale=d2 ** -0.5, bias=bias)
+    o, lse = FA.flash_fwd(q, k, v, **kw)
+    delta = FA.flash_delta(o, do)
+    ds_sum = FA.flash_bwd_dbias_plain(q, k, v, do, lse, delta, **kw)
+    causal_mask = torch.ones(s2, s2, device="cuda", dtype=torch.bool).tril()
+    mask = torch.where(causal_mask, bias[0], float("-inf")).to(
+        torch.bfloat16)[None, None]
+    ml = mask.detach().clone().requires_grad_(True)
+    q4, k4, v4 = (t.view(8, bh2 // 8, s2, d2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    lo = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=ml)
+    lib_bwd = timer(lambda: torch.autograd.grad(
+        lo, (q4, k4, v4, ml), do.view(8, bh2 // 8, s2, d2),
+        retain_graph=True))
+    row = _dbias_reading(torch, timer, q, k, v, do, lse, delta, kw, ds_sum,
+                         lib_bwd, bh2 * s2 * (s2 + 1) // 2)
+    row.update(dtype="bfloat16", shape=[bh2, s2, s2, d2], causal=True)
+    emit({"phase": "kernels", "kernel": "flash_bwd_dbias", **row})
+    rows[("flash_bwd_dbias", "causal")] = row
+    del q, k, v, do, o, lo, ml, ds_sum
+    dropout_readback(torch)
+    return rows
+
+
+def vit_model(**kw):
+    from apex_tpu_torch.models import vit_b16
+    return vit_b16(**{**VIT, **kw})
+
+
+def vit_train_phase(torch, model, params) -> tuple:
+    """main_amp.py's ViT step (``--arch vit_b16 --dropout 0.1``) at full
+    width on one card: O2 bf16 over fp32 flat masters, FusedSGD(0.1, 0.9,
+    1e-4), one uint8 NHWC batch of 128 at 224² normalized in the step,
+    attention "auto" (the flash kernels), dropout seeds drawn per step and
+    layer from the Trainer's generator: 3 warm-up and 10 timed steps,
+    two profiled ones, ``evaluate``, and the witness: the same 13 steps
+    under the plain versions from the same init and seeds."""
+    import math
+
+    from apex_tpu_torch.models.vit import analytic_flops
+    from apex_tpu_torch.train import Trainer
+
+    warm, timed = 3, 10
+    x, y = imagenet_batch(torch, VIT_BATCH, VIT["image_size"],
+                          VIT["num_classes"])
+
+    def make():
+        return Trainer(model, params, opt_level="O2", optimizer="sgd",
+                       **MAIN_AMP_SGD)
+
+    tr = make()
+    r = timed_steps(torch, lambda: tr.step(x, y), warm, timed)
+    counts = r["counts"]
+    flops = analytic_flops(model)
+    prof = profile_steps(torch, lambda: tr.step(x, y), VIT_FAMILIES)
+    top1, top5 = tr.evaluate(x, y)
+    tr = None                           # the card's memory for the witness
+    witness = plain_witness(torch, make, x, y, warm + timed)
+    loss = r["loss"]
+    row = {"phase": "vit_train", "model": "vit_b16", **VIT,
+           "batch": VIT_BATCH, "tokens": model.seq_len,
+           "input": "uint8 NHWC, normalized in the step",
+           "dtype": "bfloat16", "opt_level": "O2", "attn_impl":
+           model.attn_impl, "optimizer": f"FusedSGD({MAIN_AMP_SGD})",
+           **step_row(r, VIT_BATCH, timed, flops),
+           "launches": {k: counts[k] for k in VIT_PER_STEP},
+           "launches_per_step": {k: counts[k] / timed
+                                 for k in VIT_PER_STEP},
+           "profile": prof, "ln_classes": math.log(VIT["num_classes"]),
+           "evaluate": {"top1": float(top1), "top5": float(top5)},
+           "plain_witness": witness}
+    emit(row)
+    check(all(math.isfinite(v) for v in loss),
+          f"vit_train: non-finite loss {loss}")
+    check(abs(loss[0] - math.log(VIT["num_classes"])) <= 0.5,
+          f"vit_train: first loss {loss[0]} is not within 0.5 of ln 1000")
+    check(max(loss) <= SGD_OVERSHOOT * loss[0],
+          f"vit_train: a loss above {SGD_OVERSHOOT} times the first {loss}")
+    check_counts("vit_train", counts,
+                 {k: n * timed for k, n in VIT_PER_STEP.items()})
+    plain = witness["losses"]
+    check(not any(witness["launches"].values()),
+          f"vit_train witness: kernels launched {witness['launches']}")
+    check(all(abs(a - b) <= WITNESS_RTOL * abs(b) for a, b in
+              zip(loss[:WITNESS_STEPS], plain[:WITNESS_STEPS])),
+          f"vit_train witness: kernel losses {loss} against plain {plain}")
+    return counts, row
+
+
+def vit_crosscheck_phase(torch, dispatch):
+    """A small ViT (2 layers of 256, 4 heads of 64, 64² images in patches
+    of 8: 65 tokens, attention "fast", dropout 0.1), three main_amp SGD
+    steps on a uint8 batch of 8 with the kernels at O2 and with the plain
+    versions at O2 and O0 on the card: the kernel run's masters no farther
+    from the plain O2 run's than 1.5 times bf16's own effect (the plain O2
+    masters against the plain O0 ones), in mean and in max; two kernel
+    runs equal bit for bit; no kernel launched in the plain runs. Every
+    run draws the same dropout seeds from its Trainer's generator."""
+    from apex_tpu_torch.models import ViT
+    from apex_tpu_torch.train import Trainer
+
+    model = ViT(num_classes=10, image_size=64, patch_size=8, embed_dim=256,
+                num_heads=4, num_layers=2, dropout=VIT["dropout"],
+                attn_impl="fast")
+    params = model.init(torch.Generator().manual_seed(3))
+    x, y = imagenet_batch(torch, 8, 64, 10)
+
+    def run(level):
+        tr = Trainer(model, params, opt_level=level, optimizer="sgd")
+        loss = [float(tr.step(x, y)) for _ in range(3)]
+        return tr.opt.state[0].master, loss
+
+    zero_counts()
+    hk, loss_k = run("O2")
+    hk2, loss_k2 = run("O2")
+    torch.cuda.synchronize()
+    launches = read_counts()
+    with dispatch.backend("reference"):
+        zero_counts()
+        hr, loss_r = run("O2")
+        gr, loss_g = run("O0")
+        torch.cuda.synchronize()
+        plain_launches = read_counts()
+    d, d_bf16 = (hk - hr).abs(), (hr - gr).abs()
+    err = {"mean": float(d.mean()), "max": float(d.max()),
+           "bf16_mean": float(d_bf16.mean()),
+           "bf16_max": float(d_bf16.max())}
+    repeat = loss_k == loss_k2 and bool(torch.equal(hk, hk2))
+    emit({"phase": "vit_crosscheck", "steps": 3, "tokens": model.seq_len,
+          "master_err": err, "loss_kernels": loss_k, "loss_plain": loss_r,
+          "loss_plain_O0": loss_g, "repeat_equal": repeat,
+          "launches": {k: launches[k] for k in VIT_PER_STEP}})
+    check(launches["flash_fwd"] == 2 * 2 * 3,
+          f"vit_crosscheck: flash_fwd launched {launches['flash_fwd']}")
+    check(not any(plain_launches.values()),
+          f"vit_crosscheck: kernels launched in the plain runs "
+          f"{plain_launches}")
+    check(err["mean"] <= 1.5 * err["bf16_mean"]
+          and err["max"] <= 1.5 * err["bf16_max"],
+          f"vit_crosscheck: masters differ by {err}")
+    check(repeat, "vit_crosscheck: two kernel runs differ")
+
+
+def flash_bias_phase(torch, dispatch) -> dict:
+    """The public ``flash_attention`` at the ViT shape [B·H, 197, 64] bf16
+    with dropout 0.1 and a learned fp32 bias, [1, 197, 197] (its gradient
+    from ``flash_bwd_dbias``) and [B·H, 197, 197] (from dq's dS): o and
+    lse against the plain forward, and dq, dk, dv and dbias against the
+    plain backward from the same o and lse (``flash_bwd_plain``, its dS
+    summed over bh for the shared bias), each under the flash rule. The
+    launch counts of the two calls are this phase's reading."""
+    from apex_tpu_torch.contrib.multihead_attn import flash_attention
+    from apex_tpu_torch.ops import flash_attn as FA
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    bh, s, d = VIT_BH, VIT_S, VIT_D
+    q, k, v, do = (torch.randn(bh, s, d, generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in range(4))
+    drop = dict(dropout_rate=VIT["dropout"], dropout_seed=VIT_SEED)
+    total = dict.fromkeys(counters(), 0)
+    result = {}
+    for reading, nb in (("bias", 1), ("bias_bh", bh)):
+        bias = torch.randn(nb, s, s, generator=gen, device="cuda") * 0.5
+        ins = [t.detach().clone().requires_grad_(True)
+               for t in (q, k, v, bias)]
+        zero_counts()
+        o, lse = flash_attention(*ins, return_lse=True, **drop)
+        got = [o] + list(torch.autograd.grad(o, ins, do))
+        torch.cuda.synchronize()
+        counts = read_counts()
+        kw = dict(causal=False, scale=d ** -0.5, bias=bias, **drop)
+        with dispatch.backend("reference"):
+            o0, lse0 = FA.flash_fwd(q, k, v, **kw)
+            dq0, dk0, dv0, ds0 = FA.flash_bwd_plain(
+                q, k, v, do, lse.detach(), FA.flash_delta(o.detach(), do),
+                return_ds=True, **kw)
+        want = [o0, dq0, dk0, dv0,
+                ds0.sum(0, keepdim=True) if nb == 1 else ds0]
+        errs = {w: flash_err(torch, a.detach(), b) for w, a, b in
+                zip(("o", "dq", "dk", "dv", "dbias"), got, want)}
+        lse_err = float((lse.detach() - lse0).abs().max())
+        result[reading] = {"errs": errs, "lse_err": lse_err, "launches": {
+            n: counts[n] for n in ("flash_fwd", "flash_bwd_dq",
+                                   "flash_bwd_dkv", "flash_bwd_dbias")}}
+        for n, c in counts.items():
+            total[n] += c
+        check(lse_err <= 1e-3, f"flash_bias {reading} lse: {lse_err}")
+        for w, e in errs.items():
+            check(e["used"] <= 1.0, f"flash_bias {reading} {w}: {e}")
+        check(got[4].dtype == torch.float32 and got[4].shape == bias.shape,
+              f"flash_bias {reading}: dbias {got[4].dtype} "
+              f"{tuple(got[4].shape)}")
+        want_n = {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1,
+                  "flash_bwd_dbias": int(nb == 1)}
+        check_counts(f"flash_bias {reading}", counts, want_n)
+        del ins, o, lse, got, want, ds0
+    emit({"phase": "flash_bias", "shape": [bh, s, d],
+          "dropout": VIT["dropout"], **result})
+    return total
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2911,6 +3393,9 @@ def main() -> int:
                                        flat.make_table(rn50_params)))
     # the Seq2Seq step's softmax cross-entropy and kv_bias flash kernels
     rows.update(s2s_kernel_phase(torch, timer))
+    # the rest of the flash kernels at the ViT step's shape: dropout, the
+    # full bias, dq's dS and the shared-bias gradient; the mask read-back
+    rows.update(vit_kernel_phase(torch, timer))
     # the accumulation and fp16_utils kernels over the LM's master store,
     # and impl="auto"'s crossover
     rows.update(accum_kernel_phase(torch, timer,
@@ -2984,7 +3469,17 @@ def main() -> int:
     del s2s_master
     s2s_crosscheck_phase(torch, dispatch)
 
-    # 17. the kernels line, then the contract line
+    # 20-22. main_amp's ViT-B/16 step with attention dropout, a small ViT
+    # against the plain versions, and the public entry point's learned
+    # bias (the shared-bias gradient kernel's path)
+    vit = vit_model()
+    vit_params = vit.init(torch.Generator().manual_seed(0))
+    vcounts, _ = vit_train_phase(torch, vit, vit_params)
+    del vit_params
+    vit_crosscheck_phase(torch, dispatch)
+    bcounts = flash_bias_phase(torch, dispatch)
+
+    # 23. the kernels line, then the contract line
     launches = {k: dcounts[k] + pcounts[k] for k in dcounts}
     launches.update({k: tcounts[k] for k in TRAIN_KERNELS})
     for k in LM_PER_STEP:                # ln_fwd: serving and training
@@ -2997,6 +3492,10 @@ def main() -> int:
     for counts in (acounts, fcounts):    # accumulation, fp16_utils
         for k, n in counts.items():
             launches[k] += n
+    for k in VIT_PER_STEP:               # the ViT step
+        launches[k] += vcounts[k]
+    for k, n in bcounts.items():         # the learned-bias entry point
+        launches[k] += n
     sources = {
         "decode_attention": (
             "apex_tpu_torch/ops/cuda/csrc/decode_attn.cu",
@@ -3050,6 +3549,9 @@ def main() -> int:
                    "apex_tpu/ops/pallas/multi_tensor.py:169"),
         "adagrad": ("apex_tpu_torch/ops/cuda/csrc/multi_tensor.cu",
                     "apex_tpu/ops/pallas/multi_tensor.py:322"),
+        "flash_bwd_dbias": ("apex_tpu_torch/ops/cuda/csrc/flash_attn.cu",
+                            "apex_tpu/contrib/multihead_attn/"
+                            "flash_attention.py:427"),
     }
     row_keys = {"decode_attention": ("decode_attention", "bfloat16"),
                 "paged_decode_attention": ("paged_decode_attention",
@@ -3076,7 +3578,11 @@ def main() -> int:
                 "xent_fwd": ("xent_fwd", "float32"),
                 "xent_bwd": ("xent_bwd", "float32"),
                 # accumulation and fp16_utils over the LM's master store
-                **{k: (k, "float32") for k in ACCUM_KERNELS}}
+                **{k: (k, "float32") for k in ACCUM_KERNELS},
+                # the shared [1, 197, 197] bias's gradient at the ViT shape
+                "flash_bwd_dbias": ("flash_bwd_dbias", "bfloat16")}
+    sub = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+           "library_ms")
     kernels = []
     for name, (src, repl) in sources.items():
         r = rows[row_keys[name]]
@@ -3085,16 +3591,26 @@ def main() -> int:
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                  "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                  "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
-        if name.startswith("flash_"):
+        if name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
             # the same kernels with the source's key-padding kv_bias, at
             # the translation step's encoder and cross-attention shapes
             entry["kv_bias"] = {
-                shape: {k: rows[(name, "kv_bias", shape)][k] for k in
-                        ("shape", "max_abs_err", "ms", "plain_ms",
-                         "bound_ms", "bound_by", "library_ms")}
+                shape: {k: rows[(name, "kv_bias", shape)][k] for k in sub}
                 for shape in ("encoder", "cross")}
+            # at the ViT step's [B·H, 197, 64]: dropout 0.1, and a learned
+            # bias shared over bh or one per bh
+            vit_shape = [VIT_BH, VIT_S, VIT_D]
+            entry["dropout"] = {"shape": vit_shape, **{
+                k: rows[(name, "vit", "dropout")][k] for k in sub[1:]}}
+            entry["bias"] = {
+                nb: {"shape": vit_shape, **{
+                    k: rows[(name, "vit", reading)][k] for k in sub[1:]}}
+                for nb, reading in (("shared", "bias"),
+                                    ("per_bh", "bias_bh"))}
+        if name == "flash_bwd_dbias":
+            entry["causal"] = {k: rows[(name, "causal")][k] for k in sub}
         kernels.append(entry)
-    check(len(kernels) == 23 and all(e["launches"] > 0 for e in kernels),
+    check(len(kernels) == 24 and all(e["launches"] > 0 for e in kernels),
           f"kernels line: {[(e['name'], e['launches']) for e in kernels]}")
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "nvidia_smi": nvidia_smi(

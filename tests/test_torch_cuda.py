@@ -483,14 +483,117 @@ def test_flash_wrappers_refuse_what_the_kernels_do_not_take(card):
     with pytest.raises(ValueError, match="head_dim"):
         x = torch.zeros(2, 16, 32, device=card, dtype=torch.bfloat16)
         FA.flash_fwd(x, x, x)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        flash_attention(q, q, q, dropout_rate=0.1)
+    with pytest.raises(ValueError, match="bias"):
+        flash_attention(q, q, q, torch.zeros(1, 16, 15, device=card))
+    with pytest.raises(ValueError, match="bias"):
+        FA.flash_fwd(q, q, q, bias=torch.zeros(3, 16, 16, device=card))
+    with pytest.raises(ValueError, match="dropout_rate"):
+        FA.flash_fwd(q, q, q, dropout_rate=1.0)
+    with pytest.raises(ValueError, match=r"\[1, Sq, Sk\]"):
+        FA.flash_bwd_dbias(q, q, q, q, torch.zeros(2, 16, device=card),
+                           torch.zeros(2, 16, device=card), causal=False,
+                           scale=0.125, bias=torch.zeros(2, 16, 16,
+                                                         device=card))
     with pytest.raises(ValueError, match="kv_bias"):
         FA.flash_fwd(q, q, q, kv_bias=torch.zeros(3, 16, device=card))
     with pytest.raises(ValueError, match="fp32"):
         FA.flash_bwd_dq(q, q, q, q, torch.zeros(2, 16, device=card),
                         torch.zeros(2, 15, device=card), causal=True,
                         scale=0.125)
+
+
+# (bh, sq, sk, d, causal, q_start, k_start, bias: None, "shared" or
+# "per_bh", kv_bias, dropout rate): the ViT's ragged 197, Sq != Sk, offsets
+# that leave rows with nothing to see, every input at once
+EXTRA_CASES = [
+    (6, 197, 197, 64, False, 0, 0, None, False, 0.1),
+    (6, 197, 197, 64, False, 0, 0, "shared", False, 0.0),
+    (6, 197, 197, 64, False, 0, 0, "per_bh", False, 0.1),
+    (3, 130, 100, 128, True, -50, 0, "shared", True, 0.1),
+    (4, 257, 300, 64, True, 40, 3, "per_bh", True, 0.25),
+    (2, 64, 64, 64, True, 0, 0, "shared", False, 0.0),
+]
+
+
+@pytest.mark.parametrize("bh,sq,sk,d,causal,q_start,k_start,bias,kvb,rate",
+                         EXTRA_CASES)
+def test_flash_bias_and_dropout_kernels_match_plain(card, bh, sq, sk, d,
+                                                     causal, q_start,
+                                                     k_start, bias, kvb,
+                                                     rate):
+    """The full bias, kv_bias and dropout in the forward, dq (with the
+    per-bh dS), dk/dv and the shared-bias gradient kernel, against their
+    plain versions on the same card tensors (the flash rule; dS and dbias
+    under the same rule over their rows of keys); dbias twice, bit for
+    bit."""
+    from apex_tpu_torch.ops import flash_attn as FA
+    g = torch.Generator(device=card).manual_seed(sq + sk + bh)
+
+    def rnd(*s):
+        return torch.randn(*s, generator=g, device=card).to(torch.bfloat16)
+
+    q, do = rnd(bh, sq, d), rnd(bh, sq, d)
+    k, v = rnd(bh, sk, d), rnd(bh, sk, d)
+    dlse = torch.randn(bh, sq, generator=g, device=card)
+    kw = dict(causal=causal, scale=d ** -0.5, q_start=q_start,
+              k_start=k_start, dropout_rate=rate, dropout_seed=-7)
+    if bias is not None:
+        rows = 1 if bias == "shared" else bh
+        kw["bias"] = torch.randn(rows, sq, sk, generator=g, device=card)
+        kw["bias"][0, :, ::7] = FA.NEG_INF          # masked keys
+    if kvb:
+        kw["kv_bias"] = torch.where(
+            torch.rand(bh, sk, generator=g, device=card) < 0.2, FA.NEG_INF,
+            0.0)
+    o, lse = FA.flash_fwd(q, k, v, **kw)
+    with dispatch.backend("reference"):
+        o0, lse0 = FA.flash_fwd(q, k, v, **kw)
+    _flash_close(o, o0)
+    live = lse0 > FA.NEG_INF * 0.5
+    assert float(torch.where(live, (lse - lse0).abs(), 0.0).max()) <= 1e-3
+    assert torch.equal(lse[~live], lse0[~live]) and not o[~live].any()
+    delta = FA.flash_delta(o, do, dlse)
+    per_bh = bias == "per_bh"
+    out = FA.flash_bwd_dq(q, k, v, do, lse, delta, return_ds=per_bh, **kw)
+    dq, ds = out if per_bh else (out, None)
+    dk, dv = FA.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    dq0, dk0, dv0, ds0 = FA.flash_bwd_plain(q, k, v, do, lse, delta,
+                                            return_ds=True, **kw)
+    for a, b in ((dq, dq0), (dk, dk0), (dv, dv0)):
+        _flash_close(a, b)
+    if per_bh:
+        _flash_close(ds, ds0)
+    if bias == "shared":
+        db = FA.flash_bwd_dbias(q, k, v, do, lse, delta, **kw)
+        assert db.shape == (1, sq, sk) and db.dtype == torch.float32
+        _flash_close(db, ds0.sum(0, keepdim=True))
+        assert torch.equal(FA.flash_bwd_dbias(q, k, v, do, lse, delta, **kw),
+                           db)                    # no float atomics
+
+
+def test_flash_dropout_mask_reads_back_exactly(card):
+    """q = 0 makes every probability 1/64 over Sk = 64 keys, and v = I
+    puts p[i, j]·keep/(1 − rate) at o[i, j]: o[i, j] != 0 exactly where
+    the mask keeps (i, j). dO = I does the same for dv[j, i]. Both equal
+    ``dropout_bits`` >= the threshold at a nonzero bh, q_start and
+    k_start."""
+    from apex_tpu_torch.ops import flash_attn as FA
+    bh, n, rate, seed = 5, 64, 0.1, 0xDEADBEEF
+    eye = torch.eye(n, device=card, dtype=torch.bfloat16)
+    q = torch.zeros(bh, n, n, device=card, dtype=torch.bfloat16)
+    v = eye.expand(bh, n, n).contiguous()
+    kw = dict(causal=False, scale=0.125, q_start=1000, k_start=77,
+              dropout_rate=rate, dropout_seed=seed)
+    o, lse = FA.flash_fwd(q, q, v, **kw)
+    pos = torch.arange(n, device=card)
+    keep = FA.dropout_bits(seed, torch.arange(bh, device=card)[:, None, None],
+                           1000 + pos[None, :, None],
+                           77 + pos[None, None, :]) >= FA.drop_threshold(rate)
+    assert torch.equal(o != 0, keep)
+    assert 0.8 < float(keep.float().mean()) < 1.0
+    delta = FA.flash_delta(o, v)
+    _, dv = FA.flash_bwd_dkv(q, q, v, v, lse, delta, **kw)
+    assert torch.equal(dv != 0, keep.transpose(1, 2))
 
 
 def test_lm_trainer_through_the_kernels_matches_plain(card):

@@ -234,19 +234,27 @@ def test_cpu_wrappers_launch_nothing():
 
 
 def test_unported_options_raise():
-    q = torch.zeros(2, 8, 64)
-    for kw in ({"dropout_rate": 0.1},
-               {"kv_bias": torch.zeros(2, 8), "dropout_rate": 0.1}):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            flash_attention(q, q, q, **kw)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        flash_attention(q, q, q, torch.zeros(2, 8, 8))
+    """The full bias and dropout, refused until the kernels took them, now
+    run: ``flash_attention`` with both equals ``reference_attention`` with
+    both (the same hash drops the same elements), and the module's
+    dropout runs in training. ``impl`` is still validated."""
+    rs = np.random.RandomState(11)
+    q, k, v = (torch.from_numpy(rs.randn(2, 8, 64).astype(np.float32))
+               for _ in range(3))
+    bias = torch.from_numpy(rs.randn(2, 8, 8).astype(np.float32))
+    kw = dict(kv_bias=torch.zeros(2, 8), dropout_rate=0.1, dropout_seed=3)
+    torch.testing.assert_close(flash_attention(q, k, v, bias, **kw),
+                               FA.reference_attention(q, k, v, bias, **kw),
+                               atol=1e-6, rtol=1e-6)
     mha = SelfMultiheadAttn(64, 2, causal=True, dropout=0.1)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        mha.apply(mha.init(torch.Generator().manual_seed(0)),
-                  torch.zeros(4, 1, 64))
+    p = mha.init(torch.Generator().manual_seed(0))
+    x = torch.from_numpy(rs.randn(4, 1, 64).astype(np.float32))
+    out, _ = mha.apply(p, x, dropout_seed=5)
+    assert out.shape == (4, 1, 64) and bool(torch.isfinite(out).all())
     with pytest.raises(ValueError, match="impl"):
         SelfMultiheadAttn(64, 2, impl="flash")
+    with pytest.raises(ValueError, match="dropout"):
+        SelfMultiheadAttn(64, 2, dropout=1.0)
 
 
 def _bf16(*shape):
@@ -282,9 +290,10 @@ def test_auto_rule_is_the_constant_not_the_environment(monkeypatch):
 
 
 def test_auto_takes_the_kernel_only_where_it_takes_the_call(monkeypatch):
-    """The kernels take bf16 on the card with head dim 64 or 128 and no
-    full bias or dropout; "auto" sends everything else to the plain path
-    (a routing rule: "fast" still raises on those, test_torch_cuda.py)."""
+    """The kernels take bf16 on the card with head dim 64 or 128, with or
+    without a full bias and dropout; "auto" sends everything else to the
+    plain path (a routing rule: "fast" still raises on those,
+    test_torch_cuda.py)."""
     mha = SelfMultiheadAttn(128, 2, impl="auto")
     long = _bf16(2, 4096, 64)
     assert not mha._flash_wins(long, long)            # a CPU tensor
@@ -296,9 +305,12 @@ def test_auto_takes_the_kernel_only_where_it_takes_the_call(monkeypatch):
         t = _bf16(2, 4096, d)
         assert not mha._flash_wins(t, t)
     assert mha._flash_wins(_bf16(2, 4096, 128), _bf16(2, 4096, 128))
-    assert not mha._flash_wins(long, long, bias=torch.zeros(1, 4096, 4096))
-    assert not mha._flash_wins(long, long, dropout_rate=0.1)
     assert not mha._flash_wins(_bf16(65536, 128, 64), _bf16(65536, 128, 64))
+    # the kernels take the full bias and dropout: neither routes a call
+    # away, so the ViT's dropout attention at 197 tokens takes them
+    vit = SelfMultiheadAttn(768, 12, dropout=0.1, bias=True, impl="auto")
+    at = _bf16(128 * 12, 197, 64)
+    assert vit._flash_wins(at, at)
 
 
 @pytest.mark.parametrize("impl", ["fast", "default", "auto"])

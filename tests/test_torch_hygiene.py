@@ -197,7 +197,7 @@ def test_ctypes_declarations_match_the_c_entry_points():
     cuda._declare(so)
     for name, n in sigs.items():
         assert len(getattr(so, name).argtypes) == n, name
-    assert len(sigs) == 22
+    assert len(sigs) == 23           # flash_bwd_dbias is the 23rd
 
 
 def test_lm_training_entry_points_default_to_the_card_and_raise_without_it(
@@ -341,3 +341,44 @@ def test_fp16_utils_entry_points_default_to_the_card_and_raise_without_it(
     opt.step({"w": torch.ones(4, 4)})
     assert not opt.overflow
     assert opt.optimizer.state[0].master.device.type == "cpu"
+
+
+def test_scan_reaches_the_vit_slice_modules():
+    names = {p.relative_to(PKG).as_posix() for p in _sources()
+             if p.is_relative_to(PKG)}
+    assert {"models/vit.py", "ops/flash_attn.py",
+            "contrib/multihead_attn/flash_attention.py"} <= names
+
+
+def test_vit_slice_imports_without_jax():
+    code = ("import sys\n"
+            "from apex_tpu_torch.models import ViT, vit_b16\n"
+            "from apex_tpu_torch.models.vit import analytic_flops\n"
+            "from apex_tpu_torch.ops.flash_attn import (dropout_bits, "
+            "flash_bwd_dbias)\n"
+            "from apex_tpu_torch.train import Trainer\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'jaxlib', 'apex_tpu.')) or "
+            "m == 'apex_tpu')\n"
+            "print(','.join(bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == ""
+
+
+def test_vit_entry_points_default_to_the_card_and_raise_without_it(no_cuda):
+    from apex_tpu_torch.models import vit_tiny
+    from apex_tpu_torch.train import Trainer
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        vit_tiny(dropout=0.1)
+    m = vit_tiny(dropout=0.1, device="cpu")
+    p = m.init(0)
+    assert p["pos_emb"].device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(m, p, optimizer="sgd")
+    tr = Trainer(m, p, optimizer="sgd", device="cpu")
+    x = torch.randint(0, 256, (2, 32, 32, 3), dtype=torch.uint8)
+    loss = tr.step(x, torch.tensor([1, 2]))
+    assert loss.device.type == tr.opt.state[0].master.device.type == "cpu"

@@ -14,6 +14,8 @@ the softmax cross-entropy op in both packages. Tolerance 1e-5 (f32; the
 frameworks sum in other orders).
 """
 
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -169,10 +171,43 @@ def test_full_logits_loss_and_grad_match_jax(setup):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="dropout"):
-        TLM(**{**CFG, "dropout": 0.1}, device="cpu")
+    """``head_chunk`` and the chunk still refuse bad widths, and a wrong
+    count of dropout seeds raises; dropout, refused until the kernels took
+    it, now runs (its parity: ``test_dropout_loss_and_grad_match_jax``)."""
+    m = TLM(**{**CFG, "dropout": 0.1}, device="cpu")
+    with pytest.raises(ValueError, match="dropout_seeds"):
+        m.loss(m.init(0), torch.zeros(1, 5, dtype=torch.long),
+               dropout_seeds=[1])
     with pytest.raises(ValueError, match="head_chunk"):
         TLM(**{**CFG, "head_chunk": 100}, device="cpu")
     with pytest.raises(ValueError, match="chunk"):
         linear_cross_entropy(torch.zeros(2, 4), torch.zeros(6, 4),
                              torch.zeros(2, dtype=torch.long), chunk=4)
+
+
+@pytest.mark.parametrize("impl", ["fast", "default"])
+def test_dropout_loss_and_grad_match_jax(impl):
+    """Dropout 0.1 with the seeds JAX's LM derives from its key (layer i
+    folds i, transformer.py:189-193; ``_dropout_seed``) passed to the
+    port: the same loss and flat master gradient."""
+    seed_of = importlib.import_module(
+        "apex_tpu.contrib.multihead_attn.modules")._dropout_seed
+    cfg = {**CFG, "dropout": 0.1, "attn_impl": impl}
+    jm = JLM(**cfg)
+    jp = jm.init(jax.random.key(0))
+    table = JAdam(jp, lr=1e-3)._tables[0]
+    master = JF.flatten(jp, dtype=jnp.float32)[0]
+    toks = np.random.RandomState(2).randint(0, 256, (B, S)).astype(np.int32)
+    key = jax.random.key(31)
+    loss_j, g_j = jax.value_and_grad(lambda m: jm.loss(
+        JF.unflatten(m, table), jnp.asarray(toks), dropout_key=key))(master)
+    seeds = [int(seed_of(jax.random.fold_in(key, i)))
+             for i in range(cfg["num_layers"])]
+    tr = LMTrainer(TLM(**cfg, device="cpu"),
+                   params_from_jax(jax.tree.map(np.asarray, jp),
+                                   device="cpu"), dtype=None, device="cpu")
+    g, loss = tr.loss_and_grad(torch.from_numpy(toks), dropout_seeds=seeds)
+    np.testing.assert_allclose(float(loss), float(loss_j), **TOL)
+    np.testing.assert_allclose(g.numpy(), np.asarray(g_j), **TOL)
+    _, plain = tr.loss_and_grad(torch.from_numpy(toks))
+    assert float(plain) != float(loss)          # the dropout is live

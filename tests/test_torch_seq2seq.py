@@ -17,6 +17,8 @@ for values and gradients; 1e-4 for the masters after three Adam steps
 (Adam divides by sqrt(v), which scales the gradients' rounding up).
 """
 
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -174,6 +176,9 @@ def test_attention_modules_with_key_padding_mask_match_jax(module):
 
 
 def test_attn_mask_runs_on_the_default_impl_and_raises_on_flash():
+    """An ``attn_mask`` (with a key-padding mask) on the default impl
+    matches JAX's; the flash path, which refused it until the kernels took
+    a full bias, now gives the same output as JAX's flash module."""
     e, h, t, b = 128, 2, 7, 2
     rs = np.random.RandomState(12)
     x = rs.randn(t, b, e).astype(np.float32)
@@ -189,9 +194,14 @@ def test_attn_mask_runs_on_the_default_impl_and_raises_on_flash():
         tp, torch.from_numpy(x), attn_mask=torch.from_numpy(mask),
         key_padding_mask=torch.from_numpy(pad))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        SelfMultiheadAttn(e, h, bias=True, impl="fast").apply(
-            tp, torch.from_numpy(x), attn_mask=torch.from_numpy(mask))
+    want_fast = JSelf(e, h, bias=True, impl="fast").apply(
+        jp, jnp.asarray(x), attn_mask=jnp.asarray(mask),
+        key_padding_mask=jnp.asarray(pad))[0]
+    fast, _ = SelfMultiheadAttn(e, h, bias=True, impl="fast").apply(
+        tp, torch.from_numpy(x), attn_mask=torch.from_numpy(mask),
+        key_padding_mask=torch.from_numpy(pad))
+    np.testing.assert_allclose(fast.numpy(), np.asarray(want_fast), **TOL)
+    np.testing.assert_allclose(fast.numpy(), got.numpy(), **TOL)
 
 
 def test_src_pad_positions_are_inert():
@@ -274,10 +284,16 @@ def test_loss_ignores_pad_targets():
 
 
 def test_unported_options_and_bad_lengths_raise():
+    """Remat and beam decoding still raise, as do bad lengths and a wrong
+    count of dropout seeds; dropout itself now runs (its parity:
+    ``test_dropout_loss_and_grad_match_jax``)."""
     with pytest.raises(NotImplementedError, match="item 21"):
         Seq2SeqTransformer(**CFG, remat=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        Seq2SeqTransformer(**CFG, dropout=0.1, device="cpu")
+    m = Seq2SeqTransformer(**CFG, dropout=0.1, device="cpu")
+    assert m.num_dropout_seeds == 2 + 2 * 2
+    with pytest.raises(ValueError, match="dropout_seeds"):
+        m.loss(m.init(0), torch.full((1, 4), 5), torch.full((1, 4), 5),
+               dropout_seeds=[1, 2])
     m = Seq2SeqTransformer(**CFG, device="cpu")
     p = m.init(0)
     src = torch.full((1, 4), 5)
@@ -301,3 +317,43 @@ def test_entry_points_default_to_the_card_and_raise_without_it(monkeypatch):
     loss = LMTrainer(m, p, device="cpu").step(
         *(torch.from_numpy(a) for a in _batch(0)), label_smoothing=0.1)
     assert loss.device.type == "cpu" and bool(torch.isfinite(loss))
+
+
+def _jax_seq2seq_seeds(key, n_enc: int, n_dec: int) -> list:
+    """The seeds JAX's Seq2Seq hands its attention cores: encoder layer i
+    folds i into the key; decoder layer i folds n_enc + i, then 0 (self)
+    and 1 (cross) (seq2seq.py:149-185)."""
+    seed = importlib.import_module(
+        "apex_tpu.contrib.multihead_attn.modules")._dropout_seed
+    out = [int(seed(jax.random.fold_in(key, i))) for i in range(n_enc)]
+    for i in range(n_dec):
+        k = jax.random.fold_in(key, n_enc + i)
+        out += [int(seed(jax.random.fold_in(k, j))) for j in (0, 1)]
+    return out
+
+
+@pytest.mark.parametrize("impl", ["fast", "default"])
+def test_dropout_loss_and_grad_match_jax(impl):
+    """Dropout 0.1 in every attention, the seeds JAX derives from its key
+    passed to the port: the same loss and flat master gradient."""
+    cfg = dict(CFG, attn_impl=impl, dropout=0.1)
+    jm = JS2S(**cfg)
+    jp = jm.init(jax.random.key(0))
+    table = JAdam(jp, lr=1e-3)._tables[0]
+    master = JF.flatten(jp, dtype=jnp.float32)[0]
+    src, tgt = _batch(5)
+    key = jax.random.key(23)
+    loss_j, g_j = jax.value_and_grad(lambda m: jm.loss(
+        JF.unflatten(m, table), jnp.asarray(src), jnp.asarray(tgt),
+        dropout_key=key, label_smoothing=0.1))(master)
+    tm = Seq2SeqTransformer(**cfg, device="cpu")
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), device="cpu")
+    seeds = _jax_seq2seq_seeds(key, 2, 2)
+    tr = LMTrainer(tm, tp, dtype=None, device="cpu")
+    ts, tt = torch.from_numpy(src), torch.from_numpy(tgt)
+    g, loss = tr.loss_and_grad(ts, tt, label_smoothing=0.1,
+                               dropout_seeds=seeds)
+    np.testing.assert_allclose(float(loss), float(loss_j), **TOL)
+    np.testing.assert_allclose(g.numpy(), np.asarray(g_j), **TOL)
+    _, plain = tr.loss_and_grad(ts, tt, label_smoothing=0.1)
+    assert float(plain) != float(loss)          # the dropout is live
