@@ -152,6 +152,14 @@ def _declare(so: ctypes.CDLL) -> None:
     so.apex_adagrad.restype = I
     so.apex_layer_norm_bwd.argtypes = [I, I] + [P] * 9 + [I] * 4 + [P]
     so.apex_layer_norm_bwd.restype = I
+    # the wide rows: rows and F (and rows per block) in 64 bits
+    so.apex_layer_norm_fwd_wide.argtypes = [I, I] + [P] * 7 + [L, L, F, P]
+    so.apex_layer_norm_fwd_wide.restype = I
+    so.apex_layer_norm_bwd_wide.argtypes = [I, I] + [P] * 10 + [L, L, L, I,
+                                                                P]
+    so.apex_layer_norm_bwd_wide.restype = I
+    so.apex_bn_bwd_reduce_xhat.argtypes = [I, I, P, P, L, I, I, P, P, P, P]
+    so.apex_bn_bwd_reduce_xhat.restype = I
     # kv_bias and bias with their bh strides; dropout's seed, threshold
     # and 1 / (1 - rate); bh, sq, sk, d, q_start, k_start, causal; scale
     U = ctypes.c_uint32

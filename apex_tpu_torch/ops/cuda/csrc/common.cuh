@@ -79,6 +79,20 @@ __device__ __forceinline__ void store4(__half* p, const float (&v)[4]) {
   *reinterpret_cast<uint2*>(p) = raw;
 }
 
+// A storage dtype code as a type tag: with_storage calls f(Tag<T>{}) for
+// the code's T and returns false for a code the kernels do not take.
+template <typename T> struct Tag { using type = T; };
+
+template <typename F>
+bool with_storage(int dtype, F&& f) {
+  switch (dtype) {
+    case kF32: f(Tag<float>{}); return true;
+    case kBF16: f(Tag<__nv_bfloat16>{}); return true;
+    case kF16: f(Tag<__half>{}); return true;
+    default: return false;
+  }
+}
+
 // butterfly reductions: every lane ends with the same value (each level
 // adds the same two operands in both partner lanes)
 __device__ __forceinline__ float warp_sum(float v) {

@@ -20,6 +20,8 @@
 // mean, then the mean of squared deviations, then rsqrt(var + eps), then
 // (x - mean) * inv * gamma + beta.
 
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace apex_port {
@@ -449,4 +451,429 @@ extern "C" int apex_layer_norm_bwd(int x_dtype, int w_dtype, const void* dy,
   }
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
+}
+
+// ---- wide rows (F > 8192) --------------------------------------------------
+//
+// Replaces the Pallas kernels of the two-stage wide path of
+// apex_tpu/ops/pallas/layer_norm.py: _ln_fwd_wide -> _wide_moments_kernel
+// (:201) and _wide_apply_kernel (:227); _ln_bwd_wide ->
+// _wide_bwd_reduce_kernel (:288), _wide_gwgb_kernel (:310) and
+// _wide_dx_kernel (:331). Four kernels here do the work of those five:
+//   ln_wide_stats_kernel    per (row, chunk): s = sum(x - shift) and
+//                           q = sum((x - shift - s/n)^2)            (row 5)
+//   ln_wide_apply_kernel    merge a row's chunks, y = (x-mean)*inv*g+b (row 6)
+//   ln_wide_bwd_reduce_kernel  per (row, chunk): sum(dy*g), sum(dy*g*xhat);
+//                           per (row block, column): sum(dy*xhat),
+//                           sum(dy)                              (rows 7-8)
+//   ln_wide_bwd_dx_kernel   merge a row's chunks, dx                 (row 9)
+// and finalize_kernel (common.cuh) adds the row blocks' column sums.
+//
+// Bound on this card: bytes. The forward reads x and writes y, the backward
+// reads dy and x and writes dx, with ~10 flops per element: at the LM's
+// [8192, 12288] bf16, 403 MB (0.120 ms at 3.35 TB/s) and 604 MB (0.180
+// ms). A row runs from 12288 up to hundreds of thousands of values (a
+// LayerNorm over a [C, H, W] map), past what one block holds on chip, so
+// the row is cut into chunks of kWideCols columns and each chunk is its own
+// block's work: the forward reads x twice (statistics, then y) and the
+// backward dy and x twice (sums, then dx), 1.5 and 1.67 times the bound's
+// bytes. What the design does about the rest: a warp takes one (row,
+// chunk) at a time, each lane 32 values by eight 4-wide vector loads, all
+// issued before the first is used; gamma and beta of the block's chunk are
+// loaded once into registers; the backward's column sums stay in registers
+// across the block's rows. Statistics: each chunk's sum of squares is
+// centred on its own mean (from registers), after a per-row shift (the
+// row's first value) that keeps the sums small when |mean| >> std; the
+// chunks merge as var * F = sum(q_j + n_j * (s_j / n_j - s / F)^2), a sum
+// of non-negative terms that cannot cancel. Every sum runs in a fixed
+// order (lanes, then a butterfly; chunks strided over lanes, then a
+// butterfly; warps in order; row blocks in order), with no float atomics,
+// so both passes repeat bit for bit. Indices are 64-bit: rows * F passes
+// 2^31 at these widths.
+
+namespace apex_port {
+namespace {
+
+constexpr int kWideCols = 32 * kItems;   // columns of a chunk: 32 lanes x 32
+constexpr int kWideWarps = 8;            // warps of a block (256 threads)
+
+inline int wide_chunks(long long F) {
+  return static_cast<int>((F + kWideCols - 1) / kWideCols);
+}
+
+// the columns of chunk j of a row of F (the last chunk may be short)
+__device__ __forceinline__ int chunk_cols(long long F, int j) {
+  const long long left = F - (long long)j * kWideCols;
+  return left < kWideCols ? static_cast<int>(left) : kWideCols;
+}
+
+// lane's column of group i inside a chunk: c = (i * 32 + lane) * 4
+__device__ __forceinline__ int wide_col(int i, int lane) {
+  return (i * 32 + lane) * 4;
+}
+
+// a chunk's kItems columns of a [F] vector into a lane's registers
+template <typename W>
+__device__ __forceinline__ void load_chunk_vec(const W* p, long long c0,
+                                               int n, int lane, float fill,
+                                               float (&o)[kItems]) {
+#pragma unroll
+  for (int i = 0; i < kItems / 4; ++i) {
+    const int c = wide_col(i, lane);
+    load_vec<4>(p != nullptr ? p + c0 + c : nullptr, p != nullptr && c < n,
+                fill, o + i * 4);
+  }
+}
+
+// a row's per-chunk partials a_j = part[(row * nchunk + j) * 2 + k],
+// summed in a fixed order (lane-strided, then a butterfly): every lane and
+// every block of the row gets the same bits
+__device__ __forceinline__ float merge_chunks(const float* pr, int nchunk,
+                                              int k, int lane) {
+  float s = 0.f;
+  for (int j = lane; j < nchunk; j += 32) s += pr[2 * j + k];
+  return warp_sum(s);
+}
+
+// grid (nchunk, row groups); warp w of block (j, b) takes chunk j of rows
+// b * 8 + w, then + 8 * gridDim.y, ...
+template <typename T>
+__global__ void __launch_bounds__(32 * kWideWarps)
+ln_wide_stats_kernel(const T* __restrict__ x, float* __restrict__ part,
+                     long long rows, long long F) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int j = blockIdx.x, nchunk = gridDim.x;
+  const long long c0 = (long long)j * kWideCols;
+  const int n = chunk_cols(F, j);
+  for (long long row = (long long)blockIdx.y * kWideWarps + warp; row < rows;
+       row += (long long)gridDim.y * kWideWarps) {
+    const T* xr = x + row * F;
+    const float shift = to_f(xr[0]);
+    float d[kItems];
+#pragma unroll
+    for (int i = 0; i < kItems / 4; ++i) {
+      const int c = wide_col(i, lane);
+      load_vec<4>(xr + c0 + c, c < n, shift, d + i * 4);
+    }
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) {
+      d[i] -= shift;                  // past the row: 0
+      s += d[i];
+    }
+    s = warp_sum(s);
+    const float m = s / static_cast<float>(n);
+    float q = 0.f;
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) {
+      const float e = d[i] - m;
+      q += wide_col(i / 4, lane) < n ? e * e : 0.f;
+    }
+    q = warp_sum(q);
+    if (lane == 0) {
+      float* pr = part + (row * nchunk + j) * 2;
+      pr[0] = s;
+      pr[1] = q;
+    }
+  }
+}
+
+template <typename T, typename W>
+__global__ void __launch_bounds__(32 * kWideWarps)
+ln_wide_apply_kernel(const T* __restrict__ x, const W* __restrict__ gamma,
+                     const W* __restrict__ beta,
+                     const float* __restrict__ part, T* __restrict__ y,
+                     float* __restrict__ mean_out,
+                     float* __restrict__ inv_out, long long rows,
+                     long long F, float eps) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int j = blockIdx.x, nchunk = gridDim.x;
+  const long long c0 = (long long)j * kWideCols;
+  const int n = chunk_cols(F, j);
+  const bool affine = gamma != nullptr;
+  const float Ff = static_cast<float>(F);
+  float g[kItems], b[kItems];
+  load_chunk_vec(gamma, c0, n, lane, 1.f, g);
+  load_chunk_vec(beta, c0, n, lane, 0.f, b);
+  for (long long row = (long long)blockIdx.y * kWideWarps + warp; row < rows;
+       row += (long long)gridDim.y * kWideWarps) {
+    const T* xr = x + row * F;
+    const float* pr = part + row * nchunk * 2;
+    const float shift = to_f(xr[0]);
+    const float dmean = merge_chunks(pr, nchunk, 0, lane) / Ff;
+    float q = 0.f;
+    for (int k = lane; k < nchunk; k += 32) {
+      const float nk = static_cast<float>(chunk_cols(F, k));
+      const float dk = pr[2 * k] / nk - dmean;
+      q += pr[2 * k + 1] + nk * dk * dk;
+    }
+    const float inv = rsqrtf(warp_sum(q) / Ff + eps);
+    float v[kItems];
+#pragma unroll
+    for (int i = 0; i < kItems / 4; ++i) {
+      const int c = wide_col(i, lane);
+      load_vec<4>(xr + c0 + c, c < n, 0.f, v + i * 4);
+    }
+    T* yr = y + row * F + c0;
+#pragma unroll
+    for (int i = 0; i < kItems / 4; ++i) {
+      const int c = wide_col(i, lane);
+      if (c < n) {
+        float o[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int k = i * 4 + e;
+          // (x - shift) - dmean: exact to the shift's precision even
+          // where the mean is large beside the spread
+          const float xh = ((v[k] - shift) - dmean) * inv;
+          o[e] = affine ? xh * g[k] + b[k] : xh;
+        }
+        store4(yr + c, o);
+      }
+    }
+    if (j == 0 && lane == 0) {
+      mean_out[row] = shift + dmean;
+      inv_out[row] = inv;
+    }
+  }
+}
+
+// the block's eight warps' column sums of one chunk, added in warp order,
+// -> out[0..n)
+__device__ __forceinline__ void store_block_cols(
+    const float (&a)[kItems], float (*sh)[kWideCols], float* out, int n) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) {
+    sh[warp][wide_col(i / 4, lane) + i % 4] = a[i];
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < n; c += 32 * kWideWarps) {
+    float t = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWideWarps; ++w) t += sh[w][c];
+    out[c] = t;
+  }
+  __syncthreads();                 // sh is staged again next
+}
+
+// grid (nchunk, nrb); block (j, b) takes chunk j of rows [b * rpc,
+// (b+1) * rpc), warp w the rows r0 + w, r0 + w + 8, ...; writes each row's
+// chunk sums to rpart[row][j][0..1] and, AFFINE, the block's column sums
+// to ws[0][b][cols of j], ws[1][b][cols of j]
+template <typename T, typename W, bool AFFINE>
+__global__ void __launch_bounds__(32 * kWideWarps)
+ln_wide_bwd_reduce_kernel(const T* __restrict__ dy, const T* __restrict__ x,
+                          const W* __restrict__ gamma,
+                          const float* __restrict__ mean,
+                          const float* __restrict__ inv,
+                          float* __restrict__ rpart, float* __restrict__ ws,
+                          long long rows, long long F, long long rpc) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int j = blockIdx.x, nchunk = gridDim.x;
+  const long long c0 = (long long)j * kWideCols;
+  const int n = chunk_cols(F, j);
+  float g[kItems], gw[kItems], gb[kItems];
+  load_chunk_vec(AFFINE ? gamma : nullptr, c0, n, lane, 1.f, g);
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) gw[i] = gb[i] = 0.f;
+  const long long r0 = (long long)blockIdx.y * rpc;
+  const long long r1 = r0 + rpc < rows ? r0 + rpc : rows;
+  for (long long row = r0 + warp; row < r1; row += kWideWarps) {
+    const float mu = mean[row], iv = inv[row];
+    const T* dr = dy + row * F + c0;
+    const T* xr = x + row * F + c0;
+    float d[kItems], xh[kItems];
+#pragma unroll
+    for (int i = 0; i < kItems / 4; ++i) {
+      const int c = wide_col(i, lane);
+      load_vec<4>(dr + c, c < n, 0.f, d + i * 4);   // past the row: dy 0
+      load_vec<4>(xr + c, c < n, mu, xh + i * 4);
+    }
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < kItems; ++i) {
+      xh[i] = (xh[i] - mu) * iv;
+      const float dxh = AFFINE ? d[i] * g[i] : d[i];
+      s1 += dxh;
+      s2 += dxh * xh[i];
+      if (AFFINE) {
+        gw[i] += d[i] * xh[i];
+        gb[i] += d[i];
+      }
+    }
+    s1 = warp_sum(s1);
+    s2 = warp_sum(s2);
+    if (lane == 0) {
+      float* pr = rpart + (row * nchunk + j) * 2;
+      pr[0] = s1;
+      pr[1] = s2;
+    }
+  }
+  if (!AFFINE) return;
+  __shared__ float sh[kWideWarps][kWideCols];
+  store_block_cols(gw, sh, ws + (long long)blockIdx.y * F + c0, n);
+  store_block_cols(gb, sh,
+                   ws + ((long long)gridDim.y + blockIdx.y) * F + c0, n);
+}
+
+// grid (nchunk, row groups) as the forward's; dx = inv * (dy * g - m1 -
+// xhat * m2) with m1, m2 the row's merged sums over F
+template <typename T, typename W, bool AFFINE>
+__global__ void __launch_bounds__(32 * kWideWarps)
+ln_wide_bwd_dx_kernel(const T* __restrict__ dy, const T* __restrict__ x,
+                      const W* __restrict__ gamma,
+                      const float* __restrict__ mean,
+                      const float* __restrict__ inv,
+                      const float* __restrict__ rpart, T* __restrict__ dx,
+                      long long rows, long long F) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int j = blockIdx.x, nchunk = gridDim.x;
+  const long long c0 = (long long)j * kWideCols;
+  const int n = chunk_cols(F, j);
+  const float Ff = static_cast<float>(F);
+  float g[kItems];
+  load_chunk_vec(AFFINE ? gamma : nullptr, c0, n, lane, 1.f, g);
+  for (long long row = (long long)blockIdx.y * kWideWarps + warp; row < rows;
+       row += (long long)gridDim.y * kWideWarps) {
+    const float* pr = rpart + row * nchunk * 2;
+    const float m1 = merge_chunks(pr, nchunk, 0, lane) / Ff;
+    const float m2 = merge_chunks(pr, nchunk, 1, lane) / Ff;
+    const float mu = mean[row], iv = inv[row];
+    const T* dr = dy + row * F + c0;
+    const T* xr = x + row * F + c0;
+    float d[kItems], v[kItems];
+#pragma unroll
+    for (int i = 0; i < kItems / 4; ++i) {
+      const int c = wide_col(i, lane);
+      load_vec<4>(dr + c, c < n, 0.f, d + i * 4);
+      load_vec<4>(xr + c, c < n, mu, v + i * 4);
+    }
+    T* out = dx + row * F + c0;
+#pragma unroll
+    for (int i = 0; i < kItems / 4; ++i) {
+      const int c = wide_col(i, lane);
+      if (c < n) {
+        float o[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int k = i * 4 + e;
+          const float xh = (v[k] - mu) * iv;
+          const float dxh = AFFINE ? d[k] * g[k] : d[k];
+          o[e] = iv * (dxh - m1 - xh * m2);
+        }
+        store4(out + c, o);
+      }
+    }
+  }
+}
+
+// row groups of eight for the forward's and dx's grid (a block strides
+// over the rest)
+inline unsigned wide_row_groups(long long rows) {
+  const long long g = (rows + kWideWarps - 1) / kWideWarps;
+  return static_cast<unsigned>(g < 65535 ? g : 65535);
+}
+
+inline bool bad_wide_shape(long long rows, long long F) {
+  return rows < 1 || F < 4 || F % 4 != 0 ||
+         wide_chunks(F) > 0x7fffffffLL / 2;
+}
+
+// with_storage over (x, weight) dtypes: f(x tag, weight tag, affine as a
+// std::bool_constant); a null weight takes W = float
+template <typename Fn>
+bool with_x_w(int x_dtype, int w_dtype, bool affine, Fn&& f) {
+  bool ok = false;
+  with_storage(x_dtype, [&](auto xt) {
+    if (affine) {
+      ok = with_storage(w_dtype, [&](auto wt) {
+        f(xt, wt, std::true_type{});
+      });
+    } else {
+      f(xt, Tag<float>{}, std::false_type{});
+      ok = true;
+    }
+  });
+  return ok;
+}
+
+}  // namespace
+}  // namespace apex_port
+
+// x, y [rows, F] (F a multiple of 4, every buffer 4-element aligned);
+// gamma/beta [F] or both null; mean/invvar fp32 [rows]; part fp32 [rows,
+// ceil(F / 1024), 2] scratch. Two launches; returns cudaGetLastError().
+extern "C" int apex_layer_norm_fwd_wide(int x_dtype, int w_dtype,
+                                        const void* x, const void* gamma,
+                                        const void* beta, void* y,
+                                        void* mean, void* invvar, void* part,
+                                        long long rows, long long F,
+                                        float eps, void* stream) {
+  using namespace apex_port;
+  if (bad_wide_shape(rows, F)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(wide_chunks(F), wide_row_groups(rows));
+  float* pt = static_cast<float*>(part);
+  const bool ok = with_x_w(x_dtype, w_dtype, gamma != nullptr,
+                           [&](auto xt, auto wt, auto) {
+    using T = typename decltype(xt)::type;
+    using W = typename decltype(wt)::type;
+    const T* xp = static_cast<const T*>(x);
+    ln_wide_stats_kernel<T><<<grid, 32 * kWideWarps, 0, st>>>(xp, pt, rows,
+                                                              F);
+    ln_wide_apply_kernel<T, W><<<grid, 32 * kWideWarps, 0, st>>>(
+        xp, static_cast<const W*>(gamma), static_cast<const W*>(beta), pt,
+        static_cast<T*>(y), static_cast<float*>(mean),
+        static_cast<float*>(invvar), rows, F, eps);
+  });
+  return static_cast<int>(ok ? cudaGetLastError() : cudaErrorInvalidValue);
+}
+
+// dy, x, dx [rows, F] in one dtype (F a multiple of 4, every buffer
+// 4-element aligned); gamma [F] or null (non-affine: ws, gw, gb unused);
+// mean, invvar fp32 [rows]; rpart fp32 [rows, ceil(F / 1024), 2] and ws
+// fp32 [2, nrb, F] scratch; gw, gb fp32 [F]. Row block b of nrb takes rows
+// [b * rpc, (b+1) * rpc). Three launches (two without gamma).
+extern "C" int apex_layer_norm_bwd_wide(int x_dtype, int w_dtype,
+                                        const void* dy, const void* x,
+                                        const void* gamma, const void* mean,
+                                        const void* invvar, void* dx,
+                                        void* rpart, void* ws, void* gw,
+                                        void* gb, long long rows,
+                                        long long F, long long rpc, int nrb,
+                                        void* stream) {
+  using namespace apex_port;
+  if (bad_wide_shape(rows, F) || F > 0x7fffffffLL || rpc < 1 || nrb < 1 ||
+      nrb > 65535 || rpc * nrb < rows) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int nchunk = wide_chunks(F);
+  const float* m = static_cast<const float*>(mean);
+  const float* iv = static_cast<const float*>(invvar);
+  float* rp = static_cast<float*>(rpart);
+  float* w = static_cast<float*>(ws);
+  const bool ok = with_x_w(x_dtype, w_dtype, gamma != nullptr,
+                           [&](auto xt, auto wt, auto affine) {
+    using T = typename decltype(xt)::type;
+    using W = typename decltype(wt)::type;
+    constexpr bool A = decltype(affine)::value;
+    const T* d = static_cast<const T*>(dy);
+    const T* xp = static_cast<const T*>(x);
+    const W* g = static_cast<const W*>(gamma);
+    ln_wide_bwd_reduce_kernel<T, W, A>
+        <<<dim3(nchunk, nrb), 32 * kWideWarps, 0, st>>>(d, xp, g, m, iv, rp,
+                                                        w, rows, F, rpc);
+    if constexpr (A) {
+      finalize_kernel<<<static_cast<unsigned>((F + 31) / 32), dim3(32, 32),
+                        0, st>>>(w, nrb, static_cast<int>(F),
+                                 static_cast<float*>(gw),
+                                 static_cast<float*>(gb));
+    }
+    ln_wide_bwd_dx_kernel<T, W, A>
+        <<<dim3(nchunk, wide_row_groups(rows)), 32 * kWideWarps, 0, st>>>(
+            d, xp, g, m, iv, rp, static_cast<T*>(dx), rows, F);
+  });
+  return static_cast<int>(ok ? cudaGetLastError() : cudaErrorInvalidValue);
 }

@@ -576,16 +576,16 @@ adagrad_kernel(const G* __restrict__ g, const P* __restrict__ p,
   }
 }
 
-// A storage dtype as a type tag: with_type calls f(Type<T>{}) for the
-// dtype's T, with_gp_types f(Type<G>{}, Type<P>{}) for the (grad, param)
-// pair; each returns false for a dtype the kernels do not take.
-template <typename T> struct Type { using type = T; };
+// A storage dtype as a type tag (common.cuh): with_type calls
+// f(Tag<T>{}) for the dtype's T, with_gp_types f(Tag<G>{}, Tag<P>{}) for
+// the (grad, param) pair; each returns false for a dtype the kernels do
+// not take (fp16 here).
 
 template <typename F>
 bool with_type(int dtype, F&& f) {
   switch (dtype) {
-    case kF32: f(Type<float>{}); return true;
-    case kBF16: f(Type<__nv_bfloat16>{}); return true;
+    case kF32: f(Tag<float>{}); return true;
+    case kBF16: f(Tag<__nv_bfloat16>{}); return true;
     default: return false;
   }
 }

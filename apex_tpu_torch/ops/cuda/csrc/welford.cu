@@ -4,15 +4,18 @@
 // bn_moments replaces the Pallas kernel apex_tpu/ops/pallas/welford.py
 // bn_moments -> _moments_kernel (:60); bn_bwd_reduce replaces
 // bn_backward_fused_reduce -> _bwd_fused_reduce_kernel (:94); bn_bwd_dx
-// replaces bn_backward_dx -> _bwd_dx_kernel (:152).
+// replaces bn_backward_dx -> _bwd_dx_kernel (:152); bn_bwd_reduce_xhat,
+// the reduce body reading a materialized xhat, replaces bn_backward_reduce
+// -> _bwd_reduce_kernel (:216).
 //
-// Bound on this card: bytes, for all three. Per element they do a handful
-// of fp32 operations (2 for the moments, 6 for the reduce, 8 for dx) and
-// move 2 to 10 bytes (bf16), below the ~20 operations per byte where the
-// H100's fp32 units, not its 3.35 TB/s, would set the time. At RN50's
-// batch-256 stem BN (R = 3,211,264, C = 64, bf16):
+// Bound on this card: bytes, for all four. Per element they do a handful
+// of fp32 operations (2 for the moments, 3 to 6 for the reduces, 8 for
+// dx) and move 2 to 10 bytes (bf16), below the ~20 operations per byte
+// where the H100's fp32 units, not its 3.35 TB/s, would set the time. At
+// RN50's batch-256 stem BN (R = 3,211,264, C = 64, bf16):
 //   moments  x in                          2 B/elem  411 MB  0.123 ms
 //   reduce   dy, x, out in                 6 B/elem  1.23 GB 0.368 ms
+//   reduce from xhat: dy, xhat in          4 B/elem  822 MB  0.245 ms
 //   dx       dy, x, out in; dx, dz out    10 B/elem  2.06 GB 0.613 ms
 // What the design does about it: every element is read once, four
 // consecutive channels per thread with one 8-byte (bf16) or 16-byte (fp32)
@@ -116,19 +119,23 @@ moments_kernel(const T* __restrict__ x, long long rows, int c,
 }
 
 // ---- backward: sum(dy), sum(dy * xhat) --------------------------------------
+// XHAT: x is the materialized xhat (of its own dtype X), and mean, invvar
+// and out are unused: bn_backward_reduce (welford.py:216-251)
 
-template <typename T, bool MASK>
+template <typename T, typename X, bool MASK, bool XHAT>
 __global__ void __launch_bounds__(kThreads)
-bwd_reduce_kernel(const T* __restrict__ dy, const T* __restrict__ x,
+bwd_reduce_kernel(const T* __restrict__ dy, const X* __restrict__ x,
                   const T* __restrict__ out, const float* __restrict__ mean,
                   const float* __restrict__ invvar, long long rows, int c,
                   long long rpc, int nchunk, float* __restrict__ ws) {
   const int col = (blockIdx.x * blockDim.x + threadIdx.x) * 4;
   float sd[4] = {0.f, 0.f, 0.f, 0.f}, sx[4] = {0.f, 0.f, 0.f, 0.f};
   if (col < c) {
-    float mu[4], iv[4];
-    load4(mean + col, mu);
-    load4(invvar + col, iv);
+    float mu[4] = {0.f, 0.f, 0.f, 0.f}, iv[4] = {1.f, 1.f, 1.f, 1.f};
+    if constexpr (!XHAT) {
+      load4(mean + col, mu);
+      load4(invvar + col, iv);
+    }
     const long long r0 = (long long)blockIdx.y * rpc;
     const long long r1 = r0 + rpc < rows ? r0 + rpc : rows;
 #pragma unroll 4
@@ -140,7 +147,7 @@ bwd_reduce_kernel(const T* __restrict__ dy, const T* __restrict__ x,
       if constexpr (MASK) mask_dy(out, off, d);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float xh = (v[e] - mu[e]) * iv[e];
+        const float xh = XHAT ? v[e] : (v[e] - mu[e]) * iv[e];
         sd[e] += d[e];
         sx[e] += d[e] * xh;
       }
@@ -215,12 +222,26 @@ void launch_bwd_reduce(const void* dy, const void* x, const void* out,
   const T* xp = static_cast<const T*>(x);
   const T* op = static_cast<const T*>(out);
   if (out != nullptr) {
-    bwd_reduce_kernel<T, true><<<grid, block, 0, st>>>(
+    bwd_reduce_kernel<T, T, true, false><<<grid, block, 0, st>>>(
         d, xp, op, mean, invvar, rows, c, rpc, nchunk, ws);
   } else {
-    bwd_reduce_kernel<T, false><<<grid, block, 0, st>>>(
+    bwd_reduce_kernel<T, T, false, false><<<grid, block, 0, st>>>(
         d, xp, op, mean, invvar, rows, c, rpc, nchunk, ws);
   }
+  finalize_kernel<<<(c + 31) / 32, dim3(32, 32), 0, st>>>(ws, nchunk, c, o0,
+                                                          o1);
+}
+
+template <typename T, typename X>
+void launch_bwd_reduce_xhat(const void* dy, const void* xhat, long long rows,
+                            int c, int nchunk, float* ws, float* o0,
+                            float* o1, cudaStream_t st) {
+  const Tile t = tile_for(c);
+  bwd_reduce_kernel<T, X, false, true>
+      <<<dim3(t.tiles, nchunk), dim3(t.tx, t.ty), 0, st>>>(
+          static_cast<const T*>(dy), static_cast<const X*>(xhat), nullptr,
+          nullptr, nullptr, rows, c, rows_per_chunk(rows, nchunk), nchunk,
+          ws);
   finalize_kernel<<<(c + 31) / 32, dim3(32, 32), 0, st>>>(ws, nchunk, c, o0,
                                                           o1);
 }
@@ -318,6 +339,30 @@ extern "C" int apex_bn_bwd_reduce(int dtype, const void* dy, const void* x,
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// dy, xhat [rows, c], each fp32, bf16 or fp16 (they may differ); ws as
+// above; sum_dy, sum_dy_xhat fp32 [c].
+extern "C" int apex_bn_bwd_reduce_xhat(int dy_dtype, int xhat_dtype,
+                                       const void* dy, const void* xhat,
+                                       long long rows, int c, int nchunk,
+                                       void* ws, void* sum_dy,
+                                       void* sum_dy_xhat, void* stream) {
+  using namespace apex_port;
+  if (bad_shape(rows, c, nchunk)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  bool ok = false;
+  with_storage(dy_dtype, [&](auto dt) {
+    ok = with_storage(xhat_dtype, [&](auto xt) {
+      launch_bwd_reduce_xhat<typename decltype(dt)::type,
+                             typename decltype(xt)::type>(
+          dy, xhat, rows, c, nchunk, static_cast<float*>(ws),
+          static_cast<float*>(sum_dy), static_cast<float*>(sum_dy_xhat), st);
+    });
+  });
+  return static_cast<int>(ok ? cudaGetLastError() : cudaErrorInvalidValue);
 }
 
 // dy, x, out [rows, c] in one dtype (out may be null); pc fp32 [5, c] =

@@ -33,41 +33,45 @@ _LEAF = "*"
 
 
 # -- tree walker (jax.tree_util order) ----------------------------------------
+#
+# The walkers are module-level functions: a nested function that calls
+# itself is a reference cycle (function -> closure cell -> function) that
+# would keep its leaves, whole parameter trees and flat buffers among
+# them, alive until the cyclic collector runs.
+
+def _walk(node, leaves: list):
+    if node is None:
+        return None
+    if isinstance(node, dict):
+        keys = tuple(sorted(node))
+        return ("dict", keys, tuple(_walk(node[k], leaves) for k in keys))
+    if isinstance(node, (list, tuple)):
+        return (type(node).__name__, len(node),
+                tuple(_walk(c, leaves) for c in node))
+    leaves.append(node)
+    return _LEAF
+
 
 def tree_flatten(tree: Any) -> tuple[list, Any]:
     """Leaves in ``jax.tree_util`` order, and a hashable structure."""
     leaves: list = []
+    return leaves, _walk(tree, leaves)
 
-    def walk(node):
-        if node is None:
-            return None
-        if isinstance(node, dict):
-            keys = tuple(sorted(node))
-            return ("dict", keys, tuple(walk(node[k]) for k in keys))
-        if isinstance(node, (list, tuple)):
-            return (type(node).__name__, len(node),
-                    tuple(walk(c) for c in node))
-        leaves.append(node)
-        return _LEAF
 
-    return leaves, walk(tree)
+def _build(d, it):
+    if d is None:
+        return None
+    if d == _LEAF:
+        return next(it)
+    kind = d[0]
+    if kind == "dict":
+        return {k: _build(c, it) for k, c in zip(d[1], d[2])}
+    children = [_build(c, it) for c in d[2]]
+    return tuple(children) if kind == "tuple" else children
 
 
 def tree_unflatten(treedef: Any, leaves) -> Any:
-    it = iter(leaves)
-
-    def build(d):
-        if d is None:
-            return None
-        if d == _LEAF:
-            return next(it)
-        kind = d[0]
-        if kind == "dict":
-            return {k: build(c) for k, c in zip(d[1], d[2])}
-        children = [build(c) for c in d[2]]
-        return tuple(children) if kind == "tuple" else children
-
-    return build(treedef)
+    return _build(treedef, iter(leaves))
 
 
 def tree_paths(treedef: Any) -> list:

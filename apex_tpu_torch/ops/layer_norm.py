@@ -1,15 +1,21 @@
 """LayerNorm over rows: the kernel wrappers and their plain PyTorch
 versions.
 
-Counterpart of ``apex_tpu/ops/pallas/layer_norm.py`` ``_ln_fwd_single`` /
-``_fwd_kernel`` and ``_ln_bwd_single`` / ``_bwd_kernel`` (F <= 8192, one
-pass); the kernels are ``ops/cuda/csrc/layer_norm.cu``. The wide
-(F > 8192) kernels are not ported yet.
+Counterpart of ``apex_tpu/ops/pallas/layer_norm.py``; the kernels are
+``ops/cuda/csrc/layer_norm.cu``:
 
-For a tensor on the CPU :func:`ln_fwd` and :func:`ln_bwd` run their plain
-versions; for a tensor on the card they launch their kernels, or raise
-when the kernel does not take the dtype, shape or layout. ``.launches``
-counts launches.
+- rows of F <= 8192 (``F_SINGLE_MAX``): ``_ln_fwd_single`` /
+  ``_fwd_kernel`` and ``_ln_bwd_single`` / ``_bwd_kernel``, one pass;
+- wider rows: ``_ln_fwd_wide`` (the moments, then y) and ``_ln_bwd_wide``
+  (the row sums, the gamma/beta gradients, then dx), the row cut into
+  chunks of 1024 columns (:func:`ln_fwd_wide`, :func:`ln_bwd_wide`; F a
+  multiple of 4).
+
+:func:`ln_fwd` and :func:`ln_bwd` take a row's width to one or the other.
+For a tensor on the CPU every wrapper runs its plain version; for a tensor
+on the card it launches its kernels, or raises when they do not take the
+dtype, shape or layout. ``.launches`` counts a wrapper's calls that
+launched.
 """
 
 from __future__ import annotations
@@ -19,10 +25,14 @@ import torch
 from apex_tpu_torch.ops import cuda as _cuda
 from apex_tpu_torch.ops import dispatch
 
-__all__ = ["F_SINGLE_MAX", "ln_fwd", "ln_fwd_plain", "ln_bwd",
-           "ln_bwd_plain"]
+__all__ = ["F_SINGLE_MAX", "ln_fwd", "ln_fwd_plain", "ln_fwd_wide",
+           "ln_bwd", "ln_bwd_plain", "ln_bwd_wide"]
 
-F_SINGLE_MAX = 8192   # widest row the one-pass kernel holds on chip
+F_SINGLE_MAX = 8192   # widest row the one-pass kernels hold on chip
+_WIDE_COLS = 1024     # a wide kernel's chunk of a row (kWideCols)
+# the wide backward's first pass: about eight blocks an SM on the H100,
+# a function of the shape only, so the column sums' order repeats
+_WIDE_BLOCKS = 8 * 132
 
 
 def ln_fwd_plain(x2d: torch.Tensor, weight, bias, eps: float):
@@ -39,32 +49,57 @@ def ln_fwd_plain(x2d: torch.Tensor, weight, bias, eps: float):
     return out.to(x2d.dtype), mean[:, 0], inv[:, 0]
 
 
+def _affine_code(what, x2d, weight, bias, aligned: bool) -> int:
+    """The dtype code of gamma and beta (0 without them), after checking
+    that they come together as contiguous [F] tensors on x's device (and,
+    ``aligned``, 4-element aligned for the vector loads)."""
+    if (weight is None) != (bias is None):
+        raise ValueError(f"{what}: pass weight and bias together")
+    if weight is None:
+        return 0
+    f = x2d.shape[1]
+    for t, name in ((weight, "weight"), (bias, "bias")):
+        if t.device != x2d.device or not t.is_contiguous() \
+                or t.shape != (f,) \
+                or (aligned and t.data_ptr() % (4 * t.element_size())):
+            raise ValueError(
+                f"{what}: {name} must be a contiguous"
+                f"{', aligned' if aligned else ''} [{f}] tensor on "
+                f"{x2d.device}")
+    if bias.dtype != weight.dtype:
+        raise TypeError(f"{what}: weight and bias dtypes differ")
+    return _cuda.dtype_code(weight.dtype, f"{what} weight")
+
+
+def _check_rows4(what, x2d, *others):
+    """The vector loads' layout, which the backward kernels and the wide
+    forward take: rows of F a multiple of 4, every tensor contiguous and
+    4-element aligned."""
+    f = x2d.shape[1]
+    if f % 4 or f == 0:
+        raise ValueError(f"{what}: the kernel takes F a multiple of 4, got "
+                         f"F={f}")
+    for t, name in ((x2d, "x"), *others):
+        if t.device != x2d.device or not t.is_contiguous() \
+                or t.data_ptr() % (4 * t.element_size()):
+            raise ValueError(f"{what}: {name} must be contiguous and "
+                             f"4-element aligned on one device")
+
+
 def ln_fwd(x2d: torch.Tensor, weight, bias, eps: float):
     """LayerNorm forward of each row of x2d [rows, F]; weight/bias [F]
     (both or neither). Returns (y, mean, invvar) like :func:`ln_fwd_plain`."""
     if not dispatch.use_kernel(x2d):
         return ln_fwd_plain(x2d, weight, bias, eps)
     rows, f = x2d.shape
+    if f > F_SINGLE_MAX:
+        return ln_fwd_wide(x2d, weight, bias, eps)
     if not x2d.is_contiguous():
         raise ValueError("ln_fwd: x must be contiguous")
-    if not 0 < f <= F_SINGLE_MAX:
-        raise NotImplementedError(
-            f"ln_fwd: rows wider than {F_SINGLE_MAX} need the wide kernels, "
-            f"which are not ported yet (ROADMAP.md Queue 1, slice 4); got "
-            f"F={f}")
-    if (weight is None) != (bias is None):
-        raise ValueError("ln_fwd: pass weight and bias together")
+    if f == 0:
+        raise ValueError("ln_fwd: rows of width 0")
     xc = _cuda.dtype_code(x2d.dtype, "ln_fwd")
-    wc = 0
-    if weight is not None:
-        for t, what in ((weight, "weight"), (bias, "bias")):
-            if t.device != x2d.device or not t.is_contiguous() \
-                    or t.shape != (f,):
-                raise ValueError(f"ln_fwd: {what} must be a contiguous "
-                                 f"[{f}] tensor on {x2d.device}")
-        if bias.dtype != weight.dtype:
-            raise TypeError("ln_fwd: weight and bias dtypes differ")
-        wc = _cuda.dtype_code(weight.dtype, "ln_fwd weight")
+    wc = _affine_code("ln_fwd", x2d, weight, bias, aligned=False)
     y = torch.empty_like(x2d)
     mean, inv = torch.empty((2, rows), dtype=torch.float32,
                             device=x2d.device)   # one allocation, two rows
@@ -82,6 +117,39 @@ def ln_fwd(x2d: torch.Tensor, weight, bias, eps: float):
 
 
 ln_fwd.launches = 0
+
+
+def ln_fwd_wide(x2d: torch.Tensor, weight, bias, eps: float):
+    """:func:`ln_fwd` by the wide kernels, which take a row of any width
+    (F a multiple of 4): per chunk of 1024 columns the sum and the centred
+    sum of squares, after a shift by the row's first value; then each
+    chunk's y from the row's merged statistics. Returns (y, mean,
+    invvar) like :func:`ln_fwd_plain`; two launches, one count."""
+    if not dispatch.use_kernel(x2d):
+        return ln_fwd_plain(x2d, weight, bias, eps)
+    rows, f = x2d.shape
+    _check_rows4("ln_fwd", x2d)
+    xc = _cuda.dtype_code(x2d.dtype, "ln_fwd")
+    wc = _affine_code("ln_fwd", x2d, weight, bias, aligned=True)
+    y = torch.empty_like(x2d)
+    mean, inv = torch.empty((2, rows), dtype=torch.float32,
+                            device=x2d.device)
+    if rows == 0:
+        return y, mean, inv
+    part = torch.empty((rows, -(-f // _WIDE_COLS), 2), dtype=torch.float32,
+                       device=x2d.device)
+    err = _cuda.lib().apex_layer_norm_fwd_wide(
+        xc, wc, x2d.data_ptr(),
+        weight.data_ptr() if weight is not None else None,
+        bias.data_ptr() if bias is not None else None,
+        y.data_ptr(), mean.data_ptr(), inv.data_ptr(), part.data_ptr(),
+        rows, f, float(eps), _cuda.stream(x2d.device))
+    _cuda.check(err, "ln_fwd_wide")
+    ln_fwd_wide.launches += 1
+    return y, mean, inv
+
+
+ln_fwd_wide.launches = 0
 
 
 def ln_bwd_plain(dy2d, x2d, weight, mean, invvar):
@@ -104,6 +172,36 @@ def ln_bwd_plain(dy2d, x2d, weight, mean, invvar):
 _BWD_CHUNKS = 4 * 132
 
 
+def _bwd_codes(what, dy2d, x2d, weight, mean, invvar):
+    """(x's, weight's dtype code) after the backward's checks of dy, the
+    row statistics and the weight."""
+    rows, f = x2d.shape
+    if dy2d.shape != x2d.shape or dy2d.dtype != x2d.dtype:
+        raise ValueError(f"{what}: dy and x must share one shape and dtype")
+    for t, name in ((mean, "mean"), (invvar, "invvar")):
+        if t.dtype != torch.float32 or t.shape != (rows,) \
+                or t.device != x2d.device:
+            raise ValueError(f"{what}: {name} must be fp32 [{rows}]")
+    xc = _cuda.dtype_code(x2d.dtype, what)
+    if weight is None:
+        return xc, 0
+    if weight.device != x2d.device or not weight.is_contiguous() \
+            or weight.shape != (f,) \
+            or weight.data_ptr() % (4 * weight.element_size()):
+        raise ValueError(f"{what}: weight must be a contiguous, aligned "
+                         f"[{f}] tensor on {x2d.device}")
+    return xc, _cuda.dtype_code(weight.dtype, f"{what} weight")
+
+
+def _no_rows(dx, weight):
+    """Nothing to launch: the empty dx and zero column sums."""
+    if weight is None:
+        return dx, None, None
+    gw, gb = torch.zeros((2, dx.shape[1]), dtype=torch.float32,
+                         device=dx.device)
+    return dx, gw, gb
+
+
 def ln_bwd(dy2d, x2d, weight, mean, invvar):
     """LayerNorm backward of rows dy2d, x2d [rows, F] from the forward's
     fp32 mean and invvar [rows]; weight [F] or None. Returns (dx, gw, gb)
@@ -112,40 +210,13 @@ def ln_bwd(dy2d, x2d, weight, mean, invvar):
     if not dispatch.use_kernel(x2d):
         return ln_bwd_plain(dy2d, x2d, weight, mean, invvar)
     rows, f = x2d.shape
-    if dy2d.shape != x2d.shape or dy2d.dtype != x2d.dtype:
-        raise ValueError("ln_bwd: dy and x must share one shape and dtype")
-    for t, what in ((dy2d, "dy"), (x2d, "x")):
-        if t.device != x2d.device or not t.is_contiguous() \
-                or t.data_ptr() % (4 * t.element_size()):
-            raise ValueError(f"ln_bwd: {what} must be contiguous and "
-                             f"4-element aligned on one device")
-    if not 0 < f <= F_SINGLE_MAX:
-        raise NotImplementedError(
-            f"ln_bwd: rows wider than {F_SINGLE_MAX} need the wide kernels, "
-            f"which are not ported yet (ROADMAP.md Queue 1, item 13); got "
-            f"F={f}")
-    if f % 4:
-        raise ValueError(f"ln_bwd: the kernel takes F a multiple of 4, "
-                         f"got {f}")
-    for t, what in ((mean, "mean"), (invvar, "invvar")):
-        if t.dtype != torch.float32 or t.shape != (rows,) \
-                or t.device != x2d.device:
-            raise ValueError(f"ln_bwd: {what} must be fp32 [{rows}]")
-    xc = _cuda.dtype_code(x2d.dtype, "ln_bwd")
-    wc = 0
-    if weight is not None:
-        if weight.device != x2d.device or not weight.is_contiguous() \
-                or weight.shape != (f,) \
-                or weight.data_ptr() % (4 * weight.element_size()):
-            raise ValueError(f"ln_bwd: weight must be a contiguous, aligned "
-                             f"[{f}] tensor on {x2d.device}")
-        wc = _cuda.dtype_code(weight.dtype, "ln_bwd weight")
+    if f > F_SINGLE_MAX:
+        return ln_bwd_wide(dy2d, x2d, weight, mean, invvar)
+    xc, wc = _bwd_codes("ln_bwd", dy2d, x2d, weight, mean, invvar)
+    _check_rows4("ln_bwd", x2d, (dy2d, "dy"))
     dx = torch.empty_like(x2d)
-    if rows == 0:       # nothing to launch: empty dx, zero column sums
-        if weight is None:
-            return dx, None, None
-        gw, gb = torch.zeros((2, f), dtype=torch.float32, device=x2d.device)
-        return dx, gw, gb
+    if rows == 0:
+        return _no_rows(dx, weight)
     rpc = -(-rows // _BWD_CHUNKS)
     nchunk = -(-rows // rpc)
     ws = torch.empty((2, nchunk, f) if weight is not None else (1,),
@@ -166,3 +237,48 @@ def ln_bwd(dy2d, x2d, weight, mean, invvar):
 
 
 ln_bwd.launches = 0
+
+
+def ln_bwd_wide(dy2d, x2d, weight, mean, invvar):
+    """:func:`ln_bwd` by the wide kernels (F a multiple of 4): one pass
+    over (row block, chunk) tiles writes each row's chunk sums of dy·γ and
+    dy·γ·xhat and each row block's column sums of dy·xhat and dy; the
+    column sums add over the blocks in a fixed order; then each chunk's dx
+    from its row's merged sums. Returns (dx, gw, gb) like
+    :func:`ln_bwd_plain`, bit for bit the same on a repeat; three launches
+    (two without weight), one count."""
+    if not dispatch.use_kernel(x2d):
+        return ln_bwd_plain(dy2d, x2d, weight, mean, invvar)
+    rows, f = x2d.shape
+    xc, wc = _bwd_codes("ln_bwd", dy2d, x2d, weight, mean, invvar)
+    _check_rows4("ln_bwd", x2d, (dy2d, "dy"))
+    dx = torch.empty_like(x2d)
+    if rows == 0:
+        return _no_rows(dx, weight)
+    nchunk = -(-f // _WIDE_COLS)
+    nrb = min(-(-_WIDE_BLOCKS // nchunk), -(-rows // 8), 65535)
+    rpc = -(-rows // nrb)
+    nrb = -(-rows // rpc)
+    rpart = torch.empty((rows, nchunk, 2), dtype=torch.float32,
+                        device=x2d.device)
+    ws = torch.empty((2, nrb, f) if weight is not None else (1,),
+                     dtype=torch.float32, device=x2d.device)
+    sums = torch.empty((2, f) if weight is not None else (1,),
+                       dtype=torch.float32, device=x2d.device)
+    mean, invvar = mean.contiguous(), invvar.contiguous()
+    err = _cuda.lib().apex_layer_norm_bwd_wide(
+        xc, wc, dy2d.data_ptr(), x2d.data_ptr(),
+        weight.data_ptr() if weight is not None else None,
+        mean.data_ptr(), invvar.data_ptr(), dx.data_ptr(), rpart.data_ptr(),
+        ws.data_ptr(),
+        sums[0].data_ptr() if weight is not None else None,
+        sums[1].data_ptr() if weight is not None else None,
+        rows, f, rpc, nrb, _cuda.stream(x2d.device))
+    _cuda.check(err, "ln_bwd_wide")
+    ln_bwd_wide.launches += 1
+    if weight is None:
+        return dx, None, None
+    return dx, sums[0], sums[1]
+
+
+ln_bwd_wide.launches = 0

@@ -12,14 +12,18 @@ Counterpart of ``apex_tpu/ops/pallas/welford.py``; the kernels are
   the saved output;
 - :func:`bn_backward_dx` replaces ``bn_backward_dx`` → ``_bwd_dx_kernel``
   (:152): ``dx = invvar·w·(dy − mean(dy) − xhat·mean(dy·xhat))`` and, for a
-  fused residual, ``dz`` = the masked dy.
+  fused residual, ``dz`` = the masked dy;
+- :func:`bn_backward_reduce` replaces ``bn_backward_reduce`` →
+  ``_bwd_reduce_kernel`` (:216), the reference Apex's ``reduce_bn``
+  partial pass: per-channel ``(sum dy, sum dy·xhat)`` from a materialized
+  xhat (the fused reduce's kernel body reading xhat instead of x).
 
 Every tensor is a ``[rows, C]`` view (NHWC, or NCHW in channels_last
 memory, flattened over N·H·W). For a tensor on the CPU each wrapper runs
 its plain version; for a tensor on the card it launches its kernel, or
 raises on what the kernel does not take (C not a multiple of 4, mixed
-dtypes, a strided view). Each wrapper counts its launches in
-``.launches``.
+dtypes where one dtype is asked for, a strided view). Each wrapper counts
+its launches in ``.launches``.
 """
 
 from __future__ import annotations
@@ -33,7 +37,8 @@ from apex_tpu_torch.ops import dispatch
 
 __all__ = ["bn_moments", "bn_moments_plain", "bn_backward_fused_reduce",
            "bn_backward_fused_reduce_plain", "bn_backward_dx",
-           "bn_backward_dx_plain"]
+           "bn_backward_dx_plain", "bn_backward_reduce",
+           "bn_backward_reduce_plain"]
 
 _BLOCKS_PER_SM = 8     # 256-thread blocks: a full SM's worth of threads
 
@@ -64,6 +69,13 @@ def bn_backward_fused_reduce_plain(dy2d, x2d, mean, invvar, out2d=None):
     return dyf.sum(dim=0), (dyf * xhat).sum(dim=0)
 
 
+def bn_backward_reduce_plain(dy2d, xhat2d):
+    """Plain version of ``_bwd_reduce_kernel``: fp32 ``(sum dy,
+    sum dy·xhat)`` over the rows of dy2d, xhat2d [rows, C]."""
+    dyf = dy2d.float()
+    return dyf.sum(dim=0), (dyf * xhat2d.float()).sum(dim=0)
+
+
 def bn_backward_dx_plain(dy2d, x2d, mean, invvar, winv, mean_dy,
                          mean_dy_xhat, out2d=None, emit_dz: bool = False):
     """Plain version of ``_bwd_dx_kernel``: ``dx`` (and ``dz``, the masked
@@ -92,7 +104,8 @@ def _chunks(rows: int, c: int, device: torch.device) -> int:
     return max(1, min(want, -(-rows // (8 * ty)), 65535))
 
 
-def _check_rows(what: str, x2d: torch.Tensor, *others):
+def _check_rows(what: str, x2d: torch.Tensor, *others,
+                one_dtype: bool = True):
     if x2d.dim() != 2:
         raise ValueError(f"{what}: x must be a [rows, C] view")
     c = x2d.shape[1]
@@ -102,10 +115,11 @@ def _check_rows(what: str, x2d: torch.Tensor, *others):
     for t in (x2d, *others):
         if t is None:
             continue
-        if t.shape != x2d.shape or t.dtype != x2d.dtype \
-                or t.device != x2d.device:
-            raise ValueError(f"{what}: dy, x and out must be [rows, C] "
-                             f"tensors of one dtype on one device")
+        if t.shape != x2d.shape or t.device != x2d.device \
+                or (one_dtype and t.dtype != x2d.dtype):
+            raise ValueError(f"{what}: the inputs must be [rows, C] "
+                             f"tensors{' of one dtype' * one_dtype} on one "
+                             f"device")
         if not t.is_contiguous() or t.data_ptr() % (4 * t.element_size()):
             raise ValueError(f"{what}: tensors must be contiguous and "
                              f"4-element aligned")
@@ -194,3 +208,28 @@ def bn_backward_dx(dy2d, x2d, mean, invvar, winv, mean_dy, mean_dy_xhat,
 
 
 bn_backward_dx.launches = 0
+
+
+def bn_backward_reduce(dy2d, xhat2d):
+    """``(sum dy, sum dy·xhat)`` fp32 [C] over the rows of dy2d and the
+    materialized xhat2d [rows, C]; each may be fp32, bf16 or fp16."""
+    if not dispatch.use_kernel(dy2d):
+        return bn_backward_reduce_plain(dy2d, xhat2d)
+    xc = _check_rows("bn_backward_reduce", xhat2d, dy2d, one_dtype=False)
+    dc = _cuda.dtype_code(dy2d.dtype, "bn_backward_reduce")
+    rows, c = xhat2d.shape
+    out = (torch.empty if rows else torch.zeros)(
+        (2, c), dtype=torch.float32, device=dy2d.device)
+    if rows:
+        n = _chunks(rows, c, dy2d.device)
+        ws = torch.empty((2, n, c), dtype=torch.float32, device=dy2d.device)
+        err = _cuda.lib().apex_bn_bwd_reduce_xhat(
+            dc, xc, dy2d.data_ptr(), xhat2d.data_ptr(), rows, c, n,
+            ws.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+            _cuda.stream(dy2d.device))
+        _cuda.check(err, "bn_backward_reduce")
+        bn_backward_reduce.launches += 1
+    return out[0], out[1]
+
+
+bn_backward_reduce.launches = 0

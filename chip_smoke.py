@@ -12,7 +12,8 @@ phases 6-8 the ResNet training slice, phases 9-10 the LM training slice,
 phases 11-13 the ImageNet example's slice, phases 14-16 the Seq2Seq
 Transformer's, phases 17-19 gradient accumulation and the fp16_utils path
 on the LM, phases 20-22 the ImageNet example's ViT-B/16 step with
-attention dropout and the flash kernels' full bias:
+attention dropout and the flash kernels' full bias, phases 23-25 the wide
+LayerNorm (lm_bench's LM at GPT-3 175B's width) and ``bn_backward_reduce``:
 
 0. device — needs CUDA; prints the card's ``nvidia-smi`` name and power
    limit (also as a raw line of its own) and the torch / CUDA versions.
@@ -75,7 +76,18 @@ attention dropout and the flash kernels' full bias:
    the dropout mask read back exactly: q = k = 0 and v = I over 64 keys
    make o[i, j] != 0 (and, with dO = I, dv[j, i] != 0) exactly where the
    kernel kept (i, j), which must equal ``dropout_bits`` at a nonzero bh,
-   q_start and k_start.
+   q_start and k_start; the wide LayerNorm (``ln_fwd_wide``,
+   ``ln_bwd_wide``) at the wide LM's [8192, 12288] bf16 rows, at [32,
+   200704] bf16 (FusedLayerNorm over a [256, 28, 28] map) and at the JAX
+   tests' (13, 16384) and (520, 9344) fp32 with and without affine (y
+   within one bf16 ulp plus 1e-5, or 1e-5 relative in fp32; mean and
+   invvar within 1e-5 relative; dx and the column sums as ``ln_bwd``, in
+   fp32 with the row means' terms taken at their own rounding scale; two
+   runs of each bit-equal; ``F.layer_norm`` and
+   ``native_layer_norm_backward`` beside them), and x = 1000 + 0.01·N(0,
+   1) at [9, 16384] fp32 within 0.05 of fp64; ``bn_backward_reduce`` from
+   a bf16 xhat at every RN50 BN shape (within 1e-5·Σ|terms|, bit-equal
+   repeats; ``batch_norm_backward_reduce`` beside it).
 3. dense — the serve_bench model at full width (8 layers, 1024 wide,
    8 heads, vocab 32768, bf16, random weights from ``torch.Generator``
    seed 0) behind ``ContinuousBatchingEngine(slots=8, max_len=1024,
@@ -229,7 +241,24 @@ attention dropout and the flash kernels' full bias:
     dropout 0.1 and a learned fp32 bias, [1, 197, 197] (one launch of
     ``flash_bwd_dbias``) and [1536, 197, 197] (dq's dS): o, dq, dk, dv and
     dbias against the plain versions under the flash rule.
-23. the ``{"kernels": [...]}`` line (24 kernels), then the ``ok`` line.
+23. bn_reduce — ``bn_backward_reduce`` as its users call it, the
+    reduce_bn pass from a materialized xhat, once per BN of the RN50 step
+    (53 launches, bf16 at their shapes), counts zeroed just before.
+24. wide_lm_train — ``tools/lm_bench.py --dim 12288 --heads 96 --layers 1
+    --seq 2048 --vocab 32768`` on one card (GPT-3 175B's width: 96 heads
+    of 128, FFN 49152; one layer of its 96, so that 2.24e9 parameters'
+    fp32 masters, Adam state and flat grad fit; attention "fast", fused
+    head in chunks of 8192; random weights from ``torch.Generator`` seed
+    0), O2 bf16, FusedAdam(lr=1e-4), batch 4 × 2048: 3 warm-up and 10
+    timed steps (tok/s, step ms p50/p95, MFU by phase 9's FLOP model,
+    peak memory), two profiled steps; 3 launches of each wide LayerNorm
+    kernel a step, none of the one-pass ones, one of each flash kernel
+    and one Adam; losses finite, the mean of the last 3 below the first.
+25. wide_lm_crosscheck — a one-layer LM with rows over 8192 (embed 8320,
+    65 heads of 128, vocab 512, S 128, batch 2) under phase 10's
+    ``adam_crosscheck``, its kernel runs through the wide LayerNorm
+    kernels only.
+26. the ``{"kernels": [...]}`` line (27 kernels), then the ``ok`` line.
 
 Times are CUDA-event medians of single calls with the L2 cache flushed
 before each and the stream held busy, so host launch time is not counted.
@@ -633,9 +662,12 @@ def rn50_bn_calls(model, batch: int, image: int) -> dict:
 
 def welford_kernel_phase(torch, timer, calls) -> dict:
     """Each welford pass against its plain version at every distinct BN
-    shape of the RN50 step (bf16 rows), and one PyTorch library call that
-    computes the same per-channel function (without the relu mask); the
-    kernels line takes each time summed over the step's 53 BNs."""
+    shape of the RN50 step (bf16 rows; ``bn_backward_reduce`` from a bf16
+    xhat), and one PyTorch library call that computes the same
+    per-channel function (without the relu mask;
+    ``batch_norm_backward_reduce``, which recomputes xhat, for both
+    reduces); the kernels line takes each time summed over the step's 53
+    BNs."""
     from apex_tpu_torch.ops import welford as WF
 
     gen = torch.Generator(device="cuda").manual_seed(6)
@@ -644,7 +676,8 @@ def welford_kernel_phase(torch, timer, calls) -> dict:
                       bound_bytes=0.0, bound_ops=0.0, max_abs_err=0.0,
                       calls=0) for k in ("bn_moments",
                                          "bn_backward_fused_reduce",
-                                         "bn_backward_dx")}
+                                         "bn_backward_dx",
+                                         "bn_backward_reduce")}
 
     def close_sums(got, want, terms, what):
         bound_ = 1e-5 * terms.abs().sum(0) + 1e-6
@@ -706,6 +739,30 @@ def welford_kernel_phase(torch, timer, calls) -> dict:
             bytes=streams * rows * c * es + 16 * c,
             ops=(7 if relu else 6) * rows * c))
 
+        # the reduce_bn pass from a materialized xhat, in dy's dtype
+        xhat = ((x.float() - mean) * invvar).to(torch.bfloat16)
+        rd, rx = WF.bn_backward_reduce(dy, xhat)
+        rd0, rx0 = WF.bn_backward_reduce_plain(dy, xhat)
+        dyf = dy.float()
+        err = max(close_sums(rd, rd0, dyf, f"bn_backward_reduce {shape}"),
+                  close_sums(rx, rx0, dyf * xhat.float(),
+                             f"bn_backward_reduce {shape}"))
+        del dyf
+        again = WF.bn_backward_reduce(dy, xhat)
+        rep = bool(torch.equal(again[0], rd)) and bool(
+            torch.equal(again[1], rx))
+        check(rep, f"bn_backward_reduce {shape}: runs differ")
+        recs.append(dict(
+            kernel="bn_backward_reduce", max_abs_err=err, repeat_equal=rep,
+            ms=timer(lambda: WF.bn_backward_reduce(dy, xhat)),
+            plain_ms=timer(lambda: WF.bn_backward_reduce_plain(dy, xhat)),
+            library_ms=timer(lambda: torch.batch_norm_backward_reduce(
+                dy, x, mean, invvar, weight, True, True, True)),
+            host_us=host_us(torch, lambda: WF.bn_backward_reduce(dy, xhat),
+                            n=100),
+            bytes=2 * rows * c * es + 8 * c, ops=3 * rows * c))
+        del xhat, again
+
         # backward dx (and dz where the BN carries the residual)
         args = (dy, x, mean, invvar, invvar * weight, sd0 / rows,
                 sx0 / rows, out)
@@ -737,13 +794,16 @@ def welford_kernel_phase(torch, timer, calls) -> dict:
             t["bound_ops"] += n * r["ops"]
             t["max_abs_err"] = max(t["max_abs_err"], r["max_abs_err"])
             t["calls"] += n
+            if "host_us" in r:
+                t["host_us"] = t.get("host_us", 0.0) + n * r["host_us"]
         del x, dy, out, dx, dz, dx0, dz0
     out = {}
     for k, t in totals.items():
         b_ms, b_by = bound(t["bound_bytes"], t["bound_ops"])
         row = dict(kernel=k, dtype="bfloat16", per="step of 53 BNs",
                    **{f: t[f] for f in ("ms", "plain_ms", "library_ms",
-                                        "max_abs_err", "calls")},
+                                        "max_abs_err", "calls", "host_us")
+                      if f in t},
                    bound_ms=b_ms, bound_by=b_by)
         emit({"phase": "kernels", **row})
         out[(k, "bfloat16")] = row
@@ -761,10 +821,55 @@ LM_PER_STEP = {"flash_fwd": 8, "flash_bwd_dq": 8, "flash_bwd_dkv": 8,
 FLASH_CHECK_HEADS = 8     # heads held against the plain version
 
 
-def bf16_ulp(torch, t):
-    """The spacing of bf16 values at each element's magnitude."""
+def storage_ulp(torch, t, dtype=None):
+    """The spacing of ``dtype``'s values (t's own by default) at each
+    element's magnitude."""
+    bits = {torch.bfloat16: 8, torch.float16: 11,
+            torch.float32: 24}[dtype or t.dtype]
     _, e = torch.frexp(t.float())
-    return torch.ldexp(torch.ones_like(t, dtype=torch.float32), e - 8)
+    return torch.ldexp(torch.ones_like(t, dtype=torch.float32), e - bits)
+
+
+def check_ln_bwd(torch, what, got, want, dy, x, w, mean, inv,
+                 row_sums: bool = False) -> dict:
+    """A LayerNorm backward against its plain version on the same inputs:
+    dx within one ulp of its dtype plus 1e-5 of its terms' magnitude
+    inv·(|dxhat| + |mean(dxhat)| + |xhat·mean(dxhat·xhat)|) (the two row
+    means sum in another order, and where the terms cancel that difference
+    is many ulps of a small result); with ``row_sums`` the two means'
+    magnitudes are those of their own terms, mean(|dxhat|) and
+    mean(|dxhat·xhat|), the scale of their rounding (fp32 rows, where no
+    ulp of dx hides it). The column sums within 1e-5 of each column's sum
+    of |terms|."""
+    (dx, gw, gb), (dx0, gw0, gb0) = got, want
+    xhat = (x.float() - mean[:, None]) * inv[:, None]
+    dxh = dy.float() * w.float() if w is not None else dy.float()
+    if row_sums:
+        m1 = dxh.abs().mean(1, keepdim=True)
+        m2 = (dxh * xhat).abs().mean(1, keepdim=True)
+    else:
+        m1 = dxh.mean(1, keepdim=True)
+        m2 = (dxh * xhat).mean(1, keepdim=True)
+    scale = inv[:, None] * (dxh.abs() + m1.abs() + (xhat * m2).abs())
+    ulp = torch.maximum(storage_ulp(torch, dx), storage_ulp(torch, dx0))
+    dx_err = (dx.float() - dx0.float()).abs()
+    lim = ulp + 1e-5 * scale
+    check(bool((dx_err <= lim).all()),
+          f"{what}: dx off by {float((dx_err / lim).max())} of its bound")
+    out = {"max_abs_err": float(dx_err.max()),
+           "max_ulps": float((dx_err / ulp).max()), "sums_max_abs_err": 0.0}
+    del dxh, m1, m2, scale, ulp, lim, dx_err
+    if w is not None:
+        for got_s, want_s, terms in ((gw, gw0, dy.float() * xhat),
+                                     (gb, gb0, dy.float())):
+            lim = 1e-5 * terms.abs().sum(0) + 1e-6
+            e = (got_s - want_s).abs()
+            check(bool((e <= lim).all()),
+                  f"{what}: column sums off by {float((e / lim).max())} of "
+                  f"1e-5·Σ|terms|")
+            out["sums_max_abs_err"] = max(out["sums_max_abs_err"],
+                                          float(e.max()))
+    return out
 
 
 # flash outputs: each element within FLASH_ULPS bf16 ulps of itself plus
@@ -782,7 +887,8 @@ def flash_err(torch, got, want) -> dict:
     share of its row's RMS."""
     a, b = got.float(), want.float()
     err = (a - b).abs()
-    ulp = torch.maximum(bf16_ulp(torch, a), bf16_ulp(torch, b))
+    ulp = torch.maximum(storage_ulp(torch, a, torch.bfloat16),
+                        storage_ulp(torch, b, torch.bfloat16))
     rms = torch.clamp(b.pow(2).mean(-1, keepdim=True).sqrt(),
                       min=FLASH_FLOOR * float(b.pow(2).mean().sqrt()))
     lim = FLASH_ULPS * ulp + FLASH_RMS * rms
@@ -857,34 +963,8 @@ def lm_kernel_phase(torch, timer, total: int) -> dict:
     dx, gw, gb = LN.ln_bwd(dy, x, w, mean, inv)
     dx0, gw0, gb0 = LN.ln_bwd_plain(dy, x, w, mean, inv)
     torch.cuda.synchronize()
-    # dx within one bf16 ulp of its value plus 1e-5 of its terms'
-    # magnitude inv·(|dxhat| + |mean(dxhat)| + |xhat·mean(dxhat·xhat)|):
-    # the two row means sum in another order, and where the terms cancel
-    # that difference is many ulps of a small result. The column sums
-    # within 1e-5 of each column's sum of |terms|.
-    xhat = (x.float() - mean[:, None]) * inv[:, None]
-    dxh = dy.float() * w.float()
-    m1 = dxh.mean(1, keepdim=True)
-    m2 = (dxh * xhat).mean(1, keepdim=True)
-    scale = inv[:, None] * (dxh.abs() + m1.abs() + (xhat * m2).abs())
-    lim = torch.maximum(bf16_ulp(torch, dx), bf16_ulp(torch, dx0)) \
-        + 1e-5 * scale
-    dx_err = (dx.float() - dx0.float()).abs()
-    check(bool((dx_err <= lim).all()),
-          f"ln_bwd: dx off by {float((dx_err / lim).max())} of its bound")
-    ulps = float((dx_err / torch.maximum(bf16_ulp(torch, dx),
-                                         bf16_ulp(torch, dx0))).max())
-    del dxh, m1, m2, scale, lim
-    sums_err = 0.0
-    for got_s, want_s, terms in ((gw, gw0, dy.float() * xhat),
-                                 (gb, gb0, dy.float())):
-        lim = 1e-5 * terms.abs().sum(0) + 1e-6
-        e = (got_s - want_s).abs()
-        check(bool((e <= lim).all()),
-              f"ln_bwd: column sums off by {float((e / lim).max())} of "
-              f"1e-5·Σ|terms|")
-        sums_err = max(sums_err, float(e.max()))
-    del xhat
+    errs = check_ln_bwd(torch, "ln_bwd", (dx, gw, gb), (dx0, gw0, gb0), dy,
+                        x, w, mean, inv)
     again = LN.ln_bwd(dy, x, w, mean, inv)
     repeat = all(bool(torch.equal(a, c)) for a, c in zip((dx, gw, gb),
                                                         again))
@@ -895,8 +975,7 @@ def lm_kernel_phase(torch, timer, total: int) -> dict:
     b_ms, b_by = bound(3 * n_rows * f * es + 8 * n_rows + f * es + 8 * f,
                        11 * n_rows * f)
     row = dict(kernel="ln_bwd", dtype="bfloat16", shape=[n_rows, f],
-               max_abs_err=float(dx_err.max()), max_ulps=ulps,
-               sums_max_abs_err=sums_err,
+               **errs,
                tol="dx: 1 bf16 ulp + 1e-5 of its terms; sums: 1e-5·Σ|terms|",
                repeat_equal=repeat,
                per_step=LM_PER_STEP["ln_bwd"],
@@ -910,7 +989,7 @@ def lm_kernel_phase(torch, timer, total: int) -> dict:
                                                         inv)))
     emit({"phase": "kernels", **row})
     rows[("ln_bwd", "bfloat16")] = row
-    del x, dy, dx, dx0, dx_err, lmean, lrstd
+    del x, dy, dx, dx0, lmean, lrstd
 
     # flash attention: [B·H, S-1, D] bf16, causal, the model's scale
     B, H = LM_SHAPE["batch"], LM_SHAPE["heads"]
@@ -1427,7 +1506,9 @@ def counters():
             "novograd": MT.novograd, "xent_fwd": XE.xent_fwd,
             "xent_bwd": XE.xent_bwd, "axpby": MT.axpby,
             "l2norm": MT.l2norm, "adagrad": MT.adagrad,
-            "flash_bwd_dbias": FA.flash_bwd_dbias}
+            "flash_bwd_dbias": FA.flash_bwd_dbias,
+            "ln_fwd_wide": LN.ln_fwd_wide, "ln_bwd_wide": LN.ln_bwd_wide,
+            "bn_backward_reduce": WF.bn_backward_reduce}
 
 
 def zero_counts() -> None:
@@ -1562,7 +1643,8 @@ KERNEL_FAMILIES = (
 LM_KERNEL_FAMILIES = (
     ("flash kernels", ("flash_fwd_kernel", "flash_dq_kernel",
                        "flash_dkv_kernel")),
-    ("LN kernels", ("ln_fwd_kernel", "ln_bwd_kernel", "finalize_kernel")),
+    ("LN kernels", ("ln_fwd_kernel", "ln_bwd_kernel", "ln_wide",
+                    "finalize_kernel")),
     ("Adam", ("adam_kernel",)),
     ("GEMMs", ("gemm", "xmma", "cutlass", "nvjet", "sm90", "cublas")),
     ("reduction", ("reduce",)),
@@ -2049,9 +2131,8 @@ def lm_batch(torch):
 
 
 
-def lm_step_flops(n_params: int) -> float:
+def lm_step_flops(n_params: int, c=LM_SHAPE) -> float:
     """lm_bench's FLOP model of one step: 6·P·tokens + 6·L·d·S²·B."""
-    c = LM_SHAPE
     return 6.0 * n_params * c["batch"] * c["seq"] + (
         12 * c["layers"] * c["embed"] * c["seq"] ** 2 * c["batch"]) / 2
 
@@ -2106,27 +2187,35 @@ def crosscheck(torch, dispatch, phase, run, **extra) -> dict:
     run, and cap the largest difference of any master at about 2 × 3 ×
     lr, so the masters' max is reported, not held. Two kernel runs give
     the same losses and masters bit for bit; no kernel launches in the
-    plain runs."""
+    plain runs. Only step 1's gradients and the noise mask are kept
+    between runs, so a wide model's four runs fit one card."""
+    zero_counts()
     mk, gk, loss_k = run(torch.bfloat16)
-    mk2, _, loss_k2 = run(torch.bfloat16)
+    gk = gk[0]
+    mk2, gk2, loss_k2 = run(torch.bfloat16)
+    del gk2
+    torch.cuda.synchronize()
+    kernel_launches = {k: n for k, n in read_counts().items() if n}
     with dispatch.backend("reference"):
         zero_counts()
         mr, gr, loss_r = run(torch.bfloat16)
+        gr = gr[0]
         mf, gf, loss_f = run(None)
+        noise = torch.zeros_like(mk, dtype=torch.bool)
+        for g in gf:
+            noise |= g.abs() <= 1e-7 * g.abs().max()
+        gf = gf[0]
         torch.cuda.synchronize()
         plain_launches = read_counts()
     check(not any(plain_launches.values()),
           f"{phase}: kernels launched in the plain runs {plain_launches}")
-    g_k, g_bf16 = (gk[0] - gr[0]).abs(), (gr[0] - gf[0]).abs()
-    noise = torch.zeros_like(mk, dtype=torch.bool)
-    for g in gf:
-        noise |= g.abs() <= 1e-7 * g.abs().max()
+    g_k, g_bf16 = (gk - gr).abs(), (gr - gf).abs()
     rest = ~noise
     d_k, d_bf16 = (mk - mr).abs(), (mr - mf).abs()
     errs = {"grad1_mean": float(g_k.mean()), "grad1_max": float(g_k.max()),
             "grad1_bf16_mean": float(g_bf16.mean()),
             "grad1_bf16_max": float(g_bf16.max()),
-            "grad1_abs_max": float(gf[0].abs().max()),
+            "grad1_abs_max": float(gf.abs().max()),
             "mean": float(d_k[rest].mean()), "max": float(d_k[rest].max()),
             "bf16_mean": float(d_bf16[rest].mean()),
             "bf16_max": float(d_bf16[rest].max()),
@@ -2136,7 +2225,7 @@ def crosscheck(torch, dispatch, phase, run, **extra) -> dict:
     row = {"phase": phase, **extra, "steps": 3, "dtype": "bfloat16",
            "err": errs, "loss_kernels": loss_k, "loss_kernels_again":
            loss_k2, "loss_plain": loss_r, "loss_plain_f32": loss_f,
-           "repeat_equal": repeat}
+           "repeat_equal": repeat, "kernel_launches": kernel_launches}
     emit(row)
     check(errs["grad1_mean"] <= 1.5 * errs["grad1_bf16_mean"]
           and errs["grad1_max"] <= 1.5 * errs["grad1_bf16_max"],
@@ -2854,7 +2943,7 @@ def s2s_decode_phase(torch, model, master, table) -> dict:
     step_err = float((logits - step_plain).abs().max())
     path_err = float((logits - path_plain).abs().max())
     top = path_plain.abs().max()
-    path_lim = 2 * float(bf16_ulp(torch, top))
+    path_lim = 2 * float(storage_ulp(torch, top, torch.bfloat16))
     row = {"phase": "seq2seq_decode", "sources": 8, "max_len": max_len,
            "seconds": secs, "steps": max_len - 1,
            "decoded_tok_per_s": 8 * (max_len - 1) / secs,
@@ -3339,6 +3428,287 @@ def flash_bias_phase(torch, dispatch) -> dict:
     return total
 
 
+# -- the wide LayerNorm slice: lm_bench's LM at GPT-3 175B's width -----------
+
+# tools/lm_bench.py --dim 12288 --heads 96 --layers 1 --seq 2048 --vocab
+# 32768: GPT-3 175B's d_model, 96 heads of 128 and FFN 4·d (Brown et al.
+# 2020, Table 2.1), cut to one layer of its 96 so that the fp32 masters,
+# Adam's state and the flat grad of 2.24e9 parameters fit one card
+WIDE_SHAPE = dict(batch=4, seq=2048, embed=12288, heads=96, layers=1,
+                  vocab=32768)
+# launches a step: ln1, ln2 and ln_f by the wide kernels, forward and
+# backward, and none by the one-pass ones; a flash forward, dq and dk/dv;
+# one Adam
+WIDE_PER_STEP = {"ln_fwd_wide": 3, "ln_bwd_wide": 3, "ln_fwd": 0,
+                 "ln_bwd": 0, "flash_fwd": 1, "flash_bwd_dq": 1,
+                 "flash_bwd_dkv": 1, "adam": 1}
+# the wide readings of phase 2: the LM's rows; FusedLayerNorm over a
+# [256, 28, 28] map (the reference's multi-dim normalized_shape), far
+# wider than shared memory; the JAX tests' shapes (13, 16384) and (520,
+# 9344) in fp32, with and without affine
+WIDE_READINGS = (
+    ("lm", WIDE_SHAPE["batch"] * WIDE_SHAPE["seq"], WIDE_SHAPE["embed"],
+     "bfloat16", True),
+    ("chw", 32, 256 * 28 * 28, "bfloat16", True),
+    ("13x16384", 13, 16384, "float32", True),
+    ("13x16384_plain", 13, 16384, "float32", False),
+    ("520x9344", 520, 9344, "float32", True),
+    ("520x9344_plain", 520, 9344, "float32", False))
+
+
+def wide_ln_readings(torch, timer, tag, n_rows, f, dt_name, affine) -> dict:
+    """``ln_fwd_wide`` and ``ln_bwd_wide`` over [n_rows, f] rows (gamma,
+    beta in x's dtype) against their plain versions on the same inputs:
+    y within one bf16 ulp plus 1e-5 (fp32: 1e-5 relative), mean and invvar
+    within 1e-5 relative, the backward as ``check_ln_bwd`` holds it; two
+    runs of each bit-equal. Each with its time, the plain version's,
+    ``F.layer_norm``'s or ``native_layer_norm_backward``'s, the bound and
+    the host time of a call."""
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.ops import layer_norm as LN
+
+    dtype = getattr(torch, dt_name)
+    es = torch.tensor([], dtype=dtype).element_size()
+    gen = torch.Generator(device="cuda").manual_seed(n_rows + f)
+    x = (torch.randn(n_rows, f, generator=gen, device="cuda") * 2
+         + 0.5).to(dtype)
+    dy = torch.randn(n_rows, f, generator=gen, device="cuda").to(dtype)
+    w = b = None
+    if affine:
+        w = (torch.randn(f, generator=gen, device="cuda") + 1).to(dtype)
+        b = torch.randn(f, generator=gen, device="cuda").to(dtype)
+    shape = dict(reading=tag, dtype=dt_name, shape=[n_rows, f],
+                 affine=affine)
+
+    y, mean, inv = LN.ln_fwd_wide(x, w, b, 1e-5)
+    y0, mean0, inv0 = LN.ln_fwd_plain(x, w, b, 1e-5)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        y_err, ok = max_err(y, y0, "float32")
+    else:
+        e = (y.float() - y0.float()).abs()
+        ok = bool((e <= torch.maximum(storage_ulp(torch, y),
+                                      storage_ulp(torch, y0)) + 1e-5).all())
+        y_err = float(e.max())
+        del e
+    check(ok, f"ln_fwd_wide {tag}: y max abs err {y_err}")
+    stats_err = 0.0
+    for t, t0, what in ((mean, mean0, "mean"), (inv, inv0, "invvar")):
+        e, ok = max_err(t, t0, "float32")
+        check(ok, f"ln_fwd_wide {tag}: {what} err {e}")
+        stats_err = max(stats_err, e)
+    again = LN.ln_fwd_wide(x, w, b, 1e-5)
+    rep = all(bool(torch.equal(a, c)) for a, c in zip((y, mean, inv), again))
+    check(rep, f"ln_fwd_wide {tag}: two runs differ")
+    del y, y0, again
+    io = n_rows * f * es
+    wb = (2 * f * es) if affine else 0
+    b_ms, b_by = bound(2 * io + wb + 8 * n_rows, 8 * n_rows * f)
+    fwd = dict(kernel="ln_fwd_wide", **shape, max_abs_err=y_err,
+               stats_max_abs_err=stats_err,
+               tol=("y: 1e-5 relative" if dtype == torch.float32 else
+                    "y: 1 bf16 ulp + 1e-5") + "; mean, invvar: 1e-5 "
+               "relative", repeat_equal=rep,
+               ms=timer(lambda: LN.ln_fwd_wide(x, w, b, 1e-5)),
+               plain_ms=timer(lambda: LN.ln_fwd_plain(x, w, b, 1e-5)),
+               library_ms=timer(lambda: F.layer_norm(x, (f,), w, b, 1e-5)),
+               bound_ms=b_ms, bound_by=b_by,
+               host_us=host_us(torch, lambda: LN.ln_fwd_wide(x, w, b, 1e-5),
+                               n=100))
+
+    got = LN.ln_bwd_wide(dy, x, w, mean, inv)
+    want = LN.ln_bwd_plain(dy, x, w, mean, inv)
+    torch.cuda.synchronize()
+    fp32 = dtype == torch.float32
+    errs = check_ln_bwd(torch, f"ln_bwd_wide {tag}", got, want, dy, x, w,
+                        mean, inv, row_sums=fp32)
+    again = LN.ln_bwd_wide(dy, x, w, mean, inv)
+    rep = all(bool(torch.equal(a, c)) for a, c in zip(got, again)
+              if a is not None)
+    check(rep, f"ln_bwd_wide {tag}: two runs differ")
+    del got, want, again
+    _, lmean, lrstd = torch.ops.aten.native_layer_norm(x, [f], w, b, 1e-5)
+    b_ms, b_by = bound(3 * io + 8 * n_rows + ((es + 8) * f if affine else 0),
+                       11 * n_rows * f)
+    bwd = dict(kernel="ln_bwd_wide", **shape, **errs,
+               tol="dx: 1 ulp + 1e-5 of its terms" + (
+                   " (the row means' as mean|terms|)" if fp32 else "")
+               + "; sums: 1e-5·Σ|terms|",
+               repeat_equal=rep,
+               ms=timer(lambda: LN.ln_bwd_wide(dy, x, w, mean, inv)),
+               plain_ms=timer(lambda: LN.ln_bwd_plain(dy, x, w, mean, inv)),
+               library_ms=timer(
+                   lambda: torch.ops.aten.native_layer_norm_backward(
+                       dy, x, [f], lmean, lrstd, w, b,
+                       [True, affine, affine])),
+               bound_ms=b_ms, bound_by=b_by,
+               host_us=host_us(torch, lambda: LN.ln_bwd_wide(
+                   dy, x, w, mean, inv), n=100))
+    for r in (fwd, bwd):
+        emit({"phase": "kernels", **r})
+    return {("ln_fwd_wide", tag): fwd, ("ln_bwd_wide", tag): bwd}
+
+
+def wide_kernel_phase(torch, timer) -> dict:
+    """The wide LayerNorm readings (``WIDE_READINGS``), then the large-mean
+    case: x = 1000 + 0.01·N(0, 1), [9, 16384] fp32, y within 0.05 of an
+    fp64 reference (the JAX test's bar) and finite, where E[x²] − E[x]²
+    cancels."""
+    from apex_tpu_torch.ops import layer_norm as LN
+
+    rows = {}
+    for reading in WIDE_READINGS:
+        rows.update(wide_ln_readings(torch, timer, *reading))
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    x = 1000.0 + 0.01 * torch.randn(9, 16384, generator=gen, device="cuda")
+    y, _, _ = LN.ln_fwd_wide(x, None, None, 1e-5)
+    y0, _, _ = LN.ln_fwd_plain(x, None, None, 1e-5)
+    xd = x.double()
+    ref = (xd - xd.mean(1, keepdim=True)) * torch.rsqrt(
+        xd.var(1, unbiased=False, keepdim=True) + 1e-5)
+    err = float((y.double() - ref).abs().max())
+    err0 = float((y0.double() - ref).abs().max())
+    finite = bool(torch.isfinite(y).all())
+    b_ms, b_by = bound(2 * x.numel() * 4 + 8 * 9, 8 * x.numel())
+    row = dict(kernel="ln_fwd_wide", reading="large_mean", dtype="float32",
+               shape=[9, 16384], affine=False, max_abs_err_fp64=err,
+               plain_max_abs_err_fp64=err0, tol="0.05 of fp64",
+               finite=finite,
+               ms=timer(lambda: LN.ln_fwd_wide(x, None, None, 1e-5)),
+               plain_ms=timer(lambda: LN.ln_fwd_plain(x, None, None, 1e-5)),
+               library_ms=timer(lambda: torch.nn.functional.layer_norm(
+                   x, (16384,), None, None, 1e-5)),
+               bound_ms=b_ms, bound_by=b_by,
+               host_us=host_us(torch, lambda: LN.ln_fwd_wide(
+                   x, None, None, 1e-5), n=100))
+    emit({"phase": "kernels", **row})
+    check(finite and err <= 0.05,
+          f"ln_fwd_wide large mean: {err} from fp64 (finite: {finite})")
+    rows[("ln_fwd_wide", "large_mean")] = row
+    return rows
+
+
+def bn_reduce_phase(torch, calls) -> dict:
+    """``bn_backward_reduce`` as its users call it, the reduce_bn partial
+    pass from a materialized xhat: once per BN of the RN50 step (53, at
+    their [N·H·W, C] shapes, dy and xhat bf16), the launch counts zeroed
+    just before and read just after; every sum finite."""
+    from apex_tpu_torch.ops import welford as WF
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    inputs = {}
+    for (rows, c, _, _), n in sorted(calls.items()):
+        if (rows, c) not in inputs:
+            inputs[(rows, c)] = tuple(
+                torch.randn(rows, c, generator=gen, device="cuda").to(
+                    torch.bfloat16) for _ in range(2))
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    sums = []
+    for (rows, c, _, _), n in sorted(calls.items()):
+        for _ in range(n):
+            sums.extend(WF.bn_backward_reduce(*inputs[(rows, c)]))
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    finite = all(bool(torch.isfinite(t).all()) for t in sums)
+    emit({"phase": "bn_reduce", "bn_calls": sum(calls.values()),
+          "wall_ms": wall_ms, "finite": finite,
+          "launches": {k: n for k, n in counts.items() if n}})
+    check(finite, "bn_reduce: a sum is not finite")
+    check_counts("bn_reduce", counts,
+                 {k: (53 if k == "bn_backward_reduce" else 0)
+                  for k in counts})
+    return counts
+
+
+def wide_lm_model(c=WIDE_SHAPE):
+    from apex_tpu_torch.models import TransformerLM
+    return TransformerLM(vocab_size=c["vocab"], max_seq_len=c["seq"],
+                         embed_dim=c["embed"], num_heads=c["heads"],
+                         num_layers=c["layers"], attn_impl="fast",
+                         head_chunk=min(8192, c["vocab"]))
+
+
+def wide_lm_train_phase(torch) -> tuple:
+    """lm_bench's step at ``WIDE_SHAPE`` on one card: O2 bf16 over fp32
+    flat masters, FusedAdam(lr=1e-4), one numpy batch of 4 × 2049 tokens
+    reused every step; 3 warm-up and 10 timed steps, then two profiled
+    ones. Every LayerNorm row is 12288 wide: the wide kernels, 3 of each a
+    step, and no one-pass LayerNorm launch."""
+    import numpy as np
+
+    from apex_tpu_torch.train import LMTrainer
+
+    c = WIDE_SHAPE
+    warm, timed = 3, 10
+    torch.cuda.empty_cache()
+    model = wide_lm_model()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator().manual_seed(0))
+    tr = LMTrainer(model, params, lr=1e-4)
+    del params
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    state_bytes = torch.cuda.memory_allocated()
+    toks = torch.from_numpy(np.random.RandomState(1).randint(
+        0, c["vocab"], (c["batch"], c["seq"] + 1)).astype(np.int64)).cuda()
+    r = timed_steps(torch, lambda: tr.step(toks), warm, timed)
+    counts = r["counts"]
+    tokens = c["batch"] * c["seq"]
+    n_params = tr.table.total
+    step_flops = lm_step_flops(n_params, c)
+    prof = profile_steps(torch, lambda: tr.step(toks), LM_KERNEL_FAMILIES)
+    row = {"phase": "wide_lm_train", "model": "TransformerLM", **c,
+           "attn_impl": model.attn_impl, "head_chunk": model.head_chunk,
+           "dtype": "bfloat16", "masters": "float32",
+           "optimizer": "FusedAdam(lr=1e-4)", "setup_s": setup_s,
+           "state_bytes": state_bytes, **window_row(r, timed),
+           "tokens_per_step": tokens,
+           "tok_per_s": tokens * timed / r["wall"],
+           "step_tflop": step_flops / 1e12,
+           "mfu": step_flops * timed / r["wall"] / BF16_DENSE_OPS_S,
+           "params": n_params,
+           "launches": {k: counts[k] for k in WIDE_PER_STEP},
+           "launches_per_step": {k: counts[k] / timed
+                                 for k in WIDE_PER_STEP},
+           "profile": prof}
+    emit(row)
+    loss = r["loss"]
+    check(all(math.isfinite(v) for v in loss),
+          f"wide_lm_train: non-finite loss {loss}")
+    check(statistics.mean(loss[-3:]) < loss[0],
+          f"wide_lm_train: the last 3 losses do not sit below the first "
+          f"{loss}")
+    check_counts("wide_lm_train", counts,
+                 {k: n * timed for k, n in WIDE_PER_STEP.items()})
+    del tr, toks
+    torch.cuda.empty_cache()
+    return counts, row
+
+
+def wide_lm_crosscheck_phase(torch, dispatch):
+    """A one-layer LM with rows over 8192 (embed 8320, 65 heads of 128,
+    vocab 512, S 128, batch 2) under ``adam_crosscheck`` at lr 1e-3, its
+    kernel runs through the wide LayerNorm kernels only."""
+    c = dict(batch=2, seq=128, embed=8320, heads=65, layers=1, vocab=512)
+    m = wide_lm_model(c)
+    params = m.init(torch.Generator().manual_seed(2))
+    toks = torch.randint(0, c["vocab"], (c["batch"], c["seq"] + 1),
+                         generator=torch.Generator().manual_seed(3)).cuda()
+    row = adam_crosscheck(torch, dispatch, "wide_lm_crosscheck", m, params,
+                          (toks,), {}, {"lr": 1e-3})
+    got = row["kernel_launches"]
+    # two kernel runs of three steps: the three LayerNorms each step
+    check(got.get("ln_fwd_wide") == 18 and got.get("ln_bwd_wide") == 18
+          and "ln_fwd" not in got and "ln_bwd" not in got,
+          f"wide_lm_crosscheck: LayerNorm launches {got}")
+    del params
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3401,6 +3771,8 @@ def main() -> int:
     rows.update(accum_kernel_phase(torch, timer,
                                    flat.make_table(lm_params).total))
     flash_crossover_phase(torch)
+    # the wide LayerNorm at the wide LM's rows and the other wide shapes
+    rows.update(wide_kernel_phase(torch, timer))
 
     # 3-4. the serving slice, dense then paged
     model = TransformerLM(vocab_size=32768, max_seq_len=1024,
@@ -3479,7 +3851,14 @@ def main() -> int:
     vit_crosscheck_phase(torch, dispatch)
     bcounts = flash_bias_phase(torch, dispatch)
 
-    # 23. the kernels line, then the contract line
+    # 23-25. bn_backward_reduce's entry point over the RN50 step's BNs;
+    # lm_bench's LM at GPT-3 175B's width, every LayerNorm by the wide
+    # kernels; a wide LM against the plain versions
+    ncounts = bn_reduce_phase(torch, bn_calls)
+    wcounts, _ = wide_lm_train_phase(torch)
+    wide_lm_crosscheck_phase(torch, dispatch)
+
+    # 26. the kernels line, then the contract line
     launches = {k: dcounts[k] + pcounts[k] for k in dcounts}
     launches.update({k: tcounts[k] for k in TRAIN_KERNELS})
     for k in LM_PER_STEP:                # ln_fwd: serving and training
@@ -3496,6 +3875,9 @@ def main() -> int:
         launches[k] += vcounts[k]
     for k, n in bcounts.items():         # the learned-bias entry point
         launches[k] += n
+    for k in ("ln_fwd_wide", "ln_bwd_wide"):     # the wide LM step
+        launches[k] += wcounts[k]
+    launches["bn_backward_reduce"] += ncounts["bn_backward_reduce"]
     sources = {
         "decode_attention": (
             "apex_tpu_torch/ops/cuda/csrc/decode_attn.cu",
@@ -3552,7 +3934,18 @@ def main() -> int:
         "flash_bwd_dbias": ("apex_tpu_torch/ops/cuda/csrc/flash_attn.cu",
                             "apex_tpu/contrib/multihead_attn/"
                             "flash_attention.py:427"),
+        "ln_fwd_wide": ("apex_tpu_torch/ops/cuda/csrc/layer_norm.cu",
+                        "apex_tpu/ops/pallas/layer_norm.py:201"),
+        "ln_bwd_wide": ("apex_tpu_torch/ops/cuda/csrc/layer_norm.cu",
+                        "apex_tpu/ops/pallas/layer_norm.py:288"),
+        "bn_backward_reduce": ("apex_tpu_torch/ops/cuda/csrc/welford.cu",
+                               "apex_tpu/ops/pallas/welford.py:216"),
     }
+    # the wide wrappers each take the place of more than one TPU kernel
+    also_replaces = {
+        "ln_fwd_wide": ["apex_tpu/ops/pallas/layer_norm.py:227"],
+        "ln_bwd_wide": ["apex_tpu/ops/pallas/layer_norm.py:310",
+                        "apex_tpu/ops/pallas/layer_norm.py:331"]}
     row_keys = {"decode_attention": ("decode_attention", "bfloat16"),
                 "paged_decode_attention": ("paged_decode_attention",
                                            "bfloat16"),
@@ -3580,7 +3973,12 @@ def main() -> int:
                 # accumulation and fp16_utils over the LM's master store
                 **{k: (k, "float32") for k in ACCUM_KERNELS},
                 # the shared [1, 197, 197] bias's gradient at the ViT shape
-                "flash_bwd_dbias": ("flash_bwd_dbias", "bfloat16")}
+                "flash_bwd_dbias": ("flash_bwd_dbias", "bfloat16"),
+                # the wide LM's rows, [8192, 12288] bf16; the welford
+                # reduce from xhat summed over the RN50 step's 53 BNs
+                "ln_fwd_wide": ("ln_fwd_wide", "lm"),
+                "ln_bwd_wide": ("ln_bwd_wide", "lm"),
+                "bn_backward_reduce": ("bn_backward_reduce", "bfloat16")}
     sub = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
            "library_ms")
     kernels = []
@@ -3609,8 +4007,14 @@ def main() -> int:
                                     ("per_bh", "bias_bh"))}
         if name == "flash_bwd_dbias":
             entry["causal"] = {k: rows[(name, "causal")][k] for k in sub}
+        if name in also_replaces:
+            entry["also_replaces"] = also_replaces[name]
+            entry["readings"] = {
+                key[1]: {k: rows[key].get(k) for k in sub}
+                for key in rows
+                if len(key) == 2 and key[0] == name and key[1] != "lm"}
         kernels.append(entry)
-    check(len(kernels) == 24 and all(e["launches"] > 0 for e in kernels),
+    check(len(kernels) == 27 and all(e["launches"] > 0 for e in kernels),
           f"kernels line: {[(e['name'], e['launches']) for e in kernels]}")
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "nvidia_smi": nvidia_smi(

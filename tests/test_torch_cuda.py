@@ -111,7 +111,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     table = torch.ones(2, 2, dtype=torch.int32, device=card)
     with pytest.raises(ValueError, match="page_size"):
         DA.paged_decode_attention(q, pool, pool, lengths, page_table=table)
-    with pytest.raises(NotImplementedError, match="wide"):
+    with pytest.raises(ValueError, match="multiple of 4"):
         LN.ln_fwd(torch.zeros(2, 8193, device=card), None, None, 1e-5)
     x = torch.zeros(4, 8, device=card).t()
     with pytest.raises(ValueError, match="contiguous"):
@@ -1229,3 +1229,126 @@ def test_fp16_optimizer_adagrad_through_the_kernels_matches_plain(card):
     assert opt.overflow and opt.loss_scale == 32768.0
     assert torch.equal(opt.optimizer.state[0].master, master)
     assert opt.last_culprits[0]["path"] == "layer_1/mlp/w1"
+
+
+# -- the wide LayerNorm (F > 8192) and bn_backward_reduce ---------------------
+
+@pytest.mark.parametrize("rows,f", [(1, 8196), (13, 9344), (13, 16384),
+                                    (37, 12288), (520, 9344), (4, 200704)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ln_wide_kernels_match_plain_and_repeat(card, rows, f, dtype):
+    g = torch.Generator(device=card).manual_seed(rows + f)
+    x = (torch.randn(rows, f, generator=g, device=card) * 3 + 1).to(dtype)
+    dy = torch.randn(rows, f, generator=g, device=card).to(dtype)
+    w = (torch.randn(f, generator=g, device=card) + 1).to(dtype)
+    b = torch.randn(f, generator=g, device=card).to(dtype)
+    fns = (LN.ln_fwd, LN.ln_bwd, LN.ln_fwd_wide, LN.ln_bwd_wide)
+    for weight, bias in ((w, b), (None, None)):
+        before = [fn.launches for fn in fns]
+        y, mean, inv = LN.ln_fwd(x, weight, bias, 1e-5)
+        got = LN.ln_bwd(dy, x, weight, mean, inv)
+        assert [fn.launches - n for fn, n in zip(fns, before)] == \
+            [0, 0, 1, 1]
+        y0, mean0, inv0 = LN.ln_fwd_plain(x, weight, bias, 1e-5)
+        _close(y, y0, dtype)
+        _close(mean, mean0, torch.float32)
+        _close(inv, inv0, torch.float32)
+        want = LN.ln_bwd_plain(dy, x, weight, mean, inv)
+        _close(got[0], want[0], dtype)
+        if weight is not None:
+            xhat = (x.float() - mean[:, None]) * inv[:, None]
+            _sums_close(got[1], want[1], dy.float() * xhat)
+            _sums_close(got[2], want[2], dy.float())
+        else:
+            assert got[1] is None and got[2] is None
+        # no float atomics: both passes repeat bit for bit
+        again = LN.ln_fwd(x, weight, bias, 1e-5)
+        assert all(torch.equal(a, c) for a, c in zip((y, mean, inv), again))
+        again = LN.ln_bwd(dy, x, weight, mean, inv)
+        assert all(torch.equal(a, c) for a, c in zip(got, again)
+                   if a is not None)
+
+
+def test_ln_wide_forward_holds_a_large_mean(card):
+    """x = 1000 + 0.01·N(0, 1): the naive E[x²] − E[x]² cancels in fp32;
+    within 0.05 of an fp64 reference, the JAX package's own bar."""
+    g = torch.Generator(device=card).manual_seed(7)
+    x = 1000.0 + 0.01 * torch.randn(9, 16384, generator=g, device=card)
+    y, mean, inv = LN.ln_fwd(x, None, None, 1e-5)
+    xd = x.double()
+    ref = (xd - xd.mean(1, keepdim=True)) * torch.rsqrt(
+        xd.var(1, unbiased=False, keepdim=True) + 1e-5)
+    assert bool(torch.isfinite(y).all())
+    assert float((y.double() - ref).abs().max()) <= 0.05
+
+
+def test_ln_wide_wrappers_refuse_what_the_kernels_do_not_take(card):
+    x = torch.zeros(2, 8194, device=card)
+    mean = torch.zeros(2, device=card)
+    for call in (lambda: LN.ln_fwd(x, None, None, 1e-5),
+                 lambda: LN.ln_bwd(x, x, None, mean, mean)):
+        with pytest.raises(ValueError, match="multiple of 4"):
+            call()
+    buf = torch.zeros(2 * 9216 + 1, device=card)
+    with pytest.raises(ValueError, match="aligned"):
+        LN.ln_fwd(buf[1:].view(2, 9216), None, None, 1e-5)
+    w = torch.ones(9216, device=card)
+    with pytest.raises(ValueError, match="weight and bias together"):
+        LN.ln_fwd(torch.zeros(2, 9216, device=card), w, None, 1e-5)
+
+
+def test_lm_at_a_wide_row_takes_the_wide_kernels(card):
+    """A one-layer LM of width 8320 (65 heads of 128): its three
+    LayerNorms, forward and backward, launch the wide kernels and never
+    the one-pass ones, and the loss matches the plain versions'."""
+    from apex_tpu_torch.models import TransformerLM
+    m = TransformerLM(vocab_size=512, max_seq_len=128, embed_dim=8320,
+                      num_heads=65, num_layers=1, attn_impl="fast",
+                      head_chunk=512)
+    params = m.init(0, dtype=torch.bfloat16)
+    leaves = [params["ln_f"]["g"], params["layer_0"]["ln1"]["g"]]
+    for t in leaves:
+        t.requires_grad_(True)
+    toks = torch.randint(0, 512, (2, 129), generator=torch.Generator()
+                         .manual_seed(1)).to(card)
+    fns = (LN.ln_fwd, LN.ln_bwd, LN.ln_fwd_wide, LN.ln_bwd_wide)
+    before = [fn.launches for fn in fns]
+    loss = m.loss(params, toks)
+    grads = torch.autograd.grad(loss, leaves)
+    assert [fn.launches - n for fn, n in zip(fns, before)] == [0, 0, 3, 3]
+    with dispatch.backend("reference"):
+        loss0 = m.loss(params, toks)
+        grads0 = torch.autograd.grad(loss0, leaves)
+    assert [fn.launches - n for fn, n in zip(fns, before)] == [0, 0, 3, 3]
+    torch.testing.assert_close(loss.float(), loss0.float(), atol=2e-2,
+                               rtol=0)
+    for a, b0 in zip(grads, grads0):
+        assert bool(torch.isfinite(a).all())
+        torch.testing.assert_close(a.float(), b0.float(), atol=5e-2,
+                                   rtol=5e-2)
+
+
+@pytest.mark.parametrize("rows,c", [(1, 4), (1000, 256), (4099, 200),
+                                    (300, 2048)])
+@pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32),
+                                    (torch.bfloat16, torch.bfloat16),
+                                    (torch.float32, torch.bfloat16),
+                                    (torch.float16, torch.float32)],
+                         ids=["f32", "bf16", "f32_bf16", "f16_f32"])
+def test_bn_backward_reduce_matches_plain_and_repeats(card, rows, c, dtypes):
+    from apex_tpu_torch.ops import welford as WF
+    g = torch.Generator(device=card).manual_seed(rows + c)
+    dy = torch.randn(rows, c, generator=g, device=card).to(dtypes[0])
+    xhat = torch.randn(rows, c, generator=g, device=card).to(dtypes[1])
+    before = WF.bn_backward_reduce.launches
+    sd, sx = WF.bn_backward_reduce(dy, xhat)
+    assert WF.bn_backward_reduce.launches == before + 1
+    sd0, sx0 = WF.bn_backward_reduce_plain(dy, xhat)
+    _sums_close(sd, sd0, dy.float())
+    _sums_close(sx, sx0, dy.float() * xhat.float())
+    again = WF.bn_backward_reduce(dy, xhat)
+    assert torch.equal(again[0], sd) and torch.equal(again[1], sx)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        WF.bn_backward_reduce(dy[:, :c - 1 if c > 4 else 3],
+                              xhat[:, :c - 1 if c > 4 else 3])
+

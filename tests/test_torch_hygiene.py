@@ -197,7 +197,8 @@ def test_ctypes_declarations_match_the_c_entry_points():
     cuda._declare(so)
     for name, n in sigs.items():
         assert len(getattr(so, name).argtypes) == n, name
-    assert len(sigs) == 23           # flash_bwd_dbias is the 23rd
+    assert len(sigs) == 26           # the wide LayerNorm's two and
+    # bn_backward_reduce's are the 24th to 26th
 
 
 def test_lm_training_entry_points_default_to_the_card_and_raise_without_it(

@@ -1,0 +1,137 @@
+"""Port parity: the wide LayerNorm (rows of F > 8192).
+
+The port's ``ln_fwd`` / ``ln_bwd`` on CPU tensors (their plain versions,
+which the wide CUDA kernels are held against on the card) against the JAX
+package's ``ln_fwd`` / ``ln_bwd``, which take ``_ln_fwd_wide`` /
+``_ln_bwd_wide`` at these widths, in interpret mode under
+``dispatch.backend("pallas")`` as tests/test_fused_layer_norm.py runs
+them, on the same numpy inputs; the JAX tests' shapes. Tolerances: y,
+mean and invvar 1e-5 (fp32 sums in another order); the gamma/beta
+gradients within 1e-4 of each column's sum of |terms|, and dx within 1e-4
+of the sum of its own terms' magnitudes, the JAX kernels carrying their
+sums across 1024-wide tiles. The large-mean case against
+fp64, and the module over a two-dim ``normalized_shape`` through autograd
+against ``jax.grad``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from apex_tpu.normalization import fused_layer_norm_affine as j_ln
+from apex_tpu.ops import dispatch as jdispatch
+from apex_tpu.ops.pallas import layer_norm as JP
+from apex_tpu_torch.normalization import FusedLayerNorm, fused_layer_norm
+from apex_tpu_torch.ops import layer_norm as OPS
+
+
+def _data(rows, f, seed):
+    rs = np.random.RandomState(seed)
+    x = (rs.randn(rows, f) * 2.0 + 0.5).astype(np.float32)
+    dy = rs.randn(rows, f).astype(np.float32)
+    w = (rs.randn(f) + 1.0).astype(np.float32)
+    b = np.linspace(-1, 1, f).astype(np.float32)
+    return x, dy, w, b
+
+
+def _within(got, want, bound):
+    err = np.abs(got - np.asarray(want, np.float32))
+    assert (err <= bound).all(), float((err / bound).max())
+
+
+def _cols_close(got, want, terms):
+    """A column sum within 1e-4 of its column's sum of |terms|."""
+    _within(got, want, 1e-4 * np.abs(terms).sum(axis=0) + 1e-6)
+
+
+@pytest.mark.parametrize("rows,f,affine", [(13, 9344, True),
+                                           (13, 16384, True),
+                                           (520, 9344, True),
+                                           (9, 10240, False)])
+def test_wide_fwd_bwd_match_jax_pallas(rows, f, affine):
+    assert f > OPS.F_SINGLE_MAX
+    x, dy, w, b = _data(rows, f, seed=rows + f)
+    wj, bj = (jnp.asarray(w), jnp.asarray(b)) if affine else (None, None)
+    with jdispatch.backend("pallas"):
+        y_j, mean_j, inv_j = JP.ln_fwd(jnp.asarray(x), wj, bj, 1e-5)
+    wt, bt = (torch.from_numpy(w), torch.from_numpy(b)) if affine \
+        else (None, None)
+    before = (OPS.ln_fwd_wide.launches, OPS.ln_bwd_wide.launches)
+    y, mean, inv = OPS.ln_fwd(torch.from_numpy(x), wt, bt, 1e-5)
+    for got, want in ((y, y_j), (mean, mean_j), (inv, inv_j)):
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                                   rtol=1e-5)
+    # the backward from one set of statistics (the port's)
+    with jdispatch.backend("pallas"):
+        want = JP.ln_bwd(jnp.asarray(dy), jnp.asarray(x), wj,
+                         jnp.asarray(mean.numpy()), jnp.asarray(inv.numpy()))
+    got = OPS.ln_bwd(torch.from_numpy(dy), torch.from_numpy(x), wt, mean,
+                     inv)
+    assert (OPS.ln_fwd_wide.launches, OPS.ln_bwd_wide.launches) == before
+    assert len(want) == (3 if affine else 1)
+    xhat = (x - mean.numpy()[:, None]) * inv.numpy()[:, None]
+    dxh = dy * w if affine else dy
+    m2 = (dxh * xhat).mean(1, keepdims=True)
+    # dx = inv·(dxhat − m1 − xhat·m2): within 1e-4 of its terms' sum
+    dx_terms = inv.numpy()[:, None] * (np.abs(dxh) + np.abs(
+        dxh.mean(1, keepdims=True)) + np.abs(xhat * m2))
+    _within(got[0].numpy(), want[0], 1e-4 * dx_terms + 1e-6)
+    if affine:
+        _cols_close(got[1].numpy(), want[1], dy * xhat)
+        _cols_close(got[2].numpy(), want[2], dy)
+    else:
+        assert got[1] is None and got[2] is None
+
+
+def test_wide_forward_holds_a_large_mean():
+    """x = 1000 + 0.01·N(0, 1): within 0.05 of fp64 (the JAX test's bar,
+    tests/test_fused_layer_norm.py:201-216), finite, as the JAX wide
+    path's is."""
+    rs = np.random.RandomState(7)
+    x = (1000.0 + 0.01 * rs.randn(9, 16384)).astype(np.float32)
+    xd = x.astype(np.float64)
+    ref = (xd - xd.mean(1, keepdims=True)) / np.sqrt(
+        xd.var(1, keepdims=True) + 1e-5)
+    y = fused_layer_norm(torch.from_numpy(x), 16384, eps=1e-5).numpy()
+    with jdispatch.backend("pallas"):
+        y_j, _, _ = JP.ln_fwd(jnp.asarray(x), None, None, 1e-5)
+    for out in (y, np.asarray(y_j)):
+        assert np.isfinite(out).all()
+        np.testing.assert_allclose(out, ref, atol=0.05)
+
+
+def test_module_over_a_two_dim_shape_matches_jax_grad():
+    """``FusedLayerNorm((73, 128))`` over [2, 3, 73, 128] (rows of 9344)
+    through autograd against ``fused_layer_norm_affine`` and
+    ``jax.grad`` on the pallas path."""
+    rs = np.random.RandomState(11)
+    x = (rs.randn(2, 3, 73, 128) * 2.0 + 0.5).astype(np.float32)
+    dy = rs.randn(2, 3, 73, 128).astype(np.float32)
+    w = (rs.randn(73, 128) + 1.0).astype(np.float32)
+    b = rs.randn(73, 128).astype(np.float32)
+
+    def jloss(x_, w_, b_):
+        return jnp.sum(j_ln(x_, (73, 128), w_, b_, 1e-5) * jnp.asarray(dy))
+
+    with jdispatch.backend("pallas"):
+        y_j = j_ln(jnp.asarray(x), (73, 128), jnp.asarray(w),
+                   jnp.asarray(b), 1e-5)
+        gx_j, gw_j, gb_j = jax.grad(jloss, argnums=(0, 1, 2))(
+            jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+    mod = FusedLayerNorm((73, 128), eps=1e-5, device="cpu")
+    with torch.no_grad():
+        mod.weight.copy_(torch.from_numpy(w))
+        mod.bias.copy_(torch.from_numpy(b))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    y = mod(xt)
+    gx, gw, gb = torch.autograd.grad(y, (xt, mod.weight, mod.bias),
+                                     torch.from_numpy(dy))
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(y_j),
+                               atol=1e-5, rtol=1e-5)
+    assert gw.shape == gb.shape == (73, 128)
+    for got, want in ((gx, gx_j), (gw, gw_j), (gb, gb_j)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                                   rtol=1e-4)

@@ -3,10 +3,11 @@
 The plain versions — what a CPU tensor runs, and what the CUDA kernels are
 held against on the card — against the JAX package's Pallas kernels
 (``apex_tpu/ops/pallas/welford.py``) in interpret mode, on the same numpy
-``[rows, C]`` inputs: ``bn_moments``, ``bn_backward_fused_reduce`` and
-``bn_backward_dx``, with the relu mask and ``dz`` on and off, f32 and bf16.
-Then the whole training BN through JAX's welford route (dispatch backend
-"pallas") against the port's ``bn_train``, which runs these passes.
+``[rows, C]`` inputs: ``bn_moments``, ``bn_backward_fused_reduce``,
+``bn_backward_dx`` (with the relu mask and ``dz`` on and off) and
+``bn_backward_reduce``, f32 and bf16. Then the whole training BN through
+JAX's welford route (dispatch backend "pallas") against the port's
+``bn_train``, which runs these passes.
 
 Tolerances: the sums 1e-5 relative to the sum of |terms| of their column
 (fp32 sums of 300 values in another order); dx and dz f32 1e-5 and bf16
@@ -84,6 +85,26 @@ def test_backward_reduce_matches_pallas(relu, name):
     xhat = (_f32(xt) - mean) * invvar
     _sum_close(got[0], want[0], dyf)
     _sum_close(got[1], want[1], dyf * xhat)
+
+
+@pytest.mark.parametrize("name", list(DTYPES))
+def test_backward_reduce_from_xhat_matches_pallas(name):
+    """``bn_backward_reduce`` at tools/tpu_smoke.py's [1000, 256]: dy and
+    the materialized xhat in one dtype, and fp32 dy beside a bf16-derived
+    xhat as tpu_smoke passes them."""
+    rs = np.random.RandomState(4)
+    dj, dt = _pair(rs.randn(1000, 256), name)
+    xj, xt = _pair(rs.randn(1000, 256), name)
+    fj, ft = _pair(np.asarray(xj, np.float32), "float32")
+    for (dyj, dyt), (xhj, xht) in (((dj, dt), (xj, xt)), ((fj, ft),
+                                                          (xj, xt))):
+        before = WF.bn_backward_reduce.launches
+        sdy, sdx = WF.bn_backward_reduce(dyt, xht)
+        assert WF.bn_backward_reduce.launches == before   # CPU: plain
+        assert sdy.dtype == sdx.dtype == torch.float32 and sdy.shape == (256,)
+        jdy, jdx = W.bn_backward_reduce(dyj, xhj)
+        _sum_close(sdy, jdy, _f32(dyt))
+        _sum_close(sdx, jdx, _f32(dyt) * _f32(xht))
 
 
 @pytest.mark.parametrize("emit_dz", [False, True], ids=["nodz", "dz"])
