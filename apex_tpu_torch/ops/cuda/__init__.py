@@ -166,9 +166,11 @@ def _declare(so: ctypes.CDLL) -> None:
     tail = [P, L, P, L, U, U, F] + [I] * 7 + [F, P]
     so.apex_flash_fwd.argtypes = [P] * 5 + [L] * 6 + tail
     so.apex_flash_fwd.restype = I
-    so.apex_flash_bwd_dq.argtypes = [P] * 8 + [L] * 8 + tail
+    # dq and dk/dv: the tensor maps of q, k, v, dO (4 x 8 long longs) and
+    # the grid's row blocks in place of the strides
+    so.apex_flash_bwd_dq.argtypes = [P] * 8 + [P, I] + tail
     so.apex_flash_bwd_dq.restype = I
-    so.apex_flash_bwd_dkv.argtypes = [P] * 8 + [L] * 8 + tail
+    so.apex_flash_bwd_dkv.argtypes = [P] * 8 + [P, I] + tail
     so.apex_flash_bwd_dkv.restype = I
     so.apex_flash_bwd_dbias.argtypes = [P] * 8 + [I] + [L] * 8 + tail
     so.apex_flash_bwd_dbias.restype = I

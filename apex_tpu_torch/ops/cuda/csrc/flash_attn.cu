@@ -1,54 +1,24 @@
 // Flash attention over [BH, S, D] bf16 (D 64 or 128): the forward with its
-// per-row logsumexp, the two backward kernels (dq, with the per-bh bias
-// gradient dS when asked; dk and dv), each recomputing the probabilities
-// from the saved lse, and the gradient of a bias shared over bh.
+// per-row logsumexp, and the gradient of a bias shared over bh. The
+// backward's dq and dk/dv kernels are csrc/flash_bwd.cu; the semantics all
+// of them keep from the Pallas kernels are csrc/flash_common.cuh.
 //
 // Replaces the Pallas kernels of
 // apex_tpu/contrib/multihead_attn/flash_attention.py: _flash_fwd ->
-// _fwd_kernel (:181), and _bwd_pallas -> _bwd_dq_kernel (:349),
-// _bwd_dkv_kernel (:392) and _bwd_dbias_kernel (:427), with every input
-// the JAX kernels take: the full additive bias [1|BH, Sq, Sk] fp32, the
-// per-key bias kv_bias [1|BH, Sk] fp32 (key-padding masks) and dropout on
-// the probabilities.
+// _fwd_kernel (:181) and _bwd_pallas -> _bwd_dbias_kernel (:427), with
+// every input the JAX kernels take: the full additive bias [1|BH, Sq, Sk]
+// fp32, the per-key bias kv_bias [1|BH, Sk] fp32 (key-padding masks) and
+// dropout on the probabilities.
 //
-// Semantics kept from the Pallas kernels: fp32 scores, softmax statistics
-// and accumulators; masking by absolute positions (query row i sits at
-// q_start + i, key j at k_start + j, and with `causal` a query sees the
-// keys at or before it) and by the true key length, so a ragged tail
-// (S = 4095, 197) is masked in the kernel and nothing is padded; the finite
-// -inf stand-in kNegInf, so a row with nothing unmasked gives o = 0 and
-// lse = kNegInf; tiles that are wholly masked are skipped (_block_live,
-// :170). delta = rowsum(dO * O) - dlse is computed by the caller, as the
-// JAX wrapper computes it outside Pallas (:474-479).
-//
-// The biases (the EXTRA instantiations) are added to every score before
-// the exponential, s * scale + bias + kvb as at :206-212 and :324-330,
-// here in log2 units: s * scale * log2(e) + (bias + kvb) * log2(e). The
-// kv_bias tile of a block's kTile keys is staged in shared memory beside
-// K (in registers in dk/dv, whose block owns the keys); the full bias is
-// read per element from global memory (a [1, Sq, Sk] bias shared over bh
-// stays in L2), guarded past Sq and Sk, and dk/dv reads it transposed
-// against the forward (its rows are keys). Biases are data, so they never
-// make a tile skippable: _block_live's causal and length skip stay as
-// they are. A score a bias masks (-1e30) lies below kNegInf / 2, which
-// the value guard turns into p = 0; the backward keeps that guard
-// (:333-334): a row whose every key is masked has lse = kNegInf, and
-// exp2(s - lse) would otherwise be exp2(0) = 1 there.
-//
-// Dropout (drop_inv > 0) is the JAX package's stateless coordinate hash
-// (dropout_bits, :107-126): element (bh, q_start + i, k_start + j) is kept
-// when its 32-bit hash under the seed is >= drop_thresh
-// (_drop_threshold, :129-130), bh = b·H + h. The forward sums the
-// undropped p into l and accumulates the kept p · drop_inv into the
-// output (:223-231), so lse stays dropout-free; the backward recomputes
-// the same mask and applies it to p for dv and to dP, and dS = p · (dP' -
-// delta) with the undropped p (_recompute_p_ds, :309-346).
+// The kv_bias tile of a block's kTile keys is staged in shared memory
+// beside K; the full bias is read per element from global memory, guarded
+// past Sq and Sk.
 //
 // Bound on this card: operations. At the LM's shape (BH = 128, S = 4095,
 // D = 64, causal) the forward's QK^T and PV are 4 * BH * S^2 * D / 2
 // = 275 GFLOP against ~2 * 3 * 67 MB of q, k, v, o: ~4000 operations per
 // byte, far above the H100's 295, so the bound is the bf16 tensor cores'
-// 989 TFLOP/s (0.28 ms); the backward does 2.5 times the forward's products.
+// 989 TFLOP/s (0.28 ms).
 // What the design does about it: QK^T and PV run on the tensor cores as
 // hand-written mma.sync.m16n8k16 bf16 products with fp32 accumulators; a
 // block of four warps owns 64 rows (16 a warp) and stages 64-row tiles of
@@ -57,26 +27,13 @@
 // fragments come from ldmatrix (transposing for the second product); the
 // score tile's accumulator layout is reused as the A operand of the
 // second product (the probabilities never leave registers); the online
-// softmax works in log2 units (exp2 of scores pre-scaled by
-// scale·log2(e)) and reduces a row across the four lanes that hold it
-// with two shuffles; only tiles on the diagonal or a ragged edge apply
-// the per-element mask. On this card the first version was bound by
-// occupancy, not by the tensor cores (dq and dk/dv held so many registers
-// a thread that two blocks filled an SM): dq and dk/dv take the other
-// operand's 64-row tile in two halves of 32, so half the scores are live
-// at once, and each kernel is built for a number of resident blocks
-// (kFwdBlocks and friends). This is still the simple form: no TMA, wgmma
-// or warp specialisation, one tile in flight. The bias, kv_bias and
-// dropout are runtime inputs of one EXTRA form per kernel and head dim,
-// so the plain form (the LM's causal attention) is compiled as before.
-//
-// The backward blocks: dq takes a block per 64 query rows and walks the
-// live key tiles; dk/dv takes a block per 64 keys and walks the live query
-// tiles, which for a causal mask lie at and below the diagonal (the mirror
-// of the forward's skip). Each block owns its output rows: no atomics, so
-// the gradients repeat bit for bit. The probabilities and dS enter the
-// second products rounded to bf16, as in every bf16 flash kernel; that is
-// the kernels' difference from the fp32 plain versions.
+// softmax works in log2 units and reduces a row across the four lanes
+// that hold it with two shuffles; only tiles on the diagonal or a ragged
+// edge apply the per-element mask. Each kernel is built for a number of
+// resident blocks (kFwdBlocks, kDbBlocks). This is still the simple form:
+// no TMA, wgmma or warp specialisation, one tile in flight. The bias,
+// kv_bias and dropout are runtime inputs of one EXTRA form per head dim,
+// so the plain form (the LM's causal attention) is compiled without them.
 //
 // The shared-bias gradient (dbias, :427) sums dS over bh for each (query,
 // key). The Pallas kernel walks bh innermost with the sum in VMEM; here a
@@ -86,45 +43,18 @@
 // run order. No float atomics: repeated runs are bitwise equal. The runs
 // fill the card when there are few tiles (S = 197 has 4 x 4 of them).
 
-#include <type_traits>
-
-#include "common.cuh"
+#include "flash_common.cuh"
 
 namespace apex_port {
 namespace {
-
-using bf16 = __nv_bfloat16;
 
 constexpr int kTile = 64;       // rows a block owns; rows of a staged tile
 constexpr int kThreads = 128;   // four warps of 16 rows
 // blocks an SM must hold at D = 64 (the register cap follows: 128
 // registers a thread at 4, 170 at 3); the D = 128 forms take what they
-// need. Chosen on the H100 at the LM's shape: the forward and dq at 4
-// blocks, dk/dv at 3 (at 4 its dk and dv accumulators spill); dbias holds
-// dq's operands and its own dS sums, so 3
-constexpr int kFwdBlocks = 4, kDqBlocks = 4, kDkvBlocks = 3, kDbBlocks = 3;
-// exponentials are exp2 of scores pre-multiplied by scale * log2(e)
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-
-struct Attn {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
-  const float* kvb;                            // [1|BH, Sk] or null
-  const float* bias;                           // [1|BH, Sq, Sk] or null
-  long long q_bh, q_s, k_bh, k_s, v_bh, v_s;   // strides, elements
-  long long kvb_bh, bias_bh;                   // 0 when shared over bh
-  int sq, sk, q_start, k_start, causal;
-  float scale;
-  uint32_t seed, drop_thresh;                  // dropout's hash and bar
-  float drop_inv;                              // 1 / (1 - rate); 0: none
-};
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);   // .x in the low half
-  return *reinterpret_cast<uint32_t*>(&h);
-}
+// need. Chosen on the H100 at the LM's shape: the forward at 4 blocks;
+// dbias holds its operands and its own dS sums, so 3
+constexpr int kFwdBlocks = 4, kDbBlocks = 3;
 
 // two consecutive elements (4-byte aligned)
 __device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
@@ -262,45 +192,6 @@ __device__ __forceinline__ void load_bias_tile(float* sm, const Attn& a,
     sm[threadIdx.x] = a.kvb != nullptr && kj < a.sk
                           ? a.kvb[bh * a.kvb_bh + kj] * kLog2e : 0.f;
   }
-}
-
-// the full bias of (query qi, key kj), both local and in range, in log2
-// units; 0 without one
-__device__ __forceinline__ float bias_at(const Attn& a, int bh, int qi,
-                                         int kj) {
-  return a.bias != nullptr
-             ? a.bias[bh * a.bias_bh + (long long)qi * a.sk + kj] * kLog2e
-             : 0.f;
-}
-
-// the JAX package's dropout_bits (flash_attention.py:107-126) in uint32
-// arithmetic: keep (bh, query qi, key kj) when its hash >= drop_thresh
-__device__ __forceinline__ bool keep(const Attn& a, int bh, int qi, int kj) {
-  uint32_t x = static_cast<uint32_t>(a.q_start + qi) * 0x9E3779B1u +
-               static_cast<uint32_t>(a.k_start + kj) * 0x85EBCA77u +
-               static_cast<uint32_t>(bh) * 0xC2B2AE3Du +
-               a.seed * 0x27D4EB2Fu;
-  x ^= x >> 16;
-  x *= 0x7FEB352Du;
-  x ^= x >> 15;
-  x *= 0x846CA68Bu;
-  x ^= x >> 16;
-  return x >= a.drop_thresh;
-}
-
-// whether query row qi (local) may see key kj (local)
-__device__ __forceinline__ bool visible(const Attn& a, int qi, int kj) {
-  return qi < a.sq && kj < a.sk &&
-         (!a.causal || a.q_start + qi >= a.k_start + kj);
-}
-
-// whether every query of [q0, q0 + nq) sees every key of [k0, k0 + nk):
-// such tiles (all but the diagonal and the ragged edges) skip the
-// per-element mask
-__device__ __forceinline__ bool all_visible(const Attn& a, int q0, int nq,
-                                            int k0, int nk) {
-  return q0 + nq <= a.sq && k0 + nk <= a.sk &&
-         (!a.causal || a.q_start + q0 >= a.k_start + k0 + nk - 1);
 }
 
 // key tiles the query tile qb must visit: the causal mask ends them at the
@@ -463,198 +354,6 @@ flash_fwd_kernel(Attn a, bf16* __restrict__ o, float* __restrict__ lse) {
   }
 }
 
-// ---- backward: dq (and the per-bh dS) --------------------------------------
-
-// ds (null, or fp32 [BH, Sq, Sk] contiguous): dS of every (query, key),
-// unscaled, zeros where a tile is skipped (:382-386)
-template <int D, bool EXTRA>
-__global__ void __launch_bounds__(kThreads, D == 64 ? kDqBlocks : 1)
-flash_dq_kernel(Attn a, const bf16* __restrict__ dout, long long do_bh,
-                long long do_s, const float* __restrict__ lse,
-                const float* __restrict__ delta, bf16* __restrict__ dq,
-                float* __restrict__ ds) {
-  constexpr int LD = D + 8;
-  __shared__ __align__(16) bf16 sK[kTile * LD];
-  __shared__ __align__(16) bf16 sV[kTile * LD];
-  __shared__ float sB[EXTRA ? kTile : 1];
-  const int bh = blockIdx.y;
-  const int qb = gridDim.x - 1 - blockIdx.x;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
-  const int qw = qb * kTile + (threadIdx.x >> 5) * 16;
-  uint32_t qf[D / 16][4], df[D / 16][4];
-  load_a<D>(qf, a.q + bh * a.q_bh, a.q_s, qw, a.sq);
-  load_a<D>(df, dout + bh * do_bh, do_s, qw, a.sq);
-  float lse_r[2], dlt_r[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = qw + g + 8 * h;
-    const long long i = (long long)bh * a.sq + row;
-    lse_r[h] = row < a.sq ? lse[i] * kLog2e : 0.f;
-    dlt_r[h] = row < a.sq ? delta[i] : 0.f;
-  }
-  const bf16* kb = a.k + bh * a.k_bh;
-  const bf16* vb = a.v + bh * a.v_bh;
-  float* dsb = EXTRA && ds != nullptr ? ds + (long long)bh * a.sq * a.sk
-                                      : nullptr;
-  float acc[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-  }
-  const int nkt = live_k_tiles(a, qb);
-  for (int kt = 0; kt < nkt; ++kt) {
-    __syncthreads();
-    load_tile<D>(sK, kb, a.k_s, kt * kTile, a.sk);
-    load_tile<D>(sV, vb, a.v_s, kt * kTile, a.sk);
-    if (EXTRA) load_bias_tile(sB, a, bh, kt * kTile);
-    __syncthreads();
-    // the tile's keys in two halves of 32, as dk/dv splits its queries
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int k0 = half * 32;
-      float s[4][4], dp[4][4];
-      rows_times_tile<D, 4>(s, qf, sK + k0 * LD);    // Q K^T
-      rows_times_tile<D, 4>(dp, df, sV + k0 * LD);   // dO V^T
-      const bool full = all_visible(a, qw, 16, kt * kTile + k0, 32);
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int h = e >> 1;
-          const int qi = qw + g + 8 * h;
-          const int kl = k0 + nt * 8 + 2 * t4 + (e & 1);
-          const int kj = kt * kTile + kl;
-          const bool vis = full || visible(a, qi, kj);
-          float d;
-          p_ds<EXTRA>(a, bh, qi, kj, vis, s[nt][e], EXTRA ? sB[kl] : 0.f,
-                      dp[nt][e], lse_r[h], dlt_r[h], d);
-          if (EXTRA && dsb != nullptr && qi < a.sq && kj < a.sk) {
-            dsb[(long long)qi * a.sk + kj] = d;
-          }
-          s[nt][e] = d * a.scale;                    // dS * scale
-        }
-      }
-      scores_times_tile<D, 4>(acc, s, sK + k0 * LD);   // dq += dS K
-    }
-  }
-  if (EXTRA && dsb != nullptr) {
-    // the key tiles the causal mask skips: dS = 0 there
-    const int k_from = nkt * kTile;
-    const int wide = a.sk - k_from;
-    for (int i = threadIdx.x; wide > 0 && i < kTile * wide; i += kThreads) {
-      const int qi = qb * kTile + i / wide;
-      if (qi < a.sq) dsb[(long long)qi * a.sk + k_from + i % wide] = 0.f;
-    }
-  }
-  bf16* out = dq + (long long)bh * a.sq * D;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = qw + g + 8 * h;
-    if (row >= a.sq) continue;
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      *reinterpret_cast<uint32_t*>(out + (long long)row * D + dt * 8 + 2 * t4) =
-          pack_bf16(acc[dt][2 * h], acc[dt][2 * h + 1]);
-    }
-  }
-}
-
-// ---- backward: dk, dv ------------------------------------------------------
-
-template <int D, bool EXTRA>
-__global__ void __launch_bounds__(kThreads, D == 64 ? kDkvBlocks : 1)
-flash_dkv_kernel(Attn a, const bf16* __restrict__ dout, long long do_bh,
-                 long long do_s, const float* __restrict__ lse,
-                 const float* __restrict__ delta, bf16* __restrict__ dk,
-                 bf16* __restrict__ dv) {
-  constexpr int LD = D + 8;
-  __shared__ __align__(16) bf16 sQ[kTile * LD];
-  __shared__ __align__(16) bf16 sD[kTile * LD];
-  __shared__ float sL[kTile], sDl[kTile];
-  const int bh = blockIdx.y, kb = blockIdx.x;
-  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
-  const int kw = kb * kTile + (threadIdx.x >> 5) * 16;
-  uint32_t kf[D / 16][4], vf[D / 16][4];
-  load_a<D>(kf, a.k + bh * a.k_bh, a.k_s, kw, a.sk);
-  load_a<D>(vf, a.v + bh * a.v_bh, a.v_s, kw, a.sk);
-  // kv_bias of this thread's two key rows, in log2 units
-  float kb_r[2] = {0.f, 0.f};
-  if (EXTRA && a.kvb != nullptr) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int kj = kw + g + 8 * h;
-      kb_r[h] = kj < a.sk ? a.kvb[bh * a.kvb_bh + kj] * kLog2e : 0.f;
-    }
-  }
-  float dka[D / 8][4], dva[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[dt][e] = dva[dt][e] = 0.f;
-  }
-  const int nqt = (a.sq + kTile - 1) / kTile;
-  int qt0 = 0;
-  if (a.causal) {
-    // the first query tile whose last row sees this block's first key
-    const int need = a.k_start + kb * kTile - a.q_start - (kTile - 1);
-    qt0 = need <= 0 ? 0 : (need + kTile - 1) / kTile;
-  }
-  const bf16* qbase = a.q + bh * a.q_bh;
-  const bf16* dbase = dout + bh * do_bh;
-  const float* lb = lse + (long long)bh * a.sq;
-  const float* db = delta + (long long)bh * a.sq;
-  for (int qt = qt0; qt < nqt; ++qt) {
-    __syncthreads();
-    load_tile<D>(sQ, qbase, a.q_s, qt * kTile, a.sq);
-    load_tile<D>(sD, dbase, do_s, qt * kTile, a.sq);
-    if (threadIdx.x < kTile) {
-      const int r = qt * kTile + threadIdx.x;
-      sL[threadIdx.x] = r < a.sq ? lb[r] * kLog2e : 0.f;
-      sDl[threadIdx.x] = r < a.sq ? db[r] : 0.f;
-    }
-    __syncthreads();
-    // the tile's queries in two halves of 32, so only half the transposed
-    // scores and dP are live at once (fewer registers: more blocks an SM)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int q0 = half * 32;
-      float pt[4][4], dst[4][4];
-      rows_times_tile<D, 4>(pt, kf, sQ + q0 * LD);   // K Q^T: scores^T
-      rows_times_tile<D, 4>(dst, vf, sD + q0 * LD);  // V dO^T: dP^T
-      const bool full = all_visible(a, qt * kTile + q0, 32, kw, 16);
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int kj = kw + g + 8 * (e >> 1);
-          const int ql = q0 + nt * 8 + 2 * t4 + (e & 1);
-          const int qi = qt * kTile + ql;
-          const bool vis = full || visible(a, qi, kj);
-          float d;
-          pt[nt][e] = p_ds<EXTRA>(a, bh, qi, kj, vis, pt[nt][e],
-                                  kb_r[e >> 1], dst[nt][e], sL[ql], sDl[ql],
-                                  d);
-          dst[nt][e] = d * a.scale;
-        }
-      }
-      scores_times_tile<D, 4>(dva, pt, sD + q0 * LD);    // dv += P^T dO
-      scores_times_tile<D, 4>(dka, dst, sQ + q0 * LD);   // dk += dS^T Q
-    }
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = kw + g + 8 * h;
-    if (row >= a.sk) continue;
-    const long long off = ((long long)bh * a.sk + row) * D + 2 * t4;
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      *reinterpret_cast<uint32_t*>(dk + off + dt * 8) =
-          pack_bf16(dka[dt][2 * h], dka[dt][2 * h + 1]);
-      *reinterpret_cast<uint32_t*>(dv + off + dt * 8) =
-          pack_bf16(dva[dt][2 * h], dva[dt][2 * h + 1]);
-    }
-  }
-}
 
 // ---- backward: the gradient of a bias shared over bh -----------------------
 
@@ -754,58 +453,6 @@ __global__ void dbias_sum_kernel(const float* __restrict__ part,
   }
 }
 
-Attn make_attn(const void* q, const void* k, const void* v, long long q_bh,
-               long long q_s, long long k_bh, long long k_s, long long v_bh,
-               long long v_s, const void* kvb, long long kvb_bh,
-               const void* bias, long long bias_bh, unsigned seed,
-               unsigned drop_thresh, float drop_inv, int sq, int sk,
-               int q_start, int k_start, int causal, float scale) {
-  Attn a;
-  a.q = static_cast<const bf16*>(q);
-  a.k = static_cast<const bf16*>(k);
-  a.v = static_cast<const bf16*>(v);
-  a.kvb = static_cast<const float*>(kvb);
-  a.bias = static_cast<const float*>(bias);
-  a.kvb_bh = kvb_bh;
-  a.bias_bh = bias_bh;
-  a.q_bh = q_bh;
-  a.q_s = q_s;
-  a.k_bh = k_bh;
-  a.k_s = k_s;
-  a.v_bh = v_bh;
-  a.v_s = v_s;
-  a.sq = sq;
-  a.sk = sk;
-  a.q_start = q_start;
-  a.k_start = k_start;
-  a.causal = causal;
-  a.scale = scale;
-  a.seed = seed;
-  a.drop_thresh = drop_thresh;
-  a.drop_inv = drop_inv;
-  return a;
-}
-
-bool bad(int bh, int sq, int sk, int d) {
-  return bh < 1 || bh > 65535 || sq < 1 || sk < 1 || (d != 64 && d != 128);
-}
-
-// calls f(D, EXTRA) with both as compile-time constants: the head dim (64
-// or 128) and whether any bias or dropout is given
-template <typename F>
-void with_form(int d, const Attn& a, F&& f) {
-  using std::integral_constant;
-  const bool extra = a.kvb != nullptr || a.bias != nullptr ||
-                     a.drop_inv > 0.f;
-  if (d == 64) {
-    if (extra) f(integral_constant<int, 64>{}, integral_constant<bool, true>{});
-    else f(integral_constant<int, 64>{}, integral_constant<bool, false>{});
-  } else {
-    if (extra) f(integral_constant<int, 128>{}, integral_constant<bool, true>{});
-    else f(integral_constant<int, 128>{}, integral_constant<bool, false>{});
-  }
-}
-
 }  // namespace
 }  // namespace apex_port
 
@@ -844,82 +491,10 @@ extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
   return static_cast<int>(cudaGetLastError());
 }
 
-// dout with its own strides; lse, delta fp32 [bh, sq] contiguous; dq bf16
-// [bh, sq, d] contiguous; ds null or fp32 [bh, sq, sk] contiguous (the
-// per-bh bias gradient; taken only with a bias or kv_bias or dropout).
-extern "C" int apex_flash_bwd_dq(const void* q, const void* k, const void* v,
-                                 const void* dout, const void* lse,
-                                 const void* delta, void* dq, void* ds,
-                                 long long q_bh, long long q_s,
-                                 long long k_bh, long long k_s,
-                                 long long v_bh, long long v_s,
-                                 long long do_bh, long long do_s,
-                                 const void* kvb, long long kvb_bh,
-                                 const void* bias, long long bias_bh,
-                                 unsigned seed, unsigned drop_thresh,
-                                 float drop_inv, int bh, int sq, int sk,
-                                 int d, int q_start, int k_start, int causal,
-                                 float scale, void* stream) {
-  using namespace apex_port;
-  if (bad(bh, sq, sk, d)) return static_cast<int>(cudaErrorInvalidValue);
-  const Attn a = make_attn(q, k, v, q_bh, q_s, k_bh, k_s, v_bh, v_s, kvb,
-                           kvb_bh, bias, bias_bh, seed, drop_thresh,
-                           drop_inv, sq, sk, q_start, k_start, causal, scale);
-  if (ds != nullptr && a.kvb == nullptr && a.bias == nullptr &&
-      !(a.drop_inv > 0.f)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const dim3 grid((sq + kTile - 1) / kTile, bh);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bf16* dp = static_cast<const bf16*>(dout);
-  const float* lp = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
-  bf16* out = static_cast<bf16*>(dq);
-  float* dsp = static_cast<float*>(ds);
-  with_form(d, a, [&](auto dd, auto ex) {
-    flash_dq_kernel<decltype(dd)::value, decltype(ex)::value>
-        <<<grid, kThreads, 0, st>>>(a, dp, do_bh, do_s, lp, dl, out, dsp);
-  });
-  return static_cast<int>(cudaGetLastError());
-}
-
-// as apex_flash_bwd_dq; dk, dv bf16 [bh, sk, d] contiguous.
-extern "C" int apex_flash_bwd_dkv(const void* q, const void* k,
-                                  const void* v, const void* dout,
-                                  const void* lse, const void* delta,
-                                  void* dk, void* dv, long long q_bh,
-                                  long long q_s, long long k_bh,
-                                  long long k_s, long long v_bh,
-                                  long long v_s, long long do_bh,
-                                  long long do_s, const void* kvb,
-                                  long long kvb_bh, const void* bias,
-                                  long long bias_bh, unsigned seed,
-                                  unsigned drop_thresh, float drop_inv,
-                                  int bh, int sq, int sk, int d, int q_start,
-                                  int k_start, int causal, float scale,
-                                  void* stream) {
-  using namespace apex_port;
-  if (bad(bh, sq, sk, d)) return static_cast<int>(cudaErrorInvalidValue);
-  const Attn a = make_attn(q, k, v, q_bh, q_s, k_bh, k_s, v_bh, v_s, kvb,
-                           kvb_bh, bias, bias_bh, seed, drop_thresh,
-                           drop_inv, sq, sk, q_start, k_start, causal, scale);
-  const dim3 grid((sk + kTile - 1) / kTile, bh);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bf16* dp = static_cast<const bf16*>(dout);
-  const float* lp = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
-  bf16* kp = static_cast<bf16*>(dk);
-  bf16* vp = static_cast<bf16*>(dv);
-  with_form(d, a, [&](auto dd, auto ex) {
-    flash_dkv_kernel<decltype(dd)::value, decltype(ex)::value>
-        <<<grid, kThreads, 0, st>>>(a, dp, do_bh, do_s, lp, dl, kp, vp);
-  });
-  return static_cast<int>(cudaGetLastError());
-}
-
-// as apex_flash_bwd_dq, the bias shared over bh (bias_bh = 0); dbias fp32
-// [sq, sk] contiguous; bh split into `runs` runs of ceil(bh / runs), and
-// with runs > 1 part fp32 [runs, sq, sk] contiguous scratch.
+// dout with its own strides; lse, delta fp32 [bh, sq] contiguous; the
+// bias shared over bh (bias_bh = 0); dbias fp32 [sq, sk] contiguous; bh
+// split into `runs` runs of ceil(bh / runs), and with runs > 1 part fp32
+// [runs, sq, sk] contiguous scratch.
 extern "C" int apex_flash_bwd_dbias(const void* q, const void* k,
                                     const void* v, const void* dout,
                                     const void* lse, const void* delta,

@@ -1,0 +1,931 @@
+// Flash attention's backward over [BH, S, D] bf16 (D 64 or 128) for
+// Hopper: dq (with the per-bh bias gradient dS when asked) and dk/dv, each
+// recomputing the probabilities from the forward's lse. The semantics they
+// keep from the Pallas kernels are csrc/flash_common.cuh; the Hopper
+// instructions they are built from are csrc/hopper.cuh.
+//
+// Replaces the Pallas kernels of
+// apex_tpu/contrib/multihead_attn/flash_attention.py: _bwd_pallas ->
+// _bwd_dq_kernel (:349) and _bwd_dkv_kernel (:392), both recomputing P and
+// dS as _recompute_p_ds (:309-346) does, with every input they take (the
+// full bias, kv_bias, dropout; dq's per-bh dS, dbias_in_dq at :471).
+//
+// Bound on this card. At lm_bench's shape (BH = 128, S = 4095, D = 64,
+// causal: 1.07e9 live (query, key) pairs) dq's three products (QK^T, dO V^T,
+// dS K) are 6·D·pairs = 412 GFLOP and dk/dv's four (KQ^T, V dO^T, P^T dO,
+// dS^T Q) 8·D·pairs = 550 GFLOP, against ~340 MB and ~400 MB of operands
+// and results: ~1200 operations per byte, above the H100's 295, so the
+// bf16 tensor cores' 989 TFLOP/s bound them (0.417 and 0.556 ms). Each
+// kernel also takes one exp2 a live pair, 1.07e9 on the special-function
+// units (16 a clock an SM: ~0.3 ms), a second floor close to dq's first.
+// At the wide LM's [384, 2048, 128] the products bound them at 0.626 and
+// 0.834 ms. At the ViT's [1536, 197, 64] the bound is bytes (~194 MB for
+// dq: 0.058 ms; the products 0.023 ms).
+//
+// What the design does about the limits of the mma.sync kernels it
+// replaces:
+// 1. Products on the Ampere instruction: every product here is a
+//    warpgroup wgmma.mma_async (m64nNk16, bf16 in, fp32 accumulators), the
+//    instruction that reaches the full tensor-core rate on Hopper.
+// 2. The staged tile re-read by every warp: the tensor cores read it once
+//    per warpgroup from 128-byte-swizzled shared memory. The first
+//    products (QK^T, dO V^T; KQ^T, V dO^T) take it K-major; the second (dS
+//    K; P^T dO, dS^T Q) take it MN-major (wgmma's transpose bit), the same
+//    bytes, and P or dS from registers, rounded to bf16: the scores'
+//    accumulator layout is wgmma's register-A fragment. At D = 64 the
+//    block's own rows (Q and dO; K and V) also enter the first products
+//    from registers, loaded once: an m64n64k16 product with both operands
+//    in shared memory reads 4 KB in its 32 clocks, all of the SM's
+//    shared-memory bandwidth.
+// 3. One tile in flight: the staged tiles arrive by TMA
+//    (cp.async.bulk.tensor) through a ring of kStages buffers that a
+//    producer warp keeps full, full and empty mbarriers handing them over
+//    (a consumer releases a buffer once the products that read it have
+//    completed). TMA's zero fill past the tensor's end stands for the
+//    ragged tail (S = 4095, 197). Two stages left dq 31% slower at the LM
+//    shape than three on the H100; four gained nothing.
+// 4. Register caps that split the tiles: a block owns 128 rows (queries
+//    for dq, keys for dk/dv) as two consumer warpgroups of 64 sharing each
+//    staged 64-row tile, and the producer warpgroup gives them its
+//    registers (setmaxnreg: 240 and 24 a thread). At D = 128 dk and dv
+//    alone are 128 fp32 registers a thread, and with the transposed scores
+//    and dP of all 64 queries beside them ptxas serialised the products,
+//    so dk/dv takes a staged tile there in two rounds of 32 queries.
+// 5. Everything recomputed twice: the two kernels still recompute QK^T,
+//    dO V^T and one exp2 a pair each (7 products where a fused backward
+//    needs 5), since a fused one adds dq across key blocks with float
+//    atomics, which do not repeat bit for bit. Here each block owns its
+//    output rows and every output repeats bit for bit. What the split
+//    costs is bounded instead: the recompute of a tile with no mask, bias
+//    or dropout is one fused multiply-add, one exp2 on the special-function
+//    unit and two more operations an element, its form chosen a tile at a
+//    time (with_tile_form), and the two consumer warpgroups take turns
+//    issuing their first products (named barriers), so that the tensor
+//    cores run one's products while the other works out P and dS.
+// Causal work is skipped a warpgroup at a time: a block visits the tiles
+// its 128 rows see, and a warpgroup waits out the tiles its own 64 do not.
+// With the recompute taken out (a diagnostic build, both first-product
+// operands then still in shared memory) the LM shape's dq and dk/dv took
+// 0.83 and 1.04 ms on the H100 against 0.96 and 1.22 with it: the
+// products and their feeding, not exp2, set the floor these kernels sit
+// on.
+//
+// The host builds the tensor maps (dims, strides and boxes come from the
+// Python wrapper, ops/flash_attn.py tma_layout) with cuTensorMapEncodeTiled,
+// fetched through cudaGetDriverEntryPoint so that nothing links libcuda,
+// and passes them as __grid_constant__ parameters.
+
+#include "flash_common.cuh"
+#include "hopper.cuh"
+
+namespace apex_port {
+namespace {
+
+using namespace hopper;
+
+constexpr int kRows = 128;        // rows a block owns (queries; keys)
+constexpr int kWgRows = 64;       // rows of one consumer warpgroup
+constexpr int kBox = 64;          // a TMA box: 64 rows of 64 bf16 (the
+                                  // 128-byte swizzle's span), one bh
+constexpr int kStages = 3;        // tiles of the copy ring
+constexpr int kThreadsBwd = 384;  // consumer warpgroups 0 and 1, producer 2
+// registers a thread after setmaxnreg (256 * 240 + 128 * 24 of the SM's
+// 65536); one warp of the producer warpgroup issues the copies
+constexpr int kConsumerRegs = 240, kProducerRegs = 24;
+constexpr int kFullArrivals = 32;   // the producer warp's lanes
+constexpr int kEmptyArrivals = 8;   // the consumer warps
+constexpr uint32_t kSbo = 1024;     // 8 swizzled rows of 128 bytes
+// the named barriers that take turns between the consumer warpgroups (0
+// is __syncthreads)
+constexpr int kTurnBar = 1;
+
+// the tensor maps of q, k, v and dO
+struct Maps {
+  CUtensorMap q, k, v, o;
+};
+
+// R rows of a [*, D] bf16 operand in shared memory as D / 64 column tiles
+// of R swizzled 128-byte rows (hopper.cuh)
+template <int R, int D>
+struct alignas(1024) Tile {
+  static constexpr uint32_t kColBytes = R * kBox * 2;   // one column tile
+  static constexpr uint32_t kBytes = kColBytes * (D / kBox);
+  bf16 x[D / kBox][R * kBox];
+};
+
+template <int D>
+struct DqSmem {
+  Tile<kRows, D> q, o;                    // the block's queries, their dO
+  Tile<kBox, D> k[kStages], v[kStages];   // the ring of key tiles
+  float kvb[kStages][kBox];               // their kv_bias, log2 units
+  uint64_t full[kStages], empty[kStages], qo;
+};
+
+template <int D>
+struct DkvSmem {
+  Tile<kRows, D> k, v;                    // the block's keys and values
+  Tile<kBox, D> q[kStages], o[kStages];   // the ring of query tiles, dO
+  // lse in log2 units; delta, and delta times the scale
+  float lse[kStages][kBox], dlt[kStages][kBox], dlts[kStages][kBox];
+  uint64_t full[kStages], empty[kStages], kv;
+};
+
+// the dynamic shared memory a block asks for: its layout, room to align
+// the base, and at least 116 KB, so that one block holds an SM (the
+// consumers' setmaxnreg takes the registers a second block would need)
+template <typename S>
+constexpr int smem_bytes() {
+  return static_cast<int>(sizeof(S)) + 1024 > 116 * 1024
+             ? static_cast<int>(sizeof(S)) + 1024 : 116 * 1024;
+}
+
+template <typename S>
+__device__ __forceinline__ S& smem_as(uint8_t* raw) {
+  const uint32_t pad = (1024u - (smem_u32(raw) & 1023u)) & 1023u;
+  return *reinterpret_cast<S*>(raw + pad);
+}
+
+template <typename S>
+__device__ __forceinline__ void init_barriers(S& sm, uint64_t* once) {
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&sm.full[s], kFullArrivals);
+      mbar_init(&sm.empty[s], kEmptyArrivals);
+    }
+    mbar_init(once, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+}
+
+// rows [row0, row0 + R) of bh into t, by one thread: R / 64 boxes down,
+// D / 64 across; completes R * D * 2 bytes on bar
+template <int R, int D>
+__device__ __forceinline__ void load_rows(Tile<R, D>& t,
+                                          const CUtensorMap* map,
+                                          uint64_t* bar, int row0, int bh) {
+#pragma unroll
+  for (int c = 0; c < D / kBox; ++c) {
+#pragma unroll
+    for (int h = 0; h < R / kBox; ++h) {
+      tma_load_3d(&t.x[c][h * kBox * kBox], map, bar, c * kBox,
+                  row0 + h * kBox, bh);
+    }
+  }
+}
+
+// a consumer warp's release of stage s (s < 0: none), once its lanes are
+// done with the stage's shared memory
+template <typename S>
+__device__ __forceinline__ void release(S& sm, int s) {
+  if (s < 0) return;
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(&sm.empty[s]);
+}
+
+// 2^x on the special-function unit (denormal results flush to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The consumer warpgroups take turns issuing their first products: wg
+// waits for the other's turn to end, issues, and ends its own. The tensor
+// cores then run one warpgroup's products while the other works out P and
+// dS, instead of both at once. Warpgroup 1 lets 0 go first; each turn of
+// one is matched by a wait of the other, and warpgroup 0 takes the last
+// turn after both loops, so no barrier is left half-arrived.
+__device__ __forceinline__ void turn_begin(int wg) {
+  bar_sync(kTurnBar + wg, 256);
+}
+__device__ __forceinline__ void turn_end(int wg) {
+  bar_arrive(kTurnBar + (wg ^ 1), 256);
+}
+
+// The recompute of one (query qi, key kj) as _recompute_p_ds (:309-346)
+// does it, for a tile whose form is known: MASK, whether the tile crosses
+// the causal diagonal or a ragged edge (else every element is visible);
+// BIAS and DROP, whether a full bias and dropout may be given (each then
+// checked at run time); EXTRA, any of those or a kv_bias (the value
+// guard). s is q·k, kvb2 the key's kv_bias in log2 units, lse2 the row's
+// lse in log2 units. Returns p dropped and rescaled (dv's factor) and sets
+// ds = p (dP' - delta) with the undropped p.
+template <bool EXTRA, bool MASK, bool BIAS, bool DROP>
+__device__ __forceinline__ float recompute(const Attn& a, int bh, int qi,
+                                          int kj, float s, float sl2,
+                                          float kvb2, float dp, float lse2,
+                                          float dlt, float& ds) {
+  float sc = fmaf(s, sl2, kvb2);
+  bool live = !MASK || visible(a, qi, kj);
+  if (BIAS && live) sc += bias_at(a, bh, qi, kj);
+  if (EXTRA) live = live && sc > kNegInf * 0.5f;
+  const float p = live ? ex2(sc - lse2) : 0.f;
+  float pd = p;
+  if (DROP && a.drop_inv > 0.f) {
+    const bool kept = keep(a, bh, qi, kj);
+    pd = kept ? p * a.drop_inv : 0.f;
+    dp = kept ? dp * a.drop_inv : 0.f;
+  }
+  ds = p * (dp - dlt);
+  return pd;
+}
+
+// calls f(MASK, BIAS, DROP) as compile-time constants for a tile:
+// `masked` from the tile's position, BIAS and DROP from the inputs of an
+// EXTRA form (all warp-uniform), so each loop carries only what it needs.
+// The EXTRA forms at D = 128 take one loop for both inputs (BIAS and DROP
+// checked at run time): eight loops beside dk and dv's 128 fp32 registers
+// a thread spill.
+template <int D, bool EXTRA, typename F>
+__device__ __forceinline__ void with_tile_form(bool masked, const Attn& a,
+                                               F&& f) {
+  using T = std::true_type;
+  using N = std::false_type;
+  if (!EXTRA) {
+    if (masked) f(T{}, N{}, N{});
+    else f(N{}, N{}, N{});
+    return;
+  }
+  if (D == 128) {
+    if (masked) f(T{}, T{}, T{});
+    else f(N{}, T{}, T{});
+    return;
+  }
+  const bool bias = a.bias != nullptr, drop = a.drop_inv > 0.f;
+  if (masked) {
+    if (bias) {
+      if (drop) f(T{}, T{}, T{});
+      else f(T{}, T{}, N{});
+    } else {
+      if (drop) f(T{}, N{}, T{});
+      else f(T{}, N{}, N{});
+    }
+  } else {
+    if (bias) {
+      if (drop) f(N{}, T{}, T{});
+      else f(N{}, T{}, N{});
+    } else {
+      if (drop) f(N{}, N{}, T{});
+      else f(N{}, N{}, N{});
+    }
+  }
+}
+
+// k-steps of the first products' A operand held in registers: all of
+// them at D = 64, none at D = 128 (see first_product)
+template <int D>
+constexpr int kASteps = D == 64 ? D / 16 : 1;
+
+// queries of a staged tile dk/dv takes in one round (see its loop)
+template <int D>
+constexpr int kRound = D == 64 ? kBox : kBox / 2;
+
+// this warp's register-A fragments of rows [r0, r0 + 64) of t, every
+// k-step of 16 columns: chunk c of row r sits at chunk c ^ (r % 8) (the
+// TMA swizzle), and this lane's rows are both g mod 8
+template <int D>
+__device__ __forceinline__ void load_frags(uint32_t (&f)[D / 16][4],
+                                           const Tile<kRows, D>& t, int r0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const int row = r0 + ((threadIdx.x >> 5) & 3) * 16 + g;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const char* p = reinterpret_cast<const char*>(&t.x[kk / 4][0]) +
+                    row * 128 + 4 * t4;
+    const int c = 2 * (kk % 4);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int chunk = (c + (j >> 1)) ^ g;
+      f[kk][j] = *reinterpret_cast<const uint32_t*>(p + (j & 1) * 8 * 128 +
+                                                    (chunk << 4));
+    }
+  }
+}
+
+// acc[64 x N] = this warpgroup's rows [r0, r0 + 64) of the block's tile a
+// times rows [b0, b0 + N) of b transposed: the product over D, both
+// K-major. At D = 64 the rows come from their register fragments f (an
+// m64n64k16 product that reads both operands from shared memory takes all
+// of its bandwidth); at D = 128 from a itself, their fragments (64
+// registers a thread) having no room beside dk and dv
+template <int D, int N>
+__device__ __forceinline__ void first_product(
+    float (&acc)[N / 2], const Tile<kRows, D>& a, int r0,
+    const uint32_t (&f)[kASteps<D>][4], const Tile<kBox, D>& b, int b0) {
+  const uint32_t pa = opaque(smem_u32(&a.x[0][r0 * kBox]));
+  const uint32_t pb = smem_u32(&b.x[0][b0 * kBox]);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint64_t db = sw128_desc(
+        pb + (kk / 4) * Tile<kBox, D>::kColBytes + (kk % 4) * 32, 16, kSbo);
+    if constexpr (D == 64) {
+      mma_rs<N, 0>(acc, f[kk], db, kk > 0);
+    } else {
+      mma_ss<N>(acc,
+                sw128_desc(pa + (kk / 4) * Tile<kRows, D>::kColBytes +
+                               (kk % 4) * 32, 16, kSbo),
+                db, kk > 0);
+    }
+  }
+}
+
+// acc[64 x D] += X[64 x 16 KS] times rows [b0, b0 + 16 KS) of b, b
+// MN-major, X from its bf16 register fragments: f[ks][j] packs X's
+// accumulator elements 8 ks + 2 j and 8 ks + 2 j + 1, k-step ks taking X's
+// columns [16 ks, 16 ks + 16) and the 16 rows of b that match them
+template <int D, int KS>
+__device__ __forceinline__ void frags_by_tile(float (&acc)[D / 2],
+                                              const uint32_t (&f)[KS][4],
+                                              const Tile<kBox, D>& b,
+                                              int b0) {
+  const uint32_t pb = smem_u32(&b.x[0][b0 * kBox]);
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    mma_rs<D, 1>(acc, f[ks],
+                 sw128_desc(pb + ks * 16 * 128, Tile<kBox, D>::kColBytes,
+                            kSbo), 1);
+  }
+}
+
+// 64-key tiles the queries [r0, r0 + n) must visit: the causal mask ends
+// them at the last key their last row sees; rows past Sq see nothing
+__device__ __forceinline__ int key_tiles(const Attn& a, int r0, int n) {
+  const int last = min(r0 + n, a.sq) - 1;
+  if (last < r0) return 0;
+  int t = (a.sk + kBox - 1) / kBox;
+  if (a.causal) {
+    const int lim = a.q_start + last - a.k_start;
+    if (lim < 0) return 0;
+    t = min(t, lim / kBox + 1);
+  }
+  return t;
+}
+
+// the first 64-query tile that sees key k0 (and so every key after it):
+// with the causal mask the first whose last row reaches it; Sq's tile
+// count when k0 lies past Sk
+__device__ __forceinline__ int first_query_tile(const Attn& a, int k0) {
+  const int nqt = (a.sq + kBox - 1) / kBox;
+  if (k0 >= a.sk) return nqt;
+  if (!a.causal) return 0;
+  const int need = a.k_start + k0 - a.q_start - (kBox - 1);
+  return need <= 0 ? 0 : min(nqt, (need + kBox - 1) / kBox);
+}
+
+// ---- dq (and the per-bh dS) ------------------------------------------------
+
+// ds (null, or fp32 [BH, Sq, Sk] contiguous): dS of every (query, key),
+// unscaled, zeros where a tile is skipped (:382-386)
+template <int D, bool EXTRA>
+__global__ void __launch_bounds__(kThreadsBwd, 1)
+flash_dq_kernel(const __grid_constant__ Maps maps, Attn a,
+                const float* __restrict__ lse,
+                const float* __restrict__ delta, bf16* __restrict__ dq,
+                float* __restrict__ ds) {
+  extern __shared__ uint8_t smem_raw[];
+  DqSmem<D>& sm = smem_as<DqSmem<D>>(smem_raw);
+  const int bh = blockIdx.y;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;  // longest first
+  const int wg = threadIdx.x >> 7;
+  const int nkt = key_tiles(a, q0, kRows);
+  init_barriers(sm, &sm.qo);
+
+  if (wg == 2) {
+    // ---- producer: the block's Q and dO once, then the key tiles
+    reg_dealloc<kProducerRegs>();
+    if (threadIdx.x >= 2 * 128 + 32) return;
+    const int lane = threadIdx.x & 31;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(&sm.qo, 2 * Tile<kRows, D>::kBytes);
+      load_rows(sm.q, &maps.q, &sm.qo, q0, bh);
+      load_rows(sm.o, &maps.o, &sm.qo, q0, bh);
+    }
+    for (int kt = 0; kt < nkt; ++kt) {
+      const int s = kt % kStages;
+      if (kt >= kStages) mbar_wait(&sm.empty[s], (kt / kStages - 1) & 1);
+      if (EXTRA) {
+        for (int r = lane; r < kBox; r += 32) {
+          const int kj = kt * kBox + r;
+          sm.kvb[s][r] = a.kvb != nullptr && kj < a.sk
+                             ? a.kvb[bh * a.kvb_bh + kj] * kLog2e : 0.f;
+        }
+      }
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&sm.full[s], 2 * Tile<kBox, D>::kBytes);
+        load_rows(sm.k[s], &maps.k, &sm.full[s], kt * kBox, bh);
+        load_rows(sm.v[s], &maps.v, &sm.full[s], kt * kBox, bh);
+      } else {
+        mbar_arrive(&sm.full[s]);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns queries [r0, r0 + 64)
+  reg_alloc<kConsumerRegs>();
+  const int tid = threadIdx.x & 127, lane = tid & 31, g = lane >> 2,
+            t4 = lane & 3;
+  const int r0 = q0 + wg * kWgRows;
+  const int qw = r0 + (tid >> 5) * 16;    // this warp's 16 rows
+  // lse in log2 units; delta, and delta times the scale
+  float lse_r[2], dlt_r[2], dlts_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = qw + g + 8 * h;
+    const long long i = (long long)bh * a.sq + row;
+    lse_r[h] = row < a.sq ? lse[i] * kLog2e : 0.f;
+    dlt_r[h] = row < a.sq ? delta[i] : 0.f;
+    dlts_r[h] = dlt_r[h] * a.scale;
+  }
+  const float sl2 = a.scale * kLog2e;
+  float* dsb = EXTRA && ds != nullptr ? ds + (long long)bh * a.sq * a.sk
+                                      : nullptr;
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  const int nkt_wg = key_tiles(a, r0, kWgRows);
+  mbar_wait(&sm.qo, 0);
+  uint32_t qf[kASteps<D>][4], of[kASteps<D>][4];
+  if constexpr (D == 64) {
+    load_frags(qf, sm.q, wg * kWgRows);
+    load_frags(of, sm.o, wg * kWgRows);
+  }
+  if (wg == 1) turn_end(1);
+  int held = -1;   // the stage the last dS K product reads
+  for (int kt = 0; kt < nkt; ++kt) {
+    const int s = kt % kStages;
+    mbar_wait(&sm.full[s], (kt / kStages) & 1);
+    if (kt >= nkt_wg) {               // past this warpgroup's causal edge
+      turn_begin(wg);
+      turn_end(wg);
+      wg_wait<0>();
+      fence_regs(acc);
+      release(sm, held);
+      held = -1;
+      release(sm, s);
+      continue;
+    }
+    float sc[32], dp[32];
+    fence_regs(acc);
+    turn_begin(wg);
+    wg_fence();
+    first_product<D, kBox>(sc, sm.q, wg * kWgRows, qf, sm.k[s], 0);  // QK^T
+    first_product<D, kBox>(dp, sm.o, wg * kWgRows, of, sm.v[s], 0);  // dOV^T
+    wg_commit();
+    turn_end(wg);
+    wg_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+    fence_regs(acc);
+    release(sm, held);
+    held = -1;
+    // dS * scale, each pair packed into its bf16 fragment as it is made
+    const bool full = all_visible(a, qw, 16, kt * kBox, kBox);
+    uint32_t f[4][4];
+    with_tile_form<D, EXTRA>(!full, a, [&](auto mask, auto bias, auto drop) {
+      constexpr bool M = decltype(mask)::value, B = decltype(bias)::value,
+                     P = decltype(drop)::value;
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float x[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 8 * ks + 2 * j + e;
+            const int h = (i >> 1) & 1;
+            if constexpr (!EXTRA && !M) {
+              // no mask, bias or dropout: p (dP scale - delta scale)
+              x[e] = ex2(fmaf(sc[i], sl2, -lse_r[h])) *
+                     fmaf(dp[i], a.scale, -dlts_r[h]);
+            } else {
+              const int qi = qw + g + 8 * h;
+              const int kl = (i >> 2) * 8 + 2 * t4 + (i & 1);
+              const int kj = kt * kBox + kl;
+              float d;
+              recompute<EXTRA, M, B, P>(a, bh, qi, kj, sc[i], sl2,
+                                        EXTRA ? sm.kvb[s][kl] : 0.f, dp[i],
+                                        lse_r[h], dlt_r[h], d);
+              if (EXTRA && dsb != nullptr &&
+                  (!M || (qi < a.sq && kj < a.sk))) {
+                dsb[(long long)qi * a.sk + kj] = d;
+              }
+              x[e] = d * a.scale;
+            }
+          }
+          f[ks][j] = pack_bf16(x[0], x[1]);
+        }
+      }
+    });
+    wg_fence();
+    frags_by_tile<D, 4>(acc, f, sm.k[s], 0);         // dq += dS K
+    wg_commit();
+    held = s;
+  }
+  if (wg == 0) turn_begin(0);
+  wg_wait<0>();
+  fence_regs(acc);
+  release(sm, held);
+  if (EXTRA && dsb != nullptr) {
+    // the key tiles this warpgroup skips: dS = 0 there
+    const int k_from = nkt_wg * kBox, wide = a.sk - k_from;
+    for (int i = tid; wide > 0 && i < kWgRows * wide; i += 128) {
+      const int qi = r0 + i / wide;
+      if (qi < a.sq) dsb[(long long)qi * a.sk + k_from + i % wide] = 0.f;
+    }
+  }
+  bf16* out = dq + (long long)bh * a.sq * D;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = qw + g + 8 * h;
+    if (row >= a.sq) continue;
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt) {
+      *reinterpret_cast<uint32_t*>(out + (long long)row * D + nt * 8 +
+                                   2 * t4) =
+          pack_bf16(acc[4 * nt + 2 * h], acc[4 * nt + 2 * h + 1]);
+    }
+  }
+}
+
+// ---- dk, dv ----------------------------------------------------------------
+
+template <int D, bool EXTRA>
+__global__ void __launch_bounds__(kThreadsBwd, 1)
+flash_dkv_kernel(const __grid_constant__ Maps maps, Attn a,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta, bf16* __restrict__ dk,
+                 bf16* __restrict__ dv) {
+  extern __shared__ uint8_t smem_raw[];
+  DkvSmem<D>& sm = smem_as<DkvSmem<D>>(smem_raw);
+  const int bh = blockIdx.y, kb = blockIdx.x;   // the longest blocks first
+  const int wg = threadIdx.x >> 7;
+  const int nqt = (a.sq + kBox - 1) / kBox;
+  const int qt0 = first_query_tile(a, kb * kRows);
+  init_barriers(sm, &sm.kv);
+
+  if (wg == 2) {
+    // ---- producer: the block's K and V once, then the query tiles
+    reg_dealloc<kProducerRegs>();
+    if (threadIdx.x >= 2 * 128 + 32) return;
+    const int lane = threadIdx.x & 31;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(&sm.kv, 2 * Tile<kRows, D>::kBytes);
+      load_rows(sm.k, &maps.k, &sm.kv, kb * kRows, bh);
+      load_rows(sm.v, &maps.v, &sm.kv, kb * kRows, bh);
+    }
+    const float* lb = lse + (long long)bh * a.sq;
+    const float* db = delta + (long long)bh * a.sq;
+    for (int i = 0; qt0 + i < nqt; ++i) {
+      const int qt = qt0 + i, s = i % kStages;
+      if (i >= kStages) mbar_wait(&sm.empty[s], (i / kStages - 1) & 1);
+      for (int r = lane; r < kBox; r += 32) {
+        const int row = qt * kBox + r;
+        sm.lse[s][r] = row < a.sq ? lb[row] * kLog2e : 0.f;
+        sm.dlt[s][r] = row < a.sq ? db[row] : 0.f;
+        sm.dlts[s][r] = sm.dlt[s][r] * a.scale;
+      }
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&sm.full[s], 2 * Tile<kBox, D>::kBytes);
+        load_rows(sm.q[s], &maps.q, &sm.full[s], qt * kBox, bh);
+        load_rows(sm.o[s], &maps.o, &sm.full[s], qt * kBox, bh);
+      } else {
+        mbar_arrive(&sm.full[s]);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns keys [k0, k0 + 64)
+  reg_alloc<kConsumerRegs>();
+  const int tid = threadIdx.x & 127, lane = tid & 31, g = lane >> 2,
+            t4 = lane & 3;
+  const int k0 = kb * kRows + wg * kWgRows;
+  const int kw = k0 + (tid >> 5) * 16;    // this warp's 16 keys
+  // kv_bias of this thread's two keys, in log2 units
+  float kb_r[2] = {0.f, 0.f};
+  if (EXTRA && a.kvb != nullptr) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int kj = kw + g + 8 * h;
+      kb_r[h] = kj < a.sk ? a.kvb[bh * a.kvb_bh + kj] * kLog2e : 0.f;
+    }
+  }
+  float dka[D / 2], dva[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+  const int qt_wg = first_query_tile(a, k0);
+  const float sl2 = a.scale * kLog2e;
+  mbar_wait(&sm.kv, 0);
+  uint32_t kf[kASteps<D>][4], vf[kASteps<D>][4];
+  if constexpr (D == 64) {
+    load_frags(kf, sm.k, wg * kWgRows);
+    load_frags(vf, sm.v, wg * kWgRows);
+  }
+  if (wg == 1) turn_end(1);
+  int held = -1;   // the stage the last dV and dK products read
+  for (int i = 0; qt0 + i < nqt; ++i) {
+    const int qt = qt0 + i, s = i % kStages;
+    mbar_wait(&sm.full[s], (i / kStages) & 1);
+    if (qt < qt_wg) {                 // before this warpgroup's first query
+#pragma unroll
+      for (int r = 0; r < kBox / kRound<D>; ++r) {
+        turn_begin(wg);
+        turn_end(wg);
+      }
+      wg_wait<0>();
+      fence_regs(dka);
+      fence_regs(dva);
+      release(sm, held);
+      held = -1;
+      release(sm, s);
+      continue;
+    }
+    // the tile's queries in rounds of R (at D = 128 two of 32: the
+    // transposed scores and dP of all 64 beside dk and dv leave ptxas too
+    // few registers to keep the products in flight)
+    constexpr int R = kRound<D>, KS = R / 16;
+#pragma unroll 1
+    for (int r = 0; r < kBox / R; ++r) {
+      const int q0 = r * R;
+      float st[R / 2], dpt[R / 2];
+      fence_regs(dka);
+      fence_regs(dva);
+      turn_begin(wg);
+      wg_fence();
+      first_product<D, R>(st, sm.k, wg * kWgRows, kf, sm.q[s], q0);   // S^T
+      first_product<D, R>(dpt, sm.v, wg * kWgRows, vf, sm.o[s], q0);  // dP^T
+      wg_commit();
+      turn_end(wg);
+      wg_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+      fence_regs(dka);
+      fence_regs(dva);
+      if (r == 0) {
+        release(sm, held);
+        held = -1;
+      }
+      // P^T and dS^T * scale, each pair packed into its bf16 fragment as it
+      // is made (the scores and dP die as the fragments fill)
+      const bool full = all_visible(a, qt * kBox + q0, R, kw, 16);
+      uint32_t pf[KS][4], sf[KS][4];
+      with_tile_form<D, EXTRA>(!full, a, [&](auto mask, auto bias,
+                                             auto drop) {
+        constexpr bool M = decltype(mask)::value,
+                       B = decltype(bias)::value, P = decltype(drop)::value;
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          // the bias is read from global memory a k-step at a time
+          // (hoisting all its loads and their addresses runs the D = 128
+          // form out of registers)
+          if constexpr (B) asm volatile("" ::: "memory");
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            float pd[2], dss[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int j = 8 * ks + 2 * jj + e;
+              const int ql = q0 + (j >> 2) * 8 + 2 * t4 + (j & 1);
+              if constexpr (!EXTRA && !M) {
+                // no mask, bias or dropout: p, and p (dP scale - delta
+                // scale)
+                pd[e] = ex2(fmaf(st[j], sl2, -sm.lse[s][ql]));
+                dss[e] = pd[e] * fmaf(dpt[j], a.scale, -sm.dlts[s][ql]);
+              } else {
+                const int h = (j >> 1) & 1;
+                const int kj = kw + g + 8 * h;
+                const int qi = qt * kBox + ql;
+                float d;
+                pd[e] = recompute<EXTRA, M, B, P>(
+                    a, bh, qi, kj, st[j], sl2, kb_r[h], dpt[j],
+                    sm.lse[s][ql], sm.dlt[s][ql], d);
+                dss[e] = d * a.scale;
+              }
+            }
+            pf[ks][jj] = pack_bf16(pd[0], pd[1]);
+            sf[ks][jj] = pack_bf16(dss[0], dss[1]);
+          }
+        }
+      });
+      wg_fence();
+      frags_by_tile<D, KS>(dva, pf, sm.o[s], q0);     // dv += P^T dO
+      frags_by_tile<D, KS>(dka, sf, sm.q[s], q0);     // dk += dS^T Q
+      wg_commit();
+    }
+    held = s;
+  }
+  if (wg == 0) turn_begin(0);
+  wg_wait<0>();
+  fence_regs(dka);
+  fence_regs(dva);
+  release(sm, held);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = kw + g + 8 * h;
+    if (row >= a.sk) continue;
+    const long long off = ((long long)bh * a.sk + row) * D + 2 * t4;
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt) {
+      *reinterpret_cast<uint32_t*>(dk + off + nt * 8) =
+          pack_bf16(dka[4 * nt + 2 * h], dka[4 * nt + 2 * h + 1]);
+      *reinterpret_cast<uint32_t*>(dv + off + nt * 8) =
+          pack_bf16(dva[4 * nt + 2 * h], dva[4 * nt + 2 * h + 1]);
+    }
+  }
+}
+
+// ---- host: tensor maps and launches ----------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled through the runtime (null if the
+// driver has none)
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) {
+      return nullptr;
+    }
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// one tensor's layout from the wrapper: dims (D, S, BH) innermost first,
+// the row and bh strides in bytes, the box (64, 64, 1)
+constexpr int kLayoutLen = 8;
+
+bool encode(CUtensorMap* map, const void* base, const long long* lay,
+            int d, int s, int bh) {
+  if (lay[0] != d || lay[1] != s || lay[2] != bh || lay[5] != kBox ||
+      lay[6] != kBox || lay[7] != 1) {
+    return false;
+  }
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(lay[0]),
+                              static_cast<cuuint64_t>(lay[1]),
+                              static_cast<cuuint64_t>(lay[2])};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(lay[3]),
+                                 static_cast<cuuint64_t>(lay[4])};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(lay[5]),
+                             static_cast<cuuint32_t>(lay[6]),
+                             static_cast<cuuint32_t>(lay[7])};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the maps of q, k, v and dO and the Attn both kernels take
+bool prepare(Maps* maps, Attn* a, const void* q, const void* k,
+             const void* v, const void* dout, const long long* tma,
+             const void* kvb, long long kvb_bh, const void* bias,
+             long long bias_bh, unsigned seed, unsigned drop_thresh,
+             float drop_inv, int bh, int sq, int sk, int d, int q_start,
+             int k_start, int causal, float scale) {
+  const long long* lq = tma;
+  const long long* lk = tma + kLayoutLen;
+  const long long* lv = tma + 2 * kLayoutLen;
+  const long long* lo = tma + 3 * kLayoutLen;
+  if (!encode(&maps->q, q, lq, d, sq, bh) ||
+      !encode(&maps->k, k, lk, d, sk, bh) ||
+      !encode(&maps->v, v, lv, d, sk, bh) ||
+      !encode(&maps->o, dout, lo, d, sq, bh)) {
+    return false;
+  }
+  *a = make_attn(q, k, v, lq[4] / 2, lq[3] / 2, lk[4] / 2, lk[3] / 2,
+                 lv[4] / 2, lv[3] / 2, kvb, kvb_bh, bias, bias_bh, seed,
+                 drop_thresh, drop_inv, sq, sk, q_start, k_start, causal,
+                 scale);
+  return true;
+}
+
+// dq and dk/dv take (maps, a, lse, delta, one bf16 output, the other
+// output); a launch above 48 KB of shared memory must be allowed first
+template <typename O2>
+cudaError_t launch(void (*kernel)(Maps, Attn, const float*, const float*,
+                                  bf16*, O2),
+                   int bytes, dim3 grid, cudaStream_t st, const Maps& maps,
+                   const Attn& a, const float* lse, const float* delta,
+                   bf16* o1, O2 o2) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreadsBwd, bytes, st>>>(maps, a, lse, delta, o1, o2);
+  return cudaGetLastError();
+}
+
+}  // namespace
+}  // namespace apex_port
+
+// Both entry points: q, k, v, dout bf16 [bh, s, d] whose tensor maps the
+// wrapper describes in tma (4 x 8 long longs, in that order: dims d, s, bh;
+// row and bh strides in bytes, multiples of 16; the box 64, 64, 1), every
+// base 16-byte aligned; lse, delta fp32 [bh, sq] contiguous; kvb null or
+// fp32 [1|bh, sk] with bh stride kvb_bh (0 when shared), its keys
+// contiguous; bias null or fp32 [1|bh, sq, sk] contiguous with bh stride
+// bias_bh (0 when shared); dropout when drop_inv = 1 / (1 - rate) > 0,
+// keeping an element whose hash under seed is >= drop_thresh; `blocks`
+// the grid's row blocks of 128 (queries for dq, keys for dk/dv).
+
+// dq bf16 [bh, sq, d] contiguous; ds null or fp32 [bh, sq, sk] contiguous
+// (the per-bh bias gradient; taken only with a bias or kv_bias or
+// dropout).
+extern "C" int apex_flash_bwd_dq(const void* q, const void* k, const void* v,
+                                 const void* dout, const void* lse,
+                                 const void* delta, void* dq, void* ds,
+                                 const long long* tma, int blocks,
+                                 const void* kvb, long long kvb_bh,
+                                 const void* bias, long long bias_bh,
+                                 unsigned seed, unsigned drop_thresh,
+                                 float drop_inv, int bh, int sq, int sk,
+                                 int d, int q_start, int k_start, int causal,
+                                 float scale, void* stream) {
+  using namespace apex_port;
+  if (bad(bh, sq, sk, d) || blocks != (sq + kRows - 1) / kRows) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Maps maps;
+  Attn a;
+  if (!prepare(&maps, &a, q, k, v, dout, tma, kvb, kvb_bh, bias, bias_bh,
+               seed, drop_thresh, drop_inv, bh, sq, sk, d, q_start, k_start,
+               causal, scale)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (ds != nullptr && a.kvb == nullptr && a.bias == nullptr &&
+      !(a.drop_inv > 0.f)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(blocks, bh);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* lp = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  bf16* out = static_cast<bf16*>(dq);
+  float* dsp = static_cast<float*>(ds);
+  cudaError_t err = cudaSuccess;
+  with_form(d, a, [&](auto dd, auto ex) {
+    constexpr int D = decltype(dd)::value;
+    err = launch(flash_dq_kernel<D, decltype(ex)::value>,
+                 smem_bytes<DqSmem<D>>(), grid, st, maps, a, lp, dl, out,
+                 dsp);
+  });
+  return static_cast<int>(err);
+}
+
+// dk, dv bf16 [bh, sk, d] contiguous.
+extern "C" int apex_flash_bwd_dkv(const void* q, const void* k,
+                                  const void* v, const void* dout,
+                                  const void* lse, const void* delta,
+                                  void* dk, void* dv, const long long* tma,
+                                  int blocks, const void* kvb,
+                                  long long kvb_bh, const void* bias,
+                                  long long bias_bh, unsigned seed,
+                                  unsigned drop_thresh, float drop_inv,
+                                  int bh, int sq, int sk, int d, int q_start,
+                                  int k_start, int causal, float scale,
+                                  void* stream) {
+  using namespace apex_port;
+  if (bad(bh, sq, sk, d) || blocks != (sk + kRows - 1) / kRows) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Maps maps;
+  Attn a;
+  if (!prepare(&maps, &a, q, k, v, dout, tma, kvb, kvb_bh, bias, bias_bh,
+               seed, drop_thresh, drop_inv, bh, sq, sk, d, q_start, k_start,
+               causal, scale)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(blocks, bh);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* lp = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  bf16* kp = static_cast<bf16*>(dk);
+  bf16* vp = static_cast<bf16*>(dv);
+  cudaError_t err = cudaSuccess;
+  with_form(d, a, [&](auto dd, auto ex) {
+    constexpr int D = decltype(dd)::value;
+    err = launch(flash_dkv_kernel<D, decltype(ex)::value>,
+                 smem_bytes<DkvSmem<D>>(), grid, st, maps, a, lp, dl, kp,
+                 vp);
+  });
+  return static_cast<int>(err);
+}

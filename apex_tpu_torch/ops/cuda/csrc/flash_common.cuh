@@ -1,0 +1,158 @@
+// The semantics the flash kernels share (csrc/flash_attn.cu: the forward
+// and the shared-bias gradient; csrc/flash_bwd.cu: dq and dk/dv), kept
+// from the Pallas kernels of
+// apex_tpu/contrib/multihead_attn/flash_attention.py:
+//
+// - fp32 scores, softmax statistics and accumulators, exponentials as
+//   exp2 of scores pre-multiplied by scale * log2(e);
+// - masking by absolute positions (query row i sits at q_start + i, key j
+//   at k_start + j, and with `causal` a query sees the keys at or before
+//   it) and by the true lengths, so a ragged tail (S = 4095, 197) is
+//   masked in the kernel and nothing is padded; tiles that are wholly
+//   masked are skipped (_block_live, :170);
+// - the finite -inf stand-in kNegInf: a row with nothing unmasked gives
+//   o = 0 and lse = kNegInf, and the backward's value guard (:333-334)
+//   gives it p = 0 (exp2(s - lse) would otherwise be exp2(0) = 1 there);
+// - the biases (the EXTRA forms) added to every score before the
+//   exponential, s * scale + bias + kvb as at :206-212 and :324-330, in
+//   log2 units: the per-key kv_bias [1|BH, Sk] (key-padding masks) and
+//   the full bias [1|BH, Sq, Sk], read per element (a bias shared over bh
+//   stays in L2) and transposed where a kernel's rows are keys. Biases are
+//   data, so they never make a tile skippable; a score a bias masks
+//   (-1e30) lies below kNegInf / 2, which the value guard turns into p = 0;
+// - dropout (drop_inv > 0) by the JAX package's stateless coordinate hash
+//   (dropout_bits, :107-126): element (bh, q_start + i, k_start + j) is
+//   kept when its 32-bit hash under the seed is >= drop_thresh
+//   (_drop_threshold, :129-130), bh = b·H + h. The forward sums the
+//   undropped p into l and accumulates the kept p · drop_inv into the
+//   output (:223-231), so lse stays dropout-free; the backward recomputes
+//   the same mask and applies it to p for dv and to dP, and dS = p · (dP'
+//   - delta) with the undropped p (_recompute_p_ds, :309-346). delta =
+//   rowsum(dO * O) - dlse comes from the caller, as the JAX wrapper
+//   computes it outside Pallas (:474-479).
+#pragma once
+
+#include <type_traits>
+
+#include "common.cuh"
+
+namespace apex_port {
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+struct Attn {
+  const bf16* q;
+  const bf16* k;
+  const bf16* v;
+  const float* kvb;                            // [1|BH, Sk] or null
+  const float* bias;                           // [1|BH, Sq, Sk] or null
+  long long q_bh, q_s, k_bh, k_s, v_bh, v_s;   // strides, elements
+  long long kvb_bh, bias_bh;                   // 0 when shared over bh
+  int sq, sk, q_start, k_start, causal;
+  float scale;
+  uint32_t seed, drop_thresh;                  // dropout's hash and bar
+  float drop_inv;                              // 1 / (1 - rate); 0: none
+};
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);   // .x in the low half
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// the full bias of (query qi, key kj), both local and in range, in log2
+// units; 0 without one
+__device__ __forceinline__ float bias_at(const Attn& a, int bh, int qi,
+                                         int kj) {
+  return a.bias != nullptr
+             ? a.bias[bh * a.bias_bh + (long long)qi * a.sk + kj] * kLog2e
+             : 0.f;
+}
+
+// the JAX package's dropout_bits (flash_attention.py:107-126) in uint32
+// arithmetic: keep (bh, query qi, key kj) when its hash >= drop_thresh
+__device__ __forceinline__ bool keep(const Attn& a, int bh, int qi, int kj) {
+  uint32_t x = static_cast<uint32_t>(a.q_start + qi) * 0x9E3779B1u +
+               static_cast<uint32_t>(a.k_start + kj) * 0x85EBCA77u +
+               static_cast<uint32_t>(bh) * 0xC2B2AE3Du +
+               a.seed * 0x27D4EB2Fu;
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  x ^= x >> 16;
+  return x >= a.drop_thresh;
+}
+
+// whether query row qi (local) may see key kj (local)
+__device__ __forceinline__ bool visible(const Attn& a, int qi, int kj) {
+  return qi < a.sq && kj < a.sk &&
+         (!a.causal || a.q_start + qi >= a.k_start + kj);
+}
+
+// whether every query of [q0, q0 + nq) sees every key of [k0, k0 + nk):
+// such tiles (all but the diagonal and the ragged edges) skip the
+// per-element mask
+__device__ __forceinline__ bool all_visible(const Attn& a, int q0, int nq,
+                                            int k0, int nk) {
+  return q0 + nq <= a.sq && k0 + nk <= a.sk &&
+         (!a.causal || a.q_start + q0 >= a.k_start + k0 + nk - 1);
+}
+
+Attn make_attn(const void* q, const void* k, const void* v, long long q_bh,
+               long long q_s, long long k_bh, long long k_s, long long v_bh,
+               long long v_s, const void* kvb, long long kvb_bh,
+               const void* bias, long long bias_bh, unsigned seed,
+               unsigned drop_thresh, float drop_inv, int sq, int sk,
+               int q_start, int k_start, int causal, float scale) {
+  Attn a;
+  a.q = static_cast<const bf16*>(q);
+  a.k = static_cast<const bf16*>(k);
+  a.v = static_cast<const bf16*>(v);
+  a.kvb = static_cast<const float*>(kvb);
+  a.bias = static_cast<const float*>(bias);
+  a.kvb_bh = kvb_bh;
+  a.bias_bh = bias_bh;
+  a.q_bh = q_bh;
+  a.q_s = q_s;
+  a.k_bh = k_bh;
+  a.k_s = k_s;
+  a.v_bh = v_bh;
+  a.v_s = v_s;
+  a.sq = sq;
+  a.sk = sk;
+  a.q_start = q_start;
+  a.k_start = k_start;
+  a.causal = causal;
+  a.scale = scale;
+  a.seed = seed;
+  a.drop_thresh = drop_thresh;
+  a.drop_inv = drop_inv;
+  return a;
+}
+
+bool bad(int bh, int sq, int sk, int d) {
+  return bh < 1 || bh > 65535 || sq < 1 || sk < 1 || (d != 64 && d != 128);
+}
+
+// calls f(D, EXTRA) with both as compile-time constants: the head dim (64
+// or 128) and whether any bias or dropout is given
+template <typename F>
+void with_form(int d, const Attn& a, F&& f) {
+  using std::integral_constant;
+  const bool extra = a.kvb != nullptr || a.bias != nullptr ||
+                     a.drop_inv > 0.f;
+  if (d == 64) {
+    if (extra) f(integral_constant<int, 64>{}, integral_constant<bool, true>{});
+    else f(integral_constant<int, 64>{}, integral_constant<bool, false>{});
+  } else {
+    if (extra) f(integral_constant<int, 128>{}, integral_constant<bool, true>{});
+    else f(integral_constant<int, 128>{}, integral_constant<bool, false>{});
+  }
+}
+
+}  // namespace
+}  // namespace apex_port

@@ -3,7 +3,8 @@ PyTorch versions.
 
 Counterpart of the Pallas kernels in
 ``apex_tpu/contrib/multihead_attn/flash_attention.py`` (the kernels are
-``ops/cuda/csrc/flash_attn.cu``):
+``ops/cuda/csrc/flash_attn.cu``, the forward and the shared-bias gradient,
+and ``ops/cuda/csrc/flash_bwd.cu``, dq and dk/dv):
 
 - :func:`flash_fwd` replaces ``_flash_fwd`` → ``_fwd_kernel`` (:181): the
   output and the per-row logsumexp; its plain version is
@@ -45,12 +46,16 @@ the card it launches its kernel, which takes bf16 and a head dim of 64 or
 128 and raises on anything else. The kernels read q, k, v and dO through
 their strides (the last dim contiguous, every stride a multiple of 8
 elements, the base 16-byte aligned); a view that is not so is copied once
-to a contiguous tensor. The biases are cast once to contiguous fp32. Each
-wrapper counts its launches in ``.launches``.
+to a contiguous tensor. dq and dk/dv copy their tiles by TMA: the wrappers
+describe each tensor's map (:func:`tma_layout`: dims, byte strides, the
+box) and the grid's row blocks (:func:`bwd_blocks`). The biases are cast
+once to contiguous fp32. Each wrapper counts its launches in
+``.launches``.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -61,12 +66,20 @@ from apex_tpu_torch.ops import dispatch
 __all__ = ["NEG_INF", "KERNEL_HEAD_DIMS", "dropout_bits", "drop_threshold",
            "reference_attention", "flash_fwd", "flash_delta",
            "flash_bwd_plain", "flash_bwd_dq", "flash_bwd_dkv",
-           "flash_bwd_dbias", "flash_bwd_dbias_plain"]
+           "flash_bwd_dbias", "flash_bwd_dbias_plain", "BWD_ROWS",
+           "TMA_BOX", "tma_layout", "bwd_blocks"]
 
 # finite -inf stand-in: exp(NEG_INF - m) is exactly 0.0 in fp32, so a fully
 # masked row yields zeros instead of NaN
 NEG_INF = -1.0e30
 KERNEL_HEAD_DIMS = (64, 128)
+
+# the backward kernels' tiling (csrc/flash_bwd.cu): a block owns BWD_ROWS
+# rows (queries in dq, keys in dk/dv) and TMA copies the tensors in boxes
+# of TMA_BOX elements, innermost first: 64 of the head dim (128 bytes, the
+# span of the tiles' swizzle), 64 rows, one bh
+BWD_ROWS = 128
+TMA_BOX = (64, 64, 1)
 
 _M32 = 0xFFFFFFFF
 
@@ -285,11 +298,45 @@ def _check(what: str, *ts):
 
 def _readable(t: torch.Tensor) -> torch.Tensor:
     """``t`` when the kernel can read it through its strides, else one
-    contiguous copy."""
+    contiguous copy (a fresh one: a contiguous view at a misaligned base
+    is its own ``contiguous()``)."""
     if t.stride(-1) == 1 and t.stride(0) % 8 == 0 and t.stride(1) % 8 == 0 \
             and t.data_ptr() % 16 == 0:
         return t
-    return t.contiguous()
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def _tma_readable(t: torch.Tensor) -> torch.Tensor:
+    """:func:`_readable` for the TMA copies of dq and dk/dv, which also
+    copy a broadcast view (a stride of 0 over more than one element)."""
+    t = _readable(t)
+    if any(t.stride(i) == 0 and t.shape[i] > 1 for i in (0, 1)):
+        return t.contiguous()
+    return t
+
+
+def tma_layout(t: torch.Tensor) -> tuple:
+    """The tensor map the backward kernels copy a [BH, S, D] bf16 tensor
+    by: its dims innermost first (D, S, BH), its row and bh strides in
+    bytes, and the box (:data:`TMA_BOX`). A dim of size 1 takes the stride
+    of the tensor's packed layout (its own is arbitrary and never used)."""
+    bh, s, d = t.shape
+    es = t.element_size()
+    row = t.stride(1) if s > 1 else d
+    bhs = t.stride(0) if bh > 1 else s * row
+    return (d, s, bh, row * es, bhs * es) + TMA_BOX
+
+
+def bwd_blocks(rows: int) -> int:
+    """The backward grid's blocks along the rows a block owns (``rows``:
+    Sq for dq, Sk for dk/dv)."""
+    return -(-rows // BWD_ROWS)
+
+
+def _tma_maps(*ts):
+    """The tensor maps of q, k, v and dO, one C array of 4 x 8 ints."""
+    vals = [x for t in ts for x in tma_layout(t)]
+    return (ctypes.c_longlong * len(vals))(*vals)
 
 
 def _kv_bias(what: str, kv_bias, bh: int, sk: int, device):
@@ -382,7 +429,7 @@ flash_fwd.launches = 0
 def _bwd_args(what, q, k, v, do, lse, delta):
     _check(what, q, k, v, do)
     bh, sq, _ = q.shape
-    q, k, v, do = (_readable(t) for t in (q, k, v, do))
+    q, k, v, do = (_tma_readable(t) for t in (q, k, v, do))
     lse = _row_stats(f"{what} lse", lse, bh, sq, q.device)
     delta = _row_stats(f"{what} delta", delta, bh, sq, q.device)
     return q, k, v, do, lse, delta
@@ -417,8 +464,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool, scale: float,
     err = _cuda.lib().apex_flash_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        None if ds is None else ds.data_ptr(), *_strides(q, k, v, do),
-        *tail)
+        None if ds is None else ds.data_ptr(), _tma_maps(q, k, v, do),
+        bwd_blocks(q.shape[1]), *tail)
     _cuda.check(err, "flash_bwd_dq")
     flash_bwd_dq.launches += 1
     return (dq, ds) if return_ds else dq
@@ -447,7 +494,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool, scale: float,
     err = _cuda.lib().apex_flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        *_strides(q, k, v, do), *tail)
+        _tma_maps(q, k, v, do), bwd_blocks(k.shape[1]), *tail)
     _cuda.check(err, "flash_bwd_dkv")
     flash_bwd_dkv.launches += 1
     return dk, dv

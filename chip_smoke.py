@@ -18,7 +18,10 @@ LayerNorm (lm_bench's LM at GPT-3 175B's width) and ``bn_backward_reduce``:
 0. device — needs CUDA; prints the card's ``nvidia-smi`` name and power
    limit (also as a raw line of its own) and the torch / CUDA versions.
 1. build — compiles the hand kernels from ``apex_tpu_torch/ops/cuda/csrc``
-   with ``nvcc`` for ``sm_90a`` (all sources at once) and loads them.
+   with ``nvcc`` for ``sm_90a`` (all sources at once) and loads them;
+   prints every kernel's registers and spills (``ptxas``) and, apart, the
+   flash backward's Hopper kernels (``flash_bwd_ptxas``), which must not
+   spill.
 2. kernels — each kernel against its plain PyTorch version on the card,
    at its path's shapes: max abs error against the stated tolerance, the
    kernel's time, the plain version's, one PyTorch library call's where
@@ -40,7 +43,12 @@ LayerNorm (lm_bench's LM at GPT-3 175B's width) and ``bn_backward_reduce``:
    64] bf16, causal (held against the plain versions on the first 8
    heads, element by element: o, dq, dk and dv within 2 bf16 ulps plus
    2^-6 of the row's RMS over D, lse within 1e-3; and the rule must
-   refuse the plain result with its later half 5% off); the ImageNet
+   refuse the plain result with its later half 5% off; dq, dk and dv each
+   repeated bit for bit), the whole backward (``flash_bwd``:
+   ``flash_delta``, dq and dk/dv in one timed call, its bound over five
+   products and its bytes, SDPA's backward beside it), and dq, dk/dv and
+   the whole backward again at the wide LM's [384, 2048, 128] (reading
+   ``wide``, SDPA's backward beside them); the ImageNet
    step's optimizer kernels over RN50's flat fp32 buffer: ``rowsumsq``
    (within 1e-5 relative of the plain version; beside it the whole
    per-tensor L2 norm and ``torch._foreach_norm`` over the 161 tensors),
@@ -258,7 +266,9 @@ LayerNorm (lm_bench's LM at GPT-3 175B's width) and ``bn_backward_reduce``:
     65 heads of 128, vocab 512, S 128, batch 2) under phase 10's
     ``adam_crosscheck``, its kernel runs through the wide LayerNorm
     kernels only.
-26. the ``{"kernels": [...]}`` line (27 kernels), then the ``ok`` line.
+26. the ``{"kernels": [...]}`` line (27 kernels; dq's and dk/dv's
+    entries also carry their ``wide`` reading and the whole backward's,
+    ``backward``, at both shapes), then the ``ok`` line.
 
 Times are CUDA-event medians of single calls with the L2 cache flushed
 before each and the stream held busy, so host launch time is not counted.
@@ -1027,9 +1037,7 @@ def lm_kernel_phase(torch, timer, total: int) -> dict:
         off = torch.where(late, b0.float() * 1.05, b0.float())
         check(flash_err(torch, off, b0)["used"] > 1.0,
               f"flash {what}: the limit passes a result 5% off")
-    rep = bool(torch.equal(FA.flash_bwd_dkv(q, k, v, do, lse, delta,
-                                            **kw)[0], dk))
-    check(rep, "flash_bwd_dkv: two runs on the same inputs differ")
+    rep = flash_repeats(torch, (q, k, v, do, lse, delta), kw, (dq, dk, dv))
     del o0, lse0, dq0, dk0, dv0, late, off
     group = 16
 
@@ -1068,7 +1076,7 @@ def lm_kernel_phase(torch, timer, total: int) -> dict:
     b_ms, b_by = bound(5 * sz + 8 * BH * S, 6 * D * pairs, BF16_DENSE_OPS_S)
     dqr = dict(kernel="flash_bwd_dq", **common,
                max_abs_err=errs["dq"]["max_abs_err"],
-               tol_used=errs["dq"]["used"], tol=tol,
+               tol_used=errs["dq"]["used"], tol=tol, repeat_equal=rep["dq"],
                ms=timer(lambda: FA.flash_bwd_dq(q, k, v, do, lse, delta,
                                                 **kw)),
                plain_ms=plain_bwd_ms, library_ms=lib_bwd,
@@ -1079,7 +1087,7 @@ def lm_kernel_phase(torch, timer, total: int) -> dict:
                 max_abs_err=max(errs["dk"]["max_abs_err"],
                                 errs["dv"]["max_abs_err"]),
                 tol_used=max(errs["dk"]["used"], errs["dv"]["used"]),
-                tol=tol, repeat_equal=rep,
+                tol=tol, repeat_equal=rep["dk"] and rep["dv"],
                 ms=timer(lambda: FA.flash_bwd_dkv(q, k, v, do, lse, delta,
                                                   **kw)),
                 plain_ms=plain_bwd_ms, library_ms=lib_bwd,
@@ -1087,9 +1095,131 @@ def lm_kernel_phase(torch, timer, total: int) -> dict:
                 bound_ms=b_ms, bound_by=b_by)
     dqr["plain_covers"] = dkvr["plain_covers"] = \
         "dq, dk and dv (one flash_bwd_plain)"
-    for r in (fwd, dqr, dkvr):
+    whole = flash_bwd_row(torch, timer, (q, k, v, o, do, lse), kw, errs,
+                          rep, lib_bwd, pairs, common)
+    for r in (fwd, dqr, dkvr, whole):
         emit({"phase": "kernels", **r})
         rows[(r["kernel"], "bfloat16")] = r
+    rows.update(wide_flash_phase(torch, timer))
+    return rows
+
+
+def flash_repeats(torch, args, kw, outs) -> dict:
+    """dq, dk and dv of a second run on the same inputs, each bit for bit
+    against the first: a block owns its output rows, no float atomics."""
+    from apex_tpu_torch.ops import flash_attn as FA
+    again = (FA.flash_bwd_dq(*args, **kw), *FA.flash_bwd_dkv(*args, **kw))
+    rep = {w: bool(torch.equal(a, b))
+           for w, a, b in zip(("dq", "dk", "dv"), again, outs)}
+    check(all(rep.values()),
+          f"flash backward: two runs on the same inputs differ: {rep}")
+    return rep
+
+
+def flash_bwd_row(torch, timer, tensors, kw, errs, rep, lib_bwd,
+                  pairs: int, common: dict) -> dict:
+    """The whole backward as the autograd Function runs it, one timed
+    call: ``flash_delta``, dq and dk/dv (the plain version: ``flash_delta``
+    and ``flash_bwd_plain``), beside SDPA's backward; its bound is the
+    backward's own least work, five products (10·D·pairs operations) and
+    its bytes (q, k, v, o, dO and lse read once; dq, dk, dv written)."""
+    from apex_tpu_torch.ops import flash_attn as FA
+    q, k, v, o, do, lse = tensors
+    bh, s, d = q.shape
+
+    def run(dq_fn, dkv_fn):
+        delta = FA.flash_delta(o, do)
+        dq_fn(q, k, v, do, lse, delta, **kw)
+        dkv_fn(q, k, v, do, lse, delta, **kw)
+
+    sz = bh * s * d * 2
+    b_ms, b_by = bound(8 * sz + 4 * bh * s, 10 * d * pairs,
+                       BF16_DENSE_OPS_S)
+    return dict(common, kernel="flash_bwd",
+                kernels="flash_delta + flash_bwd_dq + flash_bwd_dkv",
+                max_abs_err=max(errs[w]["max_abs_err"]
+                                for w in ("dq", "dk", "dv")),
+                tol_used=max(errs[w]["used"] for w in ("dq", "dk", "dv")),
+                repeat_equal=all(rep.values()),
+                ms=timer(lambda: run(FA.flash_bwd_dq, FA.flash_bwd_dkv)),
+                plain_ms=timer(lambda: FA.flash_bwd_plain(
+                    q, k, v, do, lse, FA.flash_delta(o, do), **kw)),
+                plain_covers="flash_delta + flash_bwd_plain",
+                library_ms=lib_bwd,
+                library_covers="dq, dk and dv (one SDPA backward)",
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def wide_flash_phase(torch, timer) -> dict:
+    """The flash backward at the wide LM's attention, [B·H, S, 128] bf16
+    causal (``WIDE_SHAPE``: 4 × 96 heads, S 2048): dq, dk/dv and the whole
+    backward against the plain versions on the first heads (the flash
+    rule), each output repeated bit for bit, with their bounds, the plain
+    versions' times and SDPA's backward."""
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.ops import flash_attn as FA
+
+    c = WIDE_SHAPE
+    B, H, S = c["batch"], c["heads"], c["seq"]
+    D = c["embed"] // H
+    BH, n = B * H, FLASH_CHECK_HEADS
+    kw = dict(causal=True, scale=D ** -0.5)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    q, k, v, do = (torch.randn(BH, S, D, generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in range(4))
+    o, lse = FA.flash_fwd(q, k, v, **kw)
+    delta = FA.flash_delta(o, do)
+    dq = FA.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = FA.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    want = FA.flash_bwd_plain(q[:n], k[:n], v[:n], do[:n], lse[:n],
+                              delta[:n], **kw)
+    torch.cuda.synchronize()
+    errs = {w: flash_err(torch, a[:n], b0)
+            for w, a, b0 in zip(("dq", "dk", "dv"), (dq, dk, dv), want)}
+    emit({"phase": "flash_tol", "shape": [BH, S, D], "reading": "wide",
+          **errs})
+    for w, e in errs.items():
+        check(e["used"] <= 1.0, f"flash {w} at {[BH, S, D]}: {e}")
+    args = (q, k, v, do, lse, delta)
+    rep = flash_repeats(torch, args, kw, (dq, dk, dv))
+    del want
+    q4, k4, v4, do4 = (t.view(B, H, S, D) for t in (q, k, v, do))
+    ql, kl, vl = (t.detach().clone().requires_grad_(True)
+                  for t in (q4, k4, v4))
+    lo = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+    lib_bwd = timer(lambda: torch.autograd.grad(lo, (ql, kl, vl), do4,
+                                                retain_graph=True))
+    del lo, ql, kl, vl
+    plain_ms = timer(lambda: FA.flash_bwd_plain(*args, **kw))
+    pairs = BH * S * (S + 1) // 2
+    sz = BH * S * D * 2
+    common = dict(dtype="bfloat16", shape=[BH, S, D], causal=True,
+                  per_step=WIDE_PER_STEP["flash_bwd_dq"], checked_heads=n,
+                  plain_covers="dq, dk and dv (one flash_bwd_plain)",
+                  library_covers="dq, dk and dv (one SDPA backward)")
+    dq_b = bound(5 * sz + 8 * BH * S, 6 * D * pairs, BF16_DENSE_OPS_S)
+    dkv_b = bound(6 * sz + 8 * BH * S, 8 * D * pairs, BF16_DENSE_OPS_S)
+    rows = {}
+    for r in (
+            dict(common, kernel="flash_bwd_dq",
+                 max_abs_err=errs["dq"]["max_abs_err"],
+                 tol_used=errs["dq"]["used"], repeat_equal=rep["dq"],
+                 ms=timer(lambda: FA.flash_bwd_dq(*args, **kw)),
+                 plain_ms=plain_ms, library_ms=lib_bwd, bound_ms=dq_b[0],
+                 bound_by=dq_b[1]),
+            dict(common, kernel="flash_bwd_dkv",
+                 max_abs_err=max(errs["dk"]["max_abs_err"],
+                                 errs["dv"]["max_abs_err"]),
+                 tol_used=max(errs["dk"]["used"], errs["dv"]["used"]),
+                 repeat_equal=rep["dk"] and rep["dv"],
+                 ms=timer(lambda: FA.flash_bwd_dkv(*args, **kw)),
+                 plain_ms=plain_ms, library_ms=lib_bwd, bound_ms=dkv_b[0],
+                 bound_by=dkv_b[1]),
+            flash_bwd_row(torch, timer, (q, k, v, o, do, lse), kw, errs,
+                          rep, lib_bwd, pairs, common)):
+        emit({"phase": "kernels", "reading": "wide", **r})
+        rows[(r["kernel"], "wide")] = r
     return rows
 
 
@@ -3736,9 +3866,16 @@ def main() -> int:
     # 1. build
     t0 = time.perf_counter()
     kcuda.lib()
+    ptxas = ptxas_table(kcuda.build_log)
+    # the flash backward's Hopper kernels: registers at entry (setmaxnreg
+    # gives the consumers more) and spills, which must be none
+    flash_bwd = {n: e for n, e in ptxas.items()
+                 if "flash_dq_kernel" in n or "flash_dkv_kernel" in n}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "compiled": kcuda.build_seconds is not None,
-          "ptxas": ptxas_table(kcuda.build_log)})
+          "compiled": kcuda.build_seconds is not None, "ptxas": ptxas,
+          "flash_bwd_ptxas": flash_bwd})
+    check(all(e.get("spill_bytes", 0) == 0 for e in flash_bwd.values()),
+          f"the flash backward kernels spill: {flash_bwd}")
 
     # 2. kernels against their plain versions; the training kernels over
     # the RN50 master store's layout
@@ -3907,10 +4044,10 @@ def main() -> int:
         "flash_fwd": ("apex_tpu_torch/ops/cuda/csrc/flash_attn.cu",
                       "apex_tpu/contrib/multihead_attn/flash_attention.py"
                       ":181"),
-        "flash_bwd_dq": ("apex_tpu_torch/ops/cuda/csrc/flash_attn.cu",
+        "flash_bwd_dq": ("apex_tpu_torch/ops/cuda/csrc/flash_bwd.cu",
                          "apex_tpu/contrib/multihead_attn/"
                          "flash_attention.py:349"),
-        "flash_bwd_dkv": ("apex_tpu_torch/ops/cuda/csrc/flash_attn.cu",
+        "flash_bwd_dkv": ("apex_tpu_torch/ops/cuda/csrc/flash_bwd.cu",
                           "apex_tpu/contrib/multihead_attn/"
                           "flash_attention.py:392"),
         "rowsumsq": ("apex_tpu_torch/ops/cuda/csrc/multi_tensor.cu",
@@ -4005,6 +4142,13 @@ def main() -> int:
                     k: rows[(name, "vit", reading)][k] for k in sub[1:]}}
                 for nb, reading in (("shared", "bias"),
                                     ("per_bh", "bias_bh"))}
+        if name in ("flash_bwd_dq", "flash_bwd_dkv"):
+            # at the wide LM's [384, 2048, 128]; and the whole backward
+            # (flash_delta, dq and dk/dv in one timed call) at both shapes
+            entry["wide"] = {k: rows[(name, "wide")][k] for k in sub}
+            entry["backward"] = {
+                shape: {k: rows[("flash_bwd", key)][k] for k in sub}
+                for shape, key in (("lm", "bfloat16"), ("wide", "wide"))}
         if name == "flash_bwd_dbias":
             entry["causal"] = {k: rows[(name, "causal")][k] for k in sub}
         if name in also_replaces:

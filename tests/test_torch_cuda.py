@@ -426,7 +426,13 @@ def _flash_close(got, want):
 @pytest.mark.parametrize("bh,sq,sk,d,causal,q_start", [
     (3, 40, 40, 64, True, 0), (2, 257, 257, 128, True, 0),
     (2, 257, 300, 64, False, 0), (2, 33, 100, 64, True, 67),
-    (2, 130, 100, 128, True, -50), (1, 1, 1, 64, False, 0)])
+    (2, 130, 100, 128, True, -50), (1, 1, 1, 64, False, 0),
+    # the edges of the backward's tiles: blocks of 128 rows, staged tiles
+    # of 64, rounds of 32 queries in dk/dv at head dim 128
+    (2, 127, 127, 64, True, 0), (2, 128, 128, 128, True, 0),
+    (2, 129, 129, 64, False, 0), (1, 255, 256, 128, False, 0),
+    (1, 256, 255, 64, True, 0), (2, 129, 255, 128, True, 0),
+    (3, 200, 129, 128, True, -30), (2, 127, 256, 128, True, -1)])
 def test_flash_kernels_match_plain(card, bh, sq, sk, d, causal, q_start):
     from apex_tpu_torch.ops import flash_attn as FA
     g = torch.Generator(device=card).manual_seed(sq + sk)
@@ -454,6 +460,44 @@ def test_flash_kernels_match_plain(card, bh, sq, sk, d, causal, q_start):
     # each block owns its output rows: bitwise repeatable
     assert torch.equal(FA.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)[0],
                        dk)
+    _repeats(FA, (q, k, v, do, lse, delta), kw, (dq, dk, dv))
+
+
+def _repeats(FA, args, kw, outs, return_ds=False):
+    """dq (and dS), dk and dv of a second run, bit for bit the first's."""
+    out = FA.flash_bwd_dq(*args, return_ds=return_ds, **kw)
+    again = (*(out if return_ds else (out,)), *FA.flash_bwd_dkv(*args, **kw))
+    assert len(again) == len(outs)
+    for a, b in zip(again, outs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("sq,sk", [(129, 129), (200, 257)])
+def test_flash_backward_reads_strided_views_at_d128(card, sq, sk):
+    """The backward's TMA maps read the time-major split's [BH, S, 128]
+    views (strides (D, B·H·D, 1)) in place: the same bits as from
+    contiguous copies."""
+    from apex_tpu_torch.ops import flash_attn as FA
+    g = torch.Generator(device=card).manual_seed(sq)
+    bh, d = 4, 128
+
+    def view(s):
+        x = torch.randn(s, bh, d, generator=g, device=card).to(
+            torch.bfloat16)
+        return x.transpose(0, 1)
+
+    q, do, k, v = view(sq), view(sq), view(sk), view(sk)
+    assert not q.is_contiguous() and FA._tma_readable(q) is q
+    kw = dict(causal=True, scale=d ** -0.5, q_start=sk - sq)
+    qc, kc, vc, doc = (t.contiguous() for t in (q, k, v, do))
+    o, lse = FA.flash_fwd(qc, kc, vc, **kw)
+    delta = FA.flash_delta(o, doc)
+    got = (FA.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+           *FA.flash_bwd_dkv(q, k, v, do, lse, delta, **kw))
+    want = (FA.flash_bwd_dq(qc, kc, vc, doc, lse, delta, **kw),
+            *FA.flash_bwd_dkv(qc, kc, vc, doc, lse, delta, **kw))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 def test_flash_reads_strided_views(card):
@@ -512,6 +556,13 @@ EXTRA_CASES = [
     (3, 130, 100, 128, True, -50, 0, "shared", True, 0.1),
     (4, 257, 300, 64, True, 40, 3, "per_bh", True, 0.25),
     (2, 64, 64, 64, True, 0, 0, "shared", False, 0.0),
+    # the backward's tile edges (128-row blocks, 64-row tiles, 32-query
+    # rounds at head dim 128) in every form
+    (2, 127, 129, 64, True, 0, 0, "per_bh", True, 0.1),
+    (2, 256, 255, 128, False, 0, 0, "shared", True, 0.2),
+    (2, 129, 128, 128, True, -20, 0, None, True, 0.1),
+    (2, 255, 256, 64, True, 0, 1, "per_bh", False, 0.0),
+    (1, 128, 200, 128, True, 72, 0, "per_bh", True, 0.1),
 ]
 
 
@@ -563,6 +614,8 @@ def test_flash_bias_and_dropout_kernels_match_plain(card, bh, sq, sk, d,
         _flash_close(a, b)
     if per_bh:
         _flash_close(ds, ds0)
+    _repeats(FA, (q, k, v, do, lse, delta), kw,
+             (dq, ds, dk, dv) if per_bh else (dq, dk, dv), per_bh)
     if bias == "shared":
         db = FA.flash_bwd_dbias(q, k, v, do, lse, delta, **kw)
         assert db.shape == (1, sq, sk) and db.dtype == torch.float32

@@ -7,8 +7,9 @@ chunked ``flash_bwd_plain`` for dq/dk/dv); the JAX package's
 (flash_attention.py:76-77), forward and backward. Both get the same numpy
 inputs in f32: o and lse, then dq/dk/dv through ``jax.vjp`` against torch
 autograd with cotangents for both outputs (a nonzero dlse, which folds
-into the backward's per-row delta). Causal and not, ragged lengths, head
-dims 64 and 128, query offsets that leave rows with nothing to see; and
+into the backward's per-row delta). Causal and not, ragged lengths (the edges of the backward kernels'
+tiles: 127, 128, 129, 255, 256), head dims 64 and 128, query offsets that
+leave rows with nothing to see; and
 a per-key ``kv_bias`` (key-padding masks of -1e30 plus small finite
 values), shared [1, Sk] or per bh [BH, Sk], causal and not, Sq != Sk, with
 one bh whose every key is masked (JAX gives o = 0, lse = NEG_INF and no
@@ -47,6 +48,14 @@ CASES = [
     (2, 40, 40, 128, False, 0),
     (2, 33, 100, 64, True, 67),      # a chunk at the end of a longer cache
     (2, 40, 40, 64, True, -5),       # the first five rows see nothing
+    # the edges of the backward kernels' tiles (blocks of 128 rows, staged
+    # tiles of 64, rounds of 32 at head dim 128): the oracle of the card
+    # tests at the same shapes
+    (2, 127, 127, 64, True, 0),
+    (1, 128, 128, 128, True, 0),
+    (2, 129, 255, 64, False, 0),
+    (1, 255, 129, 128, True, -30),   # Sq != Sk, rows that see nothing
+    (1, 256, 256, 64, True, 0),
 ]
 
 
@@ -95,6 +104,10 @@ KVB_CASES = [
     (4, 33, 70, 64, False, False),     # cross-attention: Sq != Sk
     (2, 65, 65, 128, False, True),     # one bias row for every bh
     (4, 29, 28, 64, False, False),     # the seq2seq shape, cut down
+    # the backward kernels' tile edges, as in CASES
+    (2, 127, 128, 64, True, False),
+    (2, 129, 256, 128, False, True),
+    (2, 255, 129, 64, False, False),
 ]
 
 
