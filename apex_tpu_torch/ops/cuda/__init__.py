@@ -164,10 +164,10 @@ def _declare(so: ctypes.CDLL) -> None:
     # and 1 / (1 - rate); bh, sq, sk, d, q_start, k_start, causal; scale
     U = ctypes.c_uint32
     tail = [P, L, P, L, U, U, F] + [I] * 7 + [F, P]
-    so.apex_flash_fwd.argtypes = [P] * 5 + [L] * 6 + tail
+    # the forward, dq and dk/dv: the tensor maps of q, k, v (and dO), 8
+    # long longs each, and the grid's row blocks in place of the strides
+    so.apex_flash_fwd.argtypes = [P] * 5 + [P, I] + tail
     so.apex_flash_fwd.restype = I
-    # dq and dk/dv: the tensor maps of q, k, v, dO (4 x 8 long longs) and
-    # the grid's row blocks in place of the strides
     so.apex_flash_bwd_dq.argtypes = [P] * 8 + [P, I] + tail
     so.apex_flash_bwd_dq.restype = I
     so.apex_flash_bwd_dkv.argtypes = [P] * 8 + [P, I] + tail

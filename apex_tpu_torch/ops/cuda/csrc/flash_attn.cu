@@ -1,47 +1,30 @@
-// Flash attention over [BH, S, D] bf16 (D 64 or 128): the forward with its
-// per-row logsumexp, and the gradient of a bias shared over bh. The
-// backward's dq and dk/dv kernels are csrc/flash_bwd.cu; the semantics all
-// of them keep from the Pallas kernels are csrc/flash_common.cuh.
+// Flash attention's shared-bias gradient over [BH, S, D] bf16 (D 64 or
+// 128): dbias = dS summed over bh, for a bias [1, Sq, Sk] shared over bh.
+// The forward is csrc/flash_fwd.cu, dq and dk/dv csrc/flash_bwd.cu; the
+// semantics all of them keep from the Pallas kernels are
+// csrc/flash_common.cuh.
 //
-// Replaces the Pallas kernels of
-// apex_tpu/contrib/multihead_attn/flash_attention.py: _flash_fwd ->
-// _fwd_kernel (:181) and _bwd_pallas -> _bwd_dbias_kernel (:427), with
-// every input the JAX kernels take: the full additive bias [1|BH, Sq, Sk]
-// fp32, the per-key bias kv_bias [1|BH, Sk] fp32 (key-padding masks) and
-// dropout on the probabilities.
+// Replaces the Pallas kernel of
+// apex_tpu/contrib/multihead_attn/flash_attention.py: _bwd_pallas ->
+// _bwd_dbias_kernel (:427), with every input it takes: the bias itself,
+// kv_bias [1|BH, Sk] fp32 and dropout.
 //
-// The kv_bias tile of a block's kTile keys is staged in shared memory
-// beside K; the full bias is read per element from global memory, guarded
-// past Sq and Sk.
-//
-// Bound on this card: operations. At the LM's shape (BH = 128, S = 4095,
-// D = 64, causal) the forward's QK^T and PV are 4 * BH * S^2 * D / 2
-// = 275 GFLOP against ~2 * 3 * 67 MB of q, k, v, o: ~4000 operations per
-// byte, far above the H100's 295, so the bound is the bf16 tensor cores'
-// 989 TFLOP/s (0.28 ms).
-// What the design does about it: QK^T and PV run on the tensor cores as
-// hand-written mma.sync.m16n8k16 bf16 products with fp32 accumulators; a
-// block of four warps owns 64 rows (16 a warp) and stages 64-row tiles of
-// the other operands in shared memory (rows padded by 8 elements, so the
-// eight 16-byte rows an ldmatrix reads fall in distinct banks); the B
-// fragments come from ldmatrix (transposing for the second product); the
-// score tile's accumulator layout is reused as the A operand of the
-// second product (the probabilities never leave registers); the online
-// softmax works in log2 units and reduces a row across the four lanes
-// that hold it with two shuffles; only tiles on the diagonal or a ragged
-// edge apply the per-element mask. Each kernel is built for a number of
-// resident blocks (kFwdBlocks, kDbBlocks). This is still the simple form:
-// no TMA, wgmma or warp specialisation, one tile in flight. The bias,
-// kv_bias and dropout are runtime inputs of one EXTRA form per head dim,
-// so the plain form (the LM's causal attention) is compiled without them.
-//
-// The shared-bias gradient (dbias, :427) sums dS over bh for each (query,
-// key). The Pallas kernel walks bh innermost with the sum in VMEM; here a
-// block owns one 64 x 64 (query, key) tile and a contiguous run of bh
-// (the grid's z), recomputing P and dP per bh as dq does and summing dS
-// in registers in bh order; a second pass adds the runs' partial tiles in
-// run order. No float atomics: repeated runs are bitwise equal. The runs
-// fill the card when there are few tiles (S = 197 has 4 x 4 of them).
+// Bound on this card: bytes at the ViT's [1536, 197, 64] (q, k, v, dO and
+// the bias read once, dbias written: ~0.047 ms), the recompute's two
+// products per (query, key) and bh below it. The Pallas kernel walks bh
+// innermost with the sum in VMEM; here a block owns one 64 x 64 (query,
+// key) tile and a contiguous run of bh (the grid's z), recomputing P and
+// dP per bh as dq does and summing dS in registers in bh order; a second
+// pass adds the runs' partial tiles in run order. No float atomics:
+// repeated runs are bitwise equal. The runs fill the card when there are
+// few tiles (S = 197 has 4 x 4 of them). The recompute's products QK^T
+// and dO V^T are mma.sync.m16n8k16 bf16 products with fp32 accumulators:
+// a block of four warps owns 64 query rows (16 a warp) and stages the 64
+// keys' K and V in shared memory (rows padded by 8 elements, so the eight
+// 16-byte rows an ldmatrix reads fall in distinct banks); its kv_bias is
+// staged beside them, and the bias is read per element, guarded past Sq
+// and Sk. Built for kDbBlocks resident blocks an SM at D = 64 (its
+// operands and dS sums held in registers).
 
 #include "flash_common.cuh"
 
@@ -50,11 +33,9 @@ namespace {
 
 constexpr int kTile = 64;       // rows a block owns; rows of a staged tile
 constexpr int kThreads = 128;   // four warps of 16 rows
-// blocks an SM must hold at D = 64 (the register cap follows: 128
-// registers a thread at 4, 170 at 3); the D = 128 forms take what they
-// need. Chosen on the H100 at the LM's shape: the forward at 4 blocks;
-// dbias holds its operands and its own dS sums, so 3
-constexpr int kFwdBlocks = 4, kDbBlocks = 3;
+// blocks an SM must hold at D = 64 (a cap of 170 registers a thread);
+// the D = 128 form takes what it needs
+constexpr int kDbBlocks = 3;
 
 // two consecutive elements (4-byte aligned)
 __device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
@@ -63,21 +44,12 @@ __device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
 
 // four 8x8 b16 matrices from shared memory: lane l gives the address of
 // row l % 8 of matrix l / 8 (16 bytes, 16-byte aligned); r[i] is lane
-// (g, t4)'s pair of matrix i: row g, columns 2*t4 and 2*t4 + 1, or with
-// TRANS the pair at rows 2*t4 and 2*t4 + 1 of column g
-template <bool TRANS>
+// (g, t4)'s pair of matrix i: row g, columns 2*t4 and 2*t4 + 1
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
   const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  if (TRANS) {
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
-        "{%0, %1, %2, %3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-  } else {
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-  }
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
 }
 
 // c += a (16x16, row major) * b (16x8, col major); bf16 in, fp32 out
@@ -132,8 +104,8 @@ __device__ __forceinline__ void load_tile(bf16* sm, const bf16* base,
 
 // s[nt] = A (the warp's 16 rows) x B^T over D, for the NT * 8 rows of the
 // staged tile sm taken 8 at a time as the columns of s: the products
-// Q K^T, dO V^T, K Q^T and V dO^T. One ldmatrix gives the B fragments of
-// 32 columns of D (two k-steps of the product)
+// Q K^T and dO V^T. One ldmatrix gives the B fragments of 32 columns of D
+// (two k-steps of the product)
 template <int D, int NT = 8>
 __device__ __forceinline__ void rows_times_tile(float (&s)[NT][4],
                                                 const uint32_t (&a)[D / 16][4],
@@ -146,39 +118,9 @@ __device__ __forceinline__ void rows_times_tile(float (&s)[NT][4],
 #pragma unroll
     for (int k2 = 0; k2 < D / 32; ++k2) {
       uint32_t b[4];
-      ldsm_x4<false>(b, sm + (nt * 8 + r) * LD + k2 * 32 + mi * 8);
+      ldsm_x4(b, sm + (nt * 8 + r) * LD + k2 * 32 + mi * 8);
       mma16816(s[nt], a[2 * k2], b[0], b[1]);
       mma16816(s[nt], a[2 * k2 + 1], b[2], b[3]);
-    }
-  }
-}
-
-// acc[dt] += P x tile, where P (16 x NT * 8, the accumulator layout of s)
-// is the A operand and the staged tile sm [NT * 8][D] is B: the products
-// P V, dS K, P^T dO and dS^T Q
-template <int D, int NT = 8>
-__device__ __forceinline__ void scores_times_tile(float (&acc)[D / 8][4],
-                                                  const float (&p)[NT][4],
-                                                  const bf16* sm) {
-  constexpr int LD = D + 8;
-  const int lane = threadIdx.x & 31, mi = lane >> 3, r = lane & 7;
-#pragma unroll
-  for (int ks = 0; ks < NT / 2; ++ks) {
-    uint32_t pa[4];
-    pa[0] = pack_bf16(p[2 * ks][0], p[2 * ks][1]);
-    pa[1] = pack_bf16(p[2 * ks][2], p[2 * ks][3]);
-    pa[2] = pack_bf16(p[2 * ks + 1][0], p[2 * ks + 1][1]);
-    pa[3] = pack_bf16(p[2 * ks + 1][2], p[2 * ks + 1][3]);
-    // one transposing ldmatrix gives the B fragments of two 8-wide
-    // column steps: matrices (keys 0-7, dt), (8-15, dt), (0-7, dt + 1),
-    // (8-15, dt + 1) of this 16-key step
-    const bf16* rp = sm + (ks * 16 + 8 * (mi & 1) + r) * LD + (mi >> 1) * 8;
-#pragma unroll
-    for (int d2 = 0; d2 < D / 16; ++d2) {
-      uint32_t b[4];
-      ldsm_x4<true>(b, rp + d2 * 16);
-      mma16816(acc[2 * d2], pa, b[0], b[1]);
-      mma16816(acc[2 * d2 + 1], pa, b[2], b[3]);
     }
   }
 }
@@ -212,19 +154,15 @@ __device__ __forceinline__ int live_k_tiles(const Attn& a, int qb) {
 // rescaled as the forward applied it (dv's factor), and sets ds = p ·
 // (dP' - delta) with the undropped p (the bias gradient; dq and dk take it
 // times the scale).
-template <bool EXTRA>
 __device__ __forceinline__ float p_ds(const Attn& a, int bh, int qi, int kj,
                                       bool vis, float s, float kvb2, float dp,
                                       float lse2, float dlt, float& ds) {
-  float sc = s * (a.scale * kLog2e);
-  if (EXTRA) {
-    sc += kvb2;
-    if (vis) sc += bias_at(a, bh, qi, kj);
-  }
-  const bool live = vis && (!EXTRA || sc > kNegInf * 0.5f);
+  float sc = s * (a.scale * kLog2e) + kvb2;
+  if (vis) sc += bias_at(a, bh, qi, kj);
+  const bool live = vis && sc > kNegInf * 0.5f;
   const float p = live ? exp2f(sc - lse2) : 0.f;
   float pd = p;
-  if (EXTRA && a.drop_inv > 0.f) {
+  if (a.drop_inv > 0.f) {
     const bool kept = keep(a, bh, qi, kj);
     pd = kept ? p * a.drop_inv : 0.f;
     dp = kept ? dp * a.drop_inv : 0.f;
@@ -232,128 +170,6 @@ __device__ __forceinline__ float p_ds(const Attn& a, int bh, int qi, int kj,
   ds = p * (dp - dlt);
   return pd;
 }
-
-// ---- forward ---------------------------------------------------------------
-
-template <int D, bool EXTRA>
-__global__ void __launch_bounds__(kThreads, D == 64 ? kFwdBlocks : 1)
-flash_fwd_kernel(Attn a, bf16* __restrict__ o, float* __restrict__ lse) {
-  constexpr int LD = D + 8;
-  __shared__ __align__(16) bf16 sK[kTile * LD];
-  __shared__ __align__(16) bf16 sV[kTile * LD];
-  __shared__ float sB[EXTRA ? kTile : 1];
-  const int bh = blockIdx.y;
-  const int qb = gridDim.x - 1 - blockIdx.x;   // longest causal rows first
-  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
-  const int qw = qb * kTile + (threadIdx.x >> 5) * 16;
-  uint32_t qf[D / 16][4];
-  load_a<D>(qf, a.q + bh * a.q_bh, a.q_s, qw, a.sq);
-  const bf16* kb = a.k + bh * a.k_bh;
-  const bf16* vb = a.v + bh * a.v_bh;
-  float acc[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-  }
-  float m_i[2] = {kNegInf, kNegInf}, l_i[2] = {0.f, 0.f};
-  const float sl2 = a.scale * kLog2e;
-  const int nkt = live_k_tiles(a, qb);
-  for (int kt = 0; kt < nkt; ++kt) {
-    __syncthreads();                   // the last tile's readers are done
-    load_tile<D>(sK, kb, a.k_s, kt * kTile, a.sk);
-    load_tile<D>(sV, vb, a.v_s, kt * kTile, a.sk);
-    if (EXTRA) load_bias_tile(sB, a, bh, kt * kTile);
-    __syncthreads();
-    float s[8][4];
-    rows_times_tile<D>(s, qf, sK);
-    // scores in log2 units: s * scale * log2(e) (+ the biases * log2(e))
-    if (all_visible(a, qw, 16, kt * kTile, kTile)) {
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int kl = nt * 8 + 2 * t4 + (e & 1);
-          s[nt][e] = EXTRA ? s[nt][e] * sl2 + sB[kl] +
-                                 bias_at(a, bh, qw + g + 8 * (e >> 1),
-                                         kt * kTile + kl)
-                           : s[nt][e] * sl2;
-        }
-      }
-    } else {
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qi = qw + g + 8 * (e >> 1);
-          const int kj = kt * kTile + nt * 8 + 2 * t4 + (e & 1);
-          const bool vis = visible(a, qi, kj);
-          float sc = s[nt][e] * sl2;
-          if (EXTRA) {
-            sc += sB[kj - kt * kTile];
-            if (vis) sc += bias_at(a, bh, qi, kj);
-          }
-          s[nt][e] = vis ? sc : kNegInf;
-        }
-      }
-    }
-    // online softmax of rows g (h = 0) and g + 8 (h = 1); a row's 64
-    // scores lie in the four lanes of a quad
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float mx = kNegInf;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        mx = fmaxf(mx, fmaxf(s[nt][2 * h], s[nt][2 * h + 1]));
-      }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float mn = fmaxf(m_i[h], mx);
-      const float alpha = exp2f(m_i[h] - mn);
-      float rs = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-        for (int e = 2 * h; e < 2 * h + 2; ++e) {
-          // a row with nothing unmasked yet keeps p = 0
-          s[nt][e] = s[nt][e] > kNegInf * 0.5f ? exp2f(s[nt][e] - mn) : 0.f;
-          rs += s[nt][e];
-          // l sums the undropped p; the output takes the kept p rescaled
-          if (EXTRA && a.drop_inv > 0.f) {
-            s[nt][e] = keep(a, bh, qw + g + 8 * h,
-                            kt * kTile + nt * 8 + 2 * t4 + (e & 1))
-                           ? s[nt][e] * a.drop_inv : 0.f;
-          }
-        }
-      }
-      rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-      rs += __shfl_xor_sync(0xffffffffu, rs, 2);
-      l_i[h] = alpha * l_i[h] + rs;
-      m_i[h] = mn;
-#pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        acc[dt][2 * h] *= alpha;
-        acc[dt][2 * h + 1] *= alpha;
-      }
-    }
-    scores_times_tile<D>(acc, s, sV);
-  }
-  bf16* ob = o + (long long)bh * a.sq * D;
-  float* lb = lse + (long long)bh * a.sq;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = qw + g + 8 * h;
-    if (row >= a.sq) continue;
-    const float l = l_i[h];
-    const float safe = l > 0.f ? l : 1.f;
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      *reinterpret_cast<uint32_t*>(ob + (long long)row * D + dt * 8 + 2 * t4) =
-          pack_bf16(acc[dt][2 * h] / safe, acc[dt][2 * h + 1] / safe);
-    }
-    if (t4 == 0) lb[row] = l > 0.f ? m_i[h] * kLn2 + logf(safe) : kNegInf;
-  }
-}
-
 
 // ---- backward: the gradient of a bias shared over bh -----------------------
 
@@ -418,7 +234,7 @@ flash_dbias_kernel(Attn a, const bf16* __restrict__ dout, long long do_bh,
           const int kl = k0 + nt * 8 + 2 * t4 + (e & 1);
           const int kj = kt * kTile + kl;
           float d;
-          p_ds<true>(a, bh, qi, kj, full || visible(a, qi, kj), s[nt][e],
+          p_ds(a, bh, qi, kj, full || visible(a, qi, kj), s[nt][e],
                      sB[kl], dp[nt][e], lse_r[h], dlt_r[h], d);
           acc[half][nt][e] += d;
         }
@@ -456,45 +272,15 @@ __global__ void dbias_sum_kernel(const float* __restrict__ part,
 }  // namespace
 }  // namespace apex_port
 
-// Every entry point: q, k, v bf16 [bh, s, d] with the given strides
-// (elements; the last dim contiguous, every stride a multiple of 8, every
-// base 16-byte aligned); kvb null or fp32 [1|bh, sk] with bh stride kvb_bh
-// (0 when shared), its keys contiguous; bias null or fp32 [1|bh, sq, sk]
-// contiguous with bh stride bias_bh (0 when shared); dropout when drop_inv
-// = 1 / (1 - rate) > 0, keeping an element whose hash under seed is >=
-// drop_thresh.
-
-// o bf16 [bh, sq, d] and lse fp32 [bh, sq], contiguous.
-extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
-                              void* o, void* lse, long long q_bh,
-                              long long q_s, long long k_bh, long long k_s,
-                              long long v_bh, long long v_s, const void* kvb,
-                              long long kvb_bh, const void* bias,
-                              long long bias_bh, unsigned seed,
-                              unsigned drop_thresh, float drop_inv, int bh,
-                              int sq, int sk, int d, int q_start,
-                              int k_start, int causal, float scale,
-                              void* stream) {
-  using namespace apex_port;
-  if (bad(bh, sq, sk, d)) return static_cast<int>(cudaErrorInvalidValue);
-  const Attn a = make_attn(q, k, v, q_bh, q_s, k_bh, k_s, v_bh, v_s, kvb,
-                           kvb_bh, bias, bias_bh, seed, drop_thresh,
-                           drop_inv, sq, sk, q_start, k_start, causal, scale);
-  const dim3 grid((sq + kTile - 1) / kTile, bh);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  bf16* op = static_cast<bf16*>(o);
-  float* lp = static_cast<float*>(lse);
-  with_form(d, a, [&](auto dd, auto ex) {
-    flash_fwd_kernel<decltype(dd)::value, decltype(ex)::value>
-        <<<grid, kThreads, 0, st>>>(a, op, lp);
-  });
-  return static_cast<int>(cudaGetLastError());
-}
-
-// dout with its own strides; lse, delta fp32 [bh, sq] contiguous; the
-// bias shared over bh (bias_bh = 0); dbias fp32 [sq, sk] contiguous; bh
-// split into `runs` runs of ceil(bh / runs), and with runs > 1 part fp32
-// [runs, sq, sk] contiguous scratch.
+// q, k, v bf16 [bh, s, d] and dout with the given strides (elements;
+// the last dim contiguous, every stride a multiple of 8, every base
+// 16-byte aligned); kvb null or fp32 [1|bh, sk] with bh stride kvb_bh (0
+// when shared), its keys contiguous; dropout when drop_inv = 1 / (1 -
+// rate) > 0, keeping an element whose hash under seed is >= drop_thresh;
+// lse, delta fp32 [bh, sq] contiguous; the bias fp32 [1, sq, sk]
+// contiguous, shared over bh (bias_bh = 0); dbias fp32 [sq, sk]
+// contiguous; bh split into `runs` runs of ceil(bh / runs), and with runs >
+// 1 part fp32 [runs, sq, sk] contiguous scratch.
 extern "C" int apex_flash_bwd_dbias(const void* q, const void* k,
                                     const void* v, const void* dout,
                                     const void* lse, const void* delta,

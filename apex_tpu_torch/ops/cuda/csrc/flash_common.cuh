@@ -1,6 +1,6 @@
-// The semantics the flash kernels share (csrc/flash_attn.cu: the forward
-// and the shared-bias gradient; csrc/flash_bwd.cu: dq and dk/dv), kept
-// from the Pallas kernels of
+// The semantics the flash kernels share (csrc/flash_fwd.cu: the forward;
+// csrc/flash_bwd.cu: dq and dk/dv; csrc/flash_attn.cu: the shared-bias
+// gradient), kept from the Pallas kernels of
 // apex_tpu/contrib/multihead_attn/flash_attention.py:
 //
 // - fp32 scores, softmax statistics and accumulators, exponentials as

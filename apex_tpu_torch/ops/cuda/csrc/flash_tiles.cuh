@@ -1,0 +1,298 @@
+// What the Hopper flash kernels (csrc/flash_fwd.cu: the forward;
+// csrc/flash_bwd.cu: dq and dk/dv) share, built on the PTX of
+// csrc/hopper.cuh: the block's shape (two consumer warpgroups of 64 rows and
+// a producer warpgroup whose one warp issues the copies), operand tiles as
+// TMA writes them, the copy ring's barriers, the products on those tiles,
+// the turns the consumer warpgroups take, and the host's tensor maps.
+#pragma once
+
+#include <type_traits>
+
+#include "flash_common.cuh"
+#include "hopper.cuh"
+
+namespace apex_port {
+namespace {
+
+using namespace hopper;
+
+constexpr int kRows = 128;        // rows a block owns (queries; keys)
+constexpr int kWgRows = 64;       // rows of one consumer warpgroup
+constexpr int kBox = 64;          // a TMA box: 64 rows of 64 bf16 (the
+                                  // 128-byte swizzle's span), one bh
+constexpr int kBlockThreads = 384;  // consumer warpgroups 0 and 1, producer 2
+// registers a thread after setmaxnreg (256 * 240 + 128 * 24 of the SM's
+// 65536); one warp of the producer warpgroup issues the copies
+constexpr int kConsumerRegs = 240, kProducerRegs = 24;
+constexpr int kFullArrivals = 32;   // the producer warp's lanes
+constexpr int kEmptyArrivals = 8;   // the consumer warps
+constexpr uint32_t kSbo = 1024;     // 8 swizzled rows of 128 bytes
+// the named barriers that take turns between the consumer warpgroups (0
+// is __syncthreads)
+constexpr int kTurnBar = 1;
+
+// the tensor maps of q, k, v and dO (the forward leaves o unset)
+struct Maps {
+  CUtensorMap q, k, v, o;
+};
+
+// R rows of a [*, D] bf16 operand in shared memory as D / 64 column tiles
+// of R swizzled 128-byte rows (hopper.cuh)
+template <int R, int D>
+struct alignas(1024) Tile {
+  static constexpr uint32_t kColBytes = R * kBox * 2;   // one column tile
+  static constexpr uint32_t kBytes = kColBytes * (D / kBox);
+  bf16 x[D / kBox][R * kBox];
+};
+
+// the dynamic shared memory a block asks for: its layout, room to align
+// the base, and at least 116 KB, so that one block holds an SM (the
+// consumers' setmaxnreg takes the registers a second block would need)
+template <typename S>
+constexpr int smem_bytes() {
+  return static_cast<int>(sizeof(S)) + 1024 > 116 * 1024
+             ? static_cast<int>(sizeof(S)) + 1024 : 116 * 1024;
+}
+
+template <typename S>
+__device__ __forceinline__ S& smem_as(uint8_t* raw) {
+  const uint32_t pad = (1024u - (smem_u32(raw) & 1023u)) & 1023u;
+  return *reinterpret_cast<S*>(raw + pad);
+}
+
+// the ring's full and empty barriers (one pair a stage of S::full) and a
+// barrier of one arrival for the block's own rows
+template <typename S>
+__device__ __forceinline__ void init_barriers(S& sm, uint64_t* once) {
+  constexpr int kN = static_cast<int>(std::extent<decltype(S::full)>::value);
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kN; ++s) {
+      mbar_init(&sm.full[s], kFullArrivals);
+      mbar_init(&sm.empty[s], kEmptyArrivals);
+    }
+    mbar_init(once, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+}
+
+// rows [row0, row0 + R) of bh into t, by one thread: R / 64 boxes down,
+// D / 64 across; completes R * D * 2 bytes on bar
+template <int R, int D>
+__device__ __forceinline__ void load_rows(Tile<R, D>& t,
+                                          const CUtensorMap* map,
+                                          uint64_t* bar, int row0, int bh) {
+#pragma unroll
+  for (int c = 0; c < D / kBox; ++c) {
+#pragma unroll
+    for (int h = 0; h < R / kBox; ++h) {
+      tma_load_3d(&t.x[c][h * kBox * kBox], map, bar, c * kBox,
+                  row0 + h * kBox, bh);
+    }
+  }
+}
+
+// a consumer warp's release of stage s (s < 0: none), once its lanes are
+// done with the stage's shared memory
+template <typename S>
+__device__ __forceinline__ void release(S& sm, int s) {
+  if (s < 0) return;
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) mbar_arrive(&sm.empty[s]);
+}
+
+// 2^x on the special-function unit (denormal results flush to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The consumer warpgroups take turns issuing their first products: wg
+// waits for the other's turn to end, issues, and ends its own. The tensor
+// cores then run one warpgroup's products while the other works out its
+// softmax (or P and dS), instead of both at once. Warpgroup 1 lets 0 go
+// first; each turn of one is matched by a wait of the other, and
+// warpgroup 0 takes the last turn after both loops, so no barrier is left
+// half-arrived.
+__device__ __forceinline__ void turn_begin(int wg) {
+  bar_sync(kTurnBar + wg, 256);
+}
+__device__ __forceinline__ void turn_end(int wg) {
+  bar_arrive(kTurnBar + (wg ^ 1), 256);
+}
+
+// k-steps of the first products' A operand held in registers: all of
+// them at D = 64, none at D = 128 (see first_product)
+template <int D>
+constexpr int kASteps = D == 64 ? D / 16 : 1;
+
+// this warp's register-A fragments of rows [r0, r0 + 64) of t, every
+// k-step of 16 columns: chunk c of row r sits at chunk c ^ (r % 8) (the
+// TMA swizzle), and this lane's rows are both g mod 8
+template <int D>
+__device__ __forceinline__ void load_frags(uint32_t (&f)[D / 16][4],
+                                           const Tile<kRows, D>& t, int r0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const int row = r0 + ((threadIdx.x >> 5) & 3) * 16 + g;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const char* p = reinterpret_cast<const char*>(&t.x[kk / 4][0]) +
+                    row * 128 + 4 * t4;
+    const int c = 2 * (kk % 4);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int chunk = (c + (j >> 1)) ^ g;
+      f[kk][j] = *reinterpret_cast<const uint32_t*>(p + (j & 1) * 8 * 128 +
+                                                    (chunk << 4));
+    }
+  }
+}
+
+// acc[64 x N] = this warpgroup's rows [r0, r0 + 64) of the block's tile a
+// times rows [b0, b0 + N) of b transposed: the product over D, both
+// K-major. At D = 64 the rows come from their register fragments f (an
+// m64n64k16 product that reads both operands from shared memory takes all
+// of its bandwidth); at D = 128 from a itself, their fragments (64
+// registers a thread) having no room beside the accumulators
+template <int D, int N, int RB>
+__device__ __forceinline__ void first_product(
+    float (&acc)[N / 2], const Tile<kRows, D>& a, int r0,
+    const uint32_t (&f)[kASteps<D>][4], const Tile<RB, D>& b, int b0) {
+  const uint32_t pa = opaque(smem_u32(&a.x[0][r0 * kBox]));
+  const uint32_t pb = smem_u32(&b.x[0][b0 * kBox]);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint64_t db = sw128_desc(
+        pb + (kk / 4) * Tile<RB, D>::kColBytes + (kk % 4) * 32, 16, kSbo);
+    if constexpr (D == 64) {
+      mma_rs<N, 0>(acc, f[kk], db, kk > 0);
+    } else {
+      mma_ss<N>(acc,
+                sw128_desc(pa + (kk / 4) * Tile<kRows, D>::kColBytes +
+                               (kk % 4) * 32, 16, kSbo),
+                db, kk > 0);
+    }
+  }
+}
+
+// acc[64 x D] += X[64 x 16 KS] times rows [b0, b0 + 16 KS) of b, b
+// MN-major, X from its bf16 register fragments: f[ks][j] packs X's
+// accumulator elements 8 ks + 2 j and 8 ks + 2 j + 1, k-step ks taking X's
+// columns [16 ks, 16 ks + 16) and the 16 rows of b that match them
+template <int D, int KS, int RB>
+__device__ __forceinline__ void frags_by_tile(float (&acc)[D / 2],
+                                              const uint32_t (&f)[KS][4],
+                                              const Tile<RB, D>& b,
+                                              int b0) {
+  const uint32_t pb = smem_u32(&b.x[0][b0 * kBox]);
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    mma_rs<D, 1>(acc, f[ks],
+                 sw128_desc(pb + ks * 16 * 128, Tile<RB, D>::kColBytes,
+                            kSbo), 1);
+  }
+}
+
+// key tiles of BN keys the queries [r0, r0 + n) must visit: the causal
+// mask ends them at the last key their last row sees; rows past Sq see
+// nothing
+template <int BN = kBox>
+__device__ __forceinline__ int key_tiles(const Attn& a, int r0, int n) {
+  const int last = min(r0 + n, a.sq) - 1;
+  if (last < r0) return 0;
+  int t = (a.sk + BN - 1) / BN;
+  if (a.causal) {
+    const int lim = a.q_start + last - a.k_start;
+    if (lim < 0) return 0;
+    t = min(t, lim / BN + 1);
+  }
+  return t;
+}
+
+// ---- host: tensor maps -----------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled through the runtime (null if the
+// driver has none)
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) {
+      return nullptr;
+    }
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// one tensor's layout from the wrapper: dims (D, S, BH) innermost first,
+// the row and bh strides in bytes, the box (64, 64, 1)
+constexpr int kLayoutLen = 8;
+
+bool encode(CUtensorMap* map, const void* base, const long long* lay,
+            int d, int s, int bh) {
+  if (lay[0] != d || lay[1] != s || lay[2] != bh || lay[5] != kBox ||
+      lay[6] != kBox || lay[7] != 1) {
+    return false;
+  }
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(lay[0]),
+                              static_cast<cuuint64_t>(lay[1]),
+                              static_cast<cuuint64_t>(lay[2])};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(lay[3]),
+                                 static_cast<cuuint64_t>(lay[4])};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(lay[5]),
+                             static_cast<cuuint32_t>(lay[6]),
+                             static_cast<cuuint32_t>(lay[7])};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// the maps of q, k and v (and, with dout, dO) and the Attn the kernels
+// take; the strides of q, k and v come from their maps
+bool prepare(Maps* maps, Attn* a, const void* q, const void* k,
+             const void* v, const void* dout, const long long* tma,
+             const void* kvb, long long kvb_bh, const void* bias,
+             long long bias_bh, unsigned seed, unsigned drop_thresh,
+             float drop_inv, int bh, int sq, int sk, int d, int q_start,
+             int k_start, int causal, float scale) {
+  const long long* lq = tma;
+  const long long* lk = tma + kLayoutLen;
+  const long long* lv = tma + 2 * kLayoutLen;
+  const long long* lo = tma + 3 * kLayoutLen;
+  if (!encode(&maps->q, q, lq, d, sq, bh) ||
+      !encode(&maps->k, k, lk, d, sk, bh) ||
+      !encode(&maps->v, v, lv, d, sk, bh) ||
+      (dout != nullptr && !encode(&maps->o, dout, lo, d, sq, bh))) {
+    return false;
+  }
+  *a = make_attn(q, k, v, lq[4] / 2, lq[3] / 2, lk[4] / 2, lk[3] / 2,
+                 lv[4] / 2, lv[3] / 2, kvb, kvb_bh, bias, bias_bh, seed,
+                 drop_thresh, drop_inv, sq, sk, q_start, k_start, causal,
+                 scale);
+  return true;
+}
+
+}  // namespace
+}  // namespace apex_port

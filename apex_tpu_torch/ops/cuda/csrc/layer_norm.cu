@@ -460,6 +460,8 @@ extern "C" int apex_layer_norm_bwd(int x_dtype, int w_dtype, const void* dy,
 // (:201) and _wide_apply_kernel (:227); _ln_bwd_wide ->
 // _wide_bwd_reduce_kernel (:288), _wide_gwgb_kernel (:310) and
 // _wide_dx_kernel (:331). Four kernels here do the work of those five:
+//   ln_wide_row_kernel      F <= kRowMax: a block holds the row in its
+//                           registers; mean, variance and y (rows 5-6)
 //   ln_wide_stats_kernel    per (row, chunk): s = sum(x - shift) and
 //                           q = sum((x - shift - s/n)^2)            (row 5)
 //   ln_wide_apply_kernel    merge a row's chunks, y = (x-mean)*inv*g+b (row 6)
@@ -473,8 +475,13 @@ extern "C" int apex_layer_norm_bwd(int x_dtype, int w_dtype, const void* dy,
 // reads dy and x and writes dx, with ~10 flops per element: at the LM's
 // [8192, 12288] bf16, 403 MB (0.120 ms at 3.35 TB/s) and 604 MB (0.180
 // ms). A row runs from 12288 up to hundreds of thousands of values (a
-// LayerNorm over a [C, H, W] map), past what one block holds on chip, so
-// the row is cut into chunks of kWideCols columns and each chunk is its own
+// LayerNorm over a [C, H, W] map). Up to kRowMax (16384) one block of up to
+// 512 threads holds a row in its registers, 32 values a thread, and the
+// forward reads x once and writes y once (ln_wide_row_kernel): the row's
+// values and their shift are all the registers a thread keeps, gamma and
+// beta being read where y is written (every block reads the same ones, from
+// L1), so that three blocks of 384 threads share an SM. Past that the row
+// is cut into chunks of kWideCols columns and each chunk is its own
 // block's work: the forward reads x twice (statistics, then y) and the
 // backward dy and x twice (sums, then dx), 1.5 and 1.67 times the bound's
 // bytes. What the design does about the rest: a warp takes one (row,
@@ -533,6 +540,115 @@ __device__ __forceinline__ float merge_chunks(const float* pr, int nchunk,
   float s = 0.f;
   for (int j = lane; j < nchunk; j += 32) s += pr[2 * j + k];
   return warp_sum(s);
+}
+
+constexpr int kRowWarpsMax = 16;                    // 512 threads
+constexpr long long kRowMax = 32LL * kRowWarpsMax * kItems;   // 16384
+
+// the sum of v over the block's threads (every thread gets it): lanes,
+// then warps in order
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  v = warp_sum(v);
+  __syncthreads();                 // red[] may still be read from before
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float t = 0.f;
+  for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) t += red[w];
+  return t;
+}
+
+// four row values as loaded (two 32-bit words of 16-bit T, four floats)
+// to fp32
+__device__ __forceinline__ void unpack4(const float4& r, float (&o)[4],
+                                        const float*) {
+  o[0] = r.x; o[1] = r.y; o[2] = r.z; o[3] = r.w;
+}
+__device__ __forceinline__ void unpack4(const uint2& r, float (&o)[4],
+                                        const __nv_bfloat16*) {
+  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&r.x);
+  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&r.y);
+  o[0] = __low2float(a); o[1] = __high2float(a);
+  o[2] = __low2float(b); o[3] = __high2float(b);
+}
+__device__ __forceinline__ void unpack4(const uint2& r, float (&o)[4],
+                                        const __half*) {
+  const __half2 a = *reinterpret_cast<const __half2*>(&r.x);
+  const __half2 b = *reinterpret_cast<const __half2*>(&r.y);
+  o[0] = __low2float(a); o[1] = __high2float(a);
+  o[2] = __low2float(b); o[3] = __high2float(b);
+}
+
+// block b takes row b, thread t the 4-wide column groups t, t + blockDim,
+// ... (blockDim.x = 32 * ceil(F / 1024)): the statistics as the chunked
+// form computes them (a shift by the row's first value, then the centred
+// sum of squares), here from registers over the whole row. A thread holds
+// its 32 values as loaded (16 registers of bf16), so that with 16-bit rows
+// at most 64 registers a thread let three blocks of 384 threads share an
+// SM (fp32 rows take what their 32 values need).
+template <typename T, typename W>
+__global__ void __launch_bounds__(32 * kRowWarpsMax, sizeof(T) == 4 ? 1 : 2)
+ln_wide_row_kernel(const T* __restrict__ x, const W* __restrict__ gamma,
+                   const W* __restrict__ beta, T* __restrict__ y,
+                   float* __restrict__ mean_out,
+                   float* __restrict__ inv_out, long long F, float eps) {
+  using R = typename std::conditional<sizeof(T) == 4, float4, uint2>::type;
+  constexpr int kGroups = kItems / 4;
+  __shared__ float red[kRowWarpsMax];
+  const long long row = blockIdx.x;
+  const int t = threadIdx.x, nt = blockDim.x;
+  const T* xr = x + row * F;
+  const float shift = to_f(xr[0]);
+  R raw[kGroups];
+#pragma unroll
+  for (int i = 0; i < kGroups; ++i) {
+    const int c = (i * nt + t) * 4;
+    raw[i] = c < F ? *reinterpret_cast<const R*>(xr + c) : R{};
+  }
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < kGroups; ++i) {
+    float v[4];
+    unpack4(raw[i], v, xr);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s += (i * nt + t) * 4 < F ? v[e] - shift : 0.f;
+  }
+  const float Ff = static_cast<float>(F);
+  const float dmean = block_sum(s, red) / Ff;
+  float q = 0.f;
+#pragma unroll
+  for (int i = 0; i < kGroups; ++i) {
+    float v[4];
+    unpack4(raw[i], v, xr);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float d = (v[e] - shift) - dmean;
+      q += (i * nt + t) * 4 < F ? d * d : 0.f;
+    }
+  }
+  const float inv = rsqrtf(block_sum(q, red) / Ff + eps);
+  T* yr = y + row * F;
+#pragma unroll
+  for (int i = 0; i < kGroups; ++i) {
+    const int c = (i * nt + t) * 4;
+    if (c < F) {
+      float v[4], g[4], b[4], o[4];
+      unpack4(raw[i], v, xr);
+      load_vec<4>(gamma + c, gamma != nullptr, 1.f, g);
+      load_vec<4>(beta + c, beta != nullptr, 0.f, b);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        // (x - shift) - dmean: exact to the shift's precision even where
+        // the mean is large beside the spread
+        const float xh = ((v[e] - shift) - dmean) * inv;
+        o[e] = gamma != nullptr ? xh * g[e] + b[e] : xh;
+      }
+      store4(yr + c, o);
+    }
+  }
+  if (t == 0) {
+    mean_out[row] = shift + dmean;
+    inv_out[row] = inv;
+  }
 }
 
 // grid (nchunk, row groups); warp w of block (j, b) takes chunk j of rows
@@ -803,7 +919,9 @@ bool with_x_w(int x_dtype, int w_dtype, bool affine, Fn&& f) {
 
 // x, y [rows, F] (F a multiple of 4, every buffer 4-element aligned);
 // gamma/beta [F] or both null; mean/invvar fp32 [rows]; part fp32 [rows,
-// ceil(F / 1024), 2] scratch. Two launches; returns cudaGetLastError().
+// ceil(F / 1024), 2] scratch. F <= kRowMax takes one launch, a block a row,
+// and leaves part unused; wider rows two launches, the row in chunks.
+// Returns cudaGetLastError().
 extern "C" int apex_layer_norm_fwd_wide(int x_dtype, int w_dtype,
                                         const void* x, const void* gamma,
                                         const void* beta, void* y,
@@ -811,7 +929,10 @@ extern "C" int apex_layer_norm_fwd_wide(int x_dtype, int w_dtype,
                                         long long rows, long long F,
                                         float eps, void* stream) {
   using namespace apex_port;
-  if (bad_wide_shape(rows, F)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_wide_shape(rows, F) || part == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const bool one_pass = F <= kRowMax && rows <= 0x7fffffffLL;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(wide_chunks(F), wide_row_groups(rows));
   float* pt = static_cast<float*>(part);
@@ -820,6 +941,14 @@ extern "C" int apex_layer_norm_fwd_wide(int x_dtype, int w_dtype,
     using T = typename decltype(xt)::type;
     using W = typename decltype(wt)::type;
     const T* xp = static_cast<const T*>(x);
+    if (one_pass) {
+      ln_wide_row_kernel<T, W>
+          <<<static_cast<unsigned>(rows), 32 * wide_chunks(F), 0, st>>>(
+              xp, static_cast<const W*>(gamma), static_cast<const W*>(beta),
+              static_cast<T*>(y), static_cast<float*>(mean),
+              static_cast<float*>(invvar), F, eps);
+      return;
+    }
     ln_wide_stats_kernel<T><<<grid, 32 * kWideWarps, 0, st>>>(xp, pt, rows,
                                                               F);
     ln_wide_apply_kernel<T, W><<<grid, 32 * kWideWarps, 0, st>>>(

@@ -3,8 +3,9 @@ PyTorch versions.
 
 Counterpart of the Pallas kernels in
 ``apex_tpu/contrib/multihead_attn/flash_attention.py`` (the kernels are
-``ops/cuda/csrc/flash_attn.cu``, the forward and the shared-bias gradient,
-and ``ops/cuda/csrc/flash_bwd.cu``, dq and dk/dv):
+``ops/cuda/csrc/flash_fwd.cu``, the forward, ``ops/cuda/csrc/flash_bwd.cu``,
+dq and dk/dv, and ``ops/cuda/csrc/flash_attn.cu``, the shared-bias
+gradient):
 
 - :func:`flash_fwd` replaces ``_flash_fwd`` → ``_fwd_kernel`` (:181): the
   output and the per-row logsumexp; its plain version is
@@ -46,11 +47,11 @@ the card it launches its kernel, which takes bf16 and a head dim of 64 or
 128 and raises on anything else. The kernels read q, k, v and dO through
 their strides (the last dim contiguous, every stride a multiple of 8
 elements, the base 16-byte aligned); a view that is not so is copied once
-to a contiguous tensor. dq and dk/dv copy their tiles by TMA: the wrappers
-describe each tensor's map (:func:`tma_layout`: dims, byte strides, the
-box) and the grid's row blocks (:func:`bwd_blocks`). The biases are cast
-once to contiguous fp32. Each wrapper counts its launches in
-``.launches``.
+to a contiguous tensor. The forward, dq and dk/dv copy their tiles by TMA,
+which also takes no broadcast view: the wrappers describe each tensor's
+map (:func:`tma_layout`: dims, byte strides, the box) and the grid's
+blocks of rows (:func:`row_blocks`). The biases are cast once to
+contiguous fp32. Each wrapper counts its launches in ``.launches``.
 """
 
 from __future__ import annotations
@@ -66,19 +67,20 @@ from apex_tpu_torch.ops import dispatch
 __all__ = ["NEG_INF", "KERNEL_HEAD_DIMS", "dropout_bits", "drop_threshold",
            "reference_attention", "flash_fwd", "flash_delta",
            "flash_bwd_plain", "flash_bwd_dq", "flash_bwd_dkv",
-           "flash_bwd_dbias", "flash_bwd_dbias_plain", "BWD_ROWS",
-           "TMA_BOX", "tma_layout", "bwd_blocks"]
+           "flash_bwd_dbias", "flash_bwd_dbias_plain", "BLOCK_ROWS",
+           "TMA_BOX", "tma_layout", "row_blocks"]
 
 # finite -inf stand-in: exp(NEG_INF - m) is exactly 0.0 in fp32, so a fully
 # masked row yields zeros instead of NaN
 NEG_INF = -1.0e30
 KERNEL_HEAD_DIMS = (64, 128)
 
-# the backward kernels' tiling (csrc/flash_bwd.cu): a block owns BWD_ROWS
-# rows (queries in dq, keys in dk/dv) and TMA copies the tensors in boxes
-# of TMA_BOX elements, innermost first: 64 of the head dim (128 bytes, the
-# span of the tiles' swizzle), 64 rows, one bh
-BWD_ROWS = 128
+# the Hopper kernels' tiling (csrc/flash_fwd.cu, csrc/flash_bwd.cu): a
+# block owns BLOCK_ROWS rows (queries in the forward and dq, keys in dk/dv)
+# and TMA copies the tensors in boxes of TMA_BOX elements, innermost first:
+# 64 of the head dim (128 bytes, the span of the tiles' swizzle), 64 rows,
+# one bh
+BLOCK_ROWS = 128
 TMA_BOX = (64, 64, 1)
 
 _M32 = 0xFFFFFFFF
@@ -307,8 +309,9 @@ def _readable(t: torch.Tensor) -> torch.Tensor:
 
 
 def _tma_readable(t: torch.Tensor) -> torch.Tensor:
-    """:func:`_readable` for the TMA copies of dq and dk/dv, which also
-    copy a broadcast view (a stride of 0 over more than one element)."""
+    """:func:`_readable` for the TMA copies of the forward, dq and dk/dv,
+    which also copy a broadcast view (a stride of 0 over more than one
+    element)."""
     t = _readable(t)
     if any(t.stride(i) == 0 and t.shape[i] > 1 for i in (0, 1)):
         return t.contiguous()
@@ -316,7 +319,7 @@ def _tma_readable(t: torch.Tensor) -> torch.Tensor:
 
 
 def tma_layout(t: torch.Tensor) -> tuple:
-    """The tensor map the backward kernels copy a [BH, S, D] bf16 tensor
+    """The tensor map the Hopper kernels copy a [BH, S, D] bf16 tensor
     by: its dims innermost first (D, S, BH), its row and bh strides in
     bytes, and the box (:data:`TMA_BOX`). A dim of size 1 takes the stride
     of the tensor's packed layout (its own is arbitrary and never used)."""
@@ -327,14 +330,15 @@ def tma_layout(t: torch.Tensor) -> tuple:
     return (d, s, bh, row * es, bhs * es) + TMA_BOX
 
 
-def bwd_blocks(rows: int) -> int:
-    """The backward grid's blocks along the rows a block owns (``rows``:
-    Sq for dq, Sk for dk/dv)."""
-    return -(-rows // BWD_ROWS)
+def row_blocks(rows: int) -> int:
+    """The grid's blocks along the rows a block owns (``rows``: Sq for the
+    forward and dq, Sk for dk/dv)."""
+    return -(-rows // BLOCK_ROWS)
 
 
 def _tma_maps(*ts):
-    """The tensor maps of q, k, v and dO, one C array of 4 x 8 ints."""
+    """The tensor maps of q, k, v (and dO), one C array of 8 ints a
+    tensor."""
     vals = [x for t in ts for x in tma_layout(t)]
     return (ctypes.c_longlong * len(vals))(*vals)
 
@@ -408,7 +412,7 @@ def flash_fwd(q, k, v, *, causal: bool = False, scale=None,
                                    dropout_rate=dropout_rate,
                                    dropout_seed=dropout_seed)
     _check("flash_fwd", q, k, v)
-    q, k, v = _readable(q), _readable(k), _readable(v)
+    q, k, v = _tma_readable(q), _tma_readable(k), _tma_readable(v)
     bh, sq, d = q.shape
     tail, _keep_alive = _tail("flash_fwd", q, k, kv_bias, bias,
                               dropout_rate, dropout_seed, causal, scale,
@@ -417,7 +421,7 @@ def flash_fwd(q, k, v, *, causal: bool = False, scale=None,
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
     err = _cuda.lib().apex_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), *_strides(q, k, v), *tail)
+        lse.data_ptr(), _tma_maps(q, k, v), row_blocks(sq), *tail)
     _cuda.check(err, "flash_fwd")
     flash_fwd.launches += 1
     return o, lse
@@ -465,7 +469,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool, scale: float,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         None if ds is None else ds.data_ptr(), _tma_maps(q, k, v, do),
-        bwd_blocks(q.shape[1]), *tail)
+        row_blocks(q.shape[1]), *tail)
     _cuda.check(err, "flash_bwd_dq")
     flash_bwd_dq.launches += 1
     return (dq, ds) if return_ds else dq
@@ -494,7 +498,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool, scale: float,
     err = _cuda.lib().apex_flash_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        _tma_maps(q, k, v, do), bwd_blocks(k.shape[1]), *tail)
+        _tma_maps(q, k, v, do), row_blocks(k.shape[1]), *tail)
     _cuda.check(err, "flash_bwd_dkv")
     flash_bwd_dkv.launches += 1
     return dk, dv

@@ -9,7 +9,8 @@ Counterpart of ``apex_tpu/ops/pallas/layer_norm.py``; the kernels are
 - wider rows: ``_ln_fwd_wide`` (the moments, then y) and ``_ln_bwd_wide``
   (the row sums, the gamma/beta gradients, then dx), the row cut into
   chunks of 1024 columns (:func:`ln_fwd_wide`, :func:`ln_bwd_wide`; F a
-  multiple of 4).
+  multiple of 4); the forward holds a row of up to 16384 values in one
+  block and reads it once.
 
 :func:`ln_fwd` and :func:`ln_bwd` take a row's width to one or the other.
 For a tensor on the CPU every wrapper runs its plain version; for a tensor
@@ -25,8 +26,8 @@ import torch
 from apex_tpu_torch.ops import cuda as _cuda
 from apex_tpu_torch.ops import dispatch
 
-__all__ = ["F_SINGLE_MAX", "ln_fwd", "ln_fwd_plain", "ln_fwd_wide",
-           "ln_bwd", "ln_bwd_plain", "ln_bwd_wide"]
+__all__ = ["F_SINGLE_MAX", "ln_fwd", "ln_fwd_plain", "ln_fwd_wide", "ln_bwd",
+           "ln_bwd_plain", "ln_bwd_wide"]
 
 F_SINGLE_MAX = 8192   # widest row the one-pass kernels hold on chip
 _WIDE_COLS = 1024     # a wide kernel's chunk of a row (kWideCols)
@@ -121,10 +122,13 @@ ln_fwd.launches = 0
 
 def ln_fwd_wide(x2d: torch.Tensor, weight, bias, eps: float):
     """:func:`ln_fwd` by the wide kernels, which take a row of any width
-    (F a multiple of 4): per chunk of 1024 columns the sum and the centred
-    sum of squares, after a shift by the row's first value; then each
-    chunk's y from the row's merged statistics. Returns (y, mean,
-    invvar) like :func:`ln_fwd_plain`; two launches, one count."""
+    (F a multiple of 4), its statistics after a shift by the row's first
+    value: up to 16384 one block a row, x read once into registers, the
+    mean and the centred sum of squares taken from them and y written;
+    wider, per chunk of 1024 columns the sum and the centred sum of
+    squares, then each chunk's y from the row's merged statistics (two
+    launches; the C side picks the form). Returns (y, mean, invvar) like
+    :func:`ln_fwd_plain`; one count."""
     if not dispatch.use_kernel(x2d):
         return ln_fwd_plain(x2d, weight, bias, eps)
     rows, f = x2d.shape
@@ -136,6 +140,8 @@ def ln_fwd_wide(x2d: torch.Tensor, weight, bias, eps: float):
                             device=x2d.device)
     if rows == 0:
         return y, mean, inv
+    # the chunked form's scratch (under 1 MB at the wide LM's shape), unused
+    # by the one-pass form
     part = torch.empty((rows, -(-f // _WIDE_COLS), 2), dtype=torch.float32,
                        device=x2d.device)
     err = _cuda.lib().apex_layer_norm_fwd_wide(

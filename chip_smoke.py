@@ -20,8 +20,8 @@ LayerNorm (lm_bench's LM at GPT-3 175B's width) and ``bn_backward_reduce``:
 1. build — compiles the hand kernels from ``apex_tpu_torch/ops/cuda/csrc``
    with ``nvcc`` for ``sm_90a`` (all sources at once) and loads them;
    prints every kernel's registers and spills (``ptxas``) and, apart, the
-   flash backward's Hopper kernels (``flash_bwd_ptxas``), which must not
-   spill.
+   flash forward's and backward's Hopper kernels (``flash_fwd_ptxas``,
+   ``flash_bwd_ptxas``), none of whose forms may spill.
 2. kernels — each kernel against its plain PyTorch version on the card,
    at its path's shapes: max abs error against the stated tolerance, the
    kernel's time, the plain version's, one PyTorch library call's where
@@ -43,12 +43,13 @@ LayerNorm (lm_bench's LM at GPT-3 175B's width) and ``bn_backward_reduce``:
    64] bf16, causal (held against the plain versions on the first 8
    heads, element by element: o, dq, dk and dv within 2 bf16 ulps plus
    2^-6 of the row's RMS over D, lse within 1e-3; and the rule must
-   refuse the plain result with its later half 5% off; dq, dk and dv each
-   repeated bit for bit), the whole backward (``flash_bwd``:
+   refuse the plain result with its later half 5% off; o, lse, dq, dk and
+   dv each repeated bit for bit), the whole backward (``flash_bwd``:
    ``flash_delta``, dq and dk/dv in one timed call, its bound over five
-   products and its bytes, SDPA's backward beside it), and dq, dk/dv and
-   the whole backward again at the wide LM's [384, 2048, 128] (reading
-   ``wide``, SDPA's backward beside them); the ImageNet
+   products and its bytes, SDPA's backward beside it), and the forward,
+   dq, dk/dv and the whole backward again at the wide LM's [384, 2048,
+   128] (reading ``wide``: the same rule, repeats and bounds, causal SDPA
+   and SDPA's backward beside them); the ImageNet
    step's optimizer kernels over RN50's flat fp32 buffer: ``rowsumsq``
    (within 1e-5 relative of the plain version; beside it the whole
    per-tensor L2 norm and ``torch._foreach_norm`` over the 161 tensors),
@@ -1038,6 +1039,7 @@ def lm_kernel_phase(torch, timer, total: int) -> dict:
         check(flash_err(torch, off, b0)["used"] > 1.0,
               f"flash {what}: the limit passes a result 5% off")
     rep = flash_repeats(torch, (q, k, v, do, lse, delta), kw, (dq, dk, dv))
+    fwd_rep = fwd_repeat(torch, (q, k, v), kw, (o, lse))
     del o0, lse0, dq0, dk0, dv0, late, off
     group = 16
 
@@ -1067,6 +1069,7 @@ def lm_kernel_phase(torch, timer, total: int) -> dict:
     fwd = dict(kernel="flash_fwd", **common,
                max_abs_err=errs["o"]["max_abs_err"],
                tol_used=errs["o"]["used"], tol=tol, lse_err=lse_err,
+               repeat_equal=fwd_rep,
                ms=timer(lambda: FA.flash_fwd(q, k, v, **kw)),
                plain_ms=timer(plain_fwd),
                library_ms=timer(lambda: F.scaled_dot_product_attention(
@@ -1102,6 +1105,16 @@ def lm_kernel_phase(torch, timer, total: int) -> dict:
         rows[(r["kernel"], "bfloat16")] = r
     rows.update(wide_flash_phase(torch, timer))
     return rows
+
+
+def fwd_repeat(torch, args, kw, outs) -> bool:
+    """o and lse of a second forward on the same inputs, bit for bit the
+    first's: a block owns its output rows."""
+    from apex_tpu_torch.ops import flash_attn as FA
+    same = all(bool(torch.equal(a, b))
+               for a, b in zip(FA.flash_fwd(*args, **kw), outs))
+    check(same, "flash forward: two runs on the same inputs differ")
+    return same
 
 
 def flash_repeats(torch, args, kw, outs) -> dict:
@@ -1151,11 +1164,12 @@ def flash_bwd_row(torch, timer, tensors, kw, errs, rep, lib_bwd,
 
 
 def wide_flash_phase(torch, timer) -> dict:
-    """The flash backward at the wide LM's attention, [B·H, S, 128] bf16
-    causal (``WIDE_SHAPE``: 4 × 96 heads, S 2048): dq, dk/dv and the whole
-    backward against the plain versions on the first heads (the flash
-    rule), each output repeated bit for bit, with their bounds, the plain
-    versions' times and SDPA's backward."""
+    """The flash kernels at the wide LM's attention, [B·H, S, 128] bf16
+    causal (``WIDE_SHAPE``: 4 × 96 heads, S 2048): the forward, dq, dk/dv
+    and the whole backward against the plain versions on the first heads
+    (the flash rule; lse within 1e-3), each output repeated bit for bit,
+    with their bounds, the plain versions' times (the forward's head group
+    by head group) and causal SDPA's forward and backward."""
     import torch.nn.functional as F
 
     from apex_tpu_torch.ops import flash_attn as FA
@@ -1172,18 +1186,32 @@ def wide_flash_phase(torch, timer) -> dict:
     delta = FA.flash_delta(o, do)
     dq = FA.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
     dk, dv = FA.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    o0, lse0 = FA.reference_attention(q[:n], k[:n], v[:n], return_lse=True,
+                                      **kw)
     want = FA.flash_bwd_plain(q[:n], k[:n], v[:n], do[:n], lse[:n],
                               delta[:n], **kw)
     torch.cuda.synchronize()
     errs = {w: flash_err(torch, a[:n], b0)
-            for w, a, b0 in zip(("dq", "dk", "dv"), (dq, dk, dv), want)}
+            for w, a, b0 in zip(("o", "dq", "dk", "dv"), (o, dq, dk, dv),
+                                (o0, *want))}
+    lse_err = float((lse[:n] - lse0).abs().max())
     emit({"phase": "flash_tol", "shape": [BH, S, D], "reading": "wide",
-          **errs})
+          "lse_err": lse_err, **errs})
+    check(lse_err <= 1e-3, f"flash lse at {[BH, S, D]}: {lse_err} > 1e-3")
     for w, e in errs.items():
         check(e["used"] <= 1.0, f"flash {w} at {[BH, S, D]}: {e}")
     args = (q, k, v, do, lse, delta)
     rep = flash_repeats(torch, args, kw, (dq, dk, dv))
-    del want
+    fwd_rep = fwd_repeat(torch, (q, k, v), kw, (o, lse))
+    del want, o0, lse0
+    group = 16
+
+    def plain_fwd():
+        # head group by head group, as the LM's reading
+        for i in range(0, BH, group):
+            FA.reference_attention(q[i:i + group], k[i:i + group],
+                                   v[i:i + group], return_lse=True, **kw)
+
     q4, k4, v4, do4 = (t.view(B, H, S, D) for t in (q, k, v, do))
     ql, kl, vl = (t.detach().clone().requires_grad_(True)
                   for t in (q4, k4, v4))
@@ -1198,10 +1226,22 @@ def wide_flash_phase(torch, timer) -> dict:
                   per_step=WIDE_PER_STEP["flash_bwd_dq"], checked_heads=n,
                   plain_covers="dq, dk and dv (one flash_bwd_plain)",
                   library_covers="dq, dk and dv (one SDPA backward)")
+    fwd_b = bound(4 * sz + 4 * BH * S, 4 * D * pairs, BF16_DENSE_OPS_S)
     dq_b = bound(5 * sz + 8 * BH * S, 6 * D * pairs, BF16_DENSE_OPS_S)
     dkv_b = bound(6 * sz + 8 * BH * S, 8 * D * pairs, BF16_DENSE_OPS_S)
     rows = {}
     for r in (
+            dict(common, kernel="flash_fwd",
+                 max_abs_err=errs["o"]["max_abs_err"],
+                 tol_used=errs["o"]["used"], lse_err=lse_err,
+                 repeat_equal=fwd_rep,
+                 ms=timer(lambda: FA.flash_fwd(q, k, v, **kw)),
+                 plain_ms=timer(plain_fwd),
+                 plain_covers="the forward (reference_attention)",
+                 library_ms=timer(lambda: F.scaled_dot_product_attention(
+                     q4, k4, v4, is_causal=True)),
+                 library_covers="the forward (causal SDPA)",
+                 bound_ms=fwd_b[0], bound_by=fwd_b[1]),
             dict(common, kernel="flash_bwd_dq",
                  max_abs_err=errs["dq"]["max_abs_err"],
                  tol_used=errs["dq"]["used"], repeat_equal=rep["dq"],
@@ -3867,15 +3907,22 @@ def main() -> int:
     t0 = time.perf_counter()
     kcuda.lib()
     ptxas = ptxas_table(kcuda.build_log)
-    # the flash backward's Hopper kernels: registers at entry (setmaxnreg
-    # gives the consumers more) and spills, which must be none
+    # the flash forward's and backward's Hopper kernels, every form:
+    # registers at entry (setmaxnreg gives the consumers more) and spills,
+    # which must be none
+    flash_fwd = {n: e for n, e in ptxas.items() if "flash_fwd_kernel" in n}
     flash_bwd = {n: e for n, e in ptxas.items()
                  if "flash_dq_kernel" in n or "flash_dkv_kernel" in n}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "compiled": kcuda.build_seconds is not None, "ptxas": ptxas,
-          "flash_bwd_ptxas": flash_bwd})
-    check(all(e.get("spill_bytes", 0) == 0 for e in flash_bwd.values()),
-          f"the flash backward kernels spill: {flash_bwd}")
+          "flash_fwd_ptxas": flash_fwd, "flash_bwd_ptxas": flash_bwd})
+    check(not kcuda.build_seconds or (len(flash_fwd) == 6
+                                      and len(flash_bwd) == 8),
+          f"ptxas reported {len(flash_fwd)} forward and {len(flash_bwd)} "
+          f"backward flash forms, not 6 and 8")
+    for what, forms in (("forward", flash_fwd), ("backward", flash_bwd)):
+        check(all(e.get("spill_bytes", 0) == 0 for e in forms.values()),
+              f"the flash {what} kernels spill: {forms}")
 
     # 2. kernels against their plain versions; the training kernels over
     # the RN50 master store's layout
@@ -4041,7 +4088,7 @@ def main() -> int:
                  "apex_tpu/ops/pallas/multi_tensor.py:270"),
         "ln_bwd": ("apex_tpu_torch/ops/cuda/csrc/layer_norm.cu",
                    "apex_tpu/ops/pallas/layer_norm.py:105"),
-        "flash_fwd": ("apex_tpu_torch/ops/cuda/csrc/flash_attn.cu",
+        "flash_fwd": ("apex_tpu_torch/ops/cuda/csrc/flash_fwd.cu",
                       "apex_tpu/contrib/multihead_attn/flash_attention.py"
                       ":181"),
         "flash_bwd_dq": ("apex_tpu_torch/ops/cuda/csrc/flash_bwd.cu",
@@ -4142,10 +4189,12 @@ def main() -> int:
                     k: rows[(name, "vit", reading)][k] for k in sub[1:]}}
                 for nb, reading in (("shared", "bias"),
                                     ("per_bh", "bias_bh"))}
-        if name in ("flash_bwd_dq", "flash_bwd_dkv"):
-            # at the wide LM's [384, 2048, 128]; and the whole backward
-            # (flash_delta, dq and dk/dv in one timed call) at both shapes
+        if name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            # at the wide LM's [384, 2048, 128]
             entry["wide"] = {k: rows[(name, "wide")][k] for k in sub}
+        if name in ("flash_bwd_dq", "flash_bwd_dkv"):
+            # the whole backward (flash_delta, dq and dk/dv in one timed
+            # call) at both shapes
             entry["backward"] = {
                 shape: {k: rows[("flash_bwd", key)][k] for k in sub}
                 for shape, key in (("lm", "bfloat16"), ("wide", "wide"))}

@@ -546,6 +546,126 @@ def test_flash_wrappers_refuse_what_the_kernels_do_not_take(card):
                         scale=0.125)
 
 
+def _forward_holds(FA, q, k, v, kw):
+    """The forward against its plain version on the same card tensors: o
+    under the flash rule, lse within 1e-3 where a row sees a key, exactly
+    NEG_INF (and o = 0) where it sees none, and a second run bit for bit
+    the first (a block owns its output rows)."""
+    o, lse = FA.flash_fwd(q, k, v, **kw)
+    with dispatch.backend("reference"):
+        o0, lse0 = FA.flash_fwd(q, k, v, **kw)
+    assert o.shape == o0.shape and lse.shape == lse0.shape
+    _flash_close(o, o0)
+    live = lse0 > FA.NEG_INF * 0.5
+    assert float(torch.where(live, (lse - lse0).abs(), 0.0).max()) <= 1e-3
+    assert torch.equal(lse[~live], lse0[~live]) and not o[~live].any()
+    o2, lse2 = FA.flash_fwd(q, k, v, **kw)
+    assert torch.equal(o2, o) and torch.equal(lse2, lse)
+    return o, lse
+
+
+# the forward's tile edges: blocks of 128 query rows (two warpgroups of
+# 64), staged key tiles of 128 keys, the ragged tails; Sq != Sk
+FWD_EDGES = [(1, 63), (63, 64), (64, 65), (65, 127), (127, 128),
+             (128, 129), (129, 197), (197, 4095), (4095, 1), (4095, 197)]
+
+
+@pytest.mark.parametrize("sq,sk", FWD_EDGES)
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("mask", ["none", "causal", "causal_offset"])
+def test_flash_forward_at_the_tile_edges(card, sq, sk, d, mask):
+    """The Hopper forward at every edge of its tiles, causal and not; with
+    offsets that leave the first rows seeing nothing and the diagonal
+    crossing tiles off their corners."""
+    from apex_tpu_torch.ops import flash_attn as FA
+    g = torch.Generator(device=card).manual_seed(7 * sq + sk + d)
+
+    def rnd(*s):
+        return torch.randn(*s, generator=g, device=card).to(torch.bfloat16)
+
+    q, k, v = rnd(3, sq, d), rnd(3, sk, d), rnd(3, sk, d)
+    kw = dict(causal=mask != "none", scale=d ** -0.5)
+    if mask == "causal_offset":
+        kw.update(q_start=sk - sq + 5, k_start=3)
+    _forward_holds(FA, q, k, v, kw)
+
+
+@pytest.mark.parametrize("sq,sk", [(63, 129), (129, 197), (197, 197),
+                                   (128, 255)])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("form", ["kv_bias", "shared", "per_bh", "dropout"])
+def test_flash_forward_extra_forms_at_the_tile_edges(card, sq, sk, d, form):
+    """Each input of the EXTRA form alone at the tile edges: the per-key
+    kv_bias (a fifth of the keys masked), the full bias shared over bh or
+    one per bh (every seventh key masked), dropout 0.1, causal with an
+    offset."""
+    from apex_tpu_torch.ops import flash_attn as FA
+    g = torch.Generator(device=card).manual_seed(3 * sq + sk + d)
+    bh = 4
+
+    def rnd(*s):
+        return torch.randn(*s, generator=g, device=card).to(torch.bfloat16)
+
+    q, k, v = rnd(bh, sq, d), rnd(bh, sk, d), rnd(bh, sk, d)
+    kw = dict(causal=True, scale=d ** -0.5, q_start=sk - sq, k_start=0)
+    if form == "kv_bias":
+        kw["kv_bias"] = torch.where(
+            torch.rand(bh, sk, generator=g, device=card) < 0.2, FA.NEG_INF,
+            0.0)
+    elif form == "dropout":
+        kw.update(dropout_rate=0.1, dropout_seed=12345)
+    else:
+        kw["bias"] = torch.randn(1 if form == "shared" else bh, sq, sk,
+                                 generator=g, device=card)
+        kw["bias"][..., ::7] = FA.NEG_INF
+    _forward_holds(FA, q, k, v, kw)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_forward_reads_strided_and_broadcast_views(card, d):
+    """The forward's TMA maps read the time-major split's [BH, S, D] views
+    (strides (D, B·H·D, 1)) in place, and copy k and v broadcast over bh:
+    the same bits as from contiguous tensors."""
+    from apex_tpu_torch.ops import flash_attn as FA
+    g = torch.Generator(device=card).manual_seed(d)
+    t, bh = 200, 4
+
+    def view(s):
+        return torch.randn(s, bh, d, generator=g, device=card).to(
+            torch.bfloat16).transpose(0, 1)
+
+    q, k, v = view(t), view(t + 57), view(t + 57)
+    assert not q.is_contiguous() and FA._tma_readable(q) is q
+    kw = dict(causal=True, scale=d ** -0.5, q_start=57)
+    got = FA.flash_fwd(q, k, v, **kw)
+    want = FA.flash_fwd(q.contiguous(), k.contiguous(), v.contiguous(), **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    kb, vb = k[:1].expand(bh, -1, -1), v[:1].expand(bh, -1, -1)
+    got = FA.flash_fwd(q, kb, vb, **kw)
+    want = FA.flash_fwd(q, kb.contiguous(), vb.contiguous(), **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    _forward_holds(FA, q, kb, vb, kw)
+
+
+def test_flash_dropout_mask_reads_back_over_a_whole_key_tile(card):
+    """The exact read-back of the dropout mask (as below) at head dim 128
+    over 128 keys: one whole staged key tile of the forward, v = I."""
+    from apex_tpu_torch.ops import flash_attn as FA
+    bh, n, rate, seed = 3, 128, 0.1, 0x1234567
+    eye = torch.eye(n, device=card, dtype=torch.bfloat16)
+    q = torch.zeros(bh, n, n, device=card, dtype=torch.bfloat16)
+    v = eye.expand(bh, n, n).contiguous()
+    kw = dict(causal=False, scale=0.125, q_start=300, k_start=5,
+              dropout_rate=rate, dropout_seed=seed)
+    o, _ = FA.flash_fwd(q, q, v, **kw)
+    pos = torch.arange(n, device=card)
+    keep = FA.dropout_bits(seed, torch.arange(bh, device=card)[:, None, None],
+                           300 + pos[None, :, None],
+                           5 + pos[None, None, :]) >= FA.drop_threshold(rate)
+    assert torch.equal(o != 0, keep)
+    assert 0.8 < float(keep.float().mean()) < 1.0
+
+
 # (bh, sq, sk, d, causal, q_start, k_start, bias: None, "shared" or
 # "per_bh", kv_bias, dropout rate): the ViT's ragged 197, Sq != Sk, offsets
 # that leave rows with nothing to see, every input at once
@@ -1287,9 +1407,11 @@ def test_fp16_optimizer_adagrad_through_the_kernels_matches_plain(card):
 # -- the wide LayerNorm (F > 8192) and bn_backward_reduce ---------------------
 
 @pytest.mark.parametrize("rows,f", [(1, 8196), (13, 9344), (13, 16384),
-                                    (37, 12288), (520, 9344), (4, 200704)])
+                                    (37, 12288), (520, 9344), (4, 200704),
+                                    (5, 16388)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_ln_wide_kernels_match_plain_and_repeat(card, rows, f, dtype):
+    # the one-pass forward to 16384, the chunked one above
     g = torch.Generator(device=card).manual_seed(rows + f)
     x = (torch.randn(rows, f, generator=g, device=card) * 3 + 1).to(dtype)
     dy = torch.randn(rows, f, generator=g, device=card).to(dtype)
@@ -1322,11 +1444,13 @@ def test_ln_wide_kernels_match_plain_and_repeat(card, rows, f, dtype):
                    if a is not None)
 
 
-def test_ln_wide_forward_holds_a_large_mean(card):
+@pytest.mark.parametrize("f", [9344, 12288, 16384, 200704])
+def test_ln_wide_forward_holds_a_large_mean(card, f):
     """x = 1000 + 0.01·N(0, 1): the naive E[x²] − E[x]² cancels in fp32;
-    within 0.05 of an fp64 reference, the JAX package's own bar."""
+    within 0.05 of an fp64 reference, the JAX package's own bar, in the
+    one-pass form (F <= 16384) and the chunked one."""
     g = torch.Generator(device=card).manual_seed(7)
-    x = 1000.0 + 0.01 * torch.randn(9, 16384, generator=g, device=card)
+    x = 1000.0 + 0.01 * torch.randn(9, f, generator=g, device=card)
     y, mean, inv = LN.ln_fwd(x, None, None, 1e-5)
     xd = x.double()
     ref = (xd - xd.mean(1, keepdim=True)) * torch.rsqrt(

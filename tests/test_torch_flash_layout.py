@@ -1,13 +1,14 @@
-"""The flash backward's host-side layout, on the CPU.
+"""The Hopper flash kernels' host-side layout, on the CPU.
 
-dq and dk/dv (``ops/cuda/csrc/flash_bwd.cu``) copy their tiles by TMA. The
-wrappers describe each tensor's map (``tma_layout``: the dims innermost
-first, (D, S, BH); the row and bh strides in bytes, which TMA takes only in
-multiples of 16; the box, 64 head-dim elements of 128 bytes by 64 rows by
-one bh), the grid's row blocks (``bwd_blocks``: 128 rows a block) and the
-views they hand over (``_tma_readable``). The kernels encode the maps from
-these numbers and refuse a layout that does not match the tensor, so what
-is tested here is what the card reads.
+The forward (``ops/cuda/csrc/flash_fwd.cu``), dq and dk/dv
+(``ops/cuda/csrc/flash_bwd.cu``) copy their tiles by TMA. The wrappers
+describe each tensor's map (``tma_layout``: the dims innermost first, (D,
+S, BH); the row and bh strides in bytes, which TMA takes only in multiples
+of 16; the box, 64 head-dim elements of 128 bytes by 64 rows by one bh),
+the grid's row blocks (``row_blocks``: 128 rows a block) and the views they
+hand over (``_tma_readable``). The kernels encode the maps from these
+numbers and refuse a layout that does not match the tensor, so what is
+tested here is what the card reads.
 """
 
 import pytest
@@ -21,7 +22,7 @@ def _bf16(*shape):
 
 
 def test_box_is_one_swizzle_span_by_one_staged_tile():
-    assert FA.TMA_BOX == (64, 64, 1) and FA.BWD_ROWS == 128
+    assert FA.TMA_BOX == (64, 64, 1) and FA.BLOCK_ROWS == 128
     assert FA.TMA_BOX[0] * 2 == 128          # bytes: the 128-byte swizzle
 
 
@@ -91,7 +92,9 @@ def test_every_readable_layout_has_strides_tma_takes(make):
                                          (129, 2), (197, 2), (255, 2),
                                          (256, 2), (2048, 16), (4095, 32)])
 def test_bwd_blocks(rows, blocks):
-    assert FA.bwd_blocks(rows) == blocks
+    """The grid of the forward, dq and dk/dv alike: one block per 128 rows
+    (the C side refuses any other count)."""
+    assert FA.row_blocks(rows) == blocks == -(-rows // FA.BLOCK_ROWS)
 
 
 def test_maps_pack_four_layouts_in_order():
@@ -102,3 +105,45 @@ def test_maps_pack_four_layouts_in_order():
     assert len(maps) == 32
     assert list(maps) == [x for t in (q, k, v, do)
                           for x in FA.tma_layout(t)]
+
+
+def _views(d):
+    """q, k, v as the forward's callers hand them over: contiguous, the
+    time-major split's views (strides (D, B·H·D, 1)) and k, v broadcast
+    over bh (a stride of 0)."""
+    t, bh = 70, 4
+    tm = _bf16(t, bh, d).transpose(0, 1)
+    return {
+        "contiguous": (_bf16(bh, 30, d), _bf16(bh, t, d), _bf16(bh, t, d)),
+        "time_major": (tm, tm, tm),
+        "broadcast": (_bf16(bh, 30, d), _bf16(1, t, d).expand(bh, t, d),
+                      _bf16(1, t, d).expand(bh, t, d)),
+    }
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("kind", ["contiguous", "time_major", "broadcast"])
+def test_forward_maps_of_q_k_v(kind, d):
+    """The forward takes q, k and v through ``_tma_readable`` and hands the
+    C side their three maps, 8 ints each, in that order: views TMA reads
+    in place keep their strides; a broadcast view becomes one contiguous
+    copy (TMA takes no zero stride)."""
+    views = _views(d)[kind]
+    ts = [FA._tma_readable(t) for t in views]
+    for src, t in zip(views, ts):
+        if kind == "broadcast" and src.stride(0) == 0:
+            assert t is not src and t.is_contiguous() and torch.equal(t, src)
+        else:
+            assert t is src
+    maps = FA._tma_maps(*ts)
+    assert len(maps) == 24
+    assert list(maps) == [x for t in ts for x in FA.tma_layout(t)]
+    bh = ts[0].shape[0]
+    for t, lay in zip(ts, (maps[0:8], maps[8:16], maps[16:24])):
+        assert tuple(lay[:3]) == (d, t.shape[1], bh)
+        assert tuple(lay[5:]) == FA.TMA_BOX
+    if kind == "time_major":
+        assert tuple(maps[3:5]) == (2 * bh * d, 2 * d)
+    else:
+        assert all(tuple(maps[8 * i + 3:8 * i + 5])
+                   == (2 * d, 2 * d * ts[i].shape[1]) for i in range(3))
