@@ -9,7 +9,14 @@ dense and paged.
 ``ops.decode_attn`` launch the hand kernel for a tensor on the card and
 run the plain version for a tensor on the CPU (``dispatch.backend(
 "reference")`` forces the plain version on the card). The TPU's measured
-crossover (``_decode_crossover.json``, ``decode_min_l``) is not read.
+crossover (``_decode_crossover.json``, ``decode_min_l``) is not read. It
+keeps the JAX module's routing rule (``supported``, ``paged_supported``,
+decode_attn.py:39-50; decode_attention.py:191, :214): a shape no kernel
+form takes goes to the plain version, on the card too. The kernel takes
+head dims 64 and 128 (:data:`~apex_tpu_torch.ops.decode_attn.HEAD_DIMS`;
+the JAX kernel takes multiples of 128, so its rule sends 64 to the
+reference) and any arena length and page size, so only another head dim
+is routed.
 """
 
 from __future__ import annotations
@@ -18,7 +25,7 @@ from typing import Optional
 
 import torch
 
-from apex_tpu_torch.ops.decode_attn import (decode_attention,
+from apex_tpu_torch.ops.decode_attn import (HEAD_DIMS, decode_attention,
                                             decode_attention_plain,
                                             gather_pages,
                                             paged_decode_attention,
@@ -56,8 +63,12 @@ def slot_decode_attention(q: torch.Tensor, k: torch.Tensor,
     """Single-query attention over the slot arena. q: [S, H, hd]; k/v:
     [S, H, L, hd] (positions past each slot's length may hold garbage);
     lengths: i32 [S]. With ``page_table`` (i32 [S, P]) k/v are page pools
-    ``[P_phys, H, page, hd]``. Returns [S, H, hd] in q's dtype."""
+    ``[P_phys, H, page, hd]``. Returns [S, H, hd] in q's dtype. A head
+    dim the kernel does not take runs the plain version."""
     _one_query(q)
+    if q.shape[-1] not in HEAD_DIMS:
+        return reference_slot_decode_attention(q, k, v, lengths, scale=scale,
+                                               page_table=page_table)
     if page_table is not None:
         return paged_decode_attention(q, k, v, lengths, scale=scale,
                                       page_table=page_table)

@@ -5,10 +5,11 @@ xavier init (:38-43, :211-236, :305-318), the two mask kinds split onto the
 kernels' inputs (``_masks_to_biases``, :57-75), and the forward with the
 attention core chosen by ``impl`` (:169-203): ``"fast"`` the flash
 kernels, ``"default"`` the unfused ``reference_attention``, ``"auto"`` the
-flash kernels where they take the call (bf16 on the card, head dim 64 or
-128) from ``flash_min_s`` (``DEFAULT_FLASH_MIN_S``, the H100's crossover,
-when unset) or when the unfused scores would pass 2 GiB (``_flash_wins``,
-:138-167), both constants here.
+flash kernels where they take the call (fp32, bf16 or fp16 on the card,
+head dim up to 512) from ``flash_min_s`` (when unset the H100's
+crossover, ``DEFAULT_FLASH_MIN_S``, for the tensor-core kernels; none
+for the simple form) or when the unfused scores would pass 2 GiB
+(``_flash_wins``, :138-167).
 
 A ``key_padding_mask`` [B, Sk] (True = pad) becomes the per-key
 ``kv_bias`` [B·H, Sk], and an ``attn_mask`` [Sq, Sk] a full additive bias
@@ -33,7 +34,7 @@ import torch
 
 from apex_tpu_torch.contrib.multihead_attn.flash_attention import (
     DEFAULT_FLASH_MIN_S, NEG_INF, flash_attention, reference_attention)
-from apex_tpu_torch.ops.flash_attn import KERNEL_HEAD_DIMS
+from apex_tpu_torch.ops.flash_attn import SIMT_MAX_HEAD_DIM, tensor_cores
 
 __all__ = ["SelfMultiheadAttn", "EncdecMultiheadAttn"]
 
@@ -109,10 +110,13 @@ class _AttnBase:
         return self.embed_dim // self.num_heads
 
     def _flash_wins(self, q, k) -> bool:
-        """impl="auto": the kernels only where they take the call — bf16
-        tensors on the card, head dim 64 or 128, at most 65535 heads —
-        and from ``flash_min_s`` (``DEFAULT_FLASH_MIN_S`` when unset) or
-        once the plain path's scores would pass 2 GiB. The kernels take
+        """impl="auto": the kernels only where they take the call — fp32,
+        bf16 or fp16 tensors on the card, head dim up to 512 — from
+        ``flash_min_s``, or once the plain path's scores would pass 2 GiB.
+        Unset, ``flash_min_s`` is ``DEFAULT_FLASH_MIN_S`` for the
+        tensor-core kernels; the simple form has no such length (the plain
+        fp32 path beat it at every S the H100 measured, PERF.md), so only
+        the 2 GiB rule sends a call there. The kernels take
         the full bias and dropout, so neither routes a call away. Anything
         else goes to ``reference_attention``, as JAX's "auto" does below
         its crossover. A routing rule, not a fallback: ``impl="fast"``
@@ -120,14 +124,16 @@ class _AttnBase:
         bh = 1
         for d in q.shape[:-2]:
             bh *= d
-        if not (_on_card(q) and q.dtype == torch.bfloat16
-                and k.dtype == q.dtype and q.shape[-1] in KERNEL_HEAD_DIMS
-                and bh <= 65535):
+        if not (_on_card(q) and q.dtype in (torch.float32, torch.bfloat16,
+                                            torch.float16)
+                and k.dtype == q.dtype
+                and q.shape[-1] <= SIMT_MAX_HEAD_DIM):
             return False
-        thr = self.flash_min_s if self.flash_min_s is not None \
-            else DEFAULT_FLASH_MIN_S
+        thr = self.flash_min_s
+        if thr is None and tensor_cores(q):
+            thr = DEFAULT_FLASH_MIN_S
         sq, sk = q.shape[-2], k.shape[-2]
-        return max(sq, sk) >= thr or \
+        return (thr is not None and max(sq, sk) >= thr) or \
             6 * bh * sq * sk * 4 > COMPOSED_SCORE_BYTES
 
     def _core(self, q, k, v, bias, kv_bias, is_training: bool,

@@ -9,11 +9,11 @@ smoothing follows ``lse - (1-eps)·z_y - eps·mean(z)``; rows whose label is
 ``padding_idx`` get zero loss and zero gradient.
 
 No kernel here, as in the JAX package (plain XLA dots there): each chunk
-is one matrix product. Its fp32 result comes from bf16 operands where an
-operand is bf16 on the card (``torch.mm(..., out_dtype=float32)``, the
-JAX ``preferred_element_type``; the backward's fp32 dz enters in bf16, as
-the TPU's default dot precision takes an fp32 operand), and from fp32
-operands otherwise.
+is one matrix product. Its fp32 result comes from 16-bit operands where an
+operand is bf16 or fp16 on the card (``torch.mm(..., out_dtype=float32)``,
+the JAX ``preferred_element_type``; the backward's fp32 dz enters in that
+dtype, as the TPU's default dot precision takes an fp32 operand), and
+from fp32 operands otherwise.
 """
 
 from __future__ import annotations
@@ -27,9 +27,9 @@ __all__ = ["linear_cross_entropy"]
 
 def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """fp32 ``a @ b``."""
-    if a.is_cuda and torch.bfloat16 in (a.dtype, b.dtype):
-        return torch.mm(a.to(torch.bfloat16), b.to(torch.bfloat16),
-                        out_dtype=torch.float32)
+    for half in (torch.bfloat16, torch.float16):
+        if a.is_cuda and half in (a.dtype, b.dtype):
+            return torch.mm(a.to(half), b.to(half), out_dtype=torch.float32)
     return torch.mm(a.float(), b.float())
 
 

@@ -116,8 +116,10 @@ def build() -> Path:
 def _declare(so: ctypes.CDLL) -> None:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     so.apex_decode_attention.argtypes = [
-        I, P, P, P, P, P, P, I, I, I, I, I, I, F, P]
+        I, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, P]
     so.apex_decode_attention.restype = I
+    so.apex_decode_merge.argtypes = [I, P, P, P, I, I, I, I, I, P]
+    so.apex_decode_merge.restype = I
     so.apex_layer_norm_fwd.argtypes = [
         I, I, P, P, P, P, P, P, I, I, F, P]
     so.apex_layer_norm_fwd.restype = I
@@ -164,16 +166,25 @@ def _declare(so: ctypes.CDLL) -> None:
     # and 1 / (1 - rate); bh, sq, sk, d, q_start, k_start, causal; scale
     U = ctypes.c_uint32
     tail = [P, L, P, L, U, U, F] + [I] * 7 + [F, P]
-    # the forward, dq and dk/dv: the tensor maps of q, k, v (and dO), 8
-    # long longs each, and the grid's row blocks in place of the strides
-    so.apex_flash_fwd.argtypes = [P] * 5 + [P, I] + tail
+    # the forward, dq and dk/dv: the dtype, the tensor maps of q, k, v
+    # (and dO), 8 long longs each, and the grid's row blocks in place of
+    # the strides
+    so.apex_flash_fwd.argtypes = [I] + [P] * 5 + [P, I] + tail
     so.apex_flash_fwd.restype = I
-    so.apex_flash_bwd_dq.argtypes = [P] * 8 + [P, I] + tail
+    so.apex_flash_bwd_dq.argtypes = [I] + [P] * 8 + [P, I] + tail
     so.apex_flash_bwd_dq.restype = I
-    so.apex_flash_bwd_dkv.argtypes = [P] * 8 + [P, I] + tail
+    so.apex_flash_bwd_dkv.argtypes = [I] + [P] * 8 + [P, I] + tail
     so.apex_flash_bwd_dkv.restype = I
-    so.apex_flash_bwd_dbias.argtypes = [P] * 8 + [I] + [L] * 8 + tail
+    so.apex_flash_bwd_dbias.argtypes = [I] + [P] * 8 + [I] + [L] * 8 + tail
     so.apex_flash_bwd_dbias.restype = I
+    # the simple form: the dtype, pointers, then the strides (bh, row) of
+    # q, k, v (and dO) in elements
+    so.apex_flash_simt_fwd.argtypes = [I] + [P] * 5 + [L] * 6 + tail
+    so.apex_flash_simt_fwd.restype = I
+    for name in ("apex_flash_simt_dq", "apex_flash_simt_dkv",
+                 "apex_flash_simt_dbias"):
+        getattr(so, name).argtypes = [I] + [P] * 8 + [L] * 8 + tail
+        getattr(so, name).restype = I
     so.apex_xent_fwd.argtypes = [I, P, L, P, I, I, I, I, F, F, P, P, P]
     so.apex_xent_fwd.restype = I
     so.apex_xent_bwd.argtypes = [I, P, L, P, I, P, P, I, I, I, F, F, I, P,

@@ -56,6 +56,46 @@ __device__ __forceinline__ void load4(const __half* p, float (&o)[4]) {
   o[2] = __low2float(b); o[3] = __high2float(b);
 }
 
+// four consecutive elements as loaded, one vector load: two 32-bit words
+// of 16-bit T, or four floats; unpack turns them (or one element as
+// loaded) into fp32 where used
+template <typename T>
+struct Raw4 {
+  using type = uint2;
+};
+template <>
+struct Raw4<float> {
+  using type = float4;
+};
+
+template <typename T>
+__device__ __forceinline__ typename Raw4<T>::type raw4(const T* p) {
+  return *reinterpret_cast<const typename Raw4<T>::type*>(p);
+}
+
+template <typename T>
+__device__ __forceinline__ void unpack(const T& r, float (&o)[1], const T*) {
+  o[0] = to_f(r);
+}
+__device__ __forceinline__ void unpack(const float4& r, float (&o)[4],
+                                       const float*) {
+  o[0] = r.x; o[1] = r.y; o[2] = r.z; o[3] = r.w;
+}
+__device__ __forceinline__ void unpack(const uint2& r, float (&o)[4],
+                                       const __nv_bfloat16*) {
+  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&r.x);
+  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&r.y);
+  o[0] = __low2float(a); o[1] = __high2float(a);
+  o[2] = __low2float(b); o[3] = __high2float(b);
+}
+__device__ __forceinline__ void unpack(const uint2& r, float (&o)[4],
+                                       const __half*) {
+  const __half2 a = *reinterpret_cast<const __half2*>(&r.x);
+  const __half2 b = *reinterpret_cast<const __half2*>(&r.y);
+  o[0] = __low2float(a); o[1] = __high2float(a);
+  o[2] = __low2float(b); o[3] = __high2float(b);
+}
+
 // four consecutive fp32 values stored as T, one vector store (callers keep
 // the address 4-element aligned); rounding as from_f
 __device__ __forceinline__ void store4(float* p, const float (&v)[4]) {

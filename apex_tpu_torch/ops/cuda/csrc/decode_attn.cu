@@ -1,207 +1,354 @@
 // Single-query slot attention, dense and paged KV arenas: the serve decode
-// step's attention core.
+// step's attention core, with its keys split across blocks (flash-decoding).
 //
 // Replaces the Pallas kernels of apex_tpu/ops/pallas/decode_attn.py:
 //   decode_attention       -> _decode_kernel        (dense [S, H, L, hd])
 //   paged_decode_attention -> _paged_decode_kernel  (pool [P+1, H, page, hd]
 //                                                    + page table [S, P])
-// One kernel body serves both; the template flag only changes how a key
-// position becomes an address. Both therefore sum in the same order, so a
-// paged decode is bitwise equal to a dense decode over the same bytes.
+// for head_dim 64 and 128, in fp32, bf16 and fp16.
 //
 // Bound on this card: bytes. Each (slot, head) reads len * hd keys and as
 // many values once and does ~4 flops per element read, far below the ~20
 // flop/byte fp32 ridge, so the least time is
 //   sum_s 2 * len_s * H * hd * sizeof(T) / 3.35 TB/s.
-// What the design does about it: it reads only the first len_s positions
-// of a slot (the loop stops at the length; masked positions would add
-// exactly 0.0), reads each key and value once, keeps scores, the running
-// max/sum and the fp32 PV accumulator in registers, never materialises the
-// [S, H, L] scores or a gathered [S, H, L, hd] view of the page pool, and
-// keeps many rows in flight: the 8 warps of a block walk the keys at once.
-// Known limit: one block per (slot, head) gives S*H blocks (64 at the
-// serve shape) for 132 SMs; a split over the key axis across blocks
-// (flash-decoding) is the next step for speed.
+// At the serve shape (8 slots x 8 heads of 128, lengths up to 1024, bf16)
+// that is 14.7 MB, 4.4 us: the card's 132 SMs must all stream at once.
 //
-// Layout: one block of 8 warps per (slot, head), head_dim 128; lane l
-// holds dims 4l..4l+3 of q, of each key/value row (one vector load) and
-// of its accumulator. Warp w takes the key groups w, w+8, w+16, ... of 8
-// consecutive positions each; per group it
-//   1. loads the 8 key and 8 value rows (all in flight together),
-//   2. scores them (lane products, warp butterfly sums, * scale);
-//      positions past the length score kNegInf,
-//   3. runs the online-softmax update of decode_attn.py:150-161 (running
-//      max m, sum l, rescale alpha) with the where() masking of :63-71,
-//      all fp32, and adds p_j * v_j into its accumulator.
-// On the paged arena a group reads its physical page from the block's
-// page-table row once (page % 8 == 0, so a group never straddles pages).
-// The block then merges the 8 warps' (m, l, acc) states and thread d
-// writes out[d] = acc / (l > 0 ? l : 1) in q's dtype (length 0 gives 0).
-// The order of every sum depends only on the positions, never on where a
-// row lives, so the dense and paged arenas give the same bits.
+// Design. One block of 4 warps per (slot * H + head, chunk of kChunk = 64
+// key positions): a row of length n takes ceil(n / 64) blocks (grid.y
+// covers the arena's capacity; a block whose chunk starts at or past n
+// returns before it loads any key or value), so a slot of 1024 keys spreads
+// over 16 SMs instead of streaming its 512 KB through one. The serve
+// shape's ~470 live blocks must all be resident at once, so the 16-bit
+// forms hold their keys and values as loaded (two 32-bit words a row).
+// Inside a block, warp w takes the 16 positions 16w..16w+15 of the chunk
+// (4 warps of 16 keys timed faster on the H100 than 8 of 8, 8 of 16 and
+// 16 of 8), every load issued before the first is used, and q, the length
+// and (paged) the page-table entries are loaded together before them: at
+// hd 128 a key row is one warp (lane l holds dims 4l..4l+3, one 8-byte
+// load in bf16); at hd 64 a key row is a half-warp and the two halves
+// take two keys at once, so a lane still
+// makes one 8-byte load per row (the choice between that and a lane
+// holding 2 dims of a full-warp row: the same bytes, but half the loads
+// in flight, and the 4-dim lane keeps one code path for both head dims).
+// Each warp (hd 64: each half) scores its keys (lane products, a butterfly
+// over the row's lanes, * scale; positions past the length score kNegInf
+// and are never loaded), and keeps the softmax state of
+// decode_attn.py:150-161: the max m, the sum l of exp(s - m) and the fp32
+// accumulator sum p_j v_j, with the where() masking of :63-71. The block
+// merges its 4 (hd 64: 8) states in a fixed order through shared memory.
+// A row that fits one chunk (n <= 64) writes o = acc / l (o = 0 for n = 0)
+// at once; a longer row writes its chunk's (m, l, acc[hd]) to a workspace,
+// and decode_merge_kernel, one block per row, merges the row's chunks in
+// chunk order (up to 16 chunks loading all their partials at once) and
+// writes o in q's dtype. The merge is a programmatic
+// dependent launch: its blocks start while the chunk kernel runs, read
+// their lengths, and wait (griddepcontrol.wait) for the chunk kernel's
+// writes, so the second launch's latency hides under the first kernel.
+// There are no float atomics, and the chunk boundaries (multiples of 64
+// positions) depend only on the positions, never on where a row lives: on
+// the paged arena a lane follows the page table for each of its keys (any
+// page size), so a paged decode sums in the same order as a dense one and
+// the two agree bit for bit, and two runs repeat bit for bit.
+
+#include <type_traits>
 
 #include "common.cuh"
 
 namespace apex_port {
 namespace {
 
-constexpr int kHeadDim = 128;
-constexpr int kWarps = 8;
+constexpr int kChunk = 64;                 // key positions a block takes
+constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kGroup = 8;                 // keys a warp takes at once
-constexpr int kRound = kWarps * kGroup;   // keys per round of a block
+constexpr int kWarpKeys = kChunk / kWarps;  // positions a warp takes
+// chunks whose partials the merge loads all at once (a row of up to 1024
+// positions); a longer row's are walked in a loop
+constexpr int kPrefetch = 16;
 
-template <typename T, bool PAGED>
-__global__ void __launch_bounds__(kThreads)
-decode_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, const int* __restrict__ lengths,
-                   const int* __restrict__ page_table, T* __restrict__ out,
-                   int H, int L, int page, int max_pages, float scale) {
-  const int sh = blockIdx.x;                  // slot * H + head
+// the (m, l, acc[HD]) partial of one (row, chunk) in the workspace
+template <int HD>
+constexpr int kPart = HD + 2;
+
+// the keys and values held as loaded (at head dim 128 in 16-bit, 32
+// registers); four blocks an SM at most 128 registers a thread
+template <typename T, int HD, bool PAGED>
+__global__ void __launch_bounds__(kThreads, 4)
+decode_chunk_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const int* __restrict__ lengths,
+                    const int* __restrict__ page_table, T* __restrict__ out,
+                    float* __restrict__ part, int H, int L, int page,
+                    int max_pages, float scale) {
+  constexpr int kRowLanes = HD / 4;            // lanes of one key row
+  constexpr int kSubs = 32 / kRowLanes;        // rows a warp takes at once
+  constexpr int kLaneKeys = kWarpKeys / kSubs;  // keys a lane loads
+  constexpr int kStates = kWarps * kSubs;
+  // the merge kernel may start while this grid runs (it waits for this
+  // grid's writes before it reads them)
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  const int sh = blockIdx.x;                   // slot * H + head
+  const int chunk = blockIdx.y;
   const int s = sh / H;
   const int h = sh - s * H;
+  const int cap = PAGED ? max_pages * page : L;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int cap = PAGED ? max_pages * page : L;
+  const int sub = lane / kRowLanes;            // which of the warp's rows
+  const int dl = lane % kRowLanes;             // dims 4 dl .. 4 dl + 3
+  const int c0 = chunk * kChunk;
+  // q, the length and (paged) this lane's pages are loaded together; the
+  // keys and values only once the chunk is known to hold some
+  float qv[4];
+  load4(q + (size_t)sh * HD + dl * 4, qv);
+  size_t row0[kLaneKeys];
+#pragma unroll
+  for (int i = 0; i < kLaneKeys; ++i) {
+    const int pos = c0 + warp * kWarpKeys + sub + kSubs * i;
+    if (PAGED) {
+      const int lp = (pos < cap ? pos : 0) / page;
+      const int phys = __ldg(page_table + (size_t)s * max_pages + lp);
+      row0[i] = ((size_t)phys * H + h) * page + (pos - lp * page);
+    } else {
+      row0[i] = (size_t)sh * L + pos;
+    }
+  }
   int n = __ldg(lengths + s);
   n = n < 0 ? 0 : (n > cap ? cap : n);
+  if (c0 >= n && chunk > 0) return;            // past the row: no K, V
 
-  float qv[4];
-  load4(q + (size_t)sh * kHeadDim + lane * 4, qv);
-
-  float m = kNegInf;       // this warp's running max, sum, accumulator
+  // this lane's keys: positions c0 + 16 warp + sub + kSubs i
+  using R = typename Raw4<T>::type;
+  R kraw[kLaneKeys], vraw[kLaneKeys];
+#pragma unroll
+  for (int i = 0; i < kLaneKeys; ++i) {
+    const int pos = c0 + warp * kWarpKeys + sub + kSubs * i;
+    if (pos < n) {
+      kraw[i] = raw4(k + row0[i] * HD + dl * 4);
+      vraw[i] = raw4(v + row0[i] * HD + dl * 4);
+    } else {
+      kraw[i] = vraw[i] = R{};
+    }
+  }
+  float sc[kLaneKeys];
+  float m = kNegInf;
+#pragma unroll
+  for (int i = 0; i < kLaneKeys; ++i) {
+    float kr[4];
+    unpack(kraw[i], kr, k);
+    float dot = kr[0] * qv[0] + kr[1] * qv[1] + kr[2] * qv[2] +
+                kr[3] * qv[3];
+    // the row's lanes only: offsets below kRowLanes stay inside it
+#pragma unroll
+    for (int off = kRowLanes / 2; off > 0; off >>= 1) {
+      dot += __shfl_xor_sync(0xffffffffu, dot, off);
+    }
+    const int pos = c0 + warp * kWarpKeys + sub + kSubs * i;
+    sc[i] = pos < n ? dot * scale : kNegInf;
+    m = fmaxf(m, sc[i]);
+  }
   float l = 0.f;
   float acc[4] = {0.f, 0.f, 0.f, 0.f};
-
-  for (int base = warp * kGroup; base < n; base += kRound) {
-    // the group's first row; a group never straddles a page (the wrapper
-    // requires page % kGroup == 0), so one table lookup serves all 8
-    size_t row0;
-    if (PAGED) {
-      const int lp = base / page;
-      const int phys = __ldg(page_table + (size_t)s * max_pages + lp);
-      row0 = ((size_t)phys * H + h) * page + (base - lp * page);
-    } else {
-      row0 = (size_t)sh * L + base;
-    }
-    float kr[kGroup][4], vr[kGroup][4];
 #pragma unroll
-    for (int j = 0; j < kGroup; ++j) {
-      if (base + j < n) {
-        load4(k + (row0 + j) * kHeadDim + lane * 4, kr[j]);
-        load4(v + (row0 + j) * kHeadDim + lane * 4, vr[j]);
-      } else {
+  for (int i = 0; i < kLaneKeys; ++i) {
+    const float p = sc[i] > kNegInf * 0.5f ? expf(sc[i] - m) : 0.f;
+    float vr[4];
+    unpack(vraw[i], vr, v);
+    l += p;
 #pragma unroll
-        for (int d = 0; d < 4; ++d) kr[j][d] = vr[j][d] = 0.f;
-      }
-    }
-    float sc[kGroup];
-    float gmax = kNegInf;
-#pragma unroll
-    for (int j = 0; j < kGroup; ++j) {
-      const float dot = kr[j][0] * qv[0] + kr[j][1] * qv[1] +
-                        kr[j][2] * qv[2] + kr[j][3] * qv[3];
-      const float sj = warp_sum(dot) * scale;   // the whole warp shuffles
-      sc[j] = base + j < n ? sj : kNegInf;
-      gmax = fmaxf(gmax, sc[j]);
-    }
-    const float m_new = fmaxf(m, gmax);
-    const float alpha = expf(m - m_new);
-    float psum = 0.f;
-#pragma unroll
-    for (int d = 0; d < 4; ++d) acc[d] *= alpha;
-#pragma unroll
-    for (int j = 0; j < kGroup; ++j) {
-      const float p = sc[j] > kNegInf * 0.5f ? expf(sc[j] - m_new) : 0.f;
-      psum += p;
-#pragma unroll
-      for (int d = 0; d < 4; ++d) acc[d] += p * vr[j][d];
-    }
-    l = l * alpha + psum;
-    m = m_new;
+    for (int d = 0; d < 4; ++d) acc[d] += p * vr[d];
   }
 
-  // merge the warps' softmax states (a warp that saw no key holds
-  // m = kNegInf, l = 0, acc = 0 and weighs exactly 0, or 1 if all did)
-  __shared__ float m_sh[kWarps];
-  __shared__ float l_sh[kWarps];
-  __shared__ float acc_sh[kWarps][kHeadDim];
-  if (lane == 0) {
-    m_sh[warp] = m;
-    l_sh[warp] = l;
+  // merge the block's states in a fixed order (a state that saw no key
+  // holds m = kNegInf, l = 0, acc = 0 and weighs exactly 0, or 1 if all
+  // did)
+  __shared__ float m_sh[kStates];
+  __shared__ float l_sh[kStates];
+  __shared__ float acc_sh[kStates][HD];
+  const int st = warp * kSubs + sub;
+  if (dl == 0) {
+    m_sh[st] = m;
+    l_sh[st] = l;
   }
 #pragma unroll
-  for (int d = 0; d < 4; ++d) acc_sh[warp][lane * 4 + d] = acc[d];
+  for (int d = 0; d < 4; ++d) acc_sh[st][dl * 4 + d] = acc[d];
   __syncthreads();
-  if (threadIdx.x < kHeadDim) {
-    const int d = threadIdx.x;
-    float mx = kNegInf;
+  if (threadIdx.x >= HD) return;
+  const int d = threadIdx.x;
+  float mx = kNegInf;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, m_sh[w]);
-    float lt = 0.f, o = 0.f;
+  for (int w = 0; w < kStates; ++w) mx = fmaxf(mx, m_sh[w]);
+  float lt = 0.f, o = 0.f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      const float f = expf(m_sh[w] - mx);
-      lt += l_sh[w] * f;
-      o += acc_sh[w][d] * f;
-    }
-    out[(size_t)sh * kHeadDim + d] = from_f<T>(o / (lt > 0.f ? lt : 1.f));
+  for (int w = 0; w < kStates; ++w) {
+    const float f = expf(m_sh[w] - mx);
+    lt += l_sh[w] * f;
+    o += acc_sh[w][d] * f;
+  }
+  if (n <= kChunk) {          // one chunk: the row's output at once
+    out[(size_t)sh * HD + d] = from_f<T>(o / (lt > 0.f ? lt : 1.f));
+    return;
+  }
+  float* pr = part + ((size_t)sh * gridDim.y + chunk) * kPart<HD>;
+  pr[2 + d] = o;
+  if (d == 0) {
+    pr[0] = mx;
+    pr[1] = lt;
   }
 }
 
-template <typename T>
-void launch(bool paged, const void* q, const void* k, const void* v,
-            const int* lengths, const int* pt, void* out, int S, int H,
-            int L, int page, int max_pages, float scale, cudaStream_t st) {
-  const dim3 grid(S * H), block(kThreads);
-  if (paged) {
-    decode_attn_kernel<T, true><<<grid, block, 0, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), lengths, pt, static_cast<T*>(out), H, L,
-        page, max_pages, scale);
-  } else {
-    decode_attn_kernel<T, false><<<grid, block, 0, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), lengths, pt, static_cast<T*>(out), H, L,
-        page, max_pages, scale);
+// one block of HD threads per row (slot * H + head) of more than one
+// chunk: the chunks' partials merged in chunk order, the max first (exact
+// in any order), then the sums in chunk order. Up to kPrefetch chunks
+// every thread loads all of them at once (one round trip); a longer row's
+// max is taken strided over the threads and its sums in a loop.
+template <typename T, int HD>
+__global__ void __launch_bounds__(HD)
+decode_merge_kernel(const float* __restrict__ part,
+                    const int* __restrict__ lengths, T* __restrict__ out,
+                    int H, int cap, int nchunk) {
+  __shared__ float red[HD / 32];
+  const int sh = blockIdx.x;
+  int n = __ldg(lengths + sh / H);
+  n = n < 0 ? 0 : (n > cap ? cap : n);
+  if (n <= kChunk) return;           // written by its one chunk
+  // launched as the chunk kernel's dependent: its partials are complete
+  // and visible past this (a no-op for a launch of its own)
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  const int live = (n + kChunk - 1) / kChunk;
+  const float* pr = part + (size_t)sh * nchunk * kPart<HD>;
+  const int d = threadIdx.x;
+  float mx = kNegInf, lt = 0.f, o = 0.f;
+  if (live <= kPrefetch) {
+    float mr[kPrefetch], lr[kPrefetch], ar[kPrefetch];
+#pragma unroll
+    for (int c = 0; c < kPrefetch; ++c) {
+      const float* pc = pr + c * kPart<HD>;
+      mr[c] = c < live ? pc[0] : kNegInf;
+      lr[c] = c < live ? pc[1] : 0.f;
+      ar[c] = c < live ? pc[2 + d] : 0.f;
+    }
+#pragma unroll
+    for (int c = 0; c < kPrefetch; ++c) mx = fmaxf(mx, mr[c]);
+#pragma unroll
+    for (int c = 0; c < kPrefetch; ++c) {
+      if (c < live) {
+        const float f = expf(mr[c] - mx);
+        lt += lr[c] * f;
+        o += ar[c] * f;
+      }
+    }
+    out[(size_t)sh * HD + d] = from_f<T>(o / (lt > 0.f ? lt : 1.f));
+    return;
   }
+  for (int c = d; c < live; c += HD) mx = fmaxf(mx, pr[c * kPart<HD>]);
+  mx = warp_max(mx);
+  if ((d & 31) == 0) red[d >> 5] = mx;
+  __syncthreads();
+  mx = red[0];
+#pragma unroll
+  for (int w = 1; w < HD / 32; ++w) mx = fmaxf(mx, red[w]);
+#pragma unroll 8
+  for (int c = 0; c < live; ++c) {
+    const float* pc = pr + c * kPart<HD>;
+    const float f = expf(pc[0] - mx);
+    lt += pc[1] * f;
+    o += pc[2 + d] * f;
+  }
+  out[(size_t)sh * HD + d] = from_f<T>(o / (lt > 0.f ? lt : 1.f));
+}
+
+// calls f(Tag<T>, HD) for a storage dtype code and a head dim of 64 or
+// 128; false for any other
+template <typename F>
+bool with_dtype_hd(int dtype, int hd, F&& f) {
+  if (hd != 64 && hd != 128) return false;
+  return with_storage(dtype, [&](auto tag) {
+    if (hd == 64) f(tag, std::integral_constant<int, 64>{});
+    else f(tag, std::integral_constant<int, 128>{});
+  });
 }
 
 }  // namespace
 }  // namespace apex_port
 
-// q [S, H, 128]; dense: k/v [S, H, L, 128]; paged: k/v [P+1, H, page, 128]
-// and page_table i32 [S, max_pages]; lengths i32 [S]; out [S, H, 128].
-// Returns cudaGetLastError() after the launch.
+// q [S, H, hd] (hd 64 or 128); dense: k/v [S, H, L, hd]; paged: k/v
+// [P+1, H, page, hd] and page_table i32 [S, max_pages]; lengths i32 [S];
+// out [S, H, hd]; part fp32 [S * H, nchunk, hd + 2] scratch, nchunk =
+// ceil(capacity / 64) with capacity L (dense) or max_pages * page (paged).
+// Every tensor contiguous, q/k/v/out 16-byte aligned. Rows longer than one
+// chunk are finished by apex_decode_merge. Returns cudaGetLastError().
 extern "C" int apex_decode_attention(int dtype, const void* q,
                                      const void* k, const void* v,
                                      const void* lengths,
                                      const void* page_table, void* out,
-                                     int S, int H, int L, int page,
-                                     int max_pages, int paged, float scale,
+                                     void* part, int S, int H, int hd,
+                                     int L, int page, int max_pages,
+                                     int paged, int nchunk, float scale,
                                      void* stream) {
   using namespace apex_port;
-  if (paged && (page < kGroup || page % kGroup != 0)) {
+  const long long cap = paged ? (long long)max_pages * page : L;
+  if (S < 1 || H < 1 || cap < 1 || cap > 0x7fffffffLL ||
+      (paged && (page < 1 || page_table == nullptr)) ||
+      nchunk != (cap + kChunk - 1) / kChunk || nchunk > 65535 ||
+      (nchunk > 1 && part == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const dim3 grid(S * H, nchunk), block(kThreads);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* lens = static_cast<const int*>(lengths);
   const int* pt = static_cast<const int*>(page_table);
-  switch (dtype) {
-    case kF32:
-      launch<float>(paged, q, k, v, lens, pt, out, S, H, L, page,
-                    max_pages, scale, st);
-      break;
-    case kBF16:
-      launch<__nv_bfloat16>(paged, q, k, v, lens, pt, out, S, H, L, page,
-                            max_pages, scale, st);
-      break;
-    case kF16:
-      launch<__half>(paged, q, k, v, lens, pt, out, S, H, L, page,
-                     max_pages, scale, st);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  float* pr = static_cast<float*>(part);
+  const bool ok = with_dtype_hd(dtype, hd, [&](auto tag, auto hdc) {
+    using T = typename decltype(tag)::type;
+    constexpr int HD = decltype(hdc)::value;
+    const T* qp = static_cast<const T*>(q);
+    const T* kp = static_cast<const T*>(k);
+    const T* vp = static_cast<const T*>(v);
+    T* op = static_cast<T*>(out);
+    if (paged) {
+      decode_chunk_kernel<T, HD, true><<<grid, block, 0, st>>>(
+          qp, kp, vp, lens, pt, op, pr, H, L, page, max_pages, scale);
+    } else {
+      decode_chunk_kernel<T, HD, false><<<grid, block, 0, st>>>(
+          qp, kp, vp, lens, pt, op, pr, H, L, page, max_pages, scale);
+    }
+  });
+  return static_cast<int>(ok ? cudaGetLastError() : cudaErrorInvalidValue);
+}
+
+// The second launch of a decode whose capacity passes one chunk: part as
+// apex_decode_attention wrote it; out [S, H, hd] gets the rows longer than
+// one chunk (the others it leaves). Returns cudaGetLastError().
+extern "C" int apex_decode_merge(int dtype, const void* part,
+                                 const void* lengths, void* out, int S,
+                                 int H, int hd, int cap, int nchunk,
+                                 void* stream) {
+  using namespace apex_port;
+  if (S < 1 || H < 1 || cap < 1 ||
+      nchunk != (cap + kChunk - 1) / kChunk || part == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaSuccess;
+  const bool ok = with_dtype_hd(dtype, hd, [&](auto tag, auto hdc) {
+    using T = typename decltype(tag)::type;
+    constexpr int HD = decltype(hdc)::value;
+    // a programmatic dependent launch: its blocks start while the chunk
+    // kernel before it on the stream runs, and wait for its writes
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(S * H);
+    cfg.blockDim = dim3(HD);
+    cfg.stream = st;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[0].val.programmaticStreamSerializationAllowed = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, decode_merge_kernel<T, HD>,
+                             static_cast<const float*>(part),
+                             static_cast<const int*>(lengths),
+                             static_cast<T*>(out), H, cap, nchunk);
+  });
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }

@@ -1,5 +1,7 @@
-// Flash attention's shared-bias gradient over [BH, S, D] bf16 (D 64 or
-// 128): dbias = dS summed over bh, for a bias [1, Sq, Sk] shared over bh.
+// Flash attention's shared-bias gradient over [BH, S, D] bf16 or fp16 (D
+// 64 or 128): dbias = dS summed over bh, for a bias [1, Sq, Sk] shared over
+// bh. (fp32, and other head dims, take the dS of csrc/flash_simt.cu's dq
+// summed by dbias_sum_kernel.)
 // The forward is csrc/flash_fwd.cu, dq and dk/dv csrc/flash_bwd.cu; the
 // semantics all of them keep from the Pallas kernels are
 // csrc/flash_common.cuh.
@@ -18,7 +20,8 @@
 // pass adds the runs' partial tiles in run order. No float atomics:
 // repeated runs are bitwise equal. The runs fill the card when there are
 // few tiles (S = 197 has 4 x 4 of them). The recompute's products QK^T
-// and dO V^T are mma.sync.m16n8k16 bf16 products with fp32 accumulators:
+// and dO V^T are mma.sync.m16n8k16 products of the 16-bit inputs (bf16 or
+// fp16, E) with fp32 accumulators:
 // a block of four warps owns 64 query rows (16 a warp) and stages the 64
 // keys' K and V in shared memory (rows padded by 8 elements, so the eight
 // 16-byte rows an ldmatrix reads fall in distinct banks); its kv_bias is
@@ -37,30 +40,44 @@ constexpr int kThreads = 128;   // four warps of 16 rows
 // the D = 128 form takes what it needs
 constexpr int kDbBlocks = 3;
 
+// the 16-bit inputs as they are stored: this kernel only moves their bits
+// until the products read them as E
+using u16 = uint16_t;
+
 // two consecutive elements (4-byte aligned)
-__device__ __forceinline__ uint32_t ld_pair(const bf16* p) {
+__device__ __forceinline__ uint32_t ld_pair(const u16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
 // four 8x8 b16 matrices from shared memory: lane l gives the address of
 // row l % 8 of matrix l / 8 (16 bytes, 16-byte aligned); r[i] is lane
 // (g, t4)'s pair of matrix i: row g, columns 2*t4 and 2*t4 + 1
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const u16* p) {
   const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
 }
 
-// c += a (16x16, row major) * b (16x8, col major); bf16 in, fp32 out
+// c += a (16x16, row major) * b (16x8, col major); E (bf16 or fp16) in,
+// fp32 out
+template <typename E>
 __device__ __forceinline__ void mma16816(float (&c)[4],
                                          const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  if constexpr (std::is_same<E, __half>::value) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  } else {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
 }
 
 // A fragments of the warp's 16 rows [row, row + 16) of a [nrows, D] matrix
@@ -69,12 +86,12 @@ __device__ __forceinline__ void mma16816(float (&c)[4],
 // 2*t4 + 8 (the PTX fragment layout of m16n8k16)
 template <int D>
 __device__ __forceinline__ void load_a(uint32_t (&f)[D / 16][4],
-                                       const bf16* base, long long rs,
+                                       const u16* base, long long rs,
                                        int row, int nrows) {
   const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
   const bool in0 = row + g < nrows, in1 = row + g + 8 < nrows;
-  const bf16* p0 = base + (long long)(row + g) * rs + 2 * t4;
-  const bf16* p1 = p0 + 8 * rs;
+  const u16* p0 = base + (long long)(row + g) * rs + 2 * t4;
+  const u16* p1 = p0 + 8 * rs;
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     f[kk][0] = in0 ? ld_pair(p0 + kk * 16) : 0u;
@@ -87,7 +104,7 @@ __device__ __forceinline__ void load_a(uint32_t (&f)[D / 16][4],
 // rows [row0, row0 + kTile) of a [nrows, D] matrix -> sm [kTile][D + 8],
 // 16 bytes a load, zero past nrows
 template <int D>
-__device__ __forceinline__ void load_tile(bf16* sm, const bf16* base,
+__device__ __forceinline__ void load_tile(u16* sm, const u16* base,
                                           long long rs, int row0,
                                           int nrows) {
   constexpr int LD = D + 8, CH = D / 8;
@@ -106,10 +123,10 @@ __device__ __forceinline__ void load_tile(bf16* sm, const bf16* base,
 // staged tile sm taken 8 at a time as the columns of s: the products
 // Q K^T and dO V^T. One ldmatrix gives the B fragments of 32 columns of D
 // (two k-steps of the product)
-template <int D, int NT = 8>
+template <typename E, int D, int NT = 8>
 __device__ __forceinline__ void rows_times_tile(float (&s)[NT][4],
                                                 const uint32_t (&a)[D / 16][4],
-                                                const bf16* sm) {
+                                                const u16* sm) {
   constexpr int LD = D + 8;
   const int lane = threadIdx.x & 31, mi = lane >> 3, r = lane & 7;
 #pragma unroll
@@ -119,8 +136,8 @@ __device__ __forceinline__ void rows_times_tile(float (&s)[NT][4],
     for (int k2 = 0; k2 < D / 32; ++k2) {
       uint32_t b[4];
       ldsm_x4(b, sm + (nt * 8 + r) * LD + k2 * 32 + mi * 8);
-      mma16816(s[nt], a[2 * k2], b[0], b[1]);
-      mma16816(s[nt], a[2 * k2 + 1], b[2], b[3]);
+      mma16816<E>(s[nt], a[2 * k2], b[0], b[1]);
+      mma16816<E>(s[nt], a[2 * k2 + 1], b[2], b[3]);
     }
   }
 }
@@ -175,15 +192,18 @@ __device__ __forceinline__ float p_ds(const Attn& a, int bh, int qi, int kj,
 
 // block (query tile x, key tile y, run z) sums dS over bh in [z * per,
 // min(BH, (z + 1) * per)) in bh order into part [z][Sq][Sk] fp32
-template <int D>
+template <typename E, int D>
 __global__ void __launch_bounds__(kThreads, D == 64 ? kDbBlocks : 1)
-flash_dbias_kernel(Attn a, const bf16* __restrict__ dout, long long do_bh,
+flash_dbias_kernel(Attn a, const u16* __restrict__ dout, long long do_bh,
                    long long do_s, const float* __restrict__ lse,
                    const float* __restrict__ delta, int nbh, int per,
                    float* __restrict__ part) {
   constexpr int LD = D + 8;
-  __shared__ __align__(16) bf16 sK[kTile * LD];
-  __shared__ __align__(16) bf16 sV[kTile * LD];
+  __shared__ __align__(16) u16 sK[kTile * LD];
+  __shared__ __align__(16) u16 sV[kTile * LD];
+  const u16* q = static_cast<const u16*>(a.q);
+  const u16* k = static_cast<const u16*>(a.k);
+  const u16* v = static_cast<const u16*>(a.v);
   __shared__ float sB[kTile];
   const int qb = blockIdx.x, kt = blockIdx.y;
   const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
@@ -203,7 +223,7 @@ flash_dbias_kernel(Attn a, const bf16* __restrict__ dout, long long do_bh,
   const int bh0 = blockIdx.z * per, bh1 = min(nbh, bh0 + per);
   for (int bh = live ? bh0 : bh1; bh < bh1; ++bh) {
     uint32_t qf[D / 16][4], df[D / 16][4];
-    load_a<D>(qf, a.q + bh * a.q_bh, a.q_s, qw, a.sq);
+    load_a<D>(qf, q + bh * a.q_bh, a.q_s, qw, a.sq);
     load_a<D>(df, dout + bh * do_bh, do_s, qw, a.sq);
     float lse_r[2], dlt_r[2];
 #pragma unroll
@@ -214,16 +234,16 @@ flash_dbias_kernel(Attn a, const bf16* __restrict__ dout, long long do_bh,
       dlt_r[h] = row < a.sq ? delta[i] : 0.f;
     }
     __syncthreads();
-    load_tile<D>(sK, a.k + bh * a.k_bh, a.k_s, kt * kTile, a.sk);
-    load_tile<D>(sV, a.v + bh * a.v_bh, a.v_s, kt * kTile, a.sk);
+    load_tile<D>(sK, k + bh * a.k_bh, a.k_s, kt * kTile, a.sk);
+    load_tile<D>(sV, v + bh * a.v_bh, a.v_s, kt * kTile, a.sk);
     load_bias_tile(sB, a, bh, kt * kTile);
     __syncthreads();
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int k0 = half * 32;
       float s[4][4], dp[4][4];
-      rows_times_tile<D, 4>(s, qf, sK + k0 * LD);    // Q K^T
-      rows_times_tile<D, 4>(dp, df, sV + k0 * LD);   // dO V^T
+      rows_times_tile<E, D, 4>(s, qf, sK + k0 * LD);    // Q K^T
+      rows_times_tile<E, D, 4>(dp, df, sV + k0 * LD);   // dO V^T
       const bool full = all_visible(a, qw, 16, kt * kTile + k0, 32);
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt) {
@@ -257,31 +277,19 @@ flash_dbias_kernel(Attn a, const bf16* __restrict__ dout, long long do_bh,
   }
 }
 
-// out[i] = sum over the runs r = 0, 1, ... of part[r][i], in run order
-__global__ void dbias_sum_kernel(const float* __restrict__ part,
-                                 float* __restrict__ out, int runs,
-                                 long long n) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
-       i += (long long)gridDim.x * blockDim.x) {
-    float acc = 0.f;
-    for (int r = 0; r < runs; ++r) acc += part[r * n + i];
-    out[i] = acc;
-  }
-}
-
 }  // namespace
 }  // namespace apex_port
 
-// q, k, v bf16 [bh, s, d] and dout with the given strides (elements;
-// the last dim contiguous, every stride a multiple of 8, every base
-// 16-byte aligned); kvb null or fp32 [1|bh, sk] with bh stride kvb_bh (0
-// when shared), its keys contiguous; dropout when drop_inv = 1 / (1 -
-// rate) > 0, keeping an element whose hash under seed is >= drop_thresh;
-// lse, delta fp32 [bh, sq] contiguous; the bias fp32 [1, sq, sk]
-// contiguous, shared over bh (bias_bh = 0); dbias fp32 [sq, sk]
-// contiguous; bh split into `runs` runs of ceil(bh / runs), and with runs >
-// 1 part fp32 [runs, sq, sk] contiguous scratch.
-extern "C" int apex_flash_bwd_dbias(const void* q, const void* k,
+// q, k, v [bh, s, d] of dtype (bf16 or fp16) and dout with the given
+// strides (elements; the last dim contiguous, every stride a multiple of
+// 8, every base 16-byte aligned); kvb null or fp32 [1|bh, sk] with bh
+// stride kvb_bh (0 when shared), its keys contiguous; dropout when
+// drop_inv = 1 / (1 - rate) > 0, keeping an element whose hash under seed
+// is >= drop_thresh; lse, delta fp32 [bh, sq] contiguous; the bias fp32
+// [1, sq, sk] contiguous, shared over bh (bias_bh = 0); dbias fp32 [sq,
+// sk] contiguous; bh split into `runs` runs of ceil(bh / runs), and with
+// runs > 1 part fp32 [runs, sq, sk] contiguous scratch.
+extern "C" int apex_flash_bwd_dbias(int dtype, const void* q, const void* k,
                                     const void* v, const void* dout,
                                     const void* lse, const void* delta,
                                     void* dbias, void* part, int runs,
@@ -296,8 +304,9 @@ extern "C" int apex_flash_bwd_dbias(const void* q, const void* k,
                                     int d, int q_start, int k_start,
                                     int causal, float scale, void* stream) {
   using namespace apex_port;
-  if (bad(bh, sq, sk, d) || bias == nullptr || bias_bh != 0 || runs < 1 ||
-      runs > bh || (runs > 1 && part == nullptr)) {
+  if (bad(bh, sq, sk, d, 1) || bias == nullptr || bias_bh != 0 ||
+      runs < 1 || runs > bh || runs > 65535 ||
+      (runs > 1 && part == nullptr) || (dtype != kBF16 && dtype != kF16)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Attn a = make_attn(q, k, v, q_bh, q_s, k_bh, k_s, v_bh, v_s, kvb,
@@ -307,23 +316,21 @@ extern "C" int apex_flash_bwd_dbias(const void* q, const void* k,
   runs = (bh + per - 1) / per;        // no run is left empty
   const dim3 grid((sq + kTile - 1) / kTile, (sk + kTile - 1) / kTile, runs);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bf16* dp = static_cast<const bf16*>(dout);
+  const u16* dp = static_cast<const u16*>(dout);
   const float* lp = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   float* out = static_cast<float*>(dbias);
   float* tmp = runs > 1 ? static_cast<float*>(part) : out;
-  if (d == 64) {
-    flash_dbias_kernel<64><<<grid, kThreads, 0, st>>>(a, dp, do_bh, do_s, lp,
-                                                      dl, bh, per, tmp);
-  } else {
-    flash_dbias_kernel<128><<<grid, kThreads, 0, st>>>(a, dp, do_bh, do_s,
-                                                       lp, dl, bh, per, tmp);
-  }
-  if (runs > 1) {
-    const long long n = (long long)sq * sk;
-    const long long want = (n + 255) / 256;
-    const int blocks = static_cast<int>(want < 4096 ? want : 4096);
-    dbias_sum_kernel<<<blocks, 256, 0, st>>>(tmp, out, runs, n);
-  }
+  with_elem(dtype, [&](auto et) {
+    using E = typename decltype(et)::type;
+    if (d == 64) {
+      flash_dbias_kernel<E, 64><<<grid, kThreads, 0, st>>>(
+          a, dp, do_bh, do_s, lp, dl, bh, per, tmp);
+    } else {
+      flash_dbias_kernel<E, 128><<<grid, kThreads, 0, st>>>(
+          a, dp, do_bh, do_s, lp, dl, bh, per, tmp);
+    }
+  });
+  if (runs > 1) dbias_sum(tmp, out, runs, (long long)sq * sk, st);
   return static_cast<int>(cudaGetLastError());
 }

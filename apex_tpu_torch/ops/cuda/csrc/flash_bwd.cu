@@ -1,4 +1,4 @@
-// Flash attention's backward over [BH, S, D] bf16 (D 64 or 128) for
+// Flash attention's backward over [BH, S, D] bf16 or fp16 (D 64 or 128) for
 // Hopper: dq (with the per-bh bias gradient dS when asked) and dk/dv, each
 // recomputing the probabilities from the forward's lse. The semantics they
 // keep from the Pallas kernels are csrc/flash_common.cuh; the Hopper
@@ -71,6 +71,12 @@
 // products and their feeding, not exp2, set the floor these kernels sit
 // on.
 //
+// The element type E (bf16 or fp16) sets the products' input type (wgmma's
+// .bf16 or .f16), the tensor maps' and the rounding of P (and dS) into
+// their register fragments and of the outputs; the rest is one body, and
+// the bf16 forms compute what they did before fp16 was added, bit for bit.
+// The grid is one dim: bh-major, the row blocks of each bh inside it, so
+// BH may pass 65535.
 // The host builds the tensor maps (dims, strides and boxes come from the
 // Python wrapper, ops/flash_attn.py tma_layout) with cuTensorMapEncodeTiled,
 // fetched through cudaGetDriverEntryPoint so that nothing links libcuda,
@@ -187,17 +193,19 @@ __device__ __forceinline__ int first_query_tile(const Attn& a, int k0) {
 // ---- dq (and the per-bh dS) ------------------------------------------------
 
 // ds (null, or fp32 [BH, Sq, Sk] contiguous): dS of every (query, key),
-// unscaled, zeros where a tile is skipped (:382-386)
-template <int D, bool EXTRA>
+// unscaled, zeros where a tile is skipped (:382-386); the grid's one dim
+// folds bh with the row blocks (bh-major, each bh's longest rows first)
+template <typename E, int D, bool EXTRA>
 __global__ void __launch_bounds__(kBlockThreads, 1)
 flash_dq_kernel(const __grid_constant__ Maps maps, Attn a,
                 const float* __restrict__ lse,
-                const float* __restrict__ delta, bf16* __restrict__ dq,
+                const float* __restrict__ delta, E* __restrict__ dq,
                 float* __restrict__ ds) {
   extern __shared__ uint8_t smem_raw[];
   DqSmem<D>& sm = smem_as<DqSmem<D>>(smem_raw);
-  const int bh = blockIdx.y;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;  // longest first
+  const int nb = (a.sq + kRows - 1) / kRows;
+  const int bh = blockIdx.x / nb;
+  const int q0 = (nb - 1 - blockIdx.x % nb) * kRows;    // longest first
   const int wg = threadIdx.x >> 7;
   const int nkt = key_tiles(a, q0, kRows);
   init_barriers(sm, &sm.qo);
@@ -281,8 +289,8 @@ flash_dq_kernel(const __grid_constant__ Maps maps, Attn a,
     fence_regs(acc);
     turn_begin(wg);
     wg_fence();
-    first_product<D, kBox>(sc, sm.q, wg * kWgRows, qf, sm.k[s], 0);  // QK^T
-    first_product<D, kBox>(dp, sm.o, wg * kWgRows, of, sm.v[s], 0);  // dOV^T
+    first_product<E, D, kBox>(sc, sm.q, wg * kWgRows, qf, sm.k[s], 0);
+    first_product<E, D, kBox>(dp, sm.o, wg * kWgRows, of, sm.v[s], 0);
     wg_commit();
     turn_end(wg);
     wg_wait<0>();
@@ -291,7 +299,7 @@ flash_dq_kernel(const __grid_constant__ Maps maps, Attn a,
     fence_regs(acc);
     release(sm, held);
     held = -1;
-    // dS * scale, each pair packed into its bf16 fragment as it is made
+    // dS * scale, each pair packed into its 16-bit fragment as it is made
     const bool full = all_visible(a, qw, 16, kt * kBox, kBox);
     uint32_t f[4][4];
     with_tile_form<D, EXTRA>(!full, a, [&](auto mask, auto bias, auto drop) {
@@ -325,12 +333,12 @@ flash_dq_kernel(const __grid_constant__ Maps maps, Attn a,
               x[e] = d * a.scale;
             }
           }
-          f[ks][j] = pack_bf16(x[0], x[1]);
+          f[ks][j] = pack2<E>(x[0], x[1]);
         }
       }
     });
     wg_fence();
-    frags_by_tile<D, 4>(acc, f, sm.k[s], 0);         // dq += dS K
+    frags_by_tile<E, D, 4>(acc, f, sm.k[s], 0);      // dq += dS K
     wg_commit();
     held = s;
   }
@@ -346,7 +354,7 @@ flash_dq_kernel(const __grid_constant__ Maps maps, Attn a,
       if (qi < a.sq) dsb[(long long)qi * a.sk + k_from + i % wide] = 0.f;
     }
   }
-  bf16* out = dq + (long long)bh * a.sq * D;
+  E* out = dq + (long long)bh * a.sq * D;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = qw + g + 8 * h;
@@ -355,22 +363,23 @@ flash_dq_kernel(const __grid_constant__ Maps maps, Attn a,
     for (int nt = 0; nt < D / 8; ++nt) {
       *reinterpret_cast<uint32_t*>(out + (long long)row * D + nt * 8 +
                                    2 * t4) =
-          pack_bf16(acc[4 * nt + 2 * h], acc[4 * nt + 2 * h + 1]);
+          pack2<E>(acc[4 * nt + 2 * h], acc[4 * nt + 2 * h + 1]);
     }
   }
 }
 
 // ---- dk, dv ----------------------------------------------------------------
 
-template <int D, bool EXTRA>
+template <typename E, int D, bool EXTRA>
 __global__ void __launch_bounds__(kBlockThreads, 1)
 flash_dkv_kernel(const __grid_constant__ Maps maps, Attn a,
                  const float* __restrict__ lse,
-                 const float* __restrict__ delta, bf16* __restrict__ dk,
-                 bf16* __restrict__ dv) {
+                 const float* __restrict__ delta, E* __restrict__ dk,
+                 E* __restrict__ dv) {
   extern __shared__ uint8_t smem_raw[];
   DkvSmem<D>& sm = smem_as<DkvSmem<D>>(smem_raw);
-  const int bh = blockIdx.y, kb = blockIdx.x;   // the longest blocks first
+  const int nb = (a.sk + kRows - 1) / kRows;
+  const int bh = blockIdx.x / nb, kb = blockIdx.x % nb;  // longest first
   const int wg = threadIdx.x >> 7;
   const int nqt = (a.sq + kBox - 1) / kBox;
   const int qt0 = first_query_tile(a, kb * kRows);
@@ -465,8 +474,8 @@ flash_dkv_kernel(const __grid_constant__ Maps maps, Attn a,
       fence_regs(dva);
       turn_begin(wg);
       wg_fence();
-      first_product<D, R>(st, sm.k, wg * kWgRows, kf, sm.q[s], q0);   // S^T
-      first_product<D, R>(dpt, sm.v, wg * kWgRows, vf, sm.o[s], q0);  // dP^T
+      first_product<E, D, R>(st, sm.k, wg * kWgRows, kf, sm.q[s], q0);
+      first_product<E, D, R>(dpt, sm.v, wg * kWgRows, vf, sm.o[s], q0);
       wg_commit();
       turn_end(wg);
       wg_wait<0>();
@@ -478,8 +487,8 @@ flash_dkv_kernel(const __grid_constant__ Maps maps, Attn a,
         release(sm, held);
         held = -1;
       }
-      // P^T and dS^T * scale, each pair packed into its bf16 fragment as it
-      // is made (the scores and dP die as the fragments fill)
+      // P^T and dS^T * scale, each pair packed into its 16-bit fragment as
+      // it is made (the scores and dP die as the fragments fill)
       const bool full = all_visible(a, qt * kBox + q0, R, kw, 16);
       uint32_t pf[KS][4], sf[KS][4];
       with_tile_form<D, EXTRA>(!full, a, [&](auto mask, auto bias,
@@ -515,14 +524,14 @@ flash_dkv_kernel(const __grid_constant__ Maps maps, Attn a,
                 dss[e] = d * a.scale;
               }
             }
-            pf[ks][jj] = pack_bf16(pd[0], pd[1]);
-            sf[ks][jj] = pack_bf16(dss[0], dss[1]);
+            pf[ks][jj] = pack2<E>(pd[0], pd[1]);
+            sf[ks][jj] = pack2<E>(dss[0], dss[1]);
           }
         }
       });
       wg_fence();
-      frags_by_tile<D, KS>(dva, pf, sm.o[s], q0);     // dv += P^T dO
-      frags_by_tile<D, KS>(dka, sf, sm.q[s], q0);     // dk += dS^T Q
+      frags_by_tile<E, D, KS>(dva, pf, sm.o[s], q0);  // dv += P^T dO
+      frags_by_tile<E, D, KS>(dka, sf, sm.q[s], q0);  // dk += dS^T Q
       wg_commit();
     }
     held = s;
@@ -540,23 +549,23 @@ flash_dkv_kernel(const __grid_constant__ Maps maps, Attn a,
 #pragma unroll
     for (int nt = 0; nt < D / 8; ++nt) {
       *reinterpret_cast<uint32_t*>(dk + off + nt * 8) =
-          pack_bf16(dka[4 * nt + 2 * h], dka[4 * nt + 2 * h + 1]);
+          pack2<E>(dka[4 * nt + 2 * h], dka[4 * nt + 2 * h + 1]);
       *reinterpret_cast<uint32_t*>(dv + off + nt * 8) =
-          pack_bf16(dva[4 * nt + 2 * h], dva[4 * nt + 2 * h + 1]);
+          pack2<E>(dva[4 * nt + 2 * h], dva[4 * nt + 2 * h + 1]);
     }
   }
 }
 
 // ---- host: launches ----------------------------------------------------------
 
-// dq and dk/dv take (maps, a, lse, delta, one bf16 output, the other
+// dq and dk/dv take (maps, a, lse, delta, one E output, the other
 // output); a launch above 48 KB of shared memory must be allowed first
-template <typename O2>
+template <typename E, typename O2>
 cudaError_t launch(void (*kernel)(Maps, Attn, const float*, const float*,
-                                  bf16*, O2),
+                                  E*, O2),
                    int bytes, dim3 grid, cudaStream_t st, const Maps& maps,
                    const Attn& a, const float* lse, const float* delta,
-                   bf16* o1, O2 o2) {
+                   E* o1, O2 o2) {
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
@@ -567,62 +576,68 @@ cudaError_t launch(void (*kernel)(Maps, Attn, const float*, const float*,
 }  // namespace
 }  // namespace apex_port
 
-// Both entry points: q, k, v, dout bf16 [bh, s, d] whose tensor maps the
-// wrapper describes in tma (4 x 8 long longs, in that order: dims d, s, bh;
-// row and bh strides in bytes, multiples of 16; the box 64, 64, 1), every
-// base 16-byte aligned; lse, delta fp32 [bh, sq] contiguous; kvb null or
-// fp32 [1|bh, sk] with bh stride kvb_bh (0 when shared), its keys
-// contiguous; bias null or fp32 [1|bh, sq, sk] contiguous with bh stride
-// bias_bh (0 when shared); dropout when drop_inv = 1 / (1 - rate) > 0,
-// keeping an element whose hash under seed is >= drop_thresh; `blocks`
-// the grid's row blocks of 128 (queries for dq, keys for dk/dv).
+// Both entry points: q, k, v, dout [bh, s, d] of dtype (bf16 or fp16)
+// whose tensor maps the wrapper describes in tma (4 x 8 long longs, in that
+// order: dims d, s, bh; row and bh strides in bytes, multiples of 16; the
+// box 64, 64, 1), every base 16-byte aligned; lse, delta fp32 [bh, sq]
+// contiguous; kvb null or fp32 [1|bh, sk] with bh stride kvb_bh (0 when
+// shared), its keys contiguous; bias null or fp32 [1|bh, sq, sk]
+// contiguous with bh stride bias_bh (0 when shared); dropout when drop_inv
+// = 1 / (1 - rate) > 0, keeping an element whose hash under seed is >=
+// drop_thresh; `blocks` the grid's row blocks of 128 a bh (queries for dq,
+// keys for dk/dv).
 
-// dq bf16 [bh, sq, d] contiguous; ds null or fp32 [bh, sq, sk] contiguous
-// (the per-bh bias gradient; taken only with a bias or kv_bias or
-// dropout).
-extern "C" int apex_flash_bwd_dq(const void* q, const void* k, const void* v,
-                                 const void* dout, const void* lse,
-                                 const void* delta, void* dq, void* ds,
-                                 const long long* tma, int blocks,
-                                 const void* kvb, long long kvb_bh,
-                                 const void* bias, long long bias_bh,
-                                 unsigned seed, unsigned drop_thresh,
-                                 float drop_inv, int bh, int sq, int sk,
-                                 int d, int q_start, int k_start, int causal,
-                                 float scale, void* stream) {
+// dq [bh, sq, d] of q's dtype, contiguous; ds null or fp32 [bh, sq, sk]
+// contiguous (the per-bh bias gradient; taken only with a bias or kv_bias
+// or dropout).
+extern "C" int apex_flash_bwd_dq(int dtype, const void* q, const void* k,
+                                 const void* v, const void* dout,
+                                 const void* lse, const void* delta,
+                                 void* dq, void* ds, const long long* tma,
+                                 int blocks, const void* kvb,
+                                 long long kvb_bh, const void* bias,
+                                 long long bias_bh, unsigned seed,
+                                 unsigned drop_thresh, float drop_inv,
+                                 int bh, int sq, int sk, int d, int q_start,
+                                 int k_start, int causal, float scale,
+                                 void* stream) {
   using namespace apex_port;
-  if (bad(bh, sq, sk, d) || blocks != (sq + kRows - 1) / kRows) {
+  if (bad(bh, sq, sk, d, blocks) || blocks != (sq + kRows - 1) / kRows ||
+      (dtype != kBF16 && dtype != kF16)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Maps maps;
   Attn a;
-  if (!prepare(&maps, &a, q, k, v, dout, tma, kvb, kvb_bh, bias, bias_bh,
-               seed, drop_thresh, drop_inv, bh, sq, sk, d, q_start, k_start,
-               causal, scale)) {
+  if (!prepare(&maps, &a, dtype == kF16, q, k, v, dout, tma, kvb, kvb_bh,
+               bias, bias_bh, seed, drop_thresh, drop_inv, bh, sq, sk, d,
+               q_start, k_start, causal, scale)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (ds != nullptr && a.kvb == nullptr && a.bias == nullptr &&
       !(a.drop_inv > 0.f)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid(blocks, bh);
+  const dim3 grid(blocks * bh);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* lp = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
-  bf16* out = static_cast<bf16*>(dq);
   float* dsp = static_cast<float*>(ds);
   cudaError_t err = cudaSuccess;
-  with_form(d, a, [&](auto dd, auto ex) {
-    constexpr int D = decltype(dd)::value;
-    err = launch(flash_dq_kernel<D, decltype(ex)::value>,
-                 smem_bytes<DqSmem<D>>(), grid, st, maps, a, lp, dl, out,
-                 dsp);
+  with_elem(dtype, [&](auto et) {
+    using E = typename decltype(et)::type;
+    E* out = static_cast<E*>(dq);
+    with_form(d, a, [&](auto dd, auto ex) {
+      constexpr int D = decltype(dd)::value;
+      err = launch(flash_dq_kernel<E, D, decltype(ex)::value>,
+                   smem_bytes<DqSmem<D>>(), grid, st, maps, a, lp, dl, out,
+                   dsp);
+    });
   });
   return static_cast<int>(err);
 }
 
-// dk, dv bf16 [bh, sk, d] contiguous.
-extern "C" int apex_flash_bwd_dkv(const void* q, const void* k,
+// dk, dv [bh, sk, d] of k's dtype, contiguous.
+extern "C" int apex_flash_bwd_dkv(int dtype, const void* q, const void* k,
                                   const void* v, const void* dout,
                                   const void* lse, const void* delta,
                                   void* dk, void* dv, const long long* tma,
@@ -634,28 +649,32 @@ extern "C" int apex_flash_bwd_dkv(const void* q, const void* k,
                                   int k_start, int causal, float scale,
                                   void* stream) {
   using namespace apex_port;
-  if (bad(bh, sq, sk, d) || blocks != (sk + kRows - 1) / kRows) {
+  if (bad(bh, sq, sk, d, blocks) || blocks != (sk + kRows - 1) / kRows ||
+      (dtype != kBF16 && dtype != kF16)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Maps maps;
   Attn a;
-  if (!prepare(&maps, &a, q, k, v, dout, tma, kvb, kvb_bh, bias, bias_bh,
-               seed, drop_thresh, drop_inv, bh, sq, sk, d, q_start, k_start,
-               causal, scale)) {
+  if (!prepare(&maps, &a, dtype == kF16, q, k, v, dout, tma, kvb, kvb_bh,
+               bias, bias_bh, seed, drop_thresh, drop_inv, bh, sq, sk, d,
+               q_start, k_start, causal, scale)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid(blocks, bh);
+  const dim3 grid(blocks * bh);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* lp = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
-  bf16* kp = static_cast<bf16*>(dk);
-  bf16* vp = static_cast<bf16*>(dv);
   cudaError_t err = cudaSuccess;
-  with_form(d, a, [&](auto dd, auto ex) {
-    constexpr int D = decltype(dd)::value;
-    err = launch(flash_dkv_kernel<D, decltype(ex)::value>,
-                 smem_bytes<DkvSmem<D>>(), grid, st, maps, a, lp, dl, kp,
-                 vp);
+  with_elem(dtype, [&](auto et) {
+    using E = typename decltype(et)::type;
+    E* kp = static_cast<E*>(dk);
+    E* vp = static_cast<E*>(dv);
+    with_form(d, a, [&](auto dd, auto ex) {
+      constexpr int D = decltype(dd)::value;
+      err = launch(flash_dkv_kernel<E, D, decltype(ex)::value>,
+                   smem_bytes<DkvSmem<D>>(), grid, st, maps, a, lp, dl, kp,
+                   vp);
+    });
   });
   return static_cast<int>(err);
 }

@@ -45,9 +45,9 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
 struct Attn {
-  const bf16* q;
-  const bf16* k;
-  const bf16* v;
+  const void* q;                               // of the kernel's element
+  const void* k;                               // type
+  const void* v;
   const float* kvb;                            // [1|BH, Sk] or null
   const float* bias;                           // [1|BH, Sq, Sk] or null
   long long q_bh, q_s, k_bh, k_s, v_bh, v_s;   // strides, elements
@@ -58,9 +58,17 @@ struct Attn {
   float drop_inv;                              // 1 / (1 - rate); 0: none
 };
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);   // .x in the low half
-  return *reinterpret_cast<uint32_t*>(&h);
+// two fp32 values rounded to the 16-bit E (bf16 or fp16) as one register,
+// lo in the low half: a product's register fragment, or two outputs
+template <typename E>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (std::is_same<E, __half>::value) {
+    __half2 h = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&h);
+  } else {
+    __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&h);
+  }
 }
 
 // the full bias of (query qi, key kj), both local and in range, in log2
@@ -109,9 +117,9 @@ Attn make_attn(const void* q, const void* k, const void* v, long long q_bh,
                unsigned drop_thresh, float drop_inv, int sq, int sk,
                int q_start, int k_start, int causal, float scale) {
   Attn a;
-  a.q = static_cast<const bf16*>(q);
-  a.k = static_cast<const bf16*>(k);
-  a.v = static_cast<const bf16*>(v);
+  a.q = q;
+  a.k = k;
+  a.v = v;
   a.kvb = static_cast<const float*>(kvb);
   a.bias = static_cast<const float*>(bias);
   a.kvb_bh = kvb_bh;
@@ -134,8 +142,22 @@ Attn make_attn(const void* q, const void* k, const void* v, long long q_bh,
   return a;
 }
 
-bool bad(int bh, int sq, int sk, int d) {
-  return bh < 1 || bh > 65535 || sq < 1 || sk < 1 || (d != 64 && d != 128);
+// what the 16-bit kernels refuse: blocks (a grid's blocks along the rows,
+// folded with bh into its one dim) * bh past 2^31 - 1, no rows, D other
+// than 64 or 128
+bool bad(int bh, int sq, int sk, int d, int blocks) {
+  return bh < 1 || sq < 1 || sk < 1 || (d != 64 && d != 128) ||
+         blocks < 1 || (long long)blocks * bh > 0x7fffffffLL;
+}
+
+// calls f(Tag<E>) for the 16-bit element types of the tensor-core kernels
+// (bf16, fp16); false for any other dtype code
+template <typename F>
+bool with_elem(int dtype, F&& f) {
+  if (dtype == kBF16) f(Tag<bf16>{});
+  else if (dtype == kF16) f(Tag<__half>{});
+  else return false;
+  return true;
 }
 
 // calls f(D, EXTRA) with both as compile-time constants: the head dim (64
@@ -152,6 +174,27 @@ void with_form(int d, const Attn& a, F&& f) {
     if (extra) f(integral_constant<int, 128>{}, integral_constant<bool, true>{});
     else f(integral_constant<int, 128>{}, integral_constant<bool, false>{});
   }
+}
+
+// out[i] = sum over the runs r = 0, 1, ... of part[r][i], in run order:
+// the shared-bias gradient's second pass (csrc/flash_attn.cu's runs of bh,
+// csrc/flash_simt.cu's per-bh dS)
+__global__ void dbias_sum_kernel(const float* __restrict__ part,
+                                 float* __restrict__ out, int runs,
+                                 long long n) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    float acc = 0.f;
+    for (int r = 0; r < runs; ++r) acc += part[r * n + i];
+    out[i] = acc;
+  }
+}
+
+inline void dbias_sum(const float* part, float* out, int runs, long long n,
+                      cudaStream_t st) {
+  const long long want = (n + 255) / 256;
+  const int blocks = static_cast<int>(want < 4096 ? want : 4096);
+  dbias_sum_kernel<<<blocks, 256, 0, st>>>(part, out, runs, n);
 }
 
 }  // namespace

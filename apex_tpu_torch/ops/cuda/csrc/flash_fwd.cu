@@ -1,4 +1,5 @@
-// Flash attention's forward over [BH, S, D] bf16 (D 64 or 128) for Hopper:
+// Flash attention's forward over [BH, S, D] bf16 or fp16 (D 64 or 128) for
+// Hopper:
 // the output and its per-row logsumexp. The semantics it keeps from the
 // Pallas kernel are csrc/flash_common.cuh; the Hopper instructions it is
 // built from are csrc/hopper.cuh, and the tiles, ring, products and turns
@@ -61,6 +62,12 @@
 // tiles its 128 rows see, and a warpgroup waits out the tiles its own 64
 // do not. Each block owns its output rows: o and lse repeat bit for bit.
 //
+// The element type E (bf16 or fp16) sets the products' input type (wgmma's
+// .bf16 or .f16), the tensor maps' and the rounding of P (and dS) into
+// their register fragments and of the outputs; the rest is one body, and
+// the bf16 forms compute what they did before fp16 was added, bit for bit.
+// The grid is one dim: bh-major, the row blocks of each bh inside it, so
+// BH may pass 65535.
 // The host builds the tensor maps of q, k and v (dims, strides and boxes
 // from the Python wrapper, ops/flash_attn.py tma_layout) and passes them as
 // __grid_constant__ parameters.
@@ -158,9 +165,11 @@ __device__ __forceinline__ void fwd_tile_form(bool masked, const Attn& a,
 // accumulator layout of hopper.cuh, kvb the tile's kv_bias and bv its full
 // bias (load_bias) in log2 units; m holds the rows' running max in log2
 // units and l this thread's share of their sums. Sets alpha, the factors
-// by which the output's rows shrink, and packs P into its bf16 fragments:
+// by which the output's rows shrink, and packs P into its 16-bit E
+// fragments:
 // l takes the undropped p, the fragments the kept p times 1 / (1 - rate).
-template <int BN, bool EXTRA, bool MASK, bool BIAS, bool DROP, int NB>
+template <typename E, int BN, bool EXTRA, bool MASK, bool BIAS, bool DROP,
+          int NB>
 __device__ __forceinline__ void softmax_tile(
     const Attn& a, int bh, int qw, int k0, float (&sc)[BN / 2],
     const float* kvb, const float (&bv)[NB], float (&m)[2], float (&l)[2],
@@ -230,24 +239,26 @@ __device__ __forceinline__ void softmax_tile(
           p[e] = keep(a, bh, qw + g + 8 * h, kj) ? p[e] * a.drop_inv : 0.f;
         }
       }
-      pf[ks][j] = pack_bf16(p[0], p[1]);
+      pf[ks][j] = pack2<E>(p[0], p[1]);
     }
   }
   l[0] += lq[0][0] + lq[0][1];
   l[1] += lq[1][0] + lq[1][1];
 }
 
-// o bf16 [BH, Sq, D] and lse fp32 [BH, Sq], contiguous
-template <int D, int KIND>
+// o E [BH, Sq, D] and lse fp32 [BH, Sq], contiguous; the grid's one dim
+// folds bh with the row blocks (bh-major, each bh's longest rows first)
+template <typename E, int D, int KIND>
 __global__ void __launch_bounds__(kBlockThreads, 1)
 flash_fwd_kernel(const __grid_constant__ Maps maps, Attn a,
-                 bf16* __restrict__ o, float* __restrict__ lse) {
+                 E* __restrict__ o, float* __restrict__ lse) {
   constexpr bool EXTRA = KIND != kPlainKind, BIAS = KIND == kBiasKind;
   constexpr int BN = kBlockN<KIND>, NS = kFwdStages<D, BN>;
   extern __shared__ uint8_t smem_raw[];
   FwdSmem<D, BN>& sm = smem_as<FwdSmem<D, BN>>(smem_raw);
-  const int bh = blockIdx.y;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kRows;  // longest first
+  const int nb = (a.sq + kRows - 1) / kRows;
+  const int bh = blockIdx.x / nb;
+  const int q0 = (nb - 1 - blockIdx.x % nb) * kRows;    // longest first
   const int wg = threadIdx.x >> 7;
   const int nkt = key_tiles<BN>(a, q0, kRows);
   init_barriers(sm, &sm.qbar);
@@ -318,7 +329,7 @@ flash_fwd_kernel(const __grid_constant__ Maps maps, Attn a,
     fence_regs(acc);
     turn_begin(wg);
     wg_fence();
-    first_product<D, BN>(sc, sm.q, wg * kWgRows, qf, sm.k[s], 0);  // QK^T
+    first_product<E, D, BN>(sc, sm.q, wg * kWgRows, qf, sm.k[s], 0);
     wg_commit();
     wg_wait<0>();
     turn_end(wg);   // after S: the other's products run under this softmax
@@ -331,14 +342,14 @@ flash_fwd_kernel(const __grid_constant__ Maps maps, Attn a,
     uint32_t pf[BN / 16][4];
     fwd_tile_form<D, KIND>(!plain, a, [&](auto mask, auto bias,
                                           auto drop) {
-      softmax_tile<BN, EXTRA, decltype(mask)::value, decltype(bias)::value,
-                   decltype(drop)::value>(a, bh, qw, kt * BN, sc,
-                                          sm.kvb[s], bv, m, l, alpha, pf);
+      softmax_tile<E, BN, EXTRA, decltype(mask)::value,
+                   decltype(bias)::value, decltype(drop)::value>(
+          a, bh, qw, kt * BN, sc, sm.kvb[s], bv, m, l, alpha, pf);
     });
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
     wg_fence();
-    frags_by_tile<D, BN / 16>(acc, pf, sm.v[s], 0);   // O += P V
+    frags_by_tile<E, D, BN / 16>(acc, pf, sm.v[s], 0);   // O += P V
     wg_commit();
     held = s;
   }
@@ -353,7 +364,7 @@ flash_fwd_kernel(const __grid_constant__ Maps maps, Attn a,
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
   }
-  bf16* ob = o + (long long)bh * a.sq * D;
+  E* ob = o + (long long)bh * a.sq * D;
   float* lb = lse + (long long)bh * a.sq;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -364,7 +375,7 @@ flash_fwd_kernel(const __grid_constant__ Maps maps, Attn a,
     for (int nt = 0; nt < D / 8; ++nt) {
       *reinterpret_cast<uint32_t*>(ob + (long long)row * D + nt * 8 +
                                    2 * t4) =
-          pack_bf16(acc[4 * nt + 2 * h] * inv, acc[4 * nt + 2 * h + 1] * inv);
+          pack2<E>(acc[4 * nt + 2 * h] * inv, acc[4 * nt + 2 * h + 1] * inv);
     }
     if (t4 == 0) lb[row] = l[h] > 0.f ? m[h] * kLn2 + logf(l[h]) : kNegInf;
   }
@@ -373,63 +384,68 @@ flash_fwd_kernel(const __grid_constant__ Maps maps, Attn a,
 }  // namespace
 }  // namespace apex_port
 
-// q, k, v bf16 [bh, s, d] whose tensor maps the wrapper describes in tma
-// (3 x 8 long longs, in that order: dims d, s, bh; row and bh strides in
-// bytes, multiples of 16; the box 64, 64, 1), every base 16-byte aligned;
-// `blocks` the grid's blocks of 128 query rows; kvb null or fp32 [1|bh,
-// sk] with bh stride kvb_bh (0 when shared), its keys contiguous; bias null
-// or fp32 [1|bh, sq, sk] contiguous with bh stride bias_bh (0 when
-// shared); dropout when drop_inv = 1 / (1 - rate) > 0, keeping an element
-// whose hash under seed is >= drop_thresh. o bf16 [bh, sq, d] and lse fp32
-// [bh, sq], contiguous.
-extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
-                              void* o, void* lse, const long long* tma,
-                              int blocks, const void* kvb, long long kvb_bh,
+// q, k, v [bh, s, d] of dtype (bf16 or fp16) whose tensor maps the wrapper
+// describes in tma (3 x 8 long longs, in that order: dims d, s, bh; row and
+// bh strides in bytes, multiples of 16; the box 64, 64, 1), every base
+// 16-byte aligned; `blocks` the grid's blocks of 128 query rows a bh; kvb
+// null or fp32 [1|bh, sk] with bh stride kvb_bh (0 when shared), its keys
+// contiguous; bias null or fp32 [1|bh, sq, sk] contiguous with bh stride
+// bias_bh (0 when shared); dropout when drop_inv = 1 / (1 - rate) > 0,
+// keeping an element whose hash under seed is >= drop_thresh. o [bh, sq,
+// d] of q's dtype and lse fp32 [bh, sq], contiguous.
+extern "C" int apex_flash_fwd(int dtype, const void* q, const void* k,
+                              const void* v, void* o, void* lse,
+                              const long long* tma, int blocks,
+                              const void* kvb, long long kvb_bh,
                               const void* bias, long long bias_bh,
                               unsigned seed, unsigned drop_thresh,
                               float drop_inv, int bh, int sq, int sk, int d,
                               int q_start, int k_start, int causal,
                               float scale, void* stream) {
   using namespace apex_port;
-  if (bad(bh, sq, sk, d) || blocks != (sq + kRows - 1) / kRows) {
+  if (bad(bh, sq, sk, d, blocks) || blocks != (sq + kRows - 1) / kRows ||
+      (dtype != kBF16 && dtype != kF16)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Maps maps{};
   Attn a;
-  if (!prepare(&maps, &a, q, k, v, nullptr, tma, kvb, kvb_bh, bias,
-               bias_bh, seed, drop_thresh, drop_inv, bh, sq, sk, d, q_start,
-               k_start, causal, scale)) {
+  if (!prepare(&maps, &a, dtype == kF16, q, k, v, nullptr, tma, kvb,
+               kvb_bh, bias, bias_bh, seed, drop_thresh, drop_inv, bh, sq,
+               sk, d, q_start, k_start, causal, scale)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid(blocks, bh);
+  const dim3 grid(blocks * bh);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  bf16* op = static_cast<bf16*>(o);
   float* lp = static_cast<float*>(lse);
   cudaError_t err = cudaSuccess;
   const int kind = a.bias != nullptr ? kBiasKind
                    : a.kvb != nullptr || a.drop_inv > 0.f ? kExtraKind
                                                           : kPlainKind;
-  auto run = [&](auto dd, auto kk) {
-    constexpr int D = decltype(dd)::value, K = decltype(kk)::value;
-    auto kernel = flash_fwd_kernel<D, K>;
-    const int bytes = smem_bytes<FwdSmem<D, kBlockN<K>>>();
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return;
-    kernel<<<grid, kBlockThreads, bytes, st>>>(maps, a, op, lp);
-    err = cudaGetLastError();
-  };
-  using std::integral_constant;
-  auto by_kind = [&](auto dd) {
-    if (kind == kBiasKind) {
-      run(dd, integral_constant<int, kBiasKind>{});
-    } else if (kind == kExtraKind) {
-      run(dd, integral_constant<int, kExtraKind>{});
-    } else {
-      run(dd, integral_constant<int, kPlainKind>{});
-    }
-  };
-  if (d == 64) by_kind(integral_constant<int, 64>{});
-  else by_kind(integral_constant<int, 128>{});
+  with_elem(dtype, [&](auto et) {
+    using E = typename decltype(et)::type;
+    E* op = static_cast<E*>(o);
+    auto run = [&](auto dd, auto kk) {
+      constexpr int D = decltype(dd)::value, K = decltype(kk)::value;
+      auto kernel = flash_fwd_kernel<E, D, K>;
+      const int bytes = smem_bytes<FwdSmem<D, kBlockN<K>>>();
+      err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      if (err != cudaSuccess) return;
+      kernel<<<grid, kBlockThreads, bytes, st>>>(maps, a, op, lp);
+      err = cudaGetLastError();
+    };
+    using std::integral_constant;
+    auto by_kind = [&](auto dd) {
+      if (kind == kBiasKind) {
+        run(dd, integral_constant<int, kBiasKind>{});
+      } else if (kind == kExtraKind) {
+        run(dd, integral_constant<int, kExtraKind>{});
+      } else {
+        run(dd, integral_constant<int, kPlainKind>{});
+      }
+    };
+    if (d == 64) by_kind(integral_constant<int, 64>{});
+    else by_kind(integral_constant<int, 128>{});
+  });
   return static_cast<int>(err);
 }

@@ -18,7 +18,7 @@ using namespace hopper;
 
 constexpr int kRows = 128;        // rows a block owns (queries; keys)
 constexpr int kWgRows = 64;       // rows of one consumer warpgroup
-constexpr int kBox = 64;          // a TMA box: 64 rows of 64 bf16 (the
+constexpr int kBox = 64;          // a TMA box: 64 rows of 64 16-bit (the
                                   // 128-byte swizzle's span), one bh
 constexpr int kBlockThreads = 384;  // consumer warpgroups 0 and 1, producer 2
 // registers a thread after setmaxnreg (256 * 240 + 128 * 24 of the SM's
@@ -36,13 +36,14 @@ struct Maps {
   CUtensorMap q, k, v, o;
 };
 
-// R rows of a [*, D] bf16 operand in shared memory as D / 64 column tiles
-// of R swizzled 128-byte rows (hopper.cuh)
+// R rows of a [*, D] 16-bit operand (bf16 or fp16: the bytes as TMA
+// copied them) in shared memory as D / 64 column tiles of R swizzled
+// 128-byte rows (hopper.cuh)
 template <int R, int D>
 struct alignas(1024) Tile {
   static constexpr uint32_t kColBytes = R * kBox * 2;   // one column tile
   static constexpr uint32_t kBytes = kColBytes * (D / kBox);
-  bf16 x[D / kBox][R * kBox];
+  uint16_t x[D / kBox][R * kBox];
 };
 
 // the dynamic shared memory a block asks for: its layout, room to align
@@ -156,7 +157,7 @@ __device__ __forceinline__ void load_frags(uint32_t (&f)[D / 16][4],
 // m64n64k16 product that reads both operands from shared memory takes all
 // of its bandwidth); at D = 128 from a itself, their fragments (64
 // registers a thread) having no room beside the accumulators
-template <int D, int N, int RB>
+template <typename E, int D, int N, int RB>
 __device__ __forceinline__ void first_product(
     float (&acc)[N / 2], const Tile<kRows, D>& a, int r0,
     const uint32_t (&f)[kASteps<D>][4], const Tile<RB, D>& b, int b0) {
@@ -167,9 +168,9 @@ __device__ __forceinline__ void first_product(
     const uint64_t db = sw128_desc(
         pb + (kk / 4) * Tile<RB, D>::kColBytes + (kk % 4) * 32, 16, kSbo);
     if constexpr (D == 64) {
-      mma_rs<N, 0>(acc, f[kk], db, kk > 0);
+      mma_rs<N, 0, E>(acc, f[kk], db, kk > 0);
     } else {
-      mma_ss<N>(acc,
+      mma_ss<N, E>(acc,
                 sw128_desc(pa + (kk / 4) * Tile<kRows, D>::kColBytes +
                                (kk % 4) * 32, 16, kSbo),
                 db, kk > 0);
@@ -178,10 +179,10 @@ __device__ __forceinline__ void first_product(
 }
 
 // acc[64 x D] += X[64 x 16 KS] times rows [b0, b0 + 16 KS) of b, b
-// MN-major, X from its bf16 register fragments: f[ks][j] packs X's
+// MN-major, X from its 16-bit register fragments: f[ks][j] packs X's
 // accumulator elements 8 ks + 2 j and 8 ks + 2 j + 1, k-step ks taking X's
 // columns [16 ks, 16 ks + 16) and the 16 rows of b that match them
-template <int D, int KS, int RB>
+template <typename E, int D, int KS, int RB>
 __device__ __forceinline__ void frags_by_tile(float (&acc)[D / 2],
                                               const uint32_t (&f)[KS][4],
                                               const Tile<RB, D>& b,
@@ -189,7 +190,7 @@ __device__ __forceinline__ void frags_by_tile(float (&acc)[D / 2],
   const uint32_t pb = smem_u32(&b.x[0][b0 * kBox]);
 #pragma unroll
   for (int ks = 0; ks < KS; ++ks) {
-    mma_rs<D, 1>(acc, f[ks],
+    mma_rs<D, 1, E>(acc, f[ks],
                  sw128_desc(pb + ks * 16 * 128, Tile<RB, D>::kColBytes,
                             kSbo), 1);
   }
@@ -247,7 +248,7 @@ EncodeTiled encoder() {
 constexpr int kLayoutLen = 8;
 
 bool encode(CUtensorMap* map, const void* base, const long long* lay,
-            int d, int s, int bh) {
+            int d, int s, int bh, CUtensorMapDataType type) {
   if (lay[0] != d || lay[1] != s || lay[2] != bh || lay[5] != kBox ||
       lay[6] != kBox || lay[7] != 1) {
     return false;
@@ -263,15 +264,16 @@ bool encode(CUtensorMap* map, const void* base, const long long* lay,
                              static_cast<cuuint32_t>(lay[6]),
                              static_cast<cuuint32_t>(lay[7])};
   const cuuint32_t unit[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+  return fn(map, type, 3, const_cast<void*>(base),
             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// the maps of q, k and v (and, with dout, dO) and the Attn the kernels
-// take; the strides of q, k and v come from their maps
-bool prepare(Maps* maps, Attn* a, const void* q, const void* k,
+// the maps of q, k and v (and, with dout, dO) of 16-bit elements (fp16
+// with f16, else bf16) and the Attn the kernels take; the strides of q, k
+// and v come from their maps
+bool prepare(Maps* maps, Attn* a, bool f16, const void* q, const void* k,
              const void* v, const void* dout, const long long* tma,
              const void* kvb, long long kvb_bh, const void* bias,
              long long bias_bh, unsigned seed, unsigned drop_thresh,
@@ -281,10 +283,12 @@ bool prepare(Maps* maps, Attn* a, const void* q, const void* k,
   const long long* lk = tma + kLayoutLen;
   const long long* lv = tma + 2 * kLayoutLen;
   const long long* lo = tma + 3 * kLayoutLen;
-  if (!encode(&maps->q, q, lq, d, sq, bh) ||
-      !encode(&maps->k, k, lk, d, sk, bh) ||
-      !encode(&maps->v, v, lv, d, sk, bh) ||
-      (dout != nullptr && !encode(&maps->o, dout, lo, d, sq, bh))) {
+  const CUtensorMapDataType t = f16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                    : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  if (!encode(&maps->q, q, lq, d, sq, bh, t) ||
+      !encode(&maps->k, k, lk, d, sk, bh, t) ||
+      !encode(&maps->v, v, lv, d, sk, bh, t) ||
+      (dout != nullptr && !encode(&maps->o, dout, lo, d, sq, bh, t))) {
     return false;
   }
   *a = make_attn(q, k, v, lq[4] / 2, lq[3] / 2, lk[4] / 2, lk[3] / 2,

@@ -4,19 +4,23 @@
 // split between producer and consumer warpgroups (setmaxnreg).
 //
 // The operand layout every product here reads: a tile of R rows of 64
-// bf16 (128 bytes a row) as TMA writes it with CU_TENSOR_MAP_SWIZZLE_128B:
-// the 16-byte chunk c of row r sits at chunk c ^ (r % 8), the tile's base
-// 1024-byte aligned. A head dim of 128 is two such tiles (columns 0-63 and
-// 64-127), one after the other. The same bytes serve as a K-major operand
-// (the contraction runs along the 64 columns: the descriptor's start steps
-// 32 bytes a k-step of 16, and 8-row groups lie SBO = 1024 bytes apart) and
-// as an MN-major one (the contraction runs down the rows: a k-step of 16
-// rows is 2048 bytes, 8-row groups SBO = 1024 apart, and the second
-// 64-column tile of a 128-wide operand lies LBO bytes on).
+// 16-bit elements, bf16 or fp16 (128 bytes a row), as TMA writes it with
+// CU_TENSOR_MAP_SWIZZLE_128B: the 16-byte chunk c of row r sits at chunk c
+// ^ (r % 8), the tile's base 1024-byte aligned. A head dim of 128 is two
+// such tiles (columns 0-63 and 64-127), one after the other. The same bytes
+// serve as a K-major operand (the contraction runs along the 64 columns:
+// the descriptor's start steps 32 bytes a k-step of 16, and 8-row groups
+// lie SBO = 1024 bytes apart) and as an MN-major one (the contraction runs
+// down the rows: a k-step of 16 rows is 2048 bytes, 8-row groups SBO = 1024
+// apart, and the second 64-column tile of a 128-wide operand lies LBO bytes
+// on).
 #pragma once
 
 #include <cuda.h>   // CUtensorMap (a type only: nothing links libcuda)
+#include <cuda_fp16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace apex_port {
 namespace hopper {
@@ -157,155 +161,171 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
 }
 
-// d[64 x N] (+)= A[64 x 16] B[16 x N], bf16 in, fp32 accumulators (d's
-// element i of warp w, lane (g, t4) is row 16w + g + 8 ((i >> 1) & 1),
-// column 8 (i >> 2) + 2 t4 + (i & 1)); scale_d = 0 overwrites d. "ss": A
-// and B K-major in shared memory; "rs": A from registers (the fragment
-// a[0..3] of lane (g, t4): rows g, g + 8 by columns 2 t4, 2 t4 + 1, then
-// the same 8 columns on), B K-major (TB = 0) or MN-major (TB = 1).
+// d[64 x N] (+)= A[64 x 16] B[16 x N], 16-bit E in (bf16 or fp16: the
+// instruction's type follows E), fp32 accumulators (d's element i of warp
+// w, lane (g, t4) is row 16w + g + 8 ((i >> 1) & 1), column 8 (i >> 2) +
+// 2 t4 + (i & 1)); scale_d = 0 overwrites d. "ss": A and B K-major in
+// shared memory; "rs": A from registers (the fragment a[0..3] of lane (g,
+// t4): rows g, g + 8 by columns 2 t4, 2 t4 + 1, then the same 8 columns
+// on), B K-major (TB = 0) or MN-major (TB = 1).
+template <typename E>
+constexpr bool kIsF16 = std::is_same<E, __half>::value;
+
+#define APEX_ACC16(d)                                                      \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),        \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+#define APEX_ACC32(d)                                                      \
+  APEX_ACC16(d), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),      \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),    \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),    \
+      "+f"(d[30]), "+f"(d[31])
+#define APEX_ACC64(d)                                                      \
+  APEX_ACC32(d), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),      \
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),    \
+      "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),    \
+      "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),    \
+      "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),    \
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),    \
+      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define APEX_R16                                                           \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+#define APEX_R32                                                           \
+  "{%0, %1, %2, %3, %4, %5, %6, %7,"                                       \
+  " %8, %9, %10, %11, %12, %13, %14, %15,"                                 \
+  " %16, %17, %18, %19, %20, %21, %22, %23,"                               \
+  " %24, %25, %26, %27, %28, %29, %30, %31}"
+#define APEX_R64                                                           \
+  "{%0, %1, %2, %3, %4, %5, %6, %7,"                                       \
+  " %8, %9, %10, %11, %12, %13, %14, %15,"                                 \
+  " %16, %17, %18, %19, %20, %21, %22, %23,"                               \
+  " %24, %25, %26, %27, %28, %29, %30, %31,"                               \
+  " %32, %33, %34, %35, %36, %37, %38, %39,"                               \
+  " %40, %41, %42, %43, %44, %45, %46, %47,"                               \
+  " %48, %49, %50, %51, %52, %53, %54, %55,"                               \
+  " %56, %57, %58, %59, %60, %61, %62, %63}"
+
+template <typename E>
 __device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t da,
                                           uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
+  if constexpr (kIsF16<E>) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 " APEX_R32
+        ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : APEX_ACC32(d) : "l"(da), "l"(db), "r"(scale_d));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " APEX_R32
+        ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : APEX_ACC32(d) : "l"(da), "l"(db), "r"(scale_d));
+  }
 }
 
+template <typename E>
 __device__ __forceinline__ void mma_ss_n32(float (&d)[16], uint64_t da,
                                           uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(da), "l"(db), "r"(scale_d));
+  if constexpr (kIsF16<E>) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.f16.f16 " APEX_R16
+        ", %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : APEX_ACC16(d) : "l"(da), "l"(db), "r"(scale_d));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " APEX_R16
+        ", %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : APEX_ACC16(d) : "l"(da), "l"(db), "r"(scale_d));
+  }
 }
 
+template <typename E>
 __device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t da,
                                            uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39,"
-      " %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55,"
-      " %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
+  if constexpr (kIsF16<E>) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 " APEX_R64
+        ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : APEX_ACC64(d) : "l"(da), "l"(db), "r"(scale_d));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " APEX_R64
+        ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : APEX_ACC64(d) : "l"(da), "l"(db), "r"(scale_d));
+  }
 }
 
-template <int TB>
+template <int TB, typename E>
 __device__ __forceinline__ void mma_rs_n64(float (&d)[32],
                                           const uint32_t (&a)[4],
                                           uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(scale_d), "n"(TB));
+  if constexpr (kIsF16<E>) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.f16.f16 " APEX_R32
+        ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        : APEX_ACC32(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(scale_d), "n"(TB));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " APEX_R32
+        ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        : APEX_ACC32(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(scale_d), "n"(TB));
+  }
 }
 
-template <int TB>
+template <int TB, typename E>
 __device__ __forceinline__ void mma_rs_n128(float (&d)[64],
                                           const uint32_t (&a)[4],
                                           uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39,"
-      " %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55,"
-      " %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(scale_d), "n"(TB));
+  if constexpr (kIsF16<E>) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 " APEX_R64
+        ", {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+        : APEX_ACC64(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(scale_d), "n"(TB));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " APEX_R64
+        ", {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+        : APEX_ACC64(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(scale_d), "n"(TB));
+  }
 }
 
-template <int N>
+#undef APEX_ACC16
+#undef APEX_ACC32
+#undef APEX_ACC64
+#undef APEX_R16
+#undef APEX_R32
+#undef APEX_R64
+
+template <int N, typename E>
 __device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t da,
                                        uint64_t db, int scale_d) {
-  if constexpr (N == 32) mma_ss_n32(d, da, db, scale_d);
-  else if constexpr (N == 64) mma_ss_n64(d, da, db, scale_d);
-  else mma_ss_n128(d, da, db, scale_d);
+  if constexpr (N == 32) mma_ss_n32<E>(d, da, db, scale_d);
+  else if constexpr (N == 64) mma_ss_n64<E>(d, da, db, scale_d);
+  else mma_ss_n128<E>(d, da, db, scale_d);
 }
 
-template <int N, int TB>
+template <int N, int TB, typename E>
 __device__ __forceinline__ void mma_rs(float (&d)[N / 2],
                                        const uint32_t (&a)[4], uint64_t db,
                                        int scale_d) {
-  if constexpr (N == 64) mma_rs_n64<TB>(d, a, db, scale_d);
-  else mma_rs_n128<TB>(d, a, db, scale_d);
+  if constexpr (N == 64) mma_rs_n64<TB, E>(d, a, db, scale_d);
+  else mma_rs_n128<TB, E>(d, a, db, scale_d);
 }
 
 }  // namespace hopper

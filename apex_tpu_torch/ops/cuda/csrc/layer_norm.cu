@@ -61,6 +61,17 @@ __device__ __forceinline__ void load_vec(const T* p, bool in, float fill,
   }
 }
 
+// VEC fp32 values stored as T (one vector store when VEC is 4)
+template <int VEC, typename T>
+__device__ __forceinline__ void store_vec(T* p, const float* v) {
+  if constexpr (VEC == 4) {
+    const float t4[4] = {v[0], v[1], v[2], v[3]};
+    store4(p, t4);
+  } else {
+    p[0] = from_f<T>(v[0]);
+  }
+}
+
 // WPR warps per row; with WPR == 1 a block holds 4 rows (one per warp),
 // with WPR > 1 a block holds one row. Thread t holds the VEC-wide column
 // groups t, t + 32*WPR, ... (VEC is 4 when F % 4 == 0 and every pointer is
@@ -230,7 +241,9 @@ extern "C" int apex_layer_norm_fwd(int x_dtype, int w_dtype, const void* x,
 // with ~12 flops per element; at the LM's [32760, 1024] bf16 that is
 // 3 x 67 MB, 0.060 ms at 3.35 TB/s. What the design does about it: a row
 // is loaded once into registers (the forward's layout: one warp per row up
-// to F = 1024, one 256-thread block per row above, 4-wide vector loads),
+// to F = 1024, one 256-thread block per row above, 4-wide vector loads
+// where F % 4 == 0 and the buffers are 4-element aligned, else the VEC-1
+// form, one value a load),
 // both row sums come from the registers and dx is written once. Each block
 // walks a fixed chunk of rows, so a thread keeps its columns' gamma and
 // its running column sums in registers across the chunk; the block writes
@@ -242,21 +255,22 @@ extern "C" int apex_layer_norm_fwd(int x_dtype, int w_dtype, const void* x,
 namespace apex_port {
 namespace {
 
-// the VEC = 4 column groups of thread t: c = (i * kRowThreads + t) * 4
-template <typename T, typename W, int WPR, bool AFFINE>
+// the VEC-wide column groups of thread t: c = (i * kRowThreads + t) * VEC
+// (VEC is 4 when F % 4 == 0 and every buffer is 4-element aligned, else 1)
+template <typename T, typename W, int WPR, bool AFFINE, int VEC>
 __device__ __forceinline__ void ln_bwd_row(
     const T* __restrict__ dyr, const T* __restrict__ xr,
     const float (&g)[kItems], float mean, float inv, T* __restrict__ dxr,
     int F, int t, float* red, float (&gw)[kItems], float (&gb)[kItems]) {
   constexpr int kRowThreads = 32 * WPR;
-  constexpr int kGroups = kItems / 4;
+  constexpr int kGroups = kItems / VEC;
   float d[kItems], xh[kItems];
 #pragma unroll
   for (int i = 0; i < kGroups; ++i) {
-    const int c = (i * kRowThreads + t) * 4;
+    const int c = (i * kRowThreads + t) * VEC;
     const bool in = c < F;
-    load_vec<4>(dyr + c, in, 0.f, d + i * 4);
-    load_vec<4>(xr + c, in, 0.f, xh + i * 4);
+    load_vec<VEC>(dyr + c, in, 0.f, d + i * VEC);
+    load_vec<VEC>(xr + c, in, 0.f, xh + i * VEC);
   }
   float s1 = 0.f, s2 = 0.f;
 #pragma unroll
@@ -274,30 +288,31 @@ __device__ __forceinline__ void ln_bwd_row(
   const float m2 = row_sum<WPR>(s2, red) / F;
 #pragma unroll
   for (int i = 0; i < kGroups; ++i) {
-    const int c = (i * kRowThreads + t) * 4;
+    const int c = (i * kRowThreads + t) * VEC;
     if (c < F) {
-      float o[4];
+      float o[VEC];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = i * 4 + e;
+      for (int e = 0; e < VEC; ++e) {
+        const int j = i * VEC + e;
         const float dxh = AFFINE ? d[j] * g[j] : d[j];
         o[e] = inv * (dxh - m1 - xh[j] * m2);
       }
-      store4(dxr + c, o);
+      store_vec<VEC>(dxr + c, o);
     }
   }
 }
 
 // one warp's column sums -> sh[warp][F] (WPR == 1: F <= 1024)
+template <int VEC>
 __device__ __forceinline__ void stage_cols(const float (&a)[kItems], float* sh,
                                            int F) {
   const int warp = threadIdx.x >> 5, t = threadIdx.x & 31;
 #pragma unroll
-  for (int i = 0; i < kItems / 4; ++i) {
-    const int c = (i * 32 + t) * 4;
+  for (int i = 0; i < kItems / VEC; ++i) {
+    const int c = (i * 32 + t) * VEC;
     if (c < F) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) sh[warp * F + c + e] = a[i * 4 + e];
+      for (int e = 0; e < VEC; ++e) sh[warp * F + c + e] = a[i * VEC + e];
     }
   }
 }
@@ -305,7 +320,7 @@ __device__ __forceinline__ void stage_cols(const float (&a)[kItems], float* sh,
 // WPR == 1: a block of 4 warps, a warp per row; WPR == 8: a block of 256
 // threads on one row at a time. Block b walks rows [b * rpc, (b+1) * rpc)
 // and writes its column sums to ws[0][b][:] and ws[1][b][:].
-template <typename T, typename W, int WPR, bool AFFINE>
+template <typename T, typename W, int WPR, bool AFFINE, int VEC>
 __global__ void __launch_bounds__(WPR == 1 ? 128 : 32 * WPR)
 ln_bwd_kernel(const T* __restrict__ dy, const T* __restrict__ x,
               const W* __restrict__ gamma, const float* __restrict__ mean,
@@ -317,19 +332,20 @@ ln_bwd_kernel(const T* __restrict__ dy, const T* __restrict__ x,
   const int t = WPR == 1 ? (threadIdx.x & 31) : threadIdx.x;
   float g[kItems], gw[kItems], gb[kItems];
 #pragma unroll
-  for (int i = 0; i < kItems / 4; ++i) {
-    const int c = (i * kRowThreads + t) * 4;
-    load_vec<4>(AFFINE ? gamma + c : nullptr, AFFINE && c < F, 1.f,
-                g + i * 4);
+  for (int i = 0; i < kItems / VEC; ++i) {
+    const int c = (i * kRowThreads + t) * VEC;
+    load_vec<VEC>(AFFINE ? gamma + c : nullptr, AFFINE && c < F, 1.f,
+                  g + i * VEC);
   }
 #pragma unroll
   for (int i = 0; i < kItems; ++i) gw[i] = gb[i] = 0.f;
   const int r0 = blockIdx.x * rpc;
   const int r1 = r0 + rpc < rows ? r0 + rpc : rows;
   for (int r = r0 + (WPR == 1 ? warp : 0); r < r1; r += (WPR == 1 ? 4 : 1)) {
-    ln_bwd_row<T, W, WPR, AFFINE>(dy + (size_t)r * F, x + (size_t)r * F, g,
-                                  mean[r], inv[r], dx + (size_t)r * F, F, t,
-                                  red, gw, gb);
+    ln_bwd_row<T, W, WPR, AFFINE, VEC>(dy + (size_t)r * F,
+                                       x + (size_t)r * F, g, mean[r],
+                                       inv[r], dx + (size_t)r * F, F, t,
+                                       red, gw, gb);
   }
   if (!AFFINE) return;
   float* w0 = ws + (size_t)blockIdx.x * F;
@@ -337,26 +353,26 @@ ln_bwd_kernel(const T* __restrict__ dy, const T* __restrict__ x,
   if (WPR == 1) {
     // the four warps' sums, added in warp order
     __shared__ float sh[4 * 32 * kItems];
-    stage_cols(gw, sh, F);
+    stage_cols<VEC>(gw, sh, F);
     __syncthreads();
     for (int c = threadIdx.x; c < F; c += 128) {
       w0[c] = ((sh[c] + sh[F + c]) + sh[2 * F + c]) + sh[3 * F + c];
     }
     __syncthreads();
-    stage_cols(gb, sh, F);
+    stage_cols<VEC>(gb, sh, F);
     __syncthreads();
     for (int c = threadIdx.x; c < F; c += 128) {
       w1[c] = ((sh[c] + sh[F + c]) + sh[2 * F + c]) + sh[3 * F + c];
     }
   } else {
 #pragma unroll
-    for (int i = 0; i < kItems / 4; ++i) {
-      const int c = (i * kRowThreads + t) * 4;
+    for (int i = 0; i < kItems / VEC; ++i) {
+      const int c = (i * kRowThreads + t) * VEC;
       if (c < F) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          w0[c + e] = gw[i * 4 + e];
-          w1[c + e] = gb[i * 4 + e];
+        for (int e = 0; e < VEC; ++e) {
+          w0[c + e] = gw[i * VEC + e];
+          w1[c + e] = gb[i * VEC + e];
         }
       }
     }
@@ -372,12 +388,21 @@ void launch_bwd(const void* dy, const void* x, const void* gamma,
   const T* xp = static_cast<const T*>(x);
   const W* g = static_cast<const W*>(gamma);
   T* o = static_cast<T*>(dx);
-  if (F <= 32 * kItems) {
-    ln_bwd_kernel<T, W, 1, AFFINE><<<nchunk, 128, 0, st>>>(
-        d, xp, g, mean, inv, o, ws, rows, F, rpc, nchunk);
+  auto run = [&](auto vec) {
+    constexpr int V = decltype(vec)::value;
+    if (F <= 32 * kItems) {
+      ln_bwd_kernel<T, W, 1, AFFINE, V><<<nchunk, 128, 0, st>>>(
+          d, xp, g, mean, inv, o, ws, rows, F, rpc, nchunk);
+    } else {
+      ln_bwd_kernel<T, W, 8, AFFINE, V><<<nchunk, 256, 0, st>>>(
+          d, xp, g, mean, inv, o, ws, rows, F, rpc, nchunk);
+    }
+  };
+  if (F % 4 == 0 && aligned4(d) && aligned4(xp) && aligned4(g) &&
+      aligned4(o)) {
+    run(std::integral_constant<int, 4>{});
   } else {
-    ln_bwd_kernel<T, W, 8, AFFINE><<<nchunk, 256, 0, st>>>(
-        d, xp, g, mean, inv, o, ws, rows, F, rpc, nchunk);
+    run(std::integral_constant<int, 1>{});
   }
   if (AFFINE) {
     finalize_kernel<<<(F + 31) / 32, dim3(32, 32), 0, st>>>(ws, nchunk, F,
@@ -411,10 +436,11 @@ int launch_bwd_x(int w_dtype, const void* dy, const void* x,
 }  // namespace
 }  // namespace apex_port
 
-// dy, x, dx [rows, F] in one dtype, F a multiple of 4 and <= 8192, every
-// buffer 4-element aligned; gamma [F] or null (non-affine: ws, gw, gb
-// unused); mean, invvar fp32 [rows]; ws fp32 [2, nchunk, F] scratch; gw,
-// gb fp32 [F]. Block b of nchunk takes rows [b * rpc, (b+1) * rpc).
+// dy, x, dx [rows, F] in one dtype, F <= 8192 (four columns a load where F
+// % 4 == 0 and every buffer is 4-element aligned, else one); gamma [F] or
+// null (non-affine: ws, gw, gb unused); mean, invvar fp32 [rows]; ws fp32
+// [2, nchunk, F] scratch; gw, gb fp32 [F]. Block b of nchunk takes rows
+// [b * rpc, (b+1) * rpc).
 extern "C" int apex_layer_norm_bwd(int x_dtype, int w_dtype, const void* dy,
                                    const void* x, const void* gamma,
                                    const void* mean, const void* invvar,
@@ -422,7 +448,7 @@ extern "C" int apex_layer_norm_bwd(int x_dtype, int w_dtype, const void* dy,
                                    int rows, int F, int rpc, int nchunk,
                                    void* stream) {
   using namespace apex_port;
-  if (F < 4 || F % 4 != 0 || F > 8 * 32 * kItems || rows < 1 || rpc < 1 ||
+  if (F < 1 || F > 8 * 32 * kItems || rows < 1 || rpc < 1 ||
       nchunk < 1 || (long long)rpc * nchunk < rows) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -485,7 +511,9 @@ extern "C" int apex_layer_norm_bwd(int x_dtype, int w_dtype, const void* dy,
 // block's work: the forward reads x twice (statistics, then y) and the
 // backward dy and x twice (sums, then dx), 1.5 and 1.67 times the bound's
 // bytes. What the design does about the rest: a warp takes one (row,
-// chunk) at a time, each lane 32 values by eight 4-wide vector loads, all
+// chunk) at a time, each lane 32 values by eight 4-wide vector loads (or,
+// where F % 4 != 0 or a buffer is not 4-element aligned, the VEC-1 form's
+// 32 scalar loads), all
 // issued before the first is used; gamma and beta of the block's chunk are
 // loaded once into registers; the backward's column sums stay in registers
 // across the block's rows. Statistics: each chunk's sum of squares is
@@ -514,21 +542,23 @@ __device__ __forceinline__ int chunk_cols(long long F, int j) {
   return left < kWideCols ? static_cast<int>(left) : kWideCols;
 }
 
-// lane's column of group i inside a chunk: c = (i * 32 + lane) * 4
+// lane's column of group i inside a chunk: c = (i * 32 + lane) * VEC (VEC
+// 4 when F % 4 == 0 and every buffer is 4-element aligned, else 1)
+template <int VEC>
 __device__ __forceinline__ int wide_col(int i, int lane) {
-  return (i * 32 + lane) * 4;
+  return (i * 32 + lane) * VEC;
 }
 
 // a chunk's kItems columns of a [F] vector into a lane's registers
-template <typename W>
+template <int VEC, typename W>
 __device__ __forceinline__ void load_chunk_vec(const W* p, long long c0,
                                                int n, int lane, float fill,
                                                float (&o)[kItems]) {
 #pragma unroll
-  for (int i = 0; i < kItems / 4; ++i) {
-    const int c = wide_col(i, lane);
-    load_vec<4>(p != nullptr ? p + c0 + c : nullptr, p != nullptr && c < n,
-                fill, o + i * 4);
+  for (int i = 0; i < kItems / VEC; ++i) {
+    const int c = wide_col<VEC>(i, lane);
+    load_vec<VEC>(p != nullptr ? p + c0 + c : nullptr, p != nullptr && c < n,
+                  fill, o + i * VEC);
   }
 }
 
@@ -557,42 +587,33 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   return t;
 }
 
-// four row values as loaded (two 32-bit words of 16-bit T, four floats)
-// to fp32
-__device__ __forceinline__ void unpack4(const float4& r, float (&o)[4],
-                                        const float*) {
-  o[0] = r.x; o[1] = r.y; o[2] = r.z; o[3] = r.w;
-}
-__device__ __forceinline__ void unpack4(const uint2& r, float (&o)[4],
-                                        const __nv_bfloat16*) {
-  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&r.x);
-  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&r.y);
-  o[0] = __low2float(a); o[1] = __high2float(a);
-  o[2] = __low2float(b); o[3] = __high2float(b);
-}
-__device__ __forceinline__ void unpack4(const uint2& r, float (&o)[4],
-                                        const __half*) {
-  const __half2 a = *reinterpret_cast<const __half2*>(&r.x);
-  const __half2 b = *reinterpret_cast<const __half2*>(&r.y);
-  o[0] = __low2float(a); o[1] = __high2float(a);
-  o[2] = __low2float(b); o[3] = __high2float(b);
-}
+// the registers a thread holds VEC row values in, as loaded
+template <typename T, int VEC>
+struct RowRaw {
+  using type = T;
+};
+template <typename T>
+struct RowRaw<T, 4> {
+  using type = typename Raw4<T>::type;
+};
 
-// block b takes row b, thread t the 4-wide column groups t, t + blockDim,
-// ... (blockDim.x = 32 * ceil(F / 1024)): the statistics as the chunked
-// form computes them (a shift by the row's first value, then the centred
-// sum of squares), here from registers over the whole row. A thread holds
-// its 32 values as loaded (16 registers of bf16), so that with 16-bit rows
-// at most 64 registers a thread let three blocks of 384 threads share an
-// SM (fp32 rows take what their 32 values need).
-template <typename T, typename W>
-__global__ void __launch_bounds__(32 * kRowWarpsMax, sizeof(T) == 4 ? 1 : 2)
+// block b takes row b, thread t the VEC-wide column groups t, t +
+// blockDim, ... (blockDim.x = 32 * ceil(F / 1024)): the statistics as the
+// chunked form computes them (a shift by the row's first value, then the
+// centred sum of squares), here from registers over the whole row. A
+// thread holds its 32 values as loaded (16 registers of bf16 at VEC 4), so
+// that with 16-bit rows at most 64 registers a thread let three blocks of
+// 384 threads share an SM (fp32 rows take what their 32 values need).
+// (The VEC-1 form's 32 scalars take a register each: one block an SM.)
+template <typename T, typename W, int VEC>
+__global__ void __launch_bounds__(32 * kRowWarpsMax,
+                                  sizeof(T) == 4 || VEC == 1 ? 1 : 2)
 ln_wide_row_kernel(const T* __restrict__ x, const W* __restrict__ gamma,
                    const W* __restrict__ beta, T* __restrict__ y,
                    float* __restrict__ mean_out,
                    float* __restrict__ inv_out, long long F, float eps) {
-  using R = typename std::conditional<sizeof(T) == 4, float4, uint2>::type;
-  constexpr int kGroups = kItems / 4;
+  using R = typename RowRaw<T, VEC>::type;
+  constexpr int kGroups = kItems / VEC;
   __shared__ float red[kRowWarpsMax];
   const long long row = blockIdx.x;
   const int t = threadIdx.x, nt = blockDim.x;
@@ -601,48 +622,50 @@ ln_wide_row_kernel(const T* __restrict__ x, const W* __restrict__ gamma,
   R raw[kGroups];
 #pragma unroll
   for (int i = 0; i < kGroups; ++i) {
-    const int c = (i * nt + t) * 4;
+    const int c = (i * nt + t) * VEC;
     raw[i] = c < F ? *reinterpret_cast<const R*>(xr + c) : R{};
   }
   float s = 0.f;
 #pragma unroll
   for (int i = 0; i < kGroups; ++i) {
-    float v[4];
-    unpack4(raw[i], v, xr);
+    float v[VEC];
+    unpack(raw[i], v, xr);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) s += (i * nt + t) * 4 < F ? v[e] - shift : 0.f;
+    for (int e = 0; e < VEC; ++e) {
+      s += (i * nt + t) * VEC < F ? v[e] - shift : 0.f;
+    }
   }
   const float Ff = static_cast<float>(F);
   const float dmean = block_sum(s, red) / Ff;
   float q = 0.f;
 #pragma unroll
   for (int i = 0; i < kGroups; ++i) {
-    float v[4];
-    unpack4(raw[i], v, xr);
+    float v[VEC];
+    unpack(raw[i], v, xr);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
+    for (int e = 0; e < VEC; ++e) {
       const float d = (v[e] - shift) - dmean;
-      q += (i * nt + t) * 4 < F ? d * d : 0.f;
+      q += (i * nt + t) * VEC < F ? d * d : 0.f;
     }
   }
   const float inv = rsqrtf(block_sum(q, red) / Ff + eps);
   T* yr = y + row * F;
 #pragma unroll
   for (int i = 0; i < kGroups; ++i) {
-    const int c = (i * nt + t) * 4;
+    const int c = (i * nt + t) * VEC;
     if (c < F) {
-      float v[4], g[4], b[4], o[4];
-      unpack4(raw[i], v, xr);
-      load_vec<4>(gamma + c, gamma != nullptr, 1.f, g);
-      load_vec<4>(beta + c, beta != nullptr, 0.f, b);
+      float v[VEC], g[VEC], b[VEC], o[VEC];
+      unpack(raw[i], v, xr);
+      load_vec<VEC>(gamma + c, gamma != nullptr, 1.f, g);
+      load_vec<VEC>(beta + c, beta != nullptr, 0.f, b);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
+      for (int e = 0; e < VEC; ++e) {
         // (x - shift) - dmean: exact to the shift's precision even where
         // the mean is large beside the spread
         const float xh = ((v[e] - shift) - dmean) * inv;
         o[e] = gamma != nullptr ? xh * g[e] + b[e] : xh;
       }
-      store4(yr + c, o);
+      store_vec<VEC>(yr + c, o);
     }
   }
   if (t == 0) {
@@ -653,7 +676,7 @@ ln_wide_row_kernel(const T* __restrict__ x, const W* __restrict__ gamma,
 
 // grid (nchunk, row groups); warp w of block (j, b) takes chunk j of rows
 // b * 8 + w, then + 8 * gridDim.y, ...
-template <typename T>
+template <typename T, int VEC>
 __global__ void __launch_bounds__(32 * kWideWarps)
 ln_wide_stats_kernel(const T* __restrict__ x, float* __restrict__ part,
                      long long rows, long long F) {
@@ -667,9 +690,9 @@ ln_wide_stats_kernel(const T* __restrict__ x, float* __restrict__ part,
     const float shift = to_f(xr[0]);
     float d[kItems];
 #pragma unroll
-    for (int i = 0; i < kItems / 4; ++i) {
-      const int c = wide_col(i, lane);
-      load_vec<4>(xr + c0 + c, c < n, shift, d + i * 4);
+    for (int i = 0; i < kItems / VEC; ++i) {
+      const int c = wide_col<VEC>(i, lane);
+      load_vec<VEC>(xr + c0 + c, c < n, shift, d + i * VEC);
     }
     float s = 0.f;
 #pragma unroll
@@ -683,7 +706,7 @@ ln_wide_stats_kernel(const T* __restrict__ x, float* __restrict__ part,
 #pragma unroll
     for (int i = 0; i < kItems; ++i) {
       const float e = d[i] - m;
-      q += wide_col(i / 4, lane) < n ? e * e : 0.f;
+      q += wide_col<VEC>(i / VEC, lane) + i % VEC < n ? e * e : 0.f;
     }
     q = warp_sum(q);
     if (lane == 0) {
@@ -694,7 +717,7 @@ ln_wide_stats_kernel(const T* __restrict__ x, float* __restrict__ part,
   }
 }
 
-template <typename T, typename W>
+template <typename T, typename W, int VEC>
 __global__ void __launch_bounds__(32 * kWideWarps)
 ln_wide_apply_kernel(const T* __restrict__ x, const W* __restrict__ gamma,
                      const W* __restrict__ beta,
@@ -709,8 +732,8 @@ ln_wide_apply_kernel(const T* __restrict__ x, const W* __restrict__ gamma,
   const bool affine = gamma != nullptr;
   const float Ff = static_cast<float>(F);
   float g[kItems], b[kItems];
-  load_chunk_vec(gamma, c0, n, lane, 1.f, g);
-  load_chunk_vec(beta, c0, n, lane, 0.f, b);
+  load_chunk_vec<VEC>(gamma, c0, n, lane, 1.f, g);
+  load_chunk_vec<VEC>(beta, c0, n, lane, 0.f, b);
   for (long long row = (long long)blockIdx.y * kWideWarps + warp; row < rows;
        row += (long long)gridDim.y * kWideWarps) {
     const T* xr = x + row * F;
@@ -726,25 +749,25 @@ ln_wide_apply_kernel(const T* __restrict__ x, const W* __restrict__ gamma,
     const float inv = rsqrtf(warp_sum(q) / Ff + eps);
     float v[kItems];
 #pragma unroll
-    for (int i = 0; i < kItems / 4; ++i) {
-      const int c = wide_col(i, lane);
-      load_vec<4>(xr + c0 + c, c < n, 0.f, v + i * 4);
+    for (int i = 0; i < kItems / VEC; ++i) {
+      const int c = wide_col<VEC>(i, lane);
+      load_vec<VEC>(xr + c0 + c, c < n, 0.f, v + i * VEC);
     }
     T* yr = y + row * F + c0;
 #pragma unroll
-    for (int i = 0; i < kItems / 4; ++i) {
-      const int c = wide_col(i, lane);
+    for (int i = 0; i < kItems / VEC; ++i) {
+      const int c = wide_col<VEC>(i, lane);
       if (c < n) {
-        float o[4];
+        float o[VEC];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int k = i * 4 + e;
+        for (int e = 0; e < VEC; ++e) {
+          const int k = i * VEC + e;
           // (x - shift) - dmean: exact to the shift's precision even
           // where the mean is large beside the spread
           const float xh = ((v[k] - shift) - dmean) * inv;
           o[e] = affine ? xh * g[k] + b[k] : xh;
         }
-        store4(yr + c, o);
+        store_vec<VEC>(yr + c, o);
       }
     }
     if (j == 0 && lane == 0) {
@@ -756,12 +779,13 @@ ln_wide_apply_kernel(const T* __restrict__ x, const W* __restrict__ gamma,
 
 // the block's eight warps' column sums of one chunk, added in warp order,
 // -> out[0..n)
+template <int VEC>
 __device__ __forceinline__ void store_block_cols(
     const float (&a)[kItems], float (*sh)[kWideCols], float* out, int n) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
   for (int i = 0; i < kItems; ++i) {
-    sh[warp][wide_col(i / 4, lane) + i % 4] = a[i];
+    sh[warp][wide_col<VEC>(i / VEC, lane) + i % VEC] = a[i];
   }
   __syncthreads();
   for (int c = threadIdx.x; c < n; c += 32 * kWideWarps) {
@@ -777,7 +801,7 @@ __device__ __forceinline__ void store_block_cols(
 // (b+1) * rpc), warp w the rows r0 + w, r0 + w + 8, ...; writes each row's
 // chunk sums to rpart[row][j][0..1] and, AFFINE, the block's column sums
 // to ws[0][b][cols of j], ws[1][b][cols of j]
-template <typename T, typename W, bool AFFINE>
+template <typename T, typename W, bool AFFINE, int VEC>
 __global__ void __launch_bounds__(32 * kWideWarps)
 ln_wide_bwd_reduce_kernel(const T* __restrict__ dy, const T* __restrict__ x,
                           const W* __restrict__ gamma,
@@ -790,7 +814,7 @@ ln_wide_bwd_reduce_kernel(const T* __restrict__ dy, const T* __restrict__ x,
   const long long c0 = (long long)j * kWideCols;
   const int n = chunk_cols(F, j);
   float g[kItems], gw[kItems], gb[kItems];
-  load_chunk_vec(AFFINE ? gamma : nullptr, c0, n, lane, 1.f, g);
+  load_chunk_vec<VEC>(AFFINE ? gamma : nullptr, c0, n, lane, 1.f, g);
 #pragma unroll
   for (int i = 0; i < kItems; ++i) gw[i] = gb[i] = 0.f;
   const long long r0 = (long long)blockIdx.y * rpc;
@@ -801,10 +825,10 @@ ln_wide_bwd_reduce_kernel(const T* __restrict__ dy, const T* __restrict__ x,
     const T* xr = x + row * F + c0;
     float d[kItems], xh[kItems];
 #pragma unroll
-    for (int i = 0; i < kItems / 4; ++i) {
-      const int c = wide_col(i, lane);
-      load_vec<4>(dr + c, c < n, 0.f, d + i * 4);   // past the row: dy 0
-      load_vec<4>(xr + c, c < n, mu, xh + i * 4);
+    for (int i = 0; i < kItems / VEC; ++i) {
+      const int c = wide_col<VEC>(i, lane);
+      load_vec<VEC>(dr + c, c < n, 0.f, d + i * VEC);   // past the row: dy 0
+      load_vec<VEC>(xr + c, c < n, mu, xh + i * VEC);
     }
     float s1 = 0.f, s2 = 0.f;
 #pragma unroll
@@ -828,14 +852,14 @@ ln_wide_bwd_reduce_kernel(const T* __restrict__ dy, const T* __restrict__ x,
   }
   if (!AFFINE) return;
   __shared__ float sh[kWideWarps][kWideCols];
-  store_block_cols(gw, sh, ws + (long long)blockIdx.y * F + c0, n);
-  store_block_cols(gb, sh,
+  store_block_cols<VEC>(gw, sh, ws + (long long)blockIdx.y * F + c0, n);
+  store_block_cols<VEC>(gb, sh,
                    ws + ((long long)gridDim.y + blockIdx.y) * F + c0, n);
 }
 
 // grid (nchunk, row groups) as the forward's; dx = inv * (dy * g - m1 -
 // xhat * m2) with m1, m2 the row's merged sums over F
-template <typename T, typename W, bool AFFINE>
+template <typename T, typename W, bool AFFINE, int VEC>
 __global__ void __launch_bounds__(32 * kWideWarps)
 ln_wide_bwd_dx_kernel(const T* __restrict__ dy, const T* __restrict__ x,
                       const W* __restrict__ gamma,
@@ -849,7 +873,7 @@ ln_wide_bwd_dx_kernel(const T* __restrict__ dy, const T* __restrict__ x,
   const int n = chunk_cols(F, j);
   const float Ff = static_cast<float>(F);
   float g[kItems];
-  load_chunk_vec(AFFINE ? gamma : nullptr, c0, n, lane, 1.f, g);
+  load_chunk_vec<VEC>(AFFINE ? gamma : nullptr, c0, n, lane, 1.f, g);
   for (long long row = (long long)blockIdx.y * kWideWarps + warp; row < rows;
        row += (long long)gridDim.y * kWideWarps) {
     const float* pr = rpart + row * nchunk * 2;
@@ -860,25 +884,25 @@ ln_wide_bwd_dx_kernel(const T* __restrict__ dy, const T* __restrict__ x,
     const T* xr = x + row * F + c0;
     float d[kItems], v[kItems];
 #pragma unroll
-    for (int i = 0; i < kItems / 4; ++i) {
-      const int c = wide_col(i, lane);
-      load_vec<4>(dr + c, c < n, 0.f, d + i * 4);
-      load_vec<4>(xr + c, c < n, mu, v + i * 4);
+    for (int i = 0; i < kItems / VEC; ++i) {
+      const int c = wide_col<VEC>(i, lane);
+      load_vec<VEC>(dr + c, c < n, 0.f, d + i * VEC);
+      load_vec<VEC>(xr + c, c < n, mu, v + i * VEC);
     }
     T* out = dx + row * F + c0;
 #pragma unroll
-    for (int i = 0; i < kItems / 4; ++i) {
-      const int c = wide_col(i, lane);
+    for (int i = 0; i < kItems / VEC; ++i) {
+      const int c = wide_col<VEC>(i, lane);
       if (c < n) {
-        float o[4];
+        float o[VEC];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int k = i * 4 + e;
+        for (int e = 0; e < VEC; ++e) {
+          const int k = i * VEC + e;
           const float xh = (v[k] - mu) * iv;
           const float dxh = AFFINE ? d[k] * g[k] : d[k];
           o[e] = iv * (dxh - m1 - xh * m2);
         }
-        store4(out + c, o);
+        store_vec<VEC>(out + c, o);
       }
     }
   }
@@ -892,8 +916,18 @@ inline unsigned wide_row_groups(long long rows) {
 }
 
 inline bool bad_wide_shape(long long rows, long long F) {
-  return rows < 1 || F < 4 || F % 4 != 0 ||
-         wide_chunks(F) > 0x7fffffffLL / 2;
+  return rows < 1 || F < 1 || wide_chunks(F) > 0x7fffffffLL / 2;
+}
+
+// calls f(std::integral_constant<int, VEC>): 4 when F % 4 == 0 and every
+// buffer given is 4-element aligned (a null one counts as aligned), else 1
+template <typename Fn, typename... Ps>
+void with_vec(long long F, Fn&& f, const Ps*... ps) {
+  if (F % 4 == 0 && (aligned4(ps) && ...)) {
+    f(std::integral_constant<int, 4>{});
+  } else {
+    f(std::integral_constant<int, 1>{});
+  }
 }
 
 // with_storage over (x, weight) dtypes: f(x tag, weight tag, affine as a
@@ -917,11 +951,11 @@ bool with_x_w(int x_dtype, int w_dtype, bool affine, Fn&& f) {
 }  // namespace
 }  // namespace apex_port
 
-// x, y [rows, F] (F a multiple of 4, every buffer 4-element aligned);
-// gamma/beta [F] or both null; mean/invvar fp32 [rows]; part fp32 [rows,
-// ceil(F / 1024), 2] scratch. F <= kRowMax takes one launch, a block a row,
-// and leaves part unused; wider rows two launches, the row in chunks.
-// Returns cudaGetLastError().
+// x, y [rows, F] (four columns a load where F % 4 == 0 and every buffer
+// is 4-element aligned, else one); gamma/beta [F] or both null;
+// mean/invvar fp32 [rows]; part fp32 [rows, ceil(F / 1024), 2] scratch. F
+// <= kRowMax takes one launch, a block a row, and leaves part unused; wider
+// rows two launches, the row in chunks. Returns cudaGetLastError().
 extern "C" int apex_layer_norm_fwd_wide(int x_dtype, int w_dtype,
                                         const void* x, const void* gamma,
                                         const void* beta, void* y,
@@ -941,29 +975,34 @@ extern "C" int apex_layer_norm_fwd_wide(int x_dtype, int w_dtype,
     using T = typename decltype(xt)::type;
     using W = typename decltype(wt)::type;
     const T* xp = static_cast<const T*>(x);
-    if (one_pass) {
-      ln_wide_row_kernel<T, W>
-          <<<static_cast<unsigned>(rows), 32 * wide_chunks(F), 0, st>>>(
-              xp, static_cast<const W*>(gamma), static_cast<const W*>(beta),
-              static_cast<T*>(y), static_cast<float*>(mean),
-              static_cast<float*>(invvar), F, eps);
-      return;
-    }
-    ln_wide_stats_kernel<T><<<grid, 32 * kWideWarps, 0, st>>>(xp, pt, rows,
-                                                              F);
-    ln_wide_apply_kernel<T, W><<<grid, 32 * kWideWarps, 0, st>>>(
-        xp, static_cast<const W*>(gamma), static_cast<const W*>(beta), pt,
-        static_cast<T*>(y), static_cast<float*>(mean),
-        static_cast<float*>(invvar), rows, F, eps);
+    const W* gp = static_cast<const W*>(gamma);
+    const W* bp = static_cast<const W*>(beta);
+    T* yp = static_cast<T*>(y);
+    float* mp = static_cast<float*>(mean);
+    float* ip = static_cast<float*>(invvar);
+    with_vec(F, [&](auto vec) {
+      constexpr int V = decltype(vec)::value;
+      if (one_pass) {
+        ln_wide_row_kernel<T, W, V>
+            <<<static_cast<unsigned>(rows), 32 * wide_chunks(F), 0, st>>>(
+                xp, gp, bp, yp, mp, ip, F, eps);
+        return;
+      }
+      ln_wide_stats_kernel<T, V><<<grid, 32 * kWideWarps, 0, st>>>(
+          xp, pt, rows, F);
+      ln_wide_apply_kernel<T, W, V><<<grid, 32 * kWideWarps, 0, st>>>(
+          xp, gp, bp, pt, yp, mp, ip, rows, F, eps);
+    }, xp, gp, bp, static_cast<const T*>(yp));
   });
   return static_cast<int>(ok ? cudaGetLastError() : cudaErrorInvalidValue);
 }
 
-// dy, x, dx [rows, F] in one dtype (F a multiple of 4, every buffer
-// 4-element aligned); gamma [F] or null (non-affine: ws, gw, gb unused);
-// mean, invvar fp32 [rows]; rpart fp32 [rows, ceil(F / 1024), 2] and ws
-// fp32 [2, nrb, F] scratch; gw, gb fp32 [F]. Row block b of nrb takes rows
-// [b * rpc, (b+1) * rpc). Three launches (two without gamma).
+// dy, x, dx [rows, F] in one dtype (four columns a load where F % 4 == 0
+// and every buffer is 4-element aligned, else one); gamma [F] or null
+// (non-affine: ws, gw, gb unused); mean, invvar fp32 [rows]; rpart fp32
+// [rows, ceil(F / 1024), 2] and ws fp32 [2, nrb, F] scratch; gw, gb fp32
+// [F]. Row block b of nrb takes rows [b * rpc, (b+1) * rpc). Three
+// launches (two without gamma).
 extern "C" int apex_layer_norm_bwd_wide(int x_dtype, int w_dtype,
                                         const void* dy, const void* x,
                                         const void* gamma, const void* mean,
@@ -991,18 +1030,22 @@ extern "C" int apex_layer_norm_bwd_wide(int x_dtype, int w_dtype,
     const T* d = static_cast<const T*>(dy);
     const T* xp = static_cast<const T*>(x);
     const W* g = static_cast<const W*>(gamma);
-    ln_wide_bwd_reduce_kernel<T, W, A>
-        <<<dim3(nchunk, nrb), 32 * kWideWarps, 0, st>>>(d, xp, g, m, iv, rp,
-                                                        w, rows, F, rpc);
-    if constexpr (A) {
-      finalize_kernel<<<static_cast<unsigned>((F + 31) / 32), dim3(32, 32),
-                        0, st>>>(w, nrb, static_cast<int>(F),
-                                 static_cast<float*>(gw),
-                                 static_cast<float*>(gb));
-    }
-    ln_wide_bwd_dx_kernel<T, W, A>
-        <<<dim3(nchunk, wide_row_groups(rows)), 32 * kWideWarps, 0, st>>>(
-            d, xp, g, m, iv, rp, static_cast<T*>(dx), rows, F);
+    T* o = static_cast<T*>(dx);
+    with_vec(F, [&](auto vec) {
+      constexpr int V = decltype(vec)::value;
+      ln_wide_bwd_reduce_kernel<T, W, A, V>
+          <<<dim3(nchunk, nrb), 32 * kWideWarps, 0, st>>>(
+              d, xp, g, m, iv, rp, w, rows, F, rpc);
+      if constexpr (A) {
+        finalize_kernel<<<static_cast<unsigned>((F + 31) / 32),
+                          dim3(32, 32), 0, st>>>(
+            w, nrb, static_cast<int>(F), static_cast<float*>(gw),
+            static_cast<float*>(gb));
+      }
+      ln_wide_bwd_dx_kernel<T, W, A, V>
+          <<<dim3(nchunk, wide_row_groups(rows)), 32 * kWideWarps, 0, st>>>(
+              d, xp, g, m, iv, rp, o, rows, F);
+    }, d, xp, g, static_cast<const T*>(o));
   });
   return static_cast<int>(ok ? cudaGetLastError() : cudaErrorInvalidValue);
 }

@@ -3,14 +3,17 @@ kernel wrappers and their plain PyTorch versions.
 
 Counterpart of ``apex_tpu/ops/pallas/decode_attn.py``. The two Pallas
 kernels (``_decode_kernel``, ``_paged_decode_kernel``) become ONE CUDA
-kernel body with two index modes (``ops/cuda/csrc/decode_attn.cu``), so a
-paged decode sums in the same order as a dense one and the two agree
-bitwise on the card.
+kernel body with two index modes (``ops/cuda/csrc/decode_attn.cu``), its
+keys split across blocks in chunks of :data:`DECODE_CHUNK` positions
+(:func:`decode_chunks`), and a merge kernel (:func:`decode_merge`) that
+adds a row's chunks in chunk order. The chunks depend on the positions
+only, so a paged decode sums in the same order as a dense one and the two
+agree bitwise on the card.
 
 For a tensor on the CPU a wrapper runs the plain version; for a tensor on
-the card it launches the kernel, or raises when the kernel does not take
-the dtype, shape or layout. Each wrapper counts its launches in
-``<wrapper>.launches``.
+the card it launches the kernel (head dims :data:`HEAD_DIMS`; fp32, bf16,
+fp16), or raises when the kernel does not take the dtype, shape or layout.
+Each wrapper counts its launches in ``<wrapper>.launches``.
 """
 
 from __future__ import annotations
@@ -20,16 +23,36 @@ import torch
 from apex_tpu_torch.ops import cuda as _cuda
 from apex_tpu_torch.ops import dispatch
 
-__all__ = ["NEG_INF", "HEAD_DIM", "PAGE_MULTIPLE", "gather_pages",
-           "decode_attention", "paged_decode_attention",
-           "decode_attention_plain", "paged_decode_attention_plain"]
+__all__ = ["NEG_INF", "HEAD_DIMS", "DECODE_CHUNK", "decode_chunks",
+           "chunk_spans", "gather_pages", "decode_attention",
+           "paged_decode_attention", "decode_attention_plain",
+           "paged_decode_attention_plain", "decode_merge",
+           "decode_merge_plain"]
 
 # the flash kernel's finite -inf stand-in (exp() of it is exactly 0.0 in
 # fp32); shared so masked-lane math is bit-identical across versions
 NEG_INF = -1.0e30
 
-HEAD_DIM = 128     # the head_dim the kernel is written for
-PAGE_MULTIPLE = 8  # the paged kernel's page_size must be a multiple of it
+HEAD_DIMS = (64, 128)   # the head dims the kernel is written for
+DECODE_CHUNK = 64       # key positions a block of the kernel takes
+
+
+def decode_chunks(capacity: int) -> int:
+    """The kernel's chunks along an arena row of ``capacity`` positions
+    (dense: max_len; paged: pages × page_size): the grid's second dim, and
+    the workspace's chunk count."""
+    return max(1, -(-int(capacity) // DECODE_CHUNK))
+
+
+def chunk_spans(length: int) -> list:
+    """The key positions [start, end) each chunk of a row of ``length``
+    live keys takes, in the order the merge adds them: fixed multiples of
+    :data:`DECODE_CHUNK`, whatever arena holds the row. A row of 0 keys
+    has one empty chunk (its output is 0)."""
+    n = max(0, int(length))
+    if n == 0:
+        return [(0, 0)]
+    return [(c, min(c + DECODE_CHUNK, n)) for c in range(0, n, DECODE_CHUNK)]
 
 
 def gather_pages(pool: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
@@ -78,6 +101,32 @@ def paged_decode_attention_plain(q, k, v, lengths, *, scale=None,
                                   scale=scale)
 
 
+def decode_merge_plain(part, lengths, out, capacity: int):
+    """Plain version of :func:`decode_merge`: ``part`` fp32 [S, H, nchunk,
+    hd + 2] holds each (row, chunk)'s (m, l, acc[hd]); the rows of more
+    than one live chunk get o = sum_c acc_c e^(m_c - M) / sum_c l_c
+    e^(m_c - M) (M the max over the row's live chunks) in ``out``'s dtype,
+    written into ``out`` [S, H, hd]; the other rows are left."""
+    s_dim, h, nchunk, _ = part.shape
+    n = lengths.to(part.device).long().clamp(0, capacity)
+    live = -(-n // DECODE_CHUNK)                                  # [S]
+    mask = (torch.arange(nchunk, device=part.device)[None, :]
+            < live[:, None])[:, None, :]                      # [S, 1, C]
+    # chunks past a row's length were never written: masked out first
+    zero = torch.zeros((), device=part.device)
+    m = torch.where(mask, part[..., 0], torch.full_like(part[..., 0],
+                                                        NEG_INF))
+    top = m.amax(dim=-1, keepdim=True)
+    f = torch.where(mask, torch.exp(m - top), zero)
+    lt = (torch.where(mask, part[..., 1], zero) * f).sum(dim=-1)  # [S, H]
+    o = (torch.where(mask[..., None], part[..., 2:], zero)
+         * f[..., None]).sum(dim=-2)                           # [S, H, hd]
+    o = o / torch.where(lt > 0.0, lt, torch.ones_like(lt))[..., None]
+    rows = live > 1
+    out[rows] = o[rows].to(out.dtype)
+    return out
+
+
 def _check(name, q, k, v, lengths, page_table=None):
     for t, what in ((q, "q"), (k, "k"), (v, "v"), (lengths, "lengths")):
         if not t.is_cuda or t.device != q.device:
@@ -87,9 +136,9 @@ def _check(name, q, k, v, lengths, page_table=None):
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{name}: q/k/v dtypes differ ({q.dtype}, "
                         f"{k.dtype}, {v.dtype})")
-    if q.shape[-1] != HEAD_DIM:
-        raise ValueError(f"{name}: the kernel takes head_dim {HEAD_DIM}, "
-                         f"got {q.shape[-1]}")
+    if q.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"{name}: the kernel takes head_dim in "
+                         f"{HEAD_DIMS}, got {q.shape[-1]}")
     if lengths.dtype != torch.int32:
         raise TypeError(f"{name}: lengths must be int32")
     if lengths.shape != q.shape[:1]:
@@ -107,20 +156,56 @@ def _check(name, q, k, v, lengths, page_table=None):
 
 
 def _launch(q, k, v, lengths, page_table, scale, l_dim, page, max_pages):
+    """The chunk kernel, then (past one chunk) the merge: each launch
+    counts on its own wrapper."""
     s_dim, h, hd = q.shape
     out = torch.empty_like(q)
     if s_dim * h == 0:
         return out
     if scale is None:
         scale = 1.0 / float(hd) ** 0.5
+    cap = l_dim if page_table is None else max_pages * page
+    if cap < 1:
+        raise ValueError("decode_attention: an arena of no positions")
+    nchunk = decode_chunks(cap)
+    part = torch.empty((s_dim, h, nchunk, hd + 2), dtype=torch.float32,
+                       device=q.device) if nchunk > 1 else None
     err = _cuda.lib().apex_decode_attention(
         _cuda.dtype_code(q.dtype, "decode_attention"), q.data_ptr(),
         k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
         page_table.data_ptr() if page_table is not None else None,
-        out.data_ptr(), s_dim, h, l_dim, page, max_pages,
-        int(page_table is not None), float(scale), _cuda.stream(q.device))
+        out.data_ptr(), part.data_ptr() if part is not None else None,
+        s_dim, h, hd, l_dim, page, max_pages, int(page_table is not None),
+        nchunk, float(scale), _cuda.stream(q.device))
     _cuda.check(err, "decode_attention")
+    if part is not None:
+        decode_merge(part, lengths, out, cap)
     return out
+
+
+def decode_merge(part, lengths, out, capacity: int):
+    """The merge kernel: for the rows of more than one chunk, their
+    chunks' partials ``part`` fp32 [S, H, nchunk, hd + 2] added in chunk
+    order into ``out`` [S, H, hd] (in place, returned), as
+    :func:`decode_merge_plain`."""
+    if not dispatch.use_kernel(part):
+        return decode_merge_plain(part, lengths, out, capacity)
+    s_dim, h, nchunk, width = part.shape
+    if not part.is_contiguous() or part.dtype != torch.float32 \
+            or tuple(out.shape) != (s_dim, h, width - 2) \
+            or not out.is_contiguous() or lengths.dtype != torch.int32:
+        raise ValueError("decode_merge: part fp32 [S, H, nchunk, hd + 2], "
+                         "out [S, H, hd] contiguous, lengths int32")
+    err = _cuda.lib().apex_decode_merge(
+        _cuda.dtype_code(out.dtype, "decode_merge"), part.data_ptr(),
+        lengths.data_ptr(), out.data_ptr(), s_dim, h, width - 2,
+        int(capacity), nchunk, _cuda.stream(part.device))
+    _cuda.check(err, "decode_merge")
+    decode_merge.launches += 1
+    return out
+
+
+decode_merge.launches = 0
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -163,10 +248,6 @@ def paged_decode_attention(q: torch.Tensor, k: torch.Tensor,
         raise ValueError(
             f"paged_decode_attention: k/v {tuple(k.shape)} or page_table "
             f"{tuple(page_table.shape)} do not match q {tuple(q.shape)}")
-    if k.shape[2] % PAGE_MULTIPLE:
-        raise ValueError(
-            f"paged_decode_attention: the kernel takes page_size % "
-            f"{PAGE_MULTIPLE} == 0, got {k.shape[2]}")
     out = _launch(q, k, v, lengths, page_table, scale, 0, k.shape[2],
                   page_table.shape[1])
     paged_decode_attention.launches += 1

@@ -20,6 +20,17 @@ gradient):
   gradient of a bias [1, Sq, Sk] shared over bh, dS summed over bh; its
   plain version is :func:`flash_bwd_dbias_plain`.
 
+Two forms of kernel serve them (:func:`tensor_cores` picks one): bf16 and
+fp16 at a head dim up to 128 go to the Hopper kernels above, which take D
+64 or 128 and so get q, k, v (and dO) zero-padded to the next of the two
+(the JAX package pads D to 128 lanes; zero columns add nothing to QKᵀ and
+give zero output columns, sliced off), the real D's scale passed; fp32,
+and D from 129 to 512 in any of the three dtypes, go to the simple form of
+``ops/cuda/csrc/flash_simt.cu``: fp32 FMAs, a warp a row
+(:func:`flash_simt_fwd`, :func:`flash_simt_dq`, :func:`flash_simt_dkv`,
+which count their own launches; :func:`flash_bwd_dbias` sums that dq
+kernel's dS over bh).
+
 The backward takes ``delta = rowsum(dO·O) − dlse`` (:474-479, computed
 here in plain PyTorch by :func:`flash_delta`), so a cotangent of the lse
 folds into the same per-row term.
@@ -43,8 +54,8 @@ Every function takes the JAX kernels' inputs:
 Their bh index is b·H + h, the order of ``_split_heads``.
 
 For tensors on the CPU each wrapper runs its plain version; for tensors on
-the card it launches its kernel, which takes bf16 and a head dim of 64 or
-128 and raises on anything else. The kernels read q, k, v and dO through
+the card it launches its kernel, and raises on a dtype other than fp32,
+bf16 and fp16 or a head dim past 512. The kernels read q, k, v and dO through
 their strides (the last dim contiguous, every stride a multiple of 8
 elements, the base 16-byte aligned); a view that is not so is copied once
 to a contiguous tensor. The forward, dq and dk/dv copy their tiles by TMA,
@@ -64,16 +75,22 @@ import torch
 from apex_tpu_torch.ops import cuda as _cuda
 from apex_tpu_torch.ops import dispatch
 
-__all__ = ["NEG_INF", "KERNEL_HEAD_DIMS", "dropout_bits", "drop_threshold",
-           "reference_attention", "flash_fwd", "flash_delta",
-           "flash_bwd_plain", "flash_bwd_dq", "flash_bwd_dkv",
-           "flash_bwd_dbias", "flash_bwd_dbias_plain", "BLOCK_ROWS",
-           "TMA_BOX", "tma_layout", "row_blocks"]
+__all__ = ["NEG_INF", "KERNEL_HEAD_DIMS", "SIMT_MAX_HEAD_DIM",
+           "dropout_bits", "drop_threshold", "reference_attention",
+           "flash_fwd", "flash_delta", "flash_bwd_plain", "flash_bwd_dq",
+           "flash_bwd_dkv", "flash_bwd_dbias", "flash_bwd_dbias_plain",
+           "flash_simt_fwd", "flash_simt_dq", "flash_simt_dkv",
+           "tensor_cores", "padded_head_dim", "BLOCK_ROWS", "TMA_BOX",
+           "tma_layout", "row_blocks"]
 
 # finite -inf stand-in: exp(NEG_INF - m) is exactly 0.0 in fp32, so a fully
 # masked row yields zeros instead of NaN
 NEG_INF = -1.0e30
+# the head dims the tensor-core kernels are written for (a smaller D is
+# padded up to one of them), and the widest the simple form takes
 KERNEL_HEAD_DIMS = (64, 128)
+SIMT_MAX_HEAD_DIM = 512
+_FLOATS = (torch.float32, torch.bfloat16, torch.float16)
 
 # the Hopper kernels' tiling (csrc/flash_fwd.cu, csrc/flash_bwd.cu): a
 # block owns BLOCK_ROWS rows (queries in the forward and dq, keys in dk/dv)
@@ -280,7 +297,8 @@ def flash_bwd_dbias_plain(q, k, v, do, lse, delta, *, causal: bool,
 
 
 def _check(what: str, *ts):
-    """The kernels' contract: bf16 [BH, S, D] on one card, D 64 or 128."""
+    """The kernels' contract: [BH, S, D] tensors of one float dtype (fp32,
+    bf16, fp16) on one card, D up to :data:`SIMT_MAX_HEAD_DIM`, S >= 1."""
     dev, d = ts[0].device, ts[0].shape[-1]
     for t in ts:
         if t.dim() != 3 or t.shape[-1] != d or t.shape[0] != ts[0].shape[0]:
@@ -288,14 +306,38 @@ def _check(what: str, *ts):
                              f"BH and D, got {[tuple(x.shape) for x in ts]}")
         if t.device != dev:
             raise ValueError(f"{what}: tensors must share one device")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"{what}: the kernel takes bfloat16, got "
-                            f"{t.dtype}")
-    if d not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"{what}: the kernel takes head_dim in "
-                         f"{KERNEL_HEAD_DIMS}, got {d}")
-    if ts[0].shape[0] > 65535 or ts[0].shape[1] == 0 or ts[1].shape[1] == 0:
-        raise ValueError(f"{what}: needs 1 <= S and BH <= 65535")
+        if t.dtype not in _FLOATS or t.dtype != ts[0].dtype:
+            raise TypeError(f"{what}: the kernels take float32, bfloat16 or "
+                            f"float16 tensors of one dtype, got "
+                            f"{[x.dtype for x in ts]}")
+    if not 1 <= d <= SIMT_MAX_HEAD_DIM:
+        raise ValueError(f"{what}: the kernels take a head dim of 1 to "
+                         f"{SIMT_MAX_HEAD_DIM}, got {d}")
+    if ts[0].shape[0] == 0 or ts[0].shape[1] == 0 or ts[1].shape[1] == 0:
+        raise ValueError(f"{what}: needs 1 <= S and 1 <= BH")
+
+
+def tensor_cores(q: torch.Tensor) -> bool:
+    """Whether the Hopper tensor-core kernels take q's dtype and head dim
+    (bf16 or fp16, D <= 128, padded up to 64 or 128); else the simple
+    form."""
+    return q.dtype in (torch.bfloat16, torch.float16) \
+        and q.shape[-1] <= KERNEL_HEAD_DIMS[-1]
+
+
+def padded_head_dim(d: int) -> int:
+    """The head dim the tensor-core kernels run a D <= 128 at."""
+    return next(k for k in KERNEL_HEAD_DIMS if d <= k)
+
+
+def _pad_d(t: torch.Tensor, dp: int) -> torch.Tensor:
+    """t with its last dim zero-padded to dp (t itself when it is dp)."""
+    d = t.shape[-1]
+    return t if d == dp else torch.nn.functional.pad(t, (0, dp - d))
+
+
+def _unpad(t: torch.Tensor, d: int) -> torch.Tensor:
+    return t if t.shape[-1] == d else t[..., :d].contiguous()
 
 
 def _readable(t: torch.Tensor) -> torch.Tensor:
@@ -319,7 +361,7 @@ def _tma_readable(t: torch.Tensor) -> torch.Tensor:
 
 
 def tma_layout(t: torch.Tensor) -> tuple:
-    """The tensor map the Hopper kernels copy a [BH, S, D] bf16 tensor
+    """The tensor map the Hopper kernels copy a [BH, S, D] 16-bit tensor
     by: its dims innermost first (D, S, BH), its row and bh strides in
     bytes, and the box (:data:`TMA_BOX`). A dim of size 1 takes the stride
     of the tensor's packed layout (its own is arbitrary and never used)."""
@@ -401,39 +443,99 @@ def flash_fwd(q, k, v, *, causal: bool = False, scale=None,
               dropout_rate: float = 0.0, dropout_seed=0):
     """(o [BH, Sq, D] in q's dtype, lse fp32 [BH, Sq]) of softmax attention
     over q [BH, Sq, D], k/v [BH, Sk, D], with the optional ``kv_bias``
-    [1|BH, Sk], ``bias`` [1|BH, Sq, Sk] and dropout."""
+    [1|BH, Sk], ``bias`` [1|BH, Sq, Sk] and dropout. On the card: the
+    tensor-core kernel (counted here) or the simple form
+    (:func:`flash_simt_fwd`)."""
     if scale is None:
         scale = 1.0 / float(q.shape[-1]) ** 0.5
+    cfg = dict(causal=causal, scale=scale, q_start=q_start, k_start=k_start,
+               kv_bias=kv_bias, bias=bias, dropout_rate=dropout_rate,
+               dropout_seed=dropout_seed)
     if not dispatch.use_kernel(q):
-        return reference_attention(q, k, v, bias, kv_bias=kv_bias,
-                                   causal=causal, scale=scale,
-                                   q_start=q_start, k_start=k_start,
-                                   return_lse=True,
-                                   dropout_rate=dropout_rate,
-                                   dropout_seed=dropout_seed)
+        return _fwd_plain(q, k, v, **cfg)
     _check("flash_fwd", q, k, v)
-    q, k, v = _tma_readable(q), _tma_readable(k), _tma_readable(v)
-    bh, sq, d = q.shape
+    if not tensor_cores(q):
+        return flash_simt_fwd(q, k, v, **cfg)
+    d = q.shape[-1]
+    dp = padded_head_dim(d)
+    q, k, v = (_tma_readable(_pad_d(t, dp)) for t in (q, k, v))
+    bh, sq, _ = q.shape
     tail, _keep_alive = _tail("flash_fwd", q, k, kv_bias, bias,
                               dropout_rate, dropout_seed, causal, scale,
                               q_start, k_start)
-    o = torch.empty((bh, sq, d), dtype=q.dtype, device=q.device)
+    o = torch.empty((bh, sq, dp), dtype=q.dtype, device=q.device)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
     err = _cuda.lib().apex_flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), _tma_maps(q, k, v), row_blocks(sq), *tail)
+        _cuda.dtype_code(q.dtype, "flash_fwd"), q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), o.data_ptr(), lse.data_ptr(), _tma_maps(q, k, v),
+        row_blocks(sq), *tail)
     _cuda.check(err, "flash_fwd")
     flash_fwd.launches += 1
-    return o, lse
+    return _unpad(o, d), lse
 
 
 flash_fwd.launches = 0
 
 
-def _bwd_args(what, q, k, v, do, lse, delta):
+def _fwd_plain(q, k, v, *, causal, scale, q_start, k_start, kv_bias, bias,
+               dropout_rate, dropout_seed):
+    return reference_attention(q, k, v, bias, kv_bias=kv_bias,
+                               causal=causal, scale=scale, q_start=q_start,
+                               k_start=k_start, return_lse=True,
+                               dropout_rate=dropout_rate,
+                               dropout_seed=dropout_seed)
+
+
+def _simt_strides(*ts):
+    """(tensors readable by the simple form: the last dim contiguous),
+    and their bh and row strides in elements."""
+    ts = tuple(t if t.stride(-1) == 1 else t.contiguous() for t in ts)
+    return ts, _strides(*ts)
+
+
+def flash_simt_fwd(q, k, v, *, causal: bool = False, scale=None,
+                   q_start: int = 0, k_start: int = 0, kv_bias=None,
+                   bias=None, dropout_rate: float = 0.0, dropout_seed=0):
+    """:func:`flash_fwd` by the simple form (``flash_simt.cu``): any of
+    fp32, bf16, fp16 and a head dim up to 512."""
+    if scale is None:
+        scale = 1.0 / float(q.shape[-1]) ** 0.5
+    if not dispatch.use_kernel(q):
+        return _fwd_plain(q, k, v, causal=causal, scale=scale,
+                          q_start=q_start, k_start=k_start, kv_bias=kv_bias,
+                          bias=bias, dropout_rate=dropout_rate,
+                          dropout_seed=dropout_seed)
+    _check("flash_simt_fwd", q, k, v)
+    (q, k, v), strides = _simt_strides(q, k, v)
+    bh, sq, d = q.shape
+    tail, _keep_alive = _tail("flash_simt_fwd", q, k, kv_bias, bias,
+                              dropout_rate, dropout_seed, causal, scale,
+                              q_start, k_start)
+    o = torch.empty((bh, sq, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+    err = _cuda.lib().apex_flash_simt_fwd(
+        _cuda.dtype_code(q.dtype, "flash_simt_fwd"), q.data_ptr(),
+        k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), *strides,
+        *tail)
+    _cuda.check(err, "flash_simt_fwd")
+    flash_simt_fwd.launches += 1
+    return o, lse
+
+
+flash_simt_fwd.launches = 0
+
+
+def _bwd_args(what, q, k, v, do, lse, delta, dp=None):
+    """The checked backward inputs: q, k, v, dO padded to the head dim dp
+    (the tensor-core kernels', when given) and readable by TMA, or with
+    their last dim contiguous (the simple form's); lse and delta fp32
+    [BH, Sq]."""
     _check(what, q, k, v, do)
     bh, sq, _ = q.shape
-    q, k, v, do = (_tma_readable(t) for t in (q, k, v, do))
+    if dp is not None:
+        q, k, v, do = (_tma_readable(_pad_d(t, dp)) for t in (q, k, v, do))
+    else:
+        q, k, v, do = _simt_strides(q, k, v, do)[0]
     lse = _row_stats(f"{what} lse", lse, bh, sq, q.device)
     delta = _row_stats(f"{what} delta", delta, bh, sq, q.device)
     return q, k, v, do, lse, delta
@@ -445,19 +547,26 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool, scale: float,
                  return_ds: bool = False):
     """dq [BH, Sq, D] in q's dtype from the forward's lse and
     :func:`flash_delta`; with ``return_ds`` (a ``bias`` given) also dS fp32
-    [BH, Sq, Sk], the gradient of a per-bh bias."""
+    [BH, Sq, Sk], the gradient of a per-bh bias. On the card: the
+    tensor-core kernel (counted here) or :func:`flash_simt_dq`."""
+    kw = dict(causal=causal, scale=scale, q_start=q_start, k_start=k_start,
+              kv_bias=kv_bias, bias=bias, dropout_rate=dropout_rate,
+              dropout_seed=dropout_seed)
     if return_ds and bias is None:
         raise ValueError("flash_bwd_dq: return_ds needs the bias whose "
                          "gradient it is")
     if not dispatch.use_kernel(q):
-        out = flash_bwd_plain(q, k, v, do, lse, delta, causal=causal,
-                              scale=scale, q_start=q_start, k_start=k_start,
-                              kv_bias=kv_bias, bias=bias,
-                              dropout_rate=dropout_rate,
-                              dropout_seed=dropout_seed, return_ds=return_ds)
+        out = flash_bwd_plain(q, k, v, do, lse, delta, return_ds=return_ds,
+                              **kw)
         return (out[0], out[3]) if return_ds else out[0]
+    _check("flash_bwd_dq", q, k, v, do)
+    if not tensor_cores(q):
+        return flash_simt_dq(q, k, v, do, lse, delta, return_ds=return_ds,
+                             **kw)
+    d = q.shape[-1]
+    dp = padded_head_dim(d)
     q, k, v, do, lse, delta = _bwd_args("flash_bwd_dq", q, k, v, do, lse,
-                                        delta)
+                                        delta, dp)
     tail, _keep_alive = _tail("flash_bwd_dq", q, k, kv_bias, bias,
                               dropout_rate, dropout_seed, causal, scale,
                               q_start, k_start)
@@ -466,45 +575,122 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool, scale: float,
                      dtype=torch.float32, device=q.device) \
         if return_ds else None
     err = _cuda.lib().apex_flash_bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        _cuda.dtype_code(q.dtype, "flash_bwd_dq"), q.data_ptr(),
+        k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(),
         None if ds is None else ds.data_ptr(), _tma_maps(q, k, v, do),
         row_blocks(q.shape[1]), *tail)
     _cuda.check(err, "flash_bwd_dq")
     flash_bwd_dq.launches += 1
+    dq = _unpad(dq, d)
     return (dq, ds) if return_ds else dq
 
 
 flash_bwd_dq.launches = 0
 
 
+def flash_simt_dq(q, k, v, do, lse, delta, *, causal: bool, scale: float,
+                  q_start: int = 0, k_start: int = 0, kv_bias=None,
+                  bias=None, dropout_rate: float = 0.0, dropout_seed=0,
+                  return_ds: bool = False):
+    """:func:`flash_bwd_dq` by the simple form: any of fp32, bf16, fp16 and
+    a head dim up to 512."""
+    kw = dict(causal=causal, scale=scale, q_start=q_start, k_start=k_start,
+              kv_bias=kv_bias, bias=bias, dropout_rate=dropout_rate,
+              dropout_seed=dropout_seed)
+    if return_ds and bias is None:
+        raise ValueError("flash_simt_dq: return_ds needs the bias whose "
+                         "gradient it is")
+    if not dispatch.use_kernel(q):
+        out = flash_bwd_plain(q, k, v, do, lse, delta, return_ds=return_ds,
+                              **kw)
+        return (out[0], out[3]) if return_ds else out[0]
+    q, k, v, do, lse, delta = _bwd_args("flash_simt_dq", q, k, v, do, lse,
+                                        delta)
+    tail, _keep_alive = _tail("flash_simt_dq", q, k, kv_bias, bias,
+                              dropout_rate, dropout_seed, causal, scale,
+                              q_start, k_start)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    ds = torch.empty((q.shape[0], q.shape[1], k.shape[1]),
+                     dtype=torch.float32, device=q.device) \
+        if return_ds else None
+    err = _cuda.lib().apex_flash_simt_dq(
+        _cuda.dtype_code(q.dtype, "flash_simt_dq"), q.data_ptr(),
+        k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(),
+        None if ds is None else ds.data_ptr(), *_strides(q, k, v, do),
+        *tail)
+    _cuda.check(err, "flash_simt_dq")
+    flash_simt_dq.launches += 1
+    return (dq, ds) if return_ds else dq
+
+
+flash_simt_dq.launches = 0
+
+
 def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool, scale: float,
                   q_start: int = 0, k_start: int = 0, kv_bias=None,
                   bias=None, dropout_rate: float = 0.0, dropout_seed=0):
-    """(dk, dv) [BH, Sk, D] in k's and v's dtypes."""
+    """(dk, dv) [BH, Sk, D] in k's and v's dtypes. On the card: the
+    tensor-core kernel (counted here) or :func:`flash_simt_dkv`."""
+    kw = dict(causal=causal, scale=scale, q_start=q_start, k_start=k_start,
+              kv_bias=kv_bias, bias=bias, dropout_rate=dropout_rate,
+              dropout_seed=dropout_seed)
     if not dispatch.use_kernel(q):
-        return flash_bwd_plain(q, k, v, do, lse, delta, causal=causal,
-                               scale=scale, q_start=q_start,
-                               k_start=k_start, kv_bias=kv_bias, bias=bias,
-                               dropout_rate=dropout_rate,
-                               dropout_seed=dropout_seed)[1:]
+        return flash_bwd_plain(q, k, v, do, lse, delta, **kw)[1:]
+    _check("flash_bwd_dkv", q, k, v, do)
+    if not tensor_cores(q):
+        return flash_simt_dkv(q, k, v, do, lse, delta, **kw)
+    d = q.shape[-1]
+    dp = padded_head_dim(d)
     q, k, v, do, lse, delta = _bwd_args("flash_bwd_dkv", q, k, v, do, lse,
-                                        delta)
+                                        delta, dp)
     tail, _keep_alive = _tail("flash_bwd_dkv", q, k, kv_bias, bias,
                               dropout_rate, dropout_seed, causal, scale,
                               q_start, k_start)
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     err = _cuda.lib().apex_flash_bwd_dkv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        _cuda.dtype_code(q.dtype, "flash_bwd_dkv"), q.data_ptr(),
+        k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         _tma_maps(q, k, v, do), row_blocks(k.shape[1]), *tail)
     _cuda.check(err, "flash_bwd_dkv")
     flash_bwd_dkv.launches += 1
-    return dk, dv
+    return _unpad(dk, d), _unpad(dv, d)
 
 
 flash_bwd_dkv.launches = 0
+
+
+def flash_simt_dkv(q, k, v, do, lse, delta, *, causal: bool, scale: float,
+                   q_start: int = 0, k_start: int = 0, kv_bias=None,
+                   bias=None, dropout_rate: float = 0.0, dropout_seed=0):
+    """:func:`flash_bwd_dkv` by the simple form: any of fp32, bf16, fp16
+    and a head dim up to 512."""
+    kw = dict(causal=causal, scale=scale, q_start=q_start, k_start=k_start,
+              kv_bias=kv_bias, bias=bias, dropout_rate=dropout_rate,
+              dropout_seed=dropout_seed)
+    if not dispatch.use_kernel(q):
+        return flash_bwd_plain(q, k, v, do, lse, delta, **kw)[1:]
+    q, k, v, do, lse, delta = _bwd_args("flash_simt_dkv", q, k, v, do, lse,
+                                        delta)
+    tail, _keep_alive = _tail("flash_simt_dkv", q, k, kv_bias, bias,
+                              dropout_rate, dropout_seed, causal, scale,
+                              q_start, k_start)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    err = _cuda.lib().apex_flash_simt_dkv(
+        _cuda.dtype_code(q.dtype, "flash_simt_dkv"), q.data_ptr(),
+        k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        *_strides(q, k, v, do), *tail)
+    _cuda.check(err, "flash_simt_dkv")
+    flash_simt_dkv.launches += 1
+    return dk, dv
+
+
+flash_simt_dkv.launches = 0
 
 # resident blocks an SM is counted for when flash_bwd_dbias splits bh into
 # runs: (query tiles) x (key tiles) x runs fills this many per SM
@@ -527,7 +713,10 @@ def flash_bwd_dbias(q, k, v, do, lse, delta, *, causal: bool, scale: float,
     """The gradient of a ``bias`` [1, Sq, Sk] shared over bh: dS summed over
     bh, fp32 [1, Sq, Sk] (the caller casts it to the bias's dtype). The
     kernel sums in a fixed order, without float atomics: repeated calls
-    are bitwise equal."""
+    are bitwise equal. Where the tensor-core kernels do not take the
+    inputs, the simple form's dq kernel writes the per-bh dS and a second
+    kernel sums it over bh in bh order; that pair counts as one launch of
+    this wrapper."""
     if bias is None or bias.dim() != 3 or bias.shape[0] != 1:
         raise ValueError("flash_bwd_dbias: takes a bias [1, Sq, Sk]")
     if not dispatch.use_kernel(q):
@@ -537,20 +726,33 @@ def flash_bwd_dbias(q, k, v, do, lse, delta, *, causal: bool, scale: float,
                                      kv_bias=kv_bias,
                                      dropout_rate=dropout_rate,
                                      dropout_seed=dropout_seed)
-    q, k, v, do, lse, delta = _bwd_args("flash_bwd_dbias", q, k, v, do,
-                                        lse, delta)
+    _check("flash_bwd_dbias", q, k, v, do)
+    tc = tensor_cores(q)
+    q, k, v, do, lse, delta = _bwd_args(
+        "flash_bwd_dbias", q, k, v, do, lse, delta,
+        padded_head_dim(q.shape[-1]) if tc else None)
     bh, sq, _ = q.shape
     sk = k.shape[1]
     tail, _keep_alive = _tail("flash_bwd_dbias", q, k, kv_bias, bias,
                               dropout_rate, dropout_seed, causal, scale,
                               q_start, k_start)
+    dbias = torch.empty((1, sq, sk), dtype=torch.float32, device=q.device)
+    code = _cuda.dtype_code(q.dtype, "flash_bwd_dbias")
+    if not tc:
+        ds = torch.empty((bh, sq, sk), dtype=torch.float32, device=q.device)
+        err = _cuda.lib().apex_flash_simt_dbias(
+            code, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dbias.data_ptr(),
+            ds.data_ptr(), *_strides(q, k, v, do), *tail)
+        _cuda.check(err, "flash_bwd_dbias")
+        flash_bwd_dbias.launches += 1
+        return dbias
     runs = dbias_runs(bh, sq, sk, torch.cuda.get_device_properties(
         q.device).multi_processor_count)
-    dbias = torch.empty((1, sq, sk), dtype=torch.float32, device=q.device)
     part = torch.empty((runs, sq, sk), dtype=torch.float32,
                        device=q.device) if runs > 1 else None
     err = _cuda.lib().apex_flash_bwd_dbias(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        code, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dbias.data_ptr(),
         None if part is None else part.data_ptr(), runs,
         *_strides(q, k, v, do), *tail)

@@ -8,9 +8,13 @@ Counterpart of ``apex_tpu/ops/pallas/layer_norm.py``; the kernels are
   ``_fwd_kernel`` and ``_ln_bwd_single`` / ``_bwd_kernel``, one pass;
 - wider rows: ``_ln_fwd_wide`` (the moments, then y) and ``_ln_bwd_wide``
   (the row sums, the gamma/beta gradients, then dx), the row cut into
-  chunks of 1024 columns (:func:`ln_fwd_wide`, :func:`ln_bwd_wide`; F a
-  multiple of 4); the forward holds a row of up to 16384 values in one
-  block and reads it once.
+  chunks of 1024 columns (:func:`ln_fwd_wide`, :func:`ln_bwd_wide`); the
+  forward holds a row of up to 16384 values in one block and reads it
+  once.
+
+Every kernel takes any F: four columns a load where F is a multiple of 4
+and every buffer is 4-element aligned, one otherwise (the C side picks the
+form).
 
 :func:`ln_fwd` and :func:`ln_bwd` take a row's width to one or the other.
 For a tensor on the CPU every wrapper runs its plain version; for a tensor
@@ -50,10 +54,9 @@ def ln_fwd_plain(x2d: torch.Tensor, weight, bias, eps: float):
     return out.to(x2d.dtype), mean[:, 0], inv[:, 0]
 
 
-def _affine_code(what, x2d, weight, bias, aligned: bool) -> int:
+def _affine_code(what, x2d, weight, bias) -> int:
     """The dtype code of gamma and beta (0 without them), after checking
-    that they come together as contiguous [F] tensors on x's device (and,
-    ``aligned``, 4-element aligned for the vector loads)."""
+    that they come together as contiguous [F] tensors on x's device."""
     if (weight is None) != (bias is None):
         raise ValueError(f"{what}: pass weight and bias together")
     if weight is None:
@@ -61,30 +64,24 @@ def _affine_code(what, x2d, weight, bias, aligned: bool) -> int:
     f = x2d.shape[1]
     for t, name in ((weight, "weight"), (bias, "bias")):
         if t.device != x2d.device or not t.is_contiguous() \
-                or t.shape != (f,) \
-                or (aligned and t.data_ptr() % (4 * t.element_size())):
-            raise ValueError(
-                f"{what}: {name} must be a contiguous"
-                f"{', aligned' if aligned else ''} [{f}] tensor on "
-                f"{x2d.device}")
+                or t.shape != (f,):
+            raise ValueError(f"{what}: {name} must be a contiguous [{f}] "
+                             f"tensor on {x2d.device}")
     if bias.dtype != weight.dtype:
         raise TypeError(f"{what}: weight and bias dtypes differ")
     return _cuda.dtype_code(weight.dtype, f"{what} weight")
 
 
-def _check_rows4(what, x2d, *others):
-    """The vector loads' layout, which the backward kernels and the wide
-    forward take: rows of F a multiple of 4, every tensor contiguous and
-    4-element aligned."""
-    f = x2d.shape[1]
-    if f % 4 or f == 0:
-        raise ValueError(f"{what}: the kernel takes F a multiple of 4, got "
-                         f"F={f}")
+def _check_rows(what, x2d, *others):
+    """The rows' layout the backward kernels and the wide forward take:
+    F >= 1, every tensor contiguous, on x's device. Alignment only picks
+    the kernels' form."""
+    if x2d.shape[1] == 0:
+        raise ValueError(f"{what}: rows of width 0")
     for t, name in ((x2d, "x"), *others):
-        if t.device != x2d.device or not t.is_contiguous() \
-                or t.data_ptr() % (4 * t.element_size()):
-            raise ValueError(f"{what}: {name} must be contiguous and "
-                             f"4-element aligned on one device")
+        if t.device != x2d.device or not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous on "
+                             f"{x2d.device}")
 
 
 def ln_fwd(x2d: torch.Tensor, weight, bias, eps: float):
@@ -100,7 +97,7 @@ def ln_fwd(x2d: torch.Tensor, weight, bias, eps: float):
     if f == 0:
         raise ValueError("ln_fwd: rows of width 0")
     xc = _cuda.dtype_code(x2d.dtype, "ln_fwd")
-    wc = _affine_code("ln_fwd", x2d, weight, bias, aligned=False)
+    wc = _affine_code("ln_fwd", x2d, weight, bias)
     y = torch.empty_like(x2d)
     mean, inv = torch.empty((2, rows), dtype=torch.float32,
                             device=x2d.device)   # one allocation, two rows
@@ -121,8 +118,8 @@ ln_fwd.launches = 0
 
 
 def ln_fwd_wide(x2d: torch.Tensor, weight, bias, eps: float):
-    """:func:`ln_fwd` by the wide kernels, which take a row of any width
-    (F a multiple of 4), its statistics after a shift by the row's first
+    """:func:`ln_fwd` by the wide kernels, which take a row of any width,
+    its statistics after a shift by the row's first
     value: up to 16384 one block a row, x read once into registers, the
     mean and the centred sum of squares taken from them and y written;
     wider, per chunk of 1024 columns the sum and the centred sum of
@@ -132,9 +129,9 @@ def ln_fwd_wide(x2d: torch.Tensor, weight, bias, eps: float):
     if not dispatch.use_kernel(x2d):
         return ln_fwd_plain(x2d, weight, bias, eps)
     rows, f = x2d.shape
-    _check_rows4("ln_fwd", x2d)
+    _check_rows("ln_fwd", x2d)
     xc = _cuda.dtype_code(x2d.dtype, "ln_fwd")
-    wc = _affine_code("ln_fwd", x2d, weight, bias, aligned=True)
+    wc = _affine_code("ln_fwd", x2d, weight, bias)
     y = torch.empty_like(x2d)
     mean, inv = torch.empty((2, rows), dtype=torch.float32,
                             device=x2d.device)
@@ -192,10 +189,9 @@ def _bwd_codes(what, dy2d, x2d, weight, mean, invvar):
     if weight is None:
         return xc, 0
     if weight.device != x2d.device or not weight.is_contiguous() \
-            or weight.shape != (f,) \
-            or weight.data_ptr() % (4 * weight.element_size()):
-        raise ValueError(f"{what}: weight must be a contiguous, aligned "
-                         f"[{f}] tensor on {x2d.device}")
+            or weight.shape != (f,):
+        raise ValueError(f"{what}: weight must be a contiguous [{f}] "
+                         f"tensor on {x2d.device}")
     return xc, _cuda.dtype_code(weight.dtype, f"{what} weight")
 
 
@@ -219,7 +215,7 @@ def ln_bwd(dy2d, x2d, weight, mean, invvar):
     if f > F_SINGLE_MAX:
         return ln_bwd_wide(dy2d, x2d, weight, mean, invvar)
     xc, wc = _bwd_codes("ln_bwd", dy2d, x2d, weight, mean, invvar)
-    _check_rows4("ln_bwd", x2d, (dy2d, "dy"))
+    _check_rows("ln_bwd", x2d, (dy2d, "dy"))
     dx = torch.empty_like(x2d)
     if rows == 0:
         return _no_rows(dx, weight)
@@ -246,7 +242,7 @@ ln_bwd.launches = 0
 
 
 def ln_bwd_wide(dy2d, x2d, weight, mean, invvar):
-    """:func:`ln_bwd` by the wide kernels (F a multiple of 4): one pass
+    """:func:`ln_bwd` by the wide kernels: one pass
     over (row block, chunk) tiles writes each row's chunk sums of dy·γ and
     dy·γ·xhat and each row block's column sums of dy·xhat and dy; the
     column sums add over the blocks in a fixed order; then each chunk's dx
@@ -257,7 +253,7 @@ def ln_bwd_wide(dy2d, x2d, weight, mean, invvar):
         return ln_bwd_plain(dy2d, x2d, weight, mean, invvar)
     rows, f = x2d.shape
     xc, wc = _bwd_codes("ln_bwd", dy2d, x2d, weight, mean, invvar)
-    _check_rows4("ln_bwd", x2d, (dy2d, "dy"))
+    _check_rows("ln_bwd", x2d, (dy2d, "dy"))
     dx = torch.empty_like(x2d)
     if rows == 0:
         return _no_rows(dx, weight)

@@ -19,11 +19,14 @@ Counterpart of ``apex_tpu/ops/pallas/welford.py``; the kernels are
   xhat (the fused reduce's kernel body reading xhat instead of x).
 
 Every tensor is a ``[rows, C]`` view (NHWC, or NCHW in channels_last
-memory, flattened over N·H·W). For a tensor on the CPU each wrapper runs
-its plain version; for a tensor on the card it launches its kernel, or
-raises on what the kernel does not take (C not a multiple of 4, mixed
-dtypes where one dtype is asked for, a strided view). Each wrapper counts
-its launches in ``.launches``.
+memory, flattened over N·H·W), of any C. The kernels take four channels a
+thread with vector loads where C is a multiple of 4 and every tensor is
+4-element aligned, else one channel a thread (the C side picks the form,
+as it does for the LayerNorm kernels). For a
+tensor on the CPU each wrapper runs its plain version; for a tensor on the
+card it launches its kernel, or raises on what the kernel does not take
+(no channels, mixed dtypes where one dtype is asked for, a strided view).
+Each wrapper counts its launches in ``.launches``.
 """
 
 from __future__ import annotations
@@ -95,10 +98,13 @@ def _sm_count(device: torch.device) -> int:
 
 def _chunks(rows: int, c: int, device: torch.device) -> int:
     """Row chunks of the grid: about eight blocks per SM over the channel
-    tiles, each thread walking at least eight rows. A function of the
+    tiles (32 threads across C's 4-channel vectors where C is a multiple
+    of 4, across its channels otherwise, as the C side's two forms take
+    them), each thread walking at least eight rows. A function of the
     shape only, so the sums' order, and their bits, repeat."""
-    tx = min(32, c // 4)
-    tiles = -(-(c // 4) // tx)
+    vecs = c // 4 if c % 4 == 0 else c
+    tx = min(32, vecs)
+    tiles = -(-vecs // tx)
     ty = 256 // tx
     want = -(-_BLOCKS_PER_SM * _sm_count(device) // tiles)
     return max(1, min(want, -(-rows // (8 * ty)), 65535))
@@ -106,12 +112,12 @@ def _chunks(rows: int, c: int, device: torch.device) -> int:
 
 def _check_rows(what: str, x2d: torch.Tensor, *others,
                 one_dtype: bool = True):
+    """The dtype code of contiguous [rows, C] inputs on one device."""
     if x2d.dim() != 2:
         raise ValueError(f"{what}: x must be a [rows, C] view")
     c = x2d.shape[1]
-    if c % 4 or c == 0:
-        raise ValueError(f"{what}: C={c} is not a multiple of 4, which the "
-                         f"kernel's vector loads need")
+    if c == 0:
+        raise ValueError(f"{what}: C=0, no channels to reduce")
     for t in (x2d, *others):
         if t is None:
             continue
@@ -120,9 +126,8 @@ def _check_rows(what: str, x2d: torch.Tensor, *others,
             raise ValueError(f"{what}: the inputs must be [rows, C] "
                              f"tensors{' of one dtype' * one_dtype} on one "
                              f"device")
-        if not t.is_contiguous() or t.data_ptr() % (4 * t.element_size()):
-            raise ValueError(f"{what}: tensors must be contiguous and "
-                             f"4-element aligned")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: tensors must be contiguous")
     return _cuda.dtype_code(x2d.dtype, what)
 
 

@@ -248,7 +248,10 @@ class LMTrainer:
         self.microbatches = int(microbatches)
         self.handle = self.amp_state = None
         if self.microbatches > 1 or loss_scale is not None:
+            # the policy's half dtype is the model's (bf16 unless fp16)
+            half = dtype if dtype == torch.float16 else torch.bfloat16
             _, self.handle = _amp.initialize(opt_level="O2",
+                                             half_dtype=half,
                                              loss_scale=loss_scale,
                                              verbosity=0)
             self.amp_state = self.handle.init_state(self.device)

@@ -13,7 +13,9 @@ phases 11-13 the ImageNet example's slice, phases 14-16 the Seq2Seq
 Transformer's, phases 17-19 gradient accumulation and the fp16_utils path
 on the LM, phases 20-22 the ImageNet example's ViT-B/16 step with
 attention dropout and the flash kernels' full bias, phases 23-25 the wide
-LayerNorm (lm_bench's LM at GPT-3 175B's width) and ``bn_backward_reduce``:
+LayerNorm (lm_bench's LM at GPT-3 175B's width) and ``bn_backward_reduce``,
+phases 26-30 lm_bench's LM served (head dim 64) and trained in fp16 and
+fp32, and the LayerNorm and BN at widths not a multiple of 4:
 
 0. device — needs CUDA; prints the card's ``nvidia-smi`` name and power
    limit (also as a raw line of its own) and the torch / CUDA versions.
@@ -21,7 +23,8 @@ LayerNorm (lm_bench's LM at GPT-3 175B's width) and ``bn_backward_reduce``:
    with ``nvcc`` for ``sm_90a`` (all sources at once) and loads them;
    prints every kernel's registers and spills (``ptxas``) and, apart, the
    flash forward's and backward's Hopper kernels (``flash_fwd_ptxas``,
-   ``flash_bwd_ptxas``), none of whose forms may spill.
+   ``flash_bwd_ptxas``: 12 and 16 forms, bf16 and fp16), none of whose
+   forms may spill.
 2. kernels — each kernel against its plain PyTorch version on the card,
    at its path's shapes: max abs error against the stated tolerance, the
    kernel's time, the plain version's, one PyTorch library call's where
@@ -96,7 +99,21 @@ LayerNorm (lm_bench's LM at GPT-3 175B's width) and ``bn_backward_reduce``:
    ``native_layer_norm_backward`` beside them), and x = 1000 + 0.01·N(0,
    1) at [9, 16384] fp32 within 0.05 of fp64; ``bn_backward_reduce`` from
    a bf16 xhat at every RN50 BN shape (within 1e-5·Σ|terms|, bit-equal
-   repeats; ``batch_norm_backward_reduce`` beside it).
+   repeats; ``batch_norm_backward_reduce`` beside it); the split decode
+   kernel at lm_bench's [8, 16, 1024, 64] (bf16 and f32, dense and
+   paged equal bit for bit, repeats bit for bit; masked SDPA beside it),
+   at both head dims at the lengths 0, 1, 63-65, 127, 129 and 1024 with a
+   page of 5, its merge alone, and the timer's reading of one and two
+   empty launches; the flash kernels' fp16 forms at [128, 4095, 64] and
+   [384, 2048, 128] (2 fp16 ulps + 2^-6 of the row's RMS; fp16 SDPA
+   beside them) and the simple form in fp32 at [128, 4095, 64] (2 fp32
+   ulps + 2^-14 of the larger of the row's and the tensor's RMS; its
+   bound at 67 TFLOP/s; fp32 SDPA beside it), each output repeated bit
+   for bit; the bf16 kernels' outputs hashed at both shapes
+   (``flash_bits``, to hold one package's against another's); the
+   scalar tails beside the
+   vector forms: ``ln_bwd`` at [32760, 1022], the wide kernels at [8192,
+   12290] and the welford passes at C 6 (and C 8) over 256·56·56 rows.
 3. dense — the serve_bench model at full width (8 layers, 1024 wide,
    8 heads, vocab 32768, bf16, random weights from ``torch.Generator``
    seed 0) behind ``ContinuousBatchingEngine(slots=8, max_len=1024,
@@ -267,7 +284,23 @@ LayerNorm (lm_bench's LM at GPT-3 175B's width) and ``bn_backward_reduce``:
     65 heads of 128, vocab 512, S 128, batch 2) under phase 10's
     ``adam_crosscheck``, its kernel runs through the wide LayerNorm
     kernels only.
-26. the ``{"kernels": [...]}`` line (27 kernels; dq's and dk/dv's
+26-27. lm_serve_dense, lm_serve_paged — lm_bench's LM (8 × 1024, 16
+    heads of 64, vocab 32768, bf16, random weights from seed 0) behind
+    phases 3-4's engines and requests: every decode step by the split
+    kernel and its merge (8 launches each a step); paged streams equal
+    to dense. Every serving phase also profiles one run of 8 requests
+    (device time by family, the idle share).
+28. lm_train_f16 — phase 9's model and batch under O2 in fp16
+    (``half_dtype=float16``, dynamic loss scale): 3 warm-up and 5 timed
+    steps and one profiled; the flash kernels' fp16 forms, 8 launches of
+    each a step; losses finite, the mean of the last 3 below the first.
+29. lm_train_f32 — the same in fp32 (O0, lm_bench's ``--dtype f32``),
+    full batch: 2 warm-up and 3 timed steps, one profiled; the simple
+    flash form, 8 launches of each a step.
+30. tails_train — ``FusedLayerNorm(1022)`` over [16, 2048, 1022] bf16 and
+    ``SyncBatchNorm(6, fuse_relu=True)`` over [64, 6, 56, 56] bf16 with a
+    residual, 3 forward/backward passes each against the plain versions.
+31. the ``{"kernels": [...]}`` line (31 kernels; dq's and dk/dv's
     entries also carry their ``wide`` reading and the whole backward's,
     ``backward``, at both shapes), then the ``ok`` line.
 
@@ -423,6 +456,8 @@ def kernel_phase(torch, timer):
         torch.cuda.synchronize()
         err, ok = max_err(got, want, name)
         check(ok, f"decode_attention {name}: max abs err {err}")
+        check(torch.equal(DA.decode_attention(q, k, v, lengths), got),
+              f"decode_attention {name}: two runs differ")
         mask = (torch.arange(L, device="cuda")[None, None, None, :]
                 < lengths[:, None, None, None])
         b_ms, b_by = bound(kv_bytes + io_bytes, ops)
@@ -890,19 +925,30 @@ def check_ln_bwd(torch, what, got, want, dy, x, w, mean, inv,
 # noise). The kernels round P and dS to bf16 before their second products:
 # that error is a share of the row, not of the tensor's largest value.
 FLASH_ULPS, FLASH_RMS, FLASH_FLOOR = 2.0, 2.0 ** -6, 2.0 ** -6
+# the simple form's fp32 outputs: FLASH_RMS_F32 of the larger of the row's
+# RMS and the tensor's (sums of thousands of terms in another order, exp2
+# against exp; a row whose exact value cancels to about 0, as dq's first
+# causal row, keeps the rounding of its terms, which are of the tensor's
+# scale)
+FLASH_RMS_F32 = 2.0 ** -14
 
 
-def flash_err(torch, got, want) -> dict:
+def flash_err(torch, got, want, dt=None) -> dict:
     """``used``: the largest |got - want| over its limit (the check passes
-    at <= 1); ``ulps`` and ``rms``: the largest error in bf16 ulps and as a
-    share of its row's RMS."""
+    at <= 1); ``ulps`` and ``rms``: the largest error in ulps of ``dt``
+    (bf16 by default) and as a share of its row's RMS. bf16 and fp16: 2
+    ulps + 2^-6 of the row's RMS (at least FLASH_FLOOR of the tensor's);
+    fp32 (the simple form): 2 ulps + FLASH_RMS_F32 of the larger of the
+    row's RMS and the tensor's."""
+    dt = dt or torch.bfloat16
     a, b = got.float(), want.float()
     err = (a - b).abs()
-    ulp = torch.maximum(storage_ulp(torch, a, torch.bfloat16),
-                        storage_ulp(torch, b, torch.bfloat16))
+    ulp = torch.maximum(storage_ulp(torch, a, dt), storage_ulp(torch, b, dt))
+    frac, floor = (FLASH_RMS_F32, 1.0) if dt == torch.float32 \
+        else (FLASH_RMS, FLASH_FLOOR)
     rms = torch.clamp(b.pow(2).mean(-1, keepdim=True).sqrt(),
-                      min=FLASH_FLOOR * float(b.pow(2).mean().sqrt()))
-    lim = FLASH_ULPS * ulp + FLASH_RMS * rms
+                      min=floor * float(b.pow(2).mean().sqrt()))
+    lim = FLASH_ULPS * ulp + frac * rms
     return {"max_abs_err": float(err.max()),
             "ulps": float((err / ulp).max()), "rms": float((err / rms).max()),
             "used": float((err / lim).max())}
@@ -1569,14 +1615,21 @@ CROSSOVER_S = (128, 256, 512, 1024, 2048, 4096)
 CROSSOVER_BH, CROSSOVER_D = 128, 64
 
 
-def flash_crossover_phase(torch) -> dict:
-    """Times of the flash path and the plain path over S; ``min_s`` is the
-    smallest S measured from which the kernel wins every case at every
-    larger S (None when it never does)."""
+def flash_crossover_phase(torch, dtype_name: str = "bfloat16") -> dict:
+    """Times of the flash path and the plain path over S in one dtype;
+    ``min_s`` is the smallest S measured from which the kernel wins every
+    case at every larger S (None when it never does). bf16 (the tensor-core
+    kernels, every run) is held to ``DEFAULT_FLASH_MIN_S``. fp32 (the
+    simple form, which "auto" takes only past 2 GiB of plain scores) is a
+    reading made on its own, not in a run: from the repository root on
+    the card, ``import torch, chip_smoke`` and then
+    ``chip_smoke.flash_crossover_phase(torch, "float32")``."""
     import torch.nn.functional as F
 
     from apex_tpu_torch.contrib.multihead_attn import (
         DEFAULT_FLASH_MIN_S, flash_attention, reference_attention)
+
+    dt = getattr(torch, dtype_name)
 
     timer = Timer(torch, reps=5)
     gen = torch.Generator(device="cuda").manual_seed(17)
@@ -1585,7 +1638,7 @@ def flash_crossover_phase(torch) -> dict:
     for causal in (False, True):
         for s in CROSSOVER_S:
             q, k, v, do = (torch.randn(bh, s, d, generator=gen, device="cuda")
-                           .to(torch.bfloat16) for _ in range(4))
+                           .to(dt) for _ in range(4))
             qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
             group = max(1, min(bh, bh * 2048 * 2048 // (s * s)))
 
@@ -1630,7 +1683,7 @@ def flash_crossover_phase(torch) -> dict:
             r["kernel_wins"] = r["fwd_ms"] < r["plain_fwd_ms"] and \
                 r["fwd_bwd_ms"] < r["plain_fwd_bwd_ms"]
             emit({"phase": "flash_crossover", "shape": [bh, s, d],
-                  "dtype": "bfloat16", **r})
+                  "dtype": dtype_name, **r})
             table.append(r)
             del q, k, v, do, qg, kg, vg, q4, k4, v4, do4
     min_s = None
@@ -1639,13 +1692,15 @@ def flash_crossover_phase(torch) -> dict:
             min_s = s
         else:
             break
-    row = {"phase": "flash_crossover_min_s", "min_s": min_s,
-           "default_flash_min_s": DEFAULT_FLASH_MIN_S}
+    row = {"phase": "flash_crossover_min_s", "dtype": dtype_name,
+           "min_s": min_s}
+    if dt == torch.bfloat16:
+        row["default_flash_min_s"] = DEFAULT_FLASH_MIN_S
+        check(all(r["kernel_wins"] for r in table
+                  if r["s"] >= DEFAULT_FLASH_MIN_S),
+              f"flash crossover: the kernel does not win at every S >= "
+              f"DEFAULT_FLASH_MIN_S {DEFAULT_FLASH_MIN_S} (min_s {min_s})")
     emit(row)
-    check(all(r["kernel_wins"] for r in table
-              if r["s"] >= DEFAULT_FLASH_MIN_S),
-          f"flash crossover: the kernel does not win at every S >= "
-          f"DEFAULT_FLASH_MIN_S {DEFAULT_FLASH_MIN_S} (min_s {min_s})")
     return row
 
 
@@ -1664,6 +1719,7 @@ def counters():
     from apex_tpu_torch.ops import xentropy as XE
     return {"decode_attention": DA.decode_attention,
             "paged_decode_attention": DA.paged_decode_attention,
+            "decode_merge": DA.decode_merge,
             "ln_fwd": LN.ln_fwd, "scale": MT.scale,
             "lamb_phase1": MT.lamb_phase1, "lamb_phase2": MT.lamb_phase2,
             "bn_moments": WF.bn_moments,
@@ -1678,7 +1734,10 @@ def counters():
             "l2norm": MT.l2norm, "adagrad": MT.adagrad,
             "flash_bwd_dbias": FA.flash_bwd_dbias,
             "ln_fwd_wide": LN.ln_fwd_wide, "ln_bwd_wide": LN.ln_bwd_wide,
-            "bn_backward_reduce": WF.bn_backward_reduce}
+            "bn_backward_reduce": WF.bn_backward_reduce,
+            "flash_simt_fwd": FA.flash_simt_fwd,
+            "flash_simt_dq": FA.flash_simt_dq,
+            "flash_simt_dkv": FA.flash_simt_dkv}
 
 
 def zero_counts() -> None:
@@ -1712,6 +1771,10 @@ def serve_phase(torch, name, model, params, reqs, **kw):
               f"{name}: request {q.id} emitted a token out of range")
     steps = stats["decode_steps"]
     decode_tokens = summary["tokens_out"] - len(results)
+    # a short run under the profiler: device time by family and the
+    # device's idle share of the serving loop
+    prof = profile_steps(torch, lambda: eng.run(reqs[:8]), SERVE_FAMILIES,
+                         n=1)
     emit({"phase": name, "requests": len(results),
           "completed": summary["completed"],
           "tokens": summary["tokens_out"],
@@ -1728,7 +1791,8 @@ def serve_phase(torch, name, model, params, reqs, **kw):
           "prefill_chunks": summary["prefill_chunks"],
           "kv_reserved_bytes": summary["kv_reserved_bytes"],
           "launches": counts,
-          "launches_per_step": {k: v / steps for k, v in counts.items()}})
+          "launches_per_step": {k: v / steps for k, v in counts.items()},
+          "profile_8_requests": prof})
     return results, stats, counts
 
 
@@ -1810,9 +1874,19 @@ KERNEL_FAMILIES = (
 )
 
 
+SERVE_FAMILIES = (
+    ("decode kernels", ("decode_chunk_kernel", "decode_merge_kernel")),
+    ("LN kernels", ("ln_fwd_kernel",)),
+    ("GEMMs", ("gemm", "xmma", "cutlass", "nvjet", "sm90", "cublas")),
+    ("reduction", ("reduce",)),
+    ("elementwise", ("elementwise", "vectorized", "unrolled", "where",
+                     "copy", "fill", "clamp", "cat", "index", "embedding")),
+)
+
 LM_KERNEL_FAMILIES = (
     ("flash kernels", ("flash_fwd_kernel", "flash_dq_kernel",
-                       "flash_dkv_kernel")),
+                       "flash_dkv_kernel", "simt_fwd_kernel",
+                       "simt_dq_kernel", "simt_dkv_kernel")),
     ("LN kernels", ("ln_fwd_kernel", "ln_bwd_kernel", "ln_wide",
                     "finalize_kernel")),
     ("Adam", ("adam_kernel",)),
@@ -3879,6 +3953,670 @@ def wide_lm_crosscheck_phase(torch, dispatch):
     torch.cuda.empty_cache()
 
 
+# -- phase 2, the split decode kernel at head dim 64, its merge; the flash
+# -- kernels in fp16 and the simple form; the scalar tails -------------------
+
+# lm_bench's LM served: 8 × 1024, 16 heads of 64 (phases 26-27)
+LM_SERVE_HEADS = 16
+DECODE_LENGTHS = [1, 1024, 17, 300, 512, 77, 999, 640]
+# the decode kernel's edges: no key, one, a chunk's edges and the arena's
+DECODE_EDGE_LENGTHS = [0, 1, 63, 64, 65, 127, 129, 1024]
+
+
+def paged_copy(torch, gen, k, v, lens, page):
+    """The dense k, v [S, H, L, hd] behind a shuffled page table: (k pool,
+    v pool, table, pages read); the unmapped entries point at the null
+    page 0, which holds garbage."""
+    S, H, L, hd = k.shape
+    max_pages = -(-L // page)
+    n_phys = 1 + S * max_pages
+    perm = torch.randperm(n_phys - 1, generator=gen,
+                          device="cuda").to(torch.int32) + 1
+    table = torch.zeros(S, max_pages, dtype=torch.int32, device="cuda")
+    kp = torch.full((n_phys, H, page, hd), 30.0, device="cuda").to(k.dtype)
+    vp = torch.full((n_phys, H, page, hd), -30.0, device="cuda").to(k.dtype)
+    nxt = 0
+    for s, n in enumerate(lens):
+        for lp in range(-(-n // page)):
+            phys = int(perm[nxt])
+            nxt += 1
+            table[s, lp] = phys
+            w = min(page, L - lp * page)
+            kp[phys, :, :w] = k[s, :, lp * page:lp * page + w]
+            vp[phys, :, :w] = v[s, :, lp * page:lp * page + w]
+    return kp, vp, table, sum(-(-n // page) for n in lens)
+
+
+def decode_kernel_phase(torch, timer) -> dict:
+    """The split decode kernel at lm_bench's serving shape, [8, 16, 1024,
+    64] (bf16 and f32; dense and paged, page 32), under phase 2's decode
+    rule, dense == paged and two runs bit for bit; at both head dims the
+    edge lengths (0, 1, a chunk's edges, the arena) with a page of 5; the
+    merge kernel alone on the serve shape's partials; and the timer's
+    reading of one and of two launches of a trivial kernel."""
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.ops import decode_attn as DA
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    rows = {}
+    S, H, HD, L = 8, LM_SERVE_HEADS, 64, 1024
+    lengths = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device="cuda")
+    lens = lengths.tolist()
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt).split(".")[1]
+        es = torch.tensor([], dtype=dt).element_size()
+        q = torch.randn(S, H, HD, generator=gen, device="cuda").to(dt)
+        k = torch.randn(S, H, L, HD, generator=gen, device="cuda").to(dt)
+        v = torch.randn(S, H, L, HD, generator=gen, device="cuda").to(dt)
+        got = DA.decode_attention(q, k, v, lengths)
+        want = DA.decode_attention_plain(q, k, v, lengths)
+        torch.cuda.synchronize()
+        err, ok = max_err(got, want, name)
+        check(ok, f"decode_attention hd 64 {name}: max abs err {err}")
+        rep = bool(torch.equal(DA.decode_attention(q, k, v, lengths), got))
+        check(rep, f"decode_attention hd 64 {name}: two runs differ")
+        kp, vp, table, pages = paged_copy(torch, gen, k, v, lens, 32)
+        got_p = DA.paged_decode_attention(q, kp, vp, lengths,
+                                          page_table=table)
+        check(torch.equal(got_p, got),
+              f"paged_decode_attention hd 64 {name} differs from dense")
+        mask = (torch.arange(L, device="cuda")[None, None, None, :]
+                < lengths[:, None, None, None])
+        kv_bytes = sum(2 * n * H * HD * es for n in lens)
+        io = 2 * S * H * HD * es + 4 * S
+        ops = sum(n * H * (4 * HD + 5) for n in lens)
+        b_ms, b_by = bound(kv_bytes + io, ops)
+        for kern, call, plain, lib, extra in (
+                ("decode_attention",
+                 lambda: DA.decode_attention(q, k, v, lengths),
+                 lambda: DA.decode_attention_plain(q, k, v, lengths),
+                 lambda: F.scaled_dot_product_attention(
+                     q[:, :, None, :], k, v, attn_mask=mask), 0),
+                ("paged_decode_attention",
+                 lambda: DA.paged_decode_attention(q, kp, vp, lengths,
+                                                   page_table=table),
+                 lambda: DA.paged_decode_attention_plain(
+                     q, kp, vp, lengths, page_table=table), None,
+                 4 * pages)):
+            bb = bound(kv_bytes + io + extra, ops)
+            row = dict(kernel=kern, reading="hd64", dtype=name,
+                       shape=[S, H, L, HD], lengths=lens, max_abs_err=err,
+                       tol=TOL[name], repeat_equal=rep, paged_equal=True,
+                       ms=timer(call), plain_ms=timer(plain),
+                       library_ms=timer(lib) if lib else None,
+                       bound_ms=bb[0], bound_by=bb[1],
+                       host_us=host_us(torch, call))
+            emit({"phase": "kernels", **row})
+            rows[(kern, "hd64", name)] = row
+        del k, v, kp, vp
+    # the edges, both head dims, a page size that is no power of 2
+    for hd, h in ((64, LM_SERVE_HEADS), (128, 8)):
+        el = torch.tensor(DECODE_EDGE_LENGTHS, dtype=torch.int32,
+                          device="cuda")
+        q = torch.randn(8, h, hd, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        k, v = (torch.randn(8, h, L, hd, generator=gen, device="cuda").to(
+            torch.bfloat16) for _ in range(2))
+        got = DA.decode_attention(q, k, v, el)
+        err, ok = max_err(got, DA.decode_attention_plain(q, k, v, el),
+                          "bfloat16")
+        check(ok, f"decode edges hd {hd}: max abs err {err}")
+        check(not bool(got[0].any()), f"decode edges hd {hd}: length 0")
+        check(torch.equal(DA.decode_attention(q, k, v, el), got),
+              f"decode edges hd {hd}: two runs differ")
+        kp, vp, table, _ = paged_copy(torch, gen, k, v,
+                                      DECODE_EDGE_LENGTHS, 5)
+        check(torch.equal(DA.paged_decode_attention(
+            q, kp, vp, el, page_table=table), got),
+            f"decode edges hd {hd}: paged (page 5) differs from dense")
+        emit({"phase": "decode_edges", "head_dim": hd,
+              "lengths": DECODE_EDGE_LENGTHS, "max_abs_err": err,
+              "repeat_equal": True, "paged_equal": True})
+    # the merge alone: the serve shape's chunk partials (random: any
+    # partials are the merge's input), the rows of more than one chunk
+    S, H, HD = 8, 8, 128
+    nchunk = DA.decode_chunks(L)
+    lengths = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device="cuda")
+    part = torch.randn(S, H, nchunk, HD + 2, generator=gen, device="cuda")
+    part[..., 0] *= 3.0
+    part[..., 1] = part[..., 1].abs() + 0.5
+    out = torch.zeros(S, H, HD, dtype=torch.bfloat16, device="cuda")
+    got = DA.decode_merge(part, lengths, out.clone(), L)
+    want = DA.decode_merge_plain(part, lengths, out.clone(), L)
+    torch.cuda.synchronize()
+    err, ok = max_err(got, want, "bfloat16")
+    check(ok, f"decode_merge: max abs err {err}")
+    check(torch.equal(DA.decode_merge(part, lengths, out.clone(), L), got),
+          "decode_merge: two runs differ")
+    live = sum(-(-n // DA.DECODE_CHUNK) for n in DECODE_LENGTHS
+               if n > DA.DECODE_CHUNK)
+    merged = sum(1 for n in DECODE_LENGTHS if n > DA.DECODE_CHUNK)
+    b_ms, b_by = bound(live * H * (HD + 2) * 4 + merged * H * HD * 2 + 4 * S,
+                       live * H * (2 * HD + 4))
+    row = dict(kernel="decode_merge", dtype="bfloat16",
+               shape=[S, H, nchunk, HD + 2], lengths=DECODE_LENGTHS,
+               max_abs_err=err, tol=TOL["bfloat16"], repeat_equal=True,
+               ms=timer(lambda: DA.decode_merge(part, lengths, out, L)),
+               plain_ms=timer(lambda: DA.decode_merge_plain(part, lengths,
+                                                            out, L)),
+               library_ms=None, bound_ms=b_ms, bound_by=b_by,
+               host_us=host_us(torch, lambda: DA.decode_merge(
+                   part, lengths, out, L)))
+    emit({"phase": "kernels", **row})
+    rows[("decode_merge", "bfloat16")] = row
+    # what this timer reads for launches that do no work: the floor under
+    # the decode's two launches
+    tiny = torch.zeros(64, device="cuda")
+    emit({"phase": "timer_floor",
+          "one_launch_ms": timer(lambda: tiny.zero_()),
+          "two_launches_ms": timer(lambda: (tiny.zero_(), tiny.zero_()))})
+    return rows
+
+
+def flash_bits(torch) -> dict:
+    """The first 16 hex digits of the sha256 of the bf16 flash kernels' o,
+    lse, dq, dk and dv at the LM's [128, 4095, 64] and the wide LM's [384,
+    2048, 128], causal, from seeded inputs: one package's bits, to hold
+    against another's (the fp16 forms must leave bf16's unchanged)."""
+    import hashlib
+
+    from apex_tpu_torch.ops import flash_attn as FA
+
+    out = {}
+    for name, (bh, s, d) in (("lm", (128, 4095, 64)),
+                             ("wide", (384, 2048, 128))):
+        gen = torch.Generator(device="cuda").manual_seed(5)
+        q, k, v, do = (torch.randn(bh, s, d, generator=gen, device="cuda")
+                       .to(torch.bfloat16) for _ in range(4))
+        kw = dict(causal=True, scale=d ** -0.5)
+        o, lse = FA.flash_fwd(q, k, v, **kw)
+        delta = FA.flash_delta(o, do)
+        dq = FA.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+        dk, dv = FA.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+        out[name] = {
+            n: hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy()
+                              .tobytes()).hexdigest()[:16]
+            for n, t in (("o", o), ("lse", lse), ("dq", dq), ("dk", dk),
+                         ("dv", dv))}
+    return out
+
+
+def flash_form_readings(torch, timer, reading, shape, dt, fns, ops_s,
+                        plain_group=16) -> dict:
+    """One form of the flash kernels at [BH, S, D] causal in dtype dt: the
+    forward, dq and dk/dv (``fns``: the three wrappers) against the plain
+    versions on the first heads under ``flash_err`` in dt (lse within
+    1e-3),
+    the rule refusing a result 5% off, each output repeated bit for bit;
+    times beside the plain versions' (the forward head group by head
+    group), SDPA's in dt and the bounds at ``ops_s``."""
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.ops import flash_attn as FA
+
+    fwd, dq_fn, dkv_fn = fns
+    BH, S, D = shape
+    n = FLASH_CHECK_HEADS
+    kw = dict(causal=True, scale=D ** -0.5)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    q, k, v, do = (torch.randn(BH, S, D, generator=gen, device="cuda").to(dt)
+                   for _ in range(4))
+    o, lse = fwd(q, k, v, **kw)
+    delta = FA.flash_delta(o, do)
+    args = (q, k, v, do, lse, delta)
+    dq = dq_fn(*args, **kw)
+    dk, dv = dkv_fn(*args, **kw)
+    o0, lse0 = FA.reference_attention(q[:n], k[:n], v[:n], return_lse=True,
+                                      **kw)
+    want = FA.flash_bwd_plain(q[:n], k[:n], v[:n], do[:n], lse[:n],
+                              delta[:n], **kw)
+    torch.cuda.synchronize()
+    errs = {w: flash_err(torch, a[:n], b0, dt)
+            for w, a, b0 in zip(("o", "dq", "dk", "dv"), (o, dq, dk, dv),
+                                (o0, *want))}
+    lse_err = float((lse[:n] - lse0).abs().max())
+    check(lse_err <= 1e-3, f"flash {reading} lse: {lse_err} > 1e-3")
+    for w, e in errs.items():
+        check(e["used"] <= 1.0, f"flash {reading} {w}: {e}")
+    late = torch.arange(S, device="cuda")[None, :, None] >= S // 2
+    for w, b0 in zip(("o", "dq", "dk", "dv"), (o0, *want)):
+        off = torch.where(late, b0.float() * 1.05, b0.float())
+        check(flash_err(torch, off, b0, dt)["used"] > 1.0,
+              f"flash {reading} {w}: the limit passes a result 5% off")
+    again = (*fwd(q, k, v, **kw), dq_fn(*args, **kw), *dkv_fn(*args, **kw))
+    rep = {w: bool(torch.equal(a, b)) for w, a, b in
+           zip(("o", "lse", "dq", "dk", "dv"), again, (o, lse, dq, dk, dv))}
+    check(all(rep.values()), f"flash {reading}: two runs differ: {rep}")
+    del want, o0, lse0, again, late, off
+
+    def plain_fwd():
+        for i in range(0, BH, plain_group):
+            FA.reference_attention(q[i:i + plain_group],
+                                   k[i:i + plain_group],
+                                   v[i:i + plain_group], return_lse=True,
+                                   **kw)
+
+    q4, k4, v4, do4 = (t.view(1, BH, S, D) for t in (q, k, v, do))
+    ql, kl, vl = (t.detach().clone().requires_grad_(True)
+                  for t in (q4, k4, v4))
+    lo = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+    lib_bwd = timer(lambda: torch.autograd.grad(lo, (ql, kl, vl), do4,
+                                                retain_graph=True))
+    del lo, ql, kl, vl
+    plain_ms = timer(lambda: FA.flash_bwd_plain(*args, **kw))
+    pairs = BH * S * (S + 1) // 2
+    sz = BH * S * D * q.element_size()
+    name = str(dt).split(".")[1]
+    common = dict(reading=reading, dtype=name, shape=[BH, S, D],
+                  causal=True, checked_heads=n,
+                  tol=("2 ulps + 2^-14 of the larger of the row's and the "
+                       "tensor's RMS" if dt == torch.float32 else
+                       "2 ulps + 2^-6 of the row's RMS (at least 2^-6 of "
+                       "the tensor's)"),
+                  plain_covers="dq, dk and dv (one flash_bwd_plain)",
+                  library_covers="dq, dk and dv (one SDPA backward)")
+    fwd_b = bound(4 * sz + 4 * BH * S, 4 * D * pairs, ops_s)
+    dq_b = bound(5 * sz + 8 * BH * S, 6 * D * pairs, ops_s)
+    dkv_b = bound(6 * sz + 8 * BH * S, 8 * D * pairs, ops_s)
+    out = {}
+    for r in (
+            dict(common, kernel=fwd.__name__,
+                 max_abs_err=errs["o"]["max_abs_err"],
+                 tol_used=errs["o"]["used"], lse_err=lse_err,
+                 repeat_equal=rep["o"] and rep["lse"],
+                 ms=timer(lambda: fwd(q, k, v, **kw)),
+                 plain_ms=timer(plain_fwd),
+                 plain_covers="the forward (reference_attention)",
+                 library_ms=timer(lambda: F.scaled_dot_product_attention(
+                     q4, k4, v4, is_causal=True)),
+                 library_covers="the forward (causal SDPA)",
+                 bound_ms=fwd_b[0], bound_by=fwd_b[1]),
+            dict(common, kernel=dq_fn.__name__,
+                 max_abs_err=errs["dq"]["max_abs_err"],
+                 tol_used=errs["dq"]["used"], repeat_equal=rep["dq"],
+                 ms=timer(lambda: dq_fn(*args, **kw)),
+                 plain_ms=plain_ms, library_ms=lib_bwd, bound_ms=dq_b[0],
+                 bound_by=dq_b[1]),
+            dict(common, kernel=dkv_fn.__name__,
+                 max_abs_err=max(errs["dk"]["max_abs_err"],
+                                 errs["dv"]["max_abs_err"]),
+                 tol_used=max(errs["dk"]["used"], errs["dv"]["used"]),
+                 repeat_equal=rep["dk"] and rep["dv"],
+                 ms=timer(lambda: dkv_fn(*args, **kw)),
+                 plain_ms=plain_ms, library_ms=lib_bwd, bound_ms=dkv_b[0],
+                 bound_by=dkv_b[1])):
+        emit({"phase": "kernels", **r})
+        out[(r["kernel"], reading)] = r
+    return out
+
+
+def flash_forms_phase(torch, timer) -> dict:
+    """The fp16 forms of the tensor-core kernels at the LM's [128, 4095,
+    64] and the wide LM's [384, 2048, 128] (their bf16 forms' rows are
+    phase 2's LM and wide readings), and the simple form in fp32 at [128,
+    4095, 64], its bound at the 67 TFLOP/s of fp32 outside the tensor
+    cores."""
+    from apex_tpu_torch.ops import flash_attn as FA
+
+    tc = (FA.flash_fwd, FA.flash_bwd_dq, FA.flash_bwd_dkv)
+    simt = (FA.flash_simt_fwd, FA.flash_simt_dq, FA.flash_simt_dkv)
+    lm = [LM_SHAPE["batch"] * LM_SHAPE["heads"], LM_SHAPE["seq"] - 1,
+          LM_SHAPE["embed"] // LM_SHAPE["heads"]]
+    w = WIDE_SHAPE
+    wide = [w["batch"] * w["heads"], w["seq"], w["embed"] // w["heads"]]
+    rows = {}
+    rows.update(flash_form_readings(torch, timer, "f16", lm, torch.float16,
+                                    tc, BF16_DENSE_OPS_S))
+    rows.update(flash_form_readings(torch, timer, "f16_wide", wide,
+                                    torch.float16, tc, BF16_DENSE_OPS_S))
+    rows.update(flash_form_readings(torch, timer, "f32", lm, torch.float32,
+                                    simt, FP32_OPS_S, plain_group=8))
+    return rows
+
+
+def tail_kernel_phase(torch, timer) -> dict:
+    """The scalar tails beside the vector forms: ``ln_bwd`` (and
+    ``ln_fwd``) at F 1022 over the LM's 32760 rows, bf16, under phase 2's
+    LN rule (the vector form's reading is row ``ln_bwd`` at F 1024), the
+    wide kernels at F 12290 over the wide LM's 8192 rows; the welford
+    passes at C 6 and, beside them, C 8 over 256·56·56 rows, bf16 (sums
+    within 1e-5·Σ|terms|, dx and dz bit-equal, repeats bit-equal)."""
+    from apex_tpu_torch.ops import layer_norm as LN
+    from apex_tpu_torch.ops import welford as WF
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    rows = {}
+    for kern, n_rows, f in (("ln_bwd", LM_SHAPE["batch"] *
+                             (LM_SHAPE["seq"] - 1), 1022),
+                            ("ln_bwd_wide", 8192, 12290)):
+        x = (torch.randn(n_rows, f, generator=gen, device="cuda") * 2
+             + 0.5).to(torch.bfloat16)
+        dy = torch.randn(n_rows, f, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        w = (torch.randn(f, generator=gen, device="cuda") + 1).to(
+            torch.bfloat16)
+        b = torch.randn(f, generator=gen, device="cuda").to(torch.bfloat16)
+        y, mean, inv = LN.ln_fwd(x, w, b, 1e-5)
+        y0, _, _ = LN.ln_fwd_plain(x, w, b, 1e-5)
+        y_err, ok = max_err(y, y0, "bfloat16")
+        check(ok, f"{kern} F {f}: the forward's y err {y_err}")
+        got = LN.ln_bwd(dy, x, w, mean, inv)
+        errs = check_ln_bwd(torch, f"{kern} F {f}", got,
+                            LN.ln_bwd_plain(dy, x, w, mean, inv), dy, x, w,
+                            mean, inv)
+        rep = all(bool(torch.equal(a, c)) for a, c in
+                  zip(got, LN.ln_bwd(dy, x, w, mean, inv)))
+        check(rep, f"{kern} F {f}: two runs differ")
+        b_ms, b_by = bound(3 * n_rows * f * 2 + 8 * n_rows + 2 * f + 8 * f,
+                           11 * n_rows * f)
+        _, lmean, lrstd = torch.ops.aten.native_layer_norm(x, [f], w, b,
+                                                           1e-5)
+        fwd_kern = "ln_fwd" if f <= LN.F_SINGLE_MAX else "ln_fwd_wide"
+        fb = bound(2 * n_rows * f * 2 + 4 * f + 8 * n_rows, 8 * n_rows * f)
+        for r in (dict(kernel=fwd_kern, reading="tail", dtype="bfloat16",
+                       shape=[n_rows, f], max_abs_err=y_err,
+                       tol=TOL["bfloat16"],
+                       ms=timer(lambda: LN.ln_fwd(x, w, b, 1e-5)),
+                       plain_ms=timer(lambda: LN.ln_fwd_plain(x, w, b,
+                                                              1e-5)),
+                       library_ms=timer(lambda: torch.nn.functional
+                                        .layer_norm(x, (f,), w, b, 1e-5)),
+                       bound_ms=fb[0], bound_by=fb[1]),
+                  dict(kernel=kern, reading="tail", dtype="bfloat16",
+                       shape=[n_rows, f], **errs, repeat_equal=rep,
+                       ms=timer(lambda: LN.ln_bwd(dy, x, w, mean, inv)),
+                       plain_ms=timer(lambda: LN.ln_bwd_plain(dy, x, w, mean,
+                                                              inv)),
+                       library_ms=timer(
+                           lambda: torch.ops.aten.native_layer_norm_backward(
+                               dy, x, [f], lmean, lrstd, w, b,
+                               [True, True, True])),
+                       bound_ms=b_ms, bound_by=b_by)):
+            emit({"phase": "kernels", **r})
+            rows[(r["kernel"], "tail", f)] = r
+        del x, dy, y, y0, got, lmean, lrstd
+    n = 256 * 56 * 56
+    for c in (6, 8):
+        x = (torch.randn(n, c, generator=gen, device="cuda") * 2 + 0.5).to(
+            torch.bfloat16)
+        dy = torch.randn(n, c, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        out = torch.relu(torch.randn(n, c, generator=gen,
+                                     device="cuda")).to(torch.bfloat16)
+        s, q = WF.bn_moments(x)
+        s0, q0 = WF.bn_moments_plain(x)
+        xf = x.float()
+        for a, b0, terms in ((s, s0, xf.abs()), (q, q0, xf * xf)):
+            lim = 1e-5 * terms.sum(0) + 1e-6
+            check(bool(((a - b0).abs() <= lim).all()),
+                  f"bn_moments C {c}: sums off")
+        check(torch.equal(WF.bn_moments(x)[1], q), f"bn_moments C {c}: "
+              f"two runs differ")
+        mean = s0 / n
+        inv = torch.rsqrt(q0 / n - mean * mean + 1e-5)
+        r1 = WF.bn_backward_fused_reduce(dy, x, mean, inv, out)
+        r0 = WF.bn_backward_fused_reduce_plain(dy, x, mean, inv, out)
+        dyf = dy.float()
+        for a, b0, terms in ((r1[0], r0[0], dyf),
+                             (r1[1], r0[1], dyf * (xf - mean) * inv)):
+            lim = 1e-5 * terms.abs().sum(0) + 1e-6
+            check(bool(((a - b0).abs() <= lim).all()),
+                  f"bn_backward_fused_reduce C {c}: sums off")
+        wt = torch.rand(c, generator=gen, device="cuda") + 0.5
+        args = (dy, x, mean, inv, inv * wt, r0[0] / n, r0[1] / n, out, True)
+        dx, dz = WF.bn_backward_dx(*args)
+        dx0, dz0 = WF.bn_backward_dx_plain(*args)
+        check(torch.equal(dx, dx0) and torch.equal(dz, dz0),
+              f"bn_backward_dx C {c}: not bit-equal to the plain version")
+        del xf, dyf
+        for kern, call, plain, nbytes, ops in (
+                ("bn_moments", lambda: WF.bn_moments(x),
+                 lambda: WF.bn_moments_plain(x), 2 * n * c + 8 * c,
+                 3 * n * c),
+                ("bn_backward_fused_reduce",
+                 lambda: WF.bn_backward_fused_reduce(dy, x, mean, inv, out),
+                 lambda: WF.bn_backward_fused_reduce_plain(dy, x, mean, inv,
+                                                           out),
+                 6 * n * c + 16 * c, 6 * n * c),
+                ("bn_backward_dx", lambda: WF.bn_backward_dx(*args),
+                 lambda: WF.bn_backward_dx_plain(*args), 10 * n * c + 20 * c,
+                 8 * n * c)):
+            b_ms, b_by = bound(nbytes, ops)
+            r = dict(kernel=kern, reading="tail", dtype="bfloat16",
+                     shape=[n, c],
+                     # fresh tensors are aligned: the width picks the form
+                     form="scalar" if c % 4 else "vector",
+                     max_abs_err=0.0 if kern == "bn_backward_dx" else None,
+                     repeat_equal=True, ms=timer(call),
+                     plain_ms=timer(plain), library_ms=None, bound_ms=b_ms,
+                     bound_by=b_by)
+            emit({"phase": "kernels", **r})
+            rows[(kern, "tail", c)] = r
+        del x, dy, out
+    return rows
+
+
+# -- phases 26-27: lm_bench's LM served at full width (16 heads of 64) ------
+
+def lm_serve_model(torch):
+    from apex_tpu_torch.models import TransformerLM
+    model = TransformerLM(vocab_size=LM_SHAPE["vocab"], max_seq_len=1024,
+                          embed_dim=LM_SHAPE["embed"],
+                          num_heads=LM_SERVE_HEADS,
+                          num_layers=LM_SHAPE["layers"])
+    return model, model.init(torch.Generator().manual_seed(0),
+                             dtype=torch.bfloat16)
+
+
+def lm_serve_phases(torch, reqs) -> tuple:
+    """lm_bench's LM (8 × 1024, 16 heads of 64) behind phases 3-4's
+    engines and requests: every decode step's attention by the split
+    kernel at head dim 64, and its merge (the arena holds 1024 positions);
+    paged streams equal to dense."""
+    model, params = lm_serve_model(torch)
+    check(model.embed_dim // model.num_heads == 64, "lm_serve: head dim")
+    dense, dstats, dcounts = serve_phase(torch, "lm_serve_dense", model,
+                                         params, reqs)
+    steps = dstats["decode_steps"]
+    check(dcounts["decode_attention"] == model.num_layers * steps,
+          f"lm_serve_dense: decode_attention launched "
+          f"{dcounts['decode_attention']} times for {steps} steps")
+    check(dcounts["decode_merge"] == model.num_layers * steps,
+          f"lm_serve_dense: decode_merge launched {dcounts['decode_merge']}"
+          f" times for {steps} steps")
+    check(dcounts["paged_decode_attention"] == 0,
+          "lm_serve_dense: the paged kernel ran on the dense arena")
+    paged, pstats, pcounts = serve_phase(
+        torch, "lm_serve_paged", model, params, reqs, paged=True,
+        page_size=32, kv_pages=8 * (1024 // 32) // 2)
+    steps = pstats["decode_steps"]
+    check(pcounts["paged_decode_attention"] == model.num_layers * steps
+          and pcounts["decode_merge"] == model.num_layers * steps,
+          "lm_serve_paged: paged_decode_attention or decode_merge count != "
+          "layers x steps")
+    check(pcounts["decode_attention"] == 0,
+          "lm_serve_paged: the dense kernel ran on the paged arena")
+    same = [a.tokens == b.tokens for a, b in zip(dense, paged)]
+    emit({"phase": "lm_serve_paged_vs_dense", "requests_equal": sum(same),
+          "requests": len(same)})
+    check(all(same), "lm_serve: paged token streams differ from dense")
+    return dcounts, pcounts
+
+
+# -- phases 28-29: lm_bench's LM trained in fp16 (O2, dynamic scale) and
+# -- in fp32 (O0, --dtype f32), attention "fast" ------------------------------
+
+F16_PER_STEP = {"flash_fwd": 8, "flash_bwd_dq": 8, "flash_bwd_dkv": 8,
+                "flash_simt_fwd": 0, "flash_simt_dq": 0,
+                "flash_simt_dkv": 0, "ln_fwd": 17, "ln_bwd": 17}
+F32_PER_STEP = {"flash_simt_fwd": 8, "flash_simt_dq": 8,
+                "flash_simt_dkv": 8, "flash_fwd": 0, "flash_bwd_dq": 0,
+                "flash_bwd_dkv": 0, "ln_fwd": 17, "ln_bwd": 17}
+
+
+def lm_dtype_phase(torch, model, params, phase, dtype, warm, timed,
+                   per_step) -> dict:
+    """phase 9's model and batch in another dtype: fp16 by O2 with a
+    dynamic loss scale (``LMTrainer(dtype=float16, loss_scale="dynamic")``:
+    ``amp.initialize(opt_level="O2", half_dtype=float16)``), fp32 by O0
+    (``dtype=None``); ``warm`` + ``timed`` steps, then one profiled;
+    losses finite, the mean of the last 3 below the first; the launches a
+    step of ``per_step``."""
+    import numpy as np
+
+    from apex_tpu_torch.train import LMTrainer
+
+    c = LM_SHAPE
+    kw = dict(loss_scale="dynamic") if dtype == torch.float16 else {}
+    tr = LMTrainer(model, params, lr=1e-4, dtype=dtype, **kw)
+    toks = lm_batch(torch)
+    r = timed_steps(torch, lambda: tr.step(toks), warm, timed)
+    counts = r["counts"]
+    tokens = c["batch"] * c["seq"]
+    step_flops = lm_step_flops(tr.table.total)
+    prof = profile_steps(torch, lambda: tr.step(toks), LM_KERNEL_FAMILIES,
+                         n=1)
+    row = {"phase": phase, "model": "TransformerLM", **c,
+           "attn_impl": model.attn_impl,
+           "dtype": "float32" if dtype is None else "float16",
+           "masters": "float32", "optimizer": "FusedAdam(lr=1e-4)",
+           "loss_scale": kw.get("loss_scale"), "batch_cut": False,
+           **window_row(r, timed), "tok_per_s": tokens * timed / r["wall"],
+           "mfu": step_flops * timed / r["wall"] / (
+               FP32_OPS_S if dtype is None else BF16_DENSE_OPS_S),
+           "mfu_peak": "67 TFLOP/s fp32" if dtype is None
+           else "989 TFLOP/s fp16 dense",
+           "launches": {k: counts[k] for k in per_step},
+           "launches_per_step": {k: counts[k] / timed for k in per_step},
+           "profile": prof}
+    if tr.amp_state is not None:
+        row["loss_scale_last"] = float(tr.handle.loss_scale(tr.amp_state))
+    emit(row)
+    loss = r["loss"]
+    check(all(np.isfinite(loss)), f"{phase}: non-finite loss {loss}")
+    check(sum(loss[-3:]) / 3 < loss[0], f"{phase}: the mean of the last 3 "
+          f"losses is not below the first: {loss}")
+    check_counts(phase, counts, {k: n * timed for k, n in per_step.items()})
+    return counts
+
+
+# -- phase 30: FusedLayerNorm(1022) and SyncBatchNorm(6) trained -------------
+
+def tails_train_phase(torch) -> dict:
+    """The fault inputs as their users call them, a few forward/backward
+    passes each against the plain versions on the same inputs under phase
+    2's limits: ``FusedLayerNorm(1022)`` over [16, 2048, 1022] bf16 (y
+    within 1 bf16 ulp + 1e-5; dx, dγ, dβ by ``check_ln_bwd``), and
+    ``SyncBatchNorm(6, axis_name=None, fuse_relu=True)`` over [64, 6, 56,
+    56] bf16 in channels_last with a residual (out, dx and dz within
+    phase 2's bf16 tolerance, dγ and dβ within 1e-5·Σ|terms|); the
+    kernels' launches counted."""
+    from apex_tpu_torch.normalization import FusedLayerNorm
+    from apex_tpu_torch.ops import dispatch
+    from apex_tpu_torch.ops import layer_norm as LN
+    from apex_tpu_torch.parallel import SyncBatchNorm
+
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    f = 1022
+    ln = FusedLayerNorm(f, device="cuda")
+    with torch.no_grad():
+        ln.weight.copy_(torch.rand(f, generator=gen, device="cuda") + 0.5)
+        ln.bias.copy_(torch.randn(f, generator=gen, device="cuda"))
+    bn = SyncBatchNorm(6, axis_name=None, channel_last=False,
+                       fuse_relu=True)
+    params, state = bn.init("cuda")
+    params = {k: (torch.rand(6, generator=gen, device="cuda") + 0.5
+                  if k == "weight" else torch.randn(
+                      6, generator=gen, device="cuda")).requires_grad_(True)
+              for k in params}
+
+    def ln_pass():
+        x = (torch.randn(16, 2048, f, generator=gen, device="cuda") * 2
+             + 0.5).to(torch.bfloat16).requires_grad_(True)
+        dy = torch.randn(16, 2048, f, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+        def run():
+            y = ln(x)
+            return (y, *torch.autograd.grad(y, (x, ln.weight, ln.bias), dy))
+        got = run()
+        with dispatch.backend("reference"):
+            want = run()
+        y_err, ok = max_err(got[0], want[0], "bfloat16")
+        check(ok, f"FusedLayerNorm(1022): y err {y_err}")
+        x2 = x.detach().reshape(-1, f)
+        _, mean, inv = LN.ln_fwd_plain(x2, None, None, 1e-5)
+        errs = check_ln_bwd(torch, "FusedLayerNorm(1022)",
+                            (got[1].reshape(-1, f), got[2], got[3]),
+                            (want[1].reshape(-1, f), want[2], want[3]),
+                            dy.reshape(-1, f), x2, ln.weight.detach(), mean,
+                            inv)
+        return {"y_err": y_err, **errs}
+
+    def bn_pass():
+        x = (torch.randn(64, 6, 56, 56, generator=gen, device="cuda") * 2
+             + 0.5).to(torch.bfloat16).contiguous(
+                 memory_format=torch.channels_last).requires_grad_(True)
+        z = torch.randn(64, 6, 56, 56, generator=gen, device="cuda").to(
+            torch.bfloat16).contiguous(
+                memory_format=torch.channels_last).requires_grad_(True)
+        dy = torch.randn(64, 6, 56, 56, generator=gen, device="cuda").to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+
+        def run():
+            out, _ = bn(params, state, x, z=z)
+            return (out, *torch.autograd.grad(
+                out, (x, z, params["weight"], params["bias"]), dy))
+        got = run()
+        with dispatch.backend("reference"):
+            want = run()
+        out_err, ok = max_err(got[0], want[0], "bfloat16")
+        check(ok, f"SyncBatchNorm(6): out err {out_err}")
+        for name, a, b0 in (("dx", got[1], want[1]), ("dz", got[2], want[2])):
+            e, ok = max_err(a, b0, "bfloat16")
+            check(ok, f"SyncBatchNorm(6): {name} err {e}")
+        # the sums' terms: dy masked by the relu, times xhat for dγ
+        xf = x.detach().float()
+        mean = xf.mean((0, 2, 3), keepdim=True)
+        xhat = (xf - mean) * torch.rsqrt(
+            xf.var((0, 2, 3), unbiased=False, keepdim=True) + 1e-5)
+        dym = torch.where(got[0].float() > 0, dy.float(),
+                          torch.zeros((), device="cuda"))
+        for name, a, b0, terms in (("dweight", got[3], want[3], dym * xhat),
+                                   ("dbias", got[4], want[4], dym)):
+            lim = 1e-5 * terms.abs().sum((0, 2, 3)) + 1e-6
+            check(bool(((a - b0).abs() <= lim).all()),
+                  f"SyncBatchNorm(6): {name} off by "
+                  f"{float((a - b0).abs().max())}")
+        return {"out_err": out_err,
+                "dx_err": float((got[1].float() - want[1].float()).abs()
+                                .max())}
+
+    ln_pass()
+    bn_pass()                       # first use of every form
+    torch.cuda.synchronize()
+    zero_counts()
+    lns = [ln_pass() for _ in range(3)]
+    bns = [bn_pass() for _ in range(3)]
+    torch.cuda.synchronize()
+    counts = read_counts()
+    row = {"phase": "tails_train", "fused_layer_norm": {
+               "shape": [16, 2048, f], "dtype": "bfloat16", "passes": lns},
+           "sync_batchnorm": {"shape": [64, 6, 56, 56], "dtype": "bfloat16",
+                              "layout": "channels_last", "fuse_relu": True,
+                              "passes": bns},
+           "launches": {k: counts[k] for k in TAIL_KERNELS}}
+    emit(row)
+    for k in TAIL_KERNELS:
+        check(counts[k] > 0, f"tails_train: {k} never launched")
+    return counts
+
+
+TAIL_KERNELS = ("ln_fwd", "ln_bwd", "bn_moments", "bn_backward_fused_reduce",
+                "bn_backward_dx")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3916,10 +4654,11 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "compiled": kcuda.build_seconds is not None, "ptxas": ptxas,
           "flash_fwd_ptxas": flash_fwd, "flash_bwd_ptxas": flash_bwd})
-    check(not kcuda.build_seconds or (len(flash_fwd) == 6
-                                      and len(flash_bwd) == 8),
+    # bf16 and fp16: 2 x 6 forward and 2 x 8 backward forms
+    check(not kcuda.build_seconds or (len(flash_fwd) == 12
+                                      and len(flash_bwd) == 16),
           f"ptxas reported {len(flash_fwd)} forward and {len(flash_bwd)} "
-          f"backward flash forms, not 6 and 8")
+          f"backward flash forms, not 12 and 16")
     for what, forms in (("forward", flash_fwd), ("backward", flash_bwd)):
         check(all(e.get("spill_bytes", 0) == 0 for e in forms.values()),
               f"the flash {what} kernels spill: {forms}")
@@ -3957,6 +4696,12 @@ def main() -> int:
     flash_crossover_phase(torch)
     # the wide LayerNorm at the wide LM's rows and the other wide shapes
     rows.update(wide_kernel_phase(torch, timer))
+    # the split decode kernel at head dim 64 and its merge; the flash
+    # kernels' fp16 forms and the simple form; the scalar tails
+    rows.update(decode_kernel_phase(torch, timer))
+    rows.update(flash_forms_phase(torch, timer))
+    emit({"phase": "flash_bf16_bits", **flash_bits(torch)})
+    rows.update(tail_kernel_phase(torch, timer))
 
     # 3-4. the serving slice, dense then paged
     model = TransformerLM(vocab_size=32768, max_seq_len=1024,
@@ -4042,7 +4787,21 @@ def main() -> int:
     wcounts, _ = wide_lm_train_phase(torch)
     wide_lm_crosscheck_phase(torch, dispatch)
 
-    # 26. the kernels line, then the contract line
+    # 26-27. lm_bench's LM served at full width (16 heads of 64), dense and
+    # paged, the split decode kernel at head dim 64 in every step
+    mcounts, mpcounts = lm_serve_phases(torch, reqs)
+    # 28-29. lm_bench's LM trained in fp16 (O2, dynamic scale: the
+    # tensor-core kernels' fp16 forms) and in fp32 (O0: the simple form)
+    lm_params = lm.init(torch.Generator().manual_seed(0))
+    hcounts = lm_dtype_phase(torch, lm, lm_params, "lm_train_f16",
+                             torch.float16, 3, 5, F16_PER_STEP)
+    f32counts = lm_dtype_phase(torch, lm, lm_params, "lm_train_f32", None,
+                               2, 3, F32_PER_STEP)
+    del lm_params
+    # 30. FusedLayerNorm(1022) and SyncBatchNorm(6) trained
+    tl_counts = tails_train_phase(torch)
+
+    # 31. the kernels line, then the contract line
     launches = {k: dcounts[k] + pcounts[k] for k in dcounts}
     launches.update({k: tcounts[k] for k in TRAIN_KERNELS})
     for k in LM_PER_STEP:                # ln_fwd: serving and training
@@ -4062,6 +4821,15 @@ def main() -> int:
     for k in ("ln_fwd_wide", "ln_bwd_wide"):     # the wide LM step
         launches[k] += wcounts[k]
     launches["bn_backward_reduce"] += ncounts["bn_backward_reduce"]
+    for counts in (mcounts, mpcounts):   # lm_bench's LM served
+        for k in ("decode_attention", "paged_decode_attention",
+                  "decode_merge", "ln_fwd"):
+            launches[k] += counts[k]
+    for counts, per in ((hcounts, F16_PER_STEP), (f32counts, F32_PER_STEP)):
+        for k in per:                    # the fp16 and fp32 LM steps
+            launches[k] += counts[k]
+    for k in TAIL_KERNELS:               # the fault inputs trained
+        launches[k] += tl_counts[k]
     sources = {
         "decode_attention": (
             "apex_tpu_torch/ops/cuda/csrc/decode_attn.cu",
@@ -4124,6 +4892,20 @@ def main() -> int:
                         "apex_tpu/ops/pallas/layer_norm.py:288"),
         "bn_backward_reduce": ("apex_tpu_torch/ops/cuda/csrc/welford.cu",
                                "apex_tpu/ops/pallas/welford.py:216"),
+        # a helper pass of the dense and paged decode sites (rows 1-2):
+        # the split decode's second kernel, which merges their chunks
+        "decode_merge": ("apex_tpu_torch/ops/cuda/csrc/decode_attn.cu",
+                         "apex_tpu/ops/pallas/decode_attn.py:53"),
+        # the simple form: fp32, and head dims past 128
+        "flash_simt_fwd": ("apex_tpu_torch/ops/cuda/csrc/flash_simt.cu",
+                           "apex_tpu/contrib/multihead_attn/"
+                           "flash_attention.py:181"),
+        "flash_simt_dq": ("apex_tpu_torch/ops/cuda/csrc/flash_simt.cu",
+                          "apex_tpu/contrib/multihead_attn/"
+                          "flash_attention.py:349"),
+        "flash_simt_dkv": ("apex_tpu_torch/ops/cuda/csrc/flash_simt.cu",
+                           "apex_tpu/contrib/multihead_attn/"
+                           "flash_attention.py:392"),
     }
     # the wide wrappers each take the place of more than one TPU kernel
     also_replaces = {
@@ -4162,7 +4944,12 @@ def main() -> int:
                 # reduce from xhat summed over the RN50 step's 53 BNs
                 "ln_fwd_wide": ("ln_fwd_wide", "lm"),
                 "ln_bwd_wide": ("ln_bwd_wide", "lm"),
-                "bn_backward_reduce": ("bn_backward_reduce", "bfloat16")}
+                "bn_backward_reduce": ("bn_backward_reduce", "bfloat16"),
+                "decode_merge": ("decode_merge", "bfloat16"),
+                # the simple form at the LM's shape in fp32
+                "flash_simt_fwd": ("flash_simt_fwd", "f32"),
+                "flash_simt_dq": ("flash_simt_dq", "f32"),
+                "flash_simt_dkv": ("flash_simt_dkv", "f32")}
     sub = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
            "library_ms")
     kernels = []
@@ -4200,6 +4987,23 @@ def main() -> int:
                 for shape, key in (("lm", "bfloat16"), ("wide", "wide"))}
         if name == "flash_bwd_dbias":
             entry["causal"] = {k: rows[(name, "causal")][k] for k in sub}
+        if name in ("decode_attention", "paged_decode_attention"):
+            # lm_bench's serving shape, head dim 64
+            entry["hd64"] = {k: rows[(name, "hd64", "bfloat16")][k]
+                             for k in sub}
+        if name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            # the fp16 forms at the LM's and the wide LM's shapes
+            entry["f16"] = {reading: {k: rows[(name, reading)][k]
+                                      for k in sub}
+                            for reading in ("f16", "f16_wide")}
+        if name in ("ln_fwd", "ln_bwd", "ln_fwd_wide", "ln_bwd_wide",
+                    "bn_moments", "bn_backward_fused_reduce",
+                    "bn_backward_dx"):
+            # the scalar tails (and, for the welford passes, C 8 beside)
+            entry["tails"] = {str(key[2]): {k: rows[key].get(k)
+                                            for k in sub}
+                              for key in rows
+                              if key[0] == name and key[1:2] == ("tail",)}
         if name in also_replaces:
             entry["also_replaces"] = also_replaces[name]
             entry["readings"] = {
@@ -4207,7 +5011,7 @@ def main() -> int:
                 for key in rows
                 if len(key) == 2 and key[0] == name and key[1] != "lm"}
         kernels.append(entry)
-    check(len(kernels) == 27 and all(e["launches"] > 0 for e in kernels),
+    check(len(kernels) == 31 and all(e["launches"] > 0 for e in kernels),
           f"kernels line: {[(e['name'], e['launches']) for e in kernels]}")
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "nvidia_smi": nvidia_smi(

@@ -96,8 +96,8 @@ def test_ln_kernel_on_a_row_not_vector_aligned(card):
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):
-    q = torch.zeros(2, 2, 64, device=card)
-    kv = torch.zeros(2, 2, 16, 64, device=card)
+    q = torch.zeros(2, 2, 96, device=card)
+    kv = torch.zeros(2, 2, 16, 96, device=card)
     lengths = torch.ones(2, dtype=torch.int32, device=card)
     with pytest.raises(ValueError, match="head_dim"):
         DA.decode_attention(q, kv, kv, lengths)
@@ -107,12 +107,14 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
         DA.decode_attention(q, kv, kv, lengths.long())
     with pytest.raises(TypeError, match="dtypes"):
         DA.decode_attention(q, kv.half(), kv.half(), lengths)
+    # a page of 4 and a row of 8193 are taken (the split decode follows
+    # the table per key; the LayerNorm kernels have scalar forms)
     pool = torch.zeros(5, 2, 4, 128, device=card)
     table = torch.ones(2, 2, dtype=torch.int32, device=card)
-    with pytest.raises(ValueError, match="page_size"):
-        DA.paged_decode_attention(q, pool, pool, lengths, page_table=table)
-    with pytest.raises(ValueError, match="multiple of 4"):
-        LN.ln_fwd(torch.zeros(2, 8193, device=card), None, None, 1e-5)
+    DA.paged_decode_attention(q, pool, pool, lengths, page_table=table)
+    LN.ln_fwd(torch.zeros(2, 8193, device=card), None, None, 1e-5)
+    with pytest.raises(ValueError, match="width 0"):
+        LN.ln_fwd(torch.zeros(2, 0, device=card), None, None, 1e-5)
     x = torch.zeros(4, 8, device=card).t()
     with pytest.raises(ValueError, match="contiguous"):
         LN.ln_fwd(x, None, None, 1e-5)
@@ -323,11 +325,41 @@ def test_welford_kernels_match_plain(card, rows, c, dtype):
     assert torch.equal(WF.bn_moments(x)[1], sq)
 
 
+@pytest.mark.parametrize("c,offset", [(6, 0), (7, 0), (8, 1), (64, 2)])
+def test_welford_kernels_take_any_width_and_alignment(card, c, offset):
+    """C not a multiple of 4, or a base one or two elements into its
+    storage, takes the scalar form the C side picks: the sums within 1e-5
+    of their terms, dx and dz bit-equal to the plain versions, repeats
+    bit-equal."""
+    from apex_tpu_torch.ops import welford as WF
+    rows = 1000
+    views = []
+    for t in _bn_case(card, rows, c, torch.bfloat16, seed=c)[:3]:
+        buf = torch.empty(rows * c + offset, dtype=t.dtype, device=card)
+        views.append(buf[offset:].view(rows, c).copy_(t))
+    x, dy, out = views
+    _, _, _, mean, invvar = _bn_case(card, rows, c, torch.bfloat16, seed=c)
+    s, sq = WF.bn_moments(x)
+    _sums_close(s, WF.bn_moments_plain(x)[0], x.float())
+    assert torch.equal(WF.bn_moments(x)[1], sq)
+    sd, sx = WF.bn_backward_fused_reduce(dy, x, mean, invvar, out)
+    sd0, sx0 = WF.bn_backward_fused_reduce_plain(dy, x, mean, invvar, out)
+    dyf = dy.float() * (out.float() > 0)
+    _sums_close(sd, sd0, dyf)
+    _sums_close(sx, sx0, dyf * (x.float() - mean) * invvar)
+    args = (dy, x, mean, invvar, invvar * 1.5, sd0 / rows, sx0 / rows, out)
+    dx, dz = WF.bn_backward_dx(*args, emit_dz=True)
+    dx0, dz0 = WF.bn_backward_dx_plain(*args, emit_dz=True)
+    assert torch.equal(dx, dx0) and torch.equal(dz, dz0)
+    rd, rx = WF.bn_backward_reduce(dy, x)
+    _sums_close(rd, WF.bn_backward_reduce_plain(dy, x)[0], dy.float())
+    assert torch.equal(WF.bn_backward_reduce(dy, x)[1], rx)
+
+
 def test_welford_wrappers_refuse_what_the_kernels_do_not_take(card):
     from apex_tpu_torch.ops import welford as WF
-    x = torch.zeros(16, 6, device=card)
-    with pytest.raises(ValueError, match="multiple of 4"):
-        WF.bn_moments(x)
+    with pytest.raises(ValueError, match="C=0"):
+        WF.bn_moments(torch.zeros(16, 0, device=card))
     x = torch.zeros(8, 16, device=card)
     with pytest.raises(ValueError, match="contiguous"):
         WF.bn_moments(torch.zeros(16, 8, device=card).t())
@@ -522,10 +554,12 @@ def test_flash_wrappers_refuse_what_the_kernels_do_not_take(card):
     from apex_tpu_torch.contrib.multihead_attn import flash_attention
     from apex_tpu_torch.ops import flash_attn as FA
     q = torch.zeros(2, 16, 64, device=card, dtype=torch.bfloat16)
-    with pytest.raises(TypeError, match="bfloat16"):
-        FA.flash_fwd(q.float(), q.float(), q.float())
-    with pytest.raises(ValueError, match="head_dim"):
-        x = torch.zeros(2, 16, 32, device=card, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        FA.flash_fwd(q.double(), q.double(), q.double())
+    with pytest.raises(TypeError, match="one dtype"):
+        FA.flash_fwd(q, q.half(), q)
+    with pytest.raises(ValueError, match="head dim"):
+        x = torch.zeros(2, 16, 520, device=card, dtype=torch.bfloat16)
         FA.flash_fwd(x, x, x)
     with pytest.raises(ValueError, match="bias"):
         flash_attention(q, q, q, torch.zeros(1, 16, 15, device=card))
@@ -1277,7 +1311,10 @@ def test_auto_takes_the_kernel_at_the_translation_shape(card):
     """impl="auto" on the card: the translation encoder's [B·H, S, D] =
     [1024, 128, 64] bf16 self-attention takes the flash kernels (S 128 is
     the H100's crossover), the same output as impl="fast"; an fp32 input
-    and a head dim of 32 go to the plain path, where "fast" raises."""
+    goes to the plain path (the simple form has no length crossover) and
+    a head dim of 32
+    the tensor-core kernels (padded to 64); a float64 input goes to the
+    plain path, where "fast" raises."""
     from apex_tpu_torch.contrib.multihead_attn import (
         DEFAULT_FLASH_MIN_S, EncdecMultiheadAttn, SelfMultiheadAttn)
     from apex_tpu_torch.ops import flash_attn as FA
@@ -1302,17 +1339,25 @@ def test_auto_takes_the_kernel_at_the_translation_shape(card):
     before = FA.flash_fwd.launches
     cross.apply(pc, tq, x, key_padding_mask=kpm)     # Sq 129 x Sk 128
     assert FA.flash_fwd.launches == before + 1
-    # what the kernels do not take goes plain under "auto"
+    # fp32 at these lengths: the plain path, not the simple form
     p32 = {k: v.float() for k, v in p.items()}
-    before = FA.flash_fwd.launches
+    before = (FA.flash_fwd.launches, FA.flash_simt_fwd.launches)
     out32, _ = auto.apply(p32, x.float())
-    assert FA.flash_fwd.launches == before and out32.dtype == torch.float32
-    with pytest.raises(TypeError, match="bfloat16"):
-        fast.apply(p32, x.float())
+    assert out32.dtype == torch.float32
+    assert (FA.flash_fwd.launches, FA.flash_simt_fwd.launches) == (
+        before[0], before[1])
+    # a head dim of 32 takes the tensor-core kernels, padded to 64
     narrow = SelfMultiheadAttn(512, 16, bias=True, impl="auto")
     before = FA.flash_fwd.launches
     narrow.apply(p, x)
-    assert FA.flash_fwd.launches == before
+    assert FA.flash_fwd.launches == before + 1
+    # what no kernel takes goes plain under "auto"; "fast" raises
+    p64 = {k: v.double() for k, v in p.items()}
+    before = (FA.flash_fwd.launches, FA.flash_simt_fwd.launches)
+    auto.apply(p64, x.double())
+    assert (FA.flash_fwd.launches, FA.flash_simt_fwd.launches) == before
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        fast.apply(p64, x.double())
 
 
 def test_lm_accumulation_through_the_kernels_matches_plain(card):
@@ -1460,15 +1505,19 @@ def test_ln_wide_forward_holds_a_large_mean(card, f):
 
 
 def test_ln_wide_wrappers_refuse_what_the_kernels_do_not_take(card):
-    x = torch.zeros(2, 8194, device=card)
-    mean = torch.zeros(2, device=card)
-    for call in (lambda: LN.ln_fwd(x, None, None, 1e-5),
-                 lambda: LN.ln_bwd(x, x, None, mean, mean)):
-        with pytest.raises(ValueError, match="multiple of 4"):
-            call()
-    buf = torch.zeros(2 * 9216 + 1, device=card)
-    with pytest.raises(ValueError, match="aligned"):
-        LN.ln_fwd(buf[1:].view(2, 9216), None, None, 1e-5)
+    # a width not a multiple of 4 and a misaligned base take the scalar
+    # forms; what is refused is a strided view and a lone weight
+    x = torch.randn(2, 8194, device=card)
+    y, mean, inv = LN.ln_fwd(x, None, None, 1e-5)
+    _close(y, LN.ln_fwd_plain(x, None, None, 1e-5)[0], torch.float32)
+    dx, _, _ = LN.ln_bwd(x, x, None, mean, inv)
+    _close(dx, LN.ln_bwd_plain(x, x, None, mean, inv)[0], torch.float32)
+    buf = torch.randn(2 * 9216 + 1, device=card)
+    xm = buf[1:].view(2, 9216)
+    _close(LN.ln_fwd(xm, None, None, 1e-5)[0],
+           LN.ln_fwd_plain(xm, None, None, 1e-5)[0], torch.float32)
+    with pytest.raises(ValueError, match="contiguous"):
+        LN.ln_fwd(torch.zeros(9216, 2, device=card).t(), None, None, 1e-5)
     w = torch.ones(9216, device=card)
     with pytest.raises(ValueError, match="weight and bias together"):
         LN.ln_fwd(torch.zeros(2, 9216, device=card), w, None, 1e-5)
@@ -1525,7 +1574,269 @@ def test_bn_backward_reduce_matches_plain_and_repeats(card, rows, c, dtypes):
     _sums_close(sx, sx0, dy.float() * xhat.float())
     again = WF.bn_backward_reduce(dy, xhat)
     assert torch.equal(again[0], sd) and torch.equal(again[1], sx)
-    with pytest.raises(ValueError, match="multiple of 4"):
-        WF.bn_backward_reduce(dy[:, :c - 1 if c > 4 else 3],
-                              xhat[:, :c - 1 if c > 4 else 3])
+    # one channel fewer: the scalar form
+    dy3, xh3 = (t[:, :c - 1 if c > 4 else 3].contiguous() for t in (dy, xhat))
+    sd, sx = WF.bn_backward_reduce(dy3, xh3)
+    sd0, sx0 = WF.bn_backward_reduce_plain(dy3, xh3)
+    _sums_close(sd, sd0, dy3.float())
+    _sums_close(sx, sx0, dy3.float() * xh3.float())
 
+
+
+# -- Queue 3's refusals, repaired: decode at head dim 64, flash in fp16 and
+# -- fp32 and at any head dim and BH, LayerNorm and welford at any width ----
+
+def _flash_rule(got, want, dtype):
+    """Each element within 2 ulps of dtype plus a share of its row's RMS,
+    as chip_smoke.py's flash rule: 16-bit 2^-6 of the row's RMS (at least
+    2^-6 of the tensor's), fp32 2^-14 of the larger of the row's and the
+    tensor's."""
+    bits = {torch.bfloat16: 8, torch.float16: 11, torch.float32: 24}[dtype]
+    frac, floor = (2.0 ** -14, 1.0) if dtype == torch.float32 \
+        else (2.0 ** -6, 2.0 ** -6)
+    a, b = got.float(), want.float()
+
+    def ulp(t):
+        return torch.ldexp(torch.ones_like(t), torch.frexp(t)[1] - bits)
+    rms = torch.clamp(b.pow(2).mean(-1, keepdim=True).sqrt(),
+                      min=floor * float(b.pow(2).mean().sqrt()))
+    lim = 2 * torch.maximum(ulp(a), ulp(b)) + frac * rms
+    assert bool(((a - b).abs() <= lim).all()), float(((a - b).abs()
+                                                       / lim).max())
+
+
+def _flash_kernels_against_plain(q, k, v, do, dtype, **kw):
+    """The forward against ``reference_attention`` and dq, dk, dv against
+    ``flash_bwd_plain`` on the same inputs (the kernel forward's lse and
+    its o's delta), each under ``_flash_rule``; lse within 1e-3."""
+    from apex_tpu_torch.ops import flash_attn as FA
+    o, lse = FA.flash_fwd(q, k, v, **kw)
+    bias = kw.pop("bias", None)
+    o0, lse0 = FA.reference_attention(q, k, v, bias, return_lse=True, **kw)
+    _flash_rule(o, o0, dtype)
+    torch.testing.assert_close(lse, lse0, atol=1e-3, rtol=0)
+    delta = FA.flash_delta(o, do)
+    dq = FA.flash_bwd_dq(q, k, v, do, lse, delta, bias=bias, **kw)
+    dk, dv = FA.flash_bwd_dkv(q, k, v, do, lse, delta, bias=bias, **kw)
+    want = FA.flash_bwd_plain(q, k, v, do, lse, delta, bias=bias, **kw)
+    for a, b0 in zip((dq, dk, dv), want):
+        assert a.dtype == dtype and a.shape == b0.shape
+        _flash_rule(a, b0, dtype)
+    return o, lse, dq, dk, dv
+
+
+@pytest.mark.parametrize("cap", [1000, 2100])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_decode_split_edges_repeat_and_paged_equal(card, hd, cap):
+    """The split kernel at no key, one, a chunk's edges and the arena's
+    length (up to 16 chunks, whose partials the merge loads at once, and
+    past them): against the plain version, two runs bit for bit, and a
+    paged arena of page 5 equal to the dense one bit for bit."""
+    g = torch.Generator(device=card).manual_seed(hd)
+    lens = [0, 1, 63, 64, 65, 127, 129, cap]
+    s, h = len(lens), 16 if hd == 64 else 8
+    lengths = torch.tensor(lens, dtype=torch.int32, device=card)
+    q = torch.randn(s, h, hd, generator=g, device=card).bfloat16()
+    k = torch.randn(s, h, cap, hd, generator=g, device=card).bfloat16()
+    v = torch.randn(s, h, cap, hd, generator=g, device=card).bfloat16()
+    before = (DA.decode_attention.launches, DA.decode_merge.launches)
+    got = DA.decode_attention(q, k, v, lengths)
+    assert (DA.decode_attention.launches, DA.decode_merge.launches) == (
+        before[0] + 1, before[1] + 1)
+    _close(got, DA.decode_attention_plain(q, k, v, lengths), torch.bfloat16)
+    assert not got[0].any()
+    assert torch.equal(DA.decode_attention(q, k, v, lengths), got)
+    page, n_pages = 5, cap // 5
+    table = (torch.randperm(s * n_pages, generator=g, device=card)
+             .to(torch.int32) + 1).reshape(s, n_pages)
+    kp = torch.full((1 + s * n_pages, h, page, hd), 9.0, device=card,
+                    dtype=torch.bfloat16)
+    vp = kp.clone()
+    for t, c in ((kp, k), (vp, v)):
+        t[table.reshape(-1).long()] = (c.reshape(s, h, n_pages, page, hd)
+                                       .transpose(1, 2)
+                                       .reshape(-1, h, page, hd))
+    assert torch.equal(DA.paged_decode_attention(q, kp, vp, lengths,
+                                                 page_table=table), got)
+
+
+def test_engine_at_head_dim_64_paged_equals_dense(card):
+    """lm_bench's head dim on a small LM: every decode step by the split
+    kernel and its merge (the arena holds 128 positions), paged streams
+    equal to dense."""
+    from apex_tpu_torch.models import TransformerLM
+    from apex_tpu_torch.serve import (ContinuousBatchingEngine,
+                                      poisson_requests)
+    m = TransformerLM(vocab_size=512, max_seq_len=128, embed_dim=256,
+                      num_heads=4, num_layers=2)
+    p = m.init(0, dtype=torch.bfloat16)
+    reqs = poisson_requests(8, rate=0.0, prompt_dist="uniform:3,60",
+                            new_dist="uniform:2,40", vocab_size=512,
+                            seed=2, max_len=128, prefill_chunk=8)
+    kw = dict(slots=3, max_len=128, prefill_chunk=8)
+    fns = (DA.decode_attention, DA.paged_decode_attention, DA.decode_merge)
+    before = [f.launches for f in fns]
+    dense, ds = ContinuousBatchingEngine(m, p, **kw).run(reqs)
+    mid = [f.launches for f in fns]
+    paged, ps = ContinuousBatchingEngine(m, p, paged=True, page_size=8,
+                                         kv_pages=24, **kw).run(reqs)
+    after = [f.launches for f in fns]
+    steps = m.num_layers * ds["decode_steps"]
+    assert [a - b for a, b in zip(mid, before)] == [steps, 0, steps]
+    steps = m.num_layers * ps["decode_steps"]
+    assert [a - b for a, b in zip(after, mid)] == [0, steps, steps]
+    assert [r.tokens for r in paged] == [r.tokens for r in dense]
+
+
+@pytest.mark.parametrize("d", [32, 96, 256])
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float32],
+                         ids=["f16", "f32"])
+def test_flash_in_fp16_and_fp32_at_any_head_dim(card, dtype, d):
+    """fp16 at D <= 128 by the tensor-core kernels (D padded to 64 or 128),
+    fp32 and D 256 by the simple form, with a kv_bias and causal masking:
+    each kernel against its plain version on the same inputs, and the
+    public ``flash_attention`` (forward and backward) launching the form
+    the dtype and head dim choose, its outputs in the input dtype."""
+    from apex_tpu_torch.contrib.multihead_attn import flash_attention
+    from apex_tpu_torch.ops import flash_attn as FA
+    g = torch.Generator(device=card).manual_seed(d)
+    bh, s = 12, 200
+    q, k, v, do = (torch.randn(bh, s, d, generator=g, device=card)
+                   .to(dtype) for _ in range(4))
+    kvb = torch.zeros(bh, s, device=card)
+    kvb[:, -7:] = -1e30
+    _flash_kernels_against_plain(q, k, v, do, dtype, kv_bias=kvb,
+                                 causal=True, scale=d ** -0.5)
+    tc = dtype == torch.float16 and d <= 128
+    fns = (FA.flash_fwd, FA.flash_bwd_dq, FA.flash_bwd_dkv,
+           FA.flash_simt_fwd, FA.flash_simt_dq, FA.flash_simt_dkv)
+    before = [f.launches for f in fns]
+    qs, ks, vs = (t.clone().requires_grad_(True) for t in (q, k, v))
+    o = flash_attention(qs, ks, vs, kv_bias=kvb, causal=True)
+    grads = torch.autograd.grad(o, (qs, ks, vs), do)
+    assert [f.launches - n for f, n in zip(fns, before)] == \
+        ([1, 1, 1, 0, 0, 0] if tc else [0, 0, 0, 1, 1, 1])
+    for t in (o, *grads):
+        assert t.dtype == dtype and t.shape == (bh, s, d)
+        assert bool(torch.isfinite(t).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_flash_at_more_than_65535_heads(card, dtype):
+    """BH = 65536 + 7, S 64: the grid folds bh into its one dim. The heads
+    around and past 65535 give the same bits as a launch of their own,
+    and they hold against the plain versions."""
+    from apex_tpu_torch.ops import flash_attn as FA
+    g = torch.Generator(device=card).manual_seed(3)
+    bh, s, d = 65536 + 7, 64, 64
+    q, k, v, do = (torch.randn(bh, s, d, generator=g, device=card)
+                   .to(dtype) for _ in range(4))
+    kw = dict(causal=True, scale=d ** -0.5)
+    o, lse = FA.flash_fwd(q, k, v, **kw)
+    delta = FA.flash_delta(o, do)
+    dq = FA.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = FA.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    tail = slice(65536 - 9, bh)
+    args = (q[tail], k[tail], v[tail])
+    ot, lset = FA.flash_fwd(*args, **kw)
+    dqt = FA.flash_bwd_dq(*args, do[tail], lse[tail], delta[tail], **kw)
+    dkt, dvt = FA.flash_bwd_dkv(*args, do[tail], lse[tail], delta[tail],
+                                **kw)
+    for a, b0 in zip((o, lse, dq, dk, dv), (ot, lset, dqt, dkt, dvt)):
+        assert torch.equal(a[tail], b0)
+    _flash_kernels_against_plain(*args, do[tail], dtype, **kw)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float32],
+                         ids=["f16", "f32"])
+def test_flash_shared_bias_gradient_in_every_dtype(card, dtype):
+    """A learned [1, Sq, Sk] bias at D 96: fp16 by the mma.sync kernel on
+    the padded inputs, fp32 by the simple form's dS summed over bh; both
+    against the plain per-bh dS summed under the dtype's flash rule, and
+    two runs bit for bit. Either form counts one launch of
+    ``flash_bwd_dbias`` and none of the dq wrappers."""
+    from apex_tpu_torch.ops import flash_attn as FA
+    g = torch.Generator(device=card).manual_seed(4)
+    bh, s, d = 24, 197, 96
+    q, k, v, do = (torch.randn(bh, s, d, generator=g, device=card)
+                   .to(dtype) for _ in range(4))
+    bias = torch.randn(1, s, s, generator=g, device=card)
+    kw = dict(causal=False, scale=d ** -0.5, bias=bias)
+    o, lse = FA.reference_attention(q, k, v, bias, return_lse=True,
+                                    scale=d ** -0.5)
+    delta = FA.flash_delta(o, do)
+    fns = (FA.flash_bwd_dbias, FA.flash_bwd_dq, FA.flash_simt_dq)
+    before = [f.launches for f in fns]
+    got = FA.flash_bwd_dbias(q, k, v, do, lse, delta, **kw)
+    assert [f.launches - n for f, n in zip(fns, before)] == [1, 0, 0]
+    want = FA.flash_bwd_dbias_plain(q, k, v, do, lse, delta, **kw)
+    _flash_rule(got, want, dtype)
+    assert torch.equal(FA.flash_bwd_dbias(q, k, v, do, lse, delta, **kw),
+                       got)
+
+
+def test_fused_layer_norm_1022_trains(card):
+    """FusedLayerNorm(1022): the forward's and the backward's scalar
+    forms against the plain versions (y within one bf16 ulp + 1e-5; dx
+    and the column sums by the LN rule)."""
+    from apex_tpu_torch.normalization import FusedLayerNorm
+    g = torch.Generator(device=card).manual_seed(6)
+    ln = FusedLayerNorm(1022, device=card)
+    with torch.no_grad():
+        ln.weight.copy_(torch.rand(1022, generator=g, device=card) + 0.5)
+        ln.bias.copy_(torch.randn(1022, generator=g, device=card))
+    x = (torch.randn(4, 300, 1022, generator=g, device=card) * 2 + 0.5
+         ).bfloat16().requires_grad_(True)
+    dy = torch.randn(4, 300, 1022, generator=g, device=card).bfloat16()
+
+    def run():
+        y = ln(x)
+        return (y, *torch.autograd.grad(y, (x, ln.weight, ln.bias), dy))
+    before = (LN.ln_fwd.launches, LN.ln_bwd.launches)
+    y, dx, dw, db = run()
+    assert (LN.ln_fwd.launches, LN.ln_bwd.launches) == (before[0] + 1,
+                                                        before[1] + 1)
+    with dispatch.backend("reference"):
+        y0, dx0, dw0, db0 = run()
+    _close(y, y0, torch.bfloat16)
+    _close(dx, dx0, torch.bfloat16)
+    for a, b0 in ((dw, dw0), (db, db0)):
+        torch.testing.assert_close(a, b0, atol=2e-3, rtol=1e-4)
+    again = run()
+    assert all(torch.equal(a, b0) for a, b0 in zip(again, (y, dx, dw, db)))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_sync_batchnorm_6_channels_trains(card, dtype):
+    """SyncBatchNorm(6, axis_name=None) forward and backward by the welford
+    kernels' scalar form, against the plain versions: out, dx, dz within
+    the dtype's tolerance, dγ and dβ within 1e-5 of their sums' terms."""
+    from apex_tpu_torch.ops import welford as WF
+    from apex_tpu_torch.parallel import SyncBatchNorm
+    g = torch.Generator(device=card).manual_seed(8)
+    bn = SyncBatchNorm(6, axis_name=None, fuse_relu=True)
+    params, state = bn.init(card)
+    params = {k: (torch.rand(6, generator=g, device=card) + 0.5)
+              .requires_grad_(True) for k in params}
+    x = (torch.randn(8, 14, 14, 6, generator=g, device=card) * 2 + 0.5
+         ).to(dtype).requires_grad_(True)
+    z = torch.randn(8, 14, 14, 6, generator=g, device=card).to(dtype)
+    z.requires_grad_(True)
+    dy = torch.randn(8, 14, 14, 6, generator=g, device=card).to(dtype)
+
+    def run():
+        out, _ = bn(params, state, x, z=z)
+        return (out, *torch.autograd.grad(
+            out, (x, z, params["weight"], params["bias"]), dy))
+    fns = (WF.bn_moments, WF.bn_backward_fused_reduce, WF.bn_backward_dx)
+    before = [f.launches for f in fns]
+    got = run()
+    assert [f.launches - n for f, n in zip(fns, before)] == [1, 1, 1]
+    with dispatch.backend("reference"):
+        want = run()
+    for a, b0 in zip(got[:3], want[:3]):
+        _close(a, b0, dtype)
+    for a, b0 in zip(got[3:], want[3:]):
+        torch.testing.assert_close(a, b0, atol=1e-2, rtol=1e-4)

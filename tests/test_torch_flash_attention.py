@@ -303,22 +303,41 @@ def test_auto_rule_is_the_constant_not_the_environment(monkeypatch):
 
 
 def test_auto_takes_the_kernel_only_where_it_takes_the_call(monkeypatch):
-    """The kernels take bf16 on the card with head dim 64 or 128, with or
-    without a full bias and dropout; "auto" sends everything else to the
-    plain path (a routing rule: "fast" still raises on those,
-    test_torch_cuda.py)."""
+    """The kernels take fp32, bf16 and fp16 on the card at any head dim up
+    to 512 and any BH, with or without a full bias and dropout; "auto"
+    takes them from their crossover (the simple form: none, only past 2
+    GiB of plain scores) and sends everything else to the plain path (a
+    routing rule: "fast" still raises on those, test_torch_cuda.py)."""
     mha = SelfMultiheadAttn(128, 2, impl="auto")
     long = _bf16(2, 4096, 64)
     assert not mha._flash_wins(long, long)            # a CPU tensor
     monkeypatch.setattr(MODULES, "_on_card", lambda t: True)
     assert mha._flash_wins(long, long)
+    half = torch.zeros(2, 4096, 64, dtype=torch.float16)
+    assert mha._flash_wins(half, half)
+    for d in (32, 96):
+        t = _bf16(2, 4096, d)
+        assert mha._flash_wins(t, t)
+    # the simple form (fp32; D past 128) has no length crossover on the
+    # H100: only scores past 2 GiB take it, from any length given
     f32 = torch.zeros(2, 4096, 64)
     assert not mha._flash_wins(f32, f32)
-    for d in (32, 96, 256):
+    big = torch.zeros(8192, 128, 64)
+    assert mha._flash_wins(big, torch.zeros(8192, 4096, 64))
+    for d in (256, 512):
         t = _bf16(2, 4096, d)
         assert not mha._flash_wins(t, t)
+        fixed = SelfMultiheadAttn(128, 2, impl="auto", flash_min_s=1024)
+        assert fixed._flash_wins(t, t)
+    f64 = torch.zeros(2, 4096, 64, dtype=torch.float64)
+    assert not mha._flash_wins(f64, f64)
+    wide = _bf16(2, 4096, 520)
+    assert not SelfMultiheadAttn(128, 2, impl="auto",
+                                 flash_min_s=1)._flash_wins(wide, wide)
     assert mha._flash_wins(_bf16(2, 4096, 128), _bf16(2, 4096, 128))
-    assert not mha._flash_wins(_bf16(65536, 128, 64), _bf16(65536, 128, 64))
+    assert mha._flash_wins(_bf16(65536, 128, 64), _bf16(65536, 128, 64))
+    # below the crossover the plain path
+    assert not mha._flash_wins(_bf16(2, 64, 64), _bf16(2, 64, 64))
     # the kernels take the full bias and dropout: neither routes a call
     # away, so the ViT's dropout attention at 197 tokens takes them
     vit = SelfMultiheadAttn(768, 12, dropout=0.1, bias=True, impl="auto")

@@ -91,7 +91,7 @@ def test_every_readable_layout_has_strides_tma_takes(make):
 @pytest.mark.parametrize("rows,blocks", [(1, 1), (127, 1), (128, 1),
                                          (129, 2), (197, 2), (255, 2),
                                          (256, 2), (2048, 16), (4095, 32)])
-def test_bwd_blocks(rows, blocks):
+def test_row_blocks(rows, blocks):
     """The grid of the forward, dq and dk/dv alike: one block per 128 rows
     (the C side refuses any other count)."""
     assert FA.row_blocks(rows) == blocks == -(-rows // FA.BLOCK_ROWS)

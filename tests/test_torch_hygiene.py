@@ -186,8 +186,9 @@ def test_ctypes_declarations_match_the_c_entry_points():
     from apex_tpu_torch.ops import cuda
     sources = cuda._sources()
     assert {p.name for p in sources} >= {"decode_attn.cu", "flash_attn.cu",
-                                         "layer_norm.cu", "multi_tensor.cu",
-                                         "welford.cu", "xentropy.cu"}
+                                         "flash_simt.cu", "layer_norm.cu",
+                                         "multi_tensor.cu", "welford.cu",
+                                         "xentropy.cu"}
     sigs = {}
     for p in sources:
         for name, params in re.findall(
@@ -197,8 +198,8 @@ def test_ctypes_declarations_match_the_c_entry_points():
     cuda._declare(so)
     for name, n in sigs.items():
         assert len(getattr(so, name).argtypes) == n, name
-    assert len(sigs) == 26           # the wide LayerNorm's two and
-    # bn_backward_reduce's are the 24th to 26th
+    assert len(sigs) == 31           # the decode merge and the simple
+    # flash form's four are the 27th to 31st
 
 
 def test_lm_training_entry_points_default_to_the_card_and_raise_without_it(
