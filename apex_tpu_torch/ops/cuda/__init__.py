@@ -181,8 +181,11 @@ def _declare(so: ctypes.CDLL) -> None:
     # q, k, v (and dO) in elements
     so.apex_flash_simt_fwd.argtypes = [I] + [P] * 5 + [L] * 6 + tail
     so.apex_flash_simt_fwd.restype = I
+    # the fp32 backward on the tensor cores takes the simple form's
+    # arguments
     for name in ("apex_flash_simt_dq", "apex_flash_simt_dkv",
-                 "apex_flash_simt_dbias"):
+                 "apex_flash_simt_dbias", "apex_flash_f32_dq",
+                 "apex_flash_f32_dkv"):
         getattr(so, name).argtypes = [I] + [P] * 8 + [L] * 8 + tail
         getattr(so, name).restype = I
     so.apex_xent_fwd.argtypes = [I, P, L, P, I, I, I, I, F, F, P, P, P]

@@ -110,6 +110,37 @@ __device__ __forceinline__ bool all_visible(const Attn& a, int q0, int nq,
          (!a.causal || a.q_start + q0 >= a.k_start + k0 + nk - 1);
 }
 
+// the score of (qi, kj) in log2 units with the biases, kNegInf where
+// masked (as _fwd_kernel, :196-212); the scalar path of the simple form
+// (csrc/flash_simt.cu) and of the fp32 backward (csrc/flash_f32.cu)
+__device__ __forceinline__ float score2(const Attn& a, int bh, int qi, int kj,
+                                        float s) {
+  const bool vis = visible(a, qi, kj);
+  float sc = s * (a.scale * kLog2e);
+  if (a.kvb != nullptr && kj < a.sk) sc += a.kvb[bh * a.kvb_bh + kj] * kLog2e;
+  if (vis) sc += bias_at(a, bh, qi, kj);
+  return vis ? sc : kNegInf;
+}
+
+// The backward's recompute (_recompute_p_ds, :309-346) of (qi, kj): s is
+// q·k, dp dO·v, lse2 the row's lse in log2 units. Returns p dropped and
+// rescaled (dv's weight) and sets ds = p (dP' - delta) with the undropped
+// p.
+__device__ __forceinline__ float p_and_ds(const Attn& a, int bh, int qi,
+                                          int kj, float s, float dp,
+                                          float lse2, float dlt, float& ds) {
+  const float sc = score2(a, bh, qi, kj, s);
+  const float p = sc > kNegInf * 0.5f ? exp2f(sc - lse2) : 0.f;
+  float pd = p;
+  if (a.drop_inv > 0.f) {
+    const bool kept = keep(a, bh, qi, kj);
+    pd = kept ? p * a.drop_inv : 0.f;
+    dp = kept ? dp * a.drop_inv : 0.f;
+  }
+  ds = p * (dp - dlt);
+  return pd;
+}
+
 Attn make_attn(const void* q, const void* k, const void* v, long long q_bh,
                long long q_s, long long k_bh, long long k_s, long long v_bh,
                long long v_s, const void* kvb, long long kvb_bh,

@@ -20,16 +20,20 @@ gradient):
   gradient of a bias [1, Sq, Sk] shared over bh, dS summed over bh; its
   plain version is :func:`flash_bwd_dbias_plain`.
 
-Two forms of kernel serve them (:func:`tensor_cores` picks one): bf16 and
-fp16 at a head dim up to 128 go to the Hopper kernels above, which take D
-64 or 128 and so get q, k, v (and dO) zero-padded to the next of the two
-(the JAX package pads D to 128 lanes; zero columns add nothing to QKᵀ and
-give zero output columns, sliced off), the real D's scale passed; fp32,
-and D from 129 to 512 in any of the three dtypes, go to the simple form of
+Three forms of kernel serve them (:func:`tensor_cores` picks the
+forward's, :func:`backward_form` the backward's): bf16 and fp16 at a head
+dim up to 128 go to the Hopper kernels above, which take D 64 or 128 and
+so get q, k, v (and dO) zero-padded to the next of the two (the JAX
+package pads D to 128 lanes; zero columns add nothing to QKᵀ and give zero
+output columns, sliced off), the real D's scale passed; the fp32 backward
+at a head dim up to 128 goes, padded alike, to
+``ops/cuda/csrc/flash_f32.cu``, 3xTF32 products on the tensor cores
+(:func:`flash_f32_dq`, :func:`flash_f32_dkv`); the fp32 forward, and D from
+129 to 512 in any of the three dtypes, go to the simple form of
 ``ops/cuda/csrc/flash_simt.cu``: fp32 FMAs, a warp a row
-(:func:`flash_simt_fwd`, :func:`flash_simt_dq`, :func:`flash_simt_dkv`,
-which count their own launches; :func:`flash_bwd_dbias` sums that dq
-kernel's dS over bh).
+(:func:`flash_simt_fwd`, :func:`flash_simt_dq`, :func:`flash_simt_dkv`;
+:func:`flash_bwd_dbias` sums that dq kernel's dS over bh). Each of these
+wrappers counts its own launches.
 
 The backward takes ``delta = rowsum(dO·O) − dlse`` (:474-479, computed
 here in plain PyTorch by :func:`flash_delta`), so a cotangent of the lse
@@ -80,6 +84,7 @@ __all__ = ["NEG_INF", "KERNEL_HEAD_DIMS", "SIMT_MAX_HEAD_DIM",
            "flash_fwd", "flash_delta", "flash_bwd_plain", "flash_bwd_dq",
            "flash_bwd_dkv", "flash_bwd_dbias", "flash_bwd_dbias_plain",
            "flash_simt_fwd", "flash_simt_dq", "flash_simt_dkv",
+           "flash_f32_dq", "flash_f32_dkv", "backward_form",
            "tensor_cores", "padded_head_dim", "BLOCK_ROWS", "TMA_BOX",
            "tma_layout", "row_blocks"]
 
@@ -525,17 +530,36 @@ def flash_simt_fwd(q, k, v, *, causal: bool = False, scale=None,
 flash_simt_fwd.launches = 0
 
 
-def _bwd_args(what, q, k, v, do, lse, delta, dp=None):
-    """The checked backward inputs: q, k, v, dO padded to the head dim dp
-    (the tensor-core kernels', when given) and readable by TMA, or with
-    their last dim contiguous (the simple form's); lse and delta fp32
+def backward_form(q: torch.Tensor) -> str:
+    """The kernels that take the backward (dq, dk/dv) of q's dtype and
+    head dim: "tc", the bf16/fp16 tensor-core kernels at D <= 128; "f32",
+    the fp32 ones at D <= 128 (3xTF32 on the tensor cores,
+    ``flash_f32.cu``); "simt", the simple form, past 128 in any dtype."""
+    if tensor_cores(q):
+        return "tc"
+    if q.dtype == torch.float32 and q.shape[-1] <= KERNEL_HEAD_DIMS[-1]:
+        return "f32"
+    return "simt"
+
+
+def _bwd_args(what, q, k, v, do, lse, delta, form="simt"):
+    """The checked backward inputs of the kernels of ``form`` (as
+    :func:`backward_form` names them): q, k, v, dO padded to
+    :func:`padded_head_dim` and readable by TMA ("tc") or by 16-byte copies
+    ("f32"), or with their last dim contiguous ("simt"); lse and delta fp32
     [BH, Sq]."""
     _check(what, q, k, v, do)
+    if form == "f32" and backward_form(q) != "f32":
+        raise ValueError(f"{what}: takes fp32 at a head dim up to "
+                         f"{KERNEL_HEAD_DIMS[-1]}, got {q.dtype} at "
+                         f"{q.shape[-1]}")
     bh, sq, _ = q.shape
-    if dp is not None:
-        q, k, v, do = (_tma_readable(_pad_d(t, dp)) for t in (q, k, v, do))
-    else:
+    if form == "simt":
         q, k, v, do = _simt_strides(q, k, v, do)[0]
+    else:
+        ready = _tma_readable if form == "tc" else _readable
+        dp = padded_head_dim(q.shape[-1])
+        q, k, v, do = (ready(_pad_d(t, dp)) for t in (q, k, v, do))
     lse = _row_stats(f"{what} lse", lse, bh, sq, q.device)
     delta = _row_stats(f"{what} delta", delta, bh, sq, q.device)
     return q, k, v, do, lse, delta
@@ -547,8 +571,9 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool, scale: float,
                  return_ds: bool = False):
     """dq [BH, Sq, D] in q's dtype from the forward's lse and
     :func:`flash_delta`; with ``return_ds`` (a ``bias`` given) also dS fp32
-    [BH, Sq, Sk], the gradient of a per-bh bias. On the card: the
-    tensor-core kernel (counted here) or :func:`flash_simt_dq`."""
+    [BH, Sq, Sk], the gradient of a per-bh bias. On the card, as
+    :func:`backward_form` picks: the tensor-core kernel (counted here),
+    :func:`flash_f32_dq` or :func:`flash_simt_dq`."""
     kw = dict(causal=causal, scale=scale, q_start=q_start, k_start=k_start,
               kv_bias=kv_bias, bias=bias, dropout_rate=dropout_rate,
               dropout_seed=dropout_seed)
@@ -560,13 +585,13 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool, scale: float,
                               **kw)
         return (out[0], out[3]) if return_ds else out[0]
     _check("flash_bwd_dq", q, k, v, do)
-    if not tensor_cores(q):
-        return flash_simt_dq(q, k, v, do, lse, delta, return_ds=return_ds,
-                             **kw)
+    form = backward_form(q)
+    if form != "tc":
+        return (flash_f32_dq if form == "f32" else flash_simt_dq)(
+            q, k, v, do, lse, delta, return_ds=return_ds, **kw)
     d = q.shape[-1]
-    dp = padded_head_dim(d)
     q, k, v, do, lse, delta = _bwd_args("flash_bwd_dq", q, k, v, do, lse,
-                                        delta, dp)
+                                        delta, "tc")
     tail, _keep_alive = _tail("flash_bwd_dq", q, k, kv_bias, bias,
                               dropout_rate, dropout_seed, causal, scale,
                               q_start, k_start)
@@ -589,62 +614,116 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool, scale: float,
 flash_bwd_dq.launches = 0
 
 
+def _strided_dq(wrapper, entry: str, form: str, q, k, v, do, lse, delta,
+                *, return_ds: bool, **kw):
+    """dq (and dS) by a kernel that takes q, k, v and dO through their
+    strides: the simple form (``form`` "simt") or the fp32 tensor-core form
+    ("f32"), C entry point ``entry``; ``wrapper`` counts the launch."""
+    what = wrapper.__name__
+    if return_ds and kw["bias"] is None:
+        raise ValueError(f"{what}: return_ds needs the bias whose gradient "
+                         f"it is")
+    if not dispatch.use_kernel(q):
+        out = flash_bwd_plain(q, k, v, do, lse, delta, return_ds=return_ds,
+                              **kw)
+        return (out[0], out[3]) if return_ds else out[0]
+    d = q.shape[-1]
+    q, k, v, do, lse, delta = _bwd_args(what, q, k, v, do, lse, delta, form)
+    tail, _keep_alive = _tail(what, q, k, kw["kv_bias"], kw["bias"],
+                              kw["dropout_rate"], kw["dropout_seed"],
+                              kw["causal"], kw["scale"], kw["q_start"],
+                              kw["k_start"])
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    ds = torch.empty((q.shape[0], q.shape[1], k.shape[1]),
+                     dtype=torch.float32, device=q.device) \
+        if return_ds else None
+    err = getattr(_cuda.lib(), entry)(
+        _cuda.dtype_code(q.dtype, what), q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        dq.data_ptr(), None if ds is None else ds.data_ptr(),
+        *_strides(q, k, v, do), *tail)
+    _cuda.check(err, what)
+    wrapper.launches += 1
+    dq = _unpad(dq, d)
+    return (dq, ds) if return_ds else dq
+
+
+def _strided_dkv(wrapper, entry: str, form: str, q, k, v, do, lse, delta,
+                 **kw):
+    """(dk, dv) by a kernel that takes its inputs through their strides,
+    as :func:`_strided_dq`."""
+    what = wrapper.__name__
+    if not dispatch.use_kernel(q):
+        return flash_bwd_plain(q, k, v, do, lse, delta, **kw)[1:]
+    d = q.shape[-1]
+    q, k, v, do, lse, delta = _bwd_args(what, q, k, v, do, lse, delta, form)
+    tail, _keep_alive = _tail(what, q, k, kw["kv_bias"], kw["bias"],
+                              kw["dropout_rate"], kw["dropout_seed"],
+                              kw["causal"], kw["scale"], kw["q_start"],
+                              kw["k_start"])
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    err = getattr(_cuda.lib(), entry)(
+        _cuda.dtype_code(q.dtype, what), q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), *_strides(q, k, v, do), *tail)
+    _cuda.check(err, what)
+    wrapper.launches += 1
+    return _unpad(dk, d), _unpad(dv, d)
+
+
 def flash_simt_dq(q, k, v, do, lse, delta, *, causal: bool, scale: float,
                   q_start: int = 0, k_start: int = 0, kv_bias=None,
                   bias=None, dropout_rate: float = 0.0, dropout_seed=0,
                   return_ds: bool = False):
     """:func:`flash_bwd_dq` by the simple form: any of fp32, bf16, fp16 and
     a head dim up to 512."""
-    kw = dict(causal=causal, scale=scale, q_start=q_start, k_start=k_start,
-              kv_bias=kv_bias, bias=bias, dropout_rate=dropout_rate,
-              dropout_seed=dropout_seed)
-    if return_ds and bias is None:
-        raise ValueError("flash_simt_dq: return_ds needs the bias whose "
-                         "gradient it is")
-    if not dispatch.use_kernel(q):
-        out = flash_bwd_plain(q, k, v, do, lse, delta, return_ds=return_ds,
-                              **kw)
-        return (out[0], out[3]) if return_ds else out[0]
-    q, k, v, do, lse, delta = _bwd_args("flash_simt_dq", q, k, v, do, lse,
-                                        delta)
-    tail, _keep_alive = _tail("flash_simt_dq", q, k, kv_bias, bias,
-                              dropout_rate, dropout_seed, causal, scale,
-                              q_start, k_start)
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    ds = torch.empty((q.shape[0], q.shape[1], k.shape[1]),
-                     dtype=torch.float32, device=q.device) \
-        if return_ds else None
-    err = _cuda.lib().apex_flash_simt_dq(
-        _cuda.dtype_code(q.dtype, "flash_simt_dq"), q.data_ptr(),
-        k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(),
-        None if ds is None else ds.data_ptr(), *_strides(q, k, v, do),
-        *tail)
-    _cuda.check(err, "flash_simt_dq")
-    flash_simt_dq.launches += 1
-    return (dq, ds) if return_ds else dq
+    return _strided_dq(flash_simt_dq, "apex_flash_simt_dq", "simt", q, k, v,
+                       do, lse, delta, causal=causal, scale=scale,
+                       q_start=q_start, k_start=k_start, kv_bias=kv_bias,
+                       bias=bias, dropout_rate=dropout_rate,
+                       dropout_seed=dropout_seed, return_ds=return_ds)
 
 
 flash_simt_dq.launches = 0
 
 
+def flash_f32_dq(q, k, v, do, lse, delta, *, causal: bool, scale: float,
+                 q_start: int = 0, k_start: int = 0, kv_bias=None,
+                 bias=None, dropout_rate: float = 0.0, dropout_seed=0,
+                 return_ds: bool = False):
+    """:func:`flash_bwd_dq` in fp32 on the tensor cores in 3xTF32
+    (``flash_f32.cu``): fp32 at a head dim up to 128, padded to 64 or 128
+    (the real D's scale passed)."""
+    return _strided_dq(flash_f32_dq, "apex_flash_f32_dq", "f32", q, k, v, do,
+                       lse, delta, causal=causal, scale=scale,
+                       q_start=q_start, k_start=k_start, kv_bias=kv_bias,
+                       bias=bias, dropout_rate=dropout_rate,
+                       dropout_seed=dropout_seed, return_ds=return_ds)
+
+
+flash_f32_dq.launches = 0
+
+
 def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool, scale: float,
                   q_start: int = 0, k_start: int = 0, kv_bias=None,
                   bias=None, dropout_rate: float = 0.0, dropout_seed=0):
-    """(dk, dv) [BH, Sk, D] in k's and v's dtypes. On the card: the
-    tensor-core kernel (counted here) or :func:`flash_simt_dkv`."""
+    """(dk, dv) [BH, Sk, D] in k's and v's dtypes. On the card, as
+    :func:`backward_form` picks: the tensor-core kernel (counted here),
+    :func:`flash_f32_dkv` or :func:`flash_simt_dkv`."""
     kw = dict(causal=causal, scale=scale, q_start=q_start, k_start=k_start,
               kv_bias=kv_bias, bias=bias, dropout_rate=dropout_rate,
               dropout_seed=dropout_seed)
     if not dispatch.use_kernel(q):
         return flash_bwd_plain(q, k, v, do, lse, delta, **kw)[1:]
     _check("flash_bwd_dkv", q, k, v, do)
-    if not tensor_cores(q):
-        return flash_simt_dkv(q, k, v, do, lse, delta, **kw)
+    form = backward_form(q)
+    if form != "tc":
+        return (flash_f32_dkv if form == "f32" else flash_simt_dkv)(
+            q, k, v, do, lse, delta, **kw)
     d = q.shape[-1]
-    dp = padded_head_dim(d)
     q, k, v, do, lse, delta = _bwd_args("flash_bwd_dkv", q, k, v, do, lse,
-                                        delta, dp)
+                                        delta, "tc")
     tail, _keep_alive = _tail("flash_bwd_dkv", q, k, kv_bias, bias,
                               dropout_rate, dropout_seed, causal, scale,
                               q_start, k_start)
@@ -668,29 +747,30 @@ def flash_simt_dkv(q, k, v, do, lse, delta, *, causal: bool, scale: float,
                    bias=None, dropout_rate: float = 0.0, dropout_seed=0):
     """:func:`flash_bwd_dkv` by the simple form: any of fp32, bf16, fp16
     and a head dim up to 512."""
-    kw = dict(causal=causal, scale=scale, q_start=q_start, k_start=k_start,
-              kv_bias=kv_bias, bias=bias, dropout_rate=dropout_rate,
-              dropout_seed=dropout_seed)
-    if not dispatch.use_kernel(q):
-        return flash_bwd_plain(q, k, v, do, lse, delta, **kw)[1:]
-    q, k, v, do, lse, delta = _bwd_args("flash_simt_dkv", q, k, v, do, lse,
-                                        delta)
-    tail, _keep_alive = _tail("flash_simt_dkv", q, k, kv_bias, bias,
-                              dropout_rate, dropout_seed, causal, scale,
-                              q_start, k_start)
-    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
-    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    err = _cuda.lib().apex_flash_simt_dkv(
-        _cuda.dtype_code(q.dtype, "flash_simt_dkv"), q.data_ptr(),
-        k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        *_strides(q, k, v, do), *tail)
-    _cuda.check(err, "flash_simt_dkv")
-    flash_simt_dkv.launches += 1
-    return dk, dv
+    return _strided_dkv(flash_simt_dkv, "apex_flash_simt_dkv", "simt", q, k,
+                        v, do, lse, delta, causal=causal, scale=scale,
+                        q_start=q_start, k_start=k_start, kv_bias=kv_bias,
+                        bias=bias, dropout_rate=dropout_rate,
+                        dropout_seed=dropout_seed)
 
 
 flash_simt_dkv.launches = 0
+
+
+def flash_f32_dkv(q, k, v, do, lse, delta, *, causal: bool, scale: float,
+                  q_start: int = 0, k_start: int = 0, kv_bias=None,
+                  bias=None, dropout_rate: float = 0.0, dropout_seed=0):
+    """:func:`flash_bwd_dkv` in fp32 on the tensor cores in 3xTF32
+    (``flash_f32.cu``): fp32 at a head dim up to 128, padded to 64 or
+    128."""
+    return _strided_dkv(flash_f32_dkv, "apex_flash_f32_dkv", "f32", q, k, v,
+                        do, lse, delta, causal=causal, scale=scale,
+                        q_start=q_start, k_start=k_start, kv_bias=kv_bias,
+                        bias=bias, dropout_rate=dropout_rate,
+                        dropout_seed=dropout_seed)
+
+
+flash_f32_dkv.launches = 0
 
 # resident blocks an SM is counted for when flash_bwd_dbias splits bh into
 # runs: (query tiles) x (key tiles) x runs fills this many per SM
@@ -729,8 +809,7 @@ def flash_bwd_dbias(q, k, v, do, lse, delta, *, causal: bool, scale: float,
     _check("flash_bwd_dbias", q, k, v, do)
     tc = tensor_cores(q)
     q, k, v, do, lse, delta = _bwd_args(
-        "flash_bwd_dbias", q, k, v, do, lse, delta,
-        padded_head_dim(q.shape[-1]) if tc else None)
+        "flash_bwd_dbias", q, k, v, do, lse, delta, "tc" if tc else "simt")
     bh, sq, _ = q.shape
     sk = k.shape[1]
     tail, _keep_alive = _tail("flash_bwd_dbias", q, k, kv_bias, bias,

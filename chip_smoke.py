@@ -23,8 +23,9 @@ fp32, and the LayerNorm and BN at widths not a multiple of 4:
    with ``nvcc`` for ``sm_90a`` (all sources at once) and loads them;
    prints every kernel's registers and spills (``ptxas``) and, apart, the
    flash forward's and backward's Hopper kernels (``flash_fwd_ptxas``,
-   ``flash_bwd_ptxas``: 12 and 16 forms, bf16 and fp16), none of whose
-   forms may spill.
+   ``flash_bwd_ptxas``: 12 and 16 forms, bf16 and fp16) and the fp32
+   backward's (``flash_f32_ptxas``: 8 forms), none of whose forms may
+   spill.
 2. kernels — each kernel against its plain PyTorch version on the card,
    at its path's shapes: max abs error against the stated tolerance, the
    kernel's time, the plain version's, one PyTorch library call's where
@@ -108,7 +109,11 @@ fp32, and the LayerNorm and BN at widths not a multiple of 4:
    [384, 2048, 128] (2 fp16 ulps + 2^-6 of the row's RMS; fp16 SDPA
    beside them) and the simple form in fp32 at [128, 4095, 64] (2 fp32
    ulps + 2^-14 of the larger of the row's and the tensor's RMS; its
-   bound at 67 TFLOP/s; fp32 SDPA beside it), each output repeated bit
+   bound at 67 TFLOP/s; fp32 SDPA beside it), and on its inputs the fp32
+   backward on the tensor cores (``flash_f32_dq``, ``flash_f32_dkv``,
+   3xTF32: the same rule, its bounds at 3xTF32's 165 TFLOP/s and at 67,
+   the simple form's, the plain version's and SDPA's fp32 backward times
+   from the same run beside it), each output repeated bit
    for bit; the bf16 kernels' outputs hashed at both shapes
    (``flash_bits``, to hold one package's against another's); the
    scalar tails beside the
@@ -296,19 +301,24 @@ fp32, and the LayerNorm and BN at widths not a multiple of 4:
     each a step; losses finite, the mean of the last 3 below the first.
 29. lm_train_f32 — the same in fp32 (O0, lm_bench's ``--dtype f32``),
     full batch: 2 warm-up and 3 timed steps, one profiled; the simple
-    flash form, 8 launches of each a step.
-30. tails_train — ``FusedLayerNorm(1022)`` over [16, 2048, 1022] bf16 and
+    flash form's forward and the fp32 backward on the tensor cores
+    (``flash_f32_dq``, ``flash_f32_dkv``), 8 launches of each a step, none
+    of the simple form's dq or dk/dv.
+30. tails_train — ``FusedLayerNorm(1022)`` over [16, 2048, 1022] bf16,
     ``SyncBatchNorm(6, fuse_relu=True)`` over [64, 6, 56, 56] bf16 with a
-    residual, 3 forward/backward passes each against the plain versions.
-31. the ``{"kernels": [...]}`` line (31 kernels; dq's and dk/dv's
+    residual and ``flash_attention`` at head dim 256 over [32, 1024, 256]
+    fp32 (the simple form), 3 forward/backward passes each against the
+    plain versions.
+31. the ``{"kernels": [...]}`` line (33 kernels; dq's and dk/dv's
     entries also carry their ``wide`` reading and the whole backward's,
     ``backward``, at both shapes), then the ``ok`` line.
 
 Times are CUDA-event medians of single calls with the L2 cache flushed
 before each and the stream held busy, so host launch time is not counted.
 Bounds use the H100 SXM's published 3.35 TB/s and 67 TFLOP/s (fp32,
-outside the tensor cores), and 989 TFLOP/s bf16 dense for the flash
-kernels' products; MFU its 989 TFLOP/s bf16 dense.
+outside the tensor cores), 989 TFLOP/s bf16 dense for the flash
+kernels' products and a third of its 495 TFLOP/s TF32 dense for the fp32
+backward's 3xTF32 products; MFU its 989 TFLOP/s bf16 dense.
 """
 
 from __future__ import annotations
@@ -324,6 +334,9 @@ import time
 HBM_BYTES_S = 3.35e12
 FP32_OPS_S = 67e12
 BF16_DENSE_OPS_S = 989e12
+# fp32 products in 3xTF32: three TF32 products (495 TFLOP/s dense on the
+# tensor cores) for each
+TF32X3_OPS_S = 495e12 / 3
 
 TOL = {"float32": (1e-5, 1e-5),        # atol, rtol: order of fp32 sums
        "bfloat16": (1e-2, 1e-2)}       # one bf16 rounding of the output
@@ -1737,7 +1750,9 @@ def counters():
             "bn_backward_reduce": WF.bn_backward_reduce,
             "flash_simt_fwd": FA.flash_simt_fwd,
             "flash_simt_dq": FA.flash_simt_dq,
-            "flash_simt_dkv": FA.flash_simt_dkv}
+            "flash_simt_dkv": FA.flash_simt_dkv,
+            "flash_f32_dq": FA.flash_f32_dq,
+            "flash_f32_dkv": FA.flash_f32_dkv}
 
 
 def zero_counts() -> None:
@@ -1886,7 +1901,8 @@ SERVE_FAMILIES = (
 LM_KERNEL_FAMILIES = (
     ("flash kernels", ("flash_fwd_kernel", "flash_dq_kernel",
                        "flash_dkv_kernel", "simt_fwd_kernel",
-                       "simt_dq_kernel", "simt_dkv_kernel")),
+                       "simt_dq_kernel", "simt_dkv_kernel", "f32_dq_kernel",
+                       "f32_dkv_kernel")),
     ("LN kernels", ("ln_fwd_kernel", "ln_bwd_kernel", "ln_wide",
                     "finalize_kernel")),
     ("Adam", ("adam_kernel",)),
@@ -4142,6 +4158,14 @@ def flash_bits(torch) -> dict:
     return out
 
 
+def form_inputs(torch, shape, dt):
+    """q, k, v, dO [BH, S, D] in dt from seed 13: the flash forms'
+    readings share them."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    return [torch.randn(*shape, generator=gen, device="cuda").to(dt)
+            for _ in range(4)]
+
+
 def flash_form_readings(torch, timer, reading, shape, dt, fns, ops_s,
                         plain_group=16) -> dict:
     """One form of the flash kernels at [BH, S, D] causal in dtype dt: the
@@ -4159,9 +4183,7 @@ def flash_form_readings(torch, timer, reading, shape, dt, fns, ops_s,
     BH, S, D = shape
     n = FLASH_CHECK_HEADS
     kw = dict(causal=True, scale=D ** -0.5)
-    gen = torch.Generator(device="cuda").manual_seed(13)
-    q, k, v, do = (torch.randn(BH, S, D, generator=gen, device="cuda").to(dt)
-                   for _ in range(4))
+    q, k, v, do = form_inputs(torch, shape, dt)
     o, lse = fwd(q, k, v, **kw)
     delta = FA.flash_delta(o, do)
     args = (q, k, v, do, lse, delta)
@@ -4251,12 +4273,83 @@ def flash_form_readings(torch, timer, reading, shape, dt, fns, ops_s,
     return out
 
 
+def f32_backward_readings(torch, timer, shape, simple) -> dict:
+    """The fp32 backward on the tensor cores (``flash_f32_dq``,
+    ``flash_f32_dkv``, 3xTF32) at [BH, S, D] causal on the simple form's
+    reading's inputs (``form_inputs``; ``simple``: that reading's rows):
+    against the plain version on the first heads under the fp32 flash rule,
+    the rule refusing a result 5% off, each output repeated bit for bit;
+    times beside the simple form's dq and dk/dv, the plain version's and
+    SDPA's fp32 backward from that reading, bounds at 3xTF32's 165 TFLOP/s
+    (``bound_ms``) and at fp32 FMAs' 67 TFLOP/s (``bound_fma_ms``)."""
+    from apex_tpu_torch.ops import flash_attn as FA
+
+    BH, S, D = shape
+    n = FLASH_CHECK_HEADS
+    kw = dict(causal=True, scale=D ** -0.5)
+    q, k, v, do = form_inputs(torch, shape, torch.float32)
+    o, lse = FA.flash_simt_fwd(q, k, v, **kw)
+    args = (q, k, v, do, lse, FA.flash_delta(o, do))
+    outs = (FA.flash_f32_dq(*args, **kw), *FA.flash_f32_dkv(*args, **kw))
+    want = FA.flash_bwd_plain(*(t[:n] for t in args), **kw)
+    torch.cuda.synchronize()
+    errs = [flash_err(torch, a[:n], b0, torch.float32)
+            for a, b0 in zip(outs, want)]
+    late = torch.arange(S, device="cuda")[None, :, None] >= S // 2
+    for w, e, b0 in zip(("dq", "dk", "dv"), errs, want):
+        check(e["used"] <= 1.0, f"flash f32 backward {w}: {e}")
+        off = torch.where(late, b0.float() * 1.05, b0.float())
+        check(flash_err(torch, off, b0, torch.float32)["used"] > 1.0,
+              f"flash f32 backward {w}: the limit passes a result 5% off")
+    again = (FA.flash_f32_dq(*args, **kw), *FA.flash_f32_dkv(*args, **kw))
+    rep = [bool(torch.equal(a, b)) for a, b in zip(again, outs)]
+    check(all(rep), f"flash f32 backward: two runs differ: {rep}")
+    del want, again, late, off, o
+    pairs = BH * S * (S + 1) // 2
+    sz = BH * S * D * 4
+    out = {}
+    for fn, e, rp, nbytes, ops in (
+            (FA.flash_f32_dq, errs[:1], rep[:1], 5 * sz + 8 * BH * S,
+             6 * D * pairs),
+            (FA.flash_f32_dkv, errs[1:], rep[1:], 6 * sz + 8 * BH * S,
+             8 * D * pairs)):
+        was = simple[(fn.__name__.replace("f32", "simt"), "f32")]
+        b_ms, b_by = bound(nbytes, ops, TF32X3_OPS_S)
+        r = {"phase": "kernels", "kernel": fn.__name__, "reading": "f32",
+             "dtype": "float32", "shape": [BH, S, D], "causal": True,
+             "checked_heads": n, "products": "3xTF32",
+             "tol": was["tol"],
+             "max_abs_err": max(x["max_abs_err"] for x in e),
+             "tol_used": max(x["used"] for x in e),
+             "repeat_equal": all(rp),
+             "ms": timer(lambda: fn(*args, **kw)),
+             "simple_ms": was["ms"], "plain_ms": was["plain_ms"],
+             "plain_covers": was["plain_covers"],
+             "library_ms": was["library_ms"],
+             "library_covers": "dq, dk and dv (one SDPA fp32 backward, "
+                               "allow_tf32 False)",
+             "bound_ms": b_ms, "bound_by": b_by,
+             "bound_fma_ms": bound(nbytes, ops)[0]}
+        emit(r)
+        out[(fn.__name__, "f32")] = r
+    dq_r, dkv_r = out[("flash_f32_dq", "f32")], out[("flash_f32_dkv", "f32")]
+    emit({"phase": "kernels", "reading": "f32_pair",
+          "kernel": "flash_f32_dq + flash_f32_dkv",
+          "ms": dq_r["ms"] + dkv_r["ms"],
+          "simple_ms": dq_r["simple_ms"] + dkv_r["simple_ms"],
+          "library_ms": dq_r["library_ms"],
+          "bound_ms": dq_r["bound_ms"] + dkv_r["bound_ms"],
+          "bound_fma_ms": dq_r["bound_fma_ms"] + dkv_r["bound_fma_ms"]})
+    return out
+
+
 def flash_forms_phase(torch, timer) -> dict:
     """The fp16 forms of the tensor-core kernels at the LM's [128, 4095,
     64] and the wide LM's [384, 2048, 128] (their bf16 forms' rows are
-    phase 2's LM and wide readings), and the simple form in fp32 at [128,
+    phase 2's LM and wide readings), the simple form in fp32 at [128,
     4095, 64], its bound at the 67 TFLOP/s of fp32 outside the tensor
-    cores."""
+    cores, and the fp32 backward on the tensor cores on the same
+    inputs."""
     from apex_tpu_torch.ops import flash_attn as FA
 
     tc = (FA.flash_fwd, FA.flash_bwd_dq, FA.flash_bwd_dkv)
@@ -4272,6 +4365,7 @@ def flash_forms_phase(torch, timer) -> dict:
                                     torch.float16, tc, BF16_DENSE_OPS_S))
     rows.update(flash_form_readings(torch, timer, "f32", lm, torch.float32,
                                     simt, FP32_OPS_S, plain_group=8))
+    rows.update(f32_backward_readings(torch, timer, lm, rows))
     return rows
 
 
@@ -4449,10 +4543,13 @@ def lm_serve_phases(torch, reqs) -> tuple:
 
 F16_PER_STEP = {"flash_fwd": 8, "flash_bwd_dq": 8, "flash_bwd_dkv": 8,
                 "flash_simt_fwd": 0, "flash_simt_dq": 0,
-                "flash_simt_dkv": 0, "ln_fwd": 17, "ln_bwd": 17}
-F32_PER_STEP = {"flash_simt_fwd": 8, "flash_simt_dq": 8,
-                "flash_simt_dkv": 8, "flash_fwd": 0, "flash_bwd_dq": 0,
-                "flash_bwd_dkv": 0, "ln_fwd": 17, "ln_bwd": 17}
+                "flash_simt_dkv": 0, "flash_f32_dq": 0, "flash_f32_dkv": 0,
+                "ln_fwd": 17, "ln_bwd": 17}
+# fp32: the simple form's forward, the backward on the tensor cores
+F32_PER_STEP = {"flash_simt_fwd": 8, "flash_f32_dq": 8, "flash_f32_dkv": 8,
+                "flash_simt_dq": 0, "flash_simt_dkv": 0, "flash_fwd": 0,
+                "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "ln_fwd": 17,
+                "ln_bwd": 17}
 
 
 def lm_dtype_phase(torch, model, params, phase, dtype, warm, timed,
@@ -4507,11 +4604,14 @@ def tails_train_phase(torch) -> dict:
     """The fault inputs as their users call them, a few forward/backward
     passes each against the plain versions on the same inputs under phase
     2's limits: ``FusedLayerNorm(1022)`` over [16, 2048, 1022] bf16 (y
-    within 1 bf16 ulp + 1e-5; dx, dγ, dβ by ``check_ln_bwd``), and
+    within 1 bf16 ulp + 1e-5; dx, dγ, dβ by ``check_ln_bwd``),
     ``SyncBatchNorm(6, axis_name=None, fuse_relu=True)`` over [64, 6, 56,
     56] bf16 in channels_last with a residual (out, dx and dz within
-    phase 2's bf16 tolerance, dγ and dβ within 1e-5·Σ|terms|); the
-    kernels' launches counted."""
+    phase 2's bf16 tolerance, dγ and dβ within 1e-5·Σ|terms|), and
+    ``flash_attention`` at head dim 256 (the simple form, forward and
+    backward) over [32, 1024, 256] fp32 causal under the fp32 flash rule;
+    the kernels' launches counted."""
+    from apex_tpu_torch.contrib.multihead_attn import flash_attention
     from apex_tpu_torch.normalization import FusedLayerNorm
     from apex_tpu_torch.ops import dispatch
     from apex_tpu_torch.ops import layer_norm as LN
@@ -4593,12 +4693,32 @@ def tails_train_phase(torch) -> dict:
                 "dx_err": float((got[1].float() - want[1].float()).abs()
                                 .max())}
 
+    def flash_pass():
+        q, k, v, do = (torch.randn(32, 1024, 256, generator=gen,
+                                   device="cuda") for _ in range(4))
+        ts = [t.requires_grad_(True) for t in (q, k, v)]
+
+        def run():
+            o = flash_attention(*ts, causal=True)
+            return (o, *torch.autograd.grad(o, ts, do))
+        got = run()
+        with dispatch.backend("reference"):
+            want = run()
+        errs = {}
+        for name, a, b0 in zip(("o", "dq", "dk", "dv"), got, want):
+            errs[name] = flash_err(torch, a, b0, torch.float32)["used"]
+            check(errs[name] <= 1.0, f"flash_attention at head dim 256: "
+                  f"{name} uses {errs[name]} of the fp32 flash rule")
+        return errs
+
     ln_pass()
     bn_pass()                       # first use of every form
+    flash_pass()
     torch.cuda.synchronize()
     zero_counts()
     lns = [ln_pass() for _ in range(3)]
     bns = [bn_pass() for _ in range(3)]
+    fls = [flash_pass() for _ in range(3)]
     torch.cuda.synchronize()
     counts = read_counts()
     row = {"phase": "tails_train", "fused_layer_norm": {
@@ -4606,6 +4726,8 @@ def tails_train_phase(torch) -> dict:
            "sync_batchnorm": {"shape": [64, 6, 56, 56], "dtype": "bfloat16",
                               "layout": "channels_last", "fuse_relu": True,
                               "passes": bns},
+           "flash_attention": {"shape": [32, 1024, 256], "dtype": "float32",
+                               "causal": True, "tol_used": fls},
            "launches": {k: counts[k] for k in TAIL_KERNELS}}
     emit(row)
     for k in TAIL_KERNELS:
@@ -4614,7 +4736,8 @@ def tails_train_phase(torch) -> dict:
 
 
 TAIL_KERNELS = ("ln_fwd", "ln_bwd", "bn_moments", "bn_backward_fused_reduce",
-                "bn_backward_dx")
+                "bn_backward_dx", "flash_simt_fwd", "flash_simt_dq",
+                "flash_simt_dkv")
 
 
 def main() -> int:
@@ -4651,15 +4774,23 @@ def main() -> int:
     flash_fwd = {n: e for n, e in ptxas.items() if "flash_fwd_kernel" in n}
     flash_bwd = {n: e for n, e in ptxas.items()
                  if "flash_dq_kernel" in n or "flash_dkv_kernel" in n}
+    # the fp32 backward in 3xTF32: dq and dk/dv at D 64 and 128, plain and
+    # with a bias or dropout
+    flash_f32 = {n: e for n, e in ptxas.items()
+                 if "f32_dq_kernel" in n or "f32_dkv_kernel" in n}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "compiled": kcuda.build_seconds is not None, "ptxas": ptxas,
-          "flash_fwd_ptxas": flash_fwd, "flash_bwd_ptxas": flash_bwd})
-    # bf16 and fp16: 2 x 6 forward and 2 x 8 backward forms
+          "flash_fwd_ptxas": flash_fwd, "flash_bwd_ptxas": flash_bwd,
+          "flash_f32_ptxas": flash_f32})
+    # bf16 and fp16: 2 x 6 forward and 2 x 8 backward forms; fp32: 8
     check(not kcuda.build_seconds or (len(flash_fwd) == 12
-                                      and len(flash_bwd) == 16),
-          f"ptxas reported {len(flash_fwd)} forward and {len(flash_bwd)} "
-          f"backward flash forms, not 12 and 16")
-    for what, forms in (("forward", flash_fwd), ("backward", flash_bwd)):
+                                      and len(flash_bwd) == 16
+                                      and len(flash_f32) == 8),
+          f"ptxas reported {len(flash_fwd)} forward, {len(flash_bwd)} "
+          f"backward and {len(flash_f32)} fp32 backward flash forms, not "
+          f"12, 16 and 8")
+    for what, forms in (("forward", flash_fwd), ("backward", flash_bwd),
+                        ("fp32 backward", flash_f32)):
         check(all(e.get("spill_bytes", 0) == 0 for e in forms.values()),
               f"the flash {what} kernels spill: {forms}")
 
@@ -4906,6 +5037,13 @@ def main() -> int:
         "flash_simt_dkv": ("apex_tpu_torch/ops/cuda/csrc/flash_simt.cu",
                            "apex_tpu/contrib/multihead_attn/"
                            "flash_attention.py:392"),
+        # the fp32 backward at D <= 128 on the tensor cores, 3xTF32
+        "flash_f32_dq": ("apex_tpu_torch/ops/cuda/csrc/flash_f32.cu",
+                         "apex_tpu/contrib/multihead_attn/"
+                         "flash_attention.py:349"),
+        "flash_f32_dkv": ("apex_tpu_torch/ops/cuda/csrc/flash_f32.cu",
+                          "apex_tpu/contrib/multihead_attn/"
+                          "flash_attention.py:392"),
     }
     # the wide wrappers each take the place of more than one TPU kernel
     also_replaces = {
@@ -4949,7 +5087,9 @@ def main() -> int:
                 # the simple form at the LM's shape in fp32
                 "flash_simt_fwd": ("flash_simt_fwd", "f32"),
                 "flash_simt_dq": ("flash_simt_dq", "f32"),
-                "flash_simt_dkv": ("flash_simt_dkv", "f32")}
+                "flash_simt_dkv": ("flash_simt_dkv", "f32"),
+                "flash_f32_dq": ("flash_f32_dq", "f32"),
+                "flash_f32_dkv": ("flash_f32_dkv", "f32")}
     sub = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
            "library_ms")
     kernels = []
@@ -5004,6 +5144,10 @@ def main() -> int:
                                             for k in sub}
                               for key in rows
                               if key[0] == name and key[1:2] == ("tail",)}
+        if name in ("flash_f32_dq", "flash_f32_dkv"):
+            # the bound at fp32 FMAs' rate; the simple form on the inputs
+            entry["bound_fma_ms"] = r["bound_fma_ms"]
+            entry["simple_ms"] = r["simple_ms"]
         if name in also_replaces:
             entry["also_replaces"] = also_replaces[name]
             entry["readings"] = {
@@ -5011,7 +5155,7 @@ def main() -> int:
                 for key in rows
                 if len(key) == 2 and key[0] == name and key[1] != "lm"}
         kernels.append(entry)
-    check(len(kernels) == 31 and all(e["launches"] > 0 for e in kernels),
+    check(len(kernels) == 33 and all(e["launches"] > 0 for e in kernels),
           f"kernels line: {[(e['name'], e['launches']) for e in kernels]}")
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "nvidia_smi": nvidia_smi(

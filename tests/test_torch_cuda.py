@@ -1693,10 +1693,11 @@ def test_engine_at_head_dim_64_paged_equals_dense(card):
                          ids=["f16", "f32"])
 def test_flash_in_fp16_and_fp32_at_any_head_dim(card, dtype, d):
     """fp16 at D <= 128 by the tensor-core kernels (D padded to 64 or 128),
-    fp32 and D 256 by the simple form, with a kv_bias and causal masking:
-    each kernel against its plain version on the same inputs, and the
-    public ``flash_attention`` (forward and backward) launching the form
-    the dtype and head dim choose, its outputs in the input dtype."""
+    fp32 and D 256 by the simple form (the fp32 backward at D <= 128 by
+    the 3xTF32 kernels), with a kv_bias and causal masking: each kernel
+    against its plain version on the same inputs, and the public
+    ``flash_attention`` (forward and backward) launching the form the
+    dtype and head dim choose, its outputs in the input dtype."""
     from apex_tpu_torch.contrib.multihead_attn import flash_attention
     from apex_tpu_torch.ops import flash_attn as FA
     g = torch.Generator(device=card).manual_seed(d)
@@ -1707,15 +1708,16 @@ def test_flash_in_fp16_and_fp32_at_any_head_dim(card, dtype, d):
     kvb[:, -7:] = -1e30
     _flash_kernels_against_plain(q, k, v, do, dtype, kv_bias=kvb,
                                  causal=True, scale=d ** -0.5)
-    tc = dtype == torch.float16 and d <= 128
     fns = (FA.flash_fwd, FA.flash_bwd_dq, FA.flash_bwd_dkv,
-           FA.flash_simt_fwd, FA.flash_simt_dq, FA.flash_simt_dkv)
+           FA.flash_simt_fwd, FA.flash_simt_dq, FA.flash_simt_dkv,
+           FA.flash_f32_dq, FA.flash_f32_dkv)
     before = [f.launches for f in fns]
     qs, ks, vs = (t.clone().requires_grad_(True) for t in (q, k, v))
     o = flash_attention(qs, ks, vs, kv_bias=kvb, causal=True)
     grads = torch.autograd.grad(o, (qs, ks, vs), do)
-    assert [f.launches - n for f, n in zip(fns, before)] == \
-        ([1, 1, 1, 0, 0, 0] if tc else [0, 0, 0, 1, 1, 1])
+    assert [f.launches - n for f, n in zip(fns, before)] == {
+        "tc": [1, 1, 1, 0, 0, 0, 0, 0], "f32": [0, 0, 0, 1, 0, 0, 1, 1],
+        "simt": [0, 0, 0, 1, 1, 1, 0, 0]}[FA.backward_form(q)]
     for t in (o, *grads):
         assert t.dtype == dtype and t.shape == (bh, s, d)
         assert bool(torch.isfinite(t).all())
@@ -1840,3 +1842,146 @@ def test_sync_batchnorm_6_channels_trains(card, dtype):
         _close(a, b0, dtype)
     for a, b0 in zip(got[3:], want[3:]):
         torch.testing.assert_close(a, b0, atol=1e-2, rtol=1e-4)
+
+
+# -- the fp32 backward on the tensor cores in 3xTF32 (flash_f32.cu) -----------
+
+def _f32_case(card, bh, sq, sk, d, seed, **kw):
+    """fp32 q, k, v, dO and the plain forward's lse and delta (with an lse
+    cotangent folded in)."""
+    from apex_tpu_torch.ops import flash_attn as FA
+    g = torch.Generator(device=card).manual_seed(seed)
+    q, do = (torch.randn(bh, sq, d, generator=g, device=card)
+             for _ in range(2))
+    k, v = (torch.randn(bh, sk, d, generator=g, device=card)
+            for _ in range(2))
+    o, lse = FA.reference_attention(q, k, v, kw.get("bias"),
+                                    return_lse=True, **{
+                                        n: x for n, x in kw.items()
+                                        if n != "bias"})
+    dlse = torch.randn(bh, sq, generator=g, device=card)
+    return q, k, v, do, lse, FA.flash_delta(o, do, dlse)
+
+
+def _f32_backward_holds(FA, args, kw, return_ds=False):
+    """dq (and dS), dk, dv of the fp32 kernels against ``flash_bwd_plain``
+    under the fp32 flash rule, one launch of each, and a second run bit
+    for bit the first's."""
+    before = (FA.flash_f32_dq.launches, FA.flash_f32_dkv.launches,
+              FA.flash_simt_dq.launches, FA.flash_simt_dkv.launches)
+    out = FA.flash_bwd_dq(*args, return_ds=return_ds, **kw)
+    got = (*(out if return_ds else (out,)), *FA.flash_bwd_dkv(*args, **kw))
+    assert (FA.flash_f32_dq.launches, FA.flash_f32_dkv.launches,
+            FA.flash_simt_dq.launches, FA.flash_simt_dkv.launches) == (
+        before[0] + 1, before[1] + 1, before[2], before[3])
+    want = FA.flash_bwd_plain(*args, return_ds=return_ds, **kw)
+    want = (want[0], want[3], *want[1:3]) if return_ds else want
+    names = ("dq", "ds", "dk", "dv") if return_ds else ("dq", "dk", "dv")
+    for name, a, b in zip(names, got, want):
+        assert a.dtype == torch.float32 and a.shape == b.shape, name
+        try:
+            _flash_rule(a, b, torch.float32)
+        except AssertionError as e:
+            raise AssertionError(f"{name}: {e}") from None
+    _repeats(FA, args, kw, got, return_ds)
+    return got
+
+
+# (sq, sk, d, causal, q_start, k_start): Sq and Sk over the blocks' 64 rows
+# and the staged tiles' 64 (D <= 64) or 32 (D 128), Sq != Sk, causal
+# offsets, rows that see no key (lse at NEG_INF), D padded from 1, 32, 65
+# and 96
+F32_EDGES = [(1, 1, 64, False, 0, 0), (1, 63, 1, True, 62, 0),
+             (63, 64, 32, True, 0, 0), (64, 65, 64, False, 0, 0),
+             (65, 127, 65, True, 64, 2), (127, 129, 96, True, 0, 0),
+             (129, 33, 128, False, 0, 0), (200, 77, 128, True, 5, 130),
+             (31, 97, 128, True, 70, 0), (300, 250, 64, True, -40, 0),
+             (4095, 1000, 64, True, 3095, 0), (1000, 4095, 96, False, 0, 0),
+             (4095, 4095, 128, True, 0, 0)]
+
+
+@pytest.mark.parametrize("sq,sk,d,causal,q_start,k_start", F32_EDGES)
+def test_f32_backward_kernels_at_the_tile_edges(card, sq, sk, d, causal,
+                                                q_start, k_start):
+    from apex_tpu_torch.ops import flash_attn as FA
+    kw = dict(causal=causal, scale=d ** -0.5, q_start=q_start,
+              k_start=k_start)
+    args = _f32_case(card, 3, sq, sk, d, sq + sk + d, **kw)
+    dq = _f32_backward_holds(FA, args, kw)[0]
+    if causal and k_start > q_start:       # rows that see no key
+        assert not dq[:, :k_start - q_start].any()
+
+
+# name -> (sq, sk, d, causal, q_start, kv_bias, bias rows, dropout rate)
+F32_EXTRAS = {
+    "kv_bias": (197, 200, 64, False, 0, True, None, 0.0),
+    "bias_shared_ds": (197, 197, 96, False, 0, False, 1, 0.0),
+    "bias_bh_ds_causal": (130, 140, 64, True, 10, False, "bh", 0.0),
+    "dropout": (257, 257, 64, True, 0, False, None, 0.1),
+    "all_d128": (129, 200, 128, True, 71, True, "bh", 0.2),
+}
+
+
+@pytest.mark.parametrize("name", list(F32_EXTRAS))
+def test_f32_backward_kernels_with_biases_and_dropout(card, name):
+    """The EXTRA forms: a kv_bias with masked keys, a full bias shared or
+    per bh (dq's dS beside dq), dropout; each held as the plain forms."""
+    from apex_tpu_torch.ops import flash_attn as FA
+    sq, sk, d, causal, q_start, kvb, rows, rate = F32_EXTRAS[name]
+    g = torch.Generator(device=card).manual_seed(sq * sk)
+    bh = 4
+    kw = dict(causal=causal, scale=d ** -0.5, q_start=q_start,
+              dropout_rate=rate, dropout_seed=-123)
+    if kvb:
+        kw["kv_bias"] = torch.where(
+            torch.rand(bh, sk, generator=g, device=card) < 0.25,
+            torch.full((), -1e30, device=card),
+            torch.zeros((), device=card))
+    if rows is not None:
+        bias = torch.randn(1 if rows == 1 else bh, sq, sk, generator=g,
+                           device=card)
+        bias[..., ::7] = -1e30
+        kw["bias"] = bias
+    args = _f32_case(card, bh, sq, sk, d, sq - sk, **kw)
+    _f32_backward_holds(FA, args, kw, return_ds=rows is not None)
+
+
+def test_f32_backward_kernels_read_strided_and_broadcast_views(card):
+    """q, k, v and dO as views: heads split from a packed [BH, S, 3, D]
+    buffer (a row stride of 3·D), k and v broadcast over bh (stride 0),
+    dO at an odd element offset (copied once): the same bits as from
+    contiguous copies."""
+    from apex_tpu_torch.ops import flash_attn as FA
+    g = torch.Generator(device=card).manual_seed(8)
+    bh, s, d = 6, 150, 64
+    qkv = torch.randn(bh, s, 3, d, generator=g, device=card)
+    q = qkv[:, :, 0]
+    k, v = (torch.randn(1, s, d, generator=g, device=card).expand(bh, s, d)
+            for _ in range(2))
+    do = torch.randn(bh * s * d + 1, generator=g, device=card)[1:].view(
+        bh, s, d)
+    assert FA._readable(q) is q and FA._readable(k) is k
+    assert FA._readable(do) is not do
+    kw = dict(causal=True, scale=d ** -0.5)
+    qc, kc, vc, doc = (t.contiguous() for t in (q, k, v, do))
+    o, lse = FA.reference_attention(qc, kc, vc, return_lse=True, **kw)
+    delta = FA.flash_delta(o, doc)
+    got = _f32_backward_holds(FA, (q, k, v, do, lse, delta), kw)
+    want = (FA.flash_bwd_dq(qc, kc, vc, doc, lse, delta, **kw),
+            *FA.flash_bwd_dkv(qc, kc, vc, doc, lse, delta, **kw))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_f32_wrappers_refuse_what_the_kernels_do_not_take(card):
+    from apex_tpu_torch.ops import flash_attn as FA
+    q = torch.zeros(2, 16, 64, device=card)
+    lse = torch.zeros(2, 16, device=card)
+    kw = dict(causal=False, scale=0.125)
+    for t in (q.bfloat16(), torch.zeros(2, 16, 129, device=card)):
+        with pytest.raises(ValueError, match="takes fp32 at a head dim"):
+            FA.flash_f32_dq(t, t, t, t, lse, lse, **kw)
+        with pytest.raises(ValueError, match="takes fp32 at a head dim"):
+            FA.flash_f32_dkv(t, t, t, t, lse, lse, **kw)
+    with pytest.raises(ValueError, match="return_ds needs the bias"):
+        FA.flash_f32_dq(q, q, q, q, lse, lse, return_ds=True, **kw)

@@ -1,0 +1,249 @@
+"""Port parity: the fp32 flash backward on the tensor cores in 3xTF32
+(``ops/cuda/csrc/flash_f32.cu``: ``flash_f32_dq``, ``flash_f32_dkv``).
+
+What the kernels do is testable here without them:
+
+- the route: ``backward_form`` sends fp32 at a head dim up to 128 to the
+  new kernels, bf16/fp16 there to the tensor-core ones and any dtype past
+  128 to the simple form; ``tensor_cores`` (the forward's route) is
+  unchanged;
+- the arithmetic: a plain model of the 3xTF32 products (each fp32 operand
+  split into big = tf32(x) and small = tf32(x - big), rounded as
+  ``cvt.rna`` does, to nearest with ties away; each product small·big +
+  big·small + big·big) run through the plain backward at [2, 256, 64]
+  causal with a ``kv_bias`` and dropout 0.1 holds against the JAX package's
+  ``flash_attention`` gradients (its Pallas kernels in interpret mode)
+  within the fp32 flash rule, 2 ulps + 2^-14 of the larger of the row's
+  and the tensor's RMS, unchanged from the card's; one TF32 pass fails
+  it, so the rule tells the two apart and the split is needed;
+- the fragment maps: a numpy model of ``mma.sync.m16n8k8`` with TF32
+  operands (PTX's register layouts of A, B and the accumulator) gives QKᵀ
+  from the K-major loads, and P·K from P's accumulator registers taken as
+  the A operand with the kernels' k-permutation (A's k = t from column
+  2t, k = t + 4 from column 2t + 1; B's rows 2t and 2t + 1), exactly; the
+  unpermuted registers do not. The padded row stride D + 4 puts every
+  fragment load of a warp on 32 distinct banks.
+"""
+
+import importlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from apex_tpu_torch.ops import flash_attn as FA
+
+JFA = importlib.import_module(
+    "apex_tpu.contrib.multihead_attn.flash_attention")
+
+
+# -- the route ---------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,d,form", [
+    (torch.float32, 1, "f32"), (torch.float32, 64, "f32"),
+    (torch.float32, 128, "f32"), (torch.float32, 129, "simt"),
+    (torch.float32, 512, "simt"), (torch.bfloat16, 128, "tc"),
+    (torch.bfloat16, 129, "simt")])
+def test_backward_form_follows_dtype_and_head_dim(dtype, d, form):
+    q = torch.zeros(2, 3, d, dtype=dtype)
+    assert FA.backward_form(q) == form
+    # the forward's route is as it was: fp32 stays on the simple form
+    assert FA.tensor_cores(q) == (dtype != torch.float32 and d <= 128)
+
+
+def test_f32_wrappers_run_the_plain_versions_on_the_cpu_and_refuse():
+    rs = np.random.RandomState(4)
+    q, k, v, do = (torch.from_numpy(rs.randn(2, 33, 48).astype(np.float32))
+                   for _ in range(4))
+    kw = dict(causal=True, scale=48 ** -0.5)
+    o, lse = FA.reference_attention(q, k, v, return_lse=True, **kw)
+    delta = FA.flash_delta(o, do)
+    fns = (FA.flash_f32_dq, FA.flash_f32_dkv, FA.flash_simt_dq,
+           FA.flash_simt_dkv)
+    before = [f.launches for f in fns]
+    want = FA.flash_bwd_plain(q, k, v, do, lse, delta, **kw)
+    got = (FA.flash_f32_dq(q, k, v, do, lse, delta, **kw),
+           *FA.flash_f32_dkv(q, k, v, do, lse, delta, **kw))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert torch.equal(FA.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+                       want[0])
+    assert [f.launches for f in fns] == before
+    with pytest.raises(ValueError, match="return_ds needs the bias"):
+        FA.flash_f32_dq(q, k, v, do, lse, delta, return_ds=True, **kw)
+    # what the fp32 kernels do not take, refused before any launch
+    for t in (q.bfloat16(), torch.zeros(2, 33, 129)):
+        with pytest.raises(ValueError, match="takes fp32 at a head dim"):
+            FA._bwd_args("flash_f32_dq", t, t, t, t, lse, delta, "f32")
+
+
+# -- the arithmetic: 3xTF32 against one TF32 pass ---------------------------
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to TF32 (10 stored mantissa bits) as ``cvt.rna.tf32.f32``
+    does: to nearest, ties away from zero, on the bit pattern (adding half
+    of the dropped 13 bits' unit to the magnitude, then clearing them)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _products(passes: int):
+    """A matmul whose operands go through the tensor cores' TF32: three
+    passes (small·big + big·small + big·big, the kernels') or one."""
+    mm = torch.matmul
+
+    def matmul(a, b):
+        ab, bb = tf32(a), tf32(b)
+        if passes == 1:
+            return mm(ab, bb)
+        return mm(tf32(a - ab), bb) + mm(ab, tf32(b - bb)) + mm(ab, bb)
+    return matmul
+
+
+def _rule_used(got, want):
+    """The largest |got - want| over the fp32 flash rule's limit, 2 ulps +
+    2^-14 of the larger of the row's RMS and the tensor's (chip_smoke.py's
+    ``flash_err``): the rule holds at <= 1."""
+    a, b = got.float(), want.float()
+
+    def ulp(t):
+        return torch.ldexp(torch.ones_like(t), torch.frexp(t)[1] - 24)
+    rms = torch.clamp(b.pow(2).mean(-1, keepdim=True).sqrt(),
+                      min=float(b.pow(2).mean().sqrt()))
+    lim = 2 * torch.maximum(ulp(a), ulp(b)) + 2.0 ** -14 * rms
+    return float(((a - b).abs() / lim).max())
+
+
+def test_tf32_rounds_to_nearest_with_ties_away():
+    one = 1.0 + 2.0 ** -10                 # a TF32 value: kept
+    tie = 1.0 + 2.0 ** -11                 # halfway: away from zero
+    below = 1.0 + 2.0 ** -11 - 2.0 ** -23  # under half: down
+    x = torch.tensor([one, tie, below, -tie, 3.0e-39, -0.0],
+                     dtype=torch.float32)
+    want = torch.tensor([one, one, 1.0, -one, 3.0e-39, -0.0])
+    got = tf32(x)
+    assert torch.equal(got[:4], want[:4])
+    assert bool(((got.view(torch.int32) & 0x1FFF) == 0).all())
+    big = tf32(x[:4])
+    # the split is exact to ~2^-22: x - big - tf32(x - big) is tiny
+    rest = (x[:4] - big) - tf32(x[:4] - big)
+    assert bool((rest.abs() <= 2.0 ** -22 * x[:4].abs()).all())
+
+
+@pytest.fixture(scope="module")
+def jax_case():
+    """[2, 256, 64] causal with a kv_bias (a quarter of the keys masked)
+    and dropout 0.1: the inputs, the JAX package's o, lse, dq, dk, dv."""
+    rs = np.random.RandomState(12)
+    bh, s, d = 2, 256, 64
+    q, k, v, do = (rs.randn(bh, s, d).astype(np.float32) for _ in range(4))
+    kvb = np.where(rs.rand(bh, s) < 0.25, -1.0e30, 0.0).astype(np.float32)
+    kw = dict(causal=True, scale=d ** -0.5, dropout_rate=0.1,
+              dropout_seed=77)
+
+    def fn(q_, k_, v_):
+        return JFA.flash_attention(q_, k_, v_, kv_bias=jnp.asarray(kvb),
+                                   return_lse=True, **kw)
+
+    (o, lse), vjp = jax.vjp(fn, *(jnp.asarray(a) for a in (q, k, v)))
+    grads = vjp((jnp.asarray(do), jnp.zeros(lse.shape, lse.dtype)))
+    return (q, k, v, do, kvb, kw,
+            [np.array(t, np.float32) for t in (o, lse, *grads)])
+
+
+@pytest.mark.parametrize("passes", [3, 1], ids=["3xtf32", "tf32"])
+def test_tf32_products_against_jax_under_the_fp32_rule(jax_case, passes,
+                                                       monkeypatch):
+    q, k, v, do, kvb, kw, want = jax_case
+    q, k, v, do, kvb = (torch.from_numpy(a) for a in (q, k, v, do, kvb))
+    o, lse = FA.reference_attention(q, k, v, kv_bias=kvb, return_lse=True,
+                                    **kw)
+    np.testing.assert_allclose(o.numpy(), want[0], atol=1e-5, rtol=1e-5)
+    delta = FA.flash_delta(o, do)
+    # every product of the backward (QKᵀ, dO·Vᵀ, dS·K, Pᵀ·dO, dSᵀ·Q)
+    # through the tensor cores' TF32
+    monkeypatch.setattr(torch, "matmul", _products(passes))
+    got = FA.flash_bwd_plain(q, k, v, do, lse, delta, kv_bias=kvb, **kw)
+    monkeypatch.undo()
+    used = [_rule_used(g, torch.from_numpy(w))
+            for g, w in zip(got, want[2:])]
+    if passes == 3:
+        assert max(used) <= 1.0, used
+    else:
+        # one pass rounds each operand to 2^-11: far past the rule
+        assert min(used) > 4.0, used
+
+
+# -- the fragment maps of mma.sync.m16n8k8 with TF32 operands ----------------
+
+LANES = [(lane >> 2, lane & 3) for lane in range(32)]    # (g, t)
+
+
+def _mma(a_regs, b_regs):
+    """D [16, 8] = A B as the instruction reads its operands: lane (g, t)
+    holds A's (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4) in a0-a3 and
+    B's (k = t, n = g), (k = t + 4, n = g) in b0, b1."""
+    a, b = np.zeros((16, 8)), np.zeros((8, 8))
+    for (g, t), ar, br in zip(LANES, a_regs, b_regs):
+        a[g, t], a[g + 8, t], a[g, t + 4], a[g + 8, t + 4] = ar
+        b[t, g], b[t + 4, g] = br
+    return a @ b
+
+
+def _acc_regs(c):
+    """An accumulator tile [16, 8] as the lanes hold it: (g, 2t), (g, 2t +
+    1), (g + 8, 2t), (g + 8, 2t + 1)."""
+    return [(c[g, 2 * t], c[g, 2 * t + 1], c[g + 8, 2 * t],
+             c[g + 8, 2 * t + 1]) for g, t in LANES]
+
+
+def test_fragment_maps_give_the_products_and_the_permutation_is_needed():
+    rs = np.random.RandomState(0)
+    # small integers: every product and sum exact in float64
+    qw = rs.randint(-4, 5, (16, 64)).astype(np.float64)     # a warp's rows
+    kt = rs.randint(-4, 5, (64, 64)).astype(np.float64)     # a key tile
+    # QKᵀ: both operands K-major (product_t)
+    s = np.zeros((16, 64))
+    for kk in range(8):
+        a = [(qw[g, 8 * kk + t], qw[g + 8, 8 * kk + t], qw[g, 8 * kk + t + 4],
+              qw[g + 8, 8 * kk + t + 4]) for g, t in LANES]
+        for n in range(8):
+            b = [(kt[8 * n + g, 8 * kk + t], kt[8 * n + g, 8 * kk + t + 4])
+                 for g, t in LANES]
+            s[:, 8 * n:8 * n + 8] += _mma(a, b)
+    np.testing.assert_array_equal(s, qw @ kt.T)
+    # P·K with P from its accumulator registers (product_n)
+    p = rs.randint(-4, 5, (16, 64)).astype(np.float64)
+
+    def p_times_k(permuted):
+        acc = np.zeros((16, 64))
+        for j in range(8):
+            a = [(c0, c2, c1, c3) if permuted else (c0, c1, c2, c3)
+                 for c0, c1, c2, c3 in _acc_regs(p[:, 8 * j:8 * j + 8])]
+            for n in range(8):
+                b = [(kt[8 * j + 2 * t, 8 * n + g],
+                      kt[8 * j + 2 * t + 1, 8 * n + g]) if permuted else
+                     (kt[8 * j + t, 8 * n + g], kt[8 * j + t + 4, 8 * n + g])
+                     for g, t in LANES]
+                acc[:, 8 * n:8 * n + 8] += _mma(a, b)
+        return acc
+
+    np.testing.assert_array_equal(p_times_k(True), p @ kt)
+    # the registers taken as they are, with B's rows unpermuted: wrong
+    assert not np.array_equal(p_times_k(False), p @ kt)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_padded_rows_put_each_fragment_load_on_distinct_banks(d):
+    """The staged tiles' row stride D + 4 (floats, 4-byte banks, 32 of
+    them): a warp's K-major loads (row g, column t) and across-rows loads
+    (row 2t or 2t + 1, column g) each touch 32 distinct banks; the unpadded
+    stride D does not."""
+    for ld, distinct in ((d + 4, True), (d, False)):
+        kmajor = {(g * ld + t) % 32 for g, t in LANES}
+        across = [{((2 * t + h) * ld + g) % 32 for g, t in LANES}
+                  for h in (0, 1)]
+        assert (len(kmajor) == 32 and all(len(b) == 32 for b in across)) \
+            == distinct

@@ -186,7 +186,8 @@ def test_ctypes_declarations_match_the_c_entry_points():
     from apex_tpu_torch.ops import cuda
     sources = cuda._sources()
     assert {p.name for p in sources} >= {"decode_attn.cu", "flash_attn.cu",
-                                         "flash_simt.cu", "layer_norm.cu",
+                                         "flash_simt.cu", "flash_f32.cu",
+                                         "layer_norm.cu",
                                          "multi_tensor.cu", "welford.cu",
                                          "xentropy.cu"}
     sigs = {}
@@ -198,8 +199,9 @@ def test_ctypes_declarations_match_the_c_entry_points():
     cuda._declare(so)
     for name, n in sigs.items():
         assert len(getattr(so, name).argtypes) == n, name
-    assert len(sigs) == 31           # the decode merge and the simple
-    # flash form's four are the 27th to 31st
+    assert len(sigs) == 33           # the decode merge and the simple
+    # flash form's four are the 27th to 31st, the fp32 backward's two on
+    # the tensor cores the 32nd and 33rd
 
 
 def test_lm_training_entry_points_default_to_the_card_and_raise_without_it(
