@@ -7,9 +7,9 @@ attention core chosen by ``impl`` (:169-203): ``"fast"`` the flash
 kernels, ``"default"`` the unfused ``reference_attention``, ``"auto"`` the
 flash kernels where they take the call (fp32, bf16 or fp16 on the card,
 head dim up to 512) from ``flash_min_s`` (when unset the H100's
-crossover, ``DEFAULT_FLASH_MIN_S``, for the tensor-core kernels; none
-for the simple form) or when the unfused scores would pass 2 GiB
-(``_flash_wins``, :138-167).
+crossover, ``DEFAULT_FLASH_MIN_S``, for the tensor-core kernels, the
+16-bit ones and fp32's 3xTF32 ones; none for the simple form) or when the
+unfused scores would pass 2 GiB (``_flash_wins``, :138-167).
 
 A ``key_padding_mask`` [B, Sk] (True = pad) becomes the per-key
 ``kv_bias`` [B·H, Sk], and an ``attn_mask`` [Sq, Sk] a full additive bias
@@ -34,7 +34,7 @@ import torch
 
 from apex_tpu_torch.contrib.multihead_attn.flash_attention import (
     DEFAULT_FLASH_MIN_S, NEG_INF, flash_attention, reference_attention)
-from apex_tpu_torch.ops.flash_attn import SIMT_MAX_HEAD_DIM, tensor_cores
+from apex_tpu_torch.ops.flash_attn import SIMT_MAX_HEAD_DIM, kernel_form
 
 __all__ = ["SelfMultiheadAttn", "EncdecMultiheadAttn"]
 
@@ -114,9 +114,10 @@ class _AttnBase:
         bf16 or fp16 tensors on the card, head dim up to 512 — from
         ``flash_min_s``, or once the plain path's scores would pass 2 GiB.
         Unset, ``flash_min_s`` is ``DEFAULT_FLASH_MIN_S`` for the
-        tensor-core kernels; the simple form has no such length (the plain
-        fp32 path beat it at every S the H100 measured, PERF.md), so only
-        the 2 GiB rule sends a call there. The kernels take
+        tensor-core kernels (bf16 and fp16, and fp32 in 3xTF32, at a head
+        dim up to 128: both crossovers measured 128 on the H100); the
+        simple form (D past 128) has no such length, so only the 2 GiB
+        rule sends a call there. The kernels take
         the full bias and dropout, so neither routes a call away. Anything
         else goes to ``reference_attention``, as JAX's "auto" does below
         its crossover. A routing rule, not a fallback: ``impl="fast"``
@@ -130,7 +131,7 @@ class _AttnBase:
                 and q.shape[-1] <= SIMT_MAX_HEAD_DIM):
             return False
         thr = self.flash_min_s
-        if thr is None and tensor_cores(q):
+        if thr is None and kernel_form(q) != "simt":
             thr = DEFAULT_FLASH_MIN_S
         sq, sk = q.shape[-2], k.shape[-2]
         return (thr is not None and max(sq, sk) >= thr) or \

@@ -179,8 +179,10 @@ def _declare(so: ctypes.CDLL) -> None:
     so.apex_flash_bwd_dbias.restype = I
     # the simple form: the dtype, pointers, then the strides (bh, row) of
     # q, k, v (and dO) in elements
-    so.apex_flash_simt_fwd.argtypes = [I] + [P] * 5 + [L] * 6 + tail
-    so.apex_flash_simt_fwd.restype = I
+    # (the fp32 forward on the tensor cores takes the same)
+    for name in ("apex_flash_simt_fwd", "apex_flash_f32_fwd"):
+        getattr(so, name).argtypes = [I] + [P] * 5 + [L] * 6 + tail
+        getattr(so, name).restype = I
     # the fp32 backward on the tensor cores takes the simple form's
     # arguments
     for name in ("apex_flash_simt_dq", "apex_flash_simt_dkv",

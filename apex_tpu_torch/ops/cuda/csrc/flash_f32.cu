@@ -1,24 +1,24 @@
-// Flash attention's backward over [BH, S, D] fp32 (D 64 or 128) on the
-// tensor cores in 3xTF32: dq (with the per-bh bias gradient dS when asked)
-// and dk/dv, each recomputing the probabilities from the forward's lse.
-// The semantics they keep from the Pallas kernels are
-// csrc/flash_common.cuh's: causal masking by absolute positions, the
-// per-key kv_bias and the full bias, dropout by the JAX package's
-// coordinate hash, the finite kNegInf, the value guard.
+// Flash attention over [BH, S, D] fp32 (D 64 or 128) on the tensor cores
+// in 3xTF32: the forward (o and the per-row lse, by the online softmax),
+// dq (with the per-bh bias gradient dS when asked) and dk/dv, the two
+// recomputing the probabilities from the forward's lse. The semantics they
+// keep from the Pallas kernels are csrc/flash_common.cuh's: causal masking
+// by absolute positions, the per-key kv_bias and the full bias, dropout by
+// the JAX package's coordinate hash, the finite kNegInf, the value guard.
 //
 // Replaces, for fp32 inputs at a head dim up to 128 (padded to 64 or 128),
 // the Pallas kernels of apex_tpu/contrib/multihead_attn/flash_attention.py:
-// _bwd_dq_kernel (:349) and _bwd_dkv_kernel (:392), with the recompute of
-// _recompute_p_ds (:309-346). The simple form (csrc/flash_simt.cu) keeps
-// D past 128 and the fp32 shared-bias gradient.
+// _fwd_kernel (:181), _bwd_dq_kernel (:349) and _bwd_dkv_kernel (:392),
+// with the recompute of _recompute_p_ds (:309-346). The simple form
+// (csrc/flash_simt.cu) keeps D past 128 and the fp32 shared-bias gradient.
 //
 // Bound on this card: operations. At lm_bench's shape (BH = 128, S =
-// 4095, D = 64, causal: 1.07e9 live pairs) dq's three products are
-// 6·D·pairs = 412 GFLOP and dk/dv's four 8·D·pairs = 550 GFLOP. In 3xTF32
-// (three TF32 products for each fp32 one, at the 495 TFLOP/s of TF32
-// dense: 165 TFLOP/s) they take 2.50 and 3.33 ms; at the 67 TFLOP/s of
-// fp32 FMAs outside the tensor cores 6.152 and 8.203 ms. The bytes (~340
-// and ~400 MB) take ~0.1 ms.
+// 4095, D = 64, causal: 1.07e9 live pairs) the forward's two products are
+// 4·D·pairs = 275 GFLOP, dq's three 6·D·pairs = 412 GFLOP and dk/dv's four
+// 8·D·pairs = 550 GFLOP. In 3xTF32 (three TF32 products for each fp32 one,
+// at the 495 TFLOP/s of TF32 dense: 165 TFLOP/s) they take 1.667, 2.50 and
+// 3.33 ms; at the 67 TFLOP/s of fp32 FMAs outside the tensor cores 4.102,
+// 6.152 and 8.203 ms. The bytes (~270, ~340 and ~400 MB) take ~0.1 ms.
 //
 // Precision: each fp32 operand x is split as big = tf32(x) (cvt.rna: to
 // nearest, ties away) and small = tf32(x - big), and each product is
@@ -63,9 +63,14 @@
 //    fresh accumulator and the second products each tile's, added up in
 //    fp32 to nearest; one chain over all keys missed fp32's rule at S
 //    4095, and one over all of a score's products missed it on dS.
+// 6. The forward is dq without dO, dP and dS: S = Q K^T by the pairs of
+//    k-steps above, the online softmax on S's registers (a quad of lanes
+//    shares a row, so the row max and sum take two shuffles), O scaled by
+//    alpha in fp32 before each tile's P V, from a fresh accumulator, is
+//    added. Holding no dO, it stages 64 keys a tile at D 64 (32 at D 128).
 // Tiles wholly past the causal edge are skipped, by the block and by each
 // warp; a warp whose 16 rows see all of a tile with no bias or dropout
-// takes the unmasked recompute. Each block owns its output rows and writes
+// takes the unmasked path. Each block owns its output rows and writes
 // them once, without atomics, so every output repeats bit for bit.
 
 #include "flash_common.cuh"
@@ -87,6 +92,10 @@ template <int D> __host__ __device__ constexpr int f_rows() {
 }
 template <int D, bool KV> __host__ __device__ constexpr int f_tile() {
   return D <= 64 ? 32 : KV ? 8 : 16;
+}
+// the forward's staged keys: it holds no dO, so twice dq's
+template <int D> __host__ __device__ constexpr int f_fwd_tile() {
+  return D <= 64 ? 64 : 32;
 }
 // the row stride of everything staged: D + 4 floats
 template <int D> __host__ __device__ constexpr int f_ld() { return D + 4; }
@@ -345,6 +354,173 @@ __device__ __forceinline__ void split_rows(float* rows, float* small, int n) {
     split(x.w, b.w, s.w);
     *reinterpret_cast<uint4*>(rows + at) = b;
     *reinterpret_cast<uint4*>(small + at) = s;
+  }
+}
+
+// ---- the forward -------------------------------------------------------
+
+// 2^x by one special-function instruction, results below 2^-126 flushed
+// to zero. exp2f keeps those subnormal, at more instructions; here such a
+// p or alpha lies far below an ulp of l >= 1, and the forward took 10%
+// less time with this (PERF.md)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// the max and the sum over the quad of lanes (4g to 4g + 3) that holds
+// one row of an accumulator tile
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// o [BH, Sq, D] and lse [BH, Sq] fp32 contiguous; the grid folds bh with
+// the row blocks (bh-major, each bh's longest rows first). Lane (g, t)
+// holds rows g and g + 8 of its warp's 16: their running max m (log2
+// units) and sum l, and their O columns 8n + 2t, 8n + 2t + 1.
+template <int D, bool EXTRA>
+__global__ void __launch_bounds__(32 * f_warps<D>())
+f32_fwd_kernel(Attn a, float* __restrict__ o, float* __restrict__ lse) {
+  constexpr int LD = f_ld<D>(), R = f_rows<D>(), BK = f_fwd_tile<D>();
+  constexpr int NK = BK / 8, ND = D / 8;
+  extern __shared__ float smf[];
+  float* qs = smf;                         // [R][LD] the block's queries
+  float* qsm = qs + R * LD;                // [R][LD] the queries' small
+  float* kt = qsm + R * LD;                // [2][BK][LD] keys
+  float* vt = kt + 2 * BK * LD;            // [2][BK][LD] values
+  float* ksm = vt + 2 * BK * LD;           // [BK][LD] the keys' small
+  float* vsm = ksm + BK * LD;              // [BK][LD] the values' small
+  const int nb = (a.sq + R - 1) / R;
+  const int bh = blockIdx.x / nb;
+  const int q0 = (nb - 1 - blockIdx.x % nb) * R;
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = q0 + 16 * w;              // the warp's first row
+  const float* k = static_cast<const float*>(a.k) + bh * a.k_bh;
+  const float* v = static_cast<const float*>(a.v) + bh * a.v_bh;
+  // key tiles the block's rows see
+  int nt = (a.sk + BK - 1) / BK;
+  const int last = min(q0 + R, a.sq) - 1;
+  if (a.causal) {
+    const int lim = a.q_start + last - a.k_start;
+    nt = lim < 0 ? 0 : min(nt, lim / BK + 1);
+  }
+  stage<D>(qs, static_cast<const float*>(a.q) + bh * a.q_bh, a.q_s, q0, R,
+           a.sq);
+  if (nt > 0) {
+    stage<D>(kt, k, a.k_s, 0, BK, a.sk);
+    stage<D>(vt, v, a.v_s, 0, BK, a.sk);
+  }
+  cp_commit();
+  const float sl2 = a.scale * kLog2e;
+  // the last row the warp holds: a causal tile wholly past it is skipped,
+  // as is everything by a warp whose rows all lie past Sq
+  const int wlast = a.q_start + min(r0 + 15, a.sq - 1) - a.k_start;
+  const bool wrows = r0 < a.sq;
+  cp_wait_all();
+  __syncthreads();
+  split_rows<D>(qs, qsm, R);
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+  }
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  for (int it = 0; it < nt; ++it) {
+    const int buf = it & 1;
+    cp_wait_all();
+    __syncthreads();                       // tile it landed, it - 1 read
+    if (it + 1 < nt) {                     // the next tile, into the other
+      const int nx = (it + 1) * BK;
+      stage<D>(kt + (buf ^ 1) * BK * LD, k, a.k_s, nx, BK, a.sk);
+      stage<D>(vt + (buf ^ 1) * BK * LD, v, a.v_s, nx, BK, a.sk);
+    }
+    cp_commit();
+    float* kb = kt + buf * BK * LD;
+    float* vb = vt + buf * BK * LD;
+    split_rows<D>(kb, ksm, BK);
+    split_rows<D>(vb, vsm, BK);
+    __syncthreads();
+    const int k0 = it * BK;
+    if (!wrows || (a.causal && wlast < k0)) continue;   // sees none of it
+    const int wo = 16 * w * LD;
+    float s[NK][4];
+    product_t<ND, NK, LD>(s, qs + wo, qsm + wo, kb, ksm);          // Q K^T
+    const bool open = !EXTRA && all_visible(a, r0, 16, k0, BK);
+    // scores in log2 units (kNegInf where masked), the rows' new max
+    float mx[2] = {m[0], m[1]};
+    if (open) {                            // the warp's branch: uniform
+#pragma unroll
+      for (int n = 0; n < NK; ++n) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          s[n][i] *= sl2;
+          mx[i >> 1] = fmaxf(mx[i >> 1], s[n][i]);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int n = 0; n < NK; ++n) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          s[n][i] = score2(a, bh, r0 + g + 8 * (i >> 1),
+                           k0 + 8 * n + 2 * t + (i & 1), s[n][i]);
+          mx[i >> 1] = fmaxf(mx[i >> 1], s[n][i]);
+        }
+      }
+    }
+    float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = quad_max(mx[h]);
+      alpha[h] = ex2(m[h] - mx[h]);        // 1 while the row saw nothing
+      m[h] = mx[h];
+    }
+    // p, summed undropped into l (lse stays dropout-free), then dropped
+#pragma unroll
+    for (int n = 0; n < NK; ++n) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float sc = s[n][i];
+        float p = open || sc > kNegInf * 0.5f ? ex2(sc - m[i >> 1]) : 0.f;
+        rs[i >> 1] += p;
+        if (EXTRA && a.drop_inv > 0.f) {
+          p = keep(a, bh, r0 + g + 8 * (i >> 1),
+                   k0 + 8 * n + 2 * t + (i & 1)) ? p * a.drop_inv : 0.f;
+        }
+        s[n][i] = p;
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + quad_sum(rs[h]);
+    // O scaled in fp32, then the tile's P V added from a fresh accumulator
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[n][i] *= alpha[i >> 1];
+    }
+    product_n<NK, ND, LD>(acc, s, vb, vsm, g, t);                  // O += P V
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qi = r0 + g + 8 * h;
+    if (qi >= a.sq) continue;
+    const long long row = (long long)bh * a.sq + qi;
+    const float inv = l[h] > 0.f ? 1.f / l[h] : 1.f;
+    float* out = o + row * D + 2 * t;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      *reinterpret_cast<float2*>(out + 8 * n) =
+          make_float2(acc[n][2 * h] * inv, acc[n][2 * h + 1] * inv);
+    }
+    if (t == 0) lse[row] = l[h] > 0.f ? m[h] * kLn2 + logf(l[h]) : kNegInf;
   }
 }
 
@@ -633,10 +809,15 @@ f32_dkv_kernel(Attn a, const float* __restrict__ dout, long long do_bh,
 
 // ---- host ------------------------------------------------------------
 
-// a block's rows, and its shared memory: the block's two row sets and the
-// two double-buffered tiles, each split into big (in place) and small
-// halves; for dk/dv also the tiles' lse and delta
+// a block's rows, and its shared memory: the block's rows (the forward's
+// one set, the backward's two) and the two double-buffered tiles, each
+// split into big (in place) and small halves; for dk/dv also the tiles'
+// lse and delta
 int f32_rows(int d) { return d <= 64 ? f_rows<64>() : f_rows<128>(); }
+int smem_f32_fwd(int d) {
+  const int tile = d <= 64 ? f_fwd_tile<64>() : f_fwd_tile<128>();
+  return 4 * (d + 4) * (2 * f32_rows(d) + 6 * tile);
+}
 int smem_f32_dq(int d) {
   const int tile = d <= 64 ? f_tile<64, false>() : f_tile<128, false>();
   return 4 * (d + 4) * (4 * f32_rows(d) + 6 * tile);
@@ -661,15 +842,47 @@ cudaError_t f32_launch(K kernel, int bytes, int blocks, int bh, int d,
 }  // namespace
 }  // namespace apex_port
 
-// Both entry points take the simple form's arguments (csrc/flash_simt.cu):
-// q, k, v, dout [bh, s, d] fp32 (dtype code 0), d 64 or 128, read through
-// their strides (elements; the last dim contiguous, rows 16-byte aligned);
-// lse, delta fp32 [bh, sq] contiguous; kvb null or fp32 [1|bh, sk] with bh
-// stride kvb_bh (0 when shared); bias null or fp32 [1|bh, sq, sk]
-// contiguous with bh stride bias_bh (0 when shared); dropout when drop_inv
-// = 1 / (1 - rate) > 0, keeping an element whose hash under seed is >=
-// drop_thresh. Outputs fp32 contiguous. Each returns cudaGetLastError()
-// after its launch.
+// Every entry point takes the simple form's arguments
+// (csrc/flash_simt.cu): q, k, v, dout [bh, s, d] fp32 (dtype code 0), d 64
+// or 128, read through their strides (elements; the last dim contiguous,
+// rows 16-byte aligned); lse, delta fp32 [bh, sq] contiguous; kvb null or
+// fp32 [1|bh, sk] with bh stride kvb_bh (0 when shared); bias null or fp32
+// [1|bh, sq, sk] contiguous with bh stride bias_bh (0 when shared);
+// dropout when drop_inv = 1 / (1 - rate) > 0, keeping an element whose
+// hash under seed is >= drop_thresh. Outputs fp32 contiguous. Each returns
+// cudaGetLastError() after its launch.
+
+// o [bh, sq, d] and lse [bh, sq].
+extern "C" int apex_flash_f32_fwd(int dtype, const void* q, const void* k,
+                                  const void* v, void* o, void* lse,
+                                  long long q_bh, long long q_s,
+                                  long long k_bh, long long k_s,
+                                  long long v_bh, long long v_s,
+                                  const void* kvb, long long kvb_bh,
+                                  const void* bias, long long bias_bh,
+                                  unsigned seed, unsigned drop_thresh,
+                                  float drop_inv, int bh, int sq, int sk,
+                                  int d, int q_start, int k_start,
+                                  int causal, float scale, void* stream) {
+  using namespace apex_port;
+  const int blocks = (sq + f32_rows(d) - 1) / f32_rows(d);
+  if (dtype != kF32 || o == nullptr || lse == nullptr ||
+      bad(bh, sq, sk, d, blocks)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Attn a = make_attn(q, k, v, q_bh, q_s, k_bh, k_s, v_bh, v_s, kvb,
+                           kvb_bh, bias, bias_bh, seed, drop_thresh,
+                           drop_inv, sq, sk, q_start, k_start, causal, scale);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  with_form(d, a, [&](auto dc, auto extra) {
+    err = f32_launch(
+        f32_fwd_kernel<decltype(dc)::value, decltype(extra)::value>,
+        smem_f32_fwd(d), blocks, bh, d, st, a, static_cast<float*>(o),
+        static_cast<float*>(lse));
+  });
+  return static_cast<int>(err);
+}
 
 // dq [bh, sq, d]; ds null or fp32 [bh, sq, sk] (the per-bh bias gradient).
 extern "C" int apex_flash_f32_dq(int dtype, const void* q, const void* k,

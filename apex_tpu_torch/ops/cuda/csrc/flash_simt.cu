@@ -1,11 +1,12 @@
 // Flash attention over [BH, S, D] by fp32 FMAs on the CUDA cores: the
 // forward, dq (with the per-bh bias gradient dS) and dk/dv, for what the
-// tensor-core kernels (csrc/flash_fwd.cu, csrc/flash_bwd.cu) do not take:
-// fp32 inputs, and a head dim D other than 64 or 128 past 128, up to 512,
-// in fp32, bf16 or fp16. The semantics they keep from the Pallas kernels
-// are csrc/flash_common.cuh's: causal masking by absolute positions, the
-// per-key kv_bias and the full bias, dropout by the JAX package's
-// coordinate hash, the finite kNegInf, the value guard.
+// tensor-core kernels (csrc/flash_fwd.cu, csrc/flash_bwd.cu and, in fp32,
+// csrc/flash_f32.cu) do not take: a head dim past 128, up to 512, in fp32,
+// bf16 or fp16, and fp32's shared-bias gradient at any head dim. (At D <=
+// 128 the tensor-core kernels pad D to 64 or 128.) The semantics they keep
+// from the Pallas kernels are csrc/flash_common.cuh's: causal masking by
+// absolute positions, the per-key kv_bias and the full bias, dropout by the
+// JAX package's coordinate hash, the finite kNegInf, the value guard.
 //
 // Replaces, for those inputs, the Pallas kernels of
 // apex_tpu/contrib/multihead_attn/flash_attention.py: _fwd_kernel

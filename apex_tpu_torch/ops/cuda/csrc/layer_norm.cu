@@ -45,8 +45,35 @@ __device__ __forceinline__ float row_sum(float v, float* red) {
   return t;
 }
 
-// VEC consecutive values of a row as fp32 (one vector load when VEC is 4);
-// ``fill`` where the columns lie past the row
+// two consecutive elements as fp32, one load (callers keep the address
+// 2-element aligned); and stored so, rounding as from_f
+__device__ __forceinline__ void load2(const float* p, float* o) {
+  const float2 v = *reinterpret_cast<const float2*>(p);
+  o[0] = v.x;
+  o[1] = v.y;
+}
+__device__ __forceinline__ void load2(const __nv_bfloat16* p, float* o) {
+  const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(p);
+  o[0] = __low2float(v);
+  o[1] = __high2float(v);
+}
+__device__ __forceinline__ void load2(const __half* p, float* o) {
+  const __half2 v = *reinterpret_cast<const __half2*>(p);
+  o[0] = __low2float(v);
+  o[1] = __high2float(v);
+}
+__device__ __forceinline__ void store2(float* p, const float* v) {
+  *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, const float* v) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v[0], v[1]);
+}
+__device__ __forceinline__ void store2(__half* p, const float* v) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(v[0], v[1]);
+}
+
+// VEC consecutive values of a row as fp32 (one vector load when VEC is 4
+// or 2); ``fill`` where the columns lie past the row
 template <int VEC, typename T>
 __device__ __forceinline__ void load_vec(const T* p, bool in, float fill,
                                          float* o) {
@@ -55,18 +82,22 @@ __device__ __forceinline__ void load_vec(const T* p, bool in, float fill,
     load4(p, t4);
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[e] = t4[e];
+  } else if (VEC == 2 && in) {
+    load2(p, o);
   } else {
 #pragma unroll
     for (int e = 0; e < VEC; ++e) o[e] = in ? to_f(p[e]) : fill;
   }
 }
 
-// VEC fp32 values stored as T (one vector store when VEC is 4)
+// VEC fp32 values stored as T (one vector store when VEC is 4 or 2)
 template <int VEC, typename T>
 __device__ __forceinline__ void store_vec(T* p, const float* v) {
   if constexpr (VEC == 4) {
     const float t4[4] = {v[0], v[1], v[2], v[3]};
     store4(p, t4);
+  } else if constexpr (VEC == 2) {
+    store2(p, v);
   } else {
     p[0] = from_f<T>(v[0]);
   }
@@ -513,7 +544,8 @@ extern "C" int apex_layer_norm_bwd(int x_dtype, int w_dtype, const void* dy,
 // bytes. What the design does about the rest: a warp takes one (row,
 // chunk) at a time, each lane 32 values by eight 4-wide vector loads (or,
 // where F % 4 != 0 or a buffer is not 4-element aligned, the VEC-1 form's
-// 32 scalar loads), all
+// 32 scalar loads; the backward takes sixteen 2-wide loads, the VEC-2
+// form, where F is even and every buffer 2-element aligned), all
 // issued before the first is used; gamma and beta of the block's chunk are
 // loaded once into registers; the backward's column sums stay in registers
 // across the block's rows. Statistics: each chunk's sum of squares is
@@ -543,7 +575,12 @@ __device__ __forceinline__ int chunk_cols(long long F, int j) {
 }
 
 // lane's column of group i inside a chunk: c = (i * 32 + lane) * VEC (VEC
-// 4 when F % 4 == 0 and every buffer is 4-element aligned, else 1)
+// 4 when F % 4 == 0 and every buffer is 4-element aligned, else 1; the
+// backward's 2 where F is even and every buffer 2-element aligned). The
+// chunk's base is a multiple of 1024 and, for VEC 2, a row's of 2, so the
+// columns a lane holds are the same in every row: the backward's column
+// sums stay in registers across rows. (A 4-wide body peeled per row where
+// F % 4 == 2 would move them from row to row.)
 template <int VEC>
 __device__ __forceinline__ int wide_col(int i, int lane) {
   return (i * 32 + lane) * VEC;
@@ -930,6 +967,24 @@ void with_vec(long long F, Fn&& f, const Ps*... ps) {
   }
 }
 
+template <typename P>
+bool aligned2(const P* p) {
+  return reinterpret_cast<uintptr_t>(p) % (2 * sizeof(P)) == 0;
+}
+
+// the wide backward's with_vec: 4, then 2 where F is even and every buffer
+// given is 2-element aligned, then 1
+template <typename Fn, typename... Ps>
+void with_vec_bwd(long long F, Fn&& f, const Ps*... ps) {
+  if (F % 4 == 0 && (aligned4(ps) && ...)) {
+    f(std::integral_constant<int, 4>{});
+  } else if (F % 2 == 0 && (aligned2(ps) && ...)) {
+    f(std::integral_constant<int, 2>{});
+  } else {
+    f(std::integral_constant<int, 1>{});
+  }
+}
+
 // with_storage over (x, weight) dtypes: f(x tag, weight tag, affine as a
 // std::bool_constant); a null weight takes W = float
 template <typename Fn>
@@ -998,7 +1053,8 @@ extern "C" int apex_layer_norm_fwd_wide(int x_dtype, int w_dtype,
 }
 
 // dy, x, dx [rows, F] in one dtype (four columns a load where F % 4 == 0
-// and every buffer is 4-element aligned, else one); gamma [F] or null
+// and every buffer is 4-element aligned, else two where F is even and
+// every buffer is 2-element aligned, else one); gamma [F] or null
 // (non-affine: ws, gw, gb unused); mean, invvar fp32 [rows]; rpart fp32
 // [rows, ceil(F / 1024), 2] and ws fp32 [2, nrb, F] scratch; gw, gb fp32
 // [F]. Row block b of nrb takes rows [b * rpc, (b+1) * rpc). Three
@@ -1031,7 +1087,7 @@ extern "C" int apex_layer_norm_bwd_wide(int x_dtype, int w_dtype,
     const T* xp = static_cast<const T*>(x);
     const W* g = static_cast<const W*>(gamma);
     T* o = static_cast<T*>(dx);
-    with_vec(F, [&](auto vec) {
+    with_vec_bwd(F, [&](auto vec) {
       constexpr int V = decltype(vec)::value;
       ln_wide_bwd_reduce_kernel<T, W, A, V>
           <<<dim3(nchunk, nrb), 32 * kWideWarps, 0, st>>>(

@@ -20,20 +20,19 @@ gradient):
   gradient of a bias [1, Sq, Sk] shared over bh, dS summed over bh; its
   plain version is :func:`flash_bwd_dbias_plain`.
 
-Three forms of kernel serve them (:func:`tensor_cores` picks the
-forward's, :func:`backward_form` the backward's): bf16 and fp16 at a head
-dim up to 128 go to the Hopper kernels above, which take D 64 or 128 and
-so get q, k, v (and dO) zero-padded to the next of the two (the JAX
-package pads D to 128 lanes; zero columns add nothing to QKᵀ and give zero
-output columns, sliced off), the real D's scale passed; the fp32 backward
-at a head dim up to 128 goes, padded alike, to
-``ops/cuda/csrc/flash_f32.cu``, 3xTF32 products on the tensor cores
-(:func:`flash_f32_dq`, :func:`flash_f32_dkv`); the fp32 forward, and D from
-129 to 512 in any of the three dtypes, go to the simple form of
-``ops/cuda/csrc/flash_simt.cu``: fp32 FMAs, a warp a row
-(:func:`flash_simt_fwd`, :func:`flash_simt_dq`, :func:`flash_simt_dkv`;
-:func:`flash_bwd_dbias` sums that dq kernel's dS over bh). Each of these
-wrappers counts its own launches.
+Three forms of kernel serve them, the forward and the backward alike
+(:func:`kernel_form` picks): bf16 and fp16 at a head dim up to 128 go to
+the Hopper kernels above, which take D 64 or 128 and so get q, k, v (and
+dO) zero-padded to the next of the two (the JAX package pads D to 128
+lanes; zero columns add nothing to QKᵀ and give zero output columns,
+sliced off), the real D's scale passed; fp32 at a head dim up to 128 goes,
+padded alike, to ``ops/cuda/csrc/flash_f32.cu``, 3xTF32 products on the
+tensor cores (:func:`flash_f32_fwd`, :func:`flash_f32_dq`,
+:func:`flash_f32_dkv`); D from 129 to 512 in any of the three dtypes goes
+to the simple form of ``ops/cuda/csrc/flash_simt.cu``: fp32 FMAs, a warp a
+row (:func:`flash_simt_fwd`, :func:`flash_simt_dq`, :func:`flash_simt_dkv`;
+:func:`flash_bwd_dbias` sums that dq kernel's dS over bh, and takes it in
+fp32 at any head dim). Each of these wrappers counts its own launches.
 
 The backward takes ``delta = rowsum(dO·O) − dlse`` (:474-479, computed
 here in plain PyTorch by :func:`flash_delta`), so a cotangent of the lse
@@ -84,7 +83,7 @@ __all__ = ["NEG_INF", "KERNEL_HEAD_DIMS", "SIMT_MAX_HEAD_DIM",
            "flash_fwd", "flash_delta", "flash_bwd_plain", "flash_bwd_dq",
            "flash_bwd_dkv", "flash_bwd_dbias", "flash_bwd_dbias_plain",
            "flash_simt_fwd", "flash_simt_dq", "flash_simt_dkv",
-           "flash_f32_dq", "flash_f32_dkv", "backward_form",
+           "flash_f32_fwd", "flash_f32_dq", "flash_f32_dkv", "kernel_form",
            "tensor_cores", "padded_head_dim", "BLOCK_ROWS", "TMA_BOX",
            "tma_layout", "row_blocks"]
 
@@ -448,9 +447,9 @@ def flash_fwd(q, k, v, *, causal: bool = False, scale=None,
               dropout_rate: float = 0.0, dropout_seed=0):
     """(o [BH, Sq, D] in q's dtype, lse fp32 [BH, Sq]) of softmax attention
     over q [BH, Sq, D], k/v [BH, Sk, D], with the optional ``kv_bias``
-    [1|BH, Sk], ``bias`` [1|BH, Sq, Sk] and dropout. On the card: the
-    tensor-core kernel (counted here) or the simple form
-    (:func:`flash_simt_fwd`)."""
+    [1|BH, Sk], ``bias`` [1|BH, Sq, Sk] and dropout. On the card, as
+    :func:`kernel_form` picks: the tensor-core kernel (counted here),
+    :func:`flash_f32_fwd` or :func:`flash_simt_fwd`."""
     if scale is None:
         scale = 1.0 / float(q.shape[-1]) ** 0.5
     cfg = dict(causal=causal, scale=scale, q_start=q_start, k_start=k_start,
@@ -459,8 +458,10 @@ def flash_fwd(q, k, v, *, causal: bool = False, scale=None,
     if not dispatch.use_kernel(q):
         return _fwd_plain(q, k, v, **cfg)
     _check("flash_fwd", q, k, v)
-    if not tensor_cores(q):
-        return flash_simt_fwd(q, k, v, **cfg)
+    form = kernel_form(q)
+    if form != "tc":
+        return (flash_f32_fwd if form == "f32" else flash_simt_fwd)(
+            q, k, v, **cfg)
     d = q.shape[-1]
     dp = padded_head_dim(d)
     q, k, v = (_tma_readable(_pad_d(t, dp)) for t in (q, k, v))
@@ -530,10 +531,55 @@ def flash_simt_fwd(q, k, v, *, causal: bool = False, scale=None,
 flash_simt_fwd.launches = 0
 
 
-def backward_form(q: torch.Tensor) -> str:
-    """The kernels that take the backward (dq, dk/dv) of q's dtype and
-    head dim: "tc", the bf16/fp16 tensor-core kernels at D <= 128; "f32",
-    the fp32 ones at D <= 128 (3xTF32 on the tensor cores,
+def _f32_ready(what: str, *ts):
+    """q, k, v (and dO) for the fp32 tensor-core kernels: checked, padded
+    to :func:`padded_head_dim` and readable by their 16-byte copies."""
+    _check(what, *ts)
+    if kernel_form(ts[0]) != "f32":
+        raise ValueError(f"{what}: takes fp32 at a head dim up to "
+                         f"{KERNEL_HEAD_DIMS[-1]}, got {ts[0].dtype} at "
+                         f"{ts[0].shape[-1]}")
+    dp = padded_head_dim(ts[0].shape[-1])
+    return tuple(_readable(_pad_d(t, dp)) for t in ts)
+
+
+def flash_f32_fwd(q, k, v, *, causal: bool = False, scale=None,
+                  q_start: int = 0, k_start: int = 0, kv_bias=None,
+                  bias=None, dropout_rate: float = 0.0, dropout_seed=0):
+    """:func:`flash_fwd` in fp32 on the tensor cores in 3xTF32
+    (``flash_f32.cu``): fp32 at a head dim up to 128, padded to 64 or 128
+    (the real D's scale passed)."""
+    if scale is None:
+        scale = 1.0 / float(q.shape[-1]) ** 0.5
+    if not dispatch.use_kernel(q):
+        return _fwd_plain(q, k, v, causal=causal, scale=scale,
+                          q_start=q_start, k_start=k_start, kv_bias=kv_bias,
+                          bias=bias, dropout_rate=dropout_rate,
+                          dropout_seed=dropout_seed)
+    d = q.shape[-1]
+    q, k, v = _f32_ready("flash_f32_fwd", q, k, v)
+    bh, sq, dp = q.shape
+    tail, _keep_alive = _tail("flash_f32_fwd", q, k, kv_bias, bias,
+                              dropout_rate, dropout_seed, causal, scale,
+                              q_start, k_start)
+    o = torch.empty((bh, sq, dp), dtype=q.dtype, device=q.device)
+    lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+    err = _cuda.lib().apex_flash_f32_fwd(
+        _cuda.dtype_code(q.dtype, "flash_f32_fwd"), q.data_ptr(),
+        k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        *_strides(q, k, v), *tail)
+    _cuda.check(err, "flash_f32_fwd")
+    flash_f32_fwd.launches += 1
+    return _unpad(o, d), lse
+
+
+flash_f32_fwd.launches = 0
+
+
+def kernel_form(q: torch.Tensor) -> str:
+    """The kernels that take the forward and the backward (dq, dk/dv) of
+    q's dtype and head dim: "tc", the bf16/fp16 tensor-core kernels at D
+    <= 128; "f32", the fp32 ones at D <= 128 (3xTF32 on the tensor cores,
     ``flash_f32.cu``); "simt", the simple form, past 128 in any dtype."""
     if tensor_cores(q):
         return "tc"
@@ -544,22 +590,20 @@ def backward_form(q: torch.Tensor) -> str:
 
 def _bwd_args(what, q, k, v, do, lse, delta, form="simt"):
     """The checked backward inputs of the kernels of ``form`` (as
-    :func:`backward_form` names them): q, k, v, dO padded to
+    :func:`kernel_form` names them): q, k, v, dO padded to
     :func:`padded_head_dim` and readable by TMA ("tc") or by 16-byte copies
-    ("f32"), or with their last dim contiguous ("simt"); lse and delta fp32
-    [BH, Sq]."""
-    _check(what, q, k, v, do)
-    if form == "f32" and backward_form(q) != "f32":
-        raise ValueError(f"{what}: takes fp32 at a head dim up to "
-                         f"{KERNEL_HEAD_DIMS[-1]}, got {q.dtype} at "
-                         f"{q.shape[-1]}")
-    bh, sq, _ = q.shape
+    ("f32", :func:`_f32_ready`), or with their last dim contiguous
+    ("simt"); lse and delta fp32 [BH, Sq]."""
+    if form == "f32":
+        q, k, v, do = _f32_ready(what, q, k, v, do)
+    else:
+        _check(what, q, k, v, do)
     if form == "simt":
         q, k, v, do = _simt_strides(q, k, v, do)[0]
-    else:
-        ready = _tma_readable if form == "tc" else _readable
+    elif form == "tc":
         dp = padded_head_dim(q.shape[-1])
-        q, k, v, do = (ready(_pad_d(t, dp)) for t in (q, k, v, do))
+        q, k, v, do = (_tma_readable(_pad_d(t, dp)) for t in (q, k, v, do))
+    bh, sq, _ = q.shape
     lse = _row_stats(f"{what} lse", lse, bh, sq, q.device)
     delta = _row_stats(f"{what} delta", delta, bh, sq, q.device)
     return q, k, v, do, lse, delta
@@ -572,7 +616,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool, scale: float,
     """dq [BH, Sq, D] in q's dtype from the forward's lse and
     :func:`flash_delta`; with ``return_ds`` (a ``bias`` given) also dS fp32
     [BH, Sq, Sk], the gradient of a per-bh bias. On the card, as
-    :func:`backward_form` picks: the tensor-core kernel (counted here),
+    :func:`kernel_form` picks: the tensor-core kernel (counted here),
     :func:`flash_f32_dq` or :func:`flash_simt_dq`."""
     kw = dict(causal=causal, scale=scale, q_start=q_start, k_start=k_start,
               kv_bias=kv_bias, bias=bias, dropout_rate=dropout_rate,
@@ -585,7 +629,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool, scale: float,
                               **kw)
         return (out[0], out[3]) if return_ds else out[0]
     _check("flash_bwd_dq", q, k, v, do)
-    form = backward_form(q)
+    form = kernel_form(q)
     if form != "tc":
         return (flash_f32_dq if form == "f32" else flash_simt_dq)(
             q, k, v, do, lse, delta, return_ds=return_ds, **kw)
@@ -709,7 +753,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool, scale: float,
                   q_start: int = 0, k_start: int = 0, kv_bias=None,
                   bias=None, dropout_rate: float = 0.0, dropout_seed=0):
     """(dk, dv) [BH, Sk, D] in k's and v's dtypes. On the card, as
-    :func:`backward_form` picks: the tensor-core kernel (counted here),
+    :func:`kernel_form` picks: the tensor-core kernel (counted here),
     :func:`flash_f32_dkv` or :func:`flash_simt_dkv`."""
     kw = dict(causal=causal, scale=scale, q_start=q_start, k_start=k_start,
               kv_bias=kv_bias, bias=bias, dropout_rate=dropout_rate,
@@ -717,7 +761,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool, scale: float,
     if not dispatch.use_kernel(q):
         return flash_bwd_plain(q, k, v, do, lse, delta, **kw)[1:]
     _check("flash_bwd_dkv", q, k, v, do)
-    form = backward_form(q)
+    form = kernel_form(q)
     if form != "tc":
         return (flash_f32_dkv if form == "f32" else flash_simt_dkv)(
             q, k, v, do, lse, delta, **kw)

@@ -13,8 +13,9 @@ Counterpart of ``apex_tpu/ops/pallas/layer_norm.py``; the kernels are
   once.
 
 Every kernel takes any F: four columns a load where F is a multiple of 4
-and every buffer is 4-element aligned, one otherwise (the C side picks the
-form).
+and every buffer is 4-element aligned, one otherwise; the wide backward
+takes two where F is even and every buffer 2-element aligned (the C side
+picks the form).
 
 :func:`ln_fwd` and :func:`ln_bwd` take a row's width to one or the other.
 For a tensor on the CPU every wrapper runs its plain version; for a tensor

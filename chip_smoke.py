@@ -23,9 +23,10 @@ fp32, and the LayerNorm and BN at widths not a multiple of 4:
    with ``nvcc`` for ``sm_90a`` (all sources at once) and loads them;
    prints every kernel's registers and spills (``ptxas``) and, apart, the
    flash forward's and backward's Hopper kernels (``flash_fwd_ptxas``,
-   ``flash_bwd_ptxas``: 12 and 16 forms, bf16 and fp16) and the fp32
-   backward's (``flash_f32_ptxas``: 8 forms), none of whose forms may
-   spill.
+   ``flash_bwd_ptxas``: 12 and 16 forms, bf16 and fp16), the fp32
+   backward's (``flash_f32_ptxas``: 8 forms) and the fp32 forward's
+   (``flash_f32_fwd_ptxas``: 4 forms, D 64 and 128, plain and with a bias
+   or dropout), none of whose forms may spill.
 2. kernels — each kernel against its plain PyTorch version on the card,
    at its path's shapes: max abs error against the stated tolerance, the
    kernel's time, the plain version's, one PyTorch library call's where
@@ -113,12 +114,18 @@ fp32, and the LayerNorm and BN at widths not a multiple of 4:
    backward on the tensor cores (``flash_f32_dq``, ``flash_f32_dkv``,
    3xTF32: the same rule, its bounds at 3xTF32's 165 TFLOP/s and at 67,
    the simple form's, the plain version's and SDPA's fp32 backward times
-   from the same run beside it), each output repeated bit
-   for bit; the bf16 kernels' outputs hashed at both shapes
-   (``flash_bits``, to hold one package's against another's); the
-   scalar tails beside the
-   vector forms: ``ln_bwd`` at [32760, 1022], the wide kernels at [8192,
-   12290] and the welford passes at C 6 (and C 8) over 256·56·56 rows.
+   from the same run beside it) and the fp32 forward there
+   (``flash_f32_fwd``: o under the same rule, lse within 1e-4, its bounds
+   at 165 and 67 TFLOP/s, the simple form's, the plain version's and
+   SDPA's fp32 forward beside it), each output repeated bit for bit; the
+   simple form at phase 30's [32, 1024, 256] in bf16 and fp32 (readings
+   ``d256_bf16``, ``d256_f32``: SDPA's forward and backward at D 256
+   beside it); the bf16 kernels' outputs hashed at both shapes
+   (``flash_bits``) and ``ln_bwd_wide``'s at [8192, 12288]
+   (``ln_wide_bits``), to hold one package's against another's; the
+   scalar tails beside the vector forms: ``ln_bwd`` at [32760, 1022], the
+   wide kernels at [8192, 12290] (the backward's 2-wide form) and the
+   welford passes at C 6 (and C 8) over 256·56·56 rows.
 3. dense — the serve_bench model at full width (8 layers, 1024 wide,
    8 heads, vocab 32768, bf16, random weights from ``torch.Generator``
    seed 0) behind ``ContinuousBatchingEngine(slots=8, max_len=1024,
@@ -300,16 +307,16 @@ fp32, and the LayerNorm and BN at widths not a multiple of 4:
     steps and one profiled; the flash kernels' fp16 forms, 8 launches of
     each a step; losses finite, the mean of the last 3 below the first.
 29. lm_train_f32 — the same in fp32 (O0, lm_bench's ``--dtype f32``),
-    full batch: 2 warm-up and 3 timed steps, one profiled; the simple
-    flash form's forward and the fp32 backward on the tensor cores
-    (``flash_f32_dq``, ``flash_f32_dkv``), 8 launches of each a step, none
-    of the simple form's dq or dk/dv.
+    full batch: 2 warm-up and 3 timed steps, one profiled; the fp32
+    forward and backward on the tensor cores (``flash_f32_fwd``,
+    ``flash_f32_dq``, ``flash_f32_dkv``), 8 launches of each a step, none
+    of the simple form's.
 30. tails_train — ``FusedLayerNorm(1022)`` over [16, 2048, 1022] bf16,
     ``SyncBatchNorm(6, fuse_relu=True)`` over [64, 6, 56, 56] bf16 with a
     residual and ``flash_attention`` at head dim 256 over [32, 1024, 256]
     fp32 (the simple form), 3 forward/backward passes each against the
     plain versions.
-31. the ``{"kernels": [...]}`` line (33 kernels; dq's and dk/dv's
+31. the ``{"kernels": [...]}`` line (34 kernels; dq's and dk/dv's
     entries also carry their ``wide`` reading and the whole backward's,
     ``backward``, at both shapes), then the ``ok`` line.
 
@@ -318,7 +325,7 @@ before each and the stream held busy, so host launch time is not counted.
 Bounds use the H100 SXM's published 3.35 TB/s and 67 TFLOP/s (fp32,
 outside the tensor cores), 989 TFLOP/s bf16 dense for the flash
 kernels' products and a third of its 495 TFLOP/s TF32 dense for the fp32
-backward's 3xTF32 products; MFU its 989 TFLOP/s bf16 dense.
+kernels' 3xTF32 products; MFU its 989 TFLOP/s bf16 dense.
 """
 
 from __future__ import annotations
@@ -1752,7 +1759,8 @@ def counters():
             "flash_simt_dq": FA.flash_simt_dq,
             "flash_simt_dkv": FA.flash_simt_dkv,
             "flash_f32_dq": FA.flash_f32_dq,
-            "flash_f32_dkv": FA.flash_f32_dkv}
+            "flash_f32_dkv": FA.flash_f32_dkv,
+            "flash_f32_fwd": FA.flash_f32_fwd}
 
 
 def zero_counts() -> None:
@@ -1901,8 +1909,8 @@ SERVE_FAMILIES = (
 LM_KERNEL_FAMILIES = (
     ("flash kernels", ("flash_fwd_kernel", "flash_dq_kernel",
                        "flash_dkv_kernel", "simt_fwd_kernel",
-                       "simt_dq_kernel", "simt_dkv_kernel", "f32_dq_kernel",
-                       "f32_dkv_kernel")),
+                       "simt_dq_kernel", "simt_dkv_kernel", "f32_fwd_kernel",
+                       "f32_dq_kernel", "f32_dkv_kernel")),
     ("LN kernels", ("ln_fwd_kernel", "ln_bwd_kernel", "ln_wide",
                     "finalize_kernel")),
     ("Adam", ("adam_kernel",)),
@@ -4343,13 +4351,66 @@ def f32_backward_readings(torch, timer, shape, simple) -> dict:
     return out
 
 
+def f32_forward_reading(torch, timer, shape, simple) -> dict:
+    """The fp32 forward on the tensor cores (``flash_f32_fwd``, 3xTF32) at
+    [BH, S, D] causal on the simple form's reading's inputs
+    (``form_inputs``; ``simple``: that reading's rows): o against the plain
+    version on the first heads under the fp32 flash rule, lse within 1e-4,
+    the rule refusing a result 5% off, o and lse repeated bit for bit;
+    its time beside the simple form's forward, the plain version's and
+    SDPA's fp32 forward from that reading, bounds at 3xTF32's 165 TFLOP/s
+    (``bound_ms``) and at fp32 FMAs' 67 TFLOP/s (``bound_fma_ms``)."""
+    from apex_tpu_torch.ops import flash_attn as FA
+
+    BH, S, D = shape
+    n = FLASH_CHECK_HEADS
+    kw = dict(causal=True, scale=D ** -0.5)
+    q, k, v, _ = form_inputs(torch, shape, torch.float32)
+    o, lse = FA.flash_f32_fwd(q, k, v, **kw)
+    o0, lse0 = FA.reference_attention(q[:n], k[:n], v[:n], return_lse=True,
+                                      **kw)
+    torch.cuda.synchronize()
+    e = flash_err(torch, o[:n], o0, torch.float32)
+    lse_err = float((lse[:n] - lse0).abs().max())
+    check(e["used"] <= 1.0, f"flash f32 forward o: {e}")
+    check(lse_err <= 1e-4, f"flash f32 forward lse: {lse_err} > 1e-4")
+    late = torch.arange(S, device="cuda")[None, :, None] >= S // 2
+    off = torch.where(late, o0 * 1.05, o0)
+    check(flash_err(torch, off, o0, torch.float32)["used"] > 1.0,
+          "flash f32 forward o: the limit passes a result 5% off")
+    again = FA.flash_f32_fwd(q, k, v, **kw)
+    rep = bool(torch.equal(again[0], o) and torch.equal(again[1], lse))
+    check(rep, "flash f32 forward: two runs differ")
+    del o0, lse0, again, late, off, o, lse
+    was = simple[("flash_simt_fwd", "f32")]
+    pairs = BH * S * (S + 1) // 2
+    nbytes, ops = 4 * BH * S * D * 4 + 4 * BH * S, 4 * D * pairs
+    b_ms, b_by = bound(nbytes, ops, TF32X3_OPS_S)
+    r = {"phase": "kernels", "kernel": "flash_f32_fwd", "reading": "f32",
+         "dtype": "float32", "shape": [BH, S, D], "causal": True,
+         "checked_heads": n, "products": "3xTF32", "tol": was["tol"],
+         "max_abs_err": e["max_abs_err"], "tol_used": e["used"],
+         "lse_err": lse_err, "repeat_equal": rep,
+         "ms": timer(lambda: FA.flash_f32_fwd(q, k, v, **kw)),
+         "simple_ms": was["ms"], "plain_ms": was["plain_ms"],
+         "plain_covers": was["plain_covers"],
+         "library_ms": was["library_ms"],
+         "library_covers": "the forward (causal SDPA fp32, allow_tf32 "
+                           "False)",
+         "bound_ms": b_ms, "bound_by": b_by,
+         "bound_fma_ms": bound(nbytes, ops)[0]}
+    emit(r)
+    return {("flash_f32_fwd", "f32"): r}
+
+
 def flash_forms_phase(torch, timer) -> dict:
     """The fp16 forms of the tensor-core kernels at the LM's [128, 4095,
     64] and the wide LM's [384, 2048, 128] (their bf16 forms' rows are
     phase 2's LM and wide readings), the simple form in fp32 at [128,
     4095, 64], its bound at the 67 TFLOP/s of fp32 outside the tensor
-    cores, and the fp32 backward on the tensor cores on the same
-    inputs."""
+    cores, and the fp32 forward and backward on the tensor cores on the
+    same inputs; the simple form at the head dim it is kept for, phase
+    30's [32, 1024, 256], in bf16 and fp32 (SDPA's at D 256 beside it)."""
     from apex_tpu_torch.ops import flash_attn as FA
 
     tc = (FA.flash_fwd, FA.flash_bwd_dq, FA.flash_bwd_dkv)
@@ -4366,7 +4427,34 @@ def flash_forms_phase(torch, timer) -> dict:
     rows.update(flash_form_readings(torch, timer, "f32", lm, torch.float32,
                                     simt, FP32_OPS_S, plain_group=8))
     rows.update(f32_backward_readings(torch, timer, lm, rows))
+    rows.update(f32_forward_reading(torch, timer, lm, rows))
+    for dt in (torch.bfloat16, torch.float32):
+        rows.update(flash_form_readings(
+            torch, timer, "d256_" + {torch.bfloat16: "bf16",
+                                     torch.float32: "f32"}[dt],
+            [32, 1024, 256], dt, simt, FP32_OPS_S))
     return rows
+
+
+def ln_wide_bits(torch) -> dict:
+    """The first 16 hex digits of the sha256 of ``ln_bwd_wide``'s dx, dγ and
+    dβ at the wide LM's [8192, 12288] bf16 rows (the 4-wide form) from
+    seeded inputs: one package's bits, to hold against another's (the
+    2-wide form must leave the 4-wide one's unchanged)."""
+    import hashlib
+
+    from apex_tpu_torch.ops import layer_norm as LN
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    f = 12288
+    x, dy = ((torch.randn(8192, f, generator=gen, device="cuda") * 2 + 0.5)
+             .to(torch.bfloat16) for _ in range(2))
+    w = (torch.randn(f, generator=gen, device="cuda") + 1).to(torch.bfloat16)
+    _, mean, inv = LN.ln_fwd_plain(x, w, torch.zeros_like(w), 1e-5)
+    got = LN.ln_bwd_wide(dy, x, w, mean, inv)
+    return {n: hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy()
+                              .tobytes()).hexdigest()[:16]
+            for n, t in zip(("dx", "gw", "gb"), got)}
 
 
 def tail_kernel_phase(torch, timer) -> dict:
@@ -4418,7 +4506,11 @@ def tail_kernel_phase(torch, timer) -> dict:
                                         .layer_norm(x, (f,), w, b, 1e-5)),
                        bound_ms=fb[0], bound_by=fb[1]),
                   dict(kernel=kern, reading="tail", dtype="bfloat16",
-                       shape=[n_rows, f], **errs, repeat_equal=rep,
+                       shape=[n_rows, f],
+                       # fresh tensors are aligned: the width picks the
+                       # form (the wide backward's 2-wide at an even F)
+                       form="2-wide" if kern == "ln_bwd_wide" else "scalar",
+                       **errs, repeat_equal=rep,
                        ms=timer(lambda: LN.ln_bwd(dy, x, w, mean, inv)),
                        plain_ms=timer(lambda: LN.ln_bwd_plain(dy, x, w, mean,
                                                               inv)),
@@ -4543,13 +4635,14 @@ def lm_serve_phases(torch, reqs) -> tuple:
 
 F16_PER_STEP = {"flash_fwd": 8, "flash_bwd_dq": 8, "flash_bwd_dkv": 8,
                 "flash_simt_fwd": 0, "flash_simt_dq": 0,
-                "flash_simt_dkv": 0, "flash_f32_dq": 0, "flash_f32_dkv": 0,
+                "flash_simt_dkv": 0, "flash_f32_fwd": 0, "flash_f32_dq": 0,
+                "flash_f32_dkv": 0, "ln_fwd": 17, "ln_bwd": 17}
+# fp32: the forward and the backward on the tensor cores in 3xTF32, none
+# of the simple form
+F32_PER_STEP = {"flash_f32_fwd": 8, "flash_f32_dq": 8, "flash_f32_dkv": 8,
+                "flash_simt_fwd": 0, "flash_simt_dq": 0, "flash_simt_dkv": 0,
+                "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
                 "ln_fwd": 17, "ln_bwd": 17}
-# fp32: the simple form's forward, the backward on the tensor cores
-F32_PER_STEP = {"flash_simt_fwd": 8, "flash_f32_dq": 8, "flash_f32_dkv": 8,
-                "flash_simt_dq": 0, "flash_simt_dkv": 0, "flash_fwd": 0,
-                "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "ln_fwd": 17,
-                "ln_bwd": 17}
 
 
 def lm_dtype_phase(torch, model, params, phase, dtype, warm, timed,
@@ -4775,22 +4868,27 @@ def main() -> int:
     flash_bwd = {n: e for n, e in ptxas.items()
                  if "flash_dq_kernel" in n or "flash_dkv_kernel" in n}
     # the fp32 backward in 3xTF32: dq and dk/dv at D 64 and 128, plain and
-    # with a bias or dropout
+    # with a bias or dropout; the fp32 forward likewise
     flash_f32 = {n: e for n, e in ptxas.items()
                  if "f32_dq_kernel" in n or "f32_dkv_kernel" in n}
+    flash_f32_fwd = {n: e for n, e in ptxas.items() if "f32_fwd_kernel" in n}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "compiled": kcuda.build_seconds is not None, "ptxas": ptxas,
           "flash_fwd_ptxas": flash_fwd, "flash_bwd_ptxas": flash_bwd,
-          "flash_f32_ptxas": flash_f32})
-    # bf16 and fp16: 2 x 6 forward and 2 x 8 backward forms; fp32: 8
+          "flash_f32_ptxas": flash_f32,
+          "flash_f32_fwd_ptxas": flash_f32_fwd})
+    # bf16 and fp16: 2 x 6 forward and 2 x 8 backward forms; fp32: 8 and 4
     check(not kcuda.build_seconds or (len(flash_fwd) == 12
                                       and len(flash_bwd) == 16
-                                      and len(flash_f32) == 8),
+                                      and len(flash_f32) == 8
+                                      and len(flash_f32_fwd) == 4),
           f"ptxas reported {len(flash_fwd)} forward, {len(flash_bwd)} "
-          f"backward and {len(flash_f32)} fp32 backward flash forms, not "
-          f"12, 16 and 8")
+          f"backward, {len(flash_f32)} fp32 backward and "
+          f"{len(flash_f32_fwd)} fp32 forward flash forms, not 12, 16, 8 "
+          f"and 4")
     for what, forms in (("forward", flash_fwd), ("backward", flash_bwd),
-                        ("fp32 backward", flash_f32)):
+                        ("fp32 backward", flash_f32),
+                        ("fp32 forward", flash_f32_fwd)):
         check(all(e.get("spill_bytes", 0) == 0 for e in forms.values()),
               f"the flash {what} kernels spill: {forms}")
 
@@ -4832,6 +4930,7 @@ def main() -> int:
     rows.update(decode_kernel_phase(torch, timer))
     rows.update(flash_forms_phase(torch, timer))
     emit({"phase": "flash_bf16_bits", **flash_bits(torch)})
+    emit({"phase": "ln_wide_bits", **ln_wide_bits(torch)})
     rows.update(tail_kernel_phase(torch, timer))
 
     # 3-4. the serving slice, dense then paged
@@ -4922,7 +5021,7 @@ def main() -> int:
     # paged, the split decode kernel at head dim 64 in every step
     mcounts, mpcounts = lm_serve_phases(torch, reqs)
     # 28-29. lm_bench's LM trained in fp16 (O2, dynamic scale: the
-    # tensor-core kernels' fp16 forms) and in fp32 (O0: the simple form)
+    # tensor-core kernels' fp16 forms) and in fp32 (O0: the 3xTF32 kernels)
     lm_params = lm.init(torch.Generator().manual_seed(0))
     hcounts = lm_dtype_phase(torch, lm, lm_params, "lm_train_f16",
                              torch.float16, 3, 5, F16_PER_STEP)
@@ -5044,6 +5143,10 @@ def main() -> int:
         "flash_f32_dkv": ("apex_tpu_torch/ops/cuda/csrc/flash_f32.cu",
                           "apex_tpu/contrib/multihead_attn/"
                           "flash_attention.py:392"),
+        # the fp32 forward at D <= 128 on the tensor cores, 3xTF32
+        "flash_f32_fwd": ("apex_tpu_torch/ops/cuda/csrc/flash_f32.cu",
+                          "apex_tpu/contrib/multihead_attn/"
+                          "flash_attention.py:181"),
     }
     # the wide wrappers each take the place of more than one TPU kernel
     also_replaces = {
@@ -5089,7 +5192,8 @@ def main() -> int:
                 "flash_simt_dq": ("flash_simt_dq", "f32"),
                 "flash_simt_dkv": ("flash_simt_dkv", "f32"),
                 "flash_f32_dq": ("flash_f32_dq", "f32"),
-                "flash_f32_dkv": ("flash_f32_dkv", "f32")}
+                "flash_f32_dkv": ("flash_f32_dkv", "f32"),
+                "flash_f32_fwd": ("flash_f32_fwd", "f32")}
     sub = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
            "library_ms")
     kernels = []
@@ -5144,10 +5248,15 @@ def main() -> int:
                                             for k in sub}
                               for key in rows
                               if key[0] == name and key[1:2] == ("tail",)}
-        if name in ("flash_f32_dq", "flash_f32_dkv"):
+        if name in ("flash_f32_fwd", "flash_f32_dq", "flash_f32_dkv"):
             # the bound at fp32 FMAs' rate; the simple form on the inputs
             entry["bound_fma_ms"] = r["bound_fma_ms"]
             entry["simple_ms"] = r["simple_ms"]
+        if name in ("flash_simt_fwd", "flash_simt_dq", "flash_simt_dkv"):
+            # at the head dim it is kept for: tails_train's [32, 1024, 256]
+            entry["d256"] = {dt: {k: rows[(name, f"d256_{dt}")][k]
+                                  for k in sub}
+                             for dt in ("bf16", "f32")}
         if name in also_replaces:
             entry["also_replaces"] = also_replaces[name]
             entry["readings"] = {
@@ -5155,7 +5264,7 @@ def main() -> int:
                 for key in rows
                 if len(key) == 2 and key[0] == name and key[1] != "lm"}
         kernels.append(entry)
-    check(len(kernels) == 33 and all(e["launches"] > 0 for e in kernels),
+    check(len(kernels) == 34 and all(e["launches"] > 0 for e in kernels),
           f"kernels line: {[(e['name'], e['launches']) for e in kernels]}")
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "nvidia_smi": nvidia_smi(

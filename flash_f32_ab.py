@@ -1,0 +1,242 @@
+#!/usr/bin/env python3
+"""Design variants of ``apex_tpu_torch/ops/cuda/csrc/flash_f32.cu`` side by
+side on one NVIDIA card.
+
+Each variant is the committed source with text substitutions, built alone
+by ``nvcc -shared`` (all variants at once) into ``_ab/v/<name>/`` and
+called through ctypes with the wrappers' arguments. At each shape
+([BH, S, D], causal, seeded inputs) every variant's forward is held
+against ``reference_attention`` on the first 8 heads (o under
+``chip_smoke.py``'s fp32 flash rule, lse within 1e-4) and repeated bit for
+bit, then timed in turns, twice (``chip_smoke.Timer``: CUDA events, L2
+flushed); at D 64 its dq and dk/dv likewise, against ``flash_bwd_plain``.
+Then every variant's forward at edge cases (offsets, ragged tails, biases,
+dropout). One JSON line each; the card's name and power limit last.
+Run from the repository root on the card::
+
+    python3 flash_f32_ab.py tile     # the forward's staged keys a tile
+    python3 flash_f32_ab.py exp      # the forward's exponentials, P's split
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+CSRC = Path("apex_tpu_torch/ops/cuda/csrc")
+
+_TILE = "  return D <= 64 ? 64 : 32;\n}"
+_EXP = [("      alpha[h] = ex2(m[h] - mx[h]);",
+         "      alpha[h] = exp2f(m[h] - mx[h]);"),
+        ("ex2(sc - m[i >> 1]) : 0.f;", "exp2f(sc - m[i >> 1]) : 0.f;")]
+_SPLIT = "// x = big + small, both TF32\n"
+_BITS = [(_SPLIT, """// x = big + small by integer rounding (to nearest, ties away)
+__device__ __forceinline__ uint32_t tf32_bits(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+__device__ __forceinline__ void split_bits(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = tf32_bits(x);
+  small = tf32_bits(x - __uint_as_float(big));
+}
+""" + _SPLIT)] + [
+    (f"      split(p[j][{i}], ab[{k}], as[{k}]);",
+     f"      split_bits(p[j][{i}], ab[{k}], as[{k}]);")
+    for i, k in ((0, 0), (2, 1), (1, 2), (3, 3))]
+
+# (bh, sq, sk, d, causal, q_start, k_start, bias rows, kv_bias, dropout)
+_CASES = [(3, 1, 63, 1, True, 62, 0, None, False, 0.0),
+          (3, 65, 127, 65, True, 64, 2, None, False, 0.0),
+          (3, 200, 77, 128, True, 5, 130, None, False, 0.0),
+          (3, 300, 250, 64, True, -40, 0, None, False, 0.0),
+          (4, 197, 200, 64, False, 0, 0, None, True, 0.0),
+          (4, 197, 197, 96, False, 0, 0, 1, False, 0.0),
+          (4, 257, 257, 64, True, 0, 0, None, False, 0.1),
+          (4, 129, 200, 128, True, 71, 0, "bh", True, 0.2)]
+
+SETS = {
+    # the committed 64 keys a tile at D 64 and 32 at D 128, against 32 and
+    # 16
+    "tile": dict(variants={
+        "bk64": [], "bk32": [(_TILE, "  return D <= 64 ? 32 : 32;\n}")],
+        "d128_bk16": [(_TILE, "  return D <= 64 ? 64 : 16;\n}")]},
+        shapes=[[128, 4095, 64], [384, 2048, 128]], backward=False),
+    # the committed ex2.approx.ftz against exp2f, and P split for the
+    # second products by integer rounding in place of cvt.rna
+    "exp": dict(variants={"ex2": [], "exp2f": _EXP, "ex2_bits": _BITS},
+                shapes=[[128, 4095, 64]], backward=True),
+}
+
+
+def build(variants: dict, nvcc, arch, flags, ptxas_table) -> dict:
+    src = (CSRC / "flash_f32.cu").read_text()
+    procs = {}
+    for name, subs in variants.items():
+        text = src
+        for old, new in subs:
+            if old not in text:
+                raise SystemExit(f"variant {name}: {old!r} not in the source")
+            text = text.replace(old, new)
+        d = Path("_ab/v") / name
+        d.mkdir(parents=True, exist_ok=True)
+        (d / "flash_f32.cu").write_text(text)
+        cmd = [nvcc, *arch, *flags, "-I", str(CSRC), "-shared", "-o",
+               str(d / "lib.so"), str(d / "flash_f32.cu")]
+        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.PIPE, text=True)
+    P, I, F, L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                  ctypes.c_longlong)
+    tail = [P, L, P, L, ctypes.c_uint32, ctypes.c_uint32, F] + [I] * 7 + \
+        [F, P]
+    libs = {}
+    for name, p in procs.items():
+        _, err = p.communicate()
+        print(json.dumps({"variant": name, "rc": p.returncode, "ptxas": {
+            n[-44:]: e for n, e in ptxas_table(err).items()
+            if "f32_" in n}}), flush=True)
+        if p.returncode != 0:
+            raise SystemExit(err[-6000:])
+        so = ctypes.CDLL(str(Path("_ab/v") / name / "lib.so"))
+        so.apex_flash_f32_fwd.argtypes = [I] + [P] * 5 + [L] * 6 + tail
+        for fn in ("apex_flash_f32_dq", "apex_flash_f32_dkv"):
+            getattr(so, fn).argtypes = [I] + [P] * 8 + [L] * 8 + tail
+        libs[name] = so
+    return libs
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available() or len(sys.argv) != 2 \
+            or sys.argv[1] not in SETS:
+        print(f"usage on an NVIDIA card: python3 flash_f32_ab.py "
+              f"{{{','.join(SETS)}}}", file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+    from apex_tpu_torch.ops import cuda as kcuda
+    from apex_tpu_torch.ops import flash_attn as FA
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = SETS[sys.argv[1]]
+    libs = build(cfg["variants"], kcuda._nvcc(), kcuda._ARCH, kcuda._FLAGS,
+                 cs.ptxas_table)
+
+    def fwd(so, q, k, v, kw):
+        d = q.shape[-1]
+        qp, kp, vp = (FA._readable(FA._pad_d(t, FA.padded_head_dim(d)))
+                      for t in (q, k, v))
+        args, _keep = FA._tail("ab", qp, kp, kw.get("kv_bias"),
+                               kw.get("bias"), kw.get("dropout_rate", 0.0),
+                               kw.get("dropout_seed", 0), kw["causal"],
+                               kw["scale"], kw.get("q_start", 0),
+                               kw.get("k_start", 0))
+        o = torch.empty(qp.shape, device="cuda")
+        lse = torch.empty(qp.shape[:2], device="cuda")
+        err = so.apex_flash_f32_fwd(0, qp.data_ptr(), kp.data_ptr(),
+                                    vp.data_ptr(), o.data_ptr(),
+                                    lse.data_ptr(), *FA._strides(qp, kp, vp),
+                                    *args)
+        kcuda.check(err, "apex_flash_f32_fwd")
+        return o[..., :d], lse
+
+    def bwd(so, which, q, k, v, do, lse, delta, kw):
+        args, _keep = FA._tail("ab", q, k, None, None, 0.0, 0, True,
+                               kw["scale"], 0, 0)
+        strides = FA._strides(q, k, v, do)
+        ptrs = [t.data_ptr() for t in (q, k, v, do, lse, delta)]
+        if which == "dq":
+            dq = torch.empty_like(q)
+            kcuda.check(so.apex_flash_f32_dq(0, *ptrs, dq.data_ptr(), None,
+                                             *strides, *args), "dq")
+            return (dq,)
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        kcuda.check(so.apex_flash_f32_dkv(0, *ptrs, dk.data_ptr(),
+                                          dv.data_ptr(), *strides, *args),
+                    "dkv")
+        return dk, dv
+
+    timer = cs.Timer(torch)
+    n = cs.FLASH_CHECK_HEADS
+    for shape in cfg["shapes"]:
+        bh, s, d = shape
+        q, k, v, do = cs.form_inputs(torch, shape, torch.float32)
+        kw = dict(causal=True, scale=d ** -0.5)
+        o0, lse0 = FA.reference_attention(q[:n], k[:n], v[:n],
+                                          return_lse=True, **kw)
+        res = {name: {} for name in libs}
+        for name, so in libs.items():
+            o, lse = fwd(so, q, k, v, kw)
+            o2, lse2 = fwd(so, q, k, v, kw)
+            torch.cuda.synchronize()
+            res[name].update(
+                tol_used=cs.flash_err(torch, o[:n], o0,
+                                      torch.float32)["used"],
+                lse_err=float((lse[:n] - lse0).abs().max()),
+                repeat_equal=bool(torch.equal(o, o2)
+                                  and torch.equal(lse, lse2)))
+            del o, lse, o2, lse2
+        del o0, lse0
+        for order in (list(libs), list(libs)[::-1]):
+            for name in order:
+                so = libs[name]
+                res[name].setdefault("fwd_ms", []).append(
+                    timer(lambda: fwd(so, q, k, v, kw)))
+        if cfg["backward"] and d == 64:
+            o, lse = FA.flash_simt_fwd(q, k, v, **kw)
+            delta = FA.flash_delta(o, do)
+            want = FA.flash_bwd_plain(q[:n], k[:n], v[:n], do[:n], lse[:n],
+                                      delta[:n], **kw)
+            for name, so in libs.items():
+                got = bwd(so, "dq", q, k, v, do, lse, delta, kw) + \
+                    bwd(so, "dkv", q, k, v, do, lse, delta, kw)
+                torch.cuda.synchronize()
+                res[name]["bwd_tol_used"] = [
+                    cs.flash_err(torch, a[:n], b, torch.float32)["used"]
+                    for a, b in zip(got, want)]
+            for order in (list(libs), list(libs)[::-1]):
+                for name in order:
+                    for which in ("dq", "dkv"):
+                        res[name].setdefault(which + "_ms", []).append(
+                            timer(lambda: bwd(libs[name], which, q, k, v,
+                                              do, lse, delta, kw)))
+            del o, lse, delta, want
+        for name, r in res.items():
+            print(json.dumps({"shape": shape, "variant": name, **r}),
+                  flush=True)
+        del q, k, v, do
+    for case in _CASES:
+        bh, sq, sk, d, causal, q_start, k_start, rows, kvb, rate = case
+        g = torch.Generator(device="cuda").manual_seed(sq * sk + d)
+        q = torch.randn(bh, sq, d, generator=g, device="cuda")
+        k, v = (torch.randn(bh, sk, d, generator=g, device="cuda")
+                for _ in range(2))
+        kw = dict(causal=causal, scale=d ** -0.5, q_start=q_start,
+                  k_start=k_start, dropout_rate=rate, dropout_seed=-123)
+        if kvb:
+            kw["kv_bias"] = torch.where(
+                torch.rand(bh, sk, generator=g, device="cuda") < 0.25,
+                FA.NEG_INF, 0.0)
+        bias = None
+        if rows is not None:
+            bias = torch.randn(1 if rows == 1 else bh, sq, sk, generator=g,
+                               device="cuda")
+            bias[..., ::7] = FA.NEG_INF
+        o0, lse0 = FA.reference_attention(q, k, v, bias, return_lse=True,
+                                          **kw)
+        kw["bias"] = bias
+        for name, so in libs.items():
+            o, lse = fwd(so, q, k, v, kw)
+            torch.cuda.synchronize()
+            print(json.dumps({"case": case, "variant": name, "tol_used":
+                              cs.flash_err(torch, o, o0,
+                                           torch.float32)["used"],
+                              "lse_err": float((lse - lse0).abs().max())}),
+                  flush=True)
+    print(cs.nvidia_smi("name,power.limit"))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1311,9 +1311,8 @@ def test_auto_takes_the_kernel_at_the_translation_shape(card):
     """impl="auto" on the card: the translation encoder's [B·H, S, D] =
     [1024, 128, 64] bf16 self-attention takes the flash kernels (S 128 is
     the H100's crossover), the same output as impl="fast"; an fp32 input
-    goes to the plain path (the simple form has no length crossover) and
-    a head dim of 32
-    the tensor-core kernels (padded to 64); a float64 input goes to the
+    the 3xTF32 kernels (their crossover is S 128 too) and a head dim of
+    32 the tensor-core kernels (padded to 64); a float64 input goes to the
     plain path, where "fast" raises."""
     from apex_tpu_torch.contrib.multihead_attn import (
         DEFAULT_FLASH_MIN_S, EncdecMultiheadAttn, SelfMultiheadAttn)
@@ -1339,13 +1338,15 @@ def test_auto_takes_the_kernel_at_the_translation_shape(card):
     before = FA.flash_fwd.launches
     cross.apply(pc, tq, x, key_padding_mask=kpm)     # Sq 129 x Sk 128
     assert FA.flash_fwd.launches == before + 1
-    # fp32 at these lengths: the plain path, not the simple form
+    # fp32 at these lengths: the 3xTF32 forward, not the simple form
     p32 = {k: v.float() for k, v in p.items()}
-    before = (FA.flash_fwd.launches, FA.flash_simt_fwd.launches)
+    before = (FA.flash_fwd.launches, FA.flash_simt_fwd.launches,
+              FA.flash_f32_fwd.launches)
     out32, _ = auto.apply(p32, x.float())
     assert out32.dtype == torch.float32
-    assert (FA.flash_fwd.launches, FA.flash_simt_fwd.launches) == (
-        before[0], before[1])
+    assert (FA.flash_fwd.launches, FA.flash_simt_fwd.launches,
+            FA.flash_f32_fwd.launches) == (before[0], before[1],
+                                           before[2] + 1)
     # a head dim of 32 takes the tensor-core kernels, padded to 64
     narrow = SelfMultiheadAttn(512, 16, bias=True, impl="auto")
     before = FA.flash_fwd.launches
@@ -1449,6 +1450,134 @@ def test_fp16_optimizer_adagrad_through_the_kernels_matches_plain(card):
     assert opt.last_culprits[0]["path"] == "layer_1/mlp/w1"
 
 
+# -- the fp32 forward on the tensor cores in 3xTF32 (flash_f32.cu) -----------
+
+def _f32_forward_holds(FA, q, k, v, kw):
+    """The fp32 forward on the tensor cores against its plain version on
+    the same card tensors: o under the fp32 flash rule, lse within 1e-4
+    where a row sees a key and exactly NEG_INF (o = 0) where it sees none,
+    one launch of ``flash_f32_fwd`` and none of the simple form's, and a
+    second run bit for bit the first."""
+    before = (FA.flash_f32_fwd.launches, FA.flash_simt_fwd.launches)
+    o, lse = FA.flash_fwd(q, k, v, **kw)
+    assert (FA.flash_f32_fwd.launches, FA.flash_simt_fwd.launches) == (
+        before[0] + 1, before[1])
+    with dispatch.backend("reference"):
+        o0, lse0 = FA.flash_fwd(q, k, v, **kw)
+    assert o.dtype == torch.float32 and o.shape == o0.shape
+    _flash_rule(o, o0, torch.float32)
+    live = lse0 > FA.NEG_INF * 0.5
+    assert float(torch.where(live, (lse - lse0).abs(), 0.0).max()) <= 1e-4
+    assert torch.equal(lse[~live], lse0[~live]) and not o[~live].any()
+    o2, lse2 = FA.flash_fwd(q, k, v, **kw)
+    assert torch.equal(o2, o) and torch.equal(lse2, lse)
+    return o, lse
+
+
+# (sq, sk, d, causal, q_start, k_start): the blocks' 128 query rows (64 at
+# D 128), the warps' 16, the staged tiles' 64 keys (32 at D 128) and their
+# edges, Sq != Sk, causal offsets, rows that see no key, D padded from 1,
+# 32, 65 and 96
+F32_FWD_EDGES = [(1, 1, 64, False, 0, 0), (1, 15, 1, True, 14, 0),
+                 (15, 16, 64, True, 0, 0), (16, 17, 32, False, 0, 0),
+                 (17, 31, 128, True, 14, 0), (31, 32, 64, True, 1, 0),
+                 (32, 33, 96, False, 0, 0), (33, 63, 128, True, 30, 0),
+                 (63, 64, 64, True, 1, 0), (64, 65, 65, True, 1, 0),
+                 (65, 127, 128, True, 62, 0), (127, 128, 64, False, 0, 0),
+                 (128, 129, 128, True, 1, 0), (129, 33, 64, True, 0, 40),
+                 (200, 77, 128, True, 5, 130), (300, 250, 64, True, -40, 0),
+                 (4095, 1000, 64, True, 3095, 0),
+                 (1000, 4095, 96, False, 0, 0),
+                 (4095, 4095, 64, True, 0, 0),
+                 (4095, 4095, 128, True, 0, 0)]
+
+
+@pytest.mark.parametrize("sq,sk,d,causal,q_start,k_start", F32_FWD_EDGES)
+def test_f32_forward_at_the_tile_edges(card, sq, sk, d, causal, q_start,
+                                       k_start):
+    from apex_tpu_torch.ops import flash_attn as FA
+    g = torch.Generator(device=card).manual_seed(5 * sq + sk + d)
+    q = torch.randn(3, sq, d, generator=g, device=card)
+    k, v = (torch.randn(3, sk, d, generator=g, device=card)
+            for _ in range(2))
+    kw = dict(causal=causal, scale=d ** -0.5, q_start=q_start,
+              k_start=k_start)
+    o, lse = _f32_forward_holds(FA, q, k, v, kw)
+    if causal and k_start > q_start:       # rows that see no key
+        assert bool((lse[:, :k_start - q_start] == FA.NEG_INF).all())
+
+
+@pytest.mark.parametrize("form", ["kv_bias", "shared", "per_bh", "dropout",
+                                  "all"])
+@pytest.mark.parametrize("sq,sk,d", [(63, 129, 64), (197, 197, 64),
+                                     (129, 200, 128)])
+def test_f32_forward_with_biases_and_dropout(card, sq, sk, d, form):
+    """The EXTRA form: a kv_bias (a fifth of the keys masked), a full bias
+    shared over bh or one per bh (every seventh key masked), dropout 0.1,
+    and all of them at once, causal with an offset."""
+    from apex_tpu_torch.ops import flash_attn as FA
+    g = torch.Generator(device=card).manual_seed(3 * sq + sk + d)
+    bh = 4
+    q = torch.randn(bh, sq, d, generator=g, device=card)
+    k, v = (torch.randn(bh, sk, d, generator=g, device=card)
+            for _ in range(2))
+    kw = dict(causal=True, scale=d ** -0.5, q_start=sk - sq, k_start=0)
+    if form in ("kv_bias", "all"):
+        kw["kv_bias"] = torch.where(
+            torch.rand(bh, sk, generator=g, device=card) < 0.2, FA.NEG_INF,
+            0.0)
+    if form in ("dropout", "all"):
+        kw.update(dropout_rate=0.1, dropout_seed=-99)
+    if form in ("shared", "per_bh", "all"):
+        kw["bias"] = torch.randn(1 if form == "shared" else bh, sq, sk,
+                                 generator=g, device=card)
+        kw["bias"][..., ::7] = FA.NEG_INF
+    _f32_forward_holds(FA, q, k, v, kw)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_f32_forward_dropout_mask_reads_back_exactly(card, d):
+    """q = k = 0 makes every probability 1/64 over 64 keys (a whole staged
+    tile at D 64, two at D 128), v = I puts p·keep/(1 − rate) at o[i, j]:
+    o[i, j] != 0 exactly where ``dropout_bits`` keeps (i, j), at a nonzero
+    bh, q_start and k_start."""
+    from apex_tpu_torch.ops import flash_attn as FA
+    bh, n, rate, seed = 3, 64, 0.1, 0x2468ACE
+    q = torch.zeros(bh, n, d, device=card)
+    v = torch.eye(n, d, device=card).expand(bh, n, d).contiguous()
+    kw = dict(causal=False, scale=0.125, q_start=700, k_start=9,
+              dropout_rate=rate, dropout_seed=seed)
+    before = FA.flash_f32_fwd.launches
+    o, _ = FA.flash_fwd(q, q, v, **kw)
+    assert FA.flash_f32_fwd.launches == before + 1
+    pos = torch.arange(n, device=card)
+    keep = FA.dropout_bits(seed, torch.arange(bh, device=card)[:, None, None],
+                           700 + pos[None, :, None],
+                           9 + pos[None, None, :]) >= FA.drop_threshold(rate)
+    assert torch.equal(o[..., :n] != 0, keep) and not o[..., n:].any()
+    assert 0.8 < float(keep.float().mean()) < 1.0
+
+
+def test_f32_forward_reads_strided_and_broadcast_views(card):
+    """q as heads split from a packed [BH, S, 3, D] buffer (a row stride of
+    3·D), k and v broadcast over bh (stride 0), read in place; v at an odd
+    element offset (copied once): the same bits as from contiguous
+    copies."""
+    from apex_tpu_torch.ops import flash_attn as FA
+    g = torch.Generator(device=card).manual_seed(9)
+    bh, s, d = 6, 150, 64
+    q = torch.randn(bh, s, 3, d, generator=g, device=card)[:, :, 0]
+    k = torch.randn(1, s, d, generator=g, device=card).expand(bh, s, d)
+    v = torch.randn(bh * s * d + 1, generator=g, device=card)[1:].view(
+        bh, s, d)
+    assert FA._readable(q) is q and FA._readable(k) is k
+    assert FA._readable(v) is not v
+    kw = dict(causal=True, scale=d ** -0.5, q_start=20)
+    got = _f32_forward_holds(FA, q, k, v, kw)
+    want = FA.flash_fwd(q.contiguous(), k.contiguous(), v.contiguous(), **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 # -- the wide LayerNorm (F > 8192) and bn_backward_reduce ---------------------
 
 @pytest.mark.parametrize("rows,f", [(1, 8196), (13, 9344), (13, 16384),
@@ -1521,6 +1650,57 @@ def test_ln_wide_wrappers_refuse_what_the_kernels_do_not_take(card):
     w = torch.ones(9216, device=card)
     with pytest.raises(ValueError, match="weight and bias together"):
         LN.ln_fwd(torch.zeros(2, 9216, device=card), w, None, 1e-5)
+
+
+@pytest.mark.parametrize("f", [12290, 8194, 12289])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ln_bwd_wide_at_even_and_odd_widths(card, f, dtype):
+    """The wide backward's 2-wide form (F 12290 and 8194, even, every
+    buffer 2-element aligned) and its scalar form (odd F 12289, and an even
+    F from a base one element off): chip_smoke.py's LN rule (dx within one
+    ulp of the dtype plus 1e-5 of its terms, fp32 with the row means at
+    their own rounding scale; dγ and dβ within 1e-5 of their columns'
+    Σ|terms|) against the plain version, and two runs bit for bit."""
+    g = torch.Generator(device=card).manual_seed(f)
+    rows = 64
+    x = (torch.randn(rows, f, generator=g, device=card) * 2 + 0.5).to(dtype)
+    dy = torch.randn(rows, f, generator=g, device=card).to(dtype)
+    w = (torch.randn(f, generator=g, device=card) + 1).to(dtype)
+    _, mean, inv = LN.ln_fwd(x, w, torch.zeros_like(w), 1e-5)
+    got = LN.ln_bwd_wide(dy, x, w, mean, inv)
+    want = LN.ln_bwd_plain(dy, x, w, mean, inv)
+    xhat = (x.float() - mean[:, None]) * inv[:, None]
+    dxh = dy.float() * w.float()
+    if dtype == torch.float32:             # the row means' own rounding
+        m1 = dxh.abs().mean(1, keepdim=True)
+        m2 = (dxh * xhat).abs().mean(1, keepdim=True)
+    else:
+        m1 = dxh.mean(1, keepdim=True)
+        m2 = (dxh * xhat).mean(1, keepdim=True)
+    terms = inv[:, None] * (dxh.abs() + m1.abs() + (xhat * m2).abs())
+    bits = 8 if dtype == torch.bfloat16 else 24
+    want_dx = want[0].float()
+
+    def ulp(t):
+        return torch.ldexp(torch.ones_like(t), torch.frexp(t)[1] - bits)
+
+    def dx_ok(a):
+        lim = torch.maximum(ulp(a.float()), ulp(want_dx)) + 1e-5 * terms
+        return bool(((a.float() - want_dx).abs() <= lim).all())
+    assert dx_ok(got[0])
+    for a, b, t in ((got[1], want[1], dy.float() * xhat),
+                    (got[2], want[2], dy.float())):
+        assert bool(((a - b).abs() <= 1e-5 * t.abs().sum(0) + 1e-6).all())
+    again = LN.ln_bwd_wide(dy, x, w, mean, inv)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    if f % 2 == 0:                         # the scalar form beside it
+        buf = torch.empty(2 * rows * f + 1, device=card, dtype=dtype)
+        dy1 = buf[1:rows * f + 1].view(rows, f)
+        x1 = buf[rows * f + 1:].view(rows, f)
+        dy1.copy_(dy)
+        x1.copy_(x)
+        scalar = LN.ln_bwd_wide(dy1, x1, w, mean, inv)
+        assert dx_ok(scalar[0])
 
 
 def test_lm_at_a_wide_row_takes_the_wide_kernels(card):
@@ -1693,8 +1873,8 @@ def test_engine_at_head_dim_64_paged_equals_dense(card):
                          ids=["f16", "f32"])
 def test_flash_in_fp16_and_fp32_at_any_head_dim(card, dtype, d):
     """fp16 at D <= 128 by the tensor-core kernels (D padded to 64 or 128),
-    fp32 and D 256 by the simple form (the fp32 backward at D <= 128 by
-    the 3xTF32 kernels), with a kv_bias and causal masking: each kernel
+    fp32 there by the 3xTF32 kernels, D 256 by the simple form, with a
+    kv_bias and causal masking: each kernel
     against its plain version on the same inputs, and the public
     ``flash_attention`` (forward and backward) launching the form the
     dtype and head dim choose, its outputs in the input dtype."""
@@ -1710,14 +1890,15 @@ def test_flash_in_fp16_and_fp32_at_any_head_dim(card, dtype, d):
                                  causal=True, scale=d ** -0.5)
     fns = (FA.flash_fwd, FA.flash_bwd_dq, FA.flash_bwd_dkv,
            FA.flash_simt_fwd, FA.flash_simt_dq, FA.flash_simt_dkv,
-           FA.flash_f32_dq, FA.flash_f32_dkv)
+           FA.flash_f32_fwd, FA.flash_f32_dq, FA.flash_f32_dkv)
     before = [f.launches for f in fns]
     qs, ks, vs = (t.clone().requires_grad_(True) for t in (q, k, v))
     o = flash_attention(qs, ks, vs, kv_bias=kvb, causal=True)
     grads = torch.autograd.grad(o, (qs, ks, vs), do)
     assert [f.launches - n for f, n in zip(fns, before)] == {
-        "tc": [1, 1, 1, 0, 0, 0, 0, 0], "f32": [0, 0, 0, 1, 0, 0, 1, 1],
-        "simt": [0, 0, 0, 1, 1, 1, 0, 0]}[FA.backward_form(q)]
+        "tc": [1, 1, 1, 0, 0, 0, 0, 0, 0],
+        "f32": [0, 0, 0, 0, 0, 0, 1, 1, 1],
+        "simt": [0, 0, 0, 1, 1, 1, 0, 0, 0]}[FA.kernel_form(q)]
     for t in (o, *grads):
         assert t.dtype == dtype and t.shape == (bh, s, d)
         assert bool(torch.isfinite(t).all())
@@ -1979,6 +2160,8 @@ def test_f32_wrappers_refuse_what_the_kernels_do_not_take(card):
     lse = torch.zeros(2, 16, device=card)
     kw = dict(causal=False, scale=0.125)
     for t in (q.bfloat16(), torch.zeros(2, 16, 129, device=card)):
+        with pytest.raises(ValueError, match="takes fp32 at a head dim"):
+            FA.flash_f32_fwd(t, t, t, **kw)
         with pytest.raises(ValueError, match="takes fp32 at a head dim"):
             FA.flash_f32_dq(t, t, t, t, lse, lse, **kw)
         with pytest.raises(ValueError, match="takes fp32 at a head dim"):

@@ -305,9 +305,10 @@ def test_auto_rule_is_the_constant_not_the_environment(monkeypatch):
 def test_auto_takes_the_kernel_only_where_it_takes_the_call(monkeypatch):
     """The kernels take fp32, bf16 and fp16 on the card at any head dim up
     to 512 and any BH, with or without a full bias and dropout; "auto"
-    takes them from their crossover (the simple form: none, only past 2
-    GiB of plain scores) and sends everything else to the plain path (a
-    routing rule: "fast" still raises on those, test_torch_cuda.py)."""
+    takes them from their crossover (the tensor-core kernels, fp32's
+    3xTF32 ones too: S 128; the simple form: none, only past 2 GiB of
+    plain scores) and sends everything else to the plain path (a routing
+    rule: "fast" still raises on those, test_torch_cuda.py)."""
     mha = SelfMultiheadAttn(128, 2, impl="auto")
     long = _bf16(2, 4096, 64)
     assert not mha._flash_wins(long, long)            # a CPU tensor
@@ -318,12 +319,18 @@ def test_auto_takes_the_kernel_only_where_it_takes_the_call(monkeypatch):
     for d in (32, 96):
         t = _bf16(2, 4096, d)
         assert mha._flash_wins(t, t)
-    # the simple form (fp32; D past 128) has no length crossover on the
-    # H100: only scores past 2 GiB take it, from any length given
+    # fp32 at D <= 128 (the 3xTF32 kernels) crosses over at S 128 on the
+    # H100, as bf16 does
     f32 = torch.zeros(2, 4096, 64)
+    assert mha._flash_wins(f32, f32)
+    assert not mha._flash_wins(torch.zeros(2, 64, 64),
+                               torch.zeros(2, 64, 64))
+    # the simple form (D past 128) has no length crossover on the H100:
+    # only scores past 2 GiB take it, from any length given
+    f32 = torch.zeros(2, 4096, 256)
     assert not mha._flash_wins(f32, f32)
-    big = torch.zeros(8192, 128, 64)
-    assert mha._flash_wins(big, torch.zeros(8192, 4096, 64))
+    big = torch.zeros(8192, 128, 256)
+    assert mha._flash_wins(big, torch.zeros(8192, 4096, 256))
     for d in (256, 512):
         t = _bf16(2, 4096, d)
         assert not mha._flash_wins(t, t)

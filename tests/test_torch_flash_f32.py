@@ -1,12 +1,13 @@
-"""Port parity: the fp32 flash backward on the tensor cores in 3xTF32
-(``ops/cuda/csrc/flash_f32.cu``: ``flash_f32_dq``, ``flash_f32_dkv``).
+"""Port parity: the fp32 flash forward and backward on the tensor cores in
+3xTF32 (``ops/cuda/csrc/flash_f32.cu``: ``flash_f32_fwd``,
+``flash_f32_dq``, ``flash_f32_dkv``).
 
 What the kernels do is testable here without them:
 
-- the route: ``backward_form`` sends fp32 at a head dim up to 128 to the
-  new kernels, bf16/fp16 there to the tensor-core ones and any dtype past
-  128 to the simple form; ``tensor_cores`` (the forward's route) is
-  unchanged;
+- the route: ``kernel_form`` sends fp32 at a head dim up to 128 to these
+  kernels, the forward and the backward alike, bf16/fp16 there to the
+  16-bit tensor-core ones and any dtype past 128 to the simple form;
+  ``tensor_cores`` names the 16-bit kernels alone;
 - the arithmetic: a plain model of the 3xTF32 products (each fp32 operand
   split into big = tf32(x) and small = tf32(x - big), rounded as
   ``cvt.rna`` does, to nearest with ties away; each product small·big +
@@ -15,7 +16,12 @@ What the kernels do is testable here without them:
   ``flash_attention`` gradients (its Pallas kernels in interpret mode)
   within the fp32 flash rule, 2 ulps + 2^-14 of the larger of the row's
   and the tensor's RMS, unchanged from the card's; one TF32 pass fails
-  it, so the rule tells the two apart and the split is needed;
+  it, so the rule tells the two apart and the split is needed; a model
+  of the forward kernel's arithmetic (keys in tiles of 64, the online
+  softmax in log2 units, O rescaled in fp32 and each tile's P·V added from
+  a fresh accumulator, every product in 3xTF32) holds against the JAX
+  package's ``flash_attention`` forward, o under the same rule and lse
+  within 1e-4, where one TF32 pass fails the rule;
 - the fragment maps: a numpy model of ``mma.sync.m16n8k8`` with TF32
   operands (PTX's register layouts of A, B and the accumulator) gives QKᵀ
   from the K-major loads, and P·K from P's accumulator registers taken as
@@ -26,6 +32,7 @@ What the kernels do is testable here without them:
 """
 
 import importlib
+import math
 
 import jax
 import jax.numpy as jnp
@@ -48,9 +55,56 @@ JFA = importlib.import_module(
     (torch.bfloat16, 129, "simt")])
 def test_backward_form_follows_dtype_and_head_dim(dtype, d, form):
     q = torch.zeros(2, 3, d, dtype=dtype)
-    assert FA.backward_form(q) == form
-    # the forward's route is as it was: fp32 stays on the simple form
-    assert FA.tensor_cores(q) == (dtype != torch.float32 and d <= 128)
+    assert FA.kernel_form(q) == form
+    # tensor_cores names the 16-bit kernels alone
+    assert FA.tensor_cores(q) == (form == "tc")
+
+
+@pytest.mark.parametrize("d,wrapper", [(1, "flash_f32_fwd"),
+                                       (64, "flash_f32_fwd"),
+                                       (128, "flash_f32_fwd"),
+                                       (129, "flash_simt_fwd"),
+                                       (256, "flash_simt_fwd")])
+def test_forward_sends_fp32_to_the_form_kernel_form_names(d, wrapper,
+                                                          monkeypatch):
+    """``flash_fwd`` on the card: fp32 at D <= 128 to ``flash_f32_fwd``,
+    past 128 to the simple form (the wrappers stubbed, the card
+    pretended)."""
+    calls = []
+    for name in ("flash_f32_fwd", "flash_simt_fwd"):
+        monkeypatch.setattr(FA, name, lambda *a, _n=name, **kw: calls.append(
+            (_n, kw["scale"])))
+    monkeypatch.setattr(FA.dispatch, "use_kernel", lambda t: True)
+    q = torch.zeros(2, 3, d)
+    FA.flash_fwd(q, q, q, causal=True)
+    assert calls == [(wrapper, 1.0 / float(d) ** 0.5)]
+
+
+def test_f32_fwd_runs_the_plain_version_on_the_cpu_and_refuses():
+    rs = np.random.RandomState(5)
+    q, k, v = (torch.from_numpy(rs.randn(2, 33, 48).astype(np.float32))
+               for _ in range(3))
+    kvb = torch.from_numpy(np.where(rs.rand(2, 33) < 0.3, -1e30, 0.0)
+                           .astype(np.float32))
+    kw = dict(causal=True, kv_bias=kvb, dropout_rate=0.1, dropout_seed=3)
+    before = (FA.flash_f32_fwd.launches, FA.flash_simt_fwd.launches)
+    o, lse = FA.flash_f32_fwd(q, k, v, **kw)
+    o0, lse0 = FA.reference_attention(q, k, v, return_lse=True,
+                                      scale=48 ** -0.5, **kw)
+    assert torch.equal(o, o0) and torch.equal(lse, lse0)
+    assert all(torch.equal(a, b) for a, b in
+               zip(FA.flash_fwd(q, k, v, **kw), (o0, lse0)))
+    assert (FA.flash_f32_fwd.launches, FA.flash_simt_fwd.launches) == before
+    # what the fp32 kernels do not take, refused before any launch
+    for t in (q.bfloat16(), torch.zeros(2, 33, 129)):
+        with pytest.raises(ValueError, match="takes fp32 at a head dim"):
+            FA._f32_ready("flash_f32_fwd", t, t, t)
+    with pytest.raises(ValueError, match="one BH and D"):
+        FA._f32_ready("flash_f32_fwd", q, k, torch.zeros(2, 33, 64))
+    # padded to 64, readable in place: the 16-byte copies' contract
+    qp, kp, _ = FA._f32_ready("flash_f32_fwd", q, k, v)
+    assert qp.shape == kp.shape == (2, 33, 64)
+    assert bool((qp[..., 48:] == 0).all()) and torch.equal(qp[..., :48], q)
 
 
 def test_f32_wrappers_run_the_plain_versions_on_the_cpu_and_refuse():
@@ -174,6 +228,63 @@ def test_tf32_products_against_jax_under_the_fp32_rule(jax_case, passes,
     else:
         # one pass rounds each operand to 2^-11: far past the rule
         assert min(used) > 4.0, used
+
+
+def _fwd_model(q, k, v, kv_bias, *, causal, scale, dropout_rate,
+               dropout_seed, passes, bk=64):
+    """``f32_fwd_kernel``'s arithmetic in plain PyTorch: keys in tiles of
+    ``bk``; S = Q Kᵀ through ``_products(passes)`` over pairs of k-steps
+    (16 columns of D each), added in fp32; scores in log2 units with the
+    kv_bias, kNegInf where masked; the running max m and sum l of the
+    online softmax, p summed undropped into l and then dropped; O scaled
+    by alpha in fp32 and each tile's P·V (through the same products) added
+    from a fresh accumulator; o = O / l, lse = m·ln 2 + log l."""
+    mm = _products(passes)
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    log2e = 1.0 / math.log(2.0)
+    neg = torch.tensor(FA.NEG_INF)
+    m = torch.full((bh, sq), FA.NEG_INF)
+    l_sum = torch.zeros(bh, sq)
+    acc = torch.zeros(bh, sq, d)
+    qpos = torch.arange(sq)[:, None]
+    for k0 in range(0, sk, bk):
+        k1 = min(k0 + bk, sk)
+        kt, vt = k[:, k0:k1], v[:, k0:k1]
+        s = sum(mm(q[..., c:c + 16], kt[..., c:c + 16].transpose(1, 2))
+                for c in range(0, d, 16))
+        s = s * (scale * log2e) + kv_bias[:, None, k0:k1] * log2e
+        if causal:
+            s = torch.where(qpos >= torch.arange(k0, k1)[None, :], s, neg)
+        mx = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp2(m - mx)
+        p = torch.where(s > FA.NEG_INF * 0.5, torch.exp2(s - mx[..., None]),
+                        torch.zeros(()))
+        l_sum = l_sum * alpha + p.sum(-1)
+        m = mx
+        if dropout_rate > 0.0:
+            keep = FA._keep(torch.arange(bh)[:, None, None], qpos[None],
+                            torch.arange(k0, k1)[None, None, :],
+                            dropout_rate, dropout_seed)
+            p = torch.where(keep, p / (1.0 - dropout_rate), torch.zeros(()))
+        acc = acc * alpha[..., None] + mm(p, vt)
+    o = acc / torch.where(l_sum > 0, l_sum, torch.ones(()))[..., None]
+    lse = torch.where(l_sum > 0, m * math.log(2.0) + torch.log(l_sum), neg)
+    return o, lse
+
+
+@pytest.mark.parametrize("passes", [3, 1], ids=["3xtf32", "tf32"])
+def test_forward_model_against_jax_under_the_fp32_rule(jax_case, passes):
+    q, k, v, _, kvb, kw, want = jax_case
+    q, k, v, kvb = (torch.from_numpy(a) for a in (q, k, v, kvb))
+    o, lse = _fwd_model(q, k, v, kvb, passes=passes, **kw)
+    used = _rule_used(o, torch.from_numpy(want[0]))
+    lse_err = float((lse - torch.from_numpy(want[1])).abs().max())
+    if passes == 3:
+        assert used <= 1.0 and lse_err <= 1e-4, (used, lse_err)
+    else:
+        # one pass rounds each operand to 2^-11: far past the rule
+        assert used > 4.0, used
 
 
 # -- the fragment maps of mma.sync.m16n8k8 with TF32 operands ----------------

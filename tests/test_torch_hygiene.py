@@ -21,7 +21,8 @@ PKG = ROOT / "apex_tpu_torch"
 
 
 def _sources():
-    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                        ROOT / "flash_f32_ab.py"]
 
 
 def test_fresh_import_pulls_in_no_jax():
@@ -56,6 +57,18 @@ def test_no_jax_or_apex_tpu_import(path):
             top = name.split(".")[0]
             assert top not in ("jax", "jaxlib", "apex_tpu"), \
                 f"{path.name}:{node.lineno} imports {name}"
+
+
+def test_the_kernel_variant_script_refuses_without_a_card():
+    """``flash_f32_ab.py`` builds and times kernel variants on the card
+    only: without CUDA it prints its usage and exits 2, building
+    nothing."""
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    out = subprocess.run([sys.executable, "flash_f32_ab.py", "tile"],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=120, env=env)
+    assert out.returncode == 2 and "usage" in out.stderr
+    assert out.stdout == ""
 
 
 @pytest.fixture
@@ -199,9 +212,9 @@ def test_ctypes_declarations_match_the_c_entry_points():
     cuda._declare(so)
     for name, n in sigs.items():
         assert len(getattr(so, name).argtypes) == n, name
-    assert len(sigs) == 33           # the decode merge and the simple
+    assert len(sigs) == 34           # the decode merge and the simple
     # flash form's four are the 27th to 31st, the fp32 backward's two on
-    # the tensor cores the 32nd and 33rd
+    # the tensor cores the 32nd and 33rd, the fp32 forward the 34th
 
 
 def test_lm_training_entry_points_default_to_the_card_and_raise_without_it(

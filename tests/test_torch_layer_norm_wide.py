@@ -49,7 +49,9 @@ def _cols_close(got, want, terms):
 @pytest.mark.parametrize("rows,f,affine", [(13, 9344, True),
                                            (13, 16384, True),
                                            (520, 9344, True),
-                                           (9, 10240, False)])
+                                           (9, 10240, False),
+                                           (13, 12290, True),
+                                           (7, 12289, True)])
 def test_wide_fwd_bwd_match_jax_pallas(rows, f, affine):
     assert f > OPS.F_SINGLE_MAX
     x, dy, w, b = _data(rows, f, seed=rows + f)
@@ -84,6 +86,43 @@ def test_wide_fwd_bwd_match_jax_pallas(rows, f, affine):
         _cols_close(got[2].numpy(), want[2], dy)
     else:
         assert got[1] is None and got[2] is None
+
+
+def _slot_cols(vec: int, lane: int, kind: str) -> list:
+    """The chunk column of each of a lane's 32 register slots in
+    csrc/layer_norm.cu's wide kernels: as loaded (group i of ``wide_col``
+    fills slots i·VEC to i·VEC + VEC − 1 from its column on) and as the
+    backward's column sums are stored (``store_block_cols``: slot r to
+    wide_col(r / VEC, lane) + r % VEC)."""
+    if kind == "load":
+        return [(i * 32 + lane) * vec + e for i in range(32 // vec)
+                for e in range(vec)]
+    return [(r // vec * 32 + lane) * vec + r % vec for r in range(32)]
+
+
+@pytest.mark.parametrize("f", [8194, 12290, 12288])
+def test_two_wide_columns_stay_fixed_across_rows(f):
+    """The VEC-2 form of the wide backward: a lane's register slots map to
+    the same chunk columns when loaded and when its column sums are stored,
+    the lanes cover each of the chunk's 1024 columns once, and no row
+    enters the map, so the sums of dy·xhat and dy stay in registers across
+    the block's rows. Every 2-wide group starts 2-element aligned in every
+    row of an even F; the 4-wide groups start 4-element aligned in every
+    row only where F % 4 == 0 (at F % 4 == 2 odd rows are 2 off)."""
+    for vec in (1, 2, 4):
+        per_lane = [_slot_cols(vec, lane, "load") for lane in range(32)]
+        assert per_lane == [_slot_cols(vec, lane, "store")
+                            for lane in range(32)]
+        assert sorted(c for cols in per_lane for c in cols) == list(
+            range(1024))
+    nchunk = -(-f // 1024)
+    starts = [(row * f + j * 1024 + (i * 32 + lane) * 2) for row in range(5)
+              for j in range(nchunk) for i in range(16) for lane in range(32)
+              if j * 1024 + (i * 32 + lane) * 2 < f]
+    assert all(x % 2 == 0 for x in starts)
+    starts4 = {(row * f + (i * 32 + lane) * 4) % 4 for row in range(5)
+               for i in range(8) for lane in range(32)}
+    assert starts4 == ({0} if f % 4 == 0 else {0, 2})
 
 
 def test_wide_forward_holds_a_large_mean():
