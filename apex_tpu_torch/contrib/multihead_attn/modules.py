@@ -7,9 +7,10 @@ attention core chosen by ``impl`` (:169-203): ``"fast"`` the flash
 kernels, ``"default"`` the unfused ``reference_attention``, ``"auto"`` the
 flash kernels where they take the call (fp32, bf16 or fp16 on the card,
 head dim up to 512) from ``flash_min_s`` (when unset the H100's
-crossover, ``DEFAULT_FLASH_MIN_S``, for the tensor-core kernels, the
-16-bit ones and fp32's 3xTF32 ones; none for the simple form) or when the
-unfused scores would pass 2 GiB (``_flash_wins``, :138-167).
+crossover, ``DEFAULT_FLASH_MIN_S``, where every kernel of the call is a
+tensor-core one, the 16-bit ones and fp32's 3xTF32 ones; none where
+dk/dv is the simple form, past head dim 128) or when the unfused scores
+would pass 2 GiB (``_flash_wins``, :138-167).
 
 A ``key_padding_mask`` [B, Sk] (True = pad) becomes the per-key
 ``kv_bias`` [B·H, Sk], and an ``attn_mask`` [Sq, Sk] a full additive bias
@@ -113,11 +114,14 @@ class _AttnBase:
         """impl="auto": the kernels only where they take the call — fp32,
         bf16 or fp16 tensors on the card, head dim up to 512 — from
         ``flash_min_s``, or once the plain path's scores would pass 2 GiB.
-        Unset, ``flash_min_s`` is ``DEFAULT_FLASH_MIN_S`` for the
-        tensor-core kernels (bf16 and fp16, and fp32 in 3xTF32, at a head
-        dim up to 128: both crossovers measured 128 on the H100); the
-        simple form (D past 128) has no such length, so only the 2 GiB
-        rule sends a call there. The kernels take
+        Unset, ``flash_min_s`` is ``DEFAULT_FLASH_MIN_S`` where every
+        kernel of the call runs on the tensor cores (bf16 and fp16, and
+        fp32 in 3xTF32, at a head dim up to 128: both crossovers measured
+        128 on the H100); where dk/dv is the simple form (any dtype past
+        128: bf16 and fp16 at D 129-256 run their forward and dq on the
+        tensor cores, yet forward + backward lost to the plain path at
+        every S 256-4096 on the H100) there is no such length, so only
+        the 2 GiB rule sends a call there. The kernels take
         the full bias and dropout, so neither routes a call away. Anything
         else goes to ``reference_attention``, as JAX's "auto" does below
         its crossover. A routing rule, not a fallback: ``impl="fast"``
@@ -131,7 +135,7 @@ class _AttnBase:
                 and q.shape[-1] <= SIMT_MAX_HEAD_DIM):
             return False
         thr = self.flash_min_s
-        if thr is None and kernel_form(q) != "simt":
+        if thr is None and kernel_form(q, "dkv") != "simt":
             thr = DEFAULT_FLASH_MIN_S
         sq, sk = q.shape[-2], k.shape[-2]
         return (thr is not None and max(sq, sk) >= thr) or \

@@ -1,5 +1,6 @@
-// Flash attention's backward over [BH, S, D] bf16 or fp16 (D 64 or 128) for
-// Hopper: dq (with the per-bh bias gradient dS when asked) and dk/dv, each
+// Flash attention's backward over [BH, S, D] bf16 or fp16 (D 64 or 128;
+// dq also 256) for Hopper: dq (with the per-bh bias gradient dS when
+// asked) and dk/dv, each
 // recomputing the probabilities from the forward's lse. The semantics they
 // keep from the Pallas kernels are csrc/flash_common.cuh; the Hopper
 // instructions they are built from are csrc/hopper.cuh, and the tiles,
@@ -63,6 +64,16 @@
 //    time (with_tile_form), and the two consumer warpgroups take turns
 //    issuing their first products (named barriers), so that the tensor
 //    cores run one's products while the other works out P and dS.
+// dq at D = 256 (dk/dv there is csrc/flash_simt.cu's). The
+// block's Q and dO alone take 128 KB of the 227 a block may have, and a
+// 64-key stage of K and V 64 KB more, so the ring stages 32 keys a tile
+// (16 + 16 KB: three stages, 224 KB in all; the maps' boxes are 32 rows).
+// That also keeps the registers: dq's 64 x 256 accumulator is 128 fp32 a
+// thread, and the 32-key tile's S and dP add 16 each where 64 keys would
+// add 32 each. dS K is one m64n256k16 product a k-step, K MN-major across
+// its four 64-column tiles. At [32, 1024, 256] causal (1.68e7 pairs) the
+// three products are 6·D·pairs = 25.8 GFLOP: 0.0261 ms at 989 TFLOP/s; at
+// the hd-256 LM's [64, 4096, 256] 0.834 ms.
 // Causal work is skipped a warpgroup at a time: a block visits the tiles
 // its 128 rows see, and a warpgroup waits out the tiles its own 64 do not.
 // With the recompute taken out (a diagnostic build, both first-product
@@ -89,11 +100,17 @@ namespace {
 
 constexpr int kStages = 3;        // tiles of the copy ring
 
+// keys of dq's staged tiles, and the rows of its maps' boxes: 64, and 32
+// at D = 256 (see the header)
+template <int D>
+constexpr int kDqKeys = D == 256 ? 32 : kBox;
+
 template <int D>
 struct DqSmem {
+  static constexpr int BN = kDqKeys<D>;
   Tile<kRows, D> q, o;                    // the block's queries, their dO
-  Tile<kBox, D> k[kStages], v[kStages];   // the ring of key tiles
-  float kvb[kStages][kBox];               // their kv_bias, log2 units
+  Tile<BN, D> k[kStages], v[kStages];     // the ring of key tiles
+  float kvb[kStages][BN];                 // their kv_bias, log2 units
   uint64_t full[kStages], empty[kStages], qo;
 };
 
@@ -139,7 +156,7 @@ __device__ __forceinline__ float recompute(const Attn& a, int bh, int qi,
 // EXTRA form (all warp-uniform), so each loop carries only what it needs.
 // The EXTRA forms at D = 128 take one loop for both inputs (BIAS and DROP
 // checked at run time): eight loops beside dk and dv's 128 fp32 registers
-// a thread spill.
+// a thread spill. dq at D = 256, beside its own 128, does the same.
 template <int D, bool EXTRA, typename F>
 __device__ __forceinline__ void with_tile_form(bool masked, const Attn& a,
                                                F&& f) {
@@ -150,7 +167,7 @@ __device__ __forceinline__ void with_tile_form(bool masked, const Attn& a,
     else f(N{}, N{}, N{});
     return;
   }
-  if (D == 128) {
+  if (D >= 128) {
     if (masked) f(T{}, T{}, T{});
     else f(N{}, T{}, T{});
     return;
@@ -201,13 +218,14 @@ flash_dq_kernel(const __grid_constant__ Maps maps, Attn a,
                 const float* __restrict__ lse,
                 const float* __restrict__ delta, E* __restrict__ dq,
                 float* __restrict__ ds) {
+  constexpr int BN = kDqKeys<D>;
   extern __shared__ uint8_t smem_raw[];
   DqSmem<D>& sm = smem_as<DqSmem<D>>(smem_raw);
   const int nb = (a.sq + kRows - 1) / kRows;
   const int bh = blockIdx.x / nb;
   const int q0 = (nb - 1 - blockIdx.x % nb) * kRows;    // longest first
   const int wg = threadIdx.x >> 7;
-  const int nkt = key_tiles(a, q0, kRows);
+  const int nkt = key_tiles<BN>(a, q0, kRows);
   init_barriers(sm, &sm.qo);
 
   if (wg == 2) {
@@ -217,23 +235,23 @@ flash_dq_kernel(const __grid_constant__ Maps maps, Attn a,
     const int lane = threadIdx.x & 31;
     if (lane == 0) {
       mbar_arrive_expect_tx(&sm.qo, 2 * Tile<kRows, D>::kBytes);
-      load_rows(sm.q, &maps.q, &sm.qo, q0, bh);
-      load_rows(sm.o, &maps.o, &sm.qo, q0, bh);
+      load_rows<BN>(sm.q, &maps.q, &sm.qo, q0, bh);
+      load_rows<BN>(sm.o, &maps.o, &sm.qo, q0, bh);
     }
     for (int kt = 0; kt < nkt; ++kt) {
       const int s = kt % kStages;
       if (kt >= kStages) mbar_wait(&sm.empty[s], (kt / kStages - 1) & 1);
       if (EXTRA) {
-        for (int r = lane; r < kBox; r += 32) {
-          const int kj = kt * kBox + r;
+        for (int r = lane; r < BN; r += 32) {
+          const int kj = kt * BN + r;
           sm.kvb[s][r] = a.kvb != nullptr && kj < a.sk
                              ? a.kvb[bh * a.kvb_bh + kj] * kLog2e : 0.f;
         }
       }
       if (lane == 0) {
-        mbar_arrive_expect_tx(&sm.full[s], 2 * Tile<kBox, D>::kBytes);
-        load_rows(sm.k[s], &maps.k, &sm.full[s], kt * kBox, bh);
-        load_rows(sm.v[s], &maps.v, &sm.full[s], kt * kBox, bh);
+        mbar_arrive_expect_tx(&sm.full[s], 2 * Tile<BN, D>::kBytes);
+        load_rows<BN>(sm.k[s], &maps.k, &sm.full[s], kt * BN, bh);
+        load_rows<BN>(sm.v[s], &maps.v, &sm.full[s], kt * BN, bh);
       } else {
         mbar_arrive(&sm.full[s]);
       }
@@ -263,7 +281,7 @@ flash_dq_kernel(const __grid_constant__ Maps maps, Attn a,
   float acc[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-  const int nkt_wg = key_tiles(a, r0, kWgRows);
+  const int nkt_wg = key_tiles<BN>(a, r0, kWgRows);
   mbar_wait(&sm.qo, 0);
   uint32_t qf[kASteps<D>][4], of[kASteps<D>][4];
   if constexpr (D == 64) {
@@ -285,12 +303,12 @@ flash_dq_kernel(const __grid_constant__ Maps maps, Attn a,
       release(sm, s);
       continue;
     }
-    float sc[32], dp[32];
+    float sc[BN / 2], dp[BN / 2];
     fence_regs(acc);
     turn_begin(wg);
     wg_fence();
-    first_product<E, D, kBox>(sc, sm.q, wg * kWgRows, qf, sm.k[s], 0);
-    first_product<E, D, kBox>(dp, sm.o, wg * kWgRows, of, sm.v[s], 0);
+    first_product<E, D, BN>(sc, sm.q, wg * kWgRows, qf, sm.k[s], 0);
+    first_product<E, D, BN>(dp, sm.o, wg * kWgRows, of, sm.v[s], 0);
     wg_commit();
     turn_end(wg);
     wg_wait<0>();
@@ -300,13 +318,13 @@ flash_dq_kernel(const __grid_constant__ Maps maps, Attn a,
     release(sm, held);
     held = -1;
     // dS * scale, each pair packed into its 16-bit fragment as it is made
-    const bool full = all_visible(a, qw, 16, kt * kBox, kBox);
-    uint32_t f[4][4];
+    const bool full = all_visible(a, qw, 16, kt * BN, BN);
+    uint32_t f[BN / 16][4];
     with_tile_form<D, EXTRA>(!full, a, [&](auto mask, auto bias, auto drop) {
       constexpr bool M = decltype(mask)::value, B = decltype(bias)::value,
                      P = decltype(drop)::value;
 #pragma unroll
-      for (int ks = 0; ks < 4; ++ks) {
+      for (int ks = 0; ks < BN / 16; ++ks) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           float x[2];
@@ -321,7 +339,7 @@ flash_dq_kernel(const __grid_constant__ Maps maps, Attn a,
             } else {
               const int qi = qw + g + 8 * h;
               const int kl = (i >> 2) * 8 + 2 * t4 + (i & 1);
-              const int kj = kt * kBox + kl;
+              const int kj = kt * BN + kl;
               float d;
               recompute<EXTRA, M, B, P>(a, bh, qi, kj, sc[i], sl2,
                                         EXTRA ? sm.kvb[s][kl] : 0.f, dp[i],
@@ -338,7 +356,7 @@ flash_dq_kernel(const __grid_constant__ Maps maps, Attn a,
       }
     });
     wg_fence();
-    frags_by_tile<E, D, 4>(acc, f, sm.k[s], 0);      // dq += dS K
+    frags_by_tile<E, D, BN / 16>(acc, f, sm.k[s], 0);  // dq += dS K
     wg_commit();
     held = s;
   }
@@ -348,7 +366,7 @@ flash_dq_kernel(const __grid_constant__ Maps maps, Attn a,
   release(sm, held);
   if (EXTRA && dsb != nullptr) {
     // the key tiles this warpgroup skips: dS = 0 there
-    const int k_from = nkt_wg * kBox, wide = a.sk - k_from;
+    const int k_from = nkt_wg * BN, wide = a.sk - k_from;
     for (int i = tid; wide > 0 && i < kWgRows * wide; i += 128) {
       const int qi = r0 + i / wide;
       if (qi < a.sq) dsb[(long long)qi * a.sk + k_from + i % wide] = 0.f;
@@ -589,7 +607,7 @@ cudaError_t launch(void (*kernel)(Maps, Attn, const float*, const float*,
 
 // dq [bh, sq, d] of q's dtype, contiguous; ds null or fp32 [bh, sq, sk]
 // contiguous (the per-bh bias gradient; taken only with a bias or kv_bias
-// or dropout).
+// or dropout). d may also be 256, its maps' boxes then 64 x 32 x 1.
 extern "C" int apex_flash_bwd_dq(int dtype, const void* q, const void* k,
                                  const void* v, const void* dout,
                                  const void* lse, const void* delta,
@@ -602,7 +620,8 @@ extern "C" int apex_flash_bwd_dq(int dtype, const void* q, const void* k,
                                  int k_start, int causal, float scale,
                                  void* stream) {
   using namespace apex_port;
-  if (bad(bh, sq, sk, d, blocks) || blocks != (sq + kRows - 1) / kRows ||
+  if (bad(bh, sq, sk, d, blocks, true) ||
+      blocks != (sq + kRows - 1) / kRows ||
       (dtype != kBF16 && dtype != kF16)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -610,7 +629,8 @@ extern "C" int apex_flash_bwd_dq(int dtype, const void* q, const void* k,
   Attn a;
   if (!prepare(&maps, &a, dtype == kF16, q, k, v, dout, tma, kvb, kvb_bh,
                bias, bias_bh, seed, drop_thresh, drop_inv, bh, sq, sk, d,
-               q_start, k_start, causal, scale)) {
+               q_start, k_start, causal, scale,
+               d == 256 ? kDqKeys<256> : kBox)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (ds != nullptr && a.kvb == nullptr && a.bias == nullptr &&
@@ -626,7 +646,7 @@ extern "C" int apex_flash_bwd_dq(int dtype, const void* q, const void* k,
   with_elem(dtype, [&](auto et) {
     using E = typename decltype(et)::type;
     E* out = static_cast<E*>(dq);
-    with_form(d, a, [&](auto dd, auto ex) {
+    with_form<true>(d, a, [&](auto dd, auto ex) {
       constexpr int D = decltype(dd)::value;
       err = launch(flash_dq_kernel<E, D, decltype(ex)::value>,
                    smem_bytes<DqSmem<D>>(), grid, st, maps, a, lp, dl, out,

@@ -175,10 +175,11 @@ Attn make_attn(const void* q, const void* k, const void* v, long long q_bh,
 
 // what the 16-bit kernels refuse: blocks (a grid's blocks along the rows,
 // folded with bh into its one dim) * bh past 2^31 - 1, no rows, D other
-// than 64 or 128
-bool bad(int bh, int sq, int sk, int d, int blocks) {
-  return bh < 1 || sq < 1 || sk < 1 || (d != 64 && d != 128) ||
-         blocks < 1 || (long long)blocks * bh > 0x7fffffffLL;
+// than 64 or 128 (or 256, for the kernels written for it: d256)
+bool bad(int bh, int sq, int sk, int d, int blocks, bool d256 = false) {
+  return bh < 1 || sq < 1 || sk < 1 ||
+         (d != 64 && d != 128 && !(d256 && d == 256)) || blocks < 1 ||
+         (long long)blocks * bh > 0x7fffffffLL;
 }
 
 // calls f(Tag<E>) for the 16-bit element types of the tensor-core kernels
@@ -192,19 +193,24 @@ bool with_elem(int dtype, F&& f) {
 }
 
 // calls f(D, EXTRA) with both as compile-time constants: the head dim (64
-// or 128) and whether any bias or dropout is given
-template <typename F>
+// or 128, or 256 where D256) and whether any bias or dropout is given
+template <bool D256 = false, typename F>
 void with_form(int d, const Attn& a, F&& f) {
   using std::integral_constant;
   const bool extra = a.kvb != nullptr || a.bias != nullptr ||
                      a.drop_inv > 0.f;
-  if (d == 64) {
-    if (extra) f(integral_constant<int, 64>{}, integral_constant<bool, true>{});
-    else f(integral_constant<int, 64>{}, integral_constant<bool, false>{});
-  } else {
-    if (extra) f(integral_constant<int, 128>{}, integral_constant<bool, true>{});
-    else f(integral_constant<int, 128>{}, integral_constant<bool, false>{});
+  auto at = [&](auto dd) {
+    if (extra) f(dd, integral_constant<bool, true>{});
+    else f(dd, integral_constant<bool, false>{});
+  };
+  if constexpr (D256) {
+    if (d == 256) {
+      at(integral_constant<int, 256>{});
+      return;
+    }
   }
+  if (d == 64) at(integral_constant<int, 64>{});
+  else at(integral_constant<int, 128>{});
 }
 
 // out[i] = sum over the runs r = 0, 1, ... of part[r][i], in run order:

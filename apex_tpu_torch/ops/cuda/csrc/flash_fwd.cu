@@ -1,5 +1,5 @@
-// Flash attention's forward over [BH, S, D] bf16 or fp16 (D 64 or 128) for
-// Hopper:
+// Flash attention's forward over [BH, S, D] bf16 or fp16 (D 64, 128 or
+// 256) for Hopper:
 // the output and its per-row logsumexp. The semantics it keeps from the
 // Pallas kernel are csrc/flash_common.cuh; the Hopper instructions it is
 // built from are csrc/hopper.cuh, and the tiles, ring, products and turns
@@ -18,7 +18,10 @@
 // (0.278 ms); at the wide LM's [384, 2048, 128] 0.417 ms. The forward
 // also takes one exp2 a live pair on the special-function units (16 a
 // clock an SM: ~0.3 ms at the LM shape), a floor close to the first. At
-// the ViT's [1536, 197, 64] the bound is bytes.
+// the ViT's [1536, 197, 64] the bound is bytes. At D = 256 (lm_bench's
+// LM at --dim 2048 --heads 8, Gemma 2B's 8 heads of 256: [64, 4096, 256]
+// causal, 5.4e8 pairs) the products are 550 GFLOP: 0.556 ms; at [32, 1024,
+// 256] 0.0174 ms.
 //
 // What the design does about the limits of the mma.sync kernel it
 // replaces (FlashAttention-3's forward, Shah et al. 2024, within what the
@@ -58,6 +61,15 @@
 // H100 (PERF.md) were slower: 64-key tiles in the plain form, FA3's intra-warpgroup overlap
 // (tile kt's PV issued with kt + 1's QK^T), a deeper ring, a turn that
 // ends before the wait for S.
+// At D = 256 the same body takes 64-key tiles in every kind: the
+// queries' 64 KB and a ring of two stages of 32 + 32 KB fill 192 KB of
+// the 227 a block may have (128 keys would leave room for one stage), and
+// O's 64 x 256 accumulator is 128 fp32 registers a thread beside S's 32
+// and P's 16, under setmaxnreg's 240. PV is one m64n256k16 product a
+// k-step, V MN-major across its four 64-column tiles; QK^T reads both
+// operands from shared memory, as at D = 128. The full bias is read from
+// L2 a score at a time in the softmax instead of into 32 registers ahead
+// of QK^T (the registers are O's).
 // Causal work is skipped a warpgroup at a time: a block visits the key
 // tiles its 128 rows see, and a warpgroup waits out the tiles its own 64
 // do not. Each block owns its output rows: o and lse repeat bit for bit.
@@ -82,9 +94,15 @@ namespace {
 enum Kind : int { kPlainKind = 0, kExtraKind = 1, kBiasKind = 2 };
 
 // keys of a staged tile: 64 with a full bias, whose scores carry the bias
-// read ahead into registers beside them; else 128
-template <int KIND>
-constexpr int kBlockN = KIND == kBiasKind ? 64 : 128;
+// read ahead into registers beside them, and at D = 256 (shared memory);
+// else 128
+template <int D, int KIND>
+constexpr int kBlockN = KIND == kBiasKind || D == 256 ? 64 : 128;
+
+// whether the full bias is read into registers ahead of QK^T (load_bias):
+// not at D = 256, whose O takes those registers
+template <int D>
+constexpr bool kBiasAhead = D < 256;
 
 // tiles of the copy ring: as many as 96 KB of K and V hold (three of 128
 // keys at D = 64), at least two
@@ -138,8 +156,8 @@ __device__ __forceinline__ void prefetch_bias(const Attn& a, int bh, int q0,
 
 // calls f(MASK, BIAS, DROP) as compile-time constants for a tile of a
 // kernel of kind KIND: `masked` from the tile's position, DROP from the
-// inputs (warp-uniform), BIAS from the kind. At D = 128 dropout is checked
-// at run time in one loop (registers).
+// inputs (warp-uniform), BIAS from the kind. At D = 128 and 256 dropout is
+// checked at run time in one loop (registers).
 template <int D, int KIND, typename F>
 __device__ __forceinline__ void fwd_tile_form(bool masked, const Attn& a,
                                               F&& f) {
@@ -149,7 +167,7 @@ __device__ __forceinline__ void fwd_tile_form(bool masked, const Attn& a,
   if constexpr (KIND == kPlainKind) {
     if (masked) f(T{}, N{}, N{});
     else f(N{}, N{}, N{});
-  } else if (D == 128 || a.drop_inv > 0.f) {
+  } else if (D >= 128 || a.drop_inv > 0.f) {
     if (masked) f(T{}, B{}, T{});
     else f(N{}, B{}, T{});
   } else {
@@ -163,7 +181,8 @@ __device__ __forceinline__ void fwd_tile_form(bool masked, const Attn& a,
 // a tile whose form is known (MASK, BIAS, DROP as fwd_tile_form gives
 // them; EXTRA, any bias or dropout: the value guard). sc holds q·k in the
 // accumulator layout of hopper.cuh, kvb the tile's kv_bias and bv its full
-// bias (load_bias) in log2 units; m holds the rows' running max in log2
+// bias (load_bias) in log2 units, or, with NB = 1, no registers: the bias
+// read a score at a time (bias_at); m holds the rows' running max in log2
 // units and l this thread's share of their sums. Sets alpha, the factors
 // by which the output's rows shrink, and packs P into its 16-bit E
 // fragments:
@@ -187,7 +206,11 @@ __device__ __forceinline__ void softmax_tile(
       const int kl = (i >> 2) * 8 + 2 * t4 + (i & 1);
       const bool vis = !MASK || visible(a, qi, k0 + kl);
       float v = EXTRA ? fmaf(sc[i], sl2, kvb[kl]) : sc[i] * sl2;
-      if constexpr (BIAS) v += vis ? bv[i] : 0.f;
+      if constexpr (BIAS && NB > 1) {
+        v += vis ? bv[i] : 0.f;
+      } else if constexpr (BIAS) {
+        v += vis ? bias_at(a, bh, qi, k0 + kl) : 0.f;
+      }
       sc[i] = vis ? v : kNegInf;
     }
   }
@@ -253,7 +276,8 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
 flash_fwd_kernel(const __grid_constant__ Maps maps, Attn a,
                  E* __restrict__ o, float* __restrict__ lse) {
   constexpr bool EXTRA = KIND != kPlainKind, BIAS = KIND == kBiasKind;
-  constexpr int BN = kBlockN<KIND>, NS = kFwdStages<D, BN>;
+  constexpr int BN = kBlockN<D, KIND>, NS = kFwdStages<D, BN>;
+  constexpr bool AHEAD = BIAS && kBiasAhead<D>;
   extern __shared__ uint8_t smem_raw[];
   FwdSmem<D, BN>& sm = smem_as<FwdSmem<D, BN>>(smem_raw);
   const int nb = (a.sq + kRows - 1) / kRows;
@@ -324,8 +348,8 @@ flash_fwd_kernel(const __grid_constant__ Maps maps, Attn a,
       release(sm, s);
       continue;
     }
-    float sc[BN / 2], bv[BIAS ? BN / 2 : 1];
-    if constexpr (BIAS) load_bias<BN>(a, bh, qw, kt * BN, bv);
+    float sc[BN / 2], bv[AHEAD ? BN / 2 : 1];
+    if constexpr (AHEAD) load_bias<BN>(a, bh, qw, kt * BN, bv);
     fence_regs(acc);
     turn_begin(wg);
     wg_fence();
@@ -384,9 +408,10 @@ flash_fwd_kernel(const __grid_constant__ Maps maps, Attn a,
 }  // namespace
 }  // namespace apex_port
 
-// q, k, v [bh, s, d] of dtype (bf16 or fp16) whose tensor maps the wrapper
-// describes in tma (3 x 8 long longs, in that order: dims d, s, bh; row and
-// bh strides in bytes, multiples of 16; the box 64, 64, 1), every base
+// q, k, v [bh, s, d] (d 64, 128 or 256) of dtype (bf16 or fp16) whose
+// tensor maps the wrapper describes in tma (3 x 8 long longs, in that
+// order: dims d, s, bh; row and bh strides in bytes, multiples of 16; the
+// box 64, 64, 1), every base
 // 16-byte aligned; `blocks` the grid's blocks of 128 query rows a bh; kvb
 // null or fp32 [1|bh, sk] with bh stride kvb_bh (0 when shared), its keys
 // contiguous; bias null or fp32 [1|bh, sq, sk] contiguous with bh stride
@@ -403,7 +428,8 @@ extern "C" int apex_flash_fwd(int dtype, const void* q, const void* k,
                               int q_start, int k_start, int causal,
                               float scale, void* stream) {
   using namespace apex_port;
-  if (bad(bh, sq, sk, d, blocks) || blocks != (sq + kRows - 1) / kRows ||
+  if (bad(bh, sq, sk, d, blocks, true) ||
+      blocks != (sq + kRows - 1) / kRows ||
       (dtype != kBF16 && dtype != kF16)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -427,7 +453,7 @@ extern "C" int apex_flash_fwd(int dtype, const void* q, const void* k,
     auto run = [&](auto dd, auto kk) {
       constexpr int D = decltype(dd)::value, K = decltype(kk)::value;
       auto kernel = flash_fwd_kernel<E, D, K>;
-      const int bytes = smem_bytes<FwdSmem<D, kBlockN<K>>>();
+      const int bytes = smem_bytes<FwdSmem<D, kBlockN<D, K>>>();
       err = cudaFuncSetAttribute(
           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
       if (err != cudaSuccess) return;
@@ -445,7 +471,8 @@ extern "C" int apex_flash_fwd(int dtype, const void* q, const void* k,
       }
     };
     if (d == 64) by_kind(integral_constant<int, 64>{});
-    else by_kind(integral_constant<int, 128>{});
+    else if (d == 128) by_kind(integral_constant<int, 128>{});
+    else by_kind(integral_constant<int, 256>{});
   });
   return static_cast<int>(err);
 }

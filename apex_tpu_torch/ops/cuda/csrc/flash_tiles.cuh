@@ -18,8 +18,9 @@ using namespace hopper;
 
 constexpr int kRows = 128;        // rows a block owns (queries; keys)
 constexpr int kWgRows = 64;       // rows of one consumer warpgroup
-constexpr int kBox = 64;          // a TMA box: 64 rows of 64 16-bit (the
-                                  // 128-byte swizzle's span), one bh
+constexpr int kBox = 64;          // a TMA box: 64 rows (32 in dq at D =
+                                  // 256) of 64 16-bit (the 128-byte
+                                  // swizzle's span), one bh
 constexpr int kBlockThreads = 384;  // consumer warpgroups 0 and 1, producer 2
 // registers a thread after setmaxnreg (256 * 240 + 128 * 24 of the SM's
 // 65536); one warp of the producer warpgroup issues the copies
@@ -78,18 +79,20 @@ __device__ __forceinline__ void init_barriers(S& sm, uint64_t* once) {
   __syncthreads();
 }
 
-// rows [row0, row0 + R) of bh into t, by one thread: R / 64 boxes down,
-// D / 64 across; completes R * D * 2 bytes on bar
-template <int R, int D>
+// rows [row0, row0 + R) of bh into t, by one thread, from a map whose box
+// is BR rows: R / BR boxes down, D / 64 across; completes R * D * 2 bytes
+// on bar
+template <int BR = kBox, int R, int D>
 __device__ __forceinline__ void load_rows(Tile<R, D>& t,
                                           const CUtensorMap* map,
                                           uint64_t* bar, int row0, int bh) {
+  static_assert(R % BR == 0, "a tile is whole boxes");
 #pragma unroll
   for (int c = 0; c < D / kBox; ++c) {
 #pragma unroll
-    for (int h = 0; h < R / kBox; ++h) {
-      tma_load_3d(&t.x[c][h * kBox * kBox], map, bar, c * kBox,
-                  row0 + h * kBox, bh);
+    for (int h = 0; h < R / BR; ++h) {
+      tma_load_3d(&t.x[c][h * BR * kBox], map, bar, c * kBox, row0 + h * BR,
+                  bh);
     }
   }
 }
@@ -155,8 +158,8 @@ __device__ __forceinline__ void load_frags(uint32_t (&f)[D / 16][4],
 // times rows [b0, b0 + N) of b transposed: the product over D, both
 // K-major. At D = 64 the rows come from their register fragments f (an
 // m64n64k16 product that reads both operands from shared memory takes all
-// of its bandwidth); at D = 128 from a itself, their fragments (64
-// registers a thread) having no room beside the accumulators
+// of its bandwidth); at D = 128 and 256 from a itself, their fragments (64
+// and 128 registers a thread) having no room beside the accumulators
 template <typename E, int D, int N, int RB>
 __device__ __forceinline__ void first_product(
     float (&acc)[N / 2], const Tile<kRows, D>& a, int r0,
@@ -244,13 +247,13 @@ EncodeTiled encoder() {
 }
 
 // one tensor's layout from the wrapper: dims (D, S, BH) innermost first,
-// the row and bh strides in bytes, the box (64, 64, 1)
+// the row and bh strides in bytes, the box (64, box_rows, 1)
 constexpr int kLayoutLen = 8;
 
 bool encode(CUtensorMap* map, const void* base, const long long* lay,
-            int d, int s, int bh, CUtensorMapDataType type) {
+            int d, int s, int bh, CUtensorMapDataType type, int box_rows) {
   if (lay[0] != d || lay[1] != s || lay[2] != bh || lay[5] != kBox ||
-      lay[6] != kBox || lay[7] != 1) {
+      lay[6] != box_rows || lay[7] != 1) {
     return false;
   }
   const EncodeTiled fn = encoder();
@@ -271,24 +274,25 @@ bool encode(CUtensorMap* map, const void* base, const long long* lay,
 }
 
 // the maps of q, k and v (and, with dout, dO) of 16-bit elements (fp16
-// with f16, else bf16) and the Attn the kernels take; the strides of q, k
-// and v come from their maps
+// with f16, else bf16), each in boxes of box_rows rows, and the Attn the
+// kernels take; the strides of q, k and v come from their maps
 bool prepare(Maps* maps, Attn* a, bool f16, const void* q, const void* k,
              const void* v, const void* dout, const long long* tma,
              const void* kvb, long long kvb_bh, const void* bias,
              long long bias_bh, unsigned seed, unsigned drop_thresh,
              float drop_inv, int bh, int sq, int sk, int d, int q_start,
-             int k_start, int causal, float scale) {
+             int k_start, int causal, float scale, int box_rows = kBox) {
   const long long* lq = tma;
   const long long* lk = tma + kLayoutLen;
   const long long* lv = tma + 2 * kLayoutLen;
   const long long* lo = tma + 3 * kLayoutLen;
   const CUtensorMapDataType t = f16 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
                                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  if (!encode(&maps->q, q, lq, d, sq, bh, t) ||
-      !encode(&maps->k, k, lk, d, sk, bh, t) ||
-      !encode(&maps->v, v, lv, d, sk, bh, t) ||
-      (dout != nullptr && !encode(&maps->o, dout, lo, d, sq, bh, t))) {
+  if (!encode(&maps->q, q, lq, d, sq, bh, t, box_rows) ||
+      !encode(&maps->k, k, lk, d, sk, bh, t, box_rows) ||
+      !encode(&maps->v, v, lv, d, sk, bh, t, box_rows) ||
+      (dout != nullptr &&
+       !encode(&maps->o, dout, lo, d, sq, bh, t, box_rows))) {
     return false;
   }
   *a = make_attn(q, k, v, lq[4] / 2, lq[3] / 2, lk[4] / 2, lk[3] / 2,

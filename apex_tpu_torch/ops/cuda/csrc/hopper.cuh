@@ -7,13 +7,13 @@
 // 16-bit elements, bf16 or fp16 (128 bytes a row), as TMA writes it with
 // CU_TENSOR_MAP_SWIZZLE_128B: the 16-byte chunk c of row r sits at chunk c
 // ^ (r % 8), the tile's base 1024-byte aligned. A head dim of 128 is two
-// such tiles (columns 0-63 and 64-127), one after the other. The same bytes
-// serve as a K-major operand (the contraction runs along the 64 columns:
-// the descriptor's start steps 32 bytes a k-step of 16, and 8-row groups
-// lie SBO = 1024 bytes apart) and as an MN-major one (the contraction runs
-// down the rows: a k-step of 16 rows is 2048 bytes, 8-row groups SBO = 1024
-// apart, and the second 64-column tile of a 128-wide operand lies LBO bytes
-// on).
+// such tiles (columns 0-63 and 64-127), one after the other, and 256 four.
+// The same bytes serve as a K-major operand (the contraction runs along
+// the 64 columns: the descriptor's start steps 32 bytes a k-step of 16, and
+// 8-row groups lie SBO = 1024 bytes apart) and as an MN-major one (the
+// contraction runs down the rows: a k-step of 16 rows is 2048 bytes, 8-row
+// groups SBO = 1024 apart, and each further 64-column tile of a 128- or
+// 256-wide operand lies LBO bytes on).
 #pragma once
 
 #include <cuda.h>   // CUtensorMap (a type only: nothing links libcuda)
@@ -205,6 +205,39 @@ constexpr bool kIsF16 = std::is_same<E, __half>::value;
   " %48, %49, %50, %51, %52, %53, %54, %55,"                               \
   " %56, %57, %58, %59, %60, %61, %62, %63}"
 
+#define APEX_ACC128(d)                                                     \
+  APEX_ACC64(d),                                                           \
+      "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]),     \
+      "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]),     \
+      "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]),     \
+      "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),     \
+      "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]),     \
+      "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]),     \
+      "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]),     \
+      "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), \
+      "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), \
+      "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), \
+      "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), \
+      "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), \
+      "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+#define APEX_R128                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7,"                                       \
+  " %8, %9, %10, %11, %12, %13, %14, %15,"                                 \
+  " %16, %17, %18, %19, %20, %21, %22, %23,"                               \
+  " %24, %25, %26, %27, %28, %29, %30, %31,"                               \
+  " %32, %33, %34, %35, %36, %37, %38, %39,"                               \
+  " %40, %41, %42, %43, %44, %45, %46, %47,"                               \
+  " %48, %49, %50, %51, %52, %53, %54, %55,"                               \
+  " %56, %57, %58, %59, %60, %61, %62, %63,"                               \
+  " %64, %65, %66, %67, %68, %69, %70, %71,"                               \
+  " %72, %73, %74, %75, %76, %77, %78, %79,"                               \
+  " %80, %81, %82, %83, %84, %85, %86, %87,"                               \
+  " %88, %89, %90, %91, %92, %93, %94, %95,"                               \
+  " %96, %97, %98, %99, %100, %101, %102, %103,"                           \
+  " %104, %105, %106, %107, %108, %109, %110, %111,"                       \
+  " %112, %113, %114, %115, %116, %117, %118, %119,"                       \
+  " %120, %121, %122, %123, %124, %125, %126, %127}"
+
 template <typename E>
 __device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t da,
                                           uint64_t db, int scale_d) {
@@ -305,12 +338,39 @@ __device__ __forceinline__ void mma_rs_n128(float (&d)[64],
   }
 }
 
+// the m64n256k16 form: a 256-wide accumulator (the D = 256 kernels' O and
+// dq), 128 registers a thread
+template <int TB, typename E>
+__device__ __forceinline__ void mma_rs_n256(float (&d)[128],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, int scale_d) {
+  if constexpr (kIsF16<E>) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.f16.f16 " APEX_R128
+        ", {%128, %129, %130, %131}, %132, p, 1, 1, %134;\n}\n"
+        : APEX_ACC128(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(scale_d), "n"(TB));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " APEX_R128
+        ", {%128, %129, %130, %131}, %132, p, 1, 1, %134;\n}\n"
+        : APEX_ACC128(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(scale_d), "n"(TB));
+  }
+}
+
 #undef APEX_ACC16
 #undef APEX_ACC32
 #undef APEX_ACC64
+#undef APEX_ACC128
 #undef APEX_R16
 #undef APEX_R32
 #undef APEX_R64
+#undef APEX_R128
 
 template <int N, typename E>
 __device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t da,
@@ -325,7 +385,8 @@ __device__ __forceinline__ void mma_rs(float (&d)[N / 2],
                                        const uint32_t (&a)[4], uint64_t db,
                                        int scale_d) {
   if constexpr (N == 64) mma_rs_n64<TB, E>(d, a, db, scale_d);
-  else mma_rs_n128<TB, E>(d, a, db, scale_d);
+  else if constexpr (N == 128) mma_rs_n128<TB, E>(d, a, db, scale_d);
+  else mma_rs_n256<TB, E>(d, a, db, scale_d);
 }
 
 }  // namespace hopper

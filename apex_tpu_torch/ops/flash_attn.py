@@ -20,19 +20,23 @@ gradient):
   gradient of a bias [1, Sq, Sk] shared over bh, dS summed over bh; its
   plain version is :func:`flash_bwd_dbias_plain`.
 
-Three forms of kernel serve them, the forward and the backward alike
-(:func:`kernel_form` picks): bf16 and fp16 at a head dim up to 128 go to
-the Hopper kernels above, which take D 64 or 128 and so get q, k, v (and
-dO) zero-padded to the next of the two (the JAX package pads D to 128
-lanes; zero columns add nothing to QKᵀ and give zero output columns,
-sliced off), the real D's scale passed; fp32 at a head dim up to 128 goes,
+Four forms of kernel serve them, each kernel's own
+(:func:`kernel_form` picks for the forward, dq and dk/dv): bf16 and fp16
+at a head dim up to 128 go to the Hopper kernels above, which take D 64 or
+128 and so get q, k, v (and dO) zero-padded to the next of the two (the
+JAX package pads D to 128 lanes; zero columns add nothing to QKᵀ and give
+zero output columns, sliced off), the real D's scale passed; bf16 and
+fp16 at D 129-256 go, padded to 256 alike, to the same forward and dq
+kernels at D 256 (:func:`flash_d256_fwd`, :func:`flash_d256_dq`), while
+their dk/dv stays on the simple form; fp32 at a head dim up to 128 goes,
 padded alike, to ``ops/cuda/csrc/flash_f32.cu``, 3xTF32 products on the
 tensor cores (:func:`flash_f32_fwd`, :func:`flash_f32_dq`,
-:func:`flash_f32_dkv`); D from 129 to 512 in any of the three dtypes goes
-to the simple form of ``ops/cuda/csrc/flash_simt.cu``: fp32 FMAs, a warp a
-row (:func:`flash_simt_fwd`, :func:`flash_simt_dq`, :func:`flash_simt_dkv`;
-:func:`flash_bwd_dbias` sums that dq kernel's dS over bh, and takes it in
-fp32 at any head dim). Each of these wrappers counts its own launches.
+:func:`flash_f32_dkv`); the rest, up to D 512 in any of the three dtypes,
+goes to the simple form of ``ops/cuda/csrc/flash_simt.cu``: fp32 FMAs, a
+warp a row (:func:`flash_simt_fwd`, :func:`flash_simt_dq`,
+:func:`flash_simt_dkv`; :func:`flash_bwd_dbias` sums that dq kernel's dS
+over bh, and takes it in fp32 and past D 128). Each of these wrappers
+counts its own launches.
 
 The backward takes ``delta = rowsum(dO·O) − dlse`` (:474-479, computed
 here in plain PyTorch by :func:`flash_delta`), so a cotangent of the lse
@@ -78,21 +82,27 @@ import torch
 from apex_tpu_torch.ops import cuda as _cuda
 from apex_tpu_torch.ops import dispatch
 
-__all__ = ["NEG_INF", "KERNEL_HEAD_DIMS", "SIMT_MAX_HEAD_DIM",
-           "dropout_bits", "drop_threshold", "reference_attention",
-           "flash_fwd", "flash_delta", "flash_bwd_plain", "flash_bwd_dq",
-           "flash_bwd_dkv", "flash_bwd_dbias", "flash_bwd_dbias_plain",
-           "flash_simt_fwd", "flash_simt_dq", "flash_simt_dkv",
-           "flash_f32_fwd", "flash_f32_dq", "flash_f32_dkv", "kernel_form",
-           "tensor_cores", "padded_head_dim", "BLOCK_ROWS", "TMA_BOX",
+__all__ = ["NEG_INF", "KERNEL_HEAD_DIMS", "DKV_HEAD_DIMS", "F32_HEAD_DIMS",
+           "SIMT_MAX_HEAD_DIM", "dropout_bits", "drop_threshold",
+           "reference_attention", "flash_fwd", "flash_delta",
+           "flash_bwd_plain", "flash_bwd_dq", "flash_bwd_dkv",
+           "flash_bwd_dbias", "flash_bwd_dbias_plain", "flash_d256_fwd",
+           "flash_d256_dq", "flash_simt_fwd", "flash_simt_dq",
+           "flash_simt_dkv", "flash_f32_fwd", "flash_f32_dq",
+           "flash_f32_dkv", "kernel_form", "tensor_cores",
+           "padded_head_dim", "BLOCK_ROWS", "TMA_BOX", "DQ_D256_KEYS",
            "tma_layout", "row_blocks"]
 
 # finite -inf stand-in: exp(NEG_INF - m) is exactly 0.0 in fp32, so a fully
 # masked row yields zeros instead of NaN
 NEG_INF = -1.0e30
-# the head dims the tensor-core kernels are written for (a smaller D is
-# padded up to one of them), and the widest the simple form takes
-KERNEL_HEAD_DIMS = (64, 128)
+# the head dims the bf16/fp16 tensor-core kernels are written for (a
+# smaller D is padded up to one of them): the forward and dq take all three,
+# dk/dv and the shared-bias gradient the first two; the fp32 ones' (3xTF32);
+# and the widest the simple form takes
+KERNEL_HEAD_DIMS = (64, 128, 256)
+DKV_HEAD_DIMS = (64, 128)
+F32_HEAD_DIMS = (64, 128)
 SIMT_MAX_HEAD_DIM = 512
 _FLOATS = (torch.float32, torch.bfloat16, torch.float16)
 
@@ -100,9 +110,11 @@ _FLOATS = (torch.float32, torch.bfloat16, torch.float16)
 # block owns BLOCK_ROWS rows (queries in the forward and dq, keys in dk/dv)
 # and TMA copies the tensors in boxes of TMA_BOX elements, innermost first:
 # 64 of the head dim (128 bytes, the span of the tiles' swizzle), 64 rows,
-# one bh
+# one bh (a row of D 256 is four boxes across); dq at D 256 stages
+# DQ_D256_KEYS keys a tile, its boxes as many rows
 BLOCK_ROWS = 128
 TMA_BOX = (64, 64, 1)
+DQ_D256_KEYS = 32
 
 _M32 = 0xFFFFFFFF
 
@@ -322,15 +334,17 @@ def _check(what: str, *ts):
 
 
 def tensor_cores(q: torch.Tensor) -> bool:
-    """Whether the Hopper tensor-core kernels take q's dtype and head dim
-    (bf16 or fp16, D <= 128, padded up to 64 or 128); else the simple
-    form."""
+    """Whether every 16-bit Hopper tensor-core kernel takes q's dtype and
+    head dim — the forward, dq, dk/dv and the shared-bias gradient: bf16
+    or fp16, D <= 128, padded up to 64 or 128. Past 128 only the forward
+    and dq do (to 256: :func:`kernel_form`)."""
     return q.dtype in (torch.bfloat16, torch.float16) \
-        and q.shape[-1] <= KERNEL_HEAD_DIMS[-1]
+        and q.shape[-1] <= DKV_HEAD_DIMS[-1]
 
 
 def padded_head_dim(d: int) -> int:
-    """The head dim the tensor-core kernels run a D <= 128 at."""
+    """The head dim the tensor-core kernels run a D <= 256 at: 64, 128 or
+    256."""
     return next(k for k in KERNEL_HEAD_DIMS if d <= k)
 
 
@@ -364,16 +378,17 @@ def _tma_readable(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
-def tma_layout(t: torch.Tensor) -> tuple:
+def tma_layout(t: torch.Tensor, box_rows: int = TMA_BOX[1]) -> tuple:
     """The tensor map the Hopper kernels copy a [BH, S, D] 16-bit tensor
     by: its dims innermost first (D, S, BH), its row and bh strides in
-    bytes, and the box (:data:`TMA_BOX`). A dim of size 1 takes the stride
-    of the tensor's packed layout (its own is arbitrary and never used)."""
+    bytes, and the box (:data:`TMA_BOX`, or ``box_rows`` rows: dq at D
+    256's :data:`DQ_D256_KEYS`). A dim of size 1 takes the stride of the
+    tensor's packed layout (its own is arbitrary and never used)."""
     bh, s, d = t.shape
     es = t.element_size()
     row = t.stride(1) if s > 1 else d
     bhs = t.stride(0) if bh > 1 else s * row
-    return (d, s, bh, row * es, bhs * es) + TMA_BOX
+    return (d, s, bh, row * es, bhs * es, TMA_BOX[0], box_rows, TMA_BOX[2])
 
 
 def row_blocks(rows: int) -> int:
@@ -382,10 +397,10 @@ def row_blocks(rows: int) -> int:
     return -(-rows // BLOCK_ROWS)
 
 
-def _tma_maps(*ts):
+def _tma_maps(*ts, box_rows: int = TMA_BOX[1]):
     """The tensor maps of q, k, v (and dO), one C array of 8 ints a
     tensor."""
-    vals = [x for t in ts for x in tma_layout(t)]
+    vals = [x for t in ts for x in tma_layout(t, box_rows)]
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
@@ -448,8 +463,9 @@ def flash_fwd(q, k, v, *, causal: bool = False, scale=None,
     """(o [BH, Sq, D] in q's dtype, lse fp32 [BH, Sq]) of softmax attention
     over q [BH, Sq, D], k/v [BH, Sk, D], with the optional ``kv_bias``
     [1|BH, Sk], ``bias`` [1|BH, Sq, Sk] and dropout. On the card, as
-    :func:`kernel_form` picks: the tensor-core kernel (counted here),
-    :func:`flash_f32_fwd` or :func:`flash_simt_fwd`."""
+    :func:`kernel_form` picks: the tensor-core kernel at D <= 128 (counted
+    here), :func:`flash_d256_fwd`, :func:`flash_f32_fwd` or
+    :func:`flash_simt_fwd`."""
     if scale is None:
         scale = 1.0 / float(q.shape[-1]) ** 0.5
     cfg = dict(causal=causal, scale=scale, q_start=q_start, k_start=k_start,
@@ -458,29 +474,67 @@ def flash_fwd(q, k, v, *, causal: bool = False, scale=None,
     if not dispatch.use_kernel(q):
         return _fwd_plain(q, k, v, **cfg)
     _check("flash_fwd", q, k, v)
-    form = kernel_form(q)
+    form = kernel_form(q, "fwd")
     if form != "tc":
-        return (flash_f32_fwd if form == "f32" else flash_simt_fwd)(
-            q, k, v, **cfg)
+        return {"tc256": flash_d256_fwd, "f32": flash_f32_fwd,
+                "simt": flash_simt_fwd}[form](q, k, v, **cfg)
+    return _tc_fwd(flash_fwd, q, k, v, **cfg)
+
+
+flash_fwd.launches = 0
+
+
+def _tc_fwd(wrapper, q, k, v, *, causal, scale, q_start, k_start, kv_bias,
+            bias, dropout_rate, dropout_seed):
+    """The 16-bit tensor-core forward (``flash_fwd.cu``) at q's head dim
+    padded to :func:`padded_head_dim`; ``wrapper`` counts the launch."""
+    what = wrapper.__name__
     d = q.shape[-1]
     dp = padded_head_dim(d)
     q, k, v = (_tma_readable(_pad_d(t, dp)) for t in (q, k, v))
     bh, sq, _ = q.shape
-    tail, _keep_alive = _tail("flash_fwd", q, k, kv_bias, bias,
-                              dropout_rate, dropout_seed, causal, scale,
-                              q_start, k_start)
+    tail, _keep_alive = _tail(what, q, k, kv_bias, bias, dropout_rate,
+                              dropout_seed, causal, scale, q_start, k_start)
     o = torch.empty((bh, sq, dp), dtype=q.dtype, device=q.device)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
     err = _cuda.lib().apex_flash_fwd(
-        _cuda.dtype_code(q.dtype, "flash_fwd"), q.data_ptr(), k.data_ptr(),
+        _cuda.dtype_code(q.dtype, what), q.data_ptr(), k.data_ptr(),
         v.data_ptr(), o.data_ptr(), lse.data_ptr(), _tma_maps(q, k, v),
         row_blocks(sq), *tail)
-    _cuda.check(err, "flash_fwd")
-    flash_fwd.launches += 1
+    _cuda.check(err, what)
+    wrapper.launches += 1
     return _unpad(o, d), lse
 
 
-flash_fwd.launches = 0
+def _d256_ready(what: str, *ts) -> None:
+    """The D-256 kernels' contract: bf16 or fp16 at a head dim of 129 to
+    256 (padded to 256)."""
+    _check(what, *ts)
+    q = ts[0]
+    if kernel_form(q, "fwd") != "tc256":
+        raise ValueError(f"{what}: takes bf16 or fp16 at a head dim of "
+                         f"{DKV_HEAD_DIMS[-1] + 1} to {KERNEL_HEAD_DIMS[-1]}"
+                         f", got {q.dtype} at {q.shape[-1]}")
+
+
+def flash_d256_fwd(q, k, v, *, causal: bool = False, scale=None,
+                   q_start: int = 0, k_start: int = 0, kv_bias=None,
+                   bias=None, dropout_rate: float = 0.0, dropout_seed=0):
+    """:func:`flash_fwd` on the tensor cores at D 256 (``flash_fwd.cu``'s
+    64-key form): bf16 or fp16 at a head dim of 129 to 256, padded to 256
+    (the real D's scale passed)."""
+    if scale is None:
+        scale = 1.0 / float(q.shape[-1]) ** 0.5
+    cfg = dict(causal=causal, scale=scale, q_start=q_start, k_start=k_start,
+               kv_bias=kv_bias, bias=bias, dropout_rate=dropout_rate,
+               dropout_seed=dropout_seed)
+    if not dispatch.use_kernel(q):
+        return _fwd_plain(q, k, v, **cfg)
+    _d256_ready("flash_d256_fwd", q, k, v)
+    return _tc_fwd(flash_d256_fwd, q, k, v, **cfg)
+
+
+flash_d256_fwd.launches = 0
 
 
 def _fwd_plain(q, k, v, *, causal, scale, q_start, k_start, kv_bias, bias,
@@ -537,7 +591,7 @@ def _f32_ready(what: str, *ts):
     _check(what, *ts)
     if kernel_form(ts[0]) != "f32":
         raise ValueError(f"{what}: takes fp32 at a head dim up to "
-                         f"{KERNEL_HEAD_DIMS[-1]}, got {ts[0].dtype} at "
+                         f"{F32_HEAD_DIMS[-1]}, got {ts[0].dtype} at "
                          f"{ts[0].shape[-1]}")
     dp = padded_head_dim(ts[0].shape[-1])
     return tuple(_readable(_pad_d(t, dp)) for t in ts)
@@ -576,14 +630,26 @@ def flash_f32_fwd(q, k, v, *, causal: bool = False, scale=None,
 flash_f32_fwd.launches = 0
 
 
-def kernel_form(q: torch.Tensor) -> str:
-    """The kernels that take the forward and the backward (dq, dk/dv) of
-    q's dtype and head dim: "tc", the bf16/fp16 tensor-core kernels at D
-    <= 128; "f32", the fp32 ones at D <= 128 (3xTF32 on the tensor cores,
-    ``flash_f32.cu``); "simt", the simple form, past 128 in any dtype."""
+_KERNELS = ("fwd", "dq", "dkv")
+
+
+def kernel_form(q: torch.Tensor, kernel: str = "fwd") -> str:
+    """The form that takes ``kernel`` ("fwd", "dq" or "dkv") of q's dtype
+    and head dim: "tc", the bf16/fp16 tensor-core kernels at D <= 128;
+    "tc256", the bf16/fp16 forward and dq at D 129-256 (padded to 256;
+    dk/dv there is "simt"); "f32", the fp32 ones at D <= 128 (3xTF32 on the
+    tensor cores, ``flash_f32.cu``); "simt", the simple form, for the
+    rest."""
+    if kernel not in _KERNELS:
+        raise ValueError(f"kernel_form: kernel must be one of {_KERNELS}, "
+                         f"got {kernel!r}")
+    d = q.shape[-1]
     if tensor_cores(q):
         return "tc"
-    if q.dtype == torch.float32 and q.shape[-1] <= KERNEL_HEAD_DIMS[-1]:
+    if q.dtype in (torch.bfloat16, torch.float16) and kernel != "dkv" \
+            and d <= KERNEL_HEAD_DIMS[-1]:
+        return "tc256"
+    if q.dtype == torch.float32 and d <= F32_HEAD_DIMS[-1]:
         return "f32"
     return "simt"
 
@@ -591,16 +657,16 @@ def kernel_form(q: torch.Tensor) -> str:
 def _bwd_args(what, q, k, v, do, lse, delta, form="simt"):
     """The checked backward inputs of the kernels of ``form`` (as
     :func:`kernel_form` names them): q, k, v, dO padded to
-    :func:`padded_head_dim` and readable by TMA ("tc") or by 16-byte copies
-    ("f32", :func:`_f32_ready`), or with their last dim contiguous
-    ("simt"); lse and delta fp32 [BH, Sq]."""
+    :func:`padded_head_dim` and readable by TMA ("tc", "tc256") or by
+    16-byte copies ("f32", :func:`_f32_ready`), or with their last dim
+    contiguous ("simt"); lse and delta fp32 [BH, Sq]."""
     if form == "f32":
         q, k, v, do = _f32_ready(what, q, k, v, do)
     else:
         _check(what, q, k, v, do)
     if form == "simt":
         q, k, v, do = _simt_strides(q, k, v, do)[0]
-    elif form == "tc":
+    elif form in ("tc", "tc256"):
         dp = padded_head_dim(q.shape[-1])
         q, k, v, do = (_tma_readable(_pad_d(t, dp)) for t in (q, k, v, do))
     bh, sq, _ = q.shape
@@ -616,8 +682,9 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool, scale: float,
     """dq [BH, Sq, D] in q's dtype from the forward's lse and
     :func:`flash_delta`; with ``return_ds`` (a ``bias`` given) also dS fp32
     [BH, Sq, Sk], the gradient of a per-bh bias. On the card, as
-    :func:`kernel_form` picks: the tensor-core kernel (counted here),
-    :func:`flash_f32_dq` or :func:`flash_simt_dq`."""
+    :func:`kernel_form` picks: the tensor-core kernel at D <= 128 (counted
+    here), :func:`flash_d256_dq`, :func:`flash_f32_dq` or
+    :func:`flash_simt_dq`."""
     kw = dict(causal=causal, scale=scale, q_start=q_start, k_start=k_start,
               kv_bias=kv_bias, bias=bias, dropout_rate=dropout_rate,
               dropout_seed=dropout_seed)
@@ -629,33 +696,69 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool, scale: float,
                               **kw)
         return (out[0], out[3]) if return_ds else out[0]
     _check("flash_bwd_dq", q, k, v, do)
-    form = kernel_form(q)
+    form = kernel_form(q, "dq")
     if form != "tc":
-        return (flash_f32_dq if form == "f32" else flash_simt_dq)(
+        return {"tc256": flash_d256_dq, "f32": flash_f32_dq,
+                "simt": flash_simt_dq}[form](
             q, k, v, do, lse, delta, return_ds=return_ds, **kw)
+    return _tc_dq(flash_bwd_dq, "tc", q, k, v, do, lse, delta,
+                  return_ds=return_ds, **kw)
+
+
+flash_bwd_dq.launches = 0
+
+
+def _tc_dq(wrapper, form, q, k, v, do, lse, delta, *, return_ds, **kw):
+    """dq (and dS) by the 16-bit tensor-core kernel (``flash_bwd.cu``) at
+    q's head dim padded to :func:`padded_head_dim` (``form`` "tc" or
+    "tc256"); ``wrapper`` counts the launch."""
+    what = wrapper.__name__
     d = q.shape[-1]
-    q, k, v, do, lse, delta = _bwd_args("flash_bwd_dq", q, k, v, do, lse,
-                                        delta, "tc")
-    tail, _keep_alive = _tail("flash_bwd_dq", q, k, kv_bias, bias,
-                              dropout_rate, dropout_seed, causal, scale,
-                              q_start, k_start)
+    q, k, v, do, lse, delta = _bwd_args(what, q, k, v, do, lse, delta, form)
+    tail, _keep_alive = _tail(what, q, k, kw["kv_bias"], kw["bias"],
+                              kw["dropout_rate"], kw["dropout_seed"],
+                              kw["causal"], kw["scale"], kw["q_start"],
+                              kw["k_start"])
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     ds = torch.empty((q.shape[0], q.shape[1], k.shape[1]),
                      dtype=torch.float32, device=q.device) \
         if return_ds else None
+    box = DQ_D256_KEYS if q.shape[-1] == 256 else TMA_BOX[1]
     err = _cuda.lib().apex_flash_bwd_dq(
-        _cuda.dtype_code(q.dtype, "flash_bwd_dq"), q.data_ptr(),
-        k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(),
-        None if ds is None else ds.data_ptr(), _tma_maps(q, k, v, do),
-        row_blocks(q.shape[1]), *tail)
-    _cuda.check(err, "flash_bwd_dq")
-    flash_bwd_dq.launches += 1
+        _cuda.dtype_code(q.dtype, what), q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        dq.data_ptr(), None if ds is None else ds.data_ptr(),
+        _tma_maps(q, k, v, do, box_rows=box), row_blocks(q.shape[1]),
+        *tail)
+    _cuda.check(err, what)
+    wrapper.launches += 1
     dq = _unpad(dq, d)
     return (dq, ds) if return_ds else dq
 
 
-flash_bwd_dq.launches = 0
+def flash_d256_dq(q, k, v, do, lse, delta, *, causal: bool, scale: float,
+                  q_start: int = 0, k_start: int = 0, kv_bias=None,
+                  bias=None, dropout_rate: float = 0.0, dropout_seed=0,
+                  return_ds: bool = False):
+    """:func:`flash_bwd_dq` on the tensor cores at D 256 (``flash_bwd.cu``'s
+    32-key form): bf16 or fp16 at a head dim of 129 to 256, padded to 256
+    (the real D's scale passed)."""
+    kw = dict(causal=causal, scale=scale, q_start=q_start, k_start=k_start,
+              kv_bias=kv_bias, bias=bias, dropout_rate=dropout_rate,
+              dropout_seed=dropout_seed)
+    if return_ds and bias is None:
+        raise ValueError("flash_d256_dq: return_ds needs the bias whose "
+                         "gradient it is")
+    if not dispatch.use_kernel(q):
+        out = flash_bwd_plain(q, k, v, do, lse, delta, return_ds=return_ds,
+                              **kw)
+        return (out[0], out[3]) if return_ds else out[0]
+    _d256_ready("flash_d256_dq", q, k, v, do)
+    return _tc_dq(flash_d256_dq, "tc256", q, k, v, do, lse, delta,
+                  return_ds=return_ds, **kw)
+
+
+flash_d256_dq.launches = 0
 
 
 def _strided_dq(wrapper, entry: str, form: str, q, k, v, do, lse, delta,
@@ -753,15 +856,16 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool, scale: float,
                   q_start: int = 0, k_start: int = 0, kv_bias=None,
                   bias=None, dropout_rate: float = 0.0, dropout_seed=0):
     """(dk, dv) [BH, Sk, D] in k's and v's dtypes. On the card, as
-    :func:`kernel_form` picks: the tensor-core kernel (counted here),
-    :func:`flash_f32_dkv` or :func:`flash_simt_dkv`."""
+    :func:`kernel_form` picks for "dkv": the tensor-core kernel at D <=
+    128 (counted here), :func:`flash_f32_dkv` or :func:`flash_simt_dkv`
+    (past 128 in every dtype)."""
     kw = dict(causal=causal, scale=scale, q_start=q_start, k_start=k_start,
               kv_bias=kv_bias, bias=bias, dropout_rate=dropout_rate,
               dropout_seed=dropout_seed)
     if not dispatch.use_kernel(q):
         return flash_bwd_plain(q, k, v, do, lse, delta, **kw)[1:]
     _check("flash_bwd_dkv", q, k, v, do)
-    form = kernel_form(q)
+    form = kernel_form(q, "dkv")
     if form != "tc":
         return (flash_f32_dkv if form == "f32" else flash_simt_dkv)(
             q, k, v, do, lse, delta, **kw)

@@ -15,7 +15,8 @@ on the LM, phases 20-22 the ImageNet example's ViT-B/16 step with
 attention dropout and the flash kernels' full bias, phases 23-25 the wide
 LayerNorm (lm_bench's LM at GPT-3 175B's width) and ``bn_backward_reduce``,
 phases 26-30 lm_bench's LM served (head dim 64) and trained in fp16 and
-fp32, and the LayerNorm and BN at widths not a multiple of 4:
+fp32, and the LayerNorm and BN at widths not a multiple of 4, phases 31-32
+lm_bench's LM at 8 heads of 256 (the flash forward and dq at D 256):
 
 0. device — needs CUDA; prints the card's ``nvidia-smi`` name and power
    limit (also as a raw line of its own) and the torch / CUDA versions.
@@ -23,8 +24,9 @@ fp32, and the LayerNorm and BN at widths not a multiple of 4:
    with ``nvcc`` for ``sm_90a`` (all sources at once) and loads them;
    prints every kernel's registers and spills (``ptxas``) and, apart, the
    flash forward's and backward's Hopper kernels (``flash_fwd_ptxas``,
-   ``flash_bwd_ptxas``: 12 and 16 forms, bf16 and fp16), the fp32
-   backward's (``flash_f32_ptxas``: 8 forms) and the fp32 forward's
+   ``flash_bwd_ptxas``: 18 and 20 forms, bf16 and fp16; of them the 10 at
+   head dim 256, ``flash_d256_ptxas``), the fp32 backward's
+   (``flash_f32_ptxas``: 8 forms) and the fp32 forward's
    (``flash_f32_fwd_ptxas``: 4 forms, D 64 and 128, plain and with a bias
    or dropout), none of whose forms may spill.
 2. kernels — each kernel against its plain PyTorch version on the card,
@@ -120,7 +122,16 @@ fp32, and the LayerNorm and BN at widths not a multiple of 4:
    SDPA's fp32 forward beside it), each output repeated bit for bit; the
    simple form at phase 30's [32, 1024, 256] in bf16 and fp32 (readings
    ``d256_bf16``, ``d256_f32``: SDPA's forward and backward at D 256
-   beside it); the bf16 kernels' outputs hashed at both shapes
+   beside it) and at D 320 in bf16 (``d320_bf16``); the D-256 forward and
+   dq (``flash_d256_fwd``, ``flash_d256_dq``) with the simple dk/dv, in
+   bf16 and fp16, at [32, 1024, 256] (``d256_tc_bf16``, ``d256_tc_f16``:
+   the simple forward's and dq's times on the same inputs beside bf16's)
+   and at phase 31's [64, 4096, 256] (``hd256_lm_bf16``,
+   ``hd256_lm_f16``), under the flash rule, each output repeated bit for
+   bit, bounds at 989 TFLOP/s, SDPA beside them; the crossover again at
+   head dim 256 ([32, S, 256]: the D-256 forward and dq and the simple
+   dk/dv against the plain path), which must win from no S on (as
+   impl="auto" takes it: by the 2 GiB rule alone); the bf16 kernels' outputs hashed at both shapes
    (``flash_bits``) and ``ln_bwd_wide``'s at [8192, 12288]
    (``ln_wide_bits``), to hold one package's against another's; the
    scalar tails beside the vector forms: ``ln_bwd`` at [32760, 1022], the
@@ -316,7 +327,17 @@ fp32, and the LayerNorm and BN at widths not a multiple of 4:
     residual and ``flash_attention`` at head dim 256 over [32, 1024, 256]
     fp32 (the simple form), 3 forward/backward passes each against the
     plain versions.
-31. the ``{"kernels": [...]}`` line (34 kernels; dq's and dk/dv's
+31. lm_train_hd256 — ``tools/lm_bench.py --dim 2048 --heads 8`` (8
+    layers of 2048, 8 heads of 256: Gemma 2B's attention shape; vocab
+    32768, S 4096, batch 8, attention "fast", random weights from seed 0),
+    O2 bf16, FusedAdam(1e-4): 3 warm-up and 5 timed steps, one profiled;
+    8 launches a step of ``flash_d256_fwd``, ``flash_d256_dq`` and
+    ``flash_simt_dkv``, none of the simple forward or dq; losses finite,
+    the mean of the last 3 below the first.
+32. lm_hd256_crosscheck — a small LM at head dim 256 (2 layers, embed
+    512, 2 heads of 256, vocab 512, S 256) under phase 10's
+    ``adam_crosscheck``.
+33. the ``{"kernels": [...]}`` line (36 kernels; dq's and dk/dv's
     entries also carry their ``wide`` reading and the whole backward's,
     ``backward``, at both shapes), then the ``ok`` line.
 
@@ -1635,12 +1656,16 @@ CROSSOVER_S = (128, 256, 512, 1024, 2048, 4096)
 CROSSOVER_BH, CROSSOVER_D = 128, 64
 
 
-def flash_crossover_phase(torch, dtype_name: str = "bfloat16") -> dict:
-    """Times of the flash path and the plain path over S in one dtype;
-    ``min_s`` is the smallest S measured from which the kernel wins every
-    case at every larger S (None when it never does). bf16 (the tensor-core
-    kernels, every run) is held to ``DEFAULT_FLASH_MIN_S``. fp32 (the
-    simple form, which "auto" takes only past 2 GiB of plain scores) is a
+def flash_crossover_phase(torch, dtype_name: str = "bfloat16",
+                          d: int = CROSSOVER_D) -> dict:
+    """Times of the flash path and the plain path over S in one dtype at
+    head dim d, over BH·D = CROSSOVER_BH·CROSSOVER_D (BH 128 at D 64, 32
+    at D 256); ``min_s`` is the smallest S measured from which the kernel
+    wins every case at every larger S (None when it never does). bf16 at
+    D 64 (the tensor-core kernels, every run) is held to
+    ``DEFAULT_FLASH_MIN_S``; bf16 at D 256 (the D-256 forward and dq, the
+    simple dk/dv; every run) to no length, as impl="auto" takes it: it
+    must win at no S from which it wins at every larger one. fp32 is a
     reading made on its own, not in a run: from the repository root on
     the card, ``import torch, chip_smoke`` and then
     ``chip_smoke.flash_crossover_phase(torch, "float32")``."""
@@ -1648,12 +1673,13 @@ def flash_crossover_phase(torch, dtype_name: str = "bfloat16") -> dict:
 
     from apex_tpu_torch.contrib.multihead_attn import (
         DEFAULT_FLASH_MIN_S, flash_attention, reference_attention)
+    from apex_tpu_torch.ops import flash_attn as FA
 
     dt = getattr(torch, dtype_name)
 
     timer = Timer(torch, reps=5)
     gen = torch.Generator(device="cuda").manual_seed(17)
-    bh, d = CROSSOVER_BH, CROSSOVER_D
+    bh = CROSSOVER_BH * CROSSOVER_D // d
     table = []
     for causal in (False, True):
         for s in CROSSOVER_S:
@@ -1702,8 +1728,9 @@ def flash_crossover_phase(torch, dtype_name: str = "bfloat16") -> dict:
             r["sdpa_fwd_bwd_ms"] = timer(sdpa_fb)
             r["kernel_wins"] = r["fwd_ms"] < r["plain_fwd_ms"] and \
                 r["fwd_bwd_ms"] < r["plain_fwd_bwd_ms"]
+            forms = [FA.kernel_form(q, kn) for kn in ("fwd", "dq", "dkv")]
             emit({"phase": "flash_crossover", "shape": [bh, s, d],
-                  "dtype": dtype_name, **r})
+                  "dtype": dtype_name, "forms": forms, **r})
             table.append(r)
             del q, k, v, do, qg, kg, vg, q4, k4, v4, do4
     min_s = None
@@ -1713,8 +1740,11 @@ def flash_crossover_phase(torch, dtype_name: str = "bfloat16") -> dict:
         else:
             break
     row = {"phase": "flash_crossover_min_s", "dtype": dtype_name,
-           "min_s": min_s}
-    if dt == torch.bfloat16:
+           "head_dim": d, "min_s": min_s}
+    if dt == torch.bfloat16 and d == 256:
+        check(min_s is None, f"flash crossover at D 256: the kernels win "
+              f"from S {min_s}, where impl='auto' takes them by no length")
+    elif dt == torch.bfloat16:
         row["default_flash_min_s"] = DEFAULT_FLASH_MIN_S
         check(all(r["kernel_wins"] for r in table
                   if r["s"] >= DEFAULT_FLASH_MIN_S),
@@ -1760,7 +1790,9 @@ def counters():
             "flash_simt_dkv": FA.flash_simt_dkv,
             "flash_f32_dq": FA.flash_f32_dq,
             "flash_f32_dkv": FA.flash_f32_dkv,
-            "flash_f32_fwd": FA.flash_f32_fwd}
+            "flash_f32_fwd": FA.flash_f32_fwd,
+            "flash_d256_fwd": FA.flash_d256_fwd,
+            "flash_d256_dq": FA.flash_d256_dq}
 
 
 def zero_counts() -> None:
@@ -4409,12 +4441,18 @@ def flash_forms_phase(torch, timer) -> dict:
     phase 2's LM and wide readings), the simple form in fp32 at [128,
     4095, 64], its bound at the 67 TFLOP/s of fp32 outside the tensor
     cores, and the fp32 forward and backward on the tensor cores on the
-    same inputs; the simple form at the head dim it is kept for, phase
-    30's [32, 1024, 256], in bf16 and fp32 (SDPA's at D 256 beside it)."""
+    same inputs; the simple form at phase 30's [32, 1024, 256] in bf16 and
+    fp32 (SDPA's at D 256 beside it; bf16's bound at 989 TFLOP/s, fp32's
+    at 67) and in bf16 at D 320; the D-256 forward and dq with the simple
+    dk/dv, in bf16 and fp16, at [32, 1024, 256] (readings ``d256_tc_bf16``,
+    ``d256_tc_f16``: the simple forward's and dq's times on the same
+    inputs beside bf16's) and at the hd-256 LM's [64, 4096, 256]
+    (``hd256_lm_bf16``, ``hd256_lm_f16``), bounds at 989 TFLOP/s."""
     from apex_tpu_torch.ops import flash_attn as FA
 
     tc = (FA.flash_fwd, FA.flash_bwd_dq, FA.flash_bwd_dkv)
     simt = (FA.flash_simt_fwd, FA.flash_simt_dq, FA.flash_simt_dkv)
+    tc256 = (FA.flash_d256_fwd, FA.flash_d256_dq, FA.flash_simt_dkv)
     lm = [LM_SHAPE["batch"] * LM_SHAPE["heads"], LM_SHAPE["seq"] - 1,
           LM_SHAPE["embed"] // LM_SHAPE["heads"]]
     w = WIDE_SHAPE
@@ -4428,11 +4466,31 @@ def flash_forms_phase(torch, timer) -> dict:
                                     simt, FP32_OPS_S, plain_group=8))
     rows.update(f32_backward_readings(torch, timer, lm, rows))
     rows.update(f32_forward_reading(torch, timer, lm, rows))
-    for dt in (torch.bfloat16, torch.float32):
-        rows.update(flash_form_readings(
-            torch, timer, "d256_" + {torch.bfloat16: "bf16",
-                                     torch.float32: "f32"}[dt],
-            [32, 1024, 256], dt, simt, FP32_OPS_S))
+    d256 = [32, 1024, 256]
+    for dt, tag, ops_s in ((torch.bfloat16, "bf16", BF16_DENSE_OPS_S),
+                           (torch.float32, "f32", FP32_OPS_S)):
+        rows.update(flash_form_readings(torch, timer, "d256_" + tag, d256,
+                                        dt, simt, ops_s))
+    rows.update(flash_form_readings(torch, timer, "d320_bf16",
+                                    [32, 1024, 320], torch.bfloat16, simt,
+                                    BF16_DENSE_OPS_S))
+    c = HD256_SHAPE
+    lm256 = [c["batch"] * c["heads"], c["seq"], c["embed"] // c["heads"]]
+    for dt, tag in ((torch.bfloat16, "bf16"), (torch.float16, "f16")):
+        for shape, reading in ((d256, "d256_tc_" + tag),
+                               (lm256, "hd256_lm_" + tag)):
+            got = flash_form_readings(torch, timer, reading, shape, dt,
+                                      tc256, BF16_DENSE_OPS_S)
+            if reading == "d256_tc_bf16":
+                # the simple forward and dq on the same inputs
+                for new, old in (("flash_d256_fwd", "flash_simt_fwd"),
+                                 ("flash_d256_dq", "flash_simt_dq")):
+                    r = got[(new, reading)]
+                    r["simple_ms"] = rows[(old, "d256_bf16")]["ms"]
+                    emit({"phase": "kernels", "reading": reading,
+                          "kernel": new, "simple_ms": r["simple_ms"],
+                          "ms": r["ms"]})
+            rows.update(got)
     return rows
 
 
@@ -4833,6 +4891,96 @@ TAIL_KERNELS = ("ln_fwd", "ln_bwd", "bn_moments", "bn_backward_fused_reduce",
                 "flash_simt_dkv")
 
 
+# -- phases 31-32: lm_bench's LM at 8 heads of 256 ----------------------------
+
+# tools/lm_bench.py --dim 2048 --heads 8 at its other defaults (phase 9's
+# vocab, S, depth and batch): Gemma 2B's attention shape (d_model 2048, 8
+# heads of 256)
+HD256_SHAPE = dict(LM_SHAPE, embed=2048, heads=8)
+HD256_BATCH = 8           # the batch the phase runs (HD256_SHAPE's: no cut)
+# the forward and dq on the tensor cores at D 256, dk/dv the simple form;
+# none of the simple forward or dq
+HD256_PER_STEP = {"flash_d256_fwd": 8, "flash_d256_dq": 8,
+                  "flash_simt_dkv": 8, "flash_simt_fwd": 0,
+                  "flash_simt_dq": 0, "flash_fwd": 0, "flash_bwd_dq": 0,
+                  "flash_bwd_dkv": 0, "ln_fwd": 17, "ln_bwd": 17,
+                  "adam": 1}
+
+
+def lm_hd256_train_phase(torch) -> dict:
+    """``tools/lm_bench.py --dim 2048 --heads 8`` on one card
+    (TransformerLM: vocab 32768, 8 layers, 2048 wide, 8 heads of 256,
+    attention "fast", fused head in vocab chunks of 8192; random weights
+    from ``torch.Generator`` seed 0), O2 bf16 over fp32 flat masters,
+    ``FusedAdam(lr=1e-4)``, phase 9's batch (8 × 4096, the batch cut to
+    ``HD256_BATCH`` rows where that is smaller): 3 warm-up and 5 timed
+    steps, one profiled; losses finite, the mean of the last 3 below the
+    first; the launches a step of ``HD256_PER_STEP``."""
+    import numpy as np
+
+    from apex_tpu_torch.models import TransformerLM
+    from apex_tpu_torch.train import LMTrainer
+
+    c = HD256_SHAPE
+    warm, timed = 3, 5
+    model = TransformerLM(vocab_size=c["vocab"], max_seq_len=c["seq"],
+                          embed_dim=c["embed"], num_heads=c["heads"],
+                          num_layers=c["layers"], attn_impl="fast",
+                          head_chunk=min(8192, c["vocab"]))
+    tr = LMTrainer(model, model.init(torch.Generator().manual_seed(0)),
+                   lr=1e-4)
+    toks = lm_batch(torch)[:HD256_BATCH]
+    r = timed_steps(torch, lambda: tr.step(toks), warm, timed)
+    counts = r["counts"]
+    tokens = HD256_BATCH * c["seq"]
+    step_flops = lm_step_flops(tr.table.total, dict(c, batch=HD256_BATCH))
+    prof = profile_steps(torch, lambda: tr.step(toks), LM_KERNEL_FAMILIES,
+                         n=1)
+    row = {"phase": "lm_train_hd256", "model": "TransformerLM", **c,
+           "head_dim": c["embed"] // c["heads"], "batch": HD256_BATCH,
+           "batch_cut": HD256_BATCH != c["batch"],
+           "attn_impl": model.attn_impl, "head_chunk": model.head_chunk,
+           "dtype": "bfloat16", "masters": "float32",
+           "optimizer": "FusedAdam(lr=1e-4)", **window_row(r, timed),
+           "tokens_per_step": tokens, "tok_per_s": tokens * timed / r["wall"],
+           "step_tflop": step_flops / 1e12,
+           "mfu": step_flops * timed / r["wall"] / BF16_DENSE_OPS_S,
+           "params": tr.table.total,
+           "launches": {k: counts[k] for k in HD256_PER_STEP},
+           "launches_per_step": {k: counts[k] / timed
+                                 for k in HD256_PER_STEP},
+           "profile": prof}
+    emit(row)
+    loss = r["loss"]
+    check(all(np.isfinite(loss)), f"lm_train_hd256: non-finite loss {loss}")
+    check(sum(loss[-3:]) / 3 < loss[0], f"lm_train_hd256: the mean of the "
+          f"last 3 losses is not below the first: {loss}")
+    check_counts("lm_train_hd256", counts,
+                 {k: n * timed for k, n in HD256_PER_STEP.items()})
+    return counts
+
+
+def lm_hd256_crosscheck_phase(torch, dispatch) -> dict:
+    """A small LM at head dim 256 (2 layers, embed 512, 2 heads of 256,
+    vocab 512, S 256, batch 2) under phase 10's ``adam_crosscheck`` at lr
+    1e-3: the kernel runs through the D-256 forward and dq."""
+    from apex_tpu_torch.models import TransformerLM
+
+    m = TransformerLM(vocab_size=512, max_seq_len=256, embed_dim=512,
+                      num_heads=2, num_layers=2, attn_impl="fast",
+                      head_chunk=512)
+    params = m.init(torch.Generator().manual_seed(2))
+    toks = torch.randint(0, 512, (2, 257), generator=torch.Generator()
+                         .manual_seed(3)).cuda()
+    row = adam_crosscheck(torch, dispatch, "lm_hd256_crosscheck", m, params,
+                          (toks,), {}, {"lr": 1e-3})
+    ran = row["kernel_launches"]
+    check(ran.get("flash_d256_fwd", 0) > 0 and ran.get("flash_d256_dq", 0) > 0
+          and not ran.get("flash_simt_fwd") and not ran.get("flash_simt_dq"),
+          f"lm_hd256_crosscheck: kernels launched {ran}")
+    return row
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4872,20 +5020,28 @@ def main() -> int:
     flash_f32 = {n: e for n, e in ptxas.items()
                  if "f32_dq_kernel" in n or "f32_dkv_kernel" in n}
     flash_f32_fwd = {n: e for n, e in ptxas.items() if "f32_fwd_kernel" in n}
+    # of those, the forward's and dq's forms at head dim 256 (the template
+    # argument 256 in their mangled names)
+    flash_d256 = {n: e for n, e in {**flash_fwd, **flash_bwd}.items()
+                  if "Li256E" in n}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "compiled": kcuda.build_seconds is not None, "ptxas": ptxas,
           "flash_fwd_ptxas": flash_fwd, "flash_bwd_ptxas": flash_bwd,
           "flash_f32_ptxas": flash_f32,
-          "flash_f32_fwd_ptxas": flash_f32_fwd})
-    # bf16 and fp16: 2 x 6 forward and 2 x 8 backward forms; fp32: 8 and 4
-    check(not kcuda.build_seconds or (len(flash_fwd) == 12
-                                      and len(flash_bwd) == 16
+          "flash_f32_fwd_ptxas": flash_f32_fwd,
+          "flash_d256_ptxas": flash_d256})
+    # bf16 and fp16: 2 x 9 forward forms (3 kinds at D 64, 128, 256) and
+    # 2 x 10 backward (dq plain and extra at D 64, 128, 256; dk/dv at 64
+    # and 128), 6 + 4 of them at D 256; fp32: 8 and 4
+    check(not kcuda.build_seconds or (len(flash_fwd) == 18
+                                      and len(flash_bwd) == 20
+                                      and len(flash_d256) == 10
                                       and len(flash_f32) == 8
                                       and len(flash_f32_fwd) == 4),
           f"ptxas reported {len(flash_fwd)} forward, {len(flash_bwd)} "
-          f"backward, {len(flash_f32)} fp32 backward and "
-          f"{len(flash_f32_fwd)} fp32 forward flash forms, not 12, 16, 8 "
-          f"and 4")
+          f"backward ({len(flash_d256)} at D 256), {len(flash_f32)} fp32 "
+          f"backward and {len(flash_f32_fwd)} fp32 forward flash forms, "
+          f"not 18, 20 (10), 8 and 4")
     for what, forms in (("forward", flash_fwd), ("backward", flash_bwd),
                         ("fp32 backward", flash_f32),
                         ("fp32 forward", flash_f32_fwd)):
@@ -4923,6 +5079,8 @@ def main() -> int:
     rows.update(accum_kernel_phase(torch, timer,
                                    flat.make_table(lm_params).total))
     flash_crossover_phase(torch)
+    # at head dim 256: the D-256 forward and dq, the simple dk/dv
+    flash_crossover_phase(torch, "bfloat16", 256)
     # the wide LayerNorm at the wide LM's rows and the other wide shapes
     rows.update(wide_kernel_phase(torch, timer))
     # the split decode kernel at head dim 64 and its merge; the flash
@@ -5030,6 +5188,10 @@ def main() -> int:
     del lm_params
     # 30. FusedLayerNorm(1022) and SyncBatchNorm(6) trained
     tl_counts = tails_train_phase(torch)
+    # 31-32. lm_bench's LM at 8 heads of 256: the D-256 forward and dq in
+    # every step; the small LM at head dim 256 against the plain versions
+    d256_counts = lm_hd256_train_phase(torch)
+    lm_hd256_crosscheck_phase(torch, dispatch)
 
     # 31. the kernels line, then the contract line
     launches = {k: dcounts[k] + pcounts[k] for k in dcounts}
@@ -5060,6 +5222,8 @@ def main() -> int:
             launches[k] += counts[k]
     for k in TAIL_KERNELS:               # the fault inputs trained
         launches[k] += tl_counts[k]
+    for k in HD256_PER_STEP:             # the LM at 8 heads of 256
+        launches[k] += d256_counts[k]
     sources = {
         "decode_attention": (
             "apex_tpu_torch/ops/cuda/csrc/decode_attn.cu",
@@ -5147,6 +5311,13 @@ def main() -> int:
         "flash_f32_fwd": ("apex_tpu_torch/ops/cuda/csrc/flash_f32.cu",
                           "apex_tpu/contrib/multihead_attn/"
                           "flash_attention.py:181"),
+        # the bf16/fp16 forward and dq at D 129-256 on the tensor cores
+        "flash_d256_fwd": ("apex_tpu_torch/ops/cuda/csrc/flash_fwd.cu",
+                           "apex_tpu/contrib/multihead_attn/"
+                           "flash_attention.py:181"),
+        "flash_d256_dq": ("apex_tpu_torch/ops/cuda/csrc/flash_bwd.cu",
+                          "apex_tpu/contrib/multihead_attn/"
+                          "flash_attention.py:349"),
     }
     # the wide wrappers each take the place of more than one TPU kernel
     also_replaces = {
@@ -5193,7 +5364,10 @@ def main() -> int:
                 "flash_simt_dkv": ("flash_simt_dkv", "f32"),
                 "flash_f32_dq": ("flash_f32_dq", "f32"),
                 "flash_f32_dkv": ("flash_f32_dkv", "f32"),
-                "flash_f32_fwd": ("flash_f32_fwd", "f32")}
+                "flash_f32_fwd": ("flash_f32_fwd", "f32"),
+                # the D-256 kernels at the hd-256 LM's [64, 4096, 256]
+                "flash_d256_fwd": ("flash_d256_fwd", "hd256_lm_bf16"),
+                "flash_d256_dq": ("flash_d256_dq", "hd256_lm_bf16")}
     sub = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
            "library_ms")
     kernels = []
@@ -5253,10 +5427,27 @@ def main() -> int:
             entry["bound_fma_ms"] = r["bound_fma_ms"]
             entry["simple_ms"] = r["simple_ms"]
         if name in ("flash_simt_fwd", "flash_simt_dq", "flash_simt_dkv"):
-            # at the head dim it is kept for: tails_train's [32, 1024, 256]
+            # at the head dims it is kept for: tails_train's [32, 1024,
+            # 256] in fp32, bf16 past 256; the bf16 D-256 reading is the
+            # one the D-256 forward and dq replaced
             entry["d256"] = {dt: {k: rows[(name, f"d256_{dt}")][k]
                                   for k in sub}
                              for dt in ("bf16", "f32")}
+            entry["d320"] = {k: rows[(name, "d320_bf16")][k] for k in sub}
+        if name == "flash_simt_dkv":
+            # beside the D-256 forward and dq, in bf16 and fp16
+            entry["d256_tc"] = {
+                reading: {k: rows[(name, reading)][k] for k in sub}
+                for reading in ("d256_tc_bf16", "d256_tc_f16",
+                                "hd256_lm_bf16", "hd256_lm_f16")}
+        if name in ("flash_d256_fwd", "flash_d256_dq"):
+            # [32, 1024, 256] in bf16 (the simple form's time on the same
+            # inputs beside it) and fp16; the LM's shape in fp16
+            entry["readings"] = {
+                reading: {k: rows[(name, reading)].get(k)
+                          for k in sub + ("simple_ms",)}
+                for reading in ("d256_tc_bf16", "d256_tc_f16",
+                                "hd256_lm_f16")}
         if name in also_replaces:
             entry["also_replaces"] = also_replaces[name]
             entry["readings"] = {
@@ -5264,7 +5455,7 @@ def main() -> int:
                 for key in rows
                 if len(key) == 2 and key[0] == name and key[1] != "lm"}
         kernels.append(entry)
-    check(len(kernels) == 34 and all(e["launches"] > 0 for e in kernels),
+    check(len(kernels) == 36 and all(e["launches"] > 0 for e in kernels),
           f"kernels line: {[(e['name'], e['launches']) for e in kernels]}")
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "nvidia_smi": nvidia_smi(

@@ -599,13 +599,14 @@ def _forward_holds(FA, q, k, v, kw):
 
 
 # the forward's tile edges: blocks of 128 query rows (two warpgroups of
-# 64), staged key tiles of 128 keys, the ragged tails; Sq != Sk
+# 64), staged key tiles of 128 keys (64 at D 256), the ragged tails; Sq !=
+# Sk
 FWD_EDGES = [(1, 63), (63, 64), (64, 65), (65, 127), (127, 128),
              (128, 129), (129, 197), (197, 4095), (4095, 1), (4095, 197)]
 
 
 @pytest.mark.parametrize("sq,sk", FWD_EDGES)
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("mask", ["none", "causal", "causal_offset"])
 def test_flash_forward_at_the_tile_edges(card, sq, sk, d, mask):
     """The Hopper forward at every edge of its tiles, causal and not; with
@@ -626,7 +627,7 @@ def test_flash_forward_at_the_tile_edges(card, sq, sk, d, mask):
 
 @pytest.mark.parametrize("sq,sk", [(63, 129), (129, 197), (197, 197),
                                    (128, 255)])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("form", ["kv_bias", "shared", "per_bh", "dropout"])
 def test_flash_forward_extra_forms_at_the_tile_edges(card, sq, sk, d, form):
     """Each input of the EXTRA form alone at the tile edges: the per-key
@@ -655,7 +656,7 @@ def test_flash_forward_extra_forms_at_the_tile_edges(card, sq, sk, d, form):
     _forward_holds(FA, q, k, v, kw)
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_flash_forward_reads_strided_and_broadcast_views(card, d):
     """The forward's TMA maps read the time-major split's [BH, S, D] views
     (strides (D, B·H·D, 1)) in place, and copy k and v broadcast over bh:
@@ -681,11 +682,13 @@ def test_flash_forward_reads_strided_and_broadcast_views(card, d):
     _forward_holds(FA, q, kb, vb, kw)
 
 
-def test_flash_dropout_mask_reads_back_over_a_whole_key_tile(card):
-    """The exact read-back of the dropout mask (as below) at head dim 128
-    over 128 keys: one whole staged key tile of the forward, v = I."""
+@pytest.mark.parametrize("n", [128, 256])
+def test_flash_dropout_mask_reads_back_over_a_whole_key_tile(card, n):
+    """The exact read-back of the dropout mask (as below) at head dim n
+    over n keys, v = I: at 128 one whole staged key tile of the forward,
+    at 256 four of the D-256 forward's."""
     from apex_tpu_torch.ops import flash_attn as FA
-    bh, n, rate, seed = 3, 128, 0.1, 0x1234567
+    bh, rate, seed = 3, 0.1, 0x1234567
     eye = torch.eye(n, device=card, dtype=torch.bfloat16)
     q = torch.zeros(bh, n, n, device=card, dtype=torch.bfloat16)
     v = eye.expand(bh, n, n).contiguous()
@@ -1873,10 +1876,11 @@ def test_engine_at_head_dim_64_paged_equals_dense(card):
                          ids=["f16", "f32"])
 def test_flash_in_fp16_and_fp32_at_any_head_dim(card, dtype, d):
     """fp16 at D <= 128 by the tensor-core kernels (D padded to 64 or 128),
-    fp32 there by the 3xTF32 kernels, D 256 by the simple form, with a
+    fp32 there by the 3xTF32 kernels, fp16 at D 256 by the D-256 forward
+    and dq and the simple dk/dv, fp32 at D 256 by the simple form, with a
     kv_bias and causal masking: each kernel
     against its plain version on the same inputs, and the public
-    ``flash_attention`` (forward and backward) launching the form the
+    ``flash_attention`` (forward and backward) launching the forms the
     dtype and head dim choose, its outputs in the input dtype."""
     from apex_tpu_torch.contrib.multihead_attn import flash_attention
     from apex_tpu_torch.ops import flash_attn as FA
@@ -1890,15 +1894,18 @@ def test_flash_in_fp16_and_fp32_at_any_head_dim(card, dtype, d):
                                  causal=True, scale=d ** -0.5)
     fns = (FA.flash_fwd, FA.flash_bwd_dq, FA.flash_bwd_dkv,
            FA.flash_simt_fwd, FA.flash_simt_dq, FA.flash_simt_dkv,
-           FA.flash_f32_fwd, FA.flash_f32_dq, FA.flash_f32_dkv)
+           FA.flash_f32_fwd, FA.flash_f32_dq, FA.flash_f32_dkv,
+           FA.flash_d256_fwd, FA.flash_d256_dq)
     before = [f.launches for f in fns]
     qs, ks, vs = (t.clone().requires_grad_(True) for t in (q, k, v))
     o = flash_attention(qs, ks, vs, kv_bias=kvb, causal=True)
     grads = torch.autograd.grad(o, (qs, ks, vs), do)
     assert [f.launches - n for f, n in zip(fns, before)] == {
-        "tc": [1, 1, 1, 0, 0, 0, 0, 0, 0],
-        "f32": [0, 0, 0, 0, 0, 0, 1, 1, 1],
-        "simt": [0, 0, 0, 1, 1, 1, 0, 0, 0]}[FA.kernel_form(q)]
+        ("tc", "tc"): [1, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0],
+        ("f32", "f32"): [0, 0, 0, 0, 0, 0, 1, 1, 1, 0, 0],
+        ("tc256", "simt"): [0, 0, 0, 0, 0, 1, 0, 0, 0, 1, 1],
+        ("simt", "simt"): [0, 0, 0, 1, 1, 1, 0, 0, 0, 0, 0]}[
+            (FA.kernel_form(q, "fwd"), FA.kernel_form(q, "dkv"))]
     for t in (o, *grads):
         assert t.dtype == dtype and t.shape == (bh, s, d)
         assert bool(torch.isfinite(t).all())
@@ -2168,3 +2175,149 @@ def test_f32_wrappers_refuse_what_the_kernels_do_not_take(card):
             FA.flash_f32_dkv(t, t, t, t, lse, lse, **kw)
     with pytest.raises(ValueError, match="return_ds needs the bias"):
         FA.flash_f32_dq(q, q, q, q, lse, lse, return_ds=True, **kw)
+
+
+# -- the bf16/fp16 forward and dq at head dims 129-256 (run at D 256) ---------
+
+# bh, sq, sk, d, causal, q_start, k_start: blocks of 128 query rows, the
+# forward's 64-key tiles and dq's 32-key ones, ragged tails, offsets
+D256_CASES = [
+    (2, 300, 300, 256, True, 0, 0), (2, 197, 197, 256, False, 0, 0),
+    (2, 1023, 1023, 192, True, 0, 0), (3, 130, 100, 129, True, -50, 0),
+    (2, 33, 100, 256, True, 67, 0), (1, 255, 256, 192, False, 0, 0),
+    (2, 129, 255, 129, True, 0, 10), (1, 1, 5, 256, False, 0, 0),
+    (2, 64, 31, 200, True, 0, 0), (1, 128, 97, 256, False, 5, 3)]
+
+
+def _d256_inputs(card, bh, sq, sk, d, dtype, seed):
+    g = torch.Generator(device=card).manual_seed(seed)
+    q = torch.randn(bh, sq, d, generator=g, device=card).to(dtype)
+    k, v = (torch.randn(bh, sk, d, generator=g, device=card).to(dtype)
+            for _ in range(2))
+    do = torch.randn(bh, sq, d, generator=g, device=card).to(dtype)
+    return q, k, v, do
+
+
+def _d256_against_plain(q, k, v, do, dtype, **kw):
+    """The D-256 forward and dq (through ``flash_fwd`` and
+    ``flash_bwd_dq``, each launching its D-256 kernel once) against the
+    plain versions under ``_flash_rule`` (lse within 1e-3; dS too when a
+    per-bh bias asks for it), and a second run of each equal bit for
+    bit."""
+    from apex_tpu_torch.ops import flash_attn as FA
+    fns = (FA.flash_d256_fwd, FA.flash_d256_dq, FA.flash_simt_fwd,
+           FA.flash_simt_dq)
+    before = [f.launches for f in fns]
+    bias = kw.get("bias")
+    rds = bias is not None and bias.shape[0] > 1
+    o, lse = FA.flash_fwd(q, k, v, **kw)
+    delta = FA.flash_delta(o, do)
+    out = FA.flash_bwd_dq(q, k, v, do, lse, delta, return_ds=rds, **kw)
+    dq, ds = out if rds else (out, None)
+    assert [f.launches - n for f, n in zip(fns, before)] == [1, 1, 0, 0]
+    plain = dict(kw)
+    plain.pop("bias", None)
+    o0, lse0 = FA.reference_attention(q, k, v, bias, return_lse=True,
+                                      **plain)
+    _flash_rule(o, o0, dtype)
+    torch.testing.assert_close(lse, lse0, atol=1e-3, rtol=0)
+    want = FA.flash_bwd_plain(q, k, v, do, lse, delta, return_ds=rds, **kw)
+    assert dq.dtype == dtype and dq.shape == q.shape
+    _flash_rule(dq, want[0], dtype)
+    if rds:
+        _flash_rule(ds, want[3], torch.bfloat16)
+    again = FA.flash_fwd(q, k, v, **kw)
+    assert torch.equal(again[0], o) and torch.equal(again[1], lse)
+    out2 = FA.flash_bwd_dq(q, k, v, do, lse, delta, return_ds=rds, **kw)
+    if rds:
+        assert torch.equal(out2[0], dq) and torch.equal(out2[1], ds)
+    else:
+        assert torch.equal(out2, dq)
+    return o, lse, dq
+
+
+@pytest.mark.parametrize("case", D256_CASES,
+                         ids=["-".join(map(str, c)) for c in D256_CASES])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "f16"])
+def test_d256_kernels_match_plain_and_repeat(card, dtype, case):
+    bh, sq, sk, d, causal, q_start, k_start = case
+    q, k, v, do = _d256_inputs(card, bh, sq, sk, d, dtype, sq + sk + d)
+    _d256_against_plain(q, k, v, do, dtype, causal=causal, scale=d ** -0.5,
+                        q_start=q_start, k_start=k_start)
+
+
+@pytest.mark.parametrize("extra", ["kv_bias", "bias", "bias_bh", "dropout",
+                                   "all"])
+@pytest.mark.parametrize("d", [256, 192, 129])
+def test_d256_kernels_with_biases_and_dropout(card, d, extra):
+    """A kv_bias masking the last keys, a full bias shared over bh or one
+    per bh (dq's dS), dropout 0.1, and all of them at once, causal with
+    offsets, bf16 at [3, 261, d] (and Sk 250)."""
+    bh, sq, sk = 3, 261, 250
+    q, k, v, do = _d256_inputs(card, bh, sq, sk, d, torch.bfloat16, d)
+    g = torch.Generator(device=card).manual_seed(d + 1)
+    kvb = torch.zeros(bh, sk, device=card)
+    kvb[:, -9:] = -1e30
+    full = torch.randn(bh, sq, sk, generator=g, device=card)
+    kw = dict(causal=True, scale=d ** -0.5, q_start=20, k_start=0)
+    if extra in ("kv_bias", "all"):
+        kw["kv_bias"] = kvb
+    if extra in ("bias", "all"):
+        kw["bias"] = full[:1]
+    if extra == "bias_bh":
+        kw["bias"] = full
+    if extra in ("dropout", "all"):
+        kw.update(dropout_rate=0.1, dropout_seed=11)
+    _d256_against_plain(q, k, v, do, torch.bfloat16, **kw)
+
+
+def test_d256_rows_that_see_nothing(card):
+    """Causal rows before every key (q_start -70): lse = NEG_INF, o and dq
+    exactly 0; the rest under the flash rule."""
+    from apex_tpu_torch.ops import flash_attn as FA
+    q, k, v, do = _d256_inputs(card, 2, 150, 64, 256, torch.bfloat16, 3)
+    o, lse, dq = _d256_against_plain(q, k, v, do, torch.bfloat16,
+                                     causal=True, scale=256 ** -0.5,
+                                     q_start=-70)
+    assert bool((lse[:, :70] == FA.NEG_INF).all())
+    assert not o[:, :70].any() and not dq[:, :70].any()
+
+
+def test_d256_kernels_at_more_than_65535_heads(card):
+    """BH = 65536 + 7 at D 256, S 16: the heads around and past 65535 give
+    the same bits as a launch of their own and hold against the plain
+    versions."""
+    from apex_tpu_torch.ops import flash_attn as FA
+    bh, s, d = 65536 + 7, 16, 256
+    q, k, v, do = _d256_inputs(card, bh, s, s, d, torch.bfloat16, 9)
+    kw = dict(causal=True, scale=d ** -0.5)
+    o, lse = FA.flash_fwd(q, k, v, **kw)
+    delta = FA.flash_delta(o, do)
+    dq = FA.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    tail = slice(65536 - 9, bh)
+    ot, lset, dqt = _d256_against_plain(q[tail], k[tail], v[tail], do[tail],
+                                        torch.bfloat16, **kw)
+    for a, b0 in zip((o, lse, dq), (ot, lset, dqt)):
+        assert torch.equal(a[tail], b0)
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 256),
+                                     (torch.bfloat16, 320)],
+                         ids=["f32-256", "bf16-320"])
+def test_d256_leaves_fp32_and_wider_heads_to_the_simple_form(card, dtype,
+                                                             d):
+    """fp32 at D 256 and bf16 at D 320 still go to the simple form, forward
+    and backward, and none of the D-256 kernels launches."""
+    from apex_tpu_torch.contrib.multihead_attn import flash_attention
+    from apex_tpu_torch.ops import flash_attn as FA
+    q, k, v, do = _d256_inputs(card, 2, 100, 100, d, dtype, d)
+    fns = (FA.flash_simt_fwd, FA.flash_simt_dq, FA.flash_simt_dkv,
+           FA.flash_d256_fwd, FA.flash_d256_dq, FA.flash_fwd,
+           FA.flash_bwd_dq, FA.flash_bwd_dkv)
+    before = [f.launches for f in fns]
+    qs, ks, vs = (t.clone().requires_grad_(True) for t in (q, k, v))
+    o = flash_attention(qs, ks, vs, causal=True)
+    torch.autograd.grad(o, (qs, ks, vs), do)
+    assert [f.launches - n for f, n in zip(fns, before)] == \
+        [1, 1, 1, 0, 0, 0, 0, 0]

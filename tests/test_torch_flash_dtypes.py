@@ -4,8 +4,10 @@ kernels now take.
 On the card bf16 and fp16 at a head dim up to 128 go to the tensor-core
 kernels with q, k, v (and dO) zero-padded to 64 or 128 and the outputs
 sliced back (``padded_head_dim``, ``_pad_d``, ``_unpad``; the JAX package
-pads D to 128 lanes), the real D's scale passed; fp32 and D past 128 go to
-the simple form. Here, on the CPU: the padding itself (pad, the plain
+pads D to 128 lanes), the real D's scale passed; past 128 their forward
+and dq go, padded to 256, to the D-256 kernels
+(tests/test_torch_flash_d256.py) and dk/dv to the simple form, as fp32
+past 128 does. Here, on the CPU: the padding itself (pad, the plain
 versions at the padded width with the real scale, slice) against the JAX
 package's ``flash_attention`` (its Pallas kernels in interpret mode) at D
 96 and 32, forward, lse and the gradients; and the port's
@@ -49,17 +51,27 @@ def _jax(q, k, v, do, causal, dtype=jnp.float32):
 
 
 @pytest.mark.parametrize("d,dp", [(1, 64), (32, 64), (64, 64), (65, 128),
-                                  (96, 128), (128, 128)])
+                                  (96, 128), (128, 128), (129, 256),
+                                  (200, 256), (256, 256)])
 def test_padded_head_dim(d, dp):
     assert FA.padded_head_dim(d) == dp
 
 
-@pytest.mark.parametrize("dtype,d,tc", [
-    (torch.bfloat16, 32, True), (torch.float16, 128, True),
-    (torch.float16, 129, False), (torch.float32, 64, False),
-    (torch.bfloat16, 512, False)])
-def test_the_form_follows_dtype_and_head_dim(dtype, d, tc):
-    assert FA.tensor_cores(torch.zeros(2, 3, d, dtype=dtype)) == tc
+@pytest.mark.parametrize("dtype,d,tc,forms", [
+    (torch.bfloat16, 32, True, ("tc", "tc", "tc")),
+    (torch.float16, 128, True, ("tc", "tc", "tc")),
+    (torch.float16, 129, False, ("tc256", "tc256", "simt")),
+    (torch.bfloat16, 256, False, ("tc256", "tc256", "simt")),
+    (torch.float32, 64, False, ("f32", "f32", "f32")),
+    (torch.float32, 256, False, ("simt", "simt", "simt")),
+    (torch.bfloat16, 512, False, ("simt", "simt", "simt"))])
+def test_the_form_follows_dtype_and_head_dim(dtype, d, tc, forms):
+    """``tensor_cores``: every 16-bit kernel on the tensor cores (D <= 128);
+    past 128 the forward and dq take their D-256 form up to 256, dk/dv the
+    simple one."""
+    q = torch.zeros(2, 3, d, dtype=dtype)
+    assert FA.tensor_cores(q) == tc
+    assert tuple(FA.kernel_form(q, k) for k in ("fwd", "dq", "dkv")) == forms
 
 
 @pytest.mark.parametrize("d", [96, 32])

@@ -6,7 +6,8 @@ What the kernels do is testable here without them:
 
 - the route: ``kernel_form`` sends fp32 at a head dim up to 128 to these
   kernels, the forward and the backward alike, bf16/fp16 there to the
-  16-bit tensor-core ones and any dtype past 128 to the simple form;
+  16-bit tensor-core ones and fp32 past 128 to the simple form (bf16/fp16
+  past 128: their dk/dv; their dq to 256 takes the D-256 kernel);
   ``tensor_cores`` names the 16-bit kernels alone;
 - the arithmetic: a plain model of the 3xTF32 products (each fp32 operand
   split into big = tf32(x) and small = tf32(x - big), rounded as
@@ -54,8 +55,12 @@ JFA = importlib.import_module(
     (torch.float32, 512, "simt"), (torch.bfloat16, 128, "tc"),
     (torch.bfloat16, 129, "simt")])
 def test_backward_form_follows_dtype_and_head_dim(dtype, d, form):
+    """``form`` is dk/dv's; dq's is the same but for bf16/fp16 at D
+    129-256, which dq takes on the tensor cores at D 256."""
     q = torch.zeros(2, 3, d, dtype=dtype)
-    assert FA.kernel_form(q) == form
+    assert FA.kernel_form(q, "dkv") == form
+    assert FA.kernel_form(q, "dq") == (
+        "tc256" if dtype != torch.float32 and 128 < d <= 256 else form)
     # tensor_cores names the 16-bit kernels alone
     assert FA.tensor_cores(q) == (form == "tc")
 
