@@ -37,9 +37,10 @@ __all__ = ["NEG_INF", "DEFAULT_FLASH_MIN_S", "dropout_bits",
 # kernels: the smallest S measured from which the kernels beat the plain
 # path at every larger S, forward and forward + backward, causal and not,
 # at [128, S, 64] for S 128-4096. On an NVIDIA H100 80GB HBM3 at 700 W
-# they won at every S, in bf16 (chip_smoke.py phase 2) and in fp32 (the
-# 3xTF32 kernels; chip_smoke.flash_crossover_phase(torch, "float32");
-# PERF.md); below 128 nothing was measured, so those go plain.
+# they won at every S, in bf16 (chip_smoke.py phase 2; at [32, S, 256]
+# too, the D-256 kernels) and in fp32 (the 3xTF32 kernels;
+# chip_smoke.flash_crossover_phase(torch, "float32"); PERF.md); below 128
+# nothing was measured, so those go plain.
 DEFAULT_FLASH_MIN_S = 128
 
 

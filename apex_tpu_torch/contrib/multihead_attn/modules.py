@@ -8,8 +8,8 @@ kernels, ``"default"`` the unfused ``reference_attention``, ``"auto"`` the
 flash kernels where they take the call (fp32, bf16 or fp16 on the card,
 head dim up to 512) from ``flash_min_s`` (when unset the H100's
 crossover, ``DEFAULT_FLASH_MIN_S``, where every kernel of the call is a
-tensor-core one, the 16-bit ones and fp32's 3xTF32 ones; none where
-dk/dv is the simple form, past head dim 128) or when the unfused scores
+tensor-core one, the 16-bit ones to head dim 256 and fp32's 3xTF32 ones
+to 128; none where dk/dv is the simple form) or when the unfused scores
 would pass 2 GiB (``_flash_wins``, :138-167).
 
 A ``key_padding_mask`` [B, Sk] (True = pad) becomes the per-key
@@ -115,13 +115,12 @@ class _AttnBase:
         bf16 or fp16 tensors on the card, head dim up to 512 — from
         ``flash_min_s``, or once the plain path's scores would pass 2 GiB.
         Unset, ``flash_min_s`` is ``DEFAULT_FLASH_MIN_S`` where every
-        kernel of the call runs on the tensor cores (bf16 and fp16, and
-        fp32 in 3xTF32, at a head dim up to 128: both crossovers measured
-        128 on the H100); where dk/dv is the simple form (any dtype past
-        128: bf16 and fp16 at D 129-256 run their forward and dq on the
-        tensor cores, yet forward + backward lost to the plain path at
-        every S 256-4096 on the H100) there is no such length, so only
-        the 2 GiB rule sends a call there. The kernels take
+        kernel of the call runs on the tensor cores (bf16 and fp16 at a
+        head dim up to 256, fp32 in 3xTF32 at one up to 128: the
+        crossovers measured 128 on the H100 at D 64 and 256); where dk/dv
+        is the simple form (fp32 past 128, any dtype past 256) there is no
+        such length, so only the 2 GiB rule sends a call there. The
+        kernels take
         the full bias and dropout, so neither routes a call away. Anything
         else goes to ``reference_attention``, as JAX's "auto" does below
         its crossover. A routing rule, not a fallback: ``impl="fast"``

@@ -1,6 +1,6 @@
-// Flash attention's backward over [BH, S, D] bf16 or fp16 (D 64 or 128;
-// dq also 256) for Hopper: dq (with the per-bh bias gradient dS when
-// asked) and dk/dv, each
+// Flash attention's backward over [BH, S, D] bf16 or fp16 (D 64, 128 or
+// 256) for Hopper: dq (with the per-bh bias gradient dS when asked) and
+// dk/dv, each
 // recomputing the probabilities from the forward's lse. The semantics they
 // keep from the Pallas kernels are csrc/flash_common.cuh; the Hopper
 // instructions they are built from are csrc/hopper.cuh, and the tiles,
@@ -64,7 +64,7 @@
 //    time (with_tile_form), and the two consumer warpgroups take turns
 //    issuing their first products (named barriers), so that the tensor
 //    cores run one's products while the other works out P and dS.
-// dq at D = 256 (dk/dv there is csrc/flash_simt.cu's). The
+// dq at D = 256 (dk/dv there: flash_dkv_split_kernel, below). The
 // block's Q and dO alone take 128 KB of the 227 a block may have, and a
 // 64-key stage of K and V 64 KB more, so the ring stages 32 keys a tile
 // (16 + 16 KB: three stages, 224 KB in all; the maps' boxes are 32 rows).
@@ -574,6 +574,245 @@ flash_dkv_kernel(const __grid_constant__ Maps maps, Attn a,
   }
 }
 
+// ---- dk, dv at D = 256 -------------------------------------------------------
+//
+// At D = 256 a warpgroup's dk over 64 keys is 64 x 256 fp32, 128
+// registers a thread, and dv as many: the two no longer fit one
+// warpgroup under setmaxnreg's 240, so the block's two consumer
+// warpgroups split the accumulators over the same 64 keys (of the forms
+// considered, each warpgroup holding one accumulator over all of D: a
+// split of D would compute each first product twice or trade partial
+// scores, and two passes take five products and two launches). For each
+// staged tile of 64 queries:
+// - warpgroup V (0): S^T = K Q^T, P^T from it (the recompute of the
+//   scores, the masks and biases, lse), P^T's undropped fp32 values into
+//   shared memory for K, and dv += P^T dO with P^T dropped and rescaled;
+// - warpgroup K (1): dP^T = V dO^T, and, once V's P^T is there, dS^T =
+//   P^T (dP'^T - delta) with dP' dropped and rescaled by the same hash
+//   (dS takes the undropped fp32 p, as recompute does), then dk += dS^T Q.
+// Each does one first and one second product a tile, so the tensor cores
+// see even halves; each holds its accumulator (128), one 64 x 64 score
+// tile (32) and its 16-bit fragments (16). Only P^T crosses shared memory
+// (64 x 64 x 4 bytes, one buffer), under two named barriers: V arrives at
+// kPReady once it is written and waits at kPFree (from the second tile
+// on, and once after the loop) before it writes the next; K waits at
+// kPReady, reads it, arrives at kPFree. Both warpgroups visit the same
+// tiles (the block's keys are one warpgroup's), so no tile is skipped by
+// one alone. Shared memory: K and V 64 KB, a ring of two stages of Q and
+// dO at 64 rows 128 KB, P^T 16 KB, lse and delta 1.5 KB: 210 KB of the
+// 227. The full bias is read a score at a time from L2, as in the D-256
+// forward (warpgroup V's registers are dv's). At [64, 4096, 256] causal
+// (5.4e8 pairs) the four products are 8·D·pairs = 1.10 TFLOP: 1.112 ms at
+// 989 TFLOP/s; at [32, 1024, 256] 0.0348 ms.
+
+constexpr int kDkvSplitStages = 2;   // stages of the ring of query tiles
+constexpr int kPReady = 3, kPFree = 4;   // named barriers (0: syncthreads)
+
+struct DkvSplitSmem {
+  Tile<kWgRows, 256> k, v;                          // the block's keys
+  Tile<kBox, 256> q[kDkvSplitStages], o[kDkvSplitStages];
+  float p[kWgRows * kBox];   // P^T undropped, [element][thread] of V's
+  // lse in log2 units; delta, and delta times the scale
+  float lse[kDkvSplitStages][kBox], dlt[kDkvSplitStages][kBox],
+      dlts[kDkvSplitStages][kBox];
+  uint64_t full[kDkvSplitStages], empty[kDkvSplitStages], kv;
+};
+
+// dk, dv E [BH, Sk, 256] contiguous; blocks of 64 keys, the grid's one dim
+// folding bh with them (bh-major, each bh's first keys, which see the
+// most queries, first)
+template <typename E, int D, bool EXTRA>
+__global__ void __launch_bounds__(kBlockThreads, 1)
+flash_dkv_split_kernel(const __grid_constant__ Maps maps, Attn a,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta, E* __restrict__ dk,
+                       E* __restrict__ dv) {
+  static_assert(D == 256, "the split form is written for D = 256");
+  constexpr int NS = kDkvSplitStages, R = kBox, KS = R / 16;
+  extern __shared__ uint8_t smem_raw[];
+  DkvSplitSmem& sm = smem_as<DkvSplitSmem>(smem_raw);
+  const int nb = (a.sk + kWgRows - 1) / kWgRows;
+  const int bh = blockIdx.x / nb, k0 = (blockIdx.x % nb) * kWgRows;
+  const int wg = threadIdx.x >> 7;
+  const int nqt = (a.sq + kBox - 1) / kBox;
+  const int qt0 = first_query_tile(a, k0);
+  init_barriers(sm, &sm.kv);
+
+  if (wg == 2) {
+    // ---- producer: the block's K and V once, then the query tiles
+    reg_dealloc<kProducerRegs>();
+    if (threadIdx.x >= 2 * 128 + 32) return;
+    const int lane = threadIdx.x & 31;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(&sm.kv, 2 * Tile<kWgRows, D>::kBytes);
+      load_rows(sm.k, &maps.k, &sm.kv, k0, bh);
+      load_rows(sm.v, &maps.v, &sm.kv, k0, bh);
+    }
+    const float* lb = lse + (long long)bh * a.sq;
+    const float* db = delta + (long long)bh * a.sq;
+    for (int i = 0; qt0 + i < nqt; ++i) {
+      const int qt = qt0 + i, s = i % NS;
+      if (i >= NS) mbar_wait(&sm.empty[s], (i / NS - 1) & 1);
+      for (int r = lane; r < kBox; r += 32) {
+        const int row = qt * kBox + r;
+        sm.lse[s][r] = row < a.sq ? lb[row] * kLog2e : 0.f;
+        sm.dlt[s][r] = row < a.sq ? db[row] : 0.f;
+        sm.dlts[s][r] = sm.dlt[s][r] * a.scale;
+      }
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&sm.full[s], 2 * Tile<kBox, D>::kBytes);
+        load_rows(sm.q[s], &maps.q, &sm.full[s], qt * kBox, bh);
+        load_rows(sm.o[s], &maps.o, &sm.full[s], qt * kBox, bh);
+      } else {
+        mbar_arrive(&sm.full[s]);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: both warpgroups on keys [k0, k0 + 64); V (0) makes P^T
+  // and dv, K (1) dS^T and dk
+  reg_alloc<kConsumerRegs>();
+  const int tid = threadIdx.x & 127, lane = tid & 31, g = lane >> 2,
+            t4 = lane & 3;
+  const int kw = k0 + (tid >> 5) * 16;    // this warp's 16 keys
+  // kv_bias of this thread's two keys, in log2 units (V's scores)
+  float kb_r[2] = {0.f, 0.f};
+  if (EXTRA && wg == 0 && a.kvb != nullptr) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int kj = kw + g + 8 * h;
+      kb_r[h] = kj < a.sk ? a.kvb[bh * a.kvb_bh + kj] * kLog2e : 0.f;
+    }
+  }
+  float acc[D / 2];                       // dv in V, dk in K
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  const float sl2 = a.scale * kLog2e;
+  const bool drop = EXTRA && a.drop_inv > 0.f;
+  uint32_t none[kASteps<D>][4];           // no register-A rows at D = 256
+  mbar_wait(&sm.kv, 0);
+  int held = -1;   // the stage the last second product reads
+  for (int i = 0; qt0 + i < nqt; ++i) {
+    const int qt = qt0 + i, s = i % NS;
+    mbar_wait(&sm.full[s], (i / NS) & 1);
+    // V: S^T = K Q^T and then dv += P^T dO; K: dP^T = V dO^T and then
+    // dk += dS^T Q
+    const Tile<kWgRows, D>& rows = wg == 0 ? sm.k : sm.v;
+    const Tile<kBox, D>& first = wg == 0 ? sm.q[s] : sm.o[s];
+    const Tile<kBox, D>& second = wg == 0 ? sm.o[s] : sm.q[s];
+    float sc[R / 2];                      // S^T in V, dP^T in K
+    fence_regs(acc);
+    wg_fence();
+    first_product<E, D, R>(sc, rows, 0, none, first, 0);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(sc);
+    fence_regs(acc);
+    release(sm, held);
+    held = -1;
+    // P^T (V) or dS^T * scale (K), each pair packed into its 16-bit
+    // fragment as it is made
+    uint32_t f[KS][4];
+    if (wg == 0) {
+      if (i > 0) bar_sync(kPFree, 256);   // K has read the last P^T
+      const bool full = all_visible(a, qt * kBox, R, kw, 16);
+      with_tile_form<D, EXTRA>(!full, a, [&](auto mask, auto bias,
+                                             auto dropf) {
+        constexpr bool M = decltype(mask)::value,
+                       B = decltype(bias)::value,
+                       P = decltype(dropf)::value;
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          // the bias read from global memory a k-step at a time
+          if constexpr (B) asm volatile("" ::: "memory");
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            float pd[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int j = 8 * ks + 2 * jj + e;
+              const int ql = (j >> 2) * 8 + 2 * t4 + (j & 1);
+              float p;
+              if constexpr (!EXTRA && !M) {
+                p = ex2(fmaf(sc[j], sl2, -sm.lse[s][ql]));
+              } else {
+                const int h = (j >> 1) & 1;
+                const int kj = kw + g + 8 * h, qi = qt * kBox + ql;
+                float x = fmaf(sc[j], sl2, kb_r[h]);
+                bool live = !M || visible(a, qi, kj);
+                if (B && live) x += bias_at(a, bh, qi, kj);
+                if (EXTRA) live = live && x > kNegInf * 0.5f;
+                p = live ? ex2(x - sm.lse[s][ql]) : 0.f;
+              }
+              sm.p[j * 128 + tid] = p;
+              pd[e] = p;
+              if (P && drop) {
+                const int kj = kw + g + 8 * ((j >> 1) & 1);
+                pd[e] = keep(a, bh, qt * kBox + ql, kj) ? p * a.drop_inv
+                                                        : 0.f;
+              }
+            }
+            f[ks][jj] = pack2<E>(pd[0], pd[1]);
+          }
+        }
+      });
+      bar_arrive(kPReady, 256);
+    } else {
+      bar_sync(kPReady, 256);             // V's P^T of this tile is there
+      auto make_ds = [&](auto dropf) {
+        constexpr bool P = decltype(dropf)::value;
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            float x[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int j = 8 * ks + 2 * jj + e;
+              const int ql = (j >> 2) * 8 + 2 * t4 + (j & 1);
+              float dp = sc[j];
+              if constexpr (P) {
+                const int kj = kw + g + 8 * ((j >> 1) & 1);
+                dp = keep(a, bh, qt * kBox + ql, kj) ? dp * a.drop_inv
+                                                     : 0.f;
+              }
+              // dS scale = p (dP' scale - delta scale)
+              x[e] = sm.p[j * 128 + tid] *
+                     fmaf(dp, a.scale, -sm.dlts[s][ql]);
+            }
+            f[ks][jj] = pack2<E>(x[0], x[1]);
+          }
+        }
+      };
+      if (drop) make_ds(std::true_type{});
+      else make_ds(std::false_type{});
+      bar_arrive(kPFree, 256);
+    }
+    wg_fence();
+    frags_by_tile<E, D, KS>(acc, f, second, 0);
+    wg_commit();
+    held = s;
+  }
+  // K's last arrival at kPFree, matched
+  if (wg == 0 && qt0 < nqt) bar_sync(kPFree, 256);
+  wg_wait<0>();
+  fence_regs(acc);
+  release(sm, held);
+  E* out = wg == 0 ? dv : dk;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = kw + g + 8 * h;
+    if (row >= a.sk) continue;
+    const long long off = ((long long)bh * a.sk + row) * D + 2 * t4;
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt) {
+      *reinterpret_cast<uint32_t*>(out + off + nt * 8) =
+          pack2<E>(acc[4 * nt + 2 * h], acc[4 * nt + 2 * h + 1]);
+    }
+  }
+}
+
 // ---- host: launches ----------------------------------------------------------
 
 // dq and dk/dv take (maps, a, lse, delta, one E output, the other
@@ -656,7 +895,8 @@ extern "C" int apex_flash_bwd_dq(int dtype, const void* q, const void* k,
   return static_cast<int>(err);
 }
 
-// dk, dv [bh, sk, d] of k's dtype, contiguous.
+// dk, dv [bh, sk, d] of k's dtype, contiguous. d may also be 256, whose
+// blocks are 64 keys (`blocks` = ceil(sk / 64)).
 extern "C" int apex_flash_bwd_dkv(int dtype, const void* q, const void* k,
                                   const void* v, const void* dout,
                                   const void* lse, const void* delta,
@@ -669,7 +909,9 @@ extern "C" int apex_flash_bwd_dkv(int dtype, const void* q, const void* k,
                                   int k_start, int causal, float scale,
                                   void* stream) {
   using namespace apex_port;
-  if (bad(bh, sq, sk, d, blocks) || blocks != (sk + kRows - 1) / kRows ||
+  const int rows = d == 256 ? kWgRows : kRows;
+  if (bad(bh, sq, sk, d, blocks, true) ||
+      blocks != (sk + rows - 1) / rows ||
       (dtype != kBF16 && dtype != kF16)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -689,11 +931,17 @@ extern "C" int apex_flash_bwd_dkv(int dtype, const void* q, const void* k,
     using E = typename decltype(et)::type;
     E* kp = static_cast<E*>(dk);
     E* vp = static_cast<E*>(dv);
-    with_form(d, a, [&](auto dd, auto ex) {
+    with_form<true>(d, a, [&](auto dd, auto ex) {
       constexpr int D = decltype(dd)::value;
-      err = launch(flash_dkv_kernel<E, D, decltype(ex)::value>,
-                   smem_bytes<DkvSmem<D>>(), grid, st, maps, a, lp, dl, kp,
-                   vp);
+      constexpr bool X = decltype(ex)::value;
+      if constexpr (D == 256) {
+        err = launch(flash_dkv_split_kernel<E, D, X>,
+                     smem_bytes<DkvSplitSmem>(), grid, st, maps, a, lp, dl,
+                     kp, vp);
+      } else {
+        err = launch(flash_dkv_kernel<E, D, X>, smem_bytes<DkvSmem<D>>(),
+                     grid, st, maps, a, lp, dl, kp, vp);
+      }
     });
   });
   return static_cast<int>(err);

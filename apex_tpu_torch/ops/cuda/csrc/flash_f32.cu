@@ -1,5 +1,6 @@
-// Flash attention over [BH, S, D] fp32 (D 64 or 128) on the tensor cores
-// in 3xTF32: the forward (o and the per-row lse, by the online softmax),
+// Flash attention over [BH, S, D] fp32 (D 64 or 128; the forward also 256)
+// on the tensor cores in 3xTF32: the forward (o and the per-row lse, by the
+// online softmax),
 // dq (with the per-bh bias gradient dS when asked) and dk/dv, the two
 // recomputing the probabilities from the forward's lse. The semantics they
 // keep from the Pallas kernels are csrc/flash_common.cuh's: causal masking
@@ -9,8 +10,10 @@
 // Replaces, for fp32 inputs at a head dim up to 128 (padded to 64 or 128),
 // the Pallas kernels of apex_tpu/contrib/multihead_attn/flash_attention.py:
 // _fwd_kernel (:181), _bwd_dq_kernel (:349) and _bwd_dkv_kernel (:392),
-// with the recompute of _recompute_p_ds (:309-346). The simple form
-// (csrc/flash_simt.cu) keeps D past 128 and the fp32 shared-bias gradient.
+// with the recompute of _recompute_p_ds (:309-346); _fwd_kernel also at a
+// head dim of 129 to 256 (padded to 256). The simple form
+// (csrc/flash_simt.cu) keeps the rest past 128 and the fp32 shared-bias
+// gradient.
 //
 // Bound on this card: operations. At lm_bench's shape (BH = 128, S =
 // 4095, D = 64, causal: 1.07e9 live pairs) the forward's two products are
@@ -68,6 +71,15 @@
 //    shares a row, so the row max and sum take two shuffles), O scaled by
 //    alpha in fp32 before each tile's P V, from a fresh accumulator, is
 //    added. Holding no dO, it stages 64 keys a tile at D 64 (32 at D 128).
+// 7. At D 256 shared memory sets the block's shape: a staged row split in
+//    two is 2 x 260 floats (2080 bytes), so the block's queries take 2080
+//    bytes a row and each staged key 6 x 1040 (K and V double-buffered,
+//    their small halves once). A warp's O is 16 x 256 fp32, 128 registers
+//    a thread. The shape below (f_warps, f_fwd_tile at 256: 4 warps, 8-key
+//    tiles, 179 KB) is the one flash_f32_ab.py timed fastest on the H100
+//    (PERF.md): 3 warps and 16 keys (195 KB) took 27% longer and spilled,
+//    2 warps and 16 keys (162 KB) twice as long and spilled, 5 warps and 8
+//    keys (211 KB) 10% longer.
 // Tiles wholly past the causal edge are skipped, by the block and by each
 // warp; a warp whose 16 rows see all of a tile with no bias or dropout
 // takes the unmasked path. Each block owns its output rows and writes
@@ -79,11 +91,11 @@ namespace apex_port {
 namespace {
 
 // The block's shape by head dim: 8 warps of 16 rows at D 64, 4 at D 128
-// (the block's rows and the staged tiles, each split into big and small
-// halves, fill most of the 227 KB of shared memory either way), and the
-// other side's rows a staged tile holds: fewer at D 128, and fewer still
-// for dk/dv there, whose dk and dv take 128 registers a thread, so that
-// no form spills
+// and 256 (the block's rows and the staged tiles, each split into big and
+// small halves, fill most of the 227 KB of shared memory either way), and
+// the other side's rows a staged tile holds: fewer at D 128, and fewer
+// still for dk/dv there, whose dk and dv take 128 registers a thread, so
+// that no form spills
 template <int D> __host__ __device__ constexpr int f_warps() {
   return D <= 64 ? 8 : 4;
 }
@@ -93,9 +105,10 @@ template <int D> __host__ __device__ constexpr int f_rows() {
 template <int D, bool KV> __host__ __device__ constexpr int f_tile() {
   return D <= 64 ? 32 : KV ? 8 : 16;
 }
-// the forward's staged keys: it holds no dO, so twice dq's
+// the forward's staged keys: it holds no dO, so twice dq's (at D 256 what
+// shared memory leaves: item 7 above)
 template <int D> __host__ __device__ constexpr int f_fwd_tile() {
-  return D <= 64 ? 64 : 32;
+  return D <= 64 ? 64 : D <= 128 ? 32 : 8;
 }
 // the row stride of everything staged: D + 4 floats
 template <int D> __host__ __device__ constexpr int f_ld() { return D + 4; }
@@ -813,9 +826,12 @@ f32_dkv_kernel(Attn a, const float* __restrict__ dout, long long do_bh,
 // one set, the backward's two) and the two double-buffered tiles, each
 // split into big (in place) and small halves; for dk/dv also the tiles'
 // lse and delta
-int f32_rows(int d) { return d <= 64 ? f_rows<64>() : f_rows<128>(); }
+int f32_rows(int d) {
+  return d <= 64 ? f_rows<64>() : d <= 128 ? f_rows<128>() : f_rows<256>();
+}
 int smem_f32_fwd(int d) {
-  const int tile = d <= 64 ? f_fwd_tile<64>() : f_fwd_tile<128>();
+  const int tile = d <= 64 ? f_fwd_tile<64>()
+                   : d <= 128 ? f_fwd_tile<128>() : f_fwd_tile<256>();
   return 4 * (d + 4) * (2 * f32_rows(d) + 6 * tile);
 }
 int smem_f32_dq(int d) {
@@ -844,7 +860,7 @@ cudaError_t f32_launch(K kernel, int bytes, int blocks, int bh, int d,
 
 // Every entry point takes the simple form's arguments
 // (csrc/flash_simt.cu): q, k, v, dout [bh, s, d] fp32 (dtype code 0), d 64
-// or 128, read through their strides (elements; the last dim contiguous,
+// or 128 (the forward also 256), read through their strides (elements; the last dim contiguous,
 // rows 16-byte aligned); lse, delta fp32 [bh, sq] contiguous; kvb null or
 // fp32 [1|bh, sk] with bh stride kvb_bh (0 when shared); bias null or fp32
 // [1|bh, sq, sk] contiguous with bh stride bias_bh (0 when shared);
@@ -867,7 +883,7 @@ extern "C" int apex_flash_f32_fwd(int dtype, const void* q, const void* k,
   using namespace apex_port;
   const int blocks = (sq + f32_rows(d) - 1) / f32_rows(d);
   if (dtype != kF32 || o == nullptr || lse == nullptr ||
-      bad(bh, sq, sk, d, blocks)) {
+      bad(bh, sq, sk, d, blocks, true)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Attn a = make_attn(q, k, v, q_bh, q_s, k_bh, k_s, v_bh, v_s, kvb,
@@ -875,7 +891,7 @@ extern "C" int apex_flash_f32_fwd(int dtype, const void* q, const void* k,
                            drop_inv, sq, sk, q_start, k_start, causal, scale);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-  with_form(d, a, [&](auto dc, auto extra) {
+  with_form<true>(d, a, [&](auto dc, auto extra) {
     err = f32_launch(
         f32_fwd_kernel<decltype(dc)::value, decltype(extra)::value>,
         smem_f32_fwd(d), blocks, bh, d, st, a, static_cast<float*>(o),

@@ -155,14 +155,15 @@ __device__ __forceinline__ void load_frags(uint32_t (&f)[D / 16][4],
 }
 
 // acc[64 x N] = this warpgroup's rows [r0, r0 + 64) of the block's tile a
-// times rows [b0, b0 + N) of b transposed: the product over D, both
-// K-major. At D = 64 the rows come from their register fragments f (an
-// m64n64k16 product that reads both operands from shared memory takes all
-// of its bandwidth); at D = 128 and 256 from a itself, their fragments (64
-// and 128 registers a thread) having no room beside the accumulators
-template <typename E, int D, int N, int RB>
+// (of RA rows) times rows [b0, b0 + N) of b transposed: the product over
+// D, both K-major. At D = 64 the rows come from their register fragments
+// f (an m64n64k16 product that reads both operands from shared memory
+// takes all of its bandwidth); at D = 128 and 256 from a itself, their
+// fragments (64 and 128 registers a thread) having no room beside the
+// accumulators
+template <typename E, int D, int N, int RB, int RA>
 __device__ __forceinline__ void first_product(
-    float (&acc)[N / 2], const Tile<kRows, D>& a, int r0,
+    float (&acc)[N / 2], const Tile<RA, D>& a, int r0,
     const uint32_t (&f)[kASteps<D>][4], const Tile<RB, D>& b, int b0) {
   const uint32_t pa = opaque(smem_u32(&a.x[0][r0 * kBox]));
   const uint32_t pb = smem_u32(&b.x[0][b0 * kBox]);
@@ -174,7 +175,7 @@ __device__ __forceinline__ void first_product(
       mma_rs<N, 0, E>(acc, f[kk], db, kk > 0);
     } else {
       mma_ss<N, E>(acc,
-                sw128_desc(pa + (kk / 4) * Tile<kRows, D>::kColBytes +
+                sw128_desc(pa + (kk / 4) * Tile<RA, D>::kColBytes +
                                (kk % 4) * 32, 16, kSbo),
                 db, kk > 0);
     }

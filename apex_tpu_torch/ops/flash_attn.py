@@ -21,22 +21,30 @@ gradient):
   plain version is :func:`flash_bwd_dbias_plain`.
 
 Four forms of kernel serve them, each kernel's own
-(:func:`kernel_form` picks for the forward, dq and dk/dv): bf16 and fp16
-at a head dim up to 128 go to the Hopper kernels above, which take D 64 or
-128 and so get q, k, v (and dO) zero-padded to the next of the two (the
-JAX package pads D to 128 lanes; zero columns add nothing to QKᵀ and give
-zero output columns, sliced off), the real D's scale passed; bf16 and
-fp16 at D 129-256 go, padded to 256 alike, to the same forward and dq
-kernels at D 256 (:func:`flash_d256_fwd`, :func:`flash_d256_dq`), while
-their dk/dv stays on the simple form; fp32 at a head dim up to 128 goes,
-padded alike, to ``ops/cuda/csrc/flash_f32.cu``, 3xTF32 products on the
-tensor cores (:func:`flash_f32_fwd`, :func:`flash_f32_dq`,
-:func:`flash_f32_dkv`); the rest, up to D 512 in any of the three dtypes,
-goes to the simple form of ``ops/cuda/csrc/flash_simt.cu``: fp32 FMAs, a
-warp a row (:func:`flash_simt_fwd`, :func:`flash_simt_dq`,
-:func:`flash_simt_dkv`; :func:`flash_bwd_dbias` sums that dq kernel's dS
-over bh, and takes it in fp32 and past D 128). Each of these wrappers
-counts its own launches.
+(:func:`kernel_form` picks for the forward, dq and dk/dv):
+
+========  ==========  ====================  ====================
+dtype     head dim    forward               dq, dk/dv
+========  ==========  ====================  ====================
+bf16/f16  1-128       "tc" (64 or 128)      "tc" (64 or 128)
+bf16/f16  129-256     "tc256" (256)         "tc256" (256)
+fp32      1-128       "f32" (64 or 128)     "f32" (64 or 128)
+fp32      129-256     "f32" (256)           "simt"
+any       to 512      "simt"                "simt"
+========  ==========  ====================  ====================
+
+"tc" is the Hopper kernels above at D 64 or 128 and "tc256" the same
+files' kernels at D 256 (:func:`flash_d256_fwd`, :func:`flash_d256_dq`,
+:func:`flash_d256_dkv`); the inputs are zero-padded to the head dim in
+brackets (the JAX package pads D to 128 lanes; zero columns add nothing to
+QKᵀ and give zero output columns, sliced off), the real D's scale passed.
+"f32" is ``ops/cuda/csrc/flash_f32.cu``, 3xTF32 products on the tensor
+cores (:func:`flash_f32_fwd`, :func:`flash_f32_dq`, :func:`flash_f32_dkv`),
+padded alike. "simt" is the simple form of ``ops/cuda/csrc/flash_simt.cu``:
+fp32 FMAs, a warp a row (:func:`flash_simt_fwd`, :func:`flash_simt_dq`,
+:func:`flash_simt_dkv`); :func:`flash_bwd_dbias` takes the tensor-core
+kernel at bf16/fp16 D <= 128 and otherwise sums the simple dq kernel's
+dS over bh. Each of these wrappers counts its own launches.
 
 The backward takes ``delta = rowsum(dO·O) − dlse`` (:474-479, computed
 here in plain PyTorch by :func:`flash_delta`), so a cotangent of the lse
@@ -83,26 +91,27 @@ from apex_tpu_torch.ops import cuda as _cuda
 from apex_tpu_torch.ops import dispatch
 
 __all__ = ["NEG_INF", "KERNEL_HEAD_DIMS", "DKV_HEAD_DIMS", "F32_HEAD_DIMS",
-           "SIMT_MAX_HEAD_DIM", "dropout_bits", "drop_threshold",
-           "reference_attention", "flash_fwd", "flash_delta",
+           "F32_FWD_HEAD_DIMS", "SIMT_MAX_HEAD_DIM", "dropout_bits",
+           "drop_threshold", "reference_attention", "flash_fwd", "flash_delta",
            "flash_bwd_plain", "flash_bwd_dq", "flash_bwd_dkv",
            "flash_bwd_dbias", "flash_bwd_dbias_plain", "flash_d256_fwd",
-           "flash_d256_dq", "flash_simt_fwd", "flash_simt_dq",
-           "flash_simt_dkv", "flash_f32_fwd", "flash_f32_dq",
-           "flash_f32_dkv", "kernel_form", "tensor_cores",
-           "padded_head_dim", "BLOCK_ROWS", "TMA_BOX", "DQ_D256_KEYS",
+           "flash_d256_dq", "flash_d256_dkv", "flash_simt_fwd",
+           "flash_simt_dq", "flash_simt_dkv", "flash_f32_fwd", "flash_f32_dq",
+           "flash_f32_dkv", "kernel_form", "tensor_cores", "padded_head_dim",
+           "BLOCK_ROWS", "TMA_BOX", "DQ_D256_KEYS", "DKV_D256_KEYS",
            "tma_layout", "row_blocks"]
 
 # finite -inf stand-in: exp(NEG_INF - m) is exactly 0.0 in fp32, so a fully
 # masked row yields zeros instead of NaN
 NEG_INF = -1.0e30
 # the head dims the bf16/fp16 tensor-core kernels are written for (a
-# smaller D is padded up to one of them): the forward and dq take all three,
-# dk/dv and the shared-bias gradient the first two; the fp32 ones' (3xTF32);
-# and the widest the simple form takes
+# smaller D is padded up to one of them): the forward, dq and dk/dv take all
+# three, the shared-bias gradient the first two; the fp32 ones' (3xTF32):
+# dq and dk/dv, and the forward; and the widest the simple form takes
 KERNEL_HEAD_DIMS = (64, 128, 256)
-DKV_HEAD_DIMS = (64, 128)
+DKV_HEAD_DIMS = (64, 128, 256)
 F32_HEAD_DIMS = (64, 128)
+F32_FWD_HEAD_DIMS = (64, 128, 256)
 SIMT_MAX_HEAD_DIM = 512
 _FLOATS = (torch.float32, torch.bfloat16, torch.float16)
 
@@ -111,10 +120,12 @@ _FLOATS = (torch.float32, torch.bfloat16, torch.float16)
 # and TMA copies the tensors in boxes of TMA_BOX elements, innermost first:
 # 64 of the head dim (128 bytes, the span of the tiles' swizzle), 64 rows,
 # one bh (a row of D 256 is four boxes across); dq at D 256 stages
-# DQ_D256_KEYS keys a tile, its boxes as many rows
+# DQ_D256_KEYS keys a tile, its boxes as many rows, and a block of dk/dv
+# at D 256 owns DKV_D256_KEYS keys
 BLOCK_ROWS = 128
 TMA_BOX = (64, 64, 1)
 DQ_D256_KEYS = 32
+DKV_D256_KEYS = 64
 
 _M32 = 0xFFFFFFFF
 
@@ -336,10 +347,10 @@ def _check(what: str, *ts):
 def tensor_cores(q: torch.Tensor) -> bool:
     """Whether every 16-bit Hopper tensor-core kernel takes q's dtype and
     head dim — the forward, dq, dk/dv and the shared-bias gradient: bf16
-    or fp16, D <= 128, padded up to 64 or 128. Past 128 only the forward
-    and dq do (to 256: :func:`kernel_form`)."""
+    or fp16, D <= 128, padded up to 64 or 128. Past 128 only the forward,
+    dq and dk/dv do (to 256: :func:`kernel_form`)."""
     return q.dtype in (torch.bfloat16, torch.float16) \
-        and q.shape[-1] <= DKV_HEAD_DIMS[-1]
+        and q.shape[-1] <= KERNEL_HEAD_DIMS[1]
 
 
 def padded_head_dim(d: int) -> int:
@@ -391,10 +402,11 @@ def tma_layout(t: torch.Tensor, box_rows: int = TMA_BOX[1]) -> tuple:
     return (d, s, bh, row * es, bhs * es, TMA_BOX[0], box_rows, TMA_BOX[2])
 
 
-def row_blocks(rows: int) -> int:
+def row_blocks(rows: int, block: int = BLOCK_ROWS) -> int:
     """The grid's blocks along the rows a block owns (``rows``: Sq for the
-    forward and dq, Sk for dk/dv)."""
-    return -(-rows // BLOCK_ROWS)
+    forward and dq, Sk for dk/dv), ``block`` rows a block
+    (:data:`BLOCK_ROWS`; dk/dv at D 256 :data:`DKV_D256_KEYS`)."""
+    return -(-rows // block)
 
 
 def _tma_maps(*ts, box_rows: int = TMA_BOX[1]):
@@ -507,13 +519,13 @@ def _tc_fwd(wrapper, q, k, v, *, causal, scale, q_start, k_start, kv_bias,
 
 
 def _d256_ready(what: str, *ts) -> None:
-    """The D-256 kernels' contract: bf16 or fp16 at a head dim of 129 to
-    256 (padded to 256)."""
+    """The D-256 kernels' contract (the forward, dq and dk/dv alike): bf16
+    or fp16 at a head dim of 129 to 256 (padded to 256)."""
     _check(what, *ts)
     q = ts[0]
     if kernel_form(q, "fwd") != "tc256":
         raise ValueError(f"{what}: takes bf16 or fp16 at a head dim of "
-                         f"{DKV_HEAD_DIMS[-1] + 1} to {KERNEL_HEAD_DIMS[-1]}"
+                         f"{KERNEL_HEAD_DIMS[1] + 1} to {KERNEL_HEAD_DIMS[-1]}"
                          f", got {q.dtype} at {q.shape[-1]}")
 
 
@@ -585,13 +597,15 @@ def flash_simt_fwd(q, k, v, *, causal: bool = False, scale=None,
 flash_simt_fwd.launches = 0
 
 
-def _f32_ready(what: str, *ts):
-    """q, k, v (and dO) for the fp32 tensor-core kernels: checked, padded
-    to :func:`padded_head_dim` and readable by their 16-byte copies."""
+def _f32_ready(what: str, *ts, kernel: str = "fwd"):
+    """q, k, v (and dO) for the fp32 tensor-core kernel ``kernel`` (as
+    :func:`kernel_form` names them): checked, padded to
+    :func:`padded_head_dim` and readable by their 16-byte copies."""
     _check(what, *ts)
-    if kernel_form(ts[0]) != "f32":
+    if kernel_form(ts[0], kernel) != "f32":
+        dims = F32_FWD_HEAD_DIMS if kernel == "fwd" else F32_HEAD_DIMS
         raise ValueError(f"{what}: takes fp32 at a head dim up to "
-                         f"{F32_HEAD_DIMS[-1]}, got {ts[0].dtype} at "
+                         f"{dims[-1]}, got {ts[0].dtype} at "
                          f"{ts[0].shape[-1]}")
     dp = padded_head_dim(ts[0].shape[-1])
     return tuple(_readable(_pad_d(t, dp)) for t in ts)
@@ -601,8 +615,8 @@ def flash_f32_fwd(q, k, v, *, causal: bool = False, scale=None,
                   q_start: int = 0, k_start: int = 0, kv_bias=None,
                   bias=None, dropout_rate: float = 0.0, dropout_seed=0):
     """:func:`flash_fwd` in fp32 on the tensor cores in 3xTF32
-    (``flash_f32.cu``): fp32 at a head dim up to 128, padded to 64 or 128
-    (the real D's scale passed)."""
+    (``flash_f32.cu``): fp32 at a head dim up to 256, padded to 64, 128 or
+    256 (the real D's scale passed)."""
     if scale is None:
         scale = 1.0 / float(q.shape[-1]) ** 0.5
     if not dispatch.use_kernel(q):
@@ -635,21 +649,22 @@ _KERNELS = ("fwd", "dq", "dkv")
 
 def kernel_form(q: torch.Tensor, kernel: str = "fwd") -> str:
     """The form that takes ``kernel`` ("fwd", "dq" or "dkv") of q's dtype
-    and head dim: "tc", the bf16/fp16 tensor-core kernels at D <= 128;
-    "tc256", the bf16/fp16 forward and dq at D 129-256 (padded to 256;
-    dk/dv there is "simt"); "f32", the fp32 ones at D <= 128 (3xTF32 on the
-    tensor cores, ``flash_f32.cu``); "simt", the simple form, for the
-    rest."""
+    and head dim (the module's table): "tc", the bf16/fp16 tensor-core
+    kernels at D <= 128; "tc256", the same at D 129-256 (padded to 256);
+    "f32", the fp32 ones (3xTF32 on the tensor cores, ``flash_f32.cu``) at
+    D <= 128, and the forward also at D 129-256; "simt", the simple form,
+    for the rest."""
     if kernel not in _KERNELS:
         raise ValueError(f"kernel_form: kernel must be one of {_KERNELS}, "
                          f"got {kernel!r}")
     d = q.shape[-1]
     if tensor_cores(q):
         return "tc"
-    if q.dtype in (torch.bfloat16, torch.float16) and kernel != "dkv" \
+    if q.dtype in (torch.bfloat16, torch.float16) \
             and d <= KERNEL_HEAD_DIMS[-1]:
         return "tc256"
-    if q.dtype == torch.float32 and d <= F32_HEAD_DIMS[-1]:
+    f32_dims = F32_FWD_HEAD_DIMS if kernel == "fwd" else F32_HEAD_DIMS
+    if q.dtype == torch.float32 and d <= f32_dims[-1]:
         return "f32"
     return "simt"
 
@@ -661,7 +676,7 @@ def _bwd_args(what, q, k, v, do, lse, delta, form="simt"):
     16-byte copies ("f32", :func:`_f32_ready`), or with their last dim
     contiguous ("simt"); lse and delta fp32 [BH, Sq]."""
     if form == "f32":
-        q, k, v, do = _f32_ready(what, q, k, v, do)
+        q, k, v, do = _f32_ready(what, q, k, v, do, kernel="dq")
     else:
         _check(what, q, k, v, do)
     if form == "simt":
@@ -856,9 +871,9 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool, scale: float,
                   q_start: int = 0, k_start: int = 0, kv_bias=None,
                   bias=None, dropout_rate: float = 0.0, dropout_seed=0):
     """(dk, dv) [BH, Sk, D] in k's and v's dtypes. On the card, as
-    :func:`kernel_form` picks for "dkv": the tensor-core kernel at D <=
-    128 (counted here), :func:`flash_f32_dkv` or :func:`flash_simt_dkv`
-    (past 128 in every dtype)."""
+    :func:`kernel_form` picks for "dkv": the tensor-core kernel at D <= 128
+    (counted here), :func:`flash_d256_dkv`, :func:`flash_f32_dkv` or
+    :func:`flash_simt_dkv`."""
     kw = dict(causal=causal, scale=scale, q_start=q_start, k_start=k_start,
               kv_bias=kv_bias, bias=bias, dropout_rate=dropout_rate,
               dropout_seed=dropout_seed)
@@ -867,27 +882,56 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool, scale: float,
     _check("flash_bwd_dkv", q, k, v, do)
     form = kernel_form(q, "dkv")
     if form != "tc":
-        return (flash_f32_dkv if form == "f32" else flash_simt_dkv)(
-            q, k, v, do, lse, delta, **kw)
-    d = q.shape[-1]
-    q, k, v, do, lse, delta = _bwd_args("flash_bwd_dkv", q, k, v, do, lse,
-                                        delta, "tc")
-    tail, _keep_alive = _tail("flash_bwd_dkv", q, k, kv_bias, bias,
-                              dropout_rate, dropout_seed, causal, scale,
-                              q_start, k_start)
-    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
-    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    err = _cuda.lib().apex_flash_bwd_dkv(
-        _cuda.dtype_code(q.dtype, "flash_bwd_dkv"), q.data_ptr(),
-        k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        _tma_maps(q, k, v, do), row_blocks(k.shape[1]), *tail)
-    _cuda.check(err, "flash_bwd_dkv")
-    flash_bwd_dkv.launches += 1
-    return _unpad(dk, d), _unpad(dv, d)
+        return {"tc256": flash_d256_dkv, "f32": flash_f32_dkv,
+                "simt": flash_simt_dkv}[form](q, k, v, do, lse, delta, **kw)
+    return _tc_dkv(flash_bwd_dkv, "tc", q, k, v, do, lse, delta, **kw)
 
 
 flash_bwd_dkv.launches = 0
+
+
+def _tc_dkv(wrapper, form, q, k, v, do, lse, delta, **kw):
+    """(dk, dv) by the 16-bit tensor-core kernel (``flash_bwd.cu``) at q's
+    head dim padded to :func:`padded_head_dim` (``form`` "tc" or "tc256":
+    blocks of :data:`BLOCK_ROWS` keys, at D 256 :data:`DKV_D256_KEYS`);
+    ``wrapper`` counts the launch."""
+    what = wrapper.__name__
+    d = q.shape[-1]
+    q, k, v, do, lse, delta = _bwd_args(what, q, k, v, do, lse, delta, form)
+    tail, _keep_alive = _tail(what, q, k, kw["kv_bias"], kw["bias"],
+                              kw["dropout_rate"], kw["dropout_seed"],
+                              kw["causal"], kw["scale"], kw["q_start"],
+                              kw["k_start"])
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    block = DKV_D256_KEYS if q.shape[-1] == 256 else BLOCK_ROWS
+    err = _cuda.lib().apex_flash_bwd_dkv(
+        _cuda.dtype_code(q.dtype, what), q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), _tma_maps(q, k, v, do),
+        row_blocks(k.shape[1], block), *tail)
+    _cuda.check(err, what)
+    wrapper.launches += 1
+    return _unpad(dk, d), _unpad(dv, d)
+
+
+def flash_d256_dkv(q, k, v, do, lse, delta, *, causal: bool, scale: float,
+                   q_start: int = 0, k_start: int = 0, kv_bias=None,
+                   bias=None, dropout_rate: float = 0.0, dropout_seed=0):
+    """:func:`flash_bwd_dkv` on the tensor cores at D 256
+    (``flash_bwd.cu``'s split form: blocks of 64 keys, one consumer
+    warpgroup making P and dv, the other dS and dk): bf16 or fp16 at a head
+    dim of 129 to 256, padded to 256 (the real D's scale passed)."""
+    kw = dict(causal=causal, scale=scale, q_start=q_start, k_start=k_start,
+              kv_bias=kv_bias, bias=bias, dropout_rate=dropout_rate,
+              dropout_seed=dropout_seed)
+    if not dispatch.use_kernel(q):
+        return flash_bwd_plain(q, k, v, do, lse, delta, **kw)[1:]
+    _d256_ready("flash_d256_dkv", q, k, v, do)
+    return _tc_dkv(flash_d256_dkv, "tc256", q, k, v, do, lse, delta, **kw)
+
+
+flash_d256_dkv.launches = 0
 
 
 def flash_simt_dkv(q, k, v, do, lse, delta, *, causal: bool, scale: float,

@@ -16,7 +16,8 @@ attention dropout and the flash kernels' full bias, phases 23-25 the wide
 LayerNorm (lm_bench's LM at GPT-3 175B's width) and ``bn_backward_reduce``,
 phases 26-30 lm_bench's LM served (head dim 64) and trained in fp16 and
 fp32, and the LayerNorm and BN at widths not a multiple of 4, phases 31-32
-lm_bench's LM at 8 heads of 256 (the flash forward and dq at D 256):
+lm_bench's LM at 8 heads of 256 (the flash forward, dq and dk/dv at D
+256):
 
 0. device — needs CUDA; prints the card's ``nvidia-smi`` name and power
    limit (also as a raw line of its own) and the torch / CUDA versions.
@@ -24,11 +25,11 @@ lm_bench's LM at 8 heads of 256 (the flash forward and dq at D 256):
    with ``nvcc`` for ``sm_90a`` (all sources at once) and loads them;
    prints every kernel's registers and spills (``ptxas``) and, apart, the
    flash forward's and backward's Hopper kernels (``flash_fwd_ptxas``,
-   ``flash_bwd_ptxas``: 18 and 20 forms, bf16 and fp16; of them the 10 at
+   ``flash_bwd_ptxas``: 18 and 24 forms, bf16 and fp16; of them the 14 at
    head dim 256, ``flash_d256_ptxas``), the fp32 backward's
    (``flash_f32_ptxas``: 8 forms) and the fp32 forward's
-   (``flash_f32_fwd_ptxas``: 4 forms, D 64 and 128, plain and with a bias
-   or dropout), none of whose forms may spill.
+   (``flash_f32_fwd_ptxas``: 6 forms, D 64, 128 and 256, plain and with a
+   bias or dropout), none of whose forms may spill.
 2. kernels — each kernel against its plain PyTorch version on the card,
    at its path's shapes: max abs error against the stated tolerance, the
    kernel's time, the plain version's, one PyTorch library call's where
@@ -122,16 +123,19 @@ lm_bench's LM at 8 heads of 256 (the flash forward and dq at D 256):
    SDPA's fp32 forward beside it), each output repeated bit for bit; the
    simple form at phase 30's [32, 1024, 256] in bf16 and fp32 (readings
    ``d256_bf16``, ``d256_f32``: SDPA's forward and backward at D 256
-   beside it) and at D 320 in bf16 (``d320_bf16``); the D-256 forward and
-   dq (``flash_d256_fwd``, ``flash_d256_dq``) with the simple dk/dv, in
-   bf16 and fp16, at [32, 1024, 256] (``d256_tc_bf16``, ``d256_tc_f16``:
-   the simple forward's and dq's times on the same inputs beside bf16's)
-   and at phase 31's [64, 4096, 256] (``hd256_lm_bf16``,
-   ``hd256_lm_f16``), under the flash rule, each output repeated bit for
-   bit, bounds at 989 TFLOP/s, SDPA beside them; the crossover again at
-   head dim 256 ([32, S, 256]: the D-256 forward and dq and the simple
-   dk/dv against the plain path), which must win from no S on (as
-   impl="auto" takes it: by the 2 GiB rule alone); the bf16 kernels' outputs hashed at both shapes
+   beside it), on the fp32 inputs the fp32 forward in 3xTF32
+   (``flash_f32_fwd``, reading ``d256_f32``: o under the fp32 rule, lse
+   within 1e-4, bounds at 165 and 67 TFLOP/s) and at D 320 in bf16
+   (``d320_bf16``); the D-256 forward, dq and dk/dv (``flash_d256_fwd``,
+   ``flash_d256_dq``, ``flash_d256_dkv``), in bf16 and fp16, at [32,
+   1024, 256] (``d256_tc_bf16``, ``d256_tc_f16``: the simple form's times
+   on the same inputs beside bf16's) and at phase 31's [64, 4096, 256]
+   (``hd256_lm_bf16``, with the whole backward, and ``hd256_lm_f16``),
+   under the flash rule, each output repeated bit for bit, bounds at 989
+   TFLOP/s, SDPA beside them; the crossover again at head dim 256 ([32,
+   S, 256]: the D-256 forward, dq and dk/dv against the plain path), which
+   must win at every S from ``DEFAULT_FLASH_MIN_S``, as impl="auto" takes
+   it; the bf16 kernels' outputs hashed at both shapes
    (``flash_bits``) and ``ln_bwd_wide``'s at [8192, 12288]
    (``ln_wide_bits``), to hold one package's against another's; the
    scalar tails beside the vector forms: ``ln_bwd`` at [32760, 1022], the
@@ -324,22 +328,24 @@ lm_bench's LM at 8 heads of 256 (the flash forward and dq at D 256):
     of the simple form's.
 30. tails_train — ``FusedLayerNorm(1022)`` over [16, 2048, 1022] bf16,
     ``SyncBatchNorm(6, fuse_relu=True)`` over [64, 6, 56, 56] bf16 with a
-    residual and ``flash_attention`` at head dim 256 over [32, 1024, 256]
-    fp32 (the simple form), 3 forward/backward passes each against the
-    plain versions.
+    residual, ``flash_attention`` at head dim 256 over [32, 1024, 256]
+    fp32 (the 3xTF32 forward, the simple dq and dk/dv) and at head dim 320
+    over [16, 1024, 320] bf16 (the simple form), 3 forward/backward passes
+    each against the plain versions.
 31. lm_train_hd256 — ``tools/lm_bench.py --dim 2048 --heads 8`` (8
     layers of 2048, 8 heads of 256: Gemma 2B's attention shape; vocab
     32768, S 4096, batch 8, attention "fast", random weights from seed 0),
     O2 bf16, FusedAdam(1e-4): 3 warm-up and 5 timed steps, one profiled;
     8 launches a step of ``flash_d256_fwd``, ``flash_d256_dq`` and
-    ``flash_simt_dkv``, none of the simple forward or dq; losses finite,
-    the mean of the last 3 below the first.
+    ``flash_d256_dkv``, none of the simple form's; losses finite, the mean
+    of the last 3 below the first.
 32. lm_hd256_crosscheck — a small LM at head dim 256 (2 layers, embed
     512, 2 heads of 256, vocab 512, S 256) under phase 10's
     ``adam_crosscheck``.
-33. the ``{"kernels": [...]}`` line (36 kernels; dq's and dk/dv's
+33. the ``{"kernels": [...]}`` line (37 kernels; dq's and dk/dv's
     entries also carry their ``wide`` reading and the whole backward's,
-    ``backward``, at both shapes), then the ``ok`` line.
+    ``backward``, at both shapes, the D-256 ones the whole backward at
+    [64, 4096, 256]), then the ``ok`` line.
 
 Times are CUDA-event medians of single calls with the L2 cache flushed
 before each and the stream held busy, so host launch time is not counted.
@@ -410,29 +416,89 @@ class Timer:
     """Median GPU time of one call: an L2-sized buffer is cleared before
     each call (the serving path finds K/V cold: seven other layers run in
     between), and a sleep kernel keeps the stream busy while the host
-    enqueues the timed call."""
+    enqueues the timed call.
+
+    The card's host shares its cores, so an enqueue can outlast the sleep
+    and the work queued before it; the card then idles between the events,
+    which time the host. A rep whose first event the card had reached
+    before the host finished enqueuing is dropped and made again with the
+    sleep doubled, up to ``MAX_SLEEP`` times the first; a rep enqueued in
+    under a quarter of its sleep halves it for the next. A call that waits
+    on the card itself outlasts any sleep: it is told apart on its first
+    dropped rep (``_waits_on_card``) and timed as it comes. ``calls``,
+    ``redone``, ``waiting`` (calls told so) and ``seconds`` (host time in
+    the calls) count what the timer did."""
+
+    SLEEP_CYCLES = 2_000_000
+    MAX_SLEEP = 256
+    PROBE_SLEEP = 10
 
     def __init__(self, torch, reps: int = 25):
         self.torch = torch
         self.reps = reps
+        self.calls = self.redone = self.waiting = 0
+        self.seconds = 0.0
         self.flush = torch.empty(256 << 20, dtype=torch.uint8,
                                  device="cuda")
+        # the sleep's cycles per ms of this card, to tell an enqueue's
+        # host time against the sleep's length
+        torch.cuda._sleep(self.SLEEP_CYCLES)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        torch.cuda._sleep(4 * self.SLEEP_CYCLES)
+        b.record()
+        torch.cuda.synchronize()
+        self.cycles_per_ms = 4 * self.SLEEP_CYCLES / a.elapsed_time(b)
+
+    def _enqueue_ms(self, fn, cycles: int) -> float:
+        t0 = time.perf_counter()
+        if cycles:
+            self.torch.cuda._sleep(cycles)
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+
+    def _waits_on_card(self, fn) -> bool:
+        """Whether fn's enqueue lengthens by the work queued ahead of it:
+        the fewest ms of two enqueues behind a ``PROBE_SLEEP``-fold sleep
+        against the fewest of two behind none. A host that is merely slow
+        lengthens both."""
+        probe = self.PROBE_SLEEP * self.SLEEP_CYCLES
+        behind, alone = [], []
+        for _ in range(2):
+            for cycles, got in ((probe, behind), (0, alone)):
+                got.append(self._enqueue_ms(fn, cycles))
+                self.torch.cuda.synchronize()
+        return min(behind) - min(alone) > probe / self.cycles_per_ms / 2
 
     def __call__(self, fn) -> float:
         torch = self.torch
+        t_call = time.perf_counter()
         fn()
         torch.cuda.synchronize()
+        cycles, guard = self.SLEEP_CYCLES, None
         pairs = []
-        for _ in range(self.reps):
+        while len(pairs) < self.reps:
             self.flush.zero_()
-            torch.cuda._sleep(2_000_000)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
+            enqueue_ms = self._enqueue_ms(
+                lambda: (a.record(), fn(), b.record()), cycles)
+            if a.query() and cycles < self.MAX_SLEEP * self.SLEEP_CYCLES:
+                if guard is None:
+                    guard = not self._waits_on_card(fn)
+                    self.waiting += not guard
+                if guard:
+                    self.redone += 1
+                    cycles *= 2
+                    continue
+            elif (enqueue_ms < cycles / self.cycles_per_ms / 4
+                  and cycles > self.SLEEP_CYCLES):
+                cycles //= 2
             pairs.append((a, b))
         torch.cuda.synchronize()
+        self.calls += 1
+        self.seconds += time.perf_counter() - t_call
         return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
 
@@ -1662,13 +1728,12 @@ def flash_crossover_phase(torch, dtype_name: str = "bfloat16",
     head dim d, over BH·D = CROSSOVER_BH·CROSSOVER_D (BH 128 at D 64, 32
     at D 256); ``min_s`` is the smallest S measured from which the kernel
     wins every case at every larger S (None when it never does). bf16 at
-    D 64 (the tensor-core kernels, every run) is held to
-    ``DEFAULT_FLASH_MIN_S``; bf16 at D 256 (the D-256 forward and dq, the
-    simple dk/dv; every run) to no length, as impl="auto" takes it: it
-    must win at no S from which it wins at every larger one. fp32 is a
-    reading made on its own, not in a run: from the repository root on
-    the card, ``import torch, chip_smoke`` and then
-    ``chip_smoke.flash_crossover_phase(torch, "float32")``."""
+    D 64 and at D 256 (the tensor-core kernels, every run: at D 256 the
+    D-256 forward, dq and dk/dv) is held to ``DEFAULT_FLASH_MIN_S``, the
+    length impl="auto" takes them from at both. fp32 is a reading made on
+    its own, not in a run: from the repository root on the card, ``import
+    torch, chip_smoke`` and then ``chip_smoke.flash_crossover_phase(torch,
+    "float32")``."""
     import torch.nn.functional as F
 
     from apex_tpu_torch.contrib.multihead_attn import (
@@ -1740,16 +1805,14 @@ def flash_crossover_phase(torch, dtype_name: str = "bfloat16",
         else:
             break
     row = {"phase": "flash_crossover_min_s", "dtype": dtype_name,
-           "head_dim": d, "min_s": min_s}
-    if dt == torch.bfloat16 and d == 256:
-        check(min_s is None, f"flash crossover at D 256: the kernels win "
-              f"from S {min_s}, where impl='auto' takes them by no length")
-    elif dt == torch.bfloat16:
+           "head_dim": d, "min_s": min_s, "timer_reps_redone": timer.redone}
+    if dt == torch.bfloat16:
         row["default_flash_min_s"] = DEFAULT_FLASH_MIN_S
         check(all(r["kernel_wins"] for r in table
                   if r["s"] >= DEFAULT_FLASH_MIN_S),
-              f"flash crossover: the kernel does not win at every S >= "
-              f"DEFAULT_FLASH_MIN_S {DEFAULT_FLASH_MIN_S} (min_s {min_s})")
+              f"flash crossover at D {d}: the kernel does not win at every "
+              f"S >= DEFAULT_FLASH_MIN_S {DEFAULT_FLASH_MIN_S} (min_s "
+              f"{min_s})")
     emit(row)
     return row
 
@@ -1792,7 +1855,8 @@ def counters():
             "flash_f32_dkv": FA.flash_f32_dkv,
             "flash_f32_fwd": FA.flash_f32_fwd,
             "flash_d256_fwd": FA.flash_d256_fwd,
-            "flash_d256_dq": FA.flash_d256_dq}
+            "flash_d256_dq": FA.flash_d256_dq,
+            "flash_d256_dkv": FA.flash_d256_dkv}
 
 
 def zero_counts() -> None:
@@ -1940,9 +2004,9 @@ SERVE_FAMILIES = (
 
 LM_KERNEL_FAMILIES = (
     ("flash kernels", ("flash_fwd_kernel", "flash_dq_kernel",
-                       "flash_dkv_kernel", "simt_fwd_kernel",
-                       "simt_dq_kernel", "simt_dkv_kernel", "f32_fwd_kernel",
-                       "f32_dq_kernel", "f32_dkv_kernel")),
+                       "flash_dkv_kernel", "flash_dkv_split_kernel",
+                       "simt_fwd_kernel", "simt_dq_kernel", "simt_dkv_kernel",
+                       "f32_fwd_kernel", "f32_dq_kernel", "f32_dkv_kernel")),
     ("LN kernels", ("ln_fwd_kernel", "ln_bwd_kernel", "ln_wide",
                     "finalize_kernel")),
     ("Adam", ("adam_kernel",)),
@@ -4207,14 +4271,16 @@ def form_inputs(torch, shape, dt):
 
 
 def flash_form_readings(torch, timer, reading, shape, dt, fns, ops_s,
-                        plain_group=16) -> dict:
+                        plain_group=16, whole=False) -> dict:
     """One form of the flash kernels at [BH, S, D] causal in dtype dt: the
     forward, dq and dk/dv (``fns``: the three wrappers) against the plain
     versions on the first heads under ``flash_err`` in dt (lse within
     1e-3),
     the rule refusing a result 5% off, each output repeated bit for bit;
     times beside the plain versions' (the forward head group by head
-    group), SDPA's in dt and the bounds at ``ops_s``."""
+    group), SDPA's in dt and the bounds at ``ops_s``; with ``whole`` also
+    the whole backward as autograd runs it (``flash_bwd_row``, keyed
+    ("flash_bwd", reading))."""
     import torch.nn.functional as F
 
     from apex_tpu_torch.ops import flash_attn as FA
@@ -4310,6 +4376,11 @@ def flash_form_readings(torch, timer, reading, shape, dt, fns, ops_s,
                  bound_by=dkv_b[1])):
         emit({"phase": "kernels", **r})
         out[(r["kernel"], reading)] = r
+    if whole:
+        r = flash_bwd_row(torch, timer, (q, k, v, o, do, lse), kw, errs,
+                          rep, lib_bwd, pairs, common)
+        emit({"phase": "kernels", **r})
+        out[("flash_bwd", reading)] = r
     return out
 
 
@@ -4383,15 +4454,17 @@ def f32_backward_readings(torch, timer, shape, simple) -> dict:
     return out
 
 
-def f32_forward_reading(torch, timer, shape, simple) -> dict:
+def f32_forward_reading(torch, timer, shape, simple,
+                        reading: str = "f32") -> dict:
     """The fp32 forward on the tensor cores (``flash_f32_fwd``, 3xTF32) at
-    [BH, S, D] causal on the simple form's reading's inputs
-    (``form_inputs``; ``simple``: that reading's rows): o against the plain
-    version on the first heads under the fp32 flash rule, lse within 1e-4,
-    the rule refusing a result 5% off, o and lse repeated bit for bit;
-    its time beside the simple form's forward, the plain version's and
-    SDPA's fp32 forward from that reading, bounds at 3xTF32's 165 TFLOP/s
-    (``bound_ms``) and at fp32 FMAs' 67 TFLOP/s (``bound_fma_ms``)."""
+    [BH, S, D] causal on the inputs of the simple form's reading
+    ``reading`` (``form_inputs``; ``simple``: its rows; the new row keyed
+    by the same name): o against the plain version on the first heads
+    under the fp32 flash rule, lse within 1e-4, the rule refusing a result
+    5% off, o and lse repeated bit for bit; its time beside the simple
+    form's forward, the plain version's and SDPA's fp32 forward from that
+    reading, bounds at 3xTF32's 165 TFLOP/s (``bound_ms``) and at fp32
+    FMAs' 67 TFLOP/s (``bound_fma_ms``)."""
     from apex_tpu_torch.ops import flash_attn as FA
 
     BH, S, D = shape
@@ -4414,11 +4487,11 @@ def f32_forward_reading(torch, timer, shape, simple) -> dict:
     rep = bool(torch.equal(again[0], o) and torch.equal(again[1], lse))
     check(rep, "flash f32 forward: two runs differ")
     del o0, lse0, again, late, off, o, lse
-    was = simple[("flash_simt_fwd", "f32")]
+    was = simple[("flash_simt_fwd", reading)]
     pairs = BH * S * (S + 1) // 2
     nbytes, ops = 4 * BH * S * D * 4 + 4 * BH * S, 4 * D * pairs
     b_ms, b_by = bound(nbytes, ops, TF32X3_OPS_S)
-    r = {"phase": "kernels", "kernel": "flash_f32_fwd", "reading": "f32",
+    r = {"phase": "kernels", "kernel": "flash_f32_fwd", "reading": reading,
          "dtype": "float32", "shape": [BH, S, D], "causal": True,
          "checked_heads": n, "products": "3xTF32", "tol": was["tol"],
          "max_abs_err": e["max_abs_err"], "tol_used": e["used"],
@@ -4432,7 +4505,7 @@ def f32_forward_reading(torch, timer, shape, simple) -> dict:
          "bound_ms": b_ms, "bound_by": b_by,
          "bound_fma_ms": bound(nbytes, ops)[0]}
     emit(r)
-    return {("flash_f32_fwd", "f32"): r}
+    return {("flash_f32_fwd", reading): r}
 
 
 def flash_forms_phase(torch, timer) -> dict:
@@ -4443,16 +4516,17 @@ def flash_forms_phase(torch, timer) -> dict:
     cores, and the fp32 forward and backward on the tensor cores on the
     same inputs; the simple form at phase 30's [32, 1024, 256] in bf16 and
     fp32 (SDPA's at D 256 beside it; bf16's bound at 989 TFLOP/s, fp32's
-    at 67) and in bf16 at D 320; the D-256 forward and dq with the simple
-    dk/dv, in bf16 and fp16, at [32, 1024, 256] (readings ``d256_tc_bf16``,
-    ``d256_tc_f16``: the simple forward's and dq's times on the same
-    inputs beside bf16's) and at the hd-256 LM's [64, 4096, 256]
-    (``hd256_lm_bf16``, ``hd256_lm_f16``), bounds at 989 TFLOP/s."""
+    at 67) and in bf16 at D 320, and the fp32 forward in 3xTF32 on the
+    fp32 inputs (reading ``d256_f32``); the D-256 forward, dq and dk/dv,
+    in bf16 and fp16, at [32, 1024, 256] (readings ``d256_tc_bf16``,
+    ``d256_tc_f16``: the simple form's times on the same inputs beside
+    bf16's) and at the hd-256 LM's [64, 4096, 256] (``hd256_lm_bf16``,
+    with the whole backward, ``hd256_lm_f16``), bounds at 989 TFLOP/s."""
     from apex_tpu_torch.ops import flash_attn as FA
 
     tc = (FA.flash_fwd, FA.flash_bwd_dq, FA.flash_bwd_dkv)
     simt = (FA.flash_simt_fwd, FA.flash_simt_dq, FA.flash_simt_dkv)
-    tc256 = (FA.flash_d256_fwd, FA.flash_d256_dq, FA.flash_simt_dkv)
+    tc256 = (FA.flash_d256_fwd, FA.flash_d256_dq, FA.flash_d256_dkv)
     lm = [LM_SHAPE["batch"] * LM_SHAPE["heads"], LM_SHAPE["seq"] - 1,
           LM_SHAPE["embed"] // LM_SHAPE["heads"]]
     w = WIDE_SHAPE
@@ -4471,6 +4545,7 @@ def flash_forms_phase(torch, timer) -> dict:
                            (torch.float32, "f32", FP32_OPS_S)):
         rows.update(flash_form_readings(torch, timer, "d256_" + tag, d256,
                                         dt, simt, ops_s))
+    rows.update(f32_forward_reading(torch, timer, d256, rows, "d256_f32"))
     rows.update(flash_form_readings(torch, timer, "d320_bf16",
                                     [32, 1024, 320], torch.bfloat16, simt,
                                     BF16_DENSE_OPS_S))
@@ -4480,11 +4555,13 @@ def flash_forms_phase(torch, timer) -> dict:
         for shape, reading in ((d256, "d256_tc_" + tag),
                                (lm256, "hd256_lm_" + tag)):
             got = flash_form_readings(torch, timer, reading, shape, dt,
-                                      tc256, BF16_DENSE_OPS_S)
+                                      tc256, BF16_DENSE_OPS_S,
+                                      whole=reading == "hd256_lm_bf16")
             if reading == "d256_tc_bf16":
-                # the simple forward and dq on the same inputs
+                # the simple forward, dq and dk/dv on the same inputs
                 for new, old in (("flash_d256_fwd", "flash_simt_fwd"),
-                                 ("flash_d256_dq", "flash_simt_dq")):
+                                 ("flash_d256_dq", "flash_simt_dq"),
+                                 ("flash_d256_dkv", "flash_simt_dkv")):
                     r = got[(new, reading)]
                     r["simple_ms"] = rows[(old, "d256_bf16")]["ms"]
                     emit({"phase": "kernels", "reading": reading,
@@ -4759,9 +4836,11 @@ def tails_train_phase(torch) -> dict:
     ``SyncBatchNorm(6, axis_name=None, fuse_relu=True)`` over [64, 6, 56,
     56] bf16 in channels_last with a residual (out, dx and dz within
     phase 2's bf16 tolerance, dγ and dβ within 1e-5·Σ|terms|), and
-    ``flash_attention`` at head dim 256 (the simple form, forward and
-    backward) over [32, 1024, 256] fp32 causal under the fp32 flash rule;
-    the kernels' launches counted."""
+    ``flash_attention`` at head dim 256 over [32, 1024, 256] fp32 causal
+    (the forward in 3xTF32, dq and dk/dv the simple form) under the fp32
+    flash rule and at head dim 320 over [16, 1024, 320] bf16 causal (the
+    simple form, forward and backward) under the flash rule; the kernels'
+    launches counted."""
     from apex_tpu_torch.contrib.multihead_attn import flash_attention
     from apex_tpu_torch.normalization import FusedLayerNorm
     from apex_tpu_torch.ops import dispatch
@@ -4844,9 +4923,9 @@ def tails_train_phase(torch) -> dict:
                 "dx_err": float((got[1].float() - want[1].float()).abs()
                                 .max())}
 
-    def flash_pass():
-        q, k, v, do = (torch.randn(32, 1024, 256, generator=gen,
-                                   device="cuda") for _ in range(4))
+    def flash_pass(shape, dt):
+        q, k, v, do = (torch.randn(*shape, generator=gen, device="cuda")
+                       .to(dt) for _ in range(4))
         ts = [t.requires_grad_(True) for t in (q, k, v)]
 
         def run():
@@ -4857,19 +4936,23 @@ def tails_train_phase(torch) -> dict:
             want = run()
         errs = {}
         for name, a, b0 in zip(("o", "dq", "dk", "dv"), got, want):
-            errs[name] = flash_err(torch, a, b0, torch.float32)["used"]
-            check(errs[name] <= 1.0, f"flash_attention at head dim 256: "
-                  f"{name} uses {errs[name]} of the fp32 flash rule")
+            errs[name] = flash_err(torch, a, b0, dt)["used"]
+            check(errs[name] <= 1.0, f"flash_attention at {shape} {dt}: "
+                  f"{name} uses {errs[name]} of the flash rule")
         return errs
 
+    f32_256, bf16_320 = ([32, 1024, 256], torch.float32), \
+        ([16, 1024, 320], torch.bfloat16)
     ln_pass()
     bn_pass()                       # first use of every form
-    flash_pass()
+    flash_pass(*f32_256)
+    flash_pass(*bf16_320)
     torch.cuda.synchronize()
     zero_counts()
     lns = [ln_pass() for _ in range(3)]
     bns = [bn_pass() for _ in range(3)]
-    fls = [flash_pass() for _ in range(3)]
+    fls = [flash_pass(*f32_256) for _ in range(3)]
+    wide = [flash_pass(*bf16_320) for _ in range(3)]
     torch.cuda.synchronize()
     counts = read_counts()
     row = {"phase": "tails_train", "fused_layer_norm": {
@@ -4879,6 +4962,9 @@ def tails_train_phase(torch) -> dict:
                               "passes": bns},
            "flash_attention": {"shape": [32, 1024, 256], "dtype": "float32",
                                "causal": True, "tol_used": fls},
+           "flash_attention_d320": {"shape": [16, 1024, 320],
+                                    "dtype": "bfloat16", "causal": True,
+                                    "tol_used": wide},
            "launches": {k: counts[k] for k in TAIL_KERNELS}}
     emit(row)
     for k in TAIL_KERNELS:
@@ -4888,7 +4974,7 @@ def tails_train_phase(torch) -> dict:
 
 TAIL_KERNELS = ("ln_fwd", "ln_bwd", "bn_moments", "bn_backward_fused_reduce",
                 "bn_backward_dx", "flash_simt_fwd", "flash_simt_dq",
-                "flash_simt_dkv")
+                "flash_simt_dkv", "flash_f32_fwd")
 
 
 # -- phases 31-32: lm_bench's LM at 8 heads of 256 ----------------------------
@@ -4898,13 +4984,13 @@ TAIL_KERNELS = ("ln_fwd", "ln_bwd", "bn_moments", "bn_backward_fused_reduce",
 # heads of 256)
 HD256_SHAPE = dict(LM_SHAPE, embed=2048, heads=8)
 HD256_BATCH = 8           # the batch the phase runs (HD256_SHAPE's: no cut)
-# the forward and dq on the tensor cores at D 256, dk/dv the simple form;
-# none of the simple forward or dq
+# the forward, dq and dk/dv on the tensor cores at D 256; none of the
+# simple form's
 HD256_PER_STEP = {"flash_d256_fwd": 8, "flash_d256_dq": 8,
-                  "flash_simt_dkv": 8, "flash_simt_fwd": 0,
-                  "flash_simt_dq": 0, "flash_fwd": 0, "flash_bwd_dq": 0,
-                  "flash_bwd_dkv": 0, "ln_fwd": 17, "ln_bwd": 17,
-                  "adam": 1}
+                  "flash_d256_dkv": 8, "flash_simt_fwd": 0,
+                  "flash_simt_dq": 0, "flash_simt_dkv": 0, "flash_fwd": 0,
+                  "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "ln_fwd": 17,
+                  "ln_bwd": 17, "adam": 1}
 
 
 def lm_hd256_train_phase(torch) -> dict:
@@ -4963,7 +5049,7 @@ def lm_hd256_train_phase(torch) -> dict:
 def lm_hd256_crosscheck_phase(torch, dispatch) -> dict:
     """A small LM at head dim 256 (2 layers, embed 512, 2 heads of 256,
     vocab 512, S 256, batch 2) under phase 10's ``adam_crosscheck`` at lr
-    1e-3: the kernel runs through the D-256 forward and dq."""
+    1e-3: the kernel runs through the D-256 forward, dq and dk/dv."""
     from apex_tpu_torch.models import TransformerLM
 
     m = TransformerLM(vocab_size=512, max_seq_len=256, embed_dim=512,
@@ -4975,8 +5061,10 @@ def lm_hd256_crosscheck_phase(torch, dispatch) -> dict:
     row = adam_crosscheck(torch, dispatch, "lm_hd256_crosscheck", m, params,
                           (toks,), {}, {"lr": 1e-3})
     ran = row["kernel_launches"]
-    check(ran.get("flash_d256_fwd", 0) > 0 and ran.get("flash_d256_dq", 0) > 0
-          and not ran.get("flash_simt_fwd") and not ran.get("flash_simt_dq"),
+    check(all(ran.get(k, 0) > 0 for k in ("flash_d256_fwd", "flash_d256_dq",
+                                          "flash_d256_dkv"))
+          and not any(ran.get(k) for k in ("flash_simt_fwd", "flash_simt_dq",
+                                           "flash_simt_dkv")),
           f"lm_hd256_crosscheck: kernels launched {ran}")
     return row
 
@@ -5014,14 +5102,15 @@ def main() -> int:
     # which must be none
     flash_fwd = {n: e for n, e in ptxas.items() if "flash_fwd_kernel" in n}
     flash_bwd = {n: e for n, e in ptxas.items()
-                 if "flash_dq_kernel" in n or "flash_dkv_kernel" in n}
+                 if "flash_dq_kernel" in n or "flash_dkv_kernel" in n
+                 or "flash_dkv_split_kernel" in n}
     # the fp32 backward in 3xTF32: dq and dk/dv at D 64 and 128, plain and
-    # with a bias or dropout; the fp32 forward likewise
+    # with a bias or dropout; the fp32 forward likewise, and at D 256
     flash_f32 = {n: e for n, e in ptxas.items()
                  if "f32_dq_kernel" in n or "f32_dkv_kernel" in n}
     flash_f32_fwd = {n: e for n, e in ptxas.items() if "f32_fwd_kernel" in n}
-    # of those, the forward's and dq's forms at head dim 256 (the template
-    # argument 256 in their mangled names)
+    # of those, the forward's, dq's and dk/dv's forms at head dim 256 (the
+    # template argument 256 in their mangled names)
     flash_d256 = {n: e for n, e in {**flash_fwd, **flash_bwd}.items()
                   if "Li256E" in n}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -5031,17 +5120,18 @@ def main() -> int:
           "flash_f32_fwd_ptxas": flash_f32_fwd,
           "flash_d256_ptxas": flash_d256})
     # bf16 and fp16: 2 x 9 forward forms (3 kinds at D 64, 128, 256) and
-    # 2 x 10 backward (dq plain and extra at D 64, 128, 256; dk/dv at 64
-    # and 128), 6 + 4 of them at D 256; fp32: 8 and 4
+    # 2 x 12 backward (dq and dk/dv, plain and extra, at D 64, 128, 256),
+    # 6 + 8 of them at D 256; fp32: 8 backward and 6 forward (plain and
+    # extra at D 64, 128, 256)
     check(not kcuda.build_seconds or (len(flash_fwd) == 18
-                                      and len(flash_bwd) == 20
-                                      and len(flash_d256) == 10
+                                      and len(flash_bwd) == 24
+                                      and len(flash_d256) == 14
                                       and len(flash_f32) == 8
-                                      and len(flash_f32_fwd) == 4),
+                                      and len(flash_f32_fwd) == 6),
           f"ptxas reported {len(flash_fwd)} forward, {len(flash_bwd)} "
           f"backward ({len(flash_d256)} at D 256), {len(flash_f32)} fp32 "
           f"backward and {len(flash_f32_fwd)} fp32 forward flash forms, "
-          f"not 18, 20 (10), 8 and 4")
+          f"not 18, 24 (14), 8 and 6")
     for what, forms in (("forward", flash_fwd), ("backward", flash_bwd),
                         ("fp32 backward", flash_f32),
                         ("fp32 forward", flash_f32_fwd)):
@@ -5079,7 +5169,7 @@ def main() -> int:
     rows.update(accum_kernel_phase(torch, timer,
                                    flat.make_table(lm_params).total))
     flash_crossover_phase(torch)
-    # at head dim 256: the D-256 forward and dq, the simple dk/dv
+    # at head dim 256: the D-256 forward, dq and dk/dv
     flash_crossover_phase(torch, "bfloat16", 256)
     # the wide LayerNorm at the wide LM's rows and the other wide shapes
     rows.update(wide_kernel_phase(torch, timer))
@@ -5090,6 +5180,8 @@ def main() -> int:
     emit({"phase": "flash_bf16_bits", **flash_bits(torch)})
     emit({"phase": "ln_wide_bits", **ln_wide_bits(torch)})
     rows.update(tail_kernel_phase(torch, timer))
+    emit({"phase": "timer", "calls": timer.calls, "redone": timer.redone,
+          "waiting": timer.waiting, "seconds": timer.seconds})
 
     # 3-4. the serving slice, dense then paged
     model = TransformerLM(vocab_size=32768, max_seq_len=1024,
@@ -5318,6 +5410,9 @@ def main() -> int:
         "flash_d256_dq": ("apex_tpu_torch/ops/cuda/csrc/flash_bwd.cu",
                           "apex_tpu/contrib/multihead_attn/"
                           "flash_attention.py:349"),
+        "flash_d256_dkv": ("apex_tpu_torch/ops/cuda/csrc/flash_bwd.cu",
+                           "apex_tpu/contrib/multihead_attn/"
+                           "flash_attention.py:392"),
     }
     # the wide wrappers each take the place of more than one TPU kernel
     also_replaces = {
@@ -5367,7 +5462,8 @@ def main() -> int:
                 "flash_f32_fwd": ("flash_f32_fwd", "f32"),
                 # the D-256 kernels at the hd-256 LM's [64, 4096, 256]
                 "flash_d256_fwd": ("flash_d256_fwd", "hd256_lm_bf16"),
-                "flash_d256_dq": ("flash_d256_dq", "hd256_lm_bf16")}
+                "flash_d256_dq": ("flash_d256_dq", "hd256_lm_bf16"),
+                "flash_d256_dkv": ("flash_d256_dkv", "hd256_lm_bf16")}
     sub = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
            "library_ms")
     kernels = []
@@ -5426,21 +5522,20 @@ def main() -> int:
             # the bound at fp32 FMAs' rate; the simple form on the inputs
             entry["bound_fma_ms"] = r["bound_fma_ms"]
             entry["simple_ms"] = r["simple_ms"]
+        if name == "flash_f32_fwd":
+            # at phase 30's [32, 1024, 256]
+            entry["d256"] = {k: rows[(name, "d256_f32")].get(k)
+                             for k in sub + ("bound_fma_ms", "simple_ms")}
         if name in ("flash_simt_fwd", "flash_simt_dq", "flash_simt_dkv"):
             # at the head dims it is kept for: tails_train's [32, 1024,
-            # 256] in fp32, bf16 past 256; the bf16 D-256 reading is the
-            # one the D-256 forward and dq replaced
+            # 256] in fp32 (dq and dk/dv), bf16 past 256; the bf16 D-256
+            # reading is the one the D-256 kernels replaced, the fp32
+            # forward's the one the 3xTF32 forward replaced
             entry["d256"] = {dt: {k: rows[(name, f"d256_{dt}")][k]
                                   for k in sub}
                              for dt in ("bf16", "f32")}
             entry["d320"] = {k: rows[(name, "d320_bf16")][k] for k in sub}
-        if name == "flash_simt_dkv":
-            # beside the D-256 forward and dq, in bf16 and fp16
-            entry["d256_tc"] = {
-                reading: {k: rows[(name, reading)][k] for k in sub}
-                for reading in ("d256_tc_bf16", "d256_tc_f16",
-                                "hd256_lm_bf16", "hd256_lm_f16")}
-        if name in ("flash_d256_fwd", "flash_d256_dq"):
+        if name in ("flash_d256_fwd", "flash_d256_dq", "flash_d256_dkv"):
             # [32, 1024, 256] in bf16 (the simple form's time on the same
             # inputs beside it) and fp16; the LM's shape in fp16
             entry["readings"] = {
@@ -5448,6 +5543,11 @@ def main() -> int:
                           for k in sub + ("simple_ms",)}
                 for reading in ("d256_tc_bf16", "d256_tc_f16",
                                 "hd256_lm_f16")}
+        if name in ("flash_d256_dq", "flash_d256_dkv"):
+            # the whole backward (flash_delta, dq and dk/dv in one timed
+            # call) at the hd-256 LM's [64, 4096, 256]
+            entry["backward"] = {
+                k: rows[("flash_bwd", "hd256_lm_bf16")][k] for k in sub}
         if name in also_replaces:
             entry["also_replaces"] = also_replaces[name]
             entry["readings"] = {
@@ -5455,7 +5555,7 @@ def main() -> int:
                 for key in rows
                 if len(key) == 2 and key[0] == name and key[1] != "lm"}
         kernels.append(entry)
-    check(len(kernels) == 36 and all(e["launches"] > 0 for e in kernels),
+    check(len(kernels) == 37 and all(e["launches"] > 0 for e in kernels),
           f"kernels line: {[(e['name'], e['launches']) for e in kernels]}")
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "nvidia_smi": nvidia_smi(

@@ -16,6 +16,7 @@ Run from the repository root on the card::
 
     python3 flash_f32_ab.py tile     # the forward's staged keys a tile
     python3 flash_f32_ab.py exp      # the forward's exponentials, P's split
+    python3 flash_f32_ab.py d256     # the forward's warps and keys at D 256
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ from pathlib import Path
 
 CSRC = Path("apex_tpu_torch/ops/cuda/csrc")
 
-_TILE = "  return D <= 64 ? 64 : 32;\n}"
+_TILE = "  return D <= 64 ? 64 : D <= 128 ? 32 : 8;\n}"
+_WARPS = "  return D <= 64 ? 8 : 4;\n}"
 _EXP = [("      alpha[h] = ex2(m[h] - mx[h]);",
          "      alpha[h] = exp2f(m[h] - mx[h]);"),
         ("ex2(sc - m[i >> 1]) : 0.f;", "exp2f(sc - m[i >> 1]) : 0.f;")]
@@ -56,18 +58,44 @@ _CASES = [(3, 1, 63, 1, True, 62, 0, None, False, 0.0),
           (4, 197, 197, 96, False, 0, 0, 1, False, 0.0),
           (4, 257, 257, 64, True, 0, 0, None, False, 0.1),
           (4, 129, 200, 128, True, 71, 0, "bh", True, 0.2)]
+# the same kinds at head dims 129-256 (padded to 256)
+_CASES_D256 = [(3, 1, 63, 256, True, 62, 0, None, False, 0.0),
+               (3, 65, 127, 129, True, 64, 2, None, False, 0.0),
+               (3, 200, 77, 256, True, 5, 130, None, False, 0.0),
+               (3, 300, 250, 192, True, -40, 0, None, False, 0.0),
+               (4, 197, 200, 256, False, 0, 0, None, True, 0.0),
+               (4, 197, 197, 200, False, 0, 0, 1, False, 0.0),
+               (4, 257, 257, 256, True, 0, 0, None, False, 0.1),
+               (4, 129, 200, 256, True, 71, 0, "bh", True, 0.2)]
 
 SETS = {
     # the committed 64 keys a tile at D 64 and 32 at D 128, against 32 and
     # 16
     "tile": dict(variants={
-        "bk64": [], "bk32": [(_TILE, "  return D <= 64 ? 32 : 32;\n}")],
-        "d128_bk16": [(_TILE, "  return D <= 64 ? 64 : 16;\n}")]},
+        "bk64": [],
+        "bk32": [(_TILE, "  return D <= 64 ? 32 : D <= 128 ? 32 : 8;\n}")],
+        "d128_bk16": [(_TILE,
+                       "  return D <= 64 ? 64 : D <= 128 ? 16 : 8;\n}")]},
         shapes=[[128, 4095, 64], [384, 2048, 128]], backward=False),
     # the committed ex2.approx.ftz against exp2f, and P split for the
     # second products by integer rounding in place of cvt.rna
     "exp": dict(variants={"ex2": [], "exp2f": _EXP, "ex2_bits": _BITS},
                 shapes=[[128, 4095, 64]], backward=True),
+    # the forward's block at D 256, where shared memory sets it: the
+    # committed 4 warps and 8-key tiles against 3 warps and 16 keys, 2
+    # warps and 16 keys, 5 warps and 8 keys
+    "d256": dict(variants={
+        "w4_bk8": [],
+        "w3_bk16": [(_WARPS, "  return D <= 64 ? 8 : D <= 128 ? 4 : 3;\n}"),
+                    (_TILE,
+                     "  return D <= 64 ? 64 : D <= 128 ? 32 : 16;\n}")],
+        "w2_bk16": [(_WARPS, "  return D <= 64 ? 8 : D <= 128 ? 4 : 2;\n}"),
+                    (_TILE,
+                     "  return D <= 64 ? 64 : D <= 128 ? 32 : 16;\n}")],
+        "w5_bk8": [(_WARPS,
+                    "  return D <= 64 ? 8 : D <= 128 ? 4 : 5;\n}")]},
+        shapes=[[32, 1024, 256], [16, 4096, 256]], backward=False,
+        cases=_CASES_D256),
 }
 
 
@@ -206,7 +234,7 @@ def main() -> int:
             print(json.dumps({"shape": shape, "variant": name, **r}),
                   flush=True)
         del q, k, v, do
-    for case in _CASES:
+    for case in cfg.get("cases", _CASES):
         bh, sq, sk, d, causal, q_start, k_start, rows, kvb, rate = case
         g = torch.Generator(device="cuda").manual_seed(sq * sk + d)
         q = torch.randn(bh, sq, d, generator=g, device="cuda")

@@ -1492,7 +1492,14 @@ F32_FWD_EDGES = [(1, 1, 64, False, 0, 0), (1, 15, 1, True, 14, 0),
                  (4095, 1000, 64, True, 3095, 0),
                  (1000, 4095, 96, False, 0, 0),
                  (4095, 4095, 64, True, 0, 0),
-                 (4095, 4095, 128, True, 0, 0)]
+                 (4095, 4095, 128, True, 0, 0),
+                 # D 129-256 (padded to 256): 8-key tiles, 64 rows a block
+                 (1, 7, 256, True, 6, 0), (15, 9, 129, False, 0, 0),
+                 (63, 17, 256, True, 0, 0), (65, 8, 200, True, 1, 0),
+                 (129, 33, 256, True, 0, 40), (200, 77, 256, True, 5, 130),
+                 (300, 250, 192, True, -40, 0),
+                 (1000, 1023, 256, False, 0, 0),
+                 (1024, 1024, 256, True, 0, 0)]
 
 
 @pytest.mark.parametrize("sq,sk,d,causal,q_start,k_start", F32_FWD_EDGES)
@@ -1513,7 +1520,8 @@ def test_f32_forward_at_the_tile_edges(card, sq, sk, d, causal, q_start,
 @pytest.mark.parametrize("form", ["kv_bias", "shared", "per_bh", "dropout",
                                   "all"])
 @pytest.mark.parametrize("sq,sk,d", [(63, 129, 64), (197, 197, 64),
-                                     (129, 200, 128)])
+                                     (129, 200, 128), (129, 200, 256),
+                                     (70, 61, 160)])
 def test_f32_forward_with_biases_and_dropout(card, sq, sk, d, form):
     """The EXTRA form: a kv_bias (a fifth of the keys masked), a full bias
     shared over bh or one per bh (every seventh key masked), dropout 0.1,
@@ -1538,12 +1546,12 @@ def test_f32_forward_with_biases_and_dropout(card, sq, sk, d, form):
     _f32_forward_holds(FA, q, k, v, kw)
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 def test_f32_forward_dropout_mask_reads_back_exactly(card, d):
     """q = k = 0 makes every probability 1/64 over 64 keys (a whole staged
-    tile at D 64, two at D 128), v = I puts p·keep/(1 − rate) at o[i, j]:
-    o[i, j] != 0 exactly where ``dropout_bits`` keeps (i, j), at a nonzero
-    bh, q_start and k_start."""
+    tile at D 64, two at D 128, eight at D 256), v = I puts p·keep/(1 −
+    rate) at o[i, j]: o[i, j] != 0 exactly where ``dropout_bits`` keeps
+    (i, j), at a nonzero bh, q_start and k_start."""
     from apex_tpu_torch.ops import flash_attn as FA
     bh, n, rate, seed = 3, 64, 0.1, 0x2468ACE
     q = torch.zeros(bh, n, d, device=card)
@@ -1579,6 +1587,22 @@ def test_f32_forward_reads_strided_and_broadcast_views(card):
     got = _f32_forward_holds(FA, q, k, v, kw)
     want = FA.flash_fwd(q.contiguous(), k.contiguous(), v.contiguous(), **kw)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_f32_forward_at_d256_at_more_than_65535_heads(card):
+    """BH = 65536 + 7 at D 256, S 16, fp32: the heads around and past 65535
+    give the same bits as a launch of their own and hold against the
+    plain version."""
+    from apex_tpu_torch.ops import flash_attn as FA
+    g = torch.Generator(device=card).manual_seed(8)
+    bh, s, d = 65536 + 7, 16, 256
+    q, k, v = (torch.randn(bh, s, d, generator=g, device=card)
+               for _ in range(3))
+    kw = dict(causal=True, scale=d ** -0.5)
+    o, lse = FA.flash_fwd(q, k, v, **kw)
+    tail = slice(65536 - 9, bh)
+    ot, lset = _f32_forward_holds(FA, q[tail], k[tail], v[tail], kw)
+    assert torch.equal(o[tail], ot) and torch.equal(lse[tail], lset)
 
 
 # -- the wide LayerNorm (F > 8192) and bn_backward_reduce ---------------------
@@ -1876,9 +1900,9 @@ def test_engine_at_head_dim_64_paged_equals_dense(card):
                          ids=["f16", "f32"])
 def test_flash_in_fp16_and_fp32_at_any_head_dim(card, dtype, d):
     """fp16 at D <= 128 by the tensor-core kernels (D padded to 64 or 128),
-    fp32 there by the 3xTF32 kernels, fp16 at D 256 by the D-256 forward
-    and dq and the simple dk/dv, fp32 at D 256 by the simple form, with a
-    kv_bias and causal masking: each kernel
+    fp32 there by the 3xTF32 kernels, fp16 at D 256 by the D-256 forward,
+    dq and dk/dv, fp32 at D 256 by the 3xTF32 forward and the simple dq
+    and dk/dv, with a kv_bias and causal masking: each kernel
     against its plain version on the same inputs, and the public
     ``flash_attention`` (forward and backward) launching the forms the
     dtype and head dim choose, its outputs in the input dtype."""
@@ -1895,16 +1919,16 @@ def test_flash_in_fp16_and_fp32_at_any_head_dim(card, dtype, d):
     fns = (FA.flash_fwd, FA.flash_bwd_dq, FA.flash_bwd_dkv,
            FA.flash_simt_fwd, FA.flash_simt_dq, FA.flash_simt_dkv,
            FA.flash_f32_fwd, FA.flash_f32_dq, FA.flash_f32_dkv,
-           FA.flash_d256_fwd, FA.flash_d256_dq)
+           FA.flash_d256_fwd, FA.flash_d256_dq, FA.flash_d256_dkv)
     before = [f.launches for f in fns]
     qs, ks, vs = (t.clone().requires_grad_(True) for t in (q, k, v))
     o = flash_attention(qs, ks, vs, kv_bias=kvb, causal=True)
     grads = torch.autograd.grad(o, (qs, ks, vs), do)
     assert [f.launches - n for f, n in zip(fns, before)] == {
-        ("tc", "tc"): [1, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0],
-        ("f32", "f32"): [0, 0, 0, 0, 0, 0, 1, 1, 1, 0, 0],
-        ("tc256", "simt"): [0, 0, 0, 0, 0, 1, 0, 0, 0, 1, 1],
-        ("simt", "simt"): [0, 0, 0, 1, 1, 1, 0, 0, 0, 0, 0]}[
+        ("tc", "tc"): [1, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+        ("f32", "f32"): [0, 0, 0, 0, 0, 0, 1, 1, 1, 0, 0, 0],
+        ("tc256", "tc256"): [0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1],
+        ("f32", "simt"): [0, 0, 0, 0, 1, 1, 1, 0, 0, 0, 0, 0]}[
             (FA.kernel_form(q, "fwd"), FA.kernel_form(q, "dkv"))]
     for t in (o, *grads):
         assert t.dtype == dtype and t.shape == (bh, s, d)
@@ -2166,9 +2190,11 @@ def test_f32_wrappers_refuse_what_the_kernels_do_not_take(card):
     q = torch.zeros(2, 16, 64, device=card)
     lse = torch.zeros(2, 16, device=card)
     kw = dict(causal=False, scale=0.125)
-    for t in (q.bfloat16(), torch.zeros(2, 16, 129, device=card)):
+    # the forward takes fp32 to D 256, dq and dk/dv to D 128
+    for t in (q.bfloat16(), torch.zeros(2, 16, 257, device=card)):
         with pytest.raises(ValueError, match="takes fp32 at a head dim"):
             FA.flash_f32_fwd(t, t, t, **kw)
+    for t in (q.bfloat16(), torch.zeros(2, 16, 129, device=card)):
         with pytest.raises(ValueError, match="takes fp32 at a head dim"):
             FA.flash_f32_dq(t, t, t, t, lse, lse, **kw)
         with pytest.raises(ValueError, match="takes fp32 at a head dim"):
@@ -2177,16 +2203,19 @@ def test_f32_wrappers_refuse_what_the_kernels_do_not_take(card):
         FA.flash_f32_dq(q, q, q, q, lse, lse, return_ds=True, **kw)
 
 
-# -- the bf16/fp16 forward and dq at head dims 129-256 (run at D 256) ---------
+# -- the bf16/fp16 forward, dq and dk/dv at head dims 129-256 (run at D 256)
 
 # bh, sq, sk, d, causal, q_start, k_start: blocks of 128 query rows, the
-# forward's 64-key tiles and dq's 32-key ones, ragged tails, offsets
+# forward's 64-key tiles and dq's 32-key ones, dk/dv's blocks of 64 keys
+# and its 64-query tiles, ragged tails, offsets
 D256_CASES = [
     (2, 300, 300, 256, True, 0, 0), (2, 197, 197, 256, False, 0, 0),
     (2, 1023, 1023, 192, True, 0, 0), (3, 130, 100, 129, True, -50, 0),
     (2, 33, 100, 256, True, 67, 0), (1, 255, 256, 192, False, 0, 0),
     (2, 129, 255, 129, True, 0, 10), (1, 1, 5, 256, False, 0, 0),
-    (2, 64, 31, 200, True, 0, 0), (1, 128, 97, 256, False, 5, 3)]
+    (2, 64, 31, 200, True, 0, 0), (1, 128, 97, 256, False, 5, 3),
+    (2, 130, 129, 256, True, 0, 0), (2, 63, 65, 256, False, 0, 0),
+    (1, 65, 64, 250, True, 0, 1), (2, 200, 191, 256, True, 9, 0)]
 
 
 def _d256_inputs(card, bh, sq, sk, d, dtype, seed):
@@ -2199,14 +2228,14 @@ def _d256_inputs(card, bh, sq, sk, d, dtype, seed):
 
 
 def _d256_against_plain(q, k, v, do, dtype, **kw):
-    """The D-256 forward and dq (through ``flash_fwd`` and
-    ``flash_bwd_dq``, each launching its D-256 kernel once) against the
-    plain versions under ``_flash_rule`` (lse within 1e-3; dS too when a
-    per-bh bias asks for it), and a second run of each equal bit for
-    bit."""
+    """The D-256 forward, dq and dk/dv (through ``flash_fwd``,
+    ``flash_bwd_dq`` and ``flash_bwd_dkv``, each launching its D-256
+    kernel once) against the plain versions under ``_flash_rule`` (lse
+    within 1e-3; dS too when a per-bh bias asks for it), and a second run
+    of each equal bit for bit. Returns o, lse, dq, dk, dv."""
     from apex_tpu_torch.ops import flash_attn as FA
-    fns = (FA.flash_d256_fwd, FA.flash_d256_dq, FA.flash_simt_fwd,
-           FA.flash_simt_dq)
+    fns = (FA.flash_d256_fwd, FA.flash_d256_dq, FA.flash_d256_dkv,
+           FA.flash_simt_fwd, FA.flash_simt_dq, FA.flash_simt_dkv)
     before = [f.launches for f in fns]
     bias = kw.get("bias")
     rds = bias is not None and bias.shape[0] > 1
@@ -2214,7 +2243,9 @@ def _d256_against_plain(q, k, v, do, dtype, **kw):
     delta = FA.flash_delta(o, do)
     out = FA.flash_bwd_dq(q, k, v, do, lse, delta, return_ds=rds, **kw)
     dq, ds = out if rds else (out, None)
-    assert [f.launches - n for f, n in zip(fns, before)] == [1, 1, 0, 0]
+    dk, dv = FA.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    assert [f.launches - n for f, n in zip(fns, before)] == \
+        [1, 1, 1, 0, 0, 0]
     plain = dict(kw)
     plain.pop("bias", None)
     o0, lse0 = FA.reference_attention(q, k, v, bias, return_lse=True,
@@ -2223,7 +2254,9 @@ def _d256_against_plain(q, k, v, do, dtype, **kw):
     torch.testing.assert_close(lse, lse0, atol=1e-3, rtol=0)
     want = FA.flash_bwd_plain(q, k, v, do, lse, delta, return_ds=rds, **kw)
     assert dq.dtype == dtype and dq.shape == q.shape
-    _flash_rule(dq, want[0], dtype)
+    for a, b0 in zip((dq, dk, dv), want[:3]):
+        assert a.dtype == dtype and a.shape == b0.shape
+        _flash_rule(a, b0, dtype)
     if rds:
         _flash_rule(ds, want[3], torch.bfloat16)
     again = FA.flash_fwd(q, k, v, **kw)
@@ -2233,7 +2266,9 @@ def _d256_against_plain(q, k, v, do, dtype, **kw):
         assert torch.equal(out2[0], dq) and torch.equal(out2[1], ds)
     else:
         assert torch.equal(out2, dq)
-    return o, lse, dq
+    dk2, dv2 = FA.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    assert torch.equal(dk2, dk) and torch.equal(dv2, dv)
+    return o, lse, dq, dk, dv
 
 
 @pytest.mark.parametrize("case", D256_CASES,
@@ -2277,11 +2312,24 @@ def test_d256_rows_that_see_nothing(card):
     exactly 0; the rest under the flash rule."""
     from apex_tpu_torch.ops import flash_attn as FA
     q, k, v, do = _d256_inputs(card, 2, 150, 64, 256, torch.bfloat16, 3)
-    o, lse, dq = _d256_against_plain(q, k, v, do, torch.bfloat16,
-                                     causal=True, scale=256 ** -0.5,
-                                     q_start=-70)
+    o, lse, dq, _, _ = _d256_against_plain(q, k, v, do, torch.bfloat16,
+                                           causal=True, scale=256 ** -0.5,
+                                           q_start=-70)
     assert bool((lse[:, :70] == FA.NEG_INF).all())
     assert not o[:, :70].any() and not dq[:, :70].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "f16"])
+def test_d256_keys_no_query_sees(card, dtype):
+    """Causal keys past every query (Sq 100, Sk 300: keys 100-299, whole
+    blocks of 64 and a part of one) get dk and dv exactly 0; the rest
+    under the flash rule."""
+    q, k, v, do = _d256_inputs(card, 2, 100, 300, 256, dtype, 4)
+    _, _, _, dk, dv = _d256_against_plain(q, k, v, do, dtype, causal=True,
+                                          scale=256 ** -0.5)
+    assert not dk[:, 100:].any() and not dv[:, 100:].any()
+    assert dk[:, :100].any() and dv[:, :100].any()
 
 
 def test_d256_kernels_at_more_than_65535_heads(card):
@@ -2295,10 +2343,11 @@ def test_d256_kernels_at_more_than_65535_heads(card):
     o, lse = FA.flash_fwd(q, k, v, **kw)
     delta = FA.flash_delta(o, do)
     dq = FA.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = FA.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
     tail = slice(65536 - 9, bh)
-    ot, lset, dqt = _d256_against_plain(q[tail], k[tail], v[tail], do[tail],
-                                        torch.bfloat16, **kw)
-    for a, b0 in zip((o, lse, dq), (ot, lset, dqt)):
+    got = _d256_against_plain(q[tail], k[tail], v[tail], do[tail],
+                              torch.bfloat16, **kw)
+    for a, b0 in zip((o, lse, dq, dk, dv), got):
         assert torch.equal(a[tail], b0)
 
 
@@ -2307,17 +2356,20 @@ def test_d256_kernels_at_more_than_65535_heads(card):
                          ids=["f32-256", "bf16-320"])
 def test_d256_leaves_fp32_and_wider_heads_to_the_simple_form(card, dtype,
                                                              d):
-    """fp32 at D 256 and bf16 at D 320 still go to the simple form, forward
-    and backward, and none of the D-256 kernels launches."""
+    """fp32 at D 256 takes its forward in 3xTF32 and leaves dq and dk/dv to
+    the simple form; bf16 at D 320 goes to the simple form, forward and
+    backward; none of the D-256 kernels launches."""
     from apex_tpu_torch.contrib.multihead_attn import flash_attention
     from apex_tpu_torch.ops import flash_attn as FA
     q, k, v, do = _d256_inputs(card, 2, 100, 100, d, dtype, d)
     fns = (FA.flash_simt_fwd, FA.flash_simt_dq, FA.flash_simt_dkv,
-           FA.flash_d256_fwd, FA.flash_d256_dq, FA.flash_fwd,
-           FA.flash_bwd_dq, FA.flash_bwd_dkv)
+           FA.flash_f32_fwd, FA.flash_d256_fwd, FA.flash_d256_dq,
+           FA.flash_d256_dkv, FA.flash_fwd, FA.flash_bwd_dq,
+           FA.flash_bwd_dkv)
     before = [f.launches for f in fns]
     qs, ks, vs = (t.clone().requires_grad_(True) for t in (q, k, v))
     o = flash_attention(qs, ks, vs, causal=True)
     torch.autograd.grad(o, (qs, ks, vs), do)
+    f32 = dtype == torch.float32
     assert [f.launches - n for f, n in zip(fns, before)] == \
-        [1, 1, 1, 0, 0, 0, 0, 0]
+        [0 if f32 else 1, 1, 1, 1 if f32 else 0, 0, 0, 0, 0, 0, 0]

@@ -305,9 +305,9 @@ def test_auto_rule_is_the_constant_not_the_environment(monkeypatch):
 def test_auto_takes_the_kernel_only_where_it_takes_the_call(monkeypatch):
     """The kernels take fp32, bf16 and fp16 on the card at any head dim up
     to 512 and any BH, with or without a full bias and dropout; "auto"
-    takes them from their crossover (the tensor-core kernels, fp32's
-    3xTF32 ones too: S 128; the simple form: none, only past 2 GiB of
-    plain scores) and sends everything else to the plain path (a routing
+    takes them from their crossover (the tensor-core kernels, bf16's at D
+    256 and fp32's 3xTF32 ones too: S 128; where dk/dv is the simple form:
+    none, only past 2 GiB of plain scores) and sends everything else to the plain path (a routing
     rule: "fast" still raises on those, test_torch_cuda.py)."""
     mha = SelfMultiheadAttn(128, 2, impl="auto")
     long = _bf16(2, 4096, 64)
@@ -331,11 +331,13 @@ def test_auto_takes_the_kernel_only_where_it_takes_the_call(monkeypatch):
     assert not mha._flash_wins(f32, f32)
     big = torch.zeros(8192, 128, 256)
     assert mha._flash_wins(big, torch.zeros(8192, 4096, 256))
-    for d in (256, 512):
+    for d in (320, 512):
         t = _bf16(2, 4096, d)
         assert not mha._flash_wins(t, t)
         fixed = SelfMultiheadAttn(128, 2, impl="auto", flash_min_s=1024)
         assert fixed._flash_wins(t, t)
+    # bf16 at D 129-256: every kernel on the tensor cores at D 256, S 128
+    assert mha._flash_wins(_bf16(2, 4096, 256), _bf16(2, 4096, 256))
     f64 = torch.zeros(2, 4096, 64, dtype=torch.float64)
     assert not mha._flash_wins(f64, f64)
     wide = _bf16(2, 4096, 520)

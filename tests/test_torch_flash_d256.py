@@ -1,7 +1,10 @@
 """Port parity: flash attention at head dims 129-256, whose bf16/fp16
-forward and dq run on the tensor cores at D 256 (``flash_d256_fwd``,
-``flash_d256_dq``: ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` at D
-256), while dk/dv and the shared-bias gradient stay on the simple form.
+forward, dq and dk/dv run on the tensor cores at D 256
+(``flash_d256_fwd``, ``flash_d256_dq``, ``flash_d256_dkv``:
+``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` at D 256), while the
+shared-bias gradient stays on the simple form, and whose fp32 forward
+runs in 3xTF32 (``flash_f32_fwd``) with its dq and dk/dv on the simple
+form.
 
 Here, on the CPU:
 
@@ -9,8 +12,9 @@ Here, on the CPU:
   kernel; the wrappers driven with the card pretended and the kernel
   library replaced by a recorder, so the arguments a launch would get are
   read: the padded head dim, the tensor maps, the grid);
-- the tensor maps at D 256: four 64-column boxes a row, and dq's boxes of
-  ``DQ_D256_KEYS`` rows;
+- the tensor maps at D 256: four 64-column boxes a row, dq's boxes of
+  ``DQ_D256_KEYS`` rows, and dk/dv's grid of ``DKV_D256_KEYS`` keys a
+  block;
 - the padding to 256 (pad, the plain versions at 256 with the real D's
   scale, slice) against the JAX package's ``flash_attention`` (its Pallas
   kernels in interpret mode, which pad D to 256 lanes themselves) at D 192
@@ -87,33 +91,39 @@ _ENTRY = {
             "f32": "apex_flash_f32_fwd", "simt": "apex_flash_simt_fwd"},
     "dq": {"tc": "apex_flash_bwd_dq", "tc256": "apex_flash_bwd_dq",
            "f32": "apex_flash_f32_dq", "simt": "apex_flash_simt_dq"},
-    "dkv": {"tc": "apex_flash_bwd_dkv", "f32": "apex_flash_f32_dkv",
-            "simt": "apex_flash_simt_dkv"}}
+    "dkv": {"tc": "apex_flash_bwd_dkv", "tc256": "apex_flash_bwd_dkv",
+            "f32": "apex_flash_f32_dkv", "simt": "apex_flash_simt_dkv"}}
 # the wrapper that counts each form's launch
 _COUNTER = {
     "fwd": {"tc": "flash_fwd", "tc256": "flash_d256_fwd",
             "f32": "flash_f32_fwd", "simt": "flash_simt_fwd"},
     "dq": {"tc": "flash_bwd_dq", "tc256": "flash_d256_dq",
            "f32": "flash_f32_dq", "simt": "flash_simt_dq"},
-    "dkv": {"tc": "flash_bwd_dkv", "f32": "flash_f32_dkv",
-            "simt": "flash_simt_dkv"}}
+    "dkv": {"tc": "flash_bwd_dkv", "tc256": "flash_d256_dkv",
+            "f32": "flash_f32_dkv", "simt": "flash_simt_dkv"}}
 
 
-@pytest.mark.parametrize("dtype,d,fwd,dkv", [
-    (BF16, 129, "tc256", "simt"), (F16, 129, "tc256", "simt"),
-    (BF16, 192, "tc256", "simt"), (F16, 255, "tc256", "simt"),
-    (BF16, 256, "tc256", "simt"), (F16, 256, "tc256", "simt"),
-    (F32, 129, "simt", "simt"), (F32, 256, "simt", "simt"),
-    (BF16, 257, "simt", "simt"), (F16, 512, "simt", "simt"),
-    (BF16, 64, "tc", "tc"), (F16, 100, "tc", "tc"), (BF16, 128, "tc", "tc"),
-    (F32, 128, "f32", "f32")])
-def test_each_kernel_takes_its_own_form(recorder, dtype, d, fwd, dkv):
-    """The forward and dq share a form; dk/dv has its own. Each wrapper
-    reaches its form's C entry point once and counts one launch on that
-    form's wrapper alone; the shared-bias gradient takes the tensor-core
-    kernel only where dk/dv does."""
+@pytest.mark.parametrize("dtype,d,fwd,dq,dkv", [
+    (BF16, 129, "tc256", "tc256", "tc256"),
+    (F16, 129, "tc256", "tc256", "tc256"),
+    (BF16, 192, "tc256", "tc256", "tc256"),
+    (F16, 255, "tc256", "tc256", "tc256"),
+    (BF16, 256, "tc256", "tc256", "tc256"),
+    (F16, 256, "tc256", "tc256", "tc256"),
+    (F32, 129, "f32", "simt", "simt"), (F32, 256, "f32", "simt", "simt"),
+    (F32, 257, "simt", "simt", "simt"),
+    (BF16, 257, "simt", "simt", "simt"), (F16, 512, "simt", "simt", "simt"),
+    (BF16, 64, "tc", "tc", "tc"), (F16, 100, "tc", "tc", "tc"),
+    (BF16, 128, "tc", "tc", "tc"), (F32, 128, "f32", "f32", "f32")])
+def test_each_kernel_takes_its_own_form(recorder, dtype, d, fwd, dq, dkv):
+    """The forward, dq and dk/dv each take their own form (bf16/fp16 at D
+    129-256 all three at D 256; fp32 there the forward alone in 3xTF32).
+    Each wrapper reaches its form's C entry point once and counts one
+    launch on that form's wrapper alone; the shared-bias gradient takes
+    the tensor-core kernel only where every 16-bit kernel does (D <=
+    128)."""
     assert FA.kernel_form(torch.zeros(1, 2, d, dtype=dtype), "fwd") == fwd
-    assert FA.kernel_form(torch.zeros(1, 2, d, dtype=dtype), "dq") == fwd
+    assert FA.kernel_form(torch.zeros(1, 2, d, dtype=dtype), "dq") == dq
     assert FA.kernel_form(torch.zeros(1, 2, d, dtype=dtype), "dkv") == dkv
     q, k, v, do, lse, delta = _inputs(dtype, d)
     kw = dict(causal=True, scale=d ** -0.5)
@@ -126,11 +136,11 @@ def test_each_kernel_takes_its_own_form(recorder, dtype, d, fwd, dkv):
     FA.flash_bwd_dbias(q, k, v, do, lse, delta,
                        bias=torch.zeros(1, q.shape[1], k.shape[1]), **kw)
     assert [c[0] for c in recorder.calls] == [
-        _ENTRY["fwd"][fwd], _ENTRY["dq"][fwd], _ENTRY["dkv"][dkv],
+        _ENTRY["fwd"][fwd], _ENTRY["dq"][dq], _ENTRY["dkv"][dkv],
         "apex_flash_bwd_dbias" if dkv == "tc" else "apex_flash_simt_dbias"]
     counted = {n: getattr(FA, n).launches - before[n] for n in names}
     want = {n: 0 for n in names}
-    for kernel, form in (("fwd", fwd), ("dq", fwd), ("dkv", dkv)):
+    for kernel, form in (("fwd", fwd), ("dq", dq), ("dkv", dkv)):
         want[_COUNTER[kernel][form]] += 1
     want["flash_bwd_dbias"] = 1
     assert counted == want
@@ -139,19 +149,24 @@ def test_each_kernel_takes_its_own_form(recorder, dtype, d, fwd, dkv):
 @pytest.mark.parametrize("d", [129, 192, 256])
 @pytest.mark.parametrize("dtype", [BF16, F16])
 def test_d256_launches_get_inputs_padded_to_256(recorder, dtype, d):
-    """At D 129-256 the forward and dq launch at D 256: q, k, v and dO
-    zero-padded, the maps four boxes a row (dq's 32 rows deep), the real
-    D's scale, outputs sliced back to D."""
+    """At D 129-256 the forward, dq and dk/dv launch at D 256: q, k, v and
+    dO zero-padded, the maps four boxes a row (dq's 32 rows deep), dk/dv's
+    grid blocks of 64 keys, the real D's scale, outputs sliced back to
+    D."""
     q, k, v, do, lse, delta = _inputs(dtype, d)
     bh, sq, _ = q.shape
     sk = k.shape[1]
     scale = d ** -0.5
     o, lse_out = FA.flash_fwd(q, k, v, causal=True, scale=scale)
     dq = FA.flash_bwd_dq(q, k, v, do, lse, delta, causal=True, scale=scale)
+    dk, dv = FA.flash_bwd_dkv(q, k, v, do, lse, delta, causal=True,
+                              scale=scale)
     assert o.shape == (bh, sq, d) and dq.shape == (bh, sq, d)
+    assert dk.shape == dv.shape == (bh, sk, d)
     assert lse_out.shape == (bh, sq)
-    (fwd_name, fa), (dq_name, da) = recorder.calls
-    assert (fwd_name, dq_name) == ("apex_flash_fwd", "apex_flash_bwd_dq")
+    (fwd_name, fa), (dq_name, da), (dkv_name, ka) = recorder.calls
+    assert (fwd_name, dq_name, dkv_name) == (
+        "apex_flash_fwd", "apex_flash_bwd_dq", "apex_flash_bwd_dkv")
     # forward: dtype, q, k, v, o, lse, maps, blocks, then _tail's 16
     maps = list(fa[6])
     es = q.element_size()
@@ -167,6 +182,16 @@ def test_d256_launches_get_inputs_padded_to_256(recorder, dtype, d):
     assert [maps[8 * i + 6] for i in range(4)] == [FA.DQ_D256_KEYS] * 4
     assert [maps[8 * i] for i in range(4)] == [256] * 4
     assert da[10] == FA.row_blocks(sq) and da[11:][7:11] == (bh, sq, sk, 256)
+    # dk/dv: dtype, q, k, v, dO, lse, delta, dk, dv, maps, blocks, tail;
+    # the maps as the forward's (boxes of 64 rows), blocks of 64 keys
+    maps = list(ka[9])
+    assert len(maps) == 32
+    assert [maps[8 * i + 6] for i in range(4)] == [64] * 4
+    assert [maps[8 * i] for i in range(4)] == [256] * 4
+    assert maps[8:11] == [256, sk, bh]
+    assert FA.DKV_D256_KEYS == 64
+    assert ka[10] == FA.row_blocks(sk, FA.DKV_D256_KEYS) == -(-sk // 64)
+    assert ka[11:][7:11] == (bh, sq, sk, 256) and ka[11:][14] == scale
 
 
 def test_d256_wrappers_refuse_what_they_do_not_take(recorder):
@@ -179,6 +204,9 @@ def test_d256_wrappers_refuse_what_they_do_not_take(recorder):
         with pytest.raises(ValueError, match="head dim of 129 to 256"):
             FA.flash_d256_dq(q, k, v, do, lse, delta, causal=True,
                              scale=1.0)
+        with pytest.raises(ValueError, match="head dim of 129 to 256"):
+            FA.flash_d256_dkv(q, k, v, do, lse, delta, causal=True,
+                              scale=1.0)
     assert recorder.calls == []
 
 
@@ -284,17 +312,41 @@ def test_lm_at_two_heads_of_256_matches_jax():
 @pytest.mark.parametrize("d", [129, 200, 256])
 @pytest.mark.parametrize("dtype", [BF16, F16])
 def test_auto_takes_d256_by_the_2gib_rule_alone(monkeypatch, dtype, d):
-    """bf16/fp16 at D 129-256 (the forward and dq on the tensor cores,
-    dk/dv the simple form) get no crossover length: forward + backward
-    lost to the plain path at every S 256-4096 on the H100, so only scores
-    past 2 GiB take the kernels; a set ``flash_min_s`` still does."""
+    """bf16/fp16 at D 129-256, every kernel on the tensor cores at D 256
+    since dk/dv joined the forward and dq there, now cross over as D <= 128
+    does: from ``DEFAULT_FLASH_MIN_S`` (the H100's crossover at head dim
+    256), not by the 2 GiB rule alone; shorter calls go to the plain path
+    unless their scores pass 2 GiB; a set ``flash_min_s`` still rules."""
     modules = importlib.import_module(
         "apex_tpu_torch.contrib.multihead_attn.modules")
     monkeypatch.setattr(modules, "_on_card", lambda t: True)
     mha = modules.SelfMultiheadAttn(512, 2, causal=True, impl="auto")
     long = torch.zeros(2, 4096, d, dtype=dtype)
+    assert mha._flash_wins(long, long)
+    at = torch.zeros(2, modules.DEFAULT_FLASH_MIN_S, d, dtype=dtype)
+    assert mha._flash_wins(at, at)
+    short = torch.zeros(2, modules.DEFAULT_FLASH_MIN_S - 1, d, dtype=dtype)
+    assert not mha._flash_wins(short, short)
+    big = torch.zeros(32768, 64, d, dtype=dtype)   # past 2 GiB, S 64
+    assert mha._flash_wins(big, big)
+    fixed = modules.SelfMultiheadAttn(512, 2, impl="auto", flash_min_s=8192)
+    assert not fixed._flash_wins(long, long)
+
+
+@pytest.mark.parametrize("d", [129, 256])
+def test_auto_takes_fp32_past_128_by_the_2gib_rule_alone(monkeypatch, d):
+    """fp32 at D 129-256 (the forward in 3xTF32, dq and dk/dv the simple
+    form) gets no crossover length: only scores past 2 GiB, or a set
+    ``flash_min_s``, take the kernels."""
+    modules = importlib.import_module(
+        "apex_tpu_torch.contrib.multihead_attn.modules")
+    monkeypatch.setattr(modules, "_on_card", lambda t: True)
+    mha = modules.SelfMultiheadAttn(512, 2, causal=True, impl="auto")
+    long = torch.zeros(2, 4096, d)
+    assert FA.kernel_form(long, "fwd") == "f32"
+    assert FA.kernel_form(long, "dkv") == "simt"
     assert not mha._flash_wins(long, long)
-    big = torch.zeros(8192, 128, d, dtype=dtype)        # past 2 GiB
-    assert mha._flash_wins(big, torch.zeros(8192, 4096, d, dtype=dtype))
+    big = torch.zeros(8192, 128, d)                     # past 2 GiB
+    assert mha._flash_wins(big, torch.zeros(8192, 4096, d))
     fixed = modules.SelfMultiheadAttn(512, 2, impl="auto", flash_min_s=1024)
     assert fixed._flash_wins(long, long)

@@ -5,10 +5,10 @@
 What the kernels do is testable here without them:
 
 - the route: ``kernel_form`` sends fp32 at a head dim up to 128 to these
-  kernels, the forward and the backward alike, bf16/fp16 there to the
-  16-bit tensor-core ones and fp32 past 128 to the simple form (bf16/fp16
-  past 128: their dk/dv; their dq to 256 takes the D-256 kernel);
-  ``tensor_cores`` names the 16-bit kernels alone;
+  kernels, the forward and the backward alike, and the forward also at
+  129-256; bf16/fp16 there to the 16-bit tensor-core ones (to 256 by
+  their D-256 kernels) and fp32's dq and dk/dv past 128 to the simple
+  form; ``tensor_cores`` names the 16-bit kernels alone;
 - the arithmetic: a plain model of the 3xTF32 products (each fp32 operand
   split into big = tf32(x) and small = tf32(x - big), rounded as
   ``cvt.rna`` does, to nearest with ties away; each product small·big +
@@ -22,7 +22,8 @@ What the kernels do is testable here without them:
   softmax in log2 units, O rescaled in fp32 and each tile's P·V added from
   a fresh accumulator, every product in 3xTF32) holds against the JAX
   package's ``flash_attention`` forward, o under the same rule and lse
-  within 1e-4, where one TF32 pass fails the rule;
+  within 1e-4, where one TF32 pass fails the rule; so does the model at
+  head dim 200, padded to 256, in the D-256 kernel's tiles of 16 keys;
 - the fragment maps: a numpy model of ``mma.sync.m16n8k8`` with TF32
   operands (PTX's register layouts of A, B and the accumulator) gives QKᵀ
   from the K-major loads, and P·K from P's accumulator registers taken as
@@ -53,14 +54,16 @@ JFA = importlib.import_module(
     (torch.float32, 1, "f32"), (torch.float32, 64, "f32"),
     (torch.float32, 128, "f32"), (torch.float32, 129, "simt"),
     (torch.float32, 512, "simt"), (torch.bfloat16, 128, "tc"),
-    (torch.bfloat16, 129, "simt")])
+    (torch.bfloat16, 129, "tc256")])
 def test_backward_form_follows_dtype_and_head_dim(dtype, d, form):
-    """``form`` is dk/dv's; dq's is the same but for bf16/fp16 at D
-    129-256, which dq takes on the tensor cores at D 256."""
+    """``form`` is dk/dv's and dq's (bf16/fp16 at D 129-256 both on the
+    tensor cores at D 256); the forward's is the same but for fp32 at D
+    129-256, which it takes in 3xTF32 at D 256."""
     q = torch.zeros(2, 3, d, dtype=dtype)
     assert FA.kernel_form(q, "dkv") == form
-    assert FA.kernel_form(q, "dq") == (
-        "tc256" if dtype != torch.float32 and 128 < d <= 256 else form)
+    assert FA.kernel_form(q, "dq") == form
+    assert FA.kernel_form(q, "fwd") == (
+        "f32" if dtype == torch.float32 and d <= 256 else form)
     # tensor_cores names the 16-bit kernels alone
     assert FA.tensor_cores(q) == (form == "tc")
 
@@ -68,12 +71,13 @@ def test_backward_form_follows_dtype_and_head_dim(dtype, d, form):
 @pytest.mark.parametrize("d,wrapper", [(1, "flash_f32_fwd"),
                                        (64, "flash_f32_fwd"),
                                        (128, "flash_f32_fwd"),
-                                       (129, "flash_simt_fwd"),
-                                       (256, "flash_simt_fwd")])
+                                       (129, "flash_f32_fwd"),
+                                       (256, "flash_f32_fwd"),
+                                       (257, "flash_simt_fwd")])
 def test_forward_sends_fp32_to_the_form_kernel_form_names(d, wrapper,
                                                           monkeypatch):
-    """``flash_fwd`` on the card: fp32 at D <= 128 to ``flash_f32_fwd``,
-    past 128 to the simple form (the wrappers stubbed, the card
+    """``flash_fwd`` on the card: fp32 at D <= 256 to ``flash_f32_fwd``,
+    past 256 to the simple form (the wrappers stubbed, the card
     pretended)."""
     calls = []
     for name in ("flash_f32_fwd", "flash_simt_fwd"):
@@ -100,10 +104,13 @@ def test_f32_fwd_runs_the_plain_version_on_the_cpu_and_refuses():
     assert all(torch.equal(a, b) for a, b in
                zip(FA.flash_fwd(q, k, v, **kw), (o0, lse0)))
     assert (FA.flash_f32_fwd.launches, FA.flash_simt_fwd.launches) == before
-    # what the fp32 kernels do not take, refused before any launch
-    for t in (q.bfloat16(), torch.zeros(2, 33, 129)):
+    # what the fp32 kernels do not take, refused before any launch (the
+    # forward takes D 129-256, padded to 256)
+    for t in (q.bfloat16(), torch.zeros(2, 33, 257)):
         with pytest.raises(ValueError, match="takes fp32 at a head dim"):
             FA._f32_ready("flash_f32_fwd", t, t, t)
+    wide = FA._f32_ready("flash_f32_fwd", *(torch.zeros(2, 33, 129),) * 3)
+    assert all(t.shape == (2, 33, 256) for t in wide)
     with pytest.raises(ValueError, match="one BH and D"):
         FA._f32_ready("flash_f32_fwd", q, k, torch.zeros(2, 33, 64))
     # padded to 64, readable in place: the 16-byte copies' contract
@@ -289,6 +296,50 @@ def test_forward_model_against_jax_under_the_fp32_rule(jax_case, passes):
         assert used <= 1.0 and lse_err <= 1e-4, (used, lse_err)
     else:
         # one pass rounds each operand to 2^-11: far past the rule
+        assert used > 4.0, used
+
+
+# the D-256 forward's staged keys a tile (flash_f32.cu's f_fwd_tile<256>)
+D256_KEYS = 8
+
+
+@pytest.fixture(scope="module")
+def jax_case_d256():
+    """[2, 112, 200] causal with a kv_bias (a quarter of the keys masked)
+    and dropout 0.1, at a head dim the fp32 forward pads to 256: the
+    inputs, the JAX package's o and lse."""
+    rs = np.random.RandomState(13)
+    bh, s, d = 2, 112, 200
+    q, k, v = (rs.randn(bh, s, d).astype(np.float32) for _ in range(3))
+    kvb = np.where(rs.rand(bh, s) < 0.25, -1.0e30, 0.0).astype(np.float32)
+    kw = dict(causal=True, scale=d ** -0.5, dropout_rate=0.1,
+              dropout_seed=78)
+    o, lse = JFA.flash_attention(*(jnp.asarray(a) for a in (q, k, v)),
+                                 kv_bias=jnp.asarray(kvb), return_lse=True,
+                                 **kw)
+    return q, k, v, kvb, kw, [np.array(t, np.float32) for t in (o, lse)]
+
+
+@pytest.mark.parametrize("passes", [3, 1], ids=["3xtf32", "tf32"])
+def test_forward_model_at_d256_against_jax_under_the_fp32_rule(
+        jax_case_d256, passes):
+    """The forward kernel's arithmetic at head dim 200 as the kernel runs
+    it: padded to 256, the real D's scale, keys in tiles of
+    ``D256_KEYS``, sliced back: 3xTF32 holds JAX's o under the fp32 rule
+    and lse within 1e-4; one TF32 pass fails the rule."""
+    q, k, v, kvb, kw, want = jax_case_d256
+    d = q.shape[-1]
+    q, k, v = (FA._pad_d(torch.from_numpy(a), FA.padded_head_dim(d))
+               for a in (q, k, v))
+    assert q.shape[-1] == 256
+    o, lse = _fwd_model(q, k, v, torch.from_numpy(kvb), passes=passes,
+                        bk=D256_KEYS, **kw)
+    assert not o[..., d:].any()
+    used = _rule_used(FA._unpad(o, d), torch.from_numpy(want[0]))
+    lse_err = float((lse - torch.from_numpy(want[1])).abs().max())
+    if passes == 3:
+        assert used <= 1.0 and lse_err <= 1e-4, (used, lse_err)
+    else:
         assert used > 4.0, used
 
 

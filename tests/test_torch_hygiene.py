@@ -22,7 +22,8 @@ PKG = ROOT / "apex_tpu_torch"
 
 def _sources():
     return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                        ROOT / "flash_f32_ab.py"]
+                                        ROOT / "flash_f32_ab.py",
+                                        ROOT / "timer_load_ab.py"]
 
 
 def test_fresh_import_pulls_in_no_jax():
@@ -68,6 +69,17 @@ def test_the_kernel_variant_script_refuses_without_a_card():
                          cwd=ROOT, capture_output=True, text=True,
                          timeout=120, env=env)
     assert out.returncode == 2 and "usage" in out.stderr
+    assert out.stdout == ""
+
+
+def test_the_timer_load_script_refuses_without_a_card():
+    """``timer_load_ab.py`` times the card only: without CUDA it exits
+    with an error before it builds or starts anything."""
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    out = subprocess.run([sys.executable, "timer_load_ab.py"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env=env)
+    assert out.returncode == 1 and "needs a CUDA card" in out.stderr
     assert out.stdout == ""
 
 
