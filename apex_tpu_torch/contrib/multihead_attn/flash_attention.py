@@ -40,7 +40,9 @@ __all__ = ["NEG_INF", "DEFAULT_FLASH_MIN_S", "dropout_bits",
 # they won at every S, in bf16 (chip_smoke.py phase 2; at [32, S, 256]
 # too, the D-256 kernels) and in fp32 (the 3xTF32 kernels;
 # chip_smoke.flash_crossover_phase(torch, "float32"); PERF.md); below 128
-# nothing was measured, so those go plain.
+# nothing was measured, so those go plain. fp32 at [32, S, 256] has no
+# such length (its forward loses from S 1024 without a causal mask), so
+# impl="auto" gives fp32 past head dim 128 none (modules._flash_wins).
 DEFAULT_FLASH_MIN_S = 128
 
 

@@ -7,10 +7,11 @@ attention core chosen by ``impl`` (:169-203): ``"fast"`` the flash
 kernels, ``"default"`` the unfused ``reference_attention``, ``"auto"`` the
 flash kernels where they take the call (fp32, bf16 or fp16 on the card,
 head dim up to 512) from ``flash_min_s`` (when unset the H100's
-crossover, ``DEFAULT_FLASH_MIN_S``, where every kernel of the call is a
-tensor-core one, the 16-bit ones to head dim 256 and fp32's 3xTF32 ones
-to 128; none where dk/dv is the simple form) or when the unfused scores
-would pass 2 GiB (``_flash_wins``, :138-167).
+crossover, ``DEFAULT_FLASH_MIN_S``, where it was measured to hold: the
+16-bit kernels to head dim 256 and fp32's 3xTF32 ones to 128; none for
+fp32 past 128, whose forward loses to the plain path at long S without a
+causal mask, or where dk/dv is the simple form) or when the unfused
+scores would pass 2 GiB (``_flash_wins``).
 
 A ``key_padding_mask`` [B, Sk] (True = pad) becomes the per-key
 ``kv_bias`` [B·H, Sk], and an ``attn_mask`` [Sq, Sk] a full additive bias
@@ -35,7 +36,8 @@ import torch
 
 from apex_tpu_torch.contrib.multihead_attn.flash_attention import (
     DEFAULT_FLASH_MIN_S, NEG_INF, flash_attention, reference_attention)
-from apex_tpu_torch.ops.flash_attn import SIMT_MAX_HEAD_DIM, kernel_form
+from apex_tpu_torch.ops.flash_attn import (KERNEL_HEAD_DIMS,
+                                           SIMT_MAX_HEAD_DIM, kernel_form)
 
 __all__ = ["SelfMultiheadAttn", "EncdecMultiheadAttn"]
 
@@ -114,13 +116,15 @@ class _AttnBase:
         """impl="auto": the kernels only where they take the call — fp32,
         bf16 or fp16 tensors on the card, head dim up to 512 — from
         ``flash_min_s``, or once the plain path's scores would pass 2 GiB.
-        Unset, ``flash_min_s`` is ``DEFAULT_FLASH_MIN_S`` where every
-        kernel of the call runs on the tensor cores (bf16 and fp16 at a
-        head dim up to 256, fp32 in 3xTF32 at one up to 128: the
-        crossovers measured 128 on the H100 at D 64 and 256); where dk/dv
-        is the simple form (fp32 past 128, any dtype past 256) there is no
-        such length, so only the 2 GiB rule sends a call there. The
-        kernels take
+        Unset, ``flash_min_s`` is ``DEFAULT_FLASH_MIN_S`` where the H100's
+        crossover was measured to hold (bf16 and fp16 at a head dim up to
+        256, fp32 in 3xTF32 at one up to 128: the crossovers measured 128
+        at D 64 and 256). fp32 at 129-256 runs in 3xTF32 too, but there the
+        forward loses to the plain path from S 1024 without a causal mask
+        (``chip_smoke.flash_crossover_phase(torch, "float32", 256)``:
+        ``min_s`` None, PERF.md), and past 256 dk/dv is the simple form:
+        neither has such a length, so only the 2 GiB rule sends a call
+        there. The kernels take
         the full bias and dropout, so neither routes a call away. Anything
         else goes to ``reference_attention``, as JAX's "auto" does below
         its crossover. A routing rule, not a fallback: ``impl="fast"``
@@ -134,7 +138,9 @@ class _AttnBase:
                 and q.shape[-1] <= SIMT_MAX_HEAD_DIM):
             return False
         thr = self.flash_min_s
-        if thr is None and kernel_form(q, "dkv") != "simt":
+        form = kernel_form(q, "dkv")
+        if thr is None and (form in ("tc", "tc256") or (
+                form == "f32" and q.shape[-1] <= KERNEL_HEAD_DIMS[1])):
             thr = DEFAULT_FLASH_MIN_S
         sq, sk = q.shape[-2], k.shape[-2]
         return (thr is not None and max(sq, sk) >= thr) or \

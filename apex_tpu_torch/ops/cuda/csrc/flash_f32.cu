@@ -1,19 +1,18 @@
-// Flash attention over [BH, S, D] fp32 (D 64 or 128; the forward also 256)
-// on the tensor cores in 3xTF32: the forward (o and the per-row lse, by the
-// online softmax),
-// dq (with the per-bh bias gradient dS when asked) and dk/dv, the two
+// Flash attention over [BH, S, D] fp32 (D 64, 128 or 256) on the tensor
+// cores in 3xTF32: the forward (o and the per-row lse, by the online
+// softmax), dq (with the per-bh bias gradient dS when asked) and dk/dv, the
+// two
 // recomputing the probabilities from the forward's lse. The semantics they
 // keep from the Pallas kernels are csrc/flash_common.cuh's: causal masking
 // by absolute positions, the per-key kv_bias and the full bias, dropout by
 // the JAX package's coordinate hash, the finite kNegInf, the value guard.
 //
-// Replaces, for fp32 inputs at a head dim up to 128 (padded to 64 or 128),
-// the Pallas kernels of apex_tpu/contrib/multihead_attn/flash_attention.py:
-// _fwd_kernel (:181), _bwd_dq_kernel (:349) and _bwd_dkv_kernel (:392),
-// with the recompute of _recompute_p_ds (:309-346); _fwd_kernel also at a
-// head dim of 129 to 256 (padded to 256). The simple form
-// (csrc/flash_simt.cu) keeps the rest past 128 and the fp32 shared-bias
-// gradient.
+// Replaces, for fp32 inputs at a head dim up to 256 (padded to 64, 128 or
+// 256), the Pallas kernels of
+// apex_tpu/contrib/multihead_attn/flash_attention.py: _fwd_kernel (:181),
+// _bwd_dq_kernel (:349) and _bwd_dkv_kernel (:392), with the recompute of
+// _recompute_p_ds (:309-346). The simple form (csrc/flash_simt.cu) keeps
+// head dims past 256 and the fp32 shared-bias gradient.
 //
 // Bound on this card: operations. At lm_bench's shape (BH = 128, S =
 // 4095, D = 64, causal: 1.07e9 live pairs) the forward's two products are
@@ -80,6 +79,22 @@
 //    (PERF.md): 3 warps and 16 keys (195 KB) took 27% longer and spilled,
 //    2 warps and 16 keys (162 KB) twice as long and spilled, 5 warps and 8
 //    keys (211 KB) 10% longer.
+// 8. dq and dk/dv at D 256 meet two walls. Shared memory: the block's two
+//    sets of rows split in two take 4 x 1040 bytes a row, so 64 rows and
+//    two tiles of 16 need 233 KB of the 227 a block may have (f32_dq_kernel
+//    would fit 2 warps). Registers: a warp's dk and dv over 16 keys are
+//    256 a thread, past the 255 it may hold. So a pair of warps shares 16
+//    rows (f32_dq_pair_kernel, f32_dkv_pair_kernel): dq's warps make S and
+//    dP, trade them through shared memory under the pair's named barrier,
+//    both form dS and each keeps half of dq's columns (64 registers);
+//    dk/dv's make P^T and dv, and dP^T, dS^T and dk, P^T handed over (128
+//    registers each). Rows kept raw are split as each warp loads them by
+//    integer rounding (split_raw: an add, a mask and a subtract a value,
+//    where cvt.rna takes several instructions), which halves their shared
+//    memory: 8 warps over 64 rows with raw 16-row tiles take 206-212 KB.
+//    p_warps, p_tile, p_own_raw and p_tile_raw set the shape; the one
+//    flash_f32_ab.py d256bwd timed fastest on the H100 is committed
+//    (PERF.md); p_group keeps dk/dv from spilling.
 // Tiles wholly past the causal edge are skipped, by the block and by each
 // warp; a warp whose 16 rows see all of a tile with no bias or dropout
 // takes the unmasked path. Each block owns its output rows and writes
@@ -126,6 +141,19 @@ __device__ __forceinline__ void split(float x, uint32_t& big,
                                       uint32_t& small) {
   big = tf32(x);
   small = tf32(x - __uint_as_float(big));
+}
+
+// A staged fp32 value x split as a warp reads it (rows kept raw: item 8
+// above): big = tf32(x) by integer rounding, to nearest with ties away as
+// cvt.rna, one add and one mask, and small = x - big with its low 13 bits
+// left in place, which the tensor cores do not read (TF32 takes the top 19
+// bits): small truncated, off by under 2^-10 of itself, 2^-21 of x. A
+// non-finite x gives a NaN small (inf - inf, or NaN - anything), so it
+// reaches every product as cvt.rna's split does.
+__device__ __forceinline__ void split_raw(uint32_t x, uint32_t& big,
+                                          uint32_t& small) {
+  big = (x + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(__uint_as_float(x) - __uint_as_float(big));
 }
 
 // c += a b on one m16n8k8 tile: TF32 operands, fp32 accumulators
@@ -202,8 +230,12 @@ __device__ __forceinline__ void ldm2(uint32_t (&x)[2], const float* p) {
 // accumulator rounding toward zero, one rounding a product: a chain of 3K
 // into c would leave scores and dP 3K ulps low, which a peaked row's dS
 // shows past fp32's rule. So each pair of k-steps goes into a fresh
-// accumulator (6 products), added to c in fp32 (to nearest).
-template <int K, int N, int LD>
+// accumulator (6 products), added to c in fp32 (to nearest); with KP 1
+// each k-step does, so no small product lands on a big one's truncated sum
+// (KP k-steps a fresh accumulator). With ARAW (BRAW) A's (B's) rows are
+// raw fp32 at ab (bb), split as loaded (split_raw; as, bs unread).
+template <int K, int N, int LD, bool ARAW = false, bool BRAW = false,
+          int KP = 2>
 __device__ __forceinline__ void product_t(float (&c)[N][4], const float* ab,
                                           const float* as, const float* bb,
                                           const float* bs) {
@@ -214,12 +246,22 @@ __device__ __forceinline__ void product_t(float (&c)[N][4], const float* ab,
     const int aat = ((m & 1) * 8 + r) * LD + 8 * kk + (m >> 1) * 4;
     uint32_t a_b[4], a_s[4];
     ldm4(a_b, ab + aat);
-    ldm4(a_s, as + aat);
+    if constexpr (ARAW) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split_raw(a_b[i], a_b[i], a_s[i]);
+    } else {
+      ldm4(a_s, as + aat);
+    }
     uint32_t fb[N][2], fs[N][2];
     if constexpr (N == 1) {
       const int bat = r * LD + 8 * kk + (m & 1) * 4;
       ldm2(fb[0], bb + bat);
-      ldm2(fs[0], bs + bat);
+      if constexpr (BRAW) {
+        split_raw(fb[0][0], fb[0][0], fs[0][0]);
+        split_raw(fb[0][1], fb[0][1], fs[0][1]);
+      } else {
+        ldm2(fs[0], bs + bat);
+      }
     }
 #pragma unroll
     for (int n = 0; n + 1 < N; n += 2) {
@@ -230,11 +272,19 @@ __device__ __forceinline__ void product_t(float (&c)[N][4], const float* ab,
       fb[n][1] = x[1];
       fb[n + 1][0] = x[2];
       fb[n + 1][1] = x[3];
-      ldm4(x, bs + bat);
-      fs[n][0] = x[0];
-      fs[n][1] = x[1];
-      fs[n + 1][0] = x[2];
-      fs[n + 1][1] = x[3];
+      if constexpr (BRAW) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          split_raw(fb[n + h][0], fb[n + h][0], fs[n + h][0]);
+          split_raw(fb[n + h][1], fb[n + h][1], fs[n + h][1]);
+        }
+      } else {
+        ldm4(x, bs + bat);
+        fs[n][0] = x[0];
+        fs[n][1] = x[1];
+        fs[n + 1][0] = x[2];
+        fs[n + 1][1] = x[3];
+      }
     }
     auto bfrag = [&](int n, uint32_t (&b)[2], uint32_t (&s)[2]) {
       b[0] = fb[n][0];
@@ -242,13 +292,15 @@ __device__ __forceinline__ void product_t(float (&c)[N][4], const float* ab,
       s[0] = fs[n][0];
       s[1] = fs[n][1];
     };
-    if (kk < 2) {                          // the first pair: into c
+    if (kk < KP) {                         // the first KP: into c
       if (kk == 0) mma3<true>(c, a_b, a_s, bfrag);
       else mma3<false>(c, a_b, a_s, bfrag);
-    } else if (kk % 2 == 0) {
+    } else if (kk % KP == 0) {
       mma3<true>(step, a_b, a_s, bfrag);
     } else {
       mma3<false>(step, a_b, a_s, bfrag);
+    }
+    if (kk >= KP && kk % KP == KP - 1) {
 #pragma unroll
       for (int n = 0; n < N; ++n) {
 #pragma unroll
@@ -267,12 +319,14 @@ __device__ __forceinline__ void product_t(float (&c)[N][4], const float* ab,
 // cores add into an accumulator rounding toward zero, so over thousands of
 // keys the bias would pass fp32's rule: the tile's products go into a
 // fresh accumulator (3K additions), added to acc in fp32 (to nearest).
-template <int K, int N, int LD>
+// With BRAW, B is raw fp32 at bb, split as loaded (split_raw; bs unread).
+// G0, where given, is the n-tiles a pass takes (fewer live registers).
+template <int K, int N, int LD, bool BRAW = false, int G0 = 0>
 __device__ __forceinline__ void product_n(float (&acc)[N][4],
                                           const float (&p)[K][4],
                                           const float* bb, const float* bs,
                                           int g, int t) {
-  constexpr int G = N < 8 ? N : N == 8 ? 8 : 4;
+  constexpr int G = G0 ? G0 : N < 8 ? N : N == 8 ? 8 : 4;
 #pragma unroll
   for (int n0 = 0; n0 < N; n0 += G) {
     float tile[G][4];
@@ -285,10 +339,15 @@ __device__ __forceinline__ void product_n(float (&acc)[N][4],
       split(p[j][3], ab[3], as[3]);        // (g + 8, 2t + 1)
       const int at = (8 * j + 2 * t) * LD + 8 * n0 + g;
       auto bfrag = [&](int n, uint32_t (&b)[2], uint32_t (&s)[2]) {
-        b[0] = __float_as_uint(bb[at + 8 * n]);
-        b[1] = __float_as_uint(bb[at + LD + 8 * n]);
-        s[0] = __float_as_uint(bs[at + 8 * n]);
-        s[1] = __float_as_uint(bs[at + LD + 8 * n]);
+        if constexpr (BRAW) {
+          split_raw(__float_as_uint(bb[at + 8 * n]), b[0], s[0]);
+          split_raw(__float_as_uint(bb[at + LD + 8 * n]), b[1], s[1]);
+        } else {
+          b[0] = __float_as_uint(bb[at + 8 * n]);
+          b[1] = __float_as_uint(bb[at + LD + 8 * n]);
+          s[0] = __float_as_uint(bs[at + 8 * n]);
+          s[1] = __float_as_uint(bs[at + LD + 8 * n]);
+        }
       };
       if (j == 0) mma3<true>(tile, ab, as, bfrag);
       else mma3<false>(tile, ab, as, bfrag);
@@ -327,13 +386,13 @@ __device__ __forceinline__ void cp_wait_all() {
 
 // rows [row0, row0 + n) of a [rows, D] fp32 matrix (row stride rs
 // elements, rows 16-byte aligned) into dst [n][D + 4], zeros past `rows`;
-// all threads issue, the caller commits
-template <int D>
+// all NT threads of the block issue, the caller commits
+template <int D, int NT = 32 * f_warps<D>()>
 __device__ __forceinline__ void stage(float* dst, const float* src,
                                       long long rs, int row0, int n,
                                       int rows) {
   constexpr int C = D / 4;                 // 16-byte chunks a row
-  for (int i = threadIdx.x; i < n * C; i += 32 * f_warps<D>()) {
+  for (int i = threadIdx.x; i < n * C; i += NT) {
     const int r = i / C, c = i % C;
     const bool in = row0 + r < rows;
     cp_async16(dst + r * f_ld<D>() + 4 * c,
@@ -342,10 +401,10 @@ __device__ __forceinline__ void stage(float* dst, const float* src,
 }
 
 // n fp32 values from src[row0..] into dst, zeros past `rows`
-template <int D>
+template <int D, int NT = 32 * f_warps<D>()>
 __device__ __forceinline__ void stage_vec(float* dst, const float* src,
                                           int row0, int n, int rows) {
-  for (int i = threadIdx.x; i < n; i += 32 * f_warps<D>()) {
+  for (int i = threadIdx.x; i < n; i += NT) {
     const bool in = row0 + i < rows;
     cp_async4(dst + i, in ? src + row0 + i : src, in);
   }
@@ -353,11 +412,11 @@ __device__ __forceinline__ void stage_vec(float* dst, const float* src,
 
 // Staged rows [0, n) split once for every warp that reads them: big =
 // tf32(x) in place of x, small = tf32(x - big) at the same place of
-// `small`; all threads, four elements a step
-template <int D>
+// `small`; all NT threads, four elements a step
+template <int D, int NT = 32 * f_warps<D>()>
 __device__ __forceinline__ void split_rows(float* rows, float* small, int n) {
   constexpr int C = D / 4;
-  for (int i = threadIdx.x; i < n * C; i += 32 * f_warps<D>()) {
+  for (int i = threadIdx.x; i < n * C; i += NT) {
     const int at = i / C * f_ld<D>() + 4 * (i % C);
     const float4 x = *reinterpret_cast<const float4*>(rows + at);
     uint4 b, s;
@@ -374,8 +433,9 @@ __device__ __forceinline__ void split_rows(float* rows, float* small, int n) {
 
 // 2^x by one special-function instruction, results below 2^-126 flushed
 // to zero. exp2f keeps those subnormal, at more instructions; here such a
-// p or alpha lies far below an ulp of l >= 1, and the forward took 10%
-// less time with this (PERF.md)
+// p or alpha lies far below an ulp of l >= 1 (in the backward's pair
+// kernels, of dS's other terms), and the forward took 10% less time with
+// this, the pair kernels 1-2.5% (PERF.md)
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
@@ -820,6 +880,433 @@ f32_dkv_kernel(Attn a, const float* __restrict__ dout, long long do_bh,
   }
 }
 
+// ---- dq and dk/dv at D 256: pairs of warps -----------------------------
+
+// The blocks at D 256 (item 8 above), each knob for dq (KV false) and
+// dk/dv (KV true): the warps, in pairs that each own 16 rows (queries,
+// keys); the other side's rows a staged tile holds; whether the block's
+// own rows are kept raw and split as each warp reads them (else split once
+// into big and small halves); whether the staged tiles are (else split
+// once as each lands). flash_f32_ab.py d256bwd times the shapes that fit.
+template <bool KV> __host__ __device__ constexpr int p_warps() {
+  return KV ? 8 : 8;
+}
+template <bool KV> __host__ __device__ constexpr int p_tile() {
+  return KV ? 16 : 16;
+}
+template <bool KV> __host__ __device__ constexpr bool p_own_raw() {
+  return KV ? true : true;
+}
+template <bool KV> __host__ __device__ constexpr bool p_tile_raw() {
+  return KV ? true : true;
+}
+template <bool KV> __host__ __device__ constexpr int p_rows() {
+  return 8 * p_warps<KV>();
+}
+// the n-tiles a pass of the second product takes: dk/dv's 128-register
+// accumulator leaves room for two (four spilled at 255 registers)
+template <bool KV> __host__ __device__ constexpr int p_group() {
+  return KV ? 2 : 4;
+}
+// the first products' k-steps a fresh accumulator (product_t's KP); one
+// made dq slower and no closer to the plain version (PERF.md)
+template <bool KV> __host__ __device__ constexpr int p_chain() {
+  return KV ? 2 : 2;
+}
+// the row stride of a pair's exchanged tile [16][T]: float2 stores of a
+// half-warp (rows g < 4, columns 2t) on 16 distinct bank pairs
+template <int T> __host__ __device__ constexpr int p_ldx() {
+  return T == 8 ? 8 : T + 8;
+}
+
+// the named barrier of pair pr (0 is __syncthreads'), its 64 threads
+__device__ __forceinline__ void pair_sync(int pr) {
+  asm volatile("bar.sync %0, 64;\n" :: "r"(1 + pr) : "memory");
+}
+__device__ __forceinline__ void pair_arrive(int pr) {
+  asm volatile("bar.arrive %0, 64;\n" :: "r"(1 + pr) : "memory");
+}
+
+// a warp's [16 x 8N] accumulator tile to a pair's exchange buffer, and
+// back, each lane its own (g, 2t) and (g + 8, 2t) pairs
+template <int N, int LDX>
+__device__ __forceinline__ void tile_out(float* x, const float (&c)[N][4],
+                                         int g, int t) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      *reinterpret_cast<float2*>(x + (g + 8 * h) * LDX + 8 * n + 2 * t) =
+          make_float2(c[n][2 * h], c[n][2 * h + 1]);
+    }
+  }
+}
+template <int N, int LDX>
+__device__ __forceinline__ void tile_in(float (&c)[N][4], const float* x,
+                                        int g, int t) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float2 y = *reinterpret_cast<const float2*>(
+          x + (g + 8 * h) * LDX + 8 * n + 2 * t);
+      c[n][2 * h] = y.x;
+      c[n][2 * h + 1] = y.y;
+    }
+  }
+}
+
+// dq at D 256, as f32_dq_kernel (its arguments and outputs) but by pairs
+// of warps over 16 queries: warp 0 of a pair makes S = Q K^T and P
+// (undropped: dS's weight), warp 1 dP = dO V^T (dropped and rescaled);
+// each hands its tile to the other through shared memory under the pair's
+// barrier, both form dS = P (dP - delta), and each adds dS K into its half
+// of dq's columns (64 registers a thread).
+template <bool EXTRA>
+__global__ void __launch_bounds__(32 * p_warps<false>(), 1)
+f32_dq_pair_kernel(Attn a, const float* __restrict__ dout, long long do_bh,
+                   long long do_s, const float* __restrict__ lse,
+                   const float* __restrict__ delta, float* __restrict__ dq,
+                   float* __restrict__ ds) {
+  constexpr int D = 256, LD = f_ld<D>(), ND = D / 8;
+  constexpr int R = p_rows<false>(), BK = p_tile<false>(), NK = BK / 8;
+  constexpr int NT = 32 * p_warps<false>(), LDX = p_ldx<BK>();
+  constexpr bool OR = p_own_raw<false>(), TR = p_tile_raw<false>();
+  extern __shared__ float smf[];
+  float* qs = smf;                         // [R][LD] the block's queries
+  float* os = qs + R * LD;                 // [R][LD] their dO
+  float* qsm = os + R * LD;                // [R][LD] small halves, where
+  float* osm = qsm + (OR ? 0 : R * LD);    //   split once
+  float* kt = osm + (OR ? 0 : R * LD);     // [2][BK][LD] keys
+  float* vt = kt + 2 * BK * LD;            // [2][BK][LD] values
+  float* ksm = vt + 2 * BK * LD;           // [BK][LD] small halves, where
+  float* vsm = ksm + (TR ? 0 : BK * LD);   //   split once
+  float* ex = vsm + (TR ? 0 : BK * LD);    // [R / 16][2][16][LDX] tiles
+  const int nb = (a.sq + R - 1) / R;
+  const int bh = blockIdx.x / nb;
+  const int q0 = (nb - 1 - blockIdx.x % nb) * R;
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int pr = w >> 1, role = w & 1;     // 0: S and P; 1: dP
+  const int r0 = q0 + 16 * pr;             // the pair's first row
+  const float* k = static_cast<const float*>(a.k) + bh * a.k_bh;
+  const float* v = static_cast<const float*>(a.v) + bh * a.v_bh;
+  // key tiles the block's rows see
+  int nt = (a.sk + BK - 1) / BK;
+  const int last = min(q0 + R, a.sq) - 1;
+  if (a.causal) {
+    const int lim = a.q_start + last - a.k_start;
+    nt = lim < 0 ? 0 : min(nt, lim / BK + 1);
+  }
+  stage<D, NT>(qs, static_cast<const float*>(a.q) + bh * a.q_bh, a.q_s, q0,
+               R, a.sq);
+  stage<D, NT>(os, dout + bh * do_bh, do_s, q0, R, a.sq);
+  if (nt > 0) {
+    stage<D, NT>(kt, k, a.k_s, 0, BK, a.sk);
+    stage<D, NT>(vt, v, a.v_s, 0, BK, a.sk);
+  }
+  cp_commit();
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qi = r0 + g + 8 * h;
+    const long long row = (long long)bh * a.sq + qi;
+    lse2[h] = qi < a.sq ? lse[row] * kLog2e : 0.f;
+    dlt[h] = qi < a.sq ? delta[row] : 0.f;
+  }
+  const float sl2 = a.scale * kLog2e;
+  // the pair's last row: a causal tile wholly past it is skipped, as is
+  // everything by a pair whose rows all lie past Sq
+  const int wlast = a.q_start + min(r0 + 15, a.sq - 1) - a.k_start;
+  const bool rows_in = r0 < a.sq;
+  cp_wait_all();
+  __syncthreads();
+  if constexpr (!OR) {
+    split_rows<D, NT>(qs, qsm, R);
+    split_rows<D, NT>(os, osm, R);
+  }
+  // the warp's operand of the first products: Q (role 0) or dO (role 1)
+  const int wo = 16 * pr * LD;
+  const float* own = (role ? os : qs) + wo;
+  const float* own_sm = (role ? osm : qsm) + wo;
+  float* mine = ex + (2 * pr + role) * 16 * LDX;
+  const float* theirs = ex + (2 * pr + (role ^ 1)) * 16 * LDX;
+  float acc[ND / 2][4];                    // dq's columns 128 role + 8n + 2t
+#pragma unroll
+  for (int n = 0; n < ND / 2; ++n) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+  }
+  for (int it = 0; it < nt; ++it) {
+    const int buf = it & 1;
+    cp_wait_all();
+    __syncthreads();                       // tile it landed, it - 1 read
+    if (it + 1 < nt) {                     // the next tile, into the other
+      const int nx = (it + 1) * BK;
+      stage<D, NT>(kt + (buf ^ 1) * BK * LD, k, a.k_s, nx, BK, a.sk);
+      stage<D, NT>(vt + (buf ^ 1) * BK * LD, v, a.v_s, nx, BK, a.sk);
+    }
+    cp_commit();
+    float* kb = kt + buf * BK * LD;
+    float* vb = vt + buf * BK * LD;
+    if constexpr (!TR) {
+      split_rows<D, NT>(kb, ksm, BK);
+      split_rows<D, NT>(vb, vsm, BK);
+      __syncthreads();
+    }
+    const int k0 = it * BK;
+    float x[NK][4];
+    const bool sees = rows_in && !(a.causal && wlast < k0);
+    if (sees) {                            // the pair's branch: uniform
+      product_t<ND, NK, LD, OR, TR, p_chain<false>()>(
+          x, own, own_sm, role ? vb : kb, role ? vsm : ksm);  // QK^T, dOV^T
+      if (role == 0) {                     // P, undropped
+        if (!EXTRA && all_visible(a, r0, 16, k0, BK)) {
+#pragma unroll
+          for (int n = 0; n < NK; ++n) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              x[n][i] = ex2(x[n][i] * sl2 - lse2[i >> 1]);
+          }
+        } else {
+#pragma unroll
+          for (int n = 0; n < NK; ++n) {
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const float sc = score2(a, bh, r0 + g + 8 * (i >> 1),
+                                      k0 + 8 * n + 2 * t + (i & 1), x[n][i]);
+              x[n][i] = sc > kNegInf * 0.5f ? ex2(sc - lse2[i >> 1]) : 0.f;
+            }
+          }
+        }
+      } else if (EXTRA && a.drop_inv > 0.f) {   // dP where kept, rescaled
+#pragma unroll
+        for (int n = 0; n < NK; ++n) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            x[n][i] = keep(a, bh, r0 + g + 8 * (i >> 1),
+                           k0 + 8 * n + 2 * t + (i & 1)) ? x[n][i] * a.drop_inv
+                                                         : 0.f;
+          }
+        }
+      }
+      tile_out<NK, LDX>(mine, x, g, t);
+      pair_sync(pr);
+      float y[NK][4];
+      tile_in<NK, LDX>(y, theirs, g, t);
+#pragma unroll
+      for (int n = 0; n < NK; ++n) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float p = role ? y[n][i] : x[n][i];
+          const float dp = role ? x[n][i] : y[n][i];
+          x[n][i] = p * (dp - dlt[i >> 1]);             // dS
+        }
+      }
+      product_n<NK, ND / 2, LD, TR, p_group<false>()>(
+          acc, x, kb + 128 * role, ksm + 128 * role, g, t);   // dq += dS K
+    }
+    if (ds != nullptr && role == 0) {
+#pragma unroll
+      for (int n = 0; n < NK; ++n) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int qi = r0 + g + 8 * (i >> 1);
+          const int kj = k0 + 8 * n + 2 * t + (i & 1);
+          if (qi < a.sq && kj < a.sk)
+            ds[((long long)bh * a.sq + qi) * a.sk + kj] =
+                sees ? x[n][i] : 0.f;
+        }
+      }
+    }
+  }
+  if (ds != nullptr && role == 0) {
+    for (int h = 0; h < 16 && r0 + h < a.sq; ++h) {
+      float* row = ds + ((long long)bh * a.sq + r0 + h) * a.sk;
+      for (int kj = nt * BK + lane; kj < a.sk; kj += 32) row[kj] = 0.f;
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qi = r0 + g + 8 * h;
+    if (qi >= a.sq) continue;
+    float* out = dq + ((long long)bh * a.sq + qi) * D + 128 * role + 2 * t;
+#pragma unroll
+    for (int n = 0; n < ND / 2; ++n) {
+      *reinterpret_cast<float2*>(out + 8 * n) =
+          make_float2(acc[n][2 * h] * a.scale, acc[n][2 * h + 1] * a.scale);
+    }
+  }
+}
+
+// dk, dv at D 256, as f32_dkv_kernel but by pairs of warps over 16 keys:
+// warp 0 of a pair makes S^T = K Q^T and P^T, hands P^T (undropped) to
+// warp 1 through shared memory (the pair's barrier: warp 0 arrives, warp 1
+// waits) and adds P^T dO (dropped and rescaled) into dv; warp 1 makes
+// dP^T = V dO^T, dS^T = P^T (dP^T - delta) and adds dS^T Q into dk. Each
+// holds one accumulator, 128 registers a thread.
+template <bool EXTRA>
+__global__ void __launch_bounds__(32 * p_warps<true>(), 1)
+f32_dkv_pair_kernel(Attn a, const float* __restrict__ dout, long long do_bh,
+                    long long do_s, const float* __restrict__ lse,
+                    const float* __restrict__ delta, float* __restrict__ dk,
+                    float* __restrict__ dv) {
+  constexpr int D = 256, LD = f_ld<D>(), ND = D / 8;
+  constexpr int R = p_rows<true>(), BQ = p_tile<true>(), NQ = BQ / 8;
+  constexpr int NT = 32 * p_warps<true>(), LDX = p_ldx<BQ>();
+  constexpr bool OR = p_own_raw<true>(), TR = p_tile_raw<true>();
+  extern __shared__ float smf[];
+  float* ks = smf;                         // [R][LD] the block's keys
+  float* vs = ks + R * LD;                 // [R][LD] their values
+  float* ksm = vs + R * LD;                // [R][LD] small halves, where
+  float* vsm = ksm + (OR ? 0 : R * LD);    //   split once
+  float* qt = vsm + (OR ? 0 : R * LD);     // [2][BQ][LD] queries
+  float* ot = qt + 2 * BQ * LD;            // [2][BQ][LD] their dO
+  float* qsm = ot + 2 * BQ * LD;           // [BQ][LD] small halves, where
+  float* osm = qsm + (TR ? 0 : BQ * LD);   //   split once
+  float* ls = osm + (TR ? 0 : BQ * LD);    // [2][BQ] their lse
+  float* dl = ls + 2 * BQ;                 // [2][BQ] their delta
+  float* ex = dl + 2 * BQ;                 // [R / 16][16][LDX] P^T
+  const int nb = (a.sk + R - 1) / R;
+  const int bh = blockIdx.x / nb;
+  const int k0 = (blockIdx.x % nb) * R;
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int pr = w >> 1, role = w & 1;     // 0: S^T, P^T, dv; 1: dP^T, dk
+  const int c0 = k0 + 16 * pr;             // the pair's first key
+  const float* q = static_cast<const float*>(a.q) + bh * a.q_bh;
+  const float* dob = dout + bh * do_bh;
+  const float* lsb = lse + (long long)bh * a.sq;
+  const float* dlb = delta + (long long)bh * a.sq;
+  // the query tiles that see the block's keys (with the causal mask)
+  const int nqt = (a.sq + BQ - 1) / BQ;
+  int qt0 = 0;
+  if (a.causal) {
+    const int need = a.k_start + k0 - a.q_start;
+    qt0 = need <= 0 ? 0 : min(nqt, need / BQ);
+  }
+  stage<D, NT>(ks, static_cast<const float*>(a.k) + bh * a.k_bh, a.k_s, k0,
+               R, a.sk);
+  stage<D, NT>(vs, static_cast<const float*>(a.v) + bh * a.v_bh, a.v_s, k0,
+               R, a.sk);
+  if (qt0 < nqt) {
+    stage<D, NT>(qt + (qt0 & 1) * BQ * LD, q, a.q_s, qt0 * BQ, BQ, a.sq);
+    stage<D, NT>(ot + (qt0 & 1) * BQ * LD, dob, do_s, qt0 * BQ, BQ, a.sq);
+    stage_vec<D, NT>(ls + (qt0 & 1) * BQ, lsb, qt0 * BQ, BQ, a.sq);
+    stage_vec<D, NT>(dl + (qt0 & 1) * BQ, dlb, qt0 * BQ, BQ, a.sq);
+  }
+  cp_commit();
+  // the pair's first key: a causal tile wholly before it is skipped, as is
+  // everything by a pair whose keys all lie past Sk
+  const int wfirst = a.k_start + c0 - a.q_start;
+  const bool keys_in = c0 < a.sk;
+  cp_wait_all();
+  __syncthreads();
+  if constexpr (!OR) {
+    split_rows<D, NT>(ks, ksm, R);
+    split_rows<D, NT>(vs, vsm, R);
+  }
+  // the warp's operand of the first product: K (role 0) or V (role 1)
+  const int wo = 16 * pr * LD;
+  const float* own = (role ? vs : ks) + wo;
+  const float* own_sm = (role ? vsm : ksm) + wo;
+  float* px = ex + pr * 16 * LDX;
+  float acc[ND][4];                        // dv (role 0) or dk (role 1)
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+  }
+  for (int it = qt0; it < nqt; ++it) {
+    const int buf = it & 1;
+    cp_wait_all();
+    __syncthreads();                       // tile it landed, it - 1 read
+    if (it + 1 < nqt) {
+      const int nx = (it + 1) * BQ;
+      stage<D, NT>(qt + (buf ^ 1) * BQ * LD, q, a.q_s, nx, BQ, a.sq);
+      stage<D, NT>(ot + (buf ^ 1) * BQ * LD, dob, do_s, nx, BQ, a.sq);
+      stage_vec<D, NT>(ls + (buf ^ 1) * BQ, lsb, nx, BQ, a.sq);
+      stage_vec<D, NT>(dl + (buf ^ 1) * BQ, dlb, nx, BQ, a.sq);
+    }
+    cp_commit();
+    float* qb = qt + buf * BQ * LD;
+    float* ob = ot + buf * BQ * LD;
+    const float* lb = ls + buf * BQ;
+    const float* db = dl + buf * BQ;
+    if constexpr (!TR) {
+      split_rows<D, NT>(qb, qsm, BQ);
+      split_rows<D, NT>(ob, osm, BQ);
+      __syncthreads();
+    }
+    const int qb0 = it * BQ;
+    if (!keys_in || (a.causal && qb0 + BQ - 1 < wfirst)) continue;
+    float x[NQ][4];
+    product_t<ND, NQ, LD, OR, TR, p_chain<true>()>(
+        x, own, own_sm, role ? ob : qb, role ? osm : qsm);  // KQ^T, VdO^T
+    if (role == 0) {                       // P^T, undropped, to the pair
+      // the unmasked path taken inside the loop: as a branch around it
+      // (dq's form), or with no unmasked path, the plain form spilled 4-52
+      // bytes at 255 registers (flash_f32_ab.py d256ops)
+#pragma unroll
+      for (int n = 0; n < NQ; ++n) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int c = 8 * n + 2 * t + (i & 1);
+          if (!EXTRA && all_visible(a, qb0, BQ, c0, 16)) {
+            x[n][i] = ex2(x[n][i] * a.scale * kLog2e - lb[c] * kLog2e);
+            continue;
+          }
+          const float sc = score2(a, bh, qb0 + c, c0 + g + 8 * (i >> 1),
+                                  x[n][i]);
+          x[n][i] = sc > kNegInf * 0.5f ? ex2(sc - lb[c] * kLog2e) : 0.f;
+        }
+      }
+      tile_out<NQ, LDX>(px, x, g, t);
+      pair_arrive(pr);
+    }
+    if (EXTRA && a.drop_inv > 0.f) {       // P^T, dP^T where kept, rescaled
+#pragma unroll
+      for (int n = 0; n < NQ; ++n) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          x[n][i] = keep(a, bh, qb0 + 8 * n + 2 * t + (i & 1),
+                         c0 + g + 8 * (i >> 1)) ? x[n][i] * a.drop_inv : 0.f;
+        }
+      }
+    }
+    if (role == 1) {                       // dS^T, P^T read pair by pair
+      pair_sync(pr);
+#pragma unroll
+      for (int n = 0; n < NQ; ++n) {
+        const float2 d2 = *reinterpret_cast<const float2*>(db + 8 * n +
+                                                           2 * t);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float2 p2 = *reinterpret_cast<const float2*>(
+              px + (g + 8 * h) * LDX + 8 * n + 2 * t);
+          x[n][2 * h] = p2.x * (x[n][2 * h] - d2.x);
+          x[n][2 * h + 1] = p2.y * (x[n][2 * h + 1] - d2.y);
+        }
+      }
+    }
+    product_n<NQ, ND, LD, TR, p_group<true>()>(
+        acc, x, role ? qb : ob, role ? qsm : osm, g,
+        t);                                // dv += P^T dO, dk += dS^T Q
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int kj = c0 + g + 8 * h;
+    if (kj >= a.sk) continue;
+    float* out = (role ? dk : dv) + ((long long)bh * a.sk + kj) * D + 2 * t;
+    const float sc = role ? a.scale : 1.f;
+#pragma unroll
+    for (int n = 0; n < ND; ++n) {
+      *reinterpret_cast<float2*>(out + 8 * n) =
+          make_float2(acc[n][2 * h] * sc, acc[n][2 * h + 1] * sc);
+    }
+  }
+}
+
 // ---- host ------------------------------------------------------------
 
 // a block's rows, and its shared memory: the block's rows (the forward's
@@ -842,26 +1329,56 @@ int smem_f32_dkv(int d) {
   const int tile = d <= 64 ? f_tile<64, true>() : f_tile<128, true>();
   return 4 * (d + 4) * (4 * f32_rows(d) + 6 * tile) + 4 * 4 * tile;
 }
+// at D 256 (the pair kernels): the block's own rows (raw, or big and
+// small), the double-buffered tiles (raw, or beside one set of small
+// halves), the pairs' exchanged tiles (dq's both warps', dk/dv's P^T) and
+// dk/dv's lse and delta
+template <bool KV>
+int smem_f32_pair() {
+  constexpr int T = p_tile<KV>(), R = p_rows<KV>();
+  constexpr int rows = R * (p_own_raw<KV>() ? 2 : 4) +
+                       T * (p_tile_raw<KV>() ? 4 : 6);
+  return 4 * ((256 + 4) * rows + R * (KV ? 1 : 2) * p_ldx<T>() +
+              (KV ? 4 * T : 0));
+}
+// a block's rows (queries for dq, keys for dk/dv) and threads
+int f32_bwd_rows(int d, bool kv) {
+  return d != 256 ? f32_rows(d) : kv ? p_rows<true>() : p_rows<false>();
+}
+int f32_bwd_threads(int d, bool kv) {
+  return d != 256 ? 2 * f32_rows(d)        // 32 a warp of 16 rows
+         : 32 * (kv ? p_warps<true>() : p_warps<false>());
+}
 
 template <typename K, typename... Args>
-cudaError_t f32_launch(K kernel, int bytes, int blocks, int bh, int d,
+cudaError_t f32_launch(K kernel, int bytes, int blocks, int bh, int threads,
                        cudaStream_t st, Args... args) {
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  const int threads = 2 * f32_rows(d);     // 32 a warp of 16 rows
   kernel<<<static_cast<unsigned>(blocks * bh), threads, bytes, st>>>(
       args...);
   return cudaGetLastError();
+}
+
+// calls f(EXTRA) with EXTRA a compile-time constant: whether any bias or
+// dropout is given
+template <typename F>
+void with_extra(const Attn& a, F&& f) {
+  if (a.kvb != nullptr || a.bias != nullptr || a.drop_inv > 0.f) {
+    f(std::integral_constant<bool, true>{});
+  } else {
+    f(std::integral_constant<bool, false>{});
+  }
 }
 
 }  // namespace
 }  // namespace apex_port
 
 // Every entry point takes the simple form's arguments
-// (csrc/flash_simt.cu): q, k, v, dout [bh, s, d] fp32 (dtype code 0), d 64
-// or 128 (the forward also 256), read through their strides (elements; the last dim contiguous,
-// rows 16-byte aligned); lse, delta fp32 [bh, sq] contiguous; kvb null or
+// (csrc/flash_simt.cu): q, k, v, dout [bh, s, d] fp32 (dtype code 0), d 64,
+// 128 or 256, read through their strides (elements; the last dim
+// contiguous, rows 16-byte aligned); lse, delta fp32 [bh, sq] contiguous; kvb null or
 // fp32 [1|bh, sk] with bh stride kvb_bh (0 when shared); bias null or fp32
 // [1|bh, sq, sk] contiguous with bh stride bias_bh (0 when shared);
 // dropout when drop_inv = 1 / (1 - rate) > 0, keeping an element whose
@@ -894,7 +1411,8 @@ extern "C" int apex_flash_f32_fwd(int dtype, const void* q, const void* k,
   with_form<true>(d, a, [&](auto dc, auto extra) {
     err = f32_launch(
         f32_fwd_kernel<decltype(dc)::value, decltype(extra)::value>,
-        smem_f32_fwd(d), blocks, bh, d, st, a, static_cast<float*>(o),
+        smem_f32_fwd(d), blocks, bh, 2 * f32_rows(d), st, a,
+        static_cast<float*>(o),
         static_cast<float*>(lse));
   });
   return static_cast<int>(err);
@@ -916,23 +1434,35 @@ extern "C" int apex_flash_f32_dq(int dtype, const void* q, const void* k,
                                  int k_start, int causal, float scale,
                                  void* stream) {
   using namespace apex_port;
-  const int blocks = (sq + f32_rows(d) - 1) / f32_rows(d);
-  if (dtype != kF32 || dq == nullptr || bad(bh, sq, sk, d, blocks)) {
+  const int rows = f32_bwd_rows(d, false);
+  const int blocks = (sq + rows - 1) / rows;
+  if (dtype != kF32 || dq == nullptr || bad(bh, sq, sk, d, blocks, true)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Attn a = make_attn(q, k, v, q_bh, q_s, k_bh, k_s, v_bh, v_s, kvb,
                            kvb_bh, bias, bias_bh, seed, drop_thresh,
                            drop_inv, sq, sk, q_start, k_start, causal, scale);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int threads = f32_bwd_threads(d, false);
   cudaError_t err = cudaErrorInvalidValue;
-  with_form(d, a, [&](auto dc, auto extra) {
-    err = f32_launch(f32_dq_kernel<decltype(dc)::value, decltype(extra)::value>,
-                     smem_f32_dq(d), blocks, bh, d, st, a,
+  auto launch = [&](auto kernel, int bytes) {
+    err = f32_launch(kernel, bytes, blocks, bh, threads, st, a,
                      static_cast<const float*>(dout), do_bh, do_s,
                      static_cast<const float*>(lse),
                      static_cast<const float*>(delta), static_cast<float*>(dq),
                      static_cast<float*>(ds));
-  });
+  };
+  if (d == 256) {
+    with_extra(a, [&](auto extra) {
+      launch(f32_dq_pair_kernel<decltype(extra)::value>,
+             smem_f32_pair<false>());
+    });
+  } else {
+    with_form(d, a, [&](auto dc, auto extra) {
+      launch(f32_dq_kernel<decltype(dc)::value, decltype(extra)::value>,
+             smem_f32_dq(d));
+    });
+  }
   return static_cast<int>(err);
 }
 
@@ -952,23 +1482,34 @@ extern "C" int apex_flash_f32_dkv(int dtype, const void* q, const void* k,
                                   int k_start, int causal, float scale,
                                   void* stream) {
   using namespace apex_port;
-  const int blocks = (sk + f32_rows(d) - 1) / f32_rows(d);
-  if (dtype != kF32 || bad(bh, sq, sk, d, blocks)) {
+  const int rows = f32_bwd_rows(d, true);
+  const int blocks = (sk + rows - 1) / rows;
+  if (dtype != kF32 || bad(bh, sq, sk, d, blocks, true)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Attn a = make_attn(q, k, v, q_bh, q_s, k_bh, k_s, v_bh, v_s, kvb,
                            kvb_bh, bias, bias_bh, seed, drop_thresh,
                            drop_inv, sq, sk, q_start, k_start, causal, scale);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int threads = f32_bwd_threads(d, true);
   cudaError_t err = cudaErrorInvalidValue;
-  with_form(d, a, [&](auto dc, auto extra) {
-    err = f32_launch(
-        f32_dkv_kernel<decltype(dc)::value, decltype(extra)::value>,
-        smem_f32_dkv(d), blocks, bh, d, st, a,
-        static_cast<const float*>(dout),
-        do_bh, do_s, static_cast<const float*>(lse),
-        static_cast<const float*>(delta), static_cast<float*>(dk),
-        static_cast<float*>(dv));
-  });
+  auto launch = [&](auto kernel, int bytes) {
+    err = f32_launch(kernel, bytes, blocks, bh, threads, st, a,
+                     static_cast<const float*>(dout), do_bh, do_s,
+                     static_cast<const float*>(lse),
+                     static_cast<const float*>(delta), static_cast<float*>(dk),
+                     static_cast<float*>(dv));
+  };
+  if (d == 256) {
+    with_extra(a, [&](auto extra) {
+      launch(f32_dkv_pair_kernel<decltype(extra)::value>,
+             smem_f32_pair<true>());
+    });
+  } else {
+    with_form(d, a, [&](auto dc, auto extra) {
+      launch(f32_dkv_kernel<decltype(dc)::value, decltype(extra)::value>,
+             smem_f32_dkv(d));
+    });
+  }
   return static_cast<int>(err);
 }

@@ -29,7 +29,7 @@ dtype     head dim    forward               dq, dk/dv
 bf16/f16  1-128       "tc" (64 or 128)      "tc" (64 or 128)
 bf16/f16  129-256     "tc256" (256)         "tc256" (256)
 fp32      1-128       "f32" (64 or 128)     "f32" (64 or 128)
-fp32      129-256     "f32" (256)           "simt"
+fp32      129-256     "f32" (256)           "f32" (256)
 any       to 512      "simt"                "simt"
 ========  ==========  ====================  ====================
 
@@ -91,7 +91,7 @@ from apex_tpu_torch.ops import cuda as _cuda
 from apex_tpu_torch.ops import dispatch
 
 __all__ = ["NEG_INF", "KERNEL_HEAD_DIMS", "DKV_HEAD_DIMS", "F32_HEAD_DIMS",
-           "F32_FWD_HEAD_DIMS", "SIMT_MAX_HEAD_DIM", "dropout_bits",
+           "SIMT_MAX_HEAD_DIM", "dropout_bits",
            "drop_threshold", "reference_attention", "flash_fwd", "flash_delta",
            "flash_bwd_plain", "flash_bwd_dq", "flash_bwd_dkv",
            "flash_bwd_dbias", "flash_bwd_dbias_plain", "flash_d256_fwd",
@@ -106,12 +106,11 @@ __all__ = ["NEG_INF", "KERNEL_HEAD_DIMS", "DKV_HEAD_DIMS", "F32_HEAD_DIMS",
 NEG_INF = -1.0e30
 # the head dims the bf16/fp16 tensor-core kernels are written for (a
 # smaller D is padded up to one of them): the forward, dq and dk/dv take all
-# three, the shared-bias gradient the first two; the fp32 ones' (3xTF32):
-# dq and dk/dv, and the forward; and the widest the simple form takes
+# three, the shared-bias gradient the first two; the fp32 ones' (3xTF32:
+# the forward, dq and dk/dv); and the widest the simple form takes
 KERNEL_HEAD_DIMS = (64, 128, 256)
 DKV_HEAD_DIMS = (64, 128, 256)
-F32_HEAD_DIMS = (64, 128)
-F32_FWD_HEAD_DIMS = (64, 128, 256)
+F32_HEAD_DIMS = (64, 128, 256)
 SIMT_MAX_HEAD_DIM = 512
 _FLOATS = (torch.float32, torch.bfloat16, torch.float16)
 
@@ -597,15 +596,13 @@ def flash_simt_fwd(q, k, v, *, causal: bool = False, scale=None,
 flash_simt_fwd.launches = 0
 
 
-def _f32_ready(what: str, *ts, kernel: str = "fwd"):
-    """q, k, v (and dO) for the fp32 tensor-core kernel ``kernel`` (as
-    :func:`kernel_form` names them): checked, padded to
-    :func:`padded_head_dim` and readable by their 16-byte copies."""
+def _f32_ready(what: str, *ts):
+    """q, k, v (and dO) for the fp32 tensor-core kernels: checked, padded
+    to :func:`padded_head_dim` and readable by their 16-byte copies."""
     _check(what, *ts)
-    if kernel_form(ts[0], kernel) != "f32":
-        dims = F32_FWD_HEAD_DIMS if kernel == "fwd" else F32_HEAD_DIMS
+    if kernel_form(ts[0]) != "f32":
         raise ValueError(f"{what}: takes fp32 at a head dim up to "
-                         f"{dims[-1]}, got {ts[0].dtype} at "
+                         f"{F32_HEAD_DIMS[-1]}, got {ts[0].dtype} at "
                          f"{ts[0].shape[-1]}")
     dp = padded_head_dim(ts[0].shape[-1])
     return tuple(_readable(_pad_d(t, dp)) for t in ts)
@@ -652,8 +649,7 @@ def kernel_form(q: torch.Tensor, kernel: str = "fwd") -> str:
     and head dim (the module's table): "tc", the bf16/fp16 tensor-core
     kernels at D <= 128; "tc256", the same at D 129-256 (padded to 256);
     "f32", the fp32 ones (3xTF32 on the tensor cores, ``flash_f32.cu``) at
-    D <= 128, and the forward also at D 129-256; "simt", the simple form,
-    for the rest."""
+    D <= 256; "simt", the simple form, for the rest."""
     if kernel not in _KERNELS:
         raise ValueError(f"kernel_form: kernel must be one of {_KERNELS}, "
                          f"got {kernel!r}")
@@ -663,8 +659,7 @@ def kernel_form(q: torch.Tensor, kernel: str = "fwd") -> str:
     if q.dtype in (torch.bfloat16, torch.float16) \
             and d <= KERNEL_HEAD_DIMS[-1]:
         return "tc256"
-    f32_dims = F32_FWD_HEAD_DIMS if kernel == "fwd" else F32_HEAD_DIMS
-    if q.dtype == torch.float32 and d <= f32_dims[-1]:
+    if q.dtype == torch.float32 and d <= F32_HEAD_DIMS[-1]:
         return "f32"
     return "simt"
 
@@ -676,7 +671,7 @@ def _bwd_args(what, q, k, v, do, lse, delta, form="simt"):
     16-byte copies ("f32", :func:`_f32_ready`), or with their last dim
     contiguous ("simt"); lse and delta fp32 [BH, Sq]."""
     if form == "f32":
-        q, k, v, do = _f32_ready(what, q, k, v, do, kernel="dq")
+        q, k, v, do = _f32_ready(what, q, k, v, do)
     else:
         _check(what, q, k, v, do)
     if form == "simt":
@@ -855,8 +850,8 @@ def flash_f32_dq(q, k, v, do, lse, delta, *, causal: bool, scale: float,
                  bias=None, dropout_rate: float = 0.0, dropout_seed=0,
                  return_ds: bool = False):
     """:func:`flash_bwd_dq` in fp32 on the tensor cores in 3xTF32
-    (``flash_f32.cu``): fp32 at a head dim up to 128, padded to 64 or 128
-    (the real D's scale passed)."""
+    (``flash_f32.cu``; at D 256 by pairs of warps): fp32 at a head dim up
+    to 256, padded to 64, 128 or 256 (the real D's scale passed)."""
     return _strided_dq(flash_f32_dq, "apex_flash_f32_dq", "f32", q, k, v, do,
                        lse, delta, causal=causal, scale=scale,
                        q_start=q_start, k_start=k_start, kv_bias=kv_bias,
@@ -953,8 +948,8 @@ def flash_f32_dkv(q, k, v, do, lse, delta, *, causal: bool, scale: float,
                   q_start: int = 0, k_start: int = 0, kv_bias=None,
                   bias=None, dropout_rate: float = 0.0, dropout_seed=0):
     """:func:`flash_bwd_dkv` in fp32 on the tensor cores in 3xTF32
-    (``flash_f32.cu``): fp32 at a head dim up to 128, padded to 64 or
-    128."""
+    (``flash_f32.cu``; at D 256 by pairs of warps): fp32 at a head dim up
+    to 256, padded to 64, 128 or 256."""
     return _strided_dkv(flash_f32_dkv, "apex_flash_f32_dkv", "f32", q, k, v,
                         do, lse, delta, causal=causal, scale=scale,
                         q_start=q_start, k_start=k_start, kv_bias=kv_bias,

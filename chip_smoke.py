@@ -15,9 +15,9 @@ on the LM, phases 20-22 the ImageNet example's ViT-B/16 step with
 attention dropout and the flash kernels' full bias, phases 23-25 the wide
 LayerNorm (lm_bench's LM at GPT-3 175B's width) and ``bn_backward_reduce``,
 phases 26-30 lm_bench's LM served (head dim 64) and trained in fp16 and
-fp32, and the LayerNorm and BN at widths not a multiple of 4, phases 31-32
+fp32, and the LayerNorm and BN at widths not a multiple of 4, phases 31-33
 lm_bench's LM at 8 heads of 256 (the flash forward, dq and dk/dv at D
-256):
+256), in bf16 and in fp32:
 
 0. device — needs CUDA; prints the card's ``nvidia-smi`` name and power
    limit (also as a raw line of its own) and the torch / CUDA versions.
@@ -27,7 +27,8 @@ lm_bench's LM at 8 heads of 256 (the flash forward, dq and dk/dv at D
    flash forward's and backward's Hopper kernels (``flash_fwd_ptxas``,
    ``flash_bwd_ptxas``: 18 and 24 forms, bf16 and fp16; of them the 14 at
    head dim 256, ``flash_d256_ptxas``), the fp32 backward's
-   (``flash_f32_ptxas``: 8 forms) and the fp32 forward's
+   (``flash_f32_ptxas``: 12 forms, D 64 and 128 and the pair kernels at
+   256, plain and with a bias or dropout) and the fp32 forward's
    (``flash_f32_fwd_ptxas``: 6 forms, D 64, 128 and 256, plain and with a
    bias or dropout), none of whose forms may spill.
 2. kernels — each kernel against its plain PyTorch version on the card,
@@ -125,7 +126,12 @@ lm_bench's LM at 8 heads of 256 (the flash forward, dq and dk/dv at D
    ``d256_bf16``, ``d256_f32``: SDPA's forward and backward at D 256
    beside it), on the fp32 inputs the fp32 forward in 3xTF32
    (``flash_f32_fwd``, reading ``d256_f32``: o under the fp32 rule, lse
-   within 1e-4, bounds at 165 and 67 TFLOP/s) and at D 320 in bf16
+   within 1e-4, bounds at 165 and 67 TFLOP/s) and the fp32 dq and dk/dv
+   in 3xTF32 (``flash_f32_dq``, ``flash_f32_dkv``, reading ``d256_f32``:
+   the fp32 rule, the simple form's times on the same inputs and SDPA's
+   fp32 backward beside them, bounds at 165 and 67 TFLOP/s; again at
+   phase 33's [64, 4096, 256], reading ``hd256_lm_f32``, the simple form
+   and SDPA timed there) and at D 320 in bf16
    (``d320_bf16``); the D-256 forward, dq and dk/dv (``flash_d256_fwd``,
    ``flash_d256_dq``, ``flash_d256_dkv``), in bf16 and fp16, at [32,
    1024, 256] (``d256_tc_bf16``, ``d256_tc_f16``: the simple form's times
@@ -329,9 +335,9 @@ lm_bench's LM at 8 heads of 256 (the flash forward, dq and dk/dv at D
 30. tails_train — ``FusedLayerNorm(1022)`` over [16, 2048, 1022] bf16,
     ``SyncBatchNorm(6, fuse_relu=True)`` over [64, 6, 56, 56] bf16 with a
     residual, ``flash_attention`` at head dim 256 over [32, 1024, 256]
-    fp32 (the 3xTF32 forward, the simple dq and dk/dv) and at head dim 320
-    over [16, 1024, 320] bf16 (the simple form), 3 forward/backward passes
-    each against the plain versions.
+    fp32 (the 3xTF32 forward, dq and dk/dv) and at head dim 320 over [16,
+    1024, 320] bf16 (the simple form), 3 forward/backward passes each
+    against the plain versions.
 31. lm_train_hd256 — ``tools/lm_bench.py --dim 2048 --heads 8`` (8
     layers of 2048, 8 heads of 256: Gemma 2B's attention shape; vocab
     32768, S 4096, batch 8, attention "fast", random weights from seed 0),
@@ -342,10 +348,17 @@ lm_bench's LM at 8 heads of 256 (the flash forward, dq and dk/dv at D
 32. lm_hd256_crosscheck — a small LM at head dim 256 (2 layers, embed
     512, 2 heads of 256, vocab 512, S 256) under phase 10's
     ``adam_crosscheck``.
-33. the ``{"kernels": [...]}`` line (37 kernels; dq's and dk/dv's
+33. lm_train_hd256_f32 — phase 31's LM in fp32 (O0, lm_bench's
+    ``--dtype f32 --dim 2048 --heads 8``): 2 warm-up and 3 timed steps,
+    one profiled; 8 launches a step of ``flash_f32_fwd``, ``flash_f32_dq``
+    and ``flash_f32_dkv``, none of the simple form's or the 16-bit
+    kernels'; losses finite, the mean of the last 3 below the first; MFU
+    against 67 TFLOP/s.
+34. the ``{"kernels": [...]}`` line (37 kernels; dq's and dk/dv's
     entries also carry their ``wide`` reading and the whole backward's,
     ``backward``, at both shapes, the D-256 ones the whole backward at
-    [64, 4096, 256]), then the ``ok`` line.
+    [64, 4096, 256]; the fp32 ones their readings at D 256), then the
+    ``ok`` line.
 
 Times are CUDA-event medians of single calls with the L2 cache flushed
 before each and the stream held busy, so host launch time is not counted.
@@ -2002,11 +2015,15 @@ SERVE_FAMILIES = (
                      "copy", "fill", "clamp", "cat", "index", "embedding")),
 )
 
+# the fp32 backward's kernels (csrc/flash_f32.cu): D 64 and 128, and the
+# pair kernels at D 256
+F32_BWD_KERNELS = ("f32_dq_kernel", "f32_dkv_kernel", "f32_dq_pair_kernel",
+                   "f32_dkv_pair_kernel")
 LM_KERNEL_FAMILIES = (
     ("flash kernels", ("flash_fwd_kernel", "flash_dq_kernel",
                        "flash_dkv_kernel", "flash_dkv_split_kernel",
                        "simt_fwd_kernel", "simt_dq_kernel", "simt_dkv_kernel",
-                       "f32_fwd_kernel", "f32_dq_kernel", "f32_dkv_kernel")),
+                       "f32_fwd_kernel") + F32_BWD_KERNELS),
     ("LN kernels", ("ln_fwd_kernel", "ln_bwd_kernel", "ln_wide",
                     "finalize_kernel")),
     ("Adam", ("adam_kernel",)),
@@ -4384,15 +4401,22 @@ def flash_form_readings(torch, timer, reading, shape, dt, fns, ops_s,
     return out
 
 
-def f32_backward_readings(torch, timer, shape, simple) -> dict:
+def f32_backward_readings(torch, timer, shape, simple,
+                          reading: str = "f32") -> dict:
     """The fp32 backward on the tensor cores (``flash_f32_dq``,
-    ``flash_f32_dkv``, 3xTF32) at [BH, S, D] causal on the simple form's
-    reading's inputs (``form_inputs``; ``simple``: that reading's rows):
-    against the plain version on the first heads under the fp32 flash rule,
-    the rule refusing a result 5% off, each output repeated bit for bit;
-    times beside the simple form's dq and dk/dv, the plain version's and
-    SDPA's fp32 backward from that reading, bounds at 3xTF32's 165 TFLOP/s
-    (``bound_ms``) and at fp32 FMAs' 67 TFLOP/s (``bound_fma_ms``)."""
+    ``flash_f32_dkv``, 3xTF32; at D 256 the pair kernels) at [BH, S, D]
+    causal on the inputs of the simple form's reading ``reading``
+    (``form_inputs``; ``simple``: its rows; the new rows keyed by the same
+    name): against the plain version on the first heads under the fp32
+    flash rule, the rule refusing a result 5% off, each output repeated bit
+    for bit; times beside the simple form's dq and dk/dv, the plain
+    version's and SDPA's fp32 backward from that reading, bounds at
+    3xTF32's 165 TFLOP/s (``bound_ms``) and at fp32 FMAs' 67 TFLOP/s
+    (``bound_fma_ms``). Where ``simple`` has no such reading (the hd-256
+    LM's shape), the simple dq and dk/dv, the plain version and SDPA's
+    fp32 backward are timed here, 5 reps each."""
+    import torch.nn.functional as F
+
     from apex_tpu_torch.ops import flash_attn as FA
 
     BH, S, D = shape
@@ -4415,7 +4439,23 @@ def f32_backward_readings(torch, timer, shape, simple) -> dict:
     again = (FA.flash_f32_dq(*args, **kw), *FA.flash_f32_dkv(*args, **kw))
     rep = [bool(torch.equal(a, b)) for a, b in zip(again, outs)]
     check(all(rep), f"flash f32 backward: two runs differ: {rep}")
-    del want, again, late, off, o
+    del want, again, late, off, o, outs
+    if ("flash_simt_dq", reading) not in simple:
+        slow = Timer(torch, reps=5)
+        q4, k4, v4 = (t.view(1, BH, S, D).detach().clone()
+                      .requires_grad_(True) for t in (q, k, v))
+        lo = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+        lib_ms = slow(lambda: torch.autograd.grad(
+            lo, (q4, k4, v4), do.view(1, BH, S, D), retain_graph=True))
+        del lo, q4, k4, v4
+        common = dict(tol="2 ulps + 2^-14 of the larger of the row's and "
+                          "the tensor's RMS",
+                      plain_ms=slow(lambda: FA.flash_bwd_plain(*args, **kw)),
+                      plain_covers="dq, dk and dv (one flash_bwd_plain)",
+                      library_ms=lib_ms)
+        simple = {(fn.__name__, reading): dict(common, ms=slow(
+            lambda: fn(*args, **kw))) for fn in (FA.flash_simt_dq,
+                                                 FA.flash_simt_dkv)}
     pairs = BH * S * (S + 1) // 2
     sz = BH * S * D * 4
     out = {}
@@ -4424,9 +4464,9 @@ def f32_backward_readings(torch, timer, shape, simple) -> dict:
              6 * D * pairs),
             (FA.flash_f32_dkv, errs[1:], rep[1:], 6 * sz + 8 * BH * S,
              8 * D * pairs)):
-        was = simple[(fn.__name__.replace("f32", "simt"), "f32")]
+        was = simple[(fn.__name__.replace("f32", "simt"), reading)]
         b_ms, b_by = bound(nbytes, ops, TF32X3_OPS_S)
-        r = {"phase": "kernels", "kernel": fn.__name__, "reading": "f32",
+        r = {"phase": "kernels", "kernel": fn.__name__, "reading": reading,
              "dtype": "float32", "shape": [BH, S, D], "causal": True,
              "checked_heads": n, "products": "3xTF32",
              "tol": was["tol"],
@@ -4442,9 +4482,11 @@ def f32_backward_readings(torch, timer, shape, simple) -> dict:
              "bound_ms": b_ms, "bound_by": b_by,
              "bound_fma_ms": bound(nbytes, ops)[0]}
         emit(r)
-        out[(fn.__name__, "f32")] = r
-    dq_r, dkv_r = out[("flash_f32_dq", "f32")], out[("flash_f32_dkv", "f32")]
-    emit({"phase": "kernels", "reading": "f32_pair",
+        out[(fn.__name__, reading)] = r
+    dq_r = out[("flash_f32_dq", reading)]
+    dkv_r = out[("flash_f32_dkv", reading)]
+    emit({"phase": "kernels", "reading": reading + "_pair",
+          "shape": [BH, S, D],
           "kernel": "flash_f32_dq + flash_f32_dkv",
           "ms": dq_r["ms"] + dkv_r["ms"],
           "simple_ms": dq_r["simple_ms"] + dkv_r["simple_ms"],
@@ -4516,8 +4558,10 @@ def flash_forms_phase(torch, timer) -> dict:
     cores, and the fp32 forward and backward on the tensor cores on the
     same inputs; the simple form at phase 30's [32, 1024, 256] in bf16 and
     fp32 (SDPA's at D 256 beside it; bf16's bound at 989 TFLOP/s, fp32's
-    at 67) and in bf16 at D 320, and the fp32 forward in 3xTF32 on the
-    fp32 inputs (reading ``d256_f32``); the D-256 forward, dq and dk/dv,
+    at 67) and in bf16 at D 320, and the fp32 forward, dq and dk/dv in
+    3xTF32 on the fp32 inputs (reading ``d256_f32``), dq and dk/dv again
+    at the hd-256 LM's [64, 4096, 256] (``hd256_lm_f32``, the simple form
+    timed there); the D-256 forward, dq and dk/dv,
     in bf16 and fp16, at [32, 1024, 256] (readings ``d256_tc_bf16``,
     ``d256_tc_f16``: the simple form's times on the same inputs beside
     bf16's) and at the hd-256 LM's [64, 4096, 256] (``hd256_lm_bf16``,
@@ -4546,11 +4590,14 @@ def flash_forms_phase(torch, timer) -> dict:
         rows.update(flash_form_readings(torch, timer, "d256_" + tag, d256,
                                         dt, simt, ops_s))
     rows.update(f32_forward_reading(torch, timer, d256, rows, "d256_f32"))
+    rows.update(f32_backward_readings(torch, timer, d256, rows, "d256_f32"))
     rows.update(flash_form_readings(torch, timer, "d320_bf16",
                                     [32, 1024, 320], torch.bfloat16, simt,
                                     BF16_DENSE_OPS_S))
     c = HD256_SHAPE
     lm256 = [c["batch"] * c["heads"], c["seq"], c["embed"] // c["heads"]]
+    rows.update(f32_backward_readings(torch, timer, lm256, rows,
+                                      "hd256_lm_f32"))
     for dt, tag in ((torch.bfloat16, "bf16"), (torch.float16, "f16")):
         for shape, reading in ((d256, "d256_tc_" + tag),
                                (lm256, "hd256_lm_" + tag)):
@@ -4837,10 +4884,10 @@ def tails_train_phase(torch) -> dict:
     56] bf16 in channels_last with a residual (out, dx and dz within
     phase 2's bf16 tolerance, dγ and dβ within 1e-5·Σ|terms|), and
     ``flash_attention`` at head dim 256 over [32, 1024, 256] fp32 causal
-    (the forward in 3xTF32, dq and dk/dv the simple form) under the fp32
-    flash rule and at head dim 320 over [16, 1024, 320] bf16 causal (the
-    simple form, forward and backward) under the flash rule; the kernels'
-    launches counted."""
+    (the forward, dq and dk/dv in 3xTF32) under the fp32 flash rule and at
+    head dim 320 over [16, 1024, 320] bf16 causal (the simple form,
+    forward and backward) under the flash rule; the kernels' launches
+    counted."""
     from apex_tpu_torch.contrib.multihead_attn import flash_attention
     from apex_tpu_torch.normalization import FusedLayerNorm
     from apex_tpu_torch.ops import dispatch
@@ -4974,10 +5021,11 @@ def tails_train_phase(torch) -> dict:
 
 TAIL_KERNELS = ("ln_fwd", "ln_bwd", "bn_moments", "bn_backward_fused_reduce",
                 "bn_backward_dx", "flash_simt_fwd", "flash_simt_dq",
-                "flash_simt_dkv", "flash_f32_fwd")
+                "flash_simt_dkv", "flash_f32_fwd", "flash_f32_dq",
+                "flash_f32_dkv")
 
 
-# -- phases 31-32: lm_bench's LM at 8 heads of 256 ----------------------------
+# -- phases 31-33: lm_bench's LM at 8 heads of 256, bf16 and fp32 ------------
 
 # tools/lm_bench.py --dim 2048 --heads 8 at its other defaults (phase 9's
 # vocab, S, depth and batch): Gemma 2B's attention shape (d_model 2048, 8
@@ -4991,58 +5039,79 @@ HD256_PER_STEP = {"flash_d256_fwd": 8, "flash_d256_dq": 8,
                   "flash_simt_dq": 0, "flash_simt_dkv": 0, "flash_fwd": 0,
                   "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "ln_fwd": 17,
                   "ln_bwd": 17, "adam": 1}
+# phase 33, in fp32 (``--dtype f32``): the forward, dq and dk/dv in
+# 3xTF32 at D 256 (dq and dk/dv by the pair kernels), none of the simple
+# form's or the 16-bit kernels'
+HD256_F32_BATCH = 8       # the batch the phase runs (not cut)
+HD256_F32_PER_STEP = {"flash_f32_fwd": 8, "flash_f32_dq": 8,
+                      "flash_f32_dkv": 8, "flash_simt_fwd": 0,
+                      "flash_simt_dq": 0, "flash_simt_dkv": 0,
+                      "flash_d256_fwd": 0, "flash_d256_dq": 0,
+                      "flash_d256_dkv": 0, "flash_fwd": 0,
+                      "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "ln_fwd": 17,
+                      "ln_bwd": 17, "adam": 1}
 
 
-def lm_hd256_train_phase(torch) -> dict:
+def lm_hd256_train_phase(torch, dtype=None) -> dict:
     """``tools/lm_bench.py --dim 2048 --heads 8`` on one card
     (TransformerLM: vocab 32768, 8 layers, 2048 wide, 8 heads of 256,
     attention "fast", fused head in vocab chunks of 8192; random weights
-    from ``torch.Generator`` seed 0), O2 bf16 over fp32 flat masters,
-    ``FusedAdam(lr=1e-4)``, phase 9's batch (8 × 4096, the batch cut to
-    ``HD256_BATCH`` rows where that is smaller): 3 warm-up and 5 timed
-    steps, one profiled; losses finite, the mean of the last 3 below the
-    first; the launches a step of ``HD256_PER_STEP``."""
+    from ``torch.Generator`` seed 0), ``FusedAdam(lr=1e-4)``, phase 9's
+    batch (8 × 4096, the batch cut to ``HD256_BATCH`` rows where that is
+    smaller). Phase 31 (``dtype`` bf16): O2 bf16 over fp32 flat masters, 3
+    warm-up and 5 timed steps, the launches a step of ``HD256_PER_STEP``,
+    MFU against 989 TFLOP/s; phase 33 (``dtype`` None, ``--dtype f32``):
+    O0 fp32 (``LMTrainer(dtype=None)``), 2 warm-up and 3 timed steps, the
+    batch cut to ``HD256_F32_BATCH``, ``HD256_F32_PER_STEP``, MFU against
+    67 TFLOP/s fp32. One step profiled; losses finite, the mean of the
+    last 3 below the first."""
     import numpy as np
 
     from apex_tpu_torch.models import TransformerLM
     from apex_tpu_torch.train import LMTrainer
 
     c = HD256_SHAPE
-    warm, timed = 3, 5
+    f32 = dtype is None
+    phase = "lm_train_hd256_f32" if f32 else "lm_train_hd256"
+    warm, timed = (2, 3) if f32 else (3, 5)
+    batch = HD256_F32_BATCH if f32 else HD256_BATCH
+    per_step = HD256_F32_PER_STEP if f32 else HD256_PER_STEP
     model = TransformerLM(vocab_size=c["vocab"], max_seq_len=c["seq"],
                           embed_dim=c["embed"], num_heads=c["heads"],
                           num_layers=c["layers"], attn_impl="fast",
                           head_chunk=min(8192, c["vocab"]))
+    kw = dict(dtype=None) if f32 else {}
     tr = LMTrainer(model, model.init(torch.Generator().manual_seed(0)),
-                   lr=1e-4)
-    toks = lm_batch(torch)[:HD256_BATCH]
+                   lr=1e-4, **kw)
+    toks = lm_batch(torch)[:batch]
     r = timed_steps(torch, lambda: tr.step(toks), warm, timed)
     counts = r["counts"]
-    tokens = HD256_BATCH * c["seq"]
-    step_flops = lm_step_flops(tr.table.total, dict(c, batch=HD256_BATCH))
+    tokens = batch * c["seq"]
+    step_flops = lm_step_flops(tr.table.total, dict(c, batch=batch))
     prof = profile_steps(torch, lambda: tr.step(toks), LM_KERNEL_FAMILIES,
                          n=1)
-    row = {"phase": "lm_train_hd256", "model": "TransformerLM", **c,
-           "head_dim": c["embed"] // c["heads"], "batch": HD256_BATCH,
-           "batch_cut": HD256_BATCH != c["batch"],
+    row = {"phase": phase, "model": "TransformerLM", **c,
+           "head_dim": c["embed"] // c["heads"], "batch": batch,
+           "batch_cut": batch != c["batch"],
            "attn_impl": model.attn_impl, "head_chunk": model.head_chunk,
-           "dtype": "bfloat16", "masters": "float32",
+           "dtype": "float32" if f32 else "bfloat16", "masters": "float32",
            "optimizer": "FusedAdam(lr=1e-4)", **window_row(r, timed),
            "tokens_per_step": tokens, "tok_per_s": tokens * timed / r["wall"],
            "step_tflop": step_flops / 1e12,
-           "mfu": step_flops * timed / r["wall"] / BF16_DENSE_OPS_S,
+           "mfu": step_flops * timed / r["wall"] / (
+               FP32_OPS_S if f32 else BF16_DENSE_OPS_S),
+           "mfu_peak": "67 TFLOP/s fp32" if f32
+           else "989 TFLOP/s bf16 dense",
            "params": tr.table.total,
-           "launches": {k: counts[k] for k in HD256_PER_STEP},
-           "launches_per_step": {k: counts[k] / timed
-                                 for k in HD256_PER_STEP},
+           "launches": {k: counts[k] for k in per_step},
+           "launches_per_step": {k: counts[k] / timed for k in per_step},
            "profile": prof}
     emit(row)
     loss = r["loss"]
-    check(all(np.isfinite(loss)), f"lm_train_hd256: non-finite loss {loss}")
-    check(sum(loss[-3:]) / 3 < loss[0], f"lm_train_hd256: the mean of the "
-          f"last 3 losses is not below the first: {loss}")
-    check_counts("lm_train_hd256", counts,
-                 {k: n * timed for k, n in HD256_PER_STEP.items()})
+    check(all(np.isfinite(loss)), f"{phase}: non-finite loss {loss}")
+    check(sum(loss[-3:]) / 3 < loss[0], f"{phase}: the mean of the last 3 "
+          f"losses is not below the first: {loss}")
+    check_counts(phase, counts, {k: n * timed for k, n in per_step.items()})
     return counts
 
 
@@ -5104,10 +5173,11 @@ def main() -> int:
     flash_bwd = {n: e for n, e in ptxas.items()
                  if "flash_dq_kernel" in n or "flash_dkv_kernel" in n
                  or "flash_dkv_split_kernel" in n}
-    # the fp32 backward in 3xTF32: dq and dk/dv at D 64 and 128, plain and
-    # with a bias or dropout; the fp32 forward likewise, and at D 256
+    # the fp32 backward in 3xTF32: dq and dk/dv at D 64 and 128 and the
+    # pair kernels at 256, plain and with a bias or dropout; the fp32
+    # forward likewise, at D 64, 128 and 256
     flash_f32 = {n: e for n, e in ptxas.items()
-                 if "f32_dq_kernel" in n or "f32_dkv_kernel" in n}
+                 if any(k in n for k in F32_BWD_KERNELS)}
     flash_f32_fwd = {n: e for n, e in ptxas.items() if "f32_fwd_kernel" in n}
     # of those, the forward's, dq's and dk/dv's forms at head dim 256 (the
     # template argument 256 in their mangled names)
@@ -5121,17 +5191,17 @@ def main() -> int:
           "flash_d256_ptxas": flash_d256})
     # bf16 and fp16: 2 x 9 forward forms (3 kinds at D 64, 128, 256) and
     # 2 x 12 backward (dq and dk/dv, plain and extra, at D 64, 128, 256),
-    # 6 + 8 of them at D 256; fp32: 8 backward and 6 forward (plain and
+    # 6 + 8 of them at D 256; fp32: 12 backward and 6 forward (plain and
     # extra at D 64, 128, 256)
     check(not kcuda.build_seconds or (len(flash_fwd) == 18
                                       and len(flash_bwd) == 24
                                       and len(flash_d256) == 14
-                                      and len(flash_f32) == 8
+                                      and len(flash_f32) == 12
                                       and len(flash_f32_fwd) == 6),
           f"ptxas reported {len(flash_fwd)} forward, {len(flash_bwd)} "
           f"backward ({len(flash_d256)} at D 256), {len(flash_f32)} fp32 "
           f"backward and {len(flash_f32_fwd)} fp32 forward flash forms, "
-          f"not 18, 24 (14), 8 and 6")
+          f"not 18, 24 (14), 12 and 6")
     for what, forms in (("forward", flash_fwd), ("backward", flash_bwd),
                         ("fp32 backward", flash_f32),
                         ("fp32 forward", flash_f32_fwd)):
@@ -5282,10 +5352,12 @@ def main() -> int:
     tl_counts = tails_train_phase(torch)
     # 31-32. lm_bench's LM at 8 heads of 256: the D-256 forward and dq in
     # every step; the small LM at head dim 256 against the plain versions
-    d256_counts = lm_hd256_train_phase(torch)
+    d256_counts = lm_hd256_train_phase(torch, torch.bfloat16)
     lm_hd256_crosscheck_phase(torch, dispatch)
+    # 33. the same LM in fp32: the 3xTF32 forward, dq and dk/dv at D 256
+    d256_f32_counts = lm_hd256_train_phase(torch)
 
-    # 31. the kernels line, then the contract line
+    # 34. the kernels line, then the contract line
     launches = {k: dcounts[k] + pcounts[k] for k in dcounts}
     launches.update({k: tcounts[k] for k in TRAIN_KERNELS})
     for k in LM_PER_STEP:                # ln_fwd: serving and training
@@ -5316,6 +5388,8 @@ def main() -> int:
         launches[k] += tl_counts[k]
     for k in HD256_PER_STEP:             # the LM at 8 heads of 256
         launches[k] += d256_counts[k]
+    for k in HD256_F32_PER_STEP:         # and in fp32
+        launches[k] += d256_f32_counts[k]
     sources = {
         "decode_attention": (
             "apex_tpu_torch/ops/cuda/csrc/decode_attn.cu",
@@ -5522,10 +5596,15 @@ def main() -> int:
             # the bound at fp32 FMAs' rate; the simple form on the inputs
             entry["bound_fma_ms"] = r["bound_fma_ms"]
             entry["simple_ms"] = r["simple_ms"]
-        if name == "flash_f32_fwd":
+        if name in ("flash_f32_fwd", "flash_f32_dq", "flash_f32_dkv"):
             # at phase 30's [32, 1024, 256]
             entry["d256"] = {k: rows[(name, "d256_f32")].get(k)
                              for k in sub + ("bound_fma_ms", "simple_ms")}
+        if name in ("flash_f32_dq", "flash_f32_dkv"):
+            # at phase 33's [64, 4096, 256] (the pair kernels)
+            entry["hd256_lm"] = {
+                k: rows[(name, "hd256_lm_f32")].get(k)
+                for k in sub + ("bound_fma_ms", "simple_ms")}
         if name in ("flash_simt_fwd", "flash_simt_dq", "flash_simt_dkv"):
             # at the head dims it is kept for: tails_train's [32, 1024,
             # 256] in fp32 (dq and dk/dv), bf16 past 256; the bf16 D-256

@@ -11,18 +11,23 @@ against ``reference_attention`` on the first 8 heads (o under
 bit, then timed in turns, twice (``chip_smoke.Timer``: CUDA events, L2
 flushed); at D 64 its dq and dk/dv likewise, against ``flash_bwd_plain``.
 Then every variant's forward at edge cases (offsets, ragged tails, biases,
-dropout). One JSON line each; the card's name and power limit last.
-Run from the repository root on the card::
+dropout). ``d256bwd`` does the same for dq and dk/dv at D 256 (dS too, at
+the edge cases with a full bias), with the simple form's times on the same
+inputs. One JSON line each; the card's name and power limit last. Run
+from the repository root on the card::
 
     python3 flash_f32_ab.py tile     # the forward's staged keys a tile
     python3 flash_f32_ab.py exp      # the forward's exponentials, P's split
     python3 flash_f32_ab.py d256     # the forward's warps and keys at D 256
+    python3 flash_f32_ab.py d256bwd  # dq's and dk/dv's blocks at D 256
+    python3 flash_f32_ab.py d256ops  # their instruction choices at D 256
 """
 
 from __future__ import annotations
 
 import ctypes
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -68,6 +73,57 @@ _CASES_D256 = [(3, 1, 63, 256, True, 62, 0, None, False, 0.0),
                (4, 257, 257, 256, True, 0, 0, None, False, 0.1),
                (4, 129, 200, 256, True, 71, 0, "bh", True, 0.2)]
 
+
+
+def _pair(warps=8, tile=16, own_raw=True, tile_raw=True) -> list:
+    """The D-256 pair kernels' shape (dq and dk/dv alike) in place of the
+    committed one, whatever it is: warps a block, rows a staged tile,
+    whether the block's own rows and the tiles are kept raw (split as
+    read) or split once."""
+    return [(re.compile(rf"({name}\(\) {{\n  return )[^;]*;"),
+             rf"\g<1>{str(value).lower()};")
+            for name, value in (("p_warps", warps), ("p_tile", tile),
+                                ("p_own_raw", own_raw),
+                                ("p_tile_raw", tile_raw))]
+
+
+# the pair kernels' instruction choices: small rounded for the tensor
+# cores (half of TF32's unit added, its low bits left for them to drop)
+# in place of truncated; their exponentials by exp2f in place of the
+# committed ex2.approx.ftz; the second products eight n-tiles at a time in
+# place of four (dk/dv's two: p_group), or dk/dv's four or one; dk/dv's
+# P^T by the masked path alone, in place of the unmasked one taken inside
+# its loop where the tile is all visible
+_ROUND_SMALL = [("  small = __float_as_uint(__uint_as_float(x) - "
+                 "__uint_as_float(big));",
+                 "  small = __float_as_uint(__uint_as_float(x) - "
+                 "__uint_as_float(big)) + 0x1000u;")]
+_PAIR_EXP2F = [(f"{lhs}ex2({arg})", f"{lhs}exp2f({arg})") for lhs, arg in (
+    ("x[n][i] = ", "x[n][i] * sl2 - lse2[i >> 1]"),
+    ("x[n][i] = sc > kNegInf * 0.5f ? ", "sc - lse2[i >> 1]"),
+    ("x[n][i] = ", "x[n][i] * a.scale * kLog2e - lb[c] * kLog2e"),
+    ("x[n][i] = sc > kNegInf * 0.5f ? ", "sc - lb[c] * kLog2e"))]
+_G8 = [("  constexpr int G = G0 ? G0 : N < 8 ? N : N == 8 ? 8 : 4;",
+        "  constexpr int G = N < 8 ? N : 8;")]
+# dq's or dk/dv's first products one k-step a fresh accumulator, not two
+_DQ_CHAIN1, _DKV_CHAIN1 = ([(re.compile(r"(p_chain\(\) \{\n  return )[^;]*;"),
+                             rf"\g<1>{r};")] for r in ("KV ? 2 : 1",
+                                                        "KV ? 1 : 2"))
+_DKV_G4, _DKV_G1 = ([(re.compile(r"(p_group\(\) \{\n  return )[^;]*;"),
+                      rf"\g<1>KV ? {g} : 4;")] for g in (4, 1))
+_DKV_OPEN_PATH = """          const int c = 8 * n + 2 * t + (i & 1);
+          if (!EXTRA && all_visible(a, qb0, BQ, c0, 16)) {
+            x[n][i] = ex2(x[n][i] * a.scale * kLog2e - lb[c] * kLog2e);
+            continue;
+          }
+          const float sc = score2(a, bh, qb0 + c, c0 + g + 8 * (i >> 1),
+                                  x[n][i]);
+          x[n][i] = sc > kNegInf * 0.5f ? ex2(sc - lb[c] * kLog2e) : 0.f;"""
+_DKV_MASKED = [(_DKV_OPEN_PATH, """          const int c = 8 * n + 2 * t + (i & 1);
+          const float sc = score2(a, bh, qb0 + c, c0 + g + 8 * (i >> 1),
+                                  x[n][i]);
+          x[n][i] = sc > kNegInf * 0.5f ? ex2(sc - lb[c] * kLog2e) : 0.f;""")]
+
 SETS = {
     # the committed 64 keys a tile at D 64 and 32 at D 128, against 32 and
     # 16
@@ -96,6 +152,29 @@ SETS = {
                     "  return D <= 64 ? 8 : D <= 128 ? 4 : 5;\n}")]},
         shapes=[[32, 1024, 256], [16, 4096, 256]], backward=False,
         cases=_CASES_D256),
+    # dq's and dk/dv's blocks at D 256 (pairs of warps), the ones whose
+    # shared memory fits: 8 warps over 64 rows with raw 16-row tiles (the
+    # committed), with 8-row tiles split once; 6 warps with 16-row tiles
+    # split once; 4 warps, the block's rows split once, raw 16-row tiles;
+    # 4 warps, everything split once, 8-row tiles; 4 warps, raw rows and
+    # 32-row tiles
+    "d256bwd": dict(variants={
+        "w8_t16_raw": [],
+        "w8_t8": _pair(8, 8, True, False),
+        "w6_t16": _pair(6, 16, True, False),
+        "w4_t16_own": _pair(4, 16, False, True),
+        "w4_t8": _pair(4, 8, False, False),
+        "w4_t32_raw": _pair(4, 32, True, True)},
+        shapes=[[32, 1024, 256], [64, 4096, 256]], backward=True,
+        cases=_CASES_D256, mode="bwd256"),
+    # ex2 was measured as a variant against exp2f and committed (PERF.md)
+    "d256ops": dict(variants={
+        "ex2": [], "exp2f": _PAIR_EXP2F, "round_small": _ROUND_SMALL,
+        "g8": _G8, "dkv_g4": _DKV_G4, "dkv_g1": _DKV_G1,
+        "dkv_masked": _DKV_MASKED, "dq_chain1": _DQ_CHAIN1,
+        "dkv_chain1": _DKV_CHAIN1},
+        shapes=[[32, 1024, 256], [64, 4096, 256]], backward=True,
+        cases=_CASES_D256, mode="bwd256", seeds=range(100, 112)),
 }
 
 
@@ -105,9 +184,14 @@ def build(variants: dict, nvcc, arch, flags, ptxas_table) -> dict:
     for name, subs in variants.items():
         text = src
         for old, new in subs:
-            if old not in text:
-                raise SystemExit(f"variant {name}: {old!r} not in the source")
-            text = text.replace(old, new)
+            if isinstance(old, re.Pattern):
+                text, n = old.subn(new, text)
+            else:
+                n = text.count(old)
+                text = text.replace(old, new)
+            if n != 1:
+                raise SystemExit(f"variant {name}: {old!r} matches {n} "
+                                 f"times in the source")
         d = Path("_ab/v") / name
         d.mkdir(parents=True, exist_ok=True)
         (d / "flash_f32.cu").write_text(text)
@@ -123,10 +207,12 @@ def build(variants: dict, nvcc, arch, flags, ptxas_table) -> dict:
     for name, p in procs.items():
         _, err = p.communicate()
         print(json.dumps({"variant": name, "rc": p.returncode, "ptxas": {
-            n[-44:]: e for n, e in ptxas_table(err).items()
+            n[n.rindex("f32_"):][:40]: e for n, e in ptxas_table(err).items()
             if "f32_" in n}}), flush=True)
-        if p.returncode != 0:
-            raise SystemExit(err[-6000:])
+        if p.returncode != 0:             # reported, left out
+            print(json.dumps({"variant": name, "error": err[-6000:]}),
+                  flush=True)
+            continue
         so = ctypes.CDLL(str(Path("_ab/v") / name / "lib.so"))
         so.apex_flash_f32_fwd.argtypes = [I] + [P] * 5 + [L] * 6 + tail
         for fn in ("apex_flash_f32_dq", "apex_flash_f32_dkv"):
@@ -187,6 +273,10 @@ def main() -> int:
 
     timer = cs.Timer(torch)
     n = cs.FLASH_CHECK_HEADS
+    if cfg.get("mode") == "bwd256":
+        bwd256(torch, cs, kcuda, FA, libs, cfg, timer)
+        print(cs.nvidia_smi("name,power.limit"))
+        return 0
     for shape in cfg["shapes"]:
         bh, s, d = shape
         q, k, v, do = cs.form_inputs(torch, shape, torch.float32)
@@ -264,6 +354,132 @@ def main() -> int:
                   flush=True)
     print(cs.nvidia_smi("name,power.limit"))
     return 0
+
+
+def bwd256(torch, cs, kcuda, FA, libs, cfg, timer) -> None:
+    """dq and dk/dv of every variant at D 256: at each shape (causal,
+    ``form_inputs``; o and lse by the committed forward) against
+    ``flash_bwd_plain`` on the first heads under the fp32 flash rule and
+    repeated bit for bit, then timed in turns twice beside the simple
+    form's dq and dk/dv on the same inputs; then at the edge cases (with
+    their biases and dropout; dS with a full bias) against the plain
+    version; with ``seeds``, the worst share of the rule over those seeds'
+    inputs at the first shape (all heads)."""
+    n = cs.FLASH_CHECK_HEADS
+
+    def call(so, which, q, k, v, do, lse, delta, kw, ds=False):
+        d = q.shape[-1]
+        qp, kp, vp, dop = (FA._readable(FA._pad_d(t, 256))
+                           for t in (q, k, v, do))
+        args, _keep = FA._tail("ab", qp, kp, kw.get("kv_bias"),
+                               kw.get("bias"), kw.get("dropout_rate", 0.0),
+                               kw.get("dropout_seed", 0), kw["causal"],
+                               kw["scale"], kw.get("q_start", 0),
+                               kw.get("k_start", 0))
+        strides = FA._strides(qp, kp, vp, dop)
+        ptrs = [t.data_ptr() for t in (qp, kp, vp, dop, lse, delta)]
+        if which == "dq":
+            dq = torch.empty_like(qp)
+            dsm = torch.empty(q.shape[0], q.shape[1], k.shape[1],
+                              device="cuda") if ds else None
+            kcuda.check(so.apex_flash_f32_dq(
+                0, *ptrs, dq.data_ptr(), None if dsm is None else
+                dsm.data_ptr(), *strides, *args), "dq")
+            return (dq[..., :d],) + ((dsm,) if ds else ())
+        dk, dv = torch.empty_like(kp), torch.empty_like(vp)
+        kcuda.check(so.apex_flash_f32_dkv(0, *ptrs, dk.data_ptr(),
+                                          dv.data_ptr(), *strides, *args),
+                    "dkv")
+        return dk[..., :d], dv[..., :d]
+
+    def held(got, want):
+        return [cs.flash_err(torch, a, b, torch.float32)["used"]
+                for a, b in zip(got, want)]
+
+    for shape in cfg["shapes"]:
+        bh, s, d = shape
+        q, k, v, do = cs.form_inputs(torch, shape, torch.float32)
+        kw = dict(causal=True, scale=d ** -0.5)
+        o, lse = FA.flash_f32_fwd(q, k, v, **kw)
+        delta = FA.flash_delta(o, do)
+        del o
+        args = (q, k, v, do, lse, delta)
+        want = FA.flash_bwd_plain(*(t[:n] for t in args), **kw)
+        res = {name: {} for name in libs}
+        for name, so in libs.items():
+            got = call(so, "dq", *args, kw) + call(so, "dkv", *args, kw)
+            again = call(so, "dq", *args, kw) + call(so, "dkv", *args, kw)
+            torch.cuda.synchronize()
+            res[name].update(
+                tol_used=held([t[:n] for t in got], want),
+                repeat_equal=all(torch.equal(a, b)
+                                 for a, b in zip(got, again)))
+            del got, again
+        for order in (list(libs), list(libs)[::-1]):
+            for name in order:
+                for which in ("dq", "dkv"):
+                    res[name].setdefault(which + "_ms", []).append(
+                        timer(lambda: call(libs[name], which, *args, kw)))
+        slow = cs.Timer(torch, reps=5) if s > 1024 else timer
+        simple = {"dq_ms": slow(lambda: FA.flash_simt_dq(*args, **kw)),
+                  "dkv_ms": slow(lambda: FA.flash_simt_dkv(*args, **kw))}
+        for name, r in res.items():
+            print(json.dumps({"shape": shape, "variant": name, **r}),
+                  flush=True)
+        print(json.dumps({"shape": shape, "variant": "simple form",
+                          **simple}), flush=True)
+        del q, k, v, do, lse, delta, args, want
+    worst = {name: [0.0, 0.0, 0.0] for name in libs}
+    for seed in cfg.get("seeds", ()):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        q, k, v, do = (torch.randn(*cfg["shapes"][0], generator=g,
+                                   device="cuda") for _ in range(4))
+        kw = dict(causal=True, scale=q.shape[-1] ** -0.5)
+        o, lse = FA.flash_f32_fwd(q, k, v, **kw)
+        args = (q, k, v, do, lse, FA.flash_delta(o, do))
+        want = FA.flash_bwd_plain(*args, **kw)
+        for name, so in libs.items():
+            got = call(so, "dq", *args, kw) + call(so, "dkv", *args, kw)
+            worst[name] = [max(w, u) for w, u in zip(worst[name],
+                                                     held(got, want))]
+        del q, k, v, do, o, lse, args, want
+    if cfg.get("seeds"):
+        for name, w in worst.items():
+            print(json.dumps({"seeds": list(cfg["seeds"]), "variant": name,
+                              "shape": cfg["shapes"][0],
+                              "worst_tol_used": w}), flush=True)
+    for case in cfg["cases"]:
+        bh, sq, sk, d, causal, q_start, k_start, rows, kvb, rate = case
+        g = torch.Generator(device="cuda").manual_seed(sq * sk + d)
+        q, do = (torch.randn(bh, sq, d, generator=g, device="cuda")
+                 for _ in range(2))
+        k, v = (torch.randn(bh, sk, d, generator=g, device="cuda")
+                for _ in range(2))
+        kw = dict(causal=causal, scale=d ** -0.5, q_start=q_start,
+                  k_start=k_start, dropout_rate=rate, dropout_seed=-123)
+        if kvb:
+            kw["kv_bias"] = torch.where(
+                torch.rand(bh, sk, generator=g, device="cuda") < 0.25,
+                FA.NEG_INF, 0.0)
+        if rows is not None:
+            kw["bias"] = torch.randn(1 if rows == 1 else bh, sq, sk,
+                                     generator=g, device="cuda")
+            kw["bias"][..., ::7] = FA.NEG_INF
+        o, lse = FA.reference_attention(q, k, v, kw.get("bias"),
+                                        return_lse=True, **{
+                                            x: y for x, y in kw.items()
+                                            if x != "bias"})
+        delta = FA.flash_delta(o, do)
+        ds = "bias" in kw
+        want = FA.flash_bwd_plain(q, k, v, do, lse, delta, return_ds=ds,
+                                  **kw)
+        for name, so in libs.items():
+            got = call(so, "dq", q, k, v, do, lse, delta, kw, ds)
+            got = (got[0], *call(so, "dkv", q, k, v, do, lse, delta, kw),
+                   *got[1:])
+            torch.cuda.synchronize()
+            print(json.dumps({"case": case, "variant": name,
+                              "tol_used": held(got, want)}), flush=True)
 
 
 if __name__ == "__main__":

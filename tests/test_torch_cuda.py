@@ -1901,8 +1901,8 @@ def test_engine_at_head_dim_64_paged_equals_dense(card):
 def test_flash_in_fp16_and_fp32_at_any_head_dim(card, dtype, d):
     """fp16 at D <= 128 by the tensor-core kernels (D padded to 64 or 128),
     fp32 there by the 3xTF32 kernels, fp16 at D 256 by the D-256 forward,
-    dq and dk/dv, fp32 at D 256 by the 3xTF32 forward and the simple dq
-    and dk/dv, with a kv_bias and causal masking: each kernel
+    dq and dk/dv, fp32 at D 256 by the 3xTF32 forward, dq and dk/dv, with
+    a kv_bias and causal masking: each kernel
     against its plain version on the same inputs, and the public
     ``flash_attention`` (forward and backward) launching the forms the
     dtype and head dim choose, its outputs in the input dtype."""
@@ -1927,8 +1927,7 @@ def test_flash_in_fp16_and_fp32_at_any_head_dim(card, dtype, d):
     assert [f.launches - n for f, n in zip(fns, before)] == {
         ("tc", "tc"): [1, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0],
         ("f32", "f32"): [0, 0, 0, 0, 0, 0, 1, 1, 1, 0, 0, 0],
-        ("tc256", "tc256"): [0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1],
-        ("f32", "simt"): [0, 0, 0, 0, 1, 1, 1, 0, 0, 0, 0, 0]}[
+        ("tc256", "tc256"): [0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1]}[
             (FA.kernel_form(q, "fwd"), FA.kernel_form(q, "dkv"))]
     for t in (o, *grads):
         assert t.dtype == dtype and t.shape == (bh, s, d)
@@ -2190,11 +2189,11 @@ def test_f32_wrappers_refuse_what_the_kernels_do_not_take(card):
     q = torch.zeros(2, 16, 64, device=card)
     lse = torch.zeros(2, 16, device=card)
     kw = dict(causal=False, scale=0.125)
-    # the forward takes fp32 to D 256, dq and dk/dv to D 128
+    # the forward, dq and dk/dv take fp32 to D 256
     for t in (q.bfloat16(), torch.zeros(2, 16, 257, device=card)):
         with pytest.raises(ValueError, match="takes fp32 at a head dim"):
             FA.flash_f32_fwd(t, t, t, **kw)
-    for t in (q.bfloat16(), torch.zeros(2, 16, 129, device=card)):
+    for t in (q.bfloat16(), torch.zeros(2, 16, 257, device=card)):
         with pytest.raises(ValueError, match="takes fp32 at a head dim"):
             FA.flash_f32_dq(t, t, t, t, lse, lse, **kw)
         with pytest.raises(ValueError, match="takes fp32 at a head dim"):
@@ -2356,20 +2355,163 @@ def test_d256_kernels_at_more_than_65535_heads(card):
                          ids=["f32-256", "bf16-320"])
 def test_d256_leaves_fp32_and_wider_heads_to_the_simple_form(card, dtype,
                                                              d):
-    """fp32 at D 256 takes its forward in 3xTF32 and leaves dq and dk/dv to
-    the simple form; bf16 at D 320 goes to the simple form, forward and
-    backward; none of the D-256 kernels launches."""
+    """fp32 at D 256 takes its forward, dq and dk/dv in 3xTF32 (the pair
+    kernels); bf16 at D 320 goes to the simple form, forward and backward;
+    none of the 16-bit D-256 kernels launches."""
     from apex_tpu_torch.contrib.multihead_attn import flash_attention
     from apex_tpu_torch.ops import flash_attn as FA
     q, k, v, do = _d256_inputs(card, 2, 100, 100, d, dtype, d)
     fns = (FA.flash_simt_fwd, FA.flash_simt_dq, FA.flash_simt_dkv,
-           FA.flash_f32_fwd, FA.flash_d256_fwd, FA.flash_d256_dq,
-           FA.flash_d256_dkv, FA.flash_fwd, FA.flash_bwd_dq,
-           FA.flash_bwd_dkv)
+           FA.flash_f32_fwd, FA.flash_f32_dq, FA.flash_f32_dkv,
+           FA.flash_d256_fwd, FA.flash_d256_dq, FA.flash_d256_dkv,
+           FA.flash_fwd, FA.flash_bwd_dq, FA.flash_bwd_dkv)
     before = [f.launches for f in fns]
     qs, ks, vs = (t.clone().requires_grad_(True) for t in (q, k, v))
     o = flash_attention(qs, ks, vs, causal=True)
     torch.autograd.grad(o, (qs, ks, vs), do)
     f32 = dtype == torch.float32
     assert [f.launches - n for f, n in zip(fns, before)] == \
-        [0 if f32 else 1, 1, 1, 1 if f32 else 0, 0, 0, 0, 0, 0, 0]
+        ([0, 0, 0, 1, 1, 1] if f32 else [1, 1, 1, 0, 0, 0]) + [0] * 6
+
+
+# -- the fp32 dq and dk/dv at head dims 129-256 (3xTF32 pair kernels) ---------
+
+# (sq, sk, d, causal, q_start, k_start): blocks of 64 rows (queries for dq,
+# keys for dk/dv, 16 a pair of warps), staged tiles of 16, ragged tails,
+# Sq != Sk, causal offsets, rows that see no key, D 200 padded to 256
+F32_D256_EDGES = [(1, 1, 256, False, 0, 0), (1, 63, 200, True, 62, 0),
+                  (15, 17, 256, True, 0, 0), (16, 16, 200, False, 0, 0),
+                  (63, 64, 256, True, 0, 0), (64, 65, 200, False, 0, 0),
+                  (65, 127, 256, True, 64, 2), (127, 129, 200, True, 0, 0),
+                  (129, 33, 256, False, 0, 0), (200, 77, 256, True, 5, 130),
+                  (31, 97, 200, True, 70, 0), (300, 250, 256, True, -40, 0),
+                  (1023, 1000, 200, True, 23, 0),
+                  (1000, 1023, 256, False, 0, 0)]
+
+
+@pytest.mark.parametrize("sq,sk,d,causal,q_start,k_start", F32_D256_EDGES)
+def test_f32_d256_backward_kernels_at_the_tile_edges(card, sq, sk, d, causal,
+                                                     q_start, k_start):
+    """fp32 dq and dk/dv at D 200 and 256 by the 3xTF32 pair kernels
+    (``flash_bwd_dq``/``flash_bwd_dkv`` launching ``flash_f32_dq``/``_dkv``
+    once each, the simple form never) against ``flash_bwd_plain`` under
+    the fp32 flash rule, and a second run bit for bit."""
+    from apex_tpu_torch.ops import flash_attn as FA
+    kw = dict(causal=causal, scale=d ** -0.5, q_start=q_start,
+              k_start=k_start)
+    args = _f32_case(card, 3, sq, sk, d, sq + sk + d, **kw)
+    dq, dk, dv = _f32_backward_holds(FA, args, kw)
+    if causal and k_start > q_start:       # rows that see no key
+        assert not dq[:, :k_start - q_start].any()
+    if causal and k_start + sk > q_start + sq:   # keys no query sees
+        last = max(0, q_start + sq - k_start)
+        assert not dk[:, last:].any() and not dv[:, last:].any()
+
+
+# name -> (sq, sk, d, causal, q_start, kv_bias, bias rows, dropout rate)
+F32_D256_EXTRAS = {
+    "kv_bias": (197, 200, 256, False, 0, True, None, 0.0),
+    "bias_shared_ds": (197, 197, 200, False, 0, False, 1, 0.0),
+    "bias_bh_ds_causal": (130, 140, 256, True, 10, False, "bh", 0.0),
+    "dropout": (257, 257, 256, True, 0, False, None, 0.1),
+    "dropout_d200": (100, 130, 200, False, 0, False, None, 0.2),
+    "all": (129, 200, 256, True, 71, True, "bh", 0.2),
+    "all_d200": (70, 90, 200, True, 20, True, 1, 0.1),
+}
+
+
+@pytest.mark.parametrize("name", list(F32_D256_EXTRAS))
+def test_f32_d256_backward_kernels_with_biases_and_dropout(card, name):
+    """The pair kernels' EXTRA forms at D 256 and 200: a kv_bias with masked
+    keys, a full bias shared or per bh (dq's dS beside dq), dropout, all
+    at once; each held as the plain forms."""
+    from apex_tpu_torch.ops import flash_attn as FA
+    sq, sk, d, causal, q_start, kvb, rows, rate = F32_D256_EXTRAS[name]
+    g = torch.Generator(device=card).manual_seed(sq * sk + d)
+    bh = 4
+    kw = dict(causal=causal, scale=d ** -0.5, q_start=q_start,
+              dropout_rate=rate, dropout_seed=-123)
+    if kvb:
+        kw["kv_bias"] = torch.where(
+            torch.rand(bh, sk, generator=g, device=card) < 0.25,
+            torch.full((), -1e30, device=card),
+            torch.zeros((), device=card))
+    if rows is not None:
+        bias = torch.randn(1 if rows == 1 else bh, sq, sk, generator=g,
+                           device=card)
+        bias[..., ::7] = -1e30
+        kw["bias"] = bias
+    args = _f32_case(card, bh, sq, sk, d, sq - sk + d, **kw)
+    _f32_backward_holds(FA, args, kw, return_ds=rows is not None)
+
+
+def test_f32_d256_backward_kernels_read_strided_and_broadcast_views(card):
+    """At D 256: q and dO heads split from packed [BH, S, 2, D] buffers (a
+    row stride of 2·D), k and v broadcast over bh (stride 0), all read in
+    place: the same bits as from contiguous copies."""
+    from apex_tpu_torch.ops import flash_attn as FA
+    g = torch.Generator(device=card).manual_seed(10)
+    bh, s, d = 5, 150, 256
+    q, do = torch.randn(bh, s, 2, d, generator=g, device=card).unbind(2)
+    k, v = (torch.randn(1, s, d, generator=g, device=card).expand(bh, s, d)
+            for _ in range(2))
+    assert all(FA._readable(t) is t for t in (q, k, v, do))
+    kw = dict(causal=True, scale=d ** -0.5)
+    qc, kc, vc, doc = (t.contiguous() for t in (q, k, v, do))
+    o, lse = FA.reference_attention(qc, kc, vc, return_lse=True, **kw)
+    delta = FA.flash_delta(o, doc)
+    got = _f32_backward_holds(FA, (q, k, v, do, lse, delta), kw)
+    want = (FA.flash_bwd_dq(qc, kc, vc, doc, lse, delta, **kw),
+            *FA.flash_bwd_dkv(qc, kc, vc, doc, lse, delta, **kw))
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_f32_d256_backward_at_more_than_65535_heads(card):
+    """BH = 65536 + 7 at D 256, S 20: the heads around and past 65535 give
+    the same bits as a launch of their own and hold against the plain
+    version."""
+    from apex_tpu_torch.ops import flash_attn as FA
+    bh, s, d = 65536 + 7, 20, 256
+    kw = dict(causal=True, scale=d ** -0.5)
+    q, k, v, do, lse, delta = _f32_case(card, bh, s, s, d, 12, **kw)
+    dq = FA.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = FA.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    tail = slice(65536 - 9, bh)
+    got = _f32_backward_holds(FA, tuple(t[tail] for t in (q, k, v, do, lse,
+                                                          delta)), kw)
+    for a, b0 in zip((dq, dk, dv), got):
+        assert torch.equal(a[tail], b0)
+
+
+@pytest.mark.parametrize("d", [256, 200])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "f16"])
+def test_d256_shared_bias_gradient_in_bf16_and_fp16(card, dtype, d):
+    """A learned [1, Sq, Sk] bias at D 129-256 in bf16 and fp16, causal with
+    a kv_bias and dropout: ``flash_bwd_dbias`` (the simple form's dS
+    summed over bh, one launch) against ``flash_bwd_dbias_plain`` under
+    the dtype's flash rule, and two runs bit for bit."""
+    from apex_tpu_torch.ops import flash_attn as FA
+    g = torch.Generator(device=card).manual_seed(d + 5)
+    bh, sq, sk = 12, 197, 190
+    q, do = (torch.randn(bh, sq, d, generator=g, device=card).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(bh, sk, d, generator=g, device=card).to(dtype)
+            for _ in range(2))
+    bias = torch.randn(1, sq, sk, generator=g, device=card)
+    kvb = torch.zeros(bh, sk, device=card)
+    kvb[:, -5:] = -1e30
+    kw = dict(causal=True, scale=d ** -0.5, q_start=7, bias=bias,
+              kv_bias=kvb, dropout_rate=0.1, dropout_seed=21)
+    plain = {n: x for n, x in kw.items() if n != "bias"}
+    o, lse = FA.reference_attention(q, k, v, bias, return_lse=True, **plain)
+    delta = FA.flash_delta(o, do)
+    before = FA.flash_bwd_dbias.launches
+    got = FA.flash_bwd_dbias(q, k, v, do, lse, delta, **kw)
+    assert FA.flash_bwd_dbias.launches == before + 1
+    assert got.shape == (1, sq, sk) and got.dtype == torch.float32
+    want = FA.flash_bwd_dbias_plain(q, k, v, do, lse, delta, **kw)
+    _flash_rule(got, want, dtype)
+    assert torch.equal(FA.flash_bwd_dbias(q, k, v, do, lse, delta, **kw),
+                       got)

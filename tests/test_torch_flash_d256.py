@@ -2,9 +2,9 @@
 forward, dq and dk/dv run on the tensor cores at D 256
 (``flash_d256_fwd``, ``flash_d256_dq``, ``flash_d256_dkv``:
 ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` at D 256), while the
-shared-bias gradient stays on the simple form, and whose fp32 forward
-runs in 3xTF32 (``flash_f32_fwd``) with its dq and dk/dv on the simple
-form.
+shared-bias gradient stays on the simple form, and whose fp32 forward,
+dq and dk/dv run in 3xTF32 (``flash_f32_fwd``, ``flash_f32_dq``,
+``flash_f32_dkv``).
 
 Here, on the CPU:
 
@@ -110,14 +110,14 @@ _COUNTER = {
     (F16, 255, "tc256", "tc256", "tc256"),
     (BF16, 256, "tc256", "tc256", "tc256"),
     (F16, 256, "tc256", "tc256", "tc256"),
-    (F32, 129, "f32", "simt", "simt"), (F32, 256, "f32", "simt", "simt"),
+    (F32, 129, "f32", "f32", "f32"), (F32, 256, "f32", "f32", "f32"),
     (F32, 257, "simt", "simt", "simt"),
     (BF16, 257, "simt", "simt", "simt"), (F16, 512, "simt", "simt", "simt"),
     (BF16, 64, "tc", "tc", "tc"), (F16, 100, "tc", "tc", "tc"),
     (BF16, 128, "tc", "tc", "tc"), (F32, 128, "f32", "f32", "f32")])
 def test_each_kernel_takes_its_own_form(recorder, dtype, d, fwd, dq, dkv):
     """The forward, dq and dk/dv each take their own form (bf16/fp16 at D
-    129-256 all three at D 256; fp32 there the forward alone in 3xTF32).
+    129-256 all three at D 256; fp32 there all three in 3xTF32).
     Each wrapper reaches its form's C entry point once and counts one
     launch on that form's wrapper alone; the shared-bias gradient takes
     the tensor-core kernel only where every 16-bit kernel does (D <=
@@ -144,6 +144,36 @@ def test_each_kernel_takes_its_own_form(recorder, dtype, d, fwd, dq, dkv):
         want[_COUNTER[kernel][form]] += 1
     want["flash_bwd_dbias"] = 1
     assert counted == want
+
+
+@pytest.mark.parametrize("d", [129, 200, 256])
+def test_f32_backward_launches_get_inputs_padded_to_256(recorder, d):
+    """fp32 dq (with dS) and dk/dv at D 129-256 launch the 3xTF32 kernels
+    at D 256: q, k, v and dO zero-padded and read through their strides,
+    the real D's scale, the bias and dropout passed on, outputs sliced
+    back to D."""
+    q, k, v, do, lse, delta = _inputs(F32, d)
+    bh, sq, _ = q.shape
+    sk = k.shape[1]
+    kw = dict(causal=True, scale=d ** -0.5, q_start=3, k_start=1,
+              bias=torch.zeros(bh, sq, sk), dropout_rate=0.1,
+              dropout_seed=9)
+    dq, ds = FA.flash_bwd_dq(q, k, v, do, lse, delta, return_ds=True, **kw)
+    dk, dv = FA.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    assert dq.shape == (bh, sq, d) and ds.shape == (bh, sq, sk)
+    assert dk.shape == dv.shape == (bh, sk, d)
+    (dq_name, da), (dkv_name, ka) = recorder.calls
+    assert (dq_name, dkv_name) == ("apex_flash_f32_dq", "apex_flash_f32_dkv")
+    for args in (da, ka):
+        # dtype, q, k, v, dO, lse, delta, two outputs, 8 strides, _tail's 16
+        assert args[0] == 0 and len(args) == 9 + 8 + 16
+        assert list(args[9:17]) == [sq * 256, 256, sk * 256, 256,
+                                    sk * 256, 256, sq * 256, 256]
+        tail = args[17:]
+        assert tail[2] is not None and tail[3] == sq * sk   # per-bh bias
+        assert tail[6] == pytest.approx(1 / 0.9)
+        assert tail[7:15] == (bh, sq, sk, 256, 3, 1, 1, d ** -0.5)
+    assert da[8] is not None                                # dS asked
 
 
 @pytest.mark.parametrize("d", [129, 192, 256])
@@ -335,16 +365,17 @@ def test_auto_takes_d256_by_the_2gib_rule_alone(monkeypatch, dtype, d):
 
 @pytest.mark.parametrize("d", [129, 256])
 def test_auto_takes_fp32_past_128_by_the_2gib_rule_alone(monkeypatch, d):
-    """fp32 at D 129-256 (the forward in 3xTF32, dq and dk/dv the simple
-    form) gets no crossover length: only scores past 2 GiB, or a set
+    """fp32 at D 129-256 (the forward, dq and dk/dv in 3xTF32, whose
+    forward loses to the plain path from S 1024 without a causal mask on
+    the H100) gets no crossover length: only scores past 2 GiB, or a set
     ``flash_min_s``, take the kernels."""
     modules = importlib.import_module(
         "apex_tpu_torch.contrib.multihead_attn.modules")
     monkeypatch.setattr(modules, "_on_card", lambda t: True)
     mha = modules.SelfMultiheadAttn(512, 2, causal=True, impl="auto")
     long = torch.zeros(2, 4096, d)
-    assert FA.kernel_form(long, "fwd") == "f32"
-    assert FA.kernel_form(long, "dkv") == "simt"
+    assert [FA.kernel_form(long, kn) for kn in ("fwd", "dq", "dkv")] == \
+        ["f32"] * 3
     assert not mha._flash_wins(long, long)
     big = torch.zeros(8192, 128, d)                     # past 2 GiB
     assert mha._flash_wins(big, torch.zeros(8192, 4096, d))

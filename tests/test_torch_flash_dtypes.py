@@ -63,12 +63,12 @@ def test_padded_head_dim(d, dp):
     (torch.float16, 129, False, ("tc256", "tc256", "tc256")),
     (torch.bfloat16, 256, False, ("tc256", "tc256", "tc256")),
     (torch.float32, 64, False, ("f32", "f32", "f32")),
-    (torch.float32, 256, False, ("f32", "simt", "simt")),
+    (torch.float32, 256, False, ("f32", "f32", "f32")),
     (torch.bfloat16, 512, False, ("simt", "simt", "simt"))])
 def test_the_form_follows_dtype_and_head_dim(dtype, d, tc, forms):
     """``tensor_cores``: every 16-bit kernel on the tensor cores (D <= 128);
     past 128 the forward, dq and dk/dv take their D-256 form up to 256;
-    fp32 there its 3xTF32 forward and the simple dq and dk/dv."""
+    fp32 there its 3xTF32 forward, dq and dk/dv."""
     q = torch.zeros(2, 3, d, dtype=dtype)
     assert FA.tensor_cores(q) == tc
     assert tuple(FA.kernel_form(q, k) for k in ("fwd", "dq", "dkv")) == forms

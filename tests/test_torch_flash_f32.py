@@ -4,11 +4,12 @@
 
 What the kernels do is testable here without them:
 
-- the route: ``kernel_form`` sends fp32 at a head dim up to 128 to these
-  kernels, the forward and the backward alike, and the forward also at
-  129-256; bf16/fp16 there to the 16-bit tensor-core ones (to 256 by
-  their D-256 kernels) and fp32's dq and dk/dv past 128 to the simple
-  form; ``tensor_cores`` names the 16-bit kernels alone;
+- the route: ``kernel_form`` sends fp32 at a head dim up to 256 to these
+  kernels, the forward and the backward alike (``flash_fwd``,
+  ``flash_bwd_dq`` and ``flash_bwd_dkv`` reach them, the wrappers stubbed
+  and the card pretended); bf16/fp16 to the 16-bit tensor-core ones (to
+  256 by their D-256 kernels) and any dtype past 256 to the simple form;
+  ``tensor_cores`` names the 16-bit kernels alone;
 - the arithmetic: a plain model of the 3xTF32 products (each fp32 operand
   split into big = tf32(x) and small = tf32(x - big), rounded as
   ``cvt.rna`` does, to nearest with ties away; each product small·big +
@@ -23,7 +24,12 @@ What the kernels do is testable here without them:
   a fresh accumulator, every product in 3xTF32) holds against the JAX
   package's ``flash_attention`` forward, o under the same rule and lse
   within 1e-4, where one TF32 pass fails the rule; so does the model at
-  head dim 200, padded to 256, in the D-256 kernel's tiles of 16 keys;
+  head dim 200, padded to 256, in the D-256 kernel's tiles of 8 keys; and
+  a model of dq's and dk/dv's arithmetic at D 256 (keys, and queries, in
+  the pair kernels' tiles; the staged rows split as the warps read them,
+  big rounded and small truncated, P and dS rounded) at head dim 200
+  holds the JAX package's gradients under the rule, where one TF32 pass
+  fails it;
 - the fragment maps: a numpy model of ``mma.sync.m16n8k8`` with TF32
   operands (PTX's register layouts of A, B and the accumulator) gives QKᵀ
   from the K-major loads, and P·K from P's accumulator registers taken as
@@ -52,18 +58,17 @@ JFA = importlib.import_module(
 
 @pytest.mark.parametrize("dtype,d,form", [
     (torch.float32, 1, "f32"), (torch.float32, 64, "f32"),
-    (torch.float32, 128, "f32"), (torch.float32, 129, "simt"),
+    (torch.float32, 128, "f32"), (torch.float32, 129, "f32"),
+    (torch.float32, 256, "f32"), (torch.float32, 257, "simt"),
     (torch.float32, 512, "simt"), (torch.bfloat16, 128, "tc"),
     (torch.bfloat16, 129, "tc256")])
 def test_backward_form_follows_dtype_and_head_dim(dtype, d, form):
     """``form`` is dk/dv's and dq's (bf16/fp16 at D 129-256 both on the
-    tensor cores at D 256); the forward's is the same but for fp32 at D
-    129-256, which it takes in 3xTF32 at D 256."""
+    tensor cores at D 256, fp32 in 3xTF32 at D 256), and the forward's."""
     q = torch.zeros(2, 3, d, dtype=dtype)
     assert FA.kernel_form(q, "dkv") == form
     assert FA.kernel_form(q, "dq") == form
-    assert FA.kernel_form(q, "fwd") == (
-        "f32" if dtype == torch.float32 and d <= 256 else form)
+    assert FA.kernel_form(q, "fwd") == form
     # tensor_cores names the 16-bit kernels alone
     assert FA.tensor_cores(q) == (form == "tc")
 
@@ -87,6 +92,31 @@ def test_forward_sends_fp32_to_the_form_kernel_form_names(d, wrapper,
     q = torch.zeros(2, 3, d)
     FA.flash_fwd(q, q, q, causal=True)
     assert calls == [(wrapper, 1.0 / float(d) ** 0.5)]
+
+
+@pytest.mark.parametrize("d,form", [(1, "f32"), (64, "f32"), (128, "f32"),
+                                    (129, "f32"), (200, "f32"),
+                                    (256, "f32"), (257, "simt"),
+                                    (512, "simt")])
+def test_backward_sends_fp32_to_the_form_kernel_form_names(d, form,
+                                                           monkeypatch):
+    """``flash_bwd_dq`` and ``flash_bwd_dkv`` on the card: fp32 at D <= 256
+    to ``flash_f32_dq`` and ``flash_f32_dkv`` (at D 129-256 the pair
+    kernels), past 256 to the simple form (the wrappers stubbed, the card
+    pretended), every argument passed on."""
+    calls = []
+    for name in ("flash_f32_dq", "flash_f32_dkv", "flash_simt_dq",
+                 "flash_simt_dkv"):
+        monkeypatch.setattr(FA, name, lambda *a, _n=name, **kw: calls.append(
+            (_n, len(a), kw["scale"], kw["dropout_rate"])))
+    monkeypatch.setattr(FA.dispatch, "use_kernel", lambda t: True)
+    q = torch.zeros(2, 3, d)
+    lse = torch.zeros(2, 3)
+    kw = dict(causal=True, scale=0.25, dropout_rate=0.1, dropout_seed=5)
+    FA.flash_bwd_dq(q, q, q, q, lse, lse, **kw)
+    FA.flash_bwd_dkv(q, q, q, q, lse, lse, **kw)
+    assert calls == [(f"flash_{form}_dq", 6, 0.25, 0.1),
+                     (f"flash_{form}_dkv", 6, 0.25, 0.1)]
 
 
 def test_f32_fwd_runs_the_plain_version_on_the_cpu_and_refuses():
@@ -139,10 +169,15 @@ def test_f32_wrappers_run_the_plain_versions_on_the_cpu_and_refuse():
     assert [f.launches for f in fns] == before
     with pytest.raises(ValueError, match="return_ds needs the bias"):
         FA.flash_f32_dq(q, k, v, do, lse, delta, return_ds=True, **kw)
-    # what the fp32 kernels do not take, refused before any launch
-    for t in (q.bfloat16(), torch.zeros(2, 33, 129)):
+    # what the fp32 kernels do not take, refused before any launch; D
+    # 129-256 padded to 256
+    for t in (q.bfloat16(), torch.zeros(2, 33, 257)):
         with pytest.raises(ValueError, match="takes fp32 at a head dim"):
             FA._bwd_args("flash_f32_dq", t, t, t, t, lse, delta, "f32")
+    wide = torch.zeros(2, 33, 129)
+    got = FA._bwd_args("flash_f32_dq", wide, wide, wide, wide, lse, delta,
+                       "f32")
+    assert all(t.shape == (2, 33, 256) for t in got[:4])
 
 
 # -- the arithmetic: 3xTF32 against one TF32 pass ---------------------------
@@ -341,6 +376,170 @@ def test_forward_model_at_d256_against_jax_under_the_fp32_rule(
         assert used <= 1.0 and lse_err <= 1e-4, (used, lse_err)
     else:
         assert used > 4.0, used
+
+
+# the D-256 dq's and dk/dv's staged rows a tile (flash_f32.cu's
+# p_tile<false>, p_tile<true>), and whether the block's own rows and the
+# staged tiles are split as the warps read them (p_own_raw, p_tile_raw)
+D256_BWD_KEYS, D256_BWD_QUERIES = 16, 16
+D256_BWD_OWN_RAW, D256_BWD_TILE_RAW = True, True
+
+
+def tf32_trunc(x: torch.Tensor) -> torch.Tensor:
+    """fp32 as the tensor cores read a TF32 operand whose low 13 bits were
+    left in place: those bits cleared (toward zero)."""
+    bits = x.contiguous().view(torch.int32)
+    return (bits & -0x2000).view(torch.float32)
+
+
+def _split(x: torch.Tensor, raw: bool):
+    """(big, small) of the 3xTF32 products: big = tf32(x) either way (the
+    integer rounding of ``split_raw`` is ``cvt.rna``'s); small rounded by
+    ``cvt.rna`` where a value is split once, truncated where it is split
+    as read (``split_raw`` leaves its low bits to the tensor cores)."""
+    big = tf32(x)
+    return big, (tf32_trunc if raw else tf32)(x - big)
+
+
+def _mm3(a, b, a_raw: bool, b_raw: bool, passes: int):
+    """a @ b through the tensor cores' TF32: small·big + big·small +
+    big·big (each operand split as ``_split``), or one pass."""
+    if passes == 1:
+        return torch.matmul(tf32(a), tf32(b))
+    ab, as_ = _split(a, a_raw)
+    bb, bs = _split(b.contiguous(), b_raw)
+    return (torch.matmul(as_, bb) + torch.matmul(ab, bs)
+            + torch.matmul(ab, bb))
+
+
+def _chunked(a, b, a_raw, b_raw, passes):
+    """a @ bᵀ over D in pairs of k-steps (16 columns), each from a fresh
+    accumulator, added in fp32 (``product_t``)."""
+    return sum(_mm3(a[..., c:c + 16], b[..., c:c + 16].transpose(-1, -2),
+                    a_raw, b_raw, passes)
+               for c in range(0, a.shape[-1], 16))
+
+
+def _bwd_model_d256(q, k, v, do, lse, delta, kv_bias, *, causal, scale,
+                    dropout_rate, dropout_seed, passes):
+    """``f32_dq_pair_kernel``'s and ``f32_dkv_pair_kernel``'s arithmetic
+    in plain PyTorch: dq over key tiles of ``D256_BWD_KEYS`` (S = Q Kᵀ and
+    dP = dO Vᵀ by ``_chunked``; P from the scores in log2 units with the
+    kv_bias, 0 where masked; dP dropped and rescaled; dS = P (dP − δ); each
+    tile's dS K from a fresh accumulator, added in fp32), dk and dv over
+    query tiles of ``D256_BWD_QUERIES`` (Sᵀ = K Qᵀ, dPᵀ = V dOᵀ; Pᵀ dropped
+    for dv += Pᵀ dO, dSᵀ = Pᵀ (dPᵀ' − δ) for dk += dSᵀ Q); the staged rows
+    split as ``D256_BWD_OWN_RAW`` and ``D256_BWD_TILE_RAW`` say, P and dS
+    rounded."""
+    bh, sq, d = q.shape
+    sk = k.shape[1]
+    log2e = 1.0 / math.log(2.0)
+    own, tile = D256_BWD_OWN_RAW, D256_BWD_TILE_RAW
+    lse2 = lse * log2e
+
+    def probs(s, qi, kj):
+        """P (undropped) and the keep-mask of the scores s [bh, len(qi),
+        len(kj)]."""
+        s = s * (scale * log2e) + kv_bias[:, None, kj] * log2e
+        vis = (qi[:, None] < sq) & (kj[None, :] < sk)
+        if causal:
+            vis = vis & (qi[:, None] >= kj[None, :])
+        s = torch.where(vis, s, torch.tensor(FA.NEG_INF))
+        p = torch.where(s > FA.NEG_INF * 0.5,
+                        torch.exp2(s - lse2[:, qi, None]), torch.zeros(()))
+        keep = FA._keep(torch.arange(bh)[:, None, None], qi[None, :, None],
+                        kj[None, None, :], dropout_rate, dropout_seed) \
+            if dropout_rate > 0.0 else None
+        return p, keep
+
+    def dropped(x, keep):
+        if keep is None:
+            return x
+        return torch.where(keep, x / (1.0 - dropout_rate), torch.zeros(()))
+
+    qi_all = torch.arange(sq)
+    dq = torch.zeros(bh, sq, d)
+    for k0 in range(0, sk, D256_BWD_KEYS):
+        kj = torch.arange(k0, min(k0 + D256_BWD_KEYS, sk))
+        p, keep = probs(_chunked(q, k[:, kj], own, tile, passes), qi_all,
+                        kj)
+        dp = dropped(_chunked(do, v[:, kj], own, tile, passes), keep)
+        ds = p * (dp - delta[..., None])
+        dq = dq + _mm3(ds, k[:, kj], False, tile, passes)
+    dk, dv = torch.zeros(bh, sk, d), torch.zeros(bh, sk, d)
+    kj_all = torch.arange(sk)
+    for q0 in range(0, sq, D256_BWD_QUERIES):
+        qi = torch.arange(q0, min(q0 + D256_BWD_QUERIES, sq))
+        p, keep = probs(_chunked(k, q[:, qi], own, tile,
+                                 passes).transpose(1, 2), qi, kj_all)
+        dp = dropped(_chunked(v, do[:, qi], own, tile,
+                              passes).transpose(1, 2), keep)
+        ds = p * (dp - delta[:, qi, None])
+        dv = dv + _mm3(dropped(p, keep).transpose(1, 2), do[:, qi], False,
+                       tile, passes)
+        dk = dk + _mm3(ds.transpose(1, 2), q[:, qi], False, tile, passes)
+    return dq * scale, dk * scale, dv
+
+
+@pytest.fixture(scope="module")
+def jax_case_d256_bwd():
+    """[2, 112, 200] causal with a kv_bias (a quarter of the keys masked)
+    and dropout 0.1 at a head dim the fp32 kernels pad to 256: the inputs,
+    the JAX package's dq, dk, dv."""
+    rs = np.random.RandomState(14)
+    bh, s, d = 2, 112, 200
+    q, k, v, do = (rs.randn(bh, s, d).astype(np.float32) for _ in range(4))
+    kvb = np.where(rs.rand(bh, s) < 0.25, -1.0e30, 0.0).astype(np.float32)
+    kw = dict(causal=True, scale=d ** -0.5, dropout_rate=0.1,
+              dropout_seed=79)
+
+    def fn(q_, k_, v_):
+        return JFA.flash_attention(q_, k_, v_, kv_bias=jnp.asarray(kvb),
+                                   **kw)
+
+    _, vjp = jax.vjp(fn, *(jnp.asarray(a) for a in (q, k, v)))
+    grads = vjp(jnp.asarray(do))
+    return (q, k, v, do, kvb, kw, [np.array(t, np.float32) for t in grads])
+
+
+@pytest.mark.parametrize("passes", [3, 1], ids=["3xtf32", "tf32"])
+def test_backward_model_at_d256_against_jax_under_the_fp32_rule(
+        jax_case_d256_bwd, passes):
+    """dq's and dk/dv's arithmetic at head dim 200 as the pair kernels run
+    it: padded to 256, the real D's scale, in their tiles, sliced back:
+    3xTF32 with the staged rows split as read holds JAX's dq, dk and dv
+    under the fp32 rule; one TF32 pass fails it."""
+    q, k, v, do, kvb, kw, want = jax_case_d256_bwd
+    d = q.shape[-1]
+    q, k, v, do, kvb = (torch.from_numpy(a) for a in (q, k, v, do, kvb))
+    o, lse = FA.reference_attention(q, k, v, kv_bias=kvb, return_lse=True,
+                                    **kw)
+    delta = FA.flash_delta(o, do)
+    padded = [FA._pad_d(t, FA.padded_head_dim(d)) for t in (q, k, v, do)]
+    assert padded[0].shape[-1] == 256
+    got = _bwd_model_d256(*padded, lse, delta, kvb, passes=passes, **kw)
+    assert not any(t[..., d:].any() for t in got)
+    used = [_rule_used(FA._unpad(g, d), torch.from_numpy(w))
+            for g, w in zip(got, want)]
+    if passes == 3:
+        assert max(used) <= 1.0, used
+    else:
+        assert min(used) > 4.0, used
+
+
+def test_split_as_read_truncates_small_within_2_to_the_minus_21():
+    """``split_raw``'s small keeps its low 13 bits for the tensor cores to
+    drop: big is cvt.rna's, and x − big − tf32_trunc(x − big) is under
+    2^-21 of |x| (x − big has at most 13 significant bits, TF32 keeps 11),
+    on some elements other than cvt.rna's small."""
+    x = torch.from_numpy(np.random.RandomState(3).randn(4096)
+                         .astype(np.float32))
+    big, small = _split(x, raw=True)
+    assert torch.equal(big, tf32(x))
+    assert bool(((small.view(torch.int32) & 0x1FFF) == 0).all())
+    rest = (x - big) - small
+    assert bool((rest.abs() <= 2.0 ** -21 * x.abs()).all())
+    assert not torch.equal(small, _split(x, raw=False)[1])
 
 
 # -- the fragment maps of mma.sync.m16n8k8 with TF32 operands ----------------
