@@ -169,10 +169,13 @@ def _declare(so: ctypes.CDLL) -> None:
     # the forward, dq and dk/dv: the dtype, the tensor maps of q, k, v
     # (and dO), 8 long longs each, and the grid's row blocks in place of
     # the strides
-    so.apex_flash_fwd.argtypes = [I] + [P] * 5 + [P, I] + tail
-    so.apex_flash_fwd.restype = I
-    so.apex_flash_bwd_dq.argtypes = [I] + [P] * 8 + [P, I] + tail
-    so.apex_flash_bwd_dq.restype = I
+    # (the forward and dq at D 384 and 512 take the same)
+    for name in ("apex_flash_fwd", "apex_flash_d512_fwd"):
+        getattr(so, name).argtypes = [I] + [P] * 5 + [P, I] + tail
+        getattr(so, name).restype = I
+    for name in ("apex_flash_bwd_dq", "apex_flash_d512_dq"):
+        getattr(so, name).argtypes = [I] + [P] * 8 + [P, I] + tail
+        getattr(so, name).restype = I
     so.apex_flash_bwd_dkv.argtypes = [I] + [P] * 8 + [P, I] + tail
     so.apex_flash_bwd_dkv.restype = I
     so.apex_flash_bwd_dbias.argtypes = [I] + [P] * 8 + [I] + [L] * 8 + tail

@@ -123,75 +123,6 @@ struct DkvSmem {
   uint64_t full[kStages], empty[kStages], kv;
 };
 
-// The recompute of one (query qi, key kj) as _recompute_p_ds (:309-346)
-// does it, for a tile whose form is known: MASK, whether the tile crosses
-// the causal diagonal or a ragged edge (else every element is visible);
-// BIAS and DROP, whether a full bias and dropout may be given (each then
-// checked at run time); EXTRA, any of those or a kv_bias (the value
-// guard). s is q·k, kvb2 the key's kv_bias in log2 units, lse2 the row's
-// lse in log2 units. Returns p dropped and rescaled (dv's factor) and sets
-// ds = p (dP' - delta) with the undropped p.
-template <bool EXTRA, bool MASK, bool BIAS, bool DROP>
-__device__ __forceinline__ float recompute(const Attn& a, int bh, int qi,
-                                          int kj, float s, float sl2,
-                                          float kvb2, float dp, float lse2,
-                                          float dlt, float& ds) {
-  float sc = fmaf(s, sl2, kvb2);
-  bool live = !MASK || visible(a, qi, kj);
-  if (BIAS && live) sc += bias_at(a, bh, qi, kj);
-  if (EXTRA) live = live && sc > kNegInf * 0.5f;
-  const float p = live ? ex2(sc - lse2) : 0.f;
-  float pd = p;
-  if (DROP && a.drop_inv > 0.f) {
-    const bool kept = keep(a, bh, qi, kj);
-    pd = kept ? p * a.drop_inv : 0.f;
-    dp = kept ? dp * a.drop_inv : 0.f;
-  }
-  ds = p * (dp - dlt);
-  return pd;
-}
-
-// calls f(MASK, BIAS, DROP) as compile-time constants for a tile:
-// `masked` from the tile's position, BIAS and DROP from the inputs of an
-// EXTRA form (all warp-uniform), so each loop carries only what it needs.
-// The EXTRA forms at D = 128 take one loop for both inputs (BIAS and DROP
-// checked at run time): eight loops beside dk and dv's 128 fp32 registers
-// a thread spill. dq at D = 256, beside its own 128, does the same.
-template <int D, bool EXTRA, typename F>
-__device__ __forceinline__ void with_tile_form(bool masked, const Attn& a,
-                                               F&& f) {
-  using T = std::true_type;
-  using N = std::false_type;
-  if (!EXTRA) {
-    if (masked) f(T{}, N{}, N{});
-    else f(N{}, N{}, N{});
-    return;
-  }
-  if (D >= 128) {
-    if (masked) f(T{}, T{}, T{});
-    else f(N{}, T{}, T{});
-    return;
-  }
-  const bool bias = a.bias != nullptr, drop = a.drop_inv > 0.f;
-  if (masked) {
-    if (bias) {
-      if (drop) f(T{}, T{}, T{});
-      else f(T{}, T{}, N{});
-    } else {
-      if (drop) f(T{}, N{}, T{});
-      else f(T{}, N{}, N{});
-    }
-  } else {
-    if (bias) {
-      if (drop) f(N{}, T{}, T{});
-      else f(N{}, T{}, N{});
-    } else {
-      if (drop) f(N{}, N{}, T{});
-      else f(N{}, N{}, N{});
-    }
-  }
-}
-
 // queries of a staged tile dk/dv takes in one round (see its loop)
 template <int D>
 constexpr int kRound = D == 64 ? kBox : kBox / 2;

@@ -71,6 +71,22 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   }
 }
 
+// what pack2's rounding of (lo, hi) to `big` left, rounded to E alike:
+// big + the result holds each value to about twice E's bits (the D-384/512
+// forward's P, csrc/flash_d512.cu)
+template <typename E>
+__device__ __forceinline__ uint32_t pack2_rest(float lo, float hi,
+                                               uint32_t big) {
+  if constexpr (std::is_same<E, __half>::value) {
+    const float2 r = __half22float2(*reinterpret_cast<const __half2*>(&big));
+    return pack2<E>(lo - r.x, hi - r.y);
+  } else {
+    const float2 r =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&big));
+    return pack2<E>(lo - r.x, hi - r.y);
+  }
+}
+
 // the full bias of (query qi, key kj), both local and in range, in log2
 // units; 0 without one
 __device__ __forceinline__ float bias_at(const Attn& a, int bh, int qi,

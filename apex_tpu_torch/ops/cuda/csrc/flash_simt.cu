@@ -1,13 +1,14 @@
 // Flash attention over [BH, S, D] by fp32 FMAs on the CUDA cores: the
 // forward, dq (with the per-bh bias gradient dS) and dk/dv, for what the
-// tensor-core kernels (csrc/flash_fwd.cu, csrc/flash_bwd.cu and, in fp32,
-// csrc/flash_f32.cu) do not take: a head dim past 128, up to 512, in fp32,
-// bf16 or fp16 (bf16 and fp16 only past 256, the forward, dq and dk/dv
-// taking D 129-256 on the tensor cores at D 256, and the shared-bias
-// gradient at any D past 128; fp32's forward only past 256, its dq and
-// dk/dv past 128), and fp32's shared-bias gradient at any head dim. (At
-// D <= 128 the tensor-core kernels pad D to 64 or 128.) The semantics
-// they keep
+// tensor-core kernels (csrc/flash_fwd.cu, csrc/flash_bwd.cu,
+// csrc/flash_d512.cu and, in fp32, csrc/flash_f32.cu) do not take: a head
+// dim past 128, up to 512, in fp32, bf16 or fp16 (bf16 and fp16: dk/dv
+// past 256, the forward, dq and dk/dv taking D 129-256 on the tensor cores
+// at D 256 and the forward and dq D 257-512 at D 384 and 512, and the
+// shared-bias gradient at any D past 128; fp32: the forward, dq and dk/dv
+// past 256), and fp32's shared-bias gradient at any head dim. (At D <=
+// 128 the tensor-core kernels pad D to 64 or 128.) The semantics they
+// keep
 // from the Pallas kernels are csrc/flash_common.cuh's: causal masking by
 // absolute positions, the per-key kv_bias and the full bias, dropout by the
 // JAX package's coordinate hash, the finite kNegInf, the value guard.

@@ -1,9 +1,11 @@
 // What the Hopper flash kernels (csrc/flash_fwd.cu: the forward;
-// csrc/flash_bwd.cu: dq and dk/dv) share, built on the PTX of
+// csrc/flash_bwd.cu: dq and dk/dv; csrc/flash_d512.cu: the forward and
+// dq at D 384 and 512) share, built on the PTX of
 // csrc/hopper.cuh: the block's shape (two consumer warpgroups of 64 rows and
 // a producer warpgroup whose one warp issues the copies), operand tiles as
 // TMA writes them, the copy ring's barriers, the products on those tiles,
-// the turns the consumer warpgroups take, and the host's tensor maps.
+// the turns the consumer warpgroups take, the online softmax of a tile and
+// the backward's recompute, and the host's tensor maps.
 #pragma once
 
 #include <type_traits>
@@ -214,6 +216,217 @@ __device__ __forceinline__ int key_tiles(const Attn& a, int r0, int n) {
     t = min(t, lim / BN + 1);
   }
   return t;
+}
+
+// ---- the softmax and the backward's recompute (the forward's kernels:
+// csrc/flash_fwd.cu, csrc/flash_d512.cu; dq and dk/dv: csrc/flash_bwd.cu,
+// csrc/flash_d512.cu) --------------------------------------------------
+
+// the kernel's kind: no bias or dropout; a kv_bias and/or dropout; a full
+// bias (and maybe the others)
+enum Kind : int { kPlainKind = 0, kExtraKind = 1, kBiasKind = 2 };
+
+// the full bias of the block's rows [q0, q0 + ROWS) at keys [k0, k0 +
+// BN) into L2, by the producer warp as it loads the tile (a row's BN
+// floats touch at most three 128-byte lines)
+template <int BN, int ROWS = kRows>
+__device__ __forceinline__ void prefetch_bias(const Attn& a, int bh, int q0,
+                                              int k0, int lane) {
+  const int k1 = min(k0 + BN, a.sk) - 1;
+  if (k1 < k0) return;
+  for (int r = lane; r < ROWS && q0 + r < a.sq; r += 32) {
+    const float* p = a.bias + bh * a.bias_bh + (long long)(q0 + r) * a.sk;
+    prefetch_l2(p + k0);
+    prefetch_l2(p + min(k0 + 32, k1));
+    prefetch_l2(p + k1);
+  }
+}
+
+// calls f(MASK, BIAS, DROP) as compile-time constants for a tile of a
+// kernel of kind KIND: `masked` from the tile's position, DROP from the
+// inputs (warp-uniform), BIAS from the kind. At D >= 128 dropout is checked at
+// run time in one loop (registers).
+template <int D, int KIND, typename F>
+__device__ __forceinline__ void fwd_tile_form(bool masked, const Attn& a,
+                                              F&& f) {
+  using T = std::true_type;
+  using N = std::false_type;
+  using B = std::integral_constant<bool, KIND == kBiasKind>;
+  if constexpr (KIND == kPlainKind) {
+    if (masked) f(T{}, N{}, N{});
+    else f(N{}, N{}, N{});
+  } else if (D >= 128 || a.drop_inv > 0.f) {
+    if (masked) f(T{}, B{}, T{});
+    else f(N{}, B{}, T{});
+  } else {
+    if (masked) f(T{}, B{}, N{});
+    else f(N{}, B{}, N{});
+  }
+}
+
+// The online softmax (_fwd_kernel, :196-231) of one staged tile of BN keys
+// from k0 for this thread's rows g and g + 8 of its warp's 16 from qw, in
+// a tile whose form is known (MASK, BIAS, DROP as fwd_tile_form gives
+// them; EXTRA, any bias or dropout: the value guard). sc holds q·k in the
+// accumulator layout of hopper.cuh, kvb the tile's kv_bias and bv its full
+// bias (load_bias) in log2 units, or, with NB = 1, no registers: the bias
+// read a score at a time (bias_at); m holds the rows' running max in log2
+// units and l this thread's share of their sums. Sets alpha, the factors
+// by which the output's rows shrink, and packs P into its 16-bit E
+// fragments (and, given plo, what their rounding left into plo's):
+// l takes the undropped p, the fragments the kept p times 1 / (1 - rate).
+template <typename E, int BN, bool EXTRA, bool MASK, bool BIAS, bool DROP,
+          int NB>
+__device__ __forceinline__ void softmax_tile(
+    const Attn& a, int bh, int qw, int k0, float (&sc)[BN / 2],
+    const float* kvb, const float (&bv)[NB], float (&m)[2], float (&l)[2],
+    float (&alpha)[2], uint32_t (&pf)[BN / 16][4],
+    uint32_t (*plo)[4] = nullptr) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const float sl2 = a.scale * kLog2e;
+  // no mask, bias or dropout, and a positive scale: the raw scores'
+  // max scaled once, p = exp2(s · sl2 − m) by one fused multiply-add
+  constexpr bool kPlain = !EXTRA && !MASK;
+  if constexpr (!kPlain) {
+    // scores in log2 units with the biases; kNegInf where masked
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) {
+      const int qi = qw + g + 8 * ((i >> 1) & 1);
+      const int kl = (i >> 2) * 8 + 2 * t4 + (i & 1);
+      const bool vis = !MASK || visible(a, qi, k0 + kl);
+      float v = EXTRA ? fmaf(sc[i], sl2, kvb[kl]) : sc[i] * sl2;
+      if constexpr (BIAS && NB > 1) {
+        v += vis ? bv[i] : 0.f;
+      } else if constexpr (BIAS) {
+        v += vis ? bias_at(a, bh, qi, k0 + kl) : 0.f;
+      }
+      sc[i] = vis ? v : kNegInf;
+    }
+  }
+  // each row's max and sum as four and two partial chains, not one
+  float mq[2][4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    mq[0][c] = sc[(c & 1) + 8 * (c >> 1)];
+    mq[1][c] = sc[2 + (c & 1) + 8 * (c >> 1)];
+  }
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) {
+    const int c = (i & 1) + 2 * ((i >> 2) & 1);
+    mq[(i >> 1) & 1][c] = fmaxf(mq[(i >> 1) & 1][c], sc[i]);
+  }
+  float mx[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(fmaxf(mq[h][0], mq[h][1]), fmaxf(mq[h][2], mq[h][3]));
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    const float mn = fmaxf(m[h], kPlain ? mx[h] * sl2 : mx[h]);
+    alpha[h] = ex2(m[h] - mn);    // 1 while the row has seen nothing
+    m[h] = mn;
+    l[h] *= alpha[h];
+  }
+  float lq[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+  for (int ks = 0; ks < BN / 16; ++ks) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int h = j & 1;          // element 8 ks + 2 j (+ 1)'s row
+      float p[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int i = 8 * ks + 2 * j + e;
+        if constexpr (kPlain) {
+          p[e] = ex2(fmaf(sc[i], sl2, -m[h]));
+        } else {
+          // a row with nothing unmasked yet keeps p = 0
+          p[e] = sc[i] > kNegInf * 0.5f ? ex2(sc[i] - m[h]) : 0.f;
+        }
+        lq[h][e] += p[e];
+        if (DROP && a.drop_inv > 0.f) {
+          const int kj = k0 + (i >> 2) * 8 + 2 * t4 + (i & 1);
+          p[e] = keep(a, bh, qw + g + 8 * h, kj) ? p[e] * a.drop_inv : 0.f;
+        }
+      }
+      pf[ks][j] = pack2<E>(p[0], p[1]);
+      if (plo != nullptr) plo[ks][j] = pack2_rest<E>(p[0], p[1], pf[ks][j]);
+    }
+  }
+  l[0] += lq[0][0] + lq[0][1];
+  l[1] += lq[1][0] + lq[1][1];
+}
+
+// The recompute of one (query qi, key kj) as _recompute_p_ds (:309-346)
+// does it, for a tile whose form is known: MASK, whether the tile crosses
+// the causal diagonal or a ragged edge (else every element is visible);
+// BIAS and DROP, whether a full bias and dropout may be given (each then
+// checked at run time); EXTRA, any of those or a kv_bias (the value
+// guard). s is q·k, kvb2 the key's kv_bias in log2 units, lse2 the row's
+// lse in log2 units. Returns p dropped and rescaled (dv's factor) and sets
+// ds = p (dP' - delta) with the undropped p.
+template <bool EXTRA, bool MASK, bool BIAS, bool DROP>
+__device__ __forceinline__ float recompute(const Attn& a, int bh, int qi,
+                                          int kj, float s, float sl2,
+                                          float kvb2, float dp, float lse2,
+                                          float dlt, float& ds) {
+  float sc = fmaf(s, sl2, kvb2);
+  bool live = !MASK || visible(a, qi, kj);
+  if (BIAS && live) sc += bias_at(a, bh, qi, kj);
+  if (EXTRA) live = live && sc > kNegInf * 0.5f;
+  const float p = live ? ex2(sc - lse2) : 0.f;
+  float pd = p;
+  if (DROP && a.drop_inv > 0.f) {
+    const bool kept = keep(a, bh, qi, kj);
+    pd = kept ? p * a.drop_inv : 0.f;
+    dp = kept ? dp * a.drop_inv : 0.f;
+  }
+  ds = p * (dp - dlt);
+  return pd;
+}
+
+// calls f(MASK, BIAS, DROP) as compile-time constants for a tile:
+// `masked` from the tile's position, BIAS and DROP from the inputs of an
+// EXTRA form (all warp-uniform), so each loop carries only what it needs.
+// The EXTRA forms at D >= 128 take one loop for both inputs (BIAS and
+// DROP checked at run time): eight loops beside dk and dv's 128 fp32
+// registers a thread spill. dq at D = 256, beside its own 128, does the
+// same.
+template <int D, bool EXTRA, typename F>
+__device__ __forceinline__ void with_tile_form(bool masked, const Attn& a,
+                                               F&& f) {
+  using T = std::true_type;
+  using N = std::false_type;
+  if (!EXTRA) {
+    if (masked) f(T{}, N{}, N{});
+    else f(N{}, N{}, N{});
+    return;
+  }
+  if (D >= 128) {
+    if (masked) f(T{}, T{}, T{});
+    else f(N{}, T{}, T{});
+    return;
+  }
+  const bool bias = a.bias != nullptr, drop = a.drop_inv > 0.f;
+  if (masked) {
+    if (bias) {
+      if (drop) f(T{}, T{}, T{});
+      else f(T{}, T{}, N{});
+    } else {
+      if (drop) f(T{}, N{}, T{});
+      else f(T{}, N{}, N{});
+    }
+  } else {
+    if (bias) {
+      if (drop) f(N{}, T{}, T{});
+      else f(N{}, T{}, N{});
+    } else {
+      if (drop) f(N{}, N{}, T{});
+      else f(N{}, N{}, N{});
+    }
+  }
 }
 
 // ---- host: tensor maps -----------------------------------------------------

@@ -7,7 +7,8 @@
 // 16-bit elements, bf16 or fp16 (128 bytes a row), as TMA writes it with
 // CU_TENSOR_MAP_SWIZZLE_128B: the 16-byte chunk c of row r sits at chunk c
 // ^ (r % 8), the tile's base 1024-byte aligned. A head dim of 128 is two
-// such tiles (columns 0-63 and 64-127), one after the other, and 256 four.
+// such tiles (columns 0-63 and 64-127), one after the other, 256 four and
+// 512 eight.
 // The same bytes serve as a K-major operand (the contraction runs along
 // the 64 columns: the descriptor's start steps 32 bytes a k-step of 16, and
 // 8-row groups lie SBO = 1024 bytes apart) and as an MN-major one (the
@@ -171,6 +172,10 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 template <typename E>
 constexpr bool kIsF16 = std::is_same<E, __half>::value;
 
+#define APEX_ACC8(d)                                                       \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
+      "+f"(d[6]), "+f"(d[7])
+#define APEX_R8 "{%0, %1, %2, %3, %4, %5, %6, %7}"
 #define APEX_ACC16(d)                                                      \
   "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), \
       "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),        \
@@ -204,6 +209,29 @@ constexpr bool kIsF16 = std::is_same<E, __half>::value;
   " %40, %41, %42, %43, %44, %45, %46, %47,"                               \
   " %48, %49, %50, %51, %52, %53, %54, %55,"                               \
   " %56, %57, %58, %59, %60, %61, %62, %63}"
+
+#define APEX_ACC96(d)                                                      \
+  APEX_ACC64(d),                                                           \
+      "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]),     \
+      "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]),     \
+      "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]),     \
+      "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),     \
+      "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]),     \
+      "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]),     \
+      "+f"(d[94]), "+f"(d[95])
+#define APEX_R96                                                           \
+  "{%0, %1, %2, %3, %4, %5, %6, %7,"                                       \
+  " %8, %9, %10, %11, %12, %13, %14, %15,"                                 \
+  " %16, %17, %18, %19, %20, %21, %22, %23,"                               \
+  " %24, %25, %26, %27, %28, %29, %30, %31,"                               \
+  " %32, %33, %34, %35, %36, %37, %38, %39,"                               \
+  " %40, %41, %42, %43, %44, %45, %46, %47,"                               \
+  " %48, %49, %50, %51, %52, %53, %54, %55,"                               \
+  " %56, %57, %58, %59, %60, %61, %62, %63,"                               \
+  " %64, %65, %66, %67, %68, %69, %70, %71,"                               \
+  " %72, %73, %74, %75, %76, %77, %78, %79,"                               \
+  " %80, %81, %82, %83, %84, %85, %86, %87,"                               \
+  " %88, %89, %90, %91, %92, %93, %94, %95}"
 
 #define APEX_ACC128(d)                                                     \
   APEX_ACC64(d),                                                           \
@@ -253,6 +281,25 @@ __device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t da,
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " APEX_R32
         ", %32, %33, p, 1, 1, 0, 0;\n}\n"
         : APEX_ACC32(d) : "l"(da), "l"(db), "r"(scale_d));
+  }
+}
+
+// the m64n16k16 form: dq's 16-key tiles at D = 512 (csrc/flash_d512.cu)
+template <typename E>
+__device__ __forceinline__ void mma_ss_n16(float (&d)[8], uint64_t da,
+                                          uint64_t db, int scale_d) {
+  if constexpr (kIsF16<E>) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.f16.f16 " APEX_R8
+        ", %8, %9, p, 1, 1, 0, 0;\n}\n"
+        : APEX_ACC8(d) : "l"(da), "l"(db), "r"(scale_d));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 " APEX_R8
+        ", %8, %9, p, 1, 1, 0, 0;\n}\n"
+        : APEX_ACC8(d) : "l"(da), "l"(db), "r"(scale_d));
   }
 }
 
@@ -338,6 +385,31 @@ __device__ __forceinline__ void mma_rs_n128(float (&d)[64],
   }
 }
 
+// the m64n192k16 form: half of a 384-wide accumulator (the D = 384
+// kernels' O and dq, split over two warpgroups), 96 registers a thread
+template <int TB, typename E>
+__device__ __forceinline__ void mma_rs_n192(float (&d)[96],
+                                           const uint32_t (&a)[4],
+                                           uint64_t db, int scale_d) {
+  if constexpr (kIsF16<E>) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k16.f32.f16.f16 " APEX_R96
+        ", {%96, %97, %98, %99}, %100, p, 1, 1, %102;\n}\n"
+        : APEX_ACC96(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(scale_d), "n"(TB));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 " APEX_R96
+        ", {%96, %97, %98, %99}, %100, p, 1, 1, %102;\n}\n"
+        : APEX_ACC96(d)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(scale_d), "n"(TB));
+  }
+}
+
 // the m64n256k16 form: a 256-wide accumulator (the D = 256 kernels' O and
 // dq), 128 registers a thread
 template <int TB, typename E>
@@ -363,19 +435,24 @@ __device__ __forceinline__ void mma_rs_n256(float (&d)[128],
   }
 }
 
+#undef APEX_ACC8
 #undef APEX_ACC16
 #undef APEX_ACC32
 #undef APEX_ACC64
+#undef APEX_ACC96
 #undef APEX_ACC128
+#undef APEX_R8
 #undef APEX_R16
 #undef APEX_R32
 #undef APEX_R64
+#undef APEX_R96
 #undef APEX_R128
 
 template <int N, typename E>
 __device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t da,
                                        uint64_t db, int scale_d) {
-  if constexpr (N == 32) mma_ss_n32<E>(d, da, db, scale_d);
+  if constexpr (N == 16) mma_ss_n16<E>(d, da, db, scale_d);
+  else if constexpr (N == 32) mma_ss_n32<E>(d, da, db, scale_d);
   else if constexpr (N == 64) mma_ss_n64<E>(d, da, db, scale_d);
   else mma_ss_n128<E>(d, da, db, scale_d);
 }
@@ -386,6 +463,7 @@ __device__ __forceinline__ void mma_rs(float (&d)[N / 2],
                                        int scale_d) {
   if constexpr (N == 64) mma_rs_n64<TB, E>(d, a, db, scale_d);
   else if constexpr (N == 128) mma_rs_n128<TB, E>(d, a, db, scale_d);
+  else if constexpr (N == 192) mma_rs_n192<TB, E>(d, a, db, scale_d);
   else mma_rs_n256<TB, E>(d, a, db, scale_d);
 }
 

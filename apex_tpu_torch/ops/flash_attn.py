@@ -20,24 +20,32 @@ gradient):
   gradient of a bias [1, Sq, Sk] shared over bh, dS summed over bh; its
   plain version is :func:`flash_bwd_dbias_plain`.
 
-Four forms of kernel serve them, each kernel's own
+Five forms of kernel serve them, each kernel's own
 (:func:`kernel_form` picks for the forward, dq and dk/dv):
 
-========  ==========  ====================  ====================
-dtype     head dim    forward               dq, dk/dv
-========  ==========  ====================  ====================
-bf16/f16  1-128       "tc" (64 or 128)      "tc" (64 or 128)
-bf16/f16  129-256     "tc256" (256)         "tc256" (256)
-fp32      1-128       "f32" (64 or 128)     "f32" (64 or 128)
-fp32      129-256     "f32" (256)           "f32" (256)
-any       to 512      "simt"                "simt"
-========  ==========  ====================  ====================
+========  ==========  ================  ================  ================
+dtype     head dim    forward           dq                dk/dv
+========  ==========  ================  ================  ================
+bf16/f16  1-128       "tc" (64, 128)    "tc" (64, 128)    "tc" (64, 128)
+bf16/f16  129-256     "tc256" (256)     "tc256" (256)     "tc256" (256)
+bf16/f16  257-512     "tc512" (384,     "tc512" (384,     "simt"
+                      512)              512)
+fp32      1-128       "f32" (64, 128)   "f32" (64, 128)   "f32" (64, 128)
+fp32      129-256     "f32" (256)       "f32" (256)       "f32" (256)
+fp32      257-512     "simt"            "simt"            "simt"
+========  ==========  ================  ================  ================
 
 "tc" is the Hopper kernels above at D 64 or 128 and "tc256" the same
 files' kernels at D 256 (:func:`flash_d256_fwd`, :func:`flash_d256_dq`,
-:func:`flash_d256_dkv`); the inputs are zero-padded to the head dim in
-brackets (the JAX package pads D to 128 lanes; zero columns add nothing to
-QKᵀ and give zero output columns, sliced off), the real D's scale passed.
+:func:`flash_d256_dkv`); "tc512" is ``ops/cuda/csrc/flash_d512.cu``'s
+forward and dq at D 384 and 512 (:func:`flash_d512_fwd`,
+:func:`flash_d512_dq`: blocks of 64 query rows, D split over the two
+consumer warpgroups); the kernels run at the head dim in brackets, the
+inputs zero-padded to it (the JAX package pads D to a multiple of 128
+lanes; zero columns add nothing to QKᵀ and give zero output columns,
+sliced off) — at 384 and 512 only to a multiple of 8, the kernels' TMA
+copies filling the rest with zeros (:func:`_kernel_width`) — and the real
+D's scale passed.
 "f32" is ``ops/cuda/csrc/flash_f32.cu``, 3xTF32 products on the tensor
 cores (:func:`flash_f32_fwd`, :func:`flash_f32_dq`, :func:`flash_f32_dkv`),
 padded alike. "simt" is the simple form of ``ops/cuda/csrc/flash_simt.cu``:
@@ -95,20 +103,23 @@ __all__ = ["NEG_INF", "KERNEL_HEAD_DIMS", "DKV_HEAD_DIMS", "F32_HEAD_DIMS",
            "drop_threshold", "reference_attention", "flash_fwd", "flash_delta",
            "flash_bwd_plain", "flash_bwd_dq", "flash_bwd_dkv",
            "flash_bwd_dbias", "flash_bwd_dbias_plain", "flash_d256_fwd",
-           "flash_d256_dq", "flash_d256_dkv", "flash_simt_fwd",
+           "flash_d256_dq", "flash_d256_dkv", "flash_d512_fwd",
+           "flash_d512_dq", "flash_simt_fwd",
            "flash_simt_dq", "flash_simt_dkv", "flash_f32_fwd", "flash_f32_dq",
            "flash_f32_dkv", "kernel_form", "tensor_cores", "padded_head_dim",
            "BLOCK_ROWS", "TMA_BOX", "DQ_D256_KEYS", "DKV_D256_KEYS",
-           "tma_layout", "row_blocks"]
+           "D512_ROWS", "FWD_D512_KEYS", "DQ_D512_KEYS", "tma_layout",
+           "row_blocks"]
 
 # finite -inf stand-in: exp(NEG_INF - m) is exactly 0.0 in fp32, so a fully
 # masked row yields zeros instead of NaN
 NEG_INF = -1.0e30
 # the head dims the bf16/fp16 tensor-core kernels are written for (a
-# smaller D is padded up to one of them): the forward, dq and dk/dv take all
-# three, the shared-bias gradient the first two; the fp32 ones' (3xTF32:
-# the forward, dq and dk/dv); and the widest the simple form takes
-KERNEL_HEAD_DIMS = (64, 128, 256)
+# smaller D is padded up to one of them): the forward and dq take all five,
+# dk/dv the first three, the shared-bias gradient the first two; the fp32
+# ones' (3xTF32: the forward, dq and dk/dv); and the widest the simple
+# form takes
+KERNEL_HEAD_DIMS = (64, 128, 256, 384, 512)
 DKV_HEAD_DIMS = (64, 128, 256)
 F32_HEAD_DIMS = (64, 128, 256)
 SIMT_MAX_HEAD_DIM = 512
@@ -120,11 +131,17 @@ _FLOATS = (torch.float32, torch.bfloat16, torch.float16)
 # 64 of the head dim (128 bytes, the span of the tiles' swizzle), 64 rows,
 # one bh (a row of D 256 is four boxes across); dq at D 256 stages
 # DQ_D256_KEYS keys a tile, its boxes as many rows, and a block of dk/dv
-# at D 256 owns DKV_D256_KEYS keys
+# at D 256 owns DKV_D256_KEYS keys. At D 384 and 512 a block of the
+# forward and dq owns D512_ROWS query rows; the forward stages
+# FWD_D512_KEYS keys a tile and dq DQ_D512_KEYS[D], the boxes of every
+# map as many rows
 BLOCK_ROWS = 128
 TMA_BOX = (64, 64, 1)
 DQ_D256_KEYS = 32
 DKV_D256_KEYS = 64
+D512_ROWS = 64
+FWD_D512_KEYS = 32
+DQ_D512_KEYS = {384: 32, 512: 16}
 
 _M32 = 0xFFFFFFFF
 
@@ -347,15 +364,26 @@ def tensor_cores(q: torch.Tensor) -> bool:
     """Whether every 16-bit Hopper tensor-core kernel takes q's dtype and
     head dim — the forward, dq, dk/dv and the shared-bias gradient: bf16
     or fp16, D <= 128, padded up to 64 or 128. Past 128 only the forward,
-    dq and dk/dv do (to 256: :func:`kernel_form`)."""
+    dq and dk/dv do (to 256; the forward and dq to 512:
+    :func:`kernel_form`)."""
     return q.dtype in (torch.bfloat16, torch.float16) \
         and q.shape[-1] <= KERNEL_HEAD_DIMS[1]
 
 
 def padded_head_dim(d: int) -> int:
-    """The head dim the tensor-core kernels run a D <= 256 at: 64, 128 or
-    256."""
+    """The head dim the tensor-core kernels run a D <= 512 at: 64, 128,
+    256, 384 or 512 (the JAX package's padding to a multiple of 128 lanes
+    above 128)."""
     return next(k for k in KERNEL_HEAD_DIMS if d <= k)
+
+
+def _kernel_width(d: int) -> int:
+    """The width the tensor-core kernels are handed a D at: padded to
+    :func:`padded_head_dim` up to 256; past it only to a multiple of 8 (16
+    bytes, the unit of TMA's strides), the D-384 and D-512 kernels' maps
+    filling the columns up to 384 or 512 with zeros as they copy."""
+    dp = padded_head_dim(d)
+    return dp if dp <= KERNEL_HEAD_DIMS[2] else -(-d // 8) * 8
 
 
 def _pad_d(t: torch.Tensor, dp: int) -> torch.Tensor:
@@ -392,7 +420,7 @@ def tma_layout(t: torch.Tensor, box_rows: int = TMA_BOX[1]) -> tuple:
     """The tensor map the Hopper kernels copy a [BH, S, D] 16-bit tensor
     by: its dims innermost first (D, S, BH), its row and bh strides in
     bytes, and the box (:data:`TMA_BOX`, or ``box_rows`` rows: dq at D
-    256's :data:`DQ_D256_KEYS`). A dim of size 1 takes the stride of the
+    256's :data:`DQ_D256_KEYS`, the D-384 and D-512 kernels' key tiles). A dim of size 1 takes the stride of the
     tensor's packed layout (its own is arbitrary and never used)."""
     bh, s, d = t.shape
     es = t.element_size()
@@ -404,7 +432,8 @@ def tma_layout(t: torch.Tensor, box_rows: int = TMA_BOX[1]) -> tuple:
 def row_blocks(rows: int, block: int = BLOCK_ROWS) -> int:
     """The grid's blocks along the rows a block owns (``rows``: Sq for the
     forward and dq, Sk for dk/dv), ``block`` rows a block
-    (:data:`BLOCK_ROWS`; dk/dv at D 256 :data:`DKV_D256_KEYS`)."""
+    (:data:`BLOCK_ROWS`; dk/dv at D 256 :data:`DKV_D256_KEYS`; the forward
+    and dq at D 384 and 512 :data:`D512_ROWS`)."""
     return -(-rows // block)
 
 
@@ -475,8 +504,8 @@ def flash_fwd(q, k, v, *, causal: bool = False, scale=None,
     over q [BH, Sq, D], k/v [BH, Sk, D], with the optional ``kv_bias``
     [1|BH, Sk], ``bias`` [1|BH, Sq, Sk] and dropout. On the card, as
     :func:`kernel_form` picks: the tensor-core kernel at D <= 128 (counted
-    here), :func:`flash_d256_fwd`, :func:`flash_f32_fwd` or
-    :func:`flash_simt_fwd`."""
+    here), :func:`flash_d256_fwd`, :func:`flash_d512_fwd`,
+    :func:`flash_f32_fwd` or :func:`flash_simt_fwd`."""
     if scale is None:
         scale = 1.0 / float(q.shape[-1]) ** 0.5
     cfg = dict(causal=causal, scale=scale, q_start=q_start, k_start=k_start,
@@ -487,8 +516,9 @@ def flash_fwd(q, k, v, *, causal: bool = False, scale=None,
     _check("flash_fwd", q, k, v)
     form = kernel_form(q, "fwd")
     if form != "tc":
-        return {"tc256": flash_d256_fwd, "f32": flash_f32_fwd,
-                "simt": flash_simt_fwd}[form](q, k, v, **cfg)
+        return {"tc256": flash_d256_fwd, "tc512": flash_d512_fwd,
+                "f32": flash_f32_fwd, "simt": flash_simt_fwd}[form](
+                    q, k, v, **cfg)
     return _tc_fwd(flash_fwd, q, k, v, **cfg)
 
 
@@ -497,35 +527,44 @@ flash_fwd.launches = 0
 
 def _tc_fwd(wrapper, q, k, v, *, causal, scale, q_start, k_start, kv_bias,
             bias, dropout_rate, dropout_seed):
-    """The 16-bit tensor-core forward (``flash_fwd.cu``) at q's head dim
-    padded to :func:`padded_head_dim`; ``wrapper`` counts the launch."""
+    """The 16-bit tensor-core forward (``flash_fwd.cu``; at D 384 and 512
+    ``flash_d512.cu``) at q's head dim padded to :func:`_kernel_width`;
+    ``wrapper`` counts the launch."""
     what = wrapper.__name__
     d = q.shape[-1]
-    dp = padded_head_dim(d)
-    q, k, v = (_tma_readable(_pad_d(t, dp)) for t in (q, k, v))
+    dw = _kernel_width(d)
+    q, k, v = (_tma_readable(_pad_d(t, dw)) for t in (q, k, v))
     bh, sq, _ = q.shape
     tail, _keep_alive = _tail(what, q, k, kv_bias, bias, dropout_rate,
                               dropout_seed, causal, scale, q_start, k_start)
-    o = torch.empty((bh, sq, dp), dtype=q.dtype, device=q.device)
+    o = torch.empty((bh, sq, dw), dtype=q.dtype, device=q.device)
     lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
-    err = _cuda.lib().apex_flash_fwd(
+    if dw > KERNEL_HEAD_DIMS[2]:
+        entry, box, block = "apex_flash_d512_fwd", FWD_D512_KEYS, D512_ROWS
+    else:
+        entry, box, block = "apex_flash_fwd", TMA_BOX[1], BLOCK_ROWS
+    err = getattr(_cuda.lib(), entry)(
         _cuda.dtype_code(q.dtype, what), q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), o.data_ptr(), lse.data_ptr(), _tma_maps(q, k, v),
-        row_blocks(sq), *tail)
+        v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        _tma_maps(q, k, v, box_rows=box), row_blocks(sq, block), *tail)
     _cuda.check(err, what)
     wrapper.launches += 1
     return _unpad(o, d), lse
 
 
-def _d256_ready(what: str, *ts) -> None:
-    """The D-256 kernels' contract (the forward, dq and dk/dv alike): bf16
-    or fp16 at a head dim of 129 to 256 (padded to 256)."""
+def _wide_ready(what: str, form: str, *ts) -> None:
+    """The contract of the kernels of ``form``: "tc256" (the D-256
+    forward, dq and dk/dv alike) bf16 or fp16 at a head dim of 129 to 256
+    (padded to 256); "tc512" (the D-384 and D-512 forward and dq) at 257 to
+    512 (run at 384 or 512)."""
     _check(what, *ts)
     q = ts[0]
-    if kernel_form(q, "fwd") != "tc256":
+    if kernel_form(q, "fwd") != form:
+        lo, hi = {"tc256": (KERNEL_HEAD_DIMS[1], KERNEL_HEAD_DIMS[2]),
+                  "tc512": (KERNEL_HEAD_DIMS[2], KERNEL_HEAD_DIMS[4])}[form]
         raise ValueError(f"{what}: takes bf16 or fp16 at a head dim of "
-                         f"{KERNEL_HEAD_DIMS[1] + 1} to {KERNEL_HEAD_DIMS[-1]}"
-                         f", got {q.dtype} at {q.shape[-1]}")
+                         f"{lo + 1} to {hi}, got {q.dtype} at "
+                         f"{q.shape[-1]}")
 
 
 def flash_d256_fwd(q, k, v, *, causal: bool = False, scale=None,
@@ -541,11 +580,33 @@ def flash_d256_fwd(q, k, v, *, causal: bool = False, scale=None,
                dropout_seed=dropout_seed)
     if not dispatch.use_kernel(q):
         return _fwd_plain(q, k, v, **cfg)
-    _d256_ready("flash_d256_fwd", q, k, v)
+    _wide_ready("flash_d256_fwd", "tc256", q, k, v)
     return _tc_fwd(flash_d256_fwd, q, k, v, **cfg)
 
 
 flash_d256_fwd.launches = 0
+
+
+def flash_d512_fwd(q, k, v, *, causal: bool = False, scale=None,
+                   q_start: int = 0, k_start: int = 0, kv_bias=None,
+                   bias=None, dropout_rate: float = 0.0, dropout_seed=0):
+    """:func:`flash_fwd` on the tensor cores at D 384 and 512
+    (``flash_d512.cu``: blocks of 64 query rows, each consumer warpgroup
+    holding half of O's columns, partial scores traded): bf16 or fp16 at a
+    head dim of 257 to 512, run at 384 or 512 (the inputs padded only to a
+    multiple of 8, :func:`_kernel_width`; the real D's scale passed)."""
+    if scale is None:
+        scale = 1.0 / float(q.shape[-1]) ** 0.5
+    cfg = dict(causal=causal, scale=scale, q_start=q_start, k_start=k_start,
+               kv_bias=kv_bias, bias=bias, dropout_rate=dropout_rate,
+               dropout_seed=dropout_seed)
+    if not dispatch.use_kernel(q):
+        return _fwd_plain(q, k, v, **cfg)
+    _wide_ready("flash_d512_fwd", "tc512", q, k, v)
+    return _tc_fwd(flash_d512_fwd, q, k, v, **cfg)
+
+
+flash_d512_fwd.launches = 0
 
 
 def _fwd_plain(q, k, v, *, causal, scale, q_start, k_start, kv_bias, bias,
@@ -568,7 +629,8 @@ def flash_simt_fwd(q, k, v, *, causal: bool = False, scale=None,
                    q_start: int = 0, k_start: int = 0, kv_bias=None,
                    bias=None, dropout_rate: float = 0.0, dropout_seed=0):
     """:func:`flash_fwd` by the simple form (``flash_simt.cu``): any of
-    fp32, bf16, fp16 and a head dim up to 512."""
+    fp32, bf16, fp16 and a head dim up to 512 (:func:`flash_fwd` sends it
+    fp32 past 256)."""
     if scale is None:
         scale = 1.0 / float(q.shape[-1]) ** 0.5
     if not dispatch.use_kernel(q):
@@ -648,17 +710,21 @@ def kernel_form(q: torch.Tensor, kernel: str = "fwd") -> str:
     """The form that takes ``kernel`` ("fwd", "dq" or "dkv") of q's dtype
     and head dim (the module's table): "tc", the bf16/fp16 tensor-core
     kernels at D <= 128; "tc256", the same at D 129-256 (padded to 256);
-    "f32", the fp32 ones (3xTF32 on the tensor cores, ``flash_f32.cu``) at
-    D <= 256; "simt", the simple form, for the rest."""
+    "tc512", the bf16/fp16 forward and dq at D 257-512 (run at 384 or
+    512); "f32", the fp32 ones (3xTF32 on the tensor cores,
+    ``flash_f32.cu``) at D <= 256; "simt", the simple form, for the rest
+    (dk/dv past 256 among it)."""
     if kernel not in _KERNELS:
         raise ValueError(f"kernel_form: kernel must be one of {_KERNELS}, "
                          f"got {kernel!r}")
     d = q.shape[-1]
     if tensor_cores(q):
         return "tc"
-    if q.dtype in (torch.bfloat16, torch.float16) \
-            and d <= KERNEL_HEAD_DIMS[-1]:
+    half = q.dtype in (torch.bfloat16, torch.float16)
+    if half and d <= KERNEL_HEAD_DIMS[2]:
         return "tc256"
+    if half and d <= KERNEL_HEAD_DIMS[4] and kernel != "dkv":
+        return "tc512"
     if q.dtype == torch.float32 and d <= F32_HEAD_DIMS[-1]:
         return "f32"
     return "simt"
@@ -667,8 +733,8 @@ def kernel_form(q: torch.Tensor, kernel: str = "fwd") -> str:
 def _bwd_args(what, q, k, v, do, lse, delta, form="simt"):
     """The checked backward inputs of the kernels of ``form`` (as
     :func:`kernel_form` names them): q, k, v, dO padded to
-    :func:`padded_head_dim` and readable by TMA ("tc", "tc256") or by
-    16-byte copies ("f32", :func:`_f32_ready`), or with their last dim
+    :func:`_kernel_width` and readable by TMA ("tc", "tc256", "tc512") or
+    by 16-byte copies ("f32", :func:`_f32_ready`), or with their last dim
     contiguous ("simt"); lse and delta fp32 [BH, Sq]."""
     if form == "f32":
         q, k, v, do = _f32_ready(what, q, k, v, do)
@@ -676,9 +742,9 @@ def _bwd_args(what, q, k, v, do, lse, delta, form="simt"):
         _check(what, q, k, v, do)
     if form == "simt":
         q, k, v, do = _simt_strides(q, k, v, do)[0]
-    elif form in ("tc", "tc256"):
-        dp = padded_head_dim(q.shape[-1])
-        q, k, v, do = (_tma_readable(_pad_d(t, dp)) for t in (q, k, v, do))
+    elif form in ("tc", "tc256", "tc512"):
+        dw = _kernel_width(q.shape[-1])
+        q, k, v, do = (_tma_readable(_pad_d(t, dw)) for t in (q, k, v, do))
     bh, sq, _ = q.shape
     lse = _row_stats(f"{what} lse", lse, bh, sq, q.device)
     delta = _row_stats(f"{what} delta", delta, bh, sq, q.device)
@@ -693,8 +759,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool, scale: float,
     :func:`flash_delta`; with ``return_ds`` (a ``bias`` given) also dS fp32
     [BH, Sq, Sk], the gradient of a per-bh bias. On the card, as
     :func:`kernel_form` picks: the tensor-core kernel at D <= 128 (counted
-    here), :func:`flash_d256_dq`, :func:`flash_f32_dq` or
-    :func:`flash_simt_dq`."""
+    here), :func:`flash_d256_dq`, :func:`flash_d512_dq`,
+    :func:`flash_f32_dq` or :func:`flash_simt_dq`."""
     kw = dict(causal=causal, scale=scale, q_start=q_start, k_start=k_start,
               kv_bias=kv_bias, bias=bias, dropout_rate=dropout_rate,
               dropout_seed=dropout_seed)
@@ -708,8 +774,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool, scale: float,
     _check("flash_bwd_dq", q, k, v, do)
     form = kernel_form(q, "dq")
     if form != "tc":
-        return {"tc256": flash_d256_dq, "f32": flash_f32_dq,
-                "simt": flash_simt_dq}[form](
+        return {"tc256": flash_d256_dq, "tc512": flash_d512_dq,
+                "f32": flash_f32_dq, "simt": flash_simt_dq}[form](
             q, k, v, do, lse, delta, return_ds=return_ds, **kw)
     return _tc_dq(flash_bwd_dq, "tc", q, k, v, do, lse, delta,
                   return_ds=return_ds, **kw)
@@ -719,9 +785,10 @@ flash_bwd_dq.launches = 0
 
 
 def _tc_dq(wrapper, form, q, k, v, do, lse, delta, *, return_ds, **kw):
-    """dq (and dS) by the 16-bit tensor-core kernel (``flash_bwd.cu``) at
-    q's head dim padded to :func:`padded_head_dim` (``form`` "tc" or
-    "tc256"); ``wrapper`` counts the launch."""
+    """dq (and dS) by the 16-bit tensor-core kernel (``flash_bwd.cu``; at
+    D 384 and 512 ``flash_d512.cu``) at q's head dim padded to
+    :func:`_kernel_width` (``form`` "tc", "tc256" or "tc512"); ``wrapper``
+    counts the launch."""
     what = wrapper.__name__
     d = q.shape[-1]
     q, k, v, do, lse, delta = _bwd_args(what, q, k, v, do, lse, delta, form)
@@ -733,12 +800,17 @@ def _tc_dq(wrapper, form, q, k, v, do, lse, delta, *, return_ds, **kw):
     ds = torch.empty((q.shape[0], q.shape[1], k.shape[1]),
                      dtype=torch.float32, device=q.device) \
         if return_ds else None
-    box = DQ_D256_KEYS if q.shape[-1] == 256 else TMA_BOX[1]
-    err = _cuda.lib().apex_flash_bwd_dq(
+    dp = padded_head_dim(q.shape[-1])
+    if dp > KERNEL_HEAD_DIMS[2]:
+        entry, box, block = "apex_flash_d512_dq", DQ_D512_KEYS[dp], D512_ROWS
+    else:
+        entry, block = "apex_flash_bwd_dq", BLOCK_ROWS
+        box = DQ_D256_KEYS if dp == 256 else TMA_BOX[1]
+    err = getattr(_cuda.lib(), entry)(
         _cuda.dtype_code(q.dtype, what), q.data_ptr(), k.data_ptr(),
         v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         dq.data_ptr(), None if ds is None else ds.data_ptr(),
-        _tma_maps(q, k, v, do, box_rows=box), row_blocks(q.shape[1]),
+        _tma_maps(q, k, v, do, box_rows=box), row_blocks(q.shape[1], block),
         *tail)
     _cuda.check(err, what)
     wrapper.launches += 1
@@ -763,12 +835,39 @@ def flash_d256_dq(q, k, v, do, lse, delta, *, causal: bool, scale: float,
         out = flash_bwd_plain(q, k, v, do, lse, delta, return_ds=return_ds,
                               **kw)
         return (out[0], out[3]) if return_ds else out[0]
-    _d256_ready("flash_d256_dq", q, k, v, do)
+    _wide_ready("flash_d256_dq", "tc256", q, k, v, do)
     return _tc_dq(flash_d256_dq, "tc256", q, k, v, do, lse, delta,
                   return_ds=return_ds, **kw)
 
 
 flash_d256_dq.launches = 0
+
+
+def flash_d512_dq(q, k, v, do, lse, delta, *, causal: bool, scale: float,
+                  q_start: int = 0, k_start: int = 0, kv_bias=None,
+                  bias=None, dropout_rate: float = 0.0, dropout_seed=0,
+                  return_ds: bool = False):
+    """:func:`flash_bwd_dq` on the tensor cores at D 384 and 512
+    (``flash_d512.cu``: blocks of 64 query rows, one consumer warpgroup
+    making P, the other dP, each holding half of dq's columns): bf16 or
+    fp16 at a head dim of 257 to 512, run at 384 or 512 as
+    :func:`flash_d512_fwd` (the real D's scale passed)."""
+    kw = dict(causal=causal, scale=scale, q_start=q_start, k_start=k_start,
+              kv_bias=kv_bias, bias=bias, dropout_rate=dropout_rate,
+              dropout_seed=dropout_seed)
+    if return_ds and bias is None:
+        raise ValueError("flash_d512_dq: return_ds needs the bias whose "
+                         "gradient it is")
+    if not dispatch.use_kernel(q):
+        out = flash_bwd_plain(q, k, v, do, lse, delta, return_ds=return_ds,
+                              **kw)
+        return (out[0], out[3]) if return_ds else out[0]
+    _wide_ready("flash_d512_dq", "tc512", q, k, v, do)
+    return _tc_dq(flash_d512_dq, "tc512", q, k, v, do, lse, delta,
+                  return_ds=return_ds, **kw)
+
+
+flash_d512_dq.launches = 0
 
 
 def _strided_dq(wrapper, entry: str, form: str, q, k, v, do, lse, delta,
@@ -922,7 +1021,7 @@ def flash_d256_dkv(q, k, v, do, lse, delta, *, causal: bool, scale: float,
               dropout_seed=dropout_seed)
     if not dispatch.use_kernel(q):
         return flash_bwd_plain(q, k, v, do, lse, delta, **kw)[1:]
-    _d256_ready("flash_d256_dkv", q, k, v, do)
+    _wide_ready("flash_d256_dkv", "tc256", q, k, v, do)
     return _tc_dkv(flash_d256_dkv, "tc256", q, k, v, do, lse, delta, **kw)
 
 

@@ -30,7 +30,9 @@ lm_bench's LM at 8 heads of 256 (the flash forward, dq and dk/dv at D
    (``flash_f32_ptxas``: 12 forms, D 64 and 128 and the pair kernels at
    256, plain and with a bias or dropout) and the fp32 forward's
    (``flash_f32_fwd_ptxas``: 6 forms, D 64, 128 and 256, plain and with a
-   bias or dropout), none of whose forms may spill.
+   bias or dropout) and the bf16/fp16 forward's and dq's at D 384 and 512
+   (``flash_d512_ptxas``: 12 forward and 8 dq forms), none of whose forms
+   may spill.
 2. kernels — each kernel against its plain PyTorch version on the card,
    at its path's shapes: max abs error against the stated tolerance, the
    kernel's time, the plain version's, one PyTorch library call's where
@@ -132,7 +134,16 @@ lm_bench's LM at 8 heads of 256 (the flash forward, dq and dk/dv at D
    fp32 backward beside them, bounds at 165 and 67 TFLOP/s; again at
    phase 33's [64, 4096, 256], reading ``hd256_lm_f32``, the simple form
    and SDPA timed there) and at D 320 in bf16
-   (``d320_bf16``); the D-256 forward, dq and dk/dv (``flash_d256_fwd``,
+   (``d320_bf16``) and fp32 (``d320_f32``, its bound at 67 TFLOP/s, SDPA
+   fp32 beside it); the forward and dq at D 384 and 512
+   (``flash_d512_fwd``, ``flash_d512_dq``) with the simple dk/dv, in bf16
+   and fp16, at [32, 1024, 320] (``d320_tc_bf16``, with the whole
+   backward, ``d320_tc_f16``) and [16, 1024, 512] (``d512_tc_bf16``,
+   ``d512_tc_f16``), the simple forward's and dq's times on the same
+   inputs beside them; ``flash_bwd_dbias`` off the tensor cores at [32,
+   1024, 256] causal in bf16 and fp32 (``d256_bf16``, ``d256_f32``: SDPA's
+   backward with a learned [1, 1, Sq, Sk] mask beside it); the D-256
+   forward, dq and dk/dv (``flash_d256_fwd``,
    ``flash_d256_dq``, ``flash_d256_dkv``), in bf16 and fp16, at [32,
    1024, 256] (``d256_tc_bf16``, ``d256_tc_f16``: the simple form's times
    on the same inputs beside bf16's) and at phase 31's [64, 4096, 256]
@@ -145,8 +156,9 @@ lm_bench's LM at 8 heads of 256 (the flash forward, dq and dk/dv at D
    (``flash_bits``) and ``ln_bwd_wide``'s at [8192, 12288]
    (``ln_wide_bits``), to hold one package's against another's; the
    scalar tails beside the vector forms: ``ln_bwd`` at [32760, 1022], the
-   wide kernels at [8192, 12290] (the backward's 2-wide form) and the
-   welford passes at C 6 (and C 8) over 256·56·56 rows.
+   wide kernels at [8192, 12290] (the backward's 2-wide form) and [8192,
+   12289] (its scalar form) and the welford passes at C 6 (and C 8) over
+   256·56·56 rows.
 3. dense — the serve_bench model at full width (8 layers, 1024 wide,
    8 heads, vocab 32768, bf16, random weights from ``torch.Generator``
    seed 0) behind ``ContinuousBatchingEngine(slots=8, max_len=1024,
@@ -336,8 +348,10 @@ lm_bench's LM at 8 heads of 256 (the flash forward, dq and dk/dv at D
     ``SyncBatchNorm(6, fuse_relu=True)`` over [64, 6, 56, 56] bf16 with a
     residual, ``flash_attention`` at head dim 256 over [32, 1024, 256]
     fp32 (the 3xTF32 forward, dq and dk/dv) and at head dim 320 over [16,
-    1024, 320] bf16 (the simple form), 3 forward/backward passes each
-    against the plain versions.
+    1024, 320] bf16 (the forward and dq at D 384, ``flash_d512_fwd`` and
+    ``flash_d512_dq``, and the simple dk/dv) and fp32 (the simple form's
+    forward, dq and dk/dv), 3 forward/backward passes each against the
+    plain versions.
 31. lm_train_hd256 — ``tools/lm_bench.py --dim 2048 --heads 8`` (8
     layers of 2048, 8 heads of 256: Gemma 2B's attention shape; vocab
     32768, S 4096, batch 8, attention "fast", random weights from seed 0),
@@ -354,7 +368,7 @@ lm_bench's LM at 8 heads of 256 (the flash forward, dq and dk/dv at D
     and ``flash_f32_dkv``, none of the simple form's or the 16-bit
     kernels'; losses finite, the mean of the last 3 below the first; MFU
     against 67 TFLOP/s.
-34. the ``{"kernels": [...]}`` line (37 kernels; dq's and dk/dv's
+34. the ``{"kernels": [...]}`` line (39 kernels; dq's and dk/dv's
     entries also carry their ``wide`` reading and the whole backward's,
     ``backward``, at both shapes, the D-256 ones the whole backward at
     [64, 4096, 256]; the fp32 ones their readings at D 256), then the
@@ -1869,7 +1883,9 @@ def counters():
             "flash_f32_fwd": FA.flash_f32_fwd,
             "flash_d256_fwd": FA.flash_d256_fwd,
             "flash_d256_dq": FA.flash_d256_dq,
-            "flash_d256_dkv": FA.flash_d256_dkv}
+            "flash_d256_dkv": FA.flash_d256_dkv,
+            "flash_d512_fwd": FA.flash_d512_fwd,
+            "flash_d512_dq": FA.flash_d512_dq}
 
 
 def zero_counts() -> None:
@@ -3460,23 +3476,26 @@ def _flash_readings(torch, timer, q, k, v, do, kw, lib_fwd, lib_bwd,
 
 
 def _dbias_reading(torch, timer, q, k, v, do, lse, delta, kw, ds_sum,
-                   lib_bwd, live_pairs: int) -> dict:
-    """``flash_bwd_dbias`` against the plain per-bh dS summed over bh, its
-    repeat bitwise, its time, the plain version's, the yardstick's and
-    the bound (its two products over the live pairs)."""
+                   lib_bwd, live_pairs: int, dt=None,
+                   ops_s=BF16_DENSE_OPS_S) -> dict:
+    """``flash_bwd_dbias`` against the plain per-bh dS summed over bh under
+    dt's flash rule (bf16's by default), its repeat bitwise, its time, the
+    plain version's, the yardstick's and the bound (its two products over
+    the live pairs at ``ops_s``)."""
     from apex_tpu_torch.ops import flash_attn as FA
     bh, sq, d = q.shape
     sk = k.shape[1]
+    es = q.element_size()
     db = FA.flash_bwd_dbias(q, k, v, do, lse, delta, **kw)
     again = FA.flash_bwd_dbias(q, k, v, do, lse, delta, **kw)
     torch.cuda.synchronize()
-    err = flash_err(torch, db, ds_sum)
+    err = flash_err(torch, db, ds_sum, dt)
     repeat = bool(torch.equal(db, again))
     check(err["used"] <= 1.0, f"flash_bwd_dbias: {err}")
     check(repeat, "flash_bwd_dbias: two runs on the same inputs differ")
-    b_ms, b_by = bound(2 * bh * sq * d * 2 + 2 * bh * sk * d * 2
+    b_ms, b_by = bound(2 * bh * sq * d * es + 2 * bh * sk * d * es
                        + 8 * bh * sq + 8 * sq * sk,
-                       4 * d * live_pairs, BF16_DENSE_OPS_S)
+                       4 * d * live_pairs, ops_s)
     return dict(max_abs_err=err["max_abs_err"], tol_used=err["used"],
                 repeat_equal=repeat,
                 runs=FA.dbias_runs(bh, sq, sk, torch.cuda.
@@ -4288,7 +4307,7 @@ def form_inputs(torch, shape, dt):
 
 
 def flash_form_readings(torch, timer, reading, shape, dt, fns, ops_s,
-                        plain_group=16, whole=False) -> dict:
+                        plain_group=16, whole=False, simple=None) -> dict:
     """One form of the flash kernels at [BH, S, D] causal in dtype dt: the
     forward, dq and dk/dv (``fns``: the three wrappers) against the plain
     versions on the first heads under ``flash_err`` in dt (lse within
@@ -4297,7 +4316,9 @@ def flash_form_readings(torch, timer, reading, shape, dt, fns, ops_s,
     times beside the plain versions' (the forward head group by head
     group), SDPA's in dt and the bounds at ``ops_s``; with ``whole`` also
     the whole backward as autograd runs it (``flash_bwd_row``, keyed
-    ("flash_bwd", reading))."""
+    ("flash_bwd", reading)); with ``simple`` (the simple form's forward
+    and dq) their times on the same inputs beside the forward's and dq's
+    (``simple_ms``)."""
     import torch.nn.functional as F
 
     from apex_tpu_torch.ops import flash_attn as FA
@@ -4364,6 +4385,9 @@ def flash_form_readings(torch, timer, reading, shape, dt, fns, ops_s,
     fwd_b = bound(4 * sz + 4 * BH * S, 4 * D * pairs, ops_s)
     dq_b = bound(5 * sz + 8 * BH * S, 6 * D * pairs, ops_s)
     dkv_b = bound(6 * sz + 8 * BH * S, 8 * D * pairs, ops_s)
+    was = {} if simple is None else {
+        fwd.__name__: timer(lambda: simple[0](q, k, v, **kw)),
+        dq_fn.__name__: timer(lambda: simple[1](*args, **kw))}
     out = {}
     for r in (
             dict(common, kernel=fwd.__name__,
@@ -4391,6 +4415,8 @@ def flash_form_readings(torch, timer, reading, shape, dt, fns, ops_s,
                  ms=timer(lambda: dkv_fn(*args, **kw)),
                  plain_ms=plain_ms, library_ms=lib_bwd, bound_ms=dkv_b[0],
                  bound_by=dkv_b[1])):
+        if r["kernel"] in was:
+            r["simple_ms"] = was[r["kernel"]]
         emit({"phase": "kernels", **r})
         out[(r["kernel"], reading)] = r
     if whole:
@@ -4550,6 +4576,52 @@ def f32_forward_reading(torch, timer, shape, simple,
     return {("flash_f32_fwd", reading): r}
 
 
+def d256_dbias_readings(torch, timer) -> dict:
+    """``flash_bwd_dbias`` off the tensor cores (the simple dq kernel's
+    per-bh dS summed over bh) at [32, 1024, 256] causal with a learned [1,
+    Sq, Sk] bias, in bf16 and fp32, against the plain version under the
+    dtype's flash rule, repeated bit for bit; SDPA's backward with the
+    bias as a learned [1, 1, Sq, Sk] mask (its causal part -inf) beside
+    it; bounds at 989 and 67 TFLOP/s. Keyed ("flash_bwd_dbias",
+    "d256_bf16" / "d256_f32")."""
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.ops import flash_attn as FA
+
+    bh, s, d = 32, 1024, 256
+    rows = {}
+    for dt, tag, ops_s in ((torch.bfloat16, "bf16", BF16_DENSE_OPS_S),
+                           (torch.float32, "f32", FP32_OPS_S)):
+        q, k, v, do = form_inputs(torch, [bh, s, d], dt)
+        gen = torch.Generator(device="cuda").manual_seed(37)
+        bias = torch.randn(1, s, s, generator=gen, device="cuda") * 0.5
+        kw = dict(causal=True, scale=d ** -0.5, bias=bias)
+        o, lse = FA.flash_fwd(q, k, v, **kw)
+        delta = FA.flash_delta(o, do)
+        ds_sum = FA.flash_bwd_dbias_plain(q, k, v, do, lse, delta, **kw)
+        causal = torch.ones(s, s, device="cuda", dtype=torch.bool).tril()
+        mask = torch.where(causal, bias[0], float("-inf")).to(dt)[None,
+                                                                  None]
+        ml = mask.detach().clone().requires_grad_(True)
+        q4, k4, v4 = (t.view(1, bh, s, d).detach().requires_grad_(True)
+                      for t in (q, k, v))
+        lo = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=ml)
+        lib_bwd = timer(lambda: torch.autograd.grad(
+            lo, (q4, k4, v4, ml), do.view(1, bh, s, d), retain_graph=True))
+        row = _dbias_reading(torch, timer, q, k, v, do, lse, delta, kw,
+                             ds_sum, lib_bwd, bh * s * (s + 1) // 2, dt,
+                             ops_s)
+        row.update(dtype=str(dt).split(".")[1], shape=[bh, s, s, d],
+                   causal=True, form="simt",
+                   library_covers="dq, dk, dv and the mask's gradient "
+                                  "(one SDPA backward)")
+        emit({"phase": "kernels", "kernel": "flash_bwd_dbias",
+              "reading": "d256_" + tag, **row})
+        rows[("flash_bwd_dbias", "d256_" + tag)] = row
+        del q, k, v, do, o, lo, ml, ds_sum, q4, k4, v4, mask
+    return rows
+
+
 def flash_forms_phase(torch, timer) -> dict:
     """The fp16 forms of the tensor-core kernels at the LM's [128, 4095,
     64] and the wide LM's [384, 2048, 128] (their bf16 forms' rows are
@@ -4558,7 +4630,11 @@ def flash_forms_phase(torch, timer) -> dict:
     cores, and the fp32 forward and backward on the tensor cores on the
     same inputs; the simple form at phase 30's [32, 1024, 256] in bf16 and
     fp32 (SDPA's at D 256 beside it; bf16's bound at 989 TFLOP/s, fp32's
-    at 67) and in bf16 at D 320, and the fp32 forward, dq and dk/dv in
+    at 67) and in bf16 and fp32 at D 320; the forward and dq at D 384 and
+    512 at [32, 1024, 320] and [16, 1024, 512] in bf16 and fp16 (readings
+    ``d320_tc_*``, ``d512_tc_*``, the simple forward's and dq's times
+    beside them); ``flash_bwd_dbias`` off the tensor cores at D 256
+    (``d256_dbias_readings``); and the fp32 forward, dq and dk/dv in
     3xTF32 on the fp32 inputs (reading ``d256_f32``), dq and dk/dv again
     at the hd-256 LM's [64, 4096, 256] (``hd256_lm_f32``, the simple form
     timed there); the D-256 forward, dq and dk/dv,
@@ -4591,9 +4667,21 @@ def flash_forms_phase(torch, timer) -> dict:
                                         dt, simt, ops_s))
     rows.update(f32_forward_reading(torch, timer, d256, rows, "d256_f32"))
     rows.update(f32_backward_readings(torch, timer, d256, rows, "d256_f32"))
-    rows.update(flash_form_readings(torch, timer, "d320_bf16",
-                                    [32, 1024, 320], torch.bfloat16, simt,
-                                    BF16_DENSE_OPS_S))
+    d320 = [32, 1024, 320]
+    rows.update(flash_form_readings(torch, timer, "d320_bf16", d320,
+                                    torch.bfloat16, simt, BF16_DENSE_OPS_S))
+    rows.update(flash_form_readings(torch, timer, "d320_f32", d320,
+                                    torch.float32, simt, FP32_OPS_S))
+    # the forward and dq at D 384 and 512 (dk/dv the simple form's), the
+    # simple forward and dq timed on the same inputs
+    tc512 = (FA.flash_d512_fwd, FA.flash_d512_dq, FA.flash_simt_dkv)
+    for dt, tag in ((torch.bfloat16, "bf16"), (torch.float16, "f16")):
+        for shape, reading in ((d320, "d320_tc_" + tag),
+                               ([16, 1024, 512], "d512_tc_" + tag)):
+            rows.update(flash_form_readings(
+                torch, timer, reading, shape, dt, tc512, BF16_DENSE_OPS_S,
+                whole=reading == "d320_tc_bf16", simple=simt))
+    rows.update(d256_dbias_readings(torch, timer))
     c = HD256_SHAPE
     lm256 = [c["batch"] * c["heads"], c["seq"], c["embed"] // c["heads"]]
     rows.update(f32_backward_readings(torch, timer, lm256, rows,
@@ -4643,7 +4731,8 @@ def tail_kernel_phase(torch, timer) -> dict:
     """The scalar tails beside the vector forms: ``ln_bwd`` (and
     ``ln_fwd``) at F 1022 over the LM's 32760 rows, bf16, under phase 2's
     LN rule (the vector form's reading is row ``ln_bwd`` at F 1024), the
-    wide kernels at F 12290 over the wide LM's 8192 rows; the welford
+    wide kernels at F 12290 (the backward's 2-wide form) and 12289 (its
+    scalar form) over the wide LM's 8192 rows; the welford
     passes at C 6 and, beside them, C 8 over 256·56·56 rows, bf16 (sums
     within 1e-5·Σ|terms|, dx and dz bit-equal, repeats bit-equal)."""
     from apex_tpu_torch.ops import layer_norm as LN
@@ -4653,7 +4742,8 @@ def tail_kernel_phase(torch, timer) -> dict:
     rows = {}
     for kern, n_rows, f in (("ln_bwd", LM_SHAPE["batch"] *
                              (LM_SHAPE["seq"] - 1), 1022),
-                            ("ln_bwd_wide", 8192, 12290)):
+                            ("ln_bwd_wide", 8192, 12290),
+                            ("ln_bwd_wide", 8192, 12289)):
         x = (torch.randn(n_rows, f, generator=gen, device="cuda") * 2
              + 0.5).to(torch.bfloat16)
         dy = torch.randn(n_rows, f, generator=gen, device="cuda").to(
@@ -4691,7 +4781,8 @@ def tail_kernel_phase(torch, timer) -> dict:
                        shape=[n_rows, f],
                        # fresh tensors are aligned: the width picks the
                        # form (the wide backward's 2-wide at an even F)
-                       form="2-wide" if kern == "ln_bwd_wide" else "scalar",
+                       form="2-wide" if kern == "ln_bwd_wide" and f % 2 == 0
+                       else "scalar",
                        **errs, repeat_equal=rep,
                        ms=timer(lambda: LN.ln_bwd(dy, x, w, mean, inv)),
                        plain_ms=timer(lambda: LN.ln_bwd_plain(dy, x, w, mean,
@@ -4884,10 +4975,11 @@ def tails_train_phase(torch) -> dict:
     56] bf16 in channels_last with a residual (out, dx and dz within
     phase 2's bf16 tolerance, dγ and dβ within 1e-5·Σ|terms|), and
     ``flash_attention`` at head dim 256 over [32, 1024, 256] fp32 causal
-    (the forward, dq and dk/dv in 3xTF32) under the fp32 flash rule and at
-    head dim 320 over [16, 1024, 320] bf16 causal (the simple form,
-    forward and backward) under the flash rule; the kernels' launches
-    counted."""
+    (the forward, dq and dk/dv in 3xTF32) under the fp32 flash rule, and
+    at head dim 320 over [16, 1024, 320] causal in bf16 (the forward and dq
+    at D 384, the simple dk/dv) under the flash rule and in fp32 (the
+    simple form's forward, dq and dk/dv) under the fp32 rule; the kernels'
+    launches counted."""
     from apex_tpu_torch.contrib.multihead_attn import flash_attention
     from apex_tpu_torch.normalization import FusedLayerNorm
     from apex_tpu_torch.ops import dispatch
@@ -4988,18 +5080,20 @@ def tails_train_phase(torch) -> dict:
                   f"{name} uses {errs[name]} of the flash rule")
         return errs
 
-    f32_256, bf16_320 = ([32, 1024, 256], torch.float32), \
-        ([16, 1024, 320], torch.bfloat16)
+    f32_256, bf16_320, f32_320 = ([32, 1024, 256], torch.float32), \
+        ([16, 1024, 320], torch.bfloat16), ([16, 1024, 320], torch.float32)
     ln_pass()
     bn_pass()                       # first use of every form
     flash_pass(*f32_256)
     flash_pass(*bf16_320)
+    flash_pass(*f32_320)
     torch.cuda.synchronize()
     zero_counts()
     lns = [ln_pass() for _ in range(3)]
     bns = [bn_pass() for _ in range(3)]
     fls = [flash_pass(*f32_256) for _ in range(3)]
     wide = [flash_pass(*bf16_320) for _ in range(3)]
+    wide32 = [flash_pass(*f32_320) for _ in range(3)]
     torch.cuda.synchronize()
     counts = read_counts()
     row = {"phase": "tails_train", "fused_layer_norm": {
@@ -5012,6 +5106,9 @@ def tails_train_phase(torch) -> dict:
            "flash_attention_d320": {"shape": [16, 1024, 320],
                                     "dtype": "bfloat16", "causal": True,
                                     "tol_used": wide},
+           "flash_attention_d320_f32": {"shape": [16, 1024, 320],
+                                        "dtype": "float32", "causal": True,
+                                        "tol_used": wide32},
            "launches": {k: counts[k] for k in TAIL_KERNELS}}
     emit(row)
     for k in TAIL_KERNELS:
@@ -5022,7 +5119,7 @@ def tails_train_phase(torch) -> dict:
 TAIL_KERNELS = ("ln_fwd", "ln_bwd", "bn_moments", "bn_backward_fused_reduce",
                 "bn_backward_dx", "flash_simt_fwd", "flash_simt_dq",
                 "flash_simt_dkv", "flash_f32_fwd", "flash_f32_dq",
-                "flash_f32_dkv")
+                "flash_f32_dkv", "flash_d512_fwd", "flash_d512_dq")
 
 
 # -- phases 31-33: lm_bench's LM at 8 heads of 256, bf16 and fp32 ------------
@@ -5183,28 +5280,36 @@ def main() -> int:
     # template argument 256 in their mangled names)
     flash_d256 = {n: e for n, e in {**flash_fwd, **flash_bwd}.items()
                   if "Li256E" in n}
+    # the bf16/fp16 forward and dq at D 384 and 512 (flash_d512.cu)
+    flash_d512 = {n: e for n, e in ptxas.items()
+                  if "flash_fwd_d512_kernel" in n
+                  or "flash_dq_d512_kernel" in n}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "compiled": kcuda.build_seconds is not None, "ptxas": ptxas,
           "flash_fwd_ptxas": flash_fwd, "flash_bwd_ptxas": flash_bwd,
           "flash_f32_ptxas": flash_f32,
           "flash_f32_fwd_ptxas": flash_f32_fwd,
-          "flash_d256_ptxas": flash_d256})
+          "flash_d256_ptxas": flash_d256, "flash_d512_ptxas": flash_d512})
     # bf16 and fp16: 2 x 9 forward forms (3 kinds at D 64, 128, 256) and
     # 2 x 12 backward (dq and dk/dv, plain and extra, at D 64, 128, 256),
     # 6 + 8 of them at D 256; fp32: 12 backward and 6 forward (plain and
-    # extra at D 64, 128, 256)
+    # extra at D 64, 128, 256); at D 384 and 512 2 x 6 forward forms (3
+    # kinds) and 2 x 4 dq (plain and extra)
     check(not kcuda.build_seconds or (len(flash_fwd) == 18
                                       and len(flash_bwd) == 24
                                       and len(flash_d256) == 14
                                       and len(flash_f32) == 12
-                                      and len(flash_f32_fwd) == 6),
+                                      and len(flash_f32_fwd) == 6
+                                      and len(flash_d512) == 20),
           f"ptxas reported {len(flash_fwd)} forward, {len(flash_bwd)} "
           f"backward ({len(flash_d256)} at D 256), {len(flash_f32)} fp32 "
-          f"backward and {len(flash_f32_fwd)} fp32 forward flash forms, "
-          f"not 18, 24 (14), 12 and 6")
+          f"backward, {len(flash_f32_fwd)} fp32 forward and "
+          f"{len(flash_d512)} D-384/512 flash forms, not 18, 24 (14), 12, "
+          f"6 and 20")
     for what, forms in (("forward", flash_fwd), ("backward", flash_bwd),
                         ("fp32 backward", flash_f32),
-                        ("fp32 forward", flash_f32_fwd)):
+                        ("fp32 forward", flash_f32_fwd),
+                        ("D-384/512", flash_d512)):
         check(all(e.get("spill_bytes", 0) == 0 for e in forms.values()),
               f"the flash {what} kernels spill: {forms}")
 
@@ -5348,7 +5453,8 @@ def main() -> int:
     f32counts = lm_dtype_phase(torch, lm, lm_params, "lm_train_f32", None,
                                2, 3, F32_PER_STEP)
     del lm_params
-    # 30. FusedLayerNorm(1022) and SyncBatchNorm(6) trained
+    # 30. FusedLayerNorm(1022) and SyncBatchNorm(6) trained; flash at D 256
+    # in fp32 and at D 320 in bf16 and fp32
     tl_counts = tails_train_phase(torch)
     # 31-32. lm_bench's LM at 8 heads of 256: the D-256 forward and dq in
     # every step; the small LM at head dim 256 against the plain versions
@@ -5487,6 +5593,13 @@ def main() -> int:
         "flash_d256_dkv": ("apex_tpu_torch/ops/cuda/csrc/flash_bwd.cu",
                            "apex_tpu/contrib/multihead_attn/"
                            "flash_attention.py:392"),
+        # the bf16/fp16 forward and dq at D 257-512 on the tensor cores
+        "flash_d512_fwd": ("apex_tpu_torch/ops/cuda/csrc/flash_d512.cu",
+                           "apex_tpu/contrib/multihead_attn/"
+                           "flash_attention.py:181"),
+        "flash_d512_dq": ("apex_tpu_torch/ops/cuda/csrc/flash_d512.cu",
+                          "apex_tpu/contrib/multihead_attn/"
+                          "flash_attention.py:349"),
     }
     # the wide wrappers each take the place of more than one TPU kernel
     also_replaces = {
@@ -5537,7 +5650,11 @@ def main() -> int:
                 # the D-256 kernels at the hd-256 LM's [64, 4096, 256]
                 "flash_d256_fwd": ("flash_d256_fwd", "hd256_lm_bf16"),
                 "flash_d256_dq": ("flash_d256_dq", "hd256_lm_bf16"),
-                "flash_d256_dkv": ("flash_d256_dkv", "hd256_lm_bf16")}
+                "flash_d256_dkv": ("flash_d256_dkv", "hd256_lm_bf16"),
+                # the D-384/512 kernels at [32, 1024, 320] (phase 30's
+                # D-320 pass, read at twice its bh)
+                "flash_d512_fwd": ("flash_d512_fwd", "d320_tc_bf16"),
+                "flash_d512_dq": ("flash_d512_dq", "d320_tc_bf16")}
     sub = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
            "library_ms")
     kernels = []
@@ -5575,6 +5692,10 @@ def main() -> int:
                 for shape, key in (("lm", "bfloat16"), ("wide", "wide"))}
         if name == "flash_bwd_dbias":
             entry["causal"] = {k: rows[(name, "causal")][k] for k in sub}
+            # off the tensor cores (the simple dq's dS) at [32, 1024, 256]
+            entry["d256"] = {dt: {k: rows[(name, f"d256_{dt}")][k]
+                                  for k in sub}
+                             for dt in ("bf16", "f32")}
         if name in ("decode_attention", "paged_decode_attention"):
             # lm_bench's serving shape, head dim 64
             entry["hd64"] = {k: rows[(name, "hd64", "bfloat16")][k]
@@ -5613,7 +5734,9 @@ def main() -> int:
             entry["d256"] = {dt: {k: rows[(name, f"d256_{dt}")][k]
                                   for k in sub}
                              for dt in ("bf16", "f32")}
-            entry["d320"] = {k: rows[(name, "d320_bf16")][k] for k in sub}
+            entry["d320"] = {dt: {k: rows[(name, f"d320_{dt}")][k]
+                                  for k in sub}
+                             for dt in ("bf16", "f32")}
         if name in ("flash_d256_fwd", "flash_d256_dq", "flash_d256_dkv"):
             # [32, 1024, 256] in bf16 (the simple form's time on the same
             # inputs beside it) and fp16; the LM's shape in fp16
@@ -5627,6 +5750,20 @@ def main() -> int:
             # call) at the hd-256 LM's [64, 4096, 256]
             entry["backward"] = {
                 k: rows[("flash_bwd", "hd256_lm_bf16")][k] for k in sub}
+        if name in ("flash_d512_fwd", "flash_d512_dq"):
+            # the simple form's time on the same inputs; fp16, and [16,
+            # 1024, 512] in both
+            entry["simple_ms"] = r["simple_ms"]
+            entry["readings"] = {
+                reading: {k: rows[(name, reading)].get(k)
+                          for k in sub + ("simple_ms",)}
+                for reading in ("d320_tc_f16", "d512_tc_bf16",
+                                "d512_tc_f16")}
+        if name == "flash_d512_dq":
+            # the whole backward at [32, 1024, 320]: flash_delta, this dq
+            # and the simple dk/dv in one timed call
+            entry["backward"] = {
+                k: rows[("flash_bwd", "d320_tc_bf16")][k] for k in sub}
         if name in also_replaces:
             entry["also_replaces"] = also_replaces[name]
             entry["readings"] = {
@@ -5634,7 +5771,7 @@ def main() -> int:
                 for key in rows
                 if len(key) == 2 and key[0] == name and key[1] != "lm"}
         kernels.append(entry)
-    check(len(kernels) == 37 and all(e["launches"] > 0 for e in kernels),
+    check(len(kernels) == 39 and all(e["launches"] > 0 for e in kernels),
           f"kernels line: {[(e['name'], e['launches']) for e in kernels]}")
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "nvidia_smi": nvidia_smi(

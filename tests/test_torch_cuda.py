@@ -2226,16 +2226,23 @@ def _d256_inputs(card, bh, sq, sk, d, dtype, seed):
     return q, k, v, do
 
 
-def _d256_against_plain(q, k, v, do, dtype, **kw):
-    """The D-256 forward, dq and dk/dv (through ``flash_fwd``,
-    ``flash_bwd_dq`` and ``flash_bwd_dkv``, each launching its D-256
-    kernel once) against the plain versions under ``_flash_rule`` (lse
+# the wrappers that count the forms past head dim 128
+WIDE_FORMS = ("flash_d256_fwd", "flash_d256_dq", "flash_d256_dkv",
+              "flash_d512_fwd", "flash_d512_dq", "flash_simt_fwd",
+              "flash_simt_dq", "flash_simt_dkv")
+D256 = ("flash_d256_fwd", "flash_d256_dq", "flash_d256_dkv")
+D512 = ("flash_d512_fwd", "flash_d512_dq", "flash_simt_dkv")
+
+
+def _d256_against_plain(q, k, v, do, dtype, launched=D256, **kw):
+    """The forward, dq and dk/dv past head dim 128 (through ``flash_fwd``,
+    ``flash_bwd_dq`` and ``flash_bwd_dkv``, launching each of
+    ``launched`` once, the D-256 kernels by default, and no other form of
+    ``WIDE_FORMS``) against the plain versions under ``_flash_rule`` (lse
     within 1e-3; dS too when a per-bh bias asks for it), and a second run
     of each equal bit for bit. Returns o, lse, dq, dk, dv."""
     from apex_tpu_torch.ops import flash_attn as FA
-    fns = (FA.flash_d256_fwd, FA.flash_d256_dq, FA.flash_d256_dkv,
-           FA.flash_simt_fwd, FA.flash_simt_dq, FA.flash_simt_dkv)
-    before = [f.launches for f in fns]
+    before = {n: getattr(FA, n).launches for n in WIDE_FORMS}
     bias = kw.get("bias")
     rds = bias is not None and bias.shape[0] > 1
     o, lse = FA.flash_fwd(q, k, v, **kw)
@@ -2243,12 +2250,13 @@ def _d256_against_plain(q, k, v, do, dtype, **kw):
     out = FA.flash_bwd_dq(q, k, v, do, lse, delta, return_ds=rds, **kw)
     dq, ds = out if rds else (out, None)
     dk, dv = FA.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
-    assert [f.launches - n for f, n in zip(fns, before)] == \
-        [1, 1, 1, 0, 0, 0]
+    assert {n: getattr(FA, n).launches - before[n] for n in WIDE_FORMS} == \
+        {n: int(n in launched) for n in WIDE_FORMS}
     plain = dict(kw)
     plain.pop("bias", None)
     o0, lse0 = FA.reference_attention(q, k, v, bias, return_lse=True,
                                       **plain)
+    assert o.dtype == dtype and o.shape == q.shape
     _flash_rule(o, o0, dtype)
     torch.testing.assert_close(lse, lse0, atol=1e-3, rtol=0)
     want = FA.flash_bwd_plain(q, k, v, do, lse, delta, return_ds=rds, **kw)
@@ -2356,13 +2364,14 @@ def test_d256_kernels_at_more_than_65535_heads(card):
 def test_d256_leaves_fp32_and_wider_heads_to_the_simple_form(card, dtype,
                                                              d):
     """fp32 at D 256 takes its forward, dq and dk/dv in 3xTF32 (the pair
-    kernels); bf16 at D 320 goes to the simple form, forward and backward;
-    none of the 16-bit D-256 kernels launches."""
+    kernels); bf16 at D 320 takes the D-384 forward and dq and the simple
+    form's dk/dv; none of the 16-bit D-256 kernels launches."""
     from apex_tpu_torch.contrib.multihead_attn import flash_attention
     from apex_tpu_torch.ops import flash_attn as FA
     q, k, v, do = _d256_inputs(card, 2, 100, 100, d, dtype, d)
     fns = (FA.flash_simt_fwd, FA.flash_simt_dq, FA.flash_simt_dkv,
            FA.flash_f32_fwd, FA.flash_f32_dq, FA.flash_f32_dkv,
+           FA.flash_d512_fwd, FA.flash_d512_dq,
            FA.flash_d256_fwd, FA.flash_d256_dq, FA.flash_d256_dkv,
            FA.flash_fwd, FA.flash_bwd_dq, FA.flash_bwd_dkv)
     before = [f.launches for f in fns]
@@ -2371,7 +2380,114 @@ def test_d256_leaves_fp32_and_wider_heads_to_the_simple_form(card, dtype,
     torch.autograd.grad(o, (qs, ks, vs), do)
     f32 = dtype == torch.float32
     assert [f.launches - n for f, n in zip(fns, before)] == \
-        ([0, 0, 0, 1, 1, 1] if f32 else [1, 1, 1, 0, 0, 0]) + [0] * 6
+        ([0, 0, 0, 1, 1, 1, 0, 0] if f32 else [0, 0, 1, 0, 0, 0, 1, 1]) + \
+        [0] * 6
+
+
+# -- the bf16/fp16 forward and dq at head dims 257-512 (run at D 384, 512) ---
+
+# bh, sq, sk, d, causal, q_start, k_start: blocks of 64 query rows, the
+# forward's 32-key tiles and dq's 32 (D 384) or 16 (D 512), ragged tails,
+# offsets, widths not a multiple of 8 (257, 300: copied to 264, 304) and
+# ones whose last 64-column tile the maps fill wholly with zeros (257,
+# 448)
+D512_CASES = [
+    (2, 300, 300, 320, True, 0, 0), (2, 197, 197, 512, False, 0, 0),
+    (2, 1023, 1023, 448, True, 0, 0), (3, 130, 100, 257, True, -50, 0),
+    (2, 33, 100, 384, True, 67, 0), (1, 255, 256, 300, False, 0, 0),
+    (2, 129, 255, 257, True, 0, 10), (1, 1, 5, 512, False, 0, 0),
+    (2, 64, 31, 320, True, 0, 0), (1, 128, 97, 512, False, 5, 3),
+    (2, 65, 63, 448, True, 0, 1), (2, 200, 191, 384, True, 9, 0)]
+
+
+@pytest.mark.parametrize("case", D512_CASES,
+                         ids=["-".join(map(str, c)) for c in D512_CASES])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "f16"])
+def test_d512_kernels_match_plain_and_repeat(card, dtype, case):
+    bh, sq, sk, d, causal, q_start, k_start = case
+    q, k, v, do = _d256_inputs(card, bh, sq, sk, d, dtype, sq + sk + d)
+    _d256_against_plain(q, k, v, do, dtype, D512, causal=causal,
+                        scale=d ** -0.5, q_start=q_start, k_start=k_start)
+
+
+@pytest.mark.parametrize("extra", ["kv_bias", "bias", "bias_bh", "dropout",
+                                   "all"])
+@pytest.mark.parametrize("d,dtype", [(320, torch.bfloat16),
+                                     (512, torch.bfloat16),
+                                     (300, torch.float16),
+                                     (448, torch.float16)],
+                         ids=["320-bf16", "512-bf16", "300-f16", "448-f16"])
+def test_d512_kernels_with_biases_and_dropout(card, d, dtype, extra):
+    """A kv_bias masking the last keys, a full bias shared over bh or one
+    per bh (dq's dS), dropout 0.1, and all of them at once, causal with
+    offsets, at [3, 261, d] (and Sk 250)."""
+    bh, sq, sk = 3, 261, 250
+    q, k, v, do = _d256_inputs(card, bh, sq, sk, d, dtype, d)
+    g = torch.Generator(device=card).manual_seed(d + 1)
+    kvb = torch.zeros(bh, sk, device=card)
+    kvb[:, -9:] = -1e30
+    full = torch.randn(bh, sq, sk, generator=g, device=card)
+    kw = dict(causal=True, scale=d ** -0.5, q_start=20, k_start=0)
+    if extra in ("kv_bias", "all"):
+        kw["kv_bias"] = kvb
+    if extra in ("bias", "all"):
+        kw["bias"] = full[:1]
+    if extra == "bias_bh":
+        kw["bias"] = full
+    if extra in ("dropout", "all"):
+        kw.update(dropout_rate=0.1, dropout_seed=11)
+    _d256_against_plain(q, k, v, do, dtype, D512, **kw)
+
+
+def test_d512_rows_that_see_nothing(card):
+    """Causal rows before every key (q_start -70): lse = NEG_INF, o and dq
+    exactly 0; the rest under the flash rule."""
+    from apex_tpu_torch.ops import flash_attn as FA
+    q, k, v, do = _d256_inputs(card, 2, 150, 64, 320, torch.bfloat16, 3)
+    o, lse, dq, _, _ = _d256_against_plain(q, k, v, do, torch.bfloat16,
+                                           D512, causal=True,
+                                           scale=320 ** -0.5, q_start=-70)
+    assert bool((lse[:, :70] == FA.NEG_INF).all())
+    assert not o[:, :70].any() and not dq[:, :70].any()
+
+
+def test_d512_kernels_read_strided_views(card):
+    """q, k and v as head slices of a packed [BH, S, 3 · 320] projection
+    (row stride 960, no copy) give the bits of their contiguous copies."""
+    from apex_tpu_torch.ops import flash_attn as FA
+    g = torch.Generator(device=card).manual_seed(17)
+    qkv = torch.randn(4, 200, 3 * 320, generator=g, device=card).bfloat16()
+    q, k, v = qkv[..., :320], qkv[..., 320:640], qkv[..., 640:]
+    do = torch.randn(4, 200, 320, generator=g, device=card).bfloat16()
+    kw = dict(causal=True, scale=320 ** -0.5)
+    o, lse = FA.flash_fwd(q, k, v, **kw)
+    oc, lsec = FA.flash_fwd(q.contiguous(), k.contiguous(), v.contiguous(),
+                            **kw)
+    assert torch.equal(o, oc) and torch.equal(lse, lsec)
+    delta = FA.flash_delta(o, do)
+    dq = FA.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    assert torch.equal(dq, FA.flash_bwd_dq(q.contiguous(), k.contiguous(),
+                                           v.contiguous(), do, lse, delta,
+                                           **kw))
+
+
+def test_d512_kernels_at_more_than_65535_heads(card):
+    """BH = 65536 + 7 at D 320, S 16: the heads around and past 65535 give
+    the same bits as a launch of their own and hold against the plain
+    versions."""
+    from apex_tpu_torch.ops import flash_attn as FA
+    bh, s, d = 65536 + 7, 16, 320
+    q, k, v, do = _d256_inputs(card, bh, s, s, d, torch.bfloat16, 9)
+    kw = dict(causal=True, scale=d ** -0.5)
+    o, lse = FA.flash_fwd(q, k, v, **kw)
+    delta = FA.flash_delta(o, do)
+    dq = FA.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    tail = slice(65536 - 9, bh)
+    got = _d256_against_plain(q[tail], k[tail], v[tail], do[tail],
+                              torch.bfloat16, D512, **kw)
+    for a, b0 in zip((o, lse, dq), got):
+        assert torch.equal(a[tail], b0)
 
 
 # -- the fp32 dq and dk/dv at head dims 129-256 (3xTF32 pair kernels) ---------

@@ -4,10 +4,11 @@ kernels now take.
 On the card bf16 and fp16 at a head dim up to 128 go to the tensor-core
 kernels with q, k, v (and dO) zero-padded to 64 or 128 and the outputs
 sliced back (``padded_head_dim``, ``_pad_d``, ``_unpad``; the JAX package
-pads D to 128 lanes), the real D's scale passed; past 128 their forward
-and dq go, padded to 256, to the D-256 kernels
-(tests/test_torch_flash_d256.py) and dk/dv to the simple form, as fp32
-past 128 does. Here, on the CPU: the padding itself (pad, the plain
+pads D to 128 lanes), the real D's scale passed; past 128 their forward,
+dq and dk/dv go, padded to 256, to the D-256 kernels
+(tests/test_torch_flash_d256.py), and past 256 their forward and dq to
+the D-384/512 kernels (tests/test_torch_flash_d512.py) and dk/dv to the
+simple form, as fp32 past 256 does. Here, on the CPU: the padding itself (pad, the plain
 versions at the padded width with the real scale, slice) against the JAX
 package's ``flash_attention`` (its Pallas kernels in interpret mode) at D
 96 and 32, forward, lse and the gradients; and the port's
@@ -64,11 +65,15 @@ def test_padded_head_dim(d, dp):
     (torch.bfloat16, 256, False, ("tc256", "tc256", "tc256")),
     (torch.float32, 64, False, ("f32", "f32", "f32")),
     (torch.float32, 256, False, ("f32", "f32", "f32")),
-    (torch.bfloat16, 512, False, ("simt", "simt", "simt"))])
+    (torch.bfloat16, 512, False, ("tc512", "tc512", "simt")),
+    (torch.float16, 257, False, ("tc512", "tc512", "simt")),
+    (torch.float32, 257, False, ("simt", "simt", "simt"))])
 def test_the_form_follows_dtype_and_head_dim(dtype, d, tc, forms):
     """``tensor_cores``: every 16-bit kernel on the tensor cores (D <= 128);
-    past 128 the forward, dq and dk/dv take their D-256 form up to 256;
-    fp32 there its 3xTF32 forward, dq and dk/dv."""
+    past 128 the forward, dq and dk/dv take their D-256 form up to 256,
+    and the forward and dq their D-384/512 form up to 512 (dk/dv the
+    simple form); fp32 to 256 its 3xTF32 forward, dq and dk/dv, past it
+    the simple form."""
     q = torch.zeros(2, 3, d, dtype=dtype)
     assert FA.tensor_cores(q) == tc
     assert tuple(FA.kernel_form(q, k) for k in ("fwd", "dq", "dkv")) == forms
