@@ -182,15 +182,16 @@ def _declare(so: ctypes.CDLL) -> None:
     so.apex_flash_bwd_dbias.restype = I
     # the simple form: the dtype, pointers, then the strides (bh, row) of
     # q, k, v (and dO) in elements
-    # (the fp32 forward on the tensor cores takes the same)
-    for name in ("apex_flash_simt_fwd", "apex_flash_f32_fwd"):
+    # (the fp32 forwards on the tensor cores take the same)
+    for name in ("apex_flash_simt_fwd", "apex_flash_f32_fwd",
+                 "apex_flash_f32_d512_fwd"):
         getattr(so, name).argtypes = [I] + [P] * 5 + [L] * 6 + tail
         getattr(so, name).restype = I
     # the fp32 backward on the tensor cores takes the simple form's
     # arguments
     for name in ("apex_flash_simt_dq", "apex_flash_simt_dkv",
                  "apex_flash_simt_dbias", "apex_flash_f32_dq",
-                 "apex_flash_f32_dkv"):
+                 "apex_flash_f32_dkv", "apex_flash_f32_d512_dq"):
         getattr(so, name).argtypes = [I] + [P] * 8 + [L] * 8 + tail
         getattr(so, name).restype = I
     so.apex_xent_fwd.argtypes = [I, P, L, P, I, I, I, I, F, F, P, P, P]

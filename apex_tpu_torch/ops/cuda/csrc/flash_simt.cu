@@ -5,8 +5,10 @@
 // dim past 128, up to 512, in fp32, bf16 or fp16 (bf16 and fp16: dk/dv
 // past 256, the forward, dq and dk/dv taking D 129-256 on the tensor cores
 // at D 256 and the forward and dq D 257-512 at D 384 and 512, and the
-// shared-bias gradient at any D past 128; fp32: the forward, dq and dk/dv
-// past 256), and fp32's shared-bias gradient at any head dim. (At D <=
+// shared-bias gradient at any D past 128; fp32: dk/dv past 256, the
+// forward and dq there taking 3xTF32 at D 384 and 512 in
+// csrc/flash_f32_d512.cu), and fp32's shared-bias gradient at any head
+// dim. (At D <=
 // 128 the tensor-core kernels pad D to 64 or 128.) The semantics they
 // keep
 // from the Pallas kernels are csrc/flash_common.cuh's: causal masking by

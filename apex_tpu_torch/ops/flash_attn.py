@@ -20,7 +20,7 @@ gradient):
   gradient of a bias [1, Sq, Sk] shared over bh, dS summed over bh; its
   plain version is :func:`flash_bwd_dbias_plain`.
 
-Five forms of kernel serve them, each kernel's own
+Six forms of kernel serve them, each kernel's own
 (:func:`kernel_form` picks for the forward, dq and dk/dv):
 
 ========  ==========  ================  ================  ================
@@ -32,7 +32,8 @@ bf16/f16  257-512     "tc512" (384,     "tc512" (384,     "simt"
                       512)              512)
 fp32      1-128       "f32" (64, 128)   "f32" (64, 128)   "f32" (64, 128)
 fp32      129-256     "f32" (256)       "f32" (256)       "f32" (256)
-fp32      257-512     "simt"            "simt"            "simt"
+fp32      257-512     "f32_512" (384,   "f32_512" (384,   "simt"
+                      512)              512)
 ========  ==========  ================  ================  ================
 
 "tc" is the Hopper kernels above at D 64 or 128 and "tc256" the same
@@ -48,7 +49,12 @@ copies filling the rest with zeros (:func:`_kernel_width`) — and the real
 D's scale passed.
 "f32" is ``ops/cuda/csrc/flash_f32.cu``, 3xTF32 products on the tensor
 cores (:func:`flash_f32_fwd`, :func:`flash_f32_dq`, :func:`flash_f32_dkv`),
-padded alike. "simt" is the simple form of ``ops/cuda/csrc/flash_simt.cu``:
+padded alike; "f32_512" is ``ops/cuda/csrc/flash_f32_d512.cu``'s forward and
+dq in 3xTF32 at D 384 and 512 (:func:`flash_f32_d512_fwd`,
+:func:`flash_f32_d512_dq`: pairs of warps over 16 query rows, D split
+between the two), the tensors handed at their width rounded up to a
+multiple of 4 (:func:`_f32x_ready`: the kernels zero the columns past it).
+"simt" is the simple form of ``ops/cuda/csrc/flash_simt.cu``:
 fp32 FMAs, a warp a row (:func:`flash_simt_fwd`, :func:`flash_simt_dq`,
 :func:`flash_simt_dkv`); :func:`flash_bwd_dbias` takes the tensor-core
 kernel at bf16/fp16 D <= 128 and otherwise sums the simple dq kernel's
@@ -79,9 +85,9 @@ Their bh index is b·H + h, the order of ``_split_heads``.
 For tensors on the CPU each wrapper runs its plain version; for tensors on
 the card it launches its kernel, and raises on a dtype other than fp32,
 bf16 and fp16 or a head dim past 512. The kernels read q, k, v and dO through
-their strides (the last dim contiguous, every stride a multiple of 8
-elements, the base 16-byte aligned); a view that is not so is copied once
-to a contiguous tensor. The forward, dq and dk/dv copy their tiles by TMA,
+their strides (the last dim contiguous, every stride a multiple of 16
+bytes, the base 16-byte aligned); a view that is not so is copied once to
+a contiguous tensor. The forward, dq and dk/dv copy their tiles by TMA,
 which also takes no broadcast view: the wrappers describe each tensor's
 map (:func:`tma_layout`: dims, byte strides, the box) and the grid's
 blocks of rows (:func:`row_blocks`). The biases are cast once to
@@ -106,7 +112,8 @@ __all__ = ["NEG_INF", "KERNEL_HEAD_DIMS", "DKV_HEAD_DIMS", "F32_HEAD_DIMS",
            "flash_d256_dq", "flash_d256_dkv", "flash_d512_fwd",
            "flash_d512_dq", "flash_simt_fwd",
            "flash_simt_dq", "flash_simt_dkv", "flash_f32_fwd", "flash_f32_dq",
-           "flash_f32_dkv", "kernel_form", "tensor_cores", "padded_head_dim",
+           "flash_f32_dkv", "flash_f32_d512_fwd", "flash_f32_d512_dq",
+           "kernel_form", "tensor_cores", "padded_head_dim",
            "BLOCK_ROWS", "TMA_BOX", "DQ_D256_KEYS", "DKV_D256_KEYS",
            "D512_ROWS", "FWD_D512_KEYS", "DQ_D512_KEYS", "tma_layout",
            "row_blocks"]
@@ -397,11 +404,14 @@ def _unpad(t: torch.Tensor, d: int) -> torch.Tensor:
 
 
 def _readable(t: torch.Tensor) -> torch.Tensor:
-    """``t`` when the kernel can read it through its strides, else one
-    contiguous copy (a fresh one: a contiguous view at a misaligned base
-    is its own ``contiguous()``)."""
-    if t.stride(-1) == 1 and t.stride(0) % 8 == 0 and t.stride(1) % 8 == 0 \
-            and t.data_ptr() % 16 == 0:
+    """``t`` when the kernel can read it through its strides in 16-byte
+    pieces (the last dim contiguous, every other stride a multiple of 16
+    bytes, the base 16-byte aligned), else one contiguous copy (a fresh
+    one: a contiguous view at a misaligned base is its own
+    ``contiguous()``)."""
+    unit = 16 // t.element_size()
+    if t.stride(-1) == 1 and t.stride(0) % unit == 0 \
+            and t.stride(1) % unit == 0 and t.data_ptr() % 16 == 0:
         return t
     return t.clone(memory_format=torch.contiguous_format)
 
@@ -505,7 +515,8 @@ def flash_fwd(q, k, v, *, causal: bool = False, scale=None,
     [1|BH, Sk], ``bias`` [1|BH, Sq, Sk] and dropout. On the card, as
     :func:`kernel_form` picks: the tensor-core kernel at D <= 128 (counted
     here), :func:`flash_d256_fwd`, :func:`flash_d512_fwd`,
-    :func:`flash_f32_fwd` or :func:`flash_simt_fwd`."""
+    :func:`flash_f32_fwd`, :func:`flash_f32_d512_fwd` or
+    :func:`flash_simt_fwd`."""
     if scale is None:
         scale = 1.0 / float(q.shape[-1]) ** 0.5
     cfg = dict(causal=causal, scale=scale, q_start=q_start, k_start=k_start,
@@ -517,8 +528,8 @@ def flash_fwd(q, k, v, *, causal: bool = False, scale=None,
     form = kernel_form(q, "fwd")
     if form != "tc":
         return {"tc256": flash_d256_fwd, "tc512": flash_d512_fwd,
-                "f32": flash_f32_fwd, "simt": flash_simt_fwd}[form](
-                    q, k, v, **cfg)
+                "f32": flash_f32_fwd, "f32_512": flash_f32_d512_fwd,
+                "simt": flash_simt_fwd}[form](q, k, v, **cfg)
     return _tc_fwd(flash_fwd, q, k, v, **cfg)
 
 
@@ -630,7 +641,7 @@ def flash_simt_fwd(q, k, v, *, causal: bool = False, scale=None,
                    bias=None, dropout_rate: float = 0.0, dropout_seed=0):
     """:func:`flash_fwd` by the simple form (``flash_simt.cu``): any of
     fp32, bf16, fp16 and a head dim up to 512 (:func:`flash_fwd` sends it
-    fp32 past 256)."""
+    nothing: every dtype and head dim has a tensor-core form)."""
     if scale is None:
         scale = 1.0 / float(q.shape[-1]) ** 0.5
     if not dispatch.use_kernel(q):
@@ -703,6 +714,58 @@ def flash_f32_fwd(q, k, v, *, causal: bool = False, scale=None,
 flash_f32_fwd.launches = 0
 
 
+def _f32x_ready(what: str, *ts):
+    """q, k, v (and dO) for the fp32 forward and dq at D 257-512
+    (``flash_f32_d512.cu``): checked, a head dim that is not a multiple of
+    4 zero-padded to the next one, and readable by their 16-byte copies
+    (:func:`_readable`). The kernels zero the columns from there to 384 or
+    512 themselves."""
+    _check(what, *ts)
+    q = ts[0]
+    if kernel_form(q, "fwd") != "f32_512":
+        raise ValueError(f"{what}: takes fp32 at a head dim of "
+                         f"{KERNEL_HEAD_DIMS[2] + 1} to {KERNEL_HEAD_DIMS[4]}"
+                         f", got {q.dtype} at {q.shape[-1]}")
+    dw = -(-q.shape[-1] // 4) * 4
+    return tuple(_readable(_pad_d(t, dw)) for t in ts)
+
+
+def flash_f32_d512_fwd(q, k, v, *, causal: bool = False, scale=None,
+                       q_start: int = 0, k_start: int = 0, kv_bias=None,
+                       bias=None, dropout_rate: float = 0.0,
+                       dropout_seed=0):
+    """:func:`flash_fwd` in fp32 on the tensor cores in 3xTF32 at D 384
+    and 512 (``flash_f32_d512.cu``: pairs of warps over 16 query rows, each
+    warp holding half of O's columns, the partial scores traded): fp32 at a
+    head dim of 257 to 512, handed at a multiple of 4 (:func:`_f32x_ready`;
+    the real D's scale passed)."""
+    if scale is None:
+        scale = 1.0 / float(q.shape[-1]) ** 0.5
+    if not dispatch.use_kernel(q):
+        return _fwd_plain(q, k, v, causal=causal, scale=scale,
+                          q_start=q_start, k_start=k_start, kv_bias=kv_bias,
+                          bias=bias, dropout_rate=dropout_rate,
+                          dropout_seed=dropout_seed)
+    what = "flash_f32_d512_fwd"
+    d = q.shape[-1]
+    q, k, v = _f32x_ready(what, q, k, v)
+    bh, sq, dw = q.shape
+    tail, _keep_alive = _tail(what, q, k, kv_bias, bias, dropout_rate,
+                              dropout_seed, causal, scale, q_start, k_start)
+    o = torch.empty((bh, sq, dw), dtype=q.dtype, device=q.device)
+    lse = torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+    err = _cuda.lib().apex_flash_f32_d512_fwd(
+        _cuda.dtype_code(q.dtype, what), q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), o.data_ptr(), lse.data_ptr(), *_strides(q, k, v),
+        *tail)
+    _cuda.check(err, what)
+    flash_f32_d512_fwd.launches += 1
+    return _unpad(o, d), lse
+
+
+flash_f32_d512_fwd.launches = 0
+
+
 _KERNELS = ("fwd", "dq", "dkv")
 
 
@@ -712,8 +775,9 @@ def kernel_form(q: torch.Tensor, kernel: str = "fwd") -> str:
     kernels at D <= 128; "tc256", the same at D 129-256 (padded to 256);
     "tc512", the bf16/fp16 forward and dq at D 257-512 (run at 384 or
     512); "f32", the fp32 ones (3xTF32 on the tensor cores,
-    ``flash_f32.cu``) at D <= 256; "simt", the simple form, for the rest
-    (dk/dv past 256 among it)."""
+    ``flash_f32.cu``) at D <= 256; "f32_512", the fp32 forward and dq at D
+    257-512 (3xTF32 at 384 or 512, ``flash_f32_d512.cu``); "simt", the
+    simple form, for the rest: dk/dv past 256."""
     if kernel not in _KERNELS:
         raise ValueError(f"kernel_form: kernel must be one of {_KERNELS}, "
                          f"got {kernel!r}")
@@ -727,6 +791,9 @@ def kernel_form(q: torch.Tensor, kernel: str = "fwd") -> str:
         return "tc512"
     if q.dtype == torch.float32 and d <= F32_HEAD_DIMS[-1]:
         return "f32"
+    if q.dtype == torch.float32 and d <= KERNEL_HEAD_DIMS[4] \
+            and kernel != "dkv":
+        return "f32_512"
     return "simt"
 
 
@@ -734,10 +801,13 @@ def _bwd_args(what, q, k, v, do, lse, delta, form="simt"):
     """The checked backward inputs of the kernels of ``form`` (as
     :func:`kernel_form` names them): q, k, v, dO padded to
     :func:`_kernel_width` and readable by TMA ("tc", "tc256", "tc512") or
-    by 16-byte copies ("f32", :func:`_f32_ready`), or with their last dim
-    contiguous ("simt"); lse and delta fp32 [BH, Sq]."""
+    by 16-byte copies ("f32", :func:`_f32_ready`; "f32_512",
+    :func:`_f32x_ready`), or with their last dim contiguous ("simt"); lse
+    and delta fp32 [BH, Sq]."""
     if form == "f32":
         q, k, v, do = _f32_ready(what, q, k, v, do)
+    elif form == "f32_512":
+        q, k, v, do = _f32x_ready(what, q, k, v, do)
     else:
         _check(what, q, k, v, do)
     if form == "simt":
@@ -760,7 +830,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool, scale: float,
     [BH, Sq, Sk], the gradient of a per-bh bias. On the card, as
     :func:`kernel_form` picks: the tensor-core kernel at D <= 128 (counted
     here), :func:`flash_d256_dq`, :func:`flash_d512_dq`,
-    :func:`flash_f32_dq` or :func:`flash_simt_dq`."""
+    :func:`flash_f32_dq`, :func:`flash_f32_d512_dq` or
+    :func:`flash_simt_dq`."""
     kw = dict(causal=causal, scale=scale, q_start=q_start, k_start=k_start,
               kv_bias=kv_bias, bias=bias, dropout_rate=dropout_rate,
               dropout_seed=dropout_seed)
@@ -775,7 +846,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool, scale: float,
     form = kernel_form(q, "dq")
     if form != "tc":
         return {"tc256": flash_d256_dq, "tc512": flash_d512_dq,
-                "f32": flash_f32_dq, "simt": flash_simt_dq}[form](
+                "f32": flash_f32_dq, "f32_512": flash_f32_d512_dq,
+                "simt": flash_simt_dq}[form](
             q, k, v, do, lse, delta, return_ds=return_ds, **kw)
     return _tc_dq(flash_bwd_dq, "tc", q, k, v, do, lse, delta,
                   return_ds=return_ds, **kw)
@@ -873,8 +945,9 @@ flash_d512_dq.launches = 0
 def _strided_dq(wrapper, entry: str, form: str, q, k, v, do, lse, delta,
                 *, return_ds: bool, **kw):
     """dq (and dS) by a kernel that takes q, k, v and dO through their
-    strides: the simple form (``form`` "simt") or the fp32 tensor-core form
-    ("f32"), C entry point ``entry``; ``wrapper`` counts the launch."""
+    strides: the simple form (``form`` "simt") or the fp32 tensor-core forms
+    ("f32", "f32_512"), C entry point ``entry``; ``wrapper`` counts the
+    launch."""
     what = wrapper.__name__
     if return_ds and kw["bias"] is None:
         raise ValueError(f"{what}: return_ds needs the bias whose gradient "
@@ -959,6 +1032,25 @@ def flash_f32_dq(q, k, v, do, lse, delta, *, causal: bool, scale: float,
 
 
 flash_f32_dq.launches = 0
+
+
+def flash_f32_d512_dq(q, k, v, do, lse, delta, *, causal: bool,
+                      scale: float, q_start: int = 0, k_start: int = 0,
+                      kv_bias=None, bias=None, dropout_rate: float = 0.0,
+                      dropout_seed=0, return_ds: bool = False):
+    """:func:`flash_bwd_dq` in fp32 on the tensor cores in 3xTF32 at D 384
+    and 512 (``flash_f32_d512.cu``: pairs of warps over 16 query rows, one
+    making S and P, the other dP, each holding half of dq's columns): fp32
+    at a head dim of 257 to 512, handed as :func:`flash_f32_d512_fwd`
+    (the real D's scale passed)."""
+    return _strided_dq(flash_f32_d512_dq, "apex_flash_f32_d512_dq",
+                       "f32_512", q, k, v, do, lse, delta, causal=causal,
+                       scale=scale, q_start=q_start, k_start=k_start,
+                       kv_bias=kv_bias, bias=bias, dropout_rate=dropout_rate,
+                       dropout_seed=dropout_seed, return_ds=return_ds)
+
+
+flash_f32_d512_dq.launches = 0
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool, scale: float,

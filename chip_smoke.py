@@ -30,9 +30,10 @@ lm_bench's LM at 8 heads of 256 (the flash forward, dq and dk/dv at D
    (``flash_f32_ptxas``: 12 forms, D 64 and 128 and the pair kernels at
    256, plain and with a bias or dropout) and the fp32 forward's
    (``flash_f32_fwd_ptxas``: 6 forms, D 64, 128 and 256, plain and with a
-   bias or dropout) and the bf16/fp16 forward's and dq's at D 384 and 512
-   (``flash_d512_ptxas``: 12 forward and 8 dq forms), none of whose forms
-   may spill.
+   bias or dropout), the bf16/fp16 forward's and dq's at D 384 and 512
+   (``flash_d512_ptxas``: 12 forward and 8 dq forms) and the fp32 ones'
+   there (``flash_f32_d512_ptxas``: 4 forward and 4 dq forms, plain and
+   with a bias or dropout), none of whose forms may spill.
 2. kernels — each kernel against its plain PyTorch version on the card,
    at its path's shapes: max abs error against the stated tolerance, the
    kernel's time, the plain version's, one PyTorch library call's where
@@ -140,9 +141,15 @@ lm_bench's LM at 8 heads of 256 (the flash forward, dq and dk/dv at D
    and fp16, at [32, 1024, 320] (``d320_tc_bf16``, with the whole
    backward, ``d320_tc_f16``) and [16, 1024, 512] (``d512_tc_bf16``,
    ``d512_tc_f16``), the simple forward's and dq's times on the same
-   inputs beside them; ``flash_bwd_dbias`` off the tensor cores at [32,
-   1024, 256] causal in bf16 and fp32 (``d256_bf16``, ``d256_f32``: SDPA's
-   backward with a learned [1, 1, Sq, Sk] mask beside it); the D-256
+   inputs beside them; the fp32 forward and dq there in 3xTF32
+   (``flash_f32_d512_fwd``, ``flash_f32_d512_dq``) with the simple dk/dv
+   at [32, 1024, 320] (``d320_f32x``, with the whole backward) and [16,
+   1024, 512] (``d512_f32x``): the fp32 rule, lse within 1e-4, bounds at
+   165 and 67 TFLOP/s, the simple forward's and dq's times on the same
+   inputs and SDPA fp32's beside them; ``flash_bwd_dbias`` off the
+   tensor cores at [32, 1024, 256] causal in bf16 and fp32
+   (``d256_bf16``, ``d256_f32``: SDPA's backward with a learned [1, 1,
+   Sq, Sk] mask beside it); the D-256
    forward, dq and dk/dv (``flash_d256_fwd``,
    ``flash_d256_dq``, ``flash_d256_dkv``), in bf16 and fp16, at [32,
    1024, 256] (``d256_tc_bf16``, ``d256_tc_f16``: the simple form's times
@@ -349,9 +356,10 @@ lm_bench's LM at 8 heads of 256 (the flash forward, dq and dk/dv at D
     residual, ``flash_attention`` at head dim 256 over [32, 1024, 256]
     fp32 (the 3xTF32 forward, dq and dk/dv) and at head dim 320 over [16,
     1024, 320] bf16 (the forward and dq at D 384, ``flash_d512_fwd`` and
-    ``flash_d512_dq``, and the simple dk/dv) and fp32 (the simple form's
-    forward, dq and dk/dv), 3 forward/backward passes each against the
-    plain versions.
+    ``flash_d512_dq``, and the simple dk/dv) and fp32 (the 3xTF32 forward
+    and dq at D 384, ``flash_f32_d512_fwd`` and ``flash_f32_d512_dq``, and
+    the simple dk/dv), 3 forward/backward passes each against the plain
+    versions.
 31. lm_train_hd256 — ``tools/lm_bench.py --dim 2048 --heads 8`` (8
     layers of 2048, 8 heads of 256: Gemma 2B's attention shape; vocab
     32768, S 4096, batch 8, attention "fast", random weights from seed 0),
@@ -368,11 +376,12 @@ lm_bench's LM at 8 heads of 256 (the flash forward, dq and dk/dv at D
     and ``flash_f32_dkv``, none of the simple form's or the 16-bit
     kernels'; losses finite, the mean of the last 3 below the first; MFU
     against 67 TFLOP/s.
-34. the ``{"kernels": [...]}`` line (39 kernels; dq's and dk/dv's
-    entries also carry their ``wide`` reading and the whole backward's,
-    ``backward``, at both shapes, the D-256 ones the whole backward at
-    [64, 4096, 256]; the fp32 ones their readings at D 256), then the
-    ``ok`` line.
+34. the ``{"kernels": [...], "off_path": [...]}`` line (39 kernels; dq's
+    and dk/dv's entries also carry their ``wide`` reading and the whole
+    backward's, ``backward``, at both shapes, the D-256 ones the whole
+    backward at [64, 4096, 256]; the fp32 ones their readings at D 256;
+    ``off_path``: the simple forward and dq, which no path takes, with
+    their phase-2 readings and 0 launches), then the ``ok`` line.
 
 Times are CUDA-event medians of single calls with the L2 cache flushed
 before each and the stream held busy, so host launch time is not counted.
@@ -1310,12 +1319,14 @@ def flash_repeats(torch, args, kw, outs) -> dict:
 
 
 def flash_bwd_row(torch, timer, tensors, kw, errs, rep, lib_bwd,
-                  pairs: int, common: dict) -> dict:
+                  pairs: int, common: dict,
+                  ops_s: float = BF16_DENSE_OPS_S) -> dict:
     """The whole backward as the autograd Function runs it, one timed
     call: ``flash_delta``, dq and dk/dv (the plain version: ``flash_delta``
     and ``flash_bwd_plain``), beside SDPA's backward; its bound is the
-    backward's own least work, five products (10·D·pairs operations) and
-    its bytes (q, k, v, o, dO and lse read once; dq, dk, dv written)."""
+    backward's own least work, five products (10·D·pairs operations, at
+    ``ops_s``) and its bytes (q, k, v, o, dO and lse read once; dq, dk, dv
+    written)."""
     from apex_tpu_torch.ops import flash_attn as FA
     q, k, v, o, do, lse = tensors
     bh, s, d = q.shape
@@ -1325,9 +1336,8 @@ def flash_bwd_row(torch, timer, tensors, kw, errs, rep, lib_bwd,
         dq_fn(q, k, v, do, lse, delta, **kw)
         dkv_fn(q, k, v, do, lse, delta, **kw)
 
-    sz = bh * s * d * 2
-    b_ms, b_by = bound(8 * sz + 4 * bh * s, 10 * d * pairs,
-                       BF16_DENSE_OPS_S)
+    sz = bh * s * d * q.element_size()
+    b_ms, b_by = bound(8 * sz + 4 * bh * s, 10 * d * pairs, ops_s)
     return dict(common, kernel="flash_bwd",
                 kernels="flash_delta + flash_bwd_dq + flash_bwd_dkv",
                 max_abs_err=max(errs[w]["max_abs_err"]
@@ -1885,7 +1895,9 @@ def counters():
             "flash_d256_dq": FA.flash_d256_dq,
             "flash_d256_dkv": FA.flash_d256_dkv,
             "flash_d512_fwd": FA.flash_d512_fwd,
-            "flash_d512_dq": FA.flash_d512_dq}
+            "flash_d512_dq": FA.flash_d512_dq,
+            "flash_f32_d512_fwd": FA.flash_f32_d512_fwd,
+            "flash_f32_d512_dq": FA.flash_f32_d512_dq}
 
 
 def zero_counts() -> None:
@@ -2039,7 +2051,8 @@ LM_KERNEL_FAMILIES = (
     ("flash kernels", ("flash_fwd_kernel", "flash_dq_kernel",
                        "flash_dkv_kernel", "flash_dkv_split_kernel",
                        "simt_fwd_kernel", "simt_dq_kernel", "simt_dkv_kernel",
-                       "f32_fwd_kernel") + F32_BWD_KERNELS),
+                       "f32_fwd_kernel", "f32x_fwd_kernel",
+                       "f32x_dq_kernel") + F32_BWD_KERNELS),
     ("LN kernels", ("ln_fwd_kernel", "ln_bwd_kernel", "ln_wide",
                     "finalize_kernel")),
     ("Adam", ("adam_kernel",)),
@@ -4273,18 +4286,23 @@ def decode_kernel_phase(torch, timer) -> dict:
 def flash_bits(torch) -> dict:
     """The first 16 hex digits of the sha256 of the bf16 flash kernels' o,
     lse, dq, dk and dv at the LM's [128, 4095, 64] and the wide LM's [384,
-    2048, 128], causal, from seeded inputs: one package's bits, to hold
-    against another's (the fp16 forms must leave bf16's unchanged)."""
+    2048, 128], and of the fp32 (3xTF32) kernels' at the LM's shape and at
+    [32, 1024, 256], causal, from seeded inputs: one package's bits, to
+    hold against another's (the fp16 forms must leave bf16's unchanged,
+    the fp32 forms past D 256 those at D <= 256)."""
     import hashlib
 
     from apex_tpu_torch.ops import flash_attn as FA
 
     out = {}
-    for name, (bh, s, d) in (("lm", (128, 4095, 64)),
-                             ("wide", (384, 2048, 128))):
+    for name, (bh, s, d), dt in (
+            ("lm", (128, 4095, 64), torch.bfloat16),
+            ("wide", (384, 2048, 128), torch.bfloat16),
+            ("f32_lm", (128, 4095, 64), torch.float32),
+            ("f32_d256", (32, 1024, 256), torch.float32)):
         gen = torch.Generator(device="cuda").manual_seed(5)
         q, k, v, do = (torch.randn(bh, s, d, generator=gen, device="cuda")
-                       .to(torch.bfloat16) for _ in range(4))
+                       .to(dt) for _ in range(4))
         kw = dict(causal=True, scale=d ** -0.5)
         o, lse = FA.flash_fwd(q, k, v, **kw)
         delta = FA.flash_delta(o, do)
@@ -4307,18 +4325,22 @@ def form_inputs(torch, shape, dt):
 
 
 def flash_form_readings(torch, timer, reading, shape, dt, fns, ops_s,
-                        plain_group=16, whole=False, simple=None) -> dict:
+                        plain_group=16, whole=False, simple=None,
+                        lse_tol=1e-3, fma_ops_s=None) -> dict:
     """One form of the flash kernels at [BH, S, D] causal in dtype dt: the
     forward, dq and dk/dv (``fns``: the three wrappers) against the plain
     versions on the first heads under ``flash_err`` in dt (lse within
-    1e-3),
+    ``lse_tol``),
     the rule refusing a result 5% off, each output repeated bit for bit;
     times beside the plain versions' (the forward head group by head
     group), SDPA's in dt and the bounds at ``ops_s``; with ``whole`` also
     the whole backward as autograd runs it (``flash_bwd_row``, keyed
     ("flash_bwd", reading)); with ``simple`` (the simple form's forward
     and dq) their times on the same inputs beside the forward's and dq's
-    (``simple_ms``)."""
+    (``simple_ms``); with ``fma_ops_s`` (the forward's and dq's fp32
+    products in 3xTF32 at ``ops_s``) their bounds at fp32 FMAs' rate too
+    (``bound_fma_ms``), and dk/dv's (the simple form's FMAs) at that rate
+    alone."""
     import torch.nn.functional as F
 
     from apex_tpu_torch.ops import flash_attn as FA
@@ -4342,7 +4364,7 @@ def flash_form_readings(torch, timer, reading, shape, dt, fns, ops_s,
             for w, a, b0 in zip(("o", "dq", "dk", "dv"), (o, dq, dk, dv),
                                 (o0, *want))}
     lse_err = float((lse[:n] - lse0).abs().max())
-    check(lse_err <= 1e-3, f"flash {reading} lse: {lse_err} > 1e-3")
+    check(lse_err <= lse_tol, f"flash {reading} lse: {lse_err} > {lse_tol}")
     for w, e in errs.items():
         check(e["used"] <= 1.0, f"flash {reading} {w}: {e}")
     late = torch.arange(S, device="cuda")[None, :, None] >= S // 2
@@ -4384,11 +4406,18 @@ def flash_form_readings(torch, timer, reading, shape, dt, fns, ops_s,
                   library_covers="dq, dk and dv (one SDPA backward)")
     fwd_b = bound(4 * sz + 4 * BH * S, 4 * D * pairs, ops_s)
     dq_b = bound(5 * sz + 8 * BH * S, 6 * D * pairs, ops_s)
-    dkv_b = bound(6 * sz + 8 * BH * S, 8 * D * pairs, ops_s)
+    dkv_b = bound(6 * sz + 8 * BH * S, 8 * D * pairs, fma_ops_s or ops_s)
     was = {} if simple is None else {
         fwd.__name__: timer(lambda: simple[0](q, k, v, **kw)),
         dq_fn.__name__: timer(lambda: simple[1](*args, **kw))}
     out = {}
+    fma = {} if fma_ops_s is None else {
+        name: {"bound_fma_ms": bound(nb, ops, fma_ops_s)[0],
+               "products": "3xTF32"}
+        for name, nb, ops in ((fwd.__name__, 4 * sz + 4 * BH * S,
+                               4 * D * pairs),
+                              (dq_fn.__name__, 5 * sz + 8 * BH * S,
+                               6 * D * pairs))}
     for r in (
             dict(common, kernel=fwd.__name__,
                  max_abs_err=errs["o"]["max_abs_err"],
@@ -4417,11 +4446,12 @@ def flash_form_readings(torch, timer, reading, shape, dt, fns, ops_s,
                  bound_by=dkv_b[1])):
         if r["kernel"] in was:
             r["simple_ms"] = was[r["kernel"]]
+        r.update(fma.get(r["kernel"], {}))
         emit({"phase": "kernels", **r})
         out[(r["kernel"], reading)] = r
     if whole:
         r = flash_bwd_row(torch, timer, (q, k, v, o, do, lse), kw, errs,
-                          rep, lib_bwd, pairs, common)
+                          rep, lib_bwd, pairs, common, ops_s)
         emit({"phase": "kernels", **r})
         out[("flash_bwd", reading)] = r
     return out
@@ -4681,6 +4711,16 @@ def flash_forms_phase(torch, timer) -> dict:
             rows.update(flash_form_readings(
                 torch, timer, reading, shape, dt, tc512, BF16_DENSE_OPS_S,
                 whole=reading == "d320_tc_bf16", simple=simt))
+    # and in fp32, in 3xTF32 (the bounds at 3xTF32's rate and at fp32
+    # FMAs'; lse within 1e-4), the simple forward and dq timed on the same
+    # inputs, the whole backward at [32, 1024, 320]
+    f32x = (FA.flash_f32_d512_fwd, FA.flash_f32_d512_dq, FA.flash_simt_dkv)
+    for shape, reading in ((d320, "d320_f32x"), ([16, 1024, 512],
+                                                 "d512_f32x")):
+        rows.update(flash_form_readings(
+            torch, timer, reading, shape, torch.float32, f32x, TF32X3_OPS_S,
+            plain_group=8, whole=reading == "d320_f32x", simple=simt,
+            lse_tol=1e-4, fma_ops_s=FP32_OPS_S))
     rows.update(d256_dbias_readings(torch, timer))
     c = HD256_SHAPE
     lm256 = [c["batch"] * c["heads"], c["seq"], c["embed"] // c["heads"]]
@@ -4978,8 +5018,8 @@ def tails_train_phase(torch) -> dict:
     (the forward, dq and dk/dv in 3xTF32) under the fp32 flash rule, and
     at head dim 320 over [16, 1024, 320] causal in bf16 (the forward and dq
     at D 384, the simple dk/dv) under the flash rule and in fp32 (the
-    simple form's forward, dq and dk/dv) under the fp32 rule; the kernels'
-    launches counted."""
+    forward and dq in 3xTF32 at D 384, the simple dk/dv) under the fp32
+    rule; the kernels' launches counted."""
     from apex_tpu_torch.contrib.multihead_attn import flash_attention
     from apex_tpu_torch.normalization import FusedLayerNorm
     from apex_tpu_torch.ops import dispatch
@@ -5117,9 +5157,9 @@ def tails_train_phase(torch) -> dict:
 
 
 TAIL_KERNELS = ("ln_fwd", "ln_bwd", "bn_moments", "bn_backward_fused_reduce",
-                "bn_backward_dx", "flash_simt_fwd", "flash_simt_dq",
-                "flash_simt_dkv", "flash_f32_fwd", "flash_f32_dq",
-                "flash_f32_dkv", "flash_d512_fwd", "flash_d512_dq")
+                "bn_backward_dx", "flash_simt_dkv", "flash_f32_fwd",
+                "flash_f32_dq", "flash_f32_dkv", "flash_d512_fwd",
+                "flash_d512_dq", "flash_f32_d512_fwd", "flash_f32_d512_dq")
 
 
 # -- phases 31-33: lm_bench's LM at 8 heads of 256, bf16 and fp32 ------------
@@ -5280,36 +5320,43 @@ def main() -> int:
     # template argument 256 in their mangled names)
     flash_d256 = {n: e for n, e in {**flash_fwd, **flash_bwd}.items()
                   if "Li256E" in n}
-    # the bf16/fp16 forward and dq at D 384 and 512 (flash_d512.cu)
+    # the bf16/fp16 forward and dq at D 384 and 512 (flash_d512.cu), and
+    # the fp32 ones in 3xTF32 (flash_f32_d512.cu)
     flash_d512 = {n: e for n, e in ptxas.items()
                   if "flash_fwd_d512_kernel" in n
                   or "flash_dq_d512_kernel" in n}
+    flash_f32_d512 = {n: e for n, e in ptxas.items()
+                      if "f32x_fwd_kernel" in n or "f32x_dq_kernel" in n}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "compiled": kcuda.build_seconds is not None, "ptxas": ptxas,
           "flash_fwd_ptxas": flash_fwd, "flash_bwd_ptxas": flash_bwd,
           "flash_f32_ptxas": flash_f32,
           "flash_f32_fwd_ptxas": flash_f32_fwd,
-          "flash_d256_ptxas": flash_d256, "flash_d512_ptxas": flash_d512})
+          "flash_d256_ptxas": flash_d256, "flash_d512_ptxas": flash_d512,
+          "flash_f32_d512_ptxas": flash_f32_d512})
     # bf16 and fp16: 2 x 9 forward forms (3 kinds at D 64, 128, 256) and
     # 2 x 12 backward (dq and dk/dv, plain and extra, at D 64, 128, 256),
     # 6 + 8 of them at D 256; fp32: 12 backward and 6 forward (plain and
     # extra at D 64, 128, 256); at D 384 and 512 2 x 6 forward forms (3
-    # kinds) and 2 x 4 dq (plain and extra)
+    # kinds) and 2 x 4 dq (plain and extra), and in fp32 2 x 2 forward
+    # and 2 x 2 dq (plain and extra)
     check(not kcuda.build_seconds or (len(flash_fwd) == 18
                                       and len(flash_bwd) == 24
                                       and len(flash_d256) == 14
                                       and len(flash_f32) == 12
                                       and len(flash_f32_fwd) == 6
-                                      and len(flash_d512) == 20),
+                                      and len(flash_d512) == 20
+                                      and len(flash_f32_d512) == 8),
           f"ptxas reported {len(flash_fwd)} forward, {len(flash_bwd)} "
           f"backward ({len(flash_d256)} at D 256), {len(flash_f32)} fp32 "
-          f"backward, {len(flash_f32_fwd)} fp32 forward and "
-          f"{len(flash_d512)} D-384/512 flash forms, not 18, 24 (14), 12, "
-          f"6 and 20")
+          f"backward, {len(flash_f32_fwd)} fp32 forward, "
+          f"{len(flash_d512)} D-384/512 and {len(flash_f32_d512)} fp32 "
+          f"D-384/512 flash forms, not 18, 24 (14), 12, 6, 20 and 8")
     for what, forms in (("forward", flash_fwd), ("backward", flash_bwd),
                         ("fp32 backward", flash_f32),
                         ("fp32 forward", flash_f32_fwd),
-                        ("D-384/512", flash_d512)):
+                        ("D-384/512", flash_d512),
+                        ("fp32 D-384/512", flash_f32_d512)):
         check(all(e.get("spill_bytes", 0) == 0 for e in forms.values()),
               f"the flash {what} kernels spill: {forms}")
 
@@ -5352,7 +5399,7 @@ def main() -> int:
     # kernels' fp16 forms and the simple form; the scalar tails
     rows.update(decode_kernel_phase(torch, timer))
     rows.update(flash_forms_phase(torch, timer))
-    emit({"phase": "flash_bf16_bits", **flash_bits(torch)})
+    emit({"phase": "flash_bits", **flash_bits(torch)})
     emit({"phase": "ln_wide_bits", **ln_wide_bits(torch)})
     rows.update(tail_kernel_phase(torch, timer))
     emit({"phase": "timer", "calls": timer.calls, "redone": timer.redone,
@@ -5600,7 +5647,19 @@ def main() -> int:
         "flash_d512_dq": ("apex_tpu_torch/ops/cuda/csrc/flash_d512.cu",
                           "apex_tpu/contrib/multihead_attn/"
                           "flash_attention.py:349"),
+        # the fp32 forward and dq at D 257-512 in 3xTF32
+        "flash_f32_d512_fwd": (
+            "apex_tpu_torch/ops/cuda/csrc/flash_f32_d512.cu",
+            "apex_tpu/contrib/multihead_attn/flash_attention.py:181"),
+        "flash_f32_d512_dq": (
+            "apex_tpu_torch/ops/cuda/csrc/flash_f32_d512.cu",
+            "apex_tpu/contrib/multihead_attn/flash_attention.py:349"),
     }
+    # the simple forward and dq: no path of the port takes them since the
+    # fp32 forward and dq past D 256 went to the 3xTF32 kernels (their
+    # launches on the paths are 0); phase 2 still builds, holds and times
+    # them, and their readings ride beside the kernels line's
+    off_path = ("flash_simt_fwd", "flash_simt_dq")
     # the wide wrappers each take the place of more than one TPU kernel
     also_replaces = {
         "ln_fwd_wide": ["apex_tpu/ops/pallas/layer_norm.py:227"],
@@ -5654,10 +5713,14 @@ def main() -> int:
                 # the D-384/512 kernels at [32, 1024, 320] (phase 30's
                 # D-320 pass, read at twice its bh)
                 "flash_d512_fwd": ("flash_d512_fwd", "d320_tc_bf16"),
-                "flash_d512_dq": ("flash_d512_dq", "d320_tc_bf16")}
+                "flash_d512_dq": ("flash_d512_dq", "d320_tc_bf16"),
+                # the fp32 D-384/512 kernels at [32, 1024, 320] (phase
+                # 30's fp32 D-320 pass, read at twice its bh)
+                "flash_f32_d512_fwd": ("flash_f32_d512_fwd", "d320_f32x"),
+                "flash_f32_d512_dq": ("flash_f32_d512_dq", "d320_f32x")}
     sub = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
            "library_ms")
-    kernels = []
+    kernels, off = [], []
     for name, (src, repl) in sources.items():
         r = rows[row_keys[name]]
         entry = {"name": name, "route": "cuda", "source": src,
@@ -5764,19 +5827,34 @@ def main() -> int:
             # and the simple dk/dv in one timed call
             entry["backward"] = {
                 k: rows[("flash_bwd", "d320_tc_bf16")][k] for k in sub}
+        if name in ("flash_f32_d512_fwd", "flash_f32_d512_dq"):
+            # the bound at fp32 FMAs' rate, the simple form's time on the
+            # same inputs; [16, 1024, 512]
+            entry["bound_fma_ms"] = r["bound_fma_ms"]
+            entry["simple_ms"] = r["simple_ms"]
+            entry["readings"] = {"d512_f32x": {
+                k: rows[(name, "d512_f32x")].get(k)
+                for k in sub + ("bound_fma_ms", "simple_ms")}}
+        if name == "flash_f32_d512_dq":
+            # the whole backward at [32, 1024, 320] in fp32: flash_delta,
+            # this dq and the simple dk/dv in one timed call
+            entry["backward"] = {
+                k: rows[("flash_bwd", "d320_f32x")][k] for k in sub}
         if name in also_replaces:
             entry["also_replaces"] = also_replaces[name]
             entry["readings"] = {
                 key[1]: {k: rows[key].get(k) for k in sub}
                 for key in rows
                 if len(key) == 2 and key[0] == name and key[1] != "lm"}
-        kernels.append(entry)
-    check(len(kernels) == 39 and all(e["launches"] > 0 for e in kernels),
-          f"kernels line: {[(e['name'], e['launches']) for e in kernels]}")
+        (off if name in off_path else kernels).append(entry)
+    check(len(kernels) == 39 and all(e["launches"] > 0 for e in kernels)
+          and len(off) == 2 and all(e["launches"] == 0 for e in off),
+          f"kernels line: {[(e['name'], e['launches']) for e in kernels]}, "
+          f"off the paths: {[(e['name'], e['launches']) for e in off]}")
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,
           "nvidia_smi": nvidia_smi(
               "clocks.sm,power.draw,power.limit,temperature.gpu")})
-    emit({"kernels": kernels})
+    emit({"kernels": kernels, "off_path": off})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -13,14 +13,19 @@ flushed); at D 64 its dq and dk/dv likewise, against ``flash_bwd_plain``.
 Then every variant's forward at edge cases (offsets, ragged tails, biases,
 dropout). ``d256bwd`` does the same for dq and dk/dv at D 256 (dS too, at
 the edge cases with a full bias), with the simple form's times on the same
-inputs. One JSON line each; the card's name and power limit last. Run
-from the repository root on the card::
+inputs. ``d512`` builds ``flash_f32_d512.cu`` alone per variant and does
+the same for its forward and dq at D 384 and 512 ([32, 1024, 320] and
+[16, 1024, 512]), the simple form's forward and dq timed beside them. One
+JSON line each; the card's name and power limit last. Run from the
+repository root on the card::
 
     python3 flash_f32_ab.py tile     # the forward's staged keys a tile
     python3 flash_f32_ab.py exp      # the forward's exponentials, P's split
     python3 flash_f32_ab.py d256     # the forward's warps and keys at D 256
     python3 flash_f32_ab.py d256bwd  # dq's and dk/dv's blocks at D 256
     python3 flash_f32_ab.py d256ops  # their instruction choices at D 256
+    python3 flash_f32_ab.py d512     # the blocks of the forward and dq at
+                                     # D 384 and 512
 """
 
 from __future__ import annotations
@@ -124,6 +129,42 @@ _DKV_MASKED = [(_DKV_OPEN_PATH, """          const int c = 8 * n + 2 * t + (i & 
                                   x[n][i]);
           x[n][i] = sc > kNegInf * 0.5f ? ex2(sc - lb[c] * kLog2e) : 0.f;""")]
 
+def _x(**forms) -> list:
+    """``flash_f32_d512.cu``'s blocks in place of the committed ones, per
+    form (``f384``, ``f512``: the forward at D 384, 512; ``q384``,
+    ``q512``: dq): (pairs of warps, keys a tile, tiles raw) each; a form
+    not named keeps the committed shape."""
+    cur = {"f": {384: None, 512: None}, "q": {384: None, 512: None}}
+    for name, shape in forms.items():
+        cur[name[0]][int(name[1:])] = shape
+    subs = []
+    for k in "fq":
+        for i, knob in enumerate(("pairs", "tile", "raw")):
+            a, b = (cur[k][d][i] if cur[k][d] is not None else None
+                    for d in (384, 512))
+            if a is None and b is None:
+                continue
+            pat = re.compile(rf"(x{k}_{knob}\(\) {{\n  return D == 384 \? )"
+                             rf"(\w+) : (\w+);")
+
+            def sub(m, a=a, b=b):
+                new_a = m.group(2) if a is None else str(a).lower()
+                new_b = m.group(3) if b is None else str(b).lower()
+                return f"{m.group(1)}{new_a} : {new_b};"
+            subs.append((pat, sub))
+    return subs
+
+
+# dq's and the forward's edge cases at D 257-512
+_CASES_D512 = [(3, 1, 63, 512, True, 62, 0, None, False, 0.0),
+               (3, 65, 127, 257, True, 64, 2, None, False, 0.0),
+               (3, 200, 77, 384, True, 5, 130, None, False, 0.0),
+               (3, 300, 250, 448, True, -40, 0, None, False, 0.0),
+               (4, 197, 200, 320, False, 0, 0, None, True, 0.0),
+               (4, 197, 197, 300, False, 0, 0, 1, False, 0.0),
+               (4, 257, 257, 512, True, 0, 0, None, False, 0.1),
+               (4, 129, 200, 318, True, 71, 0, "bh", True, 0.2)]
+
 SETS = {
     # the committed 64 keys a tile at D 64 and 32 at D 128, against 32 and
     # 16
@@ -175,16 +216,40 @@ SETS = {
         "dkv_chain1": _DKV_CHAIN1},
         shapes=[[32, 1024, 256], [64, 4096, 256]], backward=True,
         cases=_CASES_D256, mode="bwd256", seeds=range(100, 112)),
+    # the forward's and dq's blocks at D 384 and 512: (pairs of warps, keys
+    # a tile, tiles raw) per form, the shapes whose shared memory fits;
+    # each build varies every form, so each form's candidates are read
+    # across the builds
+    "d512": dict(variants={
+        "committed": [],
+        "v2": _x(f384=(4, 8, True), f512=(2, 16, True), q384=(3, 8, True),
+                 q512=(1, 16, True)),
+        "v3": _x(f384=(3, 16, True), f512=(3, 8, True), q384=(2, 8, True),
+                 q512=(1, 8, True)),
+        "v4": _x(f384=(2, 16, True), f512=(2, 8, True), q384=(1, 16, True),
+                 q512=(1, 8, False)),
+        "v5": _x(f384=(4, 8, False), f512=(2, 8, False),
+                 q384=(2, 8, False), q512=(2, 8, True)),
+        "v6": _x(f384=(4, 16, True), f512=(4, 8, True), q384=(2, 16, True),
+                 q512=(2, 8, True)),
+        "v7": _x(f384=(4, 16, True), f512=(4, 8, True), q384=(3, 8, False),
+                 q512=(2, 8, True))},
+        shapes=[[32, 1024, 320], [16, 1024, 512]], cases=_CASES_D512,
+        mode="d512", source="flash_f32_d512.cu"),
 }
 
 
-def build(variants: dict, nvcc, arch, flags, ptxas_table) -> dict:
-    src = (CSRC / "flash_f32.cu").read_text()
+def build(variants: dict, nvcc, arch, flags, ptxas_table,
+          source: str = "flash_f32.cu") -> dict:
+    src = (CSRC / source).read_text()
     procs = {}
     for name, subs in variants.items():
         text = src
         for old, new in subs:
-            if isinstance(old, re.Pattern):
+            if isinstance(old, re.Pattern) and callable(new):
+                text, n = old.subn(new, text)
+                n = min(n, 1) if n else 0
+            elif isinstance(old, re.Pattern):
                 text, n = old.subn(new, text)
             else:
                 n = text.count(old)
@@ -194,9 +259,9 @@ def build(variants: dict, nvcc, arch, flags, ptxas_table) -> dict:
                                  f"times in the source")
         d = Path("_ab/v") / name
         d.mkdir(parents=True, exist_ok=True)
-        (d / "flash_f32.cu").write_text(text)
+        (d / source).write_text(text)
         cmd = [nvcc, *arch, *flags, "-I", str(CSRC), "-shared", "-o",
-               str(d / "lib.so"), str(d / "flash_f32.cu")]
+               str(d / "lib.so"), str(d / source)]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.PIPE, text=True)
     P, I, F, L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
@@ -207,15 +272,18 @@ def build(variants: dict, nvcc, arch, flags, ptxas_table) -> dict:
     for name, p in procs.items():
         _, err = p.communicate()
         print(json.dumps({"variant": name, "rc": p.returncode, "ptxas": {
-            n[n.rindex("f32_"):][:40]: e for n, e in ptxas_table(err).items()
-            if "f32_" in n}}), flush=True)
+            n[n.rindex("f32"):][:40]: e for n, e in ptxas_table(err).items()
+            if "f32" in n}}), flush=True)
         if p.returncode != 0:             # reported, left out
             print(json.dumps({"variant": name, "error": err[-6000:]}),
                   flush=True)
             continue
         so = ctypes.CDLL(str(Path("_ab/v") / name / "lib.so"))
-        so.apex_flash_f32_fwd.argtypes = [I] + [P] * 5 + [L] * 6 + tail
-        for fn in ("apex_flash_f32_dq", "apex_flash_f32_dkv"):
+        wide = source == "flash_f32_d512.cu"
+        fwd = "apex_flash_f32_d512_fwd" if wide else "apex_flash_f32_fwd"
+        getattr(so, fwd).argtypes = [I] + [P] * 5 + [L] * 6 + tail
+        for fn in (("apex_flash_f32_d512_dq",) if wide else
+                   ("apex_flash_f32_dq", "apex_flash_f32_dkv")):
             getattr(so, fn).argtypes = [I] + [P] * 8 + [L] * 8 + tail
         libs[name] = so
     return libs
@@ -235,7 +303,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = SETS[sys.argv[1]]
     libs = build(cfg["variants"], kcuda._nvcc(), kcuda._ARCH, kcuda._FLAGS,
-                 cs.ptxas_table)
+                 cs.ptxas_table, cfg.get("source", "flash_f32.cu"))
 
     def fwd(so, q, k, v, kw):
         d = q.shape[-1]
@@ -273,8 +341,9 @@ def main() -> int:
 
     timer = cs.Timer(torch)
     n = cs.FLASH_CHECK_HEADS
-    if cfg.get("mode") == "bwd256":
-        bwd256(torch, cs, kcuda, FA, libs, cfg, timer)
+    if cfg.get("mode") in ("bwd256", "d512"):
+        {"bwd256": bwd256, "d512": d512}[cfg["mode"]](
+            torch, cs, kcuda, FA, libs, cfg, timer)
         print(cs.nvidia_smi("name,power.limit"))
         return 0
     for shape in cfg["shapes"]:
@@ -480,6 +549,119 @@ def bwd256(torch, cs, kcuda, FA, libs, cfg, timer) -> None:
             torch.cuda.synchronize()
             print(json.dumps({"case": case, "variant": name,
                               "tol_used": held(got, want)}), flush=True)
+
+
+def d512(torch, cs, kcuda, FA, libs, cfg, timer) -> None:
+    """The forward and dq at D 384 and 512 of every variant: at each shape
+    (causal, ``form_inputs``) o and lse against ``reference_attention`` and
+    dq against ``flash_bwd_plain`` (o, lse, delta from the plain forward)
+    on the first heads under the fp32 flash rule (lse within 1e-4), each
+    repeated bit for bit, then timed in turns twice, the simple form's
+    forward and dq on the same inputs beside them; then at the edge cases
+    (biases, dropout, dS with a full bias)."""
+    n = cs.FLASH_CHECK_HEADS
+
+    def call(so, which, q, k, v, do, lse, delta, kw, ds=False):
+        d = q.shape[-1]
+        dw = -(-d // 4) * 4
+        qp, kp, vp, dop = (FA._pad_d(t, dw).contiguous()
+                           for t in (q, k, v, do))
+        args, _keep = FA._tail("ab", qp, kp, kw.get("kv_bias"),
+                               kw.get("bias"), kw.get("dropout_rate", 0.0),
+                               kw.get("dropout_seed", 0), kw["causal"],
+                               kw["scale"], kw.get("q_start", 0),
+                               kw.get("k_start", 0))
+        if which == "fwd":
+            o = torch.empty(qp.shape, device="cuda")
+            lse_o = torch.empty(qp.shape[:2], device="cuda")
+            kcuda.check(so.apex_flash_f32_d512_fwd(
+                0, qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), o.data_ptr(),
+                lse_o.data_ptr(), *FA._strides(qp, kp, vp), *args), "fwd")
+            return o[..., :d], lse_o
+        dq = torch.empty_like(qp)
+        dsm = torch.empty(q.shape[0], q.shape[1], k.shape[1],
+                          device="cuda") if ds else None
+        ptrs = [t.data_ptr() for t in (qp, kp, vp, dop, lse, delta)]
+        kcuda.check(so.apex_flash_f32_d512_dq(
+            0, *ptrs, dq.data_ptr(), None if dsm is None else dsm.data_ptr(),
+            *FA._strides(qp, kp, vp, dop), *args), "dq")
+        return (dq[..., :d],) + ((dsm,) if ds else ())
+
+    def used(a, b):
+        return cs.flash_err(torch, a, b, torch.float32)["used"]
+
+    for shape in cfg["shapes"]:
+        bh, s, d = shape
+        q, k, v, do = cs.form_inputs(torch, shape, torch.float32)
+        kw = dict(causal=True, scale=d ** -0.5)
+        o0, lse0 = FA.reference_attention(q, k, v, return_lse=True, **kw)
+        delta = FA.flash_delta(o0, do)
+        args = (q, k, v, do, lse0, delta)
+        want = FA.flash_bwd_plain(*(t[:n] for t in args), **kw)[0]
+        res = {name: {} for name in libs}
+        for name, so in libs.items():
+            o, lse = call(so, "fwd", *args, kw)
+            o2, lse2 = call(so, "fwd", *args, kw)
+            dq = call(so, "dq", *args, kw)[0]
+            dq2 = call(so, "dq", *args, kw)[0]
+            torch.cuda.synchronize()
+            res[name].update(
+                o_used=used(o[:n], o0[:n]),
+                lse_err=float((lse[:n] - lse0[:n]).abs().max()),
+                dq_used=used(dq[:n], want),
+                repeat_equal=bool(torch.equal(o, o2) and torch.equal(lse, lse2)
+                                  and torch.equal(dq, dq2)))
+            del o, lse, o2, lse2, dq, dq2
+        for order in (list(libs), list(libs)[::-1]):
+            for name in order:
+                for which in ("fwd", "dq"):
+                    res[name].setdefault(which + "_ms", []).append(
+                        timer(lambda: call(libs[name], which, *args, kw)))
+        simple = {"fwd_ms": timer(lambda: FA.flash_simt_fwd(q, k, v, **kw)),
+                  "dq_ms": timer(lambda: FA.flash_simt_dq(*args, **kw))}
+        for name, r in res.items():
+            print(json.dumps({"shape": shape, "variant": name, **r}),
+                  flush=True)
+        print(json.dumps({"shape": shape, "variant": "simple form",
+                          **simple}), flush=True)
+        del q, k, v, do, o0, lse0, delta, args, want
+    for case in cfg["cases"]:
+        bh, sq, sk, d, causal, q_start, k_start, rows, kvb, rate = case
+        g = torch.Generator(device="cuda").manual_seed(sq * sk + d)
+        q, do = (torch.randn(bh, sq, d, generator=g, device="cuda")
+                 for _ in range(2))
+        k, v = (torch.randn(bh, sk, d, generator=g, device="cuda")
+                for _ in range(2))
+        kw = dict(causal=causal, scale=d ** -0.5, q_start=q_start,
+                  k_start=k_start, dropout_rate=rate, dropout_seed=-123)
+        if kvb:
+            kw["kv_bias"] = torch.where(
+                torch.rand(bh, sk, generator=g, device="cuda") < 0.25,
+                FA.NEG_INF, 0.0)
+        bias = None
+        if rows is not None:
+            bias = torch.randn(1 if rows == 1 else bh, sq, sk, generator=g,
+                               device="cuda")
+            bias[..., ::7] = FA.NEG_INF
+        o0, lse0 = FA.reference_attention(q, k, v, bias, return_lse=True,
+                                          **kw)
+        kw["bias"] = bias
+        delta = FA.flash_delta(o0, do)
+        ds = bias is not None
+        want = FA.flash_bwd_plain(q, k, v, do, lse0, delta, return_ds=ds,
+                                  **kw)
+        for name, so in libs.items():
+            o, lse = call(so, "fwd", q, k, v, do, lse0, delta, kw)
+            got = call(so, "dq", q, k, v, do, lse0, delta, kw, ds)
+            torch.cuda.synchronize()
+            live = lse0 > FA.NEG_INF * 0.5
+            print(json.dumps({
+                "case": case, "variant": name, "o_used": used(o, o0),
+                "lse_err": float((lse - lse0)[live].abs().max())
+                if bool(live.any()) else 0.0,
+                "dq_used": used(got[0], want[0]),
+                "ds_used": used(got[1], want[3]) if ds else None}),
+                flush=True)
 
 
 if __name__ == "__main__":

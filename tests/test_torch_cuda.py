@@ -2229,18 +2229,22 @@ def _d256_inputs(card, bh, sq, sk, d, dtype, seed):
 # the wrappers that count the forms past head dim 128
 WIDE_FORMS = ("flash_d256_fwd", "flash_d256_dq", "flash_d256_dkv",
               "flash_d512_fwd", "flash_d512_dq", "flash_simt_fwd",
-              "flash_simt_dq", "flash_simt_dkv")
+              "flash_simt_dq", "flash_simt_dkv", "flash_f32_d512_fwd",
+              "flash_f32_d512_dq")
 D256 = ("flash_d256_fwd", "flash_d256_dq", "flash_d256_dkv")
 D512 = ("flash_d512_fwd", "flash_d512_dq", "flash_simt_dkv")
+F32X = ("flash_f32_d512_fwd", "flash_f32_d512_dq", "flash_simt_dkv")
 
 
-def _d256_against_plain(q, k, v, do, dtype, launched=D256, **kw):
+def _d256_against_plain(q, k, v, do, dtype, launched=D256, lse_tol=1e-3,
+                        **kw):
     """The forward, dq and dk/dv past head dim 128 (through ``flash_fwd``,
     ``flash_bwd_dq`` and ``flash_bwd_dkv``, launching each of
     ``launched`` once, the D-256 kernels by default, and no other form of
     ``WIDE_FORMS``) against the plain versions under ``_flash_rule`` (lse
-    within 1e-3; dS too when a per-bh bias asks for it), and a second run
-    of each equal bit for bit. Returns o, lse, dq, dk, dv."""
+    within ``lse_tol``; dS too when a per-bh bias asks for it, under the
+    bf16 rule, fp32's in fp32), and a second run of each equal bit for
+    bit. Returns o, lse, dq, dk, dv."""
     from apex_tpu_torch.ops import flash_attn as FA
     before = {n: getattr(FA, n).launches for n in WIDE_FORMS}
     bias = kw.get("bias")
@@ -2258,14 +2262,15 @@ def _d256_against_plain(q, k, v, do, dtype, launched=D256, **kw):
                                       **plain)
     assert o.dtype == dtype and o.shape == q.shape
     _flash_rule(o, o0, dtype)
-    torch.testing.assert_close(lse, lse0, atol=1e-3, rtol=0)
+    torch.testing.assert_close(lse, lse0, atol=lse_tol, rtol=0)
     want = FA.flash_bwd_plain(q, k, v, do, lse, delta, return_ds=rds, **kw)
     assert dq.dtype == dtype and dq.shape == q.shape
     for a, b0 in zip((dq, dk, dv), want[:3]):
         assert a.dtype == dtype and a.shape == b0.shape
         _flash_rule(a, b0, dtype)
     if rds:
-        _flash_rule(ds, want[3], torch.bfloat16)
+        _flash_rule(ds, want[3], torch.float32 if dtype == torch.float32
+                    else torch.bfloat16)
     again = FA.flash_fwd(q, k, v, **kw)
     assert torch.equal(again[0], o) and torch.equal(again[1], lse)
     out2 = FA.flash_bwd_dq(q, k, v, do, lse, delta, return_ds=rds, **kw)
@@ -2359,28 +2364,32 @@ def test_d256_kernels_at_more_than_65535_heads(card):
 
 
 @pytest.mark.parametrize("dtype,d", [(torch.float32, 256),
-                                     (torch.bfloat16, 320)],
-                         ids=["f32-256", "bf16-320"])
+                                     (torch.bfloat16, 320),
+                                     (torch.float32, 320)],
+                         ids=["f32-256", "bf16-320", "f32-320"])
 def test_d256_leaves_fp32_and_wider_heads_to_the_simple_form(card, dtype,
                                                              d):
     """fp32 at D 256 takes its forward, dq and dk/dv in 3xTF32 (the pair
     kernels); bf16 at D 320 takes the D-384 forward and dq and the simple
-    form's dk/dv; none of the 16-bit D-256 kernels launches."""
+    form's dk/dv, fp32 there the 3xTF32 forward and dq at D 384 and the
+    simple dk/dv; none of the 16-bit D-256 kernels launches."""
     from apex_tpu_torch.contrib.multihead_attn import flash_attention
     from apex_tpu_torch.ops import flash_attn as FA
     q, k, v, do = _d256_inputs(card, 2, 100, 100, d, dtype, d)
     fns = (FA.flash_simt_fwd, FA.flash_simt_dq, FA.flash_simt_dkv,
            FA.flash_f32_fwd, FA.flash_f32_dq, FA.flash_f32_dkv,
            FA.flash_d512_fwd, FA.flash_d512_dq,
+           FA.flash_f32_d512_fwd, FA.flash_f32_d512_dq,
            FA.flash_d256_fwd, FA.flash_d256_dq, FA.flash_d256_dkv,
            FA.flash_fwd, FA.flash_bwd_dq, FA.flash_bwd_dkv)
     before = [f.launches for f in fns]
     qs, ks, vs = (t.clone().requires_grad_(True) for t in (q, k, v))
     o = flash_attention(qs, ks, vs, causal=True)
     torch.autograd.grad(o, (qs, ks, vs), do)
-    f32 = dtype == torch.float32
-    assert [f.launches - n for f, n in zip(fns, before)] == \
-        ([0, 0, 0, 1, 1, 1, 0, 0] if f32 else [0, 0, 1, 0, 0, 0, 1, 1]) + \
+    assert [f.launches - n for f, n in zip(fns, before)] == {
+        (torch.float32, 256): [0, 0, 0, 1, 1, 1, 0, 0, 0, 0],
+        (torch.bfloat16, 320): [0, 0, 1, 0, 0, 0, 1, 1, 0, 0],
+        (torch.float32, 320): [0, 0, 1, 0, 0, 0, 0, 0, 1, 1]}[(dtype, d)] + \
         [0] * 6
 
 
@@ -2631,3 +2640,159 @@ def test_d256_shared_bias_gradient_in_bf16_and_fp16(card, dtype, d):
     _flash_rule(got, want, dtype)
     assert torch.equal(FA.flash_bwd_dbias(q, k, v, do, lse, delta, **kw),
                        got)
+
+
+# -- the fp32 forward and dq at head dims 257-512 (3xTF32 at D 384, 512) -----
+
+@pytest.mark.parametrize("case", D512_CASES,
+                         ids=["-".join(map(str, c)) for c in D512_CASES])
+def test_f32_d512_kernels_match_plain_and_repeat(card, case):
+    """fp32 at D 257-512 (``D512_CASES``: ragged tails, offsets, widths not
+    a multiple of 4 or 8, D 257, 300, 320, 384, 448, 512): the 3xTF32
+    forward and dq and the simple dk/dv, each launched once, against the
+    plain versions under the fp32 flash rule (lse within 1e-4), a second
+    run bit for bit."""
+    bh, sq, sk, d, causal, q_start, k_start = case
+    q, k, v, do = _d256_inputs(card, bh, sq, sk, d, torch.float32,
+                               sq + sk + d)
+    _d256_against_plain(q, k, v, do, torch.float32, F32X, lse_tol=1e-4,
+                        causal=causal, scale=d ** -0.5, q_start=q_start,
+                        k_start=k_start)
+
+
+@pytest.mark.parametrize("extra", ["kv_bias", "bias", "bias_bh", "dropout",
+                                   "all"])
+@pytest.mark.parametrize("d", [320, 512, 300])
+def test_f32_d512_kernels_with_biases_and_dropout(card, d, extra):
+    """A kv_bias masking the last keys, a full bias shared over bh or one
+    per bh (dq's dS, under the fp32 rule), dropout 0.1, and all of them at
+    once, causal with offsets, fp32 at [3, 261, d] (and Sk 250)."""
+    bh, sq, sk = 3, 261, 250
+    q, k, v, do = _d256_inputs(card, bh, sq, sk, d, torch.float32, d)
+    g = torch.Generator(device=card).manual_seed(d + 1)
+    kvb = torch.zeros(bh, sk, device=card)
+    kvb[:, -9:] = -1e30
+    full = torch.randn(bh, sq, sk, generator=g, device=card)
+    kw = dict(causal=True, scale=d ** -0.5, q_start=20, k_start=0)
+    if extra in ("kv_bias", "all"):
+        kw["kv_bias"] = kvb
+    if extra in ("bias", "all"):
+        kw["bias"] = full[:1]
+    if extra == "bias_bh":
+        kw["bias"] = full
+    if extra in ("dropout", "all"):
+        kw.update(dropout_rate=0.1, dropout_seed=11)
+    _d256_against_plain(q, k, v, do, torch.float32, F32X, lse_tol=1e-4,
+                        **kw)
+
+
+@pytest.mark.parametrize("d", [320, 512])
+def test_f32_d512_dropout_mask_reads_back_exactly(card, d):
+    """q = k = 0 makes every probability 1/64 over 64 keys (four of the
+    forward's staged tiles at D 384, eight at 512), v = I puts p·keep/(1
+    − rate) at o[i, j]: o[i, j] != 0 exactly where ``dropout_bits`` keeps
+    (i, j), at a nonzero bh, q_start and k_start."""
+    from apex_tpu_torch.ops import flash_attn as FA
+    bh, n, rate, seed = 3, 64, 0.1, 0x2468ACE
+    q = torch.zeros(bh, n, d, device=card)
+    v = torch.eye(n, d, device=card).expand(bh, n, d).contiguous()
+    kw = dict(causal=False, scale=0.125, q_start=700, k_start=9,
+              dropout_rate=rate, dropout_seed=seed)
+    before = FA.flash_f32_d512_fwd.launches
+    o, _ = FA.flash_fwd(q, q, v, **kw)
+    assert FA.flash_f32_d512_fwd.launches == before + 1
+    pos = torch.arange(n, device=card)
+    keep = FA.dropout_bits(seed, torch.arange(bh, device=card)[:, None, None],
+                           700 + pos[None, :, None],
+                           9 + pos[None, None, :]) >= FA.drop_threshold(rate)
+    assert torch.equal(o[..., :n] != 0, keep) and not o[..., n:].any()
+    assert 0.8 < float(keep.float().mean()) < 1.0
+
+
+def test_f32_d512_rows_that_see_nothing(card):
+    """Causal rows before every key (q_start -70), fp32 at D 320: lse =
+    NEG_INF, o and dq exactly 0; the rest under the fp32 rule."""
+    from apex_tpu_torch.ops import flash_attn as FA
+    q, k, v, do = _d256_inputs(card, 2, 150, 64, 320, torch.float32, 3)
+    o, lse, dq, _, _ = _d256_against_plain(q, k, v, do, torch.float32, F32X,
+                                           lse_tol=1e-4, causal=True,
+                                           scale=320 ** -0.5, q_start=-70)
+    assert bool((lse[:, :70] == FA.NEG_INF).all())
+    assert not o[:, :70].any() and not dq[:, :70].any()
+
+
+def test_f32_d512_kernels_read_strided_and_broadcast_views(card):
+    """At D 320 fp32: q and dO heads split from packed [BH, S, 2, D]
+    buffers (a row stride of 2·D), k and v broadcast over bh (stride 0),
+    read in place; q at an element offset off 16 bytes (copied once):
+    the same bits as from contiguous copies."""
+    from apex_tpu_torch.ops import flash_attn as FA
+    g = torch.Generator(device=card).manual_seed(19)
+    bh, s, d = 5, 150, 320
+    q, do = torch.randn(bh, s, 2, d, generator=g, device=card).unbind(2)
+    k, v = (torch.randn(1, s, d, generator=g, device=card).expand(bh, s, d)
+            for _ in range(2))
+    ready = FA._f32x_ready("flash_f32_d512_dq", q, k, v, do)
+    assert [t.data_ptr() for t in ready] == [t.data_ptr()
+                                             for t in (q, k, v, do)]
+    kw = dict(causal=True, scale=d ** -0.5)
+    o, lse, dq, dk, dv = _d256_against_plain(q, k, v, do, torch.float32,
+                                             F32X, lse_tol=1e-4, **kw)
+    qc, kc, vc, doc = (t.contiguous() for t in (q, k, v, do))
+    oc, lsec = FA.flash_fwd(qc, kc, vc, **kw)
+    assert torch.equal(o, oc) and torch.equal(lse, lsec)
+    delta = FA.flash_delta(o, do)
+    assert torch.equal(FA.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+                       FA.flash_bwd_dq(qc, kc, vc, doc, lse, delta, **kw))
+    shifted = torch.randn(bh * s * d + 1, generator=g, device=card)[1:]
+    shifted = shifted.view(bh, s, d)
+    assert FA._f32x_ready("flash_f32_d512_fwd", shifted, k, v)[0] \
+        .data_ptr() != shifted.data_ptr()
+    got = FA.flash_fwd(shifted, k, v, **kw)
+    want = FA.flash_fwd(shifted.clone(), kc, vc, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_f32_d512_kernels_at_more_than_65535_heads(card):
+    """BH = 65536 + 7 at D 320, S 16, fp32: the heads around and past 65535
+    give the same bits as a launch of their own and hold against the
+    plain versions."""
+    from apex_tpu_torch.ops import flash_attn as FA
+    bh, s, d = 65536 + 7, 16, 320
+    q, k, v, do = _d256_inputs(card, bh, s, s, d, torch.float32, 9)
+    kw = dict(causal=True, scale=d ** -0.5)
+    o, lse = FA.flash_fwd(q, k, v, **kw)
+    delta = FA.flash_delta(o, do)
+    dq = FA.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    tail = slice(65536 - 9, bh)
+    got = _d256_against_plain(q[tail], k[tail], v[tail], do[tail],
+                              torch.float32, F32X, lse_tol=1e-4, **kw)
+    for a, b0 in zip((o, lse, dq), got):
+        assert torch.equal(a[tail], b0)
+
+
+def test_f32_d512_autograd_chain_matches_the_plain_chain(card):
+    """``flash_attention`` at [16, 1024, 320] fp32 causal, forward and
+    backward through autograd (the 3xTF32 forward and dq, the simple
+    dk/dv, one launch each) against the same chain under the plain
+    versions: o, dq, dk and dv under the fp32 flash rule. The chain's dq
+    rests on the kernel forward's o and lse (delta = rowsum(dO·o)), so a
+    forward off the plain one at rows one key dominates shows here where
+    each kernel alone holds."""
+    from apex_tpu_torch.contrib.multihead_attn import flash_attention
+    from apex_tpu_torch.ops import flash_attn as FA
+    q, k, v, do = _d256_inputs(card, 16, 1024, 1024, 320, torch.float32, 31)
+    ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
+
+    def run():
+        o = flash_attention(*ts, causal=True)
+        return (o, *torch.autograd.grad(o, ts, do))
+    fns = [getattr(FA, n) for n in WIDE_FORMS]
+    before = [f.launches for f in fns]
+    got = run()
+    assert {n: f.launches - b for n, f, b in zip(WIDE_FORMS, fns, before)} \
+        == {n: int(n in F32X) for n in WIDE_FORMS}
+    with dispatch.backend("reference"):
+        want = run()
+    for a, b0 in zip(got, want):
+        _flash_rule(a, b0, torch.float32)

@@ -1,8 +1,10 @@
 """Port parity: flash attention at head dims 257-512, whose bf16/fp16
 forward and dq run on the tensor cores at D 384 or 512 (``flash_d512_fwd``,
 ``flash_d512_dq``: ``csrc/flash_d512.cu``, D split over the two consumer
-warpgroups), while dk/dv, fp32 and the shared-bias gradient there stay on
-the simple form.
+warpgroups), whose fp32 forward and dq run in 3xTF32 there
+(``flash_f32_d512_fwd``, ``flash_f32_d512_dq``: tests/
+test_torch_flash_f32_d512.py), while dk/dv and the shared-bias gradient
+there stay on the simple form.
 
 Here, on the CPU:
 
@@ -89,19 +91,25 @@ ROUTES = [
     (F32, 256, ("f32", "f32", "f32")),
     *[(dt, d, ("tc512", "tc512", "simt")) for dt in (BF16, F16)
       for d in (257, 320, 384, 385, 512)],
-    *[(F32, d, ("simt", "simt", "simt")) for d in (257, 320, 384, 385,
-                                                   512)]]
+    *[(F32, d, ("f32_512", "f32_512", "simt")) for d in (257, 320, 384,
+                                                         385, 512)]]
 # the C entry point and the counting wrapper of each form
 _ENTRY = {"fwd": {"tc256": "apex_flash_fwd", "tc512": "apex_flash_d512_fwd",
-                  "f32": "apex_flash_f32_fwd", "simt": "apex_flash_simt_fwd"},
+                  "f32": "apex_flash_f32_fwd",
+                  "f32_512": "apex_flash_f32_d512_fwd",
+                  "simt": "apex_flash_simt_fwd"},
           "dq": {"tc256": "apex_flash_bwd_dq", "tc512": "apex_flash_d512_dq",
-                 "f32": "apex_flash_f32_dq", "simt": "apex_flash_simt_dq"},
+                 "f32": "apex_flash_f32_dq",
+                 "f32_512": "apex_flash_f32_d512_dq",
+                 "simt": "apex_flash_simt_dq"},
           "dkv": {"tc256": "apex_flash_bwd_dkv", "f32": "apex_flash_f32_dkv",
                   "simt": "apex_flash_simt_dkv"}}
 _COUNTER = {"fwd": {"tc256": "flash_d256_fwd", "tc512": "flash_d512_fwd",
-                    "f32": "flash_f32_fwd", "simt": "flash_simt_fwd"},
+                    "f32": "flash_f32_fwd", "f32_512": "flash_f32_d512_fwd",
+                    "simt": "flash_simt_fwd"},
             "dq": {"tc256": "flash_d256_dq", "tc512": "flash_d512_dq",
-                   "f32": "flash_f32_dq", "simt": "flash_simt_dq"},
+                   "f32": "flash_f32_dq", "f32_512": "flash_f32_d512_dq",
+                   "simt": "flash_simt_dq"},
             "dkv": {"tc256": "flash_d256_dkv", "f32": "flash_f32_dkv",
                     "simt": "flash_simt_dkv"}}
 
@@ -109,8 +117,9 @@ _COUNTER = {"fwd": {"tc256": "flash_d256_fwd", "tc512": "flash_d512_fwd",
 @pytest.mark.parametrize("dtype,d,forms", ROUTES,
                          ids=[f"{str(dt)[6:]}-{d}" for dt, d, _ in ROUTES])
 def test_each_kernel_takes_its_route_past_256(recorder, dtype, d, forms):
-    """bf16/fp16 past 256: the forward and dq at D 384 or 512, dk/dv the
-    simple form; fp32 past 256: all three the simple form. Each wrapper
+    """bf16/fp16 past 256: the forward and dq at D 384 or 512 on the
+    tensor cores, dk/dv the simple form; fp32 past 256: the forward and dq
+    at D 384 or 512 in 3xTF32, dk/dv the simple form. Each wrapper
     reaches its form's C entry point once and counts one launch on that
     form's wrapper alone."""
     q, k, v, do, lse, delta = _inputs(dtype, d)

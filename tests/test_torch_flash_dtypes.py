@@ -67,13 +67,13 @@ def test_padded_head_dim(d, dp):
     (torch.float32, 256, False, ("f32", "f32", "f32")),
     (torch.bfloat16, 512, False, ("tc512", "tc512", "simt")),
     (torch.float16, 257, False, ("tc512", "tc512", "simt")),
-    (torch.float32, 257, False, ("simt", "simt", "simt"))])
+    (torch.float32, 257, False, ("f32_512", "f32_512", "simt"))])
 def test_the_form_follows_dtype_and_head_dim(dtype, d, tc, forms):
     """``tensor_cores``: every 16-bit kernel on the tensor cores (D <= 128);
     past 128 the forward, dq and dk/dv take their D-256 form up to 256,
     and the forward and dq their D-384/512 form up to 512 (dk/dv the
     simple form); fp32 to 256 its 3xTF32 forward, dq and dk/dv, past it
-    the simple form."""
+    its 3xTF32 forward and dq at D 384 or 512 (dk/dv the simple form)."""
     q = torch.zeros(2, 3, d, dtype=dtype)
     assert FA.tensor_cores(q) == tc
     assert tuple(FA.kernel_form(q, k) for k in ("fwd", "dq", "dkv")) == forms

@@ -9,7 +9,8 @@ What the kernels do is testable here without them:
   ``flash_bwd_dq`` and ``flash_bwd_dkv`` reach them, the wrappers stubbed
   and the card pretended); bf16/fp16 to the 16-bit tensor-core ones (to
   256 by their D-256 kernels) and any dtype past 256 to the simple form;
-  ``tensor_cores`` names the 16-bit kernels alone;
+  ``tensor_cores`` names the 16-bit kernels alone (fp32's forward and
+  dq past 256: tests/test_torch_flash_f32_d512.py);
 - the arithmetic: a plain model of the 3xTF32 products (each fp32 operand
   split into big = tf32(x) and small = tf32(x - big), rounded as
   ``cvt.rna`` does, to nearest with ties away; each product small·big +
@@ -63,12 +64,15 @@ JFA = importlib.import_module(
     (torch.float32, 512, "simt"), (torch.bfloat16, 128, "tc"),
     (torch.bfloat16, 129, "tc256")])
 def test_backward_form_follows_dtype_and_head_dim(dtype, d, form):
-    """``form`` is dk/dv's and dq's (bf16/fp16 at D 129-256 both on the
-    tensor cores at D 256, fp32 in 3xTF32 at D 256), and the forward's."""
+    """``form`` is dk/dv's (bf16/fp16 at D 129-256 on the tensor cores at D
+    256, fp32 in 3xTF32 at D 256, fp32 past 256 the simple form), and dq's
+    and the forward's up to D 256; past it fp32's forward and dq take
+    their 3xTF32 form at D 384 or 512 ("f32_512")."""
     q = torch.zeros(2, 3, d, dtype=dtype)
+    wide = dtype == torch.float32 and d > 256
     assert FA.kernel_form(q, "dkv") == form
-    assert FA.kernel_form(q, "dq") == form
-    assert FA.kernel_form(q, "fwd") == form
+    assert FA.kernel_form(q, "dq") == ("f32_512" if wide else form)
+    assert FA.kernel_form(q, "fwd") == ("f32_512" if wide else form)
     # tensor_cores names the 16-bit kernels alone
     assert FA.tensor_cores(q) == (form == "tc")
 
@@ -78,14 +82,15 @@ def test_backward_form_follows_dtype_and_head_dim(dtype, d, form):
                                        (128, "flash_f32_fwd"),
                                        (129, "flash_f32_fwd"),
                                        (256, "flash_f32_fwd"),
-                                       (257, "flash_simt_fwd")])
+                                       (257, "flash_f32_d512_fwd"),
+                                       (512, "flash_f32_d512_fwd")])
 def test_forward_sends_fp32_to_the_form_kernel_form_names(d, wrapper,
                                                           monkeypatch):
     """``flash_fwd`` on the card: fp32 at D <= 256 to ``flash_f32_fwd``,
-    past 256 to the simple form (the wrappers stubbed, the card
-    pretended)."""
+    past 256 to ``flash_f32_d512_fwd`` (the wrappers stubbed, the card
+    pretended), never the simple form."""
     calls = []
-    for name in ("flash_f32_fwd", "flash_simt_fwd"):
+    for name in ("flash_f32_fwd", "flash_f32_d512_fwd", "flash_simt_fwd"):
         monkeypatch.setattr(FA, name, lambda *a, _n=name, **kw: calls.append(
             (_n, kw["scale"])))
     monkeypatch.setattr(FA.dispatch, "use_kernel", lambda t: True)
@@ -96,17 +101,18 @@ def test_forward_sends_fp32_to_the_form_kernel_form_names(d, wrapper,
 
 @pytest.mark.parametrize("d,form", [(1, "f32"), (64, "f32"), (128, "f32"),
                                     (129, "f32"), (200, "f32"),
-                                    (256, "f32"), (257, "simt"),
-                                    (512, "simt")])
+                                    (256, "f32"), (257, "f32_d512/simt"),
+                                    (512, "f32_d512/simt")])
 def test_backward_sends_fp32_to_the_form_kernel_form_names(d, form,
                                                            monkeypatch):
     """``flash_bwd_dq`` and ``flash_bwd_dkv`` on the card: fp32 at D <= 256
     to ``flash_f32_dq`` and ``flash_f32_dkv`` (at D 129-256 the pair
-    kernels), past 256 to the simple form (the wrappers stubbed, the card
+    kernels), past 256 dq to ``flash_f32_d512_dq`` and dk/dv to the simple
+    form (``form``: dq's / dk/dv's; the wrappers stubbed, the card
     pretended), every argument passed on."""
     calls = []
     for name in ("flash_f32_dq", "flash_f32_dkv", "flash_simt_dq",
-                 "flash_simt_dkv"):
+                 "flash_simt_dkv", "flash_f32_d512_dq"):
         monkeypatch.setattr(FA, name, lambda *a, _n=name, **kw: calls.append(
             (_n, len(a), kw["scale"], kw["dropout_rate"])))
     monkeypatch.setattr(FA.dispatch, "use_kernel", lambda t: True)
@@ -115,8 +121,9 @@ def test_backward_sends_fp32_to_the_form_kernel_form_names(d, form,
     kw = dict(causal=True, scale=0.25, dropout_rate=0.1, dropout_seed=5)
     FA.flash_bwd_dq(q, q, q, q, lse, lse, **kw)
     FA.flash_bwd_dkv(q, q, q, q, lse, lse, **kw)
-    assert calls == [(f"flash_{form}_dq", 6, 0.25, 0.1),
-                     (f"flash_{form}_dkv", 6, 0.25, 0.1)]
+    dq_form, dkv_form = form.split("/") if "/" in form else (form, form)
+    assert calls == [(f"flash_{dq_form}_dq", 6, 0.25, 0.1),
+                     (f"flash_{dkv_form}_dkv", 6, 0.25, 0.1)]
 
 
 def test_f32_fwd_runs_the_plain_version_on_the_cpu_and_refuses():

@@ -213,7 +213,7 @@ def test_ctypes_declarations_match_the_c_entry_points():
     sources = cuda._sources()
     assert {p.name for p in sources} >= {"decode_attn.cu", "flash_attn.cu",
                                          "flash_d512.cu", "flash_simt.cu",
-                                         "flash_f32.cu",
+                                         "flash_f32.cu", "flash_f32_d512.cu",
                                          "layer_norm.cu",
                                          "multi_tensor.cu", "welford.cu",
                                          "xentropy.cu"}
@@ -226,10 +226,11 @@ def test_ctypes_declarations_match_the_c_entry_points():
     cuda._declare(so)
     for name, n in sigs.items():
         assert len(getattr(so, name).argtypes) == n, name
-    assert len(sigs) == 36           # the decode merge and the simple
+    assert len(sigs) == 38           # the decode merge and the simple
     # flash form's four are the 27th to 31st, the fp32 backward's two on
     # the tensor cores the 32nd and 33rd, the fp32 forward the 34th, the
-    # forward and dq at head dims 384 and 512 the 35th and 36th
+    # forward and dq at head dims 384 and 512 the 35th and 36th, and
+    # their fp32 forms the 37th and 38th
 
 
 def test_lm_training_entry_points_default_to_the_card_and_raise_without_it(
