@@ -9,9 +9,10 @@ flash kernels where they take the call (fp32, bf16 or fp16 on the card,
 head dim up to 512) from ``flash_min_s`` (when unset the H100's
 crossover, ``DEFAULT_FLASH_MIN_S``, where it was measured to hold: the
 16-bit kernels to head dim 256 and fp32's 3xTF32 ones to 128; none for
-fp32 past 128, whose forward loses to the plain path at long S without a
-causal mask, or where dk/dv is the simple form) or when the unfused
-scores would pass 2 GiB (``_flash_wins``).
+fp32 past 128, whose forward or backward loses to the plain path without
+a causal mask, nor yet for the 16-bit kernels past 256, where the
+crossover was first measured with every kernel on the tensor cores) or
+when the unfused scores would pass 2 GiB (``_flash_wins``).
 
 A ``key_padding_mask`` [B, Sk] (True = pad) becomes the per-key
 ``kv_bias`` [B·H, Sk], and an ``attn_mask`` [Sq, Sk] a full additive bias
@@ -122,9 +123,13 @@ class _AttnBase:
         at D 64 and 256). fp32 at 129-256 runs in 3xTF32 too, but there the
         forward loses to the plain path from S 1024 without a causal mask
         (``chip_smoke.flash_crossover_phase(torch, "float32", 256)``:
-        ``min_s`` None, PERF.md), and past 256 dk/dv is the simple form:
-        neither has such a length, so only the 2 GiB rule sends a call
-        there. The kernels take
+        ``min_s`` None, PERF.md; at 320, in 3xTF32 too, the forward and
+        backward together lose without it from S 256). Past 256 bf16 and
+        fp16 run all three
+        kernels on the tensor cores and won from S 128 at D 320 (PERF.md
+        §7); no crossover is set there until that reading is taken at
+        more head dims, so only the 2 GiB rule sends a call past 256. The
+        kernels take
         the full bias and dropout, so neither routes a call away. Anything
         else goes to ``reference_attention``, as JAX's "auto" does below
         its crossover. A routing rule, not a fallback: ``impl="fast"``

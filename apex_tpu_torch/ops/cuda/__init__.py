@@ -176,8 +176,9 @@ def _declare(so: ctypes.CDLL) -> None:
     for name in ("apex_flash_bwd_dq", "apex_flash_d512_dq"):
         getattr(so, name).argtypes = [I] + [P] * 8 + [P, I] + tail
         getattr(so, name).restype = I
-    so.apex_flash_bwd_dkv.argtypes = [I] + [P] * 8 + [P, I] + tail
-    so.apex_flash_bwd_dkv.restype = I
+    for name in ("apex_flash_bwd_dkv", "apex_flash_d512_dkv"):
+        getattr(so, name).argtypes = [I] + [P] * 8 + [P, I] + tail
+        getattr(so, name).restype = I
     so.apex_flash_bwd_dbias.argtypes = [I] + [P] * 8 + [I] + [L] * 8 + tail
     so.apex_flash_bwd_dbias.restype = I
     # the simple form: the dtype, pointers, then the strides (bh, row) of
@@ -191,7 +192,8 @@ def _declare(so: ctypes.CDLL) -> None:
     # arguments
     for name in ("apex_flash_simt_dq", "apex_flash_simt_dkv",
                  "apex_flash_simt_dbias", "apex_flash_f32_dq",
-                 "apex_flash_f32_dkv", "apex_flash_f32_d512_dq"):
+                 "apex_flash_f32_dkv", "apex_flash_f32_d512_dq",
+                 "apex_flash_f32_d512_dkv"):
         getattr(so, name).argtypes = [I] + [P] * 8 + [L] * 8 + tail
         getattr(so, name).restype = I
     so.apex_xent_fwd.argtypes = [I, P, L, P, I, I, I, I, F, F, P, P, P]

@@ -78,14 +78,11 @@
 // fragments and of the outputs. The grid is one dim: bh-major, the row
 // blocks of each bh inside it, so BH may pass 65535.
 
-#include "flash_tiles.cuh"
+#include "flash_d512.cuh"
 
 namespace apex_port {
 namespace {
 
-constexpr int kXRows = 64;      // query rows a block owns (both consumer
-                                // warpgroups)
-constexpr int kXBar = 5;        // the named barrier of the trade
 constexpr int kFwdXKeys = 32;   // keys of the forward's staged tiles
 
 // stages of the forward's ring: three at D 384, two at 512 (see the header)
@@ -93,7 +90,7 @@ template <int D>
 constexpr int kFwdXStages = D == 384 ? 3 : 2;
 // keys of dq's staged tiles, and its stages
 template <int D>
-constexpr int kDqXKeys = D == 384 ? 32 : 16;
+constexpr int kDqXKeys = kXBox<D>;
 constexpr int kDqXStages = 2;
 
 template <int D>
@@ -116,49 +113,6 @@ struct DqXSmem {
   float kvb[kS][BN];                       // the tiles' kv_bias, log2 units
   uint64_t full[kS], empty[kS], qo;
 };
-
-// acc[64 x N] = a's 64 rows times b's N rows transposed over KS k-steps of
-// 16 columns from column tile c0 (both K-major, in shared memory)
-template <typename E, int N, int KS, int RA, int RB, int D>
-__device__ __forceinline__ void cols_product(float (&acc)[N / 2],
-                                             const Tile<RA, D>& a,
-                                             const Tile<RB, D>& b, int c0) {
-  const uint32_t pa = opaque(smem_u32(&a.x[c0][0]));
-  const uint32_t pb = smem_u32(&b.x[c0][0]);
-#pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    mma_ss<N, E>(acc,
-                 sw128_desc(pa + (kk / 4) * Tile<RA, D>::kColBytes +
-                                (kk % 4) * 32, 16, kSbo),
-                 sw128_desc(pb + (kk / 4) * Tile<RB, D>::kColBytes +
-                                (kk % 4) * 32, 16, kSbo),
-                 kk > 0);
-  }
-}
-
-// acc[64 x N] += X[64 x 16 KS] times b's columns [64 c0, 64 c0 + N), b
-// MN-major, X from its 16-bit register fragments (as frags_by_tile)
-template <typename E, int N, int KS, int RB, int D>
-__device__ __forceinline__ void cols_by_tile(float (&acc)[N / 2],
-                                             const uint32_t (&f)[KS][4],
-                                             const Tile<RB, D>& b, int c0) {
-  const uint32_t pb = smem_u32(&b.x[c0][0]);
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks) {
-    mma_rs<N, 1, E>(acc, f[ks],
-                    sw128_desc(pb + ks * 16 * 128, Tile<RB, D>::kColBytes,
-                               kSbo), 1);
-  }
-}
-
-// this warpgroup's tile of 64 x BN fp32 (in the accumulator layout) into
-// its half of the trade at parity par
-template <int BN>
-__device__ __forceinline__ void put(float (&x)[2][2][BN / 2][128], int par,
-                                    int wg, int tid, const float (&v)[BN / 2]) {
-#pragma unroll
-  for (int i = 0; i < BN / 2; ++i) x[par][wg][i][tid] = v[i];
-}
 
 // ---- the forward -------------------------------------------------------------
 

@@ -1,5 +1,5 @@
-// Flash attention's forward and dq over [BH, S, D] fp32 at head dims
-// 257-512 (run at 384 or 512) on the tensor cores in 3xTF32. The semantics
+// Flash attention's forward, dq and dk/dv over [BH, S, D] fp32 at head
+// dims 257-512 (run at 384 or 512) on the tensor cores in 3xTF32. The semantics
 // they keep from the Pallas kernels are csrc/flash_common.cuh's: causal
 // masking by absolute positions, the per-key kv_bias and the full bias,
 // dropout by the JAX package's coordinate hash, the finite kNegInf, the
@@ -13,17 +13,17 @@
 // Replaces, for fp32 inputs at a head dim of 257 to 512, the Pallas
 // kernels of apex_tpu/contrib/multihead_attn/flash_attention.py:
 // _flash_fwd -> _fwd_kernel (:181) and _bwd_pallas -> _bwd_dq_kernel
-// (:349), at the head dims the JAX package pads to 384 and 512 lanes, with
-// every input they take (the full bias, kv_bias, dropout; dq's per-bh dS).
-// dk/dv there stays the simple form's (csrc/flash_simt.cu).
+// (:349) and _bwd_dkv_kernel (:392), at the head dims the JAX package pads
+// to 384 and 512 lanes, with every input they take (the full bias,
+// kv_bias, dropout; dq's per-bh dS).
 //
 // Bound on this card: operations. At [32, 1024, 320] causal (1.68e7 live
 // (query, key) pairs) the forward's two products are 4·D·pairs = 21.5
-// GFLOP and dq's three 32.2 GFLOP: in 3xTF32 (three TF32 products for each
-// fp32 one, at the 495 TFLOP/s of TF32 dense: 165 TFLOP/s) 0.130 and
-// 0.195 ms, at the 67 TFLOP/s of fp32 FMAs 0.321 and 0.481 ms; run at D
-// 384 they do 1.2x the products. The bytes (~176 and ~220 MB) take ~0.06
-// ms.
+// GFLOP, dq's three 32.2 GFLOP and dk/dv's four 43.0 GFLOP: in 3xTF32
+// (three TF32 products for each fp32 one, at the 495 TFLOP/s of TF32
+// dense: 165 TFLOP/s) 0.130, 0.195 and 0.261 ms, at the 67 TFLOP/s of
+// fp32 FMAs 0.321, 0.481 and 0.642 ms; run at D 384 they do 1.2x the
+// products. The bytes (~176, ~220 and ~264 MB) take ~0.06-0.08 ms.
 //
 // What holds the D <= 256 design back past 256 is two walls. Registers: a
 // warp's O (or dq) over 16 rows is 16 x D fp32, 192 registers a thread at
@@ -55,10 +55,25 @@
 //    16-byte cp.async (dw, the tensors' width, a multiple of 4), and the
 //    columns [dw, D) of every staged row are zeroed once at the start and
 //    never written again. They add nothing to Q K^T or dO V^T, give zero
-//    columns of O (or dq), which are not written.
-// The block's shape (pairs, keys a staged tile) is xf_* for the forward
-// and xq_* for dq, set by the times of flash_f32_ab.py d512 on the H100
-// (PERF.md). Tiles wholly past the causal edge are skipped, by the block
+//    columns of O (or dq, dk, dv), which are not written.
+// 6. dk/dv holds two accumulators over its keys, twice the forward's
+//    register wall: a pair of warps over 16 keys would hold 192 or 256
+//    registers a thread each. So a quad of warps shares 16 keys, each
+//    holding half of one accumulator's columns (96 registers at D 384, 128
+//    at 512): warps 0 and 1 dv's halves, warps 2 and 3 dk's. Warps 0 and 1
+//    take S^T = K Q^T over their halves of D, warps 2 and 3 dP^T = V dO^T
+//    over theirs, and the four partial tiles are traded under the quad's
+//    named barrier. Every warp then adds S^T's two halves in one order and
+//    forms P^T from them by the same instructions, so all four hold the
+//    same P^T bit for bit with no second hand-over; warps 2 and 3 add
+//    dP^T's halves and form dS^T = P^T (dP'^T - delta). Warps 0 and 1 add
+//    P^T dO (dropped and rescaled) into dv, warps 2 and 3 dS^T Q into dk
+//    (scaled at the end). The four products each run once, on raw rows
+//    split as read; the block's keys and values and the double-buffered
+//    query and dO tiles are the shared memory.
+// The block's shape (pairs or quads, rows a staged tile) is xf_* for the
+// forward, xq_* for dq and xk_* for dk/dv, set by the times of
+// flash_f32_ab.py d512 and d512dkv on the H100 (PERF.md). Tiles wholly past the causal edge are skipped, by the block
 // and by each pair; a pair whose 16 rows see all of a tile with no bias or
 // dropout takes the unmasked path. Each block owns its output rows and
 // writes them once, without atomics, so every output repeats bit for bit.
@@ -96,6 +111,20 @@ template <int D> __host__ __device__ constexpr bool xq_raw() {
   return D == 384 ? true : true;
 }
 
+// dk/dv's blocks by head dim: the quads of warps (each owning 16 keys), the
+// queries a staged tile holds, and the n-tiles a pass of its second
+// product takes (product_n's G0); flash_f32_ab.py d512dkv rewrites these
+// lines per variant, and these timed fastest on the H100 (PERF.md)
+template <int D> __host__ __device__ constexpr int xk_quads() {
+  return D == 384 ? 2 : 2;
+}
+template <int D> __host__ __device__ constexpr int xk_tile() {
+  return D == 384 ? 16 : 8;
+}
+template <int D> __host__ __device__ constexpr int xk_group() {
+  return D == 384 ? 2 : 2;
+}
+
 // shared memory: the block's raw rows (the forward's Q; dq's Q and dO),
 // the key and value tiles, double-buffered (and one set of their small
 // halves where split once), and the pairs' exchanged tiles (both warps'
@@ -110,8 +139,15 @@ template <int D> __host__ __device__ constexpr int smem_x_dq() {
                          (xq_raw<D>() ? 4 : 6) * xq_tile<D>()) +
               2 * 16 * xq_pairs<D>() * p_ldx<xq_tile<D>()>());
 }
+// dk/dv's: the block's keys and values raw, the double-buffered query and
+// dO tiles, their lse and delta, and the quads' four exchanged tiles
+template <int D> __host__ __device__ constexpr int smem_x_dkv() {
+  return 4 * ((D + 4) * (32 * xk_quads<D>() + 4 * xk_tile<D>()) +
+              4 * xk_tile<D>() + 64 * xk_quads<D>() * p_ldx<xk_tile<D>()>());
+}
 static_assert(smem_x_fwd<384>() <= 232448 && smem_x_fwd<512>() <= 232448 &&
-                  smem_x_dq<384>() <= 232448 && smem_x_dq<512>() <= 232448,
+                  smem_x_dq<384>() <= 232448 && smem_x_dq<512>() <= 232448 &&
+                  smem_x_dkv<384>() <= 232448 && smem_x_dkv<512>() <= 232448,
               "a block may have 227 KB of shared memory");
 
 // rows [row0, row0 + n) of a [rows, dw] fp32 matrix (row stride rs
@@ -139,6 +175,22 @@ __device__ __forceinline__ void zero_pad(float* dst, int n, int dw) {
   for (int r = w; r < n; r += NW) {
     for (int c = dw + lane; c < D; c += 32) dst[r * (D + 4) + c] = 0.f;
   }
+}
+
+// n fp32 values from src[row0..] into dst by cp.async, zeros past `rows`;
+// all NT threads, the caller commits
+template <int NT>
+__device__ __forceinline__ void stage_row_vec(float* dst, const float* src,
+                                              int row0, int n, int rows) {
+  for (int i = threadIdx.x; i < n; i += NT) {
+    const bool in = row0 + i < rows;
+    cp_async4(dst + i, in ? src + row0 + i : src, in);
+  }
+}
+
+// the named barrier of quad qd (0 is __syncthreads'), its 128 threads
+__device__ __forceinline__ void quad_sync(int qd) {
+  asm volatile("bar.sync %0, 128;\n" :: "r"(1 + qd) : "memory");
 }
 
 // staged rows [0, n) of rows [n][D + 4] split once for every warp that
@@ -509,6 +561,175 @@ f32x_dq_kernel(Attn a, int dw, const float* __restrict__ dout,
   }
 }
 
+// dk, dv [BH, Sk, dw] fp32 contiguous (item 6). Lane (g, t) of warp r of
+// quad qd holds keys g and g + 8 of the quad's 16 and the columns H (r & 1)
+// + 8n + 2t, + 1 of dv (r < 2) or dk (r >= 2).
+template <int D, bool EXTRA>
+__global__ void __launch_bounds__(128 * xk_quads<D>(), 1)
+f32x_dkv_kernel(Attn a, int dw, const float* __restrict__ dout,
+                long long do_bh, long long do_s, const float* __restrict__ lse,
+                const float* __restrict__ delta, float* __restrict__ dk,
+                float* __restrict__ dv) {
+  constexpr int LD = D + 4, H = D / 2, NH = H / 8;
+  constexpr int QUADS = xk_quads<D>(), R = 16 * QUADS, NW = 4 * QUADS;
+  constexpr int BQ = xk_tile<D>(), NQ = BQ / 8, LDX = p_ldx<BQ>();
+  extern __shared__ float smf[];
+  float* ks = smf;                         // [R][LD] the block's keys
+  float* vs = ks + R * LD;                 // [R][LD] their values
+  float* qt = vs + R * LD;                 // [2][BQ][LD] queries
+  float* ot = qt + 2 * BQ * LD;            // [2][BQ][LD] their dO
+  float* ls = ot + 2 * BQ * LD;            // [2][BQ] their lse
+  float* dl = ls + 2 * BQ;                 // [2][BQ] their delta
+  float* ex = dl + 2 * BQ;                 // [QUADS][4][16][LDX] tiles
+  const int nb = (a.sk + R - 1) / R;
+  const int bh = blockIdx.x / nb;
+  const int k0 = (blockIdx.x % nb) * R;
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int qd = w >> 2, role = w & 3, half = role & 1;
+  const bool kside = role >= 2;            // dP^T and dk, else S^T and dv
+  const int c0 = k0 + 16 * qd;             // the quad's first key
+  const float* q = static_cast<const float*>(a.q) + bh * a.q_bh;
+  const float* dob = dout + bh * do_bh;
+  const float* lsb = lse + (long long)bh * a.sq;
+  const float* dlb = delta + (long long)bh * a.sq;
+  // the query tiles that see the block's keys (with the causal mask)
+  const int nqt = (a.sq + BQ - 1) / BQ;
+  int qt0 = 0;
+  if (a.causal) {
+    const int need = a.k_start + k0 - a.q_start;
+    qt0 = need <= 0 ? 0 : min(nqt, need / BQ);
+  }
+  if (dw < D) {                            // the columns no copy writes
+    zero_pad<D, NW>(ks, 2 * R + 4 * BQ, dw);
+  }
+  stage_x<D, NW>(ks, static_cast<const float*>(a.k) + bh * a.k_bh, a.k_s,
+                 k0, R, a.sk, dw);
+  stage_x<D, NW>(vs, static_cast<const float*>(a.v) + bh * a.v_bh, a.v_s,
+                 k0, R, a.sk, dw);
+  if (qt0 < nqt) {
+    const int b0 = qt0 & 1;
+    stage_x<D, NW>(qt + b0 * BQ * LD, q, a.q_s, qt0 * BQ, BQ, a.sq, dw);
+    stage_x<D, NW>(ot + b0 * BQ * LD, dob, do_s, qt0 * BQ, BQ, a.sq, dw);
+    stage_row_vec<32 * NW>(ls + b0 * BQ, lsb, qt0 * BQ, BQ, a.sq);
+    stage_row_vec<32 * NW>(dl + b0 * BQ, dlb, qt0 * BQ, BQ, a.sq);
+  }
+  cp_commit();
+  const float sl2 = a.scale * kLog2e;
+  // the quad's first key: a causal tile wholly before it is skipped, as is
+  // everything by a quad whose keys all lie past Sk
+  const int wfirst = a.k_start + c0 - a.q_start;
+  const bool keys_in = c0 < a.sk;
+  // the warp's operand of the first product over its half of D: K (S^T)
+  // or V (dP^T); its exchanged tile, and the quad's four
+  const float* own = (kside ? vs : ks) + 16 * qd * LD + H * half;
+  float* mine = ex + (4 * qd + role) * 16 * LDX;
+  const float* xq = ex + 4 * qd * 16 * LDX;
+  float acc[NH][4];                        // dv (role 0, 1), dk (2, 3)
+#pragma unroll
+  for (int n = 0; n < NH; ++n) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+  }
+  for (int it = qt0; it < nqt; ++it) {
+    const int buf = it & 1;
+    cp_wait_all();
+    __syncthreads();                       // tile it landed, it - 1 read
+    if (it + 1 < nqt) {                    // the next tile, into the other
+      const int nx = (it + 1) * BQ;
+      stage_x<D, NW>(qt + (buf ^ 1) * BQ * LD, q, a.q_s, nx, BQ, a.sq, dw);
+      stage_x<D, NW>(ot + (buf ^ 1) * BQ * LD, dob, do_s, nx, BQ, a.sq, dw);
+      stage_row_vec<32 * NW>(ls + (buf ^ 1) * BQ, lsb, nx, BQ, a.sq);
+      stage_row_vec<32 * NW>(dl + (buf ^ 1) * BQ, dlb, nx, BQ, a.sq);
+    }
+    cp_commit();
+    const float* qb = qt + buf * BQ * LD;
+    const float* ob = ot + buf * BQ * LD;
+    const float* lb = ls + buf * BQ;
+    const float* db = dl + buf * BQ;
+    const int qb0 = it * BQ;
+    if (!keys_in || (a.causal && qb0 + BQ - 1 < wfirst)) continue;   // quad
+    float x[NQ][4];
+    product_t<NH, NQ, LD, true, true>(x, own, nullptr,
+                                      (kside ? ob : qb) + H * half,
+                                      nullptr);     // half of KQ^T, VdO^T
+    tile_out<NQ, LDX>(mine, x, g, t);
+    quad_sync(qd);
+    // S^T over all of D (warp 0's half plus warp 1's) and P^T from it, by
+    // every warp of the quad alike
+    float p[NQ][4];
+    tile_in<NQ, LDX>(p, xq, g, t);
+    tile_in<NQ, LDX>(x, xq + 16 * LDX, g, t);
+    const bool open = !EXTRA && all_visible(a, qb0, BQ, c0, 16);
+#pragma unroll
+    for (int n = 0; n < NQ; ++n) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int c = 8 * n + 2 * t + (i & 1);
+        const float s = p[n][i] + x[n][i];
+        const float lse2 = lb[c] * kLog2e;
+        if (open) {                        // the quad's branch: uniform
+          p[n][i] = ex2(fmaf(s, sl2, -lse2));
+        } else {
+          const float sc = score2(a, bh, qb0 + c, c0 + g + 8 * (i >> 1), s);
+          p[n][i] = sc > kNegInf * 0.5f ? ex2(sc - lse2) : 0.f;
+        }
+      }
+    }
+    if (!kside) {
+      if (EXTRA && a.drop_inv > 0.f) {     // P^T where kept, rescaled
+#pragma unroll
+        for (int n = 0; n < NQ; ++n) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            p[n][i] = keep(a, bh, qb0 + 8 * n + 2 * t + (i & 1),
+                           c0 + g + 8 * (i >> 1)) ? p[n][i] * a.drop_inv
+                                                  : 0.f;
+          }
+        }
+      }
+      product_n<NQ, NH, LD, true, xk_group<D>()>(
+          acc, p, ob + H * half, nullptr, g, t);   // dv += P^T dO
+    } else {
+      // dP^T over all of D (warp 2's half plus warp 3's), dropped and
+      // rescaled; dS^T = P^T (dP'^T - delta)
+      float y[NQ][4];
+      tile_in<NQ, LDX>(x, xq + 2 * 16 * LDX, g, t);
+      tile_in<NQ, LDX>(y, xq + 3 * 16 * LDX, g, t);
+#pragma unroll
+      for (int n = 0; n < NQ; ++n) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int c = 8 * n + 2 * t + (i & 1);
+          float dp = x[n][i] + y[n][i];
+          if (EXTRA && a.drop_inv > 0.f) {
+            dp = keep(a, bh, qb0 + c, c0 + g + 8 * (i >> 1))
+                     ? dp * a.drop_inv : 0.f;
+          }
+          p[n][i] = p[n][i] * (dp - db[c]);
+        }
+      }
+      product_n<NQ, NH, LD, true, xk_group<D>()>(
+          acc, p, qb + H * half, nullptr, g, t);   // dk += dS^T Q
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int kj = c0 + g + 8 * h;
+    if (kj >= a.sk) continue;
+    const int cc = H * half + 2 * t;
+    float* out = (kside ? dk : dv) + ((long long)bh * a.sk + kj) * dw + cc;
+    const float sc = kside ? a.scale : 1.f;
+#pragma unroll
+    for (int n = 0; n < NH; ++n) {
+      if (cc + 8 * n < dw) {
+        *reinterpret_cast<float2*>(out + 8 * n) =
+            make_float2(acc[n][2 * h] * sc, acc[n][2 * h + 1] * sc);
+      }
+    }
+  }
+}
+
 // what these kernels refuse: no rows; a width outside 257-512 or not a
 // multiple of 4 (16 bytes); a row or bh stride not one; blocks * bh past
 // 2^31 - 1
@@ -531,7 +752,8 @@ void with_width(int d, F&& f) {
 }  // namespace
 }  // namespace apex_port
 
-// Both take the fp32 kernels' arguments at D <= 256 (csrc/flash_f32.cu):
+// All three take the fp32 kernels' arguments at D <= 256
+// (csrc/flash_f32.cu):
 // q, k, v, dout [bh, s, d] fp32 (dtype code 0), d 260-512 and a multiple
 // of 4, read through their strides (elements, multiples of 4; the last dim
 // contiguous, the bases 16-byte aligned); lse, delta fp32 [bh, sq]
@@ -616,6 +838,50 @@ extern "C" int apex_flash_f32_d512_dq(int dtype, const void* q,
                        static_cast<const float*>(lse),
                        static_cast<const float*>(delta),
                        static_cast<float*>(dq), static_cast<float*>(ds));
+    });
+  });
+  return static_cast<int>(err);
+}
+
+// dk, dv [bh, sk, d].
+extern "C" int apex_flash_f32_d512_dkv(int dtype, const void* q,
+                                       const void* k, const void* v,
+                                       const void* dout, const void* lse,
+                                       const void* delta, void* dk, void* dv,
+                                       long long q_bh, long long q_s,
+                                       long long k_bh, long long k_s,
+                                       long long v_bh, long long v_s,
+                                       long long do_bh, long long do_s,
+                                       const void* kvb, long long kvb_bh,
+                                       const void* bias, long long bias_bh,
+                                       unsigned seed, unsigned drop_thresh,
+                                       float drop_inv, int bh, int sq, int sk,
+                                       int d, int q_start, int k_start,
+                                       int causal, float scale, void* stream) {
+  using namespace apex_port;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype != kF32 || dk == nullptr || dv == nullptr) {
+    return static_cast<int>(err);
+  }
+  const Attn a = make_attn(q, k, v, q_bh, q_s, k_bh, k_s, v_bh, v_s, kvb,
+                           kvb_bh, bias, bias_bh, seed, drop_thresh,
+                           drop_inv, sq, sk, q_start, k_start, causal, scale);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  with_width(d, [&](auto dd) {
+    constexpr int D = decltype(dd)::value;
+    const int rows = 16 * xk_quads<D>();
+    const int blocks = (sk + rows - 1) / rows;
+    if (bad_x32(bh, sq, sk, d, blocks,
+                {q_bh, q_s, k_bh, k_s, v_bh, v_s, do_bh, do_s})) {
+      return;
+    }
+    with_extra(a, [&](auto extra) {
+      err = f32_launch(f32x_dkv_kernel<D, decltype(extra)::value>,
+                       smem_x_dkv<D>(), blocks, bh, 128 * xk_quads<D>(), st,
+                       a, d, static_cast<const float*>(dout), do_bh, do_s,
+                       static_cast<const float*>(lse),
+                       static_cast<const float*>(delta),
+                       static_cast<float*>(dk), static_cast<float*>(dv));
     });
   });
   return static_cast<int>(err);

@@ -28,12 +28,12 @@ dtype     head dim    forward           dq                dk/dv
 ========  ==========  ================  ================  ================
 bf16/f16  1-128       "tc" (64, 128)    "tc" (64, 128)    "tc" (64, 128)
 bf16/f16  129-256     "tc256" (256)     "tc256" (256)     "tc256" (256)
-bf16/f16  257-512     "tc512" (384,     "tc512" (384,     "simt"
-                      512)              512)
+bf16/f16  257-512     "tc512" (384,     "tc512" (384,     "tc512" (384,
+                      512)              512)              512)
 fp32      1-128       "f32" (64, 128)   "f32" (64, 128)   "f32" (64, 128)
 fp32      129-256     "f32" (256)       "f32" (256)       "f32" (256)
-fp32      257-512     "f32_512" (384,   "f32_512" (384,   "simt"
-                      512)              512)
+fp32      257-512     "f32_512" (384,   "f32_512" (384,   "f32_512" (384,
+                      512)              512)              512)
 ========  ==========  ================  ================  ================
 
 "tc" is the Hopper kernels above at D 64 or 128 and "tc256" the same
@@ -41,7 +41,9 @@ files' kernels at D 256 (:func:`flash_d256_fwd`, :func:`flash_d256_dq`,
 :func:`flash_d256_dkv`); "tc512" is ``ops/cuda/csrc/flash_d512.cu``'s
 forward and dq at D 384 and 512 (:func:`flash_d512_fwd`,
 :func:`flash_d512_dq`: blocks of 64 query rows, D split over the two
-consumer warpgroups); the kernels run at the head dim in brackets, the
+consumer warpgroups) and ``ops/cuda/csrc/flash_d512_dkv.cu``'s dk/dv there
+(:func:`flash_d512_dkv`: a dv and a dk kernel over blocks of 64 keys, D
+split alike); the kernels run at the head dim in brackets, the
 inputs zero-padded to it (the JAX package pads D to a multiple of 128
 lanes; zero columns add nothing to QKᵀ and give zero output columns,
 sliced off) — at 384 and 512 only to a multiple of 8, the kernels' TMA
@@ -49,16 +51,20 @@ copies filling the rest with zeros (:func:`_kernel_width`) — and the real
 D's scale passed.
 "f32" is ``ops/cuda/csrc/flash_f32.cu``, 3xTF32 products on the tensor
 cores (:func:`flash_f32_fwd`, :func:`flash_f32_dq`, :func:`flash_f32_dkv`),
-padded alike; "f32_512" is ``ops/cuda/csrc/flash_f32_d512.cu``'s forward and
-dq in 3xTF32 at D 384 and 512 (:func:`flash_f32_d512_fwd`,
+padded alike; "f32_512" is ``ops/cuda/csrc/flash_f32_d512.cu``'s forward,
+dq and dk/dv in 3xTF32 at D 384 and 512 (:func:`flash_f32_d512_fwd`,
 :func:`flash_f32_d512_dq`: pairs of warps over 16 query rows, D split
-between the two), the tensors handed at their width rounded up to a
-multiple of 4 (:func:`_f32x_ready`: the kernels zero the columns past it).
+between the two; :func:`flash_f32_d512_dkv`: quads of warps over 16 keys,
+each warp half of dk's or dv's columns), the tensors handed at their
+width rounded up to a multiple of 4 (:func:`_f32x_ready`: the kernels zero
+the columns past it).
 "simt" is the simple form of ``ops/cuda/csrc/flash_simt.cu``:
 fp32 FMAs, a warp a row (:func:`flash_simt_fwd`, :func:`flash_simt_dq`,
-:func:`flash_simt_dkv`); :func:`flash_bwd_dbias` takes the tensor-core
-kernel at bf16/fp16 D <= 128 and otherwise sums the simple dq kernel's
-dS over bh. Each of these wrappers counts its own launches.
+:func:`flash_simt_dkv`), which no dtype or head dim is routed to: it stays
+as the yardstick the tensor-core forms are timed against, and
+:func:`flash_bwd_dbias` takes the tensor-core kernel at bf16/fp16 D <= 128
+and otherwise sums the simple dq kernel's dS over bh. Each of these
+wrappers counts its own launches.
 
 The backward takes ``delta = rowsum(dO·O) − dlse`` (:474-479, computed
 here in plain PyTorch by :func:`flash_delta`), so a cotangent of the lse
@@ -110,9 +116,10 @@ __all__ = ["NEG_INF", "KERNEL_HEAD_DIMS", "DKV_HEAD_DIMS", "F32_HEAD_DIMS",
            "flash_bwd_plain", "flash_bwd_dq", "flash_bwd_dkv",
            "flash_bwd_dbias", "flash_bwd_dbias_plain", "flash_d256_fwd",
            "flash_d256_dq", "flash_d256_dkv", "flash_d512_fwd",
-           "flash_d512_dq", "flash_simt_fwd",
+           "flash_d512_dq", "flash_d512_dkv", "flash_simt_fwd",
            "flash_simt_dq", "flash_simt_dkv", "flash_f32_fwd", "flash_f32_dq",
            "flash_f32_dkv", "flash_f32_d512_fwd", "flash_f32_d512_dq",
+           "flash_f32_d512_dkv",
            "kernel_form", "tensor_cores", "padded_head_dim",
            "BLOCK_ROWS", "TMA_BOX", "DQ_D256_KEYS", "DKV_D256_KEYS",
            "D512_ROWS", "FWD_D512_KEYS", "DQ_D512_KEYS", "tma_layout",
@@ -139,9 +146,10 @@ _FLOATS = (torch.float32, torch.bfloat16, torch.float16)
 # one bh (a row of D 256 is four boxes across); dq at D 256 stages
 # DQ_D256_KEYS keys a tile, its boxes as many rows, and a block of dk/dv
 # at D 256 owns DKV_D256_KEYS keys. At D 384 and 512 a block of the
-# forward and dq owns D512_ROWS query rows; the forward stages
-# FWD_D512_KEYS keys a tile and dq DQ_D512_KEYS[D], the boxes of every
-# map as many rows
+# forward and dq owns D512_ROWS query rows and a block of dk/dv as many
+# keys; the forward stages FWD_D512_KEYS keys a tile, dq DQ_D512_KEYS[D]
+# keys and dk/dv's dk kernel as many queries, the boxes of every map as
+# many rows (the forward's: FWD_D512_KEYS)
 BLOCK_ROWS = 128
 TMA_BOX = (64, 64, 1)
 DQ_D256_KEYS = 32
@@ -515,8 +523,7 @@ def flash_fwd(q, k, v, *, causal: bool = False, scale=None,
     [1|BH, Sk], ``bias`` [1|BH, Sq, Sk] and dropout. On the card, as
     :func:`kernel_form` picks: the tensor-core kernel at D <= 128 (counted
     here), :func:`flash_d256_fwd`, :func:`flash_d512_fwd`,
-    :func:`flash_f32_fwd`, :func:`flash_f32_d512_fwd` or
-    :func:`flash_simt_fwd`."""
+    :func:`flash_f32_fwd` or :func:`flash_f32_d512_fwd`."""
     if scale is None:
         scale = 1.0 / float(q.shape[-1]) ** 0.5
     cfg = dict(causal=causal, scale=scale, q_start=q_start, k_start=k_start,
@@ -528,8 +535,8 @@ def flash_fwd(q, k, v, *, causal: bool = False, scale=None,
     form = kernel_form(q, "fwd")
     if form != "tc":
         return {"tc256": flash_d256_fwd, "tc512": flash_d512_fwd,
-                "f32": flash_f32_fwd, "f32_512": flash_f32_d512_fwd,
-                "simt": flash_simt_fwd}[form](q, k, v, **cfg)
+                "f32": flash_f32_fwd,
+                "f32_512": flash_f32_d512_fwd}[form](q, k, v, **cfg)
     return _tc_fwd(flash_fwd, q, k, v, **cfg)
 
 
@@ -773,11 +780,12 @@ def kernel_form(q: torch.Tensor, kernel: str = "fwd") -> str:
     """The form that takes ``kernel`` ("fwd", "dq" or "dkv") of q's dtype
     and head dim (the module's table): "tc", the bf16/fp16 tensor-core
     kernels at D <= 128; "tc256", the same at D 129-256 (padded to 256);
-    "tc512", the bf16/fp16 forward and dq at D 257-512 (run at 384 or
-    512); "f32", the fp32 ones (3xTF32 on the tensor cores,
-    ``flash_f32.cu``) at D <= 256; "f32_512", the fp32 forward and dq at D
-    257-512 (3xTF32 at 384 or 512, ``flash_f32_d512.cu``); "simt", the
-    simple form, for the rest: dk/dv past 256."""
+    "tc512", the bf16/fp16 kernels at D 257-512 (run at 384 or 512);
+    "f32", the fp32 ones (3xTF32 on the tensor cores, ``flash_f32.cu``) at
+    D <= 256; "f32_512", the fp32 ones at D 257-512 (3xTF32 at 384 or 512,
+    ``flash_f32_d512.cu``). Every kernel of every dtype and head dim up to
+    512 has a tensor-core form; the simple form ("simt") is returned for
+    none. Past 512 (which :func:`_check` refuses) the answer is "simt"."""
     if kernel not in _KERNELS:
         raise ValueError(f"kernel_form: kernel must be one of {_KERNELS}, "
                          f"got {kernel!r}")
@@ -787,12 +795,11 @@ def kernel_form(q: torch.Tensor, kernel: str = "fwd") -> str:
     half = q.dtype in (torch.bfloat16, torch.float16)
     if half and d <= KERNEL_HEAD_DIMS[2]:
         return "tc256"
-    if half and d <= KERNEL_HEAD_DIMS[4] and kernel != "dkv":
+    if half and d <= KERNEL_HEAD_DIMS[4]:
         return "tc512"
     if q.dtype == torch.float32 and d <= F32_HEAD_DIMS[-1]:
         return "f32"
-    if q.dtype == torch.float32 and d <= KERNEL_HEAD_DIMS[4] \
-            and kernel != "dkv":
+    if q.dtype == torch.float32 and d <= KERNEL_HEAD_DIMS[4]:
         return "f32_512"
     return "simt"
 
@@ -830,8 +837,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool, scale: float,
     [BH, Sq, Sk], the gradient of a per-bh bias. On the card, as
     :func:`kernel_form` picks: the tensor-core kernel at D <= 128 (counted
     here), :func:`flash_d256_dq`, :func:`flash_d512_dq`,
-    :func:`flash_f32_dq`, :func:`flash_f32_d512_dq` or
-    :func:`flash_simt_dq`."""
+    :func:`flash_f32_dq` or :func:`flash_f32_d512_dq`."""
     kw = dict(causal=causal, scale=scale, q_start=q_start, k_start=k_start,
               kv_bias=kv_bias, bias=bias, dropout_rate=dropout_rate,
               dropout_seed=dropout_seed)
@@ -846,8 +852,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool, scale: float,
     form = kernel_form(q, "dq")
     if form != "tc":
         return {"tc256": flash_d256_dq, "tc512": flash_d512_dq,
-                "f32": flash_f32_dq, "f32_512": flash_f32_d512_dq,
-                "simt": flash_simt_dq}[form](
+                "f32": flash_f32_dq, "f32_512": flash_f32_d512_dq}[form](
             q, k, v, do, lse, delta, return_ds=return_ds, **kw)
     return _tc_dq(flash_bwd_dq, "tc", q, k, v, do, lse, delta,
                   return_ds=return_ds, **kw)
@@ -1058,8 +1063,8 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool, scale: float,
                   bias=None, dropout_rate: float = 0.0, dropout_seed=0):
     """(dk, dv) [BH, Sk, D] in k's and v's dtypes. On the card, as
     :func:`kernel_form` picks for "dkv": the tensor-core kernel at D <= 128
-    (counted here), :func:`flash_d256_dkv`, :func:`flash_f32_dkv` or
-    :func:`flash_simt_dkv`."""
+    (counted here), :func:`flash_d256_dkv`, :func:`flash_d512_dkv`,
+    :func:`flash_f32_dkv` or :func:`flash_f32_d512_dkv`."""
     kw = dict(causal=causal, scale=scale, q_start=q_start, k_start=k_start,
               kv_bias=kv_bias, bias=bias, dropout_rate=dropout_rate,
               dropout_seed=dropout_seed)
@@ -1068,8 +1073,10 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool, scale: float,
     _check("flash_bwd_dkv", q, k, v, do)
     form = kernel_form(q, "dkv")
     if form != "tc":
-        return {"tc256": flash_d256_dkv, "f32": flash_f32_dkv,
-                "simt": flash_simt_dkv}[form](q, k, v, do, lse, delta, **kw)
+        return {"tc256": flash_d256_dkv, "tc512": flash_d512_dkv,
+                "f32": flash_f32_dkv,
+                "f32_512": flash_f32_d512_dkv}[form](q, k, v, do, lse, delta,
+                                                     **kw)
     return _tc_dkv(flash_bwd_dkv, "tc", q, k, v, do, lse, delta, **kw)
 
 
@@ -1077,10 +1084,12 @@ flash_bwd_dkv.launches = 0
 
 
 def _tc_dkv(wrapper, form, q, k, v, do, lse, delta, **kw):
-    """(dk, dv) by the 16-bit tensor-core kernel (``flash_bwd.cu``) at q's
-    head dim padded to :func:`padded_head_dim` (``form`` "tc" or "tc256":
-    blocks of :data:`BLOCK_ROWS` keys, at D 256 :data:`DKV_D256_KEYS`);
-    ``wrapper`` counts the launch."""
+    """(dk, dv) by the 16-bit tensor-core kernels (``flash_bwd.cu``; at D
+    384 and 512 ``flash_d512_dkv.cu``'s dv and dk kernels, one C call) at
+    q's head dim padded to :func:`_kernel_width` (``form`` "tc", "tc256"
+    or "tc512": blocks of :data:`BLOCK_ROWS` keys, at D 256
+    :data:`DKV_D256_KEYS`, at 384 and 512 :data:`D512_ROWS`); ``wrapper``
+    counts the launch."""
     what = wrapper.__name__
     d = q.shape[-1]
     q, k, v, do, lse, delta = _bwd_args(what, q, k, v, do, lse, delta, form)
@@ -1090,11 +1099,17 @@ def _tc_dkv(wrapper, form, q, k, v, do, lse, delta, **kw):
                               kw["k_start"])
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    block = DKV_D256_KEYS if q.shape[-1] == 256 else BLOCK_ROWS
-    err = _cuda.lib().apex_flash_bwd_dkv(
+    dp = padded_head_dim(q.shape[-1])
+    if dp > KERNEL_HEAD_DIMS[2]:
+        entry, box, block = "apex_flash_d512_dkv", DQ_D512_KEYS[dp], \
+            D512_ROWS
+    else:
+        entry, box = "apex_flash_bwd_dkv", TMA_BOX[1]
+        block = DKV_D256_KEYS if dp == 256 else BLOCK_ROWS
+    err = getattr(_cuda.lib(), entry)(
         _cuda.dtype_code(q.dtype, what), q.data_ptr(), k.data_ptr(),
         v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), _tma_maps(q, k, v, do),
+        dk.data_ptr(), dv.data_ptr(), _tma_maps(q, k, v, do, box_rows=box),
         row_blocks(k.shape[1], block), *tail)
     _cuda.check(err, what)
     wrapper.launches += 1
@@ -1120,11 +1135,33 @@ def flash_d256_dkv(q, k, v, do, lse, delta, *, causal: bool, scale: float,
 flash_d256_dkv.launches = 0
 
 
+def flash_d512_dkv(q, k, v, do, lse, delta, *, causal: bool, scale: float,
+                   q_start: int = 0, k_start: int = 0, kv_bias=None,
+                   bias=None, dropout_rate: float = 0.0, dropout_seed=0):
+    """:func:`flash_bwd_dkv` on the tensor cores at D 384 and 512
+    (``flash_d512_dkv.cu``: a dv kernel and a dk kernel, launched by one C
+    call, over blocks of 64 keys, each consumer warpgroup holding half of
+    dv's or dk's columns): bf16 or fp16 at a head dim of 257 to 512, run
+    at 384 or 512 as :func:`flash_d512_fwd` (the real D's scale
+    passed)."""
+    kw = dict(causal=causal, scale=scale, q_start=q_start, k_start=k_start,
+              kv_bias=kv_bias, bias=bias, dropout_rate=dropout_rate,
+              dropout_seed=dropout_seed)
+    if not dispatch.use_kernel(q):
+        return flash_bwd_plain(q, k, v, do, lse, delta, **kw)[1:]
+    _wide_ready("flash_d512_dkv", "tc512", q, k, v, do)
+    return _tc_dkv(flash_d512_dkv, "tc512", q, k, v, do, lse, delta, **kw)
+
+
+flash_d512_dkv.launches = 0
+
+
 def flash_simt_dkv(q, k, v, do, lse, delta, *, causal: bool, scale: float,
                    q_start: int = 0, k_start: int = 0, kv_bias=None,
                    bias=None, dropout_rate: float = 0.0, dropout_seed=0):
     """:func:`flash_bwd_dkv` by the simple form: any of fp32, bf16, fp16
-    and a head dim up to 512."""
+    and a head dim up to 512 (:func:`flash_bwd_dkv` sends it nothing:
+    every dtype and head dim has a tensor-core form)."""
     return _strided_dkv(flash_simt_dkv, "apex_flash_simt_dkv", "simt", q, k,
                         v, do, lse, delta, causal=causal, scale=scale,
                         q_start=q_start, k_start=k_start, kv_bias=kv_bias,
@@ -1149,6 +1186,25 @@ def flash_f32_dkv(q, k, v, do, lse, delta, *, causal: bool, scale: float,
 
 
 flash_f32_dkv.launches = 0
+
+
+def flash_f32_d512_dkv(q, k, v, do, lse, delta, *, causal: bool,
+                       scale: float, q_start: int = 0, k_start: int = 0,
+                       kv_bias=None, bias=None, dropout_rate: float = 0.0,
+                       dropout_seed=0):
+    """:func:`flash_bwd_dkv` in fp32 on the tensor cores in 3xTF32 at D 384
+    and 512 (``flash_f32_d512.cu``: quads of warps over 16 keys, two
+    warps holding dv's halves of the columns and two dk's, the partial
+    products over halves of D traded): fp32 at a head dim of 257 to 512,
+    handed as :func:`flash_f32_d512_fwd` (the real D's scale passed)."""
+    return _strided_dkv(flash_f32_d512_dkv, "apex_flash_f32_d512_dkv",
+                        "f32_512", q, k, v, do, lse, delta, causal=causal,
+                        scale=scale, q_start=q_start, k_start=k_start,
+                        kv_bias=kv_bias, bias=bias,
+                        dropout_rate=dropout_rate, dropout_seed=dropout_seed)
+
+
+flash_f32_d512_dkv.launches = 0
 
 # resident blocks an SM is counted for when flash_bwd_dbias splits bh into
 # runs: (query tiles) x (key tiles) x runs fills this many per SM

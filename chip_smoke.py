@@ -30,10 +30,11 @@ lm_bench's LM at 8 heads of 256 (the flash forward, dq and dk/dv at D
    (``flash_f32_ptxas``: 12 forms, D 64 and 128 and the pair kernels at
    256, plain and with a bias or dropout) and the fp32 forward's
    (``flash_f32_fwd_ptxas``: 6 forms, D 64, 128 and 256, plain and with a
-   bias or dropout), the bf16/fp16 forward's and dq's at D 384 and 512
-   (``flash_d512_ptxas``: 12 forward and 8 dq forms) and the fp32 ones'
-   there (``flash_f32_d512_ptxas``: 4 forward and 4 dq forms, plain and
-   with a bias or dropout), none of whose forms may spill.
+   bias or dropout), the bf16/fp16 forward's, dq's and dk/dv's at D 384
+   and 512 (``flash_d512_ptxas``: 12 forward, 8 dq, 8 dv and 8 dk forms)
+   and the fp32 ones' there (``flash_f32_d512_ptxas``: 4 forward, 4 dq
+   and 4 dk/dv forms, plain and with a bias or dropout), none of whose
+   forms may spill.
 2. kernels — each kernel against its plain PyTorch version on the card,
    at its path's shapes: max abs error against the stated tolerance, the
    kernel's time, the plain version's, one PyTorch library call's where
@@ -136,17 +137,18 @@ lm_bench's LM at 8 heads of 256 (the flash forward, dq and dk/dv at D
    phase 33's [64, 4096, 256], reading ``hd256_lm_f32``, the simple form
    and SDPA timed there) and at D 320 in bf16
    (``d320_bf16``) and fp32 (``d320_f32``, its bound at 67 TFLOP/s, SDPA
-   fp32 beside it); the forward and dq at D 384 and 512
-   (``flash_d512_fwd``, ``flash_d512_dq``) with the simple dk/dv, in bf16
+   fp32 beside it); the forward, dq and dk/dv at D 384 and 512
+   (``flash_d512_fwd``, ``flash_d512_dq``, ``flash_d512_dkv``), in bf16
    and fp16, at [32, 1024, 320] (``d320_tc_bf16``, with the whole
    backward, ``d320_tc_f16``) and [16, 1024, 512] (``d512_tc_bf16``,
-   ``d512_tc_f16``), the simple forward's and dq's times on the same
-   inputs beside them; the fp32 forward and dq there in 3xTF32
-   (``flash_f32_d512_fwd``, ``flash_f32_d512_dq``) with the simple dk/dv
-   at [32, 1024, 320] (``d320_f32x``, with the whole backward) and [16,
-   1024, 512] (``d512_f32x``): the fp32 rule, lse within 1e-4, bounds at
-   165 and 67 TFLOP/s, the simple forward's and dq's times on the same
-   inputs and SDPA fp32's beside them; ``flash_bwd_dbias`` off the
+   ``d512_tc_f16``), the simple forward's, dq's and dk/dv's times on the
+   same inputs beside them; the fp32 forward, dq and dk/dv there in
+   3xTF32 (``flash_f32_d512_fwd``, ``flash_f32_d512_dq``,
+   ``flash_f32_d512_dkv``) at [32, 1024, 320] (``d320_f32x``, with the
+   whole backward) and [16, 1024, 512] (``d512_f32x``): the fp32 rule,
+   lse within 1e-4, bounds at 165 and 67 TFLOP/s, the simple forward's,
+   dq's and dk/dv's times on the same inputs and SDPA fp32's beside
+   them; ``flash_bwd_dbias`` off the
    tensor cores at [32, 1024, 256] causal in bf16 and fp32
    (``d256_bf16``, ``d256_f32``: SDPA's backward with a learned [1, 1,
    Sq, Sk] mask beside it); the D-256
@@ -355,11 +357,11 @@ lm_bench's LM at 8 heads of 256 (the flash forward, dq and dk/dv at D
     ``SyncBatchNorm(6, fuse_relu=True)`` over [64, 6, 56, 56] bf16 with a
     residual, ``flash_attention`` at head dim 256 over [32, 1024, 256]
     fp32 (the 3xTF32 forward, dq and dk/dv) and at head dim 320 over [16,
-    1024, 320] bf16 (the forward and dq at D 384, ``flash_d512_fwd`` and
-    ``flash_d512_dq``, and the simple dk/dv) and fp32 (the 3xTF32 forward
-    and dq at D 384, ``flash_f32_d512_fwd`` and ``flash_f32_d512_dq``, and
-    the simple dk/dv), 3 forward/backward passes each against the plain
-    versions.
+    1024, 320] bf16 (the forward, dq and dk/dv at D 384,
+    ``flash_d512_fwd``, ``flash_d512_dq`` and ``flash_d512_dkv``) and fp32
+    (the 3xTF32 forward, dq and dk/dv at D 384, ``flash_f32_d512_fwd``,
+    ``flash_f32_d512_dq`` and ``flash_f32_d512_dkv``), 3 forward/backward
+    passes each against the plain versions.
 31. lm_train_hd256 — ``tools/lm_bench.py --dim 2048 --heads 8`` (8
     layers of 2048, 8 heads of 256: Gemma 2B's attention shape; vocab
     32768, S 4096, batch 8, attention "fast", random weights from seed 0),
@@ -376,12 +378,12 @@ lm_bench's LM at 8 heads of 256 (the flash forward, dq and dk/dv at D
     and ``flash_f32_dkv``, none of the simple form's or the 16-bit
     kernels'; losses finite, the mean of the last 3 below the first; MFU
     against 67 TFLOP/s.
-34. the ``{"kernels": [...], "off_path": [...]}`` line (39 kernels; dq's
+34. the ``{"kernels": [...], "off_path": [...]}`` line (40 kernels; dq's
     and dk/dv's entries also carry their ``wide`` reading and the whole
     backward's, ``backward``, at both shapes, the D-256 ones the whole
     backward at [64, 4096, 256]; the fp32 ones their readings at D 256;
-    ``off_path``: the simple forward and dq, which no path takes, with
-    their phase-2 readings and 0 launches), then the ``ok`` line.
+    ``off_path``: the simple forward, dq and dk/dv, which no path takes,
+    with their phase-2 readings and 0 launches), then the ``ok`` line.
 
 Times are CUDA-event medians of single calls with the L2 cache flushed
 before each and the stream held busy, so host launch time is not counted.
@@ -1896,8 +1898,10 @@ def counters():
             "flash_d256_dkv": FA.flash_d256_dkv,
             "flash_d512_fwd": FA.flash_d512_fwd,
             "flash_d512_dq": FA.flash_d512_dq,
+            "flash_d512_dkv": FA.flash_d512_dkv,
             "flash_f32_d512_fwd": FA.flash_f32_d512_fwd,
-            "flash_f32_d512_dq": FA.flash_f32_d512_dq}
+            "flash_f32_d512_dq": FA.flash_f32_d512_dq,
+            "flash_f32_d512_dkv": FA.flash_f32_d512_dkv}
 
 
 def zero_counts() -> None:
@@ -4285,11 +4289,13 @@ def decode_kernel_phase(torch, timer) -> dict:
 
 def flash_bits(torch) -> dict:
     """The first 16 hex digits of the sha256 of the bf16 flash kernels' o,
-    lse, dq, dk and dv at the LM's [128, 4095, 64] and the wide LM's [384,
-    2048, 128], and of the fp32 (3xTF32) kernels' at the LM's shape and at
-    [32, 1024, 256], causal, from seeded inputs: one package's bits, to
-    hold against another's (the fp16 forms must leave bf16's unchanged,
-    the fp32 forms past D 256 those at D <= 256)."""
+    lse, dq, dk and dv at the LM's [128, 4095, 64], the wide LM's [384,
+    2048, 128] and [32, 1024, 256], of the fp32 (3xTF32) kernels' at the
+    LM's shape and at [32, 1024, 256], and of both at phase 30's [16,
+    1024, 320], causal, from seeded inputs: one package's bits, to hold
+    against another's (the fp16 forms must leave bf16's unchanged, the
+    kernels past D 256 those at D <= 256, and dk/dv at D 384 the forward
+    and dq there)."""
     import hashlib
 
     from apex_tpu_torch.ops import flash_attn as FA
@@ -4299,7 +4305,10 @@ def flash_bits(torch) -> dict:
             ("lm", (128, 4095, 64), torch.bfloat16),
             ("wide", (384, 2048, 128), torch.bfloat16),
             ("f32_lm", (128, 4095, 64), torch.float32),
-            ("f32_d256", (32, 1024, 256), torch.float32)):
+            ("f32_d256", (32, 1024, 256), torch.float32),
+            ("d256", (32, 1024, 256), torch.bfloat16),
+            ("d320", (16, 1024, 320), torch.bfloat16),
+            ("f32_d320", (16, 1024, 320), torch.float32)):
         gen = torch.Generator(device="cuda").manual_seed(5)
         q, k, v, do = (torch.randn(bh, s, d, generator=gen, device="cuda")
                        .to(dt) for _ in range(4))
@@ -4335,12 +4344,10 @@ def flash_form_readings(torch, timer, reading, shape, dt, fns, ops_s,
     times beside the plain versions' (the forward head group by head
     group), SDPA's in dt and the bounds at ``ops_s``; with ``whole`` also
     the whole backward as autograd runs it (``flash_bwd_row``, keyed
-    ("flash_bwd", reading)); with ``simple`` (the simple form's forward
-    and dq) their times on the same inputs beside the forward's and dq's
-    (``simple_ms``); with ``fma_ops_s`` (the forward's and dq's fp32
-    products in 3xTF32 at ``ops_s``) their bounds at fp32 FMAs' rate too
-    (``bound_fma_ms``), and dk/dv's (the simple form's FMAs) at that rate
-    alone."""
+    ("flash_bwd", reading)); with ``simple`` (the simple form's forward,
+    dq and dk/dv) their times on the same inputs beside the kernels'
+    (``simple_ms``); with ``fma_ops_s`` (the fp32 products in 3xTF32 at
+    ``ops_s``) the bounds at fp32 FMAs' rate too (``bound_fma_ms``)."""
     import torch.nn.functional as F
 
     from apex_tpu_torch.ops import flash_attn as FA
@@ -4406,10 +4413,11 @@ def flash_form_readings(torch, timer, reading, shape, dt, fns, ops_s,
                   library_covers="dq, dk and dv (one SDPA backward)")
     fwd_b = bound(4 * sz + 4 * BH * S, 4 * D * pairs, ops_s)
     dq_b = bound(5 * sz + 8 * BH * S, 6 * D * pairs, ops_s)
-    dkv_b = bound(6 * sz + 8 * BH * S, 8 * D * pairs, fma_ops_s or ops_s)
+    dkv_b = bound(6 * sz + 8 * BH * S, 8 * D * pairs, ops_s)
     was = {} if simple is None else {
         fwd.__name__: timer(lambda: simple[0](q, k, v, **kw)),
-        dq_fn.__name__: timer(lambda: simple[1](*args, **kw))}
+        dq_fn.__name__: timer(lambda: simple[1](*args, **kw)),
+        dkv_fn.__name__: timer(lambda: simple[2](*args, **kw))}
     out = {}
     fma = {} if fma_ops_s is None else {
         name: {"bound_fma_ms": bound(nb, ops, fma_ops_s)[0],
@@ -4417,7 +4425,9 @@ def flash_form_readings(torch, timer, reading, shape, dt, fns, ops_s,
         for name, nb, ops in ((fwd.__name__, 4 * sz + 4 * BH * S,
                                4 * D * pairs),
                               (dq_fn.__name__, 5 * sz + 8 * BH * S,
-                               6 * D * pairs))}
+                               6 * D * pairs),
+                              (dkv_fn.__name__, 6 * sz + 8 * BH * S,
+                               8 * D * pairs))}
     for r in (
             dict(common, kernel=fwd.__name__,
                  max_abs_err=errs["o"]["max_abs_err"],
@@ -4660,10 +4670,11 @@ def flash_forms_phase(torch, timer) -> dict:
     cores, and the fp32 forward and backward on the tensor cores on the
     same inputs; the simple form at phase 30's [32, 1024, 256] in bf16 and
     fp32 (SDPA's at D 256 beside it; bf16's bound at 989 TFLOP/s, fp32's
-    at 67) and in bf16 and fp32 at D 320; the forward and dq at D 384 and
-    512 at [32, 1024, 320] and [16, 1024, 512] in bf16 and fp16 (readings
-    ``d320_tc_*``, ``d512_tc_*``, the simple forward's and dq's times
-    beside them); ``flash_bwd_dbias`` off the tensor cores at D 256
+    at 67) and in bf16 and fp32 at D 320; the forward, dq and dk/dv at D
+    384 and 512 at [32, 1024, 320] and [16, 1024, 512] in bf16 and fp16
+    (readings ``d320_tc_*``, ``d512_tc_*``) and in fp32 in 3xTF32
+    (``d320_f32x``, ``d512_f32x``), the simple forward's, dq's and dk/dv's
+    times beside them; ``flash_bwd_dbias`` off the tensor cores at D 256
     (``d256_dbias_readings``); and the fp32 forward, dq and dk/dv in
     3xTF32 on the fp32 inputs (reading ``d256_f32``), dq and dk/dv again
     at the hd-256 LM's [64, 4096, 256] (``hd256_lm_f32``, the simple form
@@ -4702,9 +4713,9 @@ def flash_forms_phase(torch, timer) -> dict:
                                     torch.bfloat16, simt, BF16_DENSE_OPS_S))
     rows.update(flash_form_readings(torch, timer, "d320_f32", d320,
                                     torch.float32, simt, FP32_OPS_S))
-    # the forward and dq at D 384 and 512 (dk/dv the simple form's), the
-    # simple forward and dq timed on the same inputs
-    tc512 = (FA.flash_d512_fwd, FA.flash_d512_dq, FA.flash_simt_dkv)
+    # the forward, dq and dk/dv at D 384 and 512, the simple forward, dq
+    # and dk/dv timed on the same inputs
+    tc512 = (FA.flash_d512_fwd, FA.flash_d512_dq, FA.flash_d512_dkv)
     for dt, tag in ((torch.bfloat16, "bf16"), (torch.float16, "f16")):
         for shape, reading in ((d320, "d320_tc_" + tag),
                                ([16, 1024, 512], "d512_tc_" + tag)):
@@ -4712,9 +4723,10 @@ def flash_forms_phase(torch, timer) -> dict:
                 torch, timer, reading, shape, dt, tc512, BF16_DENSE_OPS_S,
                 whole=reading == "d320_tc_bf16", simple=simt))
     # and in fp32, in 3xTF32 (the bounds at 3xTF32's rate and at fp32
-    # FMAs'; lse within 1e-4), the simple forward and dq timed on the same
-    # inputs, the whole backward at [32, 1024, 320]
-    f32x = (FA.flash_f32_d512_fwd, FA.flash_f32_d512_dq, FA.flash_simt_dkv)
+    # FMAs'; lse within 1e-4), the simple forward, dq and dk/dv timed on
+    # the same inputs, the whole backward at [32, 1024, 320]
+    f32x = (FA.flash_f32_d512_fwd, FA.flash_f32_d512_dq,
+            FA.flash_f32_d512_dkv)
     for shape, reading in ((d320, "d320_f32x"), ([16, 1024, 512],
                                                  "d512_f32x")):
         rows.update(flash_form_readings(
@@ -5016,10 +5028,10 @@ def tails_train_phase(torch) -> dict:
     phase 2's bf16 tolerance, dγ and dβ within 1e-5·Σ|terms|), and
     ``flash_attention`` at head dim 256 over [32, 1024, 256] fp32 causal
     (the forward, dq and dk/dv in 3xTF32) under the fp32 flash rule, and
-    at head dim 320 over [16, 1024, 320] causal in bf16 (the forward and dq
-    at D 384, the simple dk/dv) under the flash rule and in fp32 (the
-    forward and dq in 3xTF32 at D 384, the simple dk/dv) under the fp32
-    rule; the kernels' launches counted."""
+    at head dim 320 over [16, 1024, 320] causal in bf16 (the forward, dq
+    and dk/dv at D 384) under the flash rule and in fp32 (the forward, dq
+    and dk/dv in 3xTF32 at D 384) under the fp32 rule; the kernels'
+    launches counted, none of the simple form's."""
     from apex_tpu_torch.contrib.multihead_attn import flash_attention
     from apex_tpu_torch.normalization import FusedLayerNorm
     from apex_tpu_torch.ops import dispatch
@@ -5153,13 +5165,18 @@ def tails_train_phase(torch) -> dict:
     emit(row)
     for k in TAIL_KERNELS:
         check(counts[k] > 0, f"tails_train: {k} never launched")
+    simple = {k: counts[k] for k in ("flash_simt_fwd", "flash_simt_dq",
+                                     "flash_simt_dkv")}
+    check(not any(simple.values()), f"tails_train: the simple form ran "
+          f"{simple}")
     return counts
 
 
 TAIL_KERNELS = ("ln_fwd", "ln_bwd", "bn_moments", "bn_backward_fused_reduce",
-                "bn_backward_dx", "flash_simt_dkv", "flash_f32_fwd",
-                "flash_f32_dq", "flash_f32_dkv", "flash_d512_fwd",
-                "flash_d512_dq", "flash_f32_d512_fwd", "flash_f32_d512_dq")
+                "bn_backward_dx", "flash_f32_fwd", "flash_f32_dq",
+                "flash_f32_dkv", "flash_d512_fwd", "flash_d512_dq",
+                "flash_d512_dkv", "flash_f32_d512_fwd", "flash_f32_d512_dq",
+                "flash_f32_d512_dkv")
 
 
 # -- phases 31-33: lm_bench's LM at 8 heads of 256, bf16 and fp32 ------------
@@ -5320,13 +5337,16 @@ def main() -> int:
     # template argument 256 in their mangled names)
     flash_d256 = {n: e for n, e in {**flash_fwd, **flash_bwd}.items()
                   if "Li256E" in n}
-    # the bf16/fp16 forward and dq at D 384 and 512 (flash_d512.cu), and
-    # the fp32 ones in 3xTF32 (flash_f32_d512.cu)
+    # the bf16/fp16 forward, dq and dk/dv at D 384 and 512 (flash_d512.cu,
+    # flash_d512_dkv.cu), and the fp32 ones in 3xTF32 (flash_f32_d512.cu)
     flash_d512 = {n: e for n, e in ptxas.items()
-                  if "flash_fwd_d512_kernel" in n
-                  or "flash_dq_d512_kernel" in n}
+                  if any(k in n for k in (
+                      "flash_fwd_d512_kernel", "flash_dq_d512_kernel",
+                      "flash_dv_d512_kernel", "flash_dk_d512_kernel"))}
     flash_f32_d512 = {n: e for n, e in ptxas.items()
-                      if "f32x_fwd_kernel" in n or "f32x_dq_kernel" in n}
+                      if any(k in n for k in (
+                          "f32x_fwd_kernel", "f32x_dq_kernel",
+                          "f32x_dkv_kernel"))}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "compiled": kcuda.build_seconds is not None, "ptxas": ptxas,
           "flash_fwd_ptxas": flash_fwd, "flash_bwd_ptxas": flash_bwd,
@@ -5338,20 +5358,20 @@ def main() -> int:
     # 2 x 12 backward (dq and dk/dv, plain and extra, at D 64, 128, 256),
     # 6 + 8 of them at D 256; fp32: 12 backward and 6 forward (plain and
     # extra at D 64, 128, 256); at D 384 and 512 2 x 6 forward forms (3
-    # kinds) and 2 x 4 dq (plain and extra), and in fp32 2 x 2 forward
-    # and 2 x 2 dq (plain and extra)
+    # kinds), 2 x 4 dq, 2 x 4 dv and 2 x 4 dk (plain and extra), and in
+    # fp32 2 x 2 forward, 2 x 2 dq and 2 x 2 dk/dv (plain and extra)
     check(not kcuda.build_seconds or (len(flash_fwd) == 18
                                       and len(flash_bwd) == 24
                                       and len(flash_d256) == 14
                                       and len(flash_f32) == 12
                                       and len(flash_f32_fwd) == 6
-                                      and len(flash_d512) == 20
-                                      and len(flash_f32_d512) == 8),
+                                      and len(flash_d512) == 36
+                                      and len(flash_f32_d512) == 12),
           f"ptxas reported {len(flash_fwd)} forward, {len(flash_bwd)} "
           f"backward ({len(flash_d256)} at D 256), {len(flash_f32)} fp32 "
           f"backward, {len(flash_f32_fwd)} fp32 forward, "
           f"{len(flash_d512)} D-384/512 and {len(flash_f32_d512)} fp32 "
-          f"D-384/512 flash forms, not 18, 24 (14), 12, 6, 20 and 8")
+          f"D-384/512 flash forms, not 18, 24 (14), 12, 6, 36 and 12")
     for what, forms in (("forward", flash_fwd), ("backward", flash_bwd),
                         ("fp32 backward", flash_f32),
                         ("fp32 forward", flash_f32_fwd),
@@ -5654,12 +5674,19 @@ def main() -> int:
         "flash_f32_d512_dq": (
             "apex_tpu_torch/ops/cuda/csrc/flash_f32_d512.cu",
             "apex_tpu/contrib/multihead_attn/flash_attention.py:349"),
+        # dk/dv at D 257-512: bf16/fp16 on the tensor cores, fp32 in 3xTF32
+        "flash_d512_dkv": ("apex_tpu_torch/ops/cuda/csrc/flash_d512_dkv.cu",
+                           "apex_tpu/contrib/multihead_attn/"
+                           "flash_attention.py:392"),
+        "flash_f32_d512_dkv": (
+            "apex_tpu_torch/ops/cuda/csrc/flash_f32_d512.cu",
+            "apex_tpu/contrib/multihead_attn/flash_attention.py:392"),
     }
-    # the simple forward and dq: no path of the port takes them since the
-    # fp32 forward and dq past D 256 went to the 3xTF32 kernels (their
-    # launches on the paths are 0); phase 2 still builds, holds and times
-    # them, and their readings ride beside the kernels line's
-    off_path = ("flash_simt_fwd", "flash_simt_dq")
+    # the simple forward, dq and dk/dv: no path of the port takes them
+    # since every dtype and head dim up to 512 has a tensor-core form
+    # (their launches on the paths are 0); phase 2 still builds, holds and
+    # times them, and their readings ride beside the kernels line's
+    off_path = ("flash_simt_fwd", "flash_simt_dq", "flash_simt_dkv")
     # the wide wrappers each take the place of more than one TPU kernel
     also_replaces = {
         "ln_fwd_wide": ["apex_tpu/ops/pallas/layer_norm.py:227"],
@@ -5717,7 +5744,10 @@ def main() -> int:
                 # the fp32 D-384/512 kernels at [32, 1024, 320] (phase
                 # 30's fp32 D-320 pass, read at twice its bh)
                 "flash_f32_d512_fwd": ("flash_f32_d512_fwd", "d320_f32x"),
-                "flash_f32_d512_dq": ("flash_f32_d512_dq", "d320_f32x")}
+                "flash_f32_d512_dq": ("flash_f32_d512_dq", "d320_f32x"),
+                # dk/dv at D 384 at the same readings
+                "flash_d512_dkv": ("flash_d512_dkv", "d320_tc_bf16"),
+                "flash_f32_d512_dkv": ("flash_f32_d512_dkv", "d320_f32x")}
     sub = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
            "library_ms")
     kernels, off = [], []
@@ -5813,7 +5843,7 @@ def main() -> int:
             # call) at the hd-256 LM's [64, 4096, 256]
             entry["backward"] = {
                 k: rows[("flash_bwd", "hd256_lm_bf16")][k] for k in sub}
-        if name in ("flash_d512_fwd", "flash_d512_dq"):
+        if name in ("flash_d512_fwd", "flash_d512_dq", "flash_d512_dkv"):
             # the simple form's time on the same inputs; fp16, and [16,
             # 1024, 512] in both
             entry["simple_ms"] = r["simple_ms"]
@@ -5822,12 +5852,13 @@ def main() -> int:
                           for k in sub + ("simple_ms",)}
                 for reading in ("d320_tc_f16", "d512_tc_bf16",
                                 "d512_tc_f16")}
-        if name == "flash_d512_dq":
-            # the whole backward at [32, 1024, 320]: flash_delta, this dq
-            # and the simple dk/dv in one timed call
+        if name in ("flash_d512_dq", "flash_d512_dkv"):
+            # the whole backward at [32, 1024, 320]: flash_delta, dq and
+            # dk/dv in one timed call
             entry["backward"] = {
                 k: rows[("flash_bwd", "d320_tc_bf16")][k] for k in sub}
-        if name in ("flash_f32_d512_fwd", "flash_f32_d512_dq"):
+        if name in ("flash_f32_d512_fwd", "flash_f32_d512_dq",
+                    "flash_f32_d512_dkv"):
             # the bound at fp32 FMAs' rate, the simple form's time on the
             # same inputs; [16, 1024, 512]
             entry["bound_fma_ms"] = r["bound_fma_ms"]
@@ -5835,9 +5866,9 @@ def main() -> int:
             entry["readings"] = {"d512_f32x": {
                 k: rows[(name, "d512_f32x")].get(k)
                 for k in sub + ("bound_fma_ms", "simple_ms")}}
-        if name == "flash_f32_d512_dq":
+        if name in ("flash_f32_d512_dq", "flash_f32_d512_dkv"):
             # the whole backward at [32, 1024, 320] in fp32: flash_delta,
-            # this dq and the simple dk/dv in one timed call
+            # dq and dk/dv in one timed call
             entry["backward"] = {
                 k: rows[("flash_bwd", "d320_f32x")][k] for k in sub}
         if name in also_replaces:
@@ -5847,8 +5878,8 @@ def main() -> int:
                 for key in rows
                 if len(key) == 2 and key[0] == name and key[1] != "lm"}
         (off if name in off_path else kernels).append(entry)
-    check(len(kernels) == 39 and all(e["launches"] > 0 for e in kernels)
-          and len(off) == 2 and all(e["launches"] == 0 for e in off),
+    check(len(kernels) == 40 and all(e["launches"] > 0 for e in kernels)
+          and len(off) == 3 and all(e["launches"] == 0 for e in off),
           f"kernels line: {[(e['name'], e['launches']) for e in kernels]}, "
           f"off the paths: {[(e['name'], e['launches']) for e in off]}")
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,

@@ -15,9 +15,10 @@ dropout). ``d256bwd`` does the same for dq and dk/dv at D 256 (dS too, at
 the edge cases with a full bias), with the simple form's times on the same
 inputs. ``d512`` builds ``flash_f32_d512.cu`` alone per variant and does
 the same for its forward and dq at D 384 and 512 ([32, 1024, 320] and
-[16, 1024, 512]), the simple form's forward and dq timed beside them. One
-JSON line each; the card's name and power limit last. Run from the
-repository root on the card::
+[16, 1024, 512]), the simple form's forward and dq timed beside them;
+``d512dkv`` does the same for its dk/dv (the quad kernel's blocks), the
+simple dk/dv timed beside it. One JSON line each; the card's name and
+power limit last. Run from the repository root on the card::
 
     python3 flash_f32_ab.py tile     # the forward's staged keys a tile
     python3 flash_f32_ab.py exp      # the forward's exponentials, P's split
@@ -26,6 +27,7 @@ repository root on the card::
     python3 flash_f32_ab.py d256ops  # their instruction choices at D 256
     python3 flash_f32_ab.py d512     # the blocks of the forward and dq at
                                      # D 384 and 512
+    python3 flash_f32_ab.py d512dkv  # the blocks of dk/dv there
 """
 
 from __future__ import annotations
@@ -155,6 +157,52 @@ def _x(**forms) -> list:
     return subs
 
 
+def _xk(**forms) -> list:
+    """dk/dv's blocks at D 384 and 512 in place of the committed ones
+    (``k384``, ``k512``: (quads of warps, queries a tile, n-tiles a pass of
+    the second product)); a width not named keeps the committed shape."""
+    subs = []
+    for i, knob in enumerate(("quads", "tile", "group")):
+        a, b = (forms[f"k{d}"][i] if f"k{d}" in forms else None
+                for d in (384, 512))
+        pat = re.compile(rf"(xk_{knob}\(\) {{\n  return D == 384 \? )"
+                         rf"(\w+) : (\w+);")
+
+        def sub(m, a=a, b=b):
+            return (f"{m.group(1)}{m.group(2) if a is None else a} : "
+                    f"{m.group(3) if b is None else b};")
+        subs.append((pat, sub))
+    return subs
+
+
+# dk/dv's first products other than as two traded halves of D: each warp
+# takes its product over all of D (``full_d``: warps 1 and 3 repeat warps
+# 0 and 2), or warp 0 takes S^T and warp 2 dP^T over all of D while warps
+# 1 and 3 wait (``one_warp``); the halves the others would trade read as
+# zeros
+_DKV_HALF = """    product_t<NH, NQ, LD, true, true>(x, own, nullptr,
+                                      (kside ? ob : qb) + H * half,
+                                      nullptr);     // half of KQ^T, VdO^T
+    tile_out<NQ, LDX>(mine, x, g, t);
+"""
+_DKV_FULL = """    product_t<2 * NH, NQ, LD, true, true>(x, own - H * half, nullptr,
+                                          kside ? ob : qb, nullptr);
+    tile_out<NQ, LDX>(mine, x, g, t);
+"""
+_DKV_ZERO = [
+    (f"    tile_in<NQ, LDX>({v}, xq + {o}16 * LDX, g, t);\n",
+     f"    for (int n = 0; n < NQ; ++n)\n"
+     f"      for (int i = 0; i < 4; ++i) {v}[n][i] = 0.f;\n")
+    for v, o in (("x", ""), ("y", "3 * "))]
+_DKV_FULL_D = [(_DKV_HALF, _DKV_FULL)] + [
+    (a.replace("    tile_in", "      tile_in", 1) if "y" in a else a,
+     b.replace("    for", "      for", 1) if "y" in a else b)
+    for a, b in _DKV_ZERO]
+_DKV_ONE_WARP = [(_DKV_HALF, "    if (half == 0) {\n" + "".join(
+    "  " + ln + "\n" for ln in _DKV_FULL.splitlines()) + "    }\n")] + \
+    _DKV_FULL_D[1:]
+
+
 # dq's and the forward's edge cases at D 257-512
 _CASES_D512 = [(3, 1, 63, 512, True, 62, 0, None, False, 0.0),
                (3, 65, 127, 257, True, 64, 2, None, False, 0.0),
@@ -236,6 +284,20 @@ SETS = {
                  q512=(2, 8, True))},
         shapes=[[32, 1024, 320], [16, 1024, 512]], cases=_CASES_D512,
         mode="d512", source="flash_f32_d512.cu"),
+    # dk/dv's blocks at D 384 and 512: (quads, queries a tile, n-tiles a
+    # pass) per width, the shapes whose shared memory and registers fit
+    # (3 quads are 384 threads, 168 registers a thread); and its first
+    # products other than as traded halves (``_DKV_FULL_D``,
+    # ``_DKV_ONE_WARP``)
+    "d512dkv": dict(variants={
+        "committed": [],
+        "full_d": _DKV_FULL_D, "one_warp": _DKV_ONE_WARP,
+        "v2": _xk(k384=(2, 8, 4), k512=(1, 16, 2)),
+        "v3": _xk(k384=(3, 8, 4), k512=(2, 8, 4)),
+        "v4": _xk(k384=(2, 16, 4), k512=(1, 8, 2)),
+        "v5": _xk(k384=(1, 16, 4), k512=(2, 8, 1))},
+        shapes=[[32, 1024, 320], [16, 1024, 512]], cases=_CASES_D512,
+        mode="d512dkv", source="flash_f32_d512.cu"),
 }
 
 
@@ -282,7 +344,8 @@ def build(variants: dict, nvcc, arch, flags, ptxas_table,
         wide = source == "flash_f32_d512.cu"
         fwd = "apex_flash_f32_d512_fwd" if wide else "apex_flash_f32_fwd"
         getattr(so, fwd).argtypes = [I] + [P] * 5 + [L] * 6 + tail
-        for fn in (("apex_flash_f32_d512_dq",) if wide else
+        for fn in (("apex_flash_f32_d512_dq", "apex_flash_f32_d512_dkv")
+                   if wide else
                    ("apex_flash_f32_dq", "apex_flash_f32_dkv")):
             getattr(so, fn).argtypes = [I] + [P] * 8 + [L] * 8 + tail
         libs[name] = so
@@ -341,8 +404,8 @@ def main() -> int:
 
     timer = cs.Timer(torch)
     n = cs.FLASH_CHECK_HEADS
-    if cfg.get("mode") in ("bwd256", "d512"):
-        {"bwd256": bwd256, "d512": d512}[cfg["mode"]](
+    if cfg.get("mode") in ("bwd256", "d512", "d512dkv"):
+        {"bwd256": bwd256, "d512": d512, "d512dkv": d512dkv}[cfg["mode"]](
             torch, cs, kcuda, FA, libs, cfg, timer)
         print(cs.nvidia_smi("name,power.limit"))
         return 0
@@ -662,6 +725,95 @@ def d512(torch, cs, kcuda, FA, libs, cfg, timer) -> None:
                 "dq_used": used(got[0], want[0]),
                 "ds_used": used(got[1], want[3]) if ds else None}),
                 flush=True)
+
+
+def d512dkv(torch, cs, kcuda, FA, libs, cfg, timer) -> None:
+    """dk/dv at D 384 and 512 of every variant: at each shape (causal,
+    ``form_inputs``; lse and delta from the plain forward) dk and dv
+    against ``flash_bwd_plain`` on the first heads under the fp32 flash
+    rule, repeated bit for bit, then timed in turns twice, the simple
+    dk/dv on the same inputs beside them; then at the edge cases."""
+    n = cs.FLASH_CHECK_HEADS
+
+    def call(so, q, k, v, do, lse, delta, kw):
+        d = q.shape[-1]
+        dw = -(-d // 4) * 4
+        qp, kp, vp, dop = (FA._pad_d(t, dw).contiguous()
+                           for t in (q, k, v, do))
+        args, _keep = FA._tail("ab", qp, kp, kw.get("kv_bias"),
+                               kw.get("bias"), kw.get("dropout_rate", 0.0),
+                               kw.get("dropout_seed", 0), kw["causal"],
+                               kw["scale"], kw.get("q_start", 0),
+                               kw.get("k_start", 0))
+        dk, dv = torch.empty_like(kp), torch.empty_like(vp)
+        ptrs = [t.data_ptr() for t in (qp, kp, vp, dop, lse, delta)]
+        kcuda.check(so.apex_flash_f32_d512_dkv(
+            0, *ptrs, dk.data_ptr(), dv.data_ptr(),
+            *FA._strides(qp, kp, vp, dop), *args), "dkv")
+        return dk[..., :d], dv[..., :d]
+
+    def used(a, b):
+        return cs.flash_err(torch, a, b, torch.float32)["used"]
+
+    for shape in cfg["shapes"]:
+        bh, s, d = shape
+        q, k, v, do = cs.form_inputs(torch, shape, torch.float32)
+        kw = dict(causal=True, scale=d ** -0.5)
+        o0, lse0 = FA.reference_attention(q, k, v, return_lse=True, **kw)
+        delta = FA.flash_delta(o0, do)
+        args = (q, k, v, do, lse0, delta)
+        want = FA.flash_bwd_plain(*(t[:n] for t in args), **kw)
+        res = {name: {} for name in libs}
+        for name, so in libs.items():
+            dk, dv = call(so, *args, kw)
+            dk2, dv2 = call(so, *args, kw)
+            torch.cuda.synchronize()
+            res[name].update(
+                dk_used=used(dk[:n], want[1]), dv_used=used(dv[:n], want[2]),
+                repeat_equal=bool(torch.equal(dk, dk2)
+                                  and torch.equal(dv, dv2)))
+            del dk, dv, dk2, dv2
+        for order in (list(libs), list(libs)[::-1]):
+            for name in order:
+                res[name].setdefault("ms", []).append(
+                    timer(lambda: call(libs[name], *args, kw)))
+        for name, r in res.items():
+            print(json.dumps({"shape": shape, "variant": name, **r}),
+                  flush=True)
+        print(json.dumps({"shape": shape, "variant": "simple form",
+                          "ms": timer(lambda: FA.flash_simt_dkv(*args,
+                                                                **kw))}),
+              flush=True)
+        del q, k, v, do, o0, lse0, delta, args, want
+    for case in cfg["cases"]:
+        bh, sq, sk, d, causal, q_start, k_start, rows, kvb, rate = case
+        g = torch.Generator(device="cuda").manual_seed(sq * sk + d)
+        q, do = (torch.randn(bh, sq, d, generator=g, device="cuda")
+                 for _ in range(2))
+        k, v = (torch.randn(bh, sk, d, generator=g, device="cuda")
+                for _ in range(2))
+        kw = dict(causal=causal, scale=d ** -0.5, q_start=q_start,
+                  k_start=k_start, dropout_rate=rate, dropout_seed=-123)
+        if kvb:
+            kw["kv_bias"] = torch.where(
+                torch.rand(bh, sk, generator=g, device="cuda") < 0.25,
+                FA.NEG_INF, 0.0)
+        bias = None
+        if rows is not None:
+            bias = torch.randn(1 if rows == 1 else bh, sq, sk, generator=g,
+                               device="cuda")
+            bias[..., ::7] = FA.NEG_INF
+        o0, lse0 = FA.reference_attention(q, k, v, bias, return_lse=True,
+                                          **kw)
+        kw["bias"] = bias
+        delta = FA.flash_delta(o0, do)
+        want = FA.flash_bwd_plain(q, k, v, do, lse0, delta, **kw)
+        for name, so in libs.items():
+            dk, dv = call(so, q, k, v, do, lse0, delta, kw)
+            torch.cuda.synchronize()
+            print(json.dumps({"case": case, "variant": name,
+                              "dk_used": used(dk, want[1]),
+                              "dv_used": used(dv, want[2])}), flush=True)
 
 
 if __name__ == "__main__":

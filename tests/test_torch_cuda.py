@@ -2228,12 +2228,13 @@ def _d256_inputs(card, bh, sq, sk, d, dtype, seed):
 
 # the wrappers that count the forms past head dim 128
 WIDE_FORMS = ("flash_d256_fwd", "flash_d256_dq", "flash_d256_dkv",
-              "flash_d512_fwd", "flash_d512_dq", "flash_simt_fwd",
-              "flash_simt_dq", "flash_simt_dkv", "flash_f32_d512_fwd",
-              "flash_f32_d512_dq")
+              "flash_d512_fwd", "flash_d512_dq", "flash_d512_dkv",
+              "flash_simt_fwd", "flash_simt_dq", "flash_simt_dkv",
+              "flash_f32_d512_fwd", "flash_f32_d512_dq",
+              "flash_f32_d512_dkv")
 D256 = ("flash_d256_fwd", "flash_d256_dq", "flash_d256_dkv")
-D512 = ("flash_d512_fwd", "flash_d512_dq", "flash_simt_dkv")
-F32X = ("flash_f32_d512_fwd", "flash_f32_d512_dq", "flash_simt_dkv")
+D512 = ("flash_d512_fwd", "flash_d512_dq", "flash_d512_dkv")
+F32X = ("flash_f32_d512_fwd", "flash_f32_d512_dq", "flash_f32_d512_dkv")
 
 
 def _d256_against_plain(q, k, v, do, dtype, launched=D256, lse_tol=1e-3,
@@ -2370,16 +2371,17 @@ def test_d256_kernels_at_more_than_65535_heads(card):
 def test_d256_leaves_fp32_and_wider_heads_to_the_simple_form(card, dtype,
                                                              d):
     """fp32 at D 256 takes its forward, dq and dk/dv in 3xTF32 (the pair
-    kernels); bf16 at D 320 takes the D-384 forward and dq and the simple
-    form's dk/dv, fp32 there the 3xTF32 forward and dq at D 384 and the
-    simple dk/dv; none of the 16-bit D-256 kernels launches."""
+    kernels); bf16 at D 320 takes the D-384 forward, dq and dk/dv, fp32
+    there the 3xTF32 forward, dq and dk/dv at D 384; neither the simple
+    form nor the 16-bit D-256 kernels launch."""
     from apex_tpu_torch.contrib.multihead_attn import flash_attention
     from apex_tpu_torch.ops import flash_attn as FA
     q, k, v, do = _d256_inputs(card, 2, 100, 100, d, dtype, d)
     fns = (FA.flash_simt_fwd, FA.flash_simt_dq, FA.flash_simt_dkv,
            FA.flash_f32_fwd, FA.flash_f32_dq, FA.flash_f32_dkv,
-           FA.flash_d512_fwd, FA.flash_d512_dq,
+           FA.flash_d512_fwd, FA.flash_d512_dq, FA.flash_d512_dkv,
            FA.flash_f32_d512_fwd, FA.flash_f32_d512_dq,
+           FA.flash_f32_d512_dkv,
            FA.flash_d256_fwd, FA.flash_d256_dq, FA.flash_d256_dkv,
            FA.flash_fwd, FA.flash_bwd_dq, FA.flash_bwd_dkv)
     before = [f.launches for f in fns]
@@ -2387,10 +2389,10 @@ def test_d256_leaves_fp32_and_wider_heads_to_the_simple_form(card, dtype,
     o = flash_attention(qs, ks, vs, causal=True)
     torch.autograd.grad(o, (qs, ks, vs), do)
     assert [f.launches - n for f, n in zip(fns, before)] == {
-        (torch.float32, 256): [0, 0, 0, 1, 1, 1, 0, 0, 0, 0],
-        (torch.bfloat16, 320): [0, 0, 1, 0, 0, 0, 1, 1, 0, 0],
-        (torch.float32, 320): [0, 0, 1, 0, 0, 0, 0, 0, 1, 1]}[(dtype, d)] + \
-        [0] * 6
+        (torch.float32, 256): [0, 0, 0, 1, 1, 1, 0, 0, 0, 0, 0, 0],
+        (torch.bfloat16, 320): [0, 0, 0, 0, 0, 0, 1, 1, 1, 0, 0, 0],
+        (torch.float32, 320): [0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1]}[
+            (dtype, d)] + [0] * 6
 
 
 # -- the bf16/fp16 forward and dq at head dims 257-512 (run at D 384, 512) ---
@@ -2461,9 +2463,53 @@ def test_d512_rows_that_see_nothing(card):
     assert not o[:, :70].any() and not dq[:, :70].any()
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32],
+                         ids=["bf16", "f16", "f32"])
+def test_d512_keys_no_query_sees(card, dtype):
+    """Causal keys past every query at D 320 (Sq 100, Sk 300: keys 100-299,
+    whole blocks of 64 (of 32 in fp32) and a part of one) get dk and dv
+    exactly 0; the rest under the dtype's flash rule."""
+    f32 = dtype == torch.float32
+    q, k, v, do = _d256_inputs(card, 2, 100, 300, 320, dtype, 4)
+    _, _, _, dk, dv = _d256_against_plain(
+        q, k, v, do, dtype, F32X if f32 else D512,
+        lse_tol=1e-4 if f32 else 1e-3, causal=True, scale=320 ** -0.5)
+    assert not dk[:, 100:].any() and not dv[:, 100:].any()
+    assert dk[:, :100].any() and dv[:, :100].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "f16"])
+def test_d512_autograd_chain_matches_the_plain_chain(card, dtype):
+    """``flash_attention`` at [16, 1024, 320] causal in bf16 and fp16,
+    forward and backward through autograd (the D-384 forward, dq and
+    dk/dv, one launch each) against the same chain under the plain
+    versions: o, dq, dk and dv under the 16-bit flash rule. dk/dv rests on
+    the kernel forward's lse and on delta of its o."""
+    from apex_tpu_torch.contrib.multihead_attn import flash_attention
+    from apex_tpu_torch.ops import flash_attn as FA
+    q, k, v, do = _d256_inputs(card, 16, 1024, 1024, 320, dtype, 33)
+    ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
+
+    def run():
+        o = flash_attention(*ts, causal=True)
+        return (o, *torch.autograd.grad(o, ts, do))
+    fns = [getattr(FA, n) for n in WIDE_FORMS]
+    before = [f.launches for f in fns]
+    got = run()
+    assert {n: f.launches - b for n, f, b in zip(WIDE_FORMS, fns, before)} \
+        == {n: int(n in D512) for n in WIDE_FORMS}
+    with dispatch.backend("reference"):
+        want = run()
+    for a, b0 in zip(got, want):
+        _flash_rule(a, b0, dtype)
+
+
 def test_d512_kernels_read_strided_views(card):
     """q, k and v as head slices of a packed [BH, S, 3 · 320] projection
-    (row stride 960, no copy) give the bits of their contiguous copies."""
+    (row stride 960, no copy) give the bits of their contiguous copies: o,
+    lse, dq, dk and dv."""
     from apex_tpu_torch.ops import flash_attn as FA
     g = torch.Generator(device=card).manual_seed(17)
     qkv = torch.randn(4, 200, 3 * 320, generator=g, device=card).bfloat16()
@@ -2479,6 +2525,10 @@ def test_d512_kernels_read_strided_views(card):
     assert torch.equal(dq, FA.flash_bwd_dq(q.contiguous(), k.contiguous(),
                                            v.contiguous(), do, lse, delta,
                                            **kw))
+    dk, dv = FA.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    dkc, dvc = FA.flash_bwd_dkv(q.contiguous(), k.contiguous(),
+                                v.contiguous(), do, lse, delta, **kw)
+    assert torch.equal(dk, dkc) and torch.equal(dv, dvc)
 
 
 def test_d512_kernels_at_more_than_65535_heads(card):
@@ -2492,10 +2542,11 @@ def test_d512_kernels_at_more_than_65535_heads(card):
     o, lse = FA.flash_fwd(q, k, v, **kw)
     delta = FA.flash_delta(o, do)
     dq = FA.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = FA.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
     tail = slice(65536 - 9, bh)
     got = _d256_against_plain(q[tail], k[tail], v[tail], do[tail],
                               torch.bfloat16, D512, **kw)
-    for a, b0 in zip((o, lse, dq), got):
+    for a, b0 in zip((o, lse, dq, dk, dv), got):
         assert torch.equal(a[tail], b0)
 
 
@@ -2744,6 +2795,8 @@ def test_f32_d512_kernels_read_strided_and_broadcast_views(card):
     delta = FA.flash_delta(o, do)
     assert torch.equal(FA.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
                        FA.flash_bwd_dq(qc, kc, vc, doc, lse, delta, **kw))
+    dkc, dvc = FA.flash_bwd_dkv(qc, kc, vc, doc, lse, delta, **kw)
+    assert torch.equal(dk, dkc) and torch.equal(dv, dvc)
     shifted = torch.randn(bh * s * d + 1, generator=g, device=card)[1:]
     shifted = shifted.view(bh, s, d)
     assert FA._f32x_ready("flash_f32_d512_fwd", shifted, k, v)[0] \
@@ -2764,18 +2817,19 @@ def test_f32_d512_kernels_at_more_than_65535_heads(card):
     o, lse = FA.flash_fwd(q, k, v, **kw)
     delta = FA.flash_delta(o, do)
     dq = FA.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = FA.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
     tail = slice(65536 - 9, bh)
     got = _d256_against_plain(q[tail], k[tail], v[tail], do[tail],
                               torch.float32, F32X, lse_tol=1e-4, **kw)
-    for a, b0 in zip((o, lse, dq), got):
+    for a, b0 in zip((o, lse, dq, dk, dv), got):
         assert torch.equal(a[tail], b0)
 
 
 def test_f32_d512_autograd_chain_matches_the_plain_chain(card):
     """``flash_attention`` at [16, 1024, 320] fp32 causal, forward and
-    backward through autograd (the 3xTF32 forward and dq, the simple
-    dk/dv, one launch each) against the same chain under the plain
-    versions: o, dq, dk and dv under the fp32 flash rule. The chain's dq
+    backward through autograd (the 3xTF32 forward, dq and dk/dv, one
+    launch each) against the same chain under the plain versions: o, dq,
+    dk and dv under the fp32 flash rule. The chain's dq
     rests on the kernel forward's o and lse (delta = rowsum(dO·o)), so a
     forward off the plain one at rows one key dominates shows here where
     each kernel alone holds."""

@@ -96,7 +96,9 @@ _ENTRY = {
            "f32_512": "apex_flash_f32_d512_dq",
            "simt": "apex_flash_simt_dq"},
     "dkv": {"tc": "apex_flash_bwd_dkv", "tc256": "apex_flash_bwd_dkv",
-            "f32": "apex_flash_f32_dkv", "simt": "apex_flash_simt_dkv"}}
+            "tc512": "apex_flash_d512_dkv", "f32": "apex_flash_f32_dkv",
+            "f32_512": "apex_flash_f32_d512_dkv",
+            "simt": "apex_flash_simt_dkv"}}
 # the wrapper that counts each form's launch
 _COUNTER = {
     "fwd": {"tc": "flash_fwd", "tc256": "flash_d256_fwd",
@@ -106,7 +108,8 @@ _COUNTER = {
            "tc512": "flash_d512_dq", "f32": "flash_f32_dq",
            "f32_512": "flash_f32_d512_dq", "simt": "flash_simt_dq"},
     "dkv": {"tc": "flash_bwd_dkv", "tc256": "flash_d256_dkv",
-            "f32": "flash_f32_dkv", "simt": "flash_simt_dkv"}}
+            "tc512": "flash_d512_dkv", "f32": "flash_f32_dkv",
+            "f32_512": "flash_f32_d512_dkv", "simt": "flash_simt_dkv"}}
 
 
 @pytest.mark.parametrize("dtype,d,fwd,dq,dkv", [
@@ -117,16 +120,16 @@ _COUNTER = {
     (BF16, 256, "tc256", "tc256", "tc256"),
     (F16, 256, "tc256", "tc256", "tc256"),
     (F32, 129, "f32", "f32", "f32"), (F32, 256, "f32", "f32", "f32"),
-    (F32, 257, "f32_512", "f32_512", "simt"),
-    (BF16, 257, "tc512", "tc512", "simt"),
-    (F16, 512, "tc512", "tc512", "simt"),
+    (F32, 257, "f32_512", "f32_512", "f32_512"),
+    (BF16, 257, "tc512", "tc512", "tc512"),
+    (F16, 512, "tc512", "tc512", "tc512"),
     (BF16, 64, "tc", "tc", "tc"), (F16, 100, "tc", "tc", "tc"),
     (BF16, 128, "tc", "tc", "tc"), (F32, 128, "f32", "f32", "f32")])
 def test_each_kernel_takes_its_own_form(recorder, dtype, d, fwd, dq, dkv):
     """The forward, dq and dk/dv each take their own form (bf16/fp16 at D
-    129-256 all three at D 256; past 256 the forward and dq at D 384 or
-    512, dk/dv the simple form; fp32 at 129-256 all three in 3xTF32,
-    past 256 the forward and dq in 3xTF32 at D 384 or 512).
+    129-256 all three at D 256; past 256 all three at D 384 or 512;
+    fp32 at 129-256 all three in 3xTF32, past 256 all three in 3xTF32 at
+    D 384 or 512).
     Each wrapper reaches its form's C entry point once and counts one
     launch on that form's wrapper alone; the shared-bias gradient takes
     the tensor-core kernel only where every 16-bit kernel does (D <=

@@ -65,15 +65,14 @@ def test_padded_head_dim(d, dp):
     (torch.bfloat16, 256, False, ("tc256", "tc256", "tc256")),
     (torch.float32, 64, False, ("f32", "f32", "f32")),
     (torch.float32, 256, False, ("f32", "f32", "f32")),
-    (torch.bfloat16, 512, False, ("tc512", "tc512", "simt")),
-    (torch.float16, 257, False, ("tc512", "tc512", "simt")),
-    (torch.float32, 257, False, ("f32_512", "f32_512", "simt"))])
+    (torch.bfloat16, 512, False, ("tc512",) * 3),
+    (torch.float16, 257, False, ("tc512",) * 3),
+    (torch.float32, 257, False, ("f32_512",) * 3)])
 def test_the_form_follows_dtype_and_head_dim(dtype, d, tc, forms):
     """``tensor_cores``: every 16-bit kernel on the tensor cores (D <= 128);
-    past 128 the forward, dq and dk/dv take their D-256 form up to 256,
-    and the forward and dq their D-384/512 form up to 512 (dk/dv the
-    simple form); fp32 to 256 its 3xTF32 forward, dq and dk/dv, past it
-    its 3xTF32 forward and dq at D 384 or 512 (dk/dv the simple form)."""
+    past 128 the forward, dq and dk/dv take their D-256 form up to 256
+    and their D-384/512 form up to 512; fp32 to 256 its 3xTF32 forward, dq
+    and dk/dv, past it all three in 3xTF32 at D 384 or 512."""
     q = torch.zeros(2, 3, d, dtype=dtype)
     assert FA.tensor_cores(q) == tc
     assert tuple(FA.kernel_form(q, k) for k in ("fwd", "dq", "dkv")) == forms

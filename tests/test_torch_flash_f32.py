@@ -60,19 +60,17 @@ JFA = importlib.import_module(
 @pytest.mark.parametrize("dtype,d,form", [
     (torch.float32, 1, "f32"), (torch.float32, 64, "f32"),
     (torch.float32, 128, "f32"), (torch.float32, 129, "f32"),
-    (torch.float32, 256, "f32"), (torch.float32, 257, "simt"),
-    (torch.float32, 512, "simt"), (torch.bfloat16, 128, "tc"),
+    (torch.float32, 256, "f32"), (torch.float32, 257, "f32_512"),
+    (torch.float32, 512, "f32_512"), (torch.bfloat16, 128, "tc"),
     (torch.bfloat16, 129, "tc256")])
 def test_backward_form_follows_dtype_and_head_dim(dtype, d, form):
-    """``form`` is dk/dv's (bf16/fp16 at D 129-256 on the tensor cores at D
-    256, fp32 in 3xTF32 at D 256, fp32 past 256 the simple form), and dq's
-    and the forward's up to D 256; past it fp32's forward and dq take
-    their 3xTF32 form at D 384 or 512 ("f32_512")."""
+    """``form`` is dk/dv's, dq's and the forward's alike (bf16/fp16 at D
+    129-256 on the tensor cores at D 256, fp32 in 3xTF32 at D 256, fp32
+    past 256 in 3xTF32 at D 384 or 512, "f32_512")."""
     q = torch.zeros(2, 3, d, dtype=dtype)
-    wide = dtype == torch.float32 and d > 256
     assert FA.kernel_form(q, "dkv") == form
-    assert FA.kernel_form(q, "dq") == ("f32_512" if wide else form)
-    assert FA.kernel_form(q, "fwd") == ("f32_512" if wide else form)
+    assert FA.kernel_form(q, "dq") == form
+    assert FA.kernel_form(q, "fwd") == form
     # tensor_cores names the 16-bit kernels alone
     assert FA.tensor_cores(q) == (form == "tc")
 
@@ -101,18 +99,19 @@ def test_forward_sends_fp32_to_the_form_kernel_form_names(d, wrapper,
 
 @pytest.mark.parametrize("d,form", [(1, "f32"), (64, "f32"), (128, "f32"),
                                     (129, "f32"), (200, "f32"),
-                                    (256, "f32"), (257, "f32_d512/simt"),
-                                    (512, "f32_d512/simt")])
+                                    (256, "f32"), (257, "f32_d512"),
+                                    (512, "f32_d512")])
 def test_backward_sends_fp32_to_the_form_kernel_form_names(d, form,
                                                            monkeypatch):
     """``flash_bwd_dq`` and ``flash_bwd_dkv`` on the card: fp32 at D <= 256
     to ``flash_f32_dq`` and ``flash_f32_dkv`` (at D 129-256 the pair
-    kernels), past 256 dq to ``flash_f32_d512_dq`` and dk/dv to the simple
-    form (``form``: dq's / dk/dv's; the wrappers stubbed, the card
-    pretended), every argument passed on."""
+    kernels), past 256 to ``flash_f32_d512_dq`` and ``flash_f32_d512_dkv``
+    (the wrappers stubbed, the card pretended), never the simple form,
+    every argument passed on."""
     calls = []
     for name in ("flash_f32_dq", "flash_f32_dkv", "flash_simt_dq",
-                 "flash_simt_dkv", "flash_f32_d512_dq"):
+                 "flash_simt_dkv", "flash_f32_d512_dq",
+                 "flash_f32_d512_dkv"):
         monkeypatch.setattr(FA, name, lambda *a, _n=name, **kw: calls.append(
             (_n, len(a), kw["scale"], kw["dropout_rate"])))
     monkeypatch.setattr(FA.dispatch, "use_kernel", lambda t: True)
@@ -121,9 +120,8 @@ def test_backward_sends_fp32_to_the_form_kernel_form_names(d, form,
     kw = dict(causal=True, scale=0.25, dropout_rate=0.1, dropout_seed=5)
     FA.flash_bwd_dq(q, q, q, q, lse, lse, **kw)
     FA.flash_bwd_dkv(q, q, q, q, lse, lse, **kw)
-    dq_form, dkv_form = form.split("/") if "/" in form else (form, form)
-    assert calls == [(f"flash_{dq_form}_dq", 6, 0.25, 0.1),
-                     (f"flash_{dkv_form}_dkv", 6, 0.25, 0.1)]
+    assert calls == [(f"flash_{form}_dq", 6, 0.25, 0.1),
+                     (f"flash_{form}_dkv", 6, 0.25, 0.1)]
 
 
 def test_f32_fwd_runs_the_plain_version_on_the_cpu_and_refuses():

@@ -1,16 +1,17 @@
-"""Port parity: the fp32 flash forward and dq at head dims 257-512 in
-3xTF32 (``flash_f32_d512_fwd``, ``flash_f32_d512_dq``:
-``ops/cuda/csrc/flash_f32_d512.cu``, pairs of warps over 16 query rows, D
-split between the two warps of a pair), dk/dv there staying the simple
-form's.
+"""Port parity: the fp32 flash forward, dq and dk/dv at head dims 257-512
+in 3xTF32 (``flash_f32_d512_fwd``, ``flash_f32_d512_dq``,
+``flash_f32_d512_dkv``: ``ops/cuda/csrc/flash_f32_d512.cu``; the forward
+and dq by pairs of warps over 16 query rows, D split between the two warps
+of a pair; dk/dv by quads of warps over 16 keys, two warps holding dv's
+halves of the columns and two dk's).
 
 Here, on the CPU:
 
 - the launches: the wrappers driven with the card pretended and the
   kernel library replaced by a recorder, so the arguments a launch would
   get are read: the C entry point and the counting wrapper of each kernel
-  (the forward and dq the 3xTF32 kernels, dk/dv the simple form, each
-  launch counted on its own wrapper alone), the width the tensors are
+  (the forward, dq and dk/dv the 3xTF32 kernels, each launch counted on
+  its own wrapper alone), the width the tensors are
   handed at (a multiple of 4 floats: the kernels zero the columns past it
   up to 384 or 512), their strides, the real D's scale, the biases and
   dropout passed on; the wrappers' refusals (bf16, D <= 256, D > 512);
@@ -24,7 +25,11 @@ Here, on the CPU:
   and each tile's P·V added from a fresh accumulator, every product in
   3xTF32 with the staged rows split as read) and of dq's (S and dP over
   all of D, traded, dS = P (dP − δ), each tile's dS K from a fresh
-  accumulator) at head dim 320, padded to 384, holds the JAX package's
+  accumulator) and of dk/dv's (queries in the kernel's tiles, Sᵀ = K Qᵀ
+  and dPᵀ = V dOᵀ each as the sum of its two halves of D as the quad
+  trades them, Pᵀ from lse, dropped for dv, dSᵀ = Pᵀ (dP'ᵀ − δ), each
+  tile's Pᵀ dO and dSᵀ Q from a fresh accumulator, dk scaled at the end)
+  at head dim 320, padded to 384, holds the JAX package's
   ``flash_attention`` (its Pallas kernels in interpret mode) under the
   fp32 flash rule, 2 ulps + 2^-14 of the larger of the row's and the
   tensor's RMS, lse within 1e-4; one TF32 pass fails the rule;
@@ -56,9 +61,10 @@ JFA = importlib.import_module(
 
 BF16, F16, F32 = torch.bfloat16, torch.float16, torch.float32
 
-# the keys a staged tile holds in the forward and in dq at D 384
-# (flash_f32_d512.cu's xf_tile<384>, xq_tile<384>)
-FWD_KEYS, DQ_KEYS = 16, 8
+# the keys a staged tile holds in the forward and in dq at D 384, and the
+# queries one of dk/dv's holds (flash_f32_d512.cu's xf_tile<384>,
+# xq_tile<384>, xk_tile<384>)
+FWD_KEYS, DQ_KEYS, DKV_QUERIES = 16, 8, 16
 
 
 # -- the launches -------------------------------------------------------------
@@ -96,26 +102,27 @@ def _inputs(dtype, d, bh=3, sq=70, sk=90):
 
 
 # the wrappers that count the forms a flash kernel past D 256 may take
-_WRAPPERS = ("flash_f32_d512_fwd", "flash_f32_d512_dq", "flash_simt_fwd",
-             "flash_simt_dq", "flash_simt_dkv", "flash_f32_fwd",
-             "flash_f32_dq", "flash_f32_dkv", "flash_d512_fwd",
-             "flash_d512_dq")
+_WRAPPERS = ("flash_f32_d512_fwd", "flash_f32_d512_dq", "flash_f32_d512_dkv",
+             "flash_simt_fwd", "flash_simt_dq", "flash_simt_dkv",
+             "flash_f32_fwd", "flash_f32_dq", "flash_f32_dkv",
+             "flash_d512_fwd", "flash_d512_dq", "flash_d512_dkv")
+_F32X = ("flash_f32_d512_fwd", "flash_f32_d512_dq", "flash_f32_d512_dkv")
 
 
 @pytest.mark.parametrize("d", [257, 300, 318, 320, 384, 385, 448, 512])
 def test_launches_get_their_entry_points_widths_and_strides(recorder, d):
-    """fp32 at D 257-512: the forward and dq reach the 3xTF32 entry points
-    with q, k, v and dO handed at a multiple of 4 floats (zero-padded only
-    to it), their bh and row strides, that width as the C side's d, the
-    real D's scale and the biases and dropout passed on, dq's dS when
-    asked; dk/dv reaches the simple form at the real D. Each counts one
-    launch on its own wrapper alone; outputs come back at D."""
+    """fp32 at D 257-512: the forward, dq and dk/dv reach the 3xTF32 entry
+    points with q, k, v and dO handed at a multiple of 4 floats
+    (zero-padded only to it), their bh and row strides, that width as the
+    C side's d, the real D's scale and the biases and dropout passed on,
+    dq's dS when asked. Each counts one launch on its own wrapper alone;
+    outputs come back at D."""
     q, k, v, do, lse, delta = _inputs(F32, d)
     bh, sq, _ = q.shape
     sk = k.shape[1]
     w = -(-d // 4) * 4
     assert tuple(FA.kernel_form(q, n) for n in ("fwd", "dq", "dkv")) == \
-        ("f32_512", "f32_512", "simt")
+        ("f32_512",) * 3
     before = {n: getattr(FA, n).launches for n in _WRAPPERS}
     kw = dict(causal=True, scale=d ** -0.5, q_start=3, k_start=1,
               kv_bias=torch.zeros(1, sk), bias=torch.zeros(bh, sq, sk),
@@ -126,11 +133,11 @@ def test_launches_get_their_entry_points_widths_and_strides(recorder, d):
     assert o.shape == dq.shape == (bh, sq, d) and lse_out.shape == (bh, sq)
     assert ds.shape == (bh, sq, sk) and dk.shape == dv.shape == (bh, sk, d)
     assert {n: getattr(FA, n).launches - before[n] for n in _WRAPPERS} == \
-        {n: int(n in ("flash_f32_d512_fwd", "flash_f32_d512_dq",
-                      "flash_simt_dkv")) for n in _WRAPPERS}
+        {n: int(n in _F32X) for n in _WRAPPERS}
     (fn, fa), (qn, qa), (kn, ka) = recorder.calls
     assert (fn, qn, kn) == ("apex_flash_f32_d512_fwd",
-                            "apex_flash_f32_d512_dq", "apex_flash_simt_dkv")
+                            "apex_flash_f32_d512_dq",
+                            "apex_flash_f32_d512_dkv")
     # forward: dtype, q, k, v, o, lse, 6 strides, then _tail's 16
     assert fa[0] == 0 and len(fa) == 12 + 16
     assert fa[6:12] == (sq * w, w, sk * w, w, sk * w, w)
@@ -143,8 +150,9 @@ def test_launches_get_their_entry_points_widths_and_strides(recorder, d):
     assert qa[0] == 0 and len(qa) == 17 + 16 and qa[8] is not None
     assert qa[9:17] == (sq * w, w, sk * w, w, sk * w, w, sq * w, w)
     assert qa[17:][7:15] == (bh, sq, sk, w, 3, 1, 1, d ** -0.5)
-    # dk/dv: the simple form, at the real D
-    assert ka[17:][7:11] == (bh, sq, sk, d)
+    # dk/dv: dtype, q, k, v, dO, lse, delta, dk, dv, 8 strides, the tail
+    assert ka[0] == 0 and len(ka) == 17 + 16 and None not in ka[1:9]
+    assert ka[9:17] == qa[9:17] and ka[17:] == qa[17:]
 
 
 def test_inputs_are_copied_only_to_a_multiple_of_4():
@@ -177,13 +185,13 @@ def test_inputs_are_copied_only_to_a_multiple_of_4():
 
 
 def test_wrappers_run_the_plain_versions_on_the_cpu():
-    """On CPU tensors the fp32 D-384/512 wrappers are their plain versions,
-    bit for bit, and count no launch."""
+    """On CPU tensors the fp32 D-384/512 wrappers (the forward, dq and
+    dk/dv) are their plain versions, bit for bit, and count no launch."""
     q, k, v, do, _, _ = _inputs(F32, 320, bh=2, sq=33, sk=40)
     bias = torch.randn(2, 33, 40)
     kw = dict(causal=True, scale=320 ** -0.5, bias=bias, dropout_rate=0.1,
               dropout_seed=3)
-    before = (FA.flash_f32_d512_fwd.launches, FA.flash_f32_d512_dq.launches)
+    before = [getattr(FA, n).launches for n in _F32X]
     o, lse = FA.flash_f32_d512_fwd(q, k, v, **kw)
     plain = {n: x for n, x in kw.items() if n != "bias"}
     o0, lse0 = FA.reference_attention(q, k, v, bias, return_lse=True,
@@ -194,13 +202,15 @@ def test_wrappers_run_the_plain_versions_on_the_cpu():
                                   **kw)
     want = FA.flash_bwd_plain(q, k, v, do, lse, delta, return_ds=True, **kw)
     assert torch.equal(dq, want[0]) and torch.equal(ds, want[3])
-    assert (FA.flash_f32_d512_fwd.launches,
-            FA.flash_f32_d512_dq.launches) == before
+    dk, dv = FA.flash_f32_d512_dkv(q, k, v, do, lse, delta, **kw)
+    assert torch.equal(dk, want[1]) and torch.equal(dv, want[2])
+    assert [getattr(FA, n).launches for n in _F32X] == before
 
 
 def test_wrappers_refuse_what_they_do_not_take(recorder):
     """bf16 and fp16, fp32 at D <= 256 and past 512, and dS without the
-    bias it is the gradient of: refused before any launch."""
+    bias it is the gradient of: refused by the forward, dq and dk/dv
+    before any launch."""
     for dt, d in ((BF16, 320), (F16, 512), (F32, 256), (F32, 129)):
         q, k, v, do, lse, delta = _inputs(dt, d, sq=5, sk=5)
         with pytest.raises(ValueError, match="fp32 at a head dim of 257 to"):
@@ -208,9 +218,15 @@ def test_wrappers_refuse_what_they_do_not_take(recorder):
         with pytest.raises(ValueError, match="fp32 at a head dim of 257 to"):
             FA.flash_f32_d512_dq(q, k, v, do, lse, delta, causal=True,
                                  scale=1.0)
+        with pytest.raises(ValueError, match="fp32 at a head dim of 257 to"):
+            FA.flash_f32_d512_dkv(q, k, v, do, lse, delta, causal=True,
+                                  scale=1.0)
     q, k, v, do, lse, delta = _inputs(F32, 513, sq=5, sk=5)
     with pytest.raises(ValueError, match="head dim of 1 to 512"):
         FA.flash_f32_d512_fwd(q, k, v, causal=True)
+    with pytest.raises(ValueError, match="head dim of 1 to 512"):
+        FA.flash_f32_d512_dkv(q, k, v, do, lse, delta, causal=True,
+                              scale=1.0)
     q, k, v, do, lse, delta = _inputs(F32, 320, sq=5, sk=5)
     with pytest.raises(ValueError, match="return_ds needs the bias"):
         FA.flash_f32_d512_dq(q, k, v, do, lse, delta, causal=True,
@@ -359,11 +375,58 @@ def _dq_model(q, k, v, do, lse, delta, kv_bias, *, causal, scale,
     return dq * scale
 
 
+def _dkv_model(q, k, v, do, lse, delta, kv_bias, *, causal, scale,
+               dropout_rate=0.0, dropout_seed=0, q_start=0, k_start=0,
+               passes=3, bq=DKV_QUERIES):
+    """``f32x_dkv_kernel``'s arithmetic in plain PyTorch, at the kernel's
+    D: queries in tiles of ``bq``; Sᵀ = K Qᵀ and dPᵀ = V dOᵀ each as its two
+    halves of D by ``_chunked`` (one warp each), added as the quad trades
+    them; Pᵀ from the scores in log2 units with the kv_bias, 0 where
+    masked; dv += Pᵀ dO with Pᵀ dropped and rescaled, dP'ᵀ dropped and
+    rescaled, dk += dSᵀ Q with dSᵀ = Pᵀ (dP'ᵀ − δ), each tile's product
+    (Pᵀ, dSᵀ split once, dO and Q as read) from a fresh accumulator added
+    in fp32; dk scaled at the end."""
+    bh, sq, d = q.shape
+    sk, h = k.shape[1], d // 2
+    log2e = 1.0 / math.log(2.0)
+    dk = torch.zeros(bh, sk, d)
+    dv = torch.zeros(bh, sk, d)
+    kpos = k_start + torch.arange(sk)[:, None]
+    for q0 in range(0, sq, bq):
+        q1 = min(q0 + bq, sq)
+        qt, ot = q[:, q0:q1], do[:, q0:q1]
+
+        def halves(a, b):
+            return _chunked(a[..., :h], b[..., :h], passes) + \
+                _chunked(a[..., h:], b[..., h:], passes)
+        st = halves(k, qt) * (scale * log2e)
+        if kv_bias is not None:
+            st = st + kv_bias[:, :, None] * log2e
+        qpos = q_start + torch.arange(q0, q1)[None, :]
+        if causal:
+            st = torch.where(qpos >= kpos, st, torch.tensor(FA.NEG_INF))
+        p = torch.where(st > FA.NEG_INF * 0.5,
+                        torch.exp2(st - lse[:, None, q0:q1] * log2e),
+                        torch.zeros(()))
+        dpt = halves(v, ot)
+        pd = p
+        if dropout_rate > 0.0:
+            keep = _keep(bh, sq, 0, sk, q_start, k_start, dropout_rate,
+                         dropout_seed)[:, q0:q1].transpose(1, 2)
+            pd = torch.where(keep, p / (1.0 - dropout_rate), torch.zeros(()))
+            dpt = torch.where(keep, dpt / (1.0 - dropout_rate),
+                              torch.zeros(()))
+        dv = dv + _mm3(pd, ot, False, True, passes)
+        ds = p * (dpt - delta[:, None, q0:q1])
+        dk = dk + _mm3(ds, qt, False, True, passes)
+    return dk * scale, dv
+
+
 @pytest.fixture(scope="module")
 def jax_case_320():
     """[2, 112, 320] causal with a kv_bias (a quarter of the keys masked)
     and dropout 0.1, at a head dim the kernels run at 384: the inputs, the
-    JAX package's o, lse and dq."""
+    JAX package's o, lse, dq, dk and dv."""
     rs = np.random.RandomState(15)
     bh, s, d = 2, 112, 320
     q, k, v, do = (rs.randn(bh, s, d).astype(np.float32) for _ in range(4))
@@ -376,9 +439,9 @@ def jax_case_320():
                                    return_lse=True, **kw)
 
     (o, lse), vjp = jax.vjp(fn, *(jnp.asarray(a) for a in (q, k, v)))
-    dq = vjp((jnp.asarray(do), jnp.zeros(lse.shape, lse.dtype)))[0]
+    grads = vjp((jnp.asarray(do), jnp.zeros(lse.shape, lse.dtype)))
     return (q, k, v, do, kvb, kw,
-            [np.array(t, np.float32) for t in (o, lse, dq)])
+            [np.array(t, np.float32) for t in (o, lse, *grads)])
 
 
 @pytest.mark.parametrize("passes", [3, 1], ids=["3xtf32", "tf32"])
@@ -427,15 +490,40 @@ def test_dq_model_at_d320_against_jax_under_the_fp32_rule(jax_case_320,
         assert used > 4.0, used
 
 
+@pytest.mark.parametrize("passes", [3, 1], ids=["3xtf32", "tf32"])
+def test_dkv_model_at_d320_against_jax_under_the_fp32_rule(jax_case_320,
+                                                           passes):
+    """dk/dv's arithmetic at head dim 320 as the quad kernel runs it
+    (padded to 384, the real D's scale, queries in tiles of
+    ``DKV_QUERIES``, the partial sums over the halves of D added, lse and
+    delta from the plain forward): 3xTF32 holds JAX's dk and dv under the
+    fp32 rule; one TF32 pass fails it."""
+    q, k, v, do, kvb, kw, want = jax_case_320
+    d = q.shape[-1]
+    q, k, v, do, kvb = (torch.from_numpy(a) for a in (q, k, v, do, kvb))
+    o, lse = FA.reference_attention(q, k, v, kv_bias=kvb, return_lse=True,
+                                    **kw)
+    delta = FA.flash_delta(o, do)
+    padded = [FA._pad_d(t, 384) for t in (q, k, v, do)]
+    dk, dv = _dkv_model(*padded, lse, delta, kvb, passes=passes, **kw)
+    assert not dk[..., d:].any() and not dv[..., d:].any()
+    used = [_rule_used(FA._unpad(got, d), torch.from_numpy(w))
+            for got, w in ((dk, want[3]), (dv, want[4]))]
+    if passes == 3:
+        assert max(used) <= 1.0, used
+    else:
+        assert min(used) > 4.0, used
+
+
 # -- the LM at 2 heads of 320, in fp32, through the kernels' arithmetic -------
 
 class _ModelLib:
-    """Stands in for the kernel library on CPU tensors: the fp32 forward
-    and dq at D 384/512 run ``_fwd_model`` and ``_dq_model`` (run at 384
-    or 512, as the kernels) on the tensors the wrappers hand the C
-    interface, read and written through its pointers and strides; the
-    simple dk/dv is its plain version. Biases and dropout are not
-    modelled (the LM has neither)."""
+    """Stands in for the kernel library on CPU tensors: the fp32 forward,
+    dq and dk/dv at D 384/512 run ``_fwd_model``, ``_dq_model`` and
+    ``_dkv_model`` (run at 384 or 512, as the kernels) on the tensors the
+    wrappers hand the C interface, read and written through its pointers
+    and strides. Biases and dropout are not modelled (the LM has
+    neither)."""
 
     def __init__(self):
         self.calls = []
@@ -486,16 +574,18 @@ class _ModelLib:
         self._at(dq, (bh, sq, d), (sq * d, d, 1)).copy_(got[..., :d])
         return 0
 
-    def apex_flash_simt_dkv(self, dtype, q, k, v, do, lse, delta, dk, dv,
-                            *rest):
-        self.calls.append("apex_flash_simt_dkv")
+    def apex_flash_f32_d512_dkv(self, dtype, q, k, v, do, lse, delta, dk,
+                                dv, *rest):
+        self.calls.append("apex_flash_f32_d512_dkv")
         tail = rest[8:]
         bh, sq, sk, d = tail[7:11]
         ts, kw = self._attn(bh, sq, sk, d, (q, k, v, do), rest[:8], tail)
+        dp = 384 if d <= 384 else 512
         lt, dt = (self._at(p, (bh, sq), (sq, 1)) for p in (lse, delta))
-        _, gk, gv = FA.flash_bwd_plain(*ts, lt, dt, **kw)
-        self._at(dk, (bh, sk, d), (sk * d, d, 1)).copy_(gk)
-        self._at(dv, (bh, sk, d), (sk * d, d, 1)).copy_(gv)
+        gk, gv = _dkv_model(*(FA._pad_d(t, dp) for t in ts), lt, dt, None,
+                            **kw)
+        self._at(dk, (bh, sk, d), (sk * d, d, 1)).copy_(gk[..., :d])
+        self._at(dv, (bh, sk, d), (sk * d, d, 1)).copy_(gv[..., :d])
         return 0
 
 
@@ -507,10 +597,10 @@ B, S = 2, 64
 def test_lm_at_two_heads_of_320_in_fp32_through_the_kernels_matches_jax(
         monkeypatch):
     """The port's TransformerLM at head dim 320 in fp32 with its attention
-    launched through ``flash_f32_d512_fwd``, ``flash_f32_d512_dq`` and the
-    simple dk/dv (the card pretended for the flash wrappers alone; the
-    stand-in library runs the kernels' 3xTF32 arithmetic on what they are
-    handed) against the JAX package's (its Pallas kernels in interpret
+    launched through ``flash_f32_d512_fwd``, ``flash_f32_d512_dq`` and
+    ``flash_f32_d512_dkv`` (the card pretended for the flash wrappers
+    alone; the stand-in library runs the kernels' 3xTF32 arithmetic on
+    what they are handed) against the JAX package's (its Pallas kernels in interpret
     mode): the loss and every parameter's gradient within the fp32 LM
     parity test's limits."""
     lib = _ModelLib()
@@ -533,11 +623,10 @@ def test_lm_at_two_heads_of_320_in_fp32_through_the_kernels_matches_jax(
     grads = torch.autograd.grad(loss, leaves)
     layers = CFG["num_layers"]
     assert {n: getattr(FA, n).launches - before[n] for n in _WRAPPERS} == {
-        n: layers * int(n in ("flash_f32_d512_fwd", "flash_f32_d512_dq",
-                              "flash_simt_dkv")) for n in _WRAPPERS}
-    assert sorted(set(lib.calls)) == ["apex_flash_f32_d512_dq",
-                                      "apex_flash_f32_d512_fwd",
-                                      "apex_flash_simt_dkv"]
+        n: layers * int(n in _F32X) for n in _WRAPPERS}
+    assert sorted(set(lib.calls)) == ["apex_flash_f32_d512_dkv",
+                                      "apex_flash_f32_d512_dq",
+                                      "apex_flash_f32_d512_fwd"]
     np.testing.assert_allclose(float(loss.detach()), float(loss_j),
                                rtol=1e-5, atol=1e-6)
     want = params_from_jax(jax.tree.map(np.asarray, g_j), device="cpu")
