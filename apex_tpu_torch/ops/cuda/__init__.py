@@ -179,8 +179,13 @@ def _declare(so: ctypes.CDLL) -> None:
     for name in ("apex_flash_bwd_dkv", "apex_flash_d512_dkv"):
         getattr(so, name).argtypes = [I] + [P] * 8 + [P, I] + tail
         getattr(so, name).restype = I
-    so.apex_flash_bwd_dbias.argtypes = [I] + [P] * 8 + [I] + [L] * 8 + tail
-    so.apex_flash_bwd_dbias.restype = I
+    # the shared-bias gradient: the dtype, q, k, v, dO, lse, delta, dbias
+    # and the runs' scratch, then the maps and the runs (bf16/fp16) or the
+    # runs and the strides (fp32)
+    so.apex_flash_tc_dbias.argtypes = [I] + [P] * 8 + [P, I] + tail
+    so.apex_flash_tc_dbias.restype = I
+    so.apex_flash_f32_dbias.argtypes = [I] + [P] * 8 + [I] + [L] * 8 + tail
+    so.apex_flash_f32_dbias.restype = I
     # the simple form: the dtype, pointers, then the strides (bh, row) of
     # q, k, v (and dO) in elements
     # (the fp32 forwards on the tensor cores take the same)

@@ -1,5 +1,5 @@
 // The semantics the flash kernels share (csrc/flash_fwd.cu: the forward;
-// csrc/flash_bwd.cu: dq and dk/dv; csrc/flash_attn.cu: the shared-bias
+// csrc/flash_bwd.cu: dq and dk/dv; csrc/flash_dbias.cu: the shared-bias
 // gradient), kept from the Pallas kernels of
 // apex_tpu/contrib/multihead_attn/flash_attention.py:
 //
@@ -85,6 +85,18 @@ __device__ __forceinline__ uint32_t pack2_rest(float lo, float hi,
         __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&big));
     return pack2<E>(lo - r.x, hi - r.y);
   }
+}
+
+// 2^x by one special-function instruction, results below 2^-126 flushed
+// to zero (the Hopper kernels', csrc/flash_tiles.cuh, and the fp32 ones',
+// csrc/flash_f32.cuh). exp2f keeps those subnormal, at more instructions;
+// here such a p or alpha lies far below an ulp of l >= 1 (in the
+// backward, of dS's other terms), and the fp32 forward took 10% less time
+// with this, its pair kernels 1-2.5% (PERF.md)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // the full bias of (query qi, key kj), both local and in range, in log2
@@ -230,8 +242,8 @@ void with_form(int d, const Attn& a, F&& f) {
 }
 
 // out[i] = sum over the runs r = 0, 1, ... of part[r][i], in run order:
-// the shared-bias gradient's second pass (csrc/flash_attn.cu's runs of bh,
-// csrc/flash_simt.cu's per-bh dS)
+// the shared-bias gradient's second pass (csrc/flash_dbias.cu's runs of
+// bh, csrc/flash_simt.cu's per-bh dS)
 __global__ void dbias_sum_kernel(const float* __restrict__ part,
                                  float* __restrict__ out, int runs,
                                  long long n) {

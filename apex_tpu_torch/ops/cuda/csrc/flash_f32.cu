@@ -12,8 +12,7 @@
 // apex_tpu/contrib/multihead_attn/flash_attention.py: _fwd_kernel (:181),
 // _bwd_dq_kernel (:349) and _bwd_dkv_kernel (:392), with the recompute of
 // _recompute_p_ds (:309-346). Past 256 csrc/flash_f32_d512.cu takes the
-// forward and dq, the simple form (csrc/flash_simt.cu) dk/dv; the simple
-// form also keeps the fp32 shared-bias gradient.
+// forward, dq and dk/dv; csrc/flash_dbias.cu the shared-bias gradient.
 //
 // Bound on this card: operations. At lm_bench's shape (BH = 128, S =
 // 4095, D = 64, causal: 1.07e9 live pairs) the forward's two products are

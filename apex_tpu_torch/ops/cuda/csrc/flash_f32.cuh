@@ -266,17 +266,6 @@ __device__ __forceinline__ void cp_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::);
 }
 
-// 2^x by one special-function instruction, results below 2^-126 flushed
-// to zero. exp2f keeps those subnormal, at more instructions; here such a
-// p or alpha lies far below an ulp of l >= 1 (in the backward's pair
-// kernels, of dS's other terms), and the forward took 10% less time with
-// this, the pair kernels 1-2.5% (PERF.md)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // the max and the sum over the quad of lanes (4g to 4g + 3) that holds
 // one row of an accumulator tile
 __device__ __forceinline__ float quad_max(float x) {

@@ -1,21 +1,17 @@
 // Flash attention over [BH, S, D] by fp32 FMAs on the CUDA cores: the
-// forward, dq (with the per-bh bias gradient dS) and dk/dv, for what the
-// tensor-core kernels (csrc/flash_fwd.cu, csrc/flash_bwd.cu,
-// csrc/flash_d512.cu and, in fp32, csrc/flash_f32.cu) do not take: a head
-// dim past 128, up to 512, in fp32, bf16 or fp16 (bf16 and fp16: dk/dv
-// past 256, the forward, dq and dk/dv taking D 129-256 on the tensor cores
-// at D 256 and the forward and dq D 257-512 at D 384 and 512, and the
-// shared-bias gradient at any D past 128; fp32: dk/dv past 256, the
-// forward and dq there taking 3xTF32 at D 384 and 512 in
-// csrc/flash_f32_d512.cu), and fp32's shared-bias gradient at any head
-// dim. (At D <=
-// 128 the tensor-core kernels pad D to 64 or 128.) The semantics they
-// keep
-// from the Pallas kernels are csrc/flash_common.cuh's: causal masking by
-// absolute positions, the per-key kv_bias and the full bias, dropout by the
-// JAX package's coordinate hash, the finite kNegInf, the value guard.
+// forward, dq (with the per-bh bias gradient dS) and dk/dv, and the
+// shared-bias gradient (dq's dS summed over bh), in fp32, bf16 or fp16 at
+// a head dim up to 512. No path takes them: every dtype and head dim has a
+// tensor-core form (csrc/flash_fwd.cu, csrc/flash_bwd.cu,
+// csrc/flash_d512.cu, csrc/flash_d512_dkv.cu, csrc/flash_f32.cu,
+// csrc/flash_f32_d512.cu and, for the shared-bias gradient,
+// csrc/flash_dbias.cu); they stay as the yardstick those are timed
+// against. The semantics they keep from the Pallas kernels are
+// csrc/flash_common.cuh's: causal masking by absolute positions, the
+// per-key kv_bias and the full bias, dropout by the JAX package's
+// coordinate hash, the finite kNegInf, the value guard.
 //
-// Replaces, for those inputs, the Pallas kernels of
+// Counterpart of the Pallas kernels of
 // apex_tpu/contrib/multihead_attn/flash_attention.py: _fwd_kernel
 // (:181-245), _bwd_dq_kernel (:349) and _bwd_dkv_kernel (:392); with the
 // per-bh dS summed over bh (dbias_sum_kernel) also _bwd_dbias_kernel

@@ -108,13 +108,6 @@ __device__ __forceinline__ void release(S& sm, int s) {
   if ((threadIdx.x & 31) == 0) mbar_arrive(&sm.empty[s]);
 }
 
-// 2^x on the special-function unit (denormal results flush to 0)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // The consumer warpgroups take turns issuing their first products: wg
 // waits for the other's turn to end, issues, and ends its own. The tensor
 // cores then run one warpgroup's products while the other works out its

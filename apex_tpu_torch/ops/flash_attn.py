@@ -4,7 +4,7 @@ PyTorch versions.
 Counterpart of the Pallas kernels in
 ``apex_tpu/contrib/multihead_attn/flash_attention.py`` (the kernels are
 ``ops/cuda/csrc/flash_fwd.cu``, the forward, ``ops/cuda/csrc/flash_bwd.cu``,
-dq and dk/dv, and ``ops/cuda/csrc/flash_attn.cu``, the shared-bias
+dq and dk/dv, and ``ops/cuda/csrc/flash_dbias.cu``, the shared-bias
 gradient):
 
 - :func:`flash_fwd` replaces ``_flash_fwd`` → ``_fwd_kernel`` (:181): the
@@ -20,21 +20,22 @@ gradient):
   gradient of a bias [1, Sq, Sk] shared over bh, dS summed over bh; its
   plain version is :func:`flash_bwd_dbias_plain`.
 
-Six forms of kernel serve them, each kernel's own
-(:func:`kernel_form` picks for the forward, dq and dk/dv):
+Forms of kernel serve them, each kernel's own (:func:`kernel_form` picks
+for the forward, dq, dk/dv and the shared-bias gradient):
 
-========  ==========  ================  ================  ================
-dtype     head dim    forward           dq                dk/dv
-========  ==========  ================  ================  ================
-bf16/f16  1-128       "tc" (64, 128)    "tc" (64, 128)    "tc" (64, 128)
-bf16/f16  129-256     "tc256" (256)     "tc256" (256)     "tc256" (256)
-bf16/f16  257-512     "tc512" (384,     "tc512" (384,     "tc512" (384,
-                      512)              512)              512)
-fp32      1-128       "f32" (64, 128)   "f32" (64, 128)   "f32" (64, 128)
-fp32      129-256     "f32" (256)       "f32" (256)       "f32" (256)
-fp32      257-512     "f32_512" (384,   "f32_512" (384,   "f32_512" (384,
-                      512)              512)              512)
-========  ==========  ================  ================  ================
+========  =======  ===============  ===============  ===============  =====
+dtype     head     forward          dq               dk/dv            dbias
+          dim
+========  =======  ===============  ===============  ===============  =====
+bf16/f16  1-128    "tc" (64, 128)   "tc" (64, 128)   "tc" (64, 128)   "tc"
+bf16/f16  129-256  "tc256" (256)    "tc256" (256)    "tc256" (256)    "tc"
+bf16/f16  257-512  "tc512" (384,    "tc512" (384,    "tc512" (384,    "tc"
+                   512)             512)             512)
+fp32      1-128    "f32" (64, 128)  "f32" (64, 128)  "f32" (64, 128)  "f32"
+fp32      129-256  "f32" (256)      "f32" (256)      "f32" (256)      "f32"
+fp32      257-512  "f32_512" (384,  "f32_512" (384,  "f32_512" (384,  "f32"
+                   512)             512)             512)
+========  =======  ===============  ===============  ===============  =====
 
 "tc" is the Hopper kernels above at D 64 or 128 and "tc256" the same
 files' kernels at D 256 (:func:`flash_d256_fwd`, :func:`flash_d256_dq`,
@@ -58,13 +59,16 @@ between the two; :func:`flash_f32_d512_dkv`: quads of warps over 16 keys,
 each warp half of dk's or dv's columns), the tensors handed at their
 width rounded up to a multiple of 4 (:func:`_f32x_ready`: the kernels zero
 the columns past it).
+The shared-bias gradient's forms are ``ops/cuda/csrc/flash_dbias.cu``'s
+two kernels, both at every head dim up to 512 (D streamed through shared
+memory in chunks, so no padding but to 16 bytes: :func:`flash_bwd_dbias`):
+"tc" bf16/fp16 on ``wgmma``, "f32" fp32 in 3xTF32.
 "simt" is the simple form of ``ops/cuda/csrc/flash_simt.cu``:
 fp32 FMAs, a warp a row (:func:`flash_simt_fwd`, :func:`flash_simt_dq`,
-:func:`flash_simt_dkv`), which no dtype or head dim is routed to: it stays
-as the yardstick the tensor-core forms are timed against, and
-:func:`flash_bwd_dbias` takes the tensor-core kernel at bf16/fp16 D <= 128
-and otherwise sums the simple dq kernel's dS over bh. Each of these
-wrappers counts its own launches.
+:func:`flash_simt_dkv`, and :func:`flash_simt_dbias`, its dq kernel's dS
+summed over bh), which no dtype or head dim is routed to: it stays as the
+yardstick the tensor-core forms are timed against. Each of these wrappers
+counts its own launches.
 
 The backward takes ``delta = rowsum(dO·O) − dlse`` (:474-479, computed
 here in plain PyTorch by :func:`flash_delta`), so a cotangent of the lse
@@ -114,7 +118,8 @@ __all__ = ["NEG_INF", "KERNEL_HEAD_DIMS", "DKV_HEAD_DIMS", "F32_HEAD_DIMS",
            "SIMT_MAX_HEAD_DIM", "dropout_bits",
            "drop_threshold", "reference_attention", "flash_fwd", "flash_delta",
            "flash_bwd_plain", "flash_bwd_dq", "flash_bwd_dkv",
-           "flash_bwd_dbias", "flash_bwd_dbias_plain", "flash_d256_fwd",
+           "flash_bwd_dbias", "flash_bwd_dbias_plain", "flash_simt_dbias",
+           "flash_d256_fwd",
            "flash_d256_dq", "flash_d256_dkv", "flash_d512_fwd",
            "flash_d512_dq", "flash_d512_dkv", "flash_simt_fwd",
            "flash_simt_dq", "flash_simt_dkv", "flash_f32_fwd", "flash_f32_dq",
@@ -128,11 +133,11 @@ __all__ = ["NEG_INF", "KERNEL_HEAD_DIMS", "DKV_HEAD_DIMS", "F32_HEAD_DIMS",
 # finite -inf stand-in: exp(NEG_INF - m) is exactly 0.0 in fp32, so a fully
 # masked row yields zeros instead of NaN
 NEG_INF = -1.0e30
-# the head dims the bf16/fp16 tensor-core kernels are written for (a
-# smaller D is padded up to one of them): the forward and dq take all five,
-# dk/dv the first three, the shared-bias gradient the first two; the fp32
-# ones' (3xTF32: the forward, dq and dk/dv); and the widest the simple
-# form takes
+# the head dims the bf16/fp16 tensor-core kernels of the forward, dq and
+# dk/dv are written for (a smaller D is padded up to one of them): the
+# forward and dq take all five, dk/dv the first three; the fp32 ones'
+# (3xTF32: the forward, dq and dk/dv); and the widest any form takes (the
+# shared-bias gradient's kernels take every D up to it)
 KERNEL_HEAD_DIMS = (64, 128, 256, 384, 512)
 DKV_HEAD_DIMS = (64, 128, 256)
 F32_HEAD_DIMS = (64, 128, 256)
@@ -376,11 +381,11 @@ def _check(what: str, *ts):
 
 
 def tensor_cores(q: torch.Tensor) -> bool:
-    """Whether every 16-bit Hopper tensor-core kernel takes q's dtype and
-    head dim — the forward, dq, dk/dv and the shared-bias gradient: bf16
-    or fp16, D <= 128, padded up to 64 or 128. Past 128 only the forward,
-    dq and dk/dv do (to 256; the forward and dq to 512:
-    :func:`kernel_form`)."""
+    """Whether the 16-bit Hopper forward, dq and dk/dv take q's dtype and
+    head dim in their first form ("tc"): bf16 or fp16, D <= 128, padded
+    up to 64 or 128 (past 128 their D-256 and D-384/512 forms do:
+    :func:`kernel_form`). The shared-bias gradient does not ask: its
+    kernels take every D up to 512 in either dtype family."""
     return q.dtype in (torch.bfloat16, torch.float16) \
         and q.shape[-1] <= KERNEL_HEAD_DIMS[1]
 
@@ -773,26 +778,36 @@ def flash_f32_d512_fwd(q, k, v, *, causal: bool = False, scale=None,
 flash_f32_d512_fwd.launches = 0
 
 
-_KERNELS = ("fwd", "dq", "dkv")
+_KERNELS = ("fwd", "dq", "dkv", "dbias")
 
 
 def kernel_form(q: torch.Tensor, kernel: str = "fwd") -> str:
-    """The form that takes ``kernel`` ("fwd", "dq" or "dkv") of q's dtype
-    and head dim (the module's table): "tc", the bf16/fp16 tensor-core
-    kernels at D <= 128; "tc256", the same at D 129-256 (padded to 256);
-    "tc512", the bf16/fp16 kernels at D 257-512 (run at 384 or 512);
-    "f32", the fp32 ones (3xTF32 on the tensor cores, ``flash_f32.cu``) at
-    D <= 256; "f32_512", the fp32 ones at D 257-512 (3xTF32 at 384 or 512,
-    ``flash_f32_d512.cu``). Every kernel of every dtype and head dim up to
-    512 has a tensor-core form; the simple form ("simt") is returned for
-    none. Past 512 (which :func:`_check` refuses) the answer is "simt"."""
+    """The form that takes ``kernel`` ("fwd", "dq", "dkv" or "dbias") of
+    q's dtype and head dim (the module's table): "tc", the bf16/fp16
+    tensor-core kernels at D <= 128; "tc256", the same at D 129-256
+    (padded to 256); "tc512", the bf16/fp16 kernels at D 257-512 (run at
+    384 or 512); "f32", the fp32 ones (3xTF32 on the tensor cores,
+    ``flash_f32.cu``) at D <= 256; "f32_512", the fp32 ones at D 257-512
+    (3xTF32 at 384 or 512, ``flash_f32_d512.cu``). The shared-bias
+    gradient ("dbias") takes "tc" (bf16/fp16) or "f32" (fp32) at every D
+    up to 512: ``flash_dbias.cu``'s kernels. Every kernel of every dtype
+    and head dim up to 512 has a tensor-core form; the simple form
+    ("simt") is returned for none. Past 512 (which :func:`_check` refuses)
+    the answer is "simt"."""
     if kernel not in _KERNELS:
         raise ValueError(f"kernel_form: kernel must be one of {_KERNELS}, "
                          f"got {kernel!r}")
     d = q.shape[-1]
+    half = q.dtype in (torch.bfloat16, torch.float16)
+    if kernel == "dbias" and d <= KERNEL_HEAD_DIMS[4]:
+        if half:
+            return "tc"
+        if q.dtype == torch.float32:
+            return "f32"
+    if kernel == "dbias":
+        return "simt"
     if tensor_cores(q):
         return "tc"
-    half = q.dtype in (torch.bfloat16, torch.float16)
     if half and d <= KERNEL_HEAD_DIMS[2]:
         return "tc256"
     if half and d <= KERNEL_HEAD_DIMS[4]:
@@ -1221,18 +1236,28 @@ def dbias_runs(bh: int, sq: int, sk: int, sms: int) -> int:
     return -(-bh // per)
 
 
+def _check_shared_bias(what: str, bias) -> None:
+    if bias is None or bias.dim() != 3 or bias.shape[0] != 1:
+        raise ValueError(f"{what}: takes a bias [1, Sq, Sk]")
+
+
 def flash_bwd_dbias(q, k, v, do, lse, delta, *, causal: bool, scale: float,
                     bias, q_start: int = 0, k_start: int = 0, kv_bias=None,
                     dropout_rate: float = 0.0, dropout_seed=0):
     """The gradient of a ``bias`` [1, Sq, Sk] shared over bh: dS summed over
-    bh, fp32 [1, Sq, Sk] (the caller casts it to the bias's dtype). The
-    kernel sums in a fixed order, without float atomics: repeated calls
-    are bitwise equal. Where the tensor-core kernels do not take the
-    inputs, the simple form's dq kernel writes the per-bh dS and a second
-    kernel sums it over bh in bh order; that pair counts as one launch of
-    this wrapper."""
-    if bias is None or bias.dim() != 3 or bias.shape[0] != 1:
-        raise ValueError("flash_bwd_dbias: takes a bias [1, Sq, Sk]")
+    bh, fp32 [1, Sq, Sk] (the caller casts it to the bias's dtype). On the
+    card, as :func:`kernel_form` picks for "dbias", ``flash_dbias.cu``'s
+    kernel of q's dtype family at any head dim up to 512: bf16/fp16 on
+    ``wgmma`` ("tc": q, k, v and dO read by TMA at their width rounded up
+    to a multiple of 8, the columns past it zero-filled by the copies), fp32
+    in 3xTF32 ("f32": read through their strides at their width rounded up
+    to a multiple of 4). Blocks of (64 queries, 64 keys, a run of bh) sum
+    dS over their run in bh order, and a second pass adds the runs
+    (:func:`dbias_runs`) in run order: no float atomics, so repeated calls
+    are bitwise equal, and no [BH, Sq, Sk] tensor, the only scratch [runs,
+    Sq, Sk]. Counted here, one launch a call."""
+    what = "flash_bwd_dbias"
+    _check_shared_bias(what, bias)
     if not dispatch.use_kernel(q):
         return flash_bwd_dbias_plain(q, k, v, do, lse, delta, causal=causal,
                                      scale=scale, bias=bias,
@@ -1240,38 +1265,73 @@ def flash_bwd_dbias(q, k, v, do, lse, delta, *, causal: bool, scale: float,
                                      kv_bias=kv_bias,
                                      dropout_rate=dropout_rate,
                                      dropout_seed=dropout_seed)
-    _check("flash_bwd_dbias", q, k, v, do)
-    tc = tensor_cores(q)
-    q, k, v, do, lse, delta = _bwd_args(
-        "flash_bwd_dbias", q, k, v, do, lse, delta, "tc" if tc else "simt")
+    _check(what, q, k, v, do)
+    form = kernel_form(q, "dbias")
+    # 16 bytes: the unit of TMA's strides ("tc") and of the 16-byte copies
+    # ("f32")
+    unit = 8 if form == "tc" else 4
+    dw = -(-q.shape[-1] // unit) * unit
+    ready = _tma_readable if form == "tc" else _readable
+    q, k, v, do = (ready(_pad_d(t, dw)) for t in (q, k, v, do))
     bh, sq, _ = q.shape
     sk = k.shape[1]
-    tail, _keep_alive = _tail("flash_bwd_dbias", q, k, kv_bias, bias,
-                              dropout_rate, dropout_seed, causal, scale,
-                              q_start, k_start)
-    dbias = torch.empty((1, sq, sk), dtype=torch.float32, device=q.device)
-    code = _cuda.dtype_code(q.dtype, "flash_bwd_dbias")
-    if not tc:
-        ds = torch.empty((bh, sq, sk), dtype=torch.float32, device=q.device)
-        err = _cuda.lib().apex_flash_simt_dbias(
-            code, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dbias.data_ptr(),
-            ds.data_ptr(), *_strides(q, k, v, do), *tail)
-        _cuda.check(err, "flash_bwd_dbias")
-        flash_bwd_dbias.launches += 1
-        return dbias
+    lse = _row_stats(f"{what} lse", lse, bh, sq, q.device)
+    delta = _row_stats(f"{what} delta", delta, bh, sq, q.device)
+    tail, _keep_alive = _tail(what, q, k, kv_bias, bias, dropout_rate,
+                              dropout_seed, causal, scale, q_start, k_start)
     runs = dbias_runs(bh, sq, sk, torch.cuda.get_device_properties(
         q.device).multi_processor_count)
+    dbias = torch.empty((1, sq, sk), dtype=torch.float32, device=q.device)
     part = torch.empty((runs, sq, sk), dtype=torch.float32,
                        device=q.device) if runs > 1 else None
-    err = _cuda.lib().apex_flash_bwd_dbias(
-        code, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dbias.data_ptr(),
-        None if part is None else part.data_ptr(), runs,
-        *_strides(q, k, v, do), *tail)
-    _cuda.check(err, "flash_bwd_dbias")
+    head = (_cuda.dtype_code(q.dtype, what), q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dbias.data_ptr(), None if part is None else part.data_ptr())
+    if form == "tc":
+        err = _cuda.lib().apex_flash_tc_dbias(
+            *head, _tma_maps(q, k, v, do), runs, *tail)
+    else:
+        err = _cuda.lib().apex_flash_f32_dbias(
+            *head, runs, *_strides(q, k, v, do), *tail)
+    _cuda.check(err, what)
     flash_bwd_dbias.launches += 1
     return dbias
 
 
 flash_bwd_dbias.launches = 0
+
+
+def flash_simt_dbias(q, k, v, do, lse, delta, *, causal: bool, scale: float,
+                     bias, q_start: int = 0, k_start: int = 0, kv_bias=None,
+                     dropout_rate: float = 0.0, dropout_seed=0):
+    """:func:`flash_bwd_dbias` by the simple form (``flash_simt.cu``): its
+    dq kernel writes the per-bh dS [BH, Sq, Sk] fp32 and a second kernel
+    sums it over bh in bh order, the pair counted as one launch. Any of
+    fp32, bf16, fp16 and a head dim up to 512; :func:`flash_bwd_dbias`
+    sends it nothing (it stays as the yardstick)."""
+    what = "flash_simt_dbias"
+    _check_shared_bias(what, bias)
+    if not dispatch.use_kernel(q):
+        return flash_bwd_dbias_plain(q, k, v, do, lse, delta, causal=causal,
+                                     scale=scale, bias=bias,
+                                     q_start=q_start, k_start=k_start,
+                                     kv_bias=kv_bias,
+                                     dropout_rate=dropout_rate,
+                                     dropout_seed=dropout_seed)
+    q, k, v, do, lse, delta = _bwd_args(what, q, k, v, do, lse, delta)
+    bh, sq, _ = q.shape
+    sk = k.shape[1]
+    tail, _keep_alive = _tail(what, q, k, kv_bias, bias, dropout_rate,
+                              dropout_seed, causal, scale, q_start, k_start)
+    dbias = torch.empty((1, sq, sk), dtype=torch.float32, device=q.device)
+    ds = torch.empty((bh, sq, sk), dtype=torch.float32, device=q.device)
+    err = _cuda.lib().apex_flash_simt_dbias(
+        _cuda.dtype_code(q.dtype, what), q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        dbias.data_ptr(), ds.data_ptr(), *_strides(q, k, v, do), *tail)
+    _cuda.check(err, what)
+    flash_simt_dbias.launches += 1
+    return dbias
+
+
+flash_simt_dbias.launches = 0

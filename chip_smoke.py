@@ -33,8 +33,9 @@ lm_bench's LM at 8 heads of 256 (the flash forward, dq and dk/dv at D
    bias or dropout), the bf16/fp16 forward's, dq's and dk/dv's at D 384
    and 512 (``flash_d512_ptxas``: 12 forward, 8 dq, 8 dv and 8 dk forms)
    and the fp32 ones' there (``flash_f32_d512_ptxas``: 4 forward, 4 dq
-   and 4 dk/dv forms, plain and with a bias or dropout), none of whose
-   forms may spill.
+   and 4 dk/dv forms, plain and with a bias or dropout) and the
+   shared-bias gradient's (``flash_dbias_ptxas``: bf16, fp16 and fp32),
+   none of whose forms may spill.
 2. kernels — each kernel against its plain PyTorch version on the card,
    at its path's shapes: max abs error against the stated tolerance, the
    kernel's time, the plain version's, one PyTorch library call's where
@@ -93,8 +94,10 @@ lm_bench's LM at 8 heads of 256 (the flash forward, dq and dk/dv at D
    dropout 0.1, with a shared [1, 197, 197] and a per-bh [1536, 197, 197]
    fp32 bias (dq's dS under the flash rule too), ``flash_bwd_dbias`` at
    that shape and causal at [128, 1024, 64] (against the plain per-bh dS
-   summed over bh, two runs bit-equal; SDPA with ``dropout_p`` and SDPA's
-   backward with a learned ``attn_mask`` beside them as yardsticks), and
+   summed over bh, two runs bit-equal, the simple form's
+   ``flash_simt_dbias`` held and timed beside it; SDPA with ``dropout_p``
+   and SDPA's backward with a learned ``attn_mask`` beside them as
+   yardsticks), and
    the dropout mask read back exactly: q = k = 0 and v = I over 64 keys
    make o[i, j] != 0 (and, with dO = I, dv[j, i] != 0) exactly where the
    kernel kept (i, j), which must equal ``dropout_bits`` at a nonzero bh,
@@ -148,10 +151,12 @@ lm_bench's LM at 8 heads of 256 (the flash forward, dq and dk/dv at D
    whole backward) and [16, 1024, 512] (``d512_f32x``): the fp32 rule,
    lse within 1e-4, bounds at 165 and 67 TFLOP/s, the simple forward's,
    dq's and dk/dv's times on the same inputs and SDPA fp32's beside
-   them; ``flash_bwd_dbias`` off the
-   tensor cores at [32, 1024, 256] causal in bf16 and fp32
-   (``d256_bf16``, ``d256_f32``: SDPA's backward with a learned [1, 1,
-   Sq, Sk] mask beside it); the D-256
+   them; ``flash_bwd_dbias`` at [32, 1024, 256] and [32, 1024, 320]
+   causal in bf16 (the wgmma kernel) and fp32 (3xTF32) and at ViT's
+   [1536, 197, 64] in fp32 with dropout (``dbias_readings``: the dtype's
+   flash rule, bit-for-bit repeats, the simple form's time on the same
+   inputs, SDPA's backward with a learned [1, 1, Sq, Sk] mask beside it,
+   bounds at 989 TFLOP/s and 3xTF32's 165); the D-256
    forward, dq and dk/dv (``flash_d256_fwd``,
    ``flash_d256_dq``, ``flash_d256_dkv``), in bf16 and fp16, at [32,
    1024, 256] (``d256_tc_bf16``, ``d256_tc_f16``: the simple form's times
@@ -317,10 +322,13 @@ lm_bench's LM at 8 heads of 256 (the flash forward, dq and dk/dv at D
     kernels against the plain versions: masters within 1.5 times bf16's
     own effect (the plain O2 masters against the plain O0 ones) in mean
     and max; two kernel runs bit-equal.
-22. flash_bias — the public ``flash_attention`` at [1536, 197, 64] with
-    dropout 0.1 and a learned fp32 bias, [1, 197, 197] (one launch of
-    ``flash_bwd_dbias``) and [1536, 197, 197] (dq's dS): o, dq, dk, dv and
-    dbias against the plain versions under the flash rule.
+22. flash_bias — the public ``flash_attention`` with a learned fp32
+    bias: at [1536, 197, 64] with dropout 0.1 in bf16, [1, 197, 197] (one
+    launch of ``flash_bwd_dbias``) and [1536, 197, 197] (dq's dS), and
+    [1, 197, 197] in fp32; a shared [1, 1024, 1024] causal at [16, 1024,
+    256] fp32 and [16, 1024, 320] bf16: o, dq, dk, dv and dbias against
+    the plain versions under the dtype's flash rule, one launch of each
+    form's wrapper and none of the simple form's.
 23. bn_reduce — ``bn_backward_reduce`` as its users call it, the
     reduce_bn pass from a materialized xhat, once per BN of the RN50 step
     (53 launches, bf16 at their shapes), counts zeroed just before.
@@ -382,8 +390,10 @@ lm_bench's LM at 8 heads of 256 (the flash forward, dq and dk/dv at D
     and dk/dv's entries also carry their ``wide`` reading and the whole
     backward's, ``backward``, at both shapes, the D-256 ones the whole
     backward at [64, 4096, 256]; the fp32 ones their readings at D 256;
-    ``off_path``: the simple forward, dq and dk/dv, which no path takes,
-    with their phase-2 readings and 0 launches), then the ``ok`` line.
+    ``flash_bwd_dbias`` its readings at D 256, 320 and ViT's fp32;
+    ``off_path``: the simple forward, dq, dk/dv and shared-bias gradient,
+    which no path takes, with their phase-2 readings and 0 launches), then
+    the ``ok`` line.
 
 Times are CUDA-event medians of single calls with the L2 cache flushed
 before each and the stream held busy, so host launch time is not counted.
@@ -1885,6 +1895,7 @@ def counters():
             "xent_bwd": XE.xent_bwd, "axpby": MT.axpby,
             "l2norm": MT.l2norm, "adagrad": MT.adagrad,
             "flash_bwd_dbias": FA.flash_bwd_dbias,
+            "flash_simt_dbias": FA.flash_simt_dbias,
             "ln_fwd_wide": LN.ln_fwd_wide, "ln_bwd_wide": LN.ln_bwd_wide,
             "bn_backward_reduce": WF.bn_backward_reduce,
             "flash_simt_fwd": FA.flash_simt_fwd,
@@ -3494,35 +3505,51 @@ def _flash_readings(torch, timer, q, k, v, do, kw, lib_fwd, lib_bwd,
 
 def _dbias_reading(torch, timer, q, k, v, do, lse, delta, kw, ds_sum,
                    lib_bwd, live_pairs: int, dt=None,
-                   ops_s=BF16_DENSE_OPS_S) -> dict:
+                   ops_s=BF16_DENSE_OPS_S, simple=False) -> dict:
     """``flash_bwd_dbias`` against the plain per-bh dS summed over bh under
     dt's flash rule (bf16's by default), its repeat bitwise, its time, the
     plain version's, the yardstick's and the bound (its two products over
-    the live pairs at ``ops_s``)."""
+    the live pairs at ``ops_s``; fp32's also at fp32 FMAs' rate,
+    ``bound_fma_ms``). With ``simple``, the simple form
+    (``flash_simt_dbias``) held and timed on the same inputs:
+    ``simple_ms``, and its own row under ``"simple"``."""
     from apex_tpu_torch.ops import flash_attn as FA
     bh, sq, d = q.shape
     sk = k.shape[1]
     es = q.element_size()
-    db = FA.flash_bwd_dbias(q, k, v, do, lse, delta, **kw)
-    again = FA.flash_bwd_dbias(q, k, v, do, lse, delta, **kw)
-    torch.cuda.synchronize()
-    err = flash_err(torch, db, ds_sum, dt)
-    repeat = bool(torch.equal(db, again))
-    check(err["used"] <= 1.0, f"flash_bwd_dbias: {err}")
-    check(repeat, "flash_bwd_dbias: two runs on the same inputs differ")
-    b_ms, b_by = bound(2 * bh * sq * d * es + 2 * bh * sk * d * es
-                       + 8 * bh * sq + 8 * sq * sk,
-                       4 * d * live_pairs, ops_s)
-    return dict(max_abs_err=err["max_abs_err"], tol_used=err["used"],
-                repeat_equal=repeat,
-                runs=FA.dbias_runs(bh, sq, sk, torch.cuda.
-                                   get_device_properties(0).
-                                   multi_processor_count),
-                ms=timer(lambda: FA.flash_bwd_dbias(q, k, v, do, lse, delta,
-                                                    **kw)),
-                plain_ms=timer(lambda: FA.flash_bwd_dbias_plain(
-                    q, k, v, do, lse, delta, **kw)),
-                library_ms=lib_bwd, bound_ms=b_ms, bound_by=b_by)
+    runs = FA.dbias_runs(bh, sq, sk, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    nbytes = (2 * bh * sq * d * es + 2 * bh * sk * d * es + 8 * bh * sq
+              + 8 * sq * sk)
+    b_ms, b_by = bound(nbytes, 4 * d * live_pairs, ops_s)
+    plain_ms = timer(lambda: FA.flash_bwd_dbias_plain(q, k, v, do, lse,
+                                                      delta, **kw))
+    rows = {}
+    for name in ("flash_bwd_dbias",) + (("flash_simt_dbias",) if simple
+                                        else ()):
+        fn = getattr(FA, name)
+        db = fn(q, k, v, do, lse, delta, **kw)
+        again = fn(q, k, v, do, lse, delta, **kw)
+        torch.cuda.synchronize()
+        err = flash_err(torch, db, ds_sum, dt)
+        repeat = bool(torch.equal(db, again))
+        check(err["used"] <= 1.0, f"{name}: {err}")
+        check(repeat, f"{name}: two runs on the same inputs differ")
+        rows[name] = dict(max_abs_err=err["max_abs_err"],
+                          tol_used=err["used"], repeat_equal=repeat,
+                          runs=runs,
+                          ms=timer(lambda: fn(q, k, v, do, lse, delta,
+                                              **kw)),
+                          plain_ms=plain_ms, library_ms=lib_bwd,
+                          bound_ms=b_ms, bound_by=b_by)
+        if ops_s != BF16_DENSE_OPS_S:
+            rows[name]["bound_fma_ms"] = bound(nbytes, 4 * d * live_pairs)[0]
+        del db, again
+    row = rows["flash_bwd_dbias"]
+    if simple:
+        row["simple_ms"] = rows["flash_simt_dbias"]["ms"]
+        row["simple"] = rows["flash_simt_dbias"]
+    return row
 
 
 def dropout_readback(torch) -> dict:
@@ -3632,10 +3659,11 @@ def vit_kernel_phase(torch, timer) -> dict:
             row = _dbias_reading(torch, timer, q, k, v, do, r["lse"],
                                  r["delta"], kw,
                                  r["ds0"].sum(0, keepdim=True), lib_bwd,
-                                 bh * s * s)
+                                 bh * s * s, simple=True)
             row.update(dtype="bfloat16", shape=[bh, s, s, d],
                        library_covers="dq, dk, dv and the mask's gradient "
                                       "(one SDPA backward)")
+            rows[("flash_simt_dbias", "bfloat16")] = row.pop("simple")
             emit({"phase": "kernels", "kernel": "flash_bwd_dbias", **row})
             rows[("flash_bwd_dbias", "bfloat16")] = row
         del lo, ml, r, bias, mask
@@ -3659,8 +3687,9 @@ def vit_kernel_phase(torch, timer) -> dict:
         lo, (q4, k4, v4, ml), do.view(8, bh2 // 8, s2, d2),
         retain_graph=True))
     row = _dbias_reading(torch, timer, q, k, v, do, lse, delta, kw, ds_sum,
-                         lib_bwd, bh2 * s2 * (s2 + 1) // 2)
+                         lib_bwd, bh2 * s2 * (s2 + 1) // 2, simple=True)
     row.update(dtype="bfloat16", shape=[bh2, s2, s2, d2], causal=True)
+    rows[("flash_simt_dbias", "causal")] = row.pop("simple")
     emit({"phase": "kernels", "kernel": "flash_bwd_dbias", **row})
     rows[("flash_bwd_dbias", "causal")] = row
     del q, k, v, do, o, lo, ml, ds_sum
@@ -3787,34 +3816,65 @@ def vit_crosscheck_phase(torch, dispatch):
     check(repeat, "vit_crosscheck: two kernel runs differ")
 
 
+# phase 22's passes: name -> ([BH, S, D], dtype name, bias rows (1:
+# shared, 0: one per bh), causal, dropout)
+FLASH_BIAS_PASSES = {
+    "bias": ([VIT_BH, VIT_S, VIT_D], "bfloat16", 1, False, True),
+    "bias_bh": ([VIT_BH, VIT_S, VIT_D], "bfloat16", 0, False, True),
+    "bias_f32": ([VIT_BH, VIT_S, VIT_D], "float32", 1, False, True),
+    "d256_f32": ([16, 1024, 256], "float32", 1, True, False),
+    "d320_bf16": ([16, 1024, 320], "bfloat16", 1, True, False),
+}
+# the wrapper that counts each form's launch of the forward, dq and dk/dv
+FORM_COUNTERS = {
+    "fwd": {"tc": "flash_fwd", "tc256": "flash_d256_fwd",
+            "tc512": "flash_d512_fwd", "f32": "flash_f32_fwd",
+            "f32_512": "flash_f32_d512_fwd"},
+    "dq": {"tc": "flash_bwd_dq", "tc256": "flash_d256_dq",
+           "tc512": "flash_d512_dq", "f32": "flash_f32_dq",
+           "f32_512": "flash_f32_d512_dq"},
+    "dkv": {"tc": "flash_bwd_dkv", "tc256": "flash_d256_dkv",
+            "tc512": "flash_d512_dkv", "f32": "flash_f32_dkv",
+            "f32_512": "flash_f32_d512_dkv"}}
+
+
 def flash_bias_phase(torch, dispatch) -> dict:
-    """The public ``flash_attention`` at the ViT shape [B·H, 197, 64] bf16
-    with dropout 0.1 and a learned fp32 bias, [1, 197, 197] (its gradient
-    from ``flash_bwd_dbias``) and [B·H, 197, 197] (from dq's dS): o and
-    lse against the plain forward, and dq, dk, dv and dbias against the
-    plain backward from the same o and lse (``flash_bwd_plain``, its dS
-    summed over bh for the shared bias), each under the flash rule. The
-    launch counts of the two calls are this phase's reading."""
+    """The public ``flash_attention`` with a learned fp32 bias
+    (``FLASH_BIAS_PASSES``): at the ViT shape [B·H, 197, 64] with dropout
+    0.1 in bf16, [1, 197, 197] (its gradient from ``flash_bwd_dbias``) and
+    [B·H, 197, 197] (from dq's dS), and [1, 197, 197] in fp32; [1, 1024,
+    1024] causal at [16, 1024, 256] in fp32 and [16, 1024, 320] in bf16.
+    o and lse against the plain forward, and dq, dk, dv and dbias against
+    the plain backward from the same o and lse (``flash_bwd_plain``, its dS
+    summed over bh for the shared bias), each under the dtype's flash rule.
+    The launch counts of each pass are this phase's reading: one of the
+    dtype and head dim's forward, dq and dk/dv, one of ``flash_bwd_dbias``
+    for a shared bias, none of the simple form's."""
     from apex_tpu_torch.contrib.multihead_attn import flash_attention
     from apex_tpu_torch.ops import flash_attn as FA
 
     gen = torch.Generator(device="cuda").manual_seed(17)
-    bh, s, d = VIT_BH, VIT_S, VIT_D
-    q, k, v, do = (torch.randn(bh, s, d, generator=gen, device="cuda").to(
-        torch.bfloat16) for _ in range(4))
-    drop = dict(dropout_rate=VIT["dropout"], dropout_seed=VIT_SEED)
     total = dict.fromkeys(counters(), 0)
     result = {}
-    for reading, nb in (("bias", 1), ("bias_bh", bh)):
+    for reading, (shape, dt_name, rows, causal, drop) in \
+            FLASH_BIAS_PASSES.items():
+        dt = getattr(torch, dt_name)
+        bh, s, d = shape
+        q, k, v, do = (torch.randn(bh, s, d, generator=gen,
+                                   device="cuda").to(dt) for _ in range(4))
+        nb = rows or bh
         bias = torch.randn(nb, s, s, generator=gen, device="cuda") * 0.5
+        cfg = dict(causal=causal)
+        if drop:
+            cfg.update(dropout_rate=VIT["dropout"], dropout_seed=VIT_SEED)
         ins = [t.detach().clone().requires_grad_(True)
                for t in (q, k, v, bias)]
         zero_counts()
-        o, lse = flash_attention(*ins, return_lse=True, **drop)
+        o, lse = flash_attention(*ins, return_lse=True, **cfg)
         got = [o] + list(torch.autograd.grad(o, ins, do))
         torch.cuda.synchronize()
         counts = read_counts()
-        kw = dict(causal=False, scale=d ** -0.5, bias=bias, **drop)
+        kw = dict(scale=d ** -0.5, bias=bias, **cfg)
         with dispatch.backend("reference"):
             o0, lse0 = FA.flash_fwd(q, k, v, **kw)
             dq0, dk0, dv0, ds0 = FA.flash_bwd_plain(
@@ -3822,26 +3882,29 @@ def flash_bias_phase(torch, dispatch) -> dict:
                 return_ds=True, **kw)
         want = [o0, dq0, dk0, dv0,
                 ds0.sum(0, keepdim=True) if nb == 1 else ds0]
-        errs = {w: flash_err(torch, a.detach(), b) for w, a, b in
+        errs = {w: flash_err(torch, a.detach(), b, dt) for w, a, b in
                 zip(("o", "dq", "dk", "dv", "dbias"), got, want)}
         lse_err = float((lse.detach() - lse0).abs().max())
-        result[reading] = {"errs": errs, "lse_err": lse_err, "launches": {
-            n: counts[n] for n in ("flash_fwd", "flash_bwd_dq",
-                                   "flash_bwd_dkv", "flash_bwd_dbias")}}
+        want_n = {FORM_COUNTERS[kn][FA.kernel_form(q, kn)]: 1
+                  for kn in ("fwd", "dq", "dkv")}
+        want_n["flash_bwd_dbias"] = int(nb == 1)
+        want_n.update({n: 0 for n in counts if n.startswith("flash_simt")})
+        result[reading] = {"shape": shape, "dtype": dt_name,
+                           "causal": causal, "errs": errs,
+                           "lse_err": lse_err,
+                           "launches": {n: counts[n] for n in want_n}}
         for n, c in counts.items():
             total[n] += c
-        check(lse_err <= 1e-3, f"flash_bias {reading} lse: {lse_err}")
+        check(lse_err <= (1e-4 if dt == torch.float32 else 1e-3),
+              f"flash_bias {reading} lse: {lse_err}")
         for w, e in errs.items():
             check(e["used"] <= 1.0, f"flash_bias {reading} {w}: {e}")
         check(got[4].dtype == torch.float32 and got[4].shape == bias.shape,
               f"flash_bias {reading}: dbias {got[4].dtype} "
               f"{tuple(got[4].shape)}")
-        want_n = {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1,
-                  "flash_bwd_dbias": int(nb == 1)}
         check_counts(f"flash_bias {reading}", counts, want_n)
-        del ins, o, lse, got, want, ds0
-    emit({"phase": "flash_bias", "shape": [bh, s, d],
-          "dropout": VIT["dropout"], **result})
+        del ins, o, lse, got, want, ds0, q, k, v, do, bias
+    emit({"phase": "flash_bias", "dropout": VIT["dropout"], **result})
     return total
 
 
@@ -4616,49 +4679,89 @@ def f32_forward_reading(torch, timer, shape, simple,
     return {("flash_f32_fwd", reading): r}
 
 
-def d256_dbias_readings(torch, timer) -> dict:
-    """``flash_bwd_dbias`` off the tensor cores (the simple dq kernel's
-    per-bh dS summed over bh) at [32, 1024, 256] causal with a learned [1,
-    Sq, Sk] bias, in bf16 and fp32, against the plain version under the
-    dtype's flash rule, repeated bit for bit; SDPA's backward with the
-    bias as a learned [1, 1, Sq, Sk] mask (its causal part -inf) beside
-    it; bounds at 989 and 67 TFLOP/s. Keyed ("flash_bwd_dbias",
-    "d256_bf16" / "d256_f32")."""
+# the shared-bias gradient's readings of phase 2 past the ViT bf16 ones:
+# name -> ([BH, S, D], dtype name, causal, dropout); a learned [1, S, S]
+# bias, the inputs of the flash forms' readings (form_inputs)
+DBIAS_READINGS = {
+    "d256_bf16": ([32, 1024, 256], "bfloat16", True, False),
+    "d256_f32": ([32, 1024, 256], "float32", True, False),
+    "d320_bf16": ([32, 1024, 320], "bfloat16", True, False),
+    "d320_f32": ([32, 1024, 320], "float32", True, False),
+    "vit_f32": ([VIT_BH, VIT_S, VIT_D], "float32", False, True),
+}
+
+
+def dbias_case(torch, shape, dt: str, causal: bool, drop: bool) -> tuple:
+    """(q, k, v, dO, lse, delta, kw) of a shared-bias reading (as
+    ``DBIAS_READINGS`` gives them): the flash forms' inputs (seed 13), the
+    bias from seed 37 (times 0.5), lse by the forward of the package on
+    the path, delta of its o."""
+    from apex_tpu_torch.ops import flash_attn as FA
+    q, k, v, do = form_inputs(torch, shape, getattr(torch, dt))
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    s = shape[1]
+    bias = torch.randn(1, s, s, generator=gen, device="cuda") * 0.5
+    kw = dict(causal=causal, scale=shape[2] ** -0.5, bias=bias)
+    if drop:
+        kw.update(dropout_rate=VIT["dropout"], dropout_seed=VIT_SEED)
+    o, lse = FA.flash_fwd(q, k, v, **kw)
+    return q, k, v, do, lse, FA.flash_delta(o, do), kw
+
+
+def dbias_readings(torch, timer) -> dict:
+    """``flash_bwd_dbias`` at ``DBIAS_READINGS``: [32, 1024, 256] and [32,
+    1024, 320] causal in bf16 (the wgmma kernel) and fp32 (3xTF32), and
+    ViT's [1536, 197, 64] in fp32 with dropout 0.1, each against the plain
+    version under the dtype's flash rule and repeated bit for bit, the
+    simple form (``flash_simt_dbias``) held and timed on the same inputs,
+    SDPA's backward with the bias as a learned [1, 1, Sq, Sk] mask (its
+    causal part -inf; with ``dropout_p`` where the reading drops, a
+    yardstick only) beside it; bounds at 989 TFLOP/s (bf16) and at 3xTF32's
+    165 and fp32 FMAs' 67 (fp32). Keyed ("flash_bwd_dbias", name) and
+    ("flash_simt_dbias", name)."""
     import torch.nn.functional as F
 
     from apex_tpu_torch.ops import flash_attn as FA
 
-    bh, s, d = 32, 1024, 256
     rows = {}
-    for dt, tag, ops_s in ((torch.bfloat16, "bf16", BF16_DENSE_OPS_S),
-                           (torch.float32, "f32", FP32_OPS_S)):
-        q, k, v, do = form_inputs(torch, [bh, s, d], dt)
-        gen = torch.Generator(device="cuda").manual_seed(37)
-        bias = torch.randn(1, s, s, generator=gen, device="cuda") * 0.5
-        kw = dict(causal=True, scale=d ** -0.5, bias=bias)
-        o, lse = FA.flash_fwd(q, k, v, **kw)
-        delta = FA.flash_delta(o, do)
+    for name, (shape, dt_name, causal, drop) in DBIAS_READINGS.items():
+        dt = getattr(torch, dt_name)
+        bh, s, d = shape
+        q, k, v, do, lse, delta, kw = dbias_case(torch, shape, dt_name,
+                                                 causal, drop)
         ds_sum = FA.flash_bwd_dbias_plain(q, k, v, do, lse, delta, **kw)
-        causal = torch.ones(s, s, device="cuda", dtype=torch.bool).tril()
-        mask = torch.where(causal, bias[0], float("-inf")).to(dt)[None,
-                                                                  None]
-        ml = mask.detach().clone().requires_grad_(True)
+        bias = kw["bias"]
+        if causal:
+            keep = torch.ones(s, s, device="cuda", dtype=torch.bool).tril()
+            mask = torch.where(keep, bias[0], float("-inf"))
+        else:
+            mask = bias[0]
+        ml = mask.to(dt)[None, None].detach().clone().requires_grad_(True)
         q4, k4, v4 = (t.view(1, bh, s, d).detach().requires_grad_(True)
                       for t in (q, k, v))
-        lo = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=ml)
+        lo = F.scaled_dot_product_attention(
+            q4, k4, v4, attn_mask=ml,
+            dropout_p=kw.get("dropout_rate", 0.0))
         lib_bwd = timer(lambda: torch.autograd.grad(
             lo, (q4, k4, v4, ml), do.view(1, bh, s, d), retain_graph=True))
+        live = bh * s * (s + 1) // 2 if causal else bh * s * s
         row = _dbias_reading(torch, timer, q, k, v, do, lse, delta, kw,
-                             ds_sum, lib_bwd, bh * s * (s + 1) // 2, dt,
-                             ops_s)
-        row.update(dtype=str(dt).split(".")[1], shape=[bh, s, s, d],
-                   causal=True, form="simt",
+                             ds_sum, lib_bwd, live, dt,
+                             BF16_DENSE_OPS_S if dt_name == "bfloat16"
+                             else TF32X3_OPS_S, simple=True)
+        row.update(dtype=dt_name, shape=[bh, s, s, d], causal=causal,
+                   dropout=kw.get("dropout_rate", 0.0),
+                   form=FA.kernel_form(q, "dbias"),
                    library_covers="dq, dk, dv and the mask's gradient "
                                   "(one SDPA backward)")
+        simple = row.pop("simple")
         emit({"phase": "kernels", "kernel": "flash_bwd_dbias",
-              "reading": "d256_" + tag, **row})
-        rows[("flash_bwd_dbias", "d256_" + tag)] = row
-        del q, k, v, do, o, lo, ml, ds_sum, q4, k4, v4, mask
+              "reading": name, **row})
+        emit({"phase": "kernels", "kernel": "flash_simt_dbias",
+              "reading": name, **simple})
+        rows[("flash_bwd_dbias", name)] = row
+        rows[("flash_simt_dbias", name)] = simple
+        del q, k, v, do, lse, delta, kw, lo, ml, ds_sum, q4, k4, v4, mask
     return rows
 
 
@@ -4674,8 +4777,9 @@ def flash_forms_phase(torch, timer) -> dict:
     384 and 512 at [32, 1024, 320] and [16, 1024, 512] in bf16 and fp16
     (readings ``d320_tc_*``, ``d512_tc_*``) and in fp32 in 3xTF32
     (``d320_f32x``, ``d512_f32x``), the simple forward's, dq's and dk/dv's
-    times beside them; ``flash_bwd_dbias`` off the tensor cores at D 256
-    (``d256_dbias_readings``); and the fp32 forward, dq and dk/dv in
+    times beside them; ``flash_bwd_dbias`` at D 256 and 320 in bf16 and
+    fp32 and at ViT's shape in fp32, the simple form's beside it
+    (``dbias_readings``); and the fp32 forward, dq and dk/dv in
     3xTF32 on the fp32 inputs (reading ``d256_f32``), dq and dk/dv again
     at the hd-256 LM's [64, 4096, 256] (``hd256_lm_f32``, the simple form
     timed there); the D-256 forward, dq and dk/dv,
@@ -4733,7 +4837,7 @@ def flash_forms_phase(torch, timer) -> dict:
             torch, timer, reading, shape, torch.float32, f32x, TF32X3_OPS_S,
             plain_group=8, whole=reading == "d320_f32x", simple=simt,
             lse_tol=1e-4, fma_ops_s=FP32_OPS_S))
-    rows.update(d256_dbias_readings(torch, timer))
+    rows.update(dbias_readings(torch, timer))
     c = HD256_SHAPE
     lm256 = [c["batch"] * c["heads"], c["seq"], c["embed"] // c["heads"]]
     rows.update(f32_backward_readings(torch, timer, lm256, rows,
@@ -5347,36 +5451,46 @@ def main() -> int:
                       if any(k in n for k in (
                           "f32x_fwd_kernel", "f32x_dq_kernel",
                           "f32x_dkv_kernel"))}
+    # the shared-bias gradient at every head dim (flash_dbias.cu): bf16 and
+    # fp16 on wgmma, fp32 in 3xTF32
+    flash_dbias = {n: e for n, e in ptxas.items()
+                   if "flash_tc_dbias_kernel" in n
+                   or "flash_f32_dbias_kernel" in n}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "compiled": kcuda.build_seconds is not None, "ptxas": ptxas,
           "flash_fwd_ptxas": flash_fwd, "flash_bwd_ptxas": flash_bwd,
           "flash_f32_ptxas": flash_f32,
           "flash_f32_fwd_ptxas": flash_f32_fwd,
           "flash_d256_ptxas": flash_d256, "flash_d512_ptxas": flash_d512,
-          "flash_f32_d512_ptxas": flash_f32_d512})
+          "flash_f32_d512_ptxas": flash_f32_d512,
+          "flash_dbias_ptxas": flash_dbias})
     # bf16 and fp16: 2 x 9 forward forms (3 kinds at D 64, 128, 256) and
     # 2 x 12 backward (dq and dk/dv, plain and extra, at D 64, 128, 256),
     # 6 + 8 of them at D 256; fp32: 12 backward and 6 forward (plain and
     # extra at D 64, 128, 256); at D 384 and 512 2 x 6 forward forms (3
     # kinds), 2 x 4 dq, 2 x 4 dv and 2 x 4 dk (plain and extra), and in
-    # fp32 2 x 2 forward, 2 x 2 dq and 2 x 2 dk/dv (plain and extra)
+    # fp32 2 x 2 forward, 2 x 2 dq and 2 x 2 dk/dv (plain and extra); the
+    # shared-bias gradient's bf16, fp16 and fp32 kernels
     check(not kcuda.build_seconds or (len(flash_fwd) == 18
                                       and len(flash_bwd) == 24
                                       and len(flash_d256) == 14
                                       and len(flash_f32) == 12
                                       and len(flash_f32_fwd) == 6
                                       and len(flash_d512) == 36
-                                      and len(flash_f32_d512) == 12),
+                                      and len(flash_f32_d512) == 12
+                                      and len(flash_dbias) == 3),
           f"ptxas reported {len(flash_fwd)} forward, {len(flash_bwd)} "
           f"backward ({len(flash_d256)} at D 256), {len(flash_f32)} fp32 "
           f"backward, {len(flash_f32_fwd)} fp32 forward, "
-          f"{len(flash_d512)} D-384/512 and {len(flash_f32_d512)} fp32 "
-          f"D-384/512 flash forms, not 18, 24 (14), 12, 6, 36 and 12")
+          f"{len(flash_d512)} D-384/512, {len(flash_f32_d512)} fp32 "
+          f"D-384/512 and {len(flash_dbias)} shared-bias gradient flash "
+          f"forms, not 18, 24 (14), 12, 6, 36, 12 and 3")
     for what, forms in (("forward", flash_fwd), ("backward", flash_bwd),
                         ("fp32 backward", flash_f32),
                         ("fp32 forward", flash_f32_fwd),
                         ("D-384/512", flash_d512),
-                        ("fp32 D-384/512", flash_f32_d512)):
+                        ("fp32 D-384/512", flash_f32_d512),
+                        ("shared-bias gradient", flash_dbias)):
         check(all(e.get("spill_bytes", 0) == 0 for e in forms.values()),
               f"the flash {what} kernels spill: {forms}")
 
@@ -5616,7 +5730,9 @@ def main() -> int:
                    "apex_tpu/ops/pallas/multi_tensor.py:169"),
         "adagrad": ("apex_tpu_torch/ops/cuda/csrc/multi_tensor.cu",
                     "apex_tpu/ops/pallas/multi_tensor.py:322"),
-        "flash_bwd_dbias": ("apex_tpu_torch/ops/cuda/csrc/flash_attn.cu",
+        # the shared-bias gradient at every head dim: bf16/fp16 on wgmma,
+        # fp32 in 3xTF32 (two kernels of one file, one wrapper)
+        "flash_bwd_dbias": ("apex_tpu_torch/ops/cuda/csrc/flash_dbias.cu",
                             "apex_tpu/contrib/multihead_attn/"
                             "flash_attention.py:427"),
         "ln_fwd_wide": ("apex_tpu_torch/ops/cuda/csrc/layer_norm.cu",
@@ -5639,6 +5755,9 @@ def main() -> int:
         "flash_simt_dkv": ("apex_tpu_torch/ops/cuda/csrc/flash_simt.cu",
                            "apex_tpu/contrib/multihead_attn/"
                            "flash_attention.py:392"),
+        "flash_simt_dbias": ("apex_tpu_torch/ops/cuda/csrc/flash_simt.cu",
+                             "apex_tpu/contrib/multihead_attn/"
+                             "flash_attention.py:427"),
         # the fp32 backward at D <= 128 on the tensor cores, 3xTF32
         "flash_f32_dq": ("apex_tpu_torch/ops/cuda/csrc/flash_f32.cu",
                          "apex_tpu/contrib/multihead_attn/"
@@ -5682,11 +5801,13 @@ def main() -> int:
             "apex_tpu_torch/ops/cuda/csrc/flash_f32_d512.cu",
             "apex_tpu/contrib/multihead_attn/flash_attention.py:392"),
     }
-    # the simple forward, dq and dk/dv: no path of the port takes them
-    # since every dtype and head dim up to 512 has a tensor-core form
-    # (their launches on the paths are 0); phase 2 still builds, holds and
-    # times them, and their readings ride beside the kernels line's
-    off_path = ("flash_simt_fwd", "flash_simt_dq", "flash_simt_dkv")
+    # the simple forward, dq, dk/dv and shared-bias gradient: no path of
+    # the port takes them since every dtype and head dim up to 512 has a
+    # tensor-core form (their launches on the paths are 0); phase 2 still
+    # builds, holds and times them, and their readings ride beside the
+    # kernels line's
+    off_path = ("flash_simt_fwd", "flash_simt_dq", "flash_simt_dkv",
+                "flash_simt_dbias")
     # the wide wrappers each take the place of more than one TPU kernel
     also_replaces = {
         "ln_fwd_wide": ["apex_tpu/ops/pallas/layer_norm.py:227"],
@@ -5730,6 +5851,8 @@ def main() -> int:
                 "flash_simt_fwd": ("flash_simt_fwd", "f32"),
                 "flash_simt_dq": ("flash_simt_dq", "f32"),
                 "flash_simt_dkv": ("flash_simt_dkv", "f32"),
+                # the simple shared-bias gradient at [32, 1024, 256] fp32
+                "flash_simt_dbias": ("flash_simt_dbias", "d256_f32"),
                 "flash_f32_dq": ("flash_f32_dq", "f32"),
                 "flash_f32_dkv": ("flash_f32_dkv", "f32"),
                 "flash_f32_fwd": ("flash_f32_fwd", "f32"),
@@ -5783,12 +5906,19 @@ def main() -> int:
             entry["backward"] = {
                 shape: {k: rows[("flash_bwd", key)][k] for k in sub}
                 for shape, key in (("lm", "bfloat16"), ("wide", "wide"))}
-        if name == "flash_bwd_dbias":
-            entry["causal"] = {k: rows[(name, "causal")][k] for k in sub}
-            # off the tensor cores (the simple dq's dS) at [32, 1024, 256]
-            entry["d256"] = {dt: {k: rows[(name, f"d256_{dt}")][k]
-                                  for k in sub}
-                             for dt in ("bf16", "f32")}
+        if name in ("flash_bwd_dbias", "flash_simt_dbias"):
+            # causal at [128, 1024, 64] bf16; at D 256 and 320 in bf16 and
+            # fp32 and ViT's shape in fp32 (the simple form's time beside)
+            entry["causal"] = {k: rows[(name, "causal")].get(k)
+                               for k in sub}
+            entry["readings"] = {
+                reading: {k: rows[(name, reading)].get(k)
+                          for k in sub + ("bound_fma_ms", "simple_ms")
+                          if k in rows[(name, reading)]}
+                for reading in DBIAS_READINGS}
+        if name == "flash_simt_dbias":
+            entry["vit_bf16"] = {k: rows[(name, "bfloat16")].get(k)
+                                 for k in sub}
         if name in ("decode_attention", "paged_decode_attention"):
             # lm_bench's serving shape, head dim 64
             entry["hd64"] = {k: rows[(name, "hd64", "bfloat16")][k]
@@ -5879,7 +6009,7 @@ def main() -> int:
                 if len(key) == 2 and key[0] == name and key[1] != "lm"}
         (off if name in off_path else kernels).append(entry)
     check(len(kernels) == 40 and all(e["launches"] > 0 for e in kernels)
-          and len(off) == 3 and all(e["launches"] == 0 for e in off),
+          and len(off) == 4 and all(e["launches"] == 0 for e in off),
           f"kernels line: {[(e['name'], e['launches']) for e in kernels]}, "
           f"off the paths: {[(e['name'], e['launches']) for e in off]}")
     emit({"phase": "done", "seconds": time.perf_counter() - t_start,

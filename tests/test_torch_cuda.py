@@ -1964,11 +1964,11 @@ def test_flash_at_more_than_65535_heads(card, dtype):
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float32],
                          ids=["f16", "f32"])
 def test_flash_shared_bias_gradient_in_every_dtype(card, dtype):
-    """A learned [1, Sq, Sk] bias at D 96: fp16 by the mma.sync kernel on
-    the padded inputs, fp32 by the simple form's dS summed over bh; both
-    against the plain per-bh dS summed under the dtype's flash rule, and
-    two runs bit for bit. Either form counts one launch of
-    ``flash_bwd_dbias`` and none of the dq wrappers."""
+    """A learned [1, Sq, Sk] bias at D 96: fp16 on wgmma, fp32 in 3xTF32
+    (``csrc/flash_dbias.cu``, D unpadded); both against the plain per-bh
+    dS summed under the dtype's flash rule, and two runs bit for bit.
+    Either form counts one launch of ``flash_bwd_dbias`` and none of the
+    dq wrappers."""
     from apex_tpu_torch.ops import flash_attn as FA
     g = torch.Generator(device=card).manual_seed(4)
     bh, s, d = 24, 197, 96
@@ -2665,8 +2665,8 @@ def test_f32_d256_backward_at_more_than_65535_heads(card):
                          ids=["bf16", "f16"])
 def test_d256_shared_bias_gradient_in_bf16_and_fp16(card, dtype, d):
     """A learned [1, Sq, Sk] bias at D 129-256 in bf16 and fp16, causal with
-    a kv_bias and dropout: ``flash_bwd_dbias`` (the simple form's dS
-    summed over bh, one launch) against ``flash_bwd_dbias_plain`` under
+    a kv_bias and dropout: ``flash_bwd_dbias`` (``csrc/flash_dbias.cu``
+    on wgmma, one launch) against ``flash_bwd_dbias_plain`` under
     the dtype's flash rule, and two runs bit for bit."""
     from apex_tpu_torch.ops import flash_attn as FA
     g = torch.Generator(device=card).manual_seed(d + 5)
@@ -2850,3 +2850,141 @@ def test_f32_d512_autograd_chain_matches_the_plain_chain(card):
         want = run()
     for a, b0 in zip(got, want):
         _flash_rule(a, b0, torch.float32)
+
+
+# -- the shared-bias gradient on the tensor cores at every head dim ----------
+# (csrc/flash_dbias.cu: bf16/fp16 on wgmma, fp32 in 3xTF32)
+
+DBIAS_DIMS = (64, 96, 128, 200, 256, 320, 384, 512)
+DBIAS_DTYPES = [torch.bfloat16, torch.float16, torch.float32]
+
+
+def _dbias_case(card, bh, sq, sk, d, dtype, seed, **kw):
+    """Inputs, the plain forward's lse and delta, and the keywords of one
+    shared-bias reading (a learned [1, Sq, Sk] bias, some keys masked)."""
+    from apex_tpu_torch.ops import flash_attn as FA
+    q, k, v, do = _d256_inputs(card, bh, sq, sk, d, dtype, seed)
+    g = torch.Generator(device=card).manual_seed(seed + 1)
+    bias = torch.randn(1, sq, sk, generator=g, device=card)
+    bias[0, :, ::11] = FA.NEG_INF
+    kw = dict(scale=d ** -0.5, bias=bias, **kw)
+    plain = {n: x for n, x in kw.items() if n != "bias"}
+    o, lse = FA.reference_attention(q, k, v, bias, return_lse=True, **plain)
+    return (q, k, v, do, lse, FA.flash_delta(o, do)), kw
+
+
+def _dbias_holds(card, args, kw, dtype):
+    """``flash_bwd_dbias`` against ``flash_bwd_dbias_plain`` under the
+    dtype's flash rule, one launch of it and none of the simple form or the
+    dq wrappers, its output memory dirtied first (a tile left unwritten
+    would show), and a second run bit for bit."""
+    from apex_tpu_torch.ops import flash_attn as FA
+    sq, sk = kw["bias"].shape[1:]
+    junk = torch.full((1, sq, sk), float("nan"), device=card)
+    del junk                                    # its block, reused dirty
+    fns = (FA.flash_bwd_dbias, FA.flash_simt_dbias, FA.flash_bwd_dq,
+           FA.flash_simt_dq, FA.flash_f32_dq, FA.flash_d512_dq)
+    before = [f.launches for f in fns]
+    got = FA.flash_bwd_dbias(*args, **kw)
+    assert [f.launches - n for f, n in zip(fns, before)] == [1, 0, 0, 0, 0,
+                                                             0]
+    assert got.shape == (1, sq, sk) and got.dtype == torch.float32
+    want = FA.flash_bwd_dbias_plain(*args, **kw)
+    assert bool(torch.isfinite(got).all())
+    _flash_rule(got, want, dtype)
+    assert torch.equal(FA.flash_bwd_dbias(*args, **kw), got)
+    return got
+
+
+@pytest.mark.parametrize("d", DBIAS_DIMS)
+@pytest.mark.parametrize("dtype", DBIAS_DTYPES, ids=["bf16", "f16", "f32"])
+def test_dbias_kernels_match_plain_and_repeat(card, dtype, d):
+    """Causal at Sq 197 != Sk 150 (ragged tiles of 64) with a kv_bias and
+    dropout: the dbias of every (query, key) against the plain version,
+    and exactly 0 where the causal mask kills a whole tile of 64 x 64 (the
+    kernel skips its loads and writes zeros)."""
+    kvb = torch.zeros(12, 150, device=card)
+    kvb[:, -6:] = -1e30
+    args, kw = _dbias_case(card, 12, 197, 150, d, dtype, d, causal=True,
+                           kv_bias=kvb, dropout_rate=0.1, dropout_seed=-3)
+    got = _dbias_holds(card, args, kw, dtype)
+    # query tile 0 (rows 0-63) sees no key of tiles 1-2, tile 1 none of 2
+    assert not got[0, :64, 64:].any() and not got[0, 64:128, 128:].any()
+
+
+@pytest.mark.parametrize("d", [64, 320])
+@pytest.mark.parametrize("dtype", DBIAS_DTYPES, ids=["bf16", "f16", "f32"])
+def test_dbias_kernels_without_mask_or_extras(card, dtype, d):
+    """No causal mask, kv_bias or dropout at S 197 over 24 heads (runs of
+    bh summed in a second pass)."""
+    args, kw = _dbias_case(card, 24, 197, 197, d, dtype, 5 + d,
+                           causal=False)
+    _dbias_holds(card, args, kw, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_dbias_kernels_with_offsets_and_odd_widths(card, dtype):
+    """Causal offsets (q_start, k_start), queries past every key and keys
+    past every query, head dims that are not a multiple of 16 bytes (40,
+    100, 260: the wrapper pads to 8 or 4 elements, the copies fill the
+    rest with zeros)."""
+    for d, q_start, k_start in ((40, 40, 0), (100, 0, 70), (260, -30, 5)):
+        args, kw = _dbias_case(card, 6, 130, 200, d, dtype, d,
+                               causal=True, q_start=q_start,
+                               k_start=k_start)
+        _dbias_holds(card, args, kw, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_dbias_kernels_at_more_than_65535_heads(card, dtype):
+    """BH = 65536 + 7 at S 16 (one tile, runs of bh past the grid's 65535
+    rows) against the plain version."""
+    args, kw = _dbias_case(card, 65536 + 7, 16, 16, 64, dtype, 3,
+                           causal=True)
+    _dbias_holds(card, args, kw, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_dbias_kernels_read_strided_views(card, dtype):
+    """q, k, v and dO as the time-major split hands them ([BH, S, D] views,
+    strides (D, B·H·D, 1)): the same bits as from contiguous copies."""
+    from apex_tpu_torch.ops import flash_attn as FA
+    g = torch.Generator(device=card).manual_seed(8)
+    bh, s, d = 6, 150, 320
+
+    def view():
+        return torch.randn(s, bh, d, generator=g, device=card).to(
+            dtype).transpose(0, 1)
+    q, k, v, do = (view() for _ in range(4))
+    assert not q.is_contiguous()
+    bias = torch.randn(1, s, s, generator=g, device=card)
+    kw = dict(causal=True, scale=d ** -0.5, bias=bias)
+    o, lse = FA.reference_attention(q, k, v, bias, return_lse=True,
+                                    causal=True, scale=d ** -0.5)
+    delta = FA.flash_delta(o, do)
+    got = FA.flash_bwd_dbias(q, k, v, do, lse, delta, **kw)
+    want = FA.flash_bwd_dbias(*(t.contiguous() for t in (q, k, v, do)), lse,
+                              delta, **kw)
+    assert torch.equal(got, want)
+
+
+def test_dbias_makes_no_per_bh_tensor(card):
+    """At [32, 1024, 256] fp32 causal, one call's peak memory over what was
+    allocated before it stays below the runs' scratch [runs, Sq, Sk], the
+    output [1, Sq, Sk] and 1 MiB: no [BH, Sq, Sk] dS (128 MiB here)."""
+    from apex_tpu_torch.ops import flash_attn as FA
+    bh, s, d = 32, 1024, 256
+    args, kw = _dbias_case(card, bh, s, s, d, torch.float32, 12,
+                           causal=True)
+    runs = FA.dbias_runs(bh, s, s, torch.cuda.get_device_properties(
+        card).multi_processor_count)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(card)
+    base = torch.cuda.memory_allocated(card)
+    FA.flash_bwd_dbias(*args, **kw)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(card) - base
+    assert peak <= (runs + 1) * s * s * 4 + 2 ** 20, (peak, runs)

@@ -1,10 +1,10 @@
 """Port parity: flash attention at head dims 129-256, whose bf16/fp16
 forward, dq and dk/dv run on the tensor cores at D 256
 (``flash_d256_fwd``, ``flash_d256_dq``, ``flash_d256_dkv``:
-``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` at D 256), while the
-shared-bias gradient stays on the simple form, and whose fp32 forward,
-dq and dk/dv run in 3xTF32 (``flash_f32_fwd``, ``flash_f32_dq``,
-``flash_f32_dkv``).
+``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` at D 256), and whose fp32
+forward, dq and dk/dv run in 3xTF32 (``flash_f32_fwd``, ``flash_f32_dq``,
+``flash_f32_dkv``); the shared-bias gradient takes ``csrc/flash_dbias.cu``
+at every head dim (``tests/test_torch_flash_dbias.py``).
 
 Here, on the CPU:
 
@@ -132,8 +132,7 @@ def test_each_kernel_takes_its_own_form(recorder, dtype, d, fwd, dq, dkv):
     D 384 or 512).
     Each wrapper reaches its form's C entry point once and counts one
     launch on that form's wrapper alone; the shared-bias gradient takes
-    the tensor-core kernel only where every 16-bit kernel does (D <=
-    128)."""
+    its dtype family's tensor-core kernel at every head dim."""
     assert FA.kernel_form(torch.zeros(1, 2, d, dtype=dtype), "fwd") == fwd
     assert FA.kernel_form(torch.zeros(1, 2, d, dtype=dtype), "dq") == dq
     assert FA.kernel_form(torch.zeros(1, 2, d, dtype=dtype), "dkv") == dkv
@@ -149,7 +148,7 @@ def test_each_kernel_takes_its_own_form(recorder, dtype, d, fwd, dq, dkv):
                        bias=torch.zeros(1, q.shape[1], k.shape[1]), **kw)
     assert [c[0] for c in recorder.calls] == [
         _ENTRY["fwd"][fwd], _ENTRY["dq"][dq], _ENTRY["dkv"][dkv],
-        "apex_flash_bwd_dbias" if dkv == "tc" else "apex_flash_simt_dbias"]
+        "apex_flash_f32_dbias" if dtype == F32 else "apex_flash_tc_dbias"]
     counted = {n: getattr(FA, n).launches - before[n] for n in names}
     want = {n: 0 for n in names}
     for kernel, form in (("fwd", fwd), ("dq", dq), ("dkv", dkv)):
@@ -254,7 +253,7 @@ def test_d256_wrappers_refuse_what_they_do_not_take(recorder):
 
 def test_kernel_form_names_its_kernels():
     with pytest.raises(ValueError, match="kernel must be one of"):
-        FA.kernel_form(torch.zeros(1, 2, 64, dtype=BF16), "dbias")
+        FA.kernel_form(torch.zeros(1, 2, 64, dtype=BF16), "dlse")
 
 
 # -- the maps -----------------------------------------------------------------

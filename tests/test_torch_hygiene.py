@@ -211,7 +211,7 @@ def test_ctypes_declarations_match_the_c_entry_points():
 
     from apex_tpu_torch.ops import cuda
     sources = cuda._sources()
-    assert {p.name for p in sources} >= {"decode_attn.cu", "flash_attn.cu",
+    assert {p.name for p in sources} >= {"decode_attn.cu", "flash_dbias.cu",
                                          "flash_d512.cu", "flash_simt.cu",
                                          "flash_d512_dkv.cu",
                                          "flash_f32.cu", "flash_f32_d512.cu",
@@ -227,12 +227,13 @@ def test_ctypes_declarations_match_the_c_entry_points():
     cuda._declare(so)
     for name, n in sigs.items():
         assert len(getattr(so, name).argtypes) == n, name
-    assert len(sigs) == 40           # the decode merge and the simple
+    assert len(sigs) == 41           # the decode merge and the simple
     # flash form's four are the 27th to 31st, the fp32 backward's two on
     # the tensor cores the 32nd and 33rd, the fp32 forward the 34th, the
     # forward and dq at head dims 384 and 512 the 35th and 36th, their
     # fp32 forms the 37th and 38th, and dk/dv there in both the 39th and
-    # 40th
+    # 40th; the shared-bias gradient's two (bf16/fp16 and fp32) took the
+    # place of its one D <= 128 kernel
 
 
 def test_lm_training_entry_points_default_to_the_card_and_raise_without_it(
