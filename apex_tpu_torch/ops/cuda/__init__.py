@@ -160,6 +160,11 @@ def _declare(so: ctypes.CDLL) -> None:
     so.apex_layer_norm_bwd_wide.argtypes = [I, I] + [P] * 10 + [L, L, L, I,
                                                                 P]
     so.apex_layer_norm_bwd_wide.restype = I
+    # the one-pass wide backward (rows in 64 bits) and its plan's query
+    so.apex_layer_norm_bwd_row.argtypes = [I, I] + [P] * 9 + [L, I, P]
+    so.apex_layer_norm_bwd_row.restype = I
+    so.apex_layer_norm_bwd_row_plan.argtypes = [L, I, I, I, P]
+    so.apex_layer_norm_bwd_row_plan.restype = I
     so.apex_bn_bwd_reduce_xhat.argtypes = [I, I, P, P, L, I, I, P, P, P, P]
     so.apex_bn_bwd_reduce_xhat.restype = I
     # kv_bias and bias with their bh strides; dropout's seed, threshold

@@ -1,12 +1,14 @@
 // Shared helpers of the port's hand kernels: dtype codes (the Python
-// loader's table, apex_tpu_torch/ops/cuda/__init__.py), fp32 conversion
-// of the storage types, and warp reductions.
+// loader's table, apex_tpu_torch/ops/cuda/__init__.py) and the dispatch
+// over them, fp32 conversion of the storage types, and warp reductions.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace apex_port {
 
@@ -133,6 +135,24 @@ bool with_storage(int dtype, F&& f) {
   }
 }
 
+// with_storage over (x, weight) dtypes: f(x tag, weight tag, affine as a
+// std::bool_constant); a null weight takes W = float
+template <typename Fn>
+bool with_x_w(int x_dtype, int w_dtype, bool affine, Fn&& f) {
+  bool ok = false;
+  with_storage(x_dtype, [&](auto xt) {
+    if (affine) {
+      ok = with_storage(w_dtype, [&](auto wt) {
+        f(xt, wt, std::true_type{});
+      });
+    } else {
+      f(xt, Tag<float>{}, std::false_type{});
+      ok = true;
+    }
+  });
+  return ok;
+}
+
 // butterfly reductions: every lane ends with the same value (each level
 // adds the same two operands in both partner lanes)
 __device__ __forceinline__ float warp_sum(float v) {
@@ -153,11 +173,14 @@ namespace {
 // kernels take without float atomics: ws [2][nchunk][c] holds each chunk of
 // rows' partial sums; o0[c], o1[c] get each column's chunks added in a
 // fixed order, split over 32 row threads whose results are then added in
-// order. Launch with grid (c + 31) / 32 and block (32, 32).
+// order. Launch with grid (c + 31) / 32 and block (32, 32); as a
+// programmatic dependent launch it waits for the kernel before it (a
+// no-op otherwise).
 __global__ void __launch_bounds__(1024)
 finalize_kernel(const float* __restrict__ ws, int nchunk, int c,
                 float* __restrict__ o0, float* __restrict__ o1) {
   __shared__ float sh[2][32][33];
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
   const int col = blockIdx.x * 32 + threadIdx.x;
   float a = 0.f, b = 0.f;
   if (col < c) {

@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks of the flash kernels, in inline PTX:
 // shared-memory addresses, mbarriers, TMA tile loads and L2 prefetches, the
 // warpgroup products (wgmma) on 128-byte-swizzled tiles, and the register
-// split between producer and consumer warpgroups (setmaxnreg).
+// split between producer and consumer warpgroups (setmaxnreg); and of the
+// wide LayerNorm backward (csrc/ln_bwd_row.cu): bulk TMA copies and a
+// cluster's shared memory (ranks, peer addresses and barriers).
 //
 // The operand layout every product here reads: a tile of R rows of 64
 // 16-bit elements, bf16 or fp16 (128 bytes a row), as TMA writes it with
@@ -113,6 +115,78 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
 // the 128-byte line holding p into L2
 __device__ __forceinline__ void prefetch_l2(const void* p) {
   asm volatile("prefetch.global.L2 [%0];\n" :: "l"(p));
+}
+
+// `bytes` contiguous bytes from global src into dst (the bulk form of TMA,
+// no tensor map): both 16-byte aligned, bytes a multiple of 16; completes
+// its bytes on bar
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)),
+         "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// orders this thread's plain writes to shared memory before later accesses
+// of the same bytes by the async proxy (a bulk copy's writes)
+__device__ __forceinline__ void fence_proxy_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- clusters -------------------------------------------------------------
+
+// this block's rank in its cluster
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// the shared::cluster address of `p` (this block's shared memory) in the
+// block of rank `rank`
+__device__ __forceinline__ uint32_t peer_addr(const void* p, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out) : "r"(smem_u32(p)), "r"(rank));
+  return out;
+}
+
+// two floats into another block's shared memory
+__device__ __forceinline__ void st_peer_f2(uint32_t addr, float a, float b) {
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n"
+               :: "r"(addr), "f"(a), "f"(b) : "memory");
+}
+
+// an arrival on another block's mbarrier that releases this thread's
+// writes to the cluster
+__device__ __forceinline__ void mbar_arrive_peer(uint32_t addr) {
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n"
+      :: "r"(addr) : "memory");
+}
+
+// mbar_wait that acquires what another block of the cluster released
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar,
+                                                  uint32_t parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+        "%2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(a), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// every thread of every block of the cluster (release, then acquire)
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive;\nbarrier.cluster.wait;\n"
+               ::: "memory");
 }
 
 // ---- registers ----------------------------------------------------------

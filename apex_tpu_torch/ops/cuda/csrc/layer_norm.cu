@@ -522,11 +522,13 @@ extern "C" int apex_layer_norm_bwd(int x_dtype, int w_dtype, const void* dy,
 //   ln_wide_stats_kernel    per (row, chunk): s = sum(x - shift) and
 //                           q = sum((x - shift - s/n)^2)            (row 5)
 //   ln_wide_apply_kernel    merge a row's chunks, y = (x-mean)*inv*g+b (row 6)
-//   ln_wide_bwd_reduce_kernel  per (row, chunk): sum(dy*g), sum(dy*g*xhat);
-//                           per (row block, column): sum(dy*xhat),
-//                           sum(dy)                              (rows 7-8)
+//   ln_wide_bwd_reduce_kernel  F > kRowMax, per (row, chunk): sum(dy*g),
+//                           sum(dy*g*xhat); per (row block, column):
+//                           sum(dy*xhat), sum(dy)                (rows 7-8)
 //   ln_wide_bwd_dx_kernel   merge a row's chunks, dx                 (row 9)
-// and finalize_kernel (common.cuh) adds the row blocks' column sums.
+// and finalize_kernel (common.cuh) adds the row blocks' column sums. The
+// backward of rows up to kRowMax is one pass of its own,
+// csrc/ln_bwd_row.cu (ln_wide_bwd_row_kernel), which reads dy and x once.
 //
 // Bound on this card: bytes. The forward reads x and writes y, the backward
 // reads dy and x and writes dx, with ~10 flops per element: at the LM's
@@ -541,8 +543,9 @@ extern "C" int apex_layer_norm_bwd(int x_dtype, int w_dtype, const void* dy,
 // is cut into chunks of kWideCols columns and each chunk is its own
 // block's work: the forward reads x twice (statistics, then y) and the
 // backward dy and x twice (sums, then dx), 1.5 and 1.67 times the bound's
-// bytes. What the design does about the rest: a warp takes one (row,
-// chunk) at a time, each lane 32 values by eight 4-wide vector loads (or,
+// bytes (the backward only there: to kRowMax it is csrc/ln_bwd_row.cu's).
+// What the design does about the rest: a warp takes one (row, chunk) at a
+// time, each lane 32 values by eight 4-wide vector loads (or,
 // where F % 4 != 0 or a buffer is not 4-element aligned, the VEC-1 form's
 // 32 scalar loads; the backward takes sixteen 2-wide loads, the VEC-2
 // form, where F is even and every buffer 2-element aligned), all
@@ -985,24 +988,6 @@ void with_vec_bwd(long long F, Fn&& f, const Ps*... ps) {
   }
 }
 
-// with_storage over (x, weight) dtypes: f(x tag, weight tag, affine as a
-// std::bool_constant); a null weight takes W = float
-template <typename Fn>
-bool with_x_w(int x_dtype, int w_dtype, bool affine, Fn&& f) {
-  bool ok = false;
-  with_storage(x_dtype, [&](auto xt) {
-    if (affine) {
-      ok = with_storage(w_dtype, [&](auto wt) {
-        f(xt, wt, std::true_type{});
-      });
-    } else {
-      f(xt, Tag<float>{}, std::false_type{});
-      ok = true;
-    }
-  });
-  return ok;
-}
-
 }  // namespace
 }  // namespace apex_port
 
@@ -1052,9 +1037,10 @@ extern "C" int apex_layer_norm_fwd_wide(int x_dtype, int w_dtype,
   return static_cast<int>(ok ? cudaGetLastError() : cudaErrorInvalidValue);
 }
 
-// dy, x, dx [rows, F] in one dtype (four columns a load where F % 4 == 0
-// and every buffer is 4-element aligned, else two where F is even and
-// every buffer is 2-element aligned, else one); gamma [F] or null
+// dy, x, dx [rows, F > kRowMax] in one dtype (narrower rows are
+// apex_layer_norm_bwd_row's, and refused here; four columns a load where F
+// % 4 == 0 and every buffer is 4-element aligned, else two where F is even
+// and every buffer is 2-element aligned, else one); gamma [F] or null
 // (non-affine: ws, gw, gb unused); mean, invvar fp32 [rows]; rpart fp32
 // [rows, ceil(F / 1024), 2] and ws fp32 [2, nrb, F] scratch; gw, gb fp32
 // [F]. Row block b of nrb takes rows [b * rpc, (b+1) * rpc). Three
@@ -1068,8 +1054,8 @@ extern "C" int apex_layer_norm_bwd_wide(int x_dtype, int w_dtype,
                                         long long F, long long rpc, int nrb,
                                         void* stream) {
   using namespace apex_port;
-  if (bad_wide_shape(rows, F) || F > 0x7fffffffLL || rpc < 1 || nrb < 1 ||
-      nrb > 65535 || rpc * nrb < rows) {
+  if (bad_wide_shape(rows, F) || F <= kRowMax || F > 0x7fffffffLL ||
+      rpc < 1 || nrb < 1 || nrb > 65535 || rpc * nrb < rows) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

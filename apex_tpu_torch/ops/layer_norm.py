@@ -7,15 +7,17 @@ Counterpart of ``apex_tpu/ops/pallas/layer_norm.py``; the kernels are
 - rows of F <= 8192 (``F_SINGLE_MAX``): ``_ln_fwd_single`` /
   ``_fwd_kernel`` and ``_ln_bwd_single`` / ``_bwd_kernel``, one pass;
 - wider rows: ``_ln_fwd_wide`` (the moments, then y) and ``_ln_bwd_wide``
-  (the row sums, the gamma/beta gradients, then dx), the row cut into
-  chunks of 1024 columns (:func:`ln_fwd_wide`, :func:`ln_bwd_wide`); the
-  forward holds a row of up to 16384 values in one block and reads it
-  once.
+  (the row sums, the gamma/beta gradients, then dx) (:func:`ln_fwd_wide`,
+  :func:`ln_bwd_wide`). Up to 16384 values the forward holds a row in one
+  block and the backward streams rows through shared memory
+  (``csrc/ln_bwd_row.cu``), each reading its rows once; wider rows are
+  cut into chunks of 1024 columns.
 
 Every kernel takes any F: four columns a load where F is a multiple of 4
-and every buffer is 4-element aligned, one otherwise; the wide backward
-takes two where F is even and every buffer 2-element aligned (the C side
-picks the form).
+and every buffer is 4-element aligned, one otherwise; the chunked wide
+backward takes two where F is even and every buffer 2-element aligned, the
+one-pass one the widest of 16 bytes, 8, 4 and one value that F and every
+buffer allow (the C side picks the form).
 
 :func:`ln_fwd` and :func:`ln_bwd` take a row's width to one or the other.
 For a tensor on the CPU every wrapper runs its plain version; for a tensor
@@ -26,19 +28,41 @@ launched.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from apex_tpu_torch.ops import cuda as _cuda
 from apex_tpu_torch.ops import dispatch
 
-__all__ = ["F_SINGLE_MAX", "ln_fwd", "ln_fwd_plain", "ln_fwd_wide", "ln_bwd",
-           "ln_bwd_plain", "ln_bwd_wide"]
+__all__ = ["F_SINGLE_MAX", "ROW_MAX", "ln_fwd", "ln_fwd_plain",
+           "ln_fwd_wide", "ln_bwd", "ln_bwd_plain", "ln_bwd_wide",
+           "row_plan"]
 
 F_SINGLE_MAX = 8192   # widest row the one-pass kernels hold on chip
 _WIDE_COLS = 1024     # a wide kernel's chunk of a row (kWideCols)
-# the wide backward's first pass: about eight blocks an SM on the H100,
-# a function of the shape only, so the column sums' order repeats
+# the chunked wide backward's first pass: about eight blocks an SM on the
+# H100, a function of the shape only, so the column sums' order repeats
 _WIDE_BLOCKS = 8 * 132
+ROW_MAX = 16384       # widest row of the one-pass wide kernels (kRowMax)
+# the one-pass backward's grid is at most the H100's 132 SMs (kLnbSms)
+_ROW_GRID = 132
+
+
+def row_plan(rows: int, f: int, x_size: int, w_size: int) -> dict:
+    """The launch the one-pass wide backward makes at F <= ``ROW_MAX``
+    (``csrc/ln_row_plan.cuh``), from the shape and the element sizes of x
+    and of gamma (0 without) only: ``cluster`` blocks share a row (1, or 2
+    that take its halves), ``stages`` rows in each block's ring,
+    ``clusters`` in the grid, ``smem`` bytes of shared memory a block, and
+    ``vec`` values a load on 16-byte-aligned buffers. Asks the built
+    kernels, so it needs the card's toolchain."""
+    out = (ctypes.c_int * 5)()
+    if _cuda.lib().apex_layer_norm_bwd_row_plan(rows, f, x_size, w_size,
+                                                out):
+        raise ValueError(f"row_plan: no one-pass launch at rows {rows}, "
+                         f"F {f}")
+    return dict(zip(("cluster", "stages", "clusters", "smem", "vec"), out))
 
 
 def ln_fwd_plain(x2d: torch.Tensor, weight, bias, eps: float):
@@ -243,13 +267,18 @@ ln_bwd.launches = 0
 
 
 def ln_bwd_wide(dy2d, x2d, weight, mean, invvar):
-    """:func:`ln_bwd` by the wide kernels: one pass
-    over (row block, chunk) tiles writes each row's chunk sums of dy·γ and
-    dy·γ·xhat and each row block's column sums of dy·xhat and dy; the
-    column sums add over the blocks in a fixed order; then each chunk's dx
-    from its row's merged sums. Returns (dx, gw, gb) like
-    :func:`ln_bwd_plain`, bit for bit the same on a repeat; three launches
-    (two without weight), one count."""
+    """:func:`ln_bwd` by the wide kernels. Up to ``ROW_MAX`` one pass
+    (its launch: :func:`row_plan`): a persistent grid, each block a fixed
+    run of rows through a ring of shared-memory stages filled by TMA, dy
+    and x read once, each row's sums of dy·γ and dy·γ·xhat, then its dx,
+    and the column sums of dy·xhat and dy in registers across the run,
+    whose partials add over the blocks in a fixed order. Wider rows: one
+    pass over (row block, chunk) tiles writes each row's chunk sums and
+    each row block's column sums, the column sums add in a fixed order,
+    then each chunk's dx from its row's merged sums. Returns (dx, gw, gb)
+    like :func:`ln_bwd_plain`, bit for bit the same on a repeat; two
+    launches (one without weight) to ``ROW_MAX``, three (two) past it; one
+    count."""
     if not dispatch.use_kernel(x2d):
         return ln_bwd_plain(dy2d, x2d, weight, mean, invvar)
     rows, f = x2d.shape
@@ -258,25 +287,33 @@ def ln_bwd_wide(dy2d, x2d, weight, mean, invvar):
     dx = torch.empty_like(x2d)
     if rows == 0:
         return _no_rows(dx, weight)
-    nchunk = -(-f // _WIDE_COLS)
-    nrb = min(-(-_WIDE_BLOCKS // nchunk), -(-rows // 8), 65535)
-    rpc = -(-rows // nrb)
-    nrb = -(-rows // rpc)
-    rpart = torch.empty((rows, nchunk, 2), dtype=torch.float32,
-                        device=x2d.device)
-    ws = torch.empty((2, nrb, f) if weight is not None else (1,),
-                     dtype=torch.float32, device=x2d.device)
     sums = torch.empty((2, f) if weight is not None else (1,),
                        dtype=torch.float32, device=x2d.device)
     mean, invvar = mean.contiguous(), invvar.contiguous()
-    err = _cuda.lib().apex_layer_norm_bwd_wide(
-        xc, wc, dy2d.data_ptr(), x2d.data_ptr(),
-        weight.data_ptr() if weight is not None else None,
-        mean.data_ptr(), invvar.data_ptr(), dx.data_ptr(), rpart.data_ptr(),
-        ws.data_ptr(),
-        sums[0].data_ptr() if weight is not None else None,
-        sums[1].data_ptr() if weight is not None else None,
-        rows, f, rpc, nrb, _cuda.stream(x2d.device))
+    ptrs = (dy2d.data_ptr(), x2d.data_ptr(),
+            weight.data_ptr() if weight is not None else None,
+            mean.data_ptr(), invvar.data_ptr(), dx.data_ptr())
+    out = ((sums[0].data_ptr(), sums[1].data_ptr()) if weight is not None
+           else (None, None))
+    if f <= ROW_MAX:
+        # the C side plans the launch; its partials fit in min(rows, 132)
+        ws = torch.empty((2, min(rows, _ROW_GRID), f) if weight is not None
+                         else (1,), dtype=torch.float32, device=x2d.device)
+        err = _cuda.lib().apex_layer_norm_bwd_row(
+            xc, wc, *ptrs, ws.data_ptr(), *out, rows, f,
+            _cuda.stream(x2d.device))
+    else:
+        nchunk = -(-f // _WIDE_COLS)
+        nrb = min(-(-_WIDE_BLOCKS // nchunk), -(-rows // 8), 65535)
+        rpc = -(-rows // nrb)
+        nrb = -(-rows // rpc)
+        rpart = torch.empty((rows, nchunk, 2), dtype=torch.float32,
+                            device=x2d.device)
+        ws = torch.empty((2, nrb, f) if weight is not None else (1,),
+                         dtype=torch.float32, device=x2d.device)
+        err = _cuda.lib().apex_layer_norm_bwd_wide(
+            xc, wc, *ptrs, rpart.data_ptr(), ws.data_ptr(), *out, rows, f,
+            rpc, nrb, _cuda.stream(x2d.device))
     _cuda.check(err, "ln_bwd_wide")
     ln_bwd_wide.launches += 1
     if weight is None:

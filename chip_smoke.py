@@ -23,7 +23,8 @@ lm_bench's LM at 8 heads of 256 (the flash forward, dq and dk/dv at D
    limit (also as a raw line of its own) and the torch / CUDA versions.
 1. build — compiles the hand kernels from ``apex_tpu_torch/ops/cuda/csrc``
    with ``nvcc`` for ``sm_90a`` (all sources at once) and loads them;
-   prints every kernel's registers and spills (``ptxas``) and, apart, the
+   prints every kernel's registers, spills and static shared memory
+   (``ptxas``) and, apart, the
    flash forward's and backward's Hopper kernels (``flash_fwd_ptxas``,
    ``flash_bwd_ptxas``: 18 and 24 forms, bf16 and fp16; of them the 14 at
    head dim 256, ``flash_d256_ptxas``), the fp32 backward's
@@ -35,7 +36,10 @@ lm_bench's LM at 8 heads of 256 (the flash forward, dq and dk/dv at D
    and the fp32 ones' there (``flash_f32_d512_ptxas``: 4 forward, 4 dq
    and 4 dk/dv forms, plain and with a bias or dropout) and the
    shared-bias gradient's (``flash_dbias_ptxas``: bf16, fp16 and fp32),
-   none of whose forms may spill.
+   none of whose forms may spill; and the one-pass wide LayerNorm
+   backward's (``ln_bwd_row_ptxas``: 56 forms, none may spill) with the
+   plans of phase 2's readings (``ln_bwd_row_plans``: the shared memory,
+   dynamic, that each takes).
 2. kernels — each kernel against its plain PyTorch version on the card,
    at its path's shapes: max abs error against the stated tolerance, the
    kernel's time, the plain version's, one PyTorch library call's where
@@ -109,7 +113,8 @@ lm_bench's LM at 8 heads of 256 (the flash forward, dq and dk/dv at D
    invvar within 1e-5 relative; dx and the column sums as ``ln_bwd``, in
    fp32 with the row means' terms taken at their own rounding scale; two
    runs of each bit-equal; ``F.layer_norm`` and
-   ``native_layer_norm_backward`` beside them), and x = 1000 + 0.01·N(0,
+   ``native_layer_norm_backward`` beside them; the backward's form and, to
+   F 16384, its one-pass plan), and x = 1000 + 0.01·N(0,
    1) at [9, 16384] fp32 within 0.05 of fp64; ``bn_backward_reduce`` from
    a bf16 xhat at every RN50 BN shape (within 1e-5·Σ|terms|, bit-equal
    repeats; ``batch_norm_backward_reduce`` beside it); the split decode
@@ -117,7 +122,8 @@ lm_bench's LM at 8 heads of 256 (the flash forward, dq and dk/dv at D
    paged equal bit for bit, repeats bit for bit; masked SDPA beside it),
    at both head dims at the lengths 0, 1, 63-65, 127, 129 and 1024 with a
    page of 5, its merge alone, and the timer's reading of one and two
-   empty launches; the flash kernels' fp16 forms at [128, 4095, 64] and
+   empty launches and of one PyTorch elementwise call on one element (the
+   launch floor); the flash kernels' fp16 forms at [128, 4095, 64] and
    [384, 2048, 128] (2 fp16 ulps + 2^-6 of the row's RMS; fp16 SDPA
    beside them) and the simple form in fp32 at [128, 4095, 64] (2 fp32
    ulps + 2^-14 of the larger of the row's and the tensor's RMS; its
@@ -170,9 +176,9 @@ lm_bench's LM at 8 heads of 256 (the flash forward, dq and dk/dv at D
    (``flash_bits``) and ``ln_bwd_wide``'s at [8192, 12288]
    (``ln_wide_bits``), to hold one package's against another's; the
    scalar tails beside the vector forms: ``ln_bwd`` at [32760, 1022], the
-   wide kernels at [8192, 12290] (the backward's 2-wide form) and [8192,
-   12289] (its scalar form) and the welford passes at C 6 (and C 8) over
-   256·56·56 rows.
+   wide kernels at [8192, 12290] (the one-pass backward's 2-wide loads) and
+   [8192, 12289] (its scalar loads) and the welford passes at C 6 (and C
+   8) over 256·56·56 rows.
 3. dense — the serve_bench model at full width (8 layers, 1024 wide,
    8 heads, vocab 32768, bf16, random weights from ``torch.Generator``
    seed 0) behind ``ContinuousBatchingEngine(slots=8, max_len=1024,
@@ -437,19 +443,20 @@ def nvidia_smi(query: str) -> str:
 
 
 def ptxas_table(log: str) -> dict:
-    """Registers a thread and spill bytes of each kernel of the build, by
-    its mangled name, from ptxas's report."""
+    """Registers a thread, spill bytes and static shared memory of each
+    kernel of the build, by its mangled name, from ptxas's report."""
     table, name = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
-        regs = re.search(r"Used (\d+) registers", ln)
-        spill = re.search(r"(\d+) bytes spill stores", ln)
         if m:
             name = m.group(1)
-        elif name and (regs or spill):
-            table.setdefault(name, {})[
-                "registers" if regs else "spill_bytes"] = int(
-                    (regs or spill).group(1))
+            continue
+        for key, pat in (("registers", r"Used (\d+) registers"),
+                         ("spill_bytes", r"(\d+) bytes spill stores"),
+                         ("smem_bytes", r"(\d+) bytes smem")):
+            got = re.search(pat, ln)
+            if name and got:
+                table.setdefault(name, {})[key] = int(got.group(1))
     return table
 
 
@@ -1024,11 +1031,15 @@ FLASH_CHECK_HEADS = 8     # heads held against the plain version
 
 def storage_ulp(torch, t, dtype=None):
     """The spacing of ``dtype``'s values (t's own by default) at each
-    element's magnitude."""
-    bits = {torch.bfloat16: 8, torch.float16: 11,
-            torch.float32: 24}[dtype or t.dtype]
+    element's magnitude: 2^(e - bits) for a normal value, and below the
+    normal range the fixed spacing of the subnormals (fp16's 2^-24, where
+    2^(e - bits) would give a spacing fp16 does not have)."""
+    bits, tiny = {torch.bfloat16: (8, 2.0 ** -133),
+                  torch.float16: (11, 2.0 ** -24),
+                  torch.float32: (24, 2.0 ** -149)}[dtype or t.dtype]
     _, e = torch.frexp(t.float())
-    return torch.ldexp(torch.ones_like(t, dtype=torch.float32), e - bits)
+    return torch.ldexp(torch.ones_like(t, dtype=torch.float32),
+                       e - bits).clamp_min(tiny)
 
 
 def check_ln_bwd(torch, what, got, want, dy, x, w, mean, inv,
@@ -3934,6 +3945,29 @@ WIDE_READINGS = (
     ("13x16384_plain", 13, 16384, "float32", False),
     ("520x9344", 520, 9344, "float32", True),
     ("520x9344_plain", 520, 9344, "float32", False))
+# the one-pass wide backward's plans phase 1 prints (rows, F, dtype, x's
+# and gamma's element sizes): the wide LM's rows and the tails', the JAX
+# tests' fp32 shapes, and bf16 and fp32 at the widest row
+LN_ROW_PLANS = (
+    (8192, 12288, "bfloat16", 2, 2), (8192, 12289, "bfloat16", 2, 2),
+    (8192, 16384, "bfloat16", 2, 2), (520, 9344, "float32", 4, 4),
+    (520, 9344, "float32", 4, 0), (13, 16384, "float32", 4, 4),
+    (13, 16384, "float32", 4, 0), (8192, 16384, "float32", 4, 4))
+
+
+def ln_bwd_wide_form(LN, x, w) -> dict:
+    """The form ``ln_bwd_wide`` takes on fresh (aligned) buffers: to
+    ``LN.ROW_MAX`` the one pass (``csrc/ln_bwd_row.cu``) with its load width
+    and its plan, as the C side gives them (``LN.row_plan``), past it the
+    chunked kernels."""
+    rows, f = x.shape
+    if f > LN.ROW_MAX:
+        return {"form": "chunked"}
+    plan = LN.row_plan(rows, f, x.element_size(),
+                       0 if w is None else w.element_size())
+    vec = plan.pop("vec")
+    return {"form": "one-pass, " + (f"{vec}-wide" if vec > 1 else "scalar"),
+            "plan": plan}
 
 
 def wide_ln_readings(torch, timer, tag, n_rows, f, dt_name, affine) -> dict:
@@ -4011,8 +4045,8 @@ def wide_ln_readings(torch, timer, tag, n_rows, f, dt_name, affine) -> dict:
     _, lmean, lrstd = torch.ops.aten.native_layer_norm(x, [f], w, b, 1e-5)
     b_ms, b_by = bound(3 * io + 8 * n_rows + ((es + 8) * f if affine else 0),
                        11 * n_rows * f)
-    bwd = dict(kernel="ln_bwd_wide", **shape, **errs,
-               tol="dx: 1 ulp + 1e-5 of its terms" + (
+    bwd = dict(kernel="ln_bwd_wide", **shape, **ln_bwd_wide_form(LN, x, w),
+               **errs, tol="dx: 1 ulp + 1e-5 of its terms" + (
                    " (the row means' as mean|terms|)" if fp32 else "")
                + "; sums: 1e-5·Σ|terms|",
                repeat_equal=rep,
@@ -4342,11 +4376,17 @@ def decode_kernel_phase(torch, timer) -> dict:
     emit({"phase": "kernels", **row})
     rows[("decode_merge", "bfloat16")] = row
     # what this timer reads for launches that do no work: the floor under
-    # the decode's two launches
+    # the decode's two launches; and one PyTorch elementwise call on one
+    # element, the launch floor the launch-bound kernels (ln_fwd at
+    # serving's [8, 1024], the decode merge) are read against (a yardstick:
+    # no path runs it)
     tiny = torch.zeros(64, device="cuda")
+    one = torch.zeros(1, device="cuda")
     emit({"phase": "timer_floor",
           "one_launch_ms": timer(lambda: tiny.zero_()),
-          "two_launches_ms": timer(lambda: (tiny.zero_(), tiny.zero_()))})
+          "two_launches_ms": timer(lambda: (tiny.zero_(), tiny.zero_())),
+          "one_element_add_ms": timer(lambda: one.add_(1.0)),
+          "nvidia_smi": nvidia_smi("name,power.limit")})
     return rows
 
 
@@ -4864,9 +4904,9 @@ def flash_forms_phase(torch, timer) -> dict:
 
 def ln_wide_bits(torch) -> dict:
     """The first 16 hex digits of the sha256 of ``ln_bwd_wide``'s dx, dγ and
-    dβ at the wide LM's [8192, 12288] bf16 rows (the 4-wide form) from
-    seeded inputs: one package's bits, to hold against another's (the
-    2-wide form must leave the 4-wide one's unchanged)."""
+    dβ at the wide LM's [8192, 12288] bf16 rows (the one-pass form, 16-byte
+    loads) from seeded inputs: one package's bits, to hold against
+    another's."""
     import hashlib
 
     from apex_tpu_torch.ops import layer_norm as LN
@@ -4887,8 +4927,8 @@ def tail_kernel_phase(torch, timer) -> dict:
     """The scalar tails beside the vector forms: ``ln_bwd`` (and
     ``ln_fwd``) at F 1022 over the LM's 32760 rows, bf16, under phase 2's
     LN rule (the vector form's reading is row ``ln_bwd`` at F 1024), the
-    wide kernels at F 12290 (the backward's 2-wide form) and 12289 (its
-    scalar form) over the wide LM's 8192 rows; the welford
+    wide kernels at F 12290 (the one-pass backward's 2-wide loads) and
+    12289 (its scalar loads) over the wide LM's 8192 rows; the welford
     passes at C 6 and, beside them, C 8 over 256·56·56 rows, bf16 (sums
     within 1e-5·Σ|terms|, dx and dz bit-equal, repeats bit-equal)."""
     from apex_tpu_torch.ops import layer_norm as LN
@@ -4932,13 +4972,16 @@ def tail_kernel_phase(torch, timer) -> dict:
                                                               1e-5)),
                        library_ms=timer(lambda: torch.nn.functional
                                         .layer_norm(x, (f,), w, b, 1e-5)),
-                       bound_ms=fb[0], bound_by=fb[1]),
+                       bound_ms=fb[0], bound_by=fb[1],
+                       host_us=host_us(torch, lambda: LN.ln_fwd(x, w, b,
+                                                                1e-5),
+                                       n=100)),
                   dict(kernel=kern, reading="tail", dtype="bfloat16",
                        shape=[n_rows, f],
                        # fresh tensors are aligned: the width picks the
-                       # form (the wide backward's 2-wide at an even F)
-                       form="2-wide" if kern == "ln_bwd_wide" and f % 2 == 0
-                       else "scalar",
+                       # form (the wide backward's load width)
+                       **(ln_bwd_wide_form(LN, x, w)
+                          if kern == "ln_bwd_wide" else {"form": "scalar"}),
                        **errs, repeat_equal=rep,
                        ms=timer(lambda: LN.ln_bwd(dy, x, w, mean, inv)),
                        plain_ms=timer(lambda: LN.ln_bwd_plain(dy, x, w, mean,
@@ -4947,7 +4990,9 @@ def tail_kernel_phase(torch, timer) -> dict:
                            lambda: torch.ops.aten.native_layer_norm_backward(
                                dy, x, [f], lmean, lrstd, w, b,
                                [True, True, True])),
-                       bound_ms=b_ms, bound_by=b_by)):
+                       bound_ms=b_ms, bound_by=b_by,
+                       host_us=host_us(torch, lambda: LN.ln_bwd(
+                           dy, x, w, mean, inv), n=100))):
             emit({"phase": "kernels", **r})
             rows[(r["kernel"], "tail", f)] = r
         del x, dy, y, y0, got, lmean, lrstd
@@ -5456,6 +5501,15 @@ def main() -> int:
     flash_dbias = {n: e for n, e in ptxas.items()
                    if "flash_tc_dbias_kernel" in n
                    or "flash_f32_dbias_kernel" in n}
+    # the one-pass wide LayerNorm backward (csrc/ln_bwd_row.cu): every
+    # form's registers and spills; its shared memory is dynamic, so beside
+    # them the plans of phase 2's readings, as the C side computes them
+    ln_row = {n: e for n, e in ptxas.items()
+              if "ln_wide_bwd_row_kernel" in n}
+    from apex_tpu_torch.ops import layer_norm as LN
+    ln_row_plans = {f"{rows}x{f} {dt}" + ("" if w else " plain"):
+                    LN.row_plan(rows, f, xs, w)
+                    for rows, f, dt, xs, w in LN_ROW_PLANS}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "compiled": kcuda.build_seconds is not None, "ptxas": ptxas,
           "flash_fwd_ptxas": flash_fwd, "flash_bwd_ptxas": flash_bwd,
@@ -5463,14 +5517,22 @@ def main() -> int:
           "flash_f32_fwd_ptxas": flash_f32_fwd,
           "flash_d256_ptxas": flash_d256, "flash_d512_ptxas": flash_d512,
           "flash_f32_d512_ptxas": flash_f32_d512,
-          "flash_dbias_ptxas": flash_dbias})
+          "flash_dbias_ptxas": flash_dbias, "ln_bwd_row_ptxas": ln_row,
+          "ln_bwd_row_plans": ln_row_plans})
     # bf16 and fp16: 2 x 9 forward forms (3 kinds at D 64, 128, 256) and
     # 2 x 12 backward (dq and dk/dv, plain and extra, at D 64, 128, 256),
     # 6 + 8 of them at D 256; fp32: 12 backward and 6 forward (plain and
     # extra at D 64, 128, 256); at D 384 and 512 2 x 6 forward forms (3
     # kinds), 2 x 4 dq, 2 x 4 dv and 2 x 4 dk (plain and extra), and in
     # fp32 2 x 2 forward, 2 x 2 dq and 2 x 2 dk/dv (plain and extra); the
-    # shared-bias gradient's bf16, fp16 and fp32 kernels
+    # shared-bias gradient's bf16, fp16 and fp32 kernels; the one-pass
+    # wide LN backward's 56 (bf16 and fp16 rows: 4 gammas by 4 load widths;
+    # fp32: 4 by 3, whole rows and 2-block clusters)
+    check(not kcuda.build_seconds or len(ln_row) == 56,
+          f"ptxas reported {len(ln_row)} one-pass wide LN backward forms, "
+          f"not 56")
+    check(all(e.get("spill_bytes", 0) == 0 for e in ln_row.values()),
+          f"the one-pass wide LN backward spills: {ln_row}")
     check(not kcuda.build_seconds or (len(flash_fwd) == 18
                                       and len(flash_bwd) == 24
                                       and len(flash_d256) == 14
@@ -5737,7 +5799,10 @@ def main() -> int:
                             "flash_attention.py:427"),
         "ln_fwd_wide": ("apex_tpu_torch/ops/cuda/csrc/layer_norm.cu",
                         "apex_tpu/ops/pallas/layer_norm.py:201"),
-        "ln_bwd_wide": ("apex_tpu_torch/ops/cuda/csrc/layer_norm.cu",
+        # to F 16384 (every path's width) the one-pass kernel; past it
+        # layer_norm.cu's chunked ln_wide_bwd_reduce_kernel and
+        # ln_wide_bwd_dx_kernel
+        "ln_bwd_wide": ("apex_tpu_torch/ops/cuda/csrc/ln_bwd_row.cu",
                         "apex_tpu/ops/pallas/layer_norm.py:288"),
         "bn_backward_reduce": ("apex_tpu_torch/ops/cuda/csrc/welford.cu",
                                "apex_tpu/ops/pallas/welford.py:216"),

@@ -1679,55 +1679,115 @@ def test_ln_wide_wrappers_refuse_what_the_kernels_do_not_take(card):
         LN.ln_fwd(torch.zeros(2, 9216, device=card), w, None, 1e-5)
 
 
-@pytest.mark.parametrize("f", [12290, 8194, 12289])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_ln_bwd_wide_at_even_and_odd_widths(card, f, dtype):
-    """The wide backward's 2-wide form (F 12290 and 8194, even, every
-    buffer 2-element aligned) and its scalar form (odd F 12289, and an even
-    F from a base one element off): chip_smoke.py's LN rule (dx within one
-    ulp of the dtype plus 1e-5 of its terms, fp32 with the row means at
-    their own rounding scale; dγ and dβ within 1e-5 of their columns'
-    Σ|terms|) against the plain version, and two runs bit for bit."""
-    g = torch.Generator(device=card).manual_seed(f)
-    rows = 64
-    x = (torch.randn(rows, f, generator=g, device=card) * 2 + 0.5).to(dtype)
-    dy = torch.randn(rows, f, generator=g, device=card).to(dtype)
-    w = (torch.randn(f, generator=g, device=card) + 1).to(dtype)
-    _, mean, inv = LN.ln_fwd(x, w, torch.zeros_like(w), 1e-5)
-    got = LN.ln_bwd_wide(dy, x, w, mean, inv)
-    want = LN.ln_bwd_plain(dy, x, w, mean, inv)
+def _ulp(t, dtype):
+    """The spacing of dtype's values at each element of fp32 t: 2^(e -
+    bits), and the subnormals' fixed spacing below the normal range."""
+    bits, tiny = {torch.bfloat16: (8, 2.0 ** -133),
+                  torch.float16: (11, 2.0 ** -24),
+                  torch.float32: (24, 2.0 ** -149)}[dtype]
+    return torch.ldexp(torch.ones_like(t),
+                       torch.frexp(t)[1] - bits).clamp_min(tiny)
+
+
+def _ln_bwd_holds(got, want, dy, x, w, mean, inv):
+    """chip_smoke.py's LN rule: dx within one ulp of its dtype plus 1e-5 of
+    its terms (fp32 with the row means at their own rounding scale); dγ and
+    dβ within 1e-5 of their columns' Σ|terms|."""
     xhat = (x.float() - mean[:, None]) * inv[:, None]
-    dxh = dy.float() * w.float()
-    if dtype == torch.float32:             # the row means' own rounding
+    dxh = dy.float() * w.float() if w is not None else dy.float()
+    if x.dtype == torch.float32:           # the row means' own rounding
         m1 = dxh.abs().mean(1, keepdim=True)
         m2 = (dxh * xhat).abs().mean(1, keepdim=True)
     else:
         m1 = dxh.mean(1, keepdim=True)
         m2 = (dxh * xhat).mean(1, keepdim=True)
     terms = inv[:, None] * (dxh.abs() + m1.abs() + (xhat * m2).abs())
-    bits = 8 if dtype == torch.bfloat16 else 24
-    want_dx = want[0].float()
-
-    def ulp(t):
-        return torch.ldexp(torch.ones_like(t), torch.frexp(t)[1] - bits)
-
-    def dx_ok(a):
-        lim = torch.maximum(ulp(a.float()), ulp(want_dx)) + 1e-5 * terms
-        return bool(((a.float() - want_dx).abs() <= lim).all())
-    assert dx_ok(got[0])
+    a, b = got[0].float(), want[0].float()
+    lim = torch.maximum(_ulp(a, x.dtype), _ulp(b, x.dtype)) + 1e-5 * terms
+    assert bool(((a - b).abs() <= lim).all()), \
+        float(((a - b).abs() / lim).max())
+    if w is None:
+        assert got[1] is None and got[2] is None
+        return
     for a, b, t in ((got[1], want[1], dy.float() * xhat),
                     (got[2], want[2], dy.float())):
         assert bool(((a - b).abs() <= 1e-5 * t.abs().sum(0) + 1e-6).all())
-    again = LN.ln_bwd_wide(dy, x, w, mean, inv)
-    assert all(torch.equal(a, c) for a, c in zip(got, again))
-    if f % 2 == 0:                         # the scalar form beside it
-        buf = torch.empty(2 * rows * f + 1, device=card, dtype=dtype)
-        dy1 = buf[1:rows * f + 1].view(rows, f)
-        x1 = buf[rows * f + 1:].view(rows, f)
-        dy1.copy_(dy)
-        x1.copy_(x)
-        scalar = LN.ln_bwd_wide(dy1, x1, w, mean, inv)
-        assert dx_ok(scalar[0])
+
+
+def _ln_bwd_wide_case(card, dtype, f, rows):
+    """ln_bwd_wide at [rows, f] in dtype, affine and not, from fresh buffers
+    and from a base one element off: ``_ln_bwd_holds`` against the plain
+    version, two runs bit for bit, one count a call."""
+    g = torch.Generator(device=card).manual_seed(f + rows)
+    n = rows * f
+    x = (torch.randn(rows, f, generator=g, device=card) * 2 + 0.5).to(dtype)
+    dy = torch.randn(rows, f, generator=g, device=card).to(dtype)
+    w = (torch.randn(f, generator=g, device=card) + 1).to(dtype)
+    _, mean, inv = LN.ln_fwd_plain(x, w, torch.zeros_like(w), 1e-5)
+    buf = torch.empty(2 * n + 1, device=card, dtype=dtype)
+    dy1, x1 = buf[1:n + 1].view(rows, f), buf[n + 1:].view(rows, f)
+    dy1.copy_(dy)
+    x1.copy_(x)
+    for weight in (w, None):
+        want = LN.ln_bwd_plain(dy, x, weight, mean, inv)
+        for a, b in ((dy, x), (dy1, x1)):
+            before = LN.ln_bwd_wide.launches
+            got = LN.ln_bwd_wide(a, b, weight, mean, inv)
+            assert LN.ln_bwd_wide.launches == before + 1
+            _ln_bwd_holds(got, want, dy, x, weight, mean, inv)
+            again = LN.ln_bwd_wide(a, b, weight, mean, inv)
+            assert all(torch.equal(p, q) for p, q in zip(got, again)
+                       if p is not None)
+
+
+@pytest.mark.parametrize("rows", [1, 7, 133, 8192])
+@pytest.mark.parametrize("f", [8193, 8194, 9344, 12288, 12289, 12290,
+                               16383, 16384])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+def test_ln_bwd_wide_at_even_and_odd_widths(card, dtype, f, rows):
+    """The one-pass wide backward (csrc/ln_bwd_row.cu) at widths odd, 2
+    mod 4, 4 mod 8 and multiples of 8 up to 16384, in bf16, fp16 and fp32
+    (fp32 with gamma from F 12288 in 2-block clusters), over row counts
+    below, at and past the grid's 132 (133: one block takes two rows):
+    ``_ln_bwd_wide_case``."""
+    _ln_bwd_wide_case(card, dtype, f, rows)
+
+
+@pytest.mark.parametrize("rows", [7, 133])
+@pytest.mark.parametrize("f", [16385, 16386, 16388])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+def test_ln_bwd_wide_chunked_forms_past_16384(card, dtype, f, rows):
+    """The chunked wide backward (layer_norm.cu) past 16384 in each of its
+    forms: scalar (odd F 16385, and every F from a base one element off),
+    2-wide (F 16386) and 4-wide (F 16388), in bf16, fp16 and fp32, over
+    one row block (7 rows) and several (133: 17 blocks of 8 rows, whose
+    column sums add in a fixed order): ``_ln_bwd_wide_case``."""
+    _ln_bwd_wide_case(card, dtype, f, rows)
+
+
+def test_ln_bwd_wide_chunked_form_only_past_16384(card):
+    """The chunked backward's C entry refuses F <= 16384, which the
+    one-pass kernel takes (so no such call reaches
+    ln_wide_bwd_reduce_kernel or ln_wide_bwd_dx_kernel), and runs F 16385,
+    which it holds to the plain version."""
+    from apex_tpu_torch.ops import cuda as kc
+    for f, rc in ((12288, 1), (16384, 1), (16385, 0)):
+        x = torch.randn(3, f, device=card)
+        mean = torch.zeros(3, device=card)
+        inv = torch.ones(3, device=card)
+        dx = torch.empty_like(x)
+        part = torch.empty(3, -(-f // 1024), 2, device=card)
+        err = kc.lib().apex_layer_norm_bwd_wide(
+            0, 0, x.data_ptr(), x.data_ptr(), None, mean.data_ptr(),
+            inv.data_ptr(), dx.data_ptr(), part.data_ptr(), part.data_ptr(),
+            None, None, 3, f, 3, 1, kc.stream(x.device))
+        torch.cuda.synchronize()
+        assert err == rc, (f, err)
+        if rc == 0:
+            _close(dx, LN.ln_bwd_plain(x, x, None, mean, inv)[0],
+                   torch.float32)
 
 
 def test_lm_at_a_wide_row_takes_the_wide_kernels(card):

@@ -24,6 +24,8 @@ def _sources():
     return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                         ROOT / "flash_f32_ab.py",
                                         ROOT / "flash_d512_ab.py",
+                                        ROOT / "flash_dbias_ab.py",
+                                        ROOT / "ln_bwd_wide_ab.py",
                                         ROOT / "timer_load_ab.py"]
 
 
@@ -70,6 +72,17 @@ def test_the_kernel_variant_script_refuses_without_a_card():
                          cwd=ROOT, capture_output=True, text=True,
                          timeout=120, env=env)
     assert out.returncode == 2 and "usage" in out.stderr
+    assert out.stdout == ""
+
+
+def test_the_wide_ln_ab_script_refuses_without_a_card():
+    """``ln_bwd_wide_ab.py`` builds and times on the card only: without
+    CUDA it exits 2 before it builds, unpacks or starts anything."""
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    out = subprocess.run([sys.executable, "ln_bwd_wide_ab.py", "variants"],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=120, env=env)
+    assert out.returncode == 2 and "needs an NVIDIA card" in out.stderr
     assert out.stdout == ""
 
 
@@ -215,7 +228,7 @@ def test_ctypes_declarations_match_the_c_entry_points():
                                          "flash_d512.cu", "flash_simt.cu",
                                          "flash_d512_dkv.cu",
                                          "flash_f32.cu", "flash_f32_d512.cu",
-                                         "layer_norm.cu",
+                                         "layer_norm.cu", "ln_bwd_row.cu",
                                          "multi_tensor.cu", "welford.cu",
                                          "xentropy.cu"}
     sigs = {}
@@ -227,13 +240,14 @@ def test_ctypes_declarations_match_the_c_entry_points():
     cuda._declare(so)
     for name, n in sigs.items():
         assert len(getattr(so, name).argtypes) == n, name
-    assert len(sigs) == 41           # the decode merge and the simple
+    assert len(sigs) == 43           # the decode merge and the simple
     # flash form's four are the 27th to 31st, the fp32 backward's two on
     # the tensor cores the 32nd and 33rd, the fp32 forward the 34th, the
     # forward and dq at head dims 384 and 512 the 35th and 36th, their
     # fp32 forms the 37th and 38th, and dk/dv there in both the 39th and
     # 40th; the shared-bias gradient's two (bf16/fp16 and fp32) took the
-    # place of its one D <= 128 kernel
+    # place of its one D <= 128 kernel; the one-pass wide LayerNorm
+    # backward and its plan's query are the 42nd and 43rd
 
 
 def test_lm_training_entry_points_default_to_the_card_and_raise_without_it(

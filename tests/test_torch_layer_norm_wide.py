@@ -11,8 +11,13 @@ gradients within 1e-4 of each column's sum of |terms|, and dx within 1e-4
 of the sum of its own terms' magnitudes, the JAX kernels carrying their
 sums across 1024-wide tiles. The large-mean case against
 fp64, and the module over a two-dim ``normalized_shape`` through autograd
-against ``jax.grad``.
+against ``jax.grad``. The one-pass backward's launch plan
+(``csrc/ln_row_plan.cuh``, host code) built by the host's C++ compiler.
 """
+
+import shutil
+import subprocess
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -25,6 +30,8 @@ from apex_tpu.ops import dispatch as jdispatch
 from apex_tpu.ops.pallas import layer_norm as JP
 from apex_tpu_torch.normalization import FusedLayerNorm, fused_layer_norm
 from apex_tpu_torch.ops import layer_norm as OPS
+
+CSRC = Path(OPS.__file__).resolve().parent / "cuda" / "csrc"
 
 
 def _data(rows, f, seed):
@@ -51,7 +58,9 @@ def _cols_close(got, want, terms):
                                            (520, 9344, True),
                                            (9, 10240, False),
                                            (13, 12290, True),
-                                           (7, 12289, True)])
+                                           (7, 12289, True),
+                                           (7, 8193, True),
+                                           (5, 16385, True)])
 def test_wide_fwd_bwd_match_jax_pallas(rows, f, affine):
     assert f > OPS.F_SINGLE_MAX
     x, dy, w, b = _data(rows, f, seed=rows + f)
@@ -100,10 +109,11 @@ def _slot_cols(vec: int, lane: int, kind: str) -> list:
     return [(r // vec * 32 + lane) * vec + r % vec for r in range(32)]
 
 
-@pytest.mark.parametrize("f", [8194, 12290, 12288])
+@pytest.mark.parametrize("f", [16386, 24578, 16388])
 def test_two_wide_columns_stay_fixed_across_rows(f):
-    """The VEC-2 form of the wide backward: a lane's register slots map to
-    the same chunk columns when loaded and when its column sums are stored,
+    """The VEC-2 form of the chunked wide backward (F > 16384): a lane's
+    register slots map to the same chunk columns when loaded and when its
+    column sums are stored,
     the lanes cover each of the chunk's 1024 columns once, and no row
     enters the map, so the sums of dy·xhat and dy stay in registers across
     the block's rows. Every 2-wide group starts 2-element aligned in every
@@ -123,6 +133,103 @@ def test_two_wide_columns_stay_fixed_across_rows(f):
     starts4 = {(row * f + (i * 32 + lane) * 4) % 4 for row in range(5)
                for i in range(8) for lane in range(32)}
     assert starts4 == ({0} if f % 4 == 0 else {0, 2})
+
+
+def _r16(n):
+    return -(-n // 16) * 16
+
+
+_PLAN_MAIN = r"""
+#include <cstdio>
+#include "ln_row_plan.cuh"
+int main() {
+  long long rows, bases;
+  int f, xs, ws;
+  while (std::scanf("%lld %d %d %d %lld", &rows, &f, &xs, &ws, &bases)
+         == 5) {
+    const apex_port::RowPlan p = apex_port::row_plan(rows, f, xs, ws);
+    std::printf("%d %d %d %d %d\n", p.cluster, p.stages, p.clusters,
+                p.smem, apex_port::row_vec(f, xs, (uintptr_t)bases));
+  }
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def row_plan(tmp_path_factory):
+    """``csrc/ln_row_plan.cuh`` built alone by the host's C++ compiler (it
+    needs no CUDA header): the one-pass wide backward's launch, as the C
+    entry computes it, for a list of (rows, F, x's and gamma's element
+    sizes, the buffers' or-ed addresses) -> (cluster, stages, clusters,
+    shared memory, load width)."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler")
+    d = tmp_path_factory.mktemp("ln_row_plan")
+    (d / "main.cpp").write_text(_PLAN_MAIN)
+    subprocess.run([cxx, "-std=c++17", "-I", str(CSRC), str(d / "main.cpp"),
+                    "-o", str(d / "plan")], check=True, capture_output=True,
+                   timeout=120)
+
+    def plan(cases):
+        got = subprocess.run(
+            [str(d / "plan")], capture_output=True, text=True, check=True,
+            timeout=60, input="".join(" ".join(map(str, c)) + "\n"
+                                      for c in cases)).stdout.split()
+        vals = [int(v) for v in got]
+        return [tuple(vals[k:k + 5]) for k in range(0, len(vals), 5)]
+    return plan
+
+
+@pytest.mark.parametrize("f", [1, 8193, 9344, 11600, 12288, 12289, 12290,
+                               16383, 16384])
+@pytest.mark.parametrize("x_size,w_size", [(2, 2), (2, 4), (2, 0), (4, 4),
+                                           (4, 0)])
+def test_row_plan_fits_and_depends_on_the_shape_only(row_plan, f, x_size,
+                                                      w_size):
+    """The one-pass wide backward's launch from the shape and the element
+    sizes alone: a block's shared memory (512 bytes of head, gamma's
+    segment, the stages' two buffers each 16 bytes over for the row's
+    offset in its chunk) within 227 KB; two to four stages; a whole row a
+    block wherever two stages of it fit, else halves split at a multiple of
+    8 columns in 2-block clusters (never for 16-bit rows); min(rows, 132 /
+    cluster) clusters, so no block goes without a row and no more than 132
+    run. The load width: the widest of 16 bytes, 8, 4, 2 and 1 values that
+    divides F and the buffers' addresses."""
+    rows_all = (1, 7, 133, 8192)
+    cases = [(rows, f, x_size, w_size, bases) for rows in rows_all
+             for bases in (0, x_size, 2 * x_size, 4 * x_size)]
+    got = row_plan(cases + cases)
+    assert got[:len(cases)] == got[len(cases):]
+    for (rows, _, _, _, bases), (cluster, stages, clusters, smem,
+                                 vec) in zip(cases, got):
+        n = f if cluster == 1 else ((f + 1) // 2 + 7) // 8 * 8
+        span = _r16(n * x_size) + 16
+        assert smem == 512 + _r16(n * w_size) + 2 * span * stages
+        assert smem <= 232448 and 2 <= stages <= 4
+        whole = 512 + _r16(f * w_size) + 4 * (_r16(f * x_size) + 16)
+        assert cluster == (1 if whole <= 232448 else 2)
+        if cluster == 2:
+            assert x_size == 4 and n % 8 == 0 and 0 < f - n <= n
+        assert clusters == min(rows, 132 // cluster)
+        assert vec == max(v for v in (1, 2, 4, 8) if v * x_size <= 16
+                          and f % v == 0 and bases % (v * x_size) == 0)
+
+
+@pytest.mark.parametrize("rows,f,x_size,w_size,plan", [
+    (8192, 12288, 2, 2, (1, 4, 132, 221824, 8)),     # the wide LM, bf16
+    (8192, 12289, 2, 2, (1, 4, 132, 221968, 1)),
+    (8192, 12290, 2, 2, (1, 4, 132, 221968, 2)),
+    (8192, 16384, 2, 2, (1, 3, 132, 229984, 8)),
+    (8192, 16384, 2, 4, (1, 2, 132, 197184, 8)),     # bf16, fp32 gamma
+    (520, 9344, 4, 4, (1, 2, 132, 187456, 4)),       # the JAX tests' fp32
+    (13, 16384, 4, 4, (2, 3, 13, 229984, 4)),
+    (8192, 12290, 4, 4, (2, 4, 66, 222112, 2)),
+    (8192, 12290, 4, 0, (1, 2, 132, 197248, 2))])    # no gamma: two fit
+def test_row_plan_at_the_readings(row_plan, rows, f, x_size, w_size, plan):
+    """The launches of chip_smoke.py's readings, as the source note gives
+    them: fp32 rows past about 11,600 values go to 2-block clusters."""
+    assert row_plan([(rows, f, x_size, w_size, 0)]) == [plan]
 
 
 def test_wide_forward_holds_a_large_mean():
