@@ -3,10 +3,11 @@ resolves a policy and wraps a model apply-function for it, and the
 ``AmpHandle`` carries the loss scalers, whose state the caller threads
 through the step as a tuple of :class:`ScalerState`.
 
-Ported: O0, O2 and O3 (parameter and input casts, BN kept fp32 under O2
-by a path predicate, fp32 outputs), microbatch gradient accumulation
-(``accumulate_grads``) and the overflow census (``update_with_census``).
-O1's per-op autocast raises, naming the slice that ports it.
+Ported: every level. O1 wraps the function in ``amp.autocast`` (the
+per-op policy; params stay fp32); O0, O2 and O3 cast parameters and
+inputs (BN kept fp32 under O2 by a path predicate, fp32 outputs). Beside
+them microbatch gradient accumulation (``accumulate_grads``), the
+overflow census (``update_with_census``) and ``master_params``.
 """
 
 from __future__ import annotations
@@ -16,12 +17,13 @@ from typing import Any, Callable, Optional, Sequence
 
 import torch
 
+from apex_tpu_torch.amp.autocast import autocast
 from apex_tpu_torch.amp.policy import Policy, as_dtype, make_policy
 from apex_tpu_torch.amp.scaler import LossScaler
 from apex_tpu_torch.ops import flat as _flat
 
-__all__ = ["AmpHandle", "initialize", "cast_model_params", "cast_inputs",
-           "cast_outputs_fp32"]
+__all__ = ["AmpHandle", "initialize", "master_params", "cast_model_params",
+           "cast_inputs", "cast_outputs_fp32"]
 
 
 def _default_bn_predicate(path) -> bool:
@@ -194,11 +196,9 @@ def initialize(apply_fn: Optional[Callable] = None, opt_level: str = "O1",
     if apply_fn is None:
         return None, handle
 
-    if policy.autocast:
-        raise NotImplementedError(
-            "O1 per-op autocast is not ported yet (ROADMAP.md Queue 1, "
-            "slice 3); use O0, O2 or O3")
-    if policy.cast_model_dtype is not None and \
+    if policy.autocast:                                    # O1
+        wrapped = autocast(apply_fn, policy.compute_dtype)
+    elif policy.cast_model_dtype is not None and \
             policy.cast_model_dtype != torch.float32:      # O2 / O3
         dtype = policy.cast_model_dtype
         pred = keep_fp32_predicate
@@ -231,3 +231,9 @@ def initialize(apply_fn: Optional[Callable] = None, opt_level: str = "O1",
               f"master_weights={p.master_weights}, "
               f"loss_scale={p.loss_scale}")
     return wrapped, handle
+
+
+def master_params(optimizer):
+    """Iterate the fp32 master params of a port optimizer (its
+    ``master_params_tree``'s leaves; frontend.py:326-330)."""
+    yield from _flat.tree_leaves(optimizer.master_params_tree())

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from apex_tpu_torch.amp.autocast import custom_grad
 from apex_tpu_torch.ops import flash_attn as FA
 from apex_tpu_torch.ops.flash_attn import (NEG_INF, dropout_bits,
                                            reference_attention)
@@ -81,6 +82,7 @@ class _FlashCore(torch.autograd.Function):
         return dq, dk, dv, dbias, None, None, None
 
 
+@custom_grad
 def flash_attention(q, k, v, bias=None, *, kv_bias=None,
                     causal: bool = False, scale=None, q_start: int = 0,
                     k_start: int = 0, return_lse: bool = False,

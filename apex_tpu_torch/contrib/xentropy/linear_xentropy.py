@@ -22,6 +22,8 @@ from typing import Optional
 
 import torch
 
+from apex_tpu_torch.amp.autocast import custom_grad
+
 __all__ = ["linear_cross_entropy"]
 
 
@@ -97,6 +99,7 @@ class _LinearXent(torch.autograd.Function):
         return dh.to(h.dtype), torch.cat(dws), None, None, None, None
 
 
+@custom_grad
 def linear_cross_entropy(hidden: torch.Tensor, weight: torch.Tensor,
                          labels: torch.Tensor, *, smoothing: float = 0.0,
                          padding_idx: Optional[int] = None,

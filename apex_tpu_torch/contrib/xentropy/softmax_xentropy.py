@@ -23,6 +23,7 @@ from typing import Optional
 
 import torch
 
+from apex_tpu_torch.amp.autocast import custom_grad
 from apex_tpu_torch.ops import xentropy as XE
 
 __all__ = ["select_label_logits", "softmax_cross_entropy_loss",
@@ -61,6 +62,7 @@ class _SoftmaxXent(torch.autograd.Function):
         return dx.reshape(logits.shape), None, None, None
 
 
+@custom_grad
 def softmax_cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                                smoothing: float = 0.0,
                                padding_idx: Optional[int] = 0,

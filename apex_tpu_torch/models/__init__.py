@@ -1,7 +1,8 @@
 """Models of the port (counterpart of ``apex_tpu/models``): the
 ``TransformerLM``, the ``Seq2SeqTransformer``, the ``ResNet`` family
-(``analytic_flops`` is ResNet's) and the ``ViT`` family (its FLOP count is
-``models.vit.analytic_flops``). Names import lazily."""
+(``analytic_flops`` is ResNet's), the ``ViT`` family (its FLOP count is
+``models.vit.analytic_flops``) and the DCGAN example's G and D
+(``DCGAN``, ``bce_logits``). Names import lazily."""
 
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ _EXPORTS = {
     "resnet34": "resnet", "resnet50": "resnet", "resnet101": "resnet",
     "resnet152": "resnet", "ViT": "vit", "vit_tiny": "vit",
     "vit_small": "vit", "vit_b16": "vit", "vit_l16": "vit",
+    "DCGAN": "dcgan", "bce_logits": "dcgan",
 }
 
 __all__ = sorted(_EXPORTS)

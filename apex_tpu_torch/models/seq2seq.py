@@ -17,8 +17,10 @@ shapes, drawn from a ``torch.Generator``), ``encode``, ``decode``,
 decoding: ``_cross_kv``, ``_decode_one``, ``_self_caches``,
 ``_src_bias``, ``_resolve_max_len`` and ``greedy_decode``, a host loop
 over ``_decode_one`` whose attention core is ``reference_attention``, as
-in the JAX package (a one-row query has no use for the flash kernels).
-Remat and ``beam_decode`` are not ported yet and raise.
+in the JAX package (a one-row query has no use for the flash kernels);
+``remat`` and ``remat_policy`` rematerialize each encoder and decoder
+layer (``models/_remat.py``). ``beam_decode`` is not ported yet and
+raises.
 
 Every LayerNorm goes through ``normalization.fused_layer_norm_affine``
 (the LayerNorm kernels on the card), the training attention through the
@@ -42,6 +44,7 @@ from apex_tpu_torch.contrib.multihead_attn.flash_attention import (
 from apex_tpu_torch.contrib.multihead_attn.modules import (
     EncdecMultiheadAttn, SelfMultiheadAttn)
 from apex_tpu_torch.contrib.xentropy import SoftmaxCrossEntropyLoss
+from apex_tpu_torch.models import _remat
 from apex_tpu_torch.models.transformer import (_gelu, _layer_seeds,
                                                 _tree_to)
 from apex_tpu_torch.normalization import fused_layer_norm_affine
@@ -63,14 +66,12 @@ class Seq2SeqTransformer:
     attn_impl: str = "auto"
     pad_id: int = 0          # padding token id in both vocabs
     remat: bool = False
+    remat_policy: Optional[str] = None
     # where init() puts the parameters; None means the card
     device: Union[str, torch.device, None] = None
 
     def __post_init__(self):
-        if self.remat:
-            raise NotImplementedError(
-                "seq2seq remat is not ported yet (ROADMAP.md Queue 1, "
-                "item 21)")
+        _remat.validate_remat_config(self.remat, self.remat_policy)
         self._self_attn(causal=False)        # validates widths and impl
         object.__setattr__(self, "device", resolve_device(self.device))
 
@@ -159,13 +160,18 @@ class Seq2SeqTransformer:
         pad = src_tokens == self.pad_id
         x = self._embed(params["src_emb"], src_tokens, params)
         sa = self._self_attn(causal=False)
-        for i in range(self.num_encoder_layers):
-            lp = params[f"enc_{i}"]
+
+        def body(x, lp, seed):
             h = self._ln(x, lp["ln1"]).transpose(0, 1)
             a, _ = sa.apply(lp["attn"], h, key_padding_mask=pad,
-                            is_training=is_training, dropout_seed=seeds[i])
+                            is_training=is_training, dropout_seed=seed)
             x = x + a.transpose(0, 1)
-            x = x + self._mlp(self._ln(x, lp["ln2"]), lp["mlp"])
+            return x + self._mlp(self._ln(x, lp["ln2"]), lp["mlp"])
+
+        if self.remat:
+            body = _remat.remat(body, self.remat_policy)
+        for i in range(self.num_encoder_layers):
+            x = body(x, params[f"enc_{i}"], seeds[i])
         return self._ln(x, params["ln_enc"])
 
     def decode(self, params: dict, tgt_tokens: torch.Tensor,
@@ -182,20 +188,24 @@ class Seq2SeqTransformer:
         x = self._embed(params["tgt_emb"], tgt_tokens, params)
         sa, ca = self._self_attn(causal=True), self._cross_attn()
         mem_tm = memory.transpose(0, 1)           # [Ts, B, E] time-major
-        for i in range(self.num_decoder_layers):
-            lp = params[f"dec_{i}"]
+
+        def body(x, lp, mem_tm, self_seed, cross_seed):
             a, _ = sa.apply(lp["self_attn"],
                             self._ln(x, lp["ln1"]).transpose(0, 1),
-                            is_training=is_training,
-                            dropout_seed=seeds[2 * i])
+                            is_training=is_training, dropout_seed=self_seed)
             x = x + a.transpose(0, 1)
             a, _ = ca.apply(lp["cross_attn"],
                             self._ln(x, lp["ln2"]).transpose(0, 1), mem_tm,
                             key_padding_mask=src_pad,
-                            is_training=is_training,
-                            dropout_seed=seeds[2 * i + 1])
+                            is_training=is_training, dropout_seed=cross_seed)
             x = x + a.transpose(0, 1)
-            x = x + self._mlp(self._ln(x, lp["ln3"]), lp["mlp"])
+            return x + self._mlp(self._ln(x, lp["ln3"]), lp["mlp"])
+
+        if self.remat:
+            body = _remat.remat(body, self.remat_policy)
+        for i in range(self.num_decoder_layers):
+            x = body(x, params[f"dec_{i}"], mem_tm, seeds[2 * i],
+                     seeds[2 * i + 1])
         x = self._ln(x, params["ln_dec"])
         return (x @ params["tgt_emb"].T).float()
 

@@ -11,8 +11,8 @@ Pre-LN decoder-only architecture::
 
 Ported: the config fields of both paths, ``init`` (same names and
 shapes, drawn from a ``torch.Generator``), ``apply`` (the forward, under
-autograd, with attention dropout, without remat, MoE or sequence
-parallelism), ``loss``
+autograd, with attention dropout and ``remat`` / ``remat_policy``, without
+MoE or sequence parallelism), ``loss``
 (next-token cross entropy through the chunked fused head, or with
 ``head_chunk=0`` over the full logits through the softmax cross-entropy
 kernels), the KV-cache block stack ``_cached_blocks``, ``_decode_one``,
@@ -47,6 +47,7 @@ from apex_tpu_torch.contrib.multihead_attn.flash_attention import (
 from apex_tpu_torch.contrib.multihead_attn.modules import SelfMultiheadAttn
 from apex_tpu_torch.contrib.xentropy import (linear_cross_entropy,
                                              softmax_cross_entropy_loss)
+from apex_tpu_torch.models import _remat
 from apex_tpu_torch.normalization import fused_layer_norm_affine
 
 __all__ = ["TransformerLM"]
@@ -74,7 +75,11 @@ class TransformerLM:
     # constructor refuses them rather than running a different model
     seq_axis: Optional[str] = None
     moe_experts: int = 0
+    # rematerialize each block in the backward (models/_remat.py);
+    # remat_policy names what is still saved inside it (a
+    # jax.checkpoint_policies name; None saves nothing)
     remat: bool = False
+    remat_policy: Optional[str] = None
     # where init() puts the parameters; None means the card
     device: Union[str, torch.device, None] = None
 
@@ -87,10 +92,7 @@ class TransformerLM:
             raise NotImplementedError(
                 "sequence parallelism is not ported yet (ROADMAP.md "
                 "Queue 1, slice 6: ring attention)")
-        if self.remat:
-            raise NotImplementedError(
-                "remat is a training option, not ported yet (ROADMAP.md "
-                "Queue 1, slice 4)")
+        _remat.validate_remat_config(self.remat, self.remat_policy)
         if self.head_chunk > 0 and \
                 self.vocab_size % min(self.head_chunk, self.vocab_size):
             raise ValueError(
@@ -165,15 +167,20 @@ class TransformerLM:
         # F.embedding: its backward sums the rows in a fixed order
         x = F.embedding(tokens, params["tok_emb"]) + params["pos_emb"][:t]
         mha = self._mha()
-        for i in range(self.num_layers):
-            lp = params[f"layer_{i}"]
+
+        def layer_body(x, lp, seed):
             h = self._ln(x, lp["ln1"])
             # MHA modules are time-major [T, B, E]
             attn_out, _ = mha.apply(lp["attn"], h.transpose(0, 1),
                                     is_training=is_training,
-                                    dropout_seed=seeds[i])
+                                    dropout_seed=seed)
             x = x + attn_out.transpose(0, 1)
-            x = x + self._mlp(self._ln(x, lp["ln2"]), lp["mlp"])
+            return x + self._mlp(self._ln(x, lp["ln2"]), lp["mlp"])
+
+        if self.remat:
+            layer_body = _remat.remat(layer_body, self.remat_policy)
+        for i in range(self.num_layers):
+            x = layer_body(x, params[f"layer_{i}"], seeds[i])
         x = self._ln(x, params["ln_f"])
         if return_hidden:
             return x

@@ -11,7 +11,8 @@ Pre-LN blocks over patch tokens::
 Ported: the config, ``init`` (the JAX names and shapes, drawn from a
 ``torch.Generator``), ``apply`` under autograd with attention dropout,
 ``analytic_flops`` and the constructors ``vit_tiny``, ``vit_small``,
-``vit_b16`` and ``vit_l16``. ``remat`` is not ported yet and raises.
+``vit_b16`` and ``vit_l16``; ``remat`` and ``remat_policy`` rematerialize
+each block (``models/_remat.py``).
 
 The input is a channels-last batch [B, H, W, 3]; the patch embedding is
 a reshape and one product (vit.py:119-133), not a convolution. Every
@@ -32,6 +33,7 @@ import torch
 
 from apex_tpu_torch._device import resolve_device
 from apex_tpu_torch.contrib.multihead_attn.modules import SelfMultiheadAttn
+from apex_tpu_torch.models import _remat
 from apex_tpu_torch.models.transformer import _gelu, _layer_seeds, _tree_to
 from apex_tpu_torch.normalization import fused_layer_norm_affine
 
@@ -52,6 +54,7 @@ class ViT:
     attn_impl: str = "auto"     # 'auto' crossover, 'fast', 'default'
     pool: str = "cls"           # 'cls' token or 'mean' over patch tokens
     remat: bool = False
+    remat_policy: Optional[str] = None
     # where init() puts the parameters; None means the card
     device: Union[str, torch.device, None] = None
 
@@ -63,9 +66,7 @@ class ViT:
         if self.pool not in ("cls", "mean"):
             raise ValueError(f"pool must be 'cls' or 'mean', "
                              f"got {self.pool!r}")
-        if self.remat:
-            raise NotImplementedError(
-                "ViT remat is not ported yet (ROADMAP.md Queue 1, slice 4)")
+        _remat.validate_remat_config(self.remat, self.remat_policy)
         self._mha()                          # validates widths and impl
         object.__setattr__(self, "device", resolve_device(self.device))
 
@@ -147,17 +148,22 @@ class ViT:
             b, 1, self.embed_dim)
         tokens = torch.cat([cls, tokens], dim=1) + params["pos_emb"]
         mha = self._mha()
-        for i in range(self.num_layers):
-            lp = params[f"layer_{i}"]
-            h = self._ln(tokens, lp["ln1"])
+
+        def layer_body(t, lp, seed):
+            h = self._ln(t, lp["ln1"])
             # MHA modules are time-major [T, B, E]
             attn_out, _ = mha.apply(lp["attn"], h.transpose(0, 1),
                                     is_training=is_training,
-                                    dropout_seed=seeds[i])
-            tokens = tokens + attn_out.transpose(0, 1)
-            h = self._ln(tokens, lp["ln2"])
+                                    dropout_seed=seed)
+            t = t + attn_out.transpose(0, 1)
+            h = self._ln(t, lp["ln2"])
             h = _gelu(h @ lp["mlp"]["w1"] + lp["mlp"]["b1"])
-            tokens = tokens + (h @ lp["mlp"]["w2"] + lp["mlp"]["b2"])
+            return t + (h @ lp["mlp"]["w2"] + lp["mlp"]["b2"])
+
+        if self.remat:
+            layer_body = _remat.remat(layer_body, self.remat_policy)
+        for i in range(self.num_layers):
+            tokens = layer_body(tokens, params[f"layer_{i}"], seeds[i])
         tokens = self._ln(tokens, params["ln_f"])
         pooled = tokens[:, 0] if self.pool == "cls" \
             else torch.mean(tokens[:, 1:], dim=1)

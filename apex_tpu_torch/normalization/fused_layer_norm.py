@@ -14,6 +14,7 @@ import torch
 from torch import nn
 
 from apex_tpu_torch._device import resolve_device
+from apex_tpu_torch.amp.autocast import custom_grad
 from apex_tpu_torch.ops.layer_norm import ln_bwd, ln_fwd
 
 __all__ = ["FusedLayerNorm", "fused_layer_norm", "fused_layer_norm_affine"]
@@ -76,6 +77,7 @@ class _LayerNorm(torch.autograd.Function):
                 gb.reshape(b_shape).to(b_dtype), None, None)
 
 
+@custom_grad
 def fused_layer_norm_affine(x, normalized_shape, weight, bias,
                             eps: float = 1e-6):
     """Functional affine layernorm, the reference signature (input,
@@ -84,6 +86,7 @@ def fused_layer_norm_affine(x, normalized_shape, weight, bias,
     return _LayerNorm.apply(x, weight, bias, ns, float(eps))
 
 
+@custom_grad
 def fused_layer_norm(x, normalized_shape, eps: float = 1e-6):
     """Functional non-affine layernorm (same 1e-6 default)."""
     ns = _canon_shape(normalized_shape)

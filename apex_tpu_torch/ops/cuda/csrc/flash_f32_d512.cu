@@ -48,6 +48,17 @@
 //    (dropped and rescaled), each over all of D; they trade them, both
 //    form dS = P (dP' - delta), and each adds dS K into its half of dq's
 //    columns: the D-256 pair kernel's scheme (f32_dq_pair_kernel).
+//    Where one key takes most of a row's softmax (p > kDomP: the first
+//    causal row, a row all but one key of which is masked, a peaked row)
+//    dS = p (dP - delta) cancels, and the plain version's dS there is
+//    mostly its own fp32 product's rounding (its dq up to 1.21x of the
+//    rule from an fp64 one at BH 128: flash_f32_dq_check.py rule), and
+//    3xTF32's dP, closer to the exact one, missed the rule there (1.04x
+//    at D 320, BH 128, causal: test_f32_dq_holds_the_fp32_rule_at_bh_128
+//    in tests/test_torch_cuda.py). So dq
+//    takes dP of those (query, key) again as that product forms it, one
+//    fp32 fma at a time over the real columns in ascending order
+//    (dp_chain, as csrc/flash_dbias.cu's chunk_dp), in both warps alike.
 // 4. Rows kept raw in shared memory and split as each warp loads them
 //    (split_raw), which halves them: the block's rows and the double-
 //    buffered key and value tiles fit at the shapes below.
@@ -382,6 +393,27 @@ f32x_fwd_kernel(Attn a, int dw, float* __restrict__ o,
   }
 }
 
+// the share of a row's softmax above which dq takes a (query, key)'s dP
+// again by dp_chain (item 3)
+constexpr float kDomP = 0.25f;
+
+// dO·V of one (query, key) over the real columns [0, dw) of raw rows, one
+// fp32 fma at a time in ascending column order from the sum's first term:
+// the rounding of the plain version's fp32 product
+__device__ __forceinline__ float dp_chain(const float* orow, const float* vrow,
+                                          int dw) {
+  float c = 0.f;
+  for (int d = 0; d < dw; d += 4) {
+    const float4 x = *reinterpret_cast<const float4*>(orow + d);
+    const float4 y = *reinterpret_cast<const float4*>(vrow + d);
+    c = fmaf(x.x, y.x, c);
+    c = fmaf(x.y, y.y, c);
+    c = fmaf(x.z, y.z, c);
+    c = fmaf(x.w, y.w, c);
+  }
+  return c;
+}
+
 // dq [BH, Sq, dw] fp32 contiguous; ds null or fp32 [BH, Sq, Sk]
 // contiguous: dS of every (query, key), unscaled, zeros where a tile is
 // skipped. Warp 0 of a pair makes S = Q K^T and P (undropped: dS's
@@ -518,7 +550,14 @@ f32x_dq_kernel(Attn a, int dw, const float* __restrict__ dout,
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const float p = role ? y[n][i] : x[n][i];
-          const float dp = role ? x[n][i] : y[n][i];
+          float dp = role ? x[n][i] : y[n][i];
+          if (p > kDomP) {                 // dS cancels: the plain rounding
+            const int qr = g + 8 * (i >> 1), kr = 8 * n + 2 * t + (i & 1);
+            static_assert(TR, "dp_chain reads raw rows");
+            dp = dp_chain(os + (16 * pr + qr) * LD, vb + kr * LD, dw);
+            if (EXTRA && a.drop_inv > 0.f)
+              dp = keep(a, bh, r0 + qr, k0 + kr) ? dp * a.drop_inv : 0.f;
+          }
           x[n][i] = p * (dp - dlt[i >> 1]);             // dS
         }
       }

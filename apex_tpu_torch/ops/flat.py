@@ -22,6 +22,8 @@ from typing import Any, Optional
 
 import torch
 
+from apex_tpu_torch.amp.autocast import custom_grad
+
 __all__ = ["DEFAULT_ALIGN", "LANES", "SegmentTable", "make_table", "flatten",
            "unflatten", "zeros_like_flat", "tree_flatten", "tree_unflatten",
            "tree_paths", "tree_leaves", "tree_map"]
@@ -250,6 +252,7 @@ class _Unflatten(torch.autograd.Function):
         return buf.to(ctx.in_dtype), None, None
 
 
+@custom_grad
 def unflatten(flat: torch.Tensor, table: SegmentTable,
               dtype: Optional[torch.dtype] = None) -> Any:
     """The tree back from a flat buffer; with ``dtype``, one cast of the

@@ -27,6 +27,7 @@ from typing import Optional
 import torch
 
 from apex_tpu_torch._device import resolve_device
+from apex_tpu_torch.amp.autocast import custom_grad
 from apex_tpu_torch.ops import welford as WF
 
 __all__ = ["SyncBatchNorm", "bn_train"]
@@ -111,6 +112,7 @@ class _BNTrain(torch.autograd.Function):
         return back(dx2), dz, grad_weight, grad_bias, None, None, None
 
 
+@custom_grad
 def bn_train(x, z, weight, bias, eps: float, fuse_relu: bool,
              channel_axis: int):
     """Training-mode BN: ``(out, mean, var, count)`` with ``count`` the

@@ -10,6 +10,8 @@ the step, ``examples/imagenet/main_amp.py``'s training step
 ``models.ViT`` (``--arch vit_b16 --dropout 0.1``), the same step on the
 model without BN state, its attention dropout seeded per step and layer
 (:178-186, :490-497).
+``DCGANTrainer`` is ``examples/dcgan/main_amp.py``'s step (:151-207): two
+models, two FusedAdams and three loss scalers, O1 by default.
 ``LMTrainer`` is the FusedAdam step of ``tools/lm_bench.py`` (:255-272,
 one device) for the decoder LM and, with the batch and loss keywords
 passed through, of ``examples/seq2seq/train_translation.py`` for the
@@ -42,8 +44,10 @@ import torch
 
 from apex_tpu_torch._device import resolve_device
 from apex_tpu_torch.amp import frontend as _amp
+from apex_tpu_torch.amp.autocast import autocast
 from apex_tpu_torch.contrib.xentropy import select_label_logits
 from apex_tpu_torch.data import normalize_imagenet
+from apex_tpu_torch.models.dcgan import bce_logits
 from apex_tpu_torch.models.vit import ViT
 from apex_tpu_torch.ops import flat as _flat
 from apex_tpu_torch.optimizers.fused_adam import FusedAdam
@@ -52,7 +56,7 @@ from apex_tpu_torch.optimizers.fused_novograd import FusedNovoGrad
 from apex_tpu_torch.optimizers.fused_sgd import FusedSGD
 from apex_tpu_torch.optimizers.larc import LARC
 
-__all__ = ["master_grad", "Trainer", "LMTrainer"]
+__all__ = ["master_grad", "Trainer", "LMTrainer", "DCGANTrainer"]
 
 
 def master_grad(master, table, dtype, objective):
@@ -82,8 +86,12 @@ class Trainer:
 
     ``params`` and ``bn_state`` are the model's trees (``model.init()`` or
     ``convert.resnet_from_jax``); ``opt_level`` and ``amp_overrides`` go
-    to ``amp.initialize`` (O0, O2 or O3; O2 on bf16 means a static loss
-    scale of 1.0). ``optimizer`` is ``"lamb"`` (bench.py's step, the
+    to ``amp.initialize`` (O2 on bf16 means a static loss scale of 1.0).
+    At O1 the step is main_amp's at ``--opt-level O1`` (:182-187,
+    :206, :242-252): the policy casts no model, so the params and the
+    normalized batch stay fp32, and main_amp applies its model without
+    ``amp.autocast``, so this step does too; the loss scale is the O1
+    preset's (dynamic for fp16, 1.0 for bf16). ``optimizer`` is ``"lamb"`` (bench.py's step, the
     default), ``"sgd"`` or ``"novograd"``, with the defaults of
     ``OPTIMIZERS``; ``lr``, ``weight_decay``, ``momentum`` (SGD) and
     ``norm_type`` (NovoGrad), main_amp's flags and NovoGrad's norm, go
@@ -109,12 +117,8 @@ class Trainer:
         self.model = model
         _, self.handle = _amp.initialize(opt_level=opt_level, verbosity=0,
                                          **amp_overrides)
-        policy = self.handle.policy
-        if policy.autocast:
-            raise NotImplementedError(
-                "O1 per-op autocast is not ported yet (ROADMAP.md Queue 1, "
-                "slice 3); use O0, O2 or O3")
-        self.half = policy.cast_model_dtype
+        # main_amp's ``cast_model_dtype or float32`` (:206)
+        self.half = self.handle.policy.cast_model_dtype or torch.float32
         self.amp_state = self.handle.init_state(self.device)
         if optimizer not in OPTIMIZERS:
             raise ValueError(f"optimizer must be one of {sorted(OPTIMIZERS)}"
@@ -312,3 +316,136 @@ class LMTrainer:
             grad, found_inf, loss = self.accumulate_grads(*batch, **loss_kw)
             self.apply_grads(grad, found_inf)
         return loss
+
+
+class DCGANTrainer:
+    """``examples/dcgan/main_amp.py``'s step (:151-207) on ``model`` (a
+    ``models.DCGAN``) from G's and D's parameter trees.
+
+    ``amp.initialize(opt_level, num_losses=3)`` gives one handle with three
+    scalers (``amp_overrides``, e.g. ``loss_scale="dynamic"``, go to it);
+    two ``FusedAdam(lr, betas)`` hold G's and D's flat fp32 masters. Under
+    O1 G and D run in ``amp.autocast`` (the policy's compute dtype, bf16 by
+    default, as the example's ``amp.autocast(generator)``); at the other
+    levels they run as given, on fp32 params, as the example does. A
+    step, :meth:`step`:
+
+    1. D's loss on the real batch (scaler 0) and on G's fakes (scaler 1,
+       G's output held constant), each differentiated by itself with
+       respect to D's flat master and unscaled by its own scaler (the
+       ``scale`` kernel); D's update skipped on either overflow;
+    2. G's loss through the same D (scaler 2), differentiated with respect
+       to G's flat master, unscaled, G's update skipped on its overflow;
+    3. each scaler updated on its own flag only, with the per-loss
+       overflow census when ``numerics`` is set (:140-145, :190-203);
+    4. the logged losses of :204-206, D's and G's, from the same forward
+       passes (the values :204-206 recompute).
+
+    Everything lives on ``device``, the card unless ``device="cpu"``;
+    nothing is read back to the host.
+    """
+
+    def __init__(self, model, g_params, d_params, *, opt_level: str = "O1",
+                 lr: float = 2e-4, betas=(0.5, 0.999),
+                 numerics: bool = False, device=None, **amp_overrides):
+        from apex_tpu_torch.prof import numerics as _nu
+        self.device = resolve_device(device)
+        self.model = model
+        _, self.handle = _amp.initialize(opt_level=opt_level, num_losses=3,
+                                         verbosity=0, **amp_overrides)
+        self.amp_state = self.handle.init_state(self.device)
+        self.g_opt = FusedAdam(g_params, lr=lr, betas=betas,
+                               device=self.device)
+        self.d_opt = FusedAdam(d_params, lr=lr, betas=betas,
+                               device=self.device)
+        self.g_table, self.d_table = self.g_opt._tables[0], \
+            self.d_opt._tables[0]
+        policy = self.handle.policy
+        if policy.autocast:
+            self.g_fwd = autocast(model.generator, policy.compute_dtype)
+            self.d_fwd = autocast(model.discriminator, policy.compute_dtype)
+        else:
+            self.g_fwd, self.d_fwd = model.generator, model.discriminator
+        self.censuses = None
+        if numerics:
+            self.d_meta = _nu.tree_meta(self.d_table)
+            self.g_meta = _nu.tree_meta(self.g_table)
+            self.censuses = tuple(
+                _nu.empty_census(meta.n, device=self.device)
+                for meta in (self.d_meta, self.d_meta, self.g_meta))
+
+    def master_trees(self):
+        """``(G's flat master, D's, G's tree, D's tree)``: fresh leaves of
+        the masters that need a gradient, and the trees over them."""
+        g_m = self.g_opt.state[0].master.detach().requires_grad_(True)
+        d_m = self.d_opt.state[0].master.detach().requires_grad_(True)
+        return (g_m, d_m, _flat.unflatten(g_m, self.g_table),
+                _flat.unflatten(d_m, self.d_table))
+
+    def loss_and_grads(self, real, z):
+        """The three scaled losses' flat fp32 gradients, still scaled:
+        ``((D real, D fake, G), (D's loss, G's loss))``. ``real``: images
+        [B, 32, 32, 3] NHWC; ``z``: latents [B, nz]."""
+        h, st = self.handle, self.amp_state
+        g_m, d_m, gp, dp = self.master_trees()
+        fake = self.g_fwd(gp, z)
+        real_logits = self.d_fwd(dp, real)
+        (fg_r,) = torch.autograd.grad(
+            h.scale_loss(bce_logits(real_logits, 1.0), st, 0), d_m)
+        # one D pass over the fakes serves D's fake loss (its gradient
+        # with respect to D only: G's output held constant) and G's loss
+        # (with respect to G only: D held constant)
+        fake_logits = self.d_fwd(dp, fake)
+        (fg_f,) = torch.autograd.grad(
+            h.scale_loss(bce_logits(fake_logits, 0.0), st, 1), d_m,
+            retain_graph=True)
+        (fgg,) = torch.autograd.grad(
+            h.scale_loss(bce_logits(fake_logits, 1.0), st, 2), g_m)
+        with torch.no_grad():
+            d_loss = bce_logits(real_logits, 1.0) + \
+                bce_logits(fake_logits, 0.0)
+            g_loss = bce_logits(fake_logits, 1.0)
+        return (fg_r, fg_f, fgg), (d_loss, g_loss)
+
+    def apply_grads(self, fg_r, fg_f, fgg):
+        """Unscale each gradient by its own scaler, update D (skipped on
+        either of its flags) and G (on its own), then each scaler on its
+        own flag. Returns the three flags (device bools)."""
+        h, st = self.handle, self.amp_state
+        fg_r, inf0 = h.unscale(fg_r, st, loss_id=0)
+        fg_f, inf1 = h.unscale(fg_f, st, loss_id=1)
+        self.d_opt.state = self.d_opt.apply_update(
+            self.d_opt.state, [fg_r + fg_f], found_inf=inf0 | inf1)
+        fgg, inf2 = h.unscale(fgg, st, loss_id=2)
+        self.g_opt.state = self.g_opt.apply_update(
+            self.g_opt.state, [fgg], found_inf=inf2)
+        flags = (inf0, inf1, inf2)
+        if self.censuses is None:
+            for i, fi in enumerate(flags):
+                st = h.update(st, fi, loss_id=i)
+        else:
+            tables = (self.d_table, self.d_table, self.g_table)
+            carried = []
+            for i, (fi, g) in enumerate(zip(flags, (fg_r, fg_f, fgg))):
+                st, c = h.update_with_census(st, fi, g, self.censuses[i],
+                                             loss_id=i, table=tables[i])
+                carried.append(c)
+            self.censuses = tuple(carried)
+        self.amp_state = st
+        return flags
+
+    def step(self, real, z):
+        """One training step; returns D's and G's logged losses as device
+        tensors."""
+        grads, losses = self.loss_and_grads(real, z)
+        self.apply_grads(*grads)
+        return losses
+
+    def g_underflow_census(self, z):
+        """``--numerics``' end-of-run sample (main_amp.py:276-284): the
+        underflow census of G's unscaled gradient, through D, on ``z``."""
+        from apex_tpu_torch.prof import numerics as _nu
+        g_m, _, gp, dp = self.master_trees()
+        (fgg,) = torch.autograd.grad(
+            bce_logits(self.d_fwd(dp, self.g_fwd(gp, z)), 1.0), g_m)
+        return _nu.underflow_census(fgg, table=self.g_table)

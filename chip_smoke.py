@@ -17,7 +17,9 @@ LayerNorm (lm_bench's LM at GPT-3 175B's width) and ``bn_backward_reduce``,
 phases 26-30 lm_bench's LM served (head dim 64) and trained in fp16 and
 fp32, and the LayerNorm and BN at widths not a multiple of 4, phases 31-33
 lm_bench's LM at 8 heads of 256 (the flash forward, dq and dk/dv at D
-256), in bf16 and in fp32:
+256), in bf16 and in fp32, phase 34 the DCGAN example's three-loss step
+under O1 (``amp.autocast``) and phase 35 lm_bench's LM with ``--remat``,
+remat under O1 and in the ViT and the Seq2Seq Transformer:
 
 0. device — needs CUDA; prints the card's ``nvidia-smi`` name and power
    limit (also as a raw line of its own) and the torch / CUDA versions.
@@ -392,7 +394,40 @@ lm_bench's LM at 8 heads of 256 (the flash forward, dq and dk/dv at D
     and ``flash_f32_dkv``, none of the simple form's or the 16-bit
     kernels'; losses finite, the mean of the last 3 below the first; MFU
     against 67 TFLOP/s.
-34. the ``{"kernels": [...], "off_path": [...]}`` line (40 kernels; dq's
+34. dcgan_o1 — ``examples/dcgan/main_amp.py`` at its defaults on one card
+    (``DCGANTrainer`` over ``models.DCGAN``: nz 64, ngf 32, ndf 32, batch
+    32 of 32×32×3 NHWC images; random inits from seeds 1 and 2; O1 bf16,
+    three loss scalers, two ``FusedAdam(2e-4, (0.5, 0.999))``; the
+    example's data stream, ``RandomState(0)`` normal reals and latents,
+    made before the first step): 3 warm-up and 50 timed steps (steps and
+    images a second, step ms p50/p95), five profiled (device time by
+    family, the idle share); 3 ``scale`` and 2 ``adam`` launches a step;
+    losses finite; with cuDNN deterministic, 3 steps from the same masters
+    with the kernels (O1 twice, bit for bit; O0) and the plain versions
+    (O1, O0; no kernel launched): step 1's unscaled D and G grads, O1
+    against O0, within 1.5 times the plain versions' gap (bf16's own
+    effect) in mean and max, the masters within 1.5 times bf16's own effect
+    of the plain run's (phase 8's bar); an inf in loss 1's grad at step 2
+    of a dynamic-scale run leaves D's masters and slots bit for bit,
+    halves scaler 1 alone (65536 -> 32768), lets G update and is named by
+    scaler 1's census; the final G grads' underflow census equals a
+    recount on the host.
+35. lm_train_remat — ``tools/lm_bench.py --remat`` at phase 9's width and
+    batch with ``--remat-policy nothing_saveable`` and ``dots_saveable``:
+    step 1's flat grad equal bit for bit to phase 9's one-batch grad from
+    the same masters; 3 warm-up and 10 timed steps read as phase 9's
+    (tok/s, step ms, MFU by phase 9's FLOP model, peak memory below phase
+    9's), one profiled; each forward kernel inside the blocks twice a
+    layer (``flash_fwd`` 16, ``ln_fwd`` 33 a step), the backward kernels
+    and Adam as phase 9's; losses finite and falling. Then lm_remat_o1:
+    phase 10's small LM with ``remat=True`` under ``amp.initialize(
+    lm.loss, opt_level="O1")``: the fp32 flash forms launched and the bf16
+    ones not, every LayerNorm given fp32 rows, fp32 grads within 1.5 times
+    bf16's own effect of the O0 grads (kernels against the plain
+    versions' gap); and remat_models: phase 21's small ViT and phase 16's
+    small Seq2Seq, one O2 grad with and without remat (both policies),
+    equal bit for bit.
+36. the ``{"kernels": [...], "off_path": [...]}`` line (40 kernels; dq's
     and dk/dv's entries also carry their ``wide`` reading and the whole
     backward's, ``backward``, at both shapes, the D-256 ones the whole
     backward at [64, 4096, 256]; the fp32 ones their readings at D 256;
@@ -5441,6 +5476,420 @@ def lm_hd256_crosscheck_phase(torch, dispatch) -> dict:
     return row
 
 
+# -- phase 34: the DCGAN example's three-loss step under O1 -------------------
+
+# examples/dcgan/main_amp.py at its defaults: nz 64, ngf 32, ndf 32, batch
+# 32 of 32×32×3 NHWC images, --steps 50, --opt-level O1 (bf16), FusedAdam
+# (2e-4, (0.5, 0.999)) for G and D, three loss scalers
+DCGAN_BATCH, DCGAN_WARM, DCGAN_STEPS = 32, 3, 50
+# launches a step: one unscale per loss, one Adam update per model
+DCGAN_PER_STEP = {"scale": 3, "adam": 2}
+DCGAN_FAMILIES = (
+    ("training kernels", ("scale_kernel",)),
+    ("Adam", ("adam_kernel",)),
+    ("convolution", ("conv", "xmma", "cutlass", "dgrad", "wgrad", "cudnn",
+                     "implicit", "sm90")),
+    ("GEMMs", ("gemm", "nvjet", "cublas")),
+    ("reduction", ("reduce",)),
+    ("elementwise", ("elementwise", "vectorized", "unrolled", "where",
+                     "copy", "fill", "clamp", "cat", "index", "upsample",
+                     "nearest")),
+)
+
+
+def dcgan_data(torch, n: int, nz: int) -> list:
+    """The example's data stream (main_amp.py:229-235): ``n`` batches of
+    RandomState(0) normal reals (× 0.5) and latents, made in bulk and
+    moved to the card before any step."""
+    import numpy as np
+    rs = np.random.RandomState(0)
+    host = []
+    for _ in range(n):
+        real = (rs.randn(DCGAN_BATCH, 32, 32, 3) * 0.5).astype(np.float32)
+        z = rs.randn(DCGAN_BATCH, nz).astype(np.float32)
+        host.append((real, z))
+    return [(torch.from_numpy(r).cuda(), torch.from_numpy(z).cuda())
+            for r, z in host]
+
+
+def _grad_gap(a, b) -> dict:
+    d = (a - b).abs()
+    return {"mean": float(d.mean()), "max": float(d.max())}
+
+
+def dcgan_phase(torch, dispatch) -> tuple:
+    """``DCGANTrainer`` at the example's defaults under O1 bf16 from seeded
+    inits (``DCGAN().g_init(1)``, ``d_init(2)``): 3 warm-up and 50 timed
+    steps on the example's data stream (steps and images a second, step
+    ms p50/p95), 3 and 2 launches a step of ``scale`` and Adam, then a
+    profile (device time by family, the idle share); losses finite. Then,
+    with cuDNN deterministic, 3 steps from the same masters and data with
+    the kernels at O1 (twice: equal bit for bit) and O0, and with the
+    plain versions at O1 and O0 (no kernel launched): step 1's unscaled D
+    and G grads, O1 against O0, no farther apart with the kernels than
+    1.5 times the plain versions' (bf16's own effect), in mean and max,
+    and the kernel run's masters within 1.5 times bf16's own effect of the
+    plain run's (phase 8's O2 bar); an inf in loss 1's grad at step 2 of a
+    dynamic-scale run (the example's bf16 default is a static scale of 1,
+    which never halves) leaves D's masters and slots bit for bit, halves
+    scaler 1 alone, lets G update and is named by scaler 1's census; the
+    final G grads' underflow census equals a recount on the host."""
+    import numpy as np
+
+    from apex_tpu_torch.models import DCGAN, bce_logits
+    from apex_tpu_torch.prof import numerics as NU
+    from apex_tpu_torch.train import DCGANTrainer
+
+    model = DCGAN()
+    gp, dp = model.g_init(1), model.d_init(2)
+    data = dcgan_data(torch, DCGAN_WARM + DCGAN_STEPS, model.nz)
+    tr = DCGANTrainer(model, gp, dp, opt_level="O1", numerics=True)
+    it = iter(data)
+    g_losses = []
+
+    def step():
+        d_l, g_l = tr.step(*next(it))
+        g_losses.append(g_l)
+        return d_l
+
+    r = timed_steps(torch, step, DCGAN_WARM, DCGAN_STEPS)
+    counts = r["counts"]
+    prof = profile_steps(torch, lambda: tr.step(*data[-1]), DCGAN_FAMILIES,
+                         n=5)
+    step_s = statistics.median(r["step_ms"]) / 1e3
+    row = {"phase": "dcgan_o1", "model": "DCGAN", "nz": model.nz,
+           "ngf": model.ngf, "ndf": model.ndf, "batch": DCGAN_BATCH,
+           "image": [32, 32, 3], "opt_level": "O1", "compute": "bfloat16",
+           "optimizer": "2 x FusedAdam(2e-4, (0.5, 0.999))",
+           "loss_scales": [s["loss_scale"] for s in (
+               tr.handle.scalers[i].state_dict(tr.amp_state[i])
+               for i in range(3))],
+           **window_row(r, DCGAN_STEPS),
+           "steps_per_s": DCGAN_STEPS / r["wall"],
+           "images_per_s": DCGAN_BATCH * DCGAN_STEPS / r["wall"],
+           "images_per_s_p50": DCGAN_BATCH / step_s,
+           "g_loss_first": float(g_losses[0]),
+           "g_loss_last": float(g_losses[-1]),
+           "launches": {k: counts[k] for k in DCGAN_PER_STEP},
+           "launches_per_step": {k: counts[k] / DCGAN_STEPS
+                                 for k in DCGAN_PER_STEP},
+           "profile": prof}
+    loss = r["loss"] + [float(v) for v in g_losses]
+    check(all(math.isfinite(v) for v in loss),
+          f"dcgan_o1: non-finite loss {loss}")
+    check_counts("dcgan_o1", counts,
+                 {k: n * DCGAN_STEPS for k, n in DCGAN_PER_STEP.items()})
+
+    # kernels against the plain versions, O1 against O0, 3 steps each
+    torch.backends.cudnn.deterministic = True
+
+    def run(level):
+        t = DCGANTrainer(model, gp, dp, opt_level=level)
+        grad1, losses = None, []
+        for real, z in data[:3]:
+            (fr, ff, fg), (d_l, g_l) = t.loss_and_grads(real, z)
+            if grad1 is None:        # unscaled by the scale kernel (or not)
+                grad1 = [t.handle.unscale(g, t.amp_state, i)[0]
+                         for i, g in enumerate((fr, ff, fg))]
+            t.apply_grads(fr, ff, fg)
+            losses += [float(d_l), float(g_l)]
+        return (t.d_opt.state[0], t.g_opt.state[0]), grad1, losses
+
+    zero_counts()
+    k1, kg1, kl1 = run("O1")
+    k1b, _, kl1b = run("O1")
+    k0, kg0, _ = run("O0")
+    torch.cuda.synchronize()
+    kernel_launches = {k: n for k, n in read_counts().items() if n}
+    with dispatch.backend("reference"):
+        zero_counts()
+        p1, pg1, pl1 = run("O1")
+        p0, pg0, _ = run("O0")
+        torch.cuda.synchronize()
+        plain_launches = read_counts()
+    torch.backends.cudnn.deterministic = False
+    grads = {name: {"kernels_O1_vs_O0": _grad_gap(a1, a0),
+                    "bf16_own": _grad_gap(b1, b0)}
+             for name, a1, a0, b1, b0 in zip(
+                 ("d_real", "d_fake", "g"), kg1, kg0, pg1, pg0)}
+    masters = {name: {"kernels_vs_plain": _grad_gap(a.master, b.master),
+                      "bf16_own": _grad_gap(b.master, f.master)}
+               for name, a, b, f in zip(("d", "g"), k1, p1, p0)}
+    repeat = kl1 == kl1b and all(
+        torch.equal(a.master, b.master) and all(
+            torch.equal(a.slots[s], b.slots[s]) for s in a.slots)
+        for a, b in zip(k1, k1b))
+
+    # an inf in loss 1's gradient at step 2 of a dynamic-scale run
+    t = DCGANTrainer(model, gp, dp, opt_level="O1", numerics=True,
+                     loss_scale="dynamic")
+    t.step(*data[0])
+    d0, g0 = t.d_opt.state[0], t.g_opt.state[0]
+    (fr, ff, fg), _ = t.loss_and_grads(*data[1])
+    at = t.d_table.offsets[2] + 5
+    ff[at] = float("inf")
+    flags = [bool(f) for f in t.apply_grads(fr, ff, fg)]
+    d1, g1 = t.d_opt.state[0], t.g_opt.state[0]
+    scales = [t.handle.scalers[i].state_dict(t.amp_state[i])["loss_scale"]
+              for i in range(3)]
+    culprits = NU.culprit_table(t.d_meta, t.censuses[1])
+    inject = {"flags": flags, "scales": scales,
+              "d_master": bool(torch.equal(d1.master, d0.master)),
+              "d_slots": all(bool(torch.equal(d1.slots[s], d0.slots[s]))
+                             for s in d0.slots),
+              "d_step": int(d1.step) == int(d0.step),
+              "g_moved": not bool(torch.equal(g1.master, g0.master))
+              and int(g1.step) == int(g0.step) + 1,
+              "culprits": culprits, "injected_leaf": t.d_meta.paths[2]}
+
+    # the final G grads' underflow census against a recount on the host
+    z = data[-1][1]
+    census = tr.g_underflow_census(z)
+    g_m, _, gpt, dpt = tr.master_trees()
+    (fgg,) = torch.autograd.grad(
+        bce_logits(tr.d_fwd(dpt, tr.g_fwd(gpt, z)), 1.0), g_m)
+    host = fgg.cpu().numpy()
+    edges = np.asarray(NU.HIST_EDGES_LOG2, np.float32)
+    recount = {"tiny_count": [], "ftz_count": [], "zero_count": []}
+    hist = np.zeros(len(edges) + 1, np.int64)
+    for off, size in zip(tr.g_table.offsets, tr.g_table.sizes):
+        mag = np.abs(host[off:off + size])
+        nz = mag > 0
+        recount["tiny_count"].append(int((nz & (mag < NU.FP16_TINY)).sum()))
+        recount["ftz_count"].append(int((nz & (mag < NU.FP16_FTZ)).sum()))
+        recount["zero_count"].append(int((~nz).sum()))
+        hist += np.bincount(np.searchsorted(
+            edges, np.log2(mag[nz]), side="right"), minlength=len(hist))
+    recount["hist"] = hist.tolist()
+    got = {k: getattr(census, k).cpu().tolist() for k in recount}
+    summary = NU.underflow_summary(NU.tree_meta(tr.g_table), census)
+
+    row.update({"grad1": grads, "masters_3_steps": masters,
+                "repeat_equal": repeat, "losses_kernels": kl1,
+                "losses_plain": pl1, "kernel_launches": kernel_launches,
+                "plain_launches": {k: n for k, n in plain_launches.items()
+                                   if n},
+                "inject_loss1": inject, "g_underflow": summary,
+                "g_underflow_recount_equal": got == recount})
+    emit(row)
+    for name, g in grads.items():
+        check(g["kernels_O1_vs_O0"]["mean"] <= 1.5 * g["bf16_own"]["mean"]
+              and g["kernels_O1_vs_O0"]["max"] <= 1.5 * g["bf16_own"]["max"],
+              f"dcgan_o1: step 1's {name} grads, O1 against O0, {g}")
+    for name, m in masters.items():
+        check(m["kernels_vs_plain"]["mean"] <= 1.5 * m["bf16_own"]["mean"]
+              and m["kernels_vs_plain"]["max"] <= 1.5 * m["bf16_own"]["max"],
+              f"dcgan_o1: {name}'s masters against the plain run's {m}")
+    check(not any(plain_launches.values()),
+          f"dcgan_o1: kernels launched in the plain runs {plain_launches}")
+    # three kernel runs: step 1's three grads unscaled for the comparison,
+    # then 3 steps of 3 unscales and 2 updates
+    check(kernel_launches.get("scale") == 3 * (3 + 3 * 3)
+          and kernel_launches.get("adam") == 3 * 3 * 2,
+          f"dcgan_o1: the kernel runs launched {kernel_launches}")
+    check(repeat, f"dcgan_o1: two kernel runs differ {kl1} vs {kl1b}")
+    check(flags == [False, True, False] and scales == [65536.0, 32768.0,
+                                                       65536.0]
+          and inject["d_master"] and inject["d_slots"] and inject["d_step"]
+          and inject["g_moved"] and len(culprits) == 1
+          and culprits[0]["path"] == t.d_meta.paths[2]
+          and culprits[0]["inf"] == 1,
+          f"dcgan_o1: the inf in loss 1 was not handled {inject}")
+    check(got == recount, f"dcgan_o1: underflow census {got} against the "
+                          f"recount {recount}")
+    return counts, row
+
+
+# -- phase 35: lm_bench's LM with --remat, and remat under O1 -----------------
+
+REMAT_RUNS = ("nothing_saveable", "dots_saveable")
+# launches a step with every block rematerialized: each forward kernel
+# inside the blocks twice a layer (the final LayerNorm, outside them, once);
+# the backward kernels and Adam as phase 9's
+REMAT_PER_STEP = {"flash_fwd": 16, "flash_bwd_dq": 8, "flash_bwd_dkv": 8,
+                  "ln_fwd": 33, "ln_bwd": 17, "adam": 1}
+# phase 10's small LM (2 layers, embed 128, 2 heads of 64, vocab 512, S 257,
+# batch 2) under O1: the fp32 flash forms, none of the bf16 ones
+O1_LM_FORMS = ("flash_f32_fwd", "flash_f32_dq", "flash_f32_dkv")
+O1_LM_ABSENT = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                "flash_simt_fwd", "flash_simt_dq", "flash_simt_dkv")
+
+
+def lm_remat_phase(torch, dispatch, params, peak9: int) -> tuple:
+    """``tools/lm_bench.py --remat`` at phase 9's full width and batch,
+    with ``--remat-policy nothing_saveable`` and ``dots_saveable``: step
+    1's flat grad equal bit for bit to phase 9's one-batch grad from the
+    same masters (the recompute runs the same kernels on the same inputs),
+    3 warm-up and 10 timed steps read as phase 9's (tok/s, step ms, MFU by
+    phase 9's FLOP model, which counts no recompute; peak memory below
+    phase 9's), ``REMAT_PER_STEP`` launches a step, losses finite and
+    falling. Then remat under O1 and in the other models:
+    ``lm_remat_o1`` and ``remat_models``."""
+    import dataclasses
+
+    from apex_tpu_torch.train import LMTrainer
+
+    c = LM_SHAPE
+    warm, timed = 3, 10
+    toks = lm_batch(torch)
+    base = lm_model()
+    g_one, _ = LMTrainer(base, params, lr=1e-4).loss_and_grad(toks)
+    tokens = c["batch"] * c["seq"]
+    all_counts, rows = {}, []
+    for policy in REMAT_RUNS:
+        model = dataclasses.replace(base, remat=True, remat_policy=policy)
+        tr = LMTrainer(model, params, lr=1e-4)
+        g_rem, _ = tr.loss_and_grad(toks)
+        equal = bool(torch.equal(g_rem, g_one))
+        gap = _grad_gap(g_rem, g_one)
+        del g_rem
+        r = timed_steps(torch, lambda: tr.step(toks), warm, timed)
+        counts = r["counts"]
+        flops = lm_step_flops(tr.table.total)
+        prof = profile_steps(torch, lambda: tr.step(toks),
+                             LM_KERNEL_FAMILIES, n=1)
+        row = {"phase": "lm_train_remat", "model": "TransformerLM", **c,
+               "remat": True, "remat_policy": policy, "dtype": "bfloat16",
+               "masters": "float32", "optimizer": "FusedAdam(lr=1e-4)",
+               **window_row(r, timed), "tokens_per_step": tokens,
+               "tok_per_s": tokens * timed / r["wall"],
+               "mfu": flops * timed / r["wall"] / BF16_DENSE_OPS_S,
+               "peak_mem_bytes_phase9": peak9,
+               "grad1_equal_phase9": equal, "grad1_gap": gap,
+               "launches": {k: counts[k] for k in REMAT_PER_STEP},
+               "launches_per_step": {k: counts[k] / timed
+                                     for k in REMAT_PER_STEP},
+               "profile": prof}
+        emit(row)
+        rows.append(row)
+        check_losses(f"lm_train_remat {policy}", r["loss"])
+        check_counts(f"lm_train_remat {policy}", counts,
+                     {k: n * timed for k, n in REMAT_PER_STEP.items()})
+        check(r["peak"] < peak9, f"lm_train_remat {policy}: peak memory "
+                                 f"{r['peak']} is not below phase 9's {peak9}")
+        check(equal, f"lm_train_remat {policy}: step 1's grad differs from "
+                     f"phase 9's one-batch grad {gap}")
+        for k, n in counts.items():
+            all_counts[k] = all_counts.get(k, 0) + n
+        del tr
+    del g_one
+    for k, n in lm_remat_o1_phase(torch, dispatch).items():
+        all_counts[k] = all_counts.get(k, 0) + n
+    remat_models_phase(torch)
+    return all_counts, rows
+
+
+def lm_remat_o1_phase(torch, dispatch) -> dict:
+    """Phase 10's small LM with ``remat=True`` under ``amp.initialize(
+    lm.loss, opt_level="O1")``, one loss and grad w.r.t. fp32 params from
+    seeded init: the fp32 flash forms launched and the bf16 ones not, every
+    LayerNorm given fp32 rows, fp32 grads; the kernels' O1 grads no farther
+    from their O0 grads than 1.5 times the plain versions' O1 grads are
+    from theirs (bf16's own effect), in mean and max. Returns the kernel
+    run's launches."""
+    import sys
+
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models import TransformerLM
+    from apex_tpu_torch.ops import flat
+
+    m = TransformerLM(vocab_size=512, max_seq_len=256, embed_dim=128,
+                      num_heads=2, num_layers=2, attn_impl="fast",
+                      head_chunk=512, remat=True)
+    params = m.init(torch.Generator().manual_seed(2))
+    toks = torch.randint(0, 512, (2, 257), generator=torch.Generator()
+                         .manual_seed(3)).cuda()
+    o1, _ = amp.initialize(m.loss, opt_level="O1", verbosity=0)
+    ln_mod = sys.modules["apex_tpu_torch.normalization.fused_layer_norm"]
+    ln_fwd, ln_dtypes = ln_mod.ln_fwd, set()
+
+    def spy(x, *a, **k):
+        ln_dtypes.add(str(x.dtype))
+        return ln_fwd(x, *a, **k)
+
+    def grads(fn):
+        p = flat.tree_map(lambda t: t.detach().requires_grad_(True), params)
+        loss = fn(p, toks)
+        return loss, torch.cat([g.reshape(-1) for g in torch.autograd.grad(
+            loss, flat.tree_leaves(p))])
+
+    zero_counts()
+    ln_mod.ln_fwd = spy
+    try:
+        loss1, k1 = grads(o1)
+    finally:
+        ln_mod.ln_fwd = ln_fwd
+    torch.cuda.synchronize()
+    launches = read_counts()
+    _, k0 = grads(m.loss)
+    with dispatch.backend("reference"):
+        _, p1 = grads(o1)
+        _, p0 = grads(m.loss)
+    gap, own = _grad_gap(k1, k0), _grad_gap(p1, p0)
+    row = {"phase": "lm_remat_o1", "layers": 2, "embed": 128, "heads": 2,
+           "seq": 256, "batch": 2, "remat": True, "opt_level": "O1",
+           "loss": float(loss1.detach()), "grad_dtype": str(k1.dtype),
+           "ln_input_dtypes": sorted(ln_dtypes),
+           "grad_kernels_O1_vs_O0": gap, "grad_bf16_own": own,
+           "launches": {k: n for k, n in launches.items() if n}}
+    emit(row)
+    check(all(launches[k] > 0 for k in O1_LM_FORMS)
+          and not any(launches[k] for k in O1_LM_ABSENT),
+          f"lm_remat_o1: launches {row['launches']}")
+    check(launches["ln_fwd"] > 0 and launches["ln_bwd"] > 0
+          and ln_dtypes == {"torch.float32"},
+          f"lm_remat_o1: LayerNorm launches {row['launches']}, inputs "
+          f"{ln_dtypes}")
+    check(k1.dtype == torch.float32 and math.isfinite(row["loss"]),
+          f"lm_remat_o1: grads {k1.dtype}, loss {row['loss']}")
+    check(gap["mean"] <= 1.5 * own["mean"] and gap["max"] <= 1.5 * own["max"],
+          f"lm_remat_o1: O1 grads against O0 {gap}, bf16's own {own}")
+    return {k: launches[k] for k in O1_LM_FORMS + ("ln_fwd", "ln_bwd")}
+
+
+def remat_models_phase(torch) -> None:
+    """A small ViT (phase 21's) and a small Seq2Seq Transformer (phase
+    16's), one O2 loss and grad from the same masters without remat and
+    with ``nothing_saveable`` and ``dots_saveable``: the flat grads equal
+    bit for bit."""
+    import dataclasses
+
+    import numpy as np
+
+    from apex_tpu_torch.models import Seq2SeqTransformer, ViT
+    from apex_tpu_torch.train import LMTrainer, Trainer
+
+    vit = ViT(num_classes=10, image_size=64, patch_size=8, embed_dim=256,
+              num_heads=4, num_layers=2, dropout=VIT["dropout"],
+              attn_impl="fast")
+    vp = vit.init(torch.Generator().manual_seed(3))
+    x, y = imagenet_batch(torch, 8, 64, 10)
+    s2s = Seq2SeqTransformer(**dict(
+        S2S, src_vocab_size=1000, tgt_vocab_size=1000, max_seq_len=128,
+        embed_dim=256, num_heads=4, num_encoder_layers=2,
+        num_decoder_layers=2))
+    sp = s2s.init(torch.Generator().manual_seed(2))
+    src, tgt = s2s_batch(torch, np.random.RandomState(3), 8, 64, 1000)
+
+    def vit_grad(model):
+        tr = Trainer(model, vp, opt_level="O2", optimizer="sgd")
+        return tr.loss_and_grad(x, y, dropout_seeds=[5, 6])[0]
+
+    def s2s_grad(model):
+        tr = LMTrainer(model, sp, **S2S_ADAM)
+        return tr.loss_and_grad(src, tgt, label_smoothing=S2S_SMOOTHING)[0]
+
+    out = {}
+    for name, model, grad in (("vit", vit, vit_grad),
+                              ("seq2seq", s2s, s2s_grad)):
+        want = grad(model)
+        out[name] = {p: bool(torch.equal(grad(dataclasses.replace(
+            model, remat=True, remat_policy=p)), want)) for p in REMAT_RUNS}
+    emit({"phase": "remat_models", "grads_equal_without_remat": out})
+    check(all(all(v.values()) for v in out.values()),
+          f"remat_models: grads with remat differ {out}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5706,7 +6155,16 @@ def main() -> int:
     # 33. the same LM in fp32: the 3xTF32 forward, dq and dk/dv at D 256
     d256_f32_counts = lm_hd256_train_phase(torch)
 
-    # 34. the kernels line, then the contract line
+    # 34. the DCGAN example's three-loss step under O1
+    gan_counts, _ = dcgan_phase(torch, dispatch)
+    # 35. lm_bench's LM with --remat (phase 9's masters); remat under O1 on
+    # the small LM, and in a small ViT and Seq2Seq
+    lm_params = lm.init(torch.Generator().manual_seed(0))
+    remat_counts, _ = lm_remat_phase(torch, dispatch, lm_params,
+                                     lrow["peak_mem_bytes"])
+    del lm_params
+
+    # 36. the kernels line, then the contract line
     launches = {k: dcounts[k] + pcounts[k] for k in dcounts}
     launches.update({k: tcounts[k] for k in TRAIN_KERNELS})
     for k in LM_PER_STEP:                # ln_fwd: serving and training
@@ -5739,6 +6197,10 @@ def main() -> int:
         launches[k] += d256_counts[k]
     for k in HD256_F32_PER_STEP:         # and in fp32
         launches[k] += d256_f32_counts[k]
+    for k in DCGAN_PER_STEP:             # the DCGAN step: unscale, Adam
+        launches[k] += gan_counts[k]
+    for k, n in remat_counts.items():    # remat, and O1's fp32 forms
+        launches[k] += n
     sources = {
         "decode_attention": (
             "apex_tpu_torch/ops/cuda/csrc/decode_attn.cu",

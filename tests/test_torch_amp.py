@@ -214,8 +214,12 @@ def test_initialize_o2_wraps_casts_and_o1_raises():
     wrapped0, _ = amp.initialize(apply_fn, opt_level="O0", verbosity=0)
     wrapped0(tree, torch.ones(2, dtype=torch.float64))
     assert seen["x"] == torch.float32
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        amp.initialize(apply_fn, opt_level="O1", verbosity=0)
+    # O1 runs the function under the per-op policy: params and input stay
+    # fp32 (tests/test_torch_autocast.py holds the policy against JAX's)
+    wrapped1, _ = amp.initialize(apply_fn, opt_level="O1", verbosity=0)
+    assert wrapped1(tree, torch.ones(2)).dtype == torch.float32
+    assert seen == {"w": torch.float32, "bn": torch.float32,
+                    "x": torch.float32}
     # the handle's scaler ops are ported: the accumulation and the census
     # agree with the JAX handle's (tests/test_torch_accumulate.py holds
     # them case by case)

@@ -3048,3 +3048,101 @@ def test_dbias_makes_no_per_bh_tensor(card):
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated(card) - base
     assert peak <= (runs + 1) * s * s * 4 + 2 ** 20, (peak, runs)
+
+
+# -- the fp32 dq's margin on fp32's rule, at more heads -----------------------
+
+@pytest.mark.parametrize("d", [64, 256, 320, 512])
+def test_f32_dq_holds_the_fp32_rule_at_bh_128(card, d):
+    """fp32 dq (3xTF32: ``flash_f32_dq`` to D 256, ``flash_f32_d512_dq``
+    past it), causal, BH 128, S 1024, against ``flash_bwd_plain`` under
+    the fp32 flash rule unchanged: O1 puts these forms on the LM's path."""
+    from apex_tpu_torch.ops import flash_attn as FA
+    kw = dict(causal=True, scale=d ** -0.5)
+    args = _f32_case(card, 128, 1024, 1024, d, 100 + d, **kw)
+    counters = (FA.flash_f32_dq, FA.flash_f32_d512_dq, FA.flash_simt_dq)
+    before = [f.launches for f in counters]
+    dq = FA.flash_bwd_dq(*args, **kw)
+    ran = [f.launches - n for f, n in zip(counters, before)]
+    assert ran == ([1, 0, 0] if d <= 256 else [0, 1, 0]), ran
+    want = FA.flash_bwd_plain(*args, **kw)[0]
+    assert dq.dtype == torch.float32 and dq.shape == want.shape
+    _flash_rule(dq, want, torch.float32)
+
+
+# -- O1 and remat on the card -------------------------------------------------
+
+def _o1_lm(card, **kw):
+    from apex_tpu_torch.models import TransformerLM
+    m = TransformerLM(vocab_size=512, max_seq_len=256, embed_dim=128,
+                      num_heads=2, num_layers=2, attn_impl="fast",
+                      head_chunk=512, device=card, **kw)
+    params = m.init(torch.Generator().manual_seed(2))
+    toks = torch.randint(0, 512, (2, 257), generator=torch.Generator()
+                         .manual_seed(3)).to(card)
+    return m, params, toks
+
+
+def _grads(fn, params, toks):
+    from apex_tpu_torch.ops import flat
+    p = flat.tree_map(lambda t: t.detach().requires_grad_(True), params)
+    loss = fn(p, toks)
+    return loss, torch.autograd.grad(loss, flat.tree_leaves(p))
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_o1_takes_the_fp32_kernel_forms(card, remat):
+    """Under O1 the custom_grad boundaries hand the flash and LayerNorm
+    kernels fp32 inputs: the 3xTF32 flash forms launch (twice the forward
+    with remat), the bf16 forms not; grads fp32."""
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.ops import flash_attn as FA
+    from apex_tpu_torch.ops import layer_norm as LN
+    m, params, toks = _o1_lm(card, remat=remat)
+    fns = {"f32_fwd": FA.flash_f32_fwd, "f32_dq": FA.flash_f32_dq,
+           "f32_dkv": FA.flash_f32_dkv, "fwd": FA.flash_fwd,
+           "dq": FA.flash_bwd_dq, "dkv": FA.flash_bwd_dkv,
+           "ln_fwd": LN.ln_fwd, "ln_bwd": LN.ln_bwd}
+    before = {k: f.launches for k, f in fns.items()}
+    loss, grads = _grads(amp.autocast(m.loss), params, toks)
+    torch.cuda.synchronize()
+    ran = {k: f.launches - before[k] for k, f in fns.items()}
+    n = 2 if remat else 1
+    assert ran == {"f32_fwd": 2 * n, "f32_dq": 2, "f32_dkv": 2, "fwd": 0,
+                   "dq": 0, "dkv": 0, "ln_fwd": 4 * n + 1, "ln_bwd": 5}, ran
+    assert torch.isfinite(loss) and all(g.dtype == torch.float32
+                                        for g in grads)
+
+
+@pytest.mark.parametrize("policy", ["nothing_saveable", "dots_saveable",
+                                    "dots_with_no_batch_dims_saveable"])
+@pytest.mark.parametrize("o1", [False, True], ids=["bf16", "O1"])
+def test_remat_grads_equal_without_remat_on_the_card(card, policy, o1):
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.ops import flat
+    m, params, toks = _o1_lm(card)
+    mr, _, _ = _o1_lm(card, remat=True, remat_policy=policy)
+    if not o1:
+        params = flat.tree_map(lambda t: t.to(torch.bfloat16), params)
+    wrap = amp.autocast if o1 else (lambda f: f)
+    want = _grads(wrap(m.loss), params, toks)
+    got = _grads(wrap(mr.loss), params, toks)
+    assert torch.equal(got[0], want[0])
+    assert all(torch.equal(a, b) for a, b in zip(got[1], want[1]))
+
+
+def test_dcgan_step_launches_three_unscales_and_two_updates(card):
+    from apex_tpu_torch.models import DCGAN
+    from apex_tpu_torch.ops import multi_tensor as MT
+    from apex_tpu_torch.train import DCGANTrainer
+    model = DCGAN(nz=16, ngf=8, ndf=8, device=card)
+    tr = DCGANTrainer(model, model.g_init(1), model.d_init(2), device=card)
+    g = torch.Generator(device=card).manual_seed(0)
+    real = torch.randn(4, 32, 32, 3, generator=g, device=card)
+    z = torch.randn(4, 16, generator=g, device=card)
+    before = (MT.scale.launches, MT.adam.launches)
+    d_l, g_l = tr.step(real, z)
+    torch.cuda.synchronize()
+    assert (MT.scale.launches - before[0], MT.adam.launches - before[1]) \
+        == (3, 2)
+    assert torch.isfinite(d_l) and torch.isfinite(g_l)

@@ -24,7 +24,8 @@ Here, on the CPU:
   kernel's tiles, the online softmax in log2 units, O rescaled in fp32
   and each tile's P·V added from a fresh accumulator, every product in
   3xTF32 with the staged rows split as read) and of dq's (S and dP over
-  all of D, traded, dS = P (dP − δ), each tile's dS K from a fresh
+  all of D, traded, dP again by one fp32 fma at a time where p passes the
+  kernel's ``kDomP``, dS = P (dP − δ), each tile's dS K from a fresh
   accumulator) and of dk/dv's (queries in the kernel's tiles, Sᵀ = K Qᵀ
   and dPᵀ = V dOᵀ each as the sum of its two halves of D as the quad
   trades them, Pᵀ from lse, dropped for dv, dSᵀ = Pᵀ (dP'ᵀ − δ), each
@@ -340,15 +341,31 @@ def _fwd_model(q, k, v, kv_bias, *, causal, scale, dropout_rate=0.0,
     return o, lse
 
 
+# the kernel's kDomP: past this share of a row's softmax, dq takes dP
+# again as one fp32 fma at a time over the columns (csrc/flash_f32_d512.cu)
+DOM_P = 0.25
+
+
+def _fma_chain(a, b):
+    """a · bᵀ over the last dim as one fp32 fma at a time in ascending
+    column order (each step exact in fp64, then rounded to fp32)."""
+    acc = torch.zeros(*a.shape[:-1], b.shape[-2])
+    for c in range(a.shape[-1]):
+        acc = (acc.double() + a[..., c, None].double()
+               * b[..., None, :, c].double()).float()
+    return acc
+
+
 def _dq_model(q, k, v, do, lse, delta, kv_bias, *, causal, scale,
               dropout_rate=0.0, dropout_seed=0, q_start=0, k_start=0,
               passes=3, bk=DQ_KEYS):
     """``f32x_dq_kernel``'s arithmetic in plain PyTorch, at the kernel's D:
     keys in tiles of ``bk``; S = Q Kᵀ and dP = dO Vᵀ over all of D by
     ``_chunked`` (one warp each, traded); P from the scores in log2 units
-    with the kv_bias, 0 where masked; dP dropped and rescaled; dS = P (dP −
-    δ); each tile's dS K (dS split once, K as read) added in fp32; dq
-    scaled at the end."""
+    with the kv_bias, 0 where masked; where P passes ``DOM_P``, dP by
+    ``_fma_chain``; dP dropped and rescaled; dS = P (dP − δ); each tile's
+    dS K (dS split once, K as read) added in fp32; dq scaled at the
+    end."""
     bh, sq, d = q.shape
     sk = k.shape[1]
     log2e = 1.0 / math.log(2.0)
@@ -365,6 +382,9 @@ def _dq_model(q, k, v, do, lse, delta, kv_bias, *, causal, scale,
                         torch.exp2(s - lse[..., None] * log2e),
                         torch.zeros(()))
         dp = _chunked(do, vt, passes)
+        dom = p > DOM_P
+        if passes == 3 and bool(dom.any()):
+            dp = torch.where(dom, _fma_chain(do, vt), dp)
         if dropout_rate > 0.0:
             keep = _keep(bh, sq, k0, k1, q_start, k_start, dropout_rate,
                          dropout_seed)

@@ -26,7 +26,8 @@ def _sources():
                                         ROOT / "flash_d512_ab.py",
                                         ROOT / "flash_dbias_ab.py",
                                         ROOT / "ln_bwd_wide_ab.py",
-                                        ROOT / "timer_load_ab.py"]
+                                        ROOT / "timer_load_ab.py",
+                                        ROOT / "flash_f32_dq_check.py"]
 
 
 def test_fresh_import_pulls_in_no_jax():
@@ -80,6 +81,17 @@ def test_the_wide_ln_ab_script_refuses_without_a_card():
     CUDA it exits 2 before it builds, unpacks or starts anything."""
     env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
     out = subprocess.run([sys.executable, "ln_bwd_wide_ab.py", "variants"],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=120, env=env)
+    assert out.returncode == 2 and "needs an NVIDIA card" in out.stderr
+    assert out.stdout == ""
+
+
+def test_the_dq_check_script_refuses_without_a_card():
+    """``flash_f32_dq_check.py`` holds and times the fp32 dq on the card
+    only: without CUDA it exits 2 before it builds or starts anything."""
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    out = subprocess.run([sys.executable, "flash_f32_dq_check.py", "rule"],
                          cwd=ROOT, capture_output=True, text=True,
                          timeout=120, env=env)
     assert out.returncode == 2 and "needs an NVIDIA card" in out.stderr

@@ -10,8 +10,10 @@ FusedSGD(lr 0.1, momentum 0.9, weight decay 1e-4) — and one LARC and one
 FusedNovoGrad case run three steps against a JAX step built from the same
 public calls as main_amp.py:239-288 (``normalize_imagenet``,
 ``unflatten``, ``apply``, ``log_softmax``, ``select_label_logits``, the
-AMP handle, the optimizer), in O0 (f32) and O2 (bf16); ``evaluate``
-against main_amp.py:401-414's ``eval_step``.
+AMP handle, the optimizer), in O0 (f32), O1 and O2 (bf16); ``evaluate``
+against main_amp.py:401-414's ``eval_step``. main_amp at ``--opt-level
+O1`` casts no model and applies it without ``amp.autocast``, so its step
+is fp32 with the O1 preset's loss scale, and O1 is held to O0's bars.
 
 Bars, those of tests/test_torch_resnet.py: O0 losses within 1e-5
 relative and masters within 1e-4; O2 masters no farther from JAX's O2
@@ -130,10 +132,10 @@ def jax_runs(setup):
     jm, params, state, _, _, _, x, y, ex, ey = setup
     return {(case, lvl): _jax_run(jm, params, state, x, y, lvl, case, 3,
                                   ex, ey)
-            for case in CASES for lvl in ("O0", "O2")}
+            for case in CASES for lvl in ("O0", "O1", "O2")}
 
 
-@pytest.mark.parametrize("opt_level", ["O0", "O2"])
+@pytest.mark.parametrize("opt_level", ["O0", "O1", "O2"])
 @pytest.mark.parametrize("case", list(CASES))
 def test_three_main_amp_steps_match_jax(setup, jax_runs, case, opt_level):
     _, _, _, tm, tp, ts, x, y, ex, ey = setup
@@ -142,11 +144,14 @@ def test_three_main_amp_steps_match_jax(setup, jax_runs, case, opt_level):
                  **CASES[case][3])
     xt, yt = torch.from_numpy(x), torch.from_numpy(y)
     assert xt.dtype == torch.uint8 and xt.shape == (BATCH, IMAGE, IMAGE, 3)
+    assert tr.handle.policy.autocast == (opt_level == "O1")
+    if opt_level == "O1":
+        assert tr.half == torch.float32
     for i, (wloss, wmaster, wstep) in enumerate(want):
         loss = tr.step(xt, yt)
         master = tr.opt.state[0].master.numpy()
         assert int(tr.opt.state[0].step) == wstep == i + 1
-        if opt_level == "O0":
+        if opt_level in ("O0", "O1"):
             assert abs(float(loss) - wloss) <= 1e-5 * abs(wloss)
             np.testing.assert_allclose(master, wmaster, rtol=0, atol=1e-4)
         else:
@@ -162,7 +167,7 @@ def test_three_main_amp_steps_match_jax(setup, jax_runs, case, opt_level):
     assert float(loss) < want[0][0]                  # it learns
     top1, top5 = tr.evaluate(torch.from_numpy(ex), torch.from_numpy(ey))
     assert top1.dim() == top5.dim() == 0 and 0 <= top1 <= top5 <= 1
-    if opt_level == "O0":                  # f32: the same top-k, image for
+    if opt_level != "O2":                  # f32: the same top-k, image for
         assert (float(top1), float(top5)) == want_acc       # image
 
 

@@ -284,11 +284,14 @@ def test_loss_ignores_pad_targets():
 
 
 def test_unported_options_and_bad_lengths_raise():
-    """Remat and beam decoding still raise, as do bad lengths and a wrong
-    count of dropout seeds; dropout itself now runs (its parity:
+    """Beam decoding still raises, as do bad lengths, a wrong count of
+    dropout seeds and a remat policy without remat (remat itself runs:
+    tests/test_torch_remat.py); dropout itself now runs (its parity:
     ``test_dropout_loss_and_grad_match_jax``)."""
-    with pytest.raises(NotImplementedError, match="item 21"):
-        Seq2SeqTransformer(**CFG, remat=True, device="cpu")
+    assert Seq2SeqTransformer(**CFG, remat=True, device="cpu").remat
+    with pytest.raises(ValueError, match="remat_policy"):
+        Seq2SeqTransformer(**CFG, remat_policy="dots_saveable",
+                           device="cpu")
     m = Seq2SeqTransformer(**CFG, dropout=0.1, device="cpu")
     assert m.num_dropout_seeds == 2 + 2 * 2
     with pytest.raises(ValueError, match="dropout_seeds"):

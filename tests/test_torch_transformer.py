@@ -163,8 +163,13 @@ def test_unported_options_refuse(models):
         TLM(vocab_size=V, moe_experts=4, device="cpu")
     with pytest.raises(NotImplementedError, match="sequence"):
         TLM(vocab_size=V, seq_axis="seq", device="cpu")
-    with pytest.raises(NotImplementedError, match="remat"):
-        TLM(vocab_size=V, remat=True, device="cpu")
+    # remat is ported (tests/test_torch_remat.py); a policy without it or
+    # an unknown one is refused as JAX refuses it
+    assert TLM(vocab_size=V, remat=True, device="cpu").remat
+    with pytest.raises(ValueError, match="remat_policy"):
+        TLM(vocab_size=V, remat_policy="dots_saveable", device="cpu")
+    with pytest.raises(ValueError, match="unknown remat_policy"):
+        TLM(vocab_size=V, remat=True, remat_policy="x", device="cpu")
     _, _, tm, tp = models
     with pytest.raises(NotImplementedError, match="greedily"):
         tm.generate(tp, torch.zeros((1, 3), dtype=torch.int32),

@@ -231,8 +231,9 @@ def test_vit_refuses_what_it_does_not_take():
         TV.ViT(num_classes=10, image_size=30, patch_size=4, device="cpu")
     with pytest.raises(ValueError, match="pool"):
         TV.vit_tiny(pool="max", device="cpu")
-    with pytest.raises(NotImplementedError, match="remat"):
-        TV.vit_tiny(remat=True, device="cpu")
+    assert TV.vit_tiny(remat=True, device="cpu").remat   # ported
+    with pytest.raises(ValueError, match="remat_policy"):
+        TV.vit_tiny(remat_policy="dots_saveable", device="cpu")
     m = TV.vit_tiny(device="cpu")
     p = m.init(0)
     with pytest.raises(ValueError, match="image_size"):
