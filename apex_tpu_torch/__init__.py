@@ -39,9 +39,9 @@ import importlib
 
 __version__ = "0.1.0"
 
-_SUBMODULES = ("amp", "contrib", "convert", "data", "fp16_utils", "models",
-               "normalization", "ops", "optimizers", "parallel", "prof",
-               "serve", "train")
+_SUBMODULES = ("amp", "contrib", "convert", "data", "fp16_utils", "mlp",
+               "models", "normalization", "ops", "optimizers", "parallel",
+               "prof", "serve", "train")
 
 __all__ = list(_SUBMODULES)
 

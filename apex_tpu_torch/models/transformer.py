@@ -16,8 +16,11 @@ MoE or sequence parallelism), ``loss``
 (next-token cross entropy through the chunked fused head, or with
 ``head_chunk=0`` over the full logits through the softmax cross-entropy
 kernels), the KV-cache block stack ``_cached_blocks``, ``_decode_one``,
-the fused slot-batched decode step ``_decode_slots`` (1-query, dense and
-paged arenas), ``_prefill`` and greedy ``generate``. Parameters keep
+the fused slot-batched decode step ``_decode_slots`` (1-query and the
+[S, Q] multi-row form of speculative scoring, dense and paged arenas),
+``_prefill``, the sampling filters ``_filter_logits`` and ``generate``
+(greedy, or sampled at a temperature with top-k / top-p from the counter
+stream of ``apex_tpu_torch._stream``). Parameters keep
 the JAX layout, weights ``[in, out]``, so ``x @ W`` is the same product
 in both packages.
 
@@ -40,6 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from apex_tpu_torch._device import resolve_device
+from apex_tpu_torch._stream import gumbel_argmax, stream_uniforms
 from apex_tpu_torch.contrib.multihead_attn.decode_attention import (
     slot_decode_attention)
 from apex_tpu_torch.contrib.multihead_attn.flash_attention import (
@@ -262,45 +266,95 @@ class TransformerLM:
         ``page_size``, page pools [P+1, H, page_size, hd] (the paged
         arena, page 0 the null sink). Per layer: one LayerNorm, one QKV
         product, the K/V write of each slot at its own position (in
-        place), and single-query attention through
-        ``slot_decode_attention``. Returns (final-LN hidden [S, E],
-        caches)."""
-        if toks.dim() == 2:
-            raise NotImplementedError(
-                "the [S, Q] multi-row decode step comes with speculative "
-                "decoding (ROADMAP.md Queue 1, slice 5)")
+        place), and attention through ``slot_decode_attention``. Returns
+        (final-LN hidden [S, E], caches).
+
+        ``toks``/``pos`` may instead be int32 [S, Q] (speculative
+        scoring): Q query rows a slot at per-row positions, each row's
+        K/V written before attention runs and each row masked to its own
+        length (``pos + 1``), so row j sees the prefix the 1-query step
+        would see after j commits. Returns ([S, Q, E], caches). Rows of a
+        slot that share a position (the engine clamps positions past the
+        arena's end to its last one) all write the first such row's K/V:
+        ``index_put_`` leaves the order of duplicate targets undefined on
+        the card, and so the bytes are the same whatever the order. No
+        committed row reads such a position (transformer.py:436-441);
+        the rows that do are past their request's budget."""
         e, h = self.embed_dim, self.num_heads
         hd = e // h
         s = toks.shape[0]
+        multi = toks.dim() == 2
+        q_dim = toks.shape[1] if multi else 1
         paged = page_table is not None
         if paged and not page_size:
             raise ValueError("paged _decode_slots needs page_size")
-        pos_l = pos.long()
-        x = (params["tok_emb"][toks.long()] + params["pos_emb"][pos_l])[:, None]
-        lengths = (pos + 1).to(torch.int32)   # each slot attends its prefix
+        pos_l = pos.long().reshape(s, q_dim)
+        x = (params["tok_emb"][toks.long().reshape(s, q_dim)]
+             + params["pos_emb"][pos_l])                       # [S, Q, E]
+        # each row attends its own prefix
+        lengths = (pos_l + 1).to(torch.int32)
+        lengths = lengths if multi else lengths[:, 0]
         if paged:
-            rows = torch.arange(s, device=pos.device)
-            lane = page_table[rows, pos_l // page_size].long()   # [S]
+            lane = page_table.long().gather(1, pos_l // page_size)  # [S, Q]
             off = pos_l % page_size
         else:
-            lane = torch.arange(s, device=pos.device)
+            lane = torch.arange(s, device=pos.device)[:, None].expand(
+                s, q_dim)
             off = pos_l
+        first = None
+        if multi:
+            # for each row, the first row of its slot at the same position
+            # (argmax returns the first of equal maxima)
+            same = pos_l[:, :, None] == pos_l[:, None, :]          # [S,Q,Q]
+            first = same.to(torch.int8).argmax(dim=-1)             # [S, Q]
+            first = first[..., None].expand(s, q_dim, e)
         for i in range(self.num_layers):
             lp = params[f"layer_{i}"]
             ap = lp["attn"]
             qkv = self._ln(x, lp["ln1"]) @ ap["in_proj"] + ap["in_proj_bias"]
-            q, k, v = torch.split(qkv, e, dim=-1)              # [S, 1, E]
+            q, k, v = torch.split(qkv, e, dim=-1)              # [S, Q, E]
+            if first is not None:
+                k, v = k.gather(1, first), v.gather(1, first)
             ck, cv = caches[f"layer_{i}"]
-            # in place: one row per slot. Paged duplicates only ever hit
-            # the null page (retired slots), which nothing reads unmasked.
-            ck[lane, :, off, :] = k.reshape(s, h, hd)
-            cv[lane, :, off, :] = v.reshape(s, h, hd)
-            a = slot_decode_attention(q.reshape(s, h, hd).contiguous(), ck,
-                                      cv, lengths, page_table=page_table)
-            a = a.reshape(s, 1, e) @ ap["out_proj"] + ap["out_proj_bias"]
+            # in place: one row per (slot, query row). Paged duplicates
+            # across slots only ever hit the null page (retired slots),
+            # which nothing reads unmasked.
+            ck[lane, :, off, :] = k.reshape(s, q_dim, h, hd)
+            cv[lane, :, off, :] = v.reshape(s, q_dim, h, hd)
+            qh = q.reshape(s, q_dim, h, hd) if multi \
+                else q.reshape(s, h, hd)
+            a = slot_decode_attention(qh.contiguous(), ck, cv, lengths,
+                                      page_table=page_table)
+            a = a.reshape(s, q_dim, e) @ ap["out_proj"] + ap["out_proj_bias"]
             x = x + a
             x = x + self._mlp(self._ln(x, lp["ln2"]), lp["mlp"])
-        return self._ln(x, params["ln_f"])[:, 0], caches
+        out = self._ln(x, params["ln_f"])
+        return (out if multi else out[:, 0]), caches
+
+    @staticmethod
+    def _filter_logits(logits, top_k, top_p):
+        """The sampling filters of transformer.py:516-540: keep the
+        ``top_k`` largest logits (ties at the k-th value kept) and/or the
+        smallest nucleus whose probability reaches ``top_p`` (1 + the
+        count of cumulative sums below it, clamped to the vocab; ties at
+        the cutoff kept); everything else goes to -inf. logits fp32 [B,
+        V]. The softmax is JAX's: exp(x - max) over its sum."""
+        if top_k is not None:
+            kth = torch.topk(logits, top_k, dim=-1).values[:, -1:]
+            logits = torch.where(logits >= kth, logits,
+                                 torch.full_like(logits, -torch.inf))
+        if top_p is not None:
+            ex = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+            probs = ex / ex.sum(dim=-1, keepdim=True)
+            sorted_p = torch.sort(probs, dim=-1, descending=True).values
+            csum = torch.cumsum(sorted_p, dim=-1)
+            n_keep = torch.clamp(
+                1 + (csum < top_p).to(torch.int64).sum(dim=-1, keepdim=True),
+                max=logits.shape[-1])
+            cutoff = sorted_p.gather(-1, n_keep - 1)
+            logits = torch.where(probs >= cutoff, logits,
+                                 torch.full_like(logits, -torch.inf))
+        return logits
 
     @torch.no_grad()
     def _prefill(self, params, prompt, total: int):
@@ -322,18 +376,32 @@ class TransformerLM:
 
     @torch.no_grad()
     def generate(self, params: dict, prompt, *, max_new_tokens: int,
-                 temperature: float = 0.0,
-                 eos_id: Optional[int] = None) -> torch.Tensor:
-        """Greedy autoregressive generation with per-layer K/V caches.
-        prompt: int [B, P]. Returns int32 [B, P + max_new_tokens]. With
-        ``eos_id`` a sequence that emits it keeps emitting it (the output
-        stays rectangular), as in the JAX version. Sampling
-        (``temperature > 0``, top-k, top-p) is not ported yet."""
-        if temperature != 0.0:
-            raise NotImplementedError(
-                "generate() samples only greedily in this port slice; "
-                "temperature sampling lives in the serving engine "
-                "(ROADMAP.md Queue 1, slice 4)")
+                 temperature: float = 0.0, top_k: Optional[int] = None,
+                 top_p: Optional[float] = None,
+                 eos_id: Optional[int] = None,
+                 key: Optional[int] = None) -> torch.Tensor:
+        """Autoregressive generation with per-layer K/V caches (the JAX
+        version's, transformer.py:561-655). prompt: int [B, P]. Returns
+        int32 [B, P + max_new_tokens]. ``temperature=0`` is greedy;
+        ``temperature>0`` samples, ``key`` required: the seed of the
+        counter stream, draw t of row b keyed ``(key, b, t)`` with t the
+        position whose hidden state gives the token (JAX folds t into its
+        key), so a run replays under the same key. ``top_k``/``top_p``
+        restrict the draw to the k most likely tokens / the smallest
+        nucleus with mass >= top_p (ignored when greedy). With ``eos_id`` a
+        sequence that emits it keeps emitting it (the output stays
+        rectangular)."""
+        if temperature < 0.0:
+            raise ValueError(f"temperature must be >= 0, "
+                             f"got {temperature}")
+        if temperature > 0.0 and key is None:
+            # the key is the counter stream's seed
+            raise ValueError("temperature > 0 requires a PRNG key")
+        if top_k is not None and not 0 < top_k <= self.vocab_size:
+            raise ValueError(f"top_k must be in [1, vocab_size], "
+                             f"got {top_k}")
+        if top_p is not None and not 0.0 < top_p <= 1.0:
+            raise ValueError(f"top_p must be in (0, 1], got {top_p}")
         if max_new_tokens < 1:
             raise ValueError(f"max_new_tokens must be >= 1, "
                              f"got {max_new_tokens}")
@@ -350,18 +418,25 @@ class TransformerLM:
                 f"exceeds max_seq_len ({self.max_seq_len})")
         buf = torch.zeros((b, total), dtype=torch.int32, device=dev)
         buf[:, :p] = prompt
+        rows = torch.arange(b, dtype=torch.int64, device=dev)
 
-        def produce(hid):
+        def produce(t: int, hid):
             logits = (hid @ params["tok_emb"].T).float()
+            if temperature > 0.0:
+                filt = self._filter_logits(logits / temperature, top_k,
+                                           top_p)
+                u = stream_uniforms(int(key), rows, torch.full_like(rows, t),
+                                    self.vocab_size)
+                return gumbel_argmax(filt, u)
             return torch.argmax(logits, dim=-1).to(torch.int32)
 
         hid, caches = self._prefill(params, prompt, total)
-        tok = produce(hid)
+        tok = produce(p - 1, hid)
         done = (tok == eos_id) if eos_id is not None else None
         buf[:, p] = tok
         for t in range(p, total - 1):
             hid, caches = self._decode_one(params, buf[:, t], t, caches)
-            tok = produce(hid)
+            tok = produce(t, hid)
             if eos_id is not None:
                 tok = torch.where(done, torch.full_like(tok, eos_id), tok)
                 done = done | (tok == eos_id)

@@ -116,7 +116,7 @@ def build() -> Path:
 def _declare(so: ctypes.CDLL) -> None:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     so.apex_decode_attention.argtypes = [
-        I, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, P]
+        I, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, P]
     so.apex_decode_attention.restype = I
     so.apex_decode_merge.argtypes = [I, P, P, P, I, I, I, I, I, P]
     so.apex_decode_merge.restype = I

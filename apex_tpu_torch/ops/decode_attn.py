@@ -1,5 +1,5 @@
-"""Single-query slot attention over the dense and paged KV arenas: the
-kernel wrappers and their plain PyTorch versions.
+"""Slot attention over the dense and paged KV arenas, one query a slot or
+Q rows a slot: the kernel wrappers and their plain PyTorch versions.
 
 Counterpart of ``apex_tpu/ops/pallas/decode_attn.py``. The two Pallas
 kernels (``_decode_kernel``, ``_paged_decode_kernel``) become ONE CUDA
@@ -14,6 +14,13 @@ For a tensor on the CPU a wrapper runs the plain version; for a tensor on
 the card it launches the kernel (head dims :data:`HEAD_DIMS`; fp32, bf16,
 fp16), or raises when the kernel does not take the dtype, shape or layout.
 Each wrapper counts its launches in ``<wrapper>.launches``.
+
+The multi-row form (speculative scoring: q [S, Q, H, hd], lengths [S, Q],
+each row masked to its own length) is the same kernel reading each K/V
+chunk once for all the slot's rows (:func:`decode_attention_rows`,
+:func:`paged_decode_attention_rows`; ``decode_attention`` and
+``paged_decode_attention`` hand a 4-D q to them). Each row's output is
+bit-equal to the 1-query call's at that row's length.
 """
 
 from __future__ import annotations
@@ -23,11 +30,12 @@ import torch
 from apex_tpu_torch.ops import cuda as _cuda
 from apex_tpu_torch.ops import dispatch
 
-__all__ = ["NEG_INF", "HEAD_DIMS", "DECODE_CHUNK", "decode_chunks",
-           "chunk_spans", "gather_pages", "decode_attention",
-           "paged_decode_attention", "decode_attention_plain",
-           "paged_decode_attention_plain", "decode_merge",
-           "decode_merge_plain"]
+__all__ = ["NEG_INF", "HEAD_DIMS", "DECODE_CHUNK", "MAX_ROWS",
+           "decode_chunks", "chunk_spans", "gather_pages",
+           "decode_attention", "paged_decode_attention",
+           "decode_attention_rows", "paged_decode_attention_rows",
+           "decode_attention_plain", "paged_decode_attention_plain",
+           "decode_merge", "decode_merge_plain"]
 
 # the flash kernel's finite -inf stand-in (exp() of it is exactly 0.0 in
 # fp32); shared so masked-lane math is bit-identical across versions
@@ -35,6 +43,7 @@ NEG_INF = -1.0e30
 
 HEAD_DIMS = (64, 128)   # the head dims the kernel is written for
 DECODE_CHUNK = 64       # key positions a block of the kernel takes
+MAX_ROWS = 8            # query rows a slot may bring to the kernel
 
 
 def decode_chunks(capacity: int) -> int:
@@ -72,15 +81,23 @@ def decode_attention_plain(q, k, v, lengths, *, scale=None):
     Op for op the math of ``reference_slot_decode_attention``
     (decode_attention.py:88-136): fp32 scores, finite NEG_INF masking,
     max, exp under where, sum, guarded divide. Returns [S, H, hd] in q's
-    dtype."""
+    dtype. With q [S, Q, H, hd] and lengths [S, Q] the same ops run once
+    with a real query axis, row j masked to its own length; returns [S,
+    Q, H, hd]."""
+    multi = q.dim() == 4
     hd = q.shape[-1]
     l_dim = k.shape[-2]
     if scale is None:
         scale = 1.0 / float(hd) ** 0.5
-    qf = q[:, :, None, :].float()                         # [S, H, 1, hd]
-    s = torch.matmul(qf, k.float().transpose(-1, -2)) * scale  # [S,H,1,L]
+    lengths = lengths.to(q.device)
+    if multi:
+        qf = q.transpose(1, 2).float()                    # [S, H, Q, hd]
+        lmask = lengths[:, None, :, None]
+    else:
+        qf = q[:, :, None, :].float()                     # [S, H, 1, hd]
+        lmask = lengths[:, None, None, None]
+    s = torch.matmul(qf, k.float().transpose(-1, -2)) * scale  # [S,H,Q,L]
     k_pos = torch.arange(l_dim, device=q.device)[None, None, None, :]
-    lmask = lengths.to(q.device)[:, None, None, None]
     s = torch.where(k_pos < lmask, s, torch.full_like(s, NEG_INF))
     m = torch.clamp(s.amax(dim=-1, keepdim=True), min=NEG_INF)
     p = torch.where(s > NEG_INF * 0.5, torch.exp(s - m),
@@ -88,6 +105,8 @@ def decode_attention_plain(q, k, v, lengths, *, scale=None):
     l_sum = p.sum(dim=-1, keepdim=True)
     probs = p / torch.where(l_sum > 0.0, l_sum, torch.ones_like(l_sum))
     o = torch.matmul(probs, v.float()).to(q.dtype)
+    if multi:
+        return o.transpose(1, 2)                          # [S, Q, H, hd]
     return o[:, :, 0, :]
 
 
@@ -95,7 +114,8 @@ def paged_decode_attention_plain(q, k, v, lengths, *, scale=None,
                                  page_table):
     """Plain version over page pools: gather each slot's logical view,
     then the dense plain math — bitwise equal to the dense plain version
-    whenever the mapped pages hold the same bytes."""
+    whenever the mapped pages hold the same bytes. q may be [S, Q, H, hd]
+    with lengths [S, Q], as for :func:`decode_attention_plain`."""
     return decode_attention_plain(q, gather_pages(k, page_table),
                                   gather_pages(v, page_table), lengths,
                                   scale=scale)
@@ -141,9 +161,13 @@ def _check(name, q, k, v, lengths, page_table=None):
                          f"{HEAD_DIMS}, got {q.shape[-1]}")
     if lengths.dtype != torch.int32:
         raise TypeError(f"{name}: lengths must be int32")
-    if lengths.shape != q.shape[:1]:
-        raise ValueError(f"{name}: lengths must be [{q.shape[0]}], got "
+    want = tuple(q.shape[:2]) if q.dim() == 4 else tuple(q.shape[:1])
+    if tuple(lengths.shape) != want:
+        raise ValueError(f"{name}: lengths must be {list(want)}, got "
                          f"{tuple(lengths.shape)}")
+    if q.dim() == 4 and not 1 <= q.shape[1] <= MAX_ROWS:
+        raise ValueError(f"{name}: the kernel takes 1 to {MAX_ROWS} query "
+                         f"rows a slot, got {q.shape[1]}")
     if page_table is not None:
         if not page_table.is_cuda or page_table.device != q.device \
                 or not page_table.is_contiguous() \
@@ -157,10 +181,12 @@ def _check(name, q, k, v, lengths, page_table=None):
 
 def _launch(q, k, v, lengths, page_table, scale, l_dim, page, max_pages):
     """The chunk kernel, then (past one chunk) the merge: each launch
-    counts on its own wrapper."""
-    s_dim, h, hd = q.shape
+    counts on its own wrapper. q [S, H, hd] or [S, Q, H, hd]; the merge
+    takes the Q rows of a slot as S * Q rows of a 1-query call."""
+    nq = q.shape[1] if q.dim() == 4 else 1
+    s_dim, h, hd = q.shape[0], q.shape[-2], q.shape[-1]
     out = torch.empty_like(q)
-    if s_dim * h == 0:
+    if s_dim * nq * h == 0:
         return out
     if scale is None:
         scale = 1.0 / float(hd) ** 0.5
@@ -168,7 +194,8 @@ def _launch(q, k, v, lengths, page_table, scale, l_dim, page, max_pages):
     if cap < 1:
         raise ValueError("decode_attention: an arena of no positions")
     nchunk = decode_chunks(cap)
-    part = torch.empty((s_dim, h, nchunk, hd + 2), dtype=torch.float32,
+    part = torch.empty((s_dim * nq, h, nchunk, hd + 2),
+                       dtype=torch.float32,
                        device=q.device) if nchunk > 1 else None
     err = _cuda.lib().apex_decode_attention(
         _cuda.dtype_code(q.dtype, "decode_attention"), q.data_ptr(),
@@ -176,10 +203,10 @@ def _launch(q, k, v, lengths, page_table, scale, l_dim, page, max_pages):
         page_table.data_ptr() if page_table is not None else None,
         out.data_ptr(), part.data_ptr() if part is not None else None,
         s_dim, h, hd, l_dim, page, max_pages, int(page_table is not None),
-        nchunk, float(scale), _cuda.stream(q.device))
+        nchunk, nq, float(scale), _cuda.stream(q.device))
     _cuda.check(err, "decode_attention")
     if part is not None:
-        decode_merge(part, lengths, out, cap)
+        decode_merge(part, lengths.reshape(-1), out.view(-1, h, hd), cap)
     return out
 
 
@@ -213,7 +240,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      scale: "float | None" = None) -> torch.Tensor:
     """Single-query attention over the dense arena. q: [S, H, hd]; k/v:
     [S, H, L, hd] (garbage past each slot's length is never read);
-    lengths: i32 [S]. Returns [S, H, hd] in q's dtype."""
+    lengths: i32 [S]. Returns [S, H, hd] in q's dtype. A q of [S, Q, H,
+    hd] goes to :func:`decode_attention_rows`."""
+    if q.dim() == 4:
+        return decode_attention_rows(q, k, v, lengths, scale=scale)
     if not dispatch.use_kernel(q):
         return decode_attention_plain(q, k, v, lengths, scale=scale)
     _check("decode_attention", q, k, v, lengths)
@@ -237,7 +267,11 @@ def paged_decode_attention(q: torch.Tensor, k: torch.Tensor,
     page pools [P_phys, H, page, hd]; lengths: i32 [S]; page_table: i32
     [S, P_logical] (0 = the null page, always past a slot's length).
     The kernel follows the page table itself: no gathered view is ever
-    built. Returns [S, H, hd] in q's dtype."""
+    built. Returns [S, H, hd] in q's dtype. A q of [S, Q, H, hd] goes to
+    :func:`paged_decode_attention_rows`."""
+    if q.dim() == 4:
+        return paged_decode_attention_rows(q, k, v, lengths, scale=scale,
+                                           page_table=page_table)
     if not dispatch.use_kernel(q):
         return paged_decode_attention_plain(q, k, v, lengths, scale=scale,
                                             page_table=page_table)
@@ -255,3 +289,62 @@ def paged_decode_attention(q: torch.Tensor, k: torch.Tensor,
 
 
 paged_decode_attention.launches = 0
+
+
+def decode_attention_rows(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, lengths: torch.Tensor, *,
+                          scale: "float | None" = None) -> torch.Tensor:
+    """Q query rows a slot over the dense arena (speculative scoring).
+    q: [S, Q, H, hd], 1 <= Q <= :data:`MAX_ROWS`; k/v: [S, H, L, hd];
+    lengths: i32 [S, Q], row j masked to its own length. A block reads
+    each K/V chunk once for all the slot's rows. Returns [S, Q, H, hd]
+    in q's dtype, each row bit-equal to :func:`decode_attention` at that
+    row's length."""
+    if not dispatch.use_kernel(q):
+        return decode_attention_plain(q, k, v, lengths, scale=scale)
+    if q.dim() != 4:
+        raise ValueError(f"decode_attention_rows: q must be [S, Q, H, hd], "
+                         f"got {tuple(q.shape)}")
+    _check("decode_attention_rows", q, k, v, lengths)
+    s_dim, _, h, _ = q.shape
+    if k.shape[:2] != (s_dim, h) or k.shape != v.shape:
+        raise ValueError(f"decode_attention_rows: k/v {tuple(k.shape)} do "
+                         f"not match q {tuple(q.shape)}")
+    out = _launch(q, k, v, lengths, None, scale, k.shape[2], 1, 0)
+    decode_attention_rows.launches += 1
+    return out
+
+
+decode_attention_rows.launches = 0
+
+
+def paged_decode_attention_rows(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, lengths: torch.Tensor, *,
+                                scale: "float | None" = None,
+                                page_table: torch.Tensor) -> torch.Tensor:
+    """Q query rows a slot over the PAGED arena: q [S, Q, H, hd]; k/v page
+    pools [P_phys, H, page, hd]; lengths i32 [S, Q]; page_table i32 [S,
+    P_logical], one row a slot shared by its Q rows. Returns [S, Q, H,
+    hd], bitwise equal to :func:`decode_attention_rows` over the same
+    bytes."""
+    if not dispatch.use_kernel(q):
+        return paged_decode_attention_plain(q, k, v, lengths, scale=scale,
+                                            page_table=page_table)
+    if q.dim() != 4:
+        raise ValueError(f"paged_decode_attention_rows: q must be [S, Q, "
+                         f"H, hd], got {tuple(q.shape)}")
+    _check("paged_decode_attention_rows", q, k, v, lengths, page_table)
+    s_dim, _, h, _ = q.shape
+    if k.shape[1] != h or k.shape != v.shape \
+            or page_table.shape[0] != s_dim:
+        raise ValueError(
+            f"paged_decode_attention_rows: k/v {tuple(k.shape)} or "
+            f"page_table {tuple(page_table.shape)} do not match q "
+            f"{tuple(q.shape)}")
+    out = _launch(q, k, v, lengths, page_table, scale, 0, k.shape[2],
+                  page_table.shape[1])
+    paged_decode_attention_rows.launches += 1
+    return out
+
+
+paged_decode_attention_rows.launches = 0

@@ -1,22 +1,26 @@
 """Continuous-batching engine — counterpart of ``apex_tpu/serve/engine.py``
-on its fused path, dense and paged.
+on its fused path, dense and paged, with speculative decoding and the
+shared-prefix page cache.
 
 The device work per scheduler poll and step is the JAX engine's three
 programs, run eagerly:
 
-1. ``_prefill_batch`` / ``_prefill_batch_paged`` — one
-   ``TransformerLM._cached_blocks`` pass over one prompt chunk for all the
-   requests admitted in this poll: their lanes are gathered out of the
-   arena (by slot, or by page-table row), run as one batch, and the chunk
-   just written is stored back for the lanes that had a chunk at this
-   depth (paged: into the one page that holds the chunk).
+1. ``_prefill_chunk`` — one ``TransformerLM._cached_blocks`` pass over one
+   prompt chunk for all the requests admitted in this poll: their lanes
+   are gathered out of the arena (by slot, or by page-table row), run as
+   one batch, and the chunk just written is stored back for the lanes
+   that had a chunk at this depth (paged: into the one page that holds
+   the chunk). A speculative engine runs its draft model's chunk right
+   behind, into the draft's arena.
 2. ``_commit_batch`` — every admitted lane's first token from its final
    chunk's hidden state, sampled, and the slots armed; ONE device->host
    fetch per admission batch, the TTFT point.
-3. ``_decode_fused`` / ``_decode_fused_paged`` — ONE step for all slots
-   through ``TransformerLM._decode_slots`` (the LayerNorm and decode
-   attention kernels on the card), then sampling and EOS/budget retirement
-   on the device; ONE fetch per step, the packed ``[3, S]`` array.
+3. ``_decode_fused`` — ONE step for all slots through
+   ``TransformerLM._decode_slots`` (the LayerNorm and decode attention
+   kernels on the card), then sampling and EOS/budget retirement on the
+   device; ONE fetch per step, the packed ``[3, S]`` array. With
+   ``spec_k`` it is ``_spec_step`` instead (below), its fetch the packed
+   ``[k + 4, S]`` array.
 
 Where the JAX engine donates its state to each program and rebinds the
 result, this engine updates the KV arena and the slot scalars IN PLACE.
@@ -35,19 +39,32 @@ only after the pool drains (``static``), and TTFT and per-token times are
 stamped at the host syncs. The paged arena keeps a host page table
 (``np.int32 [slots, max_pages]``) mutated in place at admission and
 retirement, copied to the device once per program call and never read
-back; admission is gated on free pages.
+back; admission is gated on free pages. ``prefix_share=True`` maps the
+content-hashed pages of a cached prompt prefix (``serve/prefix.py``) into
+a new request's table and skips the prefill chunks they cover.
+
+Speculative decoding (``spec_k=k``, ``draft=(model, params)``): k draft
+steps (the first a 2-query catch-up row over ``[pos - 1, pos]``), then
+ONE (k+1)-row target forward through the multi-row decode kernel, and
+acceptance on the device: greedy takes the longest draft prefix matching
+the target's argmax chain, so the emitted tokens ARE the greedy stream;
+above temperature 0 standard rejection sampling (:func:`spec_accept`).
+The draft's KV is a second dense arena, or a parallel page pool behind the
+same page table.
 
 Sampling at ``temperature > 0`` draws from a counter-based stream keyed by
 ``(seed, request id, token index)`` and computed on the device
-(:func:`stream_uniforms`), so tokens do not depend on the slot or on how
-admissions were batched. JAX's threefry keys cannot be reproduced in
-torch: only replay determinism is shared with the JAX engine, and equality
-across packages holds for greedy decoding.
+(:func:`stream_uniforms`); the speculative draws fold a role and a draft
+row into the request key (``_stream.fold_key``), where JAX folds them into
+its threefry key. Tokens do not depend on the slot or on how admissions
+were batched. JAX's threefry keys cannot be reproduced in torch: only
+replay determinism is shared with the JAX engine, and equality across
+packages holds for greedy decoding.
 
 Not ported yet, each refused with ``NotImplementedError`` naming its
-ROADMAP row: ``fused=False``, speculative decoding (``spec_k``/``draft``),
-``prefix_share``, the router feed, ``run``'s telemetry/tracer/slo/live/
-flightrec hooks, and ``warmup``/``program_lineages``/``lint_programs``.
+ROADMAP row: ``fused=False``, the router feed, ``run``'s telemetry/
+tracer/slo/live/flightrec hooks, and ``warmup``/``program_lineages``/
+``lint_programs``.
 """
 
 from __future__ import annotations
@@ -61,18 +78,84 @@ import numpy as np
 import torch
 
 from apex_tpu_torch._device import resolve_device
+from apex_tpu_torch._stream import fold_key, gumbel_argmax, stream_uniforms
 from apex_tpu_torch.contrib.multihead_attn.decode_attention import (
     gather_pages)
+from apex_tpu_torch.ops.decode_attn import MAX_ROWS
+from apex_tpu_torch.serve.prefix import PrefixCache, chain_hashes
 from apex_tpu_torch.serve.slots import (PagePool, SlotState, arena_bytes,
-                                        init_paged_state, init_slot_state,
-                                        kv_token_bytes)
+                                        init_cache_arena, init_paged_state,
+                                        init_slot_state, kv_token_bytes)
 
 __all__ = ["Request", "RequestResult", "ContinuousBatchingEngine",
-           "stream_uniforms"]
+           "draft_from_prefix", "spec_accept", "stream_uniforms"]
 
 _POLICIES = ("continuous", "static")
 _SERVE_ROW = "ROADMAP.md Queue 1, slice 5"
 _TRACE_ROW = "ROADMAP.md Queue 1, slice 8"
+
+
+def draft_from_prefix(model, params, num_layers: int):
+    """A zero-training draft model for speculative decoding: the first
+    ``num_layers`` blocks of ``model`` reused as they are (embeddings and
+    final LN shared, layer params aliased: no copies). Returns
+    ``(draft_model, draft_params)`` for ``ContinuousBatchingEngine(draft=
+    ..., spec_k=...)``."""
+    if not 1 <= num_layers <= model.num_layers:
+        raise ValueError(
+            f"draft num_layers must be in [1, {model.num_layers}], "
+            f"got {num_layers}")
+    dm = dataclasses.replace(model, num_layers=num_layers)
+    dp = {"tok_emb": params["tok_emb"], "pos_emb": params["pos_emb"],
+          "ln_f": params["ln_f"]}
+    for i in range(num_layers):
+        dp[f"layer_{i}"] = params[f"layer_{i}"]
+    return dm, dp
+
+
+def spec_accept(toks: torch.Tensor, logits: torch.Tensor,
+                temperature: float, *, qsel=None, qdists=None, u=None,
+                u_extra=None):
+    """The speculative step's acceptance (engine.py:645-684). ``toks``
+    int32 [S, k+1]: the pending token, then the k drafts; ``logits`` fp32
+    [S, k+1, V]: the target's rows over them. Returns (``out`` int32 [S,
+    k+1], the tokens to emit in order; ``n_acc`` int32 [S], the drafts
+    accepted).
+
+    Greedy: ``out`` is the target's argmax chain and ``n_acc`` the length
+    of the draft prefix that matches it. At ``temperature > 0``: draft j
+    is accepted while ``u_j q(d_j) < p(d_j)`` (``qsel`` [S, k] the drafts'
+    own probabilities, ``u`` [S, k] uniforms); the first rejected row
+    draws from the residual ``max(p - q, 0)`` (``qdists`` [S, k, V]), or
+    all accepted, the target's last row (the bonus draw), with the
+    uniforms ``u_extra`` [S, V]. The emitted tokens are then distributed
+    as the target's samples."""
+    k = toks.shape[1] - 1
+    cols = torch.arange(k + 1, device=toks.device)
+    if temperature > 0.0:
+        pfull = torch.softmax(logits / temperature, dim=-1)
+        pd = pfull[:, :-1].gather(2, toks[:, 1:, None].long())[:, :, 0]
+        acc = (u * qsel) < pd
+        n_acc = torch.cumprod(acc.to(torch.int32), dim=1).sum(dim=1)
+        v = logits.shape[-1]
+        p_row = pfull.gather(
+            1, n_acc.long()[:, None, None].expand(-1, 1, v))[:, 0]
+        q_row = qdists.gather(1, torch.clamp(n_acc, max=k - 1).long()
+                              [:, None, None].expand(-1, 1, v))[:, 0]
+        resid = torch.clamp(p_row - q_row, min=0.0)
+        rs = resid.sum(dim=-1, keepdim=True)
+        resid = torch.where(rs > 0.0, resid / rs, p_row)
+        dist = torch.where((n_acc < k)[:, None], resid, p_row)
+        extra = gumbel_argmax(torch.log(dist + 1e-30), u_extra)
+        shifted = torch.cat([toks[:, 1:], torch.zeros_like(toks[:, :1])],
+                            dim=1)
+        out = torch.where(cols[None, :] < n_acc[:, None], shifted,
+                          extra[:, None])
+    else:
+        out = torch.argmax(logits, dim=-1).to(torch.int32)
+        match = (toks[:, 1:] == out[:, :-1]).to(torch.int32)
+        n_acc = torch.cumprod(match, dim=1).sum(dim=1)
+    return out.to(torch.int32), n_acc.to(torch.int32)
 
 
 @dataclasses.dataclass
@@ -129,41 +212,6 @@ class RequestResult:
         return [b - a for a, b in zip(self.token_times, self.token_times[1:])]
 
 
-# -- the counter-based sampling stream -------------------------------------
-
-_M32 = 0xFFFFFFFF
-
-
-def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
-    """(x * c) mod 2**32 for int64 x in [0, 2**32) and a 32-bit constant
-    c, in two 16-bit halves so no product leaves the int64 range."""
-    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _M32
-
-
-def _mix32(x: torch.Tensor) -> torch.Tensor:
-    """A 32-bit integer finalizer (lowbias32): each output bit depends on
-    every input bit. Inputs stay in [0, 2**32), so shifts are logical."""
-    x = x ^ (x >> 16)
-    x = _mul32(x, 0x7FEB352D)
-    x = x ^ (x >> 15)
-    x = _mul32(x, 0x846CA68B)
-    return x ^ (x >> 16)
-
-
-def stream_uniforms(seed: int, key: torch.Tensor, tok_idx: torch.Tensor,
-                    n: int) -> torch.Tensor:
-    """Uniforms in (0, 1), float32 [rows, n]. Row r is draw ``tok_idx[r]``
-    of the stream ``(seed, key[r])``, column j its j-th value: a pure
-    function of those integers, computed where ``key`` lives."""
-    s = _mix32(torch.full_like(key, seed & _M32))
-    h = _mix32((key & _M32) ^ s)
-    h = _mix32(h ^ (tok_idx.to(torch.int64) & _M32))
-    j = torch.arange(n, dtype=torch.int64, device=key.device)
-    bits = _mix32(_mix32((h[:, None] + _mul32(j, 0x9E3779B9)[None, :])
-                         & _M32))
-    return ((bits >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
-
-
 class ContinuousBatchingEngine:
     """Serving engine over a :class:`~apex_tpu_torch.serve.slots.SlotState`
     pool on ``device`` (the card unless ``device="cpu"``); ``params`` must
@@ -174,7 +222,11 @@ class ContinuousBatchingEngine:
     ``paged=True`` swaps the dense ``[slots, H, max_len, hd]`` arena for a
     global page pool of ``kv_pages`` pages of ``page_size`` positions;
     a request reserves only the pages its prompt and budget need. Greedy
-    paged streams equal the dense ones token for token."""
+    paged streams equal the dense ones token for token.
+    ``prefix_share=True`` (paged only) prefills a common prompt prefix
+    once and maps its full pages into every matching request's table.
+    ``spec_k`` with ``draft=(model, params)`` decodes speculatively;
+    greedy speculative streams equal the plain ones token for token."""
 
     def __init__(self, model, params, *, slots: int, max_len: int,
                  prefill_chunk: int = 16, eos_id: Optional[int] = None,
@@ -212,6 +264,7 @@ class ContinuousBatchingEngine:
         self.seed = int(seed)
         self.policy = policy
         self.paged = bool(paged)
+        self.prefix_share = bool(prefix_share)
         if self.paged:
             if not fused:
                 raise ValueError(
@@ -242,18 +295,48 @@ class ContinuousBatchingEngine:
             if page_size is not None or kv_pages is not None:
                 raise ValueError("page_size/kv_pages need paged=True")
             self.page_size = self.max_pages = self.kv_pages = None
+        # speculative decoding: spec_k drafts a step, scored by the target
+        # in one (k+1)-row forward
+        if spec_k:
+            if spec_k < 1:
+                raise ValueError(f"spec_k must be >= 1, got {spec_k}")
+            if draft is None:
+                raise ValueError(
+                    "spec_k needs draft=(draft_model, draft_params) — "
+                    "speculation has nothing to propose without one")
+            if not fused:
+                raise ValueError(
+                    "speculative decoding needs fused=True — the spec "
+                    "step extends _decode_slots' query dim; the "
+                    "serialized r13 path stays the parity oracle")
+        elif draft is not None:
+            raise ValueError("draft needs spec_k >= 1")
         if not fused:
             raise NotImplementedError(
                 f"fused=False (the serialized r13 baseline) is not ported "
                 f"yet ({_SERVE_ROW})")
         self.fused = True
-        if prefix_share:
-            raise NotImplementedError(
-                f"prefix_share is not ported yet ({_SERVE_ROW})")
-        if spec_k or draft is not None:
-            raise NotImplementedError(
-                f"speculative decoding (spec_k/draft) is not ported yet "
-                f"({_SERVE_ROW})")
+        self.spec_k = int(spec_k)
+        if spec_k + 1 > MAX_ROWS:
+            raise ValueError(
+                f"spec_k ({spec_k}) + 1 rows pass the decode kernel's "
+                f"{MAX_ROWS} query rows a slot")
+        self.draft_model = self.draft_params = None
+        if draft is not None:
+            dmodel, dparams = draft
+            if dmodel.vocab_size != model.vocab_size:
+                raise ValueError(
+                    f"draft vocab_size ({dmodel.vocab_size}) must "
+                    f"match the target ({model.vocab_size})")
+            if dmodel.max_seq_len < max_len:
+                raise ValueError(
+                    f"draft max_seq_len ({dmodel.max_seq_len}) cannot "
+                    f"cover the pool max_len ({max_len})")
+            if dparams["tok_emb"].device != self.device:
+                raise ValueError(
+                    f"draft params live on {dparams['tok_emb'].device}, "
+                    f"the engine on {self.device}")
+            self.draft_model, self.draft_params = dmodel, dparams
         if params["tok_emb"].device != self.device:
             raise ValueError(
                 f"params live on {params['tok_emb'].device}, the engine "
@@ -282,54 +365,62 @@ class ContinuousBatchingEngine:
         streams (the same categorical the JAX engine draws)."""
         if self.temperature > 0.0:
             u = stream_uniforms(self.seed, keys, tok_idx, logits.shape[-1])
-            logits = logits / self.temperature - torch.log(-torch.log(u))
+            return gumbel_argmax(logits / self.temperature, u)
         return torch.argmax(logits, dim=-1).to(torch.int32)
 
     # -- the device programs -----------------------------------------------
 
+    def _lanes(self, caches: dict, index: torch.Tensor) -> dict:
+        """The lanes of ``index`` gathered out of an arena: slot ids
+        (dense) or page-table rows (paged, each lane's logical view)."""
+        if self.paged:
+            return {n: (gather_pages(k, index), gather_pages(v, index))
+                    for n, (k, v) in caches.items()}
+        return {n: (k[index], v[index]) for n, (k, v) in caches.items()}
+
     @torch.no_grad()
-    def _prefill_write(self, state, fh, lanes, chunks, pos0: int,
-                       is_final, valid, dst, off: int):
-        """Run one chunk through the block stack over gathered ``lanes``
-        and store the chunk's K/V back into the arena rows ``dst`` at
-        ``off`` for the ``valid`` lanes. Returns the final-chunk hidden
-        states [w, C, E], carried per lane into the commit."""
-        params, c = self.params, self.prefill_chunk
-        tok = self._dev(chunks, torch.long)
+    def _prefill_write(self, model, params, caches, index, tok, pos0: int,
+                       src, dst, off: int):
+        """Run one chunk of ``model`` over the gathered lanes and store the
+        chunk's K/V back into the arena rows ``dst`` at ``off`` from the
+        lanes ``src``. Returns the hidden states [w, C, E]."""
+        c = self.prefill_chunk
         x = params["tok_emb"][tok] + params["pos_emb"][pos0:pos0 + c]
-        hid, lanes = self.model._cached_blocks(params, x, pos0, lanes)
-        src = self._dev(np.flatnonzero(valid), torch.long)
-        dst = self._dev(dst, torch.long)
-        for name, (k, v) in state.caches.items():
+        lanes = self._lanes(caches, index)
+        hid, lanes = model._cached_blocks(params, x, pos0, lanes)
+        for name, (k, v) in caches.items():
             lk, lv = lanes[name]
             # in place: only this chunk's window of the valid lanes
             k[dst, :, off:off + c] = lk[src, :, pos0:pos0 + c]
             v[dst, :, off:off + c] = lv[src, :, pos0:pos0 + c]
+        return hid
+
+    def _prefill_chunk(self, state, dcaches, fh, ids, chunks, pos0: int,
+                       valid, is_final):
+        """One prompt chunk for the ``w`` lanes: ``ids`` are their slot ids
+        (dense; distinct) or their page-table rows (paged, host int32 [w,
+        max_pages]: the chunk lands in ONE page, page_size %
+        prefill_chunk == 0). The draft model (``dcaches``, spec only)
+        runs the same chunk into its own arena. Returns the final-chunk
+        hidden states [w, C, E], carried per lane into the commit."""
+        ids = np.asarray(ids)
+        tok = self._dev(chunks, torch.long)
+        if self.paged:
+            index = self._dev(ids)
+            pg = pos0 // self.page_size
+            dst, off = ids[valid, pg], pos0 - pg * self.page_size
+        else:
+            index = self._dev(ids, torch.long)
+            dst, off = ids[valid], pos0
+        src = self._dev(np.flatnonzero(valid), torch.long)
+        dst = self._dev(dst, torch.long)
+        hid = self._prefill_write(self.model, self.params, state.caches,
+                                  index, tok, pos0, src, dst, off)
+        if dcaches is not None:
+            self._prefill_write(self.draft_model, self.draft_params,
+                                dcaches, index, tok, pos0, src, dst, off)
         fin = self._dev(is_final)
         return torch.where(fin[:, None, None], hid, fh)
-
-    def _prefill_batch(self, state, fh, slot_ids, chunks, pos0, valid,
-                       is_final):
-        """Dense arena: gather the lanes of ``slot_ids`` (distinct)."""
-        sid = self._dev(slot_ids, torch.long)
-        lanes = {n: (k[sid], v[sid]) for n, (k, v) in state.caches.items()}
-        return self._prefill_write(state, fh, lanes, chunks, pos0,
-                                   is_final, valid,
-                                   np.asarray(slot_ids)[valid], pos0)
-
-    def _prefill_batch_paged(self, state, fh, rows, chunks, pos0, valid,
-                             is_final):
-        """Paged arena: ``rows`` is the admitted lanes' page-table rows
-        (host int32 [w, max_pages]), copied to the device once. The chunk
-        lands in ONE page (page_size % prefill_chunk == 0)."""
-        pages = self._dev(rows)
-        lanes = {n: (gather_pages(k, pages), gather_pages(v, pages))
-                 for n, (k, v) in state.caches.items()}
-        pg = pos0 // self.page_size
-        return self._prefill_write(state, fh, lanes, chunks, pos0,
-                                   is_final, valid,
-                                   np.asarray(rows)[valid, pg],
-                                   pos0 - pg * self.page_size)
 
     @torch.no_grad()
     def _commit_batch(self, state, k: int, slot_ids, fh, last_idx, plens,
@@ -376,26 +467,113 @@ class ContinuousBatchingEngine:
         state.tok_idx += step
         return torch.stack([toks, state.active.to(torch.int32), step])
 
+    def _page_kw(self, page_table) -> dict:
+        """The paged arguments of ``_decode_slots``: the full host table,
+        copied to the device once per step (a retired slot's all-zero row
+        sinks its frozen writes into the null page)."""
+        if page_table is None:
+            return {}
+        return dict(page_table=self._dev(page_table),
+                    page_size=self.page_size)
+
     @torch.no_grad()
-    def _decode_fused(self, state):
+    def _decode_fused(self, state, page_table=None):
         """Every slot decodes (inactive ones at their frozen position,
         their writes landing where a later occupant rewrites them before
         anything attends)."""
         pos_in = torch.clamp(state.pos, max=self.max_len - 1)
         hid, _ = self.model._decode_slots(self.params, state.last_tok,
-                                          pos_in, state.caches)
+                                          pos_in, state.caches,
+                                          **self._page_kw(page_table))
         return self._finish(state, hid)
 
     @torch.no_grad()
-    def _decode_fused_paged(self, state, page_table):
-        """Paged: ``page_table`` is the full host table, copied to the
-        device once per step (a retired slot's all-zero row sinks its
-        frozen writes into the null page)."""
-        pos_in = torch.clamp(state.pos, max=self.max_len - 1)
-        hid, _ = self.model._decode_slots(
-            self.params, state.last_tok, pos_in, state.caches,
-            page_table=self._dev(page_table), page_size=self.page_size)
-        return self._finish(state, hid)
+    def _spec_step(self, state, dcaches, dprev, page_table=None):
+        """One speculative step (engine.py:573-727), in place. k draft
+        steps: the first a 2-query catch-up row over ``[pos - 1, pos]``
+        (``dprev`` int32 [S] the committed token at ``pos - 1``: on full
+        acceptance the bonus token moved ``pos`` past a position the
+        draft never took), the rest 1-query; then ONE target forward over
+        the k+1 rows; acceptance by :func:`spec_accept`; the EOS and
+        budget cuts. Rejected rows need no rollback: they lie past the
+        new ``pos``, each row masks to its own length, and the next
+        step's writes cover them. Draws at ``temperature > 0`` are keyed
+        (request, token index, role, row). Returns the packed [k+4, S]
+        array: the k+1 candidate tokens, then [emitted, still-active,
+        accepted] (``dprev`` updated in place)."""
+        k, temp = self.spec_k, self.temperature
+        max_pos = self.max_len - 1
+        kw = self._page_kw(page_table)
+        dm, dp = self.draft_model, self.draft_params
+        v = self.model.vocab_size
+        pos_in = torch.clamp(state.pos, max=max_pos)
+        cur = state.last_tok
+        drafts, qsel, qdists = [], [], []
+        for j in range(k):
+            pj = torch.clamp(pos_in + j, max=max_pos)
+            if j == 0:
+                t2 = torch.stack([dprev, cur], dim=1)
+                p2 = torch.stack([torch.clamp(pj - 1, min=0), pj], dim=1)
+                dh, _ = dm._decode_slots(dp, t2, p2, dcaches, **kw)
+                dh = dh[:, 1]
+            else:
+                dh, _ = dm._decode_slots(dp, cur, pj, dcaches, **kw)
+            dlogits = (dh @ dp["tok_emb"].T).float()
+            if temp > 0.0:
+                u = stream_uniforms(self.seed, fold_key(state.key, 1, j),
+                                    state.tok_idx, v)
+                d = gumbel_argmax(dlogits / temp, u)
+                qj = torch.softmax(dlogits / temp, dim=-1)
+                qsel.append(qj.gather(1, d[:, None].long())[:, 0])
+                qdists.append(qj)
+            else:
+                d = torch.argmax(dlogits, dim=-1).to(torch.int32)
+            drafts.append(d)
+            cur = d
+        toks = torch.stack([state.last_tok] + drafts, dim=1)   # [S, k+1]
+        cols = torch.arange(k + 1, device=pos_in.device)
+        posm = torch.clamp(pos_in[:, None] + cols, max=max_pos).to(
+            torch.int32)
+        hid, _ = self.model._decode_slots(self.params, toks, posm,
+                                          state.caches, **kw)
+        logits = (hid @ self.params["tok_emb"].T).float()   # [S, k+1, V]
+        if temp > 0.0:
+            out, n_acc = spec_accept(
+                toks, logits, temp, qsel=torch.stack(qsel, dim=1),
+                qdists=torch.stack(qdists, dim=1),
+                u=stream_uniforms(self.seed, fold_key(state.key, 2),
+                                  state.tok_idx, k),
+                u_extra=stream_uniforms(self.seed, fold_key(state.key, 3),
+                                        state.tok_idx, v))
+        else:
+            out, n_acc = spec_accept(toks, logits, 0.0)
+        active = state.active.clone()
+        n_emit = torch.minimum(n_acc + 1, state.remaining)
+        if self.eos_id is not None:
+            eos_first = torch.where(out == self.eos_id, cols[None, :],
+                                    k + 1).amin(dim=1)
+            n_emit = torch.minimum(n_emit, (eos_first + 1).to(torch.int32))
+        n_emit = torch.where(active, n_emit, 0).to(torch.int32)
+        last_idx = torch.clamp(n_emit - 1, min=0).long()
+        last_tok = out.gather(1, last_idx[:, None])[:, 0]
+        last_tok = torch.where(n_emit > 0, last_tok, state.last_tok)
+        # the next step's catch-up token, the committed token at the new
+        # pos - 1: out[n_emit - 2] once two are emitted, else the token
+        # pending this step
+        prev2 = out.gather(1, torch.clamp(n_emit - 2, min=0).long()[:, None])
+        dprev.copy_(torch.where(n_emit >= 2, prev2[:, 0],
+                                torch.where(n_emit == 1, state.last_tok,
+                                            dprev)))
+        state.remaining -= n_emit
+        spent = state.remaining <= 0
+        if self.eos_id is not None:
+            spent = spent | (last_tok == self.eos_id)
+        state.active.copy_(active & (n_emit > 0) & ~spent)
+        state.pos += n_emit
+        state.last_tok.copy_(last_tok)
+        state.tok_idx += n_emit
+        return torch.cat([out.T, n_emit[None], state.active[None].to(
+            torch.int32), torch.where(active, n_acc, 0)[None]], dim=0)
 
     # -- pool construction -------------------------------------------------
 
@@ -408,6 +586,17 @@ class ContinuousBatchingEngine:
         return init_slot_state(self.model, self.params, self.slots,
                                self.max_len, device=self.device)
 
+    def _init_draft_caches(self) -> dict:
+        """Fresh draft-model KV (spec only): a second dense arena beside
+        the target's, or a parallel page pool behind the SAME host page
+        table and allocator (draft pages are ordinary pages)."""
+        if self.paged:
+            return init_cache_arena(self.draft_model, self.draft_params,
+                                    self.kv_pages + 1, self.page_size,
+                                    device=self.device)
+        return init_cache_arena(self.draft_model, self.draft_params,
+                                self.slots, self.max_len, device=self.device)
+
     def _pages_for(self, plen: int, max_new: int) -> int:
         """Worst-case pages one request reserves at admission: the padded
         prompt (chunked prefill writes pad positions) and the full
@@ -416,6 +605,15 @@ class ContinuousBatchingEngine:
         padded = -(-plen // c) * c
         span = max(padded, plen + max_new)
         return -(-span // self.page_size)
+
+    def _sharable_pages(self, plen: int) -> int:
+        """Pages of a prompt eligible for prefix sharing: full pages
+        strictly before the LAST prefill chunk — the commit needs that
+        chunk's hidden state, so it always re-prefills privately (and
+        page_size % prefill_chunk == 0 keeps the boundary aligned)."""
+        last_chunk_start = ((plen - 1) // self.prefill_chunk) \
+            * self.prefill_chunk
+        return last_chunk_start // self.page_size
 
     def warmup(self) -> None:
         raise NotImplementedError(
@@ -473,6 +671,13 @@ class ContinuousBatchingEngine:
             self.validate(r)
         order = list(requests)
         state = self._init_state()
+        spec = self.spec_k > 0
+        dcaches = self._init_draft_caches() if spec else None
+        dprev = (torch.zeros((self.slots,), dtype=torch.int32,
+                             device=self.device) if spec else None)
+        # spec accounting: per-(slot, step) accepted-draft samples
+        spec_draft_tokens = spec_accepted = spec_samples = 0
+        spec_hist = [0] * (self.spec_k + 1)
         pool_bytes = arena_bytes(state)
         tok_bytes = kv_token_bytes(state)
         results = {r.id: RequestResult(id=r.id, prompt_len=len(r.prompt),
@@ -496,13 +701,17 @@ class ContinuousBatchingEngine:
         resident = {"now": 0, "peak": 0}
         pt = None
         page_pool: Optional[PagePool] = None
+        prefix: Optional[PrefixCache] = None
         kv_free_min = None
         if self.paged:
             pt = np.zeros((self.slots, self.max_pages), np.int32)
             page_pool = PagePool(self.kv_pages)
             kv_free_min = page_pool.free_count
+            if self.prefix_share:
+                prefix = PrefixCache(self.page_size)
         self._page_table = pt                 # test/debug visibility
         self._page_pool = page_pool
+        self._prefix_cache = prefix
         t0 = time.perf_counter()
 
         def now() -> float:
@@ -514,9 +723,9 @@ class ContinuousBatchingEngine:
                 ready.append(pending.popleft())
 
         def retire_kv(slot: int) -> None:
-            """Resident bytes drop and (paged) every page the slot held
-            goes back to the pool; the table row returns to the null
-            page."""
+            """Resident bytes drop and (paged) every page reference the
+            slot held is released; cached prefix pages survive on the
+            cache's own hold. The table row returns to the null page."""
             resident["now"] -= host_len[slot]
             host_len[slot] = 0
             if pt is None:
@@ -548,33 +757,53 @@ class ContinuousBatchingEngine:
                 busy[slot] = req
 
         def seat() -> tuple:
-            """Pop the requests this poll admits and their slots (paged:
-            while the head request's worst-case pages fit, strict FIFO)."""
+            """Pop the requests this poll admits, their slots and the
+            prefill chunks a prefix hit covers (paged: while the head
+            request's worst-case pages, less its cached prefix, fit;
+            strict FIFO, evicting cache-only pages on need)."""
             nonlocal kv_free_min
             if pt is None:
                 k = min(len(ready), len(free))
                 return ([ready.popleft() for _ in range(k)],
-                        [free.pop(0) for _ in range(k)])
-            batch, taken = [], []
+                        [free.pop(0) for _ in range(k)], [0] * k)
+            batch, taken, shared = [], [], []
             while ready and free:
                 req = ready[0]
-                need = self._pages_for(len(req.prompt), req.max_new)
+                plen = len(req.prompt)
+                total = self._pages_for(plen, req.max_new)
+                hits = (prefix.match(req.prompt,
+                                     min(self._sharable_pages(plen), total))
+                        if prefix is not None else [])
+                need = total - len(hits)
+                if not page_pool.can_alloc(need) and prefix is not None:
+                    prefix.evict(page_pool, need)
                 if not page_pool.can_alloc(need):
                     break            # head-of-line waits for pages
                 ready.popleft()
                 slot = free.pop(0)
-                pt[slot, :] = 0
-                pt[slot, :need] = page_pool.alloc(need)
+                priv = iter(page_pool.alloc(need))
+                row = pt[slot]
+                row[:] = 0
+                for pg, phys, _chain in hits:
+                    row[pg] = phys
+                    page_pool.retain(phys)
+                for pg in range(total):
+                    if row[pg] == 0:
+                        row[pg] = next(priv)
+                results[req.id].prefix_tokens = len(hits) * self.page_size
                 batch.append(req)
                 taken.append(slot)
+                shared.append(len(hits) * self.page_size
+                              // self.prefill_chunk)
             kv_free_min = min(kv_free_min, page_pool.free_count)
-            return batch, taken
+            return batch, taken, shared
 
         def admit_batch() -> None:
             """All requests ready at this poll seat in one chain:
-            ceil(max P/C) prefill calls + one commit + ONE fetch."""
+            ceil(max P/C) prefill calls (less the chunks every lane's
+            prefix hit covers) + one commit + ONE fetch."""
             nonlocal prefill_chunks, prefill_batches
-            batch, taken = seat()
+            batch, taken, shared = seat()
             if not batch:
                 return
             c = self.prefill_chunk
@@ -593,24 +822,24 @@ class ContinuousBatchingEngine:
             # other slot as a masked padding lane
             slot_ids = np.asarray(
                 taken + [s for s in range(w) if s not in taken], np.int64)
-            rows = pt[slot_ids] if pt is not None else None
+            ids = pt[slot_ids] if pt is not None else slot_ids
             tok_mat = np.zeros((w, max(n_chunks) * c), np.int64)
             for lane, req in enumerate(batch):
                 tok_mat[lane, :plens[lane]] = req.prompt
             fh = torch.zeros((w, c, self.model.embed_dim),
                              dtype=self._hid_dtype, device=self.device)
             for ci in range(max(n_chunks)):
-                valid = np.asarray([ci < n for n in n_chunks]
-                                   + [False] * (w - k))
+                # a prefix-hit lane's leading chunks are already in the
+                # pool as shared pages: its valid window starts past them
+                valid = np.asarray([shared[i] <= ci < n_chunks[i]
+                                    for i in range(k)] + [False] * (w - k))
+                if not valid.any():
+                    continue       # every lane's chunk here is cached
                 is_final = np.asarray([ci == n - 1 for n in n_chunks]
                                       + [False] * (w - k))
-                chunk = tok_mat[:, ci * c:(ci + 1) * c]
-                if pt is None:
-                    fh = self._prefill_batch(state, fh, slot_ids, chunk,
-                                             ci * c, valid, is_final)
-                else:
-                    fh = self._prefill_batch_paged(state, fh, rows, chunk,
-                                                   ci * c, valid, is_final)
+                fh = self._prefill_chunk(state, dcaches, fh, ids,
+                                         tok_mat[:, ci * c:(ci + 1) * c],
+                                         ci * c, valid, is_final)
                 prefill_chunks += 1
             packed = self._commit_batch(
                 state, k, slot_ids, fh, [(p - 1) % c for p in plens] + pad,
@@ -620,10 +849,27 @@ class ContinuousBatchingEngine:
             t = now()
             prefill_batches += 1
             batch_sizes.append(k)
+            if prefix is not None:
+                # the prompts just prefilled are cacheable: insert their
+                # full pages (the cache takes its own reference) before
+                # any retirement below can free them
+                for req, slot in zip(batch, taken):
+                    n_ins = min(self._sharable_pages(len(req.prompt)),
+                                self.max_pages)
+                    for pg, chain in enumerate(chain_hashes(
+                            req.prompt, self.page_size, n_ins)):
+                        phys = int(pt[slot, pg])
+                        if prefix.insert(chain, phys, pg):
+                            page_pool.retain(phys)
             firsts, dones = packed
             for lane, (req, slot) in enumerate(zip(batch, taken)):
                 first_token(req, slot, int(firsts[lane]),
                             bool(dones[lane]), t)
+            if spec:
+                # arm the draft's catch-up lane: right after the commit
+                # the token at pos - 1 is the prompt's last
+                dprev[self._dev(taken, torch.long)] = self._dev(
+                    [int(r.prompt[-1]) for r in batch], torch.int32)
 
         while pending or ready or busy:
             poll()
@@ -638,26 +884,39 @@ class ContinuousBatchingEngine:
                 poll()                # prefill took wall time
             if busy:
                 t_dispatch = time.perf_counter()
-                if pt is not None:
-                    packed = self._decode_fused_paged(state, pt)
+                if spec:
+                    packed = self._spec_step(state, dcaches, dprev, pt)
                 else:
-                    packed = self._decode_fused(state)
+                    packed = self._decode_fused(state, pt)
                 packed = packed.cpu().numpy()   # the ONE sync per step
                 t_now = now()
                 step_ms.append((time.perf_counter() - t_dispatch) * 1e3)
                 decode_steps += 1
-                toks, active, emitted = packed
-                occupancy_sum += int(emitted.sum())
+                if spec:
+                    tok_rows = packed[:self.spec_k + 1]   # [k+1, S]
+                    n_emit, active, n_acc = packed[self.spec_k + 1:]
+                else:
+                    toks, active, n_emit = packed
+                occupancy_sum += int((n_emit > 0).sum())
                 queue_depth.append(len(ready))
                 for slot in list(busy):
-                    if not emitted[slot]:
+                    ne = int(n_emit[slot])
+                    if not ne:
                         continue
                     rid = busy[slot].id
                     res = results[rid]
-                    res.tokens.append(int(toks[slot]))
-                    res.token_times.append(t_now)
-                    host_len[slot] += 1       # this step's KV write
-                    resident["now"] += 1
+                    if spec:
+                        res.tokens.extend(tok_rows[:ne, slot].tolist())
+                        na = int(n_acc[slot])
+                        spec_hist[na] += 1
+                        spec_draft_tokens += self.spec_k
+                        spec_accepted += na
+                        spec_samples += 1
+                    else:
+                        res.tokens.append(int(toks[slot]))
+                    res.token_times.extend([t_now] * ne)
+                    host_len[slot] += ne      # this step's KV writes
+                    resident["now"] += ne
                     if not active[slot]:
                         del busy[slot]
                         release_slot(slot, rid, t_now, decode_steps)
@@ -689,6 +948,16 @@ class ContinuousBatchingEngine:
             "kv_reserved_bytes": pool_bytes,
             "kv_resident_peak_bytes": resident["peak"] * tok_bytes,
         }
+        if spec:
+            stats.update(
+                spec_k=self.spec_k,
+                spec_steps=decode_steps,
+                spec_draft_tokens=spec_draft_tokens,
+                spec_accepted_tokens=spec_accepted,
+                spec_accept_mean=(spec_accepted / spec_samples
+                                  if spec_samples else 0.0),
+                spec_accept_hist=spec_hist,
+            )
         if self.paged:
             stats.update(
                 page_size=self.page_size,
@@ -696,4 +965,12 @@ class ContinuousBatchingEngine:
                 kv_pages_free=page_pool.free_count,
                 kv_pages_free_min=kv_free_min,
             )
+            if prefix is not None:
+                ps = prefix.stats()
+                stats.update(
+                    prefix_hits=ps["hits"],
+                    prefix_lookups=ps["lookups"],
+                    prefix_entries=ps["entries"],
+                    prefix_evictions=ps["evictions"],
+                )
         return [results[r.id] for r in order], stats

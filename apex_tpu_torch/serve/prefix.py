@@ -1,6 +1,6 @@
 # Copied verbatim from apex_tpu/serve/prefix.py (stdlib only), so the port
-# imports nothing of the JAX package. The engine imports it; prefix sharing
-# itself (prefix_share=True) is not ported yet.
+# imports nothing of the JAX package; the engine's prefix_share=True runs
+# on it.
 """Content-hashed shared-prefix page cache (r20) — prefill once, map
 everywhere.
 

@@ -32,8 +32,8 @@ import torch
 from apex_tpu_torch._device import resolve_device
 
 __all__ = ["SlotState", "PagedSlotState", "PagePool", "init_slot_state",
-           "init_paged_state", "arena_bytes", "arena_byte_report",
-           "kv_token_bytes"]
+           "init_paged_state", "init_cache_arena", "arena_bytes",
+           "arena_byte_report", "kv_token_bytes"]
 
 
 @dataclasses.dataclass
@@ -119,6 +119,22 @@ def init_paged_state(model, params, slots: int, max_len: int,
     return PagedSlotState(
         caches=_arena(model, params, kv_pages + 1, page_size, dev),
         **_scalars(slots, dev))
+
+
+def init_cache_arena(model, params, lanes: int, length: int, *,
+                     device=None) -> dict:
+    """A bare ``layer_i -> (k, v)`` cache dict, each ``[lanes, H, length,
+    hd]`` in the param dtype: the speculative draft model's KV. Dense
+    engines call it as ``(slots, max_len)`` (a second arena beside the
+    target's); paged engines as ``(kv_pages + 1, page_size)``, a parallel
+    page pool indexed by the SAME host page table and :class:`PagePool`,
+    so draft pages share reservation, eviction, refcounts and prefix
+    sharing (page 0 the null sink of both pools). The target's
+    :class:`SlotState` scalars govern both models."""
+    if lanes < 1 or length < 1:
+        raise ValueError(f"cache arena needs lanes/length >= 1, got "
+                         f"({lanes}, {length})")
+    return _arena(model, params, lanes, length, resolve_device(device))
 
 
 # -- host page allocator: copied from apex_tpu/serve/slots.py --------------

@@ -18,8 +18,10 @@ phases 26-30 lm_bench's LM served (head dim 64) and trained in fp16 and
 fp32, and the LayerNorm and BN at widths not a multiple of 4, phases 31-33
 lm_bench's LM at 8 heads of 256 (the flash forward, dq and dk/dv at D
 256), in bf16 and in fp32, phase 34 the DCGAN example's three-loss step
-under O1 (``amp.autocast``) and phase 35 lm_bench's LM with ``--remat``,
-remat under O1 and in the ViT and the Seq2Seq Transformer:
+under O1 (``amp.autocast``), phase 35 lm_bench's LM with ``--remat``,
+remat under O1 and in the ViT and the Seq2Seq Transformer, and phases 36-38
+speculative decoding on the multi-row decode kernel, the shared-prefix page
+cache, sampled ``generate`` and the fused-MLP API:
 
 0. device — needs CUDA; prints the card's ``nvidia-smi`` name and power
    limit (also as a raw line of its own) and the torch / CUDA versions.
@@ -123,13 +125,19 @@ remat under O1 and in the ViT and the Seq2Seq Transformer:
    kernel at lm_bench's [8, 16, 1024, 64] (bf16 and f32, dense and
    paged equal bit for bit, repeats bit for bit; masked SDPA beside it),
    at both head dims at the lengths 0, 1, 63-65, 127, 129 and 1024 with a
-   page of 5, its merge alone, and the timer's reading of one and two
-   empty launches and of one PyTorch elementwise call on one element (the
-   launch floor); the flash kernels' fp16 forms at [128, 4095, 64] and
-   [384, 2048, 128] (2 fp16 ulps + 2^-6 of the row's RMS; fp16 SDPA
-   beside them) and the simple form in fp32 at [128, 4095, 64] (2 fp32
-   ulps + 2^-14 of the larger of the row's and the tensor's RMS; its
-   bound at 67 TFLOP/s; fp32 SDPA beside it), and on its inputs the fp32
+   page of 5, its merge alone, its multi-row form (``decode_attention_rows``,
+   ``paged_decode_attention_rows``) at phase 36's S 8, Q 4, H 8, hd 128, L
+   1024, rows around 900, dense and paged (page 32), bf16 and fp32 and at hd 64
+   (the decode rule, each row bit-equal to a 1-query call at its length, paged
+   equal to dense, repeats; the bound over each slot's longest row; the JAX
+   package's layout beside it: rows flattened over K/V expanded per row, and Q
+   one-row calls; masked SDPA with an [S, 1, Q, L] mask), and the timer's
+   reading of one and two empty launches and of one PyTorch elementwise call on
+   one element (the launch floor); the flash kernels' fp16 forms at [128, 4095,
+   64] and [384, 2048, 128] (2 fp16 ulps + 2^-6 of the row's RMS; fp16 SDPA
+   beside them) and the simple form in fp32 at [128, 4095, 64] (2 fp32 ulps +
+   2^-14 of the larger of the row's and the tensor's RMS; its bound at 67
+   TFLOP/s; fp32 SDPA beside it), and on its inputs the fp32
    backward on the tensor cores (``flash_f32_dq``, ``flash_f32_dkv``,
    3xTF32: the same rule, its bounds at 3xTF32's 165 TFLOP/s and at 67,
    the simple form's, the plain version's and SDPA's fp32 backward times
@@ -427,14 +435,43 @@ remat under O1 and in the ViT and the Seq2Seq Transformer:
     versions' gap); and remat_models: phase 21's small ViT and phase 16's
     small Seq2Seq, one O2 grad with and without remat (both policies),
     equal bit for bit.
-36. the ``{"kernels": [...], "off_path": [...]}`` line (40 kernels; dq's
+36. serve_spec — phase 3's model and traffic with ``spec_k=3`` and
+    ``draft_from_prefix(model, params, 4)`` (serve_bench's half depth),
+    dense and on phase 4's pages: each step the draft's 2-row catch-up and
+    the target's 4 rows through the multi-row kernel (one launch a layer),
+    the draft's other 2 steps through the 1-query kernel; paged streams
+    equal to dense; tok/s, decode step, TTFT and token latency beside phase
+    3's, the acceptance histogram and mean. Then the fp32 parity gate on the
+    same widths (``serve_spec_parity``, 16 of the requests): speculative
+    greedy streams equal plain greedy, dense and paged; the self-draft's
+    mean acceptance exactly 3; a temperature-0.9 run replays its tokens and
+    histogram; ``row_invariant``: whether one layer's fp32 products give the
+    first S rows the same bits at M = S and M = 4S.
+37. serve_prefix — phase 4's paged engine with ``prefix_share=True`` over
+    phase 3's requests behind one seeded 256-token system prompt (8 pages
+    of 32): streams equal to a no-share paged run and a dense run, fewer
+    prefill chunks, hits, every page given back but the cache's own holds;
+    TTFT of the hit requests against the same requests unshared.
+38. generate_sampling, mlp — ``generate`` on phase 3's model (batch 8,
+    prompt 64, 64 new tokens, temperature 0.8, top-k 50, top-p 0.9, key 0):
+    replays, every sampled token in its step's filtered set (a replay of
+    the same calls, filtered on the CPU), ``top_k=1`` equal to greedy on
+    the same weights in fp32 (bf16 logits tie at the largest, and top-k
+    keeps ties: the tied rows are counted); then
+    ``MLP([480, 1024, 1024, 512, 256, 1])`` forward and backward at batch
+    1024 against an fp64 CPU run, output and every gradient: relu's error
+    norm within 1e-4 of the value's (a relu input at rounding distance
+    from 0 moves one sample's share of an element), sigmoid's every
+    element within 1e-5 of the largest.
+39. the ``{"kernels": [...], "off_path": [...]}`` line (42 kernels; dq's
     and dk/dv's entries also carry their ``wide`` reading and the whole
     backward's, ``backward``, at both shapes, the D-256 ones the whole
     backward at [64, 4096, 256]; the fp32 ones their readings at D 256;
-    ``flash_bwd_dbias`` its readings at D 256, 320 and ViT's fp32;
-    ``off_path``: the simple forward, dq, dk/dv and shared-bias gradient,
-    which no path takes, with their phase-2 readings and 0 launches), then
-    the ``ok`` line.
+    ``flash_bwd_dbias`` its readings at D 256, 320 and ViT's fp32; the
+    multi-row entries their fp32 and hd-64 readings and the JAX layout's
+    times; ``off_path``: the simple forward, dq, dk/dv and shared-bias
+    gradient, which no path takes, with their phase-2 readings and 0
+    launches), then the ``ok`` line.
 
 Times are CUDA-event medians of single calls with the L2 cache flushed
 before each and the stream held busy, so host launch time is not counted.
@@ -1927,6 +1964,8 @@ def counters():
     from apex_tpu_torch.ops import xentropy as XE
     return {"decode_attention": DA.decode_attention,
             "paged_decode_attention": DA.paged_decode_attention,
+            "decode_attention_rows": DA.decode_attention_rows,
+            "paged_decode_attention_rows": DA.paged_decode_attention_rows,
             "decode_merge": DA.decode_merge,
             "ln_fwd": LN.ln_fwd, "scale": MT.scale,
             "lamb_phase1": MT.lamb_phase1, "lamb_phase2": MT.lamb_phase2,
@@ -2011,6 +2050,8 @@ def serve_phase(torch, name, model, params, reqs, **kw):
           "prefill_batches": summary["prefill_batches"],
           "prefill_chunks": summary["prefill_chunks"],
           "kv_reserved_bytes": summary["kv_reserved_bytes"],
+          **{k: summary[k] for k in ("spec_k", "spec_accept_mean",
+                                     "spec_accept_hist") if k in summary},
           "launches": counts,
           "launches_per_step": {k: v / steps for k, v in counts.items()},
           "profile_8_requests": prof})
@@ -5890,6 +5931,419 @@ def remat_models_phase(torch) -> None:
           f"remat_models: grads with remat differ {out}")
 
 
+# -- phase 2: the multi-row decode form; phases 36-38 -----------------------
+
+SPEC_K = 3
+# phase 2's multi-row reading: the (k+1)-row scoring at k 3, rows at
+# lengths pos .. pos + 3 around 900
+ROW_BASES = [897, 900, 903, 880, 910, 899, 901, 905]
+
+
+def decode_rows_phase(torch, timer) -> dict:
+    """The multi-row decode form (speculative scoring:
+    ``decode_attention_rows``, ``paged_decode_attention_rows``) at S 8, Q 4, H
+    8, hd 128, L 1024, row lengths pos .. pos + 3 around 900, dense and paged
+    (page 32), bf16 and fp32, and at hd 64 (16 heads): the decode rule against
+    the plain version, each row bit-equal to a 1-query call at its length,
+    paged equal to dense, two runs equal; the time against the bound (K/V bytes
+    once for each slot's longest row, q, out), the JAX package's layout
+    beside it (rows flattened into the slot axis over K/V expanded per row
+    or the page table repeated; and Q one-row calls) and masked SDPA with
+    an [S, 1, Q, L] boolean mask."""
+    import torch.nn.functional as F
+
+    from apex_tpu_torch.ops import decode_attn as DA
+
+    gen = torch.Generator(device="cuda").manual_seed(36)
+    rows = {}
+    S, Q, L, PAGE = 8, SPEC_K + 1, 1024, 32
+    lengths = torch.tensor([[b + j for j in range(Q)] for b in ROW_BASES],
+                           dtype=torch.int32, device="cuda")
+    nmax = lengths.amax(dim=1).tolist()
+    flat_len = lengths.reshape(-1).contiguous()
+    for hd, H, dt, reading in ((128, 8, torch.bfloat16, "bfloat16"),
+                               (128, 8, torch.float32, "float32"),
+                               (64, LM_SERVE_HEADS, torch.bfloat16, "hd64")):
+        name = str(dt).split(".")[1]
+        es = torch.tensor([], dtype=dt).element_size()
+        q = torch.randn(S, Q, H, hd, generator=gen, device="cuda").to(dt)
+        k = torch.randn(S, H, L, hd, generator=gen, device="cuda").to(dt)
+        v = torch.randn(S, H, L, hd, generator=gen, device="cuda").to(dt)
+        got = DA.decode_attention_rows(q, k, v, lengths)
+        want = DA.decode_attention_plain(q, k, v, lengths)
+        torch.cuda.synchronize()
+        err, ok = max_err(got, want, name)
+        check(ok, f"decode_attention_rows {reading}: max abs err {err}")
+        rep = bool(torch.equal(DA.decode_attention_rows(q, k, v, lengths),
+                               got))
+        check(rep, f"decode_attention_rows {reading}: two runs differ")
+        qj = [q[:, j].contiguous() for j in range(Q)]
+        lj = [lengths[:, j].contiguous() for j in range(Q)]
+        one = [DA.decode_attention(qj[j], k, v, lj[j]) for j in range(Q)]
+        check(all(torch.equal(got[:, j], one[j]) for j in range(Q)),
+              f"decode_attention_rows {reading}: a row differs from the "
+              f"1-query call at its length")
+        kp, vp, table, pages = paged_copy(torch, gen, k, v, nmax, PAGE)
+        got_p = DA.paged_decode_attention_rows(q, kp, vp, lengths,
+                                               page_table=table)
+        check(torch.equal(got_p, got),
+              f"paged_decode_attention_rows {reading} differs from dense")
+        # the JAX package's layout: the rows flattened into the slot axis
+        qf = q.reshape(S * Q, H, hd)
+        kx = k[:, None].expand(S, Q, H, L, hd).reshape(S * Q, H, L, hd)
+        vx = v[:, None].expand(S, Q, H, L, hd).reshape(S * Q, H, L, hd)
+        tx = table.repeat_interleave(Q, dim=0)
+        check(torch.equal(DA.decode_attention(qf, kx, vx, flat_len),
+                          got.reshape(S * Q, H, hd)),
+              f"decode_attention_rows {reading}: the flattened layout "
+              f"differs")
+        mask = (torch.arange(L, device="cuda")[None, None, None, :]
+                < lengths[:, None, :, None])                 # [S, 1, Q, L]
+        kv_bytes = sum(2 * n * H * hd * es for n in nmax)
+        io = 2 * S * Q * H * hd * es + 4 * S * Q
+        ops = sum(n * H * (4 * hd + 5) for n in lengths.reshape(-1).tolist())
+        for kern, call, plain, lib, flat, singles, extra in (
+                ("decode_attention_rows",
+                 lambda: DA.decode_attention_rows(q, k, v, lengths),
+                 lambda: DA.decode_attention_plain(q, k, v, lengths),
+                 lambda: F.scaled_dot_product_attention(
+                     q.transpose(1, 2), k, v, attn_mask=mask),
+                 lambda: DA.decode_attention(qf, kx, vx, flat_len),
+                 lambda: [DA.decode_attention(qj[j], k, v, lj[j])
+                          for j in range(Q)], 0),
+                ("paged_decode_attention_rows",
+                 lambda: DA.paged_decode_attention_rows(
+                     q, kp, vp, lengths, page_table=table),
+                 lambda: DA.paged_decode_attention_plain(
+                     q, kp, vp, lengths, page_table=table), None,
+                 lambda: DA.paged_decode_attention(qf, kp, vp, flat_len,
+                                                   page_table=tx),
+                 lambda: [DA.paged_decode_attention(qj[j], kp, vp, lj[j],
+                                                    page_table=table)
+                          for j in range(Q)], 4 * pages)):
+            bb = bound(kv_bytes + io + extra, ops)
+            row = dict(kernel=kern, reading=reading, dtype=name,
+                       shape=[S, Q, H, L, hd], lengths=lengths.tolist(),
+                       max_abs_err=err, tol=TOL[name], repeat_equal=rep,
+                       rows_equal_one_query=True, paged_equal=True,
+                       ms=timer(call), plain_ms=timer(plain),
+                       library_ms=timer(lib) if lib else None,
+                       bound_ms=bb[0], bound_by=bb[1],
+                       flattened_ms=timer(flat),
+                       one_row_calls_ms=timer(singles),
+                       host_us=host_us(torch, call),
+                       nvidia_smi=nvidia_smi("name,power.limit"))
+            if lib is not None:
+                # the expansion the flattened layout needs, with the call
+                row["flattened_expand_ms"] = timer(
+                    lambda: DA.decode_attention(
+                        qf, k[:, None].expand(S, Q, H, L, hd).reshape(
+                            S * Q, H, L, hd),
+                        v[:, None].expand(S, Q, H, L, hd).reshape(
+                            S * Q, H, L, hd), flat_len))
+            emit({"phase": "kernels", **row})
+            rows[(kern, reading)] = row
+        del k, v, kp, vp, kx, vx
+    return rows
+
+
+def _stream_equal(a, b) -> bool:
+    return [r.tokens for r in a] == [r.tokens for r in b]
+
+
+def row_invariance(torch, params, s: int, q_rows: int) -> dict:
+    """Whether one layer's fp32 products give each of the first ``s`` rows
+    the same bits at M = s and at M = s * q_rows (cuBLAS picks its kernel,
+    and with it the order of the sums, by the shape)."""
+    lp = params["layer_0"]
+    g = torch.Generator(device="cuda").manual_seed(7)
+    out = {}
+    for name, w in (("in_proj", lp["attn"]["in_proj"]),
+                    ("out_proj", lp["attn"]["out_proj"]),
+                    ("mlp_w1", lp["mlp"]["w1"]), ("mlp_w2", lp["mlp"]["w2"]),
+                    ("head", params["tok_emb"].T)):
+        x = torch.randn(s * q_rows, w.shape[0], generator=g, device="cuda",
+                        dtype=w.dtype)
+        out[name] = bool(torch.equal((x @ w)[:s], x[:s] @ w))
+    return out
+
+
+def serve_spec_phase(torch, model, params, reqs, base: dict) -> tuple:
+    """Phase 36: phase 3's model and traffic with ``spec_k=3`` and
+    ``draft_from_prefix(model, params, 4)`` (serve_bench's half depth),
+    dense and on phase 4's pages: the multi-row kernel in every step,
+    paged streams equal to dense, the readings beside phase 3's (``base``).
+    Then the fp32 parity gate on the same widths with 16 of the requests:
+    speculative greedy streams equal plain greedy, dense and paged; the
+    self-draft's acceptance exactly k; a run at temperature 0.9 replays its
+    tokens and histogram; and ``row_invariant``."""
+    from apex_tpu_torch.models import TransformerLM
+    from apex_tpu_torch.serve import (ContinuousBatchingEngine,
+                                      draft_from_prefix, summarize_serving)
+
+    draft = draft_from_prefix(model, params, model.num_layers // 2)
+    dl = draft[0].num_layers
+    spec = dict(spec_k=SPEC_K, draft=draft)
+    dense, dstats, dcounts = serve_phase(torch, "serve_spec_dense", model,
+                                         params, reqs, **spec)
+    steps = dstats["decode_steps"]
+    # per step: the target's (k+1) rows in each layer, the draft's 2-row
+    # catch-up in each of its layers, then k-1 one-row draft steps
+    check(dcounts["decode_attention_rows"] == (model.num_layers + dl) * steps
+          and dcounts["decode_attention"] == dl * (SPEC_K - 1) * steps
+          and dcounts["paged_decode_attention_rows"] == 0,
+          f"serve_spec_dense: launches {dcounts} for {steps} steps")
+    paged, pstats, pcounts = serve_phase(
+        torch, "serve_spec_paged", model, params, reqs, paged=True,
+        page_size=32, kv_pages=8 * (1024 // 32) // 2, **spec)
+    psteps = pstats["decode_steps"]
+    check(pcounts["paged_decode_attention_rows"]
+          == (model.num_layers + dl) * psteps
+          and pcounts["decode_attention_rows"] == 0,
+          f"serve_spec_paged: launches {pcounts} for {psteps} steps")
+    same = _stream_equal(paged, dense)
+    d = summarize_serving(dense, dstats, offered_rps=8.0)
+    row = {"phase": "serve_spec", "spec_k": SPEC_K, "draft_layers": dl,
+           "paged_equals_dense": same,
+           "accept_mean": {"dense": d["spec_accept_mean"],
+                           "paged": pstats["spec_accept_mean"]},
+           "accept_hist": {"dense": d["spec_accept_hist"],
+                           "paged": pstats["spec_accept_hist"]},
+           "multi_row_launches": {
+               "dense": dcounts["decode_attention_rows"],
+               "paged": pcounts["paged_decode_attention_rows"]}}
+    for key in ("tokens_per_s", "decode_step_ms", "ttft_ms", "token_lat_ms"):
+        row[key] = {"spec": d[key], "phase_3": base[key]}
+    emit(row)
+    check(same, "serve_spec: paged spec streams differ from dense")
+
+    # the fp32 parity gate
+    m32 = TransformerLM(vocab_size=32768, max_seq_len=1024, embed_dim=1024,
+                        num_heads=8, num_layers=8)
+    p32 = m32.init(torch.Generator().manual_seed(0))
+    d32 = draft_from_prefix(m32, p32, m32.num_layers // 2)
+    r16 = reqs[:16]
+    kw = dict(slots=8, max_len=1024, prefill_chunk=32)
+    pages = dict(paged=True, page_size=32, kv_pages=8 * (1024 // 32) // 2)
+    plain, _ = ContinuousBatchingEngine(m32, p32, **kw).run(r16)
+    sd, sds = ContinuousBatchingEngine(m32, p32, spec_k=SPEC_K, draft=d32,
+                                       **kw).run(r16)
+    sp, _ = ContinuousBatchingEngine(m32, p32, spec_k=SPEC_K, draft=d32,
+                                     **kw, **pages).run(r16)
+    _, self_stats = ContinuousBatchingEngine(
+        m32, p32, spec_k=SPEC_K, draft=(m32, p32), **kw).run(r16)
+    hot = ContinuousBatchingEngine(m32, p32, spec_k=SPEC_K, draft=d32,
+                                   temperature=0.9, seed=0, **kw)
+    a, sa = hot.run(r16)
+    b, sb = hot.run(r16)
+    gate = {"phase": "serve_spec_parity", "dtype": "float32",
+            "requests": len(r16),
+            "dense_equals_plain": _stream_equal(sd, plain),
+            "paged_equals_plain": _stream_equal(sp, plain),
+            "first_difference": next(
+                (i for i, (x, y) in enumerate(zip(sd, plain))
+                 if x.tokens != y.tokens), None),
+            "accept_mean": sds["spec_accept_mean"],
+            "self_draft_accept_mean": self_stats["spec_accept_mean"],
+            "self_draft_hist": self_stats["spec_accept_hist"],
+            "temperature_replays": _stream_equal(a, b)
+            and sa["spec_accept_hist"] == sb["spec_accept_hist"],
+            "temperature_hist": sa["spec_accept_hist"],
+            "temperature_differs_from_greedy": not _stream_equal(a, sd),
+            "row_invariant": row_invariance(torch, p32, 8, SPEC_K + 1)}
+    emit(gate)
+    check(gate["dense_equals_plain"] and gate["paged_equals_plain"],
+          "serve_spec_parity: fp32 speculative greedy streams differ from "
+          "plain greedy")
+    check(gate["self_draft_accept_mean"] == float(SPEC_K),
+          f"serve_spec_parity: self-draft acceptance "
+          f"{gate['self_draft_accept_mean']}, not {SPEC_K}")
+    check(gate["temperature_replays"],
+          "serve_spec_parity: the temperature run does not replay")
+    del m32, p32, d32
+    return dcounts, pcounts
+
+
+def serve_prefix_phase(torch, model, params, reqs) -> dict:
+    """Phase 37: phase 4's paged engine with ``prefix_share=True`` over the
+    same requests, each behind one seeded 256-token system prompt
+    (serve_bench's ``--system-prompt-len`` shape: 8 pages of 32): streams
+    equal to a no-share paged run and a dense run, fewer prefill chunks,
+    hits, every page given back but the cache's own holds; TTFT of the hit
+    requests against the same requests without sharing."""
+    import dataclasses
+
+    import numpy as np
+
+    from apex_tpu_torch.serve import (ContinuousBatchingEngine,
+                                      summarize_serving)
+
+    sys_prompt = np.random.RandomState(37).randint(
+        0, model.vocab_size, 256).astype(np.int32)
+    sreqs = [dataclasses.replace(r, prompt=np.concatenate(
+        [sys_prompt, np.asarray(r.prompt, np.int32)])) for r in reqs]
+    kw = dict(slots=8, max_len=1024, prefill_chunk=32)
+    pages = dict(paged=True, page_size=32, kv_pages=8 * (1024 // 32) // 2)
+    zero_counts()
+    dense, _ = ContinuousBatchingEngine(model, params, **kw).run(sreqs)
+    noshare, nss = ContinuousBatchingEngine(model, params, **kw,
+                                            **pages).run(sreqs)
+    share_eng = ContinuousBatchingEngine(model, params, prefix_share=True,
+                                         **kw, **pages)
+    share, ss = share_eng.run(sreqs)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    hit = [r.id for r in share if r.prefix_tokens > 0]
+
+    def ttft(results):
+        vals = sorted(r.ttft_s * 1e3 for r in results if r.id in hit)
+        return {"p50": statistics.median(vals),
+                "p95": vals[min(len(vals) - 1,
+                                int(math.ceil(0.95 * len(vals))) - 1)]}
+
+    cached = share_eng._prefix_cache.pages
+    released = (ss["kv_pages_free"] + len(cached) == pages["kv_pages"]
+                and all(share_eng._page_pool.ref(p) == 1 for p in cached)
+                and not share_eng._page_table.any())
+    summary = summarize_serving(share, ss, offered_rps=8.0)
+    row = {"phase": "serve_prefix", "system_prompt": 256,
+           "requests": len(sreqs), "share_equals_noshare":
+           _stream_equal(share, noshare),
+           "share_equals_dense": _stream_equal(share, dense),
+           "prefill_chunks": {"share": ss["prefill_chunks"],
+                              "noshare": nss["prefill_chunks"]},
+           "prefix_hits": ss["prefix_hits"], "hit_requests": len(hit),
+           "prefix_entries": ss["prefix_entries"],
+           "prefix_evictions": ss["prefix_evictions"],
+           "pages_released": released,
+           "kv_pages_free": ss["kv_pages_free"],
+           "hit_ttft_ms": {"share": ttft(share) if hit else None,
+                           "noshare": ttft(noshare) if hit else None},
+           "ttft_ms": {"share": summary["ttft_ms"],
+                       "noshare": summarize_serving(
+                           noshare, nss, offered_rps=8.0)["ttft_ms"]},
+           "tokens_per_s": summary["tokens_per_s"], "launches": counts}
+    emit(row)
+    check(row["share_equals_noshare"] and row["share_equals_dense"],
+          "serve_prefix: shared-prefix streams differ")
+    check(ss["prefill_chunks"] < nss["prefill_chunks"]
+          and ss["prefix_hits"] > 0 and hit,
+          "serve_prefix: no prefill chunk saved or no hit")
+    check(released, "serve_prefix: pages held past the cache's own holds")
+    return counts
+
+
+def generate_mlp_phase(torch, model, params) -> None:
+    """Phase 38: sampled ``generate`` on phase 3's model (batch 8, prompt
+    64, 64 new tokens, temperature 0.8, top-k 50, top-p 0.9): tokens
+    replay under the same key, each sampled token lies in its step's
+    filtered set (the step's logits by a replay of the same calls, the set
+    by ``_filter_logits`` on the CPU), ``top_k=1`` equals greedy on the
+    same weights in fp32 (top-k keeps ties at the k-th value, and bf16
+    logits tie at the largest: the rows that do are counted). Then
+    ``MLP([480, 1024, 1024, 512, 256, 1])`` forward and backward at batch
+    1024 on the card against an fp64 CPU run of the same params, relu and
+    sigmoid."""
+    from apex_tpu_torch.mlp import MLP
+
+    g = torch.Generator().manual_seed(38)
+    prompt = torch.randint(0, model.vocab_size, (8, 64), generator=g).to(
+        "cuda", torch.int32)
+    kw = dict(max_new_tokens=64, temperature=0.8, top_k=50, top_p=0.9,
+              key=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a = model.generate(params, prompt, **kw)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    b = model.generate(params, prompt, **kw)
+    greedy = model.generate(params, prompt, max_new_tokens=64)
+    hid, caches = model._prefill(params, prompt, 128)
+    outside, kept, ties = 0, [], 0
+    for t in range(63, 127):
+        if t > 63:
+            hid, caches = model._decode_one(params, a[:, t], t, caches)
+        logits = (hid @ params["tok_emb"].T).float().cpu()
+        filt = type(model)._filter_logits(logits / 0.8, 50, 0.9)
+        tok = a[:, t + 1].cpu().long()
+        outside += int((~torch.isfinite(filt.gather(1, tok[:, None]))).sum())
+        kept.extend(torch.isfinite(filt).sum(dim=1).tolist())
+        top2 = logits.topk(2, dim=1).values
+        ties += int((top2[:, 0] == top2[:, 1]).sum())
+    # top_k=1 keeps every token tied at the largest logit (the JAX filter's
+    # logits >= k-th); bf16 logits tie there often (ties above: the rows
+    # whose two largest are equal), so greedy is pinned on the same
+    # weights in fp32
+    from apex_tpu_torch.ops import flat
+    p32 = flat.tree_map(lambda t: t.float(), params)
+    top1 = model.generate(p32, prompt, max_new_tokens=64, temperature=0.8,
+                          top_k=1, key=0)
+    greedy32 = model.generate(p32, prompt, max_new_tokens=64)
+    row = {"phase": "generate_sampling", "batch": 8, "prompt": 64,
+           "new_tokens": 64, "temperature": 0.8, "top_k": 50, "top_p": 0.9,
+           "seconds": gen_s, "tokens_per_s": 8 * 64 / gen_s,
+           "replays": bool(torch.equal(a, b)),
+           "outside_filtered_set": outside,
+           "filtered_set_size": {"min": min(kept), "max": max(kept),
+                                 "mean": sum(kept) / len(kept)},
+           "bf16_rows_tied_at_the_max": ties,
+           "top_k_1_equals_greedy_fp32": bool(torch.equal(top1, greedy32)),
+           "differs_from_greedy": not bool(torch.equal(a, greedy))}
+    emit(row)
+    check(row["replays"] and outside == 0
+          and row["top_k_1_equals_greedy_fp32"]
+          and row["differs_from_greedy"], f"generate_sampling: {row}")
+    del p32
+
+    sizes = [480, 1024, 1024, 512, 256, 1]
+    x = torch.randn(1024, sizes[0], generator=g)
+    w = torch.randn(1024, 1, generator=g)
+
+    def run(m, params, x, w):
+        leaves = {n: t.clone().requires_grad_(True) for n, t in
+                  params.items()}
+        xr = x.clone().requires_grad_(True)
+        y = m.apply(leaves, xr)
+        (y * w).sum().backward()
+        return y.detach(), {n: t.grad for n, t in leaves.items()}, xr.grad
+
+    def rel(got, want):
+        d = got.double().cpu() - want
+        return (float(d.norm() / want.norm().clamp_min(1e-30)),
+                float(d.abs().max() / want.abs().max().clamp_min(1e-30)))
+
+    # relu (the default) against fp64 by the error's norm over the value's:
+    # a pre-activation within fp32's rounding of 0 passes its gradient in
+    # one run and not in the other, which moves single elements by one
+    # sample's share (up to 1.6e-4 of the largest on an H100 at 700 W);
+    # sigmoid, smooth, element by element
+    row = {"phase": "mlp", "sizes": sizes, "batch": 1024, "dtype": "float32",
+           "nvidia_smi": nvidia_smi("name,power.limit")}
+    for act, tol, which in (("relu", 1e-4, 0), ("sigmoid", 1e-5, 1)):
+        m = MLP(sizes, activation=act)
+        p = m.init(torch.Generator().manual_seed(38))
+        xc, wc = x.cuda(), w.cuda()
+        y, gp, gx = run(m, p, xc, wc)
+        y64, gp64, gx64 = run(m, {n: t.double().cpu() for n, t in p.items()},
+                              x.double(), w.double())
+        errs = {"y": rel(y, y64), "dx": rel(gx, gx64),
+                **{f"d{n}": rel(gp[n], gp64[n]) for n in gp}}
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        for _ in range(10):
+            run(m, p, xc, wc)
+        ev[1].record()
+        torch.cuda.synchronize()
+        row[act] = {"rel_l2_err": {k: e[0] for k, e in errs.items()},
+                    "rel_max_err": {k: e[1] for k, e in errs.items()},
+                    "held": ("rel_l2_err", "rel_max_err")[which],
+                    "tol": tol,
+                    "fwd_bwd_ms": ev[0].elapsed_time(ev[1]) / 10}
+        row[act]["ok"] = all(e[which] <= tol for e in errs.values())
+    emit(row)
+    check(row["relu"]["ok"] and row["sigmoid"]["ok"], f"mlp: {row}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6043,6 +6497,8 @@ def main() -> int:
     # the split decode kernel at head dim 64 and its merge; the flash
     # kernels' fp16 forms and the simple form; the scalar tails
     rows.update(decode_kernel_phase(torch, timer))
+    # the multi-row form (speculative scoring) at phase 36's rows
+    rows.update(decode_rows_phase(torch, timer))
     rows.update(flash_forms_phase(torch, timer))
     emit({"phase": "flash_bits", **flash_bits(torch)})
     emit({"phase": "ln_wide_bits", **ln_wide_bits(torch)})
@@ -6164,7 +6620,17 @@ def main() -> int:
                                      lrow["peak_mem_bytes"])
     del lm_params
 
-    # 36. the kernels line, then the contract line
+    # 36-38. speculative decoding on phase 3's model and traffic with the
+    # fp32 parity gate; the shared-prefix cache on phase 4's engine;
+    # sampled generate and the MLP
+    from apex_tpu_torch.serve import summarize_serving
+    spec_counts = serve_spec_phase(
+        torch, model, params, reqs,
+        summarize_serving(dense, dstats, offered_rps=8.0))
+    prefix_counts = serve_prefix_phase(torch, model, params, reqs)
+    generate_mlp_phase(torch, model, params)
+
+    # 39. the kernels line, then the contract line
     launches = {k: dcounts[k] + pcounts[k] for k in dcounts}
     launches.update({k: tcounts[k] for k in TRAIN_KERNELS})
     for k in LM_PER_STEP:                # ln_fwd: serving and training
@@ -6201,11 +6667,24 @@ def main() -> int:
         launches[k] += gan_counts[k]
     for k, n in remat_counts.items():    # remat, and O1's fp32 forms
         launches[k] += n
+    for counts in spec_counts + (prefix_counts,):  # spec, prefix share
+        for k in ("decode_attention", "paged_decode_attention",
+                  "decode_attention_rows", "paged_decode_attention_rows",
+                  "decode_merge", "ln_fwd"):
+            launches[k] += counts[k]
     sources = {
         "decode_attention": (
             "apex_tpu_torch/ops/cuda/csrc/decode_attn.cu",
             "apex_tpu/ops/pallas/decode_attn.py:53"),
         "paged_decode_attention": (
+            "apex_tpu_torch/ops/cuda/csrc/decode_attn.cu",
+            "apex_tpu/ops/pallas/decode_attn.py:122"),
+        # the same kernel with Q query rows a slot (speculative scoring),
+        # where the JAX package flattens the rows into the slot axis
+        "decode_attention_rows": (
+            "apex_tpu_torch/ops/cuda/csrc/decode_attn.cu",
+            "apex_tpu/ops/pallas/decode_attn.py:53"),
+        "paged_decode_attention_rows": (
             "apex_tpu_torch/ops/cuda/csrc/decode_attn.cu",
             "apex_tpu/ops/pallas/decode_attn.py:122"),
         "ln_fwd": ("apex_tpu_torch/ops/cuda/csrc/layer_norm.cu",
@@ -6343,6 +6822,11 @@ def main() -> int:
     row_keys = {"decode_attention": ("decode_attention", "bfloat16"),
                 "paged_decode_attention": ("paged_decode_attention",
                                            "bfloat16"),
+                # S 8, Q 4, H 8, hd 128, rows around 900, bf16
+                "decode_attention_rows": ("decode_attention_rows",
+                                          "bfloat16"),
+                "paged_decode_attention_rows": (
+                    "paged_decode_attention_rows", "bfloat16"),
                 "ln_fwd": ("ln_fwd", "bfloat16", 8),
                 # the training kernels at the step's own dtype (fp32
                 # master grads and state)
@@ -6446,6 +6930,14 @@ def main() -> int:
         if name == "flash_simt_dbias":
             entry["vit_bf16"] = {k: rows[(name, "bfloat16")].get(k)
                                  for k in sub}
+        if name in ("decode_attention_rows", "paged_decode_attention_rows"):
+            # fp32 and head dim 64; the JAX package's layout beside
+            entry["readings"] = {
+                reading: {k: rows[(name, reading)].get(k)
+                          for k in sub + ("flattened_ms", "one_row_calls_ms",
+                                          "flattened_expand_ms")
+                          if k in rows[(name, reading)]}
+                for reading in ("bfloat16", "float32", "hd64")}
         if name in ("decode_attention", "paged_decode_attention"):
             # lm_bench's serving shape, head dim 64
             entry["hd64"] = {k: rows[(name, "hd64", "bfloat16")][k]
@@ -6535,7 +7027,7 @@ def main() -> int:
                 for key in rows
                 if len(key) == 2 and key[0] == name and key[1] != "lm"}
         (off if name in off_path else kernels).append(entry)
-    check(len(kernels) == 40 and all(e["launches"] > 0 for e in kernels)
+    check(len(kernels) == 42 and all(e["launches"] > 0 for e in kernels)
           and len(off) == 4 and all(e["launches"] == 0 for e in off),
           f"kernels line: {[(e['name'], e['launches']) for e in kernels]}, "
           f"off the paths: {[(e['name'], e['launches']) for e in off]}")

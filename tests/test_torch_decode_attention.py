@@ -179,7 +179,23 @@ def test_cpu_tensors_run_the_plain_version_and_launch_nothing(dense,
 
 
 def test_multi_row_form_waits_for_spec_decoding(dense):
+    """The [S, Q, H, hd] form (speculative scoring) is ported: each row
+    masked to its own length matches the JAX reference with a query axis,
+    and a one-row call equals the 1-query call."""
     q, k, v, lengths = dense
-    with pytest.raises(NotImplementedError, match="multi-row"):
-        TDA.slot_decode_attention(_t(q)[:, None], _t(k), _t(v),
-                                  _t(lengths)[:, None])
+    rng = np.random.RandomState(7)
+    qm = rng.randn(S, 3, H, HD).astype(np.float32)
+    lm = np.stack([np.clip(lengths - 2 + j, 0, L)
+                   for j in range(3)], axis=1).astype(np.int32)
+    want = JDA.slot_decode_attention(jnp.asarray(qm), jnp.asarray(k),
+                                     jnp.asarray(v), jnp.asarray(lm),
+                                     impl="reference")
+    got = TDA.slot_decode_attention(_t(qm), _t(k), _t(v), _t(lm))
+    assert got.shape == (S, 3, H, HD)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    one = TDA.slot_decode_attention(_t(q)[:, None], _t(k), _t(v),
+                                    _t(lengths)[:, None])
+    np.testing.assert_allclose(
+        one[:, 0].numpy(),
+        TDA.slot_decode_attention(_t(q), _t(k), _t(v), _t(lengths)).numpy(),
+        **TOL)

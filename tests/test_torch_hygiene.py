@@ -27,6 +27,7 @@ def _sources():
                                         ROOT / "flash_dbias_ab.py",
                                         ROOT / "ln_bwd_wide_ab.py",
                                         ROOT / "timer_load_ab.py",
+                                        ROOT / "decode_rows_ab.py",
                                         ROOT / "flash_f32_dq_check.py"]
 
 
@@ -81,6 +82,17 @@ def test_the_wide_ln_ab_script_refuses_without_a_card():
     CUDA it exits 2 before it builds, unpacks or starts anything."""
     env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
     out = subprocess.run([sys.executable, "ln_bwd_wide_ab.py", "variants"],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=120, env=env)
+    assert out.returncode == 2 and "needs an NVIDIA card" in out.stderr
+    assert out.stdout == ""
+
+
+def test_the_decode_rows_ab_script_refuses_without_a_card():
+    """``decode_rows_ab.py`` builds and times on the card only: without
+    CUDA it exits 2 before it builds or starts anything."""
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    out = subprocess.run([sys.executable, "decode_rows_ab.py", "variants"],
                          cwd=ROOT, capture_output=True, text=True,
                          timeout=120, env=env)
     assert out.returncode == 2 and "needs an NVIDIA card" in out.stderr

@@ -186,6 +186,8 @@ _BAD_ENGINES = [
     dict(paged=True, page_size=8, kv_pages=3),
     dict(kv_pages=8),
     dict(paged=True, fused=False),
+    dict(spec_k=2),
+    dict(spec_k=-1),
 ]
 
 
@@ -260,11 +262,19 @@ def test_temperature_replays_and_is_slot_independent(models, engine):
 
 def test_unported_options_name_their_roadmap_row(models, engine):
     _, _, tm, tp = models
-    for kw in (dict(fused=False), dict(spec_k=2),
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        ContinuousBatchingEngine(tm, tp, slots=2, max_len=32,
+                                 prefill_chunk=4, device="cpu", fused=False)
+    # speculative decoding and prefix sharing are ported: they construct,
+    # and refuse what the JAX engine refuses
+    from apex_tpu_torch.serve import draft_from_prefix
+    for kw in (dict(spec_k=2, draft=draft_from_prefix(tm, tp, 1)),
                dict(paged=True, page_size=8, prefix_share=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            ContinuousBatchingEngine(tm, tp, slots=2, max_len=32,
-                                     prefill_chunk=4, device="cpu", **kw)
+        ContinuousBatchingEngine(tm, tp, slots=2, max_len=32,
+                                 prefill_chunk=4, device="cpu", **kw)
+    with pytest.raises(ValueError, match="spec_k needs draft"):
+        ContinuousBatchingEngine(tm, tp, slots=2, max_len=32,
+                                 prefill_chunk=4, device="cpu", spec_k=2)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         engine.run(_requests(2), tracer=object())
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

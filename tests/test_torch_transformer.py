@@ -170,7 +170,11 @@ def test_unported_options_refuse(models):
         TLM(vocab_size=V, remat_policy="dots_saveable", device="cpu")
     with pytest.raises(ValueError, match="unknown remat_policy"):
         TLM(vocab_size=V, remat=True, remat_policy="x", device="cpu")
+    # sampling is ported: like JAX, a temperature needs a key
     _, _, tm, tp = models
-    with pytest.raises(NotImplementedError, match="greedily"):
+    with pytest.raises(ValueError, match="PRNG key"):
         tm.generate(tp, torch.zeros((1, 3), dtype=torch.int32),
                     max_new_tokens=2, temperature=0.5)
+    out = tm.generate(tp, torch.zeros((1, 3), dtype=torch.int32),
+                      max_new_tokens=2, temperature=0.5, key=3)
+    assert out.shape == (1, 5)
