@@ -221,7 +221,7 @@ class TransformerLM:
     # -- incremental decoding (KV cache) ---------------------------------
 
     @torch.no_grad()
-    def _cached_blocks(self, params, x, pos0: int, caches):
+    def _cached_blocks(self, params, x, pos0, caches):
         """The inference block stack shared by the one-token decode step
         and the chunked prompt prefill. x: [B, T, E] embedded inputs for
         absolute positions pos0..pos0+T-1; caches: ``layer_i -> (k, v)``
@@ -229,20 +229,37 @@ class TransformerLM:
         pos0 (the JAX version returns updated copies), then attention runs
         against the whole cache with absolute causal masking
         (``q_start=pos0`` hides the future and the unwritten tail).
-        Returns (final-LN hidden [B, T, E], caches)."""
+        ``pos0`` is an int or an int64 tensor on the device, [1] (one
+        start, as JAX traces it) or [B] (a start a lane: the serialized
+        decode step); the tensor forms give the int form's bits and let
+        one captured program serve every position. Returns (final-LN
+        hidden [B, T, E], caches)."""
         e, h = self.embed_dim, self.num_heads
         hd = e // h
         b, t, _ = x.shape
+        if isinstance(pos0, torch.Tensor):
+            start = pos0.reshape(-1).expand(b)                    # [B]
+            lane = torch.arange(b, device=x.device)[:, None]
+            win = start[:, None] + torch.arange(t, device=x.device)  # [B,T]
+            q_start = start[:, None, None, None]     # mask [B, 1, T, T_max]
         for i in range(self.num_layers):
             lp = params[f"layer_{i}"]
             ap = lp["attn"]
             qkv = self._ln(x, lp["ln1"]) @ ap["in_proj"] + ap["in_proj_bias"]
             q, k, v = torch.split(qkv, e, dim=-1)              # [B, T, E]
             ck, cv = caches[f"layer_{i}"]
-            ck[:, :, pos0:pos0 + t] = k.reshape(b, t, h, hd).transpose(1, 2)
-            cv[:, :, pos0:pos0 + t] = v.reshape(b, t, h, hd).transpose(1, 2)
+            if isinstance(pos0, torch.Tensor):
+                ck[lane, :, win] = k.reshape(b, t, h, hd)
+                cv[lane, :, win] = v.reshape(b, t, h, hd)
+            else:
+                q_start = pos0
+                ck[:, :, pos0:pos0 + t] = k.reshape(b, t, h, hd).transpose(
+                    1, 2)
+                cv[:, :, pos0:pos0 + t] = v.reshape(b, t, h, hd).transpose(
+                    1, 2)
             qh = q.reshape(b, t, h, hd).transpose(1, 2)
-            a = reference_attention(qh, ck, cv, causal=True, q_start=pos0)
+            a = reference_attention(qh, ck, cv, causal=True,
+                                    q_start=q_start)
             a = a.transpose(1, 2).reshape(b, t, e) @ ap["out_proj"] \
                 + ap["out_proj_bias"]
             x = x + a

@@ -232,7 +232,9 @@ def reference_attention(q, k, v, bias=None, *, kv_bias=None,
     additive score bias broadcastable to [..., Sq, Sk], ``kv_bias`` a
     per-key one [..., Sk] broadcast over the queries. With ``causal``,
     query row i (absolute position ``q_start + i``) sees keys at absolute
-    positions ``k_start + j <= q_start + i``. ``dropout_rate`` drops the
+    positions ``k_start + j <= q_start + i`` (``q_start`` may be an int
+    tensor broadcastable as [..., 1, 1]: a start per leading index, as the
+    serving engine's captured programs pass it). ``dropout_rate`` drops the
     normalized probabilities with the kernels' hash, the leading dims
     flattened to the bh index. Returns [..., Sq, d] in q's dtype and, with
     ``return_lse``, the fp32 per-row logsumexp [..., Sq] (``NEG_INF`` for a

@@ -1,7 +1,8 @@
 """Serving tier of the port (counterpart of ``apex_tpu/serve``): the slot
-KV pool (dense and paged), the continuous-batching engine on its fused
-path with speculative decoding and the shared-prefix page cache, and
-synthetic traffic with the ``serving`` summary."""
+KV pool (dense and paged), the continuous-batching engine, fused and
+serialized, with speculative decoding and the shared-prefix page cache,
+its device programs as CUDA graphs (``serve.programs``), and synthetic
+traffic with the ``serving`` summary."""
 
 from apex_tpu_torch.serve.engine import (ContinuousBatchingEngine, Request,
                                          RequestResult, draft_from_prefix)

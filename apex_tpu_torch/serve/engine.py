@@ -1,37 +1,51 @@
-"""Continuous-batching engine — counterpart of ``apex_tpu/serve/engine.py``
-on its fused path, dense and paged, with speculative decoding and the
+"""Continuous-batching engine — counterpart of ``apex_tpu/serve/engine.py``,
+fused and serialized, dense and paged, with speculative decoding and the
 shared-prefix page cache.
 
-The device work per scheduler poll and step is the JAX engine's three
-programs, run eagerly:
+The device work per scheduler poll and step is the JAX engine's programs,
+each a :class:`~apex_tpu_torch.serve.programs.DeviceProgram`: on the card a
+CUDA graph captured at its first call (or by :meth:`warmup`) and replayed
+after, the counterpart of a jitted, donated XLA program; on the CPU the
+body run eagerly. Each body reads its host inputs from a fixed input block
+(ONE host->device copy a call) and updates the engine's state in place.
 
-1. ``_prefill_chunk`` — one ``TransformerLM._cached_blocks`` pass over one
-   prompt chunk for all the requests admitted in this poll: their lanes
-   are gathered out of the arena (by slot, or by page-table row), run as
-   one batch, and the chunk just written is stored back for the lanes
-   that had a chunk at this depth (paged: into the one page that holds
-   the chunk). A speculative engine runs its draft model's chunk right
-   behind, into the draft's arena.
-2. ``_commit_batch`` — every admitted lane's first token from its final
-   chunk's hidden state, sampled, and the slots armed; ONE device->host
-   fetch per admission batch, the TTFT point.
-3. ``_decode_fused`` — ONE step for all slots through
+1. ``prefill`` — one ``TransformerLM._cached_blocks`` pass over one prompt
+   chunk for all the requests admitted in this poll: their lanes are
+   gathered out of the arena (by slot, or by page-table row), run as one
+   batch at the chunk's start ``pos0`` (a device scalar, as JAX traces
+   it), and every lane's window is stored back, the lanes without a chunk
+   at this depth writing back what they gathered (paged: into the one
+   page that holds the chunk, taken from ``pos0`` on the device). A
+   speculative engine runs its draft model's chunk right behind
+   (``draft_prefill``), into the draft's arena.
+2. ``commit`` — every admitted lane's first token from its final chunk's
+   hidden state, sampled, and the slots armed through a valid mask; ONE
+   device->host fetch per admission batch, the TTFT point.
+3. ``decode`` — ONE step for all slots through
    ``TransformerLM._decode_slots`` (the LayerNorm and decode attention
    kernels on the card), then sampling and EOS/budget retirement on the
    device; ONE fetch per step, the packed ``[3, S]`` array. With
-   ``spec_k`` it is ``_spec_step`` instead (below), its fetch the packed
-   ``[k + 4, S]`` array.
+   ``spec_k`` it is the speculative step instead (below), its fetch the
+   packed ``[k + 4, S]`` array.
 
 Where the JAX engine donates its state to each program and rebinds the
-result, this engine updates the KV arena and the slot scalars IN PLACE.
-Where a JAX program scatters every lane back and the invalid lanes write
-their own gathered values, this one writes only the valid lanes: the
-result is the same. Prefill and commit always run at the full pool width,
-the admitted lanes first and the other slots as masked padding lanes (the
-JAX engine's width-``slots`` program). A lane's arithmetic then never
-depends on how many requests share its poll: cuBLAS picks its kernel, and
-with it the summation order, by the product's shape, so a variable width
-would make greedy streams depend on arrival timing on the card.
+result, this engine allocates the pool once and updates it IN PLACE;
+``run`` resets it in place at its start, so every run starts from a fresh
+pool and the captured graphs keep their addresses. Prefill and commit run
+at the full pool width, the admitted lanes first and the other slots as
+masked padding lanes (the JAX engine's width-``slots`` program; JAX also
+compiles a ladder of narrower widths, the port has the one width). A
+lane's arithmetic then never depends on how many requests share its poll:
+cuBLAS picks its kernel, and with it the summation order, by the
+product's shape, so a variable width would make greedy streams depend on
+arrival timing on the card.
+
+``fused=False`` is the JAX engine's serialized r13 path, dense only: one
+request admitted at a time (the same prefill and commit bodies at width
+1, the slot a device scalar), and a decode step of every slot at its own
+position through ``_cached_blocks`` (plain attention, the LayerNorm
+kernel), one admission per decode step under the continuous policy. It
+is the parity oracle of the fused engine.
 
 The host scheduler is the JAX one: Poisson-arrived requests go queued ->
 admitted -> retired, freed slots are reused at once (``continuous``) or
@@ -62,9 +76,8 @@ replay determinism is shared with the JAX engine, and equality across
 packages holds for greedy decoding.
 
 Not ported yet, each refused with ``NotImplementedError`` naming its
-ROADMAP row: ``fused=False``, the router feed, ``run``'s telemetry/
-tracer/slo/live/flightrec hooks, and ``warmup``/``program_lineages``/
-``lint_programs``.
+ROADMAP row: the router feed, ``run``'s telemetry/tracer/slo/live/
+flightrec hooks, and ``lint_programs``.
 """
 
 from __future__ import annotations
@@ -83,6 +96,7 @@ from apex_tpu_torch.contrib.multihead_attn.decode_attention import (
     gather_pages)
 from apex_tpu_torch.ops.decode_attn import MAX_ROWS
 from apex_tpu_torch.serve.prefix import PrefixCache, chain_hashes
+from apex_tpu_torch.serve.programs import DeviceProgram, Inputs, new_pool
 from apex_tpu_torch.serve.slots import (PagePool, SlotState, arena_bytes,
                                         init_cache_arena, init_paged_state,
                                         init_slot_state, kv_token_bytes)
@@ -93,6 +107,7 @@ __all__ = ["Request", "RequestResult", "ContinuousBatchingEngine",
 _POLICIES = ("continuous", "static")
 _SERVE_ROW = "ROADMAP.md Queue 1, slice 5"
 _TRACE_ROW = "ROADMAP.md Queue 1, slice 8"
+_LINT_ROW = "ROADMAP.md Queue 1, item 24"
 
 
 def draft_from_prefix(model, params, num_layers: int):
@@ -215,7 +230,10 @@ class RequestResult:
 class ContinuousBatchingEngine:
     """Serving engine over a :class:`~apex_tpu_torch.serve.slots.SlotState`
     pool on ``device`` (the card unless ``device="cpu"``); ``params`` must
-    live there. ``run`` is reusable: every call starts from a fresh pool.
+    live there. ``run`` is reusable: every call starts from a fresh pool
+    (the engine's one pool, reset in place). Call :meth:`warmup` before a
+    timed run: on the card it captures every program, which a run would
+    otherwise do at first use, inside its TTFT.
 
     ``policy='continuous'`` admits into any freed slot between decode
     steps; ``policy='static'`` only admits when the pool has drained.
@@ -226,7 +244,9 @@ class ContinuousBatchingEngine:
     ``prefix_share=True`` (paged only) prefills a common prompt prefix
     once and maps its full pages into every matching request's table.
     ``spec_k`` with ``draft=(model, params)`` decodes speculatively;
-    greedy speculative streams equal the plain ones token for token."""
+    greedy speculative streams equal the plain ones token for token.
+    ``fused=False`` serializes admission (dense only): its greedy streams
+    equal the fused engine's."""
 
     def __init__(self, model, params, *, slots: int, max_len: int,
                  prefill_chunk: int = 16, eos_id: Optional[int] = None,
@@ -311,11 +331,7 @@ class ContinuousBatchingEngine:
                     "serialized r13 path stays the parity oracle")
         elif draft is not None:
             raise ValueError("draft needs spec_k >= 1")
-        if not fused:
-            raise NotImplementedError(
-                f"fused=False (the serialized r13 baseline) is not ported "
-                f"yet ({_SERVE_ROW})")
-        self.fused = True
+        self.fused = bool(fused)
         self.spec_k = int(spec_k)
         if spec_k + 1 > MAX_ROWS:
             raise ValueError(
@@ -343,20 +359,16 @@ class ContinuousBatchingEngine:
                 f"on {self.device}")
         self.events: list = []
         self._hid_dtype = params["tok_emb"].dtype
-        self._init_state()        # validates slots/max_len eagerly
+        # the pool and every buffer a program reads live at fixed
+        # addresses for the engine's life (validates slots/max_len)
+        self._state = self._init_state()
+        self._dcaches = self._init_draft_caches() if self.spec_k else None
+        self._dprev = (torch.zeros((self.slots,), dtype=torch.int32,
+                                   device=self.device)
+                       if self.spec_k else None)
+        self._build_programs()
 
-    # -- device helpers ----------------------------------------------------
-
-    def _dev(self, a, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-        """One host->device copy of a host array. On the card it goes
-        through pinned memory without blocking: a copy from pageable
-        memory would make the host wait for the device to drain. The
-        pinned buffer is a snapshot, so the caller may mutate ``a``
-        (the page table) right after."""
-        t = torch.as_tensor(np.asarray(a))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, dtype, non_blocking=True)
-        return t.to(dtype=dtype)
+    # -- the device programs -----------------------------------------------
 
     def _sample(self, logits: torch.Tensor, keys: torch.Tensor,
                 tok_idx: torch.Tensor) -> torch.Tensor:
@@ -368,8 +380,6 @@ class ContinuousBatchingEngine:
             return gumbel_argmax(logits / self.temperature, u)
         return torch.argmax(logits, dim=-1).to(torch.int32)
 
-    # -- the device programs -----------------------------------------------
-
     def _lanes(self, caches: dict, index: torch.Tensor) -> dict:
         """The lanes of ``index`` gathered out of an arena: slot ids
         (dense) or page-table rows (paged, each lane's logical view)."""
@@ -379,73 +389,84 @@ class ContinuousBatchingEngine:
         return {n: (k[index], v[index]) for n, (k, v) in caches.items()}
 
     @torch.no_grad()
-    def _prefill_write(self, model, params, caches, index, tok, pos0: int,
-                       src, dst, off: int):
-        """Run one chunk of ``model`` over the gathered lanes and store the
-        chunk's K/V back into the arena rows ``dst`` at ``off`` from the
-        lanes ``src``. Returns the hidden states [w, C, E]."""
+    def _prefill_write(self, model, params, caches, ins: dict):
+        """Run one chunk of ``model`` over the gathered lanes ``ins["index"]``
+        (slot ids [w], or page-table rows [w, max_pages]: the chunk lands
+        in ONE page, page_size % prefill_chunk == 0) at ``ins["pos0"]``
+        ([1] on the device) and store each lane's chunk window back: the
+        valid lanes' new K/V, the others what they gathered. The pool is
+        not written between the gather and the store, so lanes that map
+        one page (the null page, a shared prefix page) all store the same
+        bytes; a valid lane's page is private to it. Returns the hidden
+        states [w, C, E]."""
         c = self.prefill_chunk
-        x = params["tok_emb"][tok] + params["pos_emb"][pos0:pos0 + c]
+        tok, index, pos0 = ins["tok"], ins["index"], ins["pos0"]
+        ar = torch.arange(c, device=tok.device)
+        win = pos0 + ar                       # the chunk's positions [C]
+        x = params["tok_emb"][tok] + params["pos_emb"][win]
         lanes = self._lanes(caches, index)
         hid, lanes = model._cached_blocks(params, x, pos0, lanes)
+        if self.paged:
+            pg = pos0 // self.page_size                            # [1]
+            dst = index.long().gather(1, pg.expand(index.shape[0], 1))
+            off = pos0 - pg * self.page_size + ar
+        else:
+            dst, off = index[:, None], win
+        keep = ins["valid"][:, None, None, None]
         for name, (k, v) in caches.items():
-            lk, lv = lanes[name]
-            # in place: only this chunk's window of the valid lanes
-            k[dst, :, off:off + c] = lk[src, :, pos0:pos0 + c]
-            v[dst, :, off:off + c] = lv[src, :, pos0:pos0 + c]
+            for pool, lane in zip((k, v), lanes[name]):
+                new = lane[:, :, win].transpose(1, 2)       # [w, C, H, hd]
+                pool[dst, :, off] = torch.where(keep, new, pool[dst, :, off])
         return hid
 
-    def _prefill_chunk(self, state, dcaches, fh, ids, chunks, pos0: int,
-                       valid, is_final):
-        """One prompt chunk for the ``w`` lanes: ``ids`` are their slot ids
-        (dense; distinct) or their page-table rows (paged, host int32 [w,
-        max_pages]: the chunk lands in ONE page, page_size %
-        prefill_chunk == 0). The draft model (``dcaches``, spec only)
-        runs the same chunk into its own arena. Returns the final-chunk
-        hidden states [w, C, E], carried per lane into the commit."""
-        ids = np.asarray(ids)
-        tok = self._dev(chunks, torch.long)
-        if self.paged:
-            index = self._dev(ids)
-            pg = pos0 // self.page_size
-            dst, off = ids[valid, pg], pos0 - pg * self.page_size
-        else:
-            index = self._dev(ids, torch.long)
-            dst, off = ids[valid], pos0
-        src = self._dev(np.flatnonzero(valid), torch.long)
-        dst = self._dev(dst, torch.long)
-        hid = self._prefill_write(self.model, self.params, state.caches,
-                                  index, tok, pos0, src, dst, off)
-        if dcaches is not None:
-            self._prefill_write(self.draft_model, self.draft_params,
-                                dcaches, index, tok, pos0, src, dst, off)
-        fin = self._dev(is_final)
-        return torch.where(fin[:, None, None], hid, fh)
+    @torch.no_grad()
+    def _prefill(self) -> None:
+        """The ``prefill`` program: one prompt chunk for the lanes of its
+        inputs; each lane's final-chunk hidden states carried in ``_fh``
+        [w, C, E] to the commit."""
+        ins = self._pin.get()
+        hid = self._prefill_write(self.model, self.params,
+                                  self._state.caches, ins)
+        fh = self._fh
+        fh.copy_(torch.where(ins["is_final"][:, None, None], hid, fh))
+
+    def _draft_prefill(self) -> None:
+        """The ``draft_prefill`` program (spec only): the same chunk of the
+        draft model into its own arena, on the prefill's inputs."""
+        self._prefill_write(self.draft_model, self.draft_params,
+                            self._dcaches, self._pin.get())
 
     @torch.no_grad()
-    def _commit_batch(self, state, k: int, slot_ids, fh, last_idx, plens,
-                      max_news, rids):
-        """First tokens of all w lanes; the first ``k`` (the admitted
-        ones) arm their slots in place. Returns the packed [2, w] array
-        [first token, done]."""
-        w = len(slot_ids)
-        sid, li, plen, mnew, rid = self._dev(
-            np.stack([slot_ids, last_idx, plens, max_news, rids]),
-            torch.int64)
-        hsel = fh[torch.arange(w, device=self.device), li]      # [w, E]
-        logits = (hsel @ self.params["tok_emb"].T).float()
+    def _commit(self) -> torch.Tensor:
+        """The ``commit`` program: first tokens of all w lanes; the valid
+        (admitted) ones arm their slots ``sid`` in place (JAX's ``setm``;
+        a speculative engine also arms the draft's catch-up token, the
+        prompt's last). Returns the packed [2, w] array [first token,
+        done]."""
+        ins = self._cin.get()
+        st, fh = self._state, self._fh
+        sid, valid, rid, mnew = (ins["sid"], ins["valid"], ins["rid"],
+                                 ins["max_new"])
+        w = sid.shape[0]
+        hsel = fh[torch.arange(w, device=sid.device), ins["last_idx"]]
+        logits = (hsel @ self.params["tok_emb"].T).float()     # [w, V]
         toks = self._sample(logits, rid, torch.zeros_like(rid))
         done = mnew <= 1
         if self.eos_id is not None:
             done = done | (toks == self.eos_id)
-        sid = sid[:k]
-        state.pos[sid] = plen[:k].to(torch.int32)
-        state.active[sid] = ~done[:k]
-        state.last_tok[sid] = toks[:k]
-        state.remaining[sid] = (mnew[:k] - 1).to(torch.int32)
-        state.tok_idx[sid] = 1
-        state.key[sid] = rid[:k]
-        state.generation[sid] += 1
+
+        def setm(vec, new):
+            vec[sid] = torch.where(valid, new.to(vec.dtype), vec[sid])
+
+        setm(st.pos, ins["plen"])
+        setm(st.active, ~done)
+        setm(st.last_tok, toks)
+        setm(st.remaining, mnew - 1)
+        setm(st.tok_idx, torch.ones_like(sid))
+        setm(st.key, rid)
+        setm(st.generation, st.generation[sid] + 1)
+        if self.spec_k:
+            setm(self._dprev, ins["dlast"])
         return torch.stack([toks, done.to(torch.int32)])
 
     @torch.no_grad()
@@ -467,29 +488,44 @@ class ContinuousBatchingEngine:
         state.tok_idx += step
         return torch.stack([toks, state.active.to(torch.int32), step])
 
-    def _page_kw(self, page_table) -> dict:
-        """The paged arguments of ``_decode_slots``: the full host table,
-        copied to the device once per step (a retired slot's all-zero row
-        sinks its frozen writes into the null page)."""
-        if page_table is None:
+    def _page_kw(self) -> dict:
+        """The paged arguments of ``_decode_slots``: the host table, copied
+        into the decode program's input once per step (a retired slot's
+        all-zero row sinks its frozen writes into the null page)."""
+        if not self.paged:
             return {}
-        return dict(page_table=self._dev(page_table),
+        return dict(page_table=self._din.get()["page_table"],
                     page_size=self.page_size)
 
     @torch.no_grad()
-    def _decode_fused(self, state, page_table=None):
-        """Every slot decodes (inactive ones at their frozen position,
-        their writes landing where a later occupant rewrites them before
-        anything attends)."""
+    def _decode_fused(self):
+        """The fused ``decode`` program: every slot decodes (inactive ones
+        at their frozen position, their writes landing where a later
+        occupant rewrites them before anything attends)."""
+        state = self._state
         pos_in = torch.clamp(state.pos, max=self.max_len - 1)
         hid, _ = self.model._decode_slots(self.params, state.last_tok,
                                           pos_in, state.caches,
-                                          **self._page_kw(page_table))
+                                          **self._page_kw())
         return self._finish(state, hid)
 
     @torch.no_grad()
-    def _spec_step(self, state, dcaches, dprev, page_table=None):
-        """One speculative step (engine.py:573-727), in place. k draft
+    def _decode_serial(self):
+        """The serialized ``decode`` program (JAX's vmapped ``_decode_one``,
+        engine.py:484-498): every slot at its own position through
+        ``_cached_blocks`` over the dense arena, in one batched call."""
+        state = self._state
+        pos_in = torch.clamp(state.pos, max=self.max_len - 1).long()
+        x = (self.params["tok_emb"][state.last_tok.long()]
+             + self.params["pos_emb"][pos_in])[:, None]          # [S, 1, E]
+        hid, _ = self.model._cached_blocks(self.params, x, pos_in,
+                                           state.caches)
+        return self._finish(state, hid[:, 0])
+
+    @torch.no_grad()
+    def _spec_step(self):
+        """The speculative ``decode`` program (engine.py:573-727), in place,
+        on the engine's pool, draft arena and ``dprev``. k draft
         steps: the first a 2-query catch-up row over ``[pos - 1, pos]``
         (``dprev`` int32 [S] the committed token at ``pos - 1``: on full
         acceptance the bonus token moved ``pos`` past a position the
@@ -501,9 +537,10 @@ class ContinuousBatchingEngine:
         (request, token index, role, row). Returns the packed [k+4, S]
         array: the k+1 candidate tokens, then [emitted, still-active,
         accepted] (``dprev`` updated in place)."""
+        state, dcaches, dprev = self._state, self._dcaches, self._dprev
         k, temp = self.spec_k, self.temperature
         max_pos = self.max_len - 1
-        kw = self._page_kw(page_table)
+        kw = self._page_kw()
         dm, dp = self.draft_model, self.draft_params
         v = self.model.vocab_size
         pos_in = torch.clamp(state.pos, max=max_pos)
@@ -575,6 +612,49 @@ class ContinuousBatchingEngine:
         return torch.cat([out.T, n_emit[None], state.active[None].to(
             torch.int32), torch.where(active, n_acc, 0)[None]], dim=0)
 
+    def _build_programs(self) -> None:
+        """The engine's programs (``self.programs``, keyed as
+        :meth:`program_lineages`), their input blocks and the buffers they
+        carry between them. The fused engine runs prefill and commit at
+        width ``slots``, the serialized one at width 1."""
+        s, c, dev = self.slots, self.prefill_chunk, self.device
+        w = s if self.fused else 1
+        i64, i32, b8 = torch.int64, torch.int32, torch.bool
+        pool = new_pool(dev)
+        index = (((w, self.max_pages), i32) if self.paged
+                 else ((w,), i64))
+        self._pin = Inputs(dict(tok=((w, c), i64), index=index,
+                                pos0=((1,), i64), valid=((w,), b8),
+                                is_final=((w,), b8)), dev)
+        commit = dict(sid=((w,), i64), last_idx=((w,), i64),
+                      plen=((w,), i64), max_new=((w,), i64),
+                      rid=((w,), i64), valid=((w,), b8))
+        if self.spec_k:
+            commit["dlast"] = ((w,), i32)
+        self._cin = Inputs(commit, dev)
+        self._din = (Inputs(dict(page_table=((s, self.max_pages), i32)), dev)
+                     if self.paged else None)
+        # each lane's final-chunk hidden states, prefill -> commit
+        self._fh = torch.zeros((w, c, self.model.embed_dim),
+                               dtype=self._hid_dtype, device=dev)
+
+        def prog(name, body, inputs=None):
+            return DeviceProgram(name, body, device=dev, inputs=inputs,
+                                 pool=pool)
+
+        if not self.fused:
+            decode = self._decode_serial
+        elif self.spec_k:
+            decode = self._spec_step
+        else:
+            decode = self._decode_fused
+        self.programs = {"prefill": prog("prefill", self._prefill, self._pin),
+                         "commit": prog("commit", self._commit, self._cin),
+                         "decode": prog("decode", decode, self._din)}
+        if self.spec_k:
+            self.programs["draft_prefill"] = prog(
+                "draft_prefill", self._draft_prefill, self._pin)
+
     # -- pool construction -------------------------------------------------
 
     def _init_state(self) -> SlotState:
@@ -597,6 +677,23 @@ class ContinuousBatchingEngine:
         return init_cache_arena(self.draft_model, self.draft_params,
                                 self.slots, self.max_len, device=self.device)
 
+    @torch.no_grad()
+    def _reset(self) -> None:
+        """The pool, the draft arena and the carried buffers back to their
+        fresh all-zero state, in place (their addresses are the captured
+        graphs')."""
+        st = self._state
+        arenas = [st.caches] + ([self._dcaches] if self._dcaches else [])
+        for caches in arenas:
+            for k, v in caches.values():
+                k.zero_()
+                v.zero_()
+        for t in (st.pos, st.active, st.last_tok, st.remaining, st.tok_idx,
+                  st.key, st.generation, self._fh):
+            t.zero_()
+        if self._dprev is not None:
+            self._dprev.zero_()
+
     def _pages_for(self, plen: int, max_new: int) -> int:
         """Worst-case pages one request reserves at admission: the padded
         prompt (chunked prefill writes pad positions) and the full
@@ -615,17 +712,124 @@ class ContinuousBatchingEngine:
             * self.prefill_chunk
         return last_chunk_start // self.page_size
 
-    def warmup(self) -> None:
-        raise NotImplementedError(
-            f"warmup() covers compiled-program lineages; the port has "
-            f"none yet (CUDA-graph capture, {_SERVE_ROW})")
+    # -- scheduler dataflow and warmup (engine.py:867-1075) ----------------
 
     def program_lineages(self) -> dict:
-        raise NotImplementedError(
-            f"program lineages and their lint are not ported yet "
-            f"({_TRACE_ROW})")
+        """Which programs' output state can feed each program's input
+        state in a real run (``"fresh"`` = the pool as ``run`` resets it):
+        the scheduler dataflow ``run`` implements, declared once so that
+        :meth:`warmup`'s coverage is checked against it. ``prefill <-
+        prefill`` exists only when multi-chunk prompts are admissible
+        (``max_len >= 2 * prefill_chunk``). Spec engines add
+        ``draft_prefill`` (its draft arena from fresh state, its own
+        previous chunk, or a spec step) and widen ``decode``'s set with
+        ``draft_prefill`` (the spec step reads both the slot state, from
+        commit or decode, and the draft arena, from draft_prefill or
+        decode). The serialized engine has the same lineages."""
+        two = self.max_len >= 2 * self.prefill_chunk
+        pre = {"fresh", "commit", "decode"}
+        if two:
+            pre.add("prefill")
+        lin = {"prefill": frozenset(pre),
+               "commit": frozenset({"prefill"}),
+               "decode": frozenset({"commit", "decode"})}
+        if self.spec_k:
+            dpre = {"fresh", "decode"}
+            if two:
+                dpre.add("draft_prefill")
+            lin["draft_prefill"] = frozenset(dpre)
+            lin["decode"] = frozenset({"commit", "decode",
+                                       "draft_prefill"})
+        return lin
 
-    lint_programs = program_lineages
+    def warmup_coverage(self) -> dict:
+        """The (program <- predecessor) transitions :meth:`warmup` drives
+        (engine.py:942-962): same shape as :meth:`program_lineages`, and
+        required EQUAL to it (tests/test_torch_serve_programs.py pins the
+        equality, and that a run after warmup calls no program with a new
+        signature)."""
+        two = 2 * self.prefill_chunk <= self.max_len
+        pre = {"fresh", "commit", "decode"}
+        if two:
+            pre.add("prefill")
+        cov = {"prefill": frozenset(pre),
+               "commit": frozenset({"prefill"}),
+               "decode": frozenset({"commit", "decode"})}
+        if self.spec_k:
+            dpre = {"fresh", "decode"}
+            if two:
+                dpre.add("draft_prefill")
+            cov["draft_prefill"] = frozenset(dpre)
+            cov["decode"] = frozenset({"commit", "decode",
+                                       "draft_prefill"})
+        return cov
+
+    def warmup(self) -> None:
+        """Capture every device program before a timed run, as the JAX
+        engine's ``warmup`` compiles every program and layout (engine.py:
+        897-1075): it drives exactly the transitions of
+        :meth:`warmup_coverage` on fresh state. On the card each program's
+        first call here captures its CUDA graph, so a run after it
+        captures none; a run without it captures at first use, inside its
+        TTFT. The JAX engine warms a ladder of lane widths; the port runs
+        prefill and commit at the pool's one width (the serialized engine
+        at width 1), so one graph a program covers every admission. Paged
+        warmup maps every slot's row round-robin over the real pool (JAX's
+        warmup table: collisions are fine, the warmup's math is
+        discarded). The warmup's state is discarded: the pool is reset in
+        place after it."""
+        c, w = self.prefill_chunk, self._fh.shape[0]
+        p = self.programs
+        # two chunks whenever real prompts can span two (max_len >= 2C),
+        # so prefill <- prefill is driven; warmup state never goes
+        # through validate()
+        n = 2 if 2 * c <= self.max_len else 1
+        self._reset()
+        wt = None
+        if self.paged:
+            wt = np.zeros((self.slots, self.max_pages), np.int32)
+            for s in range(self.slots):
+                for j in range(self.max_pages):
+                    wt[s, j] = 1 + (s * self.max_pages + j) % self.kv_pages
+        ones = np.ones((w,), bool)
+
+        def prefill():          # prefill <- *, draft_prefill <- *
+            for ci in range(n):
+                p["prefill"](tok=np.zeros((w, c), np.int64),
+                             index=wt if self.paged else np.arange(w),
+                             pos0=[ci * c], valid=ones,
+                             is_final=ones if ci == n - 1 else ~ones)
+                if self.spec_k:
+                    p["draft_prefill"]()
+
+        def commit():           # commit <- prefill
+            kw = dict(sid=np.arange(w), last_idx=np.zeros((w,)),
+                      plen=np.full((w,), n * c), max_new=np.full((w,), 2),
+                      rid=np.arange(w), valid=ones)
+            if self.spec_k:
+                kw["dlast"] = np.zeros((w,))
+            p["commit"](**kw)
+            p["commit"].fetch()
+
+        def decode():           # decode <- commit, decode (, draft)
+            p["decode"](**({"page_table": wt} if self.paged else {}))
+            p["decode"].fetch()
+
+        prefill()
+        commit()
+        prefill()
+        commit()
+        decode()
+        decode()
+        prefill()
+        commit()
+        decode()
+        self._reset()
+
+    def lint_programs(self) -> list:
+        raise NotImplementedError(
+            f"lint_programs describes the programs for apex_lint's program "
+            f"rules, which are not ported yet ({_LINT_ROW}, analysis/)")
 
     # -- admission-time validation ----------------------------------------
 
@@ -670,11 +874,10 @@ class ContinuousBatchingEngine:
         for r in requests:
             self.validate(r)
         order = list(requests)
-        state = self._init_state()
+        self._reset()
+        state = self._state
+        progs = self.programs
         spec = self.spec_k > 0
-        dcaches = self._init_draft_caches() if spec else None
-        dprev = (torch.zeros((self.slots,), dtype=torch.int32,
-                             device=self.device) if spec else None)
         # spec accounting: per-(slot, step) accepted-draft samples
         spec_draft_tokens = spec_accepted = spec_samples = 0
         spec_hist = [0] * (self.spec_k + 1)
@@ -798,6 +1001,37 @@ class ContinuousBatchingEngine:
             kv_free_min = min(kv_free_min, page_pool.free_count)
             return batch, taken, shared
 
+        def admit_one() -> None:
+            """Serialized single-request admission (fused=False): the r13
+            baseline, ceil(P/C) prefill calls + 1 commit at width 1 (an
+            admission 'batch' of 1)."""
+            nonlocal prefill_chunks, prefill_batches
+            req = ready.popleft()
+            slot = free.pop(0)
+            res = results[req.id]
+            res.slot, res.admit_s = slot, now()
+            host_gen[slot] += 1
+            res.generation = host_gen[slot]
+            self.events.append(("admit", req.id, slot, host_gen[slot]))
+            c = self.prefill_chunk
+            plen = len(req.prompt)
+            n = -(-plen // c)
+            toks = np.zeros((1, n * c), np.int64)
+            toks[0, :plen] = req.prompt
+            for ci in range(n):
+                progs["prefill"](tok=toks[:, ci * c:(ci + 1) * c],
+                                 index=[slot], pos0=[ci * c], valid=[True],
+                                 is_final=[ci == n - 1])
+                prefill_chunks += 1
+            progs["commit"](sid=[slot], last_idx=[(plen - 1) % c],
+                            plen=[plen], max_new=[req.max_new],
+                            rid=[req.id], valid=[True])
+            first, done = progs["commit"].fetch()[:, 0]   # the TTFT sync
+            t = now()
+            prefill_batches += 1
+            batch_sizes.append(1)
+            first_token(req, slot, int(first), bool(done), t)
+
         def admit_batch() -> None:
             """All requests ready at this poll seat in one chain:
             ceil(max P/C) prefill calls (less the chunks every lane's
@@ -826,8 +1060,6 @@ class ContinuousBatchingEngine:
             tok_mat = np.zeros((w, max(n_chunks) * c), np.int64)
             for lane, req in enumerate(batch):
                 tok_mat[lane, :plens[lane]] = req.prompt
-            fh = torch.zeros((w, c, self.model.embed_dim),
-                             dtype=self._hid_dtype, device=self.device)
             for ci in range(max(n_chunks)):
                 # a prefix-hit lane's leading chunks are already in the
                 # pool as shared pages: its valid window starts past them
@@ -837,15 +1069,23 @@ class ContinuousBatchingEngine:
                     continue       # every lane's chunk here is cached
                 is_final = np.asarray([ci == n - 1 for n in n_chunks]
                                       + [False] * (w - k))
-                fh = self._prefill_chunk(state, dcaches, fh, ids,
-                                         tok_mat[:, ci * c:(ci + 1) * c],
-                                         ci * c, valid, is_final)
+                progs["prefill"](tok=tok_mat[:, ci * c:(ci + 1) * c],
+                                 index=ids, pos0=[ci * c], valid=valid,
+                                 is_final=is_final)
+                if spec:
+                    progs["draft_prefill"]()      # the same inputs
                 prefill_chunks += 1
-            packed = self._commit_batch(
-                state, k, slot_ids, fh, [(p - 1) % c for p in plens] + pad,
-                plens + pad, [r.max_new for r in batch] + [1] * (w - k),
-                [r.id for r in batch] + pad)
-            packed = packed.cpu().numpy()     # ONE sync: every lane's TTFT
+            kw = dict(sid=slot_ids, last_idx=[(p - 1) % c for p in plens]
+                      + pad, plen=plens + pad,
+                      max_new=[r.max_new for r in batch] + [1] * (w - k),
+                      rid=[r.id for r in batch] + pad,
+                      valid=[True] * k + [False] * (w - k))
+            if spec:
+                # arm the draft's catch-up lane: right after the commit
+                # the token at pos - 1 is the prompt's last
+                kw["dlast"] = [int(r.prompt[-1]) for r in batch] + pad
+            progs["commit"](**kw)
+            packed = progs["commit"].fetch()  # ONE sync: every lane's TTFT
             t = now()
             prefill_batches += 1
             batch_sizes.append(k)
@@ -865,17 +1105,19 @@ class ContinuousBatchingEngine:
             for lane, (req, slot) in enumerate(zip(batch, taken)):
                 first_token(req, slot, int(firsts[lane]),
                             bool(dones[lane]), t)
-            if spec:
-                # arm the draft's catch-up lane: right after the commit
-                # the token at pos - 1 is the prompt's last
-                dprev[self._dev(taken, torch.long)] = self._dev(
-                    [int(r.prompt[-1]) for r in batch], torch.int32)
 
         while pending or ready or busy:
             poll()
             admitted = False
             may_admit = (not busy) if self.policy == "static" else True
-            if ready and free and may_admit:
+            if not self.fused:
+                while ready and free and may_admit:
+                    admit_one()
+                    admitted = True
+                    poll()            # prefill took wall time
+                    if self.policy == "continuous":
+                        break         # one admission per decode step
+            elif ready and free and may_admit:
                 n_before = prefill_batches
                 admit_batch()
                 # the paged gate may admit nothing (head-of-line waiting
@@ -884,11 +1126,9 @@ class ContinuousBatchingEngine:
                 poll()                # prefill took wall time
             if busy:
                 t_dispatch = time.perf_counter()
-                if spec:
-                    packed = self._spec_step(state, dcaches, dprev, pt)
-                else:
-                    packed = self._decode_fused(state, pt)
-                packed = packed.cpu().numpy()   # the ONE sync per step
+                progs["decode"](**({"page_table": pt} if pt is not None
+                                   else {}))
+                packed = progs["decode"].fetch()  # the ONE sync per step
                 t_now = now()
                 step_ms.append((time.perf_counter() - t_dispatch) * 1e3)
                 decode_steps += 1

@@ -19,9 +19,12 @@ fp32, and the LayerNorm and BN at widths not a multiple of 4, phases 31-33
 lm_bench's LM at 8 heads of 256 (the flash forward, dq and dk/dv at D
 256), in bf16 and in fp32, phase 34 the DCGAN example's three-loss step
 under O1 (``amp.autocast``), phase 35 lm_bench's LM with ``--remat``,
-remat under O1 and in the ViT and the Seq2Seq Transformer, and phases 36-38
+remat under O1 and in the ViT and the Seq2Seq Transformer, phases 36-38
 speculative decoding on the multi-row decode kernel, the shared-prefix page
-cache, sampled ``generate`` and the fused-MLP API:
+cache, sampled ``generate`` and the fused-MLP API, and phase 39 the serving
+engine's programs as CUDA graphs against the same programs run eagerly.
+Every serving engine runs its programs captured (``run``'s way on the card);
+``warmup()`` captures them first where a phase calls it:
 
 0. device — needs CUDA; prints the card's ``nvidia-smi`` name and power
    limit (also as a raw line of its own) and the torch / CUDA versions.
@@ -194,7 +197,10 @@ cache, sampled ``generate`` and the fused-MLP API:
    seed 0) behind ``ContinuousBatchingEngine(slots=8, max_len=1024,
    prefill_chunk=32)`` serving serve_bench's default traffic (32 Poisson
    requests at 8/s, prompts uniform 16-96, outputs uniform 8-48, seed 0).
-   Kernel launch counts are zeroed just before and read just after.
+   ``warmup()`` first (its seconds, the graphs captured and the graph
+   pool's bytes printed); the run after it must capture none. Kernel launch
+   counts are zeroed just before the run and read just after (a replay
+   adds the launches its capture recorded).
 4. paged — the same requests on the paged arena (page 32, half the pages
    of the dense reservation); token streams must equal phase 3's.
 5. crosscheck — a 2-layer f32 model at the same widths: prefill hidden
@@ -463,7 +469,24 @@ cache, sampled ``generate`` and the fused-MLP API:
     norm within 1e-4 of the value's (a relu input at rounding distance
     from 0 moves one sample's share of an element), sigmoid's every
     element within 1e-5 of the largest.
-39. the ``{"kernels": [...], "off_path": [...]}`` line (42 kernels; dq's
+39. serve_graphs — one row for each of phase 3's, 4's, 36's dense and paged
+    and 37's sharing engine (``config`` dense, paged, spec_dense,
+    spec_paged, prefix_share), printed right after that phase's run on the
+    same engine and requests: ``warmup()``'s seconds, graphs and graph-pool
+    bytes; 0 captures in the runs after it (a check); the streams of the
+    same requests under ``programs.eager()`` equal token for token (a
+    check); each program's launches a replay equal to its eager call's (a
+    check); the spec dense acceptance histogram equal (a check; the paged
+    one is exempt: rows past a request's reservation read the null page,
+    which other slots write); decode step p50/p95, decode tok/s and TTFT
+    of both arms on the Poisson requests, and their profiled idle share on
+    8 requests all arriving at once (the serving loop without the wait for
+    arrivals; the captured arm's over the Poisson arrivals is its phase's
+    ``profile_8_requests``). Then ``serial_fp32``, in phase 36's fp32
+    section: the serialized engine (``fused=False``) at phase 3's widths
+    in fp32 on 16 requests, its greedy streams equal to the fused
+    engine's (a check), its step p50 beside the fused one's.
+40. the ``{"kernels": [...], "off_path": [...]}`` line (42 kernels; dq's
     and dk/dv's entries also carry their ``wide`` reading and the whole
     backward's, ``backward``, at both shapes, the D-256 ones the whole
     backward at [64, 4096, 256]; the fp32 ones their readings at D 256;
@@ -2009,19 +2032,110 @@ def read_counts() -> dict:
     return {name: fn.launches for name, fn in counters().items()}
 
 
-def serve_phase(torch, name, model, params, reqs, **kw):
-    from apex_tpu_torch.serve import (ContinuousBatchingEngine,
-                                      summarize_serving)
-    eng = ContinuousBatchingEngine(model, params, slots=8, max_len=1024,
-                                   prefill_chunk=32, **kw)
-    # one short run first: the card loads each product's kernels on
-    # first use, which is set-up, not serving
-    eng.run(reqs[:4])
+def warm_engine(torch, eng) -> dict:
+    """``eng.warmup()``: every program captured (the card loads each
+    product's kernels on first use, which is set-up, not serving). Its
+    seconds, graphs and graph-pool bytes."""
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.warmup()
+    torch.cuda.synchronize()
+    return {"warmup_s": time.perf_counter() - t0,
+            "graphs": sum(p.captures for p in eng.programs.values()),
+            "graph_pool_bytes": sum(p.pool_bytes
+                                    for p in eng.programs.values())}
+
+
+def captures_since(eng, warm: dict) -> int:
+    return sum(p.captures for p in eng.programs.values()) - warm["graphs"]
+
+
+def at_once(reqs) -> list:
+    """The same requests all arriving at 0: the serving loop with no wait
+    for arrivals."""
+    import dataclasses
+    return [dataclasses.replace(r, arrival_s=0.0) for r in reqs]
+
+
+def serve_arm(torch, eng, reqs, arriving=True, at_once_too=True) -> tuple:
+    """One run of ``reqs`` with the launch counts zeroed just before and
+    read just after, then the profiled idle share of 8 of them as they
+    arrive (``arriving``) and all arriving at once (``at_once_too``)."""
     zero_counts()
     results, stats = eng.run(reqs)
     torch.cuda.synchronize()
     counts = read_counts()
+    prof = (profile_steps(torch, lambda: eng.run(reqs[:8]), SERVE_FAMILIES,
+                          n=1) if arriving else None)
+    closed = (profile_steps(torch, lambda: eng.run(at_once(reqs[:8])),
+                            SERVE_FAMILIES, n=1) if at_once_too else None)
+    return results, stats, counts, prof, closed
+
+
+def decode_tok_s(results, stats) -> float:
+    tokens = sum(len(r.tokens) for r in results) - len(results)
+    return tokens / (sum(stats["step_ms"]) / 1e3)
+
+
+def graphs_row(torch, config, eng, reqs, warm, graph) -> dict:
+    """Phase 39's row for one engine: its captured run (``graph``, from
+    :func:`serve_arm`) against the same requests under
+    ``programs.eager()``."""
+    from apex_tpu_torch.serve import programs, summarize_serving
+    g_res, g_stats, _, _, g_closed = graph
+    replay = {n: p.launches for n, p in eng.programs.items()}
+    with programs.eager():
+        e_res, e_stats, _, _, e_closed = serve_arm(torch, eng, reqs,
+                                                   arriving=False)
+    eager = {n: p.eager_launches for n, p in eng.programs.items()}
+    gs = summarize_serving(g_res, g_stats, offered_rps=8.0)
+    es = summarize_serving(e_res, e_stats, offered_rps=8.0)
+    row = {"phase": "serve_graphs", "config": config, **warm,
+           "captures_after_warmup": captures_since(eng, warm),
+           "streams_equal": _stream_equal(g_res, e_res),
+           "launches_per_call": replay,
+           "launches_per_call_equal": replay == eager}
+    for key, g, e in (
+            ("decode_step_ms", gs["decode_step_ms"], es["decode_step_ms"]),
+            ("decode_tok_s", decode_tok_s(g_res, g_stats),
+             decode_tok_s(e_res, e_stats)),
+            ("ttft_ms", gs["ttft_ms"], es["ttft_ms"]),
+            ("tokens_per_s", gs["tokens_per_s"], es["tokens_per_s"]),
+            ("idle_share_at_once", g_closed["idle_share"],
+             e_closed["idle_share"]),
+            ("wall_ms_8_at_once", g_closed["wall_ms_per_step"],
+             e_closed["wall_ms_per_step"]),
+            ("by_family_ms_8_at_once", g_closed["by_family_ms"],
+             e_closed["by_family_ms"])):
+        row[key] = {"graph": g, "eager": e}
+    if "spec_accept_hist" in gs:
+        row["spec_accept_hist"] = {"graph": gs["spec_accept_hist"],
+                                   "eager": es["spec_accept_hist"]}
+    emit(row)
+    check(row["captures_after_warmup"] == 0,
+          f"serve_graphs {config}: {row['captures_after_warmup']} captures "
+          f"after warmup")
+    check(row["streams_equal"],
+          f"serve_graphs {config}: captured streams differ from eager")
+    check(row["launches_per_call_equal"],
+          f"serve_graphs {config}: launches a replay {replay} != an eager "
+          f"call's {eager}")
+    if config == "spec_dense":
+        check(gs["spec_accept_hist"] == es["spec_accept_hist"],
+              f"serve_graphs {config}: acceptance histograms differ")
+    return row
+
+
+def serve_phase(torch, name, model, params, reqs, graphs=None, **kw):
+    """One serving engine at serve_bench's shape, warmed, over ``reqs``;
+    with ``graphs`` (a config name) phase 39's eager arm on it."""
+    from apex_tpu_torch.serve import (ContinuousBatchingEngine,
+                                      summarize_serving)
+    eng = ContinuousBatchingEngine(model, params, slots=8, max_len=1024,
+                                   prefill_chunk=32, **kw)
+    warm = warm_engine(torch, eng)
+    arm = serve_arm(torch, eng, reqs, at_once_too=bool(graphs))
+    results, stats, counts, prof, _ = arm
     summary = summarize_serving(results, stats, offered_rps=8.0)
     for r, q in zip(results, reqs):
         check(r.finish_s is not None and len(r.tokens) == q.max_new,
@@ -2031,11 +2145,10 @@ def serve_phase(torch, name, model, params, reqs, **kw):
               f"{name}: request {q.id} emitted a token out of range")
     steps = stats["decode_steps"]
     decode_tokens = summary["tokens_out"] - len(results)
-    # a short run under the profiler: device time by family and the
-    # device's idle share of the serving loop
-    prof = profile_steps(torch, lambda: eng.run(reqs[:8]), SERVE_FAMILIES,
-                         n=1)
-    emit({"phase": name, "requests": len(results),
+    check(captures_since(eng, warm) == 0,
+          f"{name}: the runs after warmup captured "
+          f"{captures_since(eng, warm)} graphs")
+    emit({"phase": name, "requests": len(results), **warm,
           "completed": summary["completed"],
           "tokens": summary["tokens_out"],
           "wall_s": summary["duration_s"],
@@ -2055,6 +2168,8 @@ def serve_phase(torch, name, model, params, reqs, **kw):
           "launches": counts,
           "launches_per_step": {k: v / steps for k, v in counts.items()},
           "profile_8_requests": prof})
+    if graphs:
+        graphs_row(torch, graphs, eng, reqs, warm, arm)
     return results, stats, counts
 
 
@@ -6085,7 +6200,8 @@ def serve_spec_phase(torch, model, params, reqs, base: dict) -> tuple:
     dl = draft[0].num_layers
     spec = dict(spec_k=SPEC_K, draft=draft)
     dense, dstats, dcounts = serve_phase(torch, "serve_spec_dense", model,
-                                         params, reqs, **spec)
+                                         params, reqs, graphs="spec_dense",
+                                         **spec)
     steps = dstats["decode_steps"]
     # per step: the target's (k+1) rows in each layer, the draft's 2-row
     # catch-up in each of its layers, then k-1 one-row draft steps
@@ -6094,8 +6210,8 @@ def serve_spec_phase(torch, model, params, reqs, base: dict) -> tuple:
           and dcounts["paged_decode_attention_rows"] == 0,
           f"serve_spec_dense: launches {dcounts} for {steps} steps")
     paged, pstats, pcounts = serve_phase(
-        torch, "serve_spec_paged", model, params, reqs, paged=True,
-        page_size=32, kv_pages=8 * (1024 // 32) // 2, **spec)
+        torch, "serve_spec_paged", model, params, reqs, graphs="spec_paged",
+        paged=True, page_size=32, kv_pages=8 * (1024 // 32) // 2, **spec)
     psteps = pstats["decode_steps"]
     check(pcounts["paged_decode_attention_rows"]
           == (model.num_layers + dl) * psteps
@@ -6125,7 +6241,33 @@ def serve_spec_phase(torch, model, params, reqs, base: dict) -> tuple:
     r16 = reqs[:16]
     kw = dict(slots=8, max_len=1024, prefill_chunk=32)
     pages = dict(paged=True, page_size=32, kv_pages=8 * (1024 // 32) // 2)
-    plain, _ = ContinuousBatchingEngine(m32, p32, **kw).run(r16)
+    plain_eng = ContinuousBatchingEngine(m32, p32, **kw)
+    warm_engine(torch, plain_eng)
+    plain, plain_stats = plain_eng.run(r16)
+    # phase 39's serialized engine (fused=False): its greedy streams are
+    # the fused engine's
+    serial_eng = ContinuousBatchingEngine(m32, p32, fused=False, **kw)
+    serial_warm = warm_engine(torch, serial_eng)
+    serial, serial_stats = serial_eng.run(r16)
+    srow = {"phase": "serve_graphs", "config": "serial_fp32",
+            "requests": len(r16), **serial_warm,
+            "captures_after_warmup": captures_since(serial_eng, serial_warm),
+            "streams_equal_fused": _stream_equal(serial, plain),
+            "prefill_batch_sizes": serial_stats["prefill_batch_sizes"],
+            "fused": serial_stats["fused"]}
+    for key in ("decode_step_ms", "ttft_ms", "tokens_per_s"):
+        srow[key] = {
+            "serial": summarize_serving(serial, serial_stats,
+                                        offered_rps=8.0)[key],
+            "fused": summarize_serving(plain, plain_stats,
+                                       offered_rps=8.0)[key]}
+    emit(srow)
+    check(srow["streams_equal_fused"] and not srow["fused"]
+          and set(srow["prefill_batch_sizes"]) == {1},
+          "serve_graphs serial_fp32: serialized streams differ from fused")
+    check(srow["captures_after_warmup"] == 0,
+          "serve_graphs serial_fp32: captures after warmup")
+    del serial_eng, plain_eng
     sd, sds = ContinuousBatchingEngine(m32, p32, spec_k=SPEC_K, draft=d32,
                                        **kw).run(r16)
     sp, _ = ContinuousBatchingEngine(m32, p32, spec_k=SPEC_K, draft=d32,
@@ -6184,12 +6326,16 @@ def serve_prefix_phase(torch, model, params, reqs) -> dict:
         [sys_prompt, np.asarray(r.prompt, np.int32)])) for r in reqs]
     kw = dict(slots=8, max_len=1024, prefill_chunk=32)
     pages = dict(paged=True, page_size=32, kv_pages=8 * (1024 // 32) // 2)
-    zero_counts()
-    dense, _ = ContinuousBatchingEngine(model, params, **kw).run(sreqs)
-    noshare, nss = ContinuousBatchingEngine(model, params, **kw,
-                                            **pages).run(sreqs)
+    dense_eng = ContinuousBatchingEngine(model, params, **kw)
+    noshare_eng = ContinuousBatchingEngine(model, params, **kw, **pages)
     share_eng = ContinuousBatchingEngine(model, params, prefix_share=True,
                                          **kw, **pages)
+    warm_engine(torch, dense_eng)
+    warm_engine(torch, noshare_eng)
+    share_warm = warm_engine(torch, share_eng)
+    zero_counts()
+    dense, _ = dense_eng.run(sreqs)
+    noshare, nss = noshare_eng.run(sreqs)
     share, ss = share_eng.run(sreqs)
     torch.cuda.synchronize()
     counts = read_counts()
@@ -6230,6 +6376,11 @@ def serve_prefix_phase(torch, model, params, reqs) -> dict:
           and ss["prefix_hits"] > 0 and hit,
           "serve_prefix: no prefill chunk saved or no hit")
     check(released, "serve_prefix: pages held past the cache's own holds")
+    del dense_eng, noshare_eng
+    graph = (share, ss, counts, None,
+             profile_steps(torch, lambda: share_eng.run(at_once(sreqs[:8])),
+                           SERVE_FAMILIES, n=1))
+    graphs_row(torch, "prefix_share", share_eng, sreqs, share_warm, graph)
     return counts
 
 
@@ -6514,7 +6665,8 @@ def main() -> int:
     reqs = poisson_requests(32, rate=8.0, prompt_dist="uniform:16,96",
                             new_dist="uniform:8,48", vocab_size=32768,
                             seed=0, max_len=1024, prefill_chunk=32)
-    dense, dstats, dcounts = serve_phase(torch, "dense", model, params, reqs)
+    dense, dstats, dcounts = serve_phase(torch, "dense", model, params, reqs,
+                                         graphs="dense")
     check(dcounts["decode_attention"]
           == model.num_layers * dstats["decode_steps"],
           f"dense: decode_attention launched {dcounts['decode_attention']}"
@@ -6523,8 +6675,8 @@ def main() -> int:
     check(dcounts["paged_decode_attention"] == 0,
           "dense: the paged kernel ran on the dense arena")
     paged, pstats, pcounts = serve_phase(
-        torch, "paged", model, params, reqs, paged=True, page_size=32,
-        kv_pages=8 * (1024 // 32) // 2)
+        torch, "paged", model, params, reqs, graphs="paged", paged=True,
+        page_size=32, kv_pages=8 * (1024 // 32) // 2)
     check(pcounts["paged_decode_attention"]
           == model.num_layers * pstats["decode_steps"],
           "paged: paged_decode_attention count != layers x steps")
@@ -6621,8 +6773,9 @@ def main() -> int:
     del lm_params
 
     # 36-38. speculative decoding on phase 3's model and traffic with the
-    # fp32 parity gate; the shared-prefix cache on phase 4's engine;
-    # sampled generate and the MLP
+    # fp32 parity gate (and phase 39's serialized engine); the
+    # shared-prefix cache on phase 4's engine; sampled generate and the
+    # MLP. Phase 39's rows ride with phases 3-4 and 36-37, on their engines
     from apex_tpu_torch.serve import summarize_serving
     spec_counts = serve_spec_phase(
         torch, model, params, reqs,
@@ -6630,7 +6783,7 @@ def main() -> int:
     prefix_counts = serve_prefix_phase(torch, model, params, reqs)
     generate_mlp_phase(torch, model, params)
 
-    # 39. the kernels line, then the contract line
+    # 40. the kernels line, then the contract line
     launches = {k: dcounts[k] + pcounts[k] for k in dcounts}
     launches.update({k: tcounts[k] for k in TRAIN_KERNELS})
     for k in LM_PER_STEP:                # ln_fwd: serving and training
