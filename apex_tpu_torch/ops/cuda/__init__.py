@@ -11,7 +11,10 @@ current stream. Each C entry point returns ``cudaGetLastError()`` after its
 launch; :func:`check` raises on anything but 0.
 
 Nothing here runs at import: this module imports on machines without
-``nvcc`` or a card (the CPU tests import every module).
+``nvcc`` or a card (the CPU tests import every module). The first
+:func:`lib` builds and loads under a lock, so threads that reach it
+together (the router's replicas) build once; processes share the built
+library, which appears whole (``os.replace``).
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -39,6 +43,7 @@ _FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo",
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 _lib = None
+_lib_mu = threading.Lock()
 build_seconds = None   # wall time of the last build (None: loaded cached)
 build_log = ""         # ptxas register/spill report of the last build
 
@@ -214,12 +219,14 @@ def _declare(so: ctypes.CDLL) -> None:
 
 
 def lib() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library (built on first call, once)."""
     global _lib
     if _lib is None:
-        so = ctypes.CDLL(str(build()))
-        _declare(so)
-        _lib = so
+        with _lib_mu:
+            if _lib is None:
+                so = ctypes.CDLL(str(build()))
+                _declare(so)
+                _lib = so
     return _lib
 
 

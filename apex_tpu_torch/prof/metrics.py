@@ -1,8 +1,8 @@
 """Telemetry notes — the part of ``apex_tpu/prof/metrics.py`` the fp16_utils
-path uses: the record kinds (:131-135) and ``note_kind`` with its list of
-pending notes (:235-252). With no logger to flush them, notes wait in the
-list (the newest 256), as in the JAX package; the sidecar logger comes with
-the rest of ``prof/``."""
+path and ``prof.slo``'s logger-less alerts use: the record kinds (:131-135)
+and ``note_kind`` with its list of pending notes (:235-252). With no logger
+to flush them, notes wait in the list (the newest 256), as in the JAX
+package; the sidecar logger comes with the rest of ``prof/``."""
 
 from __future__ import annotations
 

@@ -75,9 +75,12 @@ were batched. JAX's threefry keys cannot be reproduced in torch: only
 replay determinism is shared with the JAX engine, and equality across
 packages holds for greedy decoding.
 
-Not ported yet, each refused with ``NotImplementedError`` naming its
-ROADMAP row: the router feed, ``run``'s telemetry/tracer/slo/live/
-flightrec hooks, and ``lint_programs``.
+``run`` also takes a feed (``serve.router.RouterFeed``: externally fed
+admission), an external epoch ``t0``, an ``on_retire`` callback, and the
+``tracer``, ``slo`` and ``live`` observation hooks of ``prof/`` (the
+router tier's seams). Not ported yet, each refused with
+``NotImplementedError`` naming its ROADMAP row: ``run``'s ``telemetry``
+and ``flightrec`` hooks, and ``lint_programs``.
 """
 
 from __future__ import annotations
@@ -105,7 +108,6 @@ __all__ = ["Request", "RequestResult", "ContinuousBatchingEngine",
            "draft_from_prefix", "spec_accept", "stream_uniforms"]
 
 _POLICIES = ("continuous", "static")
-_SERVE_ROW = "ROADMAP.md Queue 1, slice 5"
 _TRACE_ROW = "ROADMAP.md Queue 1, slice 8"
 _LINT_ROW = "ROADMAP.md Queue 1, item 24"
 
@@ -178,8 +180,8 @@ class Request:
     """One generation request. ``arrival_s`` is relative to run start;
     the scheduler will not admit a request before its arrival time.
     ``session``/``trace``/``hop`` are the router's affinity key and trace
-    context, carried for the later router port; the engine never reads
-    them."""
+    context: the router reads ``session``, the ``request`` span carries
+    ``trace`` and ``hop``."""
     id: int
     prompt: np.ndarray            # int32 [P], 1 <= P
     max_new: int                  # generation budget (includes any EOS)
@@ -855,25 +857,52 @@ class ContinuousBatchingEngine:
     # -- the serving loop --------------------------------------------------
 
     def run(self, requests, *, telemetry=None, tracer=None, slo=None,
-            live=None, flightrec=None):
+            live=None, t0=None, on_retire=None, flightrec=None):
         """Serve ``requests`` to completion. Returns ``(results, stats)``:
         one :class:`RequestResult` per request (input order) and the
         run-level counters ``summarize_serving`` aggregates. The engine
-        never drops a request; invalid ones raise up front."""
-        hooks = {"telemetry": telemetry, "tracer": tracer, "slo": slo,
-                 "live": live, "flightrec": flightrec}
+        never drops a request; invalid ones raise up front.
+
+        ``requests`` may instead be a feed: any object with ``poll() ->
+        list[Request]`` and a ``closed`` property (``serve.router.
+        RouterFeed``). The loop drains it at every poll, validating each
+        request as it arrives and refusing a duplicate id, and runs until
+        the feed is closed and drained and the pool has drained. Results
+        come back in admission order.
+
+        ``t0``: a ``time.perf_counter()`` epoch to use as time zero, so a
+        router and its replicas stamp latencies on one clock (a routed
+        request's ``arrival_s`` is router-relative). ``on_retire(res)`` is
+        called with each finished :class:`RequestResult` at its
+        retirement (the router's completion accounting).
+
+        ``tracer`` (``prof.spans.SpanTracer``): per-request ``request``
+        spans parenting ``queue`` -> ``commit`` -> ``decode`` ->
+        ``retire``, ``prefill_chunk`` spans on the serialized path and
+        ``prefill_batch`` spans on the fused one, and a ``decode_step``
+        span a step, on the host timestamps of the results, so
+        percentiles from spans equal ``summarize_serving``'s. ``slo``
+        (``prof.slo.SLOMonitor``) is fed ``ttft_ms`` at each first token,
+        ``token_lat_ms`` at each retirement and ``step_ms`` each decode
+        step; ``live`` (``prof.live.LiveEmitter``, or the router's
+        ``ReplicaProbe``) the same, plus ``occupancy`` and
+        ``queue_depth`` each step and an ``occupancy`` of 0 every 32 idle
+        polls. ``telemetry`` and ``flightrec`` need ``MetricsLogger`` and
+        the flight recorder, not ported yet."""
+        hooks = {"telemetry": telemetry, "flightrec": flightrec}
         armed = [k for k, v in hooks.items() if v is not None]
         if armed:
             raise NotImplementedError(
-                f"run({', '.join(armed)}=...): the telemetry hooks are "
-                f"not ported yet ({_TRACE_ROW})")
-        if hasattr(requests, "poll"):
-            raise NotImplementedError(
-                f"a router feed needs the router, not ported yet "
-                f"({_SERVE_ROW})")
-        for r in requests:
-            self.validate(r)
-        order = list(requests)
+                f"run({', '.join(armed)}=...): MetricsLogger and the "
+                f"flight recorder are not ported yet ({_TRACE_ROW})")
+        feed = (requests if hasattr(requests, "poll")
+                and hasattr(requests, "closed") else None)
+        if feed is None:
+            for r in requests:
+                self.validate(r)
+            order = list(requests)
+        else:
+            order = []
         self._reset()
         state = self._state
         progs = self.programs
@@ -895,7 +924,7 @@ class ContinuousBatchingEngine:
         host_gen = [0] * self.slots
         self.events = []
         decode_steps = prefill_chunks = occupancy_sum = 0
-        prefill_batches = 0
+        prefill_batches = idle_polls = 0
         batch_sizes: list = []
         queue_depth: list = []
         step_ms: list = []
@@ -915,13 +944,32 @@ class ContinuousBatchingEngine:
         self._page_table = pt                 # test/debug visibility
         self._page_pool = page_pool
         self._prefix_cache = prefix
-        t0 = time.perf_counter()
+        tr = tracer
+        req_span: dict = {}                   # request id -> span id
+        dec_span: dict = {}                   # request id -> decode span
+        if t0 is None:
+            t0 = time.perf_counter()
+        # engine-relative times on the tracer's clock (with an external
+        # t0 the run started in the past: shift by what has elapsed)
+        base = (tr.now() - (time.perf_counter() - t0)) \
+            if tr is not None else 0.0
 
         def now() -> float:
             return time.perf_counter() - t0
 
         def poll() -> None:
             t = now()
+            if feed is not None:
+                for r in feed.poll():
+                    self.validate(r)
+                    if r.id in results:
+                        raise ValueError(
+                            f"duplicate request id {r.id} from feed")
+                    results[r.id] = RequestResult(
+                        id=r.id, prompt_len=len(r.prompt),
+                        arrival_s=r.arrival_s)
+                    order.append(r)
+                    pending.append(r)
             while pending and pending[0].arrival_s <= t:
                 ready.append(pending.popleft())
 
@@ -938,15 +986,55 @@ class ContinuousBatchingEngine:
                     page_pool.release(int(phys))
             pt[slot, :] = 0
 
+        def retire_spans(rid: int, t: float, slot: int, step: int) -> None:
+            """Close a request's decode and request spans at its finish
+            time and mark the retirement."""
+            ds = dec_span.pop(rid, None)
+            if ds is not None:
+                tr.end(ds, t1=base + t,
+                       tokens=len(results[rid].tokens) - 1)
+            rs = req_span.pop(rid, None)
+            if rs is not None:
+                tr.instant("retire", parent=rs, slot=slot, step=step)
+                tr.end(rs, tokens=len(results[rid].tokens))
+
         def release_slot(slot: int, rid: int, t: float, step: int) -> None:
-            results[rid].finish_s = t
+            res = results[rid]
+            res.finish_s = t
             self.events.append(("retire", rid, slot, step))
             retire_kv(slot)
             free.append(slot)
             free.sort()
+            if tr is not None:
+                retire_spans(rid, t, slot, step)
+            if slo is not None:
+                slo.observe("token_lat_ms", res.token_lat_s * 1e3,
+                            context={"request": rid})
+            if live is not None:
+                live.observe("token_lat_ms", res.token_lat_s * 1e3)
+            if on_retire is not None:
+                on_retire(res)
+
+        def admit_spans(req: Request, slot: int, t_admit: float):
+            """The request and queue spans at admission; returns the open
+            commit span (it ends at the first-token fetch)."""
+            if tr is None:
+                return None
+            ctx = ({"trace": req.trace,
+                    "hop": int(getattr(req, "hop", 0) or 0)}
+                   if getattr(req, "trace", None) is not None else {})
+            rs = tr.begin("request", t0=base + req.arrival_s,
+                          request=req.id, prompt_len=len(req.prompt),
+                          max_new=req.max_new, **ctx)
+            req_span[req.id] = rs
+            qs = tr.begin("queue", parent=rs, t0=base + req.arrival_s,
+                          request=req.id)
+            tr.end(qs, t1=base + t_admit, slot=slot)
+            return tr.begin("commit", parent=rs, t0=base + t_admit,
+                            request=req.id)
 
         def first_token(req: Request, slot: int, first: int, done: bool,
-                        t: float) -> None:
+                        t: float, cs) -> None:
             res = results[req.id]
             res.tokens.append(first)
             res.token_times.append(t)
@@ -954,11 +1042,21 @@ class ContinuousBatchingEngine:
             host_len[slot] = res.prompt_len   # prompt KV is resident
             resident["now"] += res.prompt_len
             resident["peak"] = max(resident["peak"], resident["now"])
+            if cs is not None:
+                tr.end(cs, t1=base + t, slot=slot)
+            if slo is not None:
+                slo.observe("ttft_ms", (t - req.arrival_s) * 1e3,
+                            context={"request": req.id})
+            if live is not None:
+                live.observe("ttft_ms", (t - req.arrival_s) * 1e3)
             if done:                          # one-token request
                 release_slot(slot, req.id, t, 0)
             else:
                 busy[slot] = req
-
+                if tr is not None:
+                    dec_span[req.id] = tr.begin(
+                        "decode", parent=req_span[req.id], t0=base + t,
+                        request=req.id)
         def seat() -> tuple:
             """Pop the requests this poll admits, their slots and the
             prefill chunks a prefix hit covers (paged: while the head
@@ -1013,15 +1111,21 @@ class ContinuousBatchingEngine:
             host_gen[slot] += 1
             res.generation = host_gen[slot]
             self.events.append(("admit", req.id, slot, host_gen[slot]))
+            cs = admit_spans(req, slot, res.admit_s)
             c = self.prefill_chunk
             plen = len(req.prompt)
             n = -(-plen // c)
             toks = np.zeros((1, n * c), np.int64)
             toks[0, :plen] = req.prompt
             for ci in range(n):
+                ps = (tr.begin("prefill_chunk", parent=req_span[req.id],
+                               request=req.id, chunk=ci)
+                      if tr is not None else None)
                 progs["prefill"](tok=toks[:, ci * c:(ci + 1) * c],
                                  index=[slot], pos0=[ci * c], valid=[True],
                                  is_final=[ci == n - 1])
+                if ps is not None:
+                    tr.end(ps)        # dispatch time: the sync is ahead
                 prefill_chunks += 1
             progs["commit"](sid=[slot], last_idx=[(plen - 1) % c],
                             plen=[plen], max_new=[req.max_new],
@@ -1030,7 +1134,7 @@ class ContinuousBatchingEngine:
             t = now()
             prefill_batches += 1
             batch_sizes.append(1)
-            first_token(req, slot, int(first), bool(done), t)
+            first_token(req, slot, int(first), bool(done), t, cs)
 
         def admit_batch() -> None:
             """All requests ready at this poll seat in one chain:
@@ -1042,12 +1146,17 @@ class ContinuousBatchingEngine:
                 return
             c = self.prefill_chunk
             t_admit = now()
+            # scheduler scope: one batched prefill serves k requests
+            pb = (tr.begin("prefill_batch", batch=len(batch))
+                  if tr is not None else None)
+            commit_spans = []
             for req, slot in zip(batch, taken):
                 res = results[req.id]
                 res.slot, res.admit_s = slot, t_admit
                 host_gen[slot] += 1
                 res.generation = host_gen[slot]
                 self.events.append(("admit", req.id, slot, host_gen[slot]))
+                commit_spans.append(admit_spans(req, slot, t_admit))
             k, w = len(batch), self.slots
             pad = [0] * (w - k)
             plens = [len(r.prompt) for r in batch]
@@ -1089,6 +1198,8 @@ class ContinuousBatchingEngine:
             t = now()
             prefill_batches += 1
             batch_sizes.append(k)
+            if pb is not None:
+                tr.end(pb, t1=base + t, batch=k, chunks=max(n_chunks))
             if prefix is not None:
                 # the prompts just prefilled are cacheable: insert their
                 # full pages (the cache takes its own reference) before
@@ -1104,9 +1215,10 @@ class ContinuousBatchingEngine:
             firsts, dones = packed
             for lane, (req, slot) in enumerate(zip(batch, taken)):
                 first_token(req, slot, int(firsts[lane]),
-                            bool(dones[lane]), t)
+                            bool(dones[lane]), t, commit_spans[lane])
 
-        while pending or ready or busy:
+        while pending or ready or busy or \
+                (feed is not None and not feed.closed):
             poll()
             admitted = False
             may_admit = (not busy) if self.policy == "static" else True
@@ -1125,20 +1237,36 @@ class ContinuousBatchingEngine:
                 admitted = prefill_batches > n_before
                 poll()                # prefill took wall time
             if busy:
+                # scheduler scope: one step advances every busy slot
+                ss = (tr.begin("decode_step", step=decode_steps + 1)
+                      if tr is not None else None)
                 t_dispatch = time.perf_counter()
                 progs["decode"](**({"page_table": pt} if pt is not None
                                    else {}))
                 packed = progs["decode"].fetch()  # the ONE sync per step
                 t_now = now()
-                step_ms.append((time.perf_counter() - t_dispatch) * 1e3)
+                dt_ms = (time.perf_counter() - t_dispatch) * 1e3
+                step_ms.append(dt_ms)
                 decode_steps += 1
                 if spec:
                     tok_rows = packed[:self.spec_k + 1]   # [k+1, S]
                     n_emit, active, n_acc = packed[self.spec_k + 1:]
                 else:
                     toks, active, n_emit = packed
-                occupancy_sum += int((n_emit > 0).sum())
+                emitted = int((n_emit > 0).sum())
+                occupancy_sum += emitted
                 queue_depth.append(len(ready))
+                if ss is not None:
+                    tr.end(ss, t1=base + t_now, active=emitted,
+                           queue_depth=len(ready))
+                if slo is not None:
+                    slo.observe("step_ms", dt_ms,
+                                context={"step": decode_steps})
+                if live is not None:
+                    # one enqueue a step: the tap must not tax the cadence
+                    live.observe_many(step_ms=dt_ms,
+                                      occupancy=emitted / self.slots,
+                                      queue_depth=len(ready))
                 for slot in list(busy):
                     ne = int(n_emit[slot])
                     if not ne:
@@ -1161,15 +1289,21 @@ class ContinuousBatchingEngine:
                         del busy[slot]
                         release_slot(slot, rid, t_now, decode_steps)
                 resident["peak"] = max(resident["peak"], resident["now"])
-            elif not admitted and (pending or ready):
-                # idle: the next arrival is in the future (or the paged
-                # gate is waiting on pages)
+            elif not admitted and (pending or ready or feed is not None):
+                # idle: the next arrival is in the future, the paged gate
+                # is waiting on pages, or the feed has nothing yet
                 if pending:
                     dt = pending[0].arrival_s - now()
                     if dt > 0:
                         time.sleep(min(dt, 0.001))
                 else:
                     time.sleep(0.0005)
+                idle_polls += 1
+                if live is not None and idle_polls % 32 == 0:
+                    # a starved replica shows a collapsed occupancy
+                    # window, not an absent one
+                    live.observe_many(occupancy=0.0,
+                                      queue_depth=len(ready))
 
         stats = {
             "duration_s": now(),

@@ -6,10 +6,11 @@ chunk, a commit, a decode or speculative step). The body reads its host
 inputs from a fixed :class:`Inputs` block and updates the engine's state
 in place, so every call touches the same device addresses. On the card:
 
-- the first call runs the body once eagerly on a side stream (which also
-  builds the kernels at first use), then captures it into a
+- the first call runs the body once eagerly on the capture stream (which
+  also builds the kernels at first use), then captures it into a
   ``torch.cuda.CUDAGraph``; every later call replays the graph. All the
-  graphs of one engine share one memory pool (:func:`new_pool`).
+  graphs of one engine share one memory pool and one capture stream
+  (:class:`GraphPool`), which no other engine's share.
   ``captures`` counts the captures, as JAX's ``_cache_size()`` counts
   compiles;
 - a capture that fails raises: nothing runs the body eagerly in its
@@ -18,7 +19,17 @@ in place, so every call touches the same device addresses. On the card:
   "reference")`` forces the plain kernels;
 - a replay launches the kernels without calling their Python wrappers, so
   the capture records each counted wrapper's launches (``launches``) and
-  every replay adds them to the wrappers' ``.launches`` counts.
+  every replay adds them to the wrappers' ``.launches`` counts, under one
+  lock: replicas replaying in several threads lose no count (``replays``
+  counts a program's replays).
+
+A fleet (the router's in-process replicas, ``serve/router.py``) runs
+engines in threads on one card. :func:`join_fleet` admits an engine only
+when all its programs are captured, and gives its thread a CUDA stream of
+its own (:func:`fleet_member`). While any replica runs, no program may
+capture (a capture synchronizes the card, collects garbage and empties
+the allocator's cache under every other replica) or run eagerly: it
+raises instead.
 
 On the CPU a call runs the body eagerly and nothing else changes.
 """
@@ -28,14 +39,19 @@ from __future__ import annotations
 import contextlib
 import gc
 import sys
+import threading
 
 import numpy as np
 import torch
 
-__all__ = ["DeviceProgram", "Inputs", "eager", "new_pool",
-           "counted_wrappers"]
+__all__ = ["DeviceProgram", "Inputs", "GraphPool", "eager", "new_pool",
+           "counted_wrappers", "join_fleet", "fleet_member",
+           "fleet_running", "add_launches"]
 
 _state = {"eager": False}
+_fleet = {"running": 0}       # replica threads between join and leave
+_fleet_mu = threading.Lock()
+_launch_mu = threading.Lock()   # the wrappers' counts under replay
 
 
 @contextlib.contextmanager
@@ -51,10 +67,82 @@ def eager():
         _state["eager"] = prev
 
 
+def join_fleet(engine):
+    """Admit ``engine`` as a replica of a running fleet (called by
+    ``EngineReplica.start`` in the starting thread) and count it running
+    until its thread leaves (:func:`fleet_member`). On the card every
+    program must be captured and no :func:`eager` context open, or this
+    raises; the result is the replica's own stream, ordered after the
+    starting thread's current stream (``warmup()``'s work and the pool
+    reset). On the CPU the result is None."""
+    dev = engine.device
+    stream = None
+    if dev.type == "cuda":
+        missing = sorted(n for n, p in engine.programs.items()
+                         if p._graph is None)
+        if missing:
+            raise RuntimeError(
+                f"EngineReplica.start: the engine's programs {missing} are "
+                f"not captured; call engine.warmup() before starting a "
+                f"fleet (a capture while replicas run would stall them)")
+        if _state["eager"]:
+            raise RuntimeError(
+                "EngineReplica.start inside programs.eager(): a fleet "
+                "replays captured graphs only")
+        stream = torch.cuda.Stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+    with _fleet_mu:
+        _fleet["running"] += 1
+    return stream
+
+
+@contextlib.contextmanager
+def fleet_member(stream):
+    """The replica thread's side of :func:`join_fleet`: its body runs on
+    ``stream`` (None: as it is), and the replica leaves the fleet when
+    the body ends, raised or not."""
+    try:
+        if stream is None:
+            yield
+        else:
+            with torch.cuda.stream(stream):
+                yield
+    finally:
+        with _fleet_mu:
+            _fleet["running"] -= 1
+
+
+def fleet_running() -> int:
+    """The replicas running now, in this process."""
+    return _fleet["running"]
+
+
+def add_launches(counts) -> None:
+    """Add each ``(wrapper, n)`` of ``counts`` to the wrapper's
+    ``.launches`` under one lock (a replay's accounting)."""
+    with _launch_mu:
+        for fn, n in counts:
+            fn.launches += n
+
+
+class GraphPool:
+    """What one engine's programs share on the card: a graph memory pool
+    (``handle``) and a capture stream (``stream``). The stream is the
+    engine's own because PyTorch gives a cuBLAS handle one workspace per
+    stream, and a captured product keeps the workspace it was captured
+    with: engines captured on one stream (``torch.cuda.graph``'s default)
+    would share it, and two of them replaying at once on two streams
+    would overwrite each other's products."""
+
+    def __init__(self, device: torch.device):
+        self.handle = torch.cuda.graph_pool_handle()
+        self.stream = torch.cuda.Stream(device)
+
+
 def new_pool(device: torch.device):
-    """One graph memory pool for all of an engine's programs (None on the
+    """One :class:`GraphPool` for all of an engine's programs (None on the
     CPU)."""
-    return torch.cuda.graph_pool_handle() if device.type == "cuda" else None
+    return GraphPool(device) if device.type == "cuda" else None
 
 
 def counted_wrappers() -> list:
@@ -148,6 +236,7 @@ class DeviceProgram:
         self.inputs = inputs
         self.pool = pool
         self.captures = 0
+        self.replays = 0
         self.launches: dict = {}      # a replay's launches, by wrapper
         self.eager_launches: dict = {}   # the last eager call's, on the card
         self.pool_bytes = 0           # reserved memory the capture added
@@ -159,9 +248,17 @@ class DeviceProgram:
         self._host = None
 
     def __call__(self, **arrays):
+        cuda = self.device.type == "cuda"
+        if cuda and (_state["eager"] or self._graph is None) \
+                and _fleet["running"]:
+            what = "an eager call" if _state["eager"] else "a capture"
+            raise RuntimeError(
+                f"program {self.name}: {what} while {_fleet['running']} "
+                f"replica(s) of a fleet run; warm every engine up "
+                f"(warmup()) before the fleet starts")
         if arrays:
             self.inputs.feed(**arrays)
-        if self.device.type != "cuda":
+        if not cuda:
             out = self.body()
         elif _state["eager"]:
             if self._fns is None:
@@ -175,18 +272,21 @@ class DeviceProgram:
             out = self._capture()
         else:
             self._graph.replay()
-            for fn, n in self._replay_counts:
-                fn.launches += n
+            self.replays += 1
+            add_launches(self._replay_counts)
             out = self._out
         self._last = out
         return out
 
     def _capture(self):
-        """The eager first run on a side stream, then the capture. The
-        wrappers' counts move during the capture though nothing launches:
-        they are restored, and the difference is what a replay adds."""
+        """The eager first run on the capture stream (the pool's, else a
+        new one), then the capture there. The wrappers' counts move
+        during the capture though nothing launches: they are restored,
+        and the difference is what a replay adds."""
         cur = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
+        pool = self.pool.handle if self.pool is not None else None
+        side = (self.pool.stream if self.pool is not None
+                else torch.cuda.Stream(self.device))
         side.wait_stream(cur)
         with torch.cuda.stream(side):
             out = self.body()
@@ -201,7 +301,7 @@ class DeviceProgram:
         reserved = torch.cuda.memory_reserved(self.device)
         graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(graph, pool=self.pool):
+            with torch.cuda.graph(graph, pool=pool, stream=side):
                 static = self.body()
         finally:
             after = _counts(fns)

@@ -2,11 +2,11 @@
 ``apex_tpu/serve/traffic.py``.
 
 ``parse_dist``, ``poisson_requests``, ``percentile_dict`` and
-``summarize_serving`` are copied from the JAX package (lines 34-230 there)
-so the port imports nothing of it; ``Request`` comes from the port's
-engine. The same seed yields the same request set in both packages. The
-span-derived views (``request_phases_from_spans`` and the rest) come with
-the tracing hooks (ROADMAP.md Queue 1, slice 8).
+``summarize_serving`` are copied from the JAX package (lines 34-230 there),
+and so are the span-derived views ``request_phases_from_spans``,
+``serving_percentiles_from_spans`` and ``tail_attribution`` (lines
+240-379), so the port imports nothing of it; ``Request`` comes from the
+port's engine. The same seed yields the same request set in both packages.
 """
 
 from __future__ import annotations
@@ -18,7 +18,8 @@ import numpy as np
 from apex_tpu_torch.serve.engine import Request
 
 __all__ = ["parse_dist", "poisson_requests", "percentile_dict",
-           "summarize_serving"]
+           "summarize_serving", "request_phases_from_spans",
+           "serving_percentiles_from_spans", "tail_attribution"]
 
 
 def parse_dist(spec: str) -> Callable:
@@ -218,3 +219,152 @@ def summarize_serving(results, stats, *, offered_rps: float,
             spec_accept_hist=stats.get("spec_accept_hist"),
         )
     return out
+
+
+# ---------------------------------------------------------------------------
+# Span-derived views (r13): the engine's per-request lifecycle spans
+# (prof.spans, schema-5 ``span`` records) carry the SAME host timestamps
+# summarize_serving aggregates — these helpers rebuild the latency view
+# from a sidecar's span records alone, which is (a) the parity check
+# that keeps the tracer honest and (b) what the tail-attribution table
+# in tools/telemetry_report.py decomposes a slow request's time with.
+# ---------------------------------------------------------------------------
+
+PHASES = ("queue_wait", "replay", "prefill", "decode", "retire")
+
+# spans whose start marks when a request's life (or a hop of it) began
+# — what the cross-lane ``replay`` phase is measured from. ``queue``
+# starts at arrival on EVERY lane it was submitted to, so a killed
+# replica's exported queue span anchors the original arrival even
+# though its ``request`` span died open and never exported.
+_LIFE_SPANS = ("request", "queue", "replay_hop", "redirect")
+
+
+def request_phases_from_spans(span_records) -> "dict[int, dict]":
+    """Fold schema-5 ``span`` records (or raw ``SpanTracer.records()``
+    dicts) into per-request phase durations, all in ms:
+
+    - ``queue_wait`` — arrival → admission (the ``queue`` span);
+    - ``replay``     — r22, merged fleet traces only: first-hop arrival
+      → final-hop arrival. A request replayed off a dead replica (or
+      redirected at admission) restarts on another lane; this phase is
+      the cross-process time lost to the hop(s), measured as the final
+      hop's ``request``-span start minus the earliest life-span start
+      for that request id across ALL lanes (0 for single-hop requests,
+      so single-process sidecars are unaffected);
+    - ``prefill``    — admission → first token (prefill chunks + the
+      commit sync; the serialized-admission cost lands here);
+    - ``decode``     — first token → last token (the ``decode`` span);
+    - ``retire``     — last token sync → request-span close (host
+      retirement bookkeeping; ~0 unless the scheduler lags).
+
+    Plus ``total_ms`` (arrival-inclusive across hops: first-hop arrival
+    → request-span close), ``tokens``, and ``ttft_ms``/``token_lat_ms``
+    on the exact ``summarize_serving`` basis — the FINAL hop's, because
+    that is the lifecycle the completing engine measured (the r13
+    parity invariant stays per-lane exact; the hop cost is reported as
+    its own phase instead of silently inflating queue_wait). On
+    multi-hop input the final hop's ``queue``/``commit``/``decode``
+    spans win (they start latest); requests with no closed ``request``
+    span anywhere (still in flight, or killed and never replayed) are
+    omitted."""
+    per: dict = {}
+    for r in span_records:
+        if r.get("kind", "span") != "span":
+            continue
+        attrs = r.get("attrs") or {}
+        rid = attrs.get("request")
+        if rid is None:
+            continue
+        d = per.setdefault(int(rid), {})
+        name = r.get("name")
+        t0, dur = float(r.get("t0_s", 0.0)), float(r.get("dur_ms", 0.0))
+        if name in _LIFE_SPANS:
+            d["first_t0"] = min(d.get("first_t0", t0), t0)
+        if name == "request":
+            # multi-hop merged traces: the final hop's request span
+            # (latest start) is the authoritative lifecycle
+            if "t0" not in d or t0 >= d["t0"]:
+                d["t0"], d["end"] = t0, t0 + dur * 1e-3
+                d["tokens"] = int(attrs.get("tokens", 0))
+        elif name == "queue":
+            if t0 >= d.get("queue_t0", float("-inf")):
+                d["queue_t0"] = t0
+                d["queue_ms"] = dur
+                d["admit"] = t0 + dur * 1e-3
+        elif name == "commit":
+            d["commit_end"] = max(d.get("commit_end", float("-inf")),
+                                  t0 + dur * 1e-3)
+        elif name == "decode":
+            d["decode_end"] = max(d.get("decode_end", float("-inf")),
+                                  t0 + dur * 1e-3)
+    out: dict = {}
+    for rid, d in per.items():
+        if "t0" not in d or "commit_end" not in d:
+            continue   # request never closed (or spans evicted)
+        t0 = d["t0"]
+        arrive = min(d.get("first_t0", t0), t0)
+        first = d["commit_end"]
+        last = d.get("decode_end", first)
+        end = d["end"]
+        tokens = max(d.get("tokens", 1), 1)
+        out[rid] = {
+            "queue_wait": round(d.get("queue_ms", 0.0), 4),
+            "replay": round(max(t0 - arrive, 0.0) * 1e3, 4),
+            "prefill": round((first - d.get("admit", t0)) * 1e3, 4),
+            "decode": round((last - first) * 1e3, 4),
+            "retire": round(max(end - last, 0.0) * 1e3, 4),
+            "total_ms": round((end - arrive) * 1e3, 4),
+            "tokens": tokens,
+            "ttft_ms": round((first - t0) * 1e3, 4),
+            "token_lat_ms": round((last - t0) * 1e3 / tokens, 4),
+        }
+    return out
+
+
+def serving_percentiles_from_spans(span_records) -> dict:
+    """TTFT / normalized-token-latency percentile dicts recomputed
+    purely from span records — must agree with ``summarize_serving``
+    on the same run (test-pinned parity, tests/test_serve.py)."""
+    phases = request_phases_from_spans(span_records)
+    return {
+        "requests": len(phases),
+        "ttft_ms": percentile_dict(
+            [p["ttft_ms"] for p in phases.values()]),
+        "token_lat_ms": percentile_dict(
+            [p["token_lat_ms"] for p in phases.values()]),
+    }
+
+
+def tail_attribution(span_records, *, frac: float = 0.1) -> dict:
+    """Decompose the slowest-``frac`` requests' arrival-inclusive
+    latency into phase shares — WHERE the p99 goes.
+
+    Returns the slow-set size and threshold, per-phase mean ms and
+    share-of-total over the slow set, the dominant phase, and the
+    per-request rows (slowest first) for the report table. This is the
+    number that turns "static batching's p99 is worse" into "static
+    batching's p99 is queue wait"."""
+    if not 0.0 < frac <= 1.0:
+        raise ValueError(f"frac must be in (0, 1], got {frac}")
+    phases = request_phases_from_spans(span_records)
+    if not phases:
+        return {"requests": 0, "tail": 0, "rows": []}
+    rows = sorted(({"request": rid, **p} for rid, p in phases.items()),
+                  key=lambda r: -r["total_ms"])
+    n_tail = max(1, int(round(frac * len(rows))))
+    tail = rows[:n_tail]
+    totals = {ph: sum(r[ph] for r in tail) for ph in PHASES}
+    grand = sum(totals.values()) or 1e-9
+    return {
+        "requests": len(rows),
+        "tail": n_tail,
+        "frac": frac,
+        "threshold_ms": round(tail[-1]["total_ms"], 3),
+        "worst_ms": round(tail[0]["total_ms"], 3),
+        "phases_ms": {ph: round(totals[ph] / n_tail, 3)
+                      for ph in PHASES},
+        "shares": {ph: round(totals[ph] / grand, 4) for ph in PHASES},
+        "dominant": max(PHASES, key=lambda ph: totals[ph]),
+        "rows": tail,
+    }

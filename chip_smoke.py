@@ -21,8 +21,10 @@ lm_bench's LM at 8 heads of 256 (the flash forward, dq and dk/dv at D
 under O1 (``amp.autocast``), phase 35 lm_bench's LM with ``--remat``,
 remat under O1 and in the ViT and the Seq2Seq Transformer, phases 36-38
 speculative decoding on the multi-row decode kernel, the shared-prefix page
-cache, sampled ``generate`` and the fused-MLP API, and phase 39 the serving
-engine's programs as CUDA graphs against the same programs run eagerly.
+cache, sampled ``generate`` and the fused-MLP API, phase 39 the serving
+engine's programs as CUDA graphs against the same programs run eagerly, and
+phase 41 the router tier (replicas in threads and in child processes of
+this script, ``--router-replica``, which the phase starts itself).
 Every serving engine runs its programs captured (``run``'s way on the card);
 ``warmup()`` captures them first where a phase calls it:
 
@@ -486,6 +488,35 @@ Every serving engine runs its programs captured (``run``'s way on the card);
     section: the serialized engine (``fused=False``) at phase 3's widths
     in fp32 on 16 requests, its greedy streams equal to the fused
     engine's (a check), its step p50 beside the fused one's.
+41. serve_router — run before phase 40's line, whose launches include
+    it: phase 3's model and traffic shape (serve_bench's router defaults:
+    64 Poisson requests at 8/s, prompts 16-96, outputs 8-48, seed 0) behind
+    ``serve.router.Router`` (least-queue), every engine warmed first. One
+    row an arm: in process, ``EngineReplica`` threads each on its own CUDA
+    stream, the Poisson requests at 1 and 2 replicas (``poisson_1``,
+    ``poisson_2``) and the same 64 all at t=0 (``saturated_1``,
+    ``saturated_2``); ``live_2``, 16 requests with each replica's
+    ``LiveEmitter`` streaming to a ``LiveCollector`` on localhost TCP, an
+    ``AdmissionController(shed=True)`` attached, and ``shed_2``, the 64
+    after ``trip("occupancy_min", replica=1)``, with an ``admission`` row
+    (the collector's step samples from both replicas); then the socket
+    transport: a ``RouterServer`` and 2 child processes, each on a
+    ``ReplicaClient`` (``socket_2``, the saturated 64), and a second
+    session where rank 1 exits after acking 2 retirements
+    (``socket_kill``). Each row: the card's name and power limit
+    (``card``), completed, shed, dropped (0, a check),
+    streams equal to a plain engine run of the same requests (a check;
+    in the kill arm every re-routed request's), captures after warmup (0,
+    a check), launches equal to the replicas' replays × each program's
+    launches a replay (a check), decode tok/s over the wall from the
+    router's start to the last completion, each replica's hot-loop decode
+    tok/s, TTFT and token latency, ``routed_balance``, and the card's
+    busy time (the union of every traced device activity, so concurrent
+    streams count once), its sum and idle share over the arm. Every shed
+    row names its rule and replica (a check); the kill arm re-routes at
+    least one request and completes all (a check). Last, the
+    ``serve_router_saturated`` row: decode tok/s at 1 thread, 2 threads
+    and 2 processes with the card's name and power limit.
 40. the ``{"kernels": [...], "off_path": [...]}`` line (42 kernels; dq's
     and dk/dv's entries also carry their ``wide`` reading and the whole
     backward's, ``backward``, at both shapes, the D-256 ones the whole
@@ -6495,6 +6526,541 @@ def generate_mlp_phase(torch, model, params) -> None:
     check(row["relu"]["ok"] and row["sigmoid"]["ok"], f"mlp: {row}")
 
 
+# -- phase 41: the router tier ------------------------------------------------
+
+ROUTER_DIR_ENV = "APEX_ROUTER_SMOKE_DIR"
+
+
+def serve_model(torch):
+    """serve_bench's model (phase 3): 8 layers of 1024, 8 heads, vocab
+    32768, bf16, random weights from seed 0."""
+    from apex_tpu_torch.models import TransformerLM
+    model = TransformerLM(vocab_size=32768, max_seq_len=1024,
+                          embed_dim=1024, num_heads=8, num_layers=8)
+    params = model.init(torch.Generator().manual_seed(0),
+                        dtype=torch.bfloat16)
+    return model, params
+
+
+def serve_engine(model, params):
+    from apex_tpu_torch.serve import ContinuousBatchingEngine
+    return ContinuousBatchingEngine(model, params, slots=8, max_len=1024,
+                                    prefill_chunk=32)
+
+
+def router_requests() -> list:
+    """serve_bench's default router traffic: 64 Poisson requests at 8/s,
+    prompts uniform 16-96, outputs uniform 8-48, seed 0."""
+    from apex_tpu_torch.serve import poisson_requests
+    return poisson_requests(64, rate=8.0, prompt_dist="uniform:16,96",
+                            new_dist="uniform:8,48", vocab_size=32768,
+                            seed=0, max_len=1024, prefill_chunk=32)
+
+
+def _union_ms(spans) -> float:
+    """Length of the union of ``(start, end)`` intervals (µs), in ms."""
+    total, end = 0.0, None
+    for s, e in sorted(spans):
+        if end is None or s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total / 1e3
+
+
+def _device_spans(torch, prof) -> list:
+    """Every device activity (kernels, copies, sets) a profile saw, as
+    ``(start µs, end µs, name)``."""
+    cuda = torch.autograd.DeviceType.CUDA
+    out = []
+    try:
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() != cuda:
+                continue
+            if hasattr(e, "start_ns"):
+                s, d = e.start_ns() / 1e3, e.duration_ns() / 1e3
+            else:
+                s, d = float(e.start_us()), float(e.duration_us())
+            out.append((s, s + d, e.name()))
+    except AttributeError:
+        out = [(e.time_range.start, e.time_range.end, e.name)
+               for e in prof.events() if e.device_type == cuda]
+    return out
+
+
+def device_activity(torch, fn) -> tuple:
+    """``fn()`` under ``torch.profiler`` tracing the card only (CUPTI; no
+    host events, so the host loop is not slowed): its result, and the
+    device's busy time as the union of every activity's interval (streams
+    of concurrent replicas overlap), their sum, the idle share of the
+    wall time, and the time by kernel family."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = _device_spans(torch, prof)
+    busy = _union_ms([(s, e) for s, e, _ in spans])
+    fam = {}
+    for s, e, name in spans:
+        f = _family(name, SERVE_FAMILIES)
+        fam[f] = fam.get(f, 0.0) + (e - s) / 1e3
+    return out, {"wall_ms": wall_ms, "device_busy_ms": busy,
+                 "device_sum_ms": sum(fam.values()),
+                 "idle_share": 1.0 - busy / wall_ms if wall_ms else None,
+                 "by_family_ms": dict(sorted(fam.items(),
+                                             key=lambda kv: -kv[1]))}
+
+
+def _decode_tokens(results) -> int:
+    return sum(max(len(r.tokens) - 1, 0) for r in results)
+
+
+def fleet_run(torch, engines, reqs, *, admission=None,
+              emitters=None) -> dict:
+    """One router run: ``EngineReplica`` s over ``engines`` (each on its
+    own stream, after ``warmup()``), ``Router.run`` over ``reqs`` under
+    least-queue, then ``merge_router_run`` and ``summarize_serving``, the
+    launch counts zeroed just before and read just after."""
+    import threading
+
+    from apex_tpu_torch.serve import (EngineReplica, Router,
+                                      merge_router_run, summarize_serving)
+    replicas = [EngineReplica(e, i, emitter=emitters[i] if emitters else
+                              None) for i, e in enumerate(engines)]
+    router = Router(replicas, policy="least-queue", admission=admission)
+    caps = [sum(p.captures for p in e.programs.values()) for e in engines]
+    replays = [{n: p.replays for n, p in e.programs.items()}
+               for e in engines]
+    mu, last = threading.Lock(), [None]
+
+    def completer(i):
+        def on_retire(res):
+            router.on_complete(i, res.id)
+            with mu:
+                last[0] = time.perf_counter()
+        return on_retire
+
+    zero_counts()
+    t0 = time.perf_counter()
+    for rep in replicas:
+        rep.start(t0, on_retire=completer(rep.index))
+    shed = router.run(reqs, t0=t0)
+    router.close()
+    for rep in replicas:
+        rep.join(300.0)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    check(not any(rep._thread.is_alive() for rep in replicas),
+          "serve_router: a replica thread did not end")
+    results, merged = merge_router_run(   # re-raises a replica's error
+        replicas, shed, duration_s=max(
+            [router.duration_s] + [r.stats["duration_s"] for r in replicas
+                                   if r.stats]))
+    fns = counters()
+    return {"replicas": replicas, "summary": summarize_serving(
+        results, merged, offered_rps=8.0, shed=shed),
+        "router": router.summary(), "shed": shed, "results": results,
+        "wall_s": (last[0] - t0) if last[0] is not None else None,
+        "counts": counts, "want": {name: sum(
+            (p.replays - replays[i][pn]) * p.launches.get(fn.__name__, 0)
+            for i, e in enumerate(engines)
+            for pn, p in e.programs.items()) for name, fn in fns.items()},
+        "captures": [sum(p.captures for p in e.programs.values()) - c
+                     for e, c in zip(engines, caps)]}
+
+
+def check_fleet_run(arm, run, reqs, ref, shed_all) -> None:
+    """Nothing lost (every request completes, or with ``shed_all`` is shed
+    with its rule and replica), every stream equal to ``ref`` (the plain
+    engine's), no capture, and each wrapper's launches equal to the
+    replicas' replays × each program's launches a replay."""
+    summary, rs = run["summary"], run["router"]
+    done = [r for r in run["results"] if r.finish_s is not None]
+    same = [r.tokens == ref[r.id] for r in done]
+    check(summary["dropped"] == 0,
+          f"serve_router {arm}: {summary['dropped']} request(s) lost")
+    if shed_all:
+        check(summary["shed"] == len(reqs) and not done,
+              f"serve_router {arm}: {summary['shed']} of {len(reqs)} shed")
+    else:
+        check(summary["completed"] == len(reqs) and rs["completed"]
+              == len(reqs), f"serve_router {arm}: {summary['completed']} "
+              f"of {len(reqs)} completed")
+        check(all(same), f"serve_router {arm}: {len(same) - sum(same)} "
+              f"streams differ from the plain engine's")
+    check(not any(run["captures"]),
+          f"serve_router {arm}: captures after warmup {run['captures']}")
+    check(run["counts"] == run["want"], f"serve_router {arm}: launches "
+          f"{run['counts']} != replays x launches a replay {run['want']}")
+
+
+def fleet_arm(torch, arm, engines, reqs, ref, card, *, admission=None,
+              emitters=None, shed_all=False, profile=True) -> tuple:
+    """One arm of phase 41: :func:`fleet_run` for its numbers, then (with
+    ``profile``) the same run again with the card traced for its busy and
+    idle share; both runs are checked (:func:`check_fleet_run`). Returns
+    the row, the launches of both runs and the shed rows."""
+    run = fleet_run(torch, engines, reqs, admission=admission,
+                    emitters=emitters)
+    summary, rs, wall = run["summary"], run["router"], run["wall_s"]
+    done = [r for r in run["results"] if r.finish_s is not None]
+    row = {"phase": "serve_router", "arm": arm, "card": card,
+           "replicas": len(engines),
+           "requests": len(reqs), "completed": summary["completed"],
+           "shed": summary["shed"], "dropped": summary["dropped"],
+           "streams_equal": sum(r.tokens == ref[r.id] for r in done),
+           "captures_after_warmup": run["captures"], "wall_s": wall,
+           "decode_tok_s": (_decode_tokens(done) / wall) if wall else None,
+           "tokens_per_s": summary["tokens_per_s"],
+           "replica_decode_tok_s": [
+               _decode_tokens(r.results) / (sum(r.stats["step_ms"]) / 1e3)
+               if r.stats["step_ms"] else None for r in run["replicas"]],
+           "routed_balance": rs["routed_balance"],
+           "routed": [p["routed"] for p in rs["per_replica"]],
+           "launches": {k: v for k, v in run["counts"].items() if v},
+           "launches_exact": run["counts"] == run["want"]}
+    if done:
+        row.update({k: summary[k] for k in ("decode_step_ms", "ttft_ms",
+                                            "token_lat_ms")})
+    else:
+        row["shed_by_rule"] = summary["shed_by_rule"]
+    counts = dict(run["counts"])
+    prun = None
+    if profile:
+        prun, dev = device_activity(torch, lambda: fleet_run(
+            torch, engines, reqs, admission=admission, emitters=emitters))
+        pwall = prun["wall_s"]
+        pdone = [r for r in prun["results"] if r.finish_s is not None]
+        row["profiled"] = {
+            **dev, "wall_s": pwall, "decode_tok_s": _decode_tokens(pdone)
+            / pwall if pwall else None,
+            "decode_step_ms_p50": prun["summary"]["decode_step_ms"]["p50"],
+            "streams_equal": sum(r.tokens == ref[r.id] for r in pdone)}
+        for k, v in prun["counts"].items():
+            counts[k] += v
+    emit(row)
+    check_fleet_run(arm, run, reqs, ref, shed_all)
+    if prun is not None:
+        check_fleet_run(arm + " (profiled)", prun, reqs, ref, shed_all)
+    return row, counts, run["shed"]
+
+
+def router_replica_main(argv) -> int:
+    """A socket replica of phase 41 (``chip_smoke.py --router-replica
+    ENDPOINT_A ENDPOINT_B RANK``, started by the phase): phase 3's model
+    and engine from the same seed, warmed, then one session on each
+    endpoint: a ``ReplicaClient`` whose feed the engine runs, acking each
+    retirement. Rank 1 dies (``os._exit``) after acking 2 retirements of
+    the second session. Each finished session's results go to one JSON
+    file in ``$APEX_ROUTER_SMOKE_DIR``."""
+    import os
+
+    import torch
+
+    from apex_tpu_torch.serve.router import ReplicaClient
+    endpoints, rank = argv[:2], int(argv[2])
+    out_dir = os.environ[ROUTER_DIR_ENV]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model, params = serve_model(torch)
+    eng = serve_engine(model, params)
+    warm = warm_engine(torch, eng)
+    for session, endpoint in enumerate(endpoints):
+        client = ReplicaClient(endpoint, rank)
+        acked = [0]
+        kill = session == 1 and rank == 1
+
+        def on_retire(res, client=client, acked=acked, kill=kill):
+            client.ack(res)
+            acked[0] += 1
+            if kill and acked[0] >= 2:
+                time.sleep(0.25)      # the acks already queued drain
+                os._exit(0)
+
+        results, stats = eng.run(client.feed, t0=client.t0,
+                                 on_retire=on_retire)
+        client.close()
+        row = {"rank": rank, "session": session,
+               "received": client.received,
+               "tokens": {str(r.id): r.tokens for r in results},
+               "decode_tokens": _decode_tokens(results),
+               "step_ms_sum": sum(stats["step_ms"]),
+               "decode_steps": stats["decode_steps"],
+               "captures_after_warmup": captures_since(eng, warm), **warm}
+        path = os.path.join(out_dir, f"rank{rank}_s{session}.json")
+        with open(path + ".tmp", "w") as f:
+            json.dump(row, f)
+        os.replace(path + ".tmp", path)
+    return 0
+
+
+def _err_tail(out_dir: str, rank: int) -> str:
+    import os
+    with open(os.path.join(out_dir, f"rank{rank}.err")) as f:
+        return f.read()[-2000:]
+
+
+def await_replicas(srv, procs, out_dir: str, timeout: float) -> None:
+    """``srv.wait_ready`` in short turns, failing as soon as a replica
+    process has exited before its hello."""
+    deadline = time.monotonic() + timeout
+    while True:
+        try:
+            srv.wait_ready(5.0)
+            return
+        except TimeoutError:
+            for rank, p in enumerate(procs):
+                check(p.poll() is None, f"serve_router: replica {rank} "
+                      f"exited {p.returncode}: {_err_tail(out_dir, rank)}")
+            check(time.monotonic() < deadline,
+                  f"serve_router: the replicas' hello took {timeout} s")
+
+
+def _wait_file(path: str, procs, timeout: float) -> dict:
+    import os
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(path):
+        check(time.monotonic() < deadline, f"serve_router: {path} never "
+              f"came (replicas' exit codes {[p.poll() for p in procs]})")
+        time.sleep(0.05)
+    with open(path) as f:
+        return json.load(f)
+
+
+def socket_session(srv, arm, reqs, ref, procs, out_dir, kill,
+                   card) -> dict:
+    """One session of the socket transport: a ``Router`` over the
+    ``SocketReplica`` s of ``srv`` (after every replica's hello), the
+    requests as ``WireRequest`` s all at t=0, until every one is
+    completed; then each surviving replica's results. Checks: completed
+    equals the number offered, nothing lost, and every stream (every
+    re-routed one's, from the survivor, in the kill arm) equals the plain
+    engine's."""
+    import os
+    import threading
+
+    from apex_tpu_torch.serve.router import Router, WireRequest
+    await_replicas(srv, procs, out_dir, 240.0)
+    router, reps = srv.make_replicas(
+        lambda slots: Router(slots, policy="least-queue"))
+    routes, mu, last = {}, threading.Lock(), [None]
+
+    def recording(rep):
+        submit = rep.submit
+
+        def sub(req):
+            routes.setdefault(int(req.id), []).append(rep.index)
+            submit(req)
+        return sub
+
+    for rep in reps:
+        rep.submit = recording(rep)
+    on_complete = router.on_complete
+
+    def completed(index, rid):
+        on_complete(index, rid)
+        with mu:
+            last[0] = time.perf_counter()
+
+    router.on_complete = completed
+    wire = [WireRequest(id=r.id, prompt=[int(t) for t in r.prompt],
+                        max_new=r.max_new) for r in reqs]
+    t0 = time.perf_counter()
+    shed = router.run(wire, t0=t0)
+    deadline = time.monotonic() + 180.0
+    while True:
+        s = router.summary()
+        if s["completed"] + s["shed"] >= s["offered"] - s["redirected"]:
+            break
+        check(time.monotonic() < deadline,
+              f"serve_router {arm}: {s['completed']} of {len(reqs)} "
+              f"completed in 180 s")
+        time.sleep(0.002)
+    router.close()
+    for rep in reps:
+        rep.join(60.0)
+    s = router.summary()
+    survivors = [0] if kill else [0, 1]
+    rows = [_wait_file(os.path.join(out_dir, f"rank{r}_s{int(kill)}.json"),
+                       procs, 120.0) for r in survivors]
+    tokens = {int(k): v for row in rows for k, v in row["tokens"].items()}
+    rerouted = sorted(i for i, hops in routes.items() if len(hops) > 1)
+    checked = rerouted if kill else sorted(tokens)
+    same = [tokens.get(i) == ref[i] for i in checked]
+    wall = last[0] - t0
+    dec = sum(row["decode_tokens"] for row in rows)
+    out = {"phase": "serve_router", "arm": arm, "card": card, "replicas": 2,
+           "transport": "socket", "requests": len(reqs),
+           "offered": s["offered"], "completed": s["completed"],
+           "shed": s["shed"], "redirected": s["redirected"],
+           "rerouted": len(rerouted), "streams_equal": sum(same),
+           "streams_checked": len(same), "wall_s": wall,
+           "decode_tok_s": dec / wall if not kill else None,
+           "replica_decode_tok_s": [
+               row["decode_tokens"] / (row["step_ms_sum"] / 1e3)
+               for row in rows if row["step_ms_sum"]],
+           "routed": [p["routed"] for p in s["per_replica"]],
+           "routed_balance": s["routed_balance"],
+           "captures_after_warmup": [row["captures_after_warmup"]
+                                     for row in rows],
+           "warmup_s": [row["warmup_s"] for row in rows]}
+    emit(out)
+    check(not shed and s["completed"] == len(reqs),
+          f"serve_router {arm}: completed {s['completed']} of {len(reqs)}")
+    check(s["completed"] + s["shed"] == s["offered"] - s["redirected"],
+          f"serve_router {arm}: requests lost ({s})")
+    check(all(same) and same, f"serve_router {arm}: "
+          f"{len(same) - sum(same)} of {len(same)} streams differ")
+    check(not any(out["captures_after_warmup"]),
+          f"serve_router {arm}: a replica captured after warmup")
+    if kill:
+        check(s["redirected"] >= 1 and rerouted,
+              f"serve_router {arm}: nothing was re-routed")
+    return out
+
+
+def serve_router_phase(torch, model, params) -> dict:
+    """Phase 41: the router tier on phase 3's model (serve_bench's width),
+    each engine warmed before any router starts. (a) In process under
+    least-queue: serve_bench's router traffic, 64 Poisson requests, at 1
+    and 2 replicas (``EngineReplica`` threads, each on its own stream),
+    then the same 64 all at t=0 (the saturated arm) at 1 and 2. (b)
+    Admission: a ``LiveCollector`` on localhost TCP receiving each
+    replica's ``LiveEmitter`` (process = replica index) with an
+    ``AdmissionController(shed=True)`` attached: 16 requests served, then
+    the controller tripped (``trip``) and every arrival shed with its rule
+    and replica. (c) Across processes: a ``RouterServer`` and 2 children
+    of this script (``--router-replica``), each warmed and on a
+    ``ReplicaClient``: the saturated 64 served; then a second session in
+    which rank 1 dies after acking 2 retirements and its requests are
+    re-routed to rank 0. The children start first, so their set-up
+    overlaps the Poisson arms. Returns the launches of (a) and (b)."""
+    import gc
+    import os
+    import tempfile
+
+    from apex_tpu_torch.prof.live import LiveCollector, LiveEmitter
+    from apex_tpu_torch.serve import AdmissionController
+    from apex_tpu_torch.serve.router import RouterServer
+    gc.collect()
+    torch.cuda.empty_cache()      # room for the children's engines
+    card = nvidia_smi("name,power.limit")
+    reqs = router_requests()
+    saturated = at_once(reqs)
+    tmp = tempfile.TemporaryDirectory()
+    srv_a, srv_b = RouterServer(2), RouterServer(2)
+    env = {**os.environ, ROUTER_DIR_ENV: tmp.name}
+    logs = [open(os.path.join(tmp.name, f"rank{rank}.err"), "w")
+            for rank in (0, 1)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--router-replica",
+         srv_a.endpoint, srv_b.endpoint, str(rank)], env=env,
+        stdout=subprocess.DEVNULL, stderr=log) for rank, log in
+        zip((0, 1), logs)]
+    totals: dict = {}
+    try:
+        engines = [serve_engine(model, params) for _ in range(2)]
+        warm = [warm_engine(torch, e) for e in engines]
+        # the plain engine's streams: every arm is held to them
+        base, _ = engines[0].run(saturated)
+        ref = {r.id: r.tokens for r in base}
+        check(all(len(r.tokens) == q.max_new for r, q in zip(base, reqs)),
+              "serve_router: the plain engine's run is short")
+        rows = {}
+        for arm, rq, n in (("poisson", reqs, 1), ("poisson", reqs, 2),
+                           ("saturated", saturated, 1),
+                           ("saturated", saturated, 2)):
+            if arm == "saturated" and n == 1:
+                # the children warmed and idle before the timed arms
+                await_replicas(srv_a, procs, tmp.name, 240.0)
+            row, counts, _ = fleet_arm(torch, f"{arm}_{n}", engines[:n],
+                                       rq, ref, card)
+            rows[(arm, n)] = row
+            for k, v in counts.items():
+                totals[k] = totals.get(k, 0) + v
+        # (b) admission on the live plane's alert seam
+        col = LiveCollector(http_port=None).start()
+        adm = AdmissionController(shed=True, window_s=600.0).attach(col)
+        ems = [LiveEmitter(col.endpoint, process_index=i, process_count=2,
+                           run="serve_router") for i in range(2)]
+        _, counts, _ = fleet_arm(torch, "live_2", engines, saturated[:16],
+                                 ref, card, admission=adm, emitters=ems,
+                                 profile=False)
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        adm.trip("occupancy_min", replica=1)
+        _, _, shed = fleet_arm(torch, "shed_2", engines, saturated, ref,
+                               card, admission=adm, emitters=ems,
+                               shed_all=True, profile=False)
+        for em in ems:
+            em.close()
+        deadline = time.monotonic() + 20.0
+        while True:
+            snap = col.snapshot()
+            steps = {r["process"]: r["step_p50_ms"]
+                     for r in snap["replicas"]}
+            if all(steps.get(i) is not None for i in (0, 1)) and all(
+                    r["closed"] for r in snap["replicas"]):
+                break
+            check(time.monotonic() < deadline,
+                  f"serve_router shed_2: the collector holds {steps}")
+            time.sleep(0.05)
+        col.close()
+        emit({"phase": "serve_router", "arm": "admission", "card": card,
+              "shed": len(shed), "alerts_consumed": adm.alerts_consumed,
+              "attributed": sum(r["rule"] == "occupancy_min"
+                                and r["replica"] == 1 for r in shed),
+              "collector": {str(r["process"]): {
+                  k: r[k] for k in ("samples", "step_p50_ms", "occupancy",
+                                    "ttft_p95_ms", "drops", "closed")}
+                  for r in snap["replicas"]}})
+        check(len(shed) == len(saturated) and all(
+            r["rule"] == "occupancy_min" and r["replica"] == 1
+            for r in shed), "serve_router shed_2: a shed row without its "
+              "rule and replica")
+        check(all(r["drops"] == 0 for r in snap["replicas"]),
+              "serve_router: the live emitters dropped samples")
+        del engines
+        gc.collect()
+        torch.cuda.empty_cache()
+        # (c) the socket transport across processes
+        sock = socket_session(srv_a, "socket_2", saturated, ref, procs,
+                              tmp.name, False, card)
+        socket_session(srv_b, "socket_kill", saturated, ref, procs,
+                       tmp.name, True, card)
+        for rank, p in enumerate(procs):
+            p.wait(timeout=120)
+            check(p.returncode == 0, f"serve_router: replica {rank} exit "
+                  f"{p.returncode}: {_err_tail(tmp.name, rank)}")
+        one, two = rows[("saturated", 1)], rows[("saturated", 2)]
+        emit({"phase": "serve_router_saturated", "card": card,
+              "decode_tok_s": {
+                "threads_1": one["decode_tok_s"],
+                "threads_2": two["decode_tok_s"],
+                "processes_2": sock["decode_tok_s"]},
+              "threads_2_over_1": two["decode_tok_s"] / one["decode_tok_s"],
+              "processes_2_over_threads_1": sock["decode_tok_s"]
+              / one["decode_tok_s"],
+              "idle_share": {"threads_1": one["profiled"]["idle_share"],
+                             "threads_2": two["profiled"]["idle_share"]},
+              "warmup": warm})
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+        for log in logs:
+            log.close()
+        srv_a.close()
+        srv_b.close()
+        tmp.cleanup()
+    return totals
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6502,7 +7068,6 @@ def main() -> int:
               "port on an NVIDIA card", file=sys.stderr)
         return 2
 
-    from apex_tpu_torch.models import TransformerLM
     from apex_tpu_torch.ops import cuda as kcuda
     from apex_tpu_torch.ops import dispatch
     from apex_tpu_torch.serve import poisson_requests
@@ -6658,10 +7223,7 @@ def main() -> int:
           "waiting": timer.waiting, "seconds": timer.seconds})
 
     # 3-4. the serving slice, dense then paged
-    model = TransformerLM(vocab_size=32768, max_seq_len=1024,
-                          embed_dim=1024, num_heads=8, num_layers=8)
-    params = model.init(torch.Generator().manual_seed(0),
-                        dtype=torch.bfloat16)
+    model, params = serve_model(torch)
     reqs = poisson_requests(32, rate=8.0, prompt_dist="uniform:16,96",
                             new_dist="uniform:8,48", vocab_size=32768,
                             seed=0, max_len=1024, prefill_chunk=32)
@@ -6782,6 +7344,9 @@ def main() -> int:
         summarize_serving(dense, dstats, offered_rps=8.0))
     prefix_counts = serve_prefix_phase(torch, model, params, reqs)
     generate_mlp_phase(torch, model, params)
+    # 41. the router tier on phase 3's model: in-process replicas, the
+    # admission window, and replicas in other processes
+    router_counts = serve_router_phase(torch, model, params)
 
     # 40. the kernels line, then the contract line
     launches = {k: dcounts[k] + pcounts[k] for k in dcounts}
@@ -6825,6 +7390,8 @@ def main() -> int:
                   "decode_attention_rows", "paged_decode_attention_rows",
                   "decode_merge", "ln_fwd"):
             launches[k] += counts[k]
+    for k, n in router_counts.items():   # the router's replicas
+        launches[k] += n
     sources = {
         "decode_attention": (
             "apex_tpu_torch/ops/cuda/csrc/decode_attn.cu",
@@ -7194,4 +7761,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--router-replica"]:
+        sys.exit(router_replica_main(sys.argv[2:]))
     sys.exit(main())

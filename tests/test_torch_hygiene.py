@@ -351,6 +351,30 @@ def test_scan_reaches_the_seq2seq_slice_modules():
             "contrib/multihead_attn/modules.py"} <= names
 
 
+def test_scan_reaches_the_router_slice_modules():
+    names = {p.relative_to(PKG).as_posix() for p in _sources()
+             if p.is_relative_to(PKG)}
+    assert {"serve/router.py", "prof/slo.py", "prof/live.py",
+            "prof/spans.py"} <= names
+
+
+def test_router_slice_imports_without_jax_or_torch():
+    """The router, ``slo``, ``live`` and ``spans`` are stdlib only: a
+    process hosting the router (the socket transport's parent) loads
+    neither JAX nor torch."""
+    code = ("import sys\n"
+            "import apex_tpu_torch.serve.router, apex_tpu_torch.prof.slo, "
+            "apex_tpu_torch.prof.live, apex_tpu_torch.prof.spans\n"
+            "bad = sorted(m for m in sys.modules if m in ('jax', 'torch') "
+            "or m.startswith(('jax.', 'torch.', 'apex_tpu.')))\n"
+            "print(','.join(bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == ""
+
+
 def test_imagenet_slice_imports_without_jax():
     code = ("import sys\n"
             "import apex_tpu_torch.data, apex_tpu_torch.optimizers.fused_sgd, "

@@ -280,9 +280,12 @@ def test_unported_options_name_their_roadmap_row(models, engine):
     with pytest.raises(ValueError, match="spec_k needs draft"):
         ContinuousBatchingEngine(tm, tp, slots=2, max_len=32,
                                  prefill_chunk=4, device="cpu", spec_k=2)
-    # the tracer hooks and the program lint keep raising, each naming
-    # its ROADMAP row
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        engine.run(_requests(2), tracer=object())
+    # the telemetry and flight-recorder hooks and the program lint keep
+    # raising, each naming its ROADMAP row (the tracer, slo and live
+    # hooks and the router feed are ported)
+    for hook in ("telemetry", "flightrec"):
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md Queue 1, slice 8"):
+            engine.run(_requests(2), **{hook: object()})
     with pytest.raises(NotImplementedError, match="ROADMAP.md.*item 24"):
         engine.lint_programs()
