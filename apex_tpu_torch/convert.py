@@ -12,7 +12,10 @@ buffers of the two packages agree element for element.
 Adam's moments, FusedAdagrad's ``"sum"``), and
 ``fp16_optimizer_state_from_jax`` an ``FP16_Optimizer.state_dict()``
 (scaler, overflow flag and the wrapped optimizer's state dict) for the
-port's ``load_state_dict``. Nothing here imports JAX.
+port's ``load_state_dict``. ``zero_state_dict_from_jax`` carries a ZeRO
+optimizer's ``state_dict()`` / ``state_dict_arrays()`` (per-leaf trees,
+so any shard count loads it) and ``sharded_state_from_jax`` its flat
+``ShardedState``. Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -25,7 +28,8 @@ import torch
 from apex_tpu_torch._device import resolve_device
 
 __all__ = ["params_from_jax", "resnet_from_jax", "opt_state_from_jax",
-           "optimizer_state_dict_from_jax", "fp16_optimizer_state_from_jax"]
+           "optimizer_state_dict_from_jax", "fp16_optimizer_state_from_jax",
+           "zero_state_dict_from_jax", "sharded_state_from_jax"]
 
 
 def _leaf(a, device: torch.device, dtype: Optional[torch.dtype]):
@@ -100,3 +104,31 @@ def fp16_optimizer_state_from_jax(d: dict, *, device=None) -> dict:
             "dynamic": bool(d["dynamic"]), "overflow": bool(d["overflow"]),
             "optimizer_state_dict": optimizer_state_dict_from_jax(
                 d["optimizer_state_dict"], device=device)}
+
+
+def zero_state_dict_from_jax(d: dict, *, device=None) -> dict:
+    """A JAX ``DistributedFusedAdam``/``LAMB`` ``state_dict()`` or
+    ``state_dict_arrays()`` (per-leaf trees of numpy arrays or arrays) ->
+    the port's, tensors on ``device``, for a port ZeRO optimizer's
+    ``load_state_dict`` at any ``num_shards`` (the slots keep their names,
+    ``m`` and ``v``)."""
+    def conv(tree):
+        return params_from_jax(tree, device=device)
+    return {"format": d["format"], "master": conv(d["master"]),
+            "slots": {k: conv(v) for k, v in d["slots"].items()},
+            "step": int(np.asarray(d["step"])), "hp": dict(d["hp"]),
+            "num_shards": int(d["num_shards"])}
+
+
+def sharded_state_from_jax(state, *, device=None):
+    """A JAX ``ShardedState`` (the full flat buffers, numpy leaves or
+    arrays) -> the port's on ``device``, for a port optimizer built over
+    the same params with the same ``num_shards`` (the two lay the flat
+    buffer out alike); ``local_state`` then cuts a rank's shard."""
+    from apex_tpu_torch.contrib.optimizers.distributed import ShardedState
+    dev = resolve_device(device)
+    return ShardedState(
+        master=_leaf(state.master, dev, None),
+        slots={k: _leaf(v, dev, None) for k, v in state.slots.items()},
+        step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                          device=dev))

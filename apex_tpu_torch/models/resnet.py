@@ -2,7 +2,7 @@
 
 The same architecture, parameter names, shapes and layouts as the JAX
 package: conv kernels HWIO, the fc weight ``[in, out]``, BN through the
-port's ``SyncBatchNorm`` training core (local statistics). Functional:
+port's ``SyncBatchNorm`` training core. Functional:
 ``init`` gives ``(params, state)`` trees, ``apply(params, state, x)``
 gives ``(logits fp32, new_state)``.
 
@@ -15,8 +15,9 @@ leaves them to XLA. ``padding="SAME"`` pads as XLA does — ``lo = total //
 stem, every 3×3/s2 conv), since PyTorch's symmetric padding would shift
 the output grid by a pixel.
 
-Not ported: the space-to-depth stem (slice 7) and cross-replica BN
-(``bn_axis_name``, slice 6); both raise.
+``bn_axis_name`` (and ``bn_axis_index_groups``) sync every BN's statistics
+over that axis (``parallel.convert_syncbn_model`` sets them through
+``replace``). Not ported: the space-to-depth stem (slice 7); it raises.
 """
 
 from __future__ import annotations
@@ -73,10 +74,6 @@ class ResNet:
                  width: int = 64, bn_axis_name: Optional[str] = None,
                  bn_axis_index_groups=None, param_dtype=torch.float32,
                  stem: str = "conv", device=None):
-        if bn_axis_name is not None or bn_axis_index_groups is not None:
-            raise NotImplementedError(
-                "cross-replica BN is not ported yet (ROADMAP.md Queue 1, "
-                "slice 6)")
         if stem == "space_to_depth":
             raise NotImplementedError(
                 "the space-to-depth stem is not ported yet (ROADMAP.md "
@@ -88,14 +85,29 @@ class ResNet:
         self.bottleneck = bool(bottleneck)
         self.num_classes = int(num_classes)
         self.width = int(width)
+        self.bn_axis_name = bn_axis_name
+        self.bn_axis_index_groups = bn_axis_index_groups
         self.param_dtype = param_dtype
         self.stem = stem
         self.expansion = 4 if self.bottleneck else 1
         self.device = resolve_device(device)
 
-    @staticmethod
-    def _bn(c: int, fuse_relu: bool = False) -> SyncBatchNorm:
-        return SyncBatchNorm(c, fuse_relu=fuse_relu, axis_name=None,
+    def replace(self, **kw) -> "ResNet":
+        """Rebuilt with changed config (``parallel.convert_syncbn_model``
+        flips the BNs to cross-replica this way)."""
+        cfg = dict(block_sizes=self.block_sizes, bottleneck=self.bottleneck,
+                   num_classes=self.num_classes, width=self.width,
+                   bn_axis_name=self.bn_axis_name,
+                   bn_axis_index_groups=self.bn_axis_index_groups,
+                   param_dtype=self.param_dtype, stem=self.stem,
+                   device=self.device)
+        cfg.update(kw)
+        return type(self)(**cfg)
+
+    def _bn(self, c: int, fuse_relu: bool = False) -> SyncBatchNorm:
+        return SyncBatchNorm(c, fuse_relu=fuse_relu,
+                             axis_name=self.bn_axis_name,
+                             axis_index_groups=self.bn_axis_index_groups,
                              channel_axis=1)
 
     # -- init -----------------------------------------------------------------

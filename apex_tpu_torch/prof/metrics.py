@@ -219,8 +219,8 @@ def _itemsize(dtype) -> int:
 
 def tracked_bytes_per_device(tree) -> int:
     """Bytes of a tree of tensors (or arrays) on one device: each leaf's
-    elements times its element size. Nothing of the port is sharded yet,
-    so every leaf counts in full. Metadata only — no host sync."""
+    elements times its element size: a ZeRO rank's state is its shard, so
+    the bytes are the rank's own. Metadata only — no host sync."""
     total = 0
     for x in _leaves(tree):
         shape = getattr(x, "shape", None)
@@ -712,7 +712,8 @@ class MetricsLogger:
                         label: Optional[str] = None, **extra) -> None:
         """Emit a ``memory`` record with the bytes of the run's persistent
         state on one device: each tensor's ``numel() * element_size()``
-        (nothing is sharded yet). Metadata only — no host sync.
+        (a ZeRO rank's shard is what it holds). Metadata only — no host
+        sync.
         ``devices`` is written when CUDA is initialized."""
         fields: dict = {"tracked": True}
         if label is not None:
@@ -731,10 +732,21 @@ class MetricsLogger:
 
     # -- collectives -------------------------------------------------------
     def log_collectives(self) -> None:
-        """The traced collective-bytes tally of ``parallel/collectives``,
-        which the port does not have yet: nothing is emitted, as the JAX
-        logger emits nothing when that module cannot be imported."""
-        return
+        """Snapshot ``parallel.collectives``' tally into a ``collectives``
+        record (the JAX logger's keys): the bytes and calls of the last
+        step (``collectives.step_scope``), and the host-observed latency
+        histogram under ``latency``. Nothing is emitted when both are
+        empty; a process that never loaded the module has no tally (and
+        prof loads no torch)."""
+        _c = sys.modules.get("apex_tpu_torch.parallel.collectives")
+        if _c is None:
+            return
+        snap = dict(_c.collective_bytes())
+        lat = _c.collective_latency()
+        if lat:
+            snap["latency"] = lat
+        if snap:
+            self._emit("collectives", snap)
 
     # -- stall (called by prof.watchdog) -----------------------------------
     def log_stall(self, snapshot: dict) -> None:

@@ -14,6 +14,15 @@ model without BN state, its attention dropout seeded per step and layer
 models, two FusedAdams and three loss scalers, O1 by default; its ``fit``
 is the example's loop with the telemetry of ``--telemetry`` and ``--slo``
 (:209-296).
+``DDPTrainer`` and ``ZeROTrainer`` are the two distributed RN50 steps of
+``bench.py``'s ``--zero`` arms (``_run_zero_arm``, :840-1000) on
+``torch.distributed``, each rank on its share of the batch: ``ddp``
+(:939-948), the model's BNs synced over the axis, the one flat grad
+averaged, FusedLAMB replicated; ``zero`` (:920-938), the bf16 params
+gathered from the shards, the grad reduce-scattered into
+``DistributedFusedLAMB``'s shard update. ``DDPTrainer`` with
+``optimizer="sgd"`` and a uint8 batch is ``examples/imagenet/main_amp.py``'s
+``--data-parallel N --sync_bn`` step (:173-180, :224-300).
 ``LMTrainer`` is the FusedAdam step of ``tools/lm_bench.py`` (:255-272,
 one device) for the decoder LM and, with the batch and loss keywords
 passed through, of ``examples/seq2seq/train_translation.py`` for the
@@ -47,6 +56,7 @@ from typing import Optional
 import torch
 
 from apex_tpu_torch._device import resolve_device
+from apex_tpu_torch._stream import fold_key
 from apex_tpu_torch.amp import frontend as _amp
 from apex_tpu_torch.amp.autocast import autocast
 from apex_tpu_torch.contrib.xentropy import select_label_logits
@@ -59,8 +69,10 @@ from apex_tpu_torch.optimizers.fused_lamb import FusedLAMB
 from apex_tpu_torch.optimizers.fused_novograd import FusedNovoGrad
 from apex_tpu_torch.optimizers.fused_sgd import FusedSGD
 from apex_tpu_torch.optimizers.larc import LARC
+from apex_tpu_torch.parallel import collectives as _C
 
-__all__ = ["master_grad", "Trainer", "LMTrainer", "DCGANTrainer"]
+__all__ = ["master_grad", "Trainer", "DDPTrainer", "ZeROTrainer",
+           "LMTrainer", "DCGANTrainer"]
 
 
 def master_grad(master, table, dtype, objective):
@@ -117,13 +129,8 @@ class Trainer:
                  momentum=None, weight_decay=None, norm_type=None,
                  larc: bool = False, generator=None, device=None,
                  **amp_overrides):
-        self.device = resolve_device(device)
-        self.model = model
-        _, self.handle = _amp.initialize(opt_level=opt_level, verbosity=0,
-                                         **amp_overrides)
-        # main_amp's ``cast_model_dtype or float32`` (:206)
-        self.half = self.handle.policy.cast_model_dtype or torch.float32
-        self.amp_state = self.handle.init_state(self.device)
+        self._setup(model, bn_state, opt_level, generator, device,
+                    amp_overrides)
         if optimizer not in OPTIMIZERS:
             raise ValueError(f"optimizer must be one of {sorted(OPTIMIZERS)}"
                              f", got {optimizer!r}")
@@ -134,6 +141,19 @@ class Trainer:
         base = cls(params, device=self.device, **kw)
         self.table = base._tables[0]
         self.opt = LARC(base) if larc else base
+
+    def _setup(self, model, bn_state, opt_level, generator, device,
+               amp_overrides):
+        """Everything but the optimizer: the device, the model, the AMP
+        handle, its half dtype and state, the BN state on the device and
+        the dropout generator."""
+        self.device = resolve_device(device)
+        self.model = model
+        _, self.handle = _amp.initialize(opt_level=opt_level, verbosity=0,
+                                         **amp_overrides)
+        # main_amp's ``cast_model_dtype or float32`` (:206)
+        self.half = self.handle.policy.cast_model_dtype or torch.float32
+        self.amp_state = self.handle.init_state(self.device)
         self.is_vit = isinstance(model, ViT)
         self.bn_state = {} if bn_state is None else _flat.tree_map(
             lambda t: t.to(self.device), bn_state)
@@ -183,8 +203,16 @@ class Trainer:
                     (loss.detach(), new_bn))
 
         flat_grad, (loss, new_bn) = master_grad(
-            self.opt.state[0].master, self.table, self.half, objective)
+            self._step_master(), self.table, self.half, objective)
         return flat_grad, loss, new_bn
+
+    def _step_master(self):
+        """The flat buffer the step differentiates against."""
+        return self.opt.state[0].master
+
+    def masters(self):
+        """The flat fp32 masters."""
+        return self.opt.state[0].master
 
     def apply_grads(self, flat_grad, new_bn):
         """Unscale, update the masters (skipped on overflow) and the
@@ -211,13 +239,117 @@ class Trainer:
         in the half dtype, BN in eval mode on the running statistics;
         returns ``(top-1, top-5)`` accuracy as device tensors (top-k with
         k = min(5, classes))."""
-        params = _flat.unflatten(self.opt.state[0].master, self.table,
+        params = _flat.unflatten(self.masters(), self.table,
                                  dtype=self.half)
         logits, _ = self._apply(params, self._input(x), False)
         k = min(5, logits.shape[-1])
         hit = torch.topk(logits.float(), k, dim=-1).indices == \
             y.to(torch.int64)[:, None]
         return hit[:, 0].float().mean(), hit.any(dim=-1).float().mean()
+
+
+def _pmean(t, axis_name):
+    """The mean of a device scalar over the axis (``lax.pmean``)."""
+    n = _C.group_size(axis_name)
+    return _C.grouped_psum(t.reshape(1), axis_name)[0] / n
+
+
+def _signed32(v: int) -> int:
+    return v - (1 << 32) if v >= 1 << 31 else v
+
+
+class DDPTrainer(Trainer):
+    """``Trainer``'s step, data parallel over ``axis_name``: the model's
+    BNs synced over the axis (``parallel.convert_syncbn_model``), the flat
+    grad of this rank's batch averaged by ``ddp`` (one all-reduce, before
+    the unscale, as bench.py:939-948 and main_amp.py:276-283), the
+    optimizer and the scaler replicated, the loss averaged over the axis.
+    Every rank must hold the same params and state. A ViT's dropout seeds
+    differ by rank: each drawn seed is folded with the rank's position
+    (``_stream.fold_key``), as main_amp folds the rank into its key
+    (:264-267). Other keywords are ``Trainer``'s."""
+
+    def __init__(self, model, params, bn_state=None, *,
+                 axis_name: str = "data", ddp=None, **kw):
+        super().__init__(model, params, bn_state, **kw)
+        from apex_tpu_torch.parallel.distributed import \
+            DistributedDataParallel
+        self.axis_name = axis_name
+        self.ddp = ddp if ddp is not None else \
+            DistributedDataParallel(axis_name=axis_name)
+
+    def draw_dropout_seeds(self):
+        seeds = super().draw_dropout_seeds()
+        if seeds is None:
+            return None
+        r = _C.axis_index(self.axis_name)
+        keys = fold_key(torch.tensor([s & 0xFFFFFFFF for s in seeds]), r)
+        return [_signed32(int(k)) for k in keys]
+
+    def step(self, x, y, dropout_seeds=None):
+        """One step on this rank's batch; returns the loss averaged over
+        the axis (a device tensor). ``dropout_seeds`` are this rank's."""
+        with _C.step_scope():
+            flat_grad, loss, new_bn = self.loss_and_grad(x, y, dropout_seeds)
+            flat_grad = self.ddp.average_gradients(flat_grad)
+            self.apply_grads(flat_grad, new_bn)
+            return _pmean(loss, self.axis_name)
+
+
+class ZeROTrainer(Trainer):
+    """bench.py's ``zero`` arm (:920-938): the bf16 params gathered from
+    the masters' shards, forward and backward against the gathered flat
+    buffer (its grad comes back bf16, as the JAX step's), the unscale, an
+    overflow on any rank skipping the step on every shard, then
+    ``DistributedFusedLAMB.shard_step`` (reduce-scatter, the shard's LAMB
+    update) and the scaler's update; the loss averaged over the axis.
+    ``state`` is this rank's :class:`ShardedState`; ``opt`` the optimizer,
+    over ``num_shards`` ranks (the axis's size by default). The BN state
+    and the scaler are replicated. ``lr`` is bench.py's 1e-3."""
+
+    def __init__(self, model, params, bn_state=None, *,
+                 axis_name: str = "data", num_shards=None,
+                 opt_level: str = "O2", lr: float = 1e-3,
+                 gather_dtype=None, device=None, **amp_overrides):
+        from apex_tpu_torch.contrib.optimizers import DistributedFusedLAMB
+        self._setup(model, bn_state, opt_level, None, device, amp_overrides)
+        self.axis_name = axis_name
+        n = num_shards if num_shards is not None else \
+            _C.group_size(axis_name)
+        self.opt = DistributedFusedLAMB(
+            params, lr=lr, axis_name=axis_name, num_shards=n,
+            model_dtype=self.half, gather_dtype=gather_dtype,
+            device=self.device)
+        self.table = self.opt.table
+        self.state = self.opt.local_state(self.opt.init_state())
+
+    def _step_master(self):
+        return _C.all_gather(self.state.master.to(self.opt.gather_dtype),
+                             self.axis_name)
+
+    def apply_grads(self, flat_grad, new_bn):
+        flat_grad, found_inf = self.handle.unscale(flat_grad.float(),
+                                                   self.amp_state)
+        # any rank's overflow skips the step on every shard
+        found = _C.grouped_psum(found_inf.float().reshape(1),
+                                self.axis_name)[0] > 0
+        self.state, _ = self.opt.shard_step(self.state, flat_grad,
+                                            found_inf=found, gather=False)
+        self.amp_state = self.handle.update(self.amp_state, found)
+        self.bn_state = new_bn
+        return found
+
+    def step(self, x, y, dropout_seeds=None):
+        """One step on this rank's batch; returns the loss averaged over
+        the axis (a device tensor)."""
+        with _C.step_scope():
+            flat_grad, loss, new_bn = self.loss_and_grad(x, y, dropout_seeds)
+            self.apply_grads(flat_grad, new_bn)
+            return _pmean(loss, self.axis_name)
+
+    def masters(self):
+        """The full fp32 masters, gathered from the shards."""
+        return _C.all_gather(self.state.master, self.axis_name)
 
 
 class LMTrainer:

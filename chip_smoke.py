@@ -27,7 +27,10 @@ phase 41 the router tier (replicas in threads and in child processes of
 this script, ``--router-replica``, which the phase starts itself), and
 phase 42 the telemetry sidecar (``prof.metrics``, ``flightrec``,
 ``watchdog``) in the engine and the DCGAN loop, with the port's serving
-tools run as subprocesses.
+tools run as subprocesses, and phase 43 data parallelism
+(``torch.distributed``: bench.py's ddp and zero arms at world size 1 over
+NCCL, and ranks in child processes of this script, ``--ddp-rank``, over
+gloo on the one card).
 Every serving engine runs its programs captured (``run``'s way on the card);
 ``warmup()`` captures them first where a phase calls it:
 
@@ -544,6 +547,37 @@ Every serving engine runs its programs captured (``run``'s way on the card);
     survives, a check), then one ``flush`` fetching all 128 scalars in one
     device-to-host copy (profiled, a check). Sidecars, traces and dumps
     go to a temporary directory.
+43. data_parallel — run before phase 40's line, whose launches include
+    (a)'s. (a) ``ddp_world1``: an NCCL group of world size 1 (a
+    ``file://`` store), bench.py's ``--zero ddp`` step (``DDPTrainer``,
+    the BNs converted to SyncBatchNorm over ``"data"``) at phase 6's
+    width (RN50, batch 256 at 224², O2 bf16, FusedLAMB 1e-3) for 3 steps
+    against ``Trainer``'s plain step from the same init and batch:
+    masters, BN state and losses bit-equal (a check), 53 launches of each
+    BN kernel a step (a check), 108 collectives a step (a check); 5 timed
+    steps (img/s, step p50, MFU, peak memory, the state's bytes); then
+    the ``--zero zero`` step (``ZeROTrainer``) at 1 shard: masters within
+    ``DP_ZERO_ATOL`` of FusedLAMB's (a check), 5 timed; then the plain
+    step's 3 steps at O0, the fp32 reference of (b). (b) ``ddp_2ranks``:
+    two children of this script (``--ddp-rank``, started by the port's
+    ``launch.multiproc``) on the one card try NCCL once (what it says is
+    printed: it refuses two ranks on one device), then run over gloo on
+    CUDA tensors, each on half the batch, the built kernels loaded (a
+    rebuild is a failure): ddp then zero at 2 shards at O2, then both at
+    O0, then the control, ddp at O0 with the BNs left local. Checks: every
+    arm's ranks bit-equal; at O0 step 1's averaged grad within
+    ``DP_REORDER_FACTOR`` times fp32's own effect (world 1's grad of the
+    batch with its halves swapped) of (a)'s O0 grad and its loss within
+    ``DP_STEP1_LOSS``, the control's outside that bar, and
+    zero's first update within ``DP_ZERO_ATOL`` of FusedLAMB's from the
+    same grads; each
+    zero rank's state half of ddp's, and the device memory its trainer
+    holds no more than that state; the gaps after 3 steps are printed.
+    (c)
+    ``groups_4ranks``: four children, the CI ResNet
+    with ``create_syncbn_process_group(2)``, one forward: the stem BN's
+    statistics equal within each pair, apart across, and within 1e-5 of
+    BN over the pair's joined batch (checks).
 40. the ``{"kernels": [...], "off_path": [...]}`` line (42 kernels; dq's
     and dk/dv's entries also carry their ``wide`` reading and the whole
     backward's, ``backward``, at both shapes, the D-256 ones the whole
@@ -7348,6 +7382,544 @@ def telemetry_phase(torch, model, params) -> dict:
     return totals
 
 
+# -- phase 43: data parallelism -------------------------------------------------
+
+DP_BATCH, DP_IMAGE, DP_STEPS, DP_TIMED = 256, 224, 3, 5
+# Zero at 1 shard is FusedLAMB's arithmetic in the same layout: within
+# DP_ZERO_ATOL of its masters.
+# (b)'s two ranks against (a) on the full batch are held at step 1 in fp32
+# (O0), before any update: the averaged flat grad against (a)'s O0 grad
+# (mean and max of |diff| over mean and max of |grad|) within
+# DP_REORDER_FACTOR times fp32's own effect, the gap between (a)'s grad and
+# (a)'s grad of the same batch with its halves swapped, and the first loss
+# within DP_STEP1_LOSS (20 fp32 ulps at 7). The BN sums and conv grads are
+# added in another order, and RN50's 53 BN backward projections, each a
+# small difference of large sums, magnify that rounding at random init.
+# After an update the gap stops measuring the program:
+# LAMB moves each weight by lr times about the sign of its grad, so a grad
+# near zero that changes sign moves its weight by up to 2 lr (the first
+# card runs read 5.4e-3 at O0 after 3 steps), and at O2 a master 1 ulp
+# apart rounds to another bf16 param (8.7e-4). So the 3-step gaps are
+# readings. The control, BNs left local, must fall outside the step-1 bar.
+# Zero at 2 shards against FusedLAMB is held on the same grads: each
+# rank's step-1 grad of the ddp arm, reduce-scattered by zero's first
+# update, against FusedLAMB's update from their average. Only LAMB's
+# norms, summed in another order, part them: within DP_ZERO_ATOL.
+DP_ZERO_ATOL = 1e-6
+DP_REORDER_FACTOR, DP_STEP1_LOSS = 2.0, 1e-5
+# (b)'s arms: name, trainer, BNs synced, amp level
+DP_ARMS = (("ddp", "ddp", True, "O2"), ("zero", "zero", True, "O2"),
+           ("ddp_o0", "ddp", True, "O0"), ("zero_o0", "zero", True, "O0"),
+           ("ddp_o0_local_bn", "ddp", False, "O0"))
+
+
+def dp_batch(torch, classes: int, rank: int = 0, world: int = 1):
+    """bench.py's batch (RandomState(0), :887-889), this rank's share, on
+    the card: x NCHW (channels_last) fp32, y int32."""
+    import numpy as np
+    rs = np.random.RandomState(0)
+    x = rs.randn(DP_BATCH, DP_IMAGE, DP_IMAGE, 3).astype(np.float32)
+    y = rs.randint(0, classes, DP_BATCH).astype(np.int32)
+    n = DP_BATCH // world
+    sl = slice(rank * n, (rank + 1) * n)
+    return (torch.from_numpy(x[sl]).cuda().permute(0, 3, 1, 2),
+            torch.from_numpy(y[sl]).cuda())
+
+
+def dp_state_bytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def dp_build(torch, build) -> tuple:
+    """``build()`` and the device bytes it leaves allocated: what the
+    trainer holds."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    tr = build()
+    torch.cuda.synchronize()
+    return tr, torch.cuda.memory_allocated() - before
+
+
+def dp_gap(a, b, loss_a, loss_b) -> dict:
+    """The masters' mean and max absolute gap and the losses' largest."""
+    d = (a - b).abs()
+    return {"mean": float(d.mean()), "max": float(d.max()),
+            "loss": max(abs(u - v) for u, v in zip(loss_a, loss_b))}
+
+
+def dp_step1(grad, loss, ref_grad, ref_loss) -> dict:
+    """Step 1 against the reference: the grads' mean and max |diff| over
+    the reference's mean and max |grad|, and the losses' |diff|."""
+    d = (grad - ref_grad).abs()
+    return {"grad_mean": float(d.mean() / ref_grad.abs().mean()),
+            "grad_max": float(d.max() / ref_grad.abs().max()),
+            "loss": abs(loss - ref_loss)}
+
+
+def dp_within(gap: dict, bar: dict) -> bool:
+    return all(gap[k] <= bar[k] for k in bar)
+
+
+def dp_window(torch, tr, x, y, flops: float, batch: int) -> dict:
+    """DP_TIMED timed steps of a warmed trainer: img/s, step p50, MFU,
+    peak memory and the launches (``timed_steps``)."""
+    r = timed_steps(torch, lambda: tr.step(x, y), 0, DP_TIMED)
+    return {**step_row(r, batch, DP_TIMED, flops), "launches": r["counts"]}
+
+
+def ddp_world1(torch, card: str) -> tuple:
+    """(a): NCCL at world size 1, bench.py's ddp arm at phase 6's width
+    against Trainer's plain step, then its zero arm at 1 shard."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    from apex_tpu_torch.models import analytic_flops, resnet50
+    from apex_tpu_torch.ops import flat
+    from apex_tpu_torch.parallel import collectives as C
+    from apex_tpu_torch.parallel import (convert_syncbn_model, launch,
+                                         make_mesh)
+    from apex_tpu_torch.train import DDPTrainer, Trainer, ZeROTrainer
+    tmp = tempfile.TemporaryDirectory()
+    launch.initialize(device="cuda", rank=0, world_size=1,
+                      init_method=f"file://{os.path.join(tmp.name, 's')}")
+    totals: dict = {}
+    try:
+        make_mesh(device="cuda")
+        model = resnet50()
+        params, state = model.init(0)
+        flops = analytic_flops(model, DP_IMAGE)
+        x, y = dp_batch(torch, model.num_classes)
+        plain = Trainer(model, params, state)
+        p_loss = [plain.step(x, y) for _ in range(DP_STEPS)]
+        sync = convert_syncbn_model(model, axis_name="data")
+        ddp, ddp_held = dp_build(torch,
+                                 lambda: DDPTrainer(sync, params, state))
+        zero_counts()
+        d_loss = [ddp.step(x, y) for _ in range(DP_STEPS)]
+        counts = read_counts()
+        tally = C.collective_bytes()
+        same = torch.equal(plain.opt.state[0].master,
+                           ddp.opt.state[0].master)
+        bn_same = all(torch.equal(a, b) for a, b in zip(
+            flat.tree_leaves(plain.bn_state), flat.tree_leaves(ddp.bn_state)))
+        loss_same = all(torch.equal(a, b) for a, b in zip(p_loss, d_loss))
+        ddp_masters = ddp.opt.state[0].master.detach().cpu()
+        ddp_losses = [float(v) for v in d_loss]
+        del plain
+        window = dp_window(torch, ddp, x, y, flops, DP_BATCH)
+        ddp_bytes = dp_state_bytes([ddp.opt.state[0].master,
+                                    *ddp.opt.state[0].slots.values()])
+        for k, v in window["launches"].items():
+            totals[k] = totals.get(k, 0) + v
+        emit({"phase": "data_parallel", "part": "ddp_world1", "card": card,
+              "backend": dist.get_backend(), "world": 1,
+              "model": "resnet50", "batch": DP_BATCH, "image": DP_IMAGE,
+              "steps": DP_STEPS, "masters_bit_equal": same,
+              "bn_state_bit_equal": bn_same, "losses_bit_equal": loss_same,
+              "losses": ddp_losses,
+              "collectives_per_step": tally.get("total_calls"),
+              "collective_bytes_per_step": tally.get("total_bytes"),
+              "collectives": tally.get("ops"),
+              "params_opt_state_bytes_per_device": ddp_bytes,
+              "trainer_device_bytes": ddp_held,
+              "launches_3_steps": counts,
+              **{k: v for k, v in window.items() if k != "losses"}})
+        check(same and bn_same and loss_same,
+              "ddp_world1: the DDP step is not the plain step bit for bit "
+              f"(masters {same}, BN state {bn_same}, losses {loss_same})")
+        check_counts("ddp_world1", counts, {
+            k: DP_STEPS * (53 if k.startswith("bn_") else 1)
+            for k in TRAIN_KERNELS})
+        check(tally.get("total_calls") == 2 * 53 + 2,
+              f"ddp_world1: {tally.get('total_calls')} collectives a step, "
+              f"not 2 a BN + the grad's and the loss's")
+        del ddp
+        # the zero arm at one shard against FusedLAMB's masters above
+        zt, z_held = dp_build(torch,
+                              lambda: ZeROTrainer(sync, params, state))
+        zero_counts()
+        z_loss = [float(zt.step(x, y)) for _ in range(DP_STEPS)]
+        zcounts = read_counts()
+        ztally = C.collective_bytes()
+        zm = zt.masters().detach().cpu()
+        err = float((zm - ddp_masters).abs().max())
+        zwindow = dp_window(torch, zt, x, y, flops, DP_BATCH)
+        for k, v in zwindow["launches"].items():
+            totals[k] = totals.get(k, 0) + v
+        z_bytes = dp_state_bytes([zt.state.master,
+                                  *zt.state.slots.values()])
+        emit({"phase": "data_parallel", "part": "zero_world1", "card": card,
+              "num_shards": 1, "losses": z_loss,
+              "masters_max_abs_vs_fused_lamb": err,
+              "masters_bit_equal": err == 0.0,
+              "collectives_per_step": ztally.get("total_calls"),
+              "collective_bytes_per_step": ztally.get("total_bytes"),
+              "collectives": ztally.get("ops"),
+              "params_opt_state_bytes_per_device": z_bytes,
+              "trainer_device_bytes": z_held,
+              "launches_3_steps": zcounts,
+              **{k: v for k, v in zwindow.items() if k != "losses"}})
+        check(err <= DP_ZERO_ATOL, f"zero_world1: masters {err} from "
+              f"FusedLAMB's, over {DP_ZERO_ATOL}")
+        check_counts("zero_world1", zcounts, {
+            k: DP_STEPS * (53 if k.startswith("bn_") else 1)
+            for k in TRAIN_KERNELS})
+        del zt
+        # the same 3 steps at O0: (b)'s fp32 reference, and bf16's own
+        # effect for the record
+        fp32 = Trainer(model, params, state, opt_level="O0")
+        grad, first, _ = fp32.loss_and_grad(x, y)
+        o0_grad = grad.detach().cpu()
+        # fp32's own effect: the same batch, its halves swapped
+        h = DP_BATCH // 2
+        grad, loss, _ = fp32.loss_and_grad(torch.cat([x[h:], x[:h]]),
+                                           torch.cat([y[h:], y[:h]]))
+        reorder = dp_step1(grad.detach().cpu(), float(loss), o0_grad,
+                           float(first))
+        del grad
+        o0_loss = [float(fp32.step(x, y)) for _ in range(DP_STEPS)]
+        o0_masters = fp32.opt.state[0].master.detach().cpu()
+        bf16_effect = dp_gap(o0_masters, ddp_masters, o0_loss, ddp_losses)
+        del fp32
+    finally:
+        C.unbind_axes()
+        dist.destroy_process_group()
+        tmp.cleanup()
+    return totals, {"masters": ddp_masters, "losses": ddp_losses,
+                    "o0_masters": o0_masters, "o0_losses": o0_loss,
+                    "o0_grad": o0_grad, "reorder_effect": reorder,
+                    "bf16_effect": bf16_effect}
+
+
+def ddp_rank_main(argv) -> int:
+    """A rank of phase 43 (``chip_smoke.py --ddp-rank MODE DIR``, started
+    by ``launch.multiproc``, which sets ``RANK`` and ``WORLD_SIZE``;
+    results and logs in DIR). MODE ``nccl``: join an NCCL group on the
+    one card and all-reduce once, writing what NCCL says; ``train``: gloo
+    over CUDA tensors, the arms of ``DP_ARMS`` on this rank's half of the
+    batch; ``groups``: gloo, the CI ResNet with
+    ``create_syncbn_process_group(2)``, one forward."""
+    import os
+
+    mode, out = argv[0], argv[1]
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    if rank == 0:       # the launcher leaves rank 0 on the phase's output
+        fd = os.open(os.path.join(out, "rank0.log"),
+                     os.O_WRONLY | os.O_CREAT | os.O_TRUNC)
+        os.dup2(fd, 1)
+        os.dup2(fd, 2)
+    import torch
+    import torch.distributed as dist
+
+    from apex_tpu_torch.parallel import launch
+    store = f"file://{os.path.join(out, 'store')}"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def write(name, obj):
+        path = os.path.join(out, name)
+        with open(path + ".tmp", "w") as f:
+            json.dump(obj, f)
+        os.replace(path + ".tmp", path)
+
+    if mode == "nccl":
+        launch.initialize(device="cuda", init_method=store, timeout=60)
+        t = torch.ones(4, device="cuda")
+        try:      # the probe's question is what NCCL says
+            dist.all_reduce(t)
+            torch.cuda.synchronize()
+            said = {"ok": True, "sum": float(t[0])}
+        except Exception as e:      # noqa: BLE001 - reported, not hidden
+            said = {"ok": False, "error": f"{type(e).__name__}: {e}"[:600]}
+        write(f"nccl{rank}.json", said)
+        os._exit(0)     # the group may be left half made: leave at once
+    launch.initialize("gloo", device="cuda", init_method=store,
+                      timeout=300)
+    from apex_tpu_torch.ops import cuda as kcuda
+    from apex_tpu_torch.parallel import collectives as C
+    from apex_tpu_torch.parallel import (convert_syncbn_model,
+                                         create_syncbn_process_group,
+                                         make_mesh)
+    make_mesh(device="cuda")
+    kcuda.lib()
+    check(kcuda.build_seconds is None, "ddp rank: the kernels were rebuilt")
+    if mode == "groups":
+        from apex_tpu_torch.models import ResNet
+        model = ResNet(block_sizes=(1, 1), bottleneck=True, num_classes=10,
+                       width=8)
+        params, state = model.init(0)
+        sync = convert_syncbn_model(
+            model, create_syncbn_process_group(2), axis_name="data")
+        g = torch.Generator().manual_seed(100 + rank)
+        x = torch.randn(4, 3, 32, 32, generator=g).cuda()
+        _, new = sync.apply(params, state, x, training=True)
+        write(f"groups{rank}.json", {
+            "stem_mean": new["bn_stem"]["running_mean"].tolist(),
+            "stem_var": new["bn_stem"]["running_var"].tolist(),
+            "x_seed": 100 + rank})
+        dist.barrier()
+        dist.destroy_process_group()
+        return 0
+    from apex_tpu_torch.models import resnet50
+    from apex_tpu_torch.ops import flat
+    from apex_tpu_torch.train import DDPTrainer, ZeROTrainer
+    local = resnet50()
+    synced = convert_syncbn_model(local, axis_name="data")
+    params, state = local.init(0)
+    x, y = dp_batch(torch, local.num_classes, rank, world)
+    row = {"rank": rank}
+
+    def masters(tr, kind):
+        if kind == "ddp":
+            return tr.opt.state[0].master
+        # in the ddp arm's (128-aligned) layout, to compare in place
+        return flat.flatten(flat.unflatten(tr.masters(), tr.table),
+                            dtype=torch.float32)[0]
+
+    def save(t, name):
+        torch.save(t.detach().cpu(), os.path.join(out, f"{name}{rank}.pt"))
+
+    step1 = None
+    for arm, kind, sync_bn, level in DP_ARMS:
+        cls = DDPTrainer if kind == "ddp" else ZeROTrainer
+        model = synced if sync_bn else local
+        tr, held = dp_build(torch, lambda: cls(model, params, state,
+                                               opt_level=level))
+        if kind == "ddp" and level == "O0":
+            # step 1's grad, before any update, averaged over the ranks
+            grad = tr.loss_and_grad(x, y)[0]
+            avg = tr.ddp.average_gradients(grad)
+            save(avg, f"{arm}_grad")
+            if sync_bn:
+                # FusedLAMB's first update from it, and this rank's grad
+                # for zero's first update (a second backward would not
+                # give the same grads: cuDNN's fp32 backward adds in no
+                # fixed order)
+                save(tr.opt.apply_update(tr.opt.state, [avg])[0].master,
+                     "lamb_step1_")
+                step1 = (grad.cpu(), tr.table)
+            del grad, avg
+        if kind == "zero" and level == "O0":
+            grad = flat.flatten(flat.unflatten(step1[0].cuda(), step1[1]),
+                                table=tr.table, dtype=torch.float32)[0]
+            st, _ = tr.opt.shard_step(tr.state, grad, gather=False)
+            full = C.all_gather(st.master, "data")
+            save(flat.flatten(flat.unflatten(full, tr.table),
+                              dtype=torch.float32)[0], "zero_step1_")
+            del grad, st, full
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = [float(tr.step(x, y)) for _ in range(DP_STEPS)]
+        torch.cuda.synchronize()
+        row[arm] = {"losses": losses,
+                    "s_per_step": (time.perf_counter() - t0) / DP_STEPS,
+                    "launches": read_counts(),
+                    "collectives": C.collective_bytes(),
+                    "trainer_device_bytes": held}
+        if kind == "ddp":
+            tensors = [tr.opt.state[0].master,
+                       *tr.opt.state[0].slots.values()]
+        else:
+            tensors = [tr.state.master, *tr.state.slots.values()]
+            # the state of one rank of ZeRO's own (n·128-aligned) layout
+            row[arm]["unsharded_bytes"] = 3 * 4 * tr.opt.total
+        row[arm]["state_bytes"] = dp_state_bytes(tensors)
+        save(masters(tr, kind), arm)
+        del tr, tensors
+        torch.cuda.empty_cache()
+    write(f"train{rank}.json", row)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def dp_children(mode: str, world: int, root: str, timeout: float) -> tuple:
+    """``world`` ranks of ``--ddp-rank MODE`` through the port's launcher
+    (``launch.multiproc``, killed at ``timeout``): the first nonzero exit
+    code (0 if none), and the directory of their results and logs."""
+    import os
+
+    from apex_tpu_torch.parallel import launch
+    out = os.path.join(root, mode)
+    os.makedirs(out)
+    rc = launch.multiproc(os.path.abspath(__file__), world, "--ddp-rank",
+                          mode, out, log_dir=out, timeout=timeout)
+    return rc, out
+
+
+def _dp_err(out: str, world: int) -> str:
+    import os
+    tails = []
+    for r in range(world):
+        path = os.path.join(out, f"rank{r}.log")
+        if os.path.exists(path):
+            with open(path) as f:
+                tails.append(f"rank {r}: {f.read()[-1500:]}")
+    return "\n".join(tails)
+
+
+def ddp_two_ranks(torch, card: str, ref: dict) -> None:
+    """(b): two ranks on the one card. NCCL is tried once; the arms run
+    over gloo on CUDA tensors (the collectives' gloo-on-CUDA rules)."""
+    import os
+    import tempfile
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        t0 = time.perf_counter()
+        rc, out = dp_children("nccl", 2, tmp.name, 90.0)
+        said = []
+        for r in range(2):
+            path = os.path.join(out, f"nccl{r}.json")
+            said.append(json.load(open(path)) if os.path.exists(path)
+                        else {"ok": None, "exit": rc,
+                              "log": _dp_err(out, 2)[-600:]})
+        emit({"phase": "data_parallel", "part": "nccl_two_ranks_one_card",
+              "card": card, "said": said,
+              "seconds": time.perf_counter() - t0})
+        t0 = time.perf_counter()
+        rc, out = dp_children("train", 2, tmp.name, 400.0)
+        check(rc == 0, f"ddp_2ranks: exit code {rc}\n{_dp_err(out, 2)}")
+        rows = [json.load(open(os.path.join(out, f"train{r}.json")))
+                for r in range(2)]
+        arms = [a[0] for a in DP_ARMS]
+        m = {(arm, r): torch.load(os.path.join(out, f"{arm}{r}.pt"))
+             for arm in arms for r in range(2)}
+        ranks_equal = {arm: torch.equal(m[(arm, 0)], m[(arm, 1)])
+                       for arm in arms}
+
+        def gap(a, b):
+            la = rows[0][a]["losses"]
+            ma = m[(a, 0)]
+            if b in ref:
+                return dp_gap(ma, ref[b], la, ref[b.replace("masters",
+                                                            "losses")])
+            return dp_gap(ma, m[(b, 0)], la, rows[0][b]["losses"])
+        def load(name):
+            return torch.load(os.path.join(out, f"{name}0.pt"))
+
+        def step1(a):
+            return dp_step1(load(f"{a}_grad"), rows[0][a]["losses"][0],
+                            ref["o0_grad"], ref["o0_losses"][0])
+        reorder = ref["reorder_effect"]
+        bar = {"grad_mean": DP_REORDER_FACTOR * reorder["grad_mean"],
+               "grad_max": DP_REORDER_FACTOR * reorder["grad_max"],
+               "loss": DP_STEP1_LOSS}
+        o0_step1 = step1("ddp_o0")
+        control = step1("ddp_o0_local_bn")
+        zero_step1 = float((load("zero_step1_")
+                            - load("lamb_step1_")).abs().max())
+        halves = [rows[r]["zero"]["state_bytes"] * 2
+                  == rows[r]["zero"]["unsharded_bytes"] for r in range(2)]
+        # the zero trainer holds its state and nothing of the full size
+        held_ok = [rows[r]["zero"]["trainer_device_bytes"]
+                   <= rows[r]["zero"]["state_bytes"] + (1 << 20)
+                   for r in range(2)]
+        emit({"phase": "data_parallel", "part": "ddp_2ranks", "card": card,
+              "backend": "gloo", "device": "cuda",
+              "note": "NCCL refuses two ranks on one device; gloo over CUDA "
+                      "tensors, all_reduce native, reduce_scatter as "
+                      "all_reduce + slice, all_gather as a broadcast a rank",
+              "batch_per_rank": DP_BATCH // 2, "ranks_bit_equal":
+              ranks_equal,
+              "o0_step1_vs_world1": o0_step1, "step1_bar": bar,
+              "fp32_reorder_effect_world1": reorder,
+              "control_local_bn_step1_vs_world1": control,
+              "o0_zero_vs_fused_lamb_step1_max_abs": zero_step1,
+              "zero_atol": DP_ZERO_ATOL,
+              "readings_after_3_steps": {
+                  "o2_vs_world1": gap("ddp", "masters"),
+                  "o2_zero_vs_ddp": gap("zero", "ddp"),
+                  "bf16_effect_world1": ref["bf16_effect"],
+                  "o0_vs_world1": gap("ddp_o0", "o0_masters"),
+                  "o0_zero_vs_ddp": gap("zero_o0", "ddp_o0"),
+                  "control_local_bn_o0_vs_world1": gap("ddp_o0_local_bn",
+                                                       "o0_masters")},
+              "zero_half_state": halves, "zero_holds_only_its_state":
+              held_ok,
+              "seconds": time.perf_counter() - t0,
+              "ranks": rows})
+        check(all(ranks_equal.values()),
+              f"ddp_2ranks: the two ranks' masters differ {ranks_equal}")
+        check(dp_within(o0_step1, bar),
+              f"ddp_2ranks: O0 step 1 {o0_step1} from world 1, over {bar}")
+        check(not dp_within(control, bar),
+              f"ddp_2ranks: the control (BNs left local) {control} passes "
+              f"the bar {bar}")
+        check(zero_step1 <= DP_ZERO_ATOL,
+              f"ddp_2ranks: zero's first update {zero_step1} from "
+              f"FusedLAMB's on the same grads, over {DP_ZERO_ATOL}")
+        check(all(halves), "ddp_2ranks: a zero rank does not hold half the "
+              "optimizer state")
+        check(all(held_ok), "ddp_2ranks: a zero trainer holds more device "
+              "memory than its state")
+        for r in rows:
+            check_counts("ddp_2ranks", r["ddp"]["launches"], {
+                k: DP_STEPS * (53 if k.startswith("bn_") else 1)
+                for k in TRAIN_KERNELS})
+    finally:
+        tmp.cleanup()
+
+
+def groups_four_ranks(torch, card: str) -> None:
+    """(c): four ranks of the CI ResNet with create_syncbn_process_group(2):
+    the stem BN's statistics shared within each pair, not across, and
+    equal to local BN over the pair's joined batch."""
+    import os
+    import tempfile
+
+    from apex_tpu_torch.models import ResNet
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        t0 = time.perf_counter()
+        rc, out = dp_children("groups", 4, tmp.name, 240.0)
+        check(rc == 0, f"groups_4ranks: exit code {rc}\n{_dp_err(out, 4)}")
+        rows = [json.load(open(os.path.join(out, f"groups{r}.json")))
+                for r in range(4)]
+        model = ResNet(block_sizes=(1, 1), bottleneck=True, num_classes=10,
+                       width=8)
+        params, state = model.init(0)
+        errs = []
+        for pair in ((0, 1), (2, 3)):
+            x = torch.cat([torch.randn(
+                4, 3, 32, 32, generator=torch.Generator().manual_seed(
+                    rows[r]["x_seed"])) for r in pair]).cuda()
+            _, new = model.apply(params, state, x, training=True)
+            want = new["bn_stem"]["running_mean"].cpu()
+            errs.append(max(float((torch.tensor(rows[r]["stem_mean"])
+                                   - want).abs().max()) for r in pair))
+        within = rows[0]["stem_mean"] == rows[1]["stem_mean"] and \
+            rows[2]["stem_mean"] == rows[3]["stem_mean"]
+        across = rows[0]["stem_mean"] != rows[2]["stem_mean"]
+        emit({"phase": "data_parallel", "part": "groups_4ranks",
+              "card": card, "backend": "gloo", "groups": [[0, 1], [2, 3]],
+              "shared_within_pairs": within, "apart_across_pairs": across,
+              "max_abs_vs_pair_batch": errs,
+              "seconds": time.perf_counter() - t0})
+        check(within and across and max(errs) <= 1e-5,
+              f"groups_4ranks: within {within}, across {across}, "
+              f"errors {errs}")
+    finally:
+        tmp.cleanup()
+
+
+def data_parallel_phase(torch) -> dict:
+    """Phase 43: data parallelism. (a) ``ddp_world1``; (b) ``ddp_2ranks``;
+    (c) ``groups_4ranks``. Returns (a)'s launches."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    card = nvidia_smi("name,power.limit")
+    totals, ref = ddp_world1(torch, card)
+    gc.collect()
+    torch.cuda.empty_cache()       # room for the ranks
+    ddp_two_ranks(torch, card, ref)
+    groups_four_ranks(torch, card)
+    return totals
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7639,6 +8211,10 @@ def main() -> int:
     # serving tools
     telemetry_counts = telemetry_phase(torch, model, params)
 
+    # 43. data parallelism: bench.py's ddp and zero arms on an NCCL group
+    # of one; two gloo ranks and four (SyncBN groups) on the one card
+    dp_counts = data_parallel_phase(torch)
+
     # 40. the kernels line, then the contract line
     launches = {k: dcounts[k] + pcounts[k] for k in dcounts}
     launches.update({k: tcounts[k] for k in TRAIN_KERNELS})
@@ -7684,6 +8260,8 @@ def main() -> int:
     for k, n in router_counts.items():   # the router's replicas
         launches[k] += n
     for k, n in telemetry_counts.items():  # telemetry armed, DCGAN fit
+        launches[k] += n
+    for k, n in dp_counts.items():       # ddp and zero at world 1
         launches[k] += n
     sources = {
         "decode_attention": (
@@ -8056,4 +8634,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--router-replica"]:
         sys.exit(router_replica_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--ddp-rank"]:
+        sys.exit(ddp_rank_main(sys.argv[2:]))
     sys.exit(main())

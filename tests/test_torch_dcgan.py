@@ -480,7 +480,7 @@ def test_fit_with_telemetry_writes_the_examples_sidecar(tmp_path,
     log.close()
     # without each package's machine records (header, memory) and the
     # JAX logger's collective tally, which holds whatever this process
-    # traced before (the port has no collectives module yet)
+    # traced before (the port's holds the last step's collectives: none)
     machine = ("header", "memory", "collectives")
     want = [r for r in JM.read_sidecar(jlog.path)
             if r["kind"] not in machine]

@@ -29,6 +29,7 @@ def _sources():
                                         ROOT / "timer_load_ab.py",
                                         ROOT / "decode_rows_ab.py",
                                         ROOT / "flash_f32_dq_check.py",
+                                        ROOT / "ddp_profile_ab.py",
                                         ROOT / "tools" / "_perf_common_torch.py",
                                         ROOT / "tools" / "serve_bench_torch.py",
                                         ROOT / "tools" / "decode_bench_torch.py"]
@@ -41,6 +42,28 @@ def test_fresh_import_pulls_in_no_jax():
             "apex_tpu_torch.fp16_utils, apex_tpu_torch.prof.numerics, "
             "apex_tpu_torch.optimizers.fused_adagrad\n"
             "from apex_tpu_torch.models import Seq2SeqTransformer\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'jaxlib', 'apex_tpu.')) or "
+            "m == 'apex_tpu')\n"
+            "print(','.join(bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(ROOT)})
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == ""
+
+
+def test_the_data_parallel_modules_pull_in_no_jax():
+    """``parallel`` (every submodule), ``contrib.groupbn`` and
+    ``contrib.optimizers`` load no JAX and nothing of the JAX package."""
+    code = ("import sys\n"
+            "import apex_tpu_torch.parallel as P\n"
+            "from apex_tpu_torch.parallel import (collectives, mesh, plan, "
+            "launch, multiproc, distributed, sync_batchnorm)\n"
+            "import apex_tpu_torch.contrib.groupbn, "
+            "apex_tpu_torch.contrib.optimizers\n"
+            "from apex_tpu_torch.train import DDPTrainer, ZeROTrainer\n"
+            "[getattr(P, n) for n in P.__all__]\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'apex_tpu.')) or "
             "m == 'apex_tpu')\n"

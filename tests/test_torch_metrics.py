@@ -14,7 +14,7 @@ its own machine: the header's ``backend``/``devices`` and the memory
 record's ``devices`` (the port writes them only once CUDA is
 initialized), the per-device memory samples (one a device of each
 package's machine), the JAX logger's collective tally (whatever the
-process traced before; the port has no collectives module yet) and the
+process traced before; the port's tally, per step, is empty here) and the
 compile counts (XLA's compiles against the port's CUDA-graph captures
 and nvcc builds). The global gradient norm is a
 float32 sum whose order differs, so it is held to float32's rounding.
@@ -187,8 +187,8 @@ def _devices_records(recs):
     """Without the per-device ``memory`` samples (one a device of each
     package's own machine: the JAX tests run on several CPU devices) and
     the JAX logger's ``collectives`` record (the collective tally of
-    whatever this process traced before; the port has no collectives
-    module yet, so its logger writes none)."""
+    whatever this process traced before; the port's logger writes one
+    only after a collective ran in the process, none here)."""
     return [r for r in recs if not (r["kind"] == "memory"
                                     and "available" in r)
             and r["kind"] != "collectives"]

@@ -177,8 +177,11 @@ def test_analytic_flops_match_jax():
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="slice 7"):
         ResNet(**CI, stem="space_to_depth", device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        ResNet(**CI, bn_axis_name="data", device="cpu")
+    # cross-replica BN is ported: the BNs sync over the named axis
+    # (tests/test_torch_data_parallel.py trains it on gloo ranks)
+    sync = ResNet(**CI, bn_axis_name="data", device="cpu")
+    assert sync._bn(8).axis_name == "data"
+    assert sync.replace(bn_axis_name=None)._bn(8).axis_name is None
     # O1 is ported: main_amp's O1 step keeps the model fp32
     # (tests/test_torch_imagenet.py holds it against JAX's)
     m = ResNet(**CI, device="cpu")

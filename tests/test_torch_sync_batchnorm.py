@@ -123,8 +123,13 @@ def test_running_stats_and_eval_match_jax(momentum):
 
 
 def test_cross_replica_and_unaffine_forms():
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        SyncBatchNorm(8)                     # axis_name defaults to "data"
+    # axis_name defaults to "data": cross-replica statistics, which need
+    # the axis bound to a process group (tests/test_torch_sync_batchnorm_
+    # dist.py runs them on gloo ranks); unbound, training mode says so
+    bn = SyncBatchNorm(8)
+    assert bn.axis_name == "data"
+    with pytest.raises(RuntimeError, match="not bound"):
+        bn.apply(*bn.init("cpu"), torch.ones(2, 8))
     x, _, dy, _, _ = _inputs(2, "float32")
     jbn = JBN.SyncBatchNorm(C, affine=False, track_running_stats=False,
                             axis_name=None)
