@@ -23,6 +23,12 @@ coordinate hash, from the int ``dropout_seed`` the caller passes per call
 (JAX derives it from a key, ``_dropout_seed``, :78-80); without a seed
 there is no dropout, as without a key there.
 
+With ``seq_axis`` / ``seq_axis_size`` (:111-132, :179-190) the time
+axis is sharded over that named axis (``parallel.collectives``) and the
+core is ``parallel.ring_attention`` whatever ``impl`` says; an
+``attn_mask`` is refused there, a ``key_padding_mask`` rotates with its
+keys.
+
 Parameters keep the JAX layout ``[in, out]`` (``in_proj`` [E, 3E],
 ``q_proj`` [E, E], ``kv_proj`` [E, 2E], ``out_proj`` [E, E]) so
 ``x @ W`` is the same product in both packages.
@@ -98,6 +104,10 @@ class _AttnBase:
     dropout: float = 0.0
     impl: str = "fast"
     flash_min_s: Optional[int] = None
+    # sequence parallelism: the time axis sharded over this named axis,
+    # the core the ring (call on every rank with its shard)
+    seq_axis: Optional[str] = None
+    seq_axis_size: int = 0
 
     def __post_init__(self):
         if self.embed_dim % self.num_heads:
@@ -108,6 +118,8 @@ class _AttnBase:
         if not 0.0 <= self.dropout < 1.0:
             raise ValueError(f"dropout must be in [0, 1), got "
                              f"{self.dropout}")
+        if self.seq_axis is not None and self.seq_axis_size < 2:
+            raise ValueError("seq_axis requires seq_axis_size >= 2")
 
     @property
     def head_dim(self) -> int:
@@ -160,6 +172,18 @@ class _AttnBase:
         rate = self.dropout if (is_training and self.dropout > 0.0
                                 and dropout_seed is not None) else 0.0
         seed = int(dropout_seed) if rate > 0.0 else 0
+        if self.seq_axis is not None:
+            if bias is not None:
+                raise NotImplementedError(
+                    "attn_mask is not supported under ring attention "
+                    "(it would need the full [Sq, Sk_global] matrix); "
+                    "key_padding_mask and causal=True are supported")
+            from apex_tpu_torch.parallel.ring_attention import \
+                ring_attention
+            return ring_attention(q, k, v, self.seq_axis,
+                                  self.seq_axis_size, causal=self.causal,
+                                  scale=scale, kv_bias=kv_bias,
+                                  dropout_rate=rate, dropout_seed=seed)
         if self.impl == "fast" or (self.impl == "auto"
                                    and self._flash_wins(q, k)):
             return flash_attention(q, k, v, bias, kv_bias=kv_bias,

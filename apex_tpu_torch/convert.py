@@ -3,7 +3,9 @@
 ``params_from_jax`` takes an ``apex_tpu`` init tree (``TransformerLM``'s,
 ``Seq2SeqTransformer``'s, an attention module's) with every leaf already
 a numpy array (``jax.tree.map(np.asarray, params)``) and returns the same
-nested dict of torch tensors. The JAX ``[in, out]``
+nested dict of torch tensors: MoE layers (``router`` and the
+expert-stacked ``w1``, ``b1``, ``w2``, ``b2``) and GPipe's stacked layer
+trees (``parallel.stack_layers``) walk like any other. The JAX ``[in, out]``
 weight layout is kept, so ``x @ W`` is the same product in both packages.
 ``resnet_from_jax`` does the same for ``ResNet.init``'s ``(params,
 state)``, keeping HWIO conv kernels and the ``[in, out]`` fc, so the flat

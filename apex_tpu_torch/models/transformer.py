@@ -1,6 +1,6 @@
 """Transformer language model — counterpart of
 ``apex_tpu/models/transformer.py``: the serving path and the training
-loss.
+loss, with Switch/GShard MoE layers and sequence parallelism.
 
 Pre-LN decoder-only architecture::
 
@@ -9,29 +9,42 @@ Pre-LN decoder-only architecture::
     x += MLP(LN(x))            # GeLU (tanh form, as jax.nn.gelu)
     logits = LN(x) @ tok_emb.T
 
-Ported: the config fields of both paths, ``init`` (same names and
-shapes, drawn from a ``torch.Generator``), ``apply`` (the forward, under
-autograd, with attention dropout and ``remat`` / ``remat_policy``, without
-MoE or sequence parallelism), ``loss``
-(next-token cross entropy through the chunked fused head, or with
-``head_chunk=0`` over the full logits through the softmax cross-entropy
-kernels), the KV-cache block stack ``_cached_blocks``, ``_decode_one``,
-the fused slot-batched decode step ``_decode_slots`` (1-query and the
-[S, Q] multi-row form of speculative scoring, dense and paged arenas),
-``_prefill``, the sampling filters ``_filter_logits`` and ``generate``
-(greedy, or sampled at a temperature with top-k / top-p from the counter
-stream of ``apex_tpu_torch._stream``). Parameters keep
-the JAX layout, weights ``[in, out]``, so ``x @ W`` is the same product
-in both packages.
+Ported: every config field, ``init`` (same names and shapes, drawn from
+a ``torch.Generator``), ``apply`` (the forward, under autograd, with
+attention dropout, ``remat`` / ``remat_policy``, MoE layers and their
+aux terms (``return_aux``), and the time axis sharded over ``seq_axis``),
+``loss`` (next-token cross entropy through the chunked fused head, or
+with ``head_chunk=0`` over the full logits through the softmax
+cross-entropy kernels; under ``seq_axis`` the targets shifted across the
+shard boundary and the global mean), the KV-cache block stack
+``_cached_blocks``, ``_decode_one``, the fused slot-batched decode step
+``_decode_slots`` (1-query and the [S, Q] multi-row form of speculative
+scoring, dense and paged arenas), ``_prefill``, the sampling filters
+``_filter_logits`` and ``generate`` (greedy, or sampled at a temperature
+with top-k / top-p from the counter stream of
+``apex_tpu_torch._stream``). Parameters keep the JAX layout, weights
+``[in, out]``, so ``x @ W`` is the same product in both packages.
 
 Every LayerNorm goes through ``normalization.fused_layer_norm_affine``
 (the LayerNorm kernels on the card), ``apply``'s attention through
 ``SelfMultiheadAttn`` with ``attn_impl`` (the flash kernels on the card
-for "fast"), and the decode step's attention through
-``slot_decode_attention`` (the decode kernels on the card). Prefill
-attention is ``reference_attention``, plain PyTorch, as in the JAX
-package. The QKV, out-projection, MLP and head products are
-``torch.matmul``, as they were plain XLA dots there.
+for "fast"; the ring of ``parallel.ring_attention`` under ``seq_axis``),
+and the decode step's attention through ``slot_decode_attention`` (the
+decode kernels on the card). Prefill attention is ``reference_attention``,
+plain PyTorch, as in the JAX package. The QKV, out-projection, MLP and
+head products are ``torch.matmul``, as they were plain XLA dots there;
+an MoE layer (every ``moe_every``-th, ``contrib.moe.MoEMLP``) computes
+its experts in fp32 products, capacity-bound in training
+(``MoEMLP.apply``) and capacity-free at inference (``MoEMLP.decode``).
+
+Sequence parallelism: every rank of ``seq_axis`` calls ``apply`` or
+``loss`` with its shard of the time axis (``parallel.collectives`` binds
+the axis); positions start at ``axis_index · t``. ``loss`` returns the
+global mean on every rank, and under the collectives' rule each rank's
+gradient is its partial: the global gradient is their sum over the axis
+(``train.SeqParallelTrainer``). Expert parallelism (``expert_axis``):
+every rank runs the same tokens with its slice of each MoE layer's
+experts.
 """
 
 from __future__ import annotations
@@ -44,6 +57,7 @@ import torch.nn.functional as F
 
 from apex_tpu_torch._device import resolve_device
 from apex_tpu_torch._stream import gumbel_argmax, stream_uniforms
+from apex_tpu_torch.contrib.moe import MoEMLP
 from apex_tpu_torch.contrib.multihead_attn.decode_attention import (
     slot_decode_attention)
 from apex_tpu_torch.contrib.multihead_attn.flash_attention import (
@@ -53,6 +67,7 @@ from apex_tpu_torch.contrib.xentropy import (linear_cross_entropy,
                                              softmax_cross_entropy_loss)
 from apex_tpu_torch.models import _remat
 from apex_tpu_torch.normalization import fused_layer_norm_affine
+from apex_tpu_torch.parallel import collectives as _C
 
 __all__ = ["TransformerLM"]
 
@@ -75,10 +90,20 @@ class TransformerLM:
     # > 0: the loss goes through linear_cross_entropy in vocab chunks of
     # this size and never builds the [B*T, V] logits
     head_chunk: int = 0
-    # the parts of the JAX config this port does not have yet; the
-    # constructor refuses them rather than running a different model
+    # sequence parallelism: the time axis sharded over this named axis
+    # (every rank calls apply/loss with its shard), attention the ring
     seq_axis: Optional[str] = None
+    seq_axis_size: int = 0
+    # Mixture-of-Experts: every moe_every-th MLP a Switch (top 1) or GShard
+    # (top 2) MoE FFN of moe_experts experts; expert_axis/_size run the
+    # experts expert-parallel (each rank its slice of the expert leaves)
     moe_experts: int = 0
+    moe_top_k: int = 1
+    moe_every: int = 2
+    moe_capacity_factor: float = 1.25
+    moe_aux_weight: float = 0.01     # Switch load-balance loss weight
+    expert_axis: Optional[str] = None
+    expert_axis_size: int = 0
     # rematerialize each block in the backward (models/_remat.py);
     # remat_policy names what is still saved inside it (a
     # jax.checkpoint_policies name; None saves nothing)
@@ -88,29 +113,47 @@ class TransformerLM:
     device: Union[str, torch.device, None] = None
 
     def __post_init__(self):
-        if self.moe_experts > 0:
-            raise NotImplementedError(
-                "MoE layers are not ported yet (ROADMAP.md Queue 1, "
-                "slice 6: contrib/moe)")
-        if self.seq_axis is not None:
-            raise NotImplementedError(
-                "sequence parallelism is not ported yet (ROADMAP.md "
-                "Queue 1, slice 6: ring attention)")
         _remat.validate_remat_config(self.remat, self.remat_policy)
         if self.head_chunk > 0 and \
                 self.vocab_size % min(self.head_chunk, self.vocab_size):
             raise ValueError(
                 f"head_chunk ({self.head_chunk}) must divide "
                 f"vocab_size ({self.vocab_size})")
+        if self.moe_experts > 0:
+            if self.moe_every < 1:
+                raise ValueError(f"moe_every must be >= 1, "
+                                 f"got {self.moe_every}")
+            if self.num_layers < self.moe_every:
+                raise ValueError(
+                    f"moe_experts={self.moe_experts} requested but no "
+                    f"layer index hits moe_every={self.moe_every} with "
+                    f"num_layers={self.num_layers} — the model would be "
+                    f"silently dense")
         if self.embed_dim % self.num_heads:
             raise ValueError("embed_dim must be divisible by num_heads")
-        self._mha()                          # validates attn_impl
+        self._mha()                  # validates attn_impl and seq_axis
         object.__setattr__(self, "device", resolve_device(self.device))
+        if self.moe_experts > 0:
+            self._moe()                      # validates top_k, the axis
 
     def _mha(self) -> SelfMultiheadAttn:
         return SelfMultiheadAttn(self.embed_dim, self.num_heads, bias=True,
                                  causal=True, dropout=self.dropout,
-                                 impl=self.attn_impl)
+                                 impl=self.attn_impl, seq_axis=self.seq_axis,
+                                 seq_axis_size=self.seq_axis_size)
+
+    def _is_moe_layer(self, i: int) -> bool:
+        return self.moe_experts > 0 and (i % self.moe_every
+                                         == self.moe_every - 1)
+
+    def _moe(self) -> MoEMLP:
+        return MoEMLP(hidden=self.embed_dim,
+                      ffn=self.ffn_mult * self.embed_dim,
+                      num_experts=self.moe_experts, top_k=self.moe_top_k,
+                      capacity_factor=self.moe_capacity_factor,
+                      expert_axis=self.expert_axis,
+                      expert_axis_size=self.expert_axis_size,
+                      device=self.device)
 
     def init(self, generator: Union[torch.Generator, int] = 0, *,
              dtype: torch.dtype = torch.float32) -> dict:
@@ -135,13 +178,13 @@ class TransformerLM:
         mha = self._mha()
         f = self.ffn_mult * e
         for i in range(self.num_layers):
-            p[f"layer_{i}"] = {
-                "ln1": ln(),
-                "attn": mha.init(generator),
-                "ln2": ln(),
-                "mlp": {"w1": normal(e, f), "b1": torch.zeros(f),
-                        "w2": normal(f, e), "b2": torch.zeros(e)},
-            }
+            lp = {"ln1": ln(), "attn": mha.init(generator), "ln2": ln()}
+            if self._is_moe_layer(i):
+                lp["moe"] = self._moe().init(generator)
+            else:
+                lp["mlp"] = {"w1": normal(e, f), "b1": torch.zeros(f),
+                             "w2": normal(f, e), "b2": torch.zeros(e)}
+            p[f"layer_{i}"] = lp
         return _tree_to(p, self.device, dtype)
 
     def _ln(self, x, lnp):
@@ -152,43 +195,74 @@ class TransformerLM:
         h = _gelu(x @ mp["w1"] + mp["b1"])
         return h @ mp["w2"] + mp["b2"]
 
+    def _ffn_decode(self, i, lp, h):
+        """Layer i's FFN at inference: the MLP, or the capacity-free MoE
+        mixture over the flattened tokens."""
+        if not self._is_moe_layer(i):
+            return self._mlp(h, lp["mlp"])
+        y = self._moe().decode(lp["moe"], h.reshape(-1, self.embed_dim))
+        return y.reshape(h.shape)
+
     def apply(self, params: dict, tokens: torch.Tensor, *,
               is_training: bool = False, dropout_seeds=None,
-              return_hidden: bool = False) -> torch.Tensor:
-        """tokens: int [B, T]. Returns logits fp32 [B, T, vocab] or, with
-        ``return_hidden``, the final-LN hidden states [B, T, E] (for the
-        chunked head loss). Differentiable in ``params``. In training,
-        ``dropout_seeds`` (one int per layer, where JAX folds the layer
-        index into its key, transformer.py:189-193) drives the attention
-        dropout; without seeds there is none."""
+              return_hidden: bool = False, return_aux: bool = False):
+        """tokens: int [B, T] (under ``seq_axis`` this rank's shard).
+        Returns logits fp32 [B, T, vocab] or, with ``return_hidden``, the
+        final-LN hidden states [B, T, E] (for the chunked head loss); with
+        ``return_aux`` also ``{"moe_load_balance_loss": the sum over MoE
+        layers, "moe_dropped_fraction": their mean}``. Differentiable in
+        ``params``. In training, ``dropout_seeds`` (one int per layer,
+        where JAX folds the layer index into its key,
+        transformer.py:189-193) drives the attention dropout; without
+        seeds there is none."""
         b, t = tokens.shape
         seeds = _layer_seeds(dropout_seeds, self.num_layers)
-        if t > self.max_seq_len:
+        pos0, total = 0, t
+        if self.seq_axis is not None:
+            pos0 = _C.axis_index(self.seq_axis) * t
+            total = t * max(1, self.seq_axis_size)
+        if total > self.max_seq_len:
             raise ValueError(
-                f"sequence length {t} exceeds max_seq_len="
+                f"sequence length {total} exceeds max_seq_len="
                 f"{self.max_seq_len}; raise max_seq_len at construction")
         tokens = tokens.to(params["tok_emb"].device, torch.long)
         # F.embedding: its backward sums the rows in a fixed order
-        x = F.embedding(tokens, params["tok_emb"]) + params["pos_emb"][:t]
+        x = F.embedding(tokens, params["tok_emb"]) + \
+            params["pos_emb"][pos0:pos0 + t]
         mha = self._mha()
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
 
-        def layer_body(x, lp, seed):
+        def layer_body(x, lp, seed, moe):
             h = self._ln(x, lp["ln1"])
             # MHA modules are time-major [T, B, E]
             attn_out, _ = mha.apply(lp["attn"], h.transpose(0, 1),
                                     is_training=is_training,
                                     dropout_seed=seed)
             x = x + attn_out.transpose(0, 1)
-            return x + self._mlp(self._ln(x, lp["ln2"]), lp["mlp"])
+            h = self._ln(x, lp["ln2"])
+            if moe:
+                y, aux = self._moe().apply(lp["moe"],
+                                           h.reshape(-1, self.embed_dim))
+                return (x + y.reshape(h.shape), aux["load_balance_loss"],
+                        aux["dropped_fraction"])
+            return x + self._mlp(h, lp["mlp"]), zero, zero
 
         if self.remat:
             layer_body = _remat.remat(layer_body, self.remat_policy)
+        balance, dropped, n_moe = zero, zero, 0
         for i in range(self.num_layers):
-            x = layer_body(x, params[f"layer_{i}"], seeds[i])
+            moe = self._is_moe_layer(i)
+            x, bal, drop = layer_body(x, params[f"layer_{i}"], seeds[i],
+                                      moe)
+            if moe:
+                balance, dropped, n_moe = balance + bal, dropped + drop, \
+                    n_moe + 1
         x = self._ln(x, params["ln_f"])
-        if return_hidden:
-            return x
-        return (x @ params["tok_emb"].T).float()
+        out = x if return_hidden else (x @ params["tok_emb"].T).float()
+        if return_aux:
+            return out, {"moe_load_balance_loss": balance,
+                         "moe_dropped_fraction": dropped / max(n_moe, 1)}
+        return out
 
     def _token_losses(self, params, out, targets_flat):
         """Per-token losses from apply()'s output: the fp32 logits through
@@ -205,16 +279,57 @@ class TransformerLM:
 
     def loss(self, params: dict, tokens: torch.Tensor, *,
              is_training: bool = True, dropout_seeds=None) -> torch.Tensor:
-        """Mean next-token cross entropy of tokens int [B, T]: the model
-        reads ``tokens[:, :-1]`` and predicts ``tokens[:, 1:]``
-        (transformer.py:240-279, ``seq_axis=None``); ``dropout_seeds`` as
-        for :meth:`apply`."""
-        out = self.apply(params, tokens[:, :-1], is_training=is_training,
-                         dropout_seeds=dropout_seeds,
-                         return_hidden=self.head_chunk > 0)
-        targets = tokens[:, 1:].to(out.device, torch.long)
-        return torch.mean(self._token_losses(params, out,
-                                             targets.reshape(-1)))
+        """Mean next-token cross entropy of tokens int [B, T]
+        (transformer.py:254-305), plus ``moe_aux_weight`` times the MoE
+        load-balance loss. Without ``seq_axis`` the model reads
+        ``tokens[:, :-1]`` and predicts ``tokens[:, 1:]``. Under
+        ``seq_axis`` tokens is this rank's shard, read whole: the target
+        of the shard's last position is the next shard's first token
+        (``ppermute``), the global last position has none, and the result
+        is the global mean, ``psum(total) / count``, on every rank; the
+        load-balance term is its mean over the axis (each shard routes its
+        own tokens), so the value is the same on every rank and the sum of
+        the ranks' gradients is the step's (JAX adds each shard's own
+        term, and ``train_ring.py``'s ``pmean`` of the gradients takes the
+        same mean). ``dropout_seeds`` as for :meth:`apply`."""
+        moe = self.moe_experts > 0
+        hid = self.head_chunk > 0
+        if self.seq_axis is None:
+            out = self.apply(params, tokens[:, :-1], is_training=is_training,
+                             dropout_seeds=dropout_seeds, return_hidden=hid,
+                             return_aux=moe)
+            out, aux = out if moe else (out, None)
+            targets = tokens[:, 1:].to(out.device, torch.long)
+            loss = torch.mean(self._token_losses(params, out,
+                                                 targets.reshape(-1)))
+            if moe:
+                loss = loss + self.moe_aux_weight * \
+                    aux["moe_load_balance_loss"]
+            return loss
+        n = self.seq_axis_size
+        b, t = tokens.shape
+        out = self.apply(params, tokens, is_training=is_training,
+                         dropout_seeds=dropout_seeds, return_hidden=hid,
+                         return_aux=moe)
+        out, aux = out if moe else (out, None)
+        tokens = tokens.to(out.device, torch.long)
+        # the last local position's target is the next shard's first token
+        nxt_first = _C.ppermute(tokens[:, :1], self.seq_axis,
+                                [((i + 1) % n, i) for i in range(n)])
+        targets = torch.cat([tokens[:, 1:], nxt_first], dim=1)
+        losses = self._token_losses(params, out,
+                                    targets.reshape(-1)).reshape(b, t)
+        # the global final position (the last shard's last) has no target
+        mask = torch.ones((b, t), dtype=losses.dtype, device=losses.device)
+        if _C.axis_index(self.seq_axis) == n - 1:
+            mask[:, -1] = 0.0
+        total = _C.psum(torch.sum(losses * mask), self.seq_axis)
+        # psum(count): every shard but the last counts all of its b·t
+        loss = total / float(b * t * n - b)
+        if moe:
+            loss = loss + self.moe_aux_weight * _C.pmean(
+                aux["moe_load_balance_loss"], self.seq_axis)
+        return loss
 
     __call__ = apply
 
@@ -263,7 +378,7 @@ class TransformerLM:
             a = a.transpose(1, 2).reshape(b, t, e) @ ap["out_proj"] \
                 + ap["out_proj_bias"]
             x = x + a
-            x = x + self._mlp(self._ln(x, lp["ln2"]), lp["mlp"])
+            x = x + self._ffn_decode(i, lp, self._ln(x, lp["ln2"]))
         return self._ln(x, params["ln_f"]), caches
 
     def _decode_one(self, params, tok, pos: int, caches):
@@ -344,7 +459,7 @@ class TransformerLM:
                                       page_table=page_table)
             a = a.reshape(s, q_dim, e) @ ap["out_proj"] + ap["out_proj_bias"]
             x = x + a
-            x = x + self._mlp(self._ln(x, lp["ln2"]), lp["mlp"])
+            x = x + self._ffn_decode(i, lp, self._ln(x, lp["ln2"]))
         out = self._ln(x, params["ln_f"])
         return (out if multi else out[:, 0]), caches
 
@@ -407,7 +522,13 @@ class TransformerLM:
         restrict the draw to the k most likely tokens / the smallest
         nucleus with mass >= top_p (ignored when greedy). With ``eos_id`` a
         sequence that emits it keeps emitting it (the output stays
-        rectangular)."""
+        rectangular). Single-device only (``seq_axis`` None); MoE layers
+        decode capacity-free, so generation matches the training forward
+        wherever apply()'s capacity does not bind."""
+        if self.seq_axis is not None:
+            raise NotImplementedError(
+                "generate() decodes against a local KV cache; run it "
+                "outside sequence parallelism (seq_axis=None)")
         if temperature < 0.0:
             raise ValueError(f"temperature must be >= 0, "
                              f"got {temperature}")

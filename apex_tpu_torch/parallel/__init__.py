@@ -1,10 +1,13 @@
-"""Data parallelism on ``torch.distributed`` (counterpart of
+"""Parallelism on ``torch.distributed`` (counterpart of
 ``apex_tpu/parallel``): ``launch.initialize`` joins the process group,
 ``make_mesh`` names its axes, ``DistributedDataParallel`` / ``Reducer``
 average gradients, ``SyncBatchNorm`` syncs statistics (``convert_syncbn_model``,
-``create_syncbn_process_group``), and ``Plan`` / ``compile_step_with_plan``
-lower a step body. Tensor and pipeline parallelism and ring attention are
-not ported yet (ROADMAP.md Queue 1, item 20). Names import lazily."""
+``create_syncbn_process_group``), ``Plan`` / ``compile_step_with_plan``
+lower a step body, ``ulysses_attention`` / ``merge_partials`` and the
+submodule ``ring_attention`` (whose ``ring_attention`` is the ring) shard
+the sequence, and ``gpipe`` / ``stack_layers`` / ``unstack_layers``
+pipeline the layers. Tensor parallelism is not ported yet (ROADMAP.md
+Queue 1, item 20). Names import lazily."""
 
 from __future__ import annotations
 
@@ -20,9 +23,13 @@ _EXPORTS = {
     "DistributedDataParallel": "distributed", "Reducer": "distributed",
     "broadcast_params": "distributed", "flat_dist_call": "distributed",
     "SyncBatchNorm": "sync_batchnorm",
+    "ulysses_attention": "ring_attention", "merge_partials": "ring_attention",
+    "gpipe": "pipeline", "stack_layers": "pipeline",
+    "unstack_layers": "pipeline",
 }
 _SUBMODULES = ("launch", "multiproc", "collectives", "mesh", "plan",
-               "distributed", "sync_batchnorm")
+               "distributed", "sync_batchnorm", "pipeline",
+               "ring_attention")
 
 __all__ = sorted([*_EXPORTS, "LARC", "convert_syncbn_model",
                   "create_syncbn_process_group", "launch"])

@@ -13,10 +13,13 @@ tiled reduce-scatter and gather along dim 0.
 **The form each op takes** is chosen when the axis is bound, from its
 backend and the device type of its tensors (:func:`collective_rules`),
 and written into the :class:`Axis`; a tensor of another device type is
-refused. gloo on CUDA tensors has no reduce-scatter or gather of its own,
-so there a reduce-scatter is an all-reduce followed by this rank's slice
-and a gather is one broadcast per rank into that rank's slice (both
-exact). Nothing is chosen by catching an error. A gather moves bytes: the
+refused. gloo on CUDA tensors has no reduce-scatter, gather, send/recv or
+all-to-all of its own, so there a reduce-scatter is an all-reduce
+followed by this rank's slice, a gather is one broadcast per rank into
+that rank's slice, and a ``ppermute`` or an ``all_to_all`` stages its
+bytes through pinned host buffers and runs gloo's CPU send/recv or
+all-to-all on the same group (all exact). Nothing is chosen by catching
+an error. A gather, a ``ppermute`` and an ``all_to_all`` move bytes: the
 tensor travels as ``uint8`` (an 8-bit float or bf16 has no gloo type, and
 a copy does not depend on it).
 
@@ -30,10 +33,50 @@ as what ran: a reduce-scatter by the all-reduce rule is a ``psum`` of the
 whole buffer. The latency tally (:func:`time_collective`,
 :func:`collective_latency`, ``LATENCY_BINS_MS``) is the JAX one, copied.
 
+**Differentiable collectives** (:func:`ppermute`, :func:`all_to_all`,
+:func:`psum`, :func:`pmean`, :func:`pmax`, :func:`pvary`) are
+``autograd.Function``s with JAX's vma semantics, one rule for every
+caller. A value is *replicated* over an axis (the same on every rank) or
+*varying*. Every rank seeds the backward of its own copy of a replicated
+loss, and those copies count as one loss:
+
+- ``psum`` (and ``pmean``, ``pmax``) turn a varying value into a
+  replicated one; the backward of ``psum`` is the identity: the
+  cotangent of the replicated sum, replicated too, is the cotangent of
+  each rank's summand (``pmean`` divides it by the size, ``pmax`` gives
+  it to the ranks that hold the maximum, split evenly among ties);
+- ``pvary`` marks a replicated value that enters a varying computation
+  (JAX's implicit replicated-to-varying cast): the identity forward, a
+  ``psum`` of the cotangent backward, so the value's gradient is
+  replicated again. A replicated value that a rank-dependent
+  computation consumes must pass through it, or its cotangent is not
+  replicated and the identity backward above is wrong; every caller in
+  the port consumes its sums replicated (a loss, GPipe's outputs, the
+  MoE's combined tokens);
+- ``ppermute``'s backward is the inverse permutation of the cotangent,
+  ``all_to_all``'s the inverse ``all_to_all``.
+
+Under this rule the gradient a rank holds for a replicated parameter
+used in a varying computation without ``pvary`` is that rank's partial:
+the gradient of the whole loss is the **sum** of the partials over the
+axis. That is the sequence-parallel step's reduction
+(``train.SeqParallelTrainer``: every parameter of the LM meets the
+sharded sequence, so its flat grad is summed over ``seq`` once); GPipe's
+stage layers are varying and their grads exact; the MoE's expert
+parallelism marks its dispatch buffer with ``pvary``, so the replicated
+parameters' grads come out whole on every rank. JAX's
+``train_ring.py`` takes a ``pmean`` instead because it runs with
+``check_vma=False``, where ``psum``'s transpose is another ``psum`` and
+each partial arrives n times over.
+
+Every rank must run the same collectives in the same order, the backward
+ones too: a differentiable collective's output must reach the rank's own
+loss (a zero-weighted use counts), or its backward would not run there.
+The ring and GPipe keep every rotation connected that way.
+
 Not ported: ``varies_over`` and ``vma_tracking_active``, JAX autodiff
-plumbing (whether a gradient arrives already summed over the axis). In
-torch every rank's gradient is local, so ``DistributedDataParallel`` is
-the one place it is reduced.
+plumbing (whether a gradient arrives already summed over the axis); the
+rule above fixes it here.
 """
 
 from __future__ import annotations
@@ -48,6 +91,7 @@ import torch
 __all__ = ["Axis", "bind_axis", "unbind_axes", "axis",
            "collective_rules", "grouped_psum", "group_size", "axis_index",
            "psum_scatter", "all_gather", "broadcast", "sub_axis",
+           "ppermute", "all_to_all", "psum", "pmean", "pmax", "pvary",
            "record_collective", "collective_bytes", "reset_collective_bytes",
            "step_scope", "LATENCY_BINS_MS", "record_collective_latency",
            "time_collective", "collective_latency",
@@ -166,13 +210,17 @@ def reset_collective_latency() -> None:
 # -- axes ---------------------------------------------------------------------
 
 def collective_rules(backend: str, device_type: str) -> dict:
-    """How the reduce-scatter and the gather run on a group of ``backend``
-    over tensors of ``device_type``: the op itself, or the stated rewrite
-    (every backend has the all-reduce and the broadcast)."""
+    """How the reduce-scatter, the gather, ``ppermute`` and ``all_to_all``
+    run on a group of ``backend`` over tensors of ``device_type``: the op
+    itself, or the stated rewrite (every backend has the all-reduce and
+    the broadcast; gloo has send/recv and all-to-all for CPU tensors)."""
     if backend == "gloo" and device_type == "cuda":
         return {"reduce_scatter": "all_reduce+slice",
-                "all_gather": "broadcast_each"}
-    return {"reduce_scatter": "reduce_scatter", "all_gather": "all_gather"}
+                "all_gather": "broadcast_each",
+                "ppermute": "host_send_recv",
+                "all_to_all": "host_all_to_all"}
+    return {"reduce_scatter": "reduce_scatter", "all_gather": "all_gather",
+            "ppermute": "send_recv", "all_to_all": "all_to_all"}
 
 
 class Axis:
@@ -372,3 +420,227 @@ def broadcast(x: torch.Tensor, axis_name, src_index: int = 0) -> torch.Tensor:
     record_collective("broadcast", _nbytes(out), axis_name)
     _dist().broadcast(out, src=ax.ranks[src_index], group=ax.group)
     return out
+
+
+# -- differentiable collectives (the vma rule of the module docstring) -------
+
+def _as_bytes(x: torch.Tensor) -> torch.Tensor:
+    return x.detach().contiguous().reshape(-1).view(torch.uint8)
+
+
+def _host_empty(n: int) -> torch.Tensor:
+    """A host byte buffer for gloo's CPU ops, pinned where there is a card
+    (the rules can be forced onto CPU tensors, as the tests do)."""
+    return torch.empty(n, dtype=torch.uint8,
+                       pin_memory=torch.cuda.is_available())
+
+
+def _host(raw: torch.Tensor) -> torch.Tensor:
+    """A host copy of a device byte buffer."""
+    buf = _host_empty(raw.numel())
+    buf.copy_(raw)
+    return buf
+
+
+def _canon_perm(perm, n: int) -> tuple:
+    perm = tuple((int(s), int(d)) for s, d in perm)
+    srcs = [s for s, _ in perm]
+    dsts = [d for _, d in perm]
+    if len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts) or \
+            not all(0 <= i < n for i in srcs + dsts):
+        raise ValueError(f"ppermute: {perm} is not a partial permutation "
+                         f"of {n} axis positions")
+    return perm
+
+
+def _ppermute_raw(x: torch.Tensor, axis_name, perm) -> torch.Tensor:
+    """``lax.ppermute``: this rank's tensor to the position ``perm`` maps
+    it to, the tensor of the position mapped here back (zeros where none
+    is)."""
+    ax = axis(axis_name)
+    _check_device(ax, x, "ppermute")
+    perm = _canon_perm(perm, ax.size)
+    i = ax.index
+    dst = [d for s, d in perm if s == i]
+    src = [s for s, d in perm if d == i]
+    raw = _as_bytes(x)
+    record_collective("ppermute", raw.numel(), axis_name)
+    if src and src[0] == i:                       # a fixed point
+        return x.detach().clone()
+    out = torch.zeros_like(raw)
+    host = ax.rules["ppermute"] == "host_send_recv"
+    send = _host(raw) if host else raw
+    recv = _host_empty(raw.numel()) if host else out
+    dist = _dist()
+    ops = []
+    if dst:
+        ops.append(dist.P2POp(dist.isend, send, ax.ranks[dst[0]], ax.group))
+    if src:
+        ops.append(dist.P2POp(dist.irecv, recv, ax.ranks[src[0]], ax.group))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    if src and host:
+        out.copy_(recv)
+    return out.view(x.dtype).reshape(x.shape)
+
+
+class _PPermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis_name, perm):
+        ctx.axis_name, ctx.perm = axis_name, perm
+        return _ppermute_raw(x, axis_name, perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        inv = [(d, s) for s, d in ctx.perm]
+        return _ppermute_raw(g, ctx.axis_name, inv), None, None
+
+
+def ppermute(x: torch.Tensor, axis_name, perm) -> torch.Tensor:
+    """``lax.ppermute(x, axis_name, perm)``: ``perm`` a list of (source,
+    destination) axis positions; a position no pair sends to gets zeros.
+    The backward sends the cotangent back by the inverse permutation."""
+    perm = tuple((int(s), int(d)) for s, d in perm)
+    if x.requires_grad and torch.is_grad_enabled():
+        return _PPermute.apply(x, axis_name, perm)
+    return _ppermute_raw(x, axis_name, perm)
+
+
+def _all_to_all_raw(x: torch.Tensor, axis_name, split_axis: int,
+                    concat_axis: int) -> torch.Tensor:
+    """``lax.all_to_all(..., tiled=True)``: ``x`` split along
+    ``split_axis`` into one chunk a rank, chunk j to position j, and the
+    chunks received concatenated along ``concat_axis`` in position
+    order."""
+    ax = axis(axis_name)
+    _check_device(ax, x, "all_to_all")
+    n = ax.size
+    split_axis %= x.dim()
+    concat_axis %= x.dim()
+    if x.shape[split_axis] % n:
+        raise ValueError(f"all_to_all: dim {split_axis} of "
+                         f"{tuple(x.shape)} does not split over {n} ranks")
+    chunk = list(x.shape)
+    chunk[split_axis] //= n
+    # [n, *chunk]: chunk j leads, contiguous, as bytes
+    parts = x.detach().reshape(*x.shape[:split_axis], n,
+                               chunk[split_axis], *x.shape[split_axis + 1:])
+    parts = parts.movedim(split_axis, 0).contiguous()
+    raw = parts.reshape(-1).view(torch.uint8)
+    record_collective("all_to_all", raw.numel(), axis_name)
+    dist = _dist()
+    if ax.rules["all_to_all"] == "host_all_to_all":
+        send = _host(raw)
+        recv = _host_empty(raw.numel())
+        dist.all_to_all_single(recv, send, group=ax.group)
+        got = recv.to(x.device)
+    else:
+        got = torch.empty_like(raw)
+        dist.all_to_all_single(got, raw, group=ax.group)
+    got = got.view(x.dtype).reshape(n, *chunk)
+    return torch.cat(list(got.unbind(0)), dim=concat_axis)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis_name, split_axis, concat_axis):
+        ctx.args = (axis_name, split_axis, concat_axis)
+        return _all_to_all_raw(x, axis_name, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis_name, split_axis, concat_axis = ctx.args
+        return (_all_to_all_raw(g, axis_name, concat_axis, split_axis),
+                None, None, None)
+
+
+def all_to_all(x: torch.Tensor, axis_name, split_axis: int,
+               concat_axis: int) -> torch.Tensor:
+    """Tiled ``lax.all_to_all``; its backward is the inverse all-to-all
+    (``split_axis`` and ``concat_axis`` exchanged)."""
+    if x.requires_grad and torch.is_grad_enabled():
+        return _AllToAll.apply(x, axis_name, int(split_axis),
+                               int(concat_axis))
+    return _all_to_all_raw(x, axis_name, int(split_axis), int(concat_axis))
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis_name, groups):
+        return grouped_psum(x, axis_name, groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def psum(x: torch.Tensor, axis_name, groups=None) -> torch.Tensor:
+    """The replicated sum over the axis (or this rank's group of
+    ``groups``); its backward is the identity (module docstring)."""
+    if axis_name is None:
+        return x
+    if x.requires_grad and torch.is_grad_enabled():
+        return _PSum.apply(x, axis_name, _canon_groups(groups))
+    return grouped_psum(x, axis_name, groups)
+
+
+def pmean(x: torch.Tensor, axis_name, groups=None) -> torch.Tensor:
+    """``psum / size``; the cotangent divided by the size."""
+    if axis_name is None:
+        return x
+    return psum(x, axis_name, groups) / group_size(axis_name, groups)
+
+
+def _pmax_raw(x: torch.Tensor, axis_name) -> torch.Tensor:
+    ax = axis(axis_name)
+    _check_device(ax, x, "pmax")
+    out = x.detach().clone()
+    record_collective("pmax", _nbytes(out), axis_name)
+    dist = _dist()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=ax.group)
+    return out
+
+
+class _PMax(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis_name):
+        out = _pmax_raw(x, axis_name)
+        ctx.axis_name = axis_name
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        hold = (x == out).to(g.dtype)
+        ties = grouped_psum(hold, ctx.axis_name)
+        return g * hold / torch.clamp(ties, min=1.0), None
+
+
+def pmax(x: torch.Tensor, axis_name) -> torch.Tensor:
+    """The replicated elementwise maximum over the axis; the cotangent goes
+    to the ranks holding the maximum, split evenly among ties."""
+    if x.requires_grad and torch.is_grad_enabled():
+        return _PMax.apply(x, axis_name)
+    return _pmax_raw(x, axis_name)
+
+
+class _PVary(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis_name):
+        ctx.axis_name = axis_name
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return grouped_psum(g, ctx.axis_name), None
+
+
+def pvary(x: torch.Tensor, axis_name) -> torch.Tensor:
+    """Mark a replicated value entering a varying computation: the
+    identity forward, a ``psum`` of the cotangent backward (JAX's
+    replicated-to-varying cast)."""
+    if x.requires_grad and torch.is_grad_enabled():
+        return _PVary.apply(x, axis_name)
+    return x

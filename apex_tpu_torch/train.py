@@ -27,8 +27,11 @@ gathered from the shards, the grad reduce-scattered into
 one device) for the decoder LM and, with the batch and loss keywords
 passed through, of ``examples/seq2seq/train_translation.py`` for the
 Seq2Seq Transformer; with ``microbatches`` or a ``loss_scale``, the
-gradient accumulation of ``examples/lm/train_ring.py``. Both
-differentiate with respect to the flat fp32 master buffer
+gradient accumulation of ``examples/lm/train_ring.py``.
+``SeqParallelTrainer`` is ``train_ring.py``'s step itself (:121-146): an
+LM with ``seq_axis``, each rank on its shard of the time axis, the flat
+grads summed over the axis and the overflow flag maxed before the
+update. All differentiate with respect to the flat fp32 master buffer
 (``master_grad``).
 
 The ResNet step, as the JAX bench runs it:
@@ -72,7 +75,7 @@ from apex_tpu_torch.optimizers.larc import LARC
 from apex_tpu_torch.parallel import collectives as _C
 
 __all__ = ["master_grad", "Trainer", "DDPTrainer", "ZeROTrainer",
-           "LMTrainer", "DCGANTrainer"]
+           "LMTrainer", "SeqParallelTrainer", "DCGANTrainer"]
 
 
 def master_grad(master, table, dtype, objective):
@@ -452,6 +455,49 @@ class LMTrainer:
             grad, found_inf, loss = self.accumulate_grads(*batch, **loss_kw)
             self.apply_grads(grad, found_inf)
         return loss
+
+
+class SeqParallelTrainer(LMTrainer):
+    """``examples/lm/train_ring.py``'s step (:121-146) on the ranks of the
+    model's ``seq_axis``: each rank takes the flat master's grad of
+    ``model.loss`` on its shard of the time axis (of every microbatch,
+    with ``microbatches`` or a ``loss_scale``), the grads are summed over
+    the axis — under the collectives' rule each rank's grad is its
+    partial of the global loss, so their sum is the unsharded gradient
+    (train_ring's ``pmean`` is the same sum under JAX's
+    ``check_vma=False``, where each partial arrives n times over) — the
+    overflow flag is maxed over the axis, and ``LMTrainer``'s FusedAdam
+    update (and scaler update) runs replicated. ``step(tokens)`` takes
+    this rank's int [B, T / n] shard and returns the global loss, the
+    same on every rank. Every rank must hold the same params; the other
+    keywords are ``LMTrainer``'s."""
+
+    def __init__(self, model, params, **kw):
+        if model.seq_axis is None:
+            raise ValueError("SeqParallelTrainer needs a model with "
+                             "seq_axis set")
+        super().__init__(model, params, **kw)
+        self.axis_name = model.seq_axis
+
+    def global_grad(self, *batch, **loss_kw):
+        """``(flat fp32 master grad summed over the axis, found_inf maxed
+        over it or None, loss)`` of this rank's shard: the step before its
+        update."""
+        if self.handle is None:
+            grad, loss = self.loss_and_grad(*batch, **loss_kw)
+            found_inf = None
+        else:
+            grad, found_inf, loss = self.accumulate_grads(*batch, **loss_kw)
+            found_inf = _C.pmax(found_inf, self.axis_name)
+        return _C.psum(grad, self.axis_name), found_inf, loss
+
+    def step(self, *batch, **loss_kw):
+        """One step on this rank's shard; returns the loss as a device
+        tensor."""
+        with _C.step_scope():
+            grad, found_inf, loss = self.global_grad(*batch, **loss_kw)
+            self.apply_grads(grad, found_inf)
+            return loss
 
 
 class DCGANTrainer:

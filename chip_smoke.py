@@ -30,7 +30,10 @@ phase 42 the telemetry sidecar (``prof.metrics``, ``flightrec``,
 tools run as subprocesses, and phase 43 data parallelism
 (``torch.distributed``: bench.py's ddp and zero arms at world size 1 over
 NCCL, and ranks in child processes of this script, ``--ddp-rank``, over
-gloo on the one card).
+gloo on the one card), and phase 44 sequence, expert and pipeline
+parallelism (lm_bench's MoE LM, the engine serving it, and ranks in child
+processes, ``--mp-rank``). ``python3 chip_smoke.py --model-parallel``
+runs phases 0, 1 and 44 alone and prints no last line.
 Every serving engine runs its programs captured (``run``'s way on the card);
 ``warmup()`` captures them first where a phase calls it:
 
@@ -578,6 +581,28 @@ Every serving engine runs its programs captured (``run``'s way on the card);
     with ``create_syncbn_process_group(2)``, one forward: the stem BN's
     statistics equal within each pair, apart across, and within 1e-5 of
     BN over the pair's joined batch (checks).
+44. model_parallel — run before phase 40's line, whose launches include
+    (a)'s and (b)'s. (a) ``moe_lm``: lm_bench's ``--moe-experts 4
+    --moe-every 2`` LM (8 × 1024, 8 heads of 128, S 2048, batch 8) under
+    ``LMTrainer`` (O2 bf16, FusedAdam) at ``moe_top_k`` 1 and 2: 3 steps
+    (losses finite and falling, the dropped fraction in [0, 1), checks),
+    5 timed (tok/s, p50, peak; no MFU); then a small MoE LM's
+    kernels-vs-plain ``crosscheck`` at top 1, 2 and 4 (step 1's grad
+    held at each, the masters after 3 steps at top 4; at top 1 and 2
+    printed beside the tokens that changed expert). (b) ``moe_serve``:
+    serve_bench's model with those MoE layers in bf16, 16 requests at
+    once, dense and paged engines: 0 captures after ``warmup()``,
+    captured == ``programs.eager()``, paged == dense, and in fp32 the
+    engine's greedy streams == ``generate``'s (checks); decode step p50
+    and tok/s. (c) two children (``--mp-rank``, through
+    ``launch.multiproc``, gloo over CUDA tensors, the kernels loaded, a
+    rebuild a failure): train_ring's step (``SeqParallelTrainer``) at
+    phase 9's LM, 2048 tokens a rank: fp32 step 1 within
+    ``MP_REORDER_FACTOR`` times fp32's own effect on world 1's grad, and
+    three planted faults outside that bar (checks), then 3 bf16 steps;
+    Ulysses at [8, 16, 2048 a rank, 64] under the flash rule; GPipe over 2
+    stages of that LM's blocks against the serial stack; (a)'s LM with
+    its experts split over the ranks against the dense one.
 40. the ``{"kernels": [...], "off_path": [...]}`` line (42 kernels; dq's
     and dk/dv's entries also carry their ``wide`` reading and the whole
     backward's, ``backward``, at both shapes, the D-256 ones the whole
@@ -2891,7 +2916,8 @@ def lm_train_phase(torch, model, params) -> tuple:
     return counts, row
 
 
-def crosscheck(torch, dispatch, phase, run, **extra) -> dict:
+def crosscheck(torch, dispatch, phase, run, hold_masters=True,
+               readings=None, **extra) -> dict:
     """``run(dtype)`` — three training steps from fixed masters, returning
     ``(masters, [flat grad of each step, unscaled], [losses])`` — with the
     kernels (bf16, twice) and with the plain versions on the card (bf16,
@@ -2907,7 +2933,10 @@ def crosscheck(torch, dispatch, phase, run, **extra) -> dict:
     lr, so the masters' max is reported, not held. Two kernel runs give
     the same losses and masters bit for bit; no kernel launches in the
     plain runs. Only step 1's gradients and the noise mask are kept
-    between runs, so a wide model's four runs fit one card."""
+    between runs, so a wide model's four runs fit one card. With
+    ``hold_masters`` False the masters' gap after 3 steps is printed, not
+    held; ``readings()``, called after the four runs, adds its dict to the
+    printed row."""
     zero_counts()
     mk, gk, loss_k = run(torch.bfloat16)
     gk = gk[0]
@@ -2942,14 +2971,18 @@ def crosscheck(torch, dispatch, phase, run, **extra) -> dict:
             "noise_elements": int(noise.sum())}
     repeat = loss_k == loss_k2 and bool(torch.equal(mk, mk2))
     row = {"phase": phase, **extra, "steps": 3, "dtype": "bfloat16",
-           "err": errs, "loss_kernels": loss_k, "loss_kernels_again":
-           loss_k2, "loss_plain": loss_r, "loss_plain_f32": loss_f,
-           "repeat_equal": repeat, "kernel_launches": kernel_launches}
+           "err": errs, "masters_held": hold_masters,
+           "masters_over_bf16": errs["mean"] / errs["bf16_mean"]
+           if errs["bf16_mean"] else None, "loss_kernels": loss_k,
+           "loss_kernels_again": loss_k2, "loss_plain": loss_r,
+           "loss_plain_f32": loss_f, "repeat_equal": repeat,
+           "kernel_launches": kernel_launches,
+           **(readings() if readings else {})}
     emit(row)
     check(errs["grad1_mean"] <= 1.5 * errs["grad1_bf16_mean"]
           and errs["grad1_max"] <= 1.5 * errs["grad1_bf16_max"],
           f"{phase}: step 1's gradients differ by {errs}")
-    check(errs["mean"] <= 1.5 * errs["bf16_mean"],
+    check(not hold_masters or errs["mean"] <= 1.5 * errs["bf16_mean"],
           f"{phase}: masters differ by {errs}")
     check(repeat, f"{phase}: two kernel runs differ {loss_k} vs {loss_k2}")
     check(all(abs(a - b) <= 2e-2 for a, b in zip(loss_k, loss_r)),
@@ -2958,7 +2991,8 @@ def crosscheck(torch, dispatch, phase, run, **extra) -> dict:
 
 
 def adam_crosscheck(torch, dispatch, phase, model, params, batch,
-                    loss_kw, adam, **trainer_kw) -> dict:
+                    loss_kw, adam, hold_masters=True, readings=None,
+                    **trainer_kw) -> dict:
     """``crosscheck`` of three O2 ``LMTrainer`` steps of ``model`` on
     ``batch``; ``trainer_kw`` (``microbatches``, ``loss_scale``) selects
     train_ring's accumulation."""
@@ -2977,7 +3011,8 @@ def adam_crosscheck(torch, dispatch, phase, model, params, batch,
             loss.append(float(l_))
         return tr.opt.state[0].master, grads, loss
 
-    return crosscheck(torch, dispatch, phase, run, **trainer_kw)
+    return crosscheck(torch, dispatch, phase, run, hold_masters, readings,
+                      **trainer_kw)
 
 
 def lm_crosscheck_phase(torch, dispatch):
@@ -7920,6 +7955,728 @@ def data_parallel_phase(torch) -> dict:
     return totals
 
 
+# -- phase 44: sequence, expert and pipeline parallelism ------------------------
+
+T_IMPORT = time.perf_counter()
+
+# (a)'s LM: tools/lm_bench.py --moe-experts 4 --moe-every 2 at S 2048, 8 heads
+# of 128 (LMBENCH_r05_s2048_moe4top1_bf16.json's configuration)
+MOE_LM = dict(batch=8, seq=2048, embed=1024, heads=8, layers=8, vocab=32768,
+              experts=4, every=2)
+MOE_WARM, MOE_TIMED = 3, 5
+# launches of each kernel in one step of (a)'s LM: phase 9's, per layer
+MOE_PER_STEP = {"flash_fwd": 8, "flash_bwd_dq": 8, "flash_bwd_dkv": 8,
+                "ln_fwd": 17, "ln_bwd": 17, "adam": 1}
+# (c)'s ring: phase 9's LM (16 heads of 64, S 4096) over 2 ranks of 2048;
+# step 1 in fp32 within MP_REORDER_FACTOR times fp32's own effect on world
+# 1's grad: the larger of its gap to its grad of the batch with its halves
+# swapped (the token sums reordered, phase 43's control) and to its grad with
+# the plain versions (the attention's sums reordered, which the ring's
+# merge of two partials also does and the swap cannot show); the loss
+# within the larger of DP_STEP1_LOSS and that factor of the effects' loss
+# gaps; three faults planted in the ring (each rank attending only its own
+# keys, the own shard's k_start one key early, the partials' lse detached
+# before the merge) each outside that bar; the pipeline's and the expert-parallel grads within the JAX tests'
+# tolerances (tests/test_pipeline.py, tests/test_moe.py), the absolute
+# part taken of each tensor's largest entry
+MP_REORDER_FACTOR = 2.0
+MP_RING_STEPS = 3
+PIPE_TOL = {"out": (1e-5, 1e-5), "grad": (1e-4, 1e-5)}     # rtol, atol
+EXPERT_TOL = (1e-5, 1e-6)
+PIPE_SHAPE = dict(batch=8, seq=2048, microbatches=4, stages=2)
+
+
+def moe_lm_model(top_k: int = 1, **kw):
+    """(a)'s TransformerLM: lm_bench's defaults (attn "fast", the fused
+    head in vocab chunks of 8192) with 4 experts every 2nd layer."""
+    from apex_tpu_torch.models import TransformerLM
+    c = MOE_LM
+    return TransformerLM(vocab_size=c["vocab"], max_seq_len=c["seq"],
+                         embed_dim=c["embed"], num_heads=c["heads"],
+                         num_layers=c["layers"], attn_impl="fast",
+                         head_chunk=min(8192, c["vocab"]),
+                         moe_experts=c["experts"], moe_every=c["every"],
+                         moe_top_k=top_k, **kw)
+
+
+def moe_lm_batch(torch, device="cuda"):
+    """(a)'s token batch: 8 × 2048 from RandomState(4)."""
+    import numpy as np
+    c = MOE_LM
+    return torch.from_numpy(np.random.RandomState(4).randint(
+        0, c["vocab"], (c["batch"], c["seq"])).astype(np.int64)).to(device)
+
+
+def moe_lm_phase(torch, dispatch, card: str) -> dict:
+    """(a): lm_bench's MoE step, top 1 and top 2: 3 steps (loss finite and
+    falling, the aux dropped fraction in [0, 1)), 5 timed (tok/s, step
+    p50, peak memory; no MFU: lm_bench omits it for MoE), a profile of one
+    top-1 step; then a small MoE LM kernels-vs-plain. Returns the timed
+    steps' launches."""
+    import gc
+
+    from apex_tpu_torch.ops import flat
+    from apex_tpu_torch.train import LMTrainer
+    c = MOE_LM
+    totals: dict = {}
+    toks = moe_lm_batch(torch)
+    for top_k in (1, 2):
+        model = moe_lm_model(top_k)
+        params = model.init(torch.Generator().manual_seed(5))
+        tr = LMTrainer(model, params, lr=1e-4)
+        del params
+        r = timed_steps(torch, lambda: tr.step(toks), MOE_WARM, MOE_TIMED)
+        counts = r["counts"]
+        with torch.no_grad():
+            p = flat.unflatten(tr.opt.state[0].master, tr.table,
+                               dtype=torch.bfloat16)
+            _, aux = model.apply(p, toks[:, :-1], return_hidden=True,
+                                 return_aux=True)
+            del p
+        dropped = float(aux["moe_dropped_fraction"])
+        balance = float(aux["moe_load_balance_loss"])
+        prof = profile_steps(torch, lambda: tr.step(toks),
+                             LM_KERNEL_FAMILIES, n=1) if top_k == 1 \
+            else None
+        tokens = c["batch"] * c["seq"]
+        emit({"phase": "model_parallel", "part": f"moe_lm_top{top_k}",
+              "card": card, "model": "TransformerLM", **c, "top_k": top_k,
+              "capacity_factor": model.moe_capacity_factor,
+              "attn_impl": "fast", "head_chunk": model.head_chunk,
+              "dtype": "bfloat16", "masters": "float32",
+              "optimizer": "FusedAdam(lr=1e-4)", "params": tr.table.total,
+              **window_row(r, MOE_TIMED), "tokens_per_step": tokens,
+              "tok_per_s": tokens * MOE_TIMED / r["wall"],
+              "mfu_note": "omitted: dense param-count flop model "
+                          "overcounts inactive experts",
+              "aux_dropped_fraction": dropped,
+              "aux_load_balance_loss": balance,
+              "launches": {k: counts[k] for k in MOE_PER_STEP},
+              "profile": prof})
+        check_losses(f"moe_lm_top{top_k}", r["loss"])
+        check(0.0 <= dropped < 1.0, f"moe_lm_top{top_k}: dropped fraction "
+              f"{dropped} outside [0, 1)")
+        check_counts(f"moe_lm_top{top_k}", counts,
+                     {k: n * MOE_TIMED for k, n in MOE_PER_STEP.items()})
+        for k, n in counts.items():
+            totals[k] = totals.get(k, 0) + n
+        del tr, model, aux
+        gc.collect()
+        torch.cuda.empty_cache()
+    moe_crosscheck_phase(torch, dispatch)
+    return totals
+
+
+def moe_crosscheck_phase(torch, dispatch):
+    """A small MoE LM (2 layers, embed 128, 2 heads of 64, 4 experts in
+    layer 1, vocab 512, S 256, batch 2) under ``adam_crosscheck`` at lr
+    1e-3, at ``moe_top_k`` 1, 2 and 4, the experts each run chose
+    recorded call by call. At top 1 and 2 the routing is discrete: a
+    token whose best experts nearly tie (the router starts at scale 0.02,
+    its probabilities near 1/4 each) changes expert on a rounding, and
+    Adam carries the jump on, so there step 1's grad (from the same
+    masters, the routing as good as fixed) is held and the masters' gap
+    after 3 steps is printed beside the count of tokens that changed
+    expert between the kernel run and the plain one, step by step. At top
+    4 every token reaches every expert, the output is continuous in the
+    router, and the masters are held too."""
+    from apex_tpu_torch.contrib.moe import MoEMLP
+    from apex_tpu_torch.models import TransformerLM
+    toks = torch.randint(0, 512, (2, 257), generator=torch.Generator()
+                         .manual_seed(3)).cuda()
+    route = MoEMLP._route
+    for top_k in (1, 2, 4):
+        m = TransformerLM(vocab_size=512, max_seq_len=256, embed_dim=128,
+                          num_heads=2, num_layers=2, attn_impl="fast",
+                          head_chunk=512, moe_experts=4, moe_every=2,
+                          moe_top_k=top_k)
+        params = m.init(torch.Generator().manual_seed(2))
+        chosen = []          # each forward's experts [tokens, k], in order
+
+        def recording(self, p, x):
+            probs, tope, gates = route(self, p, x)
+            chosen.append(tope.detach().clone())
+            return probs, tope, gates
+
+        def flips():
+            # runs: kernels, kernels again, plain bf16, plain fp32; one
+            # MoE layer, so one route a step
+            steps = len(chosen) // 4
+            run = [chosen[i * steps:(i + 1) * steps] for i in range(4)]
+
+            def moved(a, b):
+                return [int((x != y).any(dim=-1).sum())
+                        for x, y in zip(a, b)]
+            return {"tokens": int(chosen[0].shape[0]),
+                    "flipped_kernels_vs_plain": moved(run[0], run[2]),
+                    "flipped_plain_bf16_vs_fp32": moved(run[2], run[3])}
+
+        MoEMLP._route = recording
+        try:
+            adam_crosscheck(torch, dispatch, f"moe_crosscheck_top{top_k}",
+                            m, params, (toks,), {}, {"lr": 1e-3},
+                            hold_masters=top_k == 4, readings=flips)
+        finally:
+            MoEMLP._route = route
+
+
+def moe_serve_model(torch, dtype):
+    """(b)'s model: serve_bench's (phase 3) with 4 experts every 2nd
+    layer, random weights from seed 0."""
+    from apex_tpu_torch.models import TransformerLM
+    model = TransformerLM(vocab_size=32768, max_seq_len=1024,
+                          embed_dim=1024, num_heads=8, num_layers=8,
+                          moe_experts=4, moe_every=2)
+    return model, model.init(torch.Generator().manual_seed(0), dtype=dtype)
+
+
+def moe_serve_phase(torch, card: str) -> dict:
+    """(b): the engine serving an MoE LM. bf16, 16 requests at once
+    (prompts 16-96, outputs 8-48): dense and paged engines warmed, their
+    greedy streams equal, 0 captures after warmup, the captured run equal
+    to ``programs.eager()``'s; decode step p50 and decode tok/s. In fp32
+    (bf16 ties logits at their largest often: phase 36's gate) the
+    engine's greedy streams equal ``generate``'s. Returns the captured
+    runs' launches."""
+    import gc
+
+    from apex_tpu_torch.serve import (ContinuousBatchingEngine,
+                                      poisson_requests, programs,
+                                      summarize_serving)
+    reqs = at_once(poisson_requests(
+        16, rate=8.0, prompt_dist="uniform:16,96", new_dist="uniform:8,48",
+        vocab_size=32768, seed=3, max_len=1024, prefill_chunk=32))
+    model, params = moe_serve_model(torch, torch.bfloat16)
+    totals: dict = {}
+    streams = {}
+    for name, kw in (("dense", {}), ("paged", dict(
+            paged=True, page_size=32, kv_pages=8 * (1024 // 32) // 2))):
+        eng = ContinuousBatchingEngine(model, params, slots=8, max_len=1024,
+                                       prefill_chunk=32, **kw)
+        warm = warm_engine(torch, eng)
+        zero_counts()
+        res, stats = eng.run(reqs)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        with programs.eager():
+            e_res, _ = eng.run(reqs)
+        summary = summarize_serving(res, stats, offered_rps=8.0)
+        streams[name] = [r.tokens for r in res]
+        row = {"phase": "model_parallel", "part": f"moe_serve_{name}",
+               "card": card, "model": "serve_bench LM + MoE 4 every 2",
+               "dtype": "bfloat16", "requests": len(res), **warm,
+               "captures_after_warmup": captures_since(eng, warm),
+               "captured_equals_eager": _stream_equal(res, e_res),
+               "decode_steps": stats["decode_steps"],
+               "decode_step_ms": summary["decode_step_ms"],
+               "decode_tok_s": decode_tok_s(res, stats),
+               "tokens_per_s": summary["tokens_per_s"],
+               "ttft_ms": summary["ttft_ms"], "launches": counts}
+        emit(row)
+        check(row["captures_after_warmup"] == 0,
+              f"moe_serve_{name}: {row['captures_after_warmup']} captures "
+              f"after warmup")
+        check(row["captured_equals_eager"],
+              f"moe_serve_{name}: captured streams differ from eager")
+        for r, q in zip(res, reqs):
+            check(len(r.tokens) == q.max_new,
+                  f"moe_serve_{name}: request {q.id} got {len(r.tokens)} "
+                  f"of {q.max_new} tokens")
+        kern = "paged_decode_attention" if name == "paged" \
+            else "decode_attention"
+        check(counts[kern] == model.num_layers * stats["decode_steps"],
+              f"moe_serve_{name}: {kern} launched {counts[kern]} times "
+              f"for {stats['decode_steps']} steps")
+        for k, n in counts.items():
+            totals[k] = totals.get(k, 0) + n
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    same = streams["dense"] == streams["paged"]
+    del params
+    # fp32: the engine against generate, request by request
+    model32, p32 = moe_serve_model(torch, torch.float32)
+    eng = ContinuousBatchingEngine(model32, p32, slots=8, max_len=1024,
+                                   prefill_chunk=32)
+    warm_engine(torch, eng)
+    res, _ = eng.run(reqs[:8])
+    gen_equal = []
+    for r, q in zip(res, reqs[:8]):
+        out = model32.generate(p32, torch.as_tensor(q.prompt)[None],
+                               max_new_tokens=q.max_new)
+        gen_equal.append(out[0, len(q.prompt):].tolist() == list(r.tokens))
+    emit({"phase": "model_parallel", "part": "moe_serve_parity",
+          "card": card, "paged_equals_dense": same,
+          "engine_equals_generate_fp32": gen_equal})
+    check(same, "moe_serve: paged streams differ from dense")
+    check(all(gen_equal), f"moe_serve: the fp32 engine's greedy streams "
+          f"differ from generate's {gen_equal}")
+    del eng, p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
+
+
+def ring_lm(seq_axis=None):
+    """(c)'s ring LM: phase 9's (lm_bench's defaults), over ``seq_axis``
+    of 2 ranks when given."""
+    from apex_tpu_torch.models import TransformerLM
+    c = LM_SHAPE
+    kw = dict(seq_axis=seq_axis, seq_axis_size=2) if seq_axis else {}
+    return TransformerLM(vocab_size=c["vocab"], max_seq_len=c["seq"],
+                         embed_dim=c["embed"], num_heads=c["heads"],
+                         num_layers=c["layers"], attn_impl="fast",
+                         head_chunk=min(8192, c["vocab"]), **kw)
+
+
+def ring_reference(torch, dispatch) -> dict:
+    """World 1's fp32 step-1 grad of the ring LM on the whole batch (the
+    reference, kept in host memory) and fp32's own effects on it: its
+    grad of the batch with its halves swapped (the sums over tokens in
+    another order) and its grad with the plain versions (attention and
+    LayerNorm summed in another order, as the ring's merge of two partials
+    does)."""
+    from apex_tpu_torch.train import LMTrainer
+    model = ring_lm()
+    params = model.init(torch.Generator().manual_seed(6))
+    tr = LMTrainer(model, params, dtype=None)
+    del params
+    toks = lm_batch(torch)
+    grad, loss = tr.loss_and_grad(toks)
+    ref_grad, ref_loss = grad.cpu(), float(loss)
+    del grad
+    h = toks.shape[0] // 2
+    grad, loss = tr.loss_and_grad(torch.cat([toks[h:], toks[:h]]))
+    reorder = dp_step1(grad.cpu(), float(loss), ref_grad, ref_loss)
+    del grad
+    torch.cuda.empty_cache()
+    with dispatch.backend("reference"):
+        grad, loss = tr.loss_and_grad(toks)
+    attention = dp_step1(grad.cpu(), float(loss), ref_grad, ref_loss)
+    del grad, tr
+    return {"grad": ref_grad, "loss": ref_loss, "reorder": reorder,
+            "attention_order": attention}
+
+
+def _rel_err(got, want, rtol: float, atol: float) -> float:
+    """The largest |got - want| over rtol·|want| + atol·max|want| (the
+    bar passes at <= 1)."""
+    d = (got.float() - want.float()).abs()
+    lim = rtol * want.float().abs() + atol * float(want.float().abs().max())
+    return float((d / lim.clamp_min(1e-30)).max())
+
+
+def mp_block(model):
+    """One pre-LN block of ``model`` as GPipe's ``layer_fn``: its LayerNorm
+    kernels and its attention (the flash kernels for "fast")."""
+    mha = model._mha()
+
+    def layer_fn(lp, h):
+        a, _ = mha.apply(lp["attn"], model._ln(h, lp["ln1"]).transpose(0, 1),
+                         is_training=False)
+        h = h + a.transpose(0, 1)
+        return h + model._mlp(model._ln(h, lp["ln2"]), lp["mlp"])
+    return layer_fn
+
+
+def mp_rank_ring(torch, rank, out, write) -> None:
+    """train_ring's step on this rank's half of phase 9's batch: step 1 in
+    fp32 (the reduced grad saved for the parent), the same under each of
+    ``RING_FAULTS`` (rank 0's grad saved), then 3 bf16 steps."""
+    import os
+
+    from apex_tpu_torch.contrib.multihead_attn.flash_attention import \
+        flash_attention
+    from apex_tpu_torch.parallel import ring_attention as ra
+    from apex_tpu_torch.train import SeqParallelTrainer
+    toks = lm_batch(torch)
+    t = toks.shape[1] // 2
+    mine = toks[:, rank * t:(rank + 1) * t].contiguous()
+    model = ring_lm("seq")
+    params = model.init(torch.Generator().manual_seed(6))
+    row = {"rank": rank}
+    tr = SeqParallelTrainer(model, params, dtype=None)
+    grad, _, loss = tr.global_grad(mine)
+    torch.save(grad.cpu(), os.path.join(out, f"ring_grad{rank}.pt"))
+    row["fp32_loss"] = float(loss)
+    del grad
+
+    # the faults, planted by swapping the ring module's flash_attention
+    def local_only(q, k, v, **kw):
+        # each rank attends only its own keys: the other rotations' partials
+        # come back empty
+        if kw["k_start"] != kw["q_start"]:
+            return torch.zeros_like(q), torch.full(
+                q.shape[:-1], ra.NEG_INF, device=q.device)
+        return flash_attention(q, k, v, **kw)
+
+    def kstart_early(q, k, v, **kw):
+        # the own shard's k_start one key early: each row sees one key
+        # past its own, its target
+        if kw["k_start"] == kw["q_start"]:
+            kw = dict(kw, k_start=kw["k_start"] - 1)
+        return flash_attention(q, k, v, **kw)
+
+    def lse_detached(q, k, v, **kw):
+        # the merge's weights get no gradient
+        o, lse = flash_attention(q, k, v, **kw)
+        return o, lse.detach()
+
+    for name, fault in (("local", local_only), ("kstart", kstart_early),
+                        ("lse", lse_detached)):
+        ra.flash_attention = fault
+        try:
+            grad, _, loss = tr.global_grad(mine)
+        finally:
+            ra.flash_attention = flash_attention
+        if rank == 0:
+            torch.save(grad.cpu(), os.path.join(out, f"ring_{name}.pt"))
+        row[f"{name}_loss"] = float(loss)
+        del grad
+    del tr
+    torch.cuda.empty_cache()
+    tr = SeqParallelTrainer(model, params)          # bf16, O2
+    del params
+    zero_counts()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True))
+              for _ in range(MP_RING_STEPS)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = []
+    for a, b in events:
+        a.record()
+        losses.append(tr.step(mine))
+        b.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    from apex_tpu_torch.parallel import collectives as C
+    tokens = toks.shape[0] * toks.shape[1]
+    row.update({"bf16_losses": [float(v) for v in losses],
+                "step_ms": sorted(a.elapsed_time(b) for a, b in events),
+                "wall_s": wall, "tok_per_s": tokens * MP_RING_STEPS / wall,
+                "launches": read_counts(),
+                "collectives_last_step": C.collective_bytes()})
+    del tr
+    torch.cuda.empty_cache()
+    write(f"ring{rank}.json", row)
+
+
+def mp_rank_ulysses(torch, rank, write) -> None:
+    """One Ulysses forward and backward at [8, 16, 2048 a rank, 64] bf16,
+    causal, against flash_attention over the whole sequence (this rank's
+    rows), under the flash rule."""
+    from apex_tpu_torch.contrib.multihead_attn.flash_attention import \
+        flash_attention
+    from apex_tpu_torch.parallel.ring_attention import ulysses_attention
+    g = torch.Generator(device="cuda").manual_seed(7)
+    b, h, s, d = 8, 16, 4096, 64
+    q, k, v, do = (torch.randn(b, h, s, d, generator=g, device="cuda").to(
+        torch.bfloat16) for _ in range(4))
+    t = s // 2
+    sl = slice(rank * t, (rank + 1) * t)
+    mine = [x[:, :, sl].clone().requires_grad_(True) for x in (q, k, v)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    o = ulysses_attention(*mine, "seq", 2, causal=True)
+    grads = torch.autograd.grad(o, mine, do[:, :, sl])
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    whole = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    o_ref = flash_attention(*whole, causal=True)
+    refs = torch.autograd.grad(o_ref, whole, do)
+    errs = {"o": flash_err(torch, o, o_ref[:, :, sl])}
+    for n, a, r in zip(("dq", "dk", "dv"), grads, refs):
+        errs[n] = flash_err(torch, a, r[:, :, sl])
+    write(f"ulysses{rank}.json", {"rank": rank, "shape": [b, h, t, d],
+                                  "seconds": sec, "err": errs})
+
+
+def mp_rank_pipeline(torch, rank, write) -> None:
+    """GPipe over 2 stages of the ring LM's 8 blocks (4 a stage, its
+    LayerNorm and flash kernels), 4 microbatches of [2, 2048, 1024] fp32,
+    loss mean((out - y)²): the output and this stage's grads against the
+    serial stack's."""
+    from apex_tpu_torch.ops import flat
+    from apex_tpu_torch.parallel.pipeline import (gpipe, stack_layers,
+                                                  unstack_layers)
+    c = PIPE_SHAPE
+    model = ring_lm()
+    params = model.init(torch.Generator().manual_seed(8))
+    layers = [params[f"layer_{i}"] for i in range(model.num_layers)]
+    del params
+    fn = mp_block(model)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    x = torch.randn(c["batch"], c["seq"], model.embed_dim, generator=g,
+                    device="cuda")
+    y = torch.randn(x.shape, generator=g, device="cuda")
+    per = model.num_layers // c["stages"]
+    local = stack_layers(layers[rank * per:(rank + 1) * per])
+    leaves = flat.tree_leaves(local)
+    for t_ in leaves:
+        t_.requires_grad_(True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = gpipe(fn, local, x, axis_name="pipe", num_stages=c["stages"],
+                num_microbatches=c["microbatches"])
+    loss = torch.mean((out - y) ** 2)
+    grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    serial = stack_layers(layers)
+    s_leaves = flat.tree_leaves(serial)
+    for t_ in s_leaves:
+        t_.requires_grad_(True)
+    h = x
+    for lp in unstack_layers(serial):
+        h = fn(lp, h)
+    s_loss = torch.mean((h - y) ** 2)
+    s_grads = torch.autograd.grad(s_loss, s_leaves)
+    grad_used = max(_rel_err(a, b[rank * per:(rank + 1) * per],
+                             *PIPE_TOL["grad"])
+                    for a, b in zip(grads, s_grads))
+    write(f"pipe{rank}.json", {
+        "rank": rank, **c, "seconds": sec, "loss": float(loss),
+        "serial_loss": float(s_loss),
+        "out_used": _rel_err(out.detach(), h.detach(), *PIPE_TOL["out"]),
+        "grad_used": grad_used})
+
+
+def mp_rank_expert(torch, rank, write) -> None:
+    """(a)'s MoE LM (top 1) in fp32 with its experts split over the 2
+    ranks (``expert_axis``), on (a)'s batch: the loss and grads against
+    the dense model's from the same params."""
+    from apex_tpu_torch.ops import flat
+    dense = moe_lm_model(1)
+    params = dense.init(torch.Generator().manual_seed(5))
+    toks = moe_lm_batch(torch)
+    leaves = flat.tree_leaves(params)
+    for t_ in leaves:
+        t_.requires_grad_(True)
+    loss_d = dense.loss(params, toks)
+    g_d = torch.autograd.grad(loss_d, leaves)
+    ep = moe_lm_model(1, expert_axis="expert", expert_axis_size=2)
+    el = MOE_LM["experts"] // 2
+    local = {}
+    for name, lp in params.items():
+        if isinstance(lp, dict) and "moe" in lp:
+            moe = {k: (v if k == "router" else v[rank * el:(rank + 1) * el])
+                   for k, v in lp["moe"].items()}
+            lp = dict(lp, moe=moe)
+        local[name] = lp
+    l_leaves = [t_.detach().clone().requires_grad_(True)
+                for t_ in flat.tree_leaves(local)]
+    local = flat.tree_unflatten(flat.tree_flatten(local)[1], l_leaves)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss_p = ep.loss(local, toks)
+    g_p = torch.autograd.grad(loss_p, l_leaves)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    used = 0.0
+    for (path, a), b in zip(zip(flat.tree_paths(flat.tree_flatten(
+            local)[1]), g_p), g_d):
+        if "moe" in path and path[-1] != "router":
+            b = b[rank * el:(rank + 1) * el]
+        used = max(used, _rel_err(a, b, *EXPERT_TOL))
+    write(f"expert{rank}.json", {
+        "rank": rank, "seconds": sec, "loss": float(loss_p),
+        "dense_loss": float(loss_d), "grad_used": used,
+        "loss_used": abs(float(loss_p) - float(loss_d))
+        / (EXPERT_TOL[0] * abs(float(loss_d)))})
+
+
+def mp_rank_main(argv) -> int:
+    """A rank of phase 44 (``chip_smoke.py --mp-rank DIR``, started by
+    ``launch.multiproc``): gloo over CUDA tensors, one group bound as
+    ``"seq"``, ``"pipe"`` and ``"expert"``; the ring, Ulysses, GPipe and
+    expert-parallel parts in turn, results in DIR."""
+    import os
+
+    out = argv[0]
+    rank = int(os.environ["RANK"])
+    if rank == 0:       # the launcher leaves rank 0 on the phase's output
+        fd = os.open(os.path.join(out, "rank0.log"),
+                     os.O_WRONLY | os.O_CREAT | os.O_TRUNC)
+        os.dup2(fd, 1)
+        os.dup2(fd, 2)
+    import torch
+    import torch.distributed as dist
+
+    from apex_tpu_torch.ops import cuda as kcuda
+    from apex_tpu_torch.parallel import collectives as C
+    from apex_tpu_torch.parallel import launch, make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    launch.initialize("gloo", device="cuda",
+                      init_method=f"file://{os.path.join(out, 'store')}",
+                      timeout=300)
+    make_mesh({"seq": 2}, device="cuda")
+    for name in ("pipe", "expert"):
+        C.bind_axis(name, None, device_type="cuda")
+    kcuda.lib()
+    check(kcuda.build_seconds is None, "mp rank: the kernels were rebuilt")
+
+    def write(name, obj):
+        path = os.path.join(out, name)
+        with open(path + ".tmp", "w") as f:
+            json.dump(obj, f)
+        os.replace(path + ".tmp", path)
+
+    mp_rank_ring(torch, rank, out, write)
+    mp_rank_ulysses(torch, rank, write)
+    torch.cuda.empty_cache()
+    mp_rank_pipeline(torch, rank, write)
+    torch.cuda.empty_cache()
+    mp_rank_expert(torch, rank, write)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def mp_children(torch, dispatch, card: str) -> None:
+    """(c): world 1's fp32 references, then two children of this script
+    (``--mp-rank``, through ``launch.multiproc``) and the checks of what
+    they wrote."""
+    import gc
+    import os
+    import tempfile
+
+    from apex_tpu_torch.parallel import launch
+    t0 = time.perf_counter()
+    ref = ring_reference(torch, dispatch)
+    gc.collect()
+    torch.cuda.empty_cache()        # room for the ranks
+    ref_s = time.perf_counter() - t0
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        out = tmp.name
+        t0 = time.perf_counter()
+        rc = launch.multiproc(os.path.abspath(__file__), 2, "--mp-rank", out,
+                              log_dir=out, timeout=600.0)
+        check(rc == 0, f"model_parallel ranks: exit code {rc}\n"
+              f"{_dp_err(out, 2)}")
+        ranks_s = time.perf_counter() - t0
+
+        def load(name):
+            return [json.load(open(os.path.join(out, f"{name}{r}.json")))
+                    for r in range(2)]
+        ring, uly, pipe, expert = (load(n) for n in ("ring", "ulysses",
+                                                     "pipe", "expert"))
+        grads = [torch.load(os.path.join(out, f"ring_grad{r}.pt"))
+                 for r in range(2)]
+        reorder, attention = ref["reorder"], ref["attention_order"]
+        bar = {k: MP_REORDER_FACTOR * max(reorder[k], attention[k])
+               for k in ("grad_mean", "grad_max")}
+        bar["loss"] = max(DP_STEP1_LOSS, MP_REORDER_FACTOR * max(
+            reorder["loss"], attention["loss"]))
+        step1 = dp_step1(grads[0], ring[0]["fp32_loss"], ref["grad"],
+                         ref["loss"])
+        faults = {name: dp_step1(torch.load(os.path.join(
+            out, f"ring_{name}.pt")), ring[0][f"{name}_loss"], ref["grad"],
+            ref["loss"]) for name in ("local", "kstart", "lse")}
+        ranks_equal = torch.equal(grads[0], grads[1]) and \
+            ring[0]["fp32_loss"] == ring[1]["fp32_loss"] and \
+            ring[0]["bf16_losses"] == ring[1]["bf16_losses"]
+        r0 = ring[0]
+        emit({"phase": "model_parallel", "part": "ring", "card": card,
+              "backend": "gloo", "device": "cuda", **LM_SHAPE,
+              "seq_per_rank": LM_SHAPE["seq"] // 2,
+              "note": "train_ring's step (SeqParallelTrainer): grads summed "
+                      "over seq; ppermute and all_to_all staged through "
+                      "host buffers (gloo has no CUDA send/recv)",
+              "fp32_step1_vs_world1": step1, "step1_bar": bar,
+              "fp32_reorder_effect_world1": reorder,
+              "fp32_attention_order_effect_world1": attention,
+              "step1_over_reorder": {
+                  k: step1[k] / reorder[k] if reorder[k] else None
+                  for k in ("grad_mean", "grad_max")},
+              "faults_step1": faults,
+              "ranks_equal": ranks_equal, "bf16_losses": r0["bf16_losses"],
+              "bf16_step_ms_p50": statistics.median(r0["step_ms"]),
+              "bf16_tok_per_s": r0["tok_per_s"],
+              "launches_3_steps": r0["launches"],
+              "collectives_last_step": r0["collectives_last_step"],
+              "reference_s": ref_s, "ranks_s": ranks_s})
+        check(dp_within(step1, bar), f"ring: fp32 step 1 {step1} from world "
+              f"1, over {bar}")
+        for name, gap in faults.items():
+            check(not dp_within(gap, bar), f"ring: the planted fault "
+                  f"{name} {gap} passes the bar {bar}")
+        check(ranks_equal, "ring: the two ranks' losses or grads differ")
+        check_losses("ring_bf16", r0["bf16_losses"])
+        check_counts("ring_bf16", r0["launches"], {
+            "flash_fwd": 2 * 8 * MP_RING_STEPS,
+            "flash_bwd_dq": 2 * 8 * MP_RING_STEPS,
+            "flash_bwd_dkv": 2 * 8 * MP_RING_STEPS,
+            "ln_fwd": 17 * MP_RING_STEPS, "ln_bwd": 17 * MP_RING_STEPS,
+            "adam": MP_RING_STEPS})
+        used = max(e["used"] for u in uly for e in u["err"].values())
+        emit({"phase": "model_parallel", "part": "ulysses", "card": card,
+              "shape_per_rank": uly[0]["shape"], "causal": True,
+              "dtype": "bfloat16", "seconds": uly[0]["seconds"],
+              "err": [u["err"] for u in uly], "flash_rule_used": used})
+        check(used <= 1.0, f"ulysses: {used} of the flash rule")
+        pused = max(max(p["out_used"], p["grad_used"]) for p in pipe)
+        emit({"phase": "model_parallel", "part": "pipeline", "card": card,
+              "dtype": "float32", "layers": LM_SHAPE["layers"],
+              "tolerances": PIPE_TOL, "ranks": pipe, "used": pused})
+        check(pused <= 1.0, f"pipeline: {pused} of the JAX tests' "
+              f"tolerance {PIPE_TOL}")
+        eused = max(max(e["grad_used"], e["loss_used"]) for e in expert)
+        emit({"phase": "model_parallel", "part": "expert", "card": card,
+              "dtype": "float32", "experts_per_rank": MOE_LM["experts"] // 2,
+              "tolerance": EXPERT_TOL, "ranks": expert, "used": eused})
+        check(eused <= 1.0, f"expert: {eused} of the JAX tests' tolerance "
+              f"{EXPERT_TOL}")
+    finally:
+        tmp.cleanup()
+
+
+def model_parallel_phase(torch, dispatch) -> dict:
+    """Phase 44: (a) ``moe_lm``, (b) ``moe_serve``, (c) the ring, Ulysses,
+    GPipe and expert parallelism over two gloo ranks. Returns (a)'s and
+    (b)'s launches."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    card = nvidia_smi("name,power.limit")
+    t0 = time.perf_counter()
+    totals = moe_lm_phase(torch, dispatch, card)
+    t1 = time.perf_counter()
+    for k, n in moe_serve_phase(torch, card).items():
+        totals[k] = totals.get(k, 0) + n
+    t2 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    mp_children(torch, dispatch, card)
+    emit({"phase": "model_parallel", "part": "seconds", "card": card,
+          "started_at": t0 - T_IMPORT, "moe_lm": t1 - t0,
+          "moe_serve": t2 - t1,
+          "children": time.perf_counter() - t2})
+    return totals
+
+
+def model_parallel_main() -> int:
+    """``--model-parallel``: phases 0, 1 and 44 alone."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 2
+    from apex_tpu_torch.ops import cuda as kcuda
+    from apex_tpu_torch.ops import dispatch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(nvidia_smi("name,power.limit"), flush=True)
+    t0 = time.perf_counter()
+    kcuda.lib()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0})
+    counts = model_parallel_phase(torch, dispatch)
+    emit({"phase": "model_parallel", "part": "launches", "counts": counts,
+          "seconds": time.perf_counter() - T_IMPORT})
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -8215,6 +8972,10 @@ def main() -> int:
     # of one; two gloo ranks and four (SyncBN groups) on the one card
     dp_counts = data_parallel_phase(torch)
 
+    # 44. sequence, expert and pipeline parallelism: lm_bench's MoE step,
+    # the engine serving an MoE LM, and two gloo ranks on the one card
+    mp_counts = model_parallel_phase(torch, dispatch)
+
     # 40. the kernels line, then the contract line
     launches = {k: dcounts[k] + pcounts[k] for k in dcounts}
     launches.update({k: tcounts[k] for k in TRAIN_KERNELS})
@@ -8262,6 +9023,8 @@ def main() -> int:
     for k, n in telemetry_counts.items():  # telemetry armed, DCGAN fit
         launches[k] += n
     for k, n in dp_counts.items():       # ddp and zero at world 1
+        launches[k] += n
+    for k, n in mp_counts.items():       # the MoE LM trained and served
         launches[k] += n
     sources = {
         "decode_attention": (
@@ -8636,4 +9399,8 @@ if __name__ == "__main__":
         sys.exit(router_replica_main(sys.argv[2:]))
     if sys.argv[1:2] == ["--ddp-rank"]:
         sys.exit(ddp_rank_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--mp-rank"]:
+        sys.exit(mp_rank_main(sys.argv[2:]))
+    if sys.argv[1:2] == ["--model-parallel"]:
+        sys.exit(model_parallel_main())
     sys.exit(main())

@@ -3,8 +3,9 @@
 ``run_ranks(target, world, tmp_path, **kw)`` spawns ``world`` processes
 (``torch.multiprocessing``, spawn) that join a gloo process group over a
 ``file://`` store under ``tmp_path`` (no TCP port to collide with another
-test), bind a 1-D ``"data"`` mesh (``parallel.make_mesh(device="cpu")``)
-and call ``target(rank, world, out, **kw)``, which returns a dict of numpy
+test), bind a 1-D ``"data"`` mesh (``parallel.make_mesh(device="cpu")``),
+or the named axes of ``mesh_axes`` (``{"seq": 4}``, ``{"data": 2, "pipe":
+2}``), and call ``target(rank, world, out, **kw)``, which returns a dict of numpy
 arrays; each rank's dict comes back from ``rank{r}.npz``. The join has its
 own deadline: a rank that hangs fails the test that started it.
 
@@ -24,7 +25,8 @@ import numpy as np
 TIMEOUT_S = 60
 
 
-def _child(target, rank, world, store, out, kw, device, backend):
+def _child(target, rank, world, store, out, kw, device, backend,
+           mesh_axes=None):
     import torch
     import torch.distributed as dist
     torch.set_num_threads(1)
@@ -33,7 +35,7 @@ def _child(target, rank, world, store, out, kw, device, backend):
         launch.initialize(backend, device=device,
                           init_method=f"file://{store}", rank=rank,
                           world_size=world, timeout=TIMEOUT_S)
-        make_mesh(device=device)
+        make_mesh(mesh_axes, device=device)
         res = target(rank, world, out, **kw) or {}
         np.savez(os.path.join(out, f"rank{rank}.npz"),
                  **{k: np.asarray(v) for k, v in res.items()})
@@ -45,11 +47,13 @@ def _child(target, rank, world, store, out, kw, device, backend):
 
 
 def run_ranks(target, world: int, tmp_path, timeout: float = TIMEOUT_S,
-              device: str = "cpu", backend: str = "gloo", **kw) -> list:
+              device: str = "cpu", backend: str = "gloo", mesh_axes=None,
+              **kw) -> list:
     """Each rank's result dict, in rank order; fails the caller's test on a
     rank's error or when the ranks outlive ``timeout`` seconds. ``device``
     and ``backend`` go to ``launch.initialize`` (gloo over CUDA tensors:
-    ``device="cuda"``)."""
+    ``device="cuda"``), ``mesh_axes`` to ``make_mesh`` (None: a 1-D
+    ``"data"`` mesh)."""
     import pytest
     import torch.multiprocessing as mp
     out = Path(tmp_path) / f"ranks_{target.__name__}_{world}"
@@ -57,7 +61,8 @@ def run_ranks(target, world: int, tmp_path, timeout: float = TIMEOUT_S,
     store = out / "store"
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=_child, args=(target, r, world, str(store),
-                                              str(out), kw, device, backend))
+                                              str(out), kw, device, backend,
+                                              mesh_axes))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -589,4 +594,292 @@ def cuda_gloo_ops(rank, world, out, *, x, dy):
         res["ag"] = C.all_gather(big[:8].to(torch.bfloat16),
                                  "data").float().cpu().numpy()
         res["tally"] = np.asarray(sorted(C.collective_bytes()["ops"]))
+    return res
+
+
+# -- sequence, expert and pipeline parallelism --------------------------------
+
+def _seq_shard(a, rank: int, world: int, dim: int):
+    n = a.shape[dim] // world
+    return np.take(a, np.arange(rank * n, (rank + 1) * n), axis=dim)
+
+
+def ring_ops(rank, world, out, *, q, k, v, q2, k2, v2, q3, k3, v3, q5, k5,
+             v5, kvb, kvb_bh, kvb_shared):
+    """Ring and Ulysses attention on this rank's sequence shard of the
+    global [B, H, S, D] inputs (axis ``"seq"``): outputs, the grads of
+    each rank's sum(out²) (a replicated loss over the ranks' sum), the
+    kv_bias and dropout cases."""
+    import torch
+
+    from apex_tpu_torch.parallel.ring_attention import (ring_attention,
+                                                        ulysses_attention)
+
+    def mine(a, dim=2):
+        return torch.from_numpy(_seq_shard(a, rank, world, dim))
+
+    res = {}
+    b, h, s, d = q.shape
+    for causal in (False, True):
+        ql, kl, vl = (mine(a).reshape(b * h, s // world, d)
+                      for a in (q, k, v))
+        res[f"ring_{causal}"] = ring_attention(
+            ql, kl, vl, "seq", world, causal=causal).reshape(
+            b, h, s // world, d).numpy()
+        res[f"ulysses_{causal}"] = ulysses_attention(
+            mine(q2), mine(k2), mine(v2), "seq", world,
+            causal=causal).numpy()
+        res[f"ulysses_ref_{causal}"] = ulysses_attention(
+            mine(q2), mine(k2), mine(v2), "seq", world, causal=causal,
+            impl="default").numpy()
+    # grads of the ranks' summed sum(out^2): each rank seeds its own part
+    for name, fn in (("ring", ring_attention), ("ulysses",
+                                                ulysses_attention)):
+        ts = [mine(a).requires_grad_(True) for a in (q3, k3, v3)]
+        o = fn(*ts, "seq", world, causal=True)
+        gs = torch.autograd.grad((o ** 2).sum(), ts)
+        for g, nm in zip(gs, "qkv"):
+            res[f"{name}_g{nm}"] = g.numpy()
+    # key padding: a [B*H, S_local] bias rotating with its keys
+    ql, kl, vl = (mine(a).reshape(b * h, s // world, d) for a in (q2, k2,
+                                                                  v2))
+    res["ring_kvb"] = ring_attention(
+        ql, kl, vl, "seq", world,
+        kv_bias=mine(kvb, 1)).reshape(b, h, s // world, d).numpy()
+    for tag, bias in (("per_bh", kvb_bh), ("shared", kvb_shared)):
+        for impl in ("flash", "default"):
+            res[f"ulysses_kvb_{tag}_{impl}"] = ulysses_attention(
+                mine(q5), mine(k5), mine(v5), "seq", world, causal=True,
+                kv_bias=mine(bias, 1), impl=impl).numpy()
+    res["ring_drop"] = ring_attention(
+        mine(q3), mine(k3), mine(v3), "seq", world, causal=True,
+        dropout_rate=0.2, dropout_seed=123).numpy()
+    try:
+        ulysses_attention(mine(q3)[:, :3], mine(k3)[:, :3],
+                          mine(v3)[:, :3], "seq", world)
+        res["indivisible"] = ""
+    except ValueError as e:
+        res["indivisible"] = str(e)
+    return res
+
+
+def collective_grad_ops(rank, world, out, *, x, y, c, tensors="cpu"):
+    """ppermute (a ring and a partial permutation), all_to_all, psum,
+    pmean, pmax and pvary on this rank's rows of x: each term's value and
+    the grad of its weighted sum — a varying value weighted by this rank's
+    rows of y, a replicated one by ``c``, the same on every rank, or
+    through ``pvary`` by this rank's rows — by the axis's own rules and by
+    the gloo-on-CUDA rules forced onto the same group (bound as
+    ``"seq_rules"``); with ``tensors="cuda"`` (a gloo group over CUDA
+    tensors) by the axis's rules alone, which are those."""
+    import torch
+
+    from apex_tpu_torch.parallel import collectives as C
+    names = ("seq",)
+    device = tensors
+    if device == "cpu":
+        ax = C.axis("seq")
+        own_rules = C.collective_rules
+        C.collective_rules = lambda backend, dev: own_rules("gloo", "cuda")
+        try:
+            C.bind_axis("seq_rules", ax.group, device_type="cpu")
+        finally:
+            C.collective_rules = own_rules
+        names = ("seq", "seq_rules")
+    res = {"rules": np.asarray(sorted(C.axis(names[-1]).rules.items()))}
+    ring = [(j, (j + 1) % world) for j in range(world)]
+    w = torch.from_numpy(shard(y, rank, world)).to(device)
+    rep = torch.from_numpy(c).to(device)
+    terms = {       # name: (value, its weight)
+        "ring": lambda xs, n: (C.ppermute(xs, n, ring), w),
+        "half": lambda xs, n: (C.ppermute(xs.to(torch.bfloat16), n,
+                                          [(0, 1)]).float(), w),
+        "a2a": lambda xs, n: (C.all_to_all(xs, n, split_axis=1,
+                                           concat_axis=0), 1.0),
+        "psum": lambda xs, n: (C.psum(xs * w, n), rep),
+        "psum_vary": lambda xs, n: (C.pvary(C.psum(xs * w, n), n), w),
+        "pmean": lambda xs, n: (C.pmean(xs, n), rep),
+        "pmax": lambda xs, n: (C.pmax(xs, n), rep),
+        "pvary": lambda xs, n: (C.pvary(C.psum(xs.sum(), n), n),
+                                float(rank + 1)),
+    }
+    for name in names:
+        with C.step_scope():
+            for t, fn in terms.items():
+                xs = torch.from_numpy(shard(x, rank, world)).to(
+                    device).requires_grad_(True)
+                val, wt = fn(xs, name)
+                (g,) = torch.autograd.grad((val * wt).sum(), xs)
+                res[f"{t}_{name}"] = val.detach().cpu().numpy()
+                res[f"g_{t}_{name}"] = g.cpu().numpy()
+            tally = C.collective_bytes()
+        res[f"tally_{name}"] = np.asarray(sorted(
+            (k.split("[")[0], v["calls"]) for k, v in tally["ops"].items()),
+            dtype=object).astype(str)
+    return res
+
+
+def _lm_from(cfg, params, **kw):
+    from apex_tpu_torch.convert import params_from_jax
+    from apex_tpu_torch.models import TransformerLM
+    return (TransformerLM(**cfg, **kw, device="cpu"),
+            params_from_jax(params, device="cpu"))
+
+
+def seq_lm_ops(rank, world, out, *, cfg, params, toks, steps_toks):
+    """TransformerLM over a ``"seq"`` axis on this rank's time shard: the
+    logits, the loss and its grads summed over the axis (dense and
+    chunked head), the logits-squared objective's grads, and
+    SeqParallelTrainer's steps (plain and 2 microbatches with a dynamic
+    scale) in fp32."""
+    import torch
+
+    from apex_tpu_torch.ops import flat as F
+    from apex_tpu_torch.parallel import collectives as C
+    from apex_tpu_torch.train import SeqParallelTrainer
+    res = {}
+    mine = torch.from_numpy(_seq_shard(toks, rank, world, 1))
+    for tag, kw in (("dense", {}), ("chunk", {"head_chunk": 10})):
+        model, p = _lm_from(cfg, params, seq_axis="seq",
+                            seq_axis_size=world, **kw)
+        if tag == "dense":
+            res["logits"] = model.apply(p, mine).numpy()
+            leaves = F.tree_leaves(p)
+            for t in leaves:
+                t.requires_grad_(True)
+            obj = C.pmean(torch.mean(model.apply(p, mine) ** 2), "seq")
+            gs = torch.autograd.grad(obj, leaves)
+            for i, g in enumerate(gs):
+                res[f"sq_g{i}"] = C.psum(g, "seq").numpy()
+            for t in leaves:
+                t.requires_grad_(False)
+        leaves = F.tree_leaves(p)
+        for t in leaves:
+            t.requires_grad_(True)
+        loss = model.loss(p, mine, is_training=False)
+        gs = torch.autograd.grad(loss, leaves)
+        res[f"{tag}_loss"] = loss.detach().numpy()
+        for i, g in enumerate(gs):
+            res[f"{tag}_g{i}"] = C.psum(g, "seq").numpy()
+            if rank == 0 and tag == "dense":
+                res[f"partial_g{i}"] = g.numpy()
+    for tag, kw in (("plain", {}), ("accum", {"microbatches": 2,
+                                              "loss_scale": "dynamic"})):
+        model, p = _lm_from(cfg, params, seq_axis="seq",
+                            seq_axis_size=world)
+        tr = SeqParallelTrainer(model, p, lr=3e-3, dtype=None,
+                                device="cpu", **kw)
+        st = torch.from_numpy(_seq_shard(steps_toks, rank, world, 1))
+        res[f"{tag}_grad1"] = tr.global_grad(st)[0].numpy()
+        res[f"{tag}_losses"] = np.array([float(tr.step(st))
+                                         for _ in range(3)])
+        res[f"{tag}_tally"] = np.asarray(sorted(
+            (k, v["calls"]) for k, v in C.collective_bytes()["ops"].items()),
+            dtype=object).astype(str)
+        res[f"{tag}_master"] = tr.opt.state[0].master.numpy()
+    return res
+
+
+def moe_ep_ops(rank, world, out, *, params, x, params_lm, cfg_lm, toks):
+    """MoEMLP with ``expert_axis="expert"`` at top-1 and top-2 on the same
+    (replicated) tokens, this rank's slice of the experts: y, the dropped
+    fraction and the grads of sum(y²); and an LM with an MoE layer,
+    expert parallel: the loss and its grads."""
+    import torch
+
+    from apex_tpu_torch.contrib.moe import MoEMLP
+    from apex_tpu_torch.convert import params_from_jax
+    from apex_tpu_torch.ops import flat as F
+    res = {}
+
+    def local(tree):
+        el = tree["w1"].shape[0] // world
+        return {k: (v[rank * el:(rank + 1) * el] if k != "router" else v)
+                for k, v in tree.items()}
+
+    xs = torch.from_numpy(x)
+    for k in (1, 2):
+        moe = MoEMLP(hidden=x.shape[1], ffn=params["w1"].shape[2],
+                     num_experts=params["w1"].shape[0], top_k=k,
+                     capacity_factor=1.5, expert_axis="expert",
+                     expert_axis_size=world, device="cpu")
+        p = {n: t.requires_grad_(True) for n, t in params_from_jax(
+            local(params), device="cpu").items()}
+        xr = xs.clone().requires_grad_(True)
+        y, aux = moe.apply(p, xr)
+        res[f"y{k}"] = y.detach().numpy()
+        res[f"dropped{k}"] = aux["dropped_fraction"].numpy()
+        names = sorted(p)
+        gs = torch.autograd.grad((y ** 2).sum(), [p[n] for n in names]
+                                 + [xr])
+        for n, g in zip(names + ["x"], gs):
+            res[f"g{k}_{n}"] = g.numpy()
+    from apex_tpu_torch.models import TransformerLM
+    lm = TransformerLM(**cfg_lm, expert_axis="expert",
+                       expert_axis_size=world, device="cpu")
+    tree = dict(params_lm)
+    tree["layer_1"] = dict(tree["layer_1"], moe=local(tree["layer_1"]["moe"]))
+    p = params_from_jax(tree, device="cpu")
+    leaves = F.tree_leaves(p)
+    for t in leaves:
+        t.requires_grad_(True)
+    loss = lm.loss(p, torch.from_numpy(toks))
+    gs = torch.autograd.grad(loss, leaves)
+    res["lm_loss"] = loss.detach().numpy()
+    for i, g in enumerate(gs):
+        res[f"lm_g{i}"] = g.numpy()
+    return res
+
+
+def _block_fn(lp, h):
+    """tests/test_pipeline.py's block: LN -> tanh MLP -> residual."""
+    import torch
+    mu = h.mean(-1, keepdim=True)
+    var = ((h - mu) ** 2).mean(-1, keepdim=True)
+    hn = (h - mu) * torch.rsqrt(var + 1e-5)
+    return h + torch.tanh(hn @ lp["w1"] + lp["b1"]) @ lp["w2"]
+
+
+def pipe_ops(rank, world, out, *, layers, x, y, stages, data=1):
+    """gpipe over the ``"pipe"`` axis (``data`` > 1: a ``"data"`` axis
+    outside, the batch split over it): this rank's stage layers from the
+    stacked ``layers``, the outputs at 4 and 8 microbatches, the loss
+    mean((out - y)²) and the grads of the stage's layers and of x taken
+    on each rank (the data axis's averaged over it)."""
+    import torch
+
+    from apex_tpu_torch.parallel import collectives as C
+    from apex_tpu_torch.parallel.pipeline import gpipe, stack_layers
+    res = {}
+    p_idx = C.axis_index("pipe")
+    d_idx = C.axis_index("data") if data > 1 else 0
+    n_layers = len(layers)
+    per = n_layers // stages
+    local = stack_layers([{k: torch.from_numpy(v) for k, v in lay.items()}
+                          for lay in layers[p_idx * per:(p_idx + 1) * per]])
+    xs, ys = (torch.from_numpy(shard(a, d_idx, data)) for a in (x, y))
+    if data == 1:
+        for m in (4, 8):
+            res[f"out{m}"] = gpipe(_block_fn, local, xs, axis_name="pipe",
+                                   num_stages=stages,
+                                   num_microbatches=m).numpy()
+    local = {k: v.requires_grad_(True) for k, v in local.items()}
+    xr = xs.clone().requires_grad_(True)
+    o = gpipe(_block_fn, local, xr, axis_name="pipe", num_stages=stages,
+              num_microbatches=4)
+    loss = torch.mean((o - ys) ** 2)
+    names = sorted(local)
+    gs = torch.autograd.grad(loss, [local[n] for n in names] + [xr])
+    res["loss"] = loss.detach().numpy()
+    for n, g in zip(names, gs):
+        res[f"g_{n}"] = (C.grouped_psum(g, "data") / data).numpy() \
+            if data > 1 else g.numpy()
+    res["g_x"] = C.grouped_psum(gs[-1], "pipe").numpy()
+    for bad in (dict(num_stages=stages, num_microbatches=3),
+                dict(num_stages=stages + 1, num_microbatches=4)):
+        try:
+            gpipe(_block_fn, local, xs, axis_name="pipe", **bad)
+            res[f"bad_{bad['num_stages']}"] = ""
+        except ValueError as e:
+            res[f"bad_{bad['num_stages']}"] = str(e)
     return res

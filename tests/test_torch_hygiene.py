@@ -54,8 +54,9 @@ def test_fresh_import_pulls_in_no_jax():
 
 
 def test_the_data_parallel_modules_pull_in_no_jax():
-    """``parallel`` (every submodule), ``contrib.groupbn`` and
-    ``contrib.optimizers`` load no JAX and nothing of the JAX package."""
+    """``parallel`` (every submodule: the ring, Ulysses and GPipe too),
+    ``contrib.groupbn``, ``contrib.optimizers`` and ``contrib.moe`` load no
+    JAX and nothing of the JAX package."""
     code = ("import sys\n"
             "import apex_tpu_torch.parallel as P\n"
             "from apex_tpu_torch.parallel import (collectives, mesh, plan, "
@@ -63,6 +64,10 @@ def test_the_data_parallel_modules_pull_in_no_jax():
             "import apex_tpu_torch.contrib.groupbn, "
             "apex_tpu_torch.contrib.optimizers\n"
             "from apex_tpu_torch.train import DDPTrainer, ZeROTrainer\n"
+            "from apex_tpu_torch.parallel import (ring_attention, pipeline, "
+            "gpipe, ulysses_attention, merge_partials)\n"
+            "import apex_tpu_torch.contrib.moe\n"
+            "from apex_tpu_torch.train import SeqParallelTrainer\n"
             "[getattr(P, n) for n in P.__all__]\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'apex_tpu.')) or "
@@ -153,6 +158,7 @@ def no_cuda(monkeypatch):
 
 
 def test_entry_points_default_to_the_card_and_raise_without_it(no_cuda):
+    from apex_tpu_torch.contrib.moe import MoEMLP
     from apex_tpu_torch.convert import params_from_jax
     from apex_tpu_torch.models import TransformerLM
     from apex_tpu_torch.normalization import FusedLayerNorm
@@ -170,7 +176,10 @@ def test_entry_points_default_to_the_card_and_raise_without_it(no_cuda):
             lambda: init_slot_state(m, p, 2, 16),
             lambda: init_paged_state(m, p, 2, 16, 4, 8),
             lambda: params_from_jax({"w": np.zeros(2, np.float32)}),
-            lambda: FusedLayerNorm(8)):
+            lambda: FusedLayerNorm(8),
+            lambda: MoEMLP(hidden=8, ffn=16, num_experts=2),
+            lambda: TransformerLM(vocab_size=50, embed_dim=32, num_heads=4,
+                                  num_layers=2, moe_experts=2)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
 

@@ -212,7 +212,8 @@ def test_mesh_sizes_subgroups_and_placements():
     assert C.collective_rules("nccl", "cuda")["reduce_scatter"] == \
         "reduce_scatter"
     assert C.collective_rules("gloo", "cuda") == {
-        "reduce_scatter": "all_reduce+slice", "all_gather": "broadcast_each"}
+        "reduce_scatter": "all_reduce+slice", "all_gather": "broadcast_each",
+        "ppermute": "host_send_recv", "all_to_all": "host_all_to_all"}
 
 
 def test_convert_syncbn_and_reference_signatures():

@@ -138,7 +138,8 @@ def test_a_gloo_group_on_cuda_tensors_runs_the_stated_rules(card, tmp_path):
     total = np.arange(16, dtype=np.float32) * 3
     for r, row in enumerate(got):
         assert dict(row["rules"].tolist()) == {
-            "all_gather": "broadcast_each",
+            "all_gather": "broadcast_each", "all_to_all": "host_all_to_all",
+            "ppermute": "host_send_recv",
             "reduce_scatter": "all_reduce+slice"}
         np.testing.assert_array_equal(row["rs"], total[r * 8:(r + 1) * 8])
         np.testing.assert_array_equal(

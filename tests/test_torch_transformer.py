@@ -159,10 +159,16 @@ def test_greedy_generate_tokens_equal(models, eos):
 
 
 def test_unported_options_refuse(models):
-    with pytest.raises(NotImplementedError, match="MoE"):
-        TLM(vocab_size=V, moe_experts=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="sequence"):
+    # MoE and sequence parallelism are ported (tests/test_torch_moe.py,
+    # tests/test_torch_seq_parallel.py): moe_experts builds a model with
+    # MoE layers; seq_axis without seq_axis_size >= 2 is refused as JAX
+    # refuses it
+    moe = TLM(vocab_size=V, moe_experts=4, device="cpu")
+    assert "moe" in moe.init(0)["layer_1"]
+    with pytest.raises(ValueError, match="seq_axis requires seq_axis_size"):
         TLM(vocab_size=V, seq_axis="seq", device="cpu")
+    assert TLM(vocab_size=V, seq_axis="seq", seq_axis_size=2,
+               device="cpu").seq_axis == "seq"
     # remat is ported (tests/test_torch_remat.py); a policy without it or
     # an unknown one is refused as JAX refuses it
     assert TLM(vocab_size=V, remat=True, device="cpu").remat
